@@ -1,0 +1,93 @@
+"""fourier_tpu_torch: the PyTorch/CUDA port of fourier-tpu.
+
+Plan-then-execute FFTs on torch tensors, held against the JAX package
+``fourier_tpu`` (the reference). ``create_fft_f32`` / ``create_fft_f64``
+build plans on an explicit ``device``; plans expose ``transform_planar``,
+``transform_planar_bm``, ``transform``, ``fft`` and ``ifft``. On a CUDA device
+the default complex64 path runs the hand-written Hopper kernel B1
+(``ops/cuda/stockham_vpu.py``, ``csrc/stockham_vpu.cu``).
+
+This package imports torch and never jax.
+"""
+
+from __future__ import annotations
+
+import numpy as _np
+import torch as _torch
+
+from fourier_tpu_torch.plan import (
+    AutosortPlan,
+    BluesteinPlan,
+    FftPlan,
+    VpuFftPlan,
+    clear_plan_cache,
+    create_fft,
+    create_fft_f32,
+    create_fft_f64,
+    load_jax_plan,
+)
+from fourier_tpu_torch.transform import Transform
+
+__version__ = "0.1.0"
+
+
+def transform(x, mode: Transform, dtype=None):
+    """Plan-and-run a transform over the last axis of a complex array.
+
+    `x` is a numpy array (planned on the CPU, numpy out) or a torch tensor
+    (planned on its device, tensor out). A float64 input plans complex128.
+    """
+    xt = x if isinstance(x, _torch.Tensor) else _torch.as_tensor(_np.asarray(x))
+    if dtype is None:
+        if xt.dtype in (_torch.complex64, _torch.complex128):
+            dtype = xt.dtype
+        elif xt.dtype == _torch.float64:
+            dtype = _torch.complex128
+        else:
+            dtype = _torch.complex64
+    return create_fft(xt.shape[-1], dtype, device=xt.device).transform(x, mode)
+
+
+def _fft_1d(x, n, norm, dtype, forward: bool, axis: int = -1):
+    from fourier_tpu_torch.ndim import _crop_pad_axis, _norm_mode
+
+    as_numpy = not isinstance(x, _torch.Tensor)
+    xt = _torch.as_tensor(_np.asarray(x)) if as_numpy else x
+    xt = _torch.movedim(xt, axis, -1)
+    if n is not None:
+        xt = _crop_pad_axis(xt, int(n), xt.ndim - 1)
+    mode, fwd_scale = _norm_mode(norm, forward)
+    out = transform(xt, mode, dtype)
+    if fwd_scale:
+        out = out / xt.shape[-1]
+    out = _torch.movedim(out, -1, axis)
+    return out.numpy() if as_numpy else out
+
+
+def fft(x, n=None, norm=None, dtype=None, axis: int = -1):
+    """Forward FFT over ``axis`` (numpy.fft.fft compatibility: ``n`` crops or
+    zero-pads, ``norm`` is backward/ortho/forward)."""
+    return _fft_1d(x, n, norm, dtype, forward=True, axis=axis)
+
+
+def ifft(x, n=None, norm=None, dtype=None, axis: int = -1):
+    """Inverse FFT over ``axis`` (numpy.fft.ifft compatibility)."""
+    return _fft_1d(x, n, norm, dtype, forward=False, axis=axis)
+
+
+__all__ = [
+    "AutosortPlan",
+    "BluesteinPlan",
+    "FftPlan",
+    "Transform",
+    "VpuFftPlan",
+    "clear_plan_cache",
+    "create_fft",
+    "create_fft_f32",
+    "create_fft_f64",
+    "fft",
+    "ifft",
+    "load_jax_plan",
+    "transform",
+    "__version__",
+]

@@ -1,0 +1,27 @@
+from fourier_tpu_torch.plan.autosort import AutosortPlan
+from fourier_tpu_torch.plan.base import FftPlan
+from fourier_tpu_torch.plan.bluestein import BluesteinPlan
+from fourier_tpu_torch.plan.convert import load_jax_plan
+from fourier_tpu_torch.plan.factor import RADICES, factorize_autosort, next_power_of_two
+from fourier_tpu_torch.plan.planner import (
+    clear_plan_cache,
+    create_fft,
+    create_fft_f32,
+    create_fft_f64,
+)
+from fourier_tpu_torch.plan.vpu import VpuFftPlan
+
+__all__ = [
+    "AutosortPlan",
+    "BluesteinPlan",
+    "FftPlan",
+    "RADICES",
+    "VpuFftPlan",
+    "clear_plan_cache",
+    "create_fft",
+    "create_fft_f32",
+    "create_fft_f64",
+    "factorize_autosort",
+    "load_jax_plan",
+    "next_power_of_two",
+]

@@ -1,0 +1,227 @@
+"""Planner routing, plan interchange, autograd and import hygiene of the port.
+
+The slice as a whole: ``create_fft_f32`` through each backend against the JAX
+package's ``create_fft_f32`` on the same inputs; plans saved by the JAX
+package's ``save_plan`` and loaded with ``load_jax_plan``; the gradient of
+the autograd ``Function`` against ``jax.grad`` through the JAX VpuFftPlan.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import fourier_tpu as jft
+from fourier_tpu import Transform as JTransform
+from fourier_tpu.plan.serialize import save_plan
+from fourier_tpu.plan.vpu import VpuFftPlan as JVpuFftPlan
+
+import fourier_tpu_torch as tft
+from fourier_tpu_torch import Transform
+from fourier_tpu_torch.plan import (AutosortPlan, BluesteinPlan, VpuFftPlan,
+                                    load_jax_plan)
+
+RNG_SEED = 0x5EED
+REL_L2 = 1e-6
+REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run `pytest -m cuda` where a card is")
+    return torch.device("cuda", 0)
+
+
+def _rand(shape, rng, dtype=np.complex64):
+    return (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(dtype)
+
+
+def _rel(got, want):
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def test_cpu_routing():
+    tft.clear_plan_cache()
+    for n in (1, 4, 96, 128, 243, 4096):
+        assert isinstance(tft.create_fft_f32(n), AutosortPlan), n
+    for n in (5, 73, 100, 1013):
+        assert isinstance(tft.create_fft_f32(n), BluesteinPlan), n
+    assert isinstance(tft.create_fft_f64(64), AutosortPlan)
+    for n in (64, 320, 625, 4096, 16384):
+        plan = tft.create_fft(n, backend="vpu")
+        assert isinstance(plan, VpuFftPlan) and "family=vpu" in repr(plan)
+    assert "family=stockham" in repr(tft.create_fft_f32(96))
+
+
+def test_vpu_backend_interim_routing():
+    """Outside B1's domain: Autosort for 2^a*3^b, else Bluestein with a B1
+    inner where the domain allows (the interim route until B2/B3/mxu)."""
+    assert isinstance(tft.create_fft(48, backend="vpu"), AutosortPlan)
+    prime = tft.create_fft(1013, backend="vpu")
+    assert isinstance(prime, BluesteinPlan) and isinstance(prime.inner, VpuFftPlan)
+    assert prime.inner.size == 2048 and "family=vpu" in repr(prime)
+    small = tft.create_fft(7, backend="vpu")
+    assert isinstance(small, BluesteinPlan) and isinstance(small.inner, AutosortPlan)
+    with pytest.raises(ValueError):
+        tft.create_fft(64, torch.complex128, backend="vpu")
+
+
+@pytest.mark.parametrize("backend", ["mxu", "dd", "measure"])
+def test_unported_backends_raise(backend):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tft.create_fft(64, backend=backend)
+    with pytest.raises(ValueError):
+        tft.create_fft(64, backend="nonsense")
+
+
+@pytest.mark.parametrize("n", [64, 96, 100, 320, 1013, 1024])
+@pytest.mark.parametrize("backend", ["auto", "vpu"])
+def test_create_fft_f32_matches_reference(n, backend):
+    """The slice end to end on the CPU, against the JAX package's default
+    c64 plan (its stockham family off-TPU) on the same input."""
+    rng = np.random.default_rng(RNG_SEED + n)
+    x = _rand((3, n), rng)
+    mine = tft.create_fft_f32(n, backend=backend)
+    ref = jft.create_fft_f32(n)
+    for mode in (Transform.FFT, Transform.IFFT):
+        got = mine.transform(x, mode)
+        want = np.asarray(ref.transform(x, JTransform(int(mode))))
+        assert got.dtype == np.complex64 and got.shape == x.shape
+        assert _rel(got, want) <= REL_L2, (n, mode)
+
+
+def test_device_mismatch_raises():
+    plan = tft.create_fft_f32(64, backend="vpu")
+    meta = torch.zeros(2, 64, device="meta")
+    with pytest.raises(ValueError, match="plan on cpu"):
+        plan.transform_planar(meta, meta)
+    with pytest.raises(ValueError):
+        plan.transform(torch.zeros(2, 64, dtype=torch.complex64, device="meta"))
+
+
+@pytest.mark.cuda
+def test_cpu_plan_given_cuda_tensor_raises(cuda_device):
+    plan = tft.create_fft_f32(64, backend="vpu")
+    x = torch.zeros(2, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="plan on cpu"):
+        plan.transform_planar(x, x)
+    gpu = tft.create_fft_f32(64, device=cuda_device)
+    assert isinstance(gpu, VpuFftPlan)
+    with pytest.raises(ValueError):
+        gpu.transform_planar(torch.zeros(2, 64), torch.zeros(2, 64))
+
+
+def _jax_vpu_inner(m, dt):
+    return JVpuFftPlan.create(m, dt) or jft.AutosortPlan.create(m, dt)
+
+
+@pytest.mark.parametrize("kind", ["autosort", "bluestein", "vpu", "bluestein_vpu"])
+def test_load_jax_plan_round_trip(kind, tmp_path):
+    n = {"autosort": 96, "bluestein": 73, "vpu": 320, "bluestein_vpu": 37}[kind]
+    if kind == "autosort":
+        ref = jft.AutosortPlan.create(n, np.complex64)
+        own = AutosortPlan.create(n)
+    elif kind == "bluestein":
+        ref = jft.BluesteinPlan.create(n, np.complex64)
+        own = BluesteinPlan.create(n)
+    elif kind == "vpu":
+        ref = JVpuFftPlan.create(n)
+        own = VpuFftPlan.create(n)
+    else:
+        ref = jft.BluesteinPlan.create(n, np.complex64, inner_factory=_jax_vpu_inner)
+        own = BluesteinPlan.create(
+            n, inner_factory=lambda m, dt, dev: VpuFftPlan.create(m, dt, dev))
+    path = tmp_path / "plan.npz"
+    save_plan(ref, str(path))
+    loaded = load_jax_plan(str(path))
+    assert type(loaded) is type(own) and repr(loaded) == repr(own)
+    with np.load(path) as data:
+        assert type(load_jax_plan(data)) is type(own)
+    rng = np.random.default_rng(RNG_SEED)
+    x = _rand((2, n), rng)
+    for mode in Transform:
+        a, b = loaded.transform(x, mode), own.transform(x, mode)
+        np.testing.assert_array_equal(a, b)
+
+
+def test_load_jax_plan_unported_class_raises(tmp_path):
+    path = tmp_path / "mxu.npz"
+    save_plan(jft.create_fft(64, backend="mxu", cache=False), str(path))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        load_jax_plan(str(path))
+
+
+@pytest.mark.parametrize("mode", [Transform.FFT, Transform.IFFT])
+def test_grad_matches_jax_vpu(mode):
+    """d/dx of sum(Re(y)*a + Im(y)*b), y = plan(x): the autograd Function's
+    backward (the plan in the transposed mode) against jax.grad through the
+    JAX VpuFftPlan's linear custom VJP (Pallas kernel, interpret mode)."""
+    n = 64
+    rng = np.random.default_rng(RNG_SEED)
+    re, im, a, b = (rng.standard_normal((3, n)).astype(np.float32) for _ in range(4))
+    jplan = JVpuFftPlan.create(n)
+
+    def loss(r, i):
+        yr, yi = jplan.transform_planar(r, i, JTransform(int(mode)))
+        return jnp.sum(yr * a + yi * b)
+
+    jgr, jgi = jax.grad(loss, argnums=(0, 1))(re, im)
+    plan = VpuFftPlan.create(n)
+    tre = torch.tensor(re, requires_grad=True)
+    tim = torch.tensor(im, requires_grad=True)
+    yr, yi = plan.transform_planar(tre, tim, mode)
+    (yr * torch.as_tensor(a) + yi * torch.as_tensor(b)).sum().backward()
+    got = tre.grad.numpy() + 1j * tim.grad.numpy()
+    want = np.asarray(jgr) + 1j * np.asarray(jgi)
+    assert _rel(got, want) <= REL_L2
+
+
+def test_gradcheck_c128_both_layouts():
+    plan = tft.create_fft_f64(12)
+    rng = np.random.default_rng(RNG_SEED)
+    re = torch.tensor(rng.standard_normal((2, 12)), requires_grad=True)
+    im = torch.tensor(rng.standard_normal((2, 12)), requires_grad=True)
+    for mode in Transform:
+        assert torch.autograd.gradcheck(
+            lambda r, i: plan.transform_planar(r, i, mode), (re, im))
+        assert torch.autograd.gradcheck(
+            lambda r, i: plan.transform_planar_bm(r.T, i.T, mode), (re, im))
+
+
+def test_module_level_fft_ifft():
+    rng = np.random.default_rng(RNG_SEED)
+    x = _rand((4, 24), rng, np.complex128)
+    for norm in (None, "backward", "ortho", "forward"):
+        np.testing.assert_allclose(tft.fft(x, norm=norm), np.fft.fft(x, norm=norm),
+                                   atol=1e-10)
+        np.testing.assert_allclose(tft.ifft(x, n=30, axis=0, norm=norm),
+                                   np.fft.ifft(x, n=30, axis=0, norm=norm), atol=1e-10)
+    got = tft.fft(torch.as_tensor(x.astype(np.complex64)), n=16)
+    assert isinstance(got, torch.Tensor) and got.dtype == torch.complex64
+    np.testing.assert_allclose(got.numpy(), np.fft.fft(x, n=16), atol=1e-4)
+    with pytest.raises(ValueError):
+        tft.fft(x, norm="bogus")
+
+
+def test_import_leaves_jax_out():
+    """Importing every module of the port loads no jax (nor fourier_tpu)."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import fourier_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'fourier_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'fourier_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
