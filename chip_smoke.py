@@ -3,13 +3,17 @@
 
     python3 chip_smoke.py
 
-Builds kernel B1 from fourier_tpu_torch/csrc with nvcc, holds it against its
-plain PyTorch version and against np.fft, drives the main path (the default
-complex64 1-D transform through create_fft_f32 on device="cuda") and checks
-that it launched the kernel, then times the kernel, its plain version and
-torch.fft at n=4096, B=16384. Every phase prints one line; any failed check
-raises, so the exit code is non-zero. The next-to-last line is a JSON record
-of the kernels; the last line is {"ok": true, "device": {...}}.
+Builds kernels B1, B2 and B3 from fourier_tpu_torch/csrc with nvcc (one
+library) and holds each against its plain PyTorch version and against
+np.fft, at the listed sizes and at every shape the routes below give it. Then it drives the main path (the
+default complex64 1-D transform through create_fft_f32 on device="cuda") and
+the routes of the other sizes the JAX package plans differently (fused
+Bluestein B2, four-step with B3 rows, DFT products), checking each plan tree
+against the JAX package's and that each path launched the kernels its plan
+holds. Last it times B1, B2 and B3 against their plain versions and
+torch.fft. Every phase prints its lines; any failed check raises, so the
+exit code is non-zero. The next-to-last line is a JSON record of the
+kernels; the last line is {"ok": true, "device": {...}}.
 
 It needs a CUDA device and the repository beside it; it imports no JAX.
 """
@@ -30,10 +34,95 @@ BATCHES = (1, 7, 1000)
 REL_L2_GATE = 1e-6  # two f32 results, each within ~3e-7 of exact
 HOST_COLUMNS = 3  # columns per case checked against np.fft in f64
 MAIN_N, MAIN_B = 4096, 16384
-PRIME = 1013
+PRIME = 4099  # composed Bluestein over a B1 inner of 16384 (the vpu route)
 CHAIN = 128
 REPS = 3
 SEED = 20261016
+B2_SIZES = (73, 769, 1013, 1418, 4093)  # inner 160, 1600, 2048, 2880, 8192
+B3_SIZES = (32768, 65536, 262144)  # FourStepLocalPlan (128,256) .. (512,512)
+# The vpu route of the JAX package (fourier_tpu.create_fft(n, backend="vpu")),
+# as fourier_tpu_torch.plan.plan_tree gives it: (class, size, split or inner,
+# sub-plans).
+ROUTE_TREES = {
+    1: ("MxuFftPlan", 1, (1, 1)),
+    7: ("MxuFftPlan", 7, (1, 7)),
+    32: ("MxuFftPlan", 32, (1, 32)),
+    48: ("MxuFftPlan", 48, (1, 48)),
+    64: ("VpuFftPlan", 64),
+    100: ("MxuFftPlan", 100, (1, 100)),
+    125: ("MxuFftPlan", 125, (1, 125)),
+    200: ("VpuFftPlan", 200),
+    222: ("MxuFftPlan", 222, (1, 222)),
+    439: ("MxuFftPlan", 439, (1, 439)),
+    722: ("MxuFftPlan", 722, (1, 722)),
+    769: ("VpuBluesteinPlan", 769, 1600),
+    818: ("VpuBluesteinPlan", 818, 1728),
+    1013: ("VpuBluesteinPlan", 1013, 2048),
+    1418: ("VpuBluesteinPlan", 1418, 2880),
+    4093: ("VpuBluesteinPlan", 4093, 8192),
+    4099: ("BluesteinPlan", 4099, ("VpuFftPlan", 16384)),
+    10007: ("BluesteinPlan", 10007, ("FourStepLocalPlan", 32768, (128, 256),
+                                     ("VpuFftPlan", 256), ("VpuFftPlan", 128))),
+    20000: ("FourStepLocalPlan", 20000, (125, 160), ("VpuFftPlan", 160),
+            ("MxuFftPlan", 125, (1, 125))),
+    32768: ("FourStepLocalPlan", 32768, (128, 256), ("VpuFftPlan", 256),
+            ("VpuFftPlan", 128)),
+    65536: ("FourStepLocalPlan", 65536, (256, 256), ("VpuFftPlan", 256),
+            ("VpuFftPlan", 256)),
+    262144: ("FourStepLocalPlan", 262144, (512, 512), ("VpuFftPlan", 512),
+             ("VpuFftPlan", 512)),
+    458752: ("FourStepLocalPlan", 458752, (512, 896), ("MxuFftPlan", 896, (28, 32)),
+             ("VpuFftPlan", 512)),
+}
+# Routes driven through the entry points: (n, B) at the suite's batches.
+ROUTE_RUNS = ((1013, 65536), (1418, 32768), (65536, 1024), (262144, 256),
+              (10007, 64), (20000, 64), (458752, 16), (125, 1000), (439, 1000))
+MXU_TF32 = (125, 439)  # run with TF32 switched on by the caller
+B2_TIME = (1013, 65536)
+B3_TIME = (65536, 1024)
+CHAIN_NEW = 32  # chain of the B2/B3 timings
+PLAIN_CHAIN = 4  # shorter chain of the plain versions there
+
+
+def _kernels_of(tree, batch_minor: bool) -> set:
+    """The kernels a plan tree launches: B1 for every VpuFftPlan, B2 for a
+    VpuBluesteinPlan; a four-step whose row plan is a VpuFftPlan runs its
+    rows through B3 on batch-minor calls, and through the row plan (B1) on
+    batch-major ones, as the JAX package does."""
+    name, out = tree[0], set()
+    if name == "VpuFftPlan":
+        out.add("B1")
+    elif name == "VpuBluesteinPlan":
+        out.add("B2")
+    elif name == "BluesteinPlan":
+        out |= _kernels_of(tree[2], batch_minor)
+    elif name == "FourStepLocalPlan":
+        out |= _kernels_of(tree[3], batch_minor)
+        if tree[4][0] == "VpuFftPlan" and batch_minor:
+            out.add("B3")
+        else:
+            out |= _kernels_of(tree[4], batch_minor)
+    return out
+
+
+def _fused_sizes(tree, kernel: str) -> list:
+    """The sizes at which a batch-minor call of a plan tree runs B2 (the
+    VpuBluesteinPlans) or B3 (the four-steps with a VpuFftPlan row plan);
+    a composed Bluestein runs its inner at the caller's batch."""
+    name = tree[0]
+    if name == "BluesteinPlan":
+        return _fused_sizes(tree[2], kernel)
+    if kernel == "B2" and name == "VpuBluesteinPlan":
+        return [tree[1]]
+    if kernel == "B3" and name == "FourStepLocalPlan" and tree[4][0] == "VpuFftPlan":
+        return [tree[1]]
+    return []
+
+
+def _route_cases(kernel: str) -> list:
+    """(n, B) of every B2 or B3 call the routes of ROUTE_RUNS make."""
+    return [(m, b) for n, b in ROUTE_RUNS
+            for m in _fused_sizes(ROUTE_TREES[n], kernel)]
 
 
 def rel_l2(got, want) -> float:
@@ -54,6 +143,7 @@ def main() -> int:
     import fourier_tpu_torch as ftt
     from fourier_tpu_torch import Transform
     from fourier_tpu_torch.ops.cuda import stockham_vpu as sv
+    from fourier_tpu_torch.plan import plan_tree
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -71,10 +161,38 @@ def main() -> int:
     card = f"{smi} (torch {torch.__version__}, CUDA {torch.version.cuda})"
     print(f"device: {name} | nvidia-smi: {smi}", flush=True)
 
-    # 2. Build.
+    counters = {"B1": sv.vpu_fft_batch_minor, "B2": sv.vpu_bluestein_batch_minor,
+                "B3": sv.vpu_fft_four_step_row}
+
+    def zero_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def counts():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    def host_cols(re, im):
+        """The first HOST_COLUMNS columns of (n, B) planes, complex128 numpy."""
+        return (re[:, :HOST_COLUMNS].double().cpu().numpy()
+                + 1j * im[:, :HOST_COLUMNS].double().cpu().numpy())
+
+    def np_want(x, mode, n):
+        """np.fft of the (n, columns) host array in `mode`, in f64."""
+        want = (np.fft.fft(x, axis=0) if mode.is_forward
+                else np.fft.ifft(x, axis=0) * n)
+        return want * (mode.scale(n) or 1.0)
+
+    def vs_plain(k, p):
+        """rel-L2 and max abs error of kernel planes `k` against plain `p`."""
+        k = torch.stack(list(k)).double()
+        p = torch.stack(list(p)).double()
+        return ((torch.linalg.norm(k - p) / torch.linalg.norm(p)).item(),
+                (k - p).abs().max().item())
+
+    # 2. Build: one nvcc for the kernel library.
     t0 = time.perf_counter()
     sv.library()
-    print(f"build: B1 from fourier_tpu_torch/csrc/stockham_vpu.cu in "
+    print(f"build: fourier_tpu_torch/csrc/{sv.LIBRARY}.cu (B1, B2, B3) in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # 3. Kernel against its plain version, and against np.fft on the host.
@@ -83,36 +201,95 @@ def main() -> int:
     for n, b in cases:
         plan = ftt.VpuFftPlan.create(n, device=dev)
         re, im = planes(n, b)
-        x = (re[:, :HOST_COLUMNS].double().cpu().numpy()
-             + 1j * im[:, :HOST_COLUMNS].double().cpu().numpy())
+        x = host_cols(re, im)
         for mode in Transform:
-            kre, kim = plan.transform_planar_bm(re, im, mode)
-            pre, pim = sv.vpu_fft_batch_minor_reference(
+            k = plan.transform_planar_bm(re, im, mode)
+            p = sv.vpu_fft_batch_minor_reference(
                 re, im, n, plan.tables(mode.is_forward), mode.is_forward,
                 mode.scale(n))
             torch.cuda.synchronize()
-            k = torch.stack([kre, kim]).double()
-            p = torch.stack([pre, pim]).double()
-            err = (torch.linalg.norm(k - p) / torch.linalg.norm(p)).item()
-            max_abs = max(max_abs, (k - p).abs().max().item())
+            err, mx = vs_plain(k, p)
             check(err <= REL_L2_GATE,
                   f"B1 vs plain n={n} B={b} {mode.name}: rel-L2 {err:.3e}")
-            worst_plain = max(worst_plain, err)
-            want = (np.fft.fft(x, axis=0) if mode.is_forward
-                    else np.fft.ifft(x, axis=0) * n)
-            want = want * (mode.scale(n) or 1.0)
-            got = (kre[:, :HOST_COLUMNS].double().cpu().numpy()
-                   + 1j * kim[:, :HOST_COLUMNS].double().cpu().numpy())
-            err = rel_l2(got, want)
-            check(err <= REL_L2_GATE,
-                  f"B1 vs np.fft n={n} B={b} {mode.name}: rel-L2 {err:.3e}")
-            worst_host = max(worst_host, err)
-    print(f"kernel vs plain: {len(cases)} (n, B) cases x 5 modes pass; worst "
+            herr = rel_l2(host_cols(*k), np_want(x, mode, n))
+            check(herr <= REL_L2_GATE,
+                  f"B1 vs np.fft n={n} B={b} {mode.name}: rel-L2 {herr:.3e}")
+            worst_plain, worst_host = max(worst_plain, err), max(worst_host, herr)
+            max_abs = max(max_abs, mx)
+    print(f"B1 kernel vs plain: {len(cases)} (n, B) cases x 5 modes pass; worst "
           f"rel-L2 {worst_plain:.3e} vs plain, {worst_host:.3e} vs np.fft "
           f"(gate {REL_L2_GATE:g}); max abs err {max_abs:.3e}", flush=True)
+    max_abs_err = {"B1": max_abs}
+
+    # 3b. B2 against its plain version and np.fft, at the listed sizes and at
+    # the routes' shapes.
+    worst_plain = worst_host = max_abs = 0.0
+    b2_cases = [(n, b) for n in B2_SIZES for b in BATCHES] + _route_cases("B2")
+    for n, b in b2_cases:
+        plan = ftt.VpuBluesteinPlan.create(n, device=dev)
+        st = plan.stages
+        re, im = planes(n, b)
+        x = host_cols(re, im)
+        for mode in Transform:
+            k = plan.transform_planar_bm(re, im, mode)
+            p = sv.vpu_bluestein_batch_minor_reference(
+                re, im, n, st.size, (st.tables(True), st.tables(False)),
+                plan.chirps(mode.is_forward), mode.scale(n))
+            torch.cuda.synchronize()
+            err, mx = vs_plain(k, p)
+            check(err <= REL_L2_GATE,
+                  f"B2 vs plain n={n} B={b} {mode.name}: rel-L2 {err:.3e}")
+            herr = rel_l2(host_cols(*k), np_want(x, mode, n))
+            check(herr <= REL_L2_GATE,
+                  f"B2 vs np.fft n={n} B={b} {mode.name}: rel-L2 {herr:.3e}")
+            worst_plain, worst_host = max(worst_plain, err), max(worst_host, herr)
+            max_abs = max(max_abs, mx)
+    print(f"B2 kernel vs plain: {len(b2_cases)} (n, B) cases x 5 modes pass "
+          f"(n in {B2_SIZES} x B in {BATCHES}, routes {_route_cases('B2')}); "
+          f"worst rel-L2 {worst_plain:.3e} vs plain, {worst_host:.3e} vs np.fft "
+          f"(gate {REL_L2_GATE:g}); max abs err {max_abs:.3e}", flush=True)
+    max_abs_err["B2"] = max_abs
+
+    # 3c. B3 against its plain version on the same (q, p, B) input, and the
+    # whole four-step plan (B1 columns, B3 rows) against np.fft, at the listed
+    # sizes and at the routes' shapes.
+    worst_plain = worst_host = max_abs = 0.0
+    b3_cases = [(n, b) for n in B3_SIZES for b in BATCHES] + _route_cases("B3")
+    for n, b in b3_cases:
+        plan = ftt.create_fft_f32(n, device="cuda")
+        check(isinstance(plan, ftt.FourStepLocalPlan)
+              and isinstance(plan.row_plan, ftt.VpuFftPlan), f"n={n}: {plan!r}")
+        p_, q_, rp = plan.p, plan.q, plan.row_plan
+        re3, im3 = (t.view(q_, p_, b) for t in planes(n, b))
+        for mode in Transform:
+            fwd = mode.is_forward
+            tw = plan.tw_fwd if fwd else plan.tw_inv
+            kw = dict(tables=rp.tables(fwd), pre_tw=(tw[0], tw[1]))
+            k = sv.vpu_fft_four_step_row(
+                re3, im3, p_, q_, fwd, mode.scale(n),
+                kernel_tables=rp.kernel_fwd if fwd else rp.kernel_inv, **kw)
+            p = sv.vpu_fft_four_step_row_reference(
+                re3, im3, p_, q_, kw["tables"], kw["pre_tw"], fwd, mode.scale(n))
+            torch.cuda.synchronize()
+            err, mx = vs_plain(k, p)
+            check(err <= REL_L2_GATE,
+                  f"B3 vs plain n={n} B={b} {mode.name}: rel-L2 {err:.3e}")
+            re, im = re3.view(n, b), im3.view(n, b)
+            herr = rel_l2(host_cols(*plan.transform_planar_bm(re, im, mode)),
+                          np_want(host_cols(re, im), mode, n))
+            check(herr <= REL_L2_GATE,
+                  f"four-step vs np.fft n={n} B={b} {mode.name}: rel-L2 {herr:.3e}")
+            worst_plain, worst_host = max(worst_plain, err), max(worst_host, herr)
+            max_abs = max(max_abs, mx)
+            del k, p
+    print(f"B3 kernel vs plain: {len(b3_cases)} (n, B) cases x 5 modes pass "
+          f"(n in {B3_SIZES} x B in {BATCHES}, routes {_route_cases('B3')}); "
+          f"worst rel-L2 {worst_plain:.3e} vs plain, whole plan {worst_host:.3e} "
+          f"vs np.fft (gate {REL_L2_GATE:g}); max abs err {max_abs:.3e}", flush=True)
+    max_abs_err["B3"] = max_abs
 
     # 4. Main path through the entry points, with the launch count.
-    sv.vpu_fft_batch_minor.launches = 0
+    zero_counts()
     plan = ftt.create_fft_f32(MAIN_N, device="cuda")
     check(isinstance(plan, ftt.VpuFftPlan), f"create_fft_f32 gave {plan!r}")
     seen = 0
@@ -148,7 +325,7 @@ def main() -> int:
     prime = ftt.create_fft_f32(PRIME, device="cuda")
     check(isinstance(prime, ftt.BluesteinPlan)
           and isinstance(prime.inner, ftt.VpuFftPlan)
-          and prime.inner.size == 2048, f"n={PRIME} planned as {prime!r}")
+          and prime.inner.size == 16384, f"n={PRIME} planned as {prime!r}")
     xp = torch.complex(*planes(64, PRIME))
     yp = prime.fft(xp)
     rose(f"Bluestein n={PRIME}")
@@ -157,10 +334,78 @@ def main() -> int:
     check(pe <= REL_L2_GATE, f"n={PRIME} vs np.fft rel-L2 {pe:.3e}")
     launches = sv.vpu_fft_batch_minor.launches
     check(launches > 0, "the main path launched B1 no time")
+    path_launches = counts()
     print(f"main path: {plan!r}; bm, batch-major, fft, ifft and Bluestein "
           f"n={PRIME} each launched B1 ({launches} launches); roundtrip rel-L2 "
           f"{rt:.3e}, fft vs np.fft {fe:.3e}, n={PRIME} vs np.fft {pe:.3e}",
           flush=True)
+
+    # 4b. The routes of the other sizes: plan trees, then each run through
+    # the entry points with the counts of the kernels its plan holds rising.
+    for n, want in ROUTE_TREES.items():
+        got = plan_tree(ftt.create_fft_f32(n, device="cuda"))
+        check(got == want, f"n={n} planned {got}, the JAX package plans {want}")
+    print(f"route: the plan trees of {len(ROUTE_TREES)} sizes equal the JAX "
+          f"package's vpu route", flush=True)
+    caller_precision = torch.get_float32_matmul_precision()
+    zero_counts()
+
+    def route_run(n, b):
+        """Drive the plan of size n at batch b through every entry point."""
+        plan = ftt.create_fft_f32(n, device="cuda")
+        held_bm = _kernels_of(plan_tree(plan), batch_minor=True)
+        held = _kernels_of(plan_tree(plan), batch_minor=False)
+        tf32 = n in MXU_TF32
+        if tf32:
+            torch.backends.cuda.matmul.allow_tf32 = True
+        seen = counts()
+
+        def ran(what, want):
+            nonlocal seen
+            now = counts()
+            for k in counters:
+                rose = now[k] > seen[k]
+                check(rose == (k in want),
+                      f"n={n} {what}: {k} {'rose' if rose else 'did not rise'}; "
+                      f"the plan runs {sorted(want)} there")
+            seen = now
+
+        re, im = planes(n, b)
+        bre, bim = plan.transform_planar_bm(re, im)
+        ran("transform_planar_bm", held_bm)
+        mre, mim = plan.transform_planar(re.T.contiguous(), im.T.contiguous())
+        ran("transform_planar", held)
+        xc = torch.complex(re.T.contiguous(), im.T.contiguous())
+        y = plan.fft(xc)
+        ran("fft", held)
+        back = plan.ifft(y)
+        ran("ifft", held)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(torch.view_as_real(y)).all()), f"n={n}: not finite")
+        check(y.dtype == torch.complex64 and tuple(y.shape) == (b, n),
+              f"n={n}: fft output {y.dtype} {tuple(y.shape)}")
+        want = np_want(host_cols(re, im), Transform.FFT, n)
+        errs = (rel_l2(host_cols(bre, bim), want), rel_l2(host_cols(mre.T, mim.T), want),
+                rel_l2(y[:HOST_COLUMNS].cpu().numpy().T, want),
+                (torch.linalg.norm(back - xc) / torch.linalg.norm(xc)).item())
+        check(max(errs) <= REL_L2_GATE,
+              f"n={n} B={b}: rel-L2 bm/batch-major/fft vs np.fft and roundtrip {errs}")
+        if tf32:
+            check(torch.backends.cuda.matmul.allow_tf32,
+                  "the plan did not restore the caller's TF32 setting")
+            torch.set_float32_matmul_precision(caller_precision)
+        print(f"route: n={n} B={b} {plan_tree(plan)} launched "
+              f"{sorted(held_bm) or 'no kernel'} batch-minor, "
+              f"{sorted(held) or 'no kernel'} batch-major"
+              f"{' (caller TF32 on)' if tf32 else ''}; worst rel-L2 "
+              f"{max(errs):.3e}", flush=True)
+
+    for n, b in ROUTE_RUNS:
+        route_run(n, b)
+    for k, v in counts().items():
+        path_launches[k] += v
+    for k in ("B2", "B3"):
+        check(path_launches[k] > 0, f"the routes launched {k} no time")
 
     # 5. Timing: CHAIN dependent SQRT_SCALED_FFT calls, median of REPS.
     mode = Transform.SQRT_SCALED_FFT
@@ -177,12 +422,8 @@ def main() -> int:
     def entry(a, b):
         return plan.transform_planar_bm(a, b, mode)
 
-    def chained(step, a, b):
-        for _ in range(CHAIN):
-            a, b = step(a, b)
-        return a, b
-
-    def median_ms(step, a, b):
+    def median_ms(step, a, b, chain=CHAIN):
+        """Median over REPS of `chain` dependent calls, ms per call."""
         step(a, b)
         torch.cuda.synchronize()
         times = []
@@ -190,10 +431,12 @@ def main() -> int:
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             start.record()
-            chained(step, a, b)
+            x, y = a, b
+            for _ in range(chain):
+                x, y = step(x, y)
             stop.record()
             torch.cuda.synchronize()
-            times.append(start.elapsed_time(stop) / CHAIN)
+            times.append(start.elapsed_time(stop) / chain)
         return float(np.median(times))
 
     flops = 5.0 * MAIN_N * math.log2(MAIN_N) * MAIN_B
@@ -212,17 +455,92 @@ def main() -> int:
     ratio = timed["torch.fft.fft"] / timed["plan.transform_planar_bm"]
     print(f"time: port / torch.fft throughput ratio {ratio:.4f} on {card}",
           flush=True)
+    kernel_ms = {"B1": (timed["B1 kernel"], timed["plain PyTorch B1"])}
 
+    # 5b. B2 at n=1013, B=65536: kernel, plain version, torch.fft.
+    n, b = B2_TIME
+    plan = ftt.create_fft_f32(n, device="cuda")
+    st, scale = plan.stages, mode.scale(n)
+    chirps = plan.chirps(True)
+    kw = dict(tables=(st.tables(True), st.tables(False)), chirps=chirps)
+    re, im = planes(n, b)
+    xc = torch.complex(re.T.contiguous(), im.T.contiguous())
+    flops = 5.0 * n * math.log2(n) * b
+    t2 = {
+        f"B2 kernel (chain {CHAIN_NEW})": median_ms(
+            lambda a, c: sv.vpu_bluestein_batch_minor(
+                a, c, n, st.size, scale,
+                kernel_tables=(st.kernel_fwd, st.kernel_inv), **kw),
+            re, im, CHAIN_NEW),
+        f"plain PyTorch B2 (chain {PLAIN_CHAIN})": median_ms(
+            lambda a, c: sv.vpu_bluestein_batch_minor_reference(
+                a, c, n, st.size, kw["tables"], chirps, scale),
+            re, im, PLAIN_CHAIN),
+        f"torch.fft.fft (chain {CHAIN_NEW})": median_ms(
+            lambda a, _c: (torch.fft.fft(a, norm="ortho"), None), xc, None,
+            CHAIN_NEW),
+    }
+    for what, ms in t2.items():
+        print(f"time: {what}: {ms:.4f} ms per call, {flops / ms / 1e6:.2f} "
+              f"GFLOP/s (n={n}, B={b}, SQRT_SCALED_FFT, 5 n log2 n, median of "
+              f"{REPS}) on {card}", flush=True)
+    kernel_ms["B2"] = tuple(t2.values())[:2]
+    del re, im, xc
+
+    # 5c. B3 at n=65536, B=1024: kernel alone (its (q, p, B) input), the
+    # whole FourStepLocalPlan, torch.fft.
+    n, b = B3_TIME
+    plan = ftt.create_fft_f32(n, device="cuda")
+    p_, q_, rp = plan.p, plan.q, plan.row_plan
+    s3 = p_ ** -0.5  # a unitary row leg keeps the chained values bounded
+    kw = dict(tables=rp.tables(True), pre_tw=(plan.tw_fwd[0], plan.tw_fwd[1]))
+    re, im = planes(n, b)
+    xc = torch.complex(re.T.contiguous(), im.T.contiguous())
+
+    def b3(a, c):
+        out = sv.vpu_fft_four_step_row(a.view(q_, p_, b), c.view(q_, p_, b), p_,
+                                       q_, True, s3, kernel_tables=rp.kernel_fwd,
+                                       **kw)
+        return out
+
+    def b3_plain(a, c):
+        return sv.vpu_fft_four_step_row_reference(
+            a.view(q_, p_, b), c.view(q_, p_, b), p_, q_, kw["tables"],
+            kw["pre_tw"], True, s3)
+
+    flops = 5.0 * n * math.log2(n) * b
+    t3 = {
+        f"B3 kernel (chain {CHAIN_NEW})": median_ms(b3, re, im, CHAIN_NEW),
+        f"plain PyTorch B3 (chain {PLAIN_CHAIN})": median_ms(b3_plain, re, im,
+                                                           PLAIN_CHAIN),
+        f"plan.transform_planar_bm (chain {CHAIN_NEW})": median_ms(
+            lambda a, c: plan.transform_planar_bm(a, c, mode), re, im, CHAIN_NEW),
+        f"torch.fft.fft (chain {CHAIN_NEW})": median_ms(
+            lambda a, _c: (torch.fft.fft(a, norm="ortho"), None), xc, None,
+            CHAIN_NEW),
+    }
+    for what, ms in t3.items():
+        rate = (f"{16.0 * n * b / ms / 1e6:.2f} GB/s of 16 n B bytes" if "B3" in what
+                else f"{flops / ms / 1e6:.2f} GFLOP/s (5 n log2 n)")
+        print(f"time: {what}: {ms:.4f} ms per call, {rate} (n={n}, B={b}, "
+              f"median of {REPS}) on {card}", flush=True)
+    kernel_ms["B3"] = tuple(t3.values())[:2]
+
+    kernels = (
+        ("B1", "B1 fused Stockham c64 (vpu_fft_batch_minor)", 422),
+        ("B2", "B2 fused Bluestein c64 (vpu_bluestein_batch_minor)", 881),
+        ("B3", "B3 four-step row leg c64 (vpu_fft_four_step_row)", 778),
+    )
     print(json.dumps({"kernels": [{
-        "name": "B1 fused Stockham c64 (stockham_vpu)",
+        "name": name,
         "route": "cuda",
-        "source": "fourier_tpu_torch/csrc/stockham_vpu.cu",
-        "replaces": "fourier_tpu/ops/pallas/stockham_vpu.py:422",
-        "launches": launches,
-        "max_abs_err": max_abs,
-        "ms": timed["B1 kernel"],
-        "plain_ms": timed["plain PyTorch B1"],
-    }]}), flush=True)
+        "source": f"fourier_tpu_torch/csrc/{sv.LIBRARY}.cu",
+        "replaces": f"fourier_tpu/ops/pallas/stockham_vpu.py:{line}",
+        "launches": path_launches[k],
+        "max_abs_err": max_abs_err[k],
+        "ms": kernel_ms[k][0],
+        "plain_ms": kernel_ms[k][1],
+    } for k, name, line in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
         flush=True)

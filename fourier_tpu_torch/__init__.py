@@ -4,8 +4,10 @@ Plan-then-execute FFTs on torch tensors, held against the JAX package
 ``fourier_tpu`` (the reference). ``create_fft_f32`` / ``create_fft_f64``
 build plans on an explicit ``device``; plans expose ``transform_planar``,
 ``transform_planar_bm``, ``transform``, ``fft`` and ``ifft``. On a CUDA device
-the default complex64 path runs the hand-written Hopper kernel B1
-(``ops/cuda/stockham_vpu.py``, ``csrc/stockham_vpu.cu``).
+the default complex64 path runs the hand-written Hopper kernels of
+``csrc/`` through ``ops/cuda/stockham_vpu.py``: B1 (fused Stockham), B2
+(fused Bluestein) and B3 (four-step row leg); the other complex64 sizes run
+DFT products (``ops/bailey.py``) in full float32.
 
 This package imports torch and never jax.
 """
@@ -19,6 +21,9 @@ from fourier_tpu_torch.plan import (
     AutosortPlan,
     BluesteinPlan,
     FftPlan,
+    FourStepLocalPlan,
+    MxuFftPlan,
+    VpuBluesteinPlan,
     VpuFftPlan,
     clear_plan_cache,
     create_fft,
@@ -79,7 +84,10 @@ __all__ = [
     "AutosortPlan",
     "BluesteinPlan",
     "FftPlan",
+    "FourStepLocalPlan",
+    "MxuFftPlan",
     "Transform",
+    "VpuBluesteinPlan",
     "VpuFftPlan",
     "clear_plan_cache",
     "create_fft",

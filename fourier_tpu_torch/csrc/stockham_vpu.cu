@@ -1,5 +1,12 @@
-// Kernel B1: the fused all-stages mixed-radix Stockham FFT, complex64 planar,
-// batch-minor (n, B), for NVIDIA Hopper (sm_90a).
+// Kernels B1, B2 and B3: the fused Stockham FFTs over complex64 planar,
+// batch-minor planes, for NVIDIA Hopper (sm_90a), in one library. The
+// butterflies, the in-place stage, the stage loop and the host-side checks
+// of all three live in stockham_stages.cuh. Each host function checks its
+// arguments, launches on the caller's stream, neither allocates nor
+// synchronises, and returns cudaGetLastError().
+//
+// Kernel B1: the fused all-stages mixed-radix Stockham FFT, batch-minor
+// (n, B).
 //
 // Replaces fourier_tpu/ops/pallas/stockham_vpu.py:_kernel, launched by
 // vpu_fft_batch_minor. It computes the DFT of every column of a contiguous
@@ -44,182 +51,10 @@
 //   narrowed at compile time. No trigonometry runs on the device.
 // - Scale. The mode scale is applied once, on the store (1.0 for unscaled
 //   modes, which is exact).
-// - The host function checks its arguments, launches on the caller's stream,
-//   neither allocates nor synchronises, and returns cudaGetLastError().
 
-#include <cuda_runtime.h>
+#include "stockham_stages.cuh"
 
 namespace {
-
-constexpr int kMaxStages = 16;
-constexpr int kPointsPerThread = 16;
-constexpr int kMaxThreads = 1024;
-
-struct Schedule {
-  int nstages;
-  int radix[kMaxStages];
-  int tw_off[kMaxStages];  // start of the stage's (m, r) table, in points
-};
-
-constexpr float kC8 = static_cast<float>(0.70710678118654752440);    // cos(pi/4)
-constexpr float kS3 = static_cast<float>(0.86602540378443864676);    // sin(pi/3)
-constexpr float kC51 = static_cast<float>(0.30901699437494742410);   // cos(2pi/5)
-constexpr float kC52 = static_cast<float>(-0.80901699437494742410);  // cos(4pi/5)
-constexpr float kS51 = static_cast<float>(0.95105651629515357212);   // sin(2pi/5)
-constexpr float kS52 = static_cast<float>(0.58778525229247312917);   // sin(4pi/5)
-
-// In-place radix-4: two radix-2 layers and a -i (forward) or +i rotation.
-template <bool F>
-__device__ __forceinline__ void b4(float& r0, float& i0, float& r1, float& i1,
-                                   float& r2, float& i2, float& r3, float& i3) {
-  const float a0r = r0 + r2, a0i = i0 + i2;
-  const float a1r = r0 - r2, a1i = i0 - i2;
-  const float a2r = r1 + r3, a2i = i1 + i3;
-  const float dr = r1 - r3, di = i1 - i3;
-  r0 = a0r + a2r;
-  i0 = a0i + a2i;
-  r2 = a0r - a2r;
-  i2 = a0i - a2i;
-  if (F) {  // y1 = a1 - i*d, y3 = a1 + i*d
-    r1 = a1r + di;
-    i1 = a1i - dr;
-    r3 = a1r - di;
-    i3 = a1i + dr;
-  } else {
-    r1 = a1r - di;
-    i1 = a1i + dr;
-    r3 = a1r + di;
-    i3 = a1i - dr;
-  }
-}
-
-// In-place R-point DFT of (r[k], i[k]), natural order in and out; the
-// forward direction uses W = exp(-2*pi*i/R).
-template <int R, bool F>
-__device__ __forceinline__ void butterfly(float (&r)[R], float (&i)[R]) {
-  if constexpr (R == 2) {
-    const float ar = r[0], ai = i[0];
-    r[0] = ar + r[1];
-    i[0] = ai + i[1];
-    r[1] = ar - r[1];
-    i[1] = ai - i[1];
-  } else if constexpr (R == 3) {
-    const float s = F ? -kS3 : kS3;
-    const float ar = r[1] + r[2], ai = i[1] + i[2];
-    const float br = r[1] - r[2], bi = i[1] - i[2];
-    const float ur = r[0] - 0.5f * ar, ui = i[0] - 0.5f * ai;
-    const float vr = -s * bi, vi = s * br;  // i*s*b
-    r[0] += ar;
-    i[0] += ai;
-    r[1] = ur + vr;
-    i[1] = ui + vi;
-    r[2] = ur - vr;
-    i[2] = ui - vi;
-  } else if constexpr (R == 4) {
-    b4<F>(r[0], i[0], r[1], i[1], r[2], i[2], r[3], i[3]);
-  } else if constexpr (R == 5) {
-    const float sg = F ? -1.0f : 1.0f;
-    const float t1r = r[1] + r[4], t1i = i[1] + i[4];
-    const float t2r = r[2] + r[3], t2i = i[2] + i[3];
-    const float t3r = r[1] - r[4], t3i = i[1] - i[4];
-    const float t4r = r[2] - r[3], t4i = i[2] - i[3];
-    const float ar = r[0] + kC51 * t1r + kC52 * t2r;
-    const float ai = i[0] + kC51 * t1i + kC52 * t2i;
-    const float br = r[0] + kC52 * t1r + kC51 * t2r;
-    const float bi = i[0] + kC52 * t1i + kC51 * t2i;
-    const float ur = kS51 * t3r + kS52 * t4r, ui = kS51 * t3i + kS52 * t4i;
-    const float vr = kS52 * t3r - kS51 * t4r, vi = kS52 * t3i - kS51 * t4i;
-    r[0] += t1r + t2r;
-    i[0] += t1i + t2i;
-    r[1] = ar - sg * ui;
-    i[1] = ai + sg * ur;
-    r[2] = br - sg * vi;
-    i[2] = bi + sg * vr;
-    r[3] = br + sg * vi;
-    i[3] = bi - sg * vr;
-    r[4] = ar + sg * ui;
-    i[4] = ai - sg * ur;
-  } else if constexpr (R == 8) {
-    // Two radix-4 over the even and odd points, then a radix-2 combine
-    // with W_8^k.
-    b4<F>(r[0], i[0], r[2], i[2], r[4], i[4], r[6], i[6]);
-    b4<F>(r[1], i[1], r[3], i[3], r[5], i[5], r[7], i[7]);
-    const float wi = F ? -kC8 : kC8;  // W_8^1 = kC8 + i*wi
-    const float e[4][2] = {{r[0], i[0]}, {r[2], i[2]}, {r[4], i[4]}, {r[6], i[6]}};
-    float o[4][2];
-    o[0][0] = r[1];
-    o[0][1] = i[1];
-    o[1][0] = r[3] * kC8 - i[3] * wi;  // W_8^1
-    o[1][1] = r[3] * wi + i[3] * kC8;
-    o[2][0] = F ? i[5] : -i[5];  // W_8^2 = -i (forward)
-    o[2][1] = F ? -r[5] : r[5];
-    o[3][0] = -r[7] * kC8 - i[7] * wi;  // W_8^3 = -kC8 + i*wi
-    o[3][1] = r[7] * wi - i[7] * kC8;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      r[k] = e[k][0] + o[k][0];
-      i[k] = e[k][1] + o[k][1];
-      r[k + 4] = e[k][0] - o[k][0];
-      i[k + 4] = e[k][1] - o[k][1];
-    }
-  }
-}
-
-// One radix-R Stockham stage over the block's (n, cols) planes in shared
-// memory, in place. The input viewed as (R, m, stride) at (k, i, j) is
-// butterflied along k, output k is multiplied by W_size^(i*k) unless m == 1,
-// and written to the output viewed as (m, R, stride) at (i, k, j).
-template <int R, bool F>
-__device__ __noinline__ void stage(float* sre, float* sim, int n, int cols,
-                                   int size, int stride,
-                                   const float* __restrict__ twre,
-                                   const float* __restrict__ twim) {
-  constexpr int NB = (kPointsPerThread + R - 1) / R;  // butterflies per thread
-  const int m = size / R;
-  const int blk = m * stride;  // == n / R
-  const int nbfly = blk * cols;
-  float xr[NB][R], xi[NB][R];
-#pragma unroll
-  for (int q = 0; q < NB; ++q) {
-    const int id = threadIdx.x + q * blockDim.x;
-    if (id < nbfly) {
-      const int p = id / cols, col = id - p * cols;
-#pragma unroll
-      for (int k = 0; k < R; ++k) {
-        const int e = (k * blk + p) * cols + col;
-        xr[q][k] = sre[e];
-        xi[q][k] = sim[e];
-      }
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int q = 0; q < NB; ++q) {
-    const int id = threadIdx.x + q * blockDim.x;
-    if (id < nbfly) {
-      const int p = id / cols, col = id - p * cols;
-      const int i = p / stride, j = p - i * stride;
-      butterfly<R, F>(xr[q], xi[q]);
-      if (m > 1) {
-#pragma unroll
-        for (int k = 1; k < R; ++k) {
-          const float wr = __ldg(twre + i * R + k);
-          const float wi = __ldg(twim + i * R + k);
-          const float a = xr[q][k], b = xi[q][k];
-          xr[q][k] = a * wr - b * wi;
-          xi[q][k] = a * wi + b * wr;
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < R; ++k) {
-        const int e = ((i * R + k) * stride + j) * cols + col;
-        sre[e] = xr[q][k];
-        sim[e] = xi[q][k];
-      }
-    }
-  }
-  __syncthreads();
-}
 
 template <bool F, int MaxThreads>
 __global__ void __launch_bounds__(MaxThreads)
@@ -244,27 +79,189 @@ stockham_c64(const float* __restrict__ xre, const float* __restrict__ xim,
     sim[e] = vi;
   }
   __syncthreads();
-  int size = n, stride = 1;
-  for (int s = 0; s < sch.nstages; ++s) {
-    const int r = sch.radix[s];
-    const float* tr = twre + sch.tw_off[s];
-    const float* ti = twim + sch.tw_off[s];
-    switch (r) {
-      case 2: stage<2, F>(sre, sim, n, cols, size, stride, tr, ti); break;
-      case 3: stage<3, F>(sre, sim, n, cols, size, stride, tr, ti); break;
-      case 4: stage<4, F>(sre, sim, n, cols, size, stride, tr, ti); break;
-      case 5: stage<5, F>(sre, sim, n, cols, size, stride, tr, ti); break;
-      case 8: stage<8, F>(sre, sim, n, cols, size, stride, tr, ti); break;
-    }
-    size /= r;
-    stride *= r;
-  }
+  run_stages<F>(sre, sim, n, cols, sch, twre, twim);
   for (int e = threadIdx.x; e < total; e += blockDim.x) {
     const int row = e / cols, col = e - row * cols, b = b0 + col;
     if (b < batch) {
       const size_t g = static_cast<size_t>(row) * batch + b;
       yre[g] = sre[e] * scale;
       yim[g] = sim[e] * scale;
+    }
+  }
+}
+
+}  // namespace
+
+// Kernel B2: the fused Bluestein (chirp-z) FFT, batch-minor (n, B).
+//
+// Replaces fourier_tpu/ops/pallas/stockham_vpu.py:_bluestein_kernel (:881,
+// body _bluestein_value :918), launched by vpu_bluestein_batch_minor (:946).
+// For every column of a contiguous planar f32 (n, B) input it computes, into
+// fresh outputs:
+//   1. x * xt (the direction-matched chirp, n entries);
+//   2. zero rows n..M-1, written into shared memory, never read from memory;
+//   3. the forward M-point Stockham stages;
+//   4. times wt (the plan-time FFT of the padded chirp, M entries);
+//   5. the inverse M-point stages, unscaled;
+//   6. the first n rows times xo * scale (xo carries 1/M from plan time; the
+//      mode scale arrives as a float, as in B1), stored.
+// M is 5-smooth with 8 | M and M <= 8192 (VpuBluesteinPlan.choose_inner).
+//
+// What bounds it on this card: it reads and writes only n rows per column,
+// 16*n*B bytes, but runs two M >= 2n-1 point transforms on chip, about
+// 10*M*log2(M) flops per column: at n = 1013 (M = 2048) some 13 flops per
+// byte, several times B1's, yet still below the H100's f32 ridge point. The
+// stages' shared-memory traffic and their two barriers per stage (twice as
+// many stages as B1 at the same M) are the likely limit; the narrow
+// batch-minor row runs of B1 apply as well.
+//
+// Design:
+// - A block owns `cols` adjacent columns, as B1 would at size M
+//   (launch_geometry(M) of ops/cuda/stockham_vpu.py: 8 at M = 2048, 5 at
+//   2880, 2 at 8192). Its (M, cols) planes live in dynamic shared memory,
+//   8*M*cols bytes, at most 128 KiB (64 KiB per column at M = 8192); the
+//   attribute is raised above 48 KiB. The ragged last column group is masked, not padded: the
+//   batch is never padded.
+// - The stages run in place, as in B1: first the forward schedule with its
+//   tables, then the inverse one with its own, both kernel_schedule(M) of
+//   the wrapper.
+// - The chirp, w and output tables are read from global memory (__ldg) at
+//   the row each thread owns; they are f64 plan-time values narrowed to f32.
+
+namespace {
+
+template <int MaxThreads>
+__global__ void __launch_bounds__(MaxThreads)
+bluestein_c64(const float* __restrict__ xre, const float* __restrict__ xim,
+              float* __restrict__ yre, float* __restrict__ yim, int n, int m,
+              int batch, int cols, Schedule sch,
+              const float* __restrict__ fwre, const float* __restrict__ fwim,
+              const float* __restrict__ ivre, const float* __restrict__ ivim,
+              const float* __restrict__ xtre, const float* __restrict__ xtim,
+              const float* __restrict__ wtre, const float* __restrict__ wtim,
+              const float* __restrict__ xore, const float* __restrict__ xoim,
+              float scale) {
+  extern __shared__ float smem[];
+  float* sre = smem;
+  float* sim = smem + m * cols;
+  const int b0 = blockIdx.x * cols;
+  const int total = m * cols;
+  // 1-2. chirp multiply into the first n rows, zeros below.
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    const int row = e / cols, col = e - row * cols, b = b0 + col;
+    float vr = 0.0f, vi = 0.0f;
+    if (row < n && b < batch) {
+      const size_t g = static_cast<size_t>(row) * batch + b;
+      const float a = xre[g], c = xim[g];
+      const float cr = __ldg(xtre + row), ci = __ldg(xtim + row);
+      vr = a * cr - c * ci;
+      vi = a * ci + c * cr;
+    }
+    sre[e] = vr;
+    sim[e] = vi;
+  }
+  __syncthreads();
+  // 3. forward inner transform.
+  run_stages<true>(sre, sim, m, cols, sch, fwre, fwim);
+  // 4. w multiply.
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    const int row = e / cols;
+    const float wr = __ldg(wtre + row), wi = __ldg(wtim + row);
+    const float a = sre[e], c = sim[e];
+    sre[e] = a * wr - c * wi;
+    sim[e] = a * wi + c * wr;
+  }
+  __syncthreads();
+  // 5. inverse inner transform (unscaled).
+  run_stages<false>(sre, sim, m, cols, sch, ivre, ivim);
+  // 6. output chirp (1/M folded in) times the mode scale, first n rows.
+  const int out = n * cols;
+  for (int e = threadIdx.x; e < out; e += blockDim.x) {
+    const int row = e / cols, col = e - row * cols, b = b0 + col;
+    if (b < batch) {
+      const float cr = __ldg(xore + row) * scale;
+      const float ci = __ldg(xoim + row) * scale;
+      const float a = sre[e], c = sim[e];
+      const size_t g = static_cast<size_t>(row) * batch + b;
+      yre[g] = a * cr - c * ci;
+      yim[g] = a * ci + c * cr;
+    }
+  }
+}
+
+}  // namespace
+
+// Kernel B3: the row leg of the single-chip four-step FFT, batch-minor.
+//
+// Replaces fourier_tpu/ops/pallas/stockham_vpu.py:_four_step_row_kernel
+// (:778), launched by vpu_fft_four_step_row (:805). A transform of size
+// n = p*q (plan/four_step_local.py) first runs q-point column transforms
+// (kernel B1) over the contiguous (q, p*B) view of the (n, B) input; this
+// kernel takes that result as (q, p, B), element (k2, a, b) at
+// (k2*p + a)*B + b, and for every k2 and column b:
+//   1. multiplies row a by the split twiddle W_n^(+-a*k2) times the mode
+//      scale (a plan-time (q, p) table, row k2; the scale arrives as a float);
+//   2. runs the p-point Stockham stages of B1;
+//   3. stores element (k1, b) at k1*(q*B) + k2*B + b.
+// The output, read as (n, B), is then in natural order X[k1*q + k2]: the
+// dense twiddle pass and the (q, p, B) -> (p, q, B) transpose of the plain
+// route cost no extra pass over memory.
+//
+// What bounds it on this card: memory, as B1. One call reads and writes the
+// two planes once, 16*n*B bytes, against about 5*p*log2(p) + 6*p flops per
+// row; the transposed store writes runs of cols*4 bytes at stride q*B.
+//
+// Design:
+// - Grid: column groups on x, k2 on y (q <= 16384 fits gridDim.y). A block
+//   owns `cols` adjacent batch columns of one k2 (launch_geometry(p) of
+//   ops/cuda/stockham_vpu.py, as B1 at size p); its (p, cols) planes live in
+//   dynamic shared memory, in place, with B1's stages. The ragged last
+//   column group is masked.
+// - Offsets into the data are size_t: q*p*B passes 2^31 (n = 262144 at
+//   B = 16384 is 4.3e9 elements).
+
+namespace {
+
+template <bool F, int MaxThreads>
+__global__ void __launch_bounds__(MaxThreads)
+four_step_row_c64(const float* __restrict__ xre, const float* __restrict__ xim,
+                  float* __restrict__ yre, float* __restrict__ yim, int p,
+                  int q, int batch, int cols, Schedule sch,
+                  const float* __restrict__ twre, const float* __restrict__ twim,
+                  const float* __restrict__ prre, const float* __restrict__ prim,
+                  float scale) {
+  extern __shared__ float smem[];
+  float* sre = smem;
+  float* sim = smem + p * cols;
+  const int b0 = blockIdx.x * cols;
+  const int k2 = blockIdx.y;
+  const int total = p * cols;
+  const size_t in0 = static_cast<size_t>(k2) * p * batch;
+  const float* pr = prre + static_cast<size_t>(k2) * p;
+  const float* pi = prim + static_cast<size_t>(k2) * p;
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    const int a = e / cols, col = e - a * cols, b = b0 + col;
+    float vr = 0.0f, vi = 0.0f;
+    if (b < batch) {
+      const size_t g = in0 + static_cast<size_t>(a) * batch + b;
+      const float xr = xre[g], xi = xim[g];
+      const float tr = __ldg(pr + a) * scale, ti = __ldg(pi + a) * scale;
+      vr = xr * tr - xi * ti;
+      vi = xr * ti + xi * tr;
+    }
+    sre[e] = vr;
+    sim[e] = vi;
+  }
+  __syncthreads();
+  run_stages<F>(sre, sim, p, cols, sch, twre, twim);
+  const size_t row_stride = static_cast<size_t>(q) * batch;
+  const size_t out0 = static_cast<size_t>(k2) * batch;
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    const int k1 = e / cols, col = e - k1 * cols, b = b0 + col;
+    if (b < batch) {
+      const size_t g = static_cast<size_t>(k1) * row_stride + out0 + b;
+      yre[g] = sre[e];
+      yim[g] = sim[e];
     }
   }
 }
@@ -283,42 +280,87 @@ int fourier_stockham_c64(const float* xre, const float* xim, float* yre,
                          int nstages, const int* radices, const float* twre,
                          const float* twim, int forward, float scale,
                          int device, void* stream) {
-  if (n <= 0 || batch <= 0 || cols <= 0 || threads <= 0 ||
-      threads > kMaxThreads || threads % 32 != 0 || nstages <= 0 ||
-      nstages > kMaxStages ||
-      static_cast<long long>(threads) * kPointsPerThread <
-          static_cast<long long>(n) * cols) {
+  Schedule sch{};
+  if (batch <= 0 || !block_fits(n, cols, threads)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Schedule sch{};
-  sch.nstages = nstages;
-  int size = n, off = 0;
-  for (int s = 0; s < nstages; ++s) {
-    const int r = radices[s];
-    if ((r != 2 && r != 3 && r != 4 && r != 5 && r != 8) || size % r != 0) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    sch.radix[s] = r;
-    sch.tw_off[s] = off;
-    if (size / r > 1) off += size;
-    size /= r;
-  }
-  if (size != 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  int err = make_schedule(n, nstages, radices, &sch);
+  if (err != 0) return err;
   const size_t smem = 2 * sizeof(float) * static_cast<size_t>(n) * cols;
   auto kern = threads <= 512
                   ? (forward ? stockham_c64<true, 512> : stockham_c64<false, 512>)
                   : (forward ? stockham_c64<true, kMaxThreads>
                              : stockham_c64<false, kMaxThreads>);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  err = prepare_launch(kern, smem, device);
+  if (err != 0) return err;
   const dim3 grid((batch + cols - 1) / cols);
   kern<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       xre, xim, yre, yim, n, batch, cols, sch, twre, twim, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Bluestein transform of the B = `batch` columns of the planar (n, B) input
+// into the planar (n, B) output, through an M = `m`-point inner transform
+// whose `nstages` radices (host memory, from {2, 3, 4, 5, 8}) multiply to m.
+// `fw*`/`iv*`: the concatenated forward / inverse stage tables of that
+// schedule; `xt*` (n), `wt*` (m), `xo*` (n): the direction-matched chirp
+// tables, 1/M folded into xo. Returns a cudaError_t code, 0 on success.
+int fourier_bluestein_c64(const float* xre, const float* xim, float* yre,
+                          float* yim, int n, int m, int batch, int cols,
+                          int threads, int nstages, const int* radices,
+                          const float* fwre, const float* fwim,
+                          const float* ivre, const float* ivim,
+                          const float* xtre, const float* xtim,
+                          const float* wtre, const float* wtim,
+                          const float* xore, const float* xoim, float scale,
+                          int device, void* stream) {
+  Schedule sch{};
+  if (n <= 0 || 2 * n - 1 > m || batch <= 0 || !block_fits(m, cols, threads)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int err = make_schedule(m, nstages, radices, &sch);
+  if (err != 0) return err;
+  const size_t smem = 2 * sizeof(float) * static_cast<size_t>(m) * cols;
+  auto kern = threads <= 512 ? bluestein_c64<512> : bluestein_c64<kMaxThreads>;
+  err = prepare_launch(kern, smem, device);
+  if (err != 0) return err;
+  const dim3 grid((batch + cols - 1) / cols);
+  kern<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      xre, xim, yre, yim, n, m, batch, cols, sch, fwre, fwim, ivre, ivim,
+      xtre, xtim, wtre, wtim, xore, xoim, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Row leg of an n = p*q four-step: the planar (q, p, B) input (B = `batch`)
+// into the planar (p, q*B) output. `radices` (host memory, `nstages` entries
+// from {2, 3, 4, 5, 8}) multiply to p; `twre`/`twim` hold the concatenated
+// per-stage tables of that schedule; `prre`/`prim` the (q, p) split twiddle
+// table, row k2 = W_n^(+-a*k2). Returns a cudaError_t code, 0 on success.
+int fourier_four_step_row_c64(const float* xre, const float* xim, float* yre,
+                              float* yim, int p, int q, int batch, int cols,
+                              int threads, int nstages, const int* radices,
+                              const float* twre, const float* twim,
+                              const float* prre, const float* prim,
+                              int forward, float scale, int device,
+                              void* stream) {
+  Schedule sch{};
+  if (q <= 0 || q > 65535 || batch <= 0 || !block_fits(p, cols, threads)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int err = make_schedule(p, nstages, radices, &sch);
+  if (err != 0) return err;
+  const size_t smem = 2 * sizeof(float) * static_cast<size_t>(p) * cols;
+  auto kern = threads <= 512
+                  ? (forward ? four_step_row_c64<true, 512>
+                             : four_step_row_c64<false, 512>)
+                  : (forward ? four_step_row_c64<true, kMaxThreads>
+                             : four_step_row_c64<false, kMaxThreads>);
+  err = prepare_launch(kern, smem, device);
+  if (err != 0) return err;
+  const dim3 grid((batch + cols - 1) / cols, q);
+  kern<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      xre, xim, yre, yim, p, q, batch, cols, sch, twre, twim, prre, prim,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 

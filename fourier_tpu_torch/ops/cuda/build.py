@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels of ``fourier_tpu_torch/csrc``.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface. On first use it is
-compiled with ``nvcc`` for ``sm_90a`` into a shared library under
+``csrc/<name>.cu`` exposes a plain C interface. On first use it is compiled
+with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/fourier_tpu_torch/`` at the repository root, named by a hash of the
-source and the flags, and loaded with ``ctypes``. A file lock is taken before
+flags and of every source under ``csrc/`` (``*.cu``, ``*.cuh``, ``*.h``: it
+includes headers), and loaded with ``ctypes``. A file lock is taken before
 the library's existence is tested, so concurrent processes neither load a
 half-written library nor build it twice; the compiler writes to a temporary
 name that is renamed into place.
@@ -29,8 +30,10 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
+SOURCE_SUFFIXES = (".cu", ".cuh", ".h")
+
 _loaded: dict = {}
-_loaded_lock = threading.Lock()
+_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -48,15 +51,18 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the build of csrc/<name>.cu goes, keyed by source and flags."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where the build of csrc/<name>.cu goes, keyed by the flags and by the
+    name and bytes of every source under csrc/."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    sources = sorted(p for p in CSRC.rglob("*") if p.suffix in SOURCE_SUFFIXES)
+    for src in sources:
+        h.update(str(src.relative_to(CSRC)).encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def load(name: str) -> ctypes.CDLL:
     """Build csrc/<name>.cu if needed and return the loaded library."""
-    with _loaded_lock:
+    with _lock:
         if name in _loaded:
             return _loaded[name]
         so = library_path(name)
@@ -74,6 +80,5 @@ def load(name: str) -> ctypes.CDLL:
                         f"{proc.stdout}\n{proc.stderr}"
                     )
                 os.replace(tmp, so)
-            lib = ctypes.CDLL(str(so))
-        _loaded[name] = lib
-        return lib
+            _loaded[name] = ctypes.CDLL(str(so))
+        return _loaded[name]

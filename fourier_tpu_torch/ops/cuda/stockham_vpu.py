@@ -1,22 +1,31 @@
-"""Kernel B1: the fused all-stages Stockham FFT over batch-minor (n, B) planes.
+"""Kernels B1, B2 and B3: the fused Stockham FFTs over batch-minor planes.
 
-Port of the B1 part of ``fourier_tpu/ops/pallas/stockham_vpu.py``:
+Port of the B1, B2 and B3 parts of ``fourier_tpu/ops/pallas/stockham_vpu.py``:
 
 * :func:`radix_schedule` is the TPU kernel's schedule, kept as the plan's
   domain predicate (n = 2^a*3^b*5^c with 8 | n and 64 <= n <= 16384, plus
   243, 729, 2187, 6561, 625 and 3125);
 * :func:`make_stage_tables` gives its compact (m, r) twiddle tables;
-* :func:`vpu_fft_batch_minor_reference` is the plain PyTorch version, a port
-  of ``_stages_value`` plus the mode scale;
-* :func:`vpu_fft_batch_minor` is the wrapper of the CUDA kernel in
-  ``csrc/stockham_vpu.cu``. It runs the plain version for a tensor on the
-  CPU, and launches the kernel (or raises) for a tensor on a CUDA device. It
-  counts its launches in ``vpu_fft_batch_minor.launches``.
+* B1, the fused all-stages transform: :func:`vpu_fft_batch_minor_reference`
+  is the plain PyTorch version (a port of ``_stages_value`` plus the mode
+  scale), :func:`vpu_fft_batch_minor` the kernel's wrapper;
+* B2, the fused Bluestein transform: :func:`vpu_bluestein_batch_minor_reference`
+  (a port of ``_bluestein_value``) and the wrapper
+  :func:`vpu_bluestein_batch_minor`;
+* B3, the row leg of the four-step transform:
+  :func:`vpu_fft_four_step_row_reference` and the wrapper
+  :func:`vpu_fft_four_step_row`.
 
-The kernel runs its own schedule, :func:`kernel_schedule`, which splits each
-radix of :func:`radix_schedule` into radices 8, 4, 2, 3 and 5, with twiddles
-from :func:`make_kernel_tables`. The source note in the .cu file gives the
-design.
+The three kernels are one library, built from ``csrc/stockham_vpu.cu``.
+
+Each wrapper runs its plain version for tensors on the CPU, and launches its
+kernel (or raises) for tensors on a CUDA device; it counts its launches in
+its ``launches`` attribute.
+
+The kernels run their own schedule, :func:`kernel_schedule`, which splits
+each radix of :func:`radix_schedule` into radices 8, 4, 2, 3 and 5, with
+twiddles from :func:`make_kernel_tables`. The source notes in the .cu file
+give the designs.
 """
 
 from __future__ import annotations
@@ -187,34 +196,77 @@ def vpu_fft_batch_minor_reference(re_t, im_t, n: int, tables, forward: bool,
     return re, im
 
 
-def _check_planes(re_t, im_t, n: int):
+def _check_planes(re_t, im_t, lead, what: str):
+    """Contiguous float32 planes of equal shape, leading dims `lead`; on the
+    CPU or a CUDA device (the wrapper raises on any other)."""
     for t in (re_t, im_t):
         if not isinstance(t, torch.Tensor):
-            raise TypeError("B1 takes torch tensors")
+            raise TypeError(f"{what} takes torch tensors")
         if t.dtype != torch.float32:
-            raise TypeError(f"B1 takes float32 planes, got {t.dtype}")
-        if t.ndim != 2 or t.shape[0] != n:
-            raise ValueError(f"B1 takes ({n}, B) planes, got {tuple(t.shape)}")
+            raise TypeError(f"{what} takes float32 planes, got {t.dtype}")
+        if t.ndim != len(lead) + 1 or tuple(t.shape[:-1]) != tuple(lead):
+            raise ValueError(f"{what} takes ({', '.join(map(str, lead))}, B) "
+                             f"planes, got {tuple(t.shape)}")
         if not t.is_contiguous():
-            raise ValueError("B1 takes contiguous planes")
+            raise ValueError(f"{what} takes contiguous planes")
     if re_t.shape != im_t.shape or re_t.device != im_t.device:
         raise ValueError("re/im planes differ in shape or device")
+    if re_t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on CPU or CUDA tensors, not {re_t.device}")
+
+
+def _check_tables(device, *tables):
+    for t in tables:
+        if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError("kernel tables must be contiguous float32 on the "
+                             "planes' device")
+
+
+LIBRARY = "stockham_vpu"  # csrc/stockham_vpu.cu
+# The library's C entry points and their argument types.
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+ENTRY_POINTS = {
+    "fourier_stockham_c64": [_P] * 4 + [_I] * 5 + [_P] * 3 + [_I, _F, _I, _P],
+    "fourier_bluestein_c64": [_P] * 4 + [_I] * 6 + [_P] * 11 + [_F, _I, _P],
+    "fourier_four_step_row_c64": [_P] * 4 + [_I] * 6 + [_P] * 5 + [_I, _F, _I, _P],
+}
 
 
 def library():
-    """Build (at first use) and load the kernel's shared library."""
+    """Build (at first use) and load the kernel library."""
     from fourier_tpu_torch.ops.cuda import build
 
-    lib = build.load("stockham_vpu")
-    fn = lib.fourier_stockham_c64
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, p, p, p, i,
-                       ctypes.c_float, i, p]
-        fn.restype = ctypes.c_int
+    lib = build.load(LIBRARY)
+    if lib.fourier_cuda_error_string.restype is not ctypes.c_char_p:
+        for fn_name, argtypes in ENTRY_POINTS.items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         lib.fourier_cuda_error_string.argtypes = [ctypes.c_int]
         lib.fourier_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _launch(fn_name: str, what: str, *args) -> None:
+    """Call the library's C entry point `fn_name`; raise if it fails."""
+    lib = library()
+    rc = getattr(lib, fn_name)(*args)
+    if rc != 0:
+        msg = lib.fourier_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: {msg} ({rc})")
+
+
+def _radices(n: int):
+    schedule = kernel_schedule(n)
+    return len(schedule), (ctypes.c_int * len(schedule))(*schedule)
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _scale(scale: Optional[float]) -> float:
+    return 1.0 if scale is None else float(scale)
 
 
 def vpu_fft_batch_minor(re_t, im_t, n: int, forward: bool,
@@ -226,39 +278,140 @@ def vpu_fft_batch_minor(re_t, im_t, n: int, forward: bool,
     :func:`make_kernel_tables` (kernel), both direction-matched and on the
     planes' device.
     """
-    _check_planes(re_t, im_t, n)
+    _check_planes(re_t, im_t, (n,), "B1")
     if re_t.device.type == "cpu":
         return vpu_fft_batch_minor_reference(re_t, im_t, n, tables, forward,
                                              scale)
-    if re_t.device.type != "cuda":
-        raise ValueError(f"B1 runs on CPU or CUDA tensors, not {re_t.device}")
-    if (kernel_tables.device != re_t.device
-            or kernel_tables.dtype != torch.float32
-            or not kernel_tables.is_contiguous()):
-        raise ValueError("kernel_tables must be contiguous float32 on the "
-                         "planes' device")
+    _check_tables(re_t.device, kernel_tables)
     out_re = torch.empty_like(re_t)
     out_im = torch.empty_like(im_t)
     batch = re_t.shape[1]
     if batch == 0:
         return out_re, out_im
-    lib = library()
-    schedule = kernel_schedule(n)
-    radices = (ctypes.c_int * len(schedule))(*schedule)
     cols, threads = launch_geometry(n)
-    stream = torch.cuda.current_stream(re_t.device).cuda_stream
-    rc = lib.fourier_stockham_c64(
+    _launch(
+        "fourier_stockham_c64", f"B1 at n={n}, B={batch}",
         re_t.data_ptr(), im_t.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
-        n, batch, cols, threads, len(schedule), radices,
+        n, batch, cols, threads, *_radices(n),
         kernel_tables[0].data_ptr(), kernel_tables[1].data_ptr(),
-        int(forward), 1.0 if scale is None else float(scale),
-        re_t.device.index, stream,
+        int(forward), _scale(scale), re_t.device.index, _stream(re_t),
     )
-    if rc != 0:
-        msg = lib.fourier_cuda_error_string(rc).decode()
-        raise RuntimeError(f"B1 launch failed at n={n}, B={batch}: {msg} ({rc})")
     vpu_fft_batch_minor.launches += 1
     return out_re, out_im
 
 
 vpu_fft_batch_minor.launches = 0
+
+
+def vpu_bluestein_batch_minor_reference(re_t, im_t, n: int, m: int, tables,
+                                        chirps, scale: Optional[float]):
+    """Plain PyTorch B2: the whole chirp-z over (n, B) planes through an
+    m-point inner transform. `tables`: the (forward, inverse) compact stage
+    tables of :func:`make_stage_tables` for m; `chirps`: the (2, n), (2, m)
+    and (2, n) planar tensors xt, wt and xo (1/m folded into xo). Port of
+    ``stockham_vpu._bluestein_value``."""
+    xt, wt, xo = ((c[0][:, None], c[1][:, None]) for c in chirps)
+    wre, wim = cplx.mul((re_t, im_t), xt)
+    pad = (0, 0, 0, m - n)
+    wre = torch.nn.functional.pad(wre, pad)
+    wim = torch.nn.functional.pad(wim, pad)
+    wre, wim = vpu_fft_batch_minor_reference(wre, wim, m, tables[0], True, None)
+    wre, wim = cplx.mul((wre, wim), wt)
+    wre, wim = vpu_fft_batch_minor_reference(wre, wim, m, tables[1], False, None)
+    if scale is not None:
+        xo = (xo[0] * scale, xo[1] * scale)
+    return cplx.mul((wre[:n], wim[:n]), xo)
+
+
+def vpu_bluestein_batch_minor(re_t, im_t, n: int, m: int,
+                              scale: Optional[float], *, tables, kernel_tables,
+                              chirps):
+    """B2 over contiguous planar f32 (n, B) planes; returns new planes.
+
+    `tables`: (forward, inverse) compact stage tables for m as tensors
+    (plain version); `kernel_tables`: the (forward, inverse) (2, L) tensors
+    of :func:`make_kernel_tables` for m (kernel); `chirps`: the
+    direction-matched (xt, wt, xo) of :func:`vpu_bluestein_batch_minor_reference`;
+    all on the planes' device.
+    """
+    _check_planes(re_t, im_t, (n,), "B2")
+    if re_t.device.type == "cpu":
+        return vpu_bluestein_batch_minor_reference(re_t, im_t, n, m, tables,
+                                                   chirps, scale)
+    _check_tables(re_t.device, *kernel_tables, *chirps)
+    out_re = torch.empty_like(re_t)
+    out_im = torch.empty_like(im_t)
+    batch = re_t.shape[1]
+    if batch == 0:
+        return out_re, out_im
+    cols, threads = launch_geometry(m)
+    kf, ki = kernel_tables
+    xt, wt, xo = chirps
+    _launch(
+        "fourier_bluestein_c64", f"B2 at n={n}, M={m}, B={batch}",
+        re_t.data_ptr(), im_t.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
+        n, m, batch, cols, threads, *_radices(m),
+        kf[0].data_ptr(), kf[1].data_ptr(), ki[0].data_ptr(), ki[1].data_ptr(),
+        xt[0].data_ptr(), xt[1].data_ptr(), wt[0].data_ptr(), wt[1].data_ptr(),
+        xo[0].data_ptr(), xo[1].data_ptr(),
+        _scale(scale), re_t.device.index, _stream(re_t),
+    )
+    vpu_bluestein_batch_minor.launches += 1
+    return out_re, out_im
+
+
+vpu_bluestein_batch_minor.launches = 0
+
+
+def vpu_fft_four_step_row_reference(re3, im3, p: int, q: int, tables, pre_tw,
+                                    forward: bool, scale: Optional[float]):
+    """Plain PyTorch B3: (q, p, B) planes times the (q, p) split twiddle
+    `pre_tw` (W_n^(+-a*k2) at [k2, a]) and the mode scale, B1's plain stages
+    over p, and the transposed store; returns natural-order (p*q, B)
+    planes. `tables`: the compact stage tables of p."""
+    b = re3.shape[-1]
+    tr, ti = pre_tw
+    if scale is not None:
+        tr, ti = tr * scale, ti * scale
+    re, im = cplx.mul((re3, im3), (tr[:, :, None], ti[:, :, None]))
+    re = re.transpose(0, 1).reshape(p, q * b)
+    im = im.transpose(0, 1).reshape(p, q * b)
+    re, im = vpu_fft_batch_minor_reference(re, im, p, tables, forward, None)
+    return re.reshape(p * q, b), im.reshape(p * q, b)
+
+
+def vpu_fft_four_step_row(re3, im3, p: int, q: int, forward: bool,
+                          scale: Optional[float], *, tables, kernel_tables,
+                          pre_tw):
+    """B3 over contiguous planar f32 (q, p, B) planes (the column leg's
+    output); returns new natural-order (p*q, B) planes.
+
+    `tables`: the compact stage tables of p as tensors (plain version);
+    `kernel_tables`: the (2, L) tensor of :func:`make_kernel_tables` for p
+    (kernel); `pre_tw`: the (q, p) planar split twiddle, all direction-matched
+    and on the planes' device.
+    """
+    _check_planes(re3, im3, (q, p), "B3")
+    if re3.device.type == "cpu":
+        return vpu_fft_four_step_row_reference(re3, im3, p, q, tables, pre_tw,
+                                               forward, scale)
+    _check_tables(re3.device, kernel_tables, *pre_tw)
+    batch = re3.shape[-1]
+    out_re = torch.empty(p * q, batch, dtype=torch.float32, device=re3.device)
+    out_im = torch.empty_like(out_re)
+    if batch == 0:
+        return out_re, out_im
+    cols, threads = launch_geometry(p)
+    _launch(
+        "fourier_four_step_row_c64", f"B3 at p={p}, q={q}, B={batch}",
+        re3.data_ptr(), im3.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
+        p, q, batch, cols, threads, *_radices(p),
+        kernel_tables[0].data_ptr(), kernel_tables[1].data_ptr(),
+        pre_tw[0].data_ptr(), pre_tw[1].data_ptr(),
+        int(forward), _scale(scale), re3.device.index, _stream(re3),
+    )
+    vpu_fft_four_step_row.launches += 1
+    return out_re, out_im
+
+
+vpu_fft_four_step_row.launches = 0

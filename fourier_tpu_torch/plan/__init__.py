@@ -1,13 +1,17 @@
 from fourier_tpu_torch.plan.autosort import AutosortPlan
 from fourier_tpu_torch.plan.base import FftPlan
 from fourier_tpu_torch.plan.bluestein import BluesteinPlan
+from fourier_tpu_torch.plan.bluestein_fused import VpuBluesteinPlan
 from fourier_tpu_torch.plan.convert import load_jax_plan
+from fourier_tpu_torch.plan.four_step_local import FourStepLocalPlan
+from fourier_tpu_torch.plan.mxu import MxuFftPlan
 from fourier_tpu_torch.plan.factor import RADICES, factorize_autosort, next_power_of_two
 from fourier_tpu_torch.plan.planner import (
     clear_plan_cache,
     create_fft,
     create_fft_f32,
     create_fft_f64,
+    plan_tree,
 )
 from fourier_tpu_torch.plan.vpu import VpuFftPlan
 
@@ -15,7 +19,10 @@ __all__ = [
     "AutosortPlan",
     "BluesteinPlan",
     "FftPlan",
+    "FourStepLocalPlan",
+    "MxuFftPlan",
     "RADICES",
+    "VpuBluesteinPlan",
     "VpuFftPlan",
     "clear_plan_cache",
     "create_fft",
@@ -24,4 +31,5 @@ __all__ = [
     "factorize_autosort",
     "load_jax_plan",
     "next_power_of_two",
+    "plan_tree",
 ]

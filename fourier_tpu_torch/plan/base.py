@@ -175,6 +175,20 @@ class FftPlan(torch.nn.Module):
         return self.size
 
 
+class BatchMinorPlan(FftPlan):
+    """A plan whose native layout is batch-minor (size, B): a batch-major
+    call transposes once each way around :meth:`_execute_bm`."""
+
+    def _execute(self, re, im, transform: Transform):
+        batch_shape = re.shape[:-1]
+        b = int(np.prod(batch_shape, dtype=np.int64))
+        re_t = re.reshape(b, self.size).T.contiguous()
+        im_t = im.reshape(b, self.size).T.contiguous()
+        ore, oim = self._execute_bm(re_t, im_t, transform)
+        return (ore.T.reshape(*batch_shape, self.size),
+                oim.T.reshape(*batch_shape, self.size))
+
+
 def planar_buffer(tables, real_dtype, device) -> torch.Tensor:
     """Pack per-stage planar (re, im) numpy tables into one (2, L) tensor."""
     flat = [np.stack([np.ravel(tr), np.ravel(ti)]) for tr, ti in tables]

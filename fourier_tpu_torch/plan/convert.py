@@ -18,6 +18,9 @@ from fourier_tpu_torch.ops.cuda.stockham_vpu import radix_schedule
 from fourier_tpu_torch.plan.autosort import AutosortPlan
 from fourier_tpu_torch.plan.base import FftPlan
 from fourier_tpu_torch.plan.bluestein import BluesteinPlan
+from fourier_tpu_torch.plan.bluestein_fused import VpuBluesteinPlan
+from fourier_tpu_torch.plan.four_step_local import FourStepLocalPlan
+from fourier_tpu_torch.plan.mxu import MxuFftPlan, check_impl
 from fourier_tpu_torch.plan.vpu import VpuFftPlan
 
 FORMAT_VERSION = 2
@@ -25,9 +28,6 @@ FORMAT_VERSION = 2
 # Plan classes of the JAX package that have no port yet, and the ROADMAP.md
 # item that ports them.
 _NOT_PORTED = {
-    "MxuFftPlan": "queue 1 item 4",
-    "VpuBluesteinPlan": "queue 1 item 4 (kernel B2)",
-    "FourStepLocalPlan": "queue 1 item 5 (kernel B3)",
     "RfftPlan": "queue 1 item 6 (kernels B4, B5)",
     "DdFftPlan": "queue 1 item 7",
     "VpuDdFftPlan": "queue 1 item 7",
@@ -60,6 +60,17 @@ def _tree(node, leaves):
     raise ValueError("expected a tuple or an array leaf")
 
 
+def _compact(tables, size):
+    """The compact (m, r) stage tables of B1's schedule for `size` from the
+    JAX package's (n/r, r) tables, whose rows repeat each row of the compact
+    table `stride` times: every stride-th row restores it."""
+    rows, stride = [], 1
+    for (tr, ti), r in zip(tables, radix_schedule(size)):
+        rows.append((tr[::stride], ti[::stride]))
+        stride *= r
+    return rows
+
+
 def _build(node, leaves, device) -> FftPlan:
     name = node.get("__plan__")
     if name in _NOT_PORTED:
@@ -78,16 +89,26 @@ def _build(node, leaves, device) -> FftPlan:
         return BluesteinPlan(size, dtype, inner, *tables, device=device)
     if name == "VpuFftPlan":
         size = aux[0]
-        # The JAX tables are (n/r, r), each row of the compact (m, r) table
-        # repeated `stride` times; every stride-th row restores it.
-        compact = []
-        for table in node["children"]:
-            rows, stride = [], 1
-            for (tr, ti), r in zip(_tree(table, leaves), radix_schedule(size)):
-                rows.append((tr[::stride], ti[::stride]))
-                stride *= r
-            compact.append(rows)
-        return VpuFftPlan(size, compact[0], compact[1], device)
+        fwd, inv = (_compact(_tree(c, leaves), size) for c in node["children"])
+        return VpuFftPlan(size, fwd, inv, device)
+    if name == "MxuFftPlan":
+        size, n1, n2, _dtype, _interpret, _tb, impl = aux
+        check_impl(impl)
+        fwd, inv = (_tree(c, leaves) for c in node["children"])
+        return MxuFftPlan(size, n1, n2, fwd, inv, device)
+    if name == "VpuBluesteinPlan":
+        size, m_inner = aux[:2]
+        stage_tables, chirps_fwd, chirps_inv = (_tree(c, leaves)
+                                                for c in node["children"])
+        fwd, inv = (_compact(t, m_inner) for t in stage_tables)
+        stages = VpuFftPlan(m_inner, fwd, inv, device)
+        return VpuBluesteinPlan(size, stages, chirps_fwd, chirps_inv, device)
+    if name == "FourStepLocalPlan":
+        size, p, q, dtype = aux
+        col, row = (_build(c, leaves, device) for c in node["children"][:2])
+        tw_fwd, tw_inv = (_tree(c, leaves) for c in node["children"][2:])
+        return FourStepLocalPlan(size, p, q, dtype, col, row, tw_fwd, tw_inv,
+                                 device)
     raise ValueError(f"unknown plan class {name!r} in plan file")
 
 

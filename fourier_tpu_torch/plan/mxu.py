@@ -1,0 +1,145 @@
+"""MXU-family plan: the DFT as dense matrix products.
+
+Port of ``fourier_tpu/plan/mxu.py`` with ``impl="xla"``, the JAX package's
+default: the products of :mod:`fourier_tpu_torch.ops.bailey` (``torch.einsum``
+in full float32) over planar tables computed in f64 at plan time and
+narrowed to f32. A size with a split n = n1*n2 (n1, n2 <= 128) runs two
+phases, the split twiddle folded into the second table; small sizes, and
+any size the planner sends to :meth:`MxuFftPlan.create_direct`, run one
+full-size DFT product. The mode scale is folded into the last table at call
+time.
+
+``impl="xla_packed"`` and ``impl="pallas"`` (the Pallas kernels B9 of
+``ops/pallas/bailey.py``) are not ported: they raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from fourier_tpu_torch.ops import bailey
+from fourier_tpu_torch.ops.dft_matrix import (choose_split, dft_matrix,
+                                              folded_phase_b)
+from fourier_tpu_torch.plan.base import FftPlan, complex_dtype
+from fourier_tpu_torch.transform import Transform
+
+_IMPL_NOT_PORTED = {
+    "xla_packed": "ROADMAP.md queue 1 item 4 (block-diagonal packed phase B)",
+    "pallas": "ROADMAP.md queue 2, kernel B9 (ops/pallas/bailey.py)",
+}
+
+
+def check_impl(impl: str) -> None:
+    """Raise unless `impl` is the ported ``"xla"`` form."""
+    if impl in _IMPL_NOT_PORTED:
+        raise NotImplementedError(
+            f"MxuFftPlan impl={impl!r} is not ported yet: {_IMPL_NOT_PORTED[impl]}")
+    if impl != "xla":
+        raise ValueError(f"unknown MxuFftPlan impl {impl!r}")
+
+
+def _planar(a: np.ndarray):
+    return a.real.astype(np.float32), a.imag.astype(np.float32)
+
+
+class MxuFftPlan(FftPlan):
+    """DFT-product plan for n = n1*n2 (n1, n2 <= 128), complex64."""
+
+    family = "mxu"
+
+    # The JAX package's measured crossover, kept so that both packages plan
+    # the same family per size: below it one full-size DFT product replaces
+    # a two-phase split whose factors are both < 64, and the planner prefers
+    # it to Bluestein for split-less sizes (ROADMAP.md: to re-measure on the
+    # H100).
+    DIRECT_SINGLE_MAX = 768
+
+    def __init__(self, size: int, n1: int, n2: int, fwd_tables, inv_tables,
+                 device="cpu"):
+        """`fwd_tables`/`inv_tables`: f32 numpy arrays (dre, dim) of the
+        (n, n) DFT matrix when n1 == 1, else (d2re, d2im, dfre, dfim): the
+        (n2, n2) D_n2 and the (n2, n1, n1) folded phase-B table."""
+        super().__init__()
+        self.size = int(size)
+        self.n1 = int(n1)
+        self.n2 = int(n2)
+        self.dtype = torch.complex64
+        for name, tables in (("fwd", fwd_tables), ("inv", inv_tables)):
+            pairs = [tables[i:i + 2] for i in range(0, len(tables), 2)]
+            for j, (tr, ti) in enumerate(pairs):
+                buf = torch.as_tensor(np.stack([tr, ti]).astype(np.float32),
+                                      device=device)
+                self.register_buffer(f"{name}{j}", buf, persistent=False)
+        self._ntables = len(fwd_tables) // 2
+
+    @property
+    def single_phase(self) -> bool:
+        return self.n1 == 1
+
+    @classmethod
+    def create(cls, size: int, dtype=torch.complex64, device="cpu", *,
+               impl: str = "xla") -> Optional["MxuFftPlan"]:
+        """Plan `size`, or None for c128 and when no n1*n2 (<= 128 each)
+        split exists."""
+        if size < 1:
+            raise ValueError(f"FFT size must be >= 1, got {size}")
+        check_impl(impl)
+        if complex_dtype(dtype) != torch.complex64:
+            return None
+        split = choose_split(size)
+        if split is None:
+            return None
+        n1, n2 = split
+        if n1 != 1 and size <= cls.DIRECT_SINGLE_MAX and max(n1, n2) < 64:
+            n1, n2 = 1, size
+        tables = {}
+        for fwd in (True, False):
+            if n1 == 1:
+                tables[fwd] = _planar(dft_matrix(size, fwd))
+            else:
+                tables[fwd] = (_planar(dft_matrix(n2, fwd))
+                               + _planar(folded_phase_b(n1, n2, fwd)))
+        return cls(size, n1, n2, tables[True], tables[False], device)
+
+    @classmethod
+    def create_direct(cls, size: int, dtype=torch.complex64,
+                      device="cpu") -> Optional["MxuFftPlan"]:
+        """One full-size DFT product for any size (no split needed), or
+        None for c128."""
+        if size < 1:
+            raise ValueError(f"FFT size must be >= 1, got {size}")
+        if complex_dtype(dtype) != torch.complex64:
+            return None
+        tables = {fwd: _planar(dft_matrix(size, fwd)) for fwd in (True, False)}
+        return cls(size, 1, size, tables[True], tables[False], device)
+
+    def tables(self, forward: bool):
+        """The planar (re, im) tables of one direction, in order."""
+        name = "fwd" if forward else "inv"
+        return [(b[0], b[1]) for b in
+                (getattr(self, f"{name}{j}") for j in range(self._ntables))]
+
+    def _execute(self, re, im, transform: Transform):
+        batch_shape = re.shape[:-1]
+        b = int(np.prod(batch_shape, dtype=np.int64))
+        re2 = re.reshape(b, self.size)
+        im2 = im.reshape(b, self.size)
+        *head, (lre, lim) = self.tables(transform.is_forward)
+        scale = self._scale_for(transform)
+        if scale is not None:
+            lre, lim = lre * scale, lim * scale
+        if self.single_phase:
+            ore, oim = bailey.xla_fft_single(re2, im2, lre, lim)
+        else:
+            (d2re, d2im), = head
+            ore, oim = bailey.xla_fft_two_phase_folded(re2, im2, d2re, d2im,
+                                                       lre, lim)
+        return (ore.reshape(*batch_shape, self.size),
+                oim.reshape(*batch_shape, self.size))
+
+    def extra_repr(self) -> str:
+        return (f"size={self.size}, split=({self.n1},{self.n2}), impl=xla, "
+                f"family={self.family}")

@@ -1,21 +1,27 @@
 """Runtime planner: ``create_fft_f32`` / ``create_fft_f64``.
 
-Port of the ``auto``, ``vpu`` and ``stockham`` backends of
-``fourier_tpu/plan/planner.py``:
+Port of the ``auto``, ``vpu``, ``mxu`` and ``stockham`` backends of
+``fourier_tpu/plan/planner.py``, with the same plan family for every size:
 
-* ``vpu``      -- kernel B1 (:class:`VpuFftPlan`) for every size in its
-                  domain. Other sizes take an interim route until B2, B3 and
-                  the ``mxu`` family are ported: :class:`AutosortPlan` for
-                  2^a*3^b, else :class:`BluesteinPlan` whose power-of-two
-                  inner is a VpuFftPlan where B1's domain allows, else an
-                  AutosortPlan. complex64 only.
+* ``vpu``      -- :class:`VpuFftPlan` (kernel B1) in its domain, else the
+                  ``mxu`` route with the fused kernels first
+                  (``_create_mxu(vpu_first=True)``): four-step composites
+                  whose legs are VpuFftPlans (kernel B3 on the rows),
+                  :class:`MxuFftPlan` products, :class:`VpuBluesteinPlan`
+                  (kernel B2) for split-less sizes past the direct-product
+                  crossover, else a composed :class:`BluesteinPlan`.
+                  complex64 only.
+* ``mxu``      -- the same route without the fused kernels first: DFT
+                  products, four-step and Bluestein over them. complex64
+                  only.
 * ``stockham`` -- plain PyTorch Stockham autosort (2^a*3^b) + Bluestein, in
                   complex64 or complex128 on any device.
 * ``auto``     -- ``vpu`` for complex64 on a CUDA device, else ``stockham``
-                  (complex128 runs the f64 Stockham on every device).
+                  (as the JAX package picks ``stockham`` off the TPU;
+                  complex128 runs the f64 Stockham on every device).
 
-``mxu``, ``dd`` and ``measure`` are not ported yet and raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+``dd`` and ``measure`` are not ported yet and raise ``NotImplementedError``
+naming the ROADMAP item that ports them.
 
 Plans are cached per (size, dtype, resolved backend, device), LRU-bounded.
 """
@@ -23,13 +29,17 @@ Plans are cached per (size, dtype, resolved backend, device), LRU-bounded.
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from fourier_tpu_torch.plan.autosort import AutosortPlan
 from fourier_tpu_torch.plan.base import FftPlan, complex_dtype
 from fourier_tpu_torch.plan.bluestein import BluesteinPlan
+from fourier_tpu_torch.plan.bluestein_fused import VpuBluesteinPlan
+from fourier_tpu_torch.plan.four_step_local import (FourStepLocalPlan,
+                                                    choose_large_split)
+from fourier_tpu_torch.plan.mxu import MxuFftPlan
 from fourier_tpu_torch.plan.vpu import VpuFftPlan
 
 _PLAN_CACHE: "OrderedDict[Tuple[int, str, str, str], FftPlan]" = OrderedDict()
@@ -38,7 +48,6 @@ _PLAN_CACHE_MAX = 256
 BACKENDS = ("auto", "mxu", "stockham", "dd", "vpu", "measure")
 
 _NOT_PORTED = {
-    "mxu": "ROADMAP.md queue 1 item 4 (plan/mxu.py and kernel B9)",
     "dd": "ROADMAP.md queue 1 item 7 (c128 as native f64)",
     "measure": "ROADMAP.md queue 1 item 10 (plan/measure.py)",
 }
@@ -65,21 +74,50 @@ def _create_stockham(size: int, dtype, device) -> FftPlan:
     return plan
 
 
-def _vpu_or_autosort(size: int, dtype, device) -> FftPlan:
-    plan = VpuFftPlan.create(size, dtype, device)
-    if plan is None:
-        plan = AutosortPlan.create(size, dtype, device)
-    return plan
+def _create_mxu_composite(size: int, dtype, device, *,
+                          vpu_first: bool = False) -> Optional[FftPlan]:
+    """Best product- or kernel-family plan for a composite size, or None
+    (primes and other sizes with no usable divisor structure): VpuFftPlan
+    first with `vpu_first`, then MxuFftPlan, then a four-step composition
+    whose legs are planned the same way (falling back to ``stockham``)."""
+    if vpu_first:
+        plan = VpuFftPlan.create(size, dtype, device)
+        if plan is not None:
+            return plan
+    plan = MxuFftPlan.create(size, dtype, device)
+    if plan is not None:
+        return plan
+    split = choose_large_split(size)
+    if split is None:
+        return None
+
+    def factory(m, dt, dev):
+        sub = _create_mxu_composite(m, dt, dev, vpu_first=vpu_first)
+        return sub if sub is not None else _create_stockham(m, dt, dev)
+
+    return FourStepLocalPlan.create(size, dtype, split[0], split[1], factory,
+                                    device)
 
 
-def _create_vpu(size: int, dtype, device) -> FftPlan:
-    plan = VpuFftPlan.create(size, dtype, device)
-    if plan is None:
-        plan = AutosortPlan.create(size, dtype, device)
-    if plan is None:
-        plan = BluesteinPlan.create(size, dtype, inner_factory=_vpu_or_autosort,
-                                    device=device)
-    return plan
+def _create_mxu(size: int, dtype, device, *, vpu_first: bool = False) -> FftPlan:
+    plan = _create_mxu_composite(size, dtype, device, vpu_first=vpu_first)
+    if plan is not None:
+        return plan
+    # Split-less sizes up to the direct-product crossover: one full-size DFT
+    # product; past it, the one-kernel Bluestein (B2) where its inner fits.
+    if size <= MxuFftPlan.DIRECT_SINGLE_MAX:
+        return MxuFftPlan.create_direct(size, dtype, device)
+    if vpu_first:
+        plan = VpuBluesteinPlan.create(size, dtype, device)
+        if plan is not None:
+            return plan
+
+    def inner_factory(m, dt, dev):
+        inner = _create_mxu_composite(m, dt, dev, vpu_first=vpu_first)
+        return inner if inner is not None else AutosortPlan.create(m, dt, dev)
+
+    return BluesteinPlan.create(size, dtype, inner_factory=inner_factory,
+                                device=device)
 
 
 def create_fft(size: int, dtype=torch.complex64, *, backend: str = "auto",
@@ -91,14 +129,19 @@ def create_fft(size: int, dtype=torch.complex64, *, backend: str = "auto",
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     resolved = _resolve_backend(backend, dtype, device)
-    if resolved == "vpu" and dtype != torch.complex64:
-        raise ValueError("backend='vpu' supports complex64 only (c128: stockham)")
+    if resolved in ("mxu", "vpu") and dtype != torch.complex64:
+        raise ValueError(
+            f"backend={resolved!r} supports complex64 only (c128: stockham)")
     key = (int(size), str(dtype), resolved, str(device))
     if cache and key in _PLAN_CACHE:
         _PLAN_CACHE.move_to_end(key)
         return _PLAN_CACHE[key]
-    if resolved == "vpu":
-        plan = _create_vpu(size, dtype, device)
+    if resolved == "mxu":
+        plan = _create_mxu(size, dtype, device)
+    elif resolved == "vpu":
+        plan = VpuFftPlan.create(size, dtype, device)
+        if plan is None:
+            plan = _create_mxu(size, dtype, device, vpu_first=True)
     else:
         plan = _create_stockham(size, dtype, device)
     if cache:
@@ -120,3 +163,20 @@ def create_fft_f64(size: int, backend: str = "auto", device="cpu") -> FftPlan:
 
 def clear_plan_cache() -> None:
     _PLAN_CACHE.clear()
+
+
+def plan_tree(plan) -> tuple:
+    """A plan's family tree: (class name, size, split or inner size,
+    sub-plan trees). Read only by class name and attributes that both
+    packages share, so it also gives the tree of a JAX package plan."""
+    name = type(plan).__name__
+    if name == "MxuFftPlan":
+        return (name, plan.size, (plan.n1, plan.n2))
+    if name == "VpuBluesteinPlan":
+        return (name, plan.size, plan.m_inner)
+    if name == "BluesteinPlan":
+        return (name, plan.size, plan_tree(plan.inner))
+    if name == "FourStepLocalPlan":
+        return (name, plan.size, (plan.p, plan.q), plan_tree(plan.col_plan),
+                plan_tree(plan.row_plan))
+    return (name, plan.size)

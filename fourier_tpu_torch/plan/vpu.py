@@ -16,12 +16,12 @@ import numpy as np
 import torch
 
 from fourier_tpu_torch.ops.cuda import stockham_vpu
-from fourier_tpu_torch.plan.base import (FftPlan, complex_dtype, planar_buffer,
-                                         stage_views)
+from fourier_tpu_torch.plan.base import (BatchMinorPlan, complex_dtype,
+                                         planar_buffer, stage_views)
 from fourier_tpu_torch.transform import Transform
 
 
-class VpuFftPlan(FftPlan):
+class VpuFftPlan(BatchMinorPlan):
     """Fused all-stages c64 plan for sizes in B1's domain (n = 2^a*3^b*5^c,
     8 | n, 64..16384, and the tabled pure powers of 3 and 5), batch-minor."""
 
@@ -66,15 +66,6 @@ class VpuFftPlan(FftPlan):
             tables=self.tables(forward),
             kernel_tables=self.kernel_fwd if forward else self.kernel_inv,
         )
-
-    def _execute(self, re, im, transform: Transform):
-        batch_shape = re.shape[:-1]
-        b = int(np.prod(batch_shape, dtype=np.int64))
-        re_t = re.reshape(b, self.size).T.contiguous()
-        im_t = im.reshape(b, self.size).T.contiguous()
-        ore, oim = self._execute_bm(re_t, im_t, transform)
-        return (ore.T.reshape(*batch_shape, self.size),
-                oim.T.reshape(*batch_shape, self.size))
 
     def extra_repr(self) -> str:
         return f"size={self.size}, schedule={self.schedule}, family={self.family}"

@@ -1,9 +1,11 @@
 """Planner routing, plan interchange, autograd and import hygiene of the port.
 
 The slice as a whole: ``create_fft_f32`` through each backend against the JAX
-package's ``create_fft_f32`` on the same inputs; plans saved by the JAX
-package's ``save_plan`` and loaded with ``load_jax_plan``; the gradient of
-the autograd ``Function`` against ``jax.grad`` through the JAX VpuFftPlan.
+package's ``create_fft_f32`` on the same inputs; the plan tree of the ``vpu``
+and ``mxu`` routes against the JAX package's, size by size; plans saved by the
+JAX package's ``save_plan`` and loaded with ``load_jax_plan``; the gradient of
+the autograd ``Function`` against ``jax.grad`` through the JAX VpuFftPlan and
+against the analytic linear VJP for the other families.
 """
 
 import os
@@ -24,8 +26,10 @@ from fourier_tpu.plan.vpu import VpuFftPlan as JVpuFftPlan
 
 import fourier_tpu_torch as tft
 from fourier_tpu_torch import Transform
-from fourier_tpu_torch.plan import (AutosortPlan, BluesteinPlan, VpuFftPlan,
-                                    load_jax_plan)
+from fourier_tpu_torch.plan import (AutosortPlan, BluesteinPlan,
+                                    FourStepLocalPlan, MxuFftPlan,
+                                    VpuBluesteinPlan, VpuFftPlan, load_jax_plan,
+                                    plan_tree)
 
 RNG_SEED = 0x5EED
 REL_L2 = 1e-6
@@ -61,24 +65,50 @@ def test_cpu_routing():
 
 
 def test_vpu_backend_interim_routing():
-    """Outside B1's domain: Autosort for 2^a*3^b, else Bluestein with a B1
-    inner where the domain allows (the interim route until B2/B3/mxu)."""
-    assert isinstance(tft.create_fft(48, backend="vpu"), AutosortPlan)
+    """Outside B1's domain the vpu route is the JAX package's: DFT products
+    for small sizes, B2 for primes past the direct-product crossover, B3
+    four-step for large composites, Bluestein over a four-step inner for
+    large primes; complex128 raises."""
+    assert isinstance(tft.create_fft(48, backend="vpu"), MxuFftPlan)
     prime = tft.create_fft(1013, backend="vpu")
-    assert isinstance(prime, BluesteinPlan) and isinstance(prime.inner, VpuFftPlan)
-    assert prime.inner.size == 2048 and "family=vpu" in repr(prime)
+    assert isinstance(prime, VpuBluesteinPlan) and prime.m_inner == 2048
+    assert "family=vpu" in repr(prime)
     small = tft.create_fft(7, backend="vpu")
-    assert isinstance(small, BluesteinPlan) and isinstance(small.inner, AutosortPlan)
-    with pytest.raises(ValueError):
-        tft.create_fft(64, torch.complex128, backend="vpu")
+    assert isinstance(small, MxuFftPlan) and small.single_phase
+    large = tft.create_fft(10007, backend="vpu")
+    assert isinstance(large, BluesteinPlan)
+    assert isinstance(large.inner, FourStepLocalPlan)
+    assert isinstance(large.inner.row_plan, VpuFftPlan)
+    for backend in ("vpu", "mxu"):
+        with pytest.raises(ValueError):
+            tft.create_fft(64, torch.complex128, backend=backend)
 
 
 @pytest.mark.parametrize("backend", ["mxu", "dd", "measure"])
 def test_unported_backends_raise(backend):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tft.create_fft(64, backend=backend)
+    if backend == "mxu":
+        # The backend is ported; its Pallas kernels (B9) are not.
+        assert isinstance(tft.create_fft(64, backend="mxu"), MxuFftPlan)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            MxuFftPlan.create(64, impl="pallas")
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tft.create_fft(64, backend=backend)
     with pytest.raises(ValueError):
         tft.create_fft(64, backend="nonsense")
+
+
+ROUTE_SIZES = (1, 7, 32, 48, 64, 100, 125, 200, 222, 439, 722, 769, 818, 1013,
+               1418, 4093, 4099, 10007, 20000, 32768, 65536, 262144, 458752)
+
+
+@pytest.mark.parametrize("backend", ["vpu", "mxu"])
+@pytest.mark.parametrize("n", ROUTE_SIZES)
+def test_route_matches_jax(n, backend):
+    """Every size plans the same tree in both packages."""
+    mine = tft.create_fft(n, backend=backend, cache=False)
+    ref = jft.create_fft(n, backend=backend, cache=False)
+    assert plan_tree(mine) == plan_tree(ref)
 
 
 @pytest.mark.parametrize("n", [64, 96, 100, 320, 1013, 1024])
@@ -122,10 +152,20 @@ def _jax_vpu_inner(m, dt):
     return JVpuFftPlan.create(m, dt) or jft.AutosortPlan.create(m, dt)
 
 
-@pytest.mark.parametrize("kind", ["autosort", "bluestein", "vpu", "bluestein_vpu"])
+_ROUTED = {"mxu_direct": (439, "mxu"), "mxu_two_phase": (2048, "mxu"),
+           "bluestein_fused": (1418, "vpu"), "four_step": (32768, "vpu"),
+           "four_step_mxu_row": (20000, "vpu"), "bluestein_four_step": (10007, "vpu")}
+
+
+@pytest.mark.parametrize("kind", ["autosort", "bluestein", "vpu", "bluestein_vpu",
+                                  *_ROUTED])
 def test_load_jax_plan_round_trip(kind, tmp_path):
-    n = {"autosort": 96, "bluestein": 73, "vpu": 320, "bluestein_vpu": 37}[kind]
-    if kind == "autosort":
+    n = {"autosort": 96, "bluestein": 73, "vpu": 320, "bluestein_vpu": 37,
+         **{k: v[0] for k, v in _ROUTED.items()}}[kind]
+    if kind in _ROUTED:
+        ref = jft.create_fft(n, backend=_ROUTED[kind][1], cache=False)
+        own = tft.create_fft(n, backend=_ROUTED[kind][1], cache=False)
+    elif kind == "autosort":
         ref = jft.AutosortPlan.create(n, np.complex64)
         own = AutosortPlan.create(n)
     elif kind == "bluestein":
@@ -152,8 +192,14 @@ def test_load_jax_plan_round_trip(kind, tmp_path):
 
 
 def test_load_jax_plan_unported_class_raises(tmp_path):
-    path = tmp_path / "mxu.npz"
-    save_plan(jft.create_fft(64, backend="mxu", cache=False), str(path))
+    from fourier_tpu.precision.dd_plan import DdFftPlan
+
+    path = tmp_path / "dd.npz"
+    save_plan(DdFftPlan(64), str(path))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        load_jax_plan(str(path))
+    packed = jft.plan.mxu.MxuFftPlan.create(2048, impl="xla_packed")
+    save_plan(packed, str(path))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         load_jax_plan(str(path))
 
@@ -181,6 +227,40 @@ def test_grad_matches_jax_vpu(mode):
     got = tre.grad.numpy() + 1j * tim.grad.numpy()
     want = np.asarray(jgr) + 1j * np.asarray(jgi)
     assert _rel(got, want) <= REL_L2
+
+
+@pytest.mark.parametrize("kind", ["mxu", "bluestein_fused", "four_step"])
+@pytest.mark.parametrize("batch_minor", [False, True])
+def test_grad_new_families_linear_vjp(kind, batch_minor):
+    """d/dx of Re(sum(conj(c) * y)), y = plan(x) in each mode, is F^H c: the
+    autograd Function's backward against the analytic VJP in numpy."""
+    n, plan = {
+        "mxu": (125, MxuFftPlan.create(125)),
+        "bluestein_fused": (73, VpuBluesteinPlan.create(73)),
+        "four_step": (4096, FourStepLocalPlan.create(
+            4096, torch.complex64, 64, 64,
+            lambda m, dt, dev: VpuFftPlan.create(m, dt, dev))),
+    }[kind]
+    rng = np.random.default_rng(RNG_SEED)
+    x = rng.standard_normal((2, 2, n))
+    c = (rng.standard_normal((2, n)) + 1j * rng.standard_normal((2, n)))
+    for mode in Transform:
+        re = torch.tensor(x[0].astype(np.float32), requires_grad=True)
+        im = torch.tensor(x[1].astype(np.float32), requires_grad=True)
+        if batch_minor:
+            yr, yi = plan.transform_planar_bm(re.T, im.T, mode)
+            yr, yi = yr.T, yi.T
+        else:
+            yr, yi = plan.transform_planar(re, im, mode)
+        loss = (yr * torch.tensor(c.real, dtype=torch.float32)
+                + yi * torch.tensor(c.imag, dtype=torch.float32)).sum()
+        loss.backward()
+        got = re.grad.numpy() + 1j * im.grad.numpy()
+        # y = s * DFT(x) (forward) or s * n * IDFT(x): F^H c swaps the two.
+        s = mode.scale(n) or 1.0
+        want = (np.fft.ifft(c, axis=-1) * n if mode.is_forward
+                else np.fft.fft(c, axis=-1)) * s
+        assert _rel(got, want) <= 5e-6, (kind, mode)
 
 
 def test_gradcheck_c128_both_layouts():

@@ -11,7 +11,8 @@ and the CUDA kernel's host-side inputs.
   (its own stage schedule, its concatenated twiddle tables with the offsets
   the host function computes, its in-place stage indexing, its column
   blocking and ragged-edge mask) is held against np.fft over the domain, so
-  what the Python side hands the kernel is checked on every run.
+  what the Python side hands the kernel is checked on every run. The stage
+  part, :func:`emulate_stages`, also serves the emulations of B2 and B3.
 * ``test_kernel_matches_plain_on_card`` runs the kernel itself where a card
   is present (marker ``cuda``).
 """
@@ -110,13 +111,38 @@ def test_plain_b1_large_and_pure_powers(n):
         assert _rel(got, want) <= REL_L2, (n, mode)
 
 
-def _emulate_kernel(x_t, n, forward, scale):
-    """numpy transliteration of csrc/stockham_vpu.cu (butterflies as exact
-    DFTs): per block of `cols` columns, each stage reads every butterfly's
-    inputs, then writes its twiddled outputs, in the kernel's index order."""
-    cols, threads = sv.launch_geometry(n)
+def emulate_stages(s, n, cols, forward):
+    """numpy transliteration of run_stages in csrc/stockham_stages.cuh
+    (butterflies as exact DFTs), in place on one block's flat (n * cols)
+    shared-memory planes `s`: each stage reads every butterfly's inputs,
+    then writes its twiddled outputs, in the kernel's index order. Shared
+    by the emulations of B1, B2 and B3."""
+    _, threads = sv.launch_geometry(n)
     tw = sv.make_kernel_tables(n, forward)
     tw = tw[0].astype(np.float64) + 1j * tw[1].astype(np.float64)
+    size, stride, off = n, 1, 0
+    for r in sv.kernel_schedule(n):
+        m = size // r
+        blk = m * stride
+        ids = np.arange(blk * cols)
+        assert ids.size <= threads * -(-sv.POINTS_PER_THREAD // r)
+        p, col = ids // cols, ids % cols
+        i, j = p // stride, p % stride
+        k = np.arange(r)[:, None]
+        xin = s[(k * blk + p) * cols + col]
+        y = np.fft.fft(xin, axis=0) if forward else np.fft.ifft(xin, axis=0) * r
+        if m > 1:
+            y = y * tw[off + i * r + k]
+            off += size
+        s[((i * r + k) * stride + j) * cols + col] = y
+        size, stride = m, stride * r
+    assert off == tw.size
+
+
+def _emulate_kernel(x_t, n, forward, scale):
+    """numpy transliteration of csrc/stockham_vpu.cu: per block of `cols`
+    columns, load (the ragged last block masked), the stages, scaled store."""
+    cols, _ = sv.launch_geometry(n)
     b = x_t.shape[1]
     out = np.empty((n, b), np.complex128)
     for b0 in range(0, b, cols):
@@ -124,23 +150,7 @@ def _emulate_kernel(x_t, n, forward, scale):
         s = np.zeros((n, cols), np.complex128)
         s[:, :valid] = x_t[:, b0:b0 + valid]
         s = s.ravel()
-        size, stride, off = n, 1, 0
-        for r in sv.kernel_schedule(n):
-            m = size // r
-            blk = m * stride
-            ids = np.arange(blk * cols)
-            assert ids.size <= threads * -(-sv.POINTS_PER_THREAD // r)
-            p, col = ids // cols, ids % cols
-            i, j = p // stride, p % stride
-            k = np.arange(r)[:, None]
-            xin = s[(k * blk + p) * cols + col]
-            y = np.fft.fft(xin, axis=0) if forward else np.fft.ifft(xin, axis=0) * r
-            if m > 1:
-                y = y * tw[off + i * r + k]
-                off += size
-            s[((i * r + k) * stride + j) * cols + col] = y
-            size, stride = m, stride * r
-        assert off == tw.size
+        emulate_stages(s, n, cols, forward)
         out[:, b0:b0 + valid] = s.reshape(n, cols)[:, :valid] * scale
     return out
 
