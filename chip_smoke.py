@@ -3,17 +3,21 @@
 
     python3 chip_smoke.py
 
-Builds kernels B1, B2 and B3 from fourier_tpu_torch/csrc with nvcc (one
-library) and holds each against its plain PyTorch version and against
-np.fft, at the listed sizes and at every shape the routes below give it. Then it drives the main path (the
-default complex64 1-D transform through create_fft_f32 on device="cuda") and
-the routes of the other sizes the JAX package plans differently (fused
-Bluestein B2, four-step with B3 rows, DFT products), checking each plan tree
-against the JAX package's and that each path launched the kernels its plan
-holds. Last it times B1, B2 and B3 against their plain versions and
-torch.fft. Every phase prints its lines; any failed check raises, so the
-exit code is non-zero. The next-to-last line is a JSON record of the
-kernels; the last line is {"ok": true, "device": {...}}.
+Builds kernels B1-B5 from fourier_tpu_torch/csrc with nvcc (one library)
+and holds each against its plain PyTorch version and against np.fft, at the
+listed sizes and at every shape the routes below give it. Then it drives the
+main path (the default complex64 1-D transform through create_fft_f32 on
+device="cuda") and the routes of the other sizes the JAX package plans
+differently (fused Bluestein B2, four-step with B3 rows, DFT products), then
+the real transforms through RfftPlan and the module functions (B4 for even
+n, B5 for odd n, the c2c kernels inside the unfused routes) and their
+gradients, checking each plan tree against the JAX package's and that each
+path launched the kernels its plan holds. Last it times the kernels against
+their plain versions and torch.fft, and the rfft round trips of the suite's
+rows fused, unfused and through torch.fft. Every phase prints its lines;
+any failed check raises, so the exit code is non-zero. The next-to-last
+line is a JSON record of the kernels; the last line is
+{"ok": true, "device": {...}}.
 
 It needs a CUDA device and the repository beside it; it imports no JAX.
 """
@@ -82,6 +86,44 @@ B2_TIME = (1013, 65536)
 B3_TIME = (65536, 1024)
 CHAIN_NEW = 32  # chain of the B2/B3 timings
 PLAIN_CHAIN = 4  # shorter chain of the plain versions there
+RF_EVEN = (128, 192, 486, 1024, 4096, 32768)  # B4 at m = n/2
+RF_ODD = (769, 1013, 4093)  # B5 at inner 1600, 2048, 8192
+RF_BATCHES = (1, 2, 7, 1000)  # B5's pairing: none, one pair, odd, even
+# The route of the JAX package's RfftPlan(n, np.complex64, backend="vpu"),
+# as fourier_tpu_torch.plan.plan_tree gives it: even n plan n/2, odd n plan n.
+RFFT_TREES = {
+    16: ("MxuFftPlan", 8, (1, 8)),
+    64: ("MxuFftPlan", 32, (1, 32)),
+    128: ("VpuFftPlan", 64),
+    1024: ("VpuFftPlan", 512),
+    4096: ("VpuFftPlan", 2048),
+    8192: ("VpuFftPlan", 4096),
+    32768: ("VpuFftPlan", 16384),
+    192: ("VpuFftPlan", 96),
+    486: ("VpuFftPlan", 243),
+    250: ("MxuFftPlan", 125, (1, 125)),
+    2026: ("VpuBluesteinPlan", 1013, 2048),
+    40000: ("FourStepLocalPlan", 20000, (125, 160), ("VpuFftPlan", 160),
+            ("MxuFftPlan", 125, (1, 125))),
+    65536: ("FourStepLocalPlan", 32768, (128, 256), ("VpuFftPlan", 256),
+            ("VpuFftPlan", 128)),
+    37: ("MxuFftPlan", 37, (1, 37)),
+    101: ("MxuFftPlan", 101, (1, 101)),
+    243: ("VpuFftPlan", 243),
+    769: ("VpuBluesteinPlan", 769, 1600),
+    1013: ("VpuBluesteinPlan", 1013, 2048),
+    4093: ("VpuBluesteinPlan", 4093, 8192),
+    4097: ("BluesteinPlan", 4097, ("VpuFftPlan", 16384)),
+    10007: ("BluesteinPlan", 10007, ("FourStepLocalPlan", 32768, (128, 256),
+                                     ("VpuFftPlan", 256), ("VpuFftPlan", 128))),
+}
+RF_ROUTE_B = 129  # odd: the unfused odd path's single-column fallback runs
+RF_ROUTE_B_LARGE = 16  # n >= 32768
+GRAD_SIZES = (1024, 1013)  # B4, B5
+GRAD_TOL = 2e-3  # tests/test_autodiff.py's gate for the fused-pack VJP
+RF_TIME = ((1024, 65536), (4096, 16384), (1013, 65536))  # the suite's rows
+RF_CHAIN = 16  # round trips per timing; the plain versions run RF_PLAIN_CHAIN
+RF_PLAIN_CHAIN = 2
 
 
 def _kernels_of(tree, batch_minor: bool) -> set:
@@ -125,6 +167,31 @@ def _route_cases(kernel: str) -> list:
             for m in _fused_sizes(ROUTE_TREES[n], kernel)]
 
 
+def _rfft_kernels(n: int, inner, call: str) -> set:
+    """The kernels an RfftPlan(n) over the `inner` tree launches on `call`
+    ("rfft_bm", "irfft_bm" or "major", the batch-major calls): B4a/B4b for
+    even n over a VpuFftPlan and B5a/B5b for odd n over a VpuBluesteinPlan
+    on the batch-minor calls, else the inner plan's kernels."""
+    fused = {("VpuFftPlan", 0): ("B4a", "B4b"),
+             ("VpuBluesteinPlan", 1): ("B5a", "B5b")}.get((inner[0], n % 2))
+    if fused and call != "major":
+        return {fused[call == "irfft_bm"]}
+    return _kernels_of(inner, batch_minor=call != "major")
+
+
+def _rf_route_b(n: int) -> int:
+    """The batch phase 4c drives RfftPlan(n) at."""
+    return RF_ROUTE_B if n < 32768 else RF_ROUTE_B_LARGE
+
+
+def _rfft_route_cases() -> list:
+    """(n, B) of every B4 or B5 call the rfft routes of phase 4c make, then
+    the suite rows phase 5d times."""
+    fused = [(n, _rf_route_b(n)) for n, inner in RFFT_TREES.items()
+             if _rfft_kernels(n, inner, "rfft_bm") & {"B4a", "B5a"}]
+    return fused + list(RF_TIME)
+
+
 def rel_l2(got, want) -> float:
     return float(np.linalg.norm(got - want) / np.linalg.norm(want))
 
@@ -162,7 +229,11 @@ def main() -> int:
     print(f"device: {name} | nvidia-smi: {smi}", flush=True)
 
     counters = {"B1": sv.vpu_fft_batch_minor, "B2": sv.vpu_bluestein_batch_minor,
-                "B3": sv.vpu_fft_four_step_row}
+                "B3": sv.vpu_fft_four_step_row,
+                "B4a": sv.vpu_rfft_pack_batch_minor,
+                "B4b": sv.vpu_irfft_unpack_batch_minor,
+                "B5a": sv.vpu_rfft_odd_pack_batch_minor,
+                "B5b": sv.vpu_irfft_odd_unpack_batch_minor}
 
     def zero_counts():
         for fn in counters.values():
@@ -192,7 +263,7 @@ def main() -> int:
     # 2. Build: one nvcc for the kernel library.
     t0 = time.perf_counter()
     sv.library()
-    print(f"build: fourier_tpu_torch/csrc/{sv.LIBRARY}.cu (B1, B2, B3) in "
+    print(f"build: fourier_tpu_torch/csrc/{sv.LIBRARY}.cu (B1-B5) in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # 3. Kernel against its plain version, and against np.fft on the host.
@@ -287,6 +358,72 @@ def main() -> int:
           f"worst rel-L2 {worst_plain:.3e} vs plain, whole plan {worst_host:.3e} "
           f"vs np.fft (gate {REL_L2_GATE:g}); max abs err {max_abs:.3e}", flush=True)
     max_abs_err["B3"] = max_abs
+
+    # 3d. B4a/B4b and B5a/B5b against their plain versions and np.fft (f64),
+    # and the round trip irfft(rfft(x)) against x.
+    def rfft_host(x):
+        """np.fft.rfft of the first HOST_COLUMNS columns of an (n, B) plane."""
+        return np.fft.rfft(x[:, :HOST_COLUMNS].double().cpu().numpy(), axis=0)
+
+    def plain_fns(plan):
+        """The plain versions of a fused plan's two kernels: (x -> (re, im),
+        (re, im) -> x)."""
+        inner = plan.inner
+        if plan.even:
+            return (lambda x: sv.vpu_rfft_pack_batch_minor_reference(
+                        x, plan.m, inner.tables(True), plan.w),
+                    lambda r, i: sv.vpu_irfft_unpack_batch_minor_reference(
+                        r, i, plan.m, inner.tables(False), plan.w))
+        st = inner.stages
+        tables = (st.tables(True), st.tables(False))
+        return (lambda x: sv.vpu_rfft_odd_pack_batch_minor_reference(
+                    x, plan.n, st.size, tables, inner.chirps(True)),
+                lambda r, i: sv.vpu_irfft_odd_unpack_batch_minor_reference(
+                    r, i, plan.n, st.size, tables, inner.chirps(False)))
+
+    def rfft_case(plan, x):
+        """Kernel and plain results of one plan on (n, B) x: worst rel-L2
+        of each check and the max abs errors against the plain versions."""
+        plain_f, plain_i = plain_fns(plan)
+        kre, kim = plan.rfft_planar_bm(x)
+        back = plan.irfft_planar_bm(kre, kim)
+        pre, pim = plain_f(x)
+        pback = plain_i(kre, kim)
+        torch.cuda.synchronize()
+        ef, mf = vs_plain((kre, kim), (pre, pim))
+        ei, mi = vs_plain((back,), (pback,))
+        spec = host_cols(kre, kim)
+        eh = rel_l2(spec, rfft_host(x))
+        ehi = rel_l2(np.fft.irfft(spec, plan.n, axis=0),
+                     back[:, :HOST_COLUMNS].double().cpu().numpy())
+        rt = (torch.linalg.norm(back - x) / torch.linalg.norm(x)).item()
+        return (ef, ei, eh, ehi, rt), mf, mi
+
+    rf_routes = _rfft_route_cases()
+    for fam, sizes, batches in (("B4", RF_EVEN, BATCHES), ("B5", RF_ODD, RF_BATCHES)):
+        worst = [0.0] * 5
+        mx = {f"{fam}a": 0.0, f"{fam}b": 0.0}
+        routes = [(n, b) for n, b in rf_routes if n % 2 == (fam == "B5")]
+        plans = {}
+        for n, b in [(n, b) for n in sizes for b in batches] + routes:
+            if n not in plans:
+                plans[n] = ftt.RfftPlan(n, device=dev)
+                check(plans[n].fused, f"RfftPlan({n}) on the card is not fused: "
+                      f"{plans[n]!r}")
+            errs, mf, mi = rfft_case(plans[n], planes(n, b)[0])
+            check(max(errs) <= REL_L2_GATE,
+                  f"{fam} n={n} B={b}: rel-L2 (rfft vs plain, irfft vs plain, "
+                  f"rfft vs np.fft, irfft vs np.fft, round trip) {errs}")
+            worst = [max(a, e) for a, e in zip(worst, errs)]
+            mx[f"{fam}a"] = max(mx[f"{fam}a"], mf)
+            mx[f"{fam}b"] = max(mx[f"{fam}b"], mi)
+        print(f"{fam} kernels vs plain: n in {sizes} x B in {batches}, routes and "
+              f"suite rows {routes} pass; worst rel-L2 {worst[0]:.3e} (rfft) and "
+              f"{worst[1]:.3e} (irfft) vs plain, {worst[2]:.3e} and {worst[3]:.3e} "
+              f"vs np.fft, round trip {worst[4]:.3e} (gate {REL_L2_GATE:g}); max "
+              f"abs err {mx}", flush=True)
+        max_abs_err.update(mx)
+        del plans
 
     # 4. Main path through the entry points, with the launch count.
     zero_counts()
@@ -407,6 +544,125 @@ def main() -> int:
     for k in ("B2", "B3"):
         check(path_launches[k] > 0, f"the routes launched {k} no time")
 
+    # 4c. The real transforms: the plan trees of RfftPlan(n, device="cuda"),
+    # then every route through the entry points, with the counts of the
+    # kernels its plan holds rising and no other.
+    for n, want in RFFT_TREES.items():
+        got = plan_tree(ftt.RfftPlan(n, device="cuda"))
+        check(got == ("RfftPlan", n, want),
+              f"RfftPlan({n}) planned {got}, the JAX package plans {want}")
+    print(f"rfft route: the plan trees of {len(RFFT_TREES)} sizes equal the JAX "
+          f"package's RfftPlan(backend='vpu')", flush=True)
+    zero_counts()
+
+    def rfft_route(n, b):
+        """Drive RfftPlan(n) and the module functions at batch b."""
+        plan = ftt.RfftPlan(n, device="cuda")
+        inner = plan_tree(plan)[2]
+        seen = counts()
+
+        def ran(what, call):
+            nonlocal seen
+            want = _rfft_kernels(n, inner, call)
+            now = counts()
+            for k in counters:
+                rose = now[k] > seen[k]
+                check(rose == (k in want),
+                      f"rfft n={n} {what}: {k} {'rose' if rose else 'did not rise'}; "
+                      f"the plan runs {sorted(want)} there")
+            seen = now
+
+        x = planes(n, b)[0]
+        xm = x.T.contiguous()
+        re_t, im_t = plan.rfft_planar_bm(x)
+        ran("rfft_planar_bm", "rfft_bm")
+        back_bm = plan.irfft_planar_bm(re_t, im_t)
+        ran("irfft_planar_bm", "irfft_bm")
+        mre, mim = plan.rfft_planar(xm)
+        ran("rfft_planar", "major")
+        back = plan.irfft_planar(mre, mim)
+        ran("irfft_planar", "major")
+        spec = ftt.rfft(xm)
+        ran("rfft", "major")
+        sig = ftt.irfft(spec, n=n)
+        ran("irfft", "major")
+        hf = ftt.hfft(spec, n=n)
+        ran("hfft", "major")
+        ih = ftt.ihfft(xm)
+        ran("ihfft", "major")
+        torch.cuda.synchronize()
+        L = n // 2 + 1
+        for what, t, shape in (("rfft", spec, (b, L)), ("ihfft", ih, (b, L)),
+                               ("irfft", sig, (b, n)), ("hfft", hf, (b, n))):
+            check(tuple(t.shape) == shape and t.device == dev, f"rfft n={n} {what}: "
+                  f"{tuple(t.shape)} on {t.device}")
+            check(bool(torch.isfinite(torch.view_as_real(t) if t.is_complex() else t)
+                       .all()), f"rfft n={n} {what}: not finite")
+        check(spec.dtype == torch.complex64 and sig.dtype == torch.float32,
+              f"rfft n={n}: dtypes {spec.dtype} {sig.dtype}")
+        want = rfft_host(x)
+        host_rows = lambda t: t[:HOST_COLUMNS].cpu().numpy().astype(np.complex128)
+        sh = host_rows(spec)
+        errs = (rel_l2(host_cols(re_t, im_t), want),
+                rel_l2(host_cols(mre.T, mim.T), want), rel_l2(sh.T, want), rel_l2(host_rows(ih).T, np.conj(want) / n),
+                rel_l2(host_rows(hf), np.fft.hfft(sh, n)),
+                *((torch.linalg.norm(a - x) / torch.linalg.norm(x)).item()
+                  for a in (back_bm, back.T, sig.T)))
+        check(max(errs) <= REL_L2_GATE,
+              f"rfft n={n} B={b}: rel-L2 bm/batch-major/rfft/ihfft/hfft vs np.fft "
+              f"and round trips {errs}")
+        kinds = {c: sorted(_rfft_kernels(n, inner, c)) or "no kernel"
+                 for c in ("rfft_bm", "irfft_bm", "major")}
+        print(f"rfft route: n={n} B={b} {plan_tree(plan)} launched {kinds['rfft_bm']} "
+              f"/ {kinds['irfft_bm']} batch-minor, {kinds['major']} batch-major; "
+              f"worst rel-L2 {max(errs):.3e}", flush=True)
+
+    for n in RFFT_TREES:
+        rfft_route(n, _rf_route_b(n))
+    for k, v in counts().items():
+        path_launches[k] += v
+    for k in ("B4a", "B4b", "B5a", "B5b"):
+        check(path_launches[k] > 0, f"the rfft routes launched {k} no time")
+
+    # 4d. Gradients through the fused batch-minor path (the linear VJP: each
+    # kernel's gradient is the other kernel) against the same plan's unfused
+    # branch (plain autograd through the inner plan).
+    worst_grad = 0.0
+    for n in GRAD_SIZES:
+        rplan = ftt.RfftPlan(n, device="cuda")
+        check(rplan.fused, f"RfftPlan({n}) is not fused")
+        b, L = 64, n // 2 + 1
+        x, gt = planes(n, b)
+        ctr, cti = planes(L, b)
+
+        def grads(fwd, inv):
+            xt = x.clone().requires_grad_(True)
+            sr, si = fwd(xt)
+            (sr * ctr + si * cti).sum().backward()
+            re = ctr.clone().requires_grad_(True)
+            im = cti.clone().requires_grad_(True)
+            (inv(re, im) * gt).sum().backward()
+            return xt.grad, re.grad, im.grad
+
+        before = counts()
+        got = grads(rplan.rfft_planar_bm, rplan.irfft_planar_bm)
+        after = counts()
+        fam = "B4" if rplan.even else "B5"
+        for k in (f"{fam}a", f"{fam}b"):
+            check(after[k] - before[k] == 2, f"grad n={n}: {k} launched "
+                  f"{after[k] - before[k]} times, want 2 (forward and backward)")
+        want = grads(rplan._rfft_bm_unfused, rplan._irfft_bm_unfused)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            excess = ((g - w).abs() - GRAD_TOL * (1.0 + w.abs())).max().item()
+            check(excess <= 0.0, f"grad n={n}: off the unfused branch by more "
+                  f"than atol=rtol={GRAD_TOL:g}")
+            worst_grad = max(worst_grad, ((g - w).abs().max() / w.abs().max()).item())
+    print(f"rfft grad: rfft_planar_bm and irfft_planar_bm through B4 "
+          f"(n={GRAD_SIZES[0]}) and B5 (n={GRAD_SIZES[1]}) match the unfused branch within "
+          f"atol=rtol={GRAD_TOL:g}; worst max|diff|/max|grad| {worst_grad:.3e}",
+          flush=True)
+
     # 5. Timing: CHAIN dependent SQRT_SCALED_FFT calls, median of REPS.
     mode = Transform.SQRT_SCALED_FFT
     tables = plan.tables(True)
@@ -526,10 +782,58 @@ def main() -> int:
               f"median of {REPS}) on {card}", flush=True)
     kernel_ms["B3"] = tuple(t3.values())[:2]
 
+    # 5d. rfft + irfft round trips at the suite's rows, batch-minor, chained:
+    # the fused plan, the same plan's unfused branch around the same inner
+    # plan, torch.fft.rfft/irfft on the same data as (B, n), and the plain
+    # versions (shorter chain); then each kernel alone, repeated on one input.
+    del re, im, xc
+    for n, b in RF_TIME:
+        plan = ftt.RfftPlan(n, device="cuda")
+        plain_f, plain_i = plain_fns(plan)
+        x = planes(n, b)[0]
+        xb = x.T.contiguous()
+        fam = "B4" if plan.even else "B5"
+        spec = plan.rfft_planar_bm(x)
+        trip = {
+            f"fused {fam} round trip (chain {RF_CHAIN})": median_ms(
+                lambda a, _c: (plan.irfft_planar_bm(*plan.rfft_planar_bm(a)), None),
+                x, None, RF_CHAIN),
+            f"unfused round trip (chain {RF_CHAIN})": median_ms(
+                lambda a, _c: (plan._irfft_bm_unfused(*plan._rfft_bm_unfused(a)),
+                               None), x, None, RF_CHAIN),
+            f"torch.fft.rfft/irfft round trip (chain {RF_CHAIN})": median_ms(
+                lambda a, _c: (torch.fft.irfft(torch.fft.rfft(a), n=n), None),
+                xb, None, RF_CHAIN),
+            f"plain {fam} round trip (chain {RF_PLAIN_CHAIN})": median_ms(
+                lambda a, _c: (plain_i(*plain_f(a)), None), x, None,
+                RF_PLAIN_CHAIN),
+            f"{fam}a kernel": median_ms(
+                lambda *_: (plan._rfft_bm(x), None), None, None, RF_CHAIN),
+            f"{fam}b kernel": median_ms(
+                lambda *_: (plan._irfft_bm(*spec), None), None, None, RF_CHAIN),
+            f"plain {fam}a": median_ms(
+                lambda *_: (plain_f(x), None), None, None, RF_PLAIN_CHAIN),
+            f"plain {fam}b": median_ms(
+                lambda *_: (plain_i(*spec), None), None, None, RF_PLAIN_CHAIN),
+        }
+        for what, ms in trip.items():
+            print(f"time: rfft n={n} B={b} {what}: {ms:.4f} ms per call "
+                  f"(inner {plan_tree(plan)[2]}, median of {REPS}) on {card}",
+                  flush=True)
+        if (n, b) in ((4096, 16384), (1013, 65536)):
+            for k in ("a", "b"):
+                kernel_ms[fam + k] = (trip[f"{fam}{k} kernel"], trip[f"plain {fam}{k}"])
+        del x, xb, spec
+
     kernels = (
         ("B1", "B1 fused Stockham c64 (vpu_fft_batch_minor)", 422),
         ("B2", "B2 fused Bluestein c64 (vpu_bluestein_batch_minor)", 881),
         ("B3", "B3 four-step row leg c64 (vpu_fft_four_step_row)", 778),
+        ("B4a", "B4a even-n rfft pack (vpu_rfft_pack_batch_minor)", 529),
+        ("B4b", "B4b even-n irfft unpack (vpu_irfft_unpack_batch_minor)", 574),
+        ("B5a", "B5a odd-n rfft two-for-one (vpu_rfft_odd_pack_batch_minor)", 1029),
+        ("B5b", "B5b odd-n irfft two-for-one (vpu_irfft_odd_unpack_batch_minor)",
+         1051),
     )
     print(json.dumps({"kernels": [{
         "name": name,

@@ -7,7 +7,9 @@ build plans on an explicit ``device``; plans expose ``transform_planar``,
 the default complex64 path runs the hand-written Hopper kernels of
 ``csrc/`` through ``ops/cuda/stockham_vpu.py``: B1 (fused Stockham), B2
 (fused Bluestein) and B3 (four-step row leg); the other complex64 sizes run
-DFT products (``ops/bailey.py``) in full float32.
+DFT products (``ops/bailey.py``) in full float32. Real transforms
+(``RfftPlan``, ``rfft``, ``irfft``, ``hfft``, ``ihfft``) run B4 (even n)
+and B5 (odd n) on their batch-minor path.
 
 This package imports torch and never jax.
 """
@@ -31,6 +33,7 @@ from fourier_tpu_torch.plan import (
     create_fft_f64,
     load_jax_plan,
 )
+from fourier_tpu_torch.rfft import RfftPlan, hfft, ihfft, irfft, rfft, rfftfreq
 from fourier_tpu_torch.transform import Transform
 
 __version__ = "0.1.0"
@@ -86,6 +89,7 @@ __all__ = [
     "FftPlan",
     "FourStepLocalPlan",
     "MxuFftPlan",
+    "RfftPlan",
     "Transform",
     "VpuBluesteinPlan",
     "VpuFftPlan",
@@ -94,8 +98,13 @@ __all__ = [
     "create_fft_f32",
     "create_fft_f64",
     "fft",
+    "hfft",
     "ifft",
+    "ihfft",
+    "irfft",
     "load_jax_plan",
+    "rfft",
+    "rfftfreq",
     "transform",
     "__version__",
 ]

@@ -1,7 +1,8 @@
-// Kernels B1, B2 and B3: the fused Stockham FFTs over complex64 planar,
-// batch-minor planes, for NVIDIA Hopper (sm_90a), in one library. The
-// butterflies, the in-place stage, the stage loop and the host-side checks
-// of all three live in stockham_stages.cuh. Each host function checks its
+// Kernels B1-B5: the fused Stockham FFTs over complex64 planar, batch-minor
+// planes (B1, B2, B3) and the real transforms built on them (B4a, B4b, B5a,
+// B5b), for NVIDIA Hopper (sm_90a), in one library. The butterflies, the
+// in-place stage, the stage loop and the host-side checks of all of them
+// live in stockham_stages.cuh. Each host function checks its
 // arguments, launches on the caller's stream, neither allocates nor
 // synchronises, and returns cudaGetLastError().
 //
@@ -106,6 +107,8 @@ stockham_c64(const float* __restrict__ xre, const float* __restrict__ xim,
 //   6. the first n rows times xo * scale (xo carries 1/M from plan time; the
 //      mode scale arrives as a float, as in B1), stored.
 // M is 5-smooth with 8 | M and M <= 8192 (VpuBluesteinPlan.choose_inner).
+// Steps 1-5 are chirp_z below, which the odd-n real kernels B5a and B5b
+// share.
 //
 // What bounds it on this card: it reads and writes only n rows per column,
 // 16*n*B bytes, but runs two M >= 2n-1 point transforms on chip, about
@@ -120,8 +123,8 @@ stockham_c64(const float* __restrict__ xre, const float* __restrict__ xim,
 //   (launch_geometry(M) of ops/cuda/stockham_vpu.py: 8 at M = 2048, 5 at
 //   2880, 2 at 8192). Its (M, cols) planes live in dynamic shared memory,
 //   8*M*cols bytes, at most 128 KiB (64 KiB per column at M = 8192); the
-//   attribute is raised above 48 KiB. The ragged last column group is masked, not padded: the
-//   batch is never padded.
+//   attribute is raised above 48 KiB. The ragged last column group is masked, not
+//   padded: the batch is never padded.
 // - The stages run in place, as in B1: first the forward schedule with its
 //   tables, then the inverse one with its own, both kernel_schedule(M) of
 //   the wrapper.
@@ -130,57 +133,80 @@ stockham_c64(const float* __restrict__ xre, const float* __restrict__ xim,
 
 namespace {
 
-template <int MaxThreads>
-__global__ void __launch_bounds__(MaxThreads)
-bluestein_c64(const float* __restrict__ xre, const float* __restrict__ xim,
-              float* __restrict__ yre, float* __restrict__ yim, int n, int m,
-              int batch, int cols, Schedule sch,
-              const float* __restrict__ fwre, const float* __restrict__ fwim,
-              const float* __restrict__ ivre, const float* __restrict__ ivim,
-              const float* __restrict__ xtre, const float* __restrict__ xtim,
-              const float* __restrict__ wtre, const float* __restrict__ wtim,
-              const float* __restrict__ xore, const float* __restrict__ xoim,
-              float scale) {
-  extern __shared__ float smem[];
-  float* sre = smem;
-  float* sim = smem + m * cols;
-  const int b0 = blockIdx.x * cols;
+// One direction's chirp-z tables: the inner schedule's forward and inverse
+// stage tables, the input chirp xt (n), the transformed padded chirp wt (M)
+// and the output chirp xo (n, 1/M folded in).
+struct ChirpZ {
+  const float* fwre;
+  const float* fwim;
+  const float* ivre;
+  const float* ivim;
+  const float* xtre;
+  const float* xtim;
+  const float* wtre;
+  const float* wtim;
+  const float* xore;
+  const float* xoim;
+};
+
+// Steps 1-5 of the chirp-z over the block's (m, cols) planes: row r < n of
+// column c becomes load(r, c) times xt[r] (load gives zeros for a masked
+// column), rows n..m-1 zeros; then the forward stages, the w multiply and
+// the inverse stages, unscaled. The planes are complete when it returns;
+// the output chirp is the caller's.
+template <typename Load>
+__device__ __forceinline__ void chirp_z(float* sre, float* sim, int n, int m,
+                                        int cols, const Schedule& sch,
+                                        const ChirpZ& t, Load load) {
   const int total = m * cols;
-  // 1-2. chirp multiply into the first n rows, zeros below.
   for (int e = threadIdx.x; e < total; e += blockDim.x) {
-    const int row = e / cols, col = e - row * cols, b = b0 + col;
+    const int row = e / cols, col = e - row * cols;
     float vr = 0.0f, vi = 0.0f;
-    if (row < n && b < batch) {
-      const size_t g = static_cast<size_t>(row) * batch + b;
-      const float a = xre[g], c = xim[g];
-      const float cr = __ldg(xtre + row), ci = __ldg(xtim + row);
-      vr = a * cr - c * ci;
-      vi = a * ci + c * cr;
+    if (row < n) {
+      const float2 v = load(row, col);
+      const float cr = __ldg(t.xtre + row), ci = __ldg(t.xtim + row);
+      vr = v.x * cr - v.y * ci;
+      vi = v.x * ci + v.y * cr;
     }
     sre[e] = vr;
     sim[e] = vi;
   }
   __syncthreads();
-  // 3. forward inner transform.
-  run_stages<true>(sre, sim, m, cols, sch, fwre, fwim);
-  // 4. w multiply.
+  run_stages<true>(sre, sim, m, cols, sch, t.fwre, t.fwim);
   for (int e = threadIdx.x; e < total; e += blockDim.x) {
     const int row = e / cols;
-    const float wr = __ldg(wtre + row), wi = __ldg(wtim + row);
+    const float wr = __ldg(t.wtre + row), wi = __ldg(t.wtim + row);
     const float a = sre[e], c = sim[e];
     sre[e] = a * wr - c * wi;
     sim[e] = a * wi + c * wr;
   }
   __syncthreads();
-  // 5. inverse inner transform (unscaled).
-  run_stages<false>(sre, sim, m, cols, sch, ivre, ivim);
+  run_stages<false>(sre, sim, m, cols, sch, t.ivre, t.ivim);
+}
+
+template <int MaxThreads>
+__global__ void __launch_bounds__(MaxThreads)
+bluestein_c64(const float* __restrict__ xre, const float* __restrict__ xim,
+              float* __restrict__ yre, float* __restrict__ yim, int n, int m,
+              int batch, int cols, Schedule sch, ChirpZ t, float scale) {
+  extern __shared__ float smem[];
+  float* sre = smem;
+  float* sim = smem + m * cols;
+  const int b0 = blockIdx.x * cols;
+  // 1-5. chirp in, zero rows, forward stages, w, inverse stages.
+  chirp_z(sre, sim, n, m, cols, sch, t, [&](int row, int col) {
+    const int b = b0 + col;
+    if (b >= batch) return make_float2(0.0f, 0.0f);
+    const size_t g = static_cast<size_t>(row) * batch + b;
+    return make_float2(xre[g], xim[g]);
+  });
   // 6. output chirp (1/M folded in) times the mode scale, first n rows.
   const int out = n * cols;
   for (int e = threadIdx.x; e < out; e += blockDim.x) {
     const int row = e / cols, col = e - row * cols, b = b0 + col;
     if (b < batch) {
-      const float cr = __ldg(xore + row) * scale;
-      const float ci = __ldg(xoim + row) * scale;
+      const float cr = __ldg(t.xore + row) * scale;
+      const float ci = __ldg(t.xoim + row) * scale;
       const float a = sre[e], c = sim[e];
       const size_t g = static_cast<size_t>(row) * batch + b;
       yre[g] = a * cr - c * ci;
@@ -268,6 +294,249 @@ four_step_row_c64(const float* __restrict__ xre, const float* __restrict__ xim,
 
 }  // namespace
 
+// Kernels B4a and B4b: the even-n real transforms, batch-minor.
+//
+// Replace fourier_tpu/ops/pallas/stockham_vpu.py:_rfft_pack_kernel (:529),
+// launched by vpu_rfft_pack_batch_minor (:619), and _irfft_unpack_kernel
+// (:574), launched by vpu_irfft_unpack_batch_minor (:699). For n = 2m, a
+// real (2m, B) signal is the m-point complex signal z[j] = x[2j] + i*x[2j+1];
+// with Z = FFT_m(z), E[k] = (Z[k] + conj Z[(m-k) mod m])/2 and
+// O[k] = -i*(Z[k] - conj Z[(m-k) mod m])/2, the one-sided spectrum is
+// X[k] = E[k] + W^k*O[k] (k < m) and X[m] = E[0] - O[0], W = exp(-2*pi*i/n).
+//   B4a: real (2m, B) -> planar (m+1, B): load rows 2j and 2j+1 into the
+//        re and im planes of row j, B1's forward m-point stages, then the
+//        pack, read from shared memory and stored to fresh outputs.
+//   B4b: planar (m+1, B) -> real (2m, B): the unpack builds Z[k] from rows
+//        k and m-k of the input (imaginary DC and Nyquist read as 0, as
+//        numpy's irfft ignores them), with conj(W^k) and h = 0.5/m, so the
+//        inverse stages run unscaled; row j is stored to rows 2j and 2j+1.
+//
+// What bounds them on this card: memory, as B1. One call moves about 8*n*B
+// bytes (n*B*4 real, (m+1)*B*8 complex), half a c2c of size n, against
+// B1's m-point stages; the narrow cols*4-byte row runs cost most, as in B1.
+//
+// Design:
+// - B1's layout: a block owns `cols` adjacent batch columns
+//   (launch_geometry(m)), its (m, cols) planes live in dynamic shared
+//   memory, 8*m*cols bytes, the stages run in place through run_stages, the
+//   ragged last column group is masked, not padded; offsets are size_t.
+// - The even/odd split is addressing: row 2j goes to the re plane, row 2j+1
+//   to the im plane, and back. The mirror (m-k) mod m is an index into
+//   shared memory, not a reverse pass, so every m of B1's domain is served
+//   (the TPU kernel's row reverse takes only powers of two).
+// - The twiddle w is a planar (2, m) table of exp(-2*pi*i*k/n), f64 at plan
+//   time, narrowed; B4b conjugates it.
+//
+// Kernels B5a and B5b: the odd-n real transforms, two-for-one, batch-minor.
+//
+// Replace fourier_tpu/ops/pallas/stockham_vpu.py:_rfft_odd_pack_kernel
+// (:1029), launched by vpu_rfft_odd_pack_batch_minor (:1099), and
+// _irfft_odd_unpack_kernel (:1051), launched by
+// vpu_irfft_odd_unpack_batch_minor (:1154). Column j pairs with column
+// j + h, h = ceil(B/2): one chirp-z (B2's chirp_z) transforms
+// z = x_j + i*x_{j+h}, and with Z_rev[k] = Z[(n-k) mod n] the two one-sided
+// spectra (L = (n+1)/2 bins) are X1 = (Z + conj Z_rev)/2 and
+// X2 = -i*(Z - conj Z_rev)/2.
+//   B5a: real (n, B) -> planar (L, B): chirp-z with the forward chirps, the
+//        output chirp applied in shared memory (a pass, then a barrier),
+//        then the separation read from rows k and (n-k) mod n; X1 goes to
+//        column j, X2 to column j + h.
+//   B5b: planar (L, B) -> real (n, B): Z[k] = X1[k] + i*X2[k] for k < L and
+//        conj X1[n-k] + i*conj X2[n-k] above, imaginary DC parts read as 0;
+//        chirp-z with the inverse chirps, the output chirp times 1/n; re
+//        goes to column j, im to column j + h.
+// When j + h >= B (odd B, B = 1) the partner is read as zeros and its
+// writes are masked. The batch is never padded.
+//
+// What bounds them on this card: as B2, the on-chip M-point stage passes,
+// not bytes; one chirp-z serves two columns, so about half B2's time per
+// column at the same n. Their layout is B2's at size M, over h columns.
+
+namespace {
+
+template <bool Pack, int MaxThreads>
+__global__ void __launch_bounds__(MaxThreads)
+rfft_even_c64(const float* __restrict__ xre, const float* __restrict__ xim,
+              float* __restrict__ yre, float* __restrict__ yim, int m,
+              int batch, int cols, Schedule sch,
+              const float* __restrict__ twre, const float* __restrict__ twim,
+              const float* __restrict__ wre, const float* __restrict__ wim,
+              float h) {
+  // Pack (B4a): xre is the real (2m, B) signal, yre/yim the (m+1, B)
+  // spectrum. Unpack (B4b): xre/xim the (m+1, B) spectrum, yre the real
+  // (2m, B) signal.
+  extern __shared__ float smem[];
+  float* sre = smem;
+  float* sim = smem + m * cols;
+  const int b0 = blockIdx.x * cols;
+  const int total = m * cols;
+  const size_t bs = static_cast<size_t>(batch);
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    const int k = e / cols, col = e - k * cols, b = b0 + col;
+    float vr = 0.0f, vi = 0.0f;
+    if (b < batch) {
+      if constexpr (Pack) {
+        const size_t g = 2 * static_cast<size_t>(k) * bs + b;
+        vr = xre[g];
+        vi = xre[g + bs];
+      } else {
+        // Z[k] = E[k] + i*conj(W^k)*WO[k] from X[k] and conj X[m-k].
+        const size_t g = static_cast<size_t>(k) * bs + b;
+        const size_t gr = static_cast<size_t>(m - k) * bs + b;
+        const float xr = xre[g], xi = k == 0 ? 0.0f : xim[g];
+        const float cr = xre[gr], ci = k == 0 ? 0.0f : -xim[gr];
+        const float er = h * (xr + cr), ei = h * (xi + ci);
+        const float wor = h * (xr - cr), woi = h * (xi - ci);
+        const float wr = __ldg(wre + k), wi = __ldg(wim + k);
+        const float o_r = wr * wor + wi * woi, o_i = wr * woi - wi * wor;
+        vr = er - o_i;
+        vi = ei + o_r;
+      }
+    }
+    sre[e] = vr;
+    sim[e] = vi;
+  }
+  __syncthreads();
+  run_stages<Pack>(sre, sim, m, cols, sch, twre, twim);
+  if constexpr (Pack) {
+    const int out = (m + 1) * cols;
+    for (int e = threadIdx.x; e < out; e += blockDim.x) {
+      const int k = e / cols, col = e - k * cols, b = b0 + col;
+      if (b < batch) {
+        const int kk = k == m ? 0 : k;       // row m reads E[0] and O[0]
+        const int kr = kk == 0 ? 0 : m - kk;  // (m-k) mod m
+        const float zr = sre[kk * cols + col], zi = sim[kk * cols + col];
+        const float cr = sre[kr * cols + col], ci = -sim[kr * cols + col];
+        const float er = 0.5f * (zr + cr), ei = 0.5f * (zi + ci);
+        const float o_r = 0.5f * (zi - ci), o_i = -0.5f * (zr - cr);
+        float xr, xi;
+        if (k < m) {
+          const float wr = __ldg(wre + k), wi = __ldg(wim + k);
+          xr = er + wr * o_r - wi * o_i;
+          xi = ei + wr * o_i + wi * o_r;
+        } else {
+          xr = er - o_r;
+          xi = ei - o_i;
+        }
+        const size_t g = static_cast<size_t>(k) * bs + b;
+        yre[g] = xr;
+        yim[g] = xi;
+      }
+    }
+  } else {
+    for (int e = threadIdx.x; e < total; e += blockDim.x) {
+      const int j = e / cols, col = e - j * cols, b = b0 + col;
+      if (b < batch) {
+        const size_t g = 2 * static_cast<size_t>(j) * bs + b;
+        yre[g] = sre[e];
+        yre[g + bs] = sim[e];
+      }
+    }
+  }
+}
+
+template <int MaxThreads>
+__global__ void __launch_bounds__(MaxThreads)
+rfft_odd_pack_c64(const float* __restrict__ x, float* __restrict__ yre,
+                  float* __restrict__ yim, int n, int m, int batch, int half,
+                  int cols, Schedule sch, ChirpZ t) {
+  extern __shared__ float smem[];
+  float* sre = smem;
+  float* sim = smem + m * cols;
+  const int b0 = blockIdx.x * cols;
+  const size_t bs = static_cast<size_t>(batch);
+  // 1-5. chirp-z of x_j + i*x_{j+h}.
+  chirp_z(sre, sim, n, m, cols, sch, t, [&](int row, int col) {
+    const int j = b0 + col;
+    float a = 0.0f, c = 0.0f;
+    if (j < half) {
+      const size_t g = static_cast<size_t>(row) * bs + j;
+      a = x[g];
+      if (j + half < batch) c = x[g + half];
+    }
+    return make_float2(a, c);
+  });
+  // 6. output chirp (1/M folded in) on the first n rows, in place.
+  const int out = n * cols;
+  for (int e = threadIdx.x; e < out; e += blockDim.x) {
+    const int row = e / cols;
+    const float cr = __ldg(t.xore + row), ci = __ldg(t.xoim + row);
+    const float a = sre[e], c = sim[e];
+    sre[e] = a * cr - c * ci;
+    sim[e] = a * ci + c * cr;
+  }
+  __syncthreads();
+  // 7. two-for-one separation of bins 0..L-1.
+  const int nbins = (n + 1) / 2;
+  const int sep = nbins * cols;
+  for (int e = threadIdx.x; e < sep; e += blockDim.x) {
+    const int k = e / cols, col = e - k * cols, j = b0 + col;
+    if (j < half) {
+      const int kr = k == 0 ? 0 : n - k;  // (n-k) mod n
+      const float zr = sre[e], zi = sim[e];
+      const float sr = sre[kr * cols + col], si = sim[kr * cols + col];
+      const size_t g = static_cast<size_t>(k) * bs + j;
+      yre[g] = 0.5f * (zr + sr);
+      yim[g] = 0.5f * (zi - si);
+      if (j + half < batch) {
+        yre[g + half] = 0.5f * (zi + si);
+        yim[g + half] = -0.5f * (zr - sr);
+      }
+    }
+  }
+}
+
+template <int MaxThreads>
+__global__ void __launch_bounds__(MaxThreads)
+irfft_odd_unpack_c64(const float* __restrict__ xre,
+                     const float* __restrict__ xim, float* __restrict__ y,
+                     int n, int m, int batch, int half, int cols, Schedule sch,
+                     ChirpZ t, float scale) {
+  extern __shared__ float smem[];
+  float* sre = smem;
+  float* sim = smem + m * cols;
+  const int b0 = blockIdx.x * cols;
+  const size_t bs = static_cast<size_t>(batch);
+  const int nbins = (n + 1) / 2;
+  // 1-5. chirp-z of Z = X1 + i*X2, Hermitian above bin L-1.
+  chirp_z(sre, sim, n, m, cols, sch, t, [&](int row, int col) {
+    const int j = b0 + col;
+    if (j >= half) return make_float2(0.0f, 0.0f);
+    const bool head = row < nbins;
+    const int k = head ? row : n - row;
+    const size_t g = static_cast<size_t>(k) * bs + j;
+    const float ar = xre[g], ai = k == 0 ? 0.0f : xim[g];
+    float br = 0.0f, bi = 0.0f;
+    if (j + half < batch) {
+      br = xre[g + half];
+      bi = k == 0 ? 0.0f : xim[g + half];
+    }
+    // head: X1 + i*X2; tail: conj X1 + i*conj X2.
+    return head ? make_float2(ar - bi, ai + br) : make_float2(ar + bi, br - ai);
+  });
+  // 6. output chirp (1/M folded in) times `scale`; re to column j, im to
+  // column j + h.
+  const int out = n * cols;
+  for (int e = threadIdx.x; e < out; e += blockDim.x) {
+    const int row = e / cols, col = e - row * cols, j = b0 + col;
+    if (j < half) {
+      const float cr = __ldg(t.xore + row) * scale;
+      const float ci = __ldg(t.xoim + row) * scale;
+      const float a = sre[e], c = sim[e];
+      const size_t g = static_cast<size_t>(row) * bs + j;
+      y[g] = a * cr - c * ci;
+      if (j + half < batch) y[g + half] = a * ci + c * cr;
+    }
+  }
+}
+
+// True for an odd n >= 3 whose chirp-z fits an m-point inner transform.
+inline bool odd_fits(int n, int m) {
+  return n >= 3 && n % 2 == 1 && 2 * n - 1 <= m;
+}
+
+}  // namespace
+
 extern "C" {
 
 // Transform the B = `batch` columns of the planar (n, B) input into the
@@ -325,9 +594,9 @@ int fourier_bluestein_c64(const float* xre, const float* xim, float* yre,
   err = prepare_launch(kern, smem, device);
   if (err != 0) return err;
   const dim3 grid((batch + cols - 1) / cols);
+  const ChirpZ t{fwre, fwim, ivre, ivim, xtre, xtim, wtre, wtim, xore, xoim};
   kern<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      xre, xim, yre, yim, n, m, batch, cols, sch, fwre, fwim, ivre, ivim,
-      xtre, xtim, wtre, wtim, xore, xoim, scale);
+      xre, xim, yre, yim, n, m, batch, cols, sch, t, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -361,6 +630,124 @@ int fourier_four_step_row_c64(const float* xre, const float* xim, float* yre,
   kern<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       xre, xim, yre, yim, p, q, batch, cols, sch, twre, twim, prre, prim,
       scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Even-n rfft (B4a): the real (2m, B) input `x` (B = `batch`) into the
+// planar (m+1, B) one-sided spectrum. `radices` (host memory, `nstages`
+// entries from {2, 3, 4, 5, 8}) multiply to m; `twre`/`twim` hold the
+// concatenated forward stage tables of that schedule; `wre`/`wim` the m
+// entries of exp(-2*pi*i*k/(2m)). Returns a cudaError_t code, 0 on success.
+int fourier_rfft_pack_c64(const float* x, float* yre, float* yim, int m,
+                          int batch, int cols, int threads, int nstages,
+                          const int* radices, const float* twre,
+                          const float* twim, const float* wre, const float* wim,
+                          int device, void* stream) {
+  Schedule sch{};
+  if (batch <= 0 || !block_fits(m, cols, threads)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int err = make_schedule(m, nstages, radices, &sch);
+  if (err != 0) return err;
+  const size_t smem = 2 * sizeof(float) * static_cast<size_t>(m) * cols;
+  auto kern = threads <= 512 ? rfft_even_c64<true, 512>
+                             : rfft_even_c64<true, kMaxThreads>;
+  err = prepare_launch(kern, smem, device);
+  if (err != 0) return err;
+  const dim3 grid((batch + cols - 1) / cols);
+  kern<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, nullptr, yre, yim, m, batch, cols, sch, twre, twim, wre, wim, 0.5f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Even-n irfft (B4b): the planar (m+1, B) one-sided spectrum into the real
+// (2m, B) output `y`. `twre`/`twim`: the inverse stage tables of the m-point
+// schedule; `wre`/`wim` as for B4a (conjugated here); `h` = 0.5/m. Returns
+// a cudaError_t code, 0 on success.
+int fourier_irfft_unpack_c64(const float* xre, const float* xim, float* y,
+                             int m, int batch, int cols, int threads,
+                             int nstages, const int* radices, const float* twre,
+                             const float* twim, const float* wre,
+                             const float* wim, float h, int device,
+                             void* stream) {
+  Schedule sch{};
+  if (batch <= 0 || !block_fits(m, cols, threads)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int err = make_schedule(m, nstages, radices, &sch);
+  if (err != 0) return err;
+  const size_t smem = 2 * sizeof(float) * static_cast<size_t>(m) * cols;
+  auto kern = threads <= 512 ? rfft_even_c64<false, 512>
+                             : rfft_even_c64<false, kMaxThreads>;
+  err = prepare_launch(kern, smem, device);
+  if (err != 0) return err;
+  const dim3 grid((batch + cols - 1) / cols);
+  kern<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      xre, xim, y, nullptr, m, batch, cols, sch, twre, twim, wre, wim, h);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Odd-n rfft (B5a): the real (n, B) input `x` into the planar (L, B)
+// one-sided spectrum, L = (n+1)/2; column j and column j + ceil(B/2) share
+// one chirp-z. The tables are B2's, forward direction. Returns a
+// cudaError_t code, 0 on success.
+int fourier_rfft_odd_pack_c64(const float* x, float* yre, float* yim, int n,
+                              int m, int batch, int cols, int threads,
+                              int nstages, const int* radices,
+                              const float* fwre, const float* fwim,
+                              const float* ivre, const float* ivim,
+                              const float* xtre, const float* xtim,
+                              const float* wtre, const float* wtim,
+                              const float* xore, const float* xoim, int device,
+                              void* stream) {
+  Schedule sch{};
+  if (!odd_fits(n, m) || batch <= 0 || !block_fits(m, cols, threads)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int err = make_schedule(m, nstages, radices, &sch);
+  if (err != 0) return err;
+  const size_t smem = 2 * sizeof(float) * static_cast<size_t>(m) * cols;
+  auto kern = threads <= 512 ? rfft_odd_pack_c64<512>
+                             : rfft_odd_pack_c64<kMaxThreads>;
+  err = prepare_launch(kern, smem, device);
+  if (err != 0) return err;
+  const int half = (batch + 1) / 2;
+  const dim3 grid((half + cols - 1) / cols);
+  const ChirpZ t{fwre, fwim, ivre, ivim, xtre, xtim, wtre, wtim, xore, xoim};
+  kern<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, yre, yim, n, m, batch, half, cols, sch, t);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Odd-n irfft (B5b): the planar (L, B) one-sided spectrum into the real
+// (n, B) output `y`, column pairs as in B5a. The tables are B2's, inverse
+// direction; `scale` multiplies the output chirp (1/n for irfft). Returns a
+// cudaError_t code, 0 on success.
+int fourier_irfft_odd_unpack_c64(const float* xre, const float* xim, float* y,
+                                 int n, int m, int batch, int cols,
+                                 int threads, int nstages, const int* radices,
+                                 const float* fwre, const float* fwim,
+                                 const float* ivre, const float* ivim,
+                                 const float* xtre, const float* xtim,
+                                 const float* wtre, const float* wtim,
+                                 const float* xore, const float* xoim,
+                                 float scale, int device, void* stream) {
+  Schedule sch{};
+  if (!odd_fits(n, m) || batch <= 0 || !block_fits(m, cols, threads)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int err = make_schedule(m, nstages, radices, &sch);
+  if (err != 0) return err;
+  const size_t smem = 2 * sizeof(float) * static_cast<size_t>(m) * cols;
+  auto kern = threads <= 512 ? irfft_odd_unpack_c64<512>
+                             : irfft_odd_unpack_c64<kMaxThreads>;
+  err = prepare_launch(kern, smem, device);
+  if (err != 0) return err;
+  const int half = (batch + 1) / 2;
+  const dim3 grid((half + cols - 1) / cols);
+  const ChirpZ t{fwre, fwim, ivre, ivim, xtre, xtim, wtre, wtim, xore, xoim};
+  kern<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      xre, xim, y, n, m, batch, half, cols, sch, t, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,7 @@
-"""Kernels B1, B2 and B3: the fused Stockham FFTs over batch-minor planes.
+"""Kernels B1-B5: the fused Stockham FFTs over batch-minor planes and the
+real transforms built on them.
 
-Port of the B1, B2 and B3 parts of ``fourier_tpu/ops/pallas/stockham_vpu.py``:
+Port of ``fourier_tpu/ops/pallas/stockham_vpu.py`` (all of its kernels):
 
 * :func:`radix_schedule` is the TPU kernel's schedule, kept as the plan's
   domain predicate (n = 2^a*3^b*5^c with 8 | n and 64 <= n <= 16384, plus
@@ -14,9 +15,20 @@ Port of the B1, B2 and B3 parts of ``fourier_tpu/ops/pallas/stockham_vpu.py``:
   :func:`vpu_bluestein_batch_minor`;
 * B3, the row leg of the four-step transform:
   :func:`vpu_fft_four_step_row_reference` and the wrapper
-  :func:`vpu_fft_four_step_row`.
+  :func:`vpu_fft_four_step_row`;
+* B4a/B4b, the even-n real transforms (B1's stages with the Hermitian pack
+  or unpack fused in): :func:`vpu_rfft_pack_batch_minor_reference`,
+  :func:`vpu_irfft_unpack_batch_minor_reference` and the wrappers
+  :func:`vpu_rfft_pack_batch_minor`, :func:`vpu_irfft_unpack_batch_minor`;
+* B5a/B5b, the odd-n real transforms (B2's chirp-z with the two-for-one
+  separation or recombination fused in):
+  :func:`vpu_rfft_odd_pack_batch_minor_reference`,
+  :func:`vpu_irfft_odd_unpack_batch_minor_reference` and the wrappers
+  :func:`vpu_rfft_odd_pack_batch_minor`,
+  :func:`vpu_irfft_odd_unpack_batch_minor`. Column j pairs with column
+  j + ceil(B/2); an unpaired last column runs against zeros.
 
-The three kernels are one library, built from ``csrc/stockham_vpu.cu``.
+The kernels are one library, built from ``csrc/stockham_vpu.cu``.
 
 Each wrapper runs its plain version for tensors on the CPU, and launches its
 kernel (or raises) for tensors on a CUDA device; it counts its launches in
@@ -37,7 +49,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from fourier_tpu_torch.ops import cplx
+from fourier_tpu_torch.ops import cplx, hermitian
 from fourier_tpu_torch.ops.butterflies import BUTTERFLIES
 from fourier_tpu_torch.twiddle import stage_twiddles
 
@@ -229,6 +241,10 @@ ENTRY_POINTS = {
     "fourier_stockham_c64": [_P] * 4 + [_I] * 5 + [_P] * 3 + [_I, _F, _I, _P],
     "fourier_bluestein_c64": [_P] * 4 + [_I] * 6 + [_P] * 11 + [_F, _I, _P],
     "fourier_four_step_row_c64": [_P] * 4 + [_I] * 6 + [_P] * 5 + [_I, _F, _I, _P],
+    "fourier_rfft_pack_c64": [_P] * 3 + [_I] * 5 + [_P] * 5 + [_I, _P],
+    "fourier_irfft_unpack_c64": [_P] * 3 + [_I] * 5 + [_P] * 5 + [_F, _I, _P],
+    "fourier_rfft_odd_pack_c64": [_P] * 3 + [_I] * 6 + [_P] * 11 + [_I, _P],
+    "fourier_irfft_odd_unpack_c64": [_P] * 3 + [_I] * 6 + [_P] * 11 + [_F, _I, _P],
 }
 
 
@@ -415,3 +431,219 @@ def vpu_fft_four_step_row(re3, im3, p: int, q: int, forward: bool,
 
 
 vpu_fft_four_step_row.launches = 0
+
+
+def vpu_rfft_pack_batch_minor_reference(x_t, m: int, tables, w):
+    """Plain PyTorch B4a: real (2m, B) -> one-sided planar (m+1, B) spectrum.
+
+    B1's plain forward stages over z[j] = x[2j] + i*x[2j+1] with the compact
+    forward `tables` of m, then the Hermitian pack with `w`, the planar
+    (2, m) table of exp(-2*pi*i*k/(2m)). Port of
+    ``stockham_vpu._rfft_pack_kernel``'s math."""
+    pair = x_t.reshape(m, 2, x_t.shape[-1])
+    zr, zi = vpu_fft_batch_minor_reference(pair[:, 0], pair[:, 1], m, tables,
+                                           True, None)
+    return hermitian.pack(zr, zi, (w[0][:, None], w[1][:, None]), 0)
+
+
+def vpu_irfft_unpack_batch_minor_reference(re_t, im_t, m: int, tables, w):
+    """Plain PyTorch B4b: one-sided planar (m+1, B) spectrum -> real (2m, B).
+
+    The Hermitian unpack (imaginary DC and Nyquist read as 0, conj(W^k), the
+    0.5/m of the unpack and the inverse folded into one constant), B1's plain
+    inverse stages with the compact inverse `tables` of m, unscaled, and the
+    re-interleave. Port of ``stockham_vpu._irfft_unpack_kernel``'s math."""
+    zr, zi = hermitian.unpack(re_t, im_t, (w[0][:, None], w[1][:, None]), 0,
+                              half=float(np.float32(0.5 / m)))
+    zr, zi = vpu_fft_batch_minor_reference(zr, zi, m, tables, False, None)
+    return torch.stack([zr, zi], dim=1).reshape(2 * m, re_t.shape[-1])
+
+
+def _check_w(w, m: int, device):
+    _check_tables(device, w)
+    if tuple(w.shape) != (2, m):
+        raise ValueError(f"w must be a (2, {m}) table, got {tuple(w.shape)}")
+
+
+def vpu_rfft_pack_batch_minor(x_t, m: int, *, tables, kernel_tables, w):
+    """B4a over a contiguous real f32 (2m, B) plane; returns new planar
+    (m+1, B) spectrum planes.
+
+    `tables`: the compact forward stage tables of m as tensors (plain
+    version); `kernel_tables`: the forward (2, L) tensor of
+    :func:`make_kernel_tables` for m (kernel); `w`: the (2, m) f32 table of
+    exp(-2*pi*i*k/(2m)); all on the plane's device.
+    """
+    _check_planes(x_t, x_t, (2 * m,), "B4a")
+    _check_w(w, m, x_t.device)
+    if x_t.device.type == "cpu":
+        return vpu_rfft_pack_batch_minor_reference(x_t, m, tables, w)
+    _check_tables(x_t.device, kernel_tables)
+    batch = x_t.shape[1]
+    out_re = torch.empty(m + 1, batch, dtype=torch.float32, device=x_t.device)
+    out_im = torch.empty_like(out_re)
+    if batch == 0:
+        return out_re, out_im
+    cols, threads = launch_geometry(m)
+    _launch(
+        "fourier_rfft_pack_c64", f"B4a at m={m}, B={batch}",
+        x_t.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
+        m, batch, cols, threads, *_radices(m),
+        kernel_tables[0].data_ptr(), kernel_tables[1].data_ptr(),
+        w[0].data_ptr(), w[1].data_ptr(), x_t.device.index, _stream(x_t),
+    )
+    vpu_rfft_pack_batch_minor.launches += 1
+    return out_re, out_im
+
+
+vpu_rfft_pack_batch_minor.launches = 0
+
+
+def vpu_irfft_unpack_batch_minor(re_t, im_t, m: int, *, tables, kernel_tables,
+                                 w):
+    """B4b over contiguous planar f32 (m+1, B) spectrum planes; returns a new
+    real (2m, B) plane (the irfft, 1/(2m) included).
+
+    `tables`: the compact inverse stage tables of m as tensors (plain
+    version); `kernel_tables`: the inverse (2, L) tensor of
+    :func:`make_kernel_tables` for m (kernel); `w`: as for
+    :func:`vpu_rfft_pack_batch_minor` (conjugated here).
+    """
+    _check_planes(re_t, im_t, (m + 1,), "B4b")
+    _check_w(w, m, re_t.device)
+    if re_t.device.type == "cpu":
+        return vpu_irfft_unpack_batch_minor_reference(re_t, im_t, m, tables, w)
+    _check_tables(re_t.device, kernel_tables)
+    batch = re_t.shape[1]
+    out = torch.empty(2 * m, batch, dtype=torch.float32, device=re_t.device)
+    if batch == 0:
+        return out
+    cols, threads = launch_geometry(m)
+    _launch(
+        "fourier_irfft_unpack_c64", f"B4b at m={m}, B={batch}",
+        re_t.data_ptr(), im_t.data_ptr(), out.data_ptr(),
+        m, batch, cols, threads, *_radices(m),
+        kernel_tables[0].data_ptr(), kernel_tables[1].data_ptr(),
+        w[0].data_ptr(), w[1].data_ptr(), float(np.float32(0.5 / m)),
+        re_t.device.index, _stream(re_t),
+    )
+    vpu_irfft_unpack_batch_minor.launches += 1
+    return out
+
+
+vpu_irfft_unpack_batch_minor.launches = 0
+
+
+def _pair_halves(t, h: int):
+    """Columns [0, h) and [h, B) of a (rows, B) plane, the second padded with
+    zero columns to h (the partners of an odd B's last column)."""
+    rest = t[:, h:]
+    pad = h - rest.shape[1]
+    if pad:
+        rest = torch.cat([rest, rest.new_zeros(rest.shape[0], pad)], dim=1)
+    return t[:, :h], rest
+
+
+def vpu_rfft_odd_pack_batch_minor_reference(x_t, n: int, m: int, tables,
+                                            chirps):
+    """Plain PyTorch B5a: real (n, B), n odd -> one-sided planar (L, B),
+    L = (n+1)/2. Column j pairs with column j + ceil(B/2): B2's plain
+    version transforms x_j + i*x_{j+h} (`tables`, `chirps`: B2's forward
+    ones), then the two-for-one separation. Port of
+    ``stockham_vpu._rfft_odd_pack_kernel``'s math."""
+    b = x_t.shape[-1]
+    h, L = (b + 1) // 2, (n + 1) // 2
+    zr, zi = vpu_bluestein_batch_minor_reference(*_pair_halves(x_t, h), n, m,
+                                                 tables, chirps, None)
+    (x1r, x1i), (x2r, x2i) = hermitian.separate(zr, zi, L, 0)
+    return (torch.cat([x1r, x2r[:, :b - h]], dim=1),
+            torch.cat([x1i, x2i[:, :b - h]], dim=1))
+
+
+def vpu_irfft_odd_unpack_batch_minor_reference(re_t, im_t, n: int, m: int,
+                                               tables, chirps):
+    """Plain PyTorch B5b: one-sided planar (L, B) -> real (n, B), n odd.
+    Z = X1 + i*X2 (columns j and j + ceil(B/2), imaginary DC parts read as
+    0, Hermitian above bin L-1), then B2's plain version with the inverse
+    `chirps` and scale 1/n. Port of
+    ``stockham_vpu._irfft_odd_unpack_kernel``'s math."""
+    b = re_t.shape[-1]
+    h = (b + 1) // 2
+    x1r, x2r = _pair_halves(re_t, h)
+    x1i, x2i = _pair_halves(hermitian.zero_bins(im_t, 0, last=False), h)
+    zr, zi = hermitian.recombine((x1r, x1i), (x2r, x2i), 0)
+    oa, ob = vpu_bluestein_batch_minor_reference(zr, zi, n, m, tables, chirps,
+                                                 1.0 / n)
+    return torch.cat([oa, ob[:, :b - h]], dim=1)
+
+
+def _launch_odd(fn_name: str, what: str, inp, out, n: int, m: int,
+                kernel_tables, chirps, *tail):
+    """Launch B5a or B5b: `inp`/`out` the tensors of the data arguments,
+    `tail` the arguments after the tables."""
+    batch = inp[0].shape[1]
+    cols, threads = launch_geometry(m)
+    kf, ki = kernel_tables
+    xt, wt, xo = chirps
+    _launch(
+        fn_name, f"{what} at n={n}, M={m}, B={batch}",
+        *(t.data_ptr() for t in (*inp, *out)),
+        n, m, batch, cols, threads, *_radices(m),
+        kf[0].data_ptr(), kf[1].data_ptr(), ki[0].data_ptr(), ki[1].data_ptr(),
+        xt[0].data_ptr(), xt[1].data_ptr(), wt[0].data_ptr(), wt[1].data_ptr(),
+        xo[0].data_ptr(), xo[1].data_ptr(),
+        *tail, inp[0].device.index, _stream(inp[0]),
+    )
+
+
+def vpu_rfft_odd_pack_batch_minor(x_t, n: int, m: int, *, tables,
+                                  kernel_tables, chirps):
+    """B5a over a contiguous real f32 (n, B) plane, n odd; returns new planar
+    (L, B) spectrum planes, L = (n+1)/2.
+
+    `tables`, `kernel_tables`: as for :func:`vpu_bluestein_batch_minor`;
+    `chirps`: the forward (xt, wt, xo); all on the plane's device.
+    """
+    _check_planes(x_t, x_t, (n,), "B5a")
+    if x_t.device.type == "cpu":
+        return vpu_rfft_odd_pack_batch_minor_reference(x_t, n, m, tables,
+                                                       chirps)
+    _check_tables(x_t.device, *kernel_tables, *chirps)
+    L = (n + 1) // 2
+    out_re = torch.empty(L, x_t.shape[1], dtype=torch.float32,
+                         device=x_t.device)
+    out_im = torch.empty_like(out_re)
+    if x_t.shape[1] == 0:
+        return out_re, out_im
+    _launch_odd("fourier_rfft_odd_pack_c64", "B5a", (x_t,), (out_re, out_im),
+                n, m, kernel_tables, chirps)
+    vpu_rfft_odd_pack_batch_minor.launches += 1
+    return out_re, out_im
+
+
+vpu_rfft_odd_pack_batch_minor.launches = 0
+
+
+def vpu_irfft_odd_unpack_batch_minor(re_t, im_t, n: int, m: int, *, tables,
+                                     kernel_tables, chirps):
+    """B5b over contiguous planar f32 (L, B) spectrum planes, n odd; returns
+    a new real (n, B) plane (the irfft, 1/n included).
+
+    `tables`, `kernel_tables`: as for :func:`vpu_bluestein_batch_minor`;
+    `chirps`: the inverse (xt, wt, xo); all on the planes' device.
+    """
+    _check_planes(re_t, im_t, ((n + 1) // 2,), "B5b")
+    if re_t.device.type == "cpu":
+        return vpu_irfft_odd_unpack_batch_minor_reference(re_t, im_t, n, m,
+                                                          tables, chirps)
+    _check_tables(re_t.device, *kernel_tables, *chirps)
+    out = torch.empty(n, re_t.shape[1], dtype=torch.float32, device=re_t.device)
+    if re_t.shape[1] == 0:
+        return out
+    _launch_odd("fourier_irfft_odd_unpack_c64", "B5b", (re_t, im_t), (out,),
+                n, m, kernel_tables, chirps, 1.0 / n)
+    vpu_irfft_odd_unpack_batch_minor.launches += 1
+    return out
+
+
+vpu_irfft_odd_unpack_batch_minor.launches = 0

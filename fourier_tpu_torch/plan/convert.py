@@ -22,13 +22,13 @@ from fourier_tpu_torch.plan.bluestein_fused import VpuBluesteinPlan
 from fourier_tpu_torch.plan.four_step_local import FourStepLocalPlan
 from fourier_tpu_torch.plan.mxu import MxuFftPlan, check_impl
 from fourier_tpu_torch.plan.vpu import VpuFftPlan
+from fourier_tpu_torch.rfft import RfftPlan
 
 FORMAT_VERSION = 2
 
 # Plan classes of the JAX package that have no port yet, and the ROADMAP.md
 # item that ports them.
 _NOT_PORTED = {
-    "RfftPlan": "queue 1 item 6 (kernels B4, B5)",
     "DdFftPlan": "queue 1 item 7",
     "VpuDdFftPlan": "queue 1 item 7",
     "VpuDdBluesteinPlan": "queue 1 item 7",
@@ -103,6 +103,16 @@ def _build(node, leaves, device) -> FftPlan:
         fwd, inv = (_compact(t, m_inner) for t in stage_tables)
         stages = VpuFftPlan(m_inner, fwd, inv, device)
         return VpuBluesteinPlan(size, stages, chirps_fwd, chirps_inv, device)
+    if name == "RfftPlan":
+        n, dtype = aux
+        inner_node, w_re, w_im = node["children"]
+        # A double-word (dd) plan's inner raises here, naming item 7.
+        inner = _build(inner_node, leaves, device)
+        w = None
+        if w_re is not None:
+            w = np.stack([np.ravel(_tree(w_re, leaves)),
+                          np.ravel(_tree(w_im, leaves))])
+        return RfftPlan.from_parts(n, dtype, inner, w)
     if name == "FourStepLocalPlan":
         size, p, q, dtype = aux
         col, row = (_build(c, leaves, device) for c in node["children"][:2])

@@ -120,14 +120,20 @@ def _create_mxu(size: int, dtype, device, *, vpu_first: bool = False) -> FftPlan
                                 device=device)
 
 
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device, a bare "cuda" as the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def create_fft(size: int, dtype=torch.complex64, *, backend: str = "auto",
                device="cpu", cache: bool = True) -> FftPlan:
     """Create (or fetch a cached) FFT plan for complex transforms of `size`
     on `device`."""
     dtype = complex_dtype(dtype)
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
+    device = resolve_device(device)
     resolved = _resolve_backend(backend, dtype, device)
     if resolved in ("mxu", "vpu") and dtype != torch.complex64:
         raise ValueError(
@@ -170,6 +176,8 @@ def plan_tree(plan) -> tuple:
     sub-plan trees). Read only by class name and attributes that both
     packages share, so it also gives the tree of a JAX package plan."""
     name = type(plan).__name__
+    if name == "RfftPlan":
+        return (name, plan.n, plan_tree(plan.inner))
     if name == "MxuFftPlan":
         return (name, plan.size, (plan.n1, plan.n2))
     if name == "VpuBluesteinPlan":
