@@ -3,18 +3,23 @@
 
     python3 chip_smoke.py
 
-Builds kernels B1-B5 from fourier_tpu_torch/csrc with nvcc (one library)
-and holds each against its plain PyTorch version and against np.fft, at the
-listed sizes and at every shape the routes below give it. Then it drives the
+Builds kernels B1-B5 (complex64) and B6-B8 (complex128 in native f64) from
+fourier_tpu_torch/csrc with nvcc, two libraries built at once, and holds
+each against its plain PyTorch version and against np.fft, at the listed
+sizes and at every shape the routes below give it. Then it drives the
 main path (the default complex64 1-D transform through create_fft_f32 on
 device="cuda") and the routes of the other sizes the JAX package plans
 differently (fused Bluestein B2, four-step with B3 rows, DFT products), then
 the real transforms through RfftPlan and the module functions (B4 for even
 n, B5 for odd n, the c2c kernels inside the unfused routes) and their
-gradients, checking each plan tree against the JAX package's and that each
+gradients, then the complex128 route (create_fft_f64 with no device
+argument: B6, B7, B8 over B6, and the composed plans over them, and c128
+RfftPlans), checking each plan tree against the JAX package's and that each
 path launched the kernels its plan holds. Last it times the kernels against
-their plain versions and torch.fft, and the rfft round trips of the suite's
-rows fused, unfused and through torch.fft. Every phase prints its lines;
+their plain versions and torch.fft, the rfft round trips of the suite's
+rows fused, unfused and through torch.fft, and the suite's c128 rows, each
+beside the least time the card could take for its bytes or operations.
+Every phase prints its lines;
 any failed check raises, so the exit code is non-zero. The next-to-last
 line is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}.
@@ -26,6 +31,8 @@ from __future__ import annotations
 
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -124,6 +131,59 @@ GRAD_TOL = 2e-3  # tests/test_autodiff.py's gate for the fused-pack VJP
 RF_TIME = ((1024, 65536), (4096, 16384), (1013, 65536))  # the suite's rows
 RF_CHAIN = 16  # round trips per timing; the plain versions run RF_PLAIN_CHAIN
 RF_PLAIN_CHAIN = 2
+# The card's peaks for the bounds (NVIDIA H100 SXM data sheet, 700 W): HBM
+# bytes per second and flops per second outside the tensor cores.
+HBM_RATE = 3.35e12
+F32_RATE = 67e12
+F64_RATE = 34e12
+# complex128: the reference's c128 gate (two f64 results, each near exact).
+DD_GATE = 1e-12
+DD_B6_SIZES = (64, 243, 625, 729, 1000, 1024, 3000, 4096)
+DD_B7_SIZES = (17, 125, 439, 1013)  # inner 64, 256, 1024, 2048
+DD_B8_SIZES = (8192, 2187, 3125)  # r = 2, 3, 5
+# The complex128 route of the JAX package on a TPU (its planner's _create_dd
+# with the TPU branch taken), as fourier_tpu_torch.plan.plan_tree gives it; a
+# JAX DdFftPlan reads as ("AutosortPlan", n) or ("BluesteinPlan", n, inner).
+DD_TREES = {
+    12: ("AutosortPlan", 12),
+    6561: ("AutosortPlan", 6561),
+    65536: ("AutosortPlan", 65536),
+    17: ("VpuDdBluesteinPlan", 17, 64),
+    32: ("VpuDdBluesteinPlan", 32, 64),
+    100: ("VpuDdBluesteinPlan", 100, 256),
+    125: ("VpuDdBluesteinPlan", 125, 256),
+    191: ("VpuDdBluesteinPlan", 191, 512),
+    222: ("VpuDdBluesteinPlan", 222, 512),
+    439: ("VpuDdBluesteinPlan", 439, 1024),
+    722: ("VpuDdBluesteinPlan", 722, 2048),
+    1013: ("VpuDdBluesteinPlan", 1013, 2048),
+    **{n: ("VpuDdFftPlan", n) for n in (64, 243, 256, 512, 625, 729, 1000, 1024,
+                                         3000, 4096)},
+    1418: ("BluesteinPlan", 1418, ("VpuDdFftPlan", 4096)),
+    4099: ("BluesteinPlan", 4099, ("DdSplitPow2Plan", 16384, (
+        "DdSplitPow2Plan", 8192, ("VpuDdFftPlan", 4096)))),
+    20000: ("BluesteinPlan", 20000, ("AutosortPlan", 65536)),
+    2187: ("DdSplitRadixPlan", 2187, 3, ("VpuDdFftPlan", 729)),
+    3125: ("DdSplitRadixPlan", 3125, 5, ("VpuDdFftPlan", 625)),
+    10000: ("DdSplitRadixPlan", 10000, 5, ("VpuDdFftPlan", 2000)),
+    6144: ("DdSplitPow2Plan", 6144, ("VpuDdFftPlan", 3072)),
+    8192: ("DdSplitPow2Plan", 8192, ("VpuDdFftPlan", 4096)),
+    12288: ("DdSplitPow2Plan", 12288, ("DdSplitPow2Plan", 6144,
+                                       ("VpuDdFftPlan", 3072))),
+    16384: ("DdSplitPow2Plan", 16384, ("DdSplitPow2Plan", 8192,
+                                       ("VpuDdFftPlan", 4096))),
+}
+DD_ROUTE_B = 64  # the batch phase 4e drives each c128 plan at
+# The c128 RfftPlan's inner on a TPU (RfftPlan(n, np.complex128,
+# backend="dd") of the JAX package): even n plan n/2, odd n plan n.
+DD_RFFT_TREES = {2048: ("VpuDdFftPlan", 1024),
+                 16384: ("DdSplitPow2Plan", 8192, ("VpuDdFftPlan", 4096)),
+                 1013: ("VpuDdBluesteinPlan", 1013, 2048)}
+DD_RFFT_B = 65  # odd: the unfused odd path's single-column fallback runs
+# The suite's c128 rows (BENCH_SUITE_r5.json) timed in phase 5e.
+DD_TIME = ((1024, 65536), (1013, 65536), (2187, 16384), (3125, 16384),
+           (1418, 32768))
+DD_CHAIN = 16
 
 
 def _kernels_of(tree, batch_minor: bool) -> set:
@@ -192,6 +252,79 @@ def _rfft_route_cases() -> list:
     return fused + list(RF_TIME)
 
 
+def _dd_cases(tree, b: int) -> list:
+    """(kernel, n, B) of every B6, B7 and B8 call a batch-minor call of a
+    c128 plan tree at batch b makes: a split runs its sub-plan on r*b
+    columns, a composed Bluestein its inner at b."""
+    name = tree[0]
+    if name == "VpuDdFftPlan":
+        return [("B6", tree[1], b)]
+    if name == "VpuDdBluesteinPlan":
+        return [("B7", tree[1], b)]
+    if name == "DdSplitPow2Plan":
+        return [("B8", tree[1], b)] + _dd_cases(tree[2], 2 * b)
+    if name == "DdSplitRadixPlan":
+        return [("B8", tree[1], b)] + _dd_cases(tree[3], tree[2] * b)
+    if name == "BluesteinPlan":
+        return _dd_cases(tree[2], b)
+    return []
+
+
+def _dd_route_cases() -> list:
+    """(kernel, n, B) of every kernel call the c128 routes of phase 4e make:
+    the c2c plans at DD_ROUTE_B and the rfft inners (even n: n/2 at B; odd n:
+    the B//2 column pairs and the single-column fallback)."""
+    cases = [c for tree in DD_TREES.values() for c in _dd_cases(tree, DD_ROUTE_B)]
+    for n, inner in DD_RFFT_TREES.items():
+        batches = (DD_RFFT_B,) if n % 2 == 0 else (DD_RFFT_B // 2, 1)
+        cases += [c for b in batches for c in _dd_cases(inner, b)]
+    return sorted(set(cases))
+
+
+def bound(nbytes: float, flops: float, rate: float):
+    """(least ms, what bounds it): the bytes over the HBM rate or the flops
+    over the card's peak `rate` for their type, whichever is longer."""
+    by_bytes, by_ops = nbytes / HBM_RATE * 1e3, flops / rate * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def chirp_z_flops(n: int, m: int) -> float:
+    """Flops of one column's chirp-z through an m-point inner transform: two
+    m-point FFTs (5 m log2 m each) and three complex multiplies per point
+    (6 flops each) over n, m and n points."""
+    return 2 * 5 * m * math.log2(m) + 6 * (2 * n + m)
+
+
+def ptxas_usage(report: str) -> list:
+    """From an ``nvcc -Xptxas -v`` report: ([(kernel, registers, (spill
+    bytes stored, loaded))] of each entry function, the most spill bytes
+    (stored, loaded) of a non-inlined device function)."""
+    spills, regs, fn, kernels = {}, {}, None, []
+    for line in report.splitlines():
+        m = re.search(r"(Compiling entry function|Function properties for) '?([\w$.]+)", line)
+        if m:
+            fn = m.group(2)
+            if m.group(1).startswith("Compiling") and fn not in kernels:
+                kernels.append(fn)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn:
+            spills[fn] = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            regs[fn] = int(m.group(1))
+    callees = [f for f in spills if f not in kernels]
+    worst = max((spills[f] for f in callees), default=(0, 0))
+    names = kernels
+    if shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(kernels), text=True,
+                               capture_output=True).stdout.split("\n")
+    short = lambda name: re.sub(r"\(.*", "", name.replace(
+        "(anonymous namespace)::", "").replace("void ", ""))
+    return ([(short(name), regs.get(k), spills.get(k, (0, 0)))
+             for name, k in zip(names, kernels)], worst)
+
+
 def rel_l2(got, want) -> float:
     return float(np.linalg.norm(got - want) / np.linalg.norm(want))
 
@@ -209,7 +342,10 @@ def main() -> int:
 
     import fourier_tpu_torch as ftt
     from fourier_tpu_torch import Transform
+    from fourier_tpu_torch.ops.cuda import build
+    from fourier_tpu_torch.ops.cuda import dd_combine as dc
     from fourier_tpu_torch.ops.cuda import stockham_vpu as sv
+    from fourier_tpu_torch.ops.cuda import stockham_vpu_dd as dv
     from fourier_tpu_torch.plan import plan_tree
 
     dev = torch.device("cuda", 0)
@@ -233,7 +369,10 @@ def main() -> int:
                 "B4a": sv.vpu_rfft_pack_batch_minor,
                 "B4b": sv.vpu_irfft_unpack_batch_minor,
                 "B5a": sv.vpu_rfft_odd_pack_batch_minor,
-                "B5b": sv.vpu_irfft_odd_unpack_batch_minor}
+                "B5b": sv.vpu_irfft_odd_unpack_batch_minor,
+                "B6": dv.vpu_dd_fft_batch_minor,
+                "B7": dv.vpu_dd_bluestein_batch_minor,
+                "B8": dc.dd_split_combine_batch_minor}
 
     def zero_counts():
         for fn in counters.values():
@@ -260,11 +399,20 @@ def main() -> int:
         return ((torch.linalg.norm(k - p) / torch.linalg.norm(p)).item(),
                 (k - p).abs().max().item())
 
-    # 2. Build: one nvcc for the kernel library.
+    # 2. Build: the two kernel libraries, one nvcc each, at once.
     t0 = time.perf_counter()
+    build.load_all([sv.LIBRARY, dv.LIBRARY])
     sv.library()
-    print(f"build: fourier_tpu_torch/csrc/{sv.LIBRARY}.cu (B1-B5) in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    dv.library()
+    print(f"build: fourier_tpu_torch/csrc/{sv.LIBRARY}.cu (B1-B5) and "
+          f"{dv.LIBRARY}.cu (B6-B8) in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    for lib in (sv.LIBRARY, dv.LIBRARY):
+        kerns, worst = ptxas_usage(build.resource_usage(lib))
+        print(f"ptxas ({lib}.cu): " + "; ".join(
+            f"{k} {r} registers, spill {st}/{ld} bytes" for k, r, (st, ld) in kerns)
+            + f"; the stage functions spill up to {worst[0]}/{worst[1]} bytes "
+            "(stores/loads)", flush=True)
 
     # 3. Kernel against its plain version, and against np.fft on the host.
     worst_plain = worst_host = max_abs = 0.0
@@ -424,6 +572,98 @@ def main() -> int:
               f"abs err {mx}", flush=True)
         max_abs_err.update(mx)
         del plans
+
+    # 3e. B6, B7 and B8 (complex128 in f64) against their plain versions
+    # and np.fft in f64, at the listed sizes and batches in every mode, and
+    # at every shape phase 4e gives them (gate DD_GATE).
+    def planes64(n, b):
+        return tuple(t.double() for t in planes(n, b))
+
+    def combine_want(x, n, r, mode, cols):
+        """B8 from its definition, in numpy f64, on the first `cols` columns
+        of each class of the (m, r*B) input x."""
+        m, b = n // r, x.shape[1] // r
+        k = np.arange(m)[:, None]
+        sign = -1 if mode.is_forward else 1
+        out = np.zeros((r, m, cols), np.complex128)
+        for j in range(r):
+            for t in range(r):
+                w = np.exp(sign * 2j * np.pi * t * (j * m + k) / n)
+                out[j] += x[:, t * b:t * b + cols] * w
+        return out.reshape(n, cols) * (mode.scale(n) or 1.0)
+
+    def dd_case(kernel, n, b):
+        """One (n, B) case of B6, B7 or B8 in every mode: worst rel-L2 vs the
+        plain version, vs np.fft, and the max abs error vs plain."""
+        worst_p = worst_h = mx = 0.0
+        if kernel == "B8":
+            plan = ftt.create_fft_f64(n)
+            r = plan.radix
+            re, im = planes64(n // r, r * b)
+            host = (re.cpu().numpy() + 1j * im.cpu().numpy())
+        else:
+            plan = (ftt.VpuDdFftPlan if kernel == "B6" else ftt.VpuDdBluesteinPlan
+                    ).create(n, device=dev)
+            re, im = planes64(n, b)
+            x = host_cols(re, im)
+        for mode in Transform:
+            fwd, scale = mode.is_forward, mode.scale(n)
+            if kernel == "B6":
+                k = plan.transform_planar_bm(re, im, mode)
+                p = dv.vpu_dd_fft_batch_minor_reference(
+                    re, im, n, plan.tables(fwd), fwd, scale)
+                want = np_want(x, mode, n)
+            elif kernel == "B7":
+                st = plan.stages
+                k = plan.transform_planar_bm(re, im, mode)
+                p = dv.vpu_dd_bluestein_batch_minor_reference(
+                    re, im, n, st.size, (st.tables(True), st.tables(False)),
+                    plan.chirps(fwd), scale)
+                want = np_want(x, mode, n)
+            else:
+                tables = plan.tw_fwd if fwd else plan.tw_inv
+                k = dc.dd_split_combine_batch_minor(re, im, n, r, fwd, scale,
+                                                    tables=tables)
+                p = dc.dd_split_combine_batch_minor_reference(
+                    re, im, n, r, tables, fwd, scale)
+                want = combine_want(host, n, r, mode, min(b, HOST_COLUMNS))
+            torch.cuda.synchronize()
+            err, m_ = vs_plain(k, p)
+            herr = rel_l2(host_cols(*k)[:, :want.shape[1]], want)
+            check(err <= DD_GATE and herr <= DD_GATE,
+                  f"{kernel} n={n} B={b} {mode.name}: rel-L2 {err:.3e} vs plain, "
+                  f"{herr:.3e} vs np.fft (gate {DD_GATE:g})")
+            worst_p, worst_h, mx = max(worst_p, err), max(worst_h, herr), max(mx, m_)
+        return worst_p, worst_h, mx
+
+    dd_routes = _dd_route_cases()
+    for kernel, sizes in (("B6", DD_B6_SIZES), ("B7", DD_B7_SIZES),
+                          ("B8", DD_B8_SIZES)):
+        routes = [(n, b) for k, n, b in dd_routes if k == kernel]
+        worst_p = worst_h = mx = 0.0
+        for n, b in [(n, b) for n in sizes for b in BATCHES] + routes:
+            e_p, e_h, m_ = dd_case(kernel, n, b)
+            worst_p, worst_h, mx = max(worst_p, e_p), max(worst_h, e_h), max(mx, m_)
+        print(f"{kernel} kernel vs plain (f64): n in {sizes} x B in {BATCHES} and "
+              f"the routes' shapes {routes} x 5 modes pass; worst rel-L2 "
+              f"{worst_p:.3e} vs plain, {worst_h:.3e} vs np.fft (gate "
+              f"{DD_GATE:g}); max abs err {mx:.3e}", flush=True)
+        max_abs_err[kernel] = mx
+    # The split plans whole (B6 sub-plan, B8 combine) against np.fft.
+    worst = 0.0
+    for n in DD_B8_SIZES:
+        plan = ftt.create_fft_f64(n)
+        for b in BATCHES:
+            re, im = planes64(n, b)
+            x = host_cols(re, im)
+            for mode in Transform:
+                herr = rel_l2(host_cols(*plan.transform_planar_bm(re, im, mode)),
+                              np_want(x, mode, n))
+                check(herr <= DD_GATE, f"split plan n={n} B={b} {mode.name}: "
+                      f"rel-L2 {herr:.3e} vs np.fft")
+                worst = max(worst, herr)
+    print(f"split plans {DD_B8_SIZES} (B6 + B8) vs np.fft: worst rel-L2 "
+          f"{worst:.3e} (gate {DD_GATE:g})", flush=True)
 
     # 4. Main path through the entry points, with the launch count.
     zero_counts()
@@ -663,6 +903,106 @@ def main() -> int:
           f"atol=rtol={GRAD_TOL:g}; worst max|diff|/max|grad| {worst_grad:.3e}",
           flush=True)
 
+    # 4e. The complex128 route: the plan trees of create_fft_f64(n) with no
+    # device argument (the card by default), then every route through the
+    # entry points with the counts of the kernels its tree holds rising and
+    # no other; then the c128 RfftPlans.
+    for n, want in DD_TREES.items():
+        got = plan_tree(ftt.create_fft_f64(n))
+        check(got == want, f"c128 n={n} planned {got}, the JAX package plans {want}")
+    for n, want in DD_RFFT_TREES.items():
+        got = plan_tree(ftt.RfftPlan(n, torch.complex128))
+        check(got == ("RfftPlan", n, want),
+              f"c128 RfftPlan({n}) planned {got}, the JAX package plans {want}")
+    print(f"c128 route: the plan trees of {len(DD_TREES)} sizes and "
+          f"{len(DD_RFFT_TREES)} rfft sizes equal the JAX package's dd route "
+          f"on a TPU", flush=True)
+    zero_counts()
+
+    def dd_ran(what, held, seen):
+        now = counts()
+        for k in counters:
+            rose = now[k] > seen[k]
+            check(rose == (k in held), f"c128 {what}: {k} "
+                  f"{'rose' if rose else 'did not rise'}; the plan runs "
+                  f"{sorted(held)} there")
+        return now
+
+    def dd_route(n, b):
+        """Drive create_fft_f64(n) at batch b through every entry point."""
+        plan = ftt.create_fft_f64(n)
+        check(plan.device == dev, f"c128 n={n} planned on {plan.device}")
+        held = {k for k, _, _ in _dd_cases(plan_tree(plan), b)}
+        seen = counts()
+        re, im = planes64(n, b)
+        bre, bim = plan.transform_planar_bm(re, im)
+        seen = dd_ran(f"n={n} transform_planar_bm", held, seen)
+        mre, mim = plan.transform_planar(re.T.contiguous(), im.T.contiguous())
+        seen = dd_ran(f"n={n} transform_planar", held, seen)
+        xc = torch.complex(re.T.contiguous(), im.T.contiguous())
+        y = plan.fft(xc)
+        seen = dd_ran(f"n={n} fft", held, seen)
+        back = plan.ifft(y)
+        dd_ran(f"n={n} ifft", held, seen)
+        torch.cuda.synchronize()
+        check(y.dtype == torch.complex128 and tuple(y.shape) == (b, n)
+              and bool(torch.isfinite(torch.view_as_real(y)).all()),
+              f"c128 n={n}: fft output {y.dtype} {tuple(y.shape)}")
+        want = np_want(host_cols(re, im), Transform.FFT, n)
+        errs = (rel_l2(host_cols(bre, bim), want),
+                rel_l2(host_cols(mre.T, mim.T), want),
+                rel_l2(y[:HOST_COLUMNS].cpu().numpy().T, want),
+                (torch.linalg.norm(back - xc) / torch.linalg.norm(xc)).item())
+        # A composed Bluestein (no kernel of its own) carries the reference's
+        # chirp error: exp(-i*pi*j^2/n) at angles up to pi*n, each rounded
+        # to ~1e-16 relative, so the JAX package's own plan is off np.fft by
+        # ~1.6e-16*n (3.3e-12 at n=20000).
+        gate = (max(DD_GATE, 2.5e-16 * n) if plan_tree(plan)[0] == "BluesteinPlan"
+                else DD_GATE)
+        check(max(errs) <= gate, f"c128 n={n} B={b}: rel-L2 bm/batch-major/fft "
+              f"vs np.fft and round trip {errs} (gate {gate:g})")
+        print(f"c128 route: n={n} B={b} {plan_tree(plan)} launched "
+              f"{sorted(held) or 'no kernel'} on each call; worst rel-L2 "
+              f"{max(errs):.3e} (gate {gate:g})", flush=True)
+
+    def dd_rfft_route(n, b):
+        """Drive the c128 RfftPlan(n) and the module functions at batch b."""
+        plan = ftt.RfftPlan(n, torch.complex128)
+        inner = plan_tree(plan)[2]
+        eff = (b,) if n % 2 == 0 else (b // 2, 1)  # odd: pairs, then the rest
+        held = {k for e in eff for k, _, _ in _dd_cases(inner, e)}
+        seen = counts()
+        x = planes64(n, b)[0]
+        re_t, im_t = plan.rfft_planar_bm(x)
+        seen = dd_ran(f"rfft n={n} rfft_planar_bm", held, seen)
+        back_bm = plan.irfft_planar_bm(re_t, im_t)
+        seen = dd_ran(f"rfft n={n} irfft_planar_bm", held, seen)
+        spec = ftt.rfft(x.T.contiguous())
+        seen = dd_ran(f"rfft n={n} rfft", held, seen)
+        sig = ftt.irfft(spec, n=n)
+        dd_ran(f"rfft n={n} irfft", held, seen)
+        torch.cuda.synchronize()
+        check(spec.dtype == torch.complex128 and sig.dtype == torch.float64,
+              f"c128 rfft n={n}: dtypes {spec.dtype} {sig.dtype}")
+        want = rfft_host(x)
+        errs = (rel_l2(host_cols(re_t, im_t), want),
+                rel_l2(spec[:HOST_COLUMNS].cpu().numpy().T, want),
+                *((torch.linalg.norm(a - x) / torch.linalg.norm(x)).item()
+                  for a in (back_bm, sig.T)))
+        check(max(errs) <= DD_GATE, f"c128 rfft n={n} B={b}: rel-L2 bm/rfft vs "
+              f"np.fft and round trips {errs}")
+        print(f"c128 rfft route: n={n} B={b} {plan_tree(plan)} launched "
+              f"{sorted(held)}; worst rel-L2 {max(errs):.3e}", flush=True)
+
+    for n in DD_TREES:
+        dd_route(n, DD_ROUTE_B)
+    for n in DD_RFFT_TREES:
+        dd_rfft_route(n, DD_RFFT_B)
+    for k, v in counts().items():
+        path_launches[k] += v
+    for k in ("B6", "B7", "B8"):
+        check(path_launches[k] > 0, f"the c128 routes launched {k} no time")
+
     # 5. Timing: CHAIN dependent SQRT_SCALED_FFT calls, median of REPS.
     mode = Transform.SQRT_SCALED_FFT
     tables = plan.tables(True)
@@ -711,7 +1051,9 @@ def main() -> int:
     ratio = timed["torch.fft.fft"] / timed["plan.transform_planar_bm"]
     print(f"time: port / torch.fft throughput ratio {ratio:.4f} on {card}",
           flush=True)
-    kernel_ms = {"B1": (timed["B1 kernel"], timed["plain PyTorch B1"])}
+    kernel_ms = {"B1": (timed["B1 kernel"], timed["plain PyTorch B1"],
+                        timed["torch.fft.fft"])}
+    bounds = {"B1": bound(16.0 * MAIN_N * MAIN_B, flops, F32_RATE)}
 
     # 5b. B2 at n=1013, B=65536: kernel, plain version, torch.fft.
     n, b = B2_TIME
@@ -740,7 +1082,8 @@ def main() -> int:
         print(f"time: {what}: {ms:.4f} ms per call, {flops / ms / 1e6:.2f} "
               f"GFLOP/s (n={n}, B={b}, SQRT_SCALED_FFT, 5 n log2 n, median of "
               f"{REPS}) on {card}", flush=True)
-    kernel_ms["B2"] = tuple(t2.values())[:2]
+    kernel_ms["B2"] = tuple(t2.values())
+    bounds["B2"] = bound(16.0 * n * b, chirp_z_flops(n, st.size) * b, F32_RATE)
     del re, im, xc
 
     # 5c. B3 at n=65536, B=1024: kernel alone (its (q, p, B) input), the
@@ -780,7 +1123,9 @@ def main() -> int:
                 else f"{flops / ms / 1e6:.2f} GFLOP/s (5 n log2 n)")
         print(f"time: {what}: {ms:.4f} ms per call, {rate} (n={n}, B={b}, "
               f"median of {REPS}) on {card}", flush=True)
-    kernel_ms["B3"] = tuple(t3.values())[:2]
+    kernel_ms["B3"] = (*tuple(t3.values())[:2], None)
+    bounds["B3"] = bound(16.0 * n * b, (5 * p_ * math.log2(p_) + 6 * p_) * q_ * b,
+                         F32_RATE)
 
     # 5d. rfft + irfft round trips at the suite's rows, batch-minor, chained:
     # the fused plan, the same plan's unfused branch around the same inner
@@ -794,6 +1139,7 @@ def main() -> int:
         xb = x.T.contiguous()
         fam = "B4" if plan.even else "B5"
         spec = plan.rfft_planar_bm(x)
+        spec_c = torch.complex(spec[0].T.contiguous(), spec[1].T.contiguous())
         trip = {
             f"fused {fam} round trip (chain {RF_CHAIN})": median_ms(
                 lambda a, _c: (plan.irfft_planar_bm(*plan.rfft_planar_bm(a)), None),
@@ -815,15 +1161,109 @@ def main() -> int:
                 lambda *_: (plain_f(x), None), None, None, RF_PLAIN_CHAIN),
             f"plain {fam}b": median_ms(
                 lambda *_: (plain_i(*spec), None), None, None, RF_PLAIN_CHAIN),
+            "torch.fft.rfft": median_ms(
+                lambda *_: (torch.fft.rfft(xb), None), None, None, RF_CHAIN),
+            "torch.fft.irfft": median_ms(
+                lambda *_: (torch.fft.irfft(spec_c, n=n), None), None, None,
+                RF_CHAIN),
         }
         for what, ms in trip.items():
             print(f"time: rfft n={n} B={b} {what}: {ms:.4f} ms per call "
                   f"(inner {plan_tree(plan)[2]}, median of {REPS}) on {card}",
                   flush=True)
         if (n, b) in ((4096, 16384), (1013, 65536)):
+            library = {"a": trip["torch.fft.rfft"], "b": trip["torch.fft.irfft"]}
             for k in ("a", "b"):
-                kernel_ms[fam + k] = (trip[f"{fam}{k} kernel"], trip[f"plain {fam}{k}"])
-        del x, xb, spec
+                kernel_ms[fam + k] = (trip[f"{fam}{k} kernel"], trip[f"plain {fam}{k}"],
+                                      library[k])
+            L = n // 2 + 1
+            io = n * b * 4 + L * b * 8  # real plane one way, planar spectrum the other
+            if plan.even:
+                m = n // 2
+                flops = (5 * m * math.log2(m) + 16 * (m + 1)) * b
+            else:
+                flops = (b + 1) // 2 * chirp_z_flops(n, plan.inner.m_inner) + 8 * L * b
+            bounds[fam + "a"] = bounds[fam + "b"] = bound(io, flops, F32_RATE)
+        del x, xb, spec, spec_c
+
+    # 5e. The suite's c128 rows, batch-minor, chained SQRT_SCALED_FFT: the
+    # plan, its kernel alone, the kernel's plain version and torch.fft.fft on
+    # the same complex128 tensor as (B, n); ms, GB/s of the 32 n B bytes a
+    # c2c pass moves, and the share of the kernel's bound.
+    def dd_row(n, b):
+        plan = ftt.create_fft_f64(n)
+        scale = mode.scale(n)
+        re, im = planes64(n, b)
+        xc = torch.complex(re.T.contiguous(), im.T.contiguous())
+        tree = plan_tree(plan)
+        rows = {
+            f"plan.transform_planar_bm (chain {DD_CHAIN})": median_ms(
+                lambda a, c: plan.transform_planar_bm(a, c, mode), re, im, DD_CHAIN),
+            f"torch.fft.fft (chain {DD_CHAIN})": median_ms(
+                lambda a, _c: (torch.fft.fft(a, norm="ortho"), None), xc, None,
+                DD_CHAIN),
+        }
+        if tree[0] == "VpuDdFftPlan":
+            k, tb = "B6", plan.tables(True)
+            kernel = lambda a, c: dv.vpu_dd_fft_batch_minor(
+                a, c, n, True, scale, tables=tb, kernel_tables=plan.kernel_fwd)
+            plain = lambda a, c: dv.vpu_dd_fft_batch_minor_reference(
+                a, c, n, tb, True, scale)
+            kb = bound(32.0 * n * b, 5.0 * n * math.log2(n) * b, F64_RATE)
+            args = (re, im)
+        elif tree[0] == "VpuDdBluesteinPlan":
+            k, st = "B7", plan.stages
+            tb, chirps = (st.tables(True), st.tables(False)), plan.chirps(True)
+            kernel = lambda a, c: dv.vpu_dd_bluestein_batch_minor(
+                a, c, n, st.size, scale, tables=tb,
+                kernel_tables=(st.kernel_fwd, st.kernel_inv), chirps=chirps)
+            plain = lambda a, c: dv.vpu_dd_bluestein_batch_minor_reference(
+                a, c, n, st.size, tb, chirps, scale)
+            kb = bound(32.0 * n * b, chirp_z_flops(n, st.size) * b, F64_RATE)
+            args = (re, im)
+        elif tree[0] == "DdSplitRadixPlan":
+            k, r = "B8", plan.radix
+            m = n // r
+            kernel = lambda a, c: dc.dd_split_combine_batch_minor(
+                a.view(m, r * b), c.view(m, r * b), n, r, True, scale,
+                tables=plan.tw_fwd)
+            plain = lambda a, c: dc.dd_split_combine_batch_minor_reference(
+                a.view(m, r * b), c.view(m, r * b), n, r, plan.tw_fwd, True, scale)
+            kb = bound(32.0 * n * b, (6 * (r - 1) + 2 + {2: 4, 3: 16, 5: 60}[r])
+                       * m * b, F64_RATE)
+            args = (re, im)
+        else:  # the composed Bluestein: its B6 inner alone, at the inner's shape
+            k, inner = "B6", plan.inner
+            ni = inner.size
+            tb = inner.tables(True)
+            kernel = lambda a, c: dv.vpu_dd_fft_batch_minor(
+                a, c, ni, True, ni ** -0.5, tables=tb, kernel_tables=inner.kernel_fwd)
+            plain = lambda a, c: dv.vpu_dd_fft_batch_minor_reference(
+                a, c, ni, tb, True, ni ** -0.5)
+            kb = bound(32.0 * ni * b, 5.0 * ni * math.log2(ni) * b, F64_RATE)
+            args = planes64(ni, b)
+        # B8 alone maps (n, B) onto (n, B); run on one input, not chained.
+        chain = (lambda f: (lambda *_: (f(*args)[0], None))) if k == "B8" else None
+        rows[f"{k} kernel"] = (median_ms(chain(kernel), None, None, DD_CHAIN)
+                               if chain else median_ms(kernel, *args, DD_CHAIN))
+        rows[f"plain {k}"] = (median_ms(chain(plain), None, None, PLAIN_CHAIN)
+                              if chain else median_ms(plain, *args, PLAIN_CHAIN))
+        for what, ms in rows.items():
+            nb = 32.0 * (args[0].shape[0] if "kernel" in what or "plain" in what
+                         else n) * b
+            share = f", {kb[0] / ms:.4f} of the {k} bound {kb[0]:.4f} ms ({kb[1]})" \
+                if what == f"{k} kernel" else ""
+            print(f"time: c128 n={n} B={b} {tree} {what}: {ms:.4f} ms per call, "
+                  f"{nb / ms / 1e6:.2f} GB/s{share} (median of {REPS}) on {card}",
+                  flush=True)
+        return k, rows, kb
+
+    for n, b in DD_TIME:
+        k, rows, kb = dd_row(n, b)
+        if (n, b) in ((1024, 65536), (1013, 65536), (2187, 16384)):
+            kernel_ms[k] = (rows[f"{k} kernel"], rows[f"plain {k}"],
+                            None if k == "B8" else rows[f"torch.fft.fft (chain {DD_CHAIN})"])
+            bounds[k] = kb
 
     kernels = (
         ("B1", "B1 fused Stockham c64 (vpu_fft_batch_minor)", 422),
@@ -835,16 +1275,30 @@ def main() -> int:
         ("B5b", "B5b odd-n irfft two-for-one (vpu_irfft_odd_unpack_batch_minor)",
          1051),
     )
+    dd_kernels = (
+        ("B6", "B6 fused Stockham c128 f64 (vpu_dd_fft_batch_minor)",
+         "stockham_vpu_dd.py:344"),
+        ("B7", "B7 fused Bluestein c128 f64 (vpu_dd_bluestein_batch_minor)",
+         "stockham_vpu_dd.py:465"),
+        ("B8", "B8 split combine c128 f64 (dd_split_combine_batch_minor)",
+         "dd_combine.py:58"),
+    )
+    rows = ([(k, name, sv.LIBRARY, f"stockham_vpu.py:{line}")
+             for k, name, line in kernels]
+            + [(k, name, dv.LIBRARY, where) for k, name, where in dd_kernels])
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
-        "source": f"fourier_tpu_torch/csrc/{sv.LIBRARY}.cu",
-        "replaces": f"fourier_tpu/ops/pallas/stockham_vpu.py:{line}",
+        "source": f"fourier_tpu_torch/csrc/{lib}.cu",
+        "replaces": f"fourier_tpu/ops/pallas/{where}",
         "launches": path_launches[k],
         "max_abs_err": max_abs_err[k],
         "ms": kernel_ms[k][0],
         "plain_ms": kernel_ms[k][1],
-    } for k, name, line in kernels]}), flush=True)
+        "bound_ms": bounds[k][0],
+        "bound_by": bounds[k][1],
+        "library_ms": kernel_ms[k][2],
+    } for k, name, lib, where in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
         flush=True)

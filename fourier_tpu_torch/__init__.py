@@ -2,14 +2,18 @@
 
 Plan-then-execute FFTs on torch tensors, held against the JAX package
 ``fourier_tpu`` (the reference). ``create_fft_f32`` / ``create_fft_f64``
-build plans on an explicit ``device``; plans expose ``transform_planar``,
-``transform_planar_bm``, ``transform``, ``fft`` and ``ifft``. On a CUDA device
-the default complex64 path runs the hand-written Hopper kernels of
-``csrc/`` through ``ops/cuda/stockham_vpu.py``: B1 (fused Stockham), B2
-(fused Bluestein) and B3 (four-step row leg); the other complex64 sizes run
-DFT products (``ops/bailey.py``) in full float32. Real transforms
-(``RfftPlan``, ``rfft``, ``irfft``, ``hfft``, ``ihfft``) run B4 (even n)
-and B5 (odd n) on their batch-minor path.
+build plans on ``device``, the card ("cuda") unless the caller asks for the
+CPU; plans expose ``transform_planar``, ``transform_planar_bm``,
+``transform``, ``fft`` and ``ifft``. On a CUDA device the default complex64
+path runs the hand-written Hopper kernels of ``csrc/`` through
+``ops/cuda/stockham_vpu.py``: B1 (fused Stockham), B2 (fused Bluestein) and
+B3 (four-step row leg); the other complex64 sizes run DFT products
+(``ops/bailey.py``) in full float32. complex128 runs the ``dd`` route in
+native f64 (``precision/``, ``ops/cuda/stockham_vpu_dd.py``,
+``ops/cuda/dd_combine.py``): B6 (fused Stockham), B7 (fused Bluestein) and
+B8 (split combine over B6). Real transforms (``RfftPlan``, ``rfft``,
+``irfft``, ``hfft``, ``ihfft``) run B4 (even n) and B5 (odd n) on their
+batch-minor path in complex64, and the unfused pack around the c128 route.
 
 This package imports torch and never jax.
 """
@@ -22,10 +26,14 @@ import torch as _torch
 from fourier_tpu_torch.plan import (
     AutosortPlan,
     BluesteinPlan,
+    DdSplitPow2Plan,
+    DdSplitRadixPlan,
     FftPlan,
     FourStepLocalPlan,
     MxuFftPlan,
     VpuBluesteinPlan,
+    VpuDdBluesteinPlan,
+    VpuDdFftPlan,
     VpuFftPlan,
     clear_plan_cache,
     create_fft,
@@ -33,17 +41,19 @@ from fourier_tpu_torch.plan import (
     create_fft_f64,
     load_jax_plan,
 )
+from fourier_tpu_torch.plan.base import resolve_device
 from fourier_tpu_torch.rfft import RfftPlan, hfft, ihfft, irfft, rfft, rfftfreq
 from fourier_tpu_torch.transform import Transform
 
 __version__ = "0.1.0"
 
 
-def transform(x, mode: Transform, dtype=None):
+def transform(x, mode: Transform, dtype=None, device="cuda"):
     """Plan-and-run a transform over the last axis of a complex array.
 
-    `x` is a numpy array (planned on the CPU, numpy out) or a torch tensor
-    (planned on its device, tensor out). A float64 input plans complex128.
+    `x` is a numpy array (planned on `device`, numpy out) or a torch tensor
+    (planned on its own device, tensor out). A float64 input plans
+    complex128.
     """
     xt = x if isinstance(x, _torch.Tensor) else _torch.as_tensor(_np.asarray(x))
     if dtype is None:
@@ -53,14 +63,16 @@ def transform(x, mode: Transform, dtype=None):
             dtype = _torch.complex128
         else:
             dtype = _torch.complex64
-    return create_fft(xt.shape[-1], dtype, device=xt.device).transform(x, mode)
+    plan_device = xt.device if isinstance(x, _torch.Tensor) else device
+    return create_fft(xt.shape[-1], dtype, device=plan_device).transform(x, mode)
 
 
-def _fft_1d(x, n, norm, dtype, forward: bool, axis: int = -1):
+def _fft_1d(x, n, norm, dtype, forward: bool, axis: int, device):
     from fourier_tpu_torch.ndim import _crop_pad_axis, _norm_mode
 
     as_numpy = not isinstance(x, _torch.Tensor)
-    xt = _torch.as_tensor(_np.asarray(x)) if as_numpy else x
+    xt = (_torch.as_tensor(_np.asarray(x), device=resolve_device(device))
+          if as_numpy else x)
     xt = _torch.movedim(xt, axis, -1)
     if n is not None:
         xt = _crop_pad_axis(xt, int(n), xt.ndim - 1)
@@ -69,29 +81,34 @@ def _fft_1d(x, n, norm, dtype, forward: bool, axis: int = -1):
     if fwd_scale:
         out = out / xt.shape[-1]
     out = _torch.movedim(out, -1, axis)
-    return out.numpy() if as_numpy else out
+    return out.detach().cpu().numpy() if as_numpy else out
 
 
-def fft(x, n=None, norm=None, dtype=None, axis: int = -1):
+def fft(x, n=None, norm=None, dtype=None, axis: int = -1, device="cuda"):
     """Forward FFT over ``axis`` (numpy.fft.fft compatibility: ``n`` crops or
-    zero-pads, ``norm`` is backward/ortho/forward)."""
-    return _fft_1d(x, n, norm, dtype, forward=True, axis=axis)
+    zero-pads, ``norm`` is backward/ortho/forward). A numpy `x` runs on
+    ``device``, a tensor on its own device."""
+    return _fft_1d(x, n, norm, dtype, True, axis, device)
 
 
-def ifft(x, n=None, norm=None, dtype=None, axis: int = -1):
+def ifft(x, n=None, norm=None, dtype=None, axis: int = -1, device="cuda"):
     """Inverse FFT over ``axis`` (numpy.fft.ifft compatibility)."""
-    return _fft_1d(x, n, norm, dtype, forward=False, axis=axis)
+    return _fft_1d(x, n, norm, dtype, False, axis, device)
 
 
 __all__ = [
     "AutosortPlan",
     "BluesteinPlan",
+    "DdSplitPow2Plan",
+    "DdSplitRadixPlan",
     "FftPlan",
     "FourStepLocalPlan",
     "MxuFftPlan",
     "RfftPlan",
     "Transform",
     "VpuBluesteinPlan",
+    "VpuDdBluesteinPlan",
+    "VpuDdFftPlan",
     "VpuFftPlan",
     "clear_plan_cache",
     "create_fft",

@@ -52,46 +52,10 @@
 //   narrowed at compile time. No trigonometry runs on the device.
 // - Scale. The mode scale is applied once, on the store (1.0 for unscaled
 //   modes, which is exact).
+// The kernel is stockham_planar<float> of stockham_stages.cuh, which B6
+// instantiates at double.
 
 #include "stockham_stages.cuh"
-
-namespace {
-
-template <bool F, int MaxThreads>
-__global__ void __launch_bounds__(MaxThreads)
-stockham_c64(const float* __restrict__ xre, const float* __restrict__ xim,
-             float* __restrict__ yre, float* __restrict__ yim, int n, int batch,
-             int cols, Schedule sch, const float* __restrict__ twre,
-             const float* __restrict__ twim, float scale) {
-  extern __shared__ float smem[];
-  float* sre = smem;
-  float* sim = smem + n * cols;
-  const int b0 = blockIdx.x * cols;
-  const int total = n * cols;
-  for (int e = threadIdx.x; e < total; e += blockDim.x) {
-    const int row = e / cols, col = e - row * cols, b = b0 + col;
-    float vr = 0.0f, vi = 0.0f;
-    if (b < batch) {
-      const size_t g = static_cast<size_t>(row) * batch + b;
-      vr = xre[g];
-      vi = xim[g];
-    }
-    sre[e] = vr;
-    sim[e] = vi;
-  }
-  __syncthreads();
-  run_stages<F>(sre, sim, n, cols, sch, twre, twim);
-  for (int e = threadIdx.x; e < total; e += blockDim.x) {
-    const int row = e / cols, col = e - row * cols, b = b0 + col;
-    if (b < batch) {
-      const size_t g = static_cast<size_t>(row) * batch + b;
-      yre[g] = sre[e] * scale;
-      yim[g] = sim[e] * scale;
-    }
-  }
-}
-
-}  // namespace
 
 // Kernel B2: the fused Bluestein (chirp-z) FFT, batch-minor (n, B).
 //
@@ -107,8 +71,9 @@ stockham_c64(const float* __restrict__ xre, const float* __restrict__ xim,
 //   6. the first n rows times xo * scale (xo carries 1/M from plan time; the
 //      mode scale arrives as a float, as in B1), stored.
 // M is 5-smooth with 8 | M and M <= 8192 (VpuBluesteinPlan.choose_inner).
-// Steps 1-5 are chirp_z below, which the odd-n real kernels B5a and B5b
-// share.
+// The kernel is bluestein_planar<float> of stockham_stages.cuh (B7 is its
+// double instantiation); its steps 1-5 are chirp_z there, which the odd-n
+// real kernels B5a and B5b share.
 //
 // What bounds it on this card: it reads and writes only n rows per column,
 // 16*n*B bytes, but runs two M >= 2n-1 point transforms on chip, about
@@ -130,92 +95,6 @@ stockham_c64(const float* __restrict__ xre, const float* __restrict__ xim,
 //   the wrapper.
 // - The chirp, w and output tables are read from global memory (__ldg) at
 //   the row each thread owns; they are f64 plan-time values narrowed to f32.
-
-namespace {
-
-// One direction's chirp-z tables: the inner schedule's forward and inverse
-// stage tables, the input chirp xt (n), the transformed padded chirp wt (M)
-// and the output chirp xo (n, 1/M folded in).
-struct ChirpZ {
-  const float* fwre;
-  const float* fwim;
-  const float* ivre;
-  const float* ivim;
-  const float* xtre;
-  const float* xtim;
-  const float* wtre;
-  const float* wtim;
-  const float* xore;
-  const float* xoim;
-};
-
-// Steps 1-5 of the chirp-z over the block's (m, cols) planes: row r < n of
-// column c becomes load(r, c) times xt[r] (load gives zeros for a masked
-// column), rows n..m-1 zeros; then the forward stages, the w multiply and
-// the inverse stages, unscaled. The planes are complete when it returns;
-// the output chirp is the caller's.
-template <typename Load>
-__device__ __forceinline__ void chirp_z(float* sre, float* sim, int n, int m,
-                                        int cols, const Schedule& sch,
-                                        const ChirpZ& t, Load load) {
-  const int total = m * cols;
-  for (int e = threadIdx.x; e < total; e += blockDim.x) {
-    const int row = e / cols, col = e - row * cols;
-    float vr = 0.0f, vi = 0.0f;
-    if (row < n) {
-      const float2 v = load(row, col);
-      const float cr = __ldg(t.xtre + row), ci = __ldg(t.xtim + row);
-      vr = v.x * cr - v.y * ci;
-      vi = v.x * ci + v.y * cr;
-    }
-    sre[e] = vr;
-    sim[e] = vi;
-  }
-  __syncthreads();
-  run_stages<true>(sre, sim, m, cols, sch, t.fwre, t.fwim);
-  for (int e = threadIdx.x; e < total; e += blockDim.x) {
-    const int row = e / cols;
-    const float wr = __ldg(t.wtre + row), wi = __ldg(t.wtim + row);
-    const float a = sre[e], c = sim[e];
-    sre[e] = a * wr - c * wi;
-    sim[e] = a * wi + c * wr;
-  }
-  __syncthreads();
-  run_stages<false>(sre, sim, m, cols, sch, t.ivre, t.ivim);
-}
-
-template <int MaxThreads>
-__global__ void __launch_bounds__(MaxThreads)
-bluestein_c64(const float* __restrict__ xre, const float* __restrict__ xim,
-              float* __restrict__ yre, float* __restrict__ yim, int n, int m,
-              int batch, int cols, Schedule sch, ChirpZ t, float scale) {
-  extern __shared__ float smem[];
-  float* sre = smem;
-  float* sim = smem + m * cols;
-  const int b0 = blockIdx.x * cols;
-  // 1-5. chirp in, zero rows, forward stages, w, inverse stages.
-  chirp_z(sre, sim, n, m, cols, sch, t, [&](int row, int col) {
-    const int b = b0 + col;
-    if (b >= batch) return make_float2(0.0f, 0.0f);
-    const size_t g = static_cast<size_t>(row) * batch + b;
-    return make_float2(xre[g], xim[g]);
-  });
-  // 6. output chirp (1/M folded in) times the mode scale, first n rows.
-  const int out = n * cols;
-  for (int e = threadIdx.x; e < out; e += blockDim.x) {
-    const int row = e / cols, col = e - row * cols, b = b0 + col;
-    if (b < batch) {
-      const float cr = __ldg(t.xore + row) * scale;
-      const float ci = __ldg(t.xoim + row) * scale;
-      const float a = sre[e], c = sim[e];
-      const size_t g = static_cast<size_t>(row) * batch + b;
-      yre[g] = a * cr - c * ci;
-      yim[g] = a * ci + c * cr;
-    }
-  }
-}
-
-}  // namespace
 
 // Kernel B3: the row leg of the single-chip four-step FFT, batch-minor.
 //
@@ -439,7 +318,7 @@ template <int MaxThreads>
 __global__ void __launch_bounds__(MaxThreads)
 rfft_odd_pack_c64(const float* __restrict__ x, float* __restrict__ yre,
                   float* __restrict__ yim, int n, int m, int batch, int half,
-                  int cols, Schedule sch, ChirpZ t) {
+                  int cols, Schedule sch, ChirpZ<float> t) {
   extern __shared__ float smem[];
   float* sre = smem;
   float* sim = smem + m * cols;
@@ -491,7 +370,7 @@ __global__ void __launch_bounds__(MaxThreads)
 irfft_odd_unpack_c64(const float* __restrict__ xre,
                      const float* __restrict__ xim, float* __restrict__ y,
                      int n, int m, int batch, int half, int cols, Schedule sch,
-                     ChirpZ t, float scale) {
+                     ChirpZ<float> t, float scale) {
   extern __shared__ float smem[];
   float* sre = smem;
   float* sim = smem + m * cols;
@@ -549,23 +428,13 @@ int fourier_stockham_c64(const float* xre, const float* xim, float* yre,
                          int nstages, const int* radices, const float* twre,
                          const float* twim, int forward, float scale,
                          int device, void* stream) {
-  Schedule sch{};
-  if (batch <= 0 || !block_fits(n, cols, threads)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  int err = make_schedule(n, nstages, radices, &sch);
-  if (err != 0) return err;
-  const size_t smem = 2 * sizeof(float) * static_cast<size_t>(n) * cols;
-  auto kern = threads <= 512
-                  ? (forward ? stockham_c64<true, 512> : stockham_c64<false, 512>)
-                  : (forward ? stockham_c64<true, kMaxThreads>
-                             : stockham_c64<false, kMaxThreads>);
-  err = prepare_launch(kern, smem, device);
-  if (err != 0) return err;
-  const dim3 grid((batch + cols - 1) / cols);
-  kern<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      xre, xim, yre, yim, n, batch, cols, sch, twre, twim, scale);
-  return static_cast<int>(cudaGetLastError());
+  return threads <= 512
+             ? launch_stockham<float, 512>(xre, xim, yre, yim, n, batch, cols,
+                                           threads, nstages, radices, twre,
+                                           twim, forward, scale, device, stream)
+             : launch_stockham<float, kMaxThreads>(
+                   xre, xim, yre, yim, n, batch, cols, threads, nstages,
+                   radices, twre, twim, forward, scale, device, stream);
 }
 
 // Bluestein transform of the B = `batch` columns of the planar (n, B) input
@@ -583,21 +452,14 @@ int fourier_bluestein_c64(const float* xre, const float* xim, float* yre,
                           const float* wtre, const float* wtim,
                           const float* xore, const float* xoim, float scale,
                           int device, void* stream) {
-  Schedule sch{};
-  if (n <= 0 || 2 * n - 1 > m || batch <= 0 || !block_fits(m, cols, threads)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  int err = make_schedule(m, nstages, radices, &sch);
-  if (err != 0) return err;
-  const size_t smem = 2 * sizeof(float) * static_cast<size_t>(m) * cols;
-  auto kern = threads <= 512 ? bluestein_c64<512> : bluestein_c64<kMaxThreads>;
-  err = prepare_launch(kern, smem, device);
-  if (err != 0) return err;
-  const dim3 grid((batch + cols - 1) / cols);
-  const ChirpZ t{fwre, fwim, ivre, ivim, xtre, xtim, wtre, wtim, xore, xoim};
-  kern<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      xre, xim, yre, yim, n, m, batch, cols, sch, t, scale);
-  return static_cast<int>(cudaGetLastError());
+  const ChirpZ<float> t{fwre, fwim, ivre, ivim, xtre, xtim, wtre, wtim, xore, xoim};
+  return threads <= 512
+             ? launch_bluestein<float, 512>(xre, xim, yre, yim, n, m, batch,
+                                            cols, threads, nstages, radices, t,
+                                            scale, device, stream)
+             : launch_bluestein<float, kMaxThreads>(
+                   xre, xim, yre, yim, n, m, batch, cols, threads, nstages,
+                   radices, t, scale, device, stream);
 }
 
 // Row leg of an n = p*q four-step: the planar (q, p, B) input (B = `batch`)
@@ -713,7 +575,7 @@ int fourier_rfft_odd_pack_c64(const float* x, float* yre, float* yim, int n,
   if (err != 0) return err;
   const int half = (batch + 1) / 2;
   const dim3 grid((half + cols - 1) / cols);
-  const ChirpZ t{fwre, fwim, ivre, ivim, xtre, xtim, wtre, wtim, xore, xoim};
+  const ChirpZ<float> t{fwre, fwim, ivre, ivim, xtre, xtim, wtre, wtim, xore, xoim};
   kern<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       x, yre, yim, n, m, batch, half, cols, sch, t);
   return static_cast<int>(cudaGetLastError());
@@ -745,7 +607,7 @@ int fourier_irfft_odd_unpack_c64(const float* xre, const float* xim, float* y,
   if (err != 0) return err;
   const int half = (batch + 1) / 2;
   const dim3 grid((half + cols - 1) / cols);
-  const ChirpZ t{fwre, fwim, ivre, ivim, xtre, xtim, wtre, wtim, xore, xoim};
+  const ChirpZ<float> t{fwre, fwim, ivre, ivim, xtre, xtim, wtre, wtim, xore, xoim};
   kern<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       xre, xim, y, n, m, batch, half, cols, sch, t, scale);
   return static_cast<int>(cudaGetLastError());

@@ -7,7 +7,10 @@ flags and of every source under ``csrc/`` (``*.cu``, ``*.cuh``, ``*.h``: it
 includes headers), and loaded with ``ctypes``. A file lock is taken before
 the library's existence is tested, so concurrent processes neither load a
 half-written library nor build it twice; the compiler writes to a temporary
-name that is renamed into place.
+name that is renamed into place. :func:`load_all` builds several libraries at
+once, one ``nvcc`` each. ptxas reports each function's registers and spills
+(``-Xptxas -v``); the report is kept beside the library
+(:func:`resource_usage`).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
@@ -27,13 +31,14 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "fourier_tpu_torch"
 # No --use_fast_math: it replaces sinf/cosf and flushes denormals.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 SOURCE_SUFFIXES = (".cu", ".cuh", ".h")
 
 _loaded: dict = {}
-_lock = threading.Lock()
+_locks: dict = {}  # one per library, so that two libraries build at once
+_guard = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -62,7 +67,9 @@ def library_path(name: str) -> Path:
 
 def load(name: str) -> ctypes.CDLL:
     """Build csrc/<name>.cu if needed and return the loaded library."""
-    with _lock:
+    with _guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _loaded:
             return _loaded[name]
         so = library_path(name)
@@ -79,6 +86,42 @@ def load(name: str) -> ctypes.CDLL:
                         f"nvcc failed ({proc.returncode}) for {name}.cu:\n"
                         f"{proc.stdout}\n{proc.stderr}"
                     )
+                so.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
                 os.replace(tmp, so)
             _loaded[name] = ctypes.CDLL(str(so))
         return _loaded[name]
+
+
+def resource_usage(name: str) -> str:
+    """ptxas's report (registers, spills, stack) of the library's build."""
+    return library_path(name).with_suffix(".ptxas.txt").read_text()
+
+
+def load_all(names) -> list:
+    """Build (in parallel, one nvcc each) and load several libraries."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return list(pool.map(load, names))
+
+
+def bind(name: str, entry_points) -> ctypes.CDLL:
+    """Load csrc/<name>.cu and set the argument types of its C entry points
+    (`entry_points`: name -> ctypes argument types; each returns an int
+    cudaError_t) and of its ``fourier_cuda_error_string``."""
+    lib = load(name)
+    if lib.fourier_cuda_error_string.restype is not ctypes.c_char_p:
+        for fn_name, argtypes in entry_points.items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.fourier_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.fourier_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def call(lib: ctypes.CDLL, fn_name: str, what: str, *args) -> None:
+    """Call the C entry point `fn_name` of `lib`; raise if it fails."""
+    rc = getattr(lib, fn_name)(*args)
+    if rc != 0:
+        msg = lib.fourier_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: {msg} ({rc})")

@@ -51,6 +51,7 @@ import torch
 
 from fourier_tpu_torch.ops import cplx, hermitian
 from fourier_tpu_torch.ops.butterflies import BUTTERFLIES
+from fourier_tpu_torch.ops.cuda import build
 from fourier_tpu_torch.twiddle import stage_twiddles
 
 # Pure 3^b and 5^c schedules of the TPU kernel (its measured two-stage
@@ -133,23 +134,28 @@ def _stage_sizes(n: int, schedule: Sequence[int]):
     return out
 
 
-def make_stage_tables(n: int, forward: bool) -> List[Tuple[np.ndarray, np.ndarray]]:
-    """Compact planar f32 (m, r) twiddle tables of :func:`radix_schedule`,
-    one per stage but the last: entry (i, k) = W_size^(i*k)."""
+def stage_tables(n: int, schedule: Sequence[int], forward: bool,
+                 real=np.float64) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """Compact planar (m, r) twiddle tables of a stage schedule, one per
+    stage but the last: entry (i, k) = W_size^(i*k), computed in f64 and
+    cast to `real`."""
     tables = []
-    for size, r in _stage_sizes(n, radix_schedule(n)):
+    for size, r in _stage_sizes(n, schedule):
         tw = stage_twiddles(size, r, forward)
-        tables.append((tw.real.astype(np.float32), tw.imag.astype(np.float32)))
+        tables.append((tw.real.astype(real), tw.imag.astype(real)))
     return tables
 
 
-@functools.lru_cache(maxsize=None)
-def kernel_schedule(n: int) -> Tuple[int, ...]:
-    """The CUDA kernel's stages: each radix of :func:`radix_schedule` split
-    greedily into 8, 4, 2, 3 and 5 (64 -> 8, 8; 81 -> 3, 3, 3, 3;
-    125 -> 5, 5, 5)."""
+def make_stage_tables(n: int, forward: bool) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """Compact planar f32 (m, r) twiddle tables of :func:`radix_schedule`."""
+    return stage_tables(n, radix_schedule(n), forward, np.float32)
+
+
+def split_schedule(schedule: Sequence[int]) -> Tuple[int, ...]:
+    """A CUDA kernel's stages: each radix of a TPU schedule split greedily
+    into 8, 4, 2, 3 and 5 (64 -> 8, 8; 81 -> 3, 3, 3, 3; 125 -> 5, 5, 5)."""
     out = []
-    for r in radix_schedule(n):
+    for r in schedule:
         for k in KERNEL_RADICES:
             while r % k == 0:
                 out.append(k)
@@ -157,14 +163,27 @@ def kernel_schedule(n: int) -> Tuple[int, ...]:
     return tuple(out)
 
 
-def make_kernel_tables(n: int, forward: bool) -> np.ndarray:
-    """The kernel's twiddles: the (size // r, r) tables of every stage of
-    :func:`kernel_schedule` but the last, flattened row-major and
-    concatenated, as a planar f32 (2, L) array."""
+@functools.lru_cache(maxsize=None)
+def kernel_schedule(n: int) -> Tuple[int, ...]:
+    """B1's stages: :func:`radix_schedule` split by :func:`split_schedule`."""
+    return split_schedule(radix_schedule(n))
+
+
+def kernel_tables(n: int, schedule: Sequence[int], forward: bool,
+                  real=np.float64) -> np.ndarray:
+    """A kernel's twiddles: the (size // r, r) tables of every stage of its
+    `schedule` but the last, flattened row-major and concatenated, as a
+    planar (2, L) array of `real`, computed in f64."""
     parts = [stage_twiddles(size, r, forward).ravel()
-             for size, r in _stage_sizes(n, kernel_schedule(n))]
+             for size, r in _stage_sizes(n, schedule)]
     tw = np.concatenate(parts)
-    return np.stack([tw.real, tw.imag]).astype(np.float32)
+    return np.stack([tw.real, tw.imag]).astype(real)
+
+
+def make_kernel_tables(n: int, forward: bool) -> np.ndarray:
+    """B1's twiddles, :func:`kernel_tables` of :func:`kernel_schedule` in
+    f32."""
+    return kernel_tables(n, kernel_schedule(n), forward, np.float32)
 
 
 def launch_geometry(n: int) -> Tuple[int, int]:
@@ -177,12 +196,12 @@ def launch_geometry(n: int) -> Tuple[int, int]:
     return cols, threads
 
 
-def vpu_fft_batch_minor_reference(re_t, im_t, n: int, tables, forward: bool,
-                                  scale: Optional[float]):
-    """Plain PyTorch B1: the stages of :func:`radix_schedule` over (n, B)
-    planes with the compact `tables` of :func:`make_stage_tables`, then the
-    mode scale. Port of ``stockham_vpu._stages_value``."""
-    schedule = radix_schedule(n)
+def stages_reference(re_t, im_t, schedule: Sequence[int], tables,
+                     forward: bool, scale: Optional[float]):
+    """The stages of a TPU `schedule` over (n, B) planes with its compact
+    `tables` (:func:`stage_tables`), then the mode scale: the plain version
+    of every fused stage kernel. Port of ``stockham_vpu._stages_value``."""
+    n = re_t.shape[0]
     b = re_t.shape[-1]
     re, im = re_t, im_t
     size, stride = n, 1
@@ -208,14 +227,23 @@ def vpu_fft_batch_minor_reference(re_t, im_t, n: int, tables, forward: bool,
     return re, im
 
 
-def _check_planes(re_t, im_t, lead, what: str):
-    """Contiguous float32 planes of equal shape, leading dims `lead`; on the
-    CPU or a CUDA device (the wrapper raises on any other)."""
+def vpu_fft_batch_minor_reference(re_t, im_t, n: int, tables, forward: bool,
+                                  scale: Optional[float]):
+    """Plain PyTorch B1: :func:`stages_reference` over the stages of
+    :func:`radix_schedule` with the compact `tables` of
+    :func:`make_stage_tables`."""
+    return stages_reference(re_t, im_t, radix_schedule(n), tables, forward,
+                            scale)
+
+
+def check_planes(re_t, im_t, lead, what: str, dtype=torch.float32):
+    """Contiguous planes of `dtype` and equal shape, leading dims `lead`; on
+    the CPU or a CUDA device (the wrapper raises on any other)."""
     for t in (re_t, im_t):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{what} takes torch tensors")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{what} takes float32 planes, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{what} takes {dtype} planes, got {t.dtype}")
         if t.ndim != len(lead) + 1 or tuple(t.shape[:-1]) != tuple(lead):
             raise ValueError(f"{what} takes ({', '.join(map(str, lead))}, B) "
                              f"planes, got {tuple(t.shape)}")
@@ -227,10 +255,10 @@ def _check_planes(re_t, im_t, lead, what: str):
         raise ValueError(f"{what} runs on CPU or CUDA tensors, not {re_t.device}")
 
 
-def _check_tables(device, *tables):
+def check_tables(device, *tables, dtype=torch.float32):
     for t in tables:
-        if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError("kernel tables must be contiguous float32 on the "
+        if t.device != device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"kernel tables must be contiguous {dtype} on the "
                              "planes' device")
 
 
@@ -250,38 +278,29 @@ ENTRY_POINTS = {
 
 def library():
     """Build (at first use) and load the kernel library."""
-    from fourier_tpu_torch.ops.cuda import build
-
-    lib = build.load(LIBRARY)
-    if lib.fourier_cuda_error_string.restype is not ctypes.c_char_p:
-        for fn_name, argtypes in ENTRY_POINTS.items():
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.fourier_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.fourier_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return build.bind(LIBRARY, ENTRY_POINTS)
 
 
 def _launch(fn_name: str, what: str, *args) -> None:
     """Call the library's C entry point `fn_name`; raise if it fails."""
-    lib = library()
-    rc = getattr(lib, fn_name)(*args)
-    if rc != 0:
-        msg = lib.fourier_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{what} launch failed: {msg} ({rc})")
+    build.call(library(), fn_name, what, *args)
 
 
-def _radices(n: int):
-    schedule = kernel_schedule(n)
+def radices_arg(schedule: Sequence[int]):
+    """(count, C int array) of a kernel schedule, as the entry points take
+    it."""
     return len(schedule), (ctypes.c_int * len(schedule))(*schedule)
 
 
-def _stream(t: torch.Tensor) -> int:
+def _radices(n: int):
+    return radices_arg(kernel_schedule(n))
+
+
+def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _scale(scale: Optional[float]) -> float:
+def scale_arg(scale: Optional[float]) -> float:
     return 1.0 if scale is None else float(scale)
 
 
@@ -294,11 +313,11 @@ def vpu_fft_batch_minor(re_t, im_t, n: int, forward: bool,
     :func:`make_kernel_tables` (kernel), both direction-matched and on the
     planes' device.
     """
-    _check_planes(re_t, im_t, (n,), "B1")
+    check_planes(re_t, im_t, (n,), "B1")
     if re_t.device.type == "cpu":
         return vpu_fft_batch_minor_reference(re_t, im_t, n, tables, forward,
                                              scale)
-    _check_tables(re_t.device, kernel_tables)
+    check_tables(re_t.device, kernel_tables)
     out_re = torch.empty_like(re_t)
     out_im = torch.empty_like(im_t)
     batch = re_t.shape[1]
@@ -310,7 +329,7 @@ def vpu_fft_batch_minor(re_t, im_t, n: int, forward: bool,
         re_t.data_ptr(), im_t.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
         n, batch, cols, threads, *_radices(n),
         kernel_tables[0].data_ptr(), kernel_tables[1].data_ptr(),
-        int(forward), _scale(scale), re_t.device.index, _stream(re_t),
+        int(forward), scale_arg(scale), re_t.device.index, stream_of(re_t),
     )
     vpu_fft_batch_minor.launches += 1
     return out_re, out_im
@@ -319,24 +338,34 @@ def vpu_fft_batch_minor(re_t, im_t, n: int, forward: bool,
 vpu_fft_batch_minor.launches = 0
 
 
-def vpu_bluestein_batch_minor_reference(re_t, im_t, n: int, m: int, tables,
-                                        chirps, scale: Optional[float]):
-    """Plain PyTorch B2: the whole chirp-z over (n, B) planes through an
-    m-point inner transform. `tables`: the (forward, inverse) compact stage
-    tables of :func:`make_stage_tables` for m; `chirps`: the (2, n), (2, m)
-    and (2, n) planar tensors xt, wt and xo (1/m folded into xo). Port of
+def chirp_z_reference(re_t, im_t, n: int, m: int, schedule, tables, chirps,
+                      scale: Optional[float]):
+    """The whole chirp-z over (n, B) planes through an m-point inner
+    transform with the stage `schedule`: the plain version of every fused
+    Bluestein kernel. `tables`: the (forward, inverse) compact stage tables
+    of the schedule; `chirps`: the (2, n), (2, m) and (2, n) planar tensors
+    xt, wt and xo (1/m folded into xo). Port of
     ``stockham_vpu._bluestein_value``."""
     xt, wt, xo = ((c[0][:, None], c[1][:, None]) for c in chirps)
     wre, wim = cplx.mul((re_t, im_t), xt)
     pad = (0, 0, 0, m - n)
     wre = torch.nn.functional.pad(wre, pad)
     wim = torch.nn.functional.pad(wim, pad)
-    wre, wim = vpu_fft_batch_minor_reference(wre, wim, m, tables[0], True, None)
+    wre, wim = stages_reference(wre, wim, schedule, tables[0], True, None)
     wre, wim = cplx.mul((wre, wim), wt)
-    wre, wim = vpu_fft_batch_minor_reference(wre, wim, m, tables[1], False, None)
+    wre, wim = stages_reference(wre, wim, schedule, tables[1], False, None)
     if scale is not None:
         xo = (xo[0] * scale, xo[1] * scale)
     return cplx.mul((wre[:n], wim[:n]), xo)
+
+
+def vpu_bluestein_batch_minor_reference(re_t, im_t, n: int, m: int, tables,
+                                        chirps, scale: Optional[float]):
+    """Plain PyTorch B2: :func:`chirp_z_reference` through the stages of
+    :func:`radix_schedule` (m), with the compact tables of
+    :func:`make_stage_tables`."""
+    return chirp_z_reference(re_t, im_t, n, m, radix_schedule(m), tables,
+                             chirps, scale)
 
 
 def vpu_bluestein_batch_minor(re_t, im_t, n: int, m: int,
@@ -350,11 +379,11 @@ def vpu_bluestein_batch_minor(re_t, im_t, n: int, m: int,
     direction-matched (xt, wt, xo) of :func:`vpu_bluestein_batch_minor_reference`;
     all on the planes' device.
     """
-    _check_planes(re_t, im_t, (n,), "B2")
+    check_planes(re_t, im_t, (n,), "B2")
     if re_t.device.type == "cpu":
         return vpu_bluestein_batch_minor_reference(re_t, im_t, n, m, tables,
                                                    chirps, scale)
-    _check_tables(re_t.device, *kernel_tables, *chirps)
+    check_tables(re_t.device, *kernel_tables, *chirps)
     out_re = torch.empty_like(re_t)
     out_im = torch.empty_like(im_t)
     batch = re_t.shape[1]
@@ -370,7 +399,7 @@ def vpu_bluestein_batch_minor(re_t, im_t, n: int, m: int,
         kf[0].data_ptr(), kf[1].data_ptr(), ki[0].data_ptr(), ki[1].data_ptr(),
         xt[0].data_ptr(), xt[1].data_ptr(), wt[0].data_ptr(), wt[1].data_ptr(),
         xo[0].data_ptr(), xo[1].data_ptr(),
-        _scale(scale), re_t.device.index, _stream(re_t),
+        scale_arg(scale), re_t.device.index, stream_of(re_t),
     )
     vpu_bluestein_batch_minor.launches += 1
     return out_re, out_im
@@ -407,11 +436,11 @@ def vpu_fft_four_step_row(re3, im3, p: int, q: int, forward: bool,
     (kernel); `pre_tw`: the (q, p) planar split twiddle, all direction-matched
     and on the planes' device.
     """
-    _check_planes(re3, im3, (q, p), "B3")
+    check_planes(re3, im3, (q, p), "B3")
     if re3.device.type == "cpu":
         return vpu_fft_four_step_row_reference(re3, im3, p, q, tables, pre_tw,
                                                forward, scale)
-    _check_tables(re3.device, kernel_tables, *pre_tw)
+    check_tables(re3.device, kernel_tables, *pre_tw)
     batch = re3.shape[-1]
     out_re = torch.empty(p * q, batch, dtype=torch.float32, device=re3.device)
     out_im = torch.empty_like(out_re)
@@ -424,7 +453,7 @@ def vpu_fft_four_step_row(re3, im3, p: int, q: int, forward: bool,
         p, q, batch, cols, threads, *_radices(p),
         kernel_tables[0].data_ptr(), kernel_tables[1].data_ptr(),
         pre_tw[0].data_ptr(), pre_tw[1].data_ptr(),
-        int(forward), _scale(scale), re3.device.index, _stream(re3),
+        int(forward), scale_arg(scale), re3.device.index, stream_of(re3),
     )
     vpu_fft_four_step_row.launches += 1
     return out_re, out_im
@@ -460,7 +489,7 @@ def vpu_irfft_unpack_batch_minor_reference(re_t, im_t, m: int, tables, w):
 
 
 def _check_w(w, m: int, device):
-    _check_tables(device, w)
+    check_tables(device, w)
     if tuple(w.shape) != (2, m):
         raise ValueError(f"w must be a (2, {m}) table, got {tuple(w.shape)}")
 
@@ -474,11 +503,11 @@ def vpu_rfft_pack_batch_minor(x_t, m: int, *, tables, kernel_tables, w):
     :func:`make_kernel_tables` for m (kernel); `w`: the (2, m) f32 table of
     exp(-2*pi*i*k/(2m)); all on the plane's device.
     """
-    _check_planes(x_t, x_t, (2 * m,), "B4a")
+    check_planes(x_t, x_t, (2 * m,), "B4a")
     _check_w(w, m, x_t.device)
     if x_t.device.type == "cpu":
         return vpu_rfft_pack_batch_minor_reference(x_t, m, tables, w)
-    _check_tables(x_t.device, kernel_tables)
+    check_tables(x_t.device, kernel_tables)
     batch = x_t.shape[1]
     out_re = torch.empty(m + 1, batch, dtype=torch.float32, device=x_t.device)
     out_im = torch.empty_like(out_re)
@@ -490,7 +519,7 @@ def vpu_rfft_pack_batch_minor(x_t, m: int, *, tables, kernel_tables, w):
         x_t.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
         m, batch, cols, threads, *_radices(m),
         kernel_tables[0].data_ptr(), kernel_tables[1].data_ptr(),
-        w[0].data_ptr(), w[1].data_ptr(), x_t.device.index, _stream(x_t),
+        w[0].data_ptr(), w[1].data_ptr(), x_t.device.index, stream_of(x_t),
     )
     vpu_rfft_pack_batch_minor.launches += 1
     return out_re, out_im
@@ -509,11 +538,11 @@ def vpu_irfft_unpack_batch_minor(re_t, im_t, m: int, *, tables, kernel_tables,
     :func:`make_kernel_tables` for m (kernel); `w`: as for
     :func:`vpu_rfft_pack_batch_minor` (conjugated here).
     """
-    _check_planes(re_t, im_t, (m + 1,), "B4b")
+    check_planes(re_t, im_t, (m + 1,), "B4b")
     _check_w(w, m, re_t.device)
     if re_t.device.type == "cpu":
         return vpu_irfft_unpack_batch_minor_reference(re_t, im_t, m, tables, w)
-    _check_tables(re_t.device, kernel_tables)
+    check_tables(re_t.device, kernel_tables)
     batch = re_t.shape[1]
     out = torch.empty(2 * m, batch, dtype=torch.float32, device=re_t.device)
     if batch == 0:
@@ -525,7 +554,7 @@ def vpu_irfft_unpack_batch_minor(re_t, im_t, m: int, *, tables, kernel_tables,
         m, batch, cols, threads, *_radices(m),
         kernel_tables[0].data_ptr(), kernel_tables[1].data_ptr(),
         w[0].data_ptr(), w[1].data_ptr(), float(np.float32(0.5 / m)),
-        re_t.device.index, _stream(re_t),
+        re_t.device.index, stream_of(re_t),
     )
     vpu_irfft_unpack_batch_minor.launches += 1
     return out
@@ -592,7 +621,7 @@ def _launch_odd(fn_name: str, what: str, inp, out, n: int, m: int,
         kf[0].data_ptr(), kf[1].data_ptr(), ki[0].data_ptr(), ki[1].data_ptr(),
         xt[0].data_ptr(), xt[1].data_ptr(), wt[0].data_ptr(), wt[1].data_ptr(),
         xo[0].data_ptr(), xo[1].data_ptr(),
-        *tail, inp[0].device.index, _stream(inp[0]),
+        *tail, inp[0].device.index, stream_of(inp[0]),
     )
 
 
@@ -604,11 +633,11 @@ def vpu_rfft_odd_pack_batch_minor(x_t, n: int, m: int, *, tables,
     `tables`, `kernel_tables`: as for :func:`vpu_bluestein_batch_minor`;
     `chirps`: the forward (xt, wt, xo); all on the plane's device.
     """
-    _check_planes(x_t, x_t, (n,), "B5a")
+    check_planes(x_t, x_t, (n,), "B5a")
     if x_t.device.type == "cpu":
         return vpu_rfft_odd_pack_batch_minor_reference(x_t, n, m, tables,
                                                        chirps)
-    _check_tables(x_t.device, *kernel_tables, *chirps)
+    check_tables(x_t.device, *kernel_tables, *chirps)
     L = (n + 1) // 2
     out_re = torch.empty(L, x_t.shape[1], dtype=torch.float32,
                          device=x_t.device)
@@ -632,11 +661,11 @@ def vpu_irfft_odd_unpack_batch_minor(re_t, im_t, n: int, m: int, *, tables,
     `tables`, `kernel_tables`: as for :func:`vpu_bluestein_batch_minor`;
     `chirps`: the inverse (xt, wt, xo); all on the planes' device.
     """
-    _check_planes(re_t, im_t, ((n + 1) // 2,), "B5b")
+    check_planes(re_t, im_t, ((n + 1) // 2,), "B5b")
     if re_t.device.type == "cpu":
         return vpu_irfft_odd_unpack_batch_minor_reference(re_t, im_t, n, m,
                                                           tables, chirps)
-    _check_tables(re_t.device, *kernel_tables, *chirps)
+    check_tables(re_t.device, *kernel_tables, *chirps)
     out = torch.empty(n, re_t.shape[1], dtype=torch.float32, device=re_t.device)
     if re_t.shape[1] == 0:
         return out

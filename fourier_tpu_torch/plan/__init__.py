@@ -14,15 +14,21 @@ from fourier_tpu_torch.plan.planner import (
     plan_tree,
 )
 from fourier_tpu_torch.plan.vpu import VpuFftPlan
+from fourier_tpu_torch.precision import (DdSplitPow2Plan, DdSplitRadixPlan,
+                                         VpuDdBluesteinPlan, VpuDdFftPlan)
 
 __all__ = [
     "AutosortPlan",
     "BluesteinPlan",
+    "DdSplitPow2Plan",
+    "DdSplitRadixPlan",
     "FftPlan",
     "FourStepLocalPlan",
     "MxuFftPlan",
     "RADICES",
     "VpuBluesteinPlan",
+    "VpuDdBluesteinPlan",
+    "VpuDdFftPlan",
     "VpuFftPlan",
     "clear_plan_cache",
     "create_fft",

@@ -10,11 +10,11 @@ from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
 from fourier_tpu_torch.ops import stockham_torch
-from fourier_tpu_torch.plan.base import (FftPlan, complex_dtype, planar_buffer,
+from fourier_tpu_torch.plan.base import (FftPlan, complex_dtype, numpy_real,
+                                         planar_buffer, resolve_device,
                                          stage_views)
 from fourier_tpu_torch.plan.factor import factorize_autosort
 from fourier_tpu_torch.transform import Transform
@@ -27,14 +27,14 @@ class AutosortPlan(FftPlan):
     family = "stockham"
 
     def __init__(self, size: int, radices: Sequence[int], dtype,
-                 fwd_twiddles, inv_twiddles, device="cpu"):
+                 fwd_twiddles, inv_twiddles, device):
         """`fwd_twiddles`/`inv_twiddles`: per-stage planar (re, im) numpy
         tables of shape (size_s // radix, radix)."""
         super().__init__()
         self.size = int(size)
         self.radices: Tuple[int, ...] = tuple(int(r) for r in radices)
         self.dtype = complex_dtype(dtype)
-        rt = np.float32 if self.dtype == torch.complex64 else np.float64
+        rt = numpy_real(self.dtype)
         self.register_buffer("fwd", planar_buffer(fwd_twiddles, rt, device),
                              persistent=False)
         self.register_buffer("inv", planar_buffer(inv_twiddles, rt, device),
@@ -47,7 +47,7 @@ class AutosortPlan(FftPlan):
 
     @classmethod
     def create(cls, size: int, dtype=torch.complex64,
-               device="cpu") -> Optional["AutosortPlan"]:
+               device="cuda") -> Optional["AutosortPlan"]:
         """Plan `size`, or None when the size needs Bluestein."""
         radices = factorize_autosort(size)
         if radices is None:
@@ -60,7 +60,7 @@ class AutosortPlan(FftPlan):
             fwd.append((tf.real, tf.imag))
             inv.append((ti.real, ti.imag))
             s //= radix
-        return cls(size, radices, dtype, fwd, inv, device)
+        return cls(size, radices, dtype, fwd, inv, resolve_device(device))
 
     def _execute(self, re, im, transform: Transform):
         forward = transform.is_forward

@@ -47,6 +47,26 @@ def complex_dtype(dtype) -> torch.dtype:
     return _COMPLEX_DTYPES[name]
 
 
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device, a bare "cuda" as the current card. Raises
+    RuntimeError for a CUDA device when no card is present: the port plans
+    on the CPU only when the caller asks for it."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device={str(device)!r} needs a CUDA card and none is "
+                "available; pass device='cpu' to plan on the CPU")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def numpy_real(dtype: torch.dtype):
+    """The numpy real type of a complex torch dtype's planes."""
+    return np.float32 if dtype == torch.complex64 else np.float64
+
+
 class _LinearFft(torch.autograd.Function):
     """A plan call whose backward is the same plan in the transposed mode."""
 

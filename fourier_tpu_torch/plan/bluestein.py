@@ -16,7 +16,8 @@ import torch
 
 from fourier_tpu_torch.ops import cplx
 from fourier_tpu_torch.plan.autosort import AutosortPlan
-from fourier_tpu_torch.plan.base import FftPlan, complex_dtype
+from fourier_tpu_torch.plan.base import (FftPlan, complex_dtype, numpy_real,
+                                         resolve_device)
 from fourier_tpu_torch.plan.factor import next_power_of_two
 from fourier_tpu_torch.transform import Transform
 from fourier_tpu_torch.twiddle import half_twiddle
@@ -44,13 +45,13 @@ class BluesteinPlan(FftPlan):
     family = "stockham"
 
     def __init__(self, size, dtype, inner: FftPlan, w_fwd, w_inv, x_fwd,
-                 x_inv, device="cpu"):
+                 x_inv, device):
         """Tables are planar (re, im) numpy pairs: w of shape (M,), x of (n,)."""
         super().__init__()
         self.size = int(size)
         self.dtype = complex_dtype(dtype)
         self.inner = inner
-        rt = np.float32 if self.dtype == torch.complex64 else np.float64
+        rt = numpy_real(self.dtype)
         for name, (tr, ti) in (("w_fwd", w_fwd), ("w_inv", w_inv),
                                ("x_fwd", x_fwd), ("x_inv", x_inv)):
             buf = torch.as_tensor(np.stack([tr, ti]).astype(rt), device=device)
@@ -58,11 +59,12 @@ class BluesteinPlan(FftPlan):
 
     @classmethod
     def create(cls, size: int, dtype=torch.complex64, inner_factory=None,
-               device="cpu") -> "BluesteinPlan":
+               device="cuda") -> "BluesteinPlan":
         """Plan an arbitrary size. `inner_factory(size, dtype, device)`
         builds the power-of-two inner plan (default: AutosortPlan)."""
         if size < 1:
             raise ValueError(f"FFT size must be >= 1, got {size}")
+        device = resolve_device(device)
         inner_size = next_power_of_two(2 * size - 1)
         factory = AutosortPlan.create if inner_factory is None else inner_factory
         inner = factory(inner_size, dtype, device)

@@ -13,6 +13,10 @@ The chirp and w tables are the composed plan's (``plan/bluestein._chirp_tables``
 f64 at plan time), narrowed to f32; the inner inverse transform's 1/M is
 folded into the output chirp. Batch-minor (n, B) is the native layout; B is
 not padded.
+
+:class:`FusedBluesteinPlan` holds what this plan and its f64 twin
+(``precision/dd_bluestein.VpuDdBluesteinPlan``, kernel B7) share; each names
+its stage plan, inner-size rule and kernel wrapper.
 """
 
 from __future__ import annotations
@@ -23,36 +27,34 @@ import numpy as np
 import torch
 
 from fourier_tpu_torch.ops.cuda import stockham_vpu
-from fourier_tpu_torch.plan.base import BatchMinorPlan, complex_dtype
+from fourier_tpu_torch.plan.base import (BatchMinorPlan, complex_dtype,
+                                         numpy_real, resolve_device)
 from fourier_tpu_torch.plan.bluestein import _chirp_tables
 from fourier_tpu_torch.plan.factor import next_power_of_two
 from fourier_tpu_torch.plan.vpu import VpuFftPlan
 from fourier_tpu_torch.transform import Transform
 
 
-class VpuBluesteinPlan(BatchMinorPlan):
-    """One-kernel Bluestein chirp-z plan (complex64, batch-minor native)."""
+class FusedBluesteinPlan(BatchMinorPlan):
+    """A one-kernel Bluestein chirp-z plan. Subclasses set ``dtype``,
+    ``MAX_INNER``, ``stages_plan`` (the fused stage plan class of the inner
+    size), ``choose_inner(size, max_inner)`` and the kernel wrapper
+    ``run``."""
 
     family = "vpu"
 
-    # The JAX package's inner-size ceiling, kept so that both packages plan
-    # the same family per size (ROADMAP.md: to re-measure on the H100). On
-    # the card one M = 8192 column takes 64 KiB of shared memory.
-    MAX_INNER = 8192
-
-    def __init__(self, size: int, stages: VpuFftPlan, chirps_fwd, chirps_inv,
-                 device="cpu"):
-        """`stages`: the M-point VpuFftPlan whose stage tables and kernel
+    def __init__(self, size: int, stages, chirps_fwd, chirps_inv, device):
+        """`stages`: the M-point stage plan whose stage tables and kernel
         tables the inner transforms use (it is never run on its own);
         `chirps_fwd`/`chirps_inv`: planar numpy (re, im) pairs (xt, wt, xo)
         of lengths n, M and n, 1/M folded into xo."""
         super().__init__()
         self.size = int(size)
-        self.dtype = torch.complex64
         self.stages = stages
+        real = numpy_real(self.dtype)
         for direction, chirps in (("fwd", chirps_fwd), ("inv", chirps_inv)):
             for name, (tr, ti) in zip(("xt", "wt", "xo"), chirps):
-                buf = np.stack([np.ravel(tr), np.ravel(ti)]).astype(np.float32)
+                buf = np.stack([np.ravel(tr), np.ravel(ti)]).astype(real)
                 self.register_buffer(f"{name}_{direction}",
                                      torch.as_tensor(buf, device=device),
                                      persistent=False)
@@ -60,6 +62,54 @@ class VpuBluesteinPlan(BatchMinorPlan):
     @property
     def m_inner(self) -> int:
         return self.stages.size
+
+    @classmethod
+    def create(cls, size: int, dtype=None, device="cuda"):
+        """The plan, or None for the other complex dtype, n < 2 and sizes
+        with no eligible M (`dtype` None: the plan's own)."""
+        if dtype is not None and complex_dtype(dtype) != cls.dtype:
+            return None
+        if size < 2:
+            return None
+        m = cls.choose_inner(size, cls.MAX_INNER)
+        if m is None:
+            return None
+        device = resolve_device(device)
+        w_fwd, w_inv, x_fwd, x_inv = _chirp_tables(size, m)
+        planar = lambda a: (a.real, a.imag)
+        chirps = lambda x, w: (planar(x), planar(w), planar(x / m))
+        return cls(size, cls.stages_plan.create(m, device=device),
+                   chirps(x_fwd, w_fwd), chirps(x_inv, w_inv), device)
+
+    def chirps(self, forward: bool):
+        """The direction's (xt, wt, xo) planar (2, L) tensors."""
+        d = "fwd" if forward else "inv"
+        return tuple(getattr(self, f"{name}_{d}") for name in ("xt", "wt", "xo"))
+
+    def _execute_bm(self, re_t, im_t, transform: Transform):
+        st = self.stages
+        return self.run(
+            re_t, im_t, self.size, st.size, self._scale_for(transform),
+            tables=(st.tables(True), st.tables(False)),
+            kernel_tables=(st.kernel_fwd, st.kernel_inv),
+            chirps=self.chirps(transform.is_forward),
+        )
+
+    def extra_repr(self) -> str:
+        return f"size={self.size}, inner={self.m_inner}, family={self.family}"
+
+
+class VpuBluesteinPlan(FusedBluesteinPlan):
+    """One-kernel Bluestein chirp-z plan (complex64, batch-minor native)."""
+
+    dtype = torch.complex64
+    stages_plan = VpuFftPlan
+    run = staticmethod(stockham_vpu.vpu_bluestein_batch_minor)
+
+    # The JAX package's inner-size ceiling, kept so that both packages plan
+    # the same family per size (ROADMAP.md: to re-measure on the H100). On
+    # the card one M = 8192 column takes 64 KiB of shared memory.
+    MAX_INNER = 8192
 
     @staticmethod
     def choose_inner(size: int, max_inner: int) -> Optional[int]:
@@ -77,35 +127,3 @@ class VpuBluesteinPlan(BatchMinorPlan):
         return pow2 if (
             pow2 <= max_inner and stockham_vpu.radix_schedule(pow2)
         ) else None
-
-    @classmethod
-    def create(cls, size: int, dtype=torch.complex64,
-               device="cpu") -> Optional["VpuBluesteinPlan"]:
-        """The plan, or None for c128, n < 2 and sizes with no eligible M."""
-        if complex_dtype(dtype) != torch.complex64 or size < 2:
-            return None
-        m = cls.choose_inner(size, cls.MAX_INNER)
-        if m is None:
-            return None
-        w_fwd, w_inv, x_fwd, x_inv = _chirp_tables(size, m)
-        planar = lambda a: (a.real, a.imag)
-        chirps = lambda x, w: (planar(x), planar(w), planar(x / m))
-        return cls(size, VpuFftPlan.create(m, device=device),
-                   chirps(x_fwd, w_fwd), chirps(x_inv, w_inv), device)
-
-    def chirps(self, forward: bool):
-        """The direction's (xt, wt, xo) planar (2, L) tensors."""
-        d = "fwd" if forward else "inv"
-        return tuple(getattr(self, f"{name}_{d}") for name in ("xt", "wt", "xo"))
-
-    def _execute_bm(self, re_t, im_t, transform: Transform):
-        st = self.stages
-        return stockham_vpu.vpu_bluestein_batch_minor(
-            re_t, im_t, self.size, st.size, self._scale_for(transform),
-            tables=(st.tables(True), st.tables(False)),
-            kernel_tables=(st.kernel_fwd, st.kernel_inv),
-            chirps=self.chirps(transform.is_forward),
-        )
-
-    def extra_repr(self) -> str:
-        return f"size={self.size}, inner={self.m_inner}, family={self.family}"

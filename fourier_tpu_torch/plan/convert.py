@@ -5,6 +5,12 @@ pickle-free ``.npz``: a JSON ``structure`` tree (plan nodes name their class
 and carry JSON ``aux`` data and ``children``; tuples are tagged; array leaves
 index ``leaf_<i>`` arrays) and ``version`` 2. :func:`load_jax_plan` reads that
 format with numpy and json only and builds the port's plan from its tables.
+
+The JAX package's complex128 plans hold double-word tables, (hi, lo) f32
+pairs in four planes (re_hi, re_lo, im_hi, im_lo); each f64 table is
+rebuilt as float64(hi) + float64(lo), about 48 bits of the f64 value the
+JAX package split. A ``DdFftPlan`` becomes the f64 :class:`AutosortPlan`
+(kind stockham) or :class:`BluesteinPlan` (kind bluestein).
 """
 
 from __future__ import annotations
@@ -14,14 +20,19 @@ from typing import Mapping, Union
 
 import numpy as np
 
+import torch
+
 from fourier_tpu_torch.ops.cuda.stockham_vpu import radix_schedule
+from fourier_tpu_torch.ops.cuda.stockham_vpu_dd import radix_schedule_dd
 from fourier_tpu_torch.plan.autosort import AutosortPlan
-from fourier_tpu_torch.plan.base import FftPlan
+from fourier_tpu_torch.plan.base import FftPlan, resolve_device
 from fourier_tpu_torch.plan.bluestein import BluesteinPlan
 from fourier_tpu_torch.plan.bluestein_fused import VpuBluesteinPlan
 from fourier_tpu_torch.plan.four_step_local import FourStepLocalPlan
 from fourier_tpu_torch.plan.mxu import MxuFftPlan, check_impl
 from fourier_tpu_torch.plan.vpu import VpuFftPlan
+from fourier_tpu_torch.precision import (DdSplitPow2Plan, DdSplitRadixPlan,
+                                         VpuDdBluesteinPlan, VpuDdFftPlan)
 from fourier_tpu_torch.rfft import RfftPlan
 
 FORMAT_VERSION = 2
@@ -29,12 +40,7 @@ FORMAT_VERSION = 2
 # Plan classes of the JAX package that have no port yet, and the ROADMAP.md
 # item that ports them.
 _NOT_PORTED = {
-    "DdFftPlan": "queue 1 item 7",
-    "VpuDdFftPlan": "queue 1 item 7",
-    "VpuDdBluesteinPlan": "queue 1 item 7",
-    "DdSplitPow2Plan": "queue 1 item 7",
-    "DdSplitRadixPlan": "queue 1 item 7",
-    "DdMxuDirectPlan": "queue 1 item 7",
+    "DdMxuDirectPlan": "queue 1 item 7 (on no route of the reference)",
     "FourStepPlan": "queue 1 item 12",
     "Fft2dPlan": "queue 1 item 12",
     "Fft3dPlan": "queue 1 item 12",
@@ -60,15 +66,36 @@ def _tree(node, leaves):
     raise ValueError("expected a tuple or an array leaf")
 
 
-def _compact(tables, size):
-    """The compact (m, r) stage tables of B1's schedule for `size` from the
-    JAX package's (n/r, r) tables, whose rows repeat each row of the compact
-    table `stride` times: every stride-th row restores it."""
+def _compact(tables, schedule):
+    """The compact (m, r) stage tables of a fused kernel's `schedule` from
+    the JAX package's (n/r, r) tables, whose rows repeat each row of the
+    compact table `stride` times: every stride-th row restores it."""
     rows, stride = [], 1
-    for (tr, ti), r in zip(tables, radix_schedule(size)):
+    for (tr, ti), r in zip(tables, schedule):
         rows.append((tr[::stride], ti[::stride]))
         stride *= r
     return rows
+
+
+def _f64(hi, lo):
+    return np.asarray(hi, np.float64) + np.asarray(lo, np.float64)
+
+
+def _dd(planes):
+    """(re, im) f64 of a double-word table's four planes."""
+    rh, rl, ih, il = planes
+    return _f64(rh, rl), _f64(ih, il)
+
+
+def _dd_tables(tables):
+    return [_dd(t4) for t4 in tables]
+
+
+def _dd_rows(tables):
+    """Planar (2, rows, m) f64 of double-word rows of m entries."""
+    pairs = [_dd(t4) for t4 in tables]
+    return np.stack([np.stack([np.ravel(re) for re, _ in pairs]),
+                     np.stack([np.ravel(im) for _, im in pairs])])
 
 
 def _build(node, leaves, device) -> FftPlan:
@@ -89,8 +116,42 @@ def _build(node, leaves, device) -> FftPlan:
         return BluesteinPlan(size, dtype, inner, *tables, device=device)
     if name == "VpuFftPlan":
         size = aux[0]
-        fwd, inv = (_compact(_tree(c, leaves), size) for c in node["children"])
+        fwd, inv = (_compact(_tree(c, leaves), radix_schedule(size))
+                    for c in node["children"])
         return VpuFftPlan(size, fwd, inv, device)
+    if name == "VpuDdFftPlan":
+        size = aux[0]
+        fwd, inv = (_compact(_dd_tables(_tree(c, leaves)), radix_schedule_dd(size))
+                    for c in node["children"])
+        return VpuDdFftPlan(size, fwd, inv, device)
+    if name == "VpuDdBluesteinPlan":
+        size, m_inner = aux[:2]
+        stage_tables, chirps_fwd, chirps_inv = (_tree(c, leaves)
+                                                for c in node["children"])
+        fwd, inv = (_compact(_dd_tables(t), radix_schedule_dd(m_inner))
+                    for t in stage_tables)
+        stages = VpuDdFftPlan(m_inner, fwd, inv, device)
+        return VpuDdBluesteinPlan(size, stages, _dd_tables(chirps_fwd),
+                                  _dd_tables(chirps_inv), device)
+    if name == "DdSplitPow2Plan":
+        sub = _build(node["children"][0], leaves, device)
+        tw_fwd, tw_inv = (_dd_rows([_tree(c, leaves)]) for c in node["children"][1:])
+        return DdSplitPow2Plan(aux[0], sub, tw_fwd, tw_inv, device)
+    if name == "DdSplitRadixPlan":
+        size, radix = aux
+        sub = _build(node["children"][0], leaves, device)
+        tw_fwd, tw_inv = (_dd_rows(_tree(c, leaves)) for c in node["children"][1:])
+        return DdSplitRadixPlan(size, radix, sub, tw_fwd, tw_inv, device)
+    if name == "DdFftPlan":
+        if aux[0] == "stockham":
+            _kind, size, radices = aux
+            fwd, inv = (_dd_tables(_tree(c, leaves)) for c in node["children"])
+            return AutosortPlan(size, radices, torch.complex128, fwd, inv, device)
+        size = aux[1]
+        inner = _build(node["children"][0], leaves, device)
+        tables = [_dd(_tree(c, leaves)) for c in node["children"][1:]]
+        return BluesteinPlan(size, torch.complex128, inner, *tables,
+                             device=device)
     if name == "MxuFftPlan":
         size, n1, n2, _dtype, _interpret, _tb, impl = aux
         check_impl(impl)
@@ -100,18 +161,19 @@ def _build(node, leaves, device) -> FftPlan:
         size, m_inner = aux[:2]
         stage_tables, chirps_fwd, chirps_inv = (_tree(c, leaves)
                                                 for c in node["children"])
-        fwd, inv = (_compact(t, m_inner) for t in stage_tables)
+        fwd, inv = (_compact(t, radix_schedule(m_inner)) for t in stage_tables)
         stages = VpuFftPlan(m_inner, fwd, inv, device)
         return VpuBluesteinPlan(size, stages, chirps_fwd, chirps_inv, device)
     if name == "RfftPlan":
         n, dtype = aux
         inner_node, w_re, w_im = node["children"]
-        # A double-word (dd) plan's inner raises here, naming item 7.
         inner = _build(inner_node, leaves, device)
         w = None
         if w_re is not None:
-            w = np.stack([np.ravel(_tree(w_re, leaves)),
-                          np.ravel(_tree(w_im, leaves))])
+            w_re, w_im = _tree(w_re, leaves), _tree(w_im, leaves)
+            if isinstance(w_re, tuple):  # a dd plan's (hi, lo) pairs
+                w_re, w_im = _f64(*w_re), _f64(*w_im)
+            w = np.stack([np.ravel(w_re), np.ravel(w_im)])
         return RfftPlan.from_parts(n, dtype, inner, w)
     if name == "FourStepLocalPlan":
         size, p, q, dtype = aux
@@ -123,9 +185,10 @@ def _build(node, leaves, device) -> FftPlan:
 
 
 def load_jax_plan(path_or_arrays: Union[str, Mapping[str, np.ndarray]],
-                  device="cpu") -> FftPlan:
-    """Build the port's plan from a JAX ``save_plan`` file (a path) or its
-    arrays (a mapping such as the ``np.load`` result)."""
+                  device="cuda") -> FftPlan:
+    """Build the port's plan on `device` from a JAX ``save_plan`` file (a
+    path) or its arrays (a mapping such as the ``np.load`` result)."""
+    device = resolve_device(device)
     if isinstance(path_or_arrays, Mapping):
         return _from_arrays(path_or_arrays, device)
     with np.load(path_or_arrays, allow_pickle=False) as data:

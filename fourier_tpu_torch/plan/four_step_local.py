@@ -24,7 +24,8 @@ import torch
 
 from fourier_tpu_torch.ops import cplx
 from fourier_tpu_torch.ops.cuda import stockham_vpu
-from fourier_tpu_torch.plan.base import FftPlan, complex_dtype
+from fourier_tpu_torch.plan.base import (FftPlan, complex_dtype, numpy_real,
+                                         resolve_device)
 from fourier_tpu_torch.plan.vpu import VpuFftPlan
 from fourier_tpu_torch.transform import Transform
 
@@ -55,7 +56,7 @@ class FourStepLocalPlan(FftPlan):
     family = "mxu"  # built by the mxu route (_create_mxu_composite)
 
     def __init__(self, size: int, p: int, q: int, dtype, col_plan: FftPlan,
-                 row_plan: FftPlan, tw_fwd, tw_inv, device="cpu"):
+                 row_plan: FftPlan, tw_fwd, tw_inv, device):
         """`col_plan` transforms size q, `row_plan` size p; `tw_fwd`/`tw_inv`:
         planar numpy (p, q) split twiddles [a, k2], held transposed, (q, p)."""
         super().__init__()
@@ -65,7 +66,7 @@ class FourStepLocalPlan(FftPlan):
         self.dtype = complex_dtype(dtype)
         self.col_plan = col_plan
         self.row_plan = row_plan
-        rt = np.float32 if self.dtype == torch.complex64 else np.float64
+        rt = numpy_real(self.dtype)
         for name, (tr, ti) in (("tw_fwd", tw_fwd), ("tw_inv", tw_inv)):
             buf = np.stack([np.asarray(tr).T, np.asarray(ti).T])
             buf = np.ascontiguousarray(buf, dtype=rt)
@@ -74,11 +75,12 @@ class FourStepLocalPlan(FftPlan):
 
     @classmethod
     def create(cls, size: int, dtype, p: int, q: int, plan_factory,
-               device="cpu") -> "FourStepLocalPlan":
+               device="cuda") -> "FourStepLocalPlan":
         """Build from `plan_factory(sub_size, dtype, device) -> FftPlan`."""
         if p * q != size:
             raise ValueError(f"split ({p}, {q}) does not multiply to {size}")
-        rt = np.float32 if complex_dtype(dtype) == torch.complex64 else np.float64
+        device = resolve_device(device)
+        rt = numpy_real(complex_dtype(dtype))
         narrow = lambda t: tuple(a.astype(rt) for a in t)
         return cls(size, p, q, dtype, plan_factory(q, dtype, device),
                    plan_factory(p, dtype, device),

@@ -23,7 +23,7 @@ import torch
 from fourier_tpu_torch.ops import bailey
 from fourier_tpu_torch.ops.dft_matrix import (choose_split, dft_matrix,
                                               folded_phase_b)
-from fourier_tpu_torch.plan.base import FftPlan, complex_dtype
+from fourier_tpu_torch.plan.base import FftPlan, complex_dtype, resolve_device
 from fourier_tpu_torch.transform import Transform
 
 _IMPL_NOT_PORTED = {
@@ -58,7 +58,7 @@ class MxuFftPlan(FftPlan):
     DIRECT_SINGLE_MAX = 768
 
     def __init__(self, size: int, n1: int, n2: int, fwd_tables, inv_tables,
-                 device="cpu"):
+                 device):
         """`fwd_tables`/`inv_tables`: f32 numpy arrays (dre, dim) of the
         (n, n) DFT matrix when n1 == 1, else (d2re, d2im, dfre, dfim): the
         (n2, n2) D_n2 and the (n2, n1, n1) folded phase-B table."""
@@ -80,7 +80,7 @@ class MxuFftPlan(FftPlan):
         return self.n1 == 1
 
     @classmethod
-    def create(cls, size: int, dtype=torch.complex64, device="cpu", *,
+    def create(cls, size: int, dtype=torch.complex64, device="cuda", *,
                impl: str = "xla") -> Optional["MxuFftPlan"]:
         """Plan `size`, or None for c128 and when no n1*n2 (<= 128 each)
         split exists."""
@@ -102,11 +102,12 @@ class MxuFftPlan(FftPlan):
             else:
                 tables[fwd] = (_planar(dft_matrix(n2, fwd))
                                + _planar(folded_phase_b(n1, n2, fwd)))
-        return cls(size, n1, n2, tables[True], tables[False], device)
+        return cls(size, n1, n2, tables[True], tables[False],
+                   resolve_device(device))
 
     @classmethod
     def create_direct(cls, size: int, dtype=torch.complex64,
-                      device="cpu") -> Optional["MxuFftPlan"]:
+                      device="cuda") -> Optional["MxuFftPlan"]:
         """One full-size DFT product for any size (no split needed), or
         None for c128."""
         if size < 1:
@@ -114,7 +115,8 @@ class MxuFftPlan(FftPlan):
         if complex_dtype(dtype) != torch.complex64:
             return None
         tables = {fwd: _planar(dft_matrix(size, fwd)) for fwd in (True, False)}
-        return cls(size, 1, size, tables[True], tables[False], device)
+        return cls(size, 1, size, tables[True], tables[False],
+                   resolve_device(device))
 
     def tables(self, forward: bool):
         """The planar (re, im) tables of one direction, in order."""

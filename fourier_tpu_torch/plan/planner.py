@@ -1,7 +1,8 @@
 """Runtime planner: ``create_fft_f32`` / ``create_fft_f64``.
 
-Port of the ``auto``, ``vpu``, ``mxu`` and ``stockham`` backends of
-``fourier_tpu/plan/planner.py``, with the same plan family for every size:
+Port of the ``auto``, ``vpu``, ``mxu``, ``stockham`` and ``dd`` backends of
+``fourier_tpu/plan/planner.py``, with the same plan family for every size as
+the JAX package plans on a TPU:
 
 * ``vpu``      -- :class:`VpuFftPlan` (kernel B1) in its domain, else the
                   ``mxu`` route with the fused kernels first
@@ -16,12 +17,23 @@ Port of the ``auto``, ``vpu``, ``mxu`` and ``stockham`` backends of
                   only.
 * ``stockham`` -- plain PyTorch Stockham autosort (2^a*3^b) + Bluestein, in
                   complex64 or complex128 on any device.
-* ``auto``     -- ``vpu`` for complex64 on a CUDA device, else ``stockham``
-                  (as the JAX package picks ``stockham`` off the TPU;
-                  complex128 runs the f64 Stockham on every device).
+* ``dd``       -- the complex128 route (``_create_dd``, the TPU branch of the
+                  JAX package's): :class:`VpuDdFftPlan` (kernel B6) in its
+                  domain, else a :class:`DdSplitPow2Plan` or
+                  :class:`DdSplitRadixPlan` (B8 over B6), else
+                  :class:`VpuDdBluesteinPlan` (kernel B7), else the f64
+                  Stockham (2^a*3^b) or a composed Bluestein over those.
+                  complex128 only. The name is the JAX package's, where it
+                  means double-word f32; here the route is native f64.
+* ``auto``     -- on a CUDA device ``vpu`` for complex64 and ``dd`` for
+                  complex128; on the CPU ``stockham`` (as the JAX package
+                  picks off the TPU with x64 on).
 
-``dd`` and ``measure`` are not ported yet and raise ``NotImplementedError``
-naming the ROADMAP item that ports them.
+``measure`` is not ported yet and raises ``NotImplementedError`` naming the
+ROADMAP item that ports it.
+
+Every entry point plans on the card (``device="cuda"``) unless the caller
+asks for the CPU; with no card it raises (``plan.base.resolve_device``).
 
 Plans are cached per (size, dtype, resolved backend, device), LRU-bounded.
 """
@@ -34,13 +46,15 @@ from typing import Optional, Tuple
 import torch
 
 from fourier_tpu_torch.plan.autosort import AutosortPlan
-from fourier_tpu_torch.plan.base import FftPlan, complex_dtype
+from fourier_tpu_torch.plan.base import FftPlan, complex_dtype, resolve_device
 from fourier_tpu_torch.plan.bluestein import BluesteinPlan
 from fourier_tpu_torch.plan.bluestein_fused import VpuBluesteinPlan
 from fourier_tpu_torch.plan.four_step_local import (FourStepLocalPlan,
                                                     choose_large_split)
 from fourier_tpu_torch.plan.mxu import MxuFftPlan
 from fourier_tpu_torch.plan.vpu import VpuFftPlan
+from fourier_tpu_torch.precision import (DdSplitPow2Plan, DdSplitRadixPlan,
+                                         VpuDdBluesteinPlan, VpuDdFftPlan)
 
 _PLAN_CACHE: "OrderedDict[Tuple[int, str, str, str], FftPlan]" = OrderedDict()
 _PLAN_CACHE_MAX = 256
@@ -48,7 +62,6 @@ _PLAN_CACHE_MAX = 256
 BACKENDS = ("auto", "mxu", "stockham", "dd", "vpu", "measure")
 
 _NOT_PORTED = {
-    "dd": "ROADMAP.md queue 1 item 7 (c128 as native f64)",
     "measure": "ROADMAP.md queue 1 item 10 (plan/measure.py)",
 }
 
@@ -62,8 +75,8 @@ def _resolve_backend(backend: str, dtype: torch.dtype, device: torch.device) -> 
         )
     if backend != "auto":
         return backend
-    if dtype == torch.complex64 and device.type == "cuda":
-        return "vpu"
+    if device.type == "cuda":
+        return "vpu" if dtype == torch.complex64 else "dd"
     return "stockham"
 
 
@@ -120,24 +133,44 @@ def _create_mxu(size: int, dtype, device, *, vpu_first: bool = False) -> FftPlan
                                 device=device)
 
 
-def resolve_device(device) -> torch.device:
-    """`device` as a torch.device, a bare "cuda" as the current card."""
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return device
+def _first(factories, size: int, dtype, device) -> Optional[FftPlan]:
+    """The first plan one of `factories` gives, or None."""
+    for factory in factories:
+        plan = factory(size, dtype, device)
+        if plan is not None:
+            return plan
+    return None
+
+
+def _create_dd(size: int, dtype, device) -> FftPlan:
+    """The complex128 route: port of ``_create_dd``'s TPU branch
+    (``fourier_tpu/plan/planner.py:141-188``), with the JAX ``DdFftPlan``'s
+    two kinds as the f64 :class:`AutosortPlan` (2^a*3^b) and
+    :class:`BluesteinPlan` (inner next_power_of_two(2n-1) over B6, a radix-2
+    split or the f64 Stockham)."""
+    plan = _first((VpuDdFftPlan.create, DdSplitPow2Plan.create,
+                   DdSplitRadixPlan.create, VpuDdBluesteinPlan.create,
+                   AutosortPlan.create), size, dtype, device)
+    if plan is not None:
+        return plan
+    inner = (VpuDdFftPlan.create, DdSplitPow2Plan.create, AutosortPlan.create)
+    return BluesteinPlan.create(
+        size, dtype, inner_factory=lambda m, dt, dev: _first(inner, m, dt, dev),
+        device=device)
 
 
 def create_fft(size: int, dtype=torch.complex64, *, backend: str = "auto",
-               device="cpu", cache: bool = True) -> FftPlan:
+               device="cuda", cache: bool = True) -> FftPlan:
     """Create (or fetch a cached) FFT plan for complex transforms of `size`
-    on `device`."""
+    on `device` (the card unless the caller asks for the CPU)."""
     dtype = complex_dtype(dtype)
     device = resolve_device(device)
     resolved = _resolve_backend(backend, dtype, device)
     if resolved in ("mxu", "vpu") and dtype != torch.complex64:
         raise ValueError(
-            f"backend={resolved!r} supports complex64 only (c128: stockham)")
+            f"backend={resolved!r} supports complex64 only (c128: dd/stockham)")
+    if resolved == "dd" and dtype != torch.complex128:
+        raise ValueError("backend='dd' is the complex128 route")
     key = (int(size), str(dtype), resolved, str(device))
     if cache and key in _PLAN_CACHE:
         _PLAN_CACHE.move_to_end(key)
@@ -148,6 +181,8 @@ def create_fft(size: int, dtype=torch.complex64, *, backend: str = "auto",
         plan = VpuFftPlan.create(size, dtype, device)
         if plan is None:
             plan = _create_mxu(size, dtype, device, vpu_first=True)
+    elif resolved == "dd":
+        plan = _create_dd(size, dtype, device)
     else:
         plan = _create_stockham(size, dtype, device)
     if cache:
@@ -157,13 +192,14 @@ def create_fft(size: int, dtype=torch.complex64, *, backend: str = "auto",
     return plan
 
 
-def create_fft_f32(size: int, backend: str = "auto", device="cpu") -> FftPlan:
+def create_fft_f32(size: int, backend: str = "auto", device="cuda") -> FftPlan:
     """Complex64 (f32) FFT plan."""
     return create_fft(size, torch.complex64, backend=backend, device=device)
 
 
-def create_fft_f64(size: int, backend: str = "auto", device="cpu") -> FftPlan:
-    """Complex128 (f64) FFT plan: the f64 Stockham family on any device."""
+def create_fft_f64(size: int, backend: str = "auto", device="cuda") -> FftPlan:
+    """Complex128 (f64) FFT plan: the ``dd`` route (kernels B6-B8) on a CUDA
+    device, the f64 Stockham family on the CPU."""
     return create_fft(size, torch.complex128, backend=backend, device=device)
 
 
@@ -178,9 +214,17 @@ def plan_tree(plan) -> tuple:
     name = type(plan).__name__
     if name == "RfftPlan":
         return (name, plan.n, plan_tree(plan.inner))
+    if name == "DdFftPlan":  # the JAX package's two-kind c128 plan
+        if plan.kind == "stockham":
+            return ("AutosortPlan", plan.size)
+        return ("BluesteinPlan", plan.size, plan_tree(plan.inner))
+    if name == "DdSplitPow2Plan":
+        return (name, plan.size, plan_tree(plan.half))
+    if name == "DdSplitRadixPlan":
+        return (name, plan.size, plan.radix, plan_tree(plan.sub))
     if name == "MxuFftPlan":
         return (name, plan.size, (plan.n1, plan.n2))
-    if name == "VpuBluesteinPlan":
+    if name in ("VpuBluesteinPlan", "VpuDdBluesteinPlan"):
         return (name, plan.size, plan.m_inner)
     if name == "BluesteinPlan":
         return (name, plan.size, plan_tree(plan.inner))

@@ -6,54 +6,57 @@ which a chained pipeline (fft -> pointwise filter -> ifft) needs no
 transposes; batch-major ``transform_planar`` transposes once each way. On a
 CUDA device every call launches the hand-written kernel; on the CPU it runs
 the kernel's plain PyTorch version. B is not padded.
+
+:class:`FusedStagesPlan` holds what the c64 plan and its f64 twin
+(``precision/vpu_dd_plan.VpuDdFftPlan``, kernel B6) share; each names its
+schedule, tables and kernel wrapper.
 """
 
 from __future__ import annotations
 
-from typing import Optional
-
-import numpy as np
 import torch
 
 from fourier_tpu_torch.ops.cuda import stockham_vpu
 from fourier_tpu_torch.plan.base import (BatchMinorPlan, complex_dtype,
-                                         planar_buffer, stage_views)
+                                         numpy_real, planar_buffer,
+                                         resolve_device, stage_views)
 from fourier_tpu_torch.transform import Transform
 
 
-class VpuFftPlan(BatchMinorPlan):
-    """Fused all-stages c64 plan for sizes in B1's domain (n = 2^a*3^b*5^c,
-    8 | n, 64..16384, and the tabled pure powers of 3 and 5), batch-minor."""
+class FusedStagesPlan(BatchMinorPlan):
+    """A plan whose every call is one fused all-stages kernel. Subclasses
+    set ``dtype`` and the static functions of their kernel module:
+    ``radix_schedule(n)``, ``make_stage_tables(n, forward)``,
+    ``make_kernel_tables(n, forward)`` and the wrapper ``run``."""
 
     family = "vpu"
 
-    def __init__(self, size: int, fwd_tables, inv_tables, device="cpu"):
+    def __init__(self, size: int, fwd_tables, inv_tables, device):
         """`fwd_tables`/`inv_tables`: the compact planar numpy (m, r) tables
-        of ``stockham_vpu.make_stage_tables``. The kernel's own tables are
-        derived from the size."""
+        of the schedule. The kernel's own tables are derived from the size."""
         super().__init__()
         self.size = int(size)
-        self.dtype = torch.complex64
-        self.schedule = tuple(stockham_vpu.radix_schedule(self.size))
+        self.schedule = tuple(self.radix_schedule(self.size))
         self._shapes = tuple((tr.shape[0], tr.shape[1]) for tr, _ in fwd_tables)
+        real = numpy_real(self.dtype)
         for name, tables in (("fwd", fwd_tables), ("inv", inv_tables)):
-            self.register_buffer(name, planar_buffer(tables, np.float32, device),
+            self.register_buffer(name, planar_buffer(tables, real, device),
                                  persistent=False)
-            fwd = name == "fwd"
-            ktw = torch.as_tensor(stockham_vpu.make_kernel_tables(self.size, fwd),
-                                  device=device)
-            self.register_buffer(f"kernel_{name}", ktw, persistent=False)
+            ktw = self.make_kernel_tables(self.size, name == "fwd")
+            self.register_buffer(f"kernel_{name}",
+                                 torch.as_tensor(ktw, device=device),
+                                 persistent=False)
 
     @classmethod
-    def create(cls, size: int, dtype=torch.complex64,
-               device="cpu") -> Optional["VpuFftPlan"]:
-        """The plan, or None for c128 and for sizes outside B1's domain."""
-        if complex_dtype(dtype) != torch.complex64:
+    def create(cls, size: int, dtype=None, device="cuda"):
+        """The plan, or None for the other complex dtype and for sizes
+        outside the kernel's domain (`dtype` None: the plan's own)."""
+        if dtype is not None and complex_dtype(dtype) != cls.dtype:
             return None
-        if stockham_vpu.radix_schedule(size) is None:
+        if cls.radix_schedule(size) is None:
             return None
-        return cls(size, stockham_vpu.make_stage_tables(size, True),
-                   stockham_vpu.make_stage_tables(size, False), device)
+        return cls(size, cls.make_stage_tables(size, True),
+                   cls.make_stage_tables(size, False), resolve_device(device))
 
     def tables(self, forward: bool):
         """The compact (m, r) stage tables of the plain version, as views."""
@@ -61,7 +64,7 @@ class VpuFftPlan(BatchMinorPlan):
 
     def _execute_bm(self, re_t, im_t, transform: Transform):
         forward = transform.is_forward
-        return stockham_vpu.vpu_fft_batch_minor(
+        return self.run(
             re_t, im_t, self.size, forward, self._scale_for(transform),
             tables=self.tables(forward),
             kernel_tables=self.kernel_fwd if forward else self.kernel_inv,
@@ -69,3 +72,14 @@ class VpuFftPlan(BatchMinorPlan):
 
     def extra_repr(self) -> str:
         return f"size={self.size}, schedule={self.schedule}, family={self.family}"
+
+
+class VpuFftPlan(FusedStagesPlan):
+    """Fused all-stages c64 plan for sizes in B1's domain (n = 2^a*3^b*5^c,
+    8 | n, 64..16384, and the tabled pure powers of 3 and 5), batch-minor."""
+
+    dtype = torch.complex64
+    radix_schedule = staticmethod(stockham_vpu.radix_schedule)
+    make_stage_tables = staticmethod(stockham_vpu.make_stage_tables)
+    make_kernel_tables = staticmethod(stockham_vpu.make_kernel_tables)
+    run = staticmethod(stockham_vpu.vpu_fft_batch_minor)

@@ -29,11 +29,19 @@ weight (:class:`_RfftBm`, :class:`_IrfftBm`); the batch-major calls
 differentiate through plain torch ops and the inner plan's own rule.
 
 The half-spectrum twiddles are computed in f64 at plan time and narrowed.
-complex128 runs the unfused formulation over the f64 Stockham family with
-f64 tables. The JAX package's double-word twins (``rfft_planar_dd``,
-``irfft_planar_dd``) are not ported: the port's c128 is native f64
-(ROADMAP.md queue 1 item 7). The N-D real family (``rfftn`` and the rest)
-waits for the N-D plans (item 8).
+complex128 runs the unfused formulation in f64, with f64 tables, around the
+inner plan of the ``dd`` route on a CUDA device (kernels B6, B7 or B8 over
+B6, as the JAX package's ``RfftPlan(n, np.complex128, backend="dd")`` on a
+TPU) and around the f64 Stockham family on the CPU. The JAX package's
+double-word twins (``rfft_planar_dd``, ``irfft_planar_dd``) have no
+counterpart: the port's c128 is native f64 and runs the same calls as c64.
+The N-D real family (``rfftn`` and the rest) waits for the N-D plans
+(ROADMAP.md queue 1 item 8).
+
+Every entry point runs on the card unless the caller asks for the CPU:
+``RfftPlan(..., device="cuda")`` by default, and the module functions plan
+a numpy input on ``device`` (default "cuda"); a tensor input runs on its own
+device.
 """
 
 from __future__ import annotations
@@ -47,9 +55,9 @@ import torch
 from fourier_tpu_torch.ndim import _crop_pad_axis
 from fourier_tpu_torch.ops import hermitian
 from fourier_tpu_torch.ops.cuda import stockham_vpu
-from fourier_tpu_torch.plan.base import complex_dtype
+from fourier_tpu_torch.plan.base import complex_dtype, resolve_device
 from fourier_tpu_torch.plan.bluestein_fused import VpuBluesteinPlan
-from fourier_tpu_torch.plan.planner import create_fft, resolve_device
+from fourier_tpu_torch.plan.planner import create_fft
 from fourier_tpu_torch.plan.vpu import VpuFftPlan
 from fourier_tpu_torch.transform import Transform
 
@@ -67,7 +75,7 @@ class RfftPlan(torch.nn.Module):
     """
 
     def __init__(self, n: int, dtype=torch.complex64, *, backend: str = "auto",
-                 device="cpu"):
+                 device="cuda"):
         super().__init__()
         n = int(n)
         if n < 1:
@@ -117,7 +125,8 @@ class RfftPlan(torch.nn.Module):
     @property
     def fused(self) -> bool:
         """True when the batch-minor path runs the fused kernels (B4 for
-        even n over a VpuFftPlan, B5 for odd n over a VpuBluesteinPlan)."""
+        even n over a VpuFftPlan, B5 for odd n over a VpuBluesteinPlan; both
+        complex64 only)."""
         return isinstance(self.inner, VpuFftPlan if self.even else VpuBluesteinPlan)
 
     def extra_repr(self) -> str:
@@ -399,10 +408,12 @@ def _infer_cdtype(x: torch.Tensor) -> torch.dtype:
             else torch.complex64)
 
 
-def _as_last(x, axis: int):
-    """(tensor with `axis` moved last, whether `x` came as numpy)."""
+def _as_last(x, axis: int, device):
+    """(tensor with `axis` moved last, whether `x` came as numpy): a numpy
+    `x` goes to `device`, a tensor stays on its own."""
     as_numpy = not isinstance(x, torch.Tensor)
-    xt = torch.as_tensor(np.asarray(x)) if as_numpy else x
+    xt = (torch.as_tensor(np.asarray(x), device=resolve_device(device))
+          if as_numpy else x)
     return torch.movedim(xt, axis, -1), as_numpy
 
 
@@ -410,7 +421,7 @@ def _finish(out, axis: int, scale: float, as_numpy: bool):
     out = torch.movedim(out, -1, axis)
     if scale != 1.0:
         out = out * scale
-    return out.detach().numpy() if as_numpy else out
+    return out.detach().cpu().numpy() if as_numpy else out
 
 
 def _conj(t: torch.Tensor) -> torch.Tensor:
@@ -433,13 +444,13 @@ def _hermitian_plan(xt, n, dtype, what: str) -> RfftPlan:
 
 
 def rfft(x, n: Optional[int] = None, norm: Optional[str] = None, dtype=None,
-         axis: int = -1):
+         axis: int = -1, device="cuda"):
     """One-sided FFT of a real array over ``axis`` (numpy.fft.rfft: ``n``
     crops or zero-pads the input, ``norm`` is backward/ortho/forward).
     ``dtype`` defaults to complex128 for double-precision input, else
-    complex64. Takes a numpy array (numpy out) or a tensor (run on its
-    device)."""
-    xt, as_numpy = _as_last(x, axis)
+    complex64. Takes a numpy array (run on ``device``, numpy out) or a
+    tensor (run on its device)."""
+    xt, as_numpy = _as_last(x, axis, device)
     if n is not None:
         xt = _crop_pad_axis(xt, int(n), xt.ndim - 1)
     size = xt.shape[-1]
@@ -448,30 +459,31 @@ def rfft(x, n: Optional[int] = None, norm: Optional[str] = None, dtype=None,
 
 
 def irfft(x, n: Optional[int] = None, norm: Optional[str] = None, dtype=None,
-          axis: int = -1):
+          axis: int = -1, device="cuda"):
     """Inverse of :func:`rfft` (numpy.fft.irfft); ``n`` defaults to the even
     2*(bins-1)."""
-    xt, as_numpy = _as_last(x, axis)
+    xt, as_numpy = _as_last(x, axis, device)
     plan = _hermitian_plan(xt, n, dtype, "spectrum")
     return _finish(plan.irfft(xt), axis, _norm_scale(norm, plan.n, False),
                    as_numpy)
 
 
 def hfft(x, n: Optional[int] = None, norm: Optional[str] = None, dtype=None,
-         axis: int = -1):
+         axis: int = -1, device="cuda"):
     """FFT of Hermitian-symmetric input -> real spectrum (numpy.fft.hfft):
     ``hfft(a, n) == irfft(conj(a), n) * n``, the norm in the forward
     direction."""
-    xt, as_numpy = _as_last(x, axis)
+    xt, as_numpy = _as_last(x, axis, device)
     plan = _hermitian_plan(xt, n, dtype, "input")
     out = plan.irfft(_conj(xt)) * plan.n
     return _finish(out, axis, _norm_scale(norm, plan.n, True), as_numpy)
 
 
-def ihfft(x, norm: Optional[str] = None, dtype=None, axis: int = -1):
+def ihfft(x, norm: Optional[str] = None, dtype=None, axis: int = -1,
+          device="cuda"):
     """Inverse of :func:`hfft` (numpy.fft.ihfft): real input -> one-sided
     Hermitian spectrum, ``conj(rfft(x)) / n``."""
-    xt, as_numpy = _as_last(x, axis)
+    xt, as_numpy = _as_last(x, axis, device)
     size = xt.shape[-1]
     out = _conj(_plan_for(size, dtype, xt).rfft(xt)) / size
     return _finish(out, axis, _norm_scale(norm, size, False), as_numpy)

@@ -55,7 +55,7 @@ def _planes(x):
 def test_plan_and_plain_b2_match_pallas_interpret(n, inner):
     rng = np.random.default_rng(RNG_SEED + n)
     x_t = _rand((n, 5), rng)
-    mine = VpuBluesteinPlan.create(n)
+    mine = VpuBluesteinPlan.create(n, device="cpu")
     ref = JVpuBluesteinPlan.create(n)
     assert mine.m_inner == ref.m_inner == inner
     st = mine.stages
@@ -82,9 +82,9 @@ def test_choose_inner_matches_jax():
     for n in sizes:
         mine = VpuBluesteinPlan.choose_inner(n, VpuBluesteinPlan.MAX_INNER)
         assert mine == JVpuBluesteinPlan.choose_inner(n, JVpuBluesteinPlan.MAX_INNER), n
-        assert (VpuBluesteinPlan.create(n) is None) == (mine is None)
-    assert VpuBluesteinPlan.create(1) is None
-    assert VpuBluesteinPlan.create(73, torch.complex128) is None
+        assert (VpuBluesteinPlan.create(n, device="cpu") is None) == (mine is None)
+    assert VpuBluesteinPlan.create(1, device="cpu") is None
+    assert VpuBluesteinPlan.create(73, torch.complex128, device="cpu") is None
 
 
 def _emulate_b2(x_t, n, m, chirps, scale):
@@ -109,7 +109,7 @@ def _emulate_b2(x_t, n, m, chirps, scale):
 
 @pytest.mark.parametrize("n", [73, 769, 1013, 1418])
 def test_kernel_algorithm_emulated(n):
-    plan = VpuBluesteinPlan.create(n)
+    plan = VpuBluesteinPlan.create(n, device="cpu")
     m = plan.m_inner
     cols, _ = sv.launch_geometry(m)
     rng = np.random.default_rng(RNG_SEED + n)
@@ -126,7 +126,7 @@ def test_wrapper_contract():
     """The plain version runs only for CPU tensors (no launch counted); the
     wrapper raises on what the kernel does not take."""
     n = 73
-    plan = VpuBluesteinPlan.create(n)
+    plan = VpuBluesteinPlan.create(n, device="cpu")
     st = plan.stages
     kw = dict(tables=(st.tables(True), st.tables(False)),
               kernel_tables=(st.kernel_fwd, st.kernel_inv),

@@ -34,6 +34,28 @@ def test_every_library_has_a_source():
         assert len(m.group(1).split(",")) == len(argtypes), fn_name
 
 
+def test_f64_library_has_its_entry_points():
+    """The f64 library (B6-B8) includes the shared stage code and defines
+    each entry point its wrapper binds with as many parameters."""
+    from fourier_tpu_torch.ops.cuda import stockham_vpu_dd as dv
+
+    src = (build.CSRC / f"{dv.LIBRARY}.cu").read_text()
+    assert '#include "stockham_stages.cuh"' in src
+    for fn_name, argtypes in [*dv.ENTRY_POINTS.items(),
+                              ("fourier_cuda_error_string", [int])]:
+        m = re.search(rf"\b{fn_name}\(([^)]*)\)\s*{{", src)
+        assert m is not None, fn_name
+        assert len(m.group(1).split(",")) == len(argtypes), fn_name
+    assert build.library_path(dv.LIBRARY) != build.library_path(LIBRARY)
+
+
+def test_load_all_builds_each_library_once(monkeypatch):
+    """load_all hands every name to load, concurrently, in order."""
+    seen = []
+    monkeypatch.setattr(build, "load", lambda name: seen.append(name) or name)
+    assert build.load_all(["a", "b"]) == ["a", "b"] and sorted(seen) == ["a", "b"]
+
+
 @pytest.mark.parametrize("edited", ["stockham_stages.cuh", "stockham_vpu.cu",
                                     "new_header.h"])
 def test_source_edit_changes_every_library_path(csrc_copy, edited):

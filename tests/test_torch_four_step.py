@@ -70,7 +70,8 @@ def _want(x, mode, axis):
 def test_four_step_4096_matches_jax_b3_interpret():
     n, p, q = 4096, 64, 64
     mine = FourStepLocalPlan.create(
-        n, torch.complex64, p, q, lambda m, dt, dev: VpuFftPlan.create(m, dt, dev))
+        n, torch.complex64, p, q, lambda m, dt, dev: VpuFftPlan.create(m, dt, dev),
+        device="cpu")
     ref = JFourStepLocalPlan.create(n, np.complex64, p, q,
                                     lambda m, dt: JVpuFftPlan.create(m, dt))
     assert ref._row_fused_cfg() is not None  # the JAX row leg is B3
@@ -94,7 +95,8 @@ def test_plain_row_kernel_matches_pallas_interpret(mode):
     x3 = _rand((q, p, b), rng)
     forward = mode.is_forward
     tw = FourStepLocalPlan.create(p * q, torch.complex64, p, q,
-                                  lambda m, dt, dev: VpuFftPlan.create(m, dt, dev))
+                                  lambda m, dt, dev: VpuFftPlan.create(m, dt, dev),
+                                  device="cpu")
     pre = tw.tw_fwd if forward else tw.tw_inv  # (2, q, p)
     scale = mode.scale(p * q)
     s = 1.0 if scale is None else np.float32(scale)
@@ -103,7 +105,7 @@ def test_plain_row_kernel_matches_pallas_interpret(mode):
     want = _np(*jsv.vpu_fft_four_step_row(
         x3.real, x3.imag, p, q, jtables, jpre, forward, cb=b, interpret=True))
     got = _np(*sv.vpu_fft_four_step_row_reference(
-        *_planes(x3), p, q, VpuFftPlan.create(p).tables(forward),
+        *_planes(x3), p, q, VpuFftPlan.create(p, device="cpu").tables(forward),
         (pre[0], pre[1]), forward, scale))
     assert got.shape == (p * q, b)
     assert _rel(got, want) <= 1e-6
@@ -117,7 +119,7 @@ def test_choose_large_split_matches_jax():
 
 @pytest.mark.parametrize("n", [20000, 32768])
 def test_large_four_step_vs_numpy(n):
-    plan = tft.create_fft(n, backend="vpu", cache=False)
+    plan = tft.create_fft(n, backend="vpu", cache=False, device="cpu")
     assert isinstance(plan, FourStepLocalPlan)
     fused = isinstance(plan.row_plan, VpuFftPlan)
     assert fused == (n == 32768) and isinstance(plan.row_plan, (VpuFftPlan, MxuFftPlan))
@@ -140,10 +142,11 @@ def test_mxu_column_leg_feeds_b3(n, p, q):
     transposed views) ahead of B3's rows; 458752 is the vpu route's own
     tree."""
     if n == 458752:
-        plan = tft.create_fft(n, backend="vpu", cache=False)
+        plan = tft.create_fft(n, backend="vpu", cache=False, device="cpu")
         assert (plan.p, plan.q) == (p, q)
     else:
-        plan = FourStepLocalPlan.create(n, torch.complex64, p, q, _mxu_cols_vpu_rows)
+        plan = FourStepLocalPlan.create(n, torch.complex64, p, q, _mxu_cols_vpu_rows,
+                                        device="cpu")
     assert isinstance(plan.col_plan, MxuFftPlan) and isinstance(plan.row_plan, VpuFftPlan)
     rng = np.random.default_rng(RNG_SEED + n)
     x_t = _rand((n, 2), rng)
@@ -180,7 +183,8 @@ def _emulate_b3(x3, p, q, pre, forward, scale):
 def test_kernel_algorithm_emulated(p, q):
     n = p * q
     plan = FourStepLocalPlan.create(n, torch.complex64, p, q,
-                                    lambda m, dt, dev: VpuFftPlan.create(m, dt, dev))
+                                    lambda m, dt, dev: VpuFftPlan.create(m, dt, dev),
+                                    device="cpu")
     cols, _ = sv.launch_geometry(p)
     b = cols + 3  # ragged last column group
     rng = np.random.default_rng(RNG_SEED + n)
@@ -198,7 +202,7 @@ def test_kernel_algorithm_emulated(p, q):
 
 def test_wrapper_contract():
     p, q = 64, 4
-    rp = VpuFftPlan.create(p)
+    rp = VpuFftPlan.create(p, device="cpu")
     pre = torch.ones(2, q, p)
     kw = dict(tables=rp.tables(True), kernel_tables=rp.kernel_fwd,
               pre_tw=(pre[0], pre[1]))

@@ -58,7 +58,7 @@ def test_dft_tables_bitwise_equal_jax(n):
 def test_mxu_plan_matches_jax(n, split):
     """The plan the mxu backend picks, in both packages, all 5 modes and both
     layouts; 439 is prime (the direct product past choose_split)."""
-    mine = tft.create_fft(n, backend="mxu", cache=False)
+    mine = tft.create_fft(n, backend="mxu", cache=False, device="cpu")
     ref = jft.create_fft(n, backend="mxu", cache=False)
     assert isinstance(mine, MxuFftPlan) and isinstance(ref, JMxuFftPlan)
     assert (mine.n1, mine.n2) == (ref.n1, ref.n2) == split
@@ -79,25 +79,25 @@ def test_mxu_plan_matches_jax(n, split):
 def test_direct_single_phase_policy_matches_jax(n):
     """DIRECT_SINGLE_MAX flips small-factor composites to one full product,
     as in the JAX package."""
-    mine = MxuFftPlan.create(n)
+    mine = MxuFftPlan.create(n, device="cpu")
     ref = JMxuFftPlan.create(n)
     assert (mine.n1, mine.n2) == (ref.n1, ref.n2)
     assert mine.single_phase == (n <= MxuFftPlan.DIRECT_SINGLE_MAX)
 
 
 def test_create_domain_and_unported_impls():
-    assert MxuFftPlan.create(10007) is None  # prime > 128: no split
-    assert MxuFftPlan.create(64, torch.complex128) is None
-    assert MxuFftPlan.create_direct(64, torch.complex128) is None
-    direct = MxuFftPlan.create_direct(1013)
+    assert MxuFftPlan.create(10007, device="cpu") is None  # prime > 128: no split
+    assert MxuFftPlan.create(64, torch.complex128, device="cpu") is None
+    assert MxuFftPlan.create_direct(64, torch.complex128, device="cpu") is None
+    direct = MxuFftPlan.create_direct(1013, device="cpu")
     assert direct.single_phase and direct.size == 1013
     with pytest.raises(ValueError):
-        MxuFftPlan.create(0)
+        MxuFftPlan.create(0, device="cpu")
     for impl in ("pallas", "xla_packed"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            MxuFftPlan.create(64, impl=impl)
+            MxuFftPlan.create(64, impl=impl, device="cpu")
     with pytest.raises(ValueError):
-        MxuFftPlan.create(64, impl="bogus")
+        MxuFftPlan.create(64, impl="bogus", device="cpu")
 
 
 _PRECISION_SETUPS = {

@@ -28,8 +28,8 @@ import fourier_tpu_torch as tft
 from fourier_tpu_torch import Transform
 from fourier_tpu_torch.plan import (AutosortPlan, BluesteinPlan,
                                     FourStepLocalPlan, MxuFftPlan,
-                                    VpuBluesteinPlan, VpuFftPlan, load_jax_plan,
-                                    plan_tree)
+                                    VpuBluesteinPlan, VpuDdFftPlan, VpuFftPlan,
+                                    load_jax_plan, plan_tree)
 
 RNG_SEED = 0x5EED
 REL_L2 = 1e-6
@@ -54,14 +54,14 @@ def _rel(got, want):
 def test_cpu_routing():
     tft.clear_plan_cache()
     for n in (1, 4, 96, 128, 243, 4096):
-        assert isinstance(tft.create_fft_f32(n), AutosortPlan), n
+        assert isinstance(tft.create_fft_f32(n, device="cpu"), AutosortPlan), n
     for n in (5, 73, 100, 1013):
-        assert isinstance(tft.create_fft_f32(n), BluesteinPlan), n
-    assert isinstance(tft.create_fft_f64(64), AutosortPlan)
+        assert isinstance(tft.create_fft_f32(n, device="cpu"), BluesteinPlan), n
+    assert isinstance(tft.create_fft_f64(64, device="cpu"), AutosortPlan)
     for n in (64, 320, 625, 4096, 16384):
-        plan = tft.create_fft(n, backend="vpu")
+        plan = tft.create_fft(n, backend="vpu", device="cpu")
         assert isinstance(plan, VpuFftPlan) and "family=vpu" in repr(plan)
-    assert "family=stockham" in repr(tft.create_fft_f32(96))
+    assert "family=stockham" in repr(tft.create_fft_f32(96, device="cpu"))
 
 
 def test_vpu_backend_interim_routing():
@@ -69,33 +69,39 @@ def test_vpu_backend_interim_routing():
     for small sizes, B2 for primes past the direct-product crossover, B3
     four-step for large composites, Bluestein over a four-step inner for
     large primes; complex128 raises."""
-    assert isinstance(tft.create_fft(48, backend="vpu"), MxuFftPlan)
-    prime = tft.create_fft(1013, backend="vpu")
+    assert isinstance(tft.create_fft(48, backend="vpu", device="cpu"), MxuFftPlan)
+    prime = tft.create_fft(1013, backend="vpu", device="cpu")
     assert isinstance(prime, VpuBluesteinPlan) and prime.m_inner == 2048
     assert "family=vpu" in repr(prime)
-    small = tft.create_fft(7, backend="vpu")
+    small = tft.create_fft(7, backend="vpu", device="cpu")
     assert isinstance(small, MxuFftPlan) and small.single_phase
-    large = tft.create_fft(10007, backend="vpu")
+    large = tft.create_fft(10007, backend="vpu", device="cpu")
     assert isinstance(large, BluesteinPlan)
     assert isinstance(large.inner, FourStepLocalPlan)
     assert isinstance(large.inner.row_plan, VpuFftPlan)
     for backend in ("vpu", "mxu"):
         with pytest.raises(ValueError):
-            tft.create_fft(64, torch.complex128, backend=backend)
+            tft.create_fft(64, torch.complex128, backend=backend, device="cpu")
 
 
 @pytest.mark.parametrize("backend", ["mxu", "dd", "measure"])
 def test_unported_backends_raise(backend):
     if backend == "mxu":
         # The backend is ported; its Pallas kernels (B9) are not.
-        assert isinstance(tft.create_fft(64, backend="mxu"), MxuFftPlan)
+        assert isinstance(tft.create_fft(64, backend="mxu", device="cpu"), MxuFftPlan)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            MxuFftPlan.create(64, impl="pallas")
+            MxuFftPlan.create(64, impl="pallas", device="cpu")
+    elif backend == "dd":
+        # Ported: the complex128 route; complex64 raises as in the JAX package.
+        plan = tft.create_fft(64, torch.complex128, backend="dd", device="cpu")
+        assert isinstance(plan, VpuDdFftPlan)
+        with pytest.raises(ValueError, match="complex128"):
+            tft.create_fft(64, backend="dd", device="cpu")
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tft.create_fft(64, backend=backend)
+            tft.create_fft(64, backend=backend, device="cpu")
     with pytest.raises(ValueError):
-        tft.create_fft(64, backend="nonsense")
+        tft.create_fft(64, backend="nonsense", device="cpu")
 
 
 ROUTE_SIZES = (1, 7, 32, 48, 64, 100, 125, 200, 222, 439, 722, 769, 818, 1013,
@@ -106,9 +112,130 @@ ROUTE_SIZES = (1, 7, 32, 48, 64, 100, 125, 200, 222, 439, 722, 769, 818, 1013,
 @pytest.mark.parametrize("n", ROUTE_SIZES)
 def test_route_matches_jax(n, backend):
     """Every size plans the same tree in both packages."""
-    mine = tft.create_fft(n, backend=backend, cache=False)
+    mine = tft.create_fft(n, backend=backend, cache=False, device="cpu")
     ref = jft.create_fft(n, backend=backend, cache=False)
     assert plan_tree(mine) == plan_tree(ref)
+
+
+# The complex128 route of the JAX package on a TPU (``_create_dd`` with
+# jax.default_backend patched to "tpu"), as plan_tree gives it; a JAX
+# DdFftPlan reads as ("AutosortPlan", n) or ("BluesteinPlan", n, inner).
+DD_ROUTE = {
+    12: ("AutosortPlan", 12),
+    6561: ("AutosortPlan", 6561),
+    65536: ("AutosortPlan", 65536),
+    17: ("VpuDdBluesteinPlan", 17, 64),
+    32: ("VpuDdBluesteinPlan", 32, 64),
+    100: ("VpuDdBluesteinPlan", 100, 256),
+    125: ("VpuDdBluesteinPlan", 125, 256),
+    191: ("VpuDdBluesteinPlan", 191, 512),
+    222: ("VpuDdBluesteinPlan", 222, 512),
+    439: ("VpuDdBluesteinPlan", 439, 1024),
+    722: ("VpuDdBluesteinPlan", 722, 2048),
+    1013: ("VpuDdBluesteinPlan", 1013, 2048),
+    **{n: ("VpuDdFftPlan", n) for n in (64, 243, 256, 512, 625, 729, 1000, 1024,
+                                         3000, 4096)},
+    1418: ("BluesteinPlan", 1418, ("VpuDdFftPlan", 4096)),
+    4099: ("BluesteinPlan", 4099, ("DdSplitPow2Plan", 16384, (
+        "DdSplitPow2Plan", 8192, ("VpuDdFftPlan", 4096)))),
+    20000: ("BluesteinPlan", 20000, ("AutosortPlan", 65536)),
+    2187: ("DdSplitRadixPlan", 2187, 3, ("VpuDdFftPlan", 729)),
+    3125: ("DdSplitRadixPlan", 3125, 5, ("VpuDdFftPlan", 625)),
+    10000: ("DdSplitRadixPlan", 10000, 5, ("VpuDdFftPlan", 2000)),
+    6144: ("DdSplitPow2Plan", 6144, ("VpuDdFftPlan", 3072)),
+    8192: ("DdSplitPow2Plan", 8192, ("VpuDdFftPlan", 4096)),
+    12288: ("DdSplitPow2Plan", 12288, ("DdSplitPow2Plan", 6144,
+                                       ("VpuDdFftPlan", 3072))),
+    16384: ("DdSplitPow2Plan", 16384, ("DdSplitPow2Plan", 8192,
+                                       ("VpuDdFftPlan", 4096))),
+}
+
+
+@pytest.fixture
+def tpu_backend(monkeypatch):
+    """The JAX package's planner as it plans on a TPU (tests/test_vpu_dd.py)."""
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+
+
+@pytest.mark.parametrize("n", sorted(DD_ROUTE))
+def test_dd_route_matches_jax(n, tpu_backend):
+    """The c128 route plans the JAX package's TPU tree at every size of the
+    table (the port's names; the same class names but DdFftPlan's)."""
+    from fourier_tpu.plan import planner as jplanner
+
+    mine = tft.create_fft(n, torch.complex128, backend="dd", cache=False, device="cpu")
+    assert plan_tree(mine) == plan_tree(jplanner._create_dd(n)) == DD_ROUTE[n]
+
+
+def test_c128_routing_by_device():
+    """c128 ``auto`` is the f64 Stockham family on the CPU (as the JAX
+    package off the TPU with x64) and ``dd`` on a card; ``dd`` on the CPU
+    builds the card's tree over the plain versions."""
+    assert isinstance(tft.create_fft_f64(1024, device="cpu"), AutosortPlan)
+    assert isinstance(tft.create_fft_f64(1013, device="cpu"), BluesteinPlan)
+    plan = tft.create_fft_f64(1024, backend="dd", device="cpu")
+    assert isinstance(plan, VpuDdFftPlan) and plan.device.type == "cpu"
+    assert "family=vpu" in repr(plan)
+
+
+def test_default_device_is_the_card():
+    """Every entry point plans on the card unless asked for the CPU: with no
+    card it raises, naming the card; with one, the plan lands there."""
+    x = np.zeros(64, np.complex64)
+    calls = (lambda: tft.create_fft_f32(64), lambda: tft.create_fft_f64(1024),
+             lambda: tft.create_fft(64), lambda: tft.RfftPlan(64),
+             lambda: VpuFftPlan.create(64), lambda: tft.fft(x),
+             lambda: tft.ifft(x), lambda: tft.rfft(x.real), lambda: tft.transform(x, 0))
+    if torch.cuda.is_available():
+        assert tft.create_fft_f64(1024).device.type == "cuda"
+        assert isinstance(tft.create_fft_f64(1024), VpuDdFftPlan)
+        return
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA card"):
+            call()
+    assert isinstance(tft.create_fft_f64(1024, device="cpu"), AutosortPlan)
+
+
+@pytest.mark.parametrize("n", [100, 1024, 1418, 2187])
+def test_create_fft_f64_dd_matches_reference(n):
+    """The c128 slice end to end on the CPU: the port's dd route (plain
+    versions of B6, B7, B8) against the JAX package's create_fft_f64 (its
+    f64 stockham family off the TPU) on the same input, and np.fft."""
+    rng = np.random.default_rng(RNG_SEED + n)
+    x = _rand((3, n), rng, np.complex128)
+    mine = tft.create_fft_f64(n, backend="dd", device="cpu")
+    ref = jft.create_fft_f64(n)
+    for mode in (Transform.FFT, Transform.IFFT):
+        got = mine.transform(x, mode)
+        want = np.asarray(ref.transform(x, JTransform(int(mode))))
+        assert got.dtype == np.complex128 and got.shape == x.shape
+        assert _rel(got, want) <= 1e-12, (n, mode)
+        npw = np.fft.fft(x) if mode.is_forward else np.fft.ifft(x)
+        assert _rel(got, npw) <= 1e-12, (n, mode)
+
+
+_DD_KINDS = {"vpu_dd": 384, "dd_bluestein": 100, "split_pow2": 8192,
+             "split_radix": 2187, "dd_stockham": 12, "dd_bluestein_composed": 1418}
+
+
+@pytest.mark.parametrize("kind", sorted(_DD_KINDS))
+def test_load_jax_plan_c128(kind, tmp_path, tpu_backend):
+    """Each double-word plan class of the JAX package loads as the port's
+    f64 plan of the same tree, its tables rebuilt as hi + lo, and agrees
+    with a freshly planned port plan within rel-L2 1e-13."""
+    from fourier_tpu.plan import planner as jplanner
+
+    n = _DD_KINDS[kind]
+    ref = jplanner._create_dd(n)
+    path = tmp_path / "dd.npz"
+    save_plan(ref, str(path))
+    loaded = load_jax_plan(str(path), device="cpu")
+    own = tft.create_fft(n, torch.complex128, backend="dd", cache=False, device="cpu")
+    assert type(loaded) is type(own) and plan_tree(loaded) == plan_tree(own)
+    rng = np.random.default_rng(RNG_SEED + n)
+    x = _rand((2, n), rng, np.complex128)
+    for mode in Transform:
+        assert _rel(loaded.transform(x, mode), own.transform(x, mode)) <= 1e-13
 
 
 @pytest.mark.parametrize("n", [64, 96, 100, 320, 1013, 1024])
@@ -118,7 +245,7 @@ def test_create_fft_f32_matches_reference(n, backend):
     c64 plan (its stockham family off-TPU) on the same input."""
     rng = np.random.default_rng(RNG_SEED + n)
     x = _rand((3, n), rng)
-    mine = tft.create_fft_f32(n, backend=backend)
+    mine = tft.create_fft_f32(n, backend=backend, device="cpu")
     ref = jft.create_fft_f32(n)
     for mode in (Transform.FFT, Transform.IFFT):
         got = mine.transform(x, mode)
@@ -128,7 +255,7 @@ def test_create_fft_f32_matches_reference(n, backend):
 
 
 def test_device_mismatch_raises():
-    plan = tft.create_fft_f32(64, backend="vpu")
+    plan = tft.create_fft_f32(64, backend="vpu", device="cpu")
     meta = torch.zeros(2, 64, device="meta")
     with pytest.raises(ValueError, match="plan on cpu"):
         plan.transform_planar(meta, meta)
@@ -138,7 +265,7 @@ def test_device_mismatch_raises():
 
 @pytest.mark.cuda
 def test_cpu_plan_given_cuda_tensor_raises(cuda_device):
-    plan = tft.create_fft_f32(64, backend="vpu")
+    plan = tft.create_fft_f32(64, backend="vpu", device="cpu")
     x = torch.zeros(2, 64, device=cuda_device)
     with pytest.raises(ValueError, match="plan on cpu"):
         plan.transform_planar(x, x)
@@ -164,26 +291,27 @@ def test_load_jax_plan_round_trip(kind, tmp_path):
          **{k: v[0] for k, v in _ROUTED.items()}}[kind]
     if kind in _ROUTED:
         ref = jft.create_fft(n, backend=_ROUTED[kind][1], cache=False)
-        own = tft.create_fft(n, backend=_ROUTED[kind][1], cache=False)
+        own = tft.create_fft(n, backend=_ROUTED[kind][1], cache=False, device="cpu")
     elif kind == "autosort":
         ref = jft.AutosortPlan.create(n, np.complex64)
-        own = AutosortPlan.create(n)
+        own = AutosortPlan.create(n, device="cpu")
     elif kind == "bluestein":
         ref = jft.BluesteinPlan.create(n, np.complex64)
-        own = BluesteinPlan.create(n)
+        own = BluesteinPlan.create(n, device="cpu")
     elif kind == "vpu":
         ref = JVpuFftPlan.create(n)
-        own = VpuFftPlan.create(n)
+        own = VpuFftPlan.create(n, device="cpu")
     else:
         ref = jft.BluesteinPlan.create(n, np.complex64, inner_factory=_jax_vpu_inner)
         own = BluesteinPlan.create(
-            n, inner_factory=lambda m, dt, dev: VpuFftPlan.create(m, dt, dev))
+            n, inner_factory=lambda m, dt, dev: VpuFftPlan.create(m, dt, dev),
+            device="cpu")
     path = tmp_path / "plan.npz"
     save_plan(ref, str(path))
-    loaded = load_jax_plan(str(path))
+    loaded = load_jax_plan(str(path), device="cpu")
     assert type(loaded) is type(own) and repr(loaded) == repr(own)
     with np.load(path) as data:
-        assert type(load_jax_plan(data)) is type(own)
+        assert type(load_jax_plan(data, device="cpu")) is type(own)
     rng = np.random.default_rng(RNG_SEED)
     x = _rand((2, n), rng)
     for mode in Transform:
@@ -192,16 +320,16 @@ def test_load_jax_plan_round_trip(kind, tmp_path):
 
 
 def test_load_jax_plan_unported_class_raises(tmp_path):
-    from fourier_tpu.precision.dd_plan import DdFftPlan
+    from fourier_tpu.precision.dd_mxu import DdMxuDirectPlan
 
     path = tmp_path / "dd.npz"
-    save_plan(DdFftPlan(64), str(path))
+    save_plan(DdMxuDirectPlan.create(64), str(path))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_jax_plan(str(path))
+        load_jax_plan(str(path), device="cpu")
     packed = jft.plan.mxu.MxuFftPlan.create(2048, impl="xla_packed")
     save_plan(packed, str(path))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_jax_plan(str(path))
+        load_jax_plan(str(path), device="cpu")
 
 
 @pytest.mark.parametrize("mode", [Transform.FFT, Transform.IFFT])
@@ -219,7 +347,7 @@ def test_grad_matches_jax_vpu(mode):
         return jnp.sum(yr * a + yi * b)
 
     jgr, jgi = jax.grad(loss, argnums=(0, 1))(re, im)
-    plan = VpuFftPlan.create(n)
+    plan = VpuFftPlan.create(n, device="cpu")
     tre = torch.tensor(re, requires_grad=True)
     tim = torch.tensor(im, requires_grad=True)
     yr, yi = plan.transform_planar(tre, tim, mode)
@@ -235,11 +363,11 @@ def test_grad_new_families_linear_vjp(kind, batch_minor):
     """d/dx of Re(sum(conj(c) * y)), y = plan(x) in each mode, is F^H c: the
     autograd Function's backward against the analytic VJP in numpy."""
     n, plan = {
-        "mxu": (125, MxuFftPlan.create(125)),
-        "bluestein_fused": (73, VpuBluesteinPlan.create(73)),
+        "mxu": (125, MxuFftPlan.create(125, device="cpu")),
+        "bluestein_fused": (73, VpuBluesteinPlan.create(73, device="cpu")),
         "four_step": (4096, FourStepLocalPlan.create(
             4096, torch.complex64, 64, 64,
-            lambda m, dt, dev: VpuFftPlan.create(m, dt, dev))),
+            lambda m, dt, dev: VpuFftPlan.create(m, dt, dev), device="cpu")),
     }[kind]
     rng = np.random.default_rng(RNG_SEED)
     x = rng.standard_normal((2, 2, n))
@@ -264,7 +392,7 @@ def test_grad_new_families_linear_vjp(kind, batch_minor):
 
 
 def test_gradcheck_c128_both_layouts():
-    plan = tft.create_fft_f64(12)
+    plan = tft.create_fft_f64(12, device="cpu")
     rng = np.random.default_rng(RNG_SEED)
     re = torch.tensor(rng.standard_normal((2, 12)), requires_grad=True)
     im = torch.tensor(rng.standard_normal((2, 12)), requires_grad=True)
@@ -279,15 +407,15 @@ def test_module_level_fft_ifft():
     rng = np.random.default_rng(RNG_SEED)
     x = _rand((4, 24), rng, np.complex128)
     for norm in (None, "backward", "ortho", "forward"):
-        np.testing.assert_allclose(tft.fft(x, norm=norm), np.fft.fft(x, norm=norm),
+        np.testing.assert_allclose(tft.fft(x, norm=norm, device="cpu"), np.fft.fft(x, norm=norm),
                                    atol=1e-10)
-        np.testing.assert_allclose(tft.ifft(x, n=30, axis=0, norm=norm),
+        np.testing.assert_allclose(tft.ifft(x, n=30, axis=0, norm=norm, device="cpu"),
                                    np.fft.ifft(x, n=30, axis=0, norm=norm), atol=1e-10)
-    got = tft.fft(torch.as_tensor(x.astype(np.complex64)), n=16)
+    got = tft.fft(torch.as_tensor(x.astype(np.complex64)), n=16, device="cpu")
     assert isinstance(got, torch.Tensor) and got.dtype == torch.complex64
     np.testing.assert_allclose(got.numpy(), np.fft.fft(x, n=16), atol=1e-4)
     with pytest.raises(ValueError):
-        tft.fft(x, norm="bogus")
+        tft.fft(x, norm="bogus", device="cpu")
 
 
 def test_import_leaves_jax_out():

@@ -89,7 +89,7 @@ def test_vpu_plan_matches_jax(n, fused):
     kernels) and np.fft."""
     rng = np.random.default_rng(RNG_SEED + n)
     x = rng.standard_normal((4, n)).astype(np.float32)
-    mine = RfftPlan(n, backend="vpu")
+    mine = RfftPlan(n, backend="vpu", device="cpu")
     ref = JRfftPlan(n, np.complex64, backend="vpu")
     assert plan_tree(mine) == plan_tree(ref)
     assert mine.fused is fused
@@ -111,7 +111,7 @@ def test_fused_path_where_the_jax_kernel_asserts(n):
     Held against the JAX unfused (stockham) plan and np.fft."""
     rng = np.random.default_rng(RNG_SEED + n)
     x = rng.standard_normal((5, n)).astype(np.float32)
-    mine = RfftPlan(n, backend="vpu")
+    mine = RfftPlan(n, backend="vpu", device="cpu")
     assert isinstance(mine.inner, VpuFftPlan) and mine.fused
     with pytest.raises(AssertionError):
         JRfftPlan(n, np.complex64, backend="vpu").rfft_planar_bm(
@@ -132,9 +132,9 @@ def test_plain_b4_matches_pallas_interpret(m):
     b = 128  # the JAX wrappers need a multiple of cb = 128
     x = rng.standard_normal((2 * m, b)).astype(np.float32)
     jplan = JVpuFftPlan.create(m, interpret=True)
-    w = RfftPlan(2 * m, backend="vpu").w
+    w = RfftPlan(2 * m, backend="vpu", device="cpu").w
     jw = (w[0].numpy().reshape(-1, 1), w[1].numpy().reshape(-1, 1))
-    inner = VpuFftPlan.create(m)
+    inner = VpuFftPlan.create(m, device="cpu")
     want = _c(*jsv.vpu_rfft_pack_batch_minor(x, m, jplan.fwd_tables, jw,
                                              interpret=True))
     re, im = sv.vpu_rfft_pack_batch_minor_reference(_t(x), m,
@@ -159,7 +159,7 @@ def test_plain_b5_matches_pallas_interpret():
     rng = np.random.default_rng(RNG_SEED + n)
     x = rng.standard_normal((n, b)).astype(np.float32)
     jplan = JVpuBluesteinPlan.create(n, interpret=True)
-    mine = VpuBluesteinPlan.create(n)
+    mine = VpuBluesteinPlan.create(n, device="cpu")
     assert mine.m_inner == jplan.m_inner == 80
     st = mine.stages
     tables = (st.tables(True), st.tables(False))
@@ -185,8 +185,8 @@ def test_plain_b5_matches_pallas_interpret():
 
 def _fused_odd(n):
     """The port's RfftPlan(n) over a VpuBluesteinPlan inner (B5)."""
-    plan = RfftPlan(n, backend="vpu")
-    plan.inner = VpuBluesteinPlan.create(n)
+    plan = RfftPlan(n, backend="vpu", device="cpu")
+    plan.inner = VpuBluesteinPlan.create(n, device="cpu")
     assert plan.fused
     return plan
 
@@ -200,7 +200,7 @@ def test_odd_batches_vs_numpy(n, b, fused):
     zeros) at every batch parity."""
     rng = np.random.default_rng(RNG_SEED + n + b)
     x = rng.standard_normal((b, n)).astype(np.float32)
-    plan = _fused_odd(n) if fused else RfftPlan(n, backend="vpu")
+    plan = _fused_odd(n) if fused else RfftPlan(n, backend="vpu", device="cpu")
     spec, spec_bm, back, back_bm = _port_both(plan, x)
     want = np.fft.rfft(x.astype(np.float64))
     assert _rel(spec, want) < REL and _rel(spec_bm, want) < REL
@@ -212,7 +212,7 @@ def test_odd_batches_vs_numpy(n, b, fused):
 def test_c128_vs_numpy(n):
     rng = np.random.default_rng(RNG_SEED + n)
     x = rng.standard_normal((3, n))
-    plan = RfftPlan(n, torch.complex128)
+    plan = RfftPlan(n, torch.complex128, device="cpu")
     assert plan.w is None or plan.w.dtype == torch.float64
     want = np.fft.rfft(x)
     spec = plan.rfft(x)
@@ -221,6 +221,43 @@ def test_c128_vs_numpy(n):
     assert _rel(_c(re_t.numpy(), im_t.numpy()).T, want) <= 1e-12
     assert _rel(plan.irfft(spec), x) <= 1e-12
     assert _rel(plan.irfft_planar_bm(re_t, im_t).numpy().T, x) <= 1e-12
+
+
+# The c128 inner of the JAX package's RfftPlan(n, np.complex128,
+# backend="dd") on a TPU: B6 (2048), B8 over B6 (16384), B7 (1013).
+DD_RFFT = {2048: ("VpuDdFftPlan", 1024),
+           16384: ("DdSplitPow2Plan", 8192, ("VpuDdFftPlan", 4096)),
+           1013: ("VpuDdBluesteinPlan", 1013, 2048)}
+
+
+@pytest.mark.parametrize("n", sorted(DD_RFFT))
+def test_c128_dd_route_matches_jax(n, monkeypatch, tmp_path):
+    """RfftPlan(n, complex128) gets the dd route's inner, as the JAX package
+    on a TPU (jax.default_backend patched), and its unfused f64 pack around
+    the inner's plain versions meets the c128 gate against np.fft in both
+    layouts, with the round trip. The JAX plan saved and loaded with
+    load_jax_plan agrees with it within rel-L2 1e-13."""
+    import jax
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    ref = JRfftPlan(n, np.complex128, backend="dd")
+    plan = RfftPlan(n, torch.complex128, backend="dd", device="cpu")
+    assert plan_tree(plan) == plan_tree(ref) == ("RfftPlan", n, DD_RFFT[n])
+    assert not plan.fused and (plan.w is None or plan.w.dtype == torch.float64)
+    rng = np.random.default_rng(RNG_SEED + n)
+    x = rng.standard_normal((3, n))
+    want = np.fft.rfft(x)
+    spec = plan.rfft(x)
+    assert spec.dtype == np.complex128 and _rel(spec, want) <= 1e-12
+    re_t, im_t = plan.rfft_planar_bm(_t(x.T))
+    assert re_t.dtype == torch.float64
+    assert _rel(_c(re_t.numpy(), im_t.numpy()).T, want) <= 1e-12
+    assert _rel(plan.irfft(spec), x) <= 1e-12
+    assert _rel(plan.irfft_planar_bm(re_t, im_t).numpy().T, x) <= 1e-12
+    save_plan(ref, str(tmp_path / "rfft.npz"))
+    loaded = load_jax_plan(str(tmp_path / "rfft.npz"), device="cpu")
+    assert plan_tree(loaded) == plan_tree(plan)
+    assert _rel(loaded.rfft(x), spec) <= 1e-13
 
 
 # The route table of the JAX package's RfftPlan(n, backend="vpu"): even n
@@ -232,7 +269,7 @@ FUSED = {128, 1024, 4096, 8192, 32768, 192, 486, 769, 1013, 4093}
 
 @pytest.mark.parametrize("n", ROUTE_SIZES)
 def test_route_matches_jax(n):
-    mine = RfftPlan(n, backend="vpu")
+    mine = RfftPlan(n, backend="vpu", device="cpu")
     ref = JRfftPlan(n, np.complex64, backend="vpu")
     assert plan_tree(mine) == plan_tree(ref)
     assert mine.fused is (n in FUSED)
@@ -241,8 +278,8 @@ def test_route_matches_jax(n):
 def test_inner_plan_is_owned():
     """The inner plan is built for the rfft plan alone: moving one plan with
     .to() cannot move a plan that the planner's cache hands out."""
-    plan = RfftPlan(128, backend="vpu")
-    assert plan.inner is not create_fft(64, backend="vpu")
+    plan = RfftPlan(128, backend="vpu", device="cpu")
+    assert plan.inner is not create_fft(64, backend="vpu", device="cpu")
     assert "inner" in dict(plan.named_children())
     assert plan.w.shape == (2, 64) and plan.w.dtype == torch.float32
 
@@ -271,10 +308,10 @@ def test_grad_fused_bm(n):
     x = rng.standard_normal((n, b)).astype(np.float32)
     ctr, cti = (rng.standard_normal((L, b)).astype(np.float32) for _ in range(2))
     gt = rng.standard_normal((n, b)).astype(np.float32)
-    fused = RfftPlan(n, backend="vpu") if n % 2 == 0 else _fused_odd(n)
+    fused = RfftPlan(n, backend="vpu", device="cpu") if n % 2 == 0 else _fused_odd(n)
     assert fused.fused
     got = _loss_grads(fused, x, ctr, cti, gt)
-    stock = RfftPlan(n, backend="stockham")
+    stock = RfftPlan(n, backend="stockham", device="cpu")
     for want in (_loss_grads(stock, x, ctr, cti, gt),
                  _loss_grads(fused, x, ctr, cti, gt, unfused=True)):
         for g, w in zip(got, want):
@@ -301,7 +338,7 @@ def test_grad_batch_major():
     rng = np.random.default_rng(RNG_SEED)
     x = rng.standard_normal((3, n)).astype(np.float32)
     ct = rng.standard_normal((3, n // 2 + 1, 2)).astype(np.float32)
-    plan = RfftPlan(n, backend="vpu")
+    plan = RfftPlan(n, backend="vpu", device="cpu")
     xt = _t(x).requires_grad_(True)
     sr, si = plan.rfft_planar(xt)
     (sr * _t(ct[..., 0]) + si * _t(ct[..., 1])).sum().backward()
@@ -317,34 +354,34 @@ def test_module_functions_vs_numpy():
     spec = rng.standard_normal((4, 5)) + 1j * rng.standard_normal((4, 5))
     for norm in (None, "backward", "ortho", "forward"):
         for axis in (-1, 0, 1):
-            np.testing.assert_allclose(tft.rfft(x, norm=norm, axis=axis),
+            np.testing.assert_allclose(tft.rfft(x, norm=norm, axis=axis, device="cpu"),
                                        np.fft.rfft(x, norm=norm, axis=axis),
                                        atol=1e-10)
-            np.testing.assert_allclose(tft.ihfft(x, norm=norm, axis=axis),
+            np.testing.assert_allclose(tft.ihfft(x, norm=norm, axis=axis, device="cpu"),
                                        np.fft.ihfft(x, norm=norm, axis=axis),
                                        atol=1e-10)
-        np.testing.assert_allclose(tft.rfft(x, n=12, norm=norm),
+        np.testing.assert_allclose(tft.rfft(x, n=12, norm=norm, device="cpu"),
                                    np.fft.rfft(x, n=12, norm=norm), atol=1e-10)
-        np.testing.assert_allclose(tft.rfft(x, n=7, norm=norm, axis=1),
+        np.testing.assert_allclose(tft.rfft(x, n=7, norm=norm, axis=1, device="cpu"),
                                    np.fft.rfft(x, n=7, norm=norm, axis=1),
                                    atol=1e-10)
         for n in (None, 9):
-            np.testing.assert_allclose(tft.irfft(spec, n=n, norm=norm),
+            np.testing.assert_allclose(tft.irfft(spec, n=n, norm=norm, device="cpu"),
                                        np.fft.irfft(spec, n=n, norm=norm),
                                        atol=1e-10)
-            np.testing.assert_allclose(tft.hfft(spec, n=n, norm=norm),
+            np.testing.assert_allclose(tft.hfft(spec, n=n, norm=norm, device="cpu"),
                                        np.fft.hfft(spec, n=n, norm=norm),
                                        atol=1e-10)
-        np.testing.assert_allclose(tft.irfft(spec.T, norm=norm, axis=0),
+        np.testing.assert_allclose(tft.irfft(spec.T, norm=norm, axis=0, device="cpu"),
                                    np.fft.irfft(spec.T, norm=norm, axis=0),
                                    atol=1e-10)
     f32 = x.astype(np.float32)
-    got = tft.rfft(f32)
+    got = tft.rfft(f32, device="cpu")
     assert got.dtype == np.complex64
     assert _rel(got, np.fft.rfft(x)) < REL
-    out = tft.rfft(torch.as_tensor(f32))
+    out = tft.rfft(torch.as_tensor(f32), device="cpu")
     assert isinstance(out, torch.Tensor) and out.dtype == torch.complex64
-    back = tft.irfft(out, n=9)
+    back = tft.irfft(out, n=9, device="cpu")
     assert isinstance(back, torch.Tensor) and back.dtype == torch.float32
     np.testing.assert_allclose(back.numpy(), f32, atol=ATOL_RT)
 
@@ -356,19 +393,19 @@ def test_rfftfreq():
 
 
 def test_validation():
-    plan = RfftPlan(16)
+    plan = RfftPlan(16, device="cpu")
     with pytest.raises(ValueError):
         plan.rfft_planar(np.zeros((2, 17), np.float32))
     with pytest.raises(ValueError):
         plan.irfft_planar(np.zeros(8, np.float32), np.zeros(8, np.float32))
     with pytest.raises(ValueError):
-        RfftPlan(0)
+        RfftPlan(0, device="cpu")
     with pytest.raises(ValueError):
-        RfftPlan(16, torch.float32)
+        RfftPlan(16, torch.float32, device="cpu")
     with pytest.raises(ValueError):
-        tft.irfft(np.zeros(9, np.complex64), n=14)
+        tft.irfft(np.zeros(9, np.complex64), n=14, device="cpu")
     with pytest.raises(ValueError):
-        tft.rfft(np.zeros(8), norm="bogus")
+        tft.rfft(np.zeros(8), norm="bogus", device="cpu")
     with pytest.raises(ValueError):
         plan.rfft_planar_bm(np.zeros((8, 4), np.float32))  # wrong n
     with pytest.raises(ValueError):
@@ -378,14 +415,14 @@ def test_validation():
                              np.zeros((16, 4), np.float32))
     with pytest.raises(ValueError, match="plan on cpu"):
         plan.rfft_planar(torch.zeros(2, 16, device="meta"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RfftPlan(16, torch.complex128, backend="dd")
+    with pytest.raises(ValueError, match="complex128"):
+        RfftPlan(16, torch.complex64, backend="dd", device="cpu")
 
 
 def test_irfft_leaves_the_callers_spectrum_alone():
     rng = np.random.default_rng(RNG_SEED)
     for n in (16, 15):
-        plan = RfftPlan(n, backend="vpu")
+        plan = RfftPlan(n, backend="vpu", device="cpu")
         re = _t(rng.standard_normal((n // 2 + 1, 3)).astype(np.float32))
         im = _t(rng.standard_normal((n // 2 + 1, 3)).astype(np.float32))
         keep = im.clone()
@@ -401,8 +438,8 @@ def test_load_jax_plan(kind, tmp_path):
     ref = JRfftPlan(n, np.complex64, backend=backend)
     path = tmp_path / "rfft.npz"
     save_plan(ref, str(path))
-    loaded = load_jax_plan(str(path))
-    own = RfftPlan(n, backend=backend)
+    loaded = load_jax_plan(str(path), device="cpu")
+    own = RfftPlan(n, backend=backend, device="cpu")
     assert isinstance(loaded, RfftPlan) and plan_tree(loaded) == plan_tree(own)
     assert repr(loaded) == repr(own) and loaded.fused == own.fused
     rng = np.random.default_rng(RNG_SEED + n)
@@ -413,10 +450,19 @@ def test_load_jax_plan(kind, tmp_path):
 
 
 def test_load_jax_plan_dd_raises(tmp_path):
+    """A double-word rfft plan loads as an f64 one (its (hi, lo) twiddles
+    recombined); the dd class on no route of the reference still raises."""
+    from fourier_tpu.precision.dd_mxu import DdMxuDirectPlan
+
     path = tmp_path / "dd.npz"
     save_plan(JRfftPlan(64, np.complex128, backend="dd"), str(path))
+    loaded = load_jax_plan(str(path), device="cpu")
+    own = RfftPlan(64, torch.complex128, backend="stockham", device="cpu")
+    assert plan_tree(loaded) == plan_tree(own) == ("RfftPlan", 64, ("AutosortPlan", 32))
+    assert (loaded.w - own.w).abs().max() <= 1e-14  # hi + lo keeps ~48 bits
+    save_plan(DdMxuDirectPlan.create(64), str(path))
     with pytest.raises(NotImplementedError, match="item 7"):
-        load_jax_plan(str(path))
+        load_jax_plan(str(path), device="cpu")
 
 
 # -- numpy transliterations of the CUDA kernels ---------------------------------
@@ -546,7 +592,7 @@ def _emulate_b5b(spec, plan):
 @pytest.mark.parametrize("n", [128, 192, 486, 1024])
 def test_b4_algorithm_emulated(n):
     m = n // 2
-    plan = RfftPlan(n, backend="vpu")
+    plan = RfftPlan(n, backend="vpu", device="cpu")
     cols, _ = sv.launch_geometry(m)
     rng = np.random.default_rng(RNG_SEED + n)
     x = rng.standard_normal((n, cols + 3))  # ragged last block
@@ -561,7 +607,7 @@ def test_b4_algorithm_emulated(n):
 @pytest.mark.parametrize("n", [73, 769, 1013])
 @pytest.mark.parametrize("extra", [0, 3])
 def test_b5_algorithm_emulated(n, extra):
-    plan = VpuBluesteinPlan.create(n)
+    plan = VpuBluesteinPlan.create(n, device="cpu")
     cols, _ = sv.launch_geometry(plan.m_inner)
     b = 2 * cols + 1 + extra  # odd B: one column has no partner
     rng = np.random.default_rng(RNG_SEED + n + extra)
@@ -578,7 +624,7 @@ def test_b5_algorithm_emulated(n, extra):
 def test_wrapper_contract():
     """The plain versions run only for CPU tensors (no launch counted); the
     wrappers raise on what the kernels do not take."""
-    plan = RfftPlan(128, backend="vpu")
+    plan = RfftPlan(128, backend="vpu", device="cpu")
     inner = plan.inner
     kw = dict(tables=inner.tables(True), kernel_tables=inner.kernel_fwd, w=plan.w)
     for bad in (torch.zeros(128, 3).double(), torch.zeros(128, 6)[:, ::2],
@@ -588,7 +634,7 @@ def test_wrapper_contract():
     with pytest.raises(ValueError):
         sv.vpu_rfft_pack_batch_minor(torch.zeros(128, 3), 64,
                                      **{**kw, "w": plan.w[:, :32]})
-    odd = VpuBluesteinPlan.create(73)
+    odd = VpuBluesteinPlan.create(73, device="cpu")
     st = odd.stages
     okw = dict(tables=(st.tables(True), st.tables(False)),
                kernel_tables=(st.kernel_fwd, st.kernel_inv), chirps=odd.chirps(False))

@@ -55,7 +55,7 @@ def test_sweep_against_reference(dtype, mode):
         scale = 1.0 if mode.is_forward else float(n)
         tol = oracle_eps * scale
         x = _rand((2, n), rng, scale).astype(dtype)
-        mine_plan = tft.create_fft(n, tdtype, backend="stockham")
+        mine_plan = tft.create_fft(n, tdtype, backend="stockham", device="cpu")
         ref_plan = jft.create_fft(n, dtype)
         assert type(mine_plan).__name__ == type(ref_plan).__name__, n
         mine = _run_port(mine_plan, x, mode)
@@ -72,7 +72,7 @@ def test_sweep_against_reference(dtype, mode):
 def test_all_modes_c128(n, mode):
     rng = np.random.default_rng(RNG_SEED + n)
     x = _rand((3, n), rng)
-    plan = tft.create_fft_f64(n)
+    plan = tft.create_fft_f64(n, device="cpu")
     got = plan.transform(x, mode)
     np.testing.assert_allclose(got, oracle_transform(x, mode), atol=1e-10 * n)
 
@@ -81,7 +81,7 @@ def test_plan_tables_equal_reference():
     """Same f64 values narrowed the same way: the tables are bitwise equal."""
     for n in (96, 243, 4096):
         for dt, jdt in ((torch.complex64, np.complex64), (torch.complex128, np.complex128)):
-            mine = AutosortPlan.create(n, dt)
+            mine = AutosortPlan.create(n, dt, device="cpu")
             ref = jft.AutosortPlan.create(n, jdt)
             assert mine.radices == ref.radices
             mine_tables = stage_views(mine.fwd, mine._shapes)
@@ -93,7 +93,7 @@ def test_plan_tables_equal_reference():
 @pytest.mark.parametrize("n", [73, 100])
 def test_bluestein_batch_minor_matches_batch_major(n):
     rng = np.random.default_rng(RNG_SEED)
-    plan = BluesteinPlan.create(n, torch.complex64)
+    plan = BluesteinPlan.create(n, torch.complex64, device="cpu")
     x = _rand((n, 5), rng).astype(np.complex64)
     for mode in (Transform.FFT, Transform.IFFT, Transform.SQRT_SCALED_FFT):
         ore, oim = plan.transform_planar_bm(
@@ -108,7 +108,7 @@ def test_roundtrips_and_batches():
     rng = np.random.default_rng(RNG_SEED)
     for n in (16, 27, 73):
         x = _rand((2, 3, n), rng)
-        plan = tft.create_fft_f64(n)
+        plan = tft.create_fft_f64(n, device="cpu")
         np.testing.assert_allclose(plan.ifft(plan.fft(x)), x, atol=1e-10)
         y = plan.transform(x, Transform.SQRT_SCALED_FFT)
         np.testing.assert_allclose(plan.transform(y, Transform.SQRT_SCALED_IFFT),
@@ -118,12 +118,12 @@ def test_roundtrips_and_batches():
 
 
 def test_input_validation():
-    plan = tft.create_fft_f32(8)
+    plan = tft.create_fft_f32(8, device="cpu")
     with pytest.raises(ValueError):
         plan.fft(np.zeros(9, np.complex64))
     with pytest.raises(ValueError):
         plan.fft_planar(torch.zeros(8), torch.zeros(7))
     with pytest.raises(ValueError):
-        tft.create_fft(0)
+        tft.create_fft(0, device="cpu")
     with pytest.raises(ValueError):
-        tft.create_fft(8, np.float32)
+        tft.create_fft(8, np.float32, device="cpu")

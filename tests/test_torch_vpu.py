@@ -26,6 +26,7 @@ from fourier_tpu.plan.vpu import VpuFftPlan as JVpuFftPlan
 
 from fourier_tpu_torch import Transform
 from fourier_tpu_torch.ops.cuda import stockham_vpu as sv
+from fourier_tpu_torch.ops.cuda import stockham_vpu_dd as dv
 from fourier_tpu_torch.plan.vpu import VpuFftPlan
 from fourier_tpu_torch.utils import oracle_transform
 
@@ -66,7 +67,7 @@ def test_plain_b1_matches_pallas_interpret(n):
     rng = np.random.default_rng(RNG_SEED + n)
     x_t = _rand((n, 7), rng)  # ragged B: no padding in the port
     mode = Transform.FFT if n != 96 else Transform.IFFT
-    mine = _port_bm(VpuFftPlan.create(n), x_t, mode)
+    mine = _port_bm(VpuFftPlan.create(n, device="cpu"), x_t, mode)
     ref = _jax_bm(JVpuFftPlan.create(n), x_t, mode)
     assert mine.shape == (n, 7)
     assert _rel(mine, ref) <= REL_L2
@@ -77,7 +78,7 @@ def test_plain_b1_modes_match_pallas_interpret(mode):
     n = 64
     rng = np.random.default_rng(RNG_SEED)
     x_t = _rand((n, 5), rng)
-    mine = _port_bm(VpuFftPlan.create(n), x_t, mode)
+    mine = _port_bm(VpuFftPlan.create(n, device="cpu"), x_t, mode)
     ref = _jax_bm(JVpuFftPlan.create(n), x_t, mode)
     assert _rel(mine, ref) <= REL_L2
 
@@ -86,7 +87,7 @@ def test_plain_b1_batch_major_matches_pallas_interpret():
     n = 64
     rng = np.random.default_rng(RNG_SEED)
     x = _rand((3, 4, n), rng)
-    ore, oim = VpuFftPlan.create(n).transform_planar(
+    ore, oim = VpuFftPlan.create(n, device="cpu").transform_planar(
         torch.as_tensor(x.real.copy()), torch.as_tensor(x.imag.copy()))
     mine = ore.numpy() + 1j * oim.numpy()
     jre, jim = JVpuFftPlan.create(n).transform_planar(x.real, x.imag)
@@ -99,7 +100,7 @@ def test_plain_b1_batch_major_matches_pallas_interpret():
 def test_plain_b1_large_and_pure_powers(n):
     rng = np.random.default_rng(RNG_SEED + n)
     x = _rand((3, n), rng)
-    plan = VpuFftPlan.create(n)
+    plan = VpuFftPlan.create(n, device="cpu")
     for mode in (Transform.FFT, Transform.SQRT_SCALED_IFFT):
         got = _port_bm(plan, np.ascontiguousarray(x.T), mode).T
         if n <= 4096:
@@ -111,17 +112,25 @@ def test_plain_b1_large_and_pure_powers(n):
         assert _rel(got, want) <= REL_L2, (n, mode)
 
 
-def emulate_stages(s, n, cols, forward):
+def emulate_stages(s, n, cols, forward, dd=False):
     """numpy transliteration of run_stages in csrc/stockham_stages.cuh
     (butterflies as exact DFTs), in place on one block's flat (n * cols)
     shared-memory planes `s`: each stage reads every butterfly's inputs,
     then writes its twiddled outputs, in the kernel's index order. Shared
-    by the emulations of B1, B2 and B3."""
-    _, threads = sv.launch_geometry(n)
-    tw = sv.make_kernel_tables(n, forward)
+    by the emulations of B1, B2 and B3, and with `dd` (the f64 schedule,
+    tables and launch geometry) of B6 and B7."""
+    if dd:
+        geometry, tables, schedule = (dv.launch_geometry_dd,
+                                      dv.make_kernel_tables_dd,
+                                      dv.kernel_schedule_dd)
+    else:
+        geometry, tables, schedule = (sv.launch_geometry, sv.make_kernel_tables,
+                                      sv.kernel_schedule)
+    _, threads = geometry(n)
+    tw = tables(n, forward)
     tw = tw[0].astype(np.float64) + 1j * tw[1].astype(np.float64)
     size, stride, off = n, 1, 0
-    for r in sv.kernel_schedule(n):
+    for r in schedule(n):
         m = size // r
         blk = m * stride
         ids = np.arange(blk * cols)
@@ -172,7 +181,7 @@ def test_wrapper_contract():
     """The wrapper runs the plain version only for CPU tensors and raises on
     anything the kernel does not take; there is no fallback."""
     n = 64
-    plan = VpuFftPlan.create(n)
+    plan = VpuFftPlan.create(n, device="cpu")
     tables = plan.tables(True)
     ok = torch.zeros(n, 3)
     for bad in (ok.double(), torch.zeros(n, 6)[:, ::2], torch.zeros(n + 1, 3)):
@@ -190,12 +199,12 @@ def test_wrapper_contract():
 
 
 def test_create_domain():
-    assert VpuFftPlan.create(100) is None
-    assert VpuFftPlan.create(32) is None
-    assert VpuFftPlan.create(32768) is None
-    assert VpuFftPlan.create(64, torch.complex128) is None
-    assert VpuFftPlan.create(125) is None
-    assert VpuFftPlan.create(6561).schedule == (81, 81)
+    assert VpuFftPlan.create(100, device="cpu") is None
+    assert VpuFftPlan.create(32, device="cpu") is None
+    assert VpuFftPlan.create(32768, device="cpu") is None
+    assert VpuFftPlan.create(64, torch.complex128, device="cpu") is None
+    assert VpuFftPlan.create(125, device="cpu") is None
+    assert VpuFftPlan.create(6561, device="cpu").schedule == (81, 81)
 
 
 @pytest.mark.cuda
