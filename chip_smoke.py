@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds kernels B1-B5 (complex64) and B6-B8 (complex128 in native f64) from
-fourier_tpu_torch/csrc with nvcc, two libraries built at once, and holds
+Builds kernels B1-B5 (complex64), B6-B8 (complex128 in native f64) and
+B9a/B9b (the dense DFT products of MxuFftPlan(impl="pallas")) from
+fourier_tpu_torch/csrc with nvcc, three libraries built at once, and holds
 each against its plain PyTorch version and against np.fft, at the listed
 sizes and at every shape the routes below give it. Then it drives the
 main path (the default complex64 1-D transform through create_fft_f32 on
@@ -14,11 +15,14 @@ the real transforms through RfftPlan and the module functions (B4 for even
 n, B5 for odd n, the c2c kernels inside the unfused routes) and their
 gradients, then the complex128 route (create_fft_f64 with no device
 argument: B6, B7, B8 over B6, and the composed plans over them, and c128
-RfftPlans), checking each plan tree against the JAX package's and that each
+RfftPlans), then the user-built paths of B9a/B9b (pallas and xla_packed
+MxuFftPlans alone, under a BluesteinPlan and a FourStepLocalPlan, and their
+gradients), checking each plan tree against the JAX package's and that each
 path launched the kernels its plan holds. Last it times the kernels against
 their plain versions and torch.fft, the rfft round trips of the suite's
-rows fused, unfused and through torch.fft, and the suite's c128 rows, each
-beside the least time the card could take for its bytes or operations.
+rows fused, unfused and through torch.fft, the suite's c128 rows and B9a/B9b
+at three shapes, each beside the least time the card could take for its
+bytes or operations.
 Every phase prints its lines;
 any failed check raises, so the exit code is non-zero. The next-to-last
 line is a JSON record of the kernels; the last line is
@@ -36,6 +40,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -184,6 +189,19 @@ DD_RFFT_B = 65  # odd: the unfused odd path's single-column fallback runs
 DD_TIME = ((1024, 65536), (1013, 65536), (2187, 16384), (3125, 16384),
            (1418, 32768))
 DD_CHAIN = 16
+# Kernels B9a/B9b, reached through user-built MxuFftPlans (impl="pallas", and
+# impl="xla_packed" for n <= 128); no planner route runs them.
+B9A_SIZES = (1, 2, 7, 16, 64, 100, 125, 127, 128)
+B9B_SIZES = (129, 243, 250, 384, 1000, 2048, 4096, 16129, 16384)
+B9_TB = 4  # the TPU tile cap the odd batches are checked with as well
+B9_ROUTE_B = 257  # phase 4f's batch
+B9_ROUTE_B_LARGE = 16  # its batch for the four-step of 65536
+B9_GRAD = (1000, 64)  # (n, B) of phase 4f's gradient
+B9_TIME = (("B9a", 125, 65536), ("B9b", 4096, 16384), ("B9b", 16384, 1024))
+B9_CHAIN = 16
+# A batch that walks B9a's persistent loop over several tiles a block (one
+# block an SM at n = 127) and ends on a partial tile.
+B9A_WALK = ("B9a", 127, 20001)
 
 
 def _kernels_of(tree, batch_minor: bool) -> set:
@@ -281,6 +299,18 @@ def _dd_route_cases() -> list:
     return sorted(set(cases))
 
 
+def _b9_route_cases() -> list:
+    """(kernel, n, B) of every B9 call phases 4f and 5f make, and B9A_WALK.
+    Phase 4f runs each plan at B9_ROUTE_B: the Bluestein of 1013 its inner
+    2048 at that batch, the four-step of 65536 (at B9_ROUTE_B_LARGE) both
+    256 = (16, 16) legs on 256 * B rows; its gradient runs B9_GRAD forward
+    and backward. Phase 4f checks that its calls are among these."""
+    b = B9_ROUTE_B
+    return ([("B9a", 100, b), ("B9a", 128, b), B9A_WALK, ("B9b", 1000, b),
+             ("B9b", 2048, b), ("B9b", 256, 256 * B9_ROUTE_B_LARGE),
+             ("B9b", *B9_GRAD)] + list(B9_TIME))
+
+
 def bound(nbytes: float, flops: float, rate: float):
     """(least ms, what bounds it): the bytes over the HBM rate or the flops
     over the card's peak `rate` for their type, whichever is longer."""
@@ -342,10 +372,13 @@ def main() -> int:
 
     import fourier_tpu_torch as ftt
     from fourier_tpu_torch import Transform
+    from fourier_tpu_torch.ops import bailey as bp
+    from fourier_tpu_torch.ops.cuda import bailey as bk
     from fourier_tpu_torch.ops.cuda import build
     from fourier_tpu_torch.ops.cuda import dd_combine as dc
     from fourier_tpu_torch.ops.cuda import stockham_vpu as sv
     from fourier_tpu_torch.ops.cuda import stockham_vpu_dd as dv
+    from fourier_tpu_torch.plan import mxu as mxu_plan
     from fourier_tpu_torch.plan import plan_tree
 
     dev = torch.device("cuda", 0)
@@ -372,7 +405,8 @@ def main() -> int:
                 "B5b": sv.vpu_irfft_odd_unpack_batch_minor,
                 "B6": dv.vpu_dd_fft_batch_minor,
                 "B7": dv.vpu_dd_bluestein_batch_minor,
-                "B8": dc.dd_split_combine_batch_minor}
+                "B8": dc.dd_split_combine_batch_minor,
+                "B9a": bk.mxu_fft_single, "B9b": bk.mxu_fft_two_phase}
 
     def zero_counts():
         for fn in counters.values():
@@ -399,15 +433,16 @@ def main() -> int:
         return ((torch.linalg.norm(k - p) / torch.linalg.norm(p)).item(),
                 (k - p).abs().max().item())
 
-    # 2. Build: the two kernel libraries, one nvcc each, at once.
+    # 2. Build: the three kernel libraries, one nvcc each, at once.
     t0 = time.perf_counter()
-    build.load_all([sv.LIBRARY, dv.LIBRARY])
+    build.load_all([sv.LIBRARY, dv.LIBRARY, bk.LIBRARY])
     sv.library()
     dv.library()
-    print(f"build: fourier_tpu_torch/csrc/{sv.LIBRARY}.cu (B1-B5) and "
-          f"{dv.LIBRARY}.cu (B6-B8) in {time.perf_counter() - t0:.2f} s",
-          flush=True)
-    for lib in (sv.LIBRARY, dv.LIBRARY):
+    bk.library()
+    print(f"build: fourier_tpu_torch/csrc/{sv.LIBRARY}.cu (B1-B5), "
+          f"{dv.LIBRARY}.cu (B6-B8) and {bk.LIBRARY}.cu (B9a, B9b) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for lib in (sv.LIBRARY, dv.LIBRARY, bk.LIBRARY):
         kerns, worst = ptxas_usage(build.resource_usage(lib))
         print(f"ptxas ({lib}.cu): " + "; ".join(
             f"{k} {r} registers, spill {st}/{ld} bytes" for k, r, (st, ld) in kerns)
@@ -665,6 +700,68 @@ def main() -> int:
     print(f"split plans {DD_B8_SIZES} (B6 + B8) vs np.fft: worst rel-L2 "
           f"{worst:.3e} (gate {DD_GATE:g})", flush=True)
 
+    # 3f. B9a and B9b against their plain versions and np.fft in f64, at the
+    # listed sizes and batches and at every shape phases 4f and 5f give them,
+    # in every mode, with the caller's TF32 on (no product may take it); odd
+    # batches also with the tile cap B9_TB, which must not change a bit.
+    def b9_tables(plan, mode):
+        """A pallas plan's flat table list for `mode`, the scale folded into
+        the last table as the plan folds it."""
+        tabs = plan.tables(mode.is_forward)
+        scale = mode.scale(plan.size)
+        if scale is not None:
+            tabs[-1] = (tabs[-1][0] * scale, tabs[-1][1] * scale)
+        return [t for pair in tabs for t in pair]
+
+    def b9_fns(plan):
+        """(kernel id, wrapper, plain version) of a pallas MxuFftPlan."""
+        if plan.single_phase:
+            return "B9a", bk.mxu_fft_single, bp.xla_fft_single
+        return "B9b", bk.mxu_fft_two_phase, bp.reference_two_phase
+
+    def rows_host(re, im):
+        """The first HOST_COLUMNS rows of (B, n) planes, as (n, rows)."""
+        return host_cols(re.T, im.T)
+
+    caller_precision = torch.get_float32_matmul_precision()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    b9_routes = _b9_route_cases()
+    for kernel_id, sizes in (("B9a", B9A_SIZES), ("B9b", B9B_SIZES)):
+        routes = [(n, b) for k, n, b in b9_routes if k == kernel_id]
+        worst_p = worst_h = mx = 0.0
+        for n, b in [(n, b) for n in sizes for b in BATCHES] + routes:
+            plan = ftt.MxuFftPlan.create(n, impl="pallas", device=dev)
+            got_id, kernel, plain = b9_fns(plan)
+            check(got_id == kernel_id, f"MxuFftPlan({n}, impl='pallas') runs {got_id}")
+            re, im = planes(b, n)
+            x = rows_host(re, im)
+            for mode in Transform:
+                tabs = b9_tables(plan, mode)
+                k = kernel(re, im, *tabs)
+                p = plain(re, im, *tabs)
+                if b % 2:
+                    kt = kernel(re, im, *tabs, tb=B9_TB)
+                    torch.cuda.synchronize()
+                    check(torch.equal(kt[0], k[0]) and torch.equal(kt[1], k[1]),
+                          f"{kernel_id} n={n} B={b}: tb={B9_TB} changed the result")
+                torch.cuda.synchronize()
+                err, m_ = vs_plain(k, p)
+                herr = rel_l2(rows_host(*k), np_want(x, mode, n))
+                check(err <= REL_L2_GATE and herr <= REL_L2_GATE,
+                      f"{kernel_id} n={n} B={b} {mode.name}: rel-L2 {err:.3e} vs "
+                      f"plain, {herr:.3e} vs np.fft (gate {REL_L2_GATE:g})")
+                worst_p, worst_h, mx = max(worst_p, err), max(worst_h, herr), max(mx, m_)
+            del re, im, k, p
+        check(torch.backends.cuda.matmul.allow_tf32,
+              "a plain version did not restore the caller's TF32 setting")
+        print(f"{kernel_id} kernel vs plain: n in {sizes} x B in {BATCHES} and the "
+              f"routes' shapes {routes} x 5 modes pass with the caller's TF32 on (odd "
+              f"B also at tb={B9_TB}, bitwise equal); worst rel-L2 {worst_p:.3e} vs "
+              f"plain, {worst_h:.3e} vs np.fft (gate {REL_L2_GATE:g}); max abs err "
+              f"{mx:.3e}", flush=True)
+        max_abs_err[kernel_id] = mx
+    torch.set_float32_matmul_precision(caller_precision)
+
     # 4. Main path through the entry points, with the launch count.
     zero_counts()
     plan = ftt.create_fft_f32(MAIN_N, device="cuda")
@@ -919,11 +1016,13 @@ def main() -> int:
           f"on a TPU", flush=True)
     zero_counts()
 
-    def dd_ran(what, held, seen):
+    def only_ran(what, held, seen):
+        """Check that the counts of the kernels in `held`, and no other,
+        rose since `seen`; return the counts now."""
         now = counts()
         for k in counters:
             rose = now[k] > seen[k]
-            check(rose == (k in held), f"c128 {what}: {k} "
+            check(rose == (k in held), f"{what}: {k} "
                   f"{'rose' if rose else 'did not rise'}; the plan runs "
                   f"{sorted(held)} there")
         return now
@@ -936,14 +1035,14 @@ def main() -> int:
         seen = counts()
         re, im = planes64(n, b)
         bre, bim = plan.transform_planar_bm(re, im)
-        seen = dd_ran(f"n={n} transform_planar_bm", held, seen)
+        seen = only_ran(f"c128 n={n} transform_planar_bm", held, seen)
         mre, mim = plan.transform_planar(re.T.contiguous(), im.T.contiguous())
-        seen = dd_ran(f"n={n} transform_planar", held, seen)
+        seen = only_ran(f"c128 n={n} transform_planar", held, seen)
         xc = torch.complex(re.T.contiguous(), im.T.contiguous())
         y = plan.fft(xc)
-        seen = dd_ran(f"n={n} fft", held, seen)
+        seen = only_ran(f"c128 n={n} fft", held, seen)
         back = plan.ifft(y)
-        dd_ran(f"n={n} ifft", held, seen)
+        only_ran(f"c128 n={n} ifft", held, seen)
         torch.cuda.synchronize()
         check(y.dtype == torch.complex128 and tuple(y.shape) == (b, n)
               and bool(torch.isfinite(torch.view_as_real(y)).all()),
@@ -974,13 +1073,13 @@ def main() -> int:
         seen = counts()
         x = planes64(n, b)[0]
         re_t, im_t = plan.rfft_planar_bm(x)
-        seen = dd_ran(f"rfft n={n} rfft_planar_bm", held, seen)
+        seen = only_ran(f"c128 rfft n={n} rfft_planar_bm", held, seen)
         back_bm = plan.irfft_planar_bm(re_t, im_t)
-        seen = dd_ran(f"rfft n={n} irfft_planar_bm", held, seen)
+        seen = only_ran(f"c128 rfft n={n} irfft_planar_bm", held, seen)
         spec = ftt.rfft(x.T.contiguous())
-        seen = dd_ran(f"rfft n={n} rfft", held, seen)
+        seen = only_ran(f"c128 rfft n={n} rfft", held, seen)
         sig = ftt.irfft(spec, n=n)
-        dd_ran(f"rfft n={n} irfft", held, seen)
+        only_ran(f"c128 rfft n={n} irfft", held, seen)
         torch.cuda.synchronize()
         check(spec.dtype == torch.complex128 and sig.dtype == torch.float64,
               f"c128 rfft n={n}: dtypes {spec.dtype} {sig.dtype}")
@@ -1002,6 +1101,111 @@ def main() -> int:
         path_launches[k] += v
     for k in ("B6", "B7", "B8"):
         check(path_launches[k] > 0, f"the c128 routes launched {k} no time")
+
+    # 4f. The user-built paths of B9a and B9b: MxuFftPlan(impl="pallas") and
+    # (impl="xla_packed") at n <= 128, pallas two-phase plans alone, as the
+    # inner of a BluesteinPlan and as the legs of a FourStepLocalPlan, each
+    # through every entry point with the B9 counts rising and no other; then
+    # gradients through a pallas plan against the impl="xla" plan.
+    zero_counts()
+
+    def pallas(m, dt, device):
+        return ftt.MxuFftPlan.create(m, dt, device, impl="pallas")
+
+    b9_paths = (
+        ("MxuFftPlan(100, impl='pallas')", lambda: ftt.MxuFftPlan.create(
+            100, impl="pallas", device="cuda"), {"B9a"}),
+        ("MxuFftPlan(128, impl='xla_packed')", lambda: ftt.MxuFftPlan.create(
+            128, impl="xla_packed"), {"B9a"}),
+        ("MxuFftPlan(1000, impl='pallas')", lambda: ftt.MxuFftPlan.create(
+            1000, impl="pallas", device="cuda"), {"B9b"}),
+        ("BluesteinPlan(1013) over pallas MxuFftPlan(2048)", lambda: ftt.BluesteinPlan.create(
+            1013, inner_factory=pallas, device="cuda"), {"B9b"}),
+        ("FourStepLocalPlan(65536) over pallas MxuFftPlan(256)",
+         lambda: ftt.FourStepLocalPlan.create(65536, torch.complex64, 256, 256, pallas,
+                                              device="cuda"), {"B9b"}),
+    )
+    def b9_path_runs():
+        """Phase 4f's runs, in a scope of their own: phase 5 reads the main
+        path's plan and planes."""
+        for what, make, held in b9_paths:
+            bplan = make()
+            check(bplan.device == dev, f"{what} planned on {bplan.device}")
+            n = bplan.size
+            b = B9_ROUTE_B if n < 65536 else B9_ROUTE_B_LARGE
+            seen = counts()
+            re, im = planes(b, n)
+            mre, mim = bplan.transform_planar(re, im)
+            seen = only_ran(f"{what} transform_planar", held, seen)
+            bre, bim = bplan.transform_planar_bm(re.T.contiguous(), im.T.contiguous())
+            seen = only_ran(f"{what} transform_planar_bm", held, seen)
+            xc = torch.complex(re, im)
+            y = bplan.transform(xc, Transform.FFT)
+            seen = only_ran(f"{what} transform", held, seen)
+            y2 = bplan.fft(xc)
+            seen = only_ran(f"{what} fft", held, seen)
+            back = bplan.ifft(y2)
+            only_ran(f"{what} ifft", held, seen)
+            torch.cuda.synchronize()
+            check(y.dtype == torch.complex64 and tuple(y.shape) == (b, n)
+                  and bool(torch.isfinite(torch.view_as_real(y)).all()),
+                  f"{what}: fft output {y.dtype} {tuple(y.shape)}")
+            want = np_want(rows_host(re, im), Transform.FFT, n)
+            errs = (rel_l2(rows_host(mre, mim), want), rel_l2(host_cols(bre, bim), want),
+                    rel_l2(rows_host(y.real, y.imag), want),
+                    rel_l2(rows_host(y2.real, y2.imag), want),
+                    (torch.linalg.norm(back - xc) / torch.linalg.norm(xc)).item())
+            check(max(errs) <= REL_L2_GATE, f"{what} B={b}: rel-L2 batch-major/bm/"
+                  f"transform/fft vs np.fft and round trip {errs}")
+            print(f"B9 path: {what} B={b} launched {sorted(held)} on each call; worst "
+                  f"rel-L2 {max(errs):.3e}\n" + ftt.describe(bplan), flush=True)
+        for k, v in counts().items():
+            path_launches[k] += v
+        for k in ("B9a", "B9b"):
+            check(path_launches[k] > 0, f"the B9 paths launched {k} no time")
+
+        n, b = B9_GRAD
+        x, gt = planes(b, n), planes(b, n)
+
+        def b9_grads(plan):
+            re, im = (t.clone().requires_grad_(True) for t in x)
+            yr, yi = plan.transform_planar(re, im, Transform.SQRT_SCALED_FFT)
+            (yr * gt[0] + yi * gt[1]).sum().backward()
+            return re.grad, im.grad
+
+        before = counts()["B9b"]
+        got = b9_grads(ftt.MxuFftPlan.create(n, impl="pallas", device="cuda"))
+        check(counts()["B9b"] - before == 2, "the pallas gradient did not launch B9b "
+              "twice (forward and backward)")
+        want = b9_grads(ftt.MxuFftPlan.create(n, impl="xla", device="cuda"))
+        gerr = max(rel_l2(g.cpu().numpy(), w.cpu().numpy()) for g, w in zip(got, want))
+        check(gerr <= REL_L2_GATE, f"pallas gradient vs xla: rel-L2 {gerr:.3e}")
+        print(f"B9 grad: d/dx through MxuFftPlan({n}, impl='pallas') (B9b forward and "
+              f"backward) vs impl='xla': rel-L2 {gerr:.3e} (gate {REL_L2_GATE:g})",
+              flush=True)
+
+    # The plans reach the wrappers through plan/mxu.py's module reference;
+    # for these runs it notes each call's (kernel, n, B) and passes it on.
+    b9_calls = set()
+
+    def recorded(kernel_id, fn):
+        def call(re, im, *tables, **kwargs):
+            b9_calls.add((kernel_id, re.shape[1], re.shape[0]))
+            return fn(re, im, *tables, **kwargs)
+        return call
+
+    mxu_plan.bailey_kernels = types.SimpleNamespace(
+        mxu_fft_single=recorded("B9a", bk.mxu_fft_single),
+        mxu_fft_two_phase=recorded("B9b", bk.mxu_fft_two_phase))
+    try:
+        b9_path_runs()
+    finally:
+        mxu_plan.bailey_kernels = bk
+    unchecked = b9_calls - set(b9_routes)
+    check(not unchecked, f"phase 4f gave B9 shapes that phase 3f did not check: "
+          f"{sorted(unchecked)}")
+    print(f"B9 paths: every (kernel, n, B) they gave a wrapper, {sorted(b9_calls)}, "
+          "was checked against the plain version in phase 3f", flush=True)
 
     # 5. Timing: CHAIN dependent SQRT_SCALED_FFT calls, median of REPS.
     mode = Transform.SQRT_SCALED_FFT
@@ -1265,6 +1469,64 @@ def main() -> int:
                             None if k == "B8" else rows[f"torch.fft.fft (chain {DD_CHAIN})"])
             bounds[k] = kb
 
+    # 5f. B9a and B9b at the bound table's shapes, chained SQRT_SCALED_FFT:
+    # the kernel alone, its plain version, the impl="xla" plan (cuBLAS, for
+    # information) and torch.fft.fft on the same (B, n) complex64 tensor; the
+    # bound from the plan's own summary (flops and min bytes per transform).
+    for kernel_id, n, b in B9_TIME:
+        plan = ftt.MxuFftPlan.create(n, impl="pallas", device=dev)
+        _, kernel, plain = b9_fns(plan)
+        tabs = b9_tables(plan, mode)
+        xla = ftt.MxuFftPlan.create(n, impl="xla", device=dev)
+        re, im = planes(b, n)
+        xc = torch.complex(re, im)
+        summary = ftt.summarize(plan)
+        kb_ = bound(summary.min_hbm_bytes_per_transform * b,
+                    summary.flops_per_transform * b, F32_RATE)
+        rows = {
+            f"{kernel_id} kernel": median_ms(lambda a, c: kernel(a, c, *tabs), re, im,
+                                             B9_CHAIN),
+            f"plain {kernel_id}": median_ms(lambda a, c: plain(a, c, *tabs), re, im,
+                                            PLAIN_CHAIN),
+            f"impl='xla' plan {plan_tree(xla)[2]}": median_ms(
+                lambda a, c: xla.transform_planar(a, c, mode), re, im, B9_CHAIN),
+            "torch.fft.fft": median_ms(
+                lambda a, _c: (torch.fft.fft(a, norm="ortho"), None), xc, None,
+                B9_CHAIN),
+        }
+        if kernel_id == "B9b":
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            tpb, threads = bk.two_phase_geometry(plan.n1, plan.n2, b, sms)
+            if threads <= bk.SMALL_THREADS:
+                # The same blocks with 32 idle threads more take the
+                # 1024-bound instantiation (64 registers a thread): what the
+                # 512-bound one (128) gains, in this run.
+                def wide(a, c):
+                    out = torch.empty_like(a), torch.empty_like(c)
+                    build.call(bk.library(), "fourier_dft_two_phase_c64", "B9b wide",
+                               a.data_ptr(), c.data_ptr(), out[0].data_ptr(),
+                               out[1].data_ptr(), *(t.data_ptr() for t in tabs),
+                               plan.n1, plan.n2, b, tpb, threads + 32, dev.index,
+                               sv.stream_of(a))
+                    return out
+                werr, _ = vs_plain(wide(re, im), kernel(re, im, *tabs))
+                check(werr <= REL_L2_GATE, f"B9b on the 1024-bound instantiation: "
+                      f"rel-L2 {werr:.3e} against the kernel")
+                rows[f"B9b kernel, {threads + 32} threads (1024-bound)"] = median_ms(
+                    wide, re, im, B9_CHAIN)
+        for what, ms in rows.items():
+            share = (f", {kb_[0] / ms:.4f} of the bound {kb_[0]:.4f} ms ({kb_[1]})"
+                     if "kernel" in what else "")
+            print(f"time: {kernel_id} n={n} {(plan.n1, plan.n2)} B={b} {what}: "
+                  f"{ms:.4f} ms per call, {summary.flops_per_transform * b / ms / 1e9:.2f} "
+                  f"TFLOP/s of the plan's flops{share} (median of {REPS}) on {card}",
+                  flush=True)
+        if kernel_id not in kernel_ms:  # the first row of each kernel
+            kernel_ms[kernel_id] = (rows[f"{kernel_id} kernel"],
+                                    rows[f"plain {kernel_id}"], rows["torch.fft.fft"])
+            bounds[kernel_id] = kb_
+        del re, im, xc
+
     kernels = (
         ("B1", "B1 fused Stockham c64 (vpu_fft_batch_minor)", 422),
         ("B2", "B2 fused Bluestein c64 (vpu_bluestein_batch_minor)", 881),
@@ -1283,9 +1545,14 @@ def main() -> int:
         ("B8", "B8 split combine c128 f64 (dd_split_combine_batch_minor)",
          "dd_combine.py:58"),
     )
+    b9_kernels = (
+        ("B9a", "B9a dense DFT product c64 (mxu_fft_single)", "bailey.py:81"),
+        ("B9b", "B9b fused two-phase DFT c64 (mxu_fft_two_phase)", "bailey.py:92"),
+    )
     rows = ([(k, name, sv.LIBRARY, f"stockham_vpu.py:{line}")
              for k, name, line in kernels]
-            + [(k, name, dv.LIBRARY, where) for k, name, where in dd_kernels])
+            + [(k, name, dv.LIBRARY, where) for k, name, where in dd_kernels]
+            + [(k, name, bk.LIBRARY, where) for k, name, where in b9_kernels])
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -14,6 +14,10 @@ native f64 (``precision/``, ``ops/cuda/stockham_vpu_dd.py``,
 B8 (split combine over B6). Real transforms (``RfftPlan``, ``rfft``,
 ``irfft``, ``hfft``, ``ihfft``) run B4 (even n) and B5 (odd n) on their
 batch-minor path in complex64, and the unfused pack around the c128 route.
+A user-built ``MxuFftPlan.create(n, impl="pallas")`` runs B9a (n <= 128) or
+B9b (a split n1*n2) of ``ops/cuda/bailey.py``; ``impl="xla_packed"`` runs
+B9a for n <= 128. ``describe`` / ``summarize`` give a plan's structure and
+cost model (``plan/summary.py``).
 
 This package imports torch and never jax.
 """
@@ -42,6 +46,7 @@ from fourier_tpu_torch.plan import (
     load_jax_plan,
 )
 from fourier_tpu_torch.plan.base import resolve_device
+from fourier_tpu_torch.plan.summary import PlanSummary, describe, summarize
 from fourier_tpu_torch.rfft import RfftPlan, hfft, ihfft, irfft, rfft, rfftfreq
 from fourier_tpu_torch.transform import Transform
 
@@ -104,6 +109,7 @@ __all__ = [
     "FftPlan",
     "FourStepLocalPlan",
     "MxuFftPlan",
+    "PlanSummary",
     "RfftPlan",
     "Transform",
     "VpuBluesteinPlan",
@@ -114,6 +120,7 @@ __all__ = [
     "create_fft",
     "create_fft_f32",
     "create_fft_f64",
+    "describe",
     "fft",
     "hfft",
     "ifft",
@@ -122,6 +129,7 @@ __all__ = [
     "load_jax_plan",
     "rfft",
     "rfftfreq",
+    "summarize",
     "transform",
     "__version__",
 ]

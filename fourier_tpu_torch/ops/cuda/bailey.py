@@ -1,0 +1,162 @@
+"""Kernels B9a and B9b: the DFT as dense complex products in one kernel each.
+
+Port of ``mxu_fft_single`` and ``mxu_fft_two_phase`` of
+``fourier_tpu/ops/pallas/bailey.py`` (the Pallas kernels of
+``MxuFftPlan(impl="pallas")``). Both take and return batch-major (B, n)
+planar f32 planes; the plan folds direction and mode scale into the tables.
+
+* B9a, :func:`mxu_fft_single`: O[t, k] = sum_j D[k, j] x[t, j], n <= 128.
+  Its plain version is :func:`fourier_tpu_torch.ops.bailey.xla_fft_single`.
+* B9b, :func:`mxu_fft_two_phase`: n = n1*n2 (n1, n2 <= 128), G = D_n2 @ M
+  with M = x.reshape(n2, n1), G' = G * T, O[k1, k2] = sum_a D_n1[k1, a]
+  G'[k2, a] in natural order. Its plain version is
+  :func:`fourier_tpu_torch.ops.bailey.reference_two_phase`.
+
+Both are one library built from ``csrc/bailey.cu`` (fp32 FMA on the CUDA
+cores, no TF32). Each wrapper runs its plain version for tensors on the CPU
+and launches its kernel (or raises) for tensors on a CUDA device; it counts
+its launches in its ``launches`` attribute. ``tb`` is the TPU kernel's batch
+tile; here it caps the transforms a block takes, and no result depends on
+it. :func:`single_geometry` and :func:`two_phase_geometry` give each
+launch's shape.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from fourier_tpu_torch.ops import bailey
+from fourier_tpu_torch.ops.cuda import build
+from fourier_tpu_torch.ops.cuda.stockham_vpu import (check_planes, check_tables,
+                                                     stream_of)
+
+MAX_N = 128  # either factor of a split, and n of the single product
+MAX_OUT = 16  # complex outputs one thread accumulates (csrc kMaxOut)
+SINGLE_THREADS = 256
+MAX_THREADS = 1024
+SMALL_THREADS = 512  # B9b's instantiation with 128 registers a thread
+MAX_SMEM = 232448  # bytes of shared memory a block may use (227 KB)
+
+LIBRARY = "bailey"  # csrc/bailey.cu
+_P, _I = ctypes.c_void_p, ctypes.c_int
+ENTRY_POINTS = {
+    "fourier_dft_single_c64": [_P] * 6 + [_I] * 4 + [_P],
+    "fourier_dft_two_phase_c64": [_P] * 10 + [_I] * 6 + [_P],
+}
+
+
+def library():
+    """Build (at first use) and load the B9 library."""
+    return build.bind(LIBRARY, ENTRY_POINTS)
+
+
+def groups_of(rows: int) -> int:
+    """Thread groups over `rows` outputs, each owning at most MAX_OUT."""
+    return -(-rows // MAX_OUT)
+
+
+def single_geometry(n: int, tb: Optional[int] = None) -> int:
+    """B9a's tile: the rows a block takes at once (threads over the n
+    outputs of a row in groups of MAX_OUT, SINGLE_THREADS a block)."""
+    tile = SINGLE_THREADS // groups_of(n)
+    return max(1, min(tile, tb)) if tb else tile
+
+
+def two_phase_geometry(n1: int, n2: int, batch: int, sms: int,
+                       tb: Optional[int] = None) -> Tuple[int, int]:
+    """B9b's (transforms a block, threads a block) on a card of `sms`
+    multiprocessors: enough transforms to give about two blocks an SM,
+    within the thread cap (one thread per column and output group of each
+    phase; SMALL_THREADS, where the kernel may use 128 registers a thread,
+    unless one transform needs more) and MAX_SMEM bytes (the padded planes,
+    8 * n2 * (n1 | 1) bytes a transform)."""
+    per = max(n1 * groups_of(n2), n2 * groups_of(n1))
+    cap = SMALL_THREADS if per <= SMALL_THREADS else MAX_THREADS
+    tpb = min(cap // per, MAX_SMEM // (8 * n2 * (n1 | 1)),
+              -(-batch // (2 * sms)))
+    if tb:
+        tpb = min(tpb, tb)
+    tpb = max(1, tpb)
+    return tpb, -(-tpb * per // 32) * 32
+
+
+def _check(re, im, n: int, what: str):
+    """Contiguous f32 (B, n) planes on the CPU or a CUDA device."""
+    two_d = isinstance(re, torch.Tensor) and re.ndim == 2
+    check_planes(re, im, (re.shape[0] if two_d else -1,), what)
+    if re.shape[1] != n:
+        raise ValueError(f"{what} takes (B, {n}) planes, got {tuple(re.shape)}")
+
+
+def _check_table(t, shape, what: str):
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{what} takes a {shape} table, got {tuple(t.shape)}")
+
+
+def mxu_fft_single(re, im, dre, dim, *, tb: Optional[int] = None):
+    """B9a over contiguous planar f32 (B, n) planes, n <= 128; returns new
+    planes. `dre`/`dim`: the (n, n) table, direction and scale folded in."""
+    n = dre.shape[0] if dre.ndim == 2 else -1
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"B9a takes n <= {MAX_N}, got a table of {tuple(dre.shape)}")
+    _check(re, im, n, "B9a")
+    for t in (dre, dim):
+        _check_table(t, (n, n), "B9a")
+    if re.device.type == "cpu":
+        return bailey.xla_fft_single(re, im, dre, dim)
+    check_tables(re.device, dre, dim)
+    out_re = torch.empty_like(re)
+    out_im = torch.empty_like(im)
+    batch = re.shape[0]
+    if batch == 0:
+        return out_re, out_im
+    build.call(library(), "fourier_dft_single_c64", f"B9a at n={n}, B={batch}",
+               re.data_ptr(), im.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
+               dre.data_ptr(), dim.data_ptr(), n, batch, single_geometry(n, tb),
+               re.device.index, stream_of(re))
+    mxu_fft_single.launches += 1
+    return out_re, out_im
+
+
+mxu_fft_single.launches = 0
+
+
+def mxu_fft_two_phase(re, im, d2re, d2im, tre, tim, d1re, d1im, *,
+                      tb: Optional[int] = None):
+    """B9b over contiguous planar f32 (B, n) planes, n = n1*n2; returns new
+    planes in natural order. Tables: D_n2 (n2, n2), the split twiddle T
+    (n2, n1) and D_n1 (n1, n1), direction and scale folded in."""
+    if tre.ndim != 2:
+        raise ValueError(f"B9b takes an (n2, n1) twiddle, got {tuple(tre.shape)}")
+    n2, n1 = tre.shape
+    if not (1 <= n1 <= MAX_N and 1 <= n2 <= MAX_N):
+        raise ValueError(f"B9b takes n1, n2 <= {MAX_N}, got ({n1}, {n2})")
+    n = n1 * n2
+    _check(re, im, n, "B9b")
+    for t, shape in ((d2re, (n2, n2)), (d2im, (n2, n2)), (tim, (n2, n1)),
+                     (d1re, (n1, n1)), (d1im, (n1, n1))):
+        _check_table(t, shape, "B9b")
+    if re.device.type == "cpu":
+        return bailey.reference_two_phase(re, im, d2re, d2im, tre, tim, d1re, d1im)
+    check_tables(re.device, d2re, d2im, tre, tim, d1re, d1im)
+    out_re = torch.empty_like(re)
+    out_im = torch.empty_like(im)
+    batch = re.shape[0]
+    if batch == 0:
+        return out_re, out_im
+    sms = torch.cuda.get_device_properties(re.device).multi_processor_count
+    tpb, threads = two_phase_geometry(n1, n2, batch, sms, tb)
+    build.call(library(), "fourier_dft_two_phase_c64",
+               f"B9b at n={n} ({n1}, {n2}), B={batch}",
+               re.data_ptr(), im.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
+               d2re.data_ptr(), d2im.data_ptr(), tre.data_ptr(), tim.data_ptr(),
+               d1re.data_ptr(), d1im.data_ptr(), n1, n2, batch, tpb, threads,
+               re.device.index, stream_of(re))
+    mxu_fft_two_phase.launches += 1
+    return out_re, out_im
+
+
+mxu_fft_two_phase.launches = 0

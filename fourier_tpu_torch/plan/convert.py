@@ -29,7 +29,7 @@ from fourier_tpu_torch.plan.base import FftPlan, resolve_device
 from fourier_tpu_torch.plan.bluestein import BluesteinPlan
 from fourier_tpu_torch.plan.bluestein_fused import VpuBluesteinPlan
 from fourier_tpu_torch.plan.four_step_local import FourStepLocalPlan
-from fourier_tpu_torch.plan.mxu import MxuFftPlan, check_impl
+from fourier_tpu_torch.plan.mxu import MxuFftPlan
 from fourier_tpu_torch.plan.vpu import VpuFftPlan
 from fourier_tpu_torch.precision import (DdSplitPow2Plan, DdSplitRadixPlan,
                                          VpuDdBluesteinPlan, VpuDdFftPlan)
@@ -153,10 +153,9 @@ def _build(node, leaves, device) -> FftPlan:
         return BluesteinPlan(size, torch.complex128, inner, *tables,
                              device=device)
     if name == "MxuFftPlan":
-        size, n1, n2, _dtype, _interpret, _tb, impl = aux
-        check_impl(impl)
+        size, n1, n2, _dtype, _interpret, tb, impl = aux
         fwd, inv = (_tree(c, leaves) for c in node["children"])
-        return MxuFftPlan(size, n1, n2, fwd, inv, device)
+        return MxuFftPlan(size, n1, n2, fwd, inv, device, impl=impl, tb=tb)
     if name == "VpuBluesteinPlan":
         size, m_inner = aux[:2]
         stage_tables, chirps_fwd, chirps_inv = (_tree(c, leaves)

@@ -1,16 +1,22 @@
 """MXU-family plan: the DFT as dense matrix products.
 
-Port of ``fourier_tpu/plan/mxu.py`` with ``impl="xla"``, the JAX package's
-default: the products of :mod:`fourier_tpu_torch.ops.bailey` (``torch.einsum``
-in full float32) over planar tables computed in f64 at plan time and
-narrowed to f32. A size with a split n = n1*n2 (n1, n2 <= 128) runs two
-phases, the split twiddle folded into the second table; small sizes, and
-any size the planner sends to :meth:`MxuFftPlan.create_direct`, run one
-full-size DFT product. The mode scale is folded into the last table at call
-time.
+Port of ``fourier_tpu/plan/mxu.py``: planar tables computed in f64 at plan
+time and narrowed to f32. A size with a split n = n1*n2 (n1, n2 <= 128) runs
+two phases; small sizes, and any size the planner sends to
+:meth:`MxuFftPlan.create_direct`, run one full-size DFT product. The mode
+scale is folded into the last table at call time. Three forms, as in the JAX
+package (``impl``):
 
-``impl="xla_packed"`` and ``impl="pallas"`` (the Pallas kernels B9 of
-``ops/pallas/bailey.py``) are not ported: they raise ``NotImplementedError``.
+* ``"xla"`` (the planner's): the ``torch.einsum`` forms of
+  :mod:`fourier_tpu_torch.ops.bailey` in full float32, the split twiddle
+  folded into the phase-B table. Below ``DIRECT_SINGLE_MAX`` a split whose
+  factors are both < 64 becomes one full-size product.
+* ``"xla_packed"``: phase B block-diagonal packed (``packed_phase_b``), in
+  ``torch.einsum``; a single-phase plan (n <= 128) runs kernel B9a.
+* ``"pallas"``: the fused kernels of :mod:`fourier_tpu_torch.ops.cuda.bailey`,
+  B9a for n <= 128 and B9b for a split, on a CUDA device; their plain
+  versions on the CPU. ``tb``, the TPU kernels' batch tile, caps the
+  transforms a block takes; no result depends on it.
 """
 
 from __future__ import annotations
@@ -21,24 +27,14 @@ import numpy as np
 import torch
 
 from fourier_tpu_torch.ops import bailey
-from fourier_tpu_torch.ops.dft_matrix import (choose_split, dft_matrix,
-                                              folded_phase_b)
+from fourier_tpu_torch.ops.cuda import bailey as bailey_kernels
+from fourier_tpu_torch.ops.dft_matrix import (choose_pack, choose_split,
+                                              dft_matrix, folded_phase_b,
+                                              packed_phase_b, split_twiddle)
 from fourier_tpu_torch.plan.base import FftPlan, complex_dtype, resolve_device
 from fourier_tpu_torch.transform import Transform
 
-_IMPL_NOT_PORTED = {
-    "xla_packed": "ROADMAP.md queue 1 item 4 (block-diagonal packed phase B)",
-    "pallas": "ROADMAP.md queue 2, kernel B9 (ops/pallas/bailey.py)",
-}
-
-
-def check_impl(impl: str) -> None:
-    """Raise unless `impl` is the ported ``"xla"`` form."""
-    if impl in _IMPL_NOT_PORTED:
-        raise NotImplementedError(
-            f"MxuFftPlan impl={impl!r} is not ported yet: {_IMPL_NOT_PORTED[impl]}")
-    if impl != "xla":
-        raise ValueError(f"unknown MxuFftPlan impl {impl!r}")
+IMPLS = ("xla", "xla_packed", "pallas")
 
 
 def _planar(a: np.ndarray):
@@ -52,21 +48,27 @@ class MxuFftPlan(FftPlan):
 
     # The JAX package's measured crossover, kept so that both packages plan
     # the same family per size: below it one full-size DFT product replaces
-    # a two-phase split whose factors are both < 64, and the planner prefers
-    # it to Bluestein for split-less sizes (ROADMAP.md: to re-measure on the
-    # H100).
+    # an "xla" two-phase split whose factors are both < 64, and the planner
+    # prefers it to Bluestein for split-less sizes (ROADMAP.md: to re-measure
+    # on the H100).
     DIRECT_SINGLE_MAX = 768
 
     def __init__(self, size: int, n1: int, n2: int, fwd_tables, inv_tables,
-                 device):
-        """`fwd_tables`/`inv_tables`: f32 numpy arrays (dre, dim) of the
-        (n, n) DFT matrix when n1 == 1, else (d2re, d2im, dfre, dfim): the
-        (n2, n2) D_n2 and the (n2, n1, n1) folded phase-B table."""
+                 device, *, impl: str = "xla", tb: Optional[int] = None):
+        """`fwd_tables`/`inv_tables`: f32 numpy arrays, (dre, dim) of the
+        (n, n) DFT matrix when n1 == 1, else D_n2 (n2, n2) and then, by
+        `impl`: the (n2, n1, n1) folded phase-B table ("xla"), the
+        (n2/pack, pack*n1, pack*n1) packed one ("xla_packed"), or the
+        (n2, n1) split twiddle and D_n1 (n1, n1) ("pallas")."""
         super().__init__()
+        if impl not in IMPLS:
+            raise ValueError(f"unknown MxuFftPlan impl {impl!r}; use one of {IMPLS}")
         self.size = int(size)
         self.n1 = int(n1)
         self.n2 = int(n2)
         self.dtype = torch.complex64
+        self.impl = impl
+        self.tb = None if tb is None else int(tb)
         for name, tables in (("fwd", fwd_tables), ("inv", inv_tables)):
             pairs = [tables[i:i + 2] for i in range(0, len(tables), 2)]
             for j, (tr, ti) in enumerate(pairs):
@@ -81,29 +83,36 @@ class MxuFftPlan(FftPlan):
 
     @classmethod
     def create(cls, size: int, dtype=torch.complex64, device="cuda", *,
-               impl: str = "xla") -> Optional["MxuFftPlan"]:
+               impl: str = "xla", tb: Optional[int] = None) -> Optional["MxuFftPlan"]:
         """Plan `size`, or None for c128 and when no n1*n2 (<= 128 each)
         split exists."""
         if size < 1:
             raise ValueError(f"FFT size must be >= 1, got {size}")
-        check_impl(impl)
         if complex_dtype(dtype) != torch.complex64:
             return None
         split = choose_split(size)
         if split is None:
             return None
         n1, n2 = split
-        if n1 != 1 and size <= cls.DIRECT_SINGLE_MAX and max(n1, n2) < 64:
+        if (n1 != 1 and size <= cls.DIRECT_SINGLE_MAX and max(n1, n2) < 64
+                and impl == "xla"):
             n1, n2 = 1, size
         tables = {}
         for fwd in (True, False):
             if n1 == 1:
                 tables[fwd] = _planar(dft_matrix(size, fwd))
+                continue
+            d2 = _planar(dft_matrix(n2, fwd))
+            if impl == "xla":
+                tables[fwd] = d2 + _planar(folded_phase_b(n1, n2, fwd))
+            elif impl == "xla_packed":
+                tables[fwd] = d2 + _planar(
+                    packed_phase_b(n1, n2, fwd, choose_pack(n1, n2)))
             else:
-                tables[fwd] = (_planar(dft_matrix(n2, fwd))
-                               + _planar(folded_phase_b(n1, n2, fwd)))
+                tables[fwd] = (d2 + _planar(split_twiddle(n1, n2, fwd))
+                               + _planar(dft_matrix(n1, fwd)))
         return cls(size, n1, n2, tables[True], tables[False],
-                   resolve_device(device))
+                   resolve_device(device), impl=impl, tb=tb)
 
     @classmethod
     def create_direct(cls, size: int, dtype=torch.complex64,
@@ -133,15 +142,28 @@ class MxuFftPlan(FftPlan):
         scale = self._scale_for(transform)
         if scale is not None:
             lre, lim = lre * scale, lim * scale
+        if self.impl != "xla" and (self.single_phase or self.impl == "pallas"):
+            # The kernels read contiguous (B, n) rows; a batch-minor call
+            # comes here as transposed views.
+            re2, im2 = re2.contiguous(), im2.contiguous()
         if self.single_phase:
-            ore, oim = bailey.xla_fft_single(re2, im2, lre, lim)
+            if self.impl == "xla":
+                ore, oim = bailey.xla_fft_single(re2, im2, lre, lim)
+            else:
+                ore, oim = bailey_kernels.mxu_fft_single(re2, im2, lre, lim,
+                                                         tb=self.tb)
+        elif self.impl == "pallas":
+            (d2re, d2im), (tre, tim) = head
+            ore, oim = bailey_kernels.mxu_fft_two_phase(
+                re2, im2, d2re, d2im, tre, tim, lre, lim, tb=self.tb)
         else:
             (d2re, d2im), = head
-            ore, oim = bailey.xla_fft_two_phase_folded(re2, im2, d2re, d2im,
-                                                       lre, lim)
+            form = (bailey.xla_fft_two_phase_folded if self.impl == "xla"
+                    else bailey.xla_fft_two_phase_packed)
+            ore, oim = form(re2, im2, d2re, d2im, lre, lim)
         return (ore.reshape(*batch_shape, self.size),
                 oim.reshape(*batch_shape, self.size))
 
     def extra_repr(self) -> str:
-        return (f"size={self.size}, split=({self.n1},{self.n2}), impl=xla, "
-                f"family={self.family}")
+        return (f"size={self.size}, split=({self.n1},{self.n2}), impl={self.impl}, "
+                f"tb={self.tb}, family={self.family}")

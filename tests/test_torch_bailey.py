@@ -1,0 +1,367 @@
+"""Kernels B9a and B9b of the port (the DFT as dense complex products).
+
+* The packed phase-B tables and ``choose_pack`` bitwise equal to the JAX
+  package's.
+* The plain B9a (``xla_fft_single``) and B9b (``reference_two_phase``), which
+  the wrappers run on the CPU, against the JAX ``mxu_fft_single`` /
+  ``mxu_fft_two_phase(..., interpret=True)`` and ``reference_two_phase`` on
+  the same seeded planes and tables, rel-L2 <= 2e-6 (``test_torch_mxu.py``'s
+  gate); the packed einsum form against the JAX one.
+* numpy transliterations of the CUDA kernels (``csrc/bailey.cu``): the
+  launch geometry of ``ops/cuda/bailey.py``, the thread-to-output mapping,
+  the chunked fma sums, B9b's G' written over M in the padded shared planes;
+  against ``np.fft`` at rel-L2 <= 1e-6 (the card's gate), with and without a
+  ``tb`` cap.
+* The geometry within the kernels' limits for every split, the C constants
+  and entry points as the wrapper binds them, the wrapper contract.
+* ``cuda``-marked tests hold each kernel against its plain version where a
+  card is present.
+"""
+
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fourier_tpu.ops import dft_matrix as jdm
+from fourier_tpu.ops.pallas import bailey as jb
+
+from fourier_tpu_torch import Transform
+from fourier_tpu_torch.ops import bailey
+from fourier_tpu_torch.ops import dft_matrix as dm
+from fourier_tpu_torch.ops.cuda import bailey as kb
+from fourier_tpu_torch.ops.cuda import build
+from fourier_tpu_torch.plan import MxuFftPlan
+
+RNG_SEED = 0xB9
+REL_L2 = 2e-6
+CARD_GATE = 1e-6
+CHUNK = 16  # csrc/bailey.cu kChunk
+H100_SMS = 132  # the multiprocessors of an H100 SXM
+SINGLE_SIZES = (1, 2, 7, 16, 64, 100, 125, 127, 128)
+SPLITS = {129: (3, 43), 243: (9, 27), 250: (10, 25), 384: (16, 24),
+          1000: (25, 40), 2048: (32, 64), 4096: (64, 64), 16129: (127, 127),
+          16384: (128, 128)}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run `pytest -m cuda` where a card is")
+    return torch.device("cuda", 0)
+
+
+def _planes(shape, rng):
+    return (rng.standard_normal(shape).astype(np.float32),
+            rng.standard_normal(shape).astype(np.float32))
+
+
+def _rel(got, want):
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def _np_want(xr, xi, mode):
+    x = xr.astype(np.float64) + 1j * xi
+    n = x.shape[-1]
+    want = np.fft.fft(x, axis=-1) if mode.is_forward else np.fft.ifft(x, axis=-1) * n
+    return want * (mode.scale(n) or 1.0)
+
+
+def _tables(plan, mode):
+    """The plan's planar numpy tables of `mode`, the scale folded into the
+    last, as the plan hands them to the kernels."""
+    tabs = [(r.numpy(), i.numpy()) for r, i in plan.tables(mode.is_forward)]
+    s = np.float32(mode.scale(plan.size) or 1.0)
+    if mode.scale(plan.size) is not None:
+        tabs[-1] = (tabs[-1][0] * s, tabs[-1][1] * s)
+    return tabs
+
+
+@pytest.mark.parametrize("n1,n2", [(3, 43), (10, 25), (16, 24), (25, 40), (64, 64),
+                                   (7, 128)])
+def test_packed_tables_bitwise_equal_jax(n1, n2):
+    pack = dm.choose_pack(n1, n2)
+    assert pack == jdm.choose_pack(n1, n2)
+    assert dm.choose_pack(n1, n2, 64) == jdm.choose_pack(n1, n2, 64)
+    for fwd in (True, False):
+        np.testing.assert_array_equal(dm.packed_phase_b(n1, n2, fwd, pack),
+                                      jdm.packed_phase_b(n1, n2, fwd, pack))
+        np.testing.assert_array_equal(dm.packed_phase_b(n1, n2, fwd, pack, 0.25),
+                                      jdm.packed_phase_b(n1, n2, fwd, pack, 0.25))
+
+
+@pytest.mark.parametrize("n", SINGLE_SIZES)
+def test_plain_b9a_matches_pallas_interpret(n):
+    rng = np.random.default_rng(RNG_SEED + n)
+    xr, xi = _planes((5, n), rng)
+    plan = MxuFftPlan.create(n, impl="pallas", device="cpu")
+    for mode in (Transform.FFT, Transform.SQRT_SCALED_IFFT):
+        (dre, dim), = _tables(plan, mode)
+        want = jb.mxu_fft_single(jnp.asarray(xr), jnp.asarray(xi), jnp.asarray(dre),
+                                 jnp.asarray(dim), tb=8, interpret=True)
+        want = np.asarray(want[0]) + 1j * np.asarray(want[1])
+        got = kb.mxu_fft_single(torch.as_tensor(xr), torch.as_tensor(xi),
+                                torch.as_tensor(dre), torch.as_tensor(dim))
+        got = got[0].numpy() + 1j * got[1].numpy()
+        assert got.shape == (5, n)
+        assert _rel(got, want) <= REL_L2, (n, mode)
+        assert _rel(got, _np_want(xr, xi, mode)) <= CARD_GATE, (n, mode)
+
+
+@pytest.mark.parametrize("n", [129, 243, 250, 384, 1000])
+def test_plain_b9b_matches_pallas_interpret(n):
+    rng = np.random.default_rng(RNG_SEED + n)
+    xr, xi = _planes((3, n), rng)
+    plan = MxuFftPlan.create(n, impl="pallas", device="cpu")
+    assert (plan.n1, plan.n2) == SPLITS[n]
+    for mode in (Transform.FFT, Transform.IFFT):
+        tabs = [t for pair in _tables(plan, mode) for t in pair]
+        jx = (jnp.asarray(xr), jnp.asarray(xi))
+        jt = [jnp.asarray(t) for t in tabs]
+        want = jb.mxu_fft_two_phase(*jx, *jt, tb=2, interpret=True)
+        want = np.asarray(want[0]) + 1j * np.asarray(want[1])
+        ref = jb.reference_two_phase(*jx, *jt)
+        ref = np.asarray(ref[0]) + 1j * np.asarray(ref[1])
+        got = kb.mxu_fft_two_phase(torch.as_tensor(xr), torch.as_tensor(xi),
+                                   *(torch.as_tensor(t) for t in tabs))
+        got = got[0].numpy() + 1j * got[1].numpy()
+        assert _rel(got, want) <= REL_L2, (n, mode)
+        assert _rel(got, ref) <= REL_L2, (n, mode)
+        assert _rel(got, _np_want(xr, xi, mode)) <= CARD_GATE, (n, mode)
+
+
+@pytest.mark.parametrize("n", [243, 1000, 4096])
+def test_packed_form_matches_jax(n):
+    rng = np.random.default_rng(RNG_SEED + n)
+    xr, xi = _planes((3, n), rng)
+    plan = MxuFftPlan.create(n, impl="xla_packed", device="cpu")
+    tabs = [t for pair in _tables(plan, Transform.SQRT_SCALED_FFT) for t in pair]
+    want = jb.xla_fft_two_phase_packed(jnp.asarray(xr), jnp.asarray(xi),
+                                       *(jnp.asarray(t) for t in tabs))
+    got = bailey.xla_fft_two_phase_packed(torch.as_tensor(xr), torch.as_tensor(xi),
+                                          *(torch.as_tensor(t) for t in tabs))
+    want = np.asarray(want[0]) + 1j * np.asarray(want[1])
+    assert _rel(got[0].numpy() + 1j * got[1].numpy(), want) <= REL_L2
+
+
+# -- numpy transliterations of csrc/bailey.cu ---------------------------------
+
+
+def _fma(a, b, c):
+    """fmaf: the exact product plus c, rounded once to f32."""
+    return (np.asarray(a, np.float64) * b + c).astype(np.float32)
+
+
+def _outputs(g, groups, rows):
+    return np.where(g < groups, (rows - g + groups - 1) // groups, 0)
+
+
+def _contract(dr, di, K, first, step, nout, x_at):
+    """The kernel's `contract`, one lane per entry of `first`: outputs
+    j < nout of row first + step*j, summed in chunks of CHUNK terms."""
+    j = np.arange(kb.MAX_OUT)[:, None]
+    valid = j < nout[None, :]
+    rows = np.where(valid, first[None, :] + step * j, 0)
+    tr = np.zeros(rows.shape, np.float32)
+    ti = np.zeros(rows.shape, np.float32)
+    for k0 in range(0, K, CHUNK):
+        cr = np.zeros(rows.shape, np.float32)
+        ci = np.zeros(rows.shape, np.float32)
+        for k in range(k0, min(k0 + CHUNK, K)):
+            xr, xi = x_at(k)
+            d_r, d_i = dr[rows, k], di[rows, k]
+            cr = _fma(d_r, xr, cr)
+            cr = _fma(-d_i, xi, cr)
+            ci = _fma(d_r, xi, ci)
+            ci = _fma(d_i, xr, ci)
+        tr, ti = tr + cr, ti + ci
+    return tr, ti, valid, rows
+
+
+def _emulate_b9a(xr, xi, d, tb=None):
+    b, n = xr.shape
+    tile, groups = kb.single_geometry(n, tb), kb.groups_of(n)
+    tid = np.arange(kb.SINGLE_THREADS)
+    t, g = tid % tile, tid // tile
+    out = np.zeros((b, n), np.complex128)
+    for t0 in range(0, b, tile):  # the tiles of the persistent blocks
+        rows = min(tile, b - t0)
+        nout = np.where(t < rows, _outputs(g, groups, n), 0)
+        row = t0 + np.minimum(t, rows - 1)
+        tr, ti, valid, ks = _contract(d[0], d[1], n, g, groups, nout,
+                                      lambda k: (xr[row, k], xi[row, k]))
+        rr = np.broadcast_to(row, ks.shape)
+        out[rr[valid], ks[valid]] = tr[valid] + 1j * ti[valid].astype(np.float64)
+    return out
+
+
+def _emulate_b9b(xr, xi, d2, tw, d1, tb=None, sms=H100_SMS):
+    b, n = xr.shape
+    n2, n1 = tw[0].shape
+    tpb, threads = kb.two_phase_geometry(n1, n2, b, sms, tb)
+    ld, plane = n1 | 1, n2 * (n1 | 1)
+    tid = np.arange(threads)
+    out = np.zeros((b, n), np.complex128)
+    for t0 in range(0, b, tpb):  # one block each
+        count = min(tpb, b - t0)
+        sm = [np.zeros(tpb * plane, np.float32) for _ in range(2)]
+        e = np.arange(count * n)
+        t, r = e // n, e % n
+        for s, x in zip(sm, (xr, xi)):
+            s[t * plane + (r // n1) * ld + r % n1] = x[t0:t0 + count].ravel()
+        # Phase A: lane (t, a, g) owns G[t][g + ga*j][a].
+        ga = kb.groups_of(n2)
+        q, g = tid % (tpb * n1), tid // (tpb * n1)
+        ta, a = q // n1, q % n1
+        nout = np.where(ta < count, _outputs(g, ga, n2), 0)
+        tr, ti, valid, k2 = _contract(
+            d2[0], d2[1], n2, g, ga, nout,
+            lambda k: (sm[0][ta * plane + k * ld + a], sm[1][ta * plane + k * ld + a]))
+        # After the barrier: G' = G * T over M.
+        aa = np.broadcast_to(a, k2.shape)
+        at = (np.broadcast_to(ta, k2.shape) * plane + k2 * ld + aa)[valid]
+        wr, wi = tw[0][k2, aa][valid], tw[1][k2, aa][valid]
+        gr, gi = tr[valid], ti[valid]
+        sm[0][at] = _fma(gr, wr, -(gi * wi))
+        sm[1][at] = _fma(gr, wi, gi * wr)
+        # Phase B: lane (t, k2, g) owns O[t][g + gb*j][k2].
+        gb = kb.groups_of(n1)
+        q, g = tid % (tpb * n2), tid // (tpb * n2)
+        tq, kq = q // n2, q % n2
+        nout = np.where(tq < count, _outputs(g, gb, n1), 0)
+        tr, ti, valid, k1 = _contract(
+            d1[0], d1[1], n1, g, gb, nout,
+            lambda k: (sm[0][tq * plane + kq * ld + k], sm[1][tq * plane + kq * ld + k]))
+        rows = np.broadcast_to(t0 + tq, k1.shape)[valid]
+        cols = (k1 * n2 + np.broadcast_to(kq, k1.shape))[valid]
+        out[rows, cols] = tr[valid] + 1j * ti[valid].astype(np.float64)
+    return out
+
+
+@pytest.mark.parametrize("n,b,tb", [(1, 7, None), (7, 7, 4), (100, 5, None),
+                                    (128, 40, None), (128, 7, 4)])
+def test_b9a_algorithm_emulated(n, b, tb):
+    rng = np.random.default_rng(RNG_SEED + n)
+    xr, xi = _planes((b, n), rng)
+    plan = MxuFftPlan.create(n, impl="pallas", device="cpu")
+    for mode in (Transform.FFT, Transform.SQRT_SCALED_IFFT):
+        (d,) = _tables(plan, mode)
+        got = _emulate_b9a(xr, xi, d, tb)
+        assert _rel(got, _np_want(xr, xi, mode)) <= CARD_GATE, (n, mode)
+
+
+# sms=1, a card of one SM, gives these small batches blocks of several
+# transforms.
+@pytest.mark.parametrize("n,b,tb,sms", [
+    (129, 7, None, H100_SMS), (250, 7, 4, H100_SMS), (384, 3, None, H100_SMS),
+    (1000, 5, 2, H100_SMS), (4096, 3, None, H100_SMS), (16384, 2, None, H100_SMS),
+    (129, 7, None, 1), (250, 7, 4, 1), (384, 3, None, 1), (4096, 3, None, 1)])
+def test_b9b_algorithm_emulated(n, b, tb, sms):
+    rng = np.random.default_rng(RNG_SEED + n)
+    xr, xi = _planes((b, n), rng)
+    plan = MxuFftPlan.create(n, impl="pallas", device="cpu")
+    tpb, _ = kb.two_phase_geometry(plan.n1, plan.n2, b, sms, tb)
+    assert tpb > 1 or sms > 1
+    for mode in (Transform.FFT, Transform.IFFT):
+        d2, tw, d1 = _tables(plan, mode)
+        got = _emulate_b9b(xr, xi, d2, tw, d1, tb, sms)
+        want = _np_want(xr, xi, mode)
+        assert _rel(got, want) <= CARD_GATE, (n, mode)
+        plain = bailey.reference_two_phase(
+            torch.as_tensor(xr), torch.as_tensor(xi),
+            *(torch.as_tensor(t) for pair in (d2, tw, d1) for t in pair))
+        assert _rel(got, plain[0].numpy() + 1j * plain[1].numpy()) <= CARD_GATE
+
+
+def test_geometry_within_kernel_limits():
+    """Every split and batch gets a launch csrc/bailey.cu accepts."""
+    for n1 in range(1, kb.MAX_N + 1):
+        for n2 in range(1, kb.MAX_N + 1):
+            for batch, tb, sms in ((1, None, H100_SMS), (1000, None, H100_SMS),
+                                   (65536, None, H100_SMS), (7, 4, H100_SMS),
+                                   (65536, None, 1), (7, 4, 1)):
+                tpb, threads = kb.two_phase_geometry(n1, n2, batch, sms, tb)
+                assert 1 <= tpb and threads <= kb.MAX_THREADS and threads % 32 == 0
+                per = max(n1 * kb.groups_of(n2), n2 * kb.groups_of(n1))
+                assert per > kb.SMALL_THREADS or threads <= kb.SMALL_THREADS
+                assert tpb * n1 * kb.groups_of(n2) <= threads
+                assert tpb * n2 * kb.groups_of(n1) <= threads
+                assert 8 * tpb * n2 * (n1 | 1) <= kb.MAX_SMEM
+                assert tb is None or tpb <= tb
+    for n in range(1, kb.MAX_N + 1):
+        for tb in (None, 4):
+            tile = kb.single_geometry(n, tb)
+            assert tile * kb.groups_of(n) <= kb.SINGLE_THREADS
+            assert 8 * (n * n + tile * (n | 1)) <= kb.MAX_SMEM
+
+
+def test_library_constants_and_entry_points():
+    src = (build.CSRC / f"{kb.LIBRARY}.cu").read_text()
+    for name, value in (("kMaxOut", kb.MAX_OUT), ("kChunk", CHUNK),
+                        ("kSingleThreads", kb.SINGLE_THREADS),
+                        ("kTwoPhaseMaxThreads", kb.MAX_THREADS),
+                        ("kTwoPhaseSmallThreads", kb.SMALL_THREADS),
+                        ("kMaxN", kb.MAX_N), ("kMaxSmem", kb.MAX_SMEM)):
+        assert re.search(rf"\b{name} = {value};", src), name
+    for fn_name, argtypes in [*kb.ENTRY_POINTS.items(),
+                              ("fourier_cuda_error_string", [int])]:
+        m = re.search(rf"\b{fn_name}\(([^)]*)\)\s*{{", src)
+        assert m is not None, fn_name
+        assert len(m.group(1).split(",")) == len(argtypes), fn_name
+    assert "mma" not in src and "wgmma" not in src  # fp32 FMA, no tensor cores
+
+
+def test_wrapper_contract():
+    d = torch.zeros(8, 8)
+    ok = torch.zeros(3, 8)
+    for bad in (torch.zeros(3, 9), torch.zeros(3, 8).double(), torch.zeros(3, 16)[:, ::2],
+                torch.zeros(3, 8, device="meta"), torch.zeros(8)):
+        with pytest.raises((TypeError, ValueError)):
+            kb.mxu_fft_single(bad, bad, d, d)
+    with pytest.raises(ValueError):
+        kb.mxu_fft_single(ok, ok, d, torch.zeros(8, 7))
+    with pytest.raises(ValueError):
+        kb.mxu_fft_single(torch.zeros(3, 129), torch.zeros(3, 129),
+                          torch.zeros(129, 129), torch.zeros(129, 129))
+    n1, n2 = 4, 6
+    tabs = [torch.zeros(n2, n2)] * 2 + [torch.zeros(n2, n1)] * 2 + [torch.zeros(n1, n1)] * 2
+    x = torch.zeros(3, n1 * n2)
+    with pytest.raises(ValueError):
+        kb.mxu_fft_two_phase(torch.zeros(3, 25), torch.zeros(3, 25), *tabs)
+    with pytest.raises(ValueError):
+        kb.mxu_fft_two_phase(x, x, *tabs[:4], torch.zeros(n2, n2), tabs[5])
+    before = (kb.mxu_fft_single.launches, kb.mxu_fft_two_phase.launches)
+    kb.mxu_fft_single(ok, ok, d, d)
+    kb.mxu_fft_two_phase(x, x, *tabs)
+    assert (kb.mxu_fft_single.launches, kb.mxu_fft_two_phase.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [7, 125, 128, 250, 1000, 4096, 16384])
+def test_kernel_matches_plain_on_card(cuda_device, n):
+    plan = MxuFftPlan.create(n, impl="pallas", device="cpu")
+    rng = np.random.default_rng(RNG_SEED + n)
+    xr, xi = _planes((1000, n), rng)
+    re, im = (torch.as_tensor(t, device=cuda_device) for t in (xr, xi))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for mode in Transform:
+            flat = [torch.as_tensor(t, device=cuda_device)
+                    for pair in _tables(plan, mode) for t in pair]
+            kernel = kb.mxu_fft_single if plan.single_phase else kb.mxu_fft_two_phase
+            plain = (bailey.xla_fft_single if plan.single_phase
+                     else bailey.reference_two_phase)
+            before = kernel.launches
+            k = kernel(re, im, *flat)
+            assert kernel.launches == before + 1
+            p = plain(re, im, *flat)
+            got = k[0].cpu().numpy() + 1j * k[1].cpu().numpy()
+            assert _rel(got, p[0].cpu().numpy() + 1j * p[1].cpu().numpy()) <= CARD_GATE
+            assert _rel(got, _np_want(xr, xi, mode)) <= CARD_GATE, (n, mode)
+            for tb in (1, 4):  # no result depends on the batch tile
+                again = kernel(re, im, *flat, tb=tb)
+                assert torch.equal(again[0], k[0]) and torch.equal(again[1], k[1])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False

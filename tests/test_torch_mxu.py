@@ -4,6 +4,10 @@
 * ``MxuFftPlan`` (``impl="xla"``): the port and the JAX plan on the same
   seeded inputs, all 5 modes, rel-L2 <= 2e-6 (``tests/test_mxu.py``'s gate);
   single-phase, direct and two-phase folded splits.
+* Every impl (``"xla"``, ``"xla_packed"``, ``"pallas"``: kernels B9a/B9b,
+  their plain versions on the CPU, the JAX kernels in interpret mode) at
+  the sizes ``chip_smoke.py`` checks the kernels at: equal splits and impl,
+  all 5 modes, both layouts; ``tb=4`` with an odd batch.
 * The products run in full float32 whatever the caller's TF32 setting, and
   the caller's setting is restored afterwards.
 """
@@ -93,11 +97,69 @@ def test_create_domain_and_unported_impls():
     assert direct.single_phase and direct.size == 1013
     with pytest.raises(ValueError):
         MxuFftPlan.create(0, device="cpu")
-    for impl in ("pallas", "xla_packed"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            MxuFftPlan.create(64, impl=impl, device="cpu")
+    for impl in ("pallas", "xla_packed"):  # ported: kernel B9a at n <= 128
+        plan = MxuFftPlan.create(64, impl=impl, device="cpu")
+        assert plan.impl == impl and plan.single_phase and f"impl={impl}" in repr(plan)
     with pytest.raises(ValueError):
         MxuFftPlan.create(64, impl="bogus", device="cpu")
+
+
+IMPL_SIZES = (1, 2, 7, 16, 64, 100, 125, 127, 128,  # B9a
+              129, 243, 250, 384, 1000, 2048, 4096, 16129, 16384)  # B9b
+
+
+@pytest.mark.parametrize("impl", ["xla", "xla_packed", "pallas"])
+@pytest.mark.parametrize("n", IMPL_SIZES)
+def test_mxu_impls_match_jax(n, impl):
+    """MxuFftPlan.create(n, impl=...) in both packages: the same split (the
+    direct single product only for "xla"), the same impl, all 5 modes and
+    both layouts within rel-L2 2e-6."""
+    mine = MxuFftPlan.create(n, impl=impl, device="cpu")
+    ref = JMxuFftPlan.create(n, impl=impl)
+    assert (mine.n1, mine.n2) == (ref.n1, ref.n2)
+    assert mine.impl == ref.impl == impl and f"impl={impl}" in repr(ref)
+    assert f"impl={impl}" in repr(mine)
+    if impl != "xla":
+        assert mine.single_phase == (n <= 128)
+    rng = np.random.default_rng(RNG_SEED + n)
+    x = _rand((3, n), rng)
+    for mode in Transform:
+        want = np.asarray(ref.transform(x, JTransform(int(mode))))
+        got = mine.transform(x, mode)
+        assert got.shape == x.shape and got.dtype == np.complex64
+        assert _rel(got, want) <= REL_L2, (n, impl, mode)
+        bre, bim = mine.transform_planar_bm(torch.as_tensor(x.real.T.copy()),
+                                            torch.as_tensor(x.imag.T.copy()), mode)
+        got = (bre.numpy() + 1j * bim.numpy()).T
+        assert _rel(got, want) <= REL_L2, (n, impl, mode, "bm")
+
+
+@pytest.mark.parametrize("n", [100, 256])
+def test_pallas_tb_with_odd_batch(n):
+    """tb=4 with B=7 (tests/test_mxu.py::test_mxu_odd_batch_padding): the
+    JAX kernel pads the batch to the tile; the port's result is the same."""
+    mine = MxuFftPlan.create(n, impl="pallas", tb=4, device="cpu")
+    ref = JMxuFftPlan.create(n, impl="pallas", tb=4)
+    assert mine.tb == ref.tb == 4 and "tb=4" in repr(mine)
+    rng = np.random.default_rng(RNG_SEED)
+    x = _rand((7, n), rng)
+    for mode in (Transform.FFT, Transform.IFFT):
+        got = mine.transform(x, mode)
+        assert _rel(got, np.asarray(ref.transform(x, JTransform(int(mode))))) <= REL_L2
+        want = np.fft.fft(x.astype(np.complex128)) if mode.is_forward else np.fft.ifft(
+            x.astype(np.complex128))
+        assert _rel(got, want) <= 1e-6
+
+
+@pytest.mark.parametrize("n", [222, 250, 384, 625, 722, 1000])
+def test_direct_switch_only_for_xla(n):
+    """DIRECT_SINGLE_MAX flips small-factor splits to one product for
+    impl="xla" only, as in the JAX package: a pallas or packed plan of 250
+    stays (10, 25)."""
+    for impl in ("xla_packed", "pallas"):
+        mine = MxuFftPlan.create(n, impl=impl, device="cpu")
+        ref = JMxuFftPlan.create(n, impl=impl)
+        assert (mine.n1, mine.n2) == (ref.n1, ref.n2) == dm.choose_split(n)
 
 
 _PRECISION_SETUPS = {

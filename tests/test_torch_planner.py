@@ -87,10 +87,10 @@ def test_vpu_backend_interim_routing():
 @pytest.mark.parametrize("backend", ["mxu", "dd", "measure"])
 def test_unported_backends_raise(backend):
     if backend == "mxu":
-        # The backend is ported; its Pallas kernels (B9) are not.
+        # The backend is ported, and so are its Pallas kernels (B9).
         assert isinstance(tft.create_fft(64, backend="mxu", device="cpu"), MxuFftPlan)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            MxuFftPlan.create(64, impl="pallas", device="cpu")
+        plan = MxuFftPlan.create(64, impl="pallas", device="cpu")
+        assert plan.impl == "pallas" and plan.single_phase
     elif backend == "dd":
         # Ported: the complex128 route; complex64 raises as in the JAX package.
         plan = tft.create_fft(64, torch.complex128, backend="dd", device="cpu")
@@ -326,10 +326,46 @@ def test_load_jax_plan_unported_class_raises(tmp_path):
     save_plan(DdMxuDirectPlan.create(64), str(path))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         load_jax_plan(str(path), device="cpu")
+    # Ported: an xla_packed plan loads as the port's plan of that impl.
     packed = jft.plan.mxu.MxuFftPlan.create(2048, impl="xla_packed")
     save_plan(packed, str(path))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_jax_plan(str(path), device="cpu")
+    loaded = load_jax_plan(str(path), device="cpu")
+    assert isinstance(loaded, MxuFftPlan) and loaded.impl == "xla_packed"
+
+
+def _jax_pallas_inner(m, dt):
+    return jft.plan.mxu.MxuFftPlan.create(m, dt, impl="pallas", tb=4)
+
+
+_MXU_IMPLS = {"pallas_single": (100, "pallas"), "pallas_two_phase": (1000, "pallas"),
+              "packed_single": (64, "xla_packed"), "packed_two_phase": (2048, "xla_packed"),
+              "bluestein_pallas_inner": (73, None)}
+
+
+@pytest.mark.parametrize("kind", sorted(_MXU_IMPLS))
+def test_load_jax_plan_mxu_impls(kind, tmp_path):
+    """Every MxuFftPlan impl of a JAX save_plan file (tables, tb and impl
+    of its aux) loads as the port's plan of that impl, bitwise equal to a
+    freshly built one on the CPU; also as a Bluestein inner."""
+    n, impl = _MXU_IMPLS[kind]
+    if impl is None:
+        ref = jft.BluesteinPlan.create(n, np.complex64, inner_factory=_jax_pallas_inner)
+        own = BluesteinPlan.create(n, inner_factory=lambda m, dt, dev: MxuFftPlan.create(
+            m, dt, dev, impl="pallas", tb=4), device="cpu")
+    else:
+        ref = jft.plan.mxu.MxuFftPlan.create(n, impl=impl, tb=4)
+        own = MxuFftPlan.create(n, impl=impl, tb=4, device="cpu")
+    path = tmp_path / "mxu.npz"
+    save_plan(ref, str(path))
+    loaded = load_jax_plan(str(path), device="cpu")
+    assert type(loaded) is type(own) and repr(loaded) == repr(own)
+    assert "tb=4" in repr(loaded)
+    rng = np.random.default_rng(RNG_SEED + n)
+    x = _rand((3, n), rng)
+    for mode in Transform:
+        np.testing.assert_array_equal(loaded.transform(x, mode), own.transform(x, mode))
+        assert _rel(loaded.transform(x, mode),
+                    np.asarray(ref.transform(x, JTransform(int(mode))))) <= 2e-6
 
 
 @pytest.mark.parametrize("mode", [Transform.FFT, Transform.IFFT])
