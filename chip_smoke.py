@@ -3,11 +3,14 @@
 
     python3 chip_smoke.py
 
-Builds kernels B1-B5 (complex64), B6-B8 (complex128 in native f64) and
-B9a/B9b (the dense DFT products of MxuFftPlan(impl="pallas")) from
-fourier_tpu_torch/csrc with nvcc, three libraries built at once, and holds
-each against its plain PyTorch version and against np.fft, at the listed
-sizes and at every shape the routes below give it. Then it drives the
+Builds kernels B1-B5 (complex64), B4a's paired-block body, B6-B8
+(complex128 in native f64) and B9a/B9b (the dense DFT products of
+MxuFftPlan(impl="pallas")) from fourier_tpu_torch/csrc with nvcc, four
+libraries built at once, checks that the paired-block bodies of B4a and B7
+spill nothing, and holds each kernel against its plain PyTorch version and
+against np.fft, at the listed sizes and at every shape the routes below
+give it (B4a and B7 also at a walk of several tiles a cluster ending on a
+partial group, and B4a on both bodies at the m where they meet). Then it drives the
 main path (the default complex64 1-D transform through create_fft_f32 on
 device="cuda") and the routes of the other sizes the JAX package plans
 differently (fused Bluestein B2, four-step with B3 rows, DFT products), then
@@ -22,7 +25,8 @@ path launched the kernels its plan holds. Last it times the kernels against
 their plain versions and torch.fft, the rfft round trips of the suite's
 rows fused, unfused and through torch.fft, the suite's c128 rows and B9a/B9b
 at three shapes, each beside the least time the card could take for its
-bytes or operations.
+bytes or operations; B4a at 4096x16384 and B7 at 1013x65536 also on their
+stage bodies in the same run.
 Every phase prints its lines;
 any failed check raises, so the exit code is non-zero. The next-to-last
 line is a JSON record of the kernels; the last line is
@@ -98,7 +102,15 @@ B2_TIME = (1013, 65536)
 B3_TIME = (65536, 1024)
 CHAIN_NEW = 32  # chain of the B2/B3 timings
 PLAIN_CHAIN = 4  # shorter chain of the plain versions there
-RF_EVEN = (128, 192, 486, 1024, 4096, 32768)  # B4 at m = n/2
+RF_EVEN = (128, 192, 486, 1024, 2000, 4096, 32768)  # B4 at m = n/2
+# B4a's bodies meet at m = 2048 (the largest paired-block m) and 2160 (the
+# smallest even m the stage body keeps): both are checked there.
+B4A_BOUNDARY = (2048, 2160)
+# (n, B) whose clusters each walk several tiles of B4a's and B7's paired
+# bodies (8 and 4 columns a tile, 66 clusters on an H100) and end on a
+# partial group: B a multiple of the 16-byte chunk (16-byte copies) or not.
+B4A_WALK = ((4096, 1588), (4096, 1589))
+B7_WALK = ((1013, 794), (1013, 795))
 RF_ODD = (769, 1013, 4093)  # B5 at inner 1600, 2048, 8192
 RF_BATCHES = (1, 2, 7, 1000)  # B5's pairing: none, one pair, odd, even
 # The route of the JAX package's RfftPlan(n, np.complex64, backend="vpu"),
@@ -144,7 +156,8 @@ F64_RATE = 34e12
 # complex128: the reference's c128 gate (two f64 results, each near exact).
 DD_GATE = 1e-12
 DD_B6_SIZES = (64, 243, 625, 729, 1000, 1024, 3000, 4096)
-DD_B7_SIZES = (17, 125, 439, 1013)  # inner 64, 256, 1024, 2048
+DD_B7_SIZES = (17, 33, 125, 191, 439, 1013)  # inner 64, 128, ..., 2048
+B7_INNER = (64, 128, 256, 512, 1024, 2048)  # B7's paired-block bodies
 DD_B8_SIZES = (8192, 2187, 3125)  # r = 2, 3, 5
 # The complex128 route of the JAX package on a TPU (its planner's _create_dd
 # with the TPU branch taken), as fourier_tpu_torch.plan.plan_tree gives it; a
@@ -263,11 +276,11 @@ def _rf_route_b(n: int) -> int:
 
 
 def _rfft_route_cases() -> list:
-    """(n, B) of every B4 or B5 call the rfft routes of phase 4c make, then
-    the suite rows phase 5d times."""
+    """(n, B) of every B4 or B5 call the rfft routes of phase 4c make, the
+    suite rows phase 5d times, and B4A_WALK."""
     fused = [(n, _rf_route_b(n)) for n, inner in RFFT_TREES.items()
              if _rfft_kernels(n, inner, "rfft_bm") & {"B4a", "B5a"}]
-    return fused + list(RF_TIME)
+    return fused + list(RF_TIME) + list(B4A_WALK)
 
 
 def _dd_cases(tree, b: int) -> list:
@@ -296,7 +309,7 @@ def _dd_route_cases() -> list:
     for n, inner in DD_RFFT_TREES.items():
         batches = (DD_RFFT_B,) if n % 2 == 0 else (DD_RFFT_B // 2, 1)
         cases += [c for b in batches for c in _dd_cases(inner, b)]
-    return sorted(set(cases))
+    return sorted(set(cases)) + [("B7", n, b) for n, b in B7_WALK]
 
 
 def _b9_route_cases() -> list:
@@ -433,21 +446,36 @@ def main() -> int:
         return ((torch.linalg.norm(k - p) / torch.linalg.norm(p)).item(),
                 (k - p).abs().max().item())
 
-    # 2. Build: the three kernel libraries, one nvcc each, at once.
+    # 2. Build: the four kernel libraries, one nvcc each, at once.
     t0 = time.perf_counter()
-    build.load_all([sv.LIBRARY, dv.LIBRARY, bk.LIBRARY])
+    libraries = (sv.LIBRARY, sv.PAIR_LIBRARY, dv.LIBRARY, bk.LIBRARY)
+    build.load_all(libraries)
     sv.library()
+    sv.pair_library()
     dv.library()
     bk.library()
     print(f"build: fourier_tpu_torch/csrc/{sv.LIBRARY}.cu (B1-B5), "
-          f"{dv.LIBRARY}.cu (B6-B8) and {bk.LIBRARY}.cu (B9a, B9b) in "
+          f"{sv.PAIR_LIBRARY}.cu (B4a's paired-block body), {dv.LIBRARY}.cu "
+          f"(B6-B8) and {bk.LIBRARY}.cu (B9a, B9b) in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    for lib in (sv.LIBRARY, dv.LIBRARY, bk.LIBRARY):
+    pair_kernels = []
+    for lib in libraries:
         kerns, worst = ptxas_usage(build.resource_usage(lib))
         print(f"ptxas ({lib}.cu): " + "; ".join(
             f"{k} {r} registers, spill {st}/{ld} bytes" for k, r, (st, ld) in kerns)
             + f"; the stage functions spill up to {worst[0]}/{worst[1]} bytes "
             "(stores/loads)", flush=True)
+        pair_kernels += [(k, r, sp) for k, r, sp in kerns if "_pair_" in k]
+    spilled = [(k, sp) for k, _, sp in pair_kernels if sp != (0, 0)]
+    n_b4a = sum(1 for m in range(2, sv.PAIR_MAX_M + 1) if sv.rfft_pack_geometry(m))
+    n_b7 = len(B7_INNER)
+    check(len(pair_kernels) == n_b4a + n_b7 and not spilled,
+          f"the paired-block bodies of B4a and B7: {len(pair_kernels)} built, "
+          f"{n_b4a} + {n_b7} expected; spills {spilled}")
+    regs = [r for _, r, _ in pair_kernels]
+    print(f"ptxas (paired-block bodies): {len(pair_kernels)} instantiations (B4a at "
+          f"{n_b4a} m, B7 at {n_b7} M), {min(regs)}-{max(regs)} registers, 0 spill "
+          "bytes", flush=True)
 
     # 3. Kernel against its plain version, and against np.fft on the host.
     worst_plain = worst_host = max_abs = 0.0
@@ -607,6 +635,33 @@ def main() -> int:
               f"abs err {mx}", flush=True)
         max_abs_err.update(mx)
         del plans
+    # B4a's two bodies where they meet: the paired-block body at its largest
+    # m, and the stage body there and at the smallest even m it keeps.
+    worst = [0.0, 0.0]
+    ran = []
+    for m in B4A_BOUNDARY:
+        plan = ftt.RfftPlan(2 * m, device=dev)
+        kw = dict(tables=plan.inner.tables(True), kernel_tables=plan.inner.kernel_fwd,
+                  w=plan.w)
+        x = planes(2 * m, BATCHES[-1])[0]
+        want = sv.vpu_rfft_pack_batch_minor_reference(x, m, kw["tables"], plan.w)
+        bodies = ("pair", "stage") if sv.rfft_pack_geometry(m) else ("stage",)
+        for body in bodies:
+            k = sv.vpu_rfft_pack_batch_minor(x, m, _body=body, **kw)
+            torch.cuda.synchronize()
+            err, mx = vs_plain(k, want)
+            herr = rel_l2(host_cols(*k), rfft_host(x))
+            check(err <= REL_L2_GATE and herr <= REL_L2_GATE,
+                  f"B4a {body} body at m={m}: rel-L2 {err:.3e} vs plain, {herr:.3e} "
+                  f"vs np.fft")
+            worst = [max(worst[0], err), max(worst[1], herr)]
+            max_abs_err["B4a"] = max(max_abs_err["B4a"], mx)
+            ran.append((m, body))
+    check(ran == [(2048, "pair"), (2048, "stage"), (2160, "stage")],
+          f"B4a's bodies meet elsewhere: {ran}")
+    print(f"B4a bodies at their boundary {ran} (B={BATCHES[-1]}): worst rel-L2 "
+          f"{worst[0]:.3e} vs plain, {worst[1]:.3e} vs np.fft (gate {REL_L2_GATE:g})",
+          flush=True)
 
     # 3e. B6, B7 and B8 (complex128 in f64) against their plain versions
     # and np.fft in f64, at the listed sizes and batches in every mode, and
@@ -1222,6 +1277,20 @@ def main() -> int:
     def entry(a, b):
         return plan.transform_planar_bm(a, b, mode)
 
+    def same_run_ab(what, stage, pair, chain):
+        """The stage body against the paired-block body of one kernel on the
+        same input, timed stage, pair, pair, stage (median of REPS each);
+        returns the pair body's two medians."""
+        got = {"stage": [], "pair": []}
+        for body in ("stage", "pair", "pair", "stage"):
+            fn = stage if body == "stage" else pair
+            got[body].append(median_ms(lambda *_: (fn(), None), None, None, chain))
+        print(f"time: {what} A/B, same run: stage body {got['stage'][0]:.4f} / "
+              f"{got['stage'][1]:.4f} ms, paired-block body {got['pair'][0]:.4f} / "
+              f"{got['pair'][1]:.4f} ms (median of {REPS} each, in the order "
+              f"stage, pair, pair, stage) on {card}", flush=True)
+        return got["pair"]
+
     def median_ms(step, a, b, chain=CHAIN):
         """Median over REPS of `chain` dependent calls, ms per call."""
         step(a, b)
@@ -1375,6 +1444,13 @@ def main() -> int:
             print(f"time: rfft n={n} B={b} {what}: {ms:.4f} ms per call "
                   f"(inner {plan_tree(plan)[2]}, median of {REPS}) on {card}",
                   flush=True)
+        if (n, b) == (4096, 16384):
+            kw = dict(tables=plan.inner.tables(True), kernel_tables=plan.inner.kernel_fwd,
+                      w=plan.w)
+            same_run_ab(f"B4a n={n} B={b}",
+                        lambda: sv.vpu_rfft_pack_batch_minor(x, n // 2, _body="stage", **kw),
+                        lambda: sv.vpu_rfft_pack_batch_minor(x, n // 2, _body="pair", **kw),
+                        RF_CHAIN)
         if (n, b) in ((4096, 16384), (1013, 65536)):
             library = {"a": trip["torch.fft.rfft"], "b": trip["torch.fft.irfft"]}
             for k in ("a", "b"):
@@ -1452,6 +1528,12 @@ def main() -> int:
                                if chain else median_ms(kernel, *args, DD_CHAIN))
         rows[f"plain {k}"] = (median_ms(chain(plain), None, None, PLAIN_CHAIN)
                               if chain else median_ms(plain, *args, PLAIN_CHAIN))
+        if k == "B7":
+            bodies = {body: (lambda body=body: dv.vpu_dd_bluestein_batch_minor(
+                re, im, n, st.size, scale, tables=tb,
+                kernel_tables=(st.kernel_fwd, st.kernel_inv), chirps=chirps,
+                _body=body)) for body in ("stage", "pair")}
+            same_run_ab(f"B7 n={n} B={b}", bodies["stage"], bodies["pair"], DD_CHAIN)
         for what, ms in rows.items():
             nb = 32.0 * (args[0].shape[0] if "kernel" in what or "plain" in what
                          else n) * b
@@ -1531,7 +1613,8 @@ def main() -> int:
         ("B1", "B1 fused Stockham c64 (vpu_fft_batch_minor)", 422),
         ("B2", "B2 fused Bluestein c64 (vpu_bluestein_batch_minor)", 881),
         ("B3", "B3 four-step row leg c64 (vpu_fft_four_step_row)", 778),
-        ("B4a", "B4a even-n rfft pack (vpu_rfft_pack_batch_minor)", 529),
+        ("B4a", "B4a even-n rfft pack (vpu_rfft_pack_batch_minor; paired-block "
+         "body, the stage body of stockham_vpu.cu for odd m and m > 2048)", 529),
         ("B4b", "B4b even-n irfft unpack (vpu_irfft_unpack_batch_minor)", 574),
         ("B5a", "B5a odd-n rfft two-for-one (vpu_rfft_odd_pack_batch_minor)", 1029),
         ("B5b", "B5b odd-n irfft two-for-one (vpu_irfft_odd_unpack_batch_minor)",
@@ -1540,7 +1623,8 @@ def main() -> int:
     dd_kernels = (
         ("B6", "B6 fused Stockham c128 f64 (vpu_dd_fft_batch_minor)",
          "stockham_vpu_dd.py:344"),
-        ("B7", "B7 fused Bluestein c128 f64 (vpu_dd_bluestein_batch_minor)",
+        ("B7", "B7 fused Bluestein c128 f64 (vpu_dd_bluestein_batch_minor; "
+         "paired-block body)",
          "stockham_vpu_dd.py:465"),
         ("B8", "B8 split combine c128 f64 (dd_split_combine_batch_minor)",
          "dd_combine.py:58"),
@@ -1549,8 +1633,8 @@ def main() -> int:
         ("B9a", "B9a dense DFT product c64 (mxu_fft_single)", "bailey.py:81"),
         ("B9b", "B9b fused two-phase DFT c64 (mxu_fft_two_phase)", "bailey.py:92"),
     )
-    rows = ([(k, name, sv.LIBRARY, f"stockham_vpu.py:{line}")
-             for k, name, line in kernels]
+    rows = ([(k, name, sv.PAIR_LIBRARY if k == "B4a" else sv.LIBRARY,
+              f"stockham_vpu.py:{line}") for k, name, line in kernels]
             + [(k, name, dv.LIBRARY, where) for k, name, where in dd_kernels]
             + [(k, name, bk.LIBRARY, where) for k, name, where in b9_kernels])
     print(json.dumps({"kernels": [{

@@ -1,0 +1,427 @@
+// Paired-block Stockham engine for NVIDIA Hopper sm_90a: the stage code of
+// the redesigned kernels B4a (rfft_pack_pair.cu, float) and B7
+// (stockham_vpu_dd.cu, double). B1, B2, B3, B4b, B5 and B6 keep the stage
+// code of stockham_stages.cuh; this header reuses its butterflies.
+//
+// The layout. A column group is 32 bytes of a row (8 float or 4 double
+// columns): a copy-only probe on an H100 moved a (2048, 32768) f32 plane in
+// 0.663 ms through 16-byte row runs and in 0.272 ms through 32-byte ones,
+// so no tile reads a run narrower than 32 bytes. A whole M-point column
+// group of 32-byte runs does not fit a block twice over at M = 2048, so two
+// blocks of a thread-block cluster share it: rank 0 holds rows [0, M/2),
+// rank 1 rows [M/2, M). The first radix-2 step runs across the pair, read
+// through distributed shared memory:
+//   rank 0: u[p] = a[p] + b[p],           FFT_{M/2}(u) = X[2k],
+//   rank 1: v[p] = (a[p] - b[p]) * W_M^p, FFT_{M/2}(v) = X[2k + 1],
+// with a the rows of rank 0 and b those of rank 1. After it each block runs
+// an independent M/2-point Stockham transform over its own tile of M/2 rows,
+// so each block holds one tile in each of two buffers: at M = 2048, 2 x 64
+// KiB in f32 (8 columns) and in f64 (4 columns). Where M/2 is smaller, a
+// tile takes several adjacent groups, up to kPairPoints points a thread.
+//
+// Persistent pairs. The grid is as many clusters as fit on the card at
+// once (cudaOccupancyMaxActiveClusters), and cluster c walks the column
+// groups c, c + clusters, ...; while the passes run on one buffer,
+// cp.async brings the next group into the other (16-byte copies, one
+// commit group a tile, cp.async.wait_group 1 before use), so every load of
+// a tile is in flight at once and overlaps the previous tile's passes. A
+// ragged batch (B not a multiple of the 16-byte chunk, or a misaligned
+// pointer) copies element by element instead; columns past B are never
+// copied or stored, and each column's transform reads only its own column.
+//
+// The passes. The M/2-point schedule, fixed at compile time for each M/2 a
+// kernel is built for (pair_radix; pass_schedule in
+// ops/cuda/stockham_vpu.py), takes a power of two in radix-16 passes and
+// one of 8, 4 or 2 (1024 = 16*16*4); other sizes put their radix-3 and -5
+// passes first (960 = 3*5*8*8). A pass is one
+// shared-memory exchange: each thread loads its butterflies' points into
+// registers, the block synchronises, then it butterflies, twiddles and
+// stores them. Every pass is inlined at its radix and stride, with no
+// switch and no division at run time; the tile's columns are a power of
+// two, so indices are shifts. Rows are swizzled inside each 128-byte line
+// (swizzle_row) so that the strided stores of the first passes fall on
+// distinct banks. The schedule is a template argument, not a loop with a
+// switch on the radix: such a loop keeps every radix's code, several times
+// over, in one kernel, and its index arithmetic live across the walk over
+// tiles, and was no faster than the stage body.
+
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+
+#include <algorithm>
+#include <cstddef>
+#include <cstdint>
+
+#include "stockham_stages.cuh"
+
+namespace {
+
+namespace cg = cooperative_groups;
+
+constexpr int kPairPoints = 16;  // points a thread holds in a pass
+constexpr int kPairRunBytes = 32;  // a column group's row run
+
+template <typename T>
+constexpr T kC16 = static_cast<T>(0.92387953251128675613);  // cos(pi/8)
+template <typename T>
+constexpr T kS16 = static_cast<T>(0.38268343236508977173);  // sin(pi/8)
+
+template <typename T>
+__device__ __forceinline__ void cmul(T& r, T& i, T wr, T wi) {
+  const T a = r;
+  r = a * wr - i * wi;
+  i = a * wi + i * wr;
+}
+
+// In-place 16-point DFT, natural order in and out: four radix-4 DFTs over
+// n = 4*n1 + n2 (along n1), the twiddles W_16^(n2*k1), four radix-4 DFTs
+// along n2, and the 4x4 transpose to k = k1 + 4*k2 as a renaming.
+template <bool F, typename T>
+__device__ __forceinline__ void butterfly16(T (&r)[16], T (&i)[16]) {
+#pragma unroll
+  for (int n2 = 0; n2 < 4; ++n2) {
+    b4<F>(r[n2], i[n2], r[4 + n2], i[4 + n2], r[8 + n2], i[8 + n2], r[12 + n2],
+          i[12 + n2]);
+  }
+  // Position 4*k1 + n2 holds A[n2][k1]; W_16^e = cos(2*pi*e/16) + s*i*sin.
+  const T s = F ? static_cast<T>(-1) : static_cast<T>(1);
+  const T c16 = kC16<T>, s16 = kS16<T>, c8 = kC8<T>;
+  cmul(r[5], i[5], c16, s * s16);     // e = 1
+  cmul(r[6], i[6], c8, s * c8);       // e = 2
+  cmul(r[9], i[9], c8, s * c8);       // e = 2
+  cmul(r[7], i[7], s16, s * c16);     // e = 3
+  cmul(r[13], i[13], s16, s * c16);   // e = 3
+  {                                   // e = 4: times s*i
+    const T a = r[10];
+    r[10] = -s * i[10];
+    i[10] = s * a;
+  }
+  cmul(r[11], i[11], -c8, s * c8);    // e = 6
+  cmul(r[14], i[14], -c8, s * c8);    // e = 6
+  cmul(r[15], i[15], -c16, -s * s16);  // e = 9
+#pragma unroll
+  for (int k1 = 0; k1 < 4; ++k1) {
+    b4<F>(r[4 * k1], i[4 * k1], r[4 * k1 + 1], i[4 * k1 + 1], r[4 * k1 + 2],
+          i[4 * k1 + 2], r[4 * k1 + 3], i[4 * k1 + 3]);
+  }
+  T tr[16], ti[16];
+#pragma unroll
+  for (int k1 = 0; k1 < 4; ++k1) {
+#pragma unroll
+    for (int k2 = 0; k2 < 4; ++k2) {
+      tr[k1 + 4 * k2] = r[4 * k1 + k2];
+      ti[k1 + 4 * k2] = i[4 * k1 + k2];
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    r[e] = tr[e];
+    i[e] = ti[e];
+  }
+}
+
+template <int R, bool F, typename T>
+__device__ __forceinline__ void pair_butterfly(T (&r)[R], T (&i)[R]) {
+  if constexpr (R == 16) {
+    butterfly16<F>(r, i);
+  } else {
+    butterfly<R, F>(r, i);
+  }
+}
+
+// The pass schedule of an h-point transform, h = 2^a * 3^b * 5^c with
+// a = 4q + r. A power of two takes q passes of 16 and one of 2^r (none when
+// r = 0). Otherwise b passes of 3 and c of 5 come first, then one of 2^r and
+// q of 16, or 8, 8 and q - 1 of 16 where r = 2: with 16s first or a 4
+// beside the 3s and 5s, ptxas spilled some of B4a's 512-thread bodies
+// (h = 960 at every order tried).
+__host__ __device__ constexpr int pair_exponent(int h, int p) {
+  int e = 0;
+  while (h % p == 0) {
+    h /= p;
+    ++e;
+  }
+  return e;
+}
+
+__host__ __device__ constexpr int pair_npasses(int h) {
+  const int a = pair_exponent(h, 2);
+  return a / 4 + (a % 4 ? 1 : 0) + pair_exponent(h, 3) + pair_exponent(h, 5);
+}
+
+__host__ __device__ constexpr int pair_radix(int h, int s) {
+  const int a = pair_exponent(h, 2), b = pair_exponent(h, 3), c = pair_exponent(h, 5);
+  const int q = a / 4, r = a % 4;
+  if (b + c == 0) return s < q ? 16 : (1 << r);
+  if (s < b) return 3;
+  if (s < b + c) return 5;
+  s -= b + c;
+  if (r == 2 && q > 0) return s < 2 ? 8 : 16;
+  if (r > 0) {
+    if (s == 0) return 1 << r;
+    --s;
+  }
+  return 16;
+}
+
+// Stride (product of the earlier radices) and twiddle-table offset (after
+// the h split twiddles) of pass s.
+__host__ __device__ constexpr int pair_stride(int h, int s) {
+  int v = 1;
+  for (int t = 0; t < s; ++t) v *= pair_radix(h, t);
+  return v;
+}
+
+__host__ __device__ constexpr int pair_tw_off(int h, int s) {
+  int off = h, size = h;
+  for (int t = 0; t < s; ++t) {
+    if (size / pair_radix(h, t) > 1) off += size;
+    size /= pair_radix(h, t);
+  }
+  return off;
+}
+
+// Columns of a tile of h rows: the most 32-byte groups of `itemsize`-byte
+// values whose points `threads` threads cover at kPairPoints each, except
+// that an h that is not a power of two keeps one group where two (64-byte
+// rows) would fit: B4a's body spilled at h = 480 with two, at every pass
+// order tried.
+__host__ __device__ constexpr int pair_cols(int itemsize, int threads, int h) {
+  int c = kPairRunBytes / itemsize;
+  while (2 * h * c <= kPairPoints * threads) c *= 2;
+  if (c * itemsize == 2 * kPairRunBytes && (h & (h - 1)) != 0) c /= 2;
+  return c;
+}
+
+// A block's tile: H rows of pair_cols columns; row r is stored at
+// swizzle_row(r) * cols in each plane.
+template <typename T, int Threads, int H>
+struct PairTile {
+  static constexpr int kRows = H;
+  static constexpr int kCols = pair_cols(static_cast<int>(sizeof(T)), Threads, H);
+  static constexpr int kLogC = pair_exponent(kCols, 2);
+  // log2 of the rows in a 128-byte line: 2 for 32-byte rows, 1 for 64, 0
+  // from 128 bytes up.
+  static constexpr int kRowBytes = kCols * static_cast<int>(sizeof(T));
+  static constexpr int kRplLog = kRowBytes >= 128 ? 0 : (kRowBytes == 64 ? 1 : 2);
+  static_assert(H % (1 << kRplLog) == 0, "rows fill whole lines");
+  static_assert(H * kCols <= kPairPoints * Threads, "threads cover the tile");
+
+  // Row r moves inside its 128-byte line by the XOR of the line index's
+  // 2-bit digits (4 rows a line) or its parity (2 rows a line), so rows 2^t
+  // apart that one warp stores land in distinct positions of their lines.
+  static __device__ __forceinline__ int swizzle_row(int row) {
+    if constexpr (kRplLog == 0) {
+      return row;
+    } else if constexpr (kRplLog == 1) {
+      return row ^ (__popc(row >> 1) & 1);
+    } else {
+      int fold = row >> 2;
+      fold ^= fold >> 8;
+      fold ^= fold >> 4;
+      fold ^= fold >> 2;
+      return row ^ (fold & 3);
+    }
+  }
+
+  static __device__ __forceinline__ int index(int row, int col) {
+    return (swizzle_row(row) << kLogC) + col;
+  }
+};
+
+// threadIdx.x, read where it is used: a read the compiler cannot hoist, so
+// that the index arithmetic of every pass, copy and store is not lifted out
+// of the walk over tiles and kept live (spilled) across it.
+__device__ __forceinline__ int thread_x() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+  return t;
+}
+
+// Default pass hooks: a plane load from the block's own tile, the block
+// barrier, and no store hook.
+template <class Tile, typename T>
+struct TileLoad {
+  const T* sre;
+  const T* sim;
+  __device__ __forceinline__ void operator()(int row, int col, T& re, T& im) const {
+    const int e = Tile::index(row, col);
+    re = sre[e];
+    im = sim[e];
+  }
+};
+
+struct BlockSync {
+  __device__ __forceinline__ void operator()() const { __syncthreads(); }
+};
+
+struct NoHook {
+  template <typename T>
+  __device__ __forceinline__ void operator()(int, int, T&, T&) const {}
+};
+
+// One radix-R Stockham pass over the tile, in place: the input viewed as
+// (R, size/R, Stride) at (k, i, j) is read through `ld` into registers,
+// `sy` synchronises, then each butterfly along k is computed, output k is
+// multiplied by W_size^(i*k) (`twre`/`twim`, unless the pass is the last),
+// passed through `hook` and stored at ((i*R + k)*Stride + j); the pass ends
+// with a block barrier.
+template <int R, int Stride, bool Twiddle, bool F, class Tile, int Threads,
+          typename T, class Ld, class Sy, class Hook>
+__device__ __forceinline__ void pair_pass(T* sre, T* sim,
+                                          const T* __restrict__ twre,
+                                          const T* __restrict__ twim,
+                                          const Ld& ld, const Sy& sy,
+                                          const Hook& hook) {
+  constexpr int kBlk = Tile::kRows / R;
+  constexpr int kButterflies = kBlk << Tile::kLogC;
+  // Butterflies a thread: no more than the tile needs, so a radix-3 or -5
+  // pass over a tile of fewer than kPairPoints * Threads points holds no
+  // idle registers (at most 16 points at radix 16, 8, 4 and 2, 18 and 20 at
+  // 3 and 5).
+  constexpr int NB = (kButterflies + Threads - 1) / Threads;
+  constexpr int kMask = Tile::kCols - 1;
+  const int tid = thread_x();
+  T xr[NB][R], xi[NB][R];
+#pragma unroll
+  for (int q = 0; q < NB; ++q) {
+    const int id = tid + q * Threads;
+    if (id < kButterflies) {
+      const int col = id & kMask, p = id >> Tile::kLogC;
+#pragma unroll
+      for (int k = 0; k < R; ++k) ld(k * kBlk + p, col, xr[q][k], xi[q][k]);
+    }
+  }
+  sy();
+#pragma unroll
+  for (int q = 0; q < NB; ++q) {
+    const int id = tid + q * Threads;
+    if (id < kButterflies) {
+      const int col = id & kMask, p = id >> Tile::kLogC;
+      const int i = p / Stride, j = p - i * Stride;
+      pair_butterfly<R, F>(xr[q], xi[q]);
+      if constexpr (Twiddle) {
+#pragma unroll
+        for (int k = 1; k < R; ++k) {
+          cmul(xr[q][k], xi[q][k], __ldg(twre + i * R + k), __ldg(twim + i * R + k));
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        const int row = (i * R + k) * Stride + j;
+        hook(row, col, xr[q][k], xi[q][k]);
+        const int e = Tile::index(row, col);
+        sre[e] = xr[q][k];
+        sim[e] = xi[q][k];
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// Passes S.. of the tile's H-point transform: the first reads through
+// `ld0` and synchronises with `sy0` (the cross-block split), the last
+// stores through `hook`; the tile is complete when it returns. `twre` and
+// `twim` hold the H split twiddles, then the pass tables.
+template <int S, bool F, class Tile, int Threads, typename T, class Ld0, class Sy0,
+          class Hook>
+__device__ __forceinline__ void pair_passes(T* sre, T* sim,
+                                            const T* __restrict__ twre,
+                                            const T* __restrict__ twim,
+                                            const Ld0& ld0, const Sy0& sy0,
+                                            const Hook& hook) {
+  constexpr int H = Tile::kRows;
+  constexpr int kPasses = pair_npasses(H);
+  static_assert(kPasses >= 2, "the first pass is not the last");
+  if constexpr (S < kPasses) {
+    constexpr int R = pair_radix(H, S), St = pair_stride(H, S);
+    constexpr int off = pair_tw_off(H, S);
+    constexpr bool last = S == kPasses - 1;
+    const TileLoad<Tile, T> ld{sre, sim};
+    if constexpr (S == 0) {
+      pair_pass<R, St, true, F, Tile, Threads>(sre, sim, twre + off, twim + off,
+                                               ld0, sy0, NoHook{});
+    } else if constexpr (last) {
+      pair_pass<R, St, false, F, Tile, Threads>(sre, sim, twre + off, twim + off,
+                                                ld, BlockSync{}, hook);
+    } else {
+      pair_pass<R, St, true, F, Tile, Threads>(sre, sim, twre + off, twim + off,
+                                               ld, BlockSync{}, NoHook{});
+    }
+    pair_passes<S + 1, F, Tile, Threads>(sre, sim, twre, twim, ld0, sy0, hook);
+  }
+}
+
+// cp.async of `Bytes` (16, 8 or 4) from global to shared memory.
+template <int Bytes>
+__device__ __forceinline__ void copy_async(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (Bytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src),
+                 "n"(Bytes));
+  }
+}
+
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void copy_wait_previous() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Host side. True when the caller's geometry is the compiled body's for
+// h = `rows`: `cols` columns a tile, `threads` threads, and `npasses`
+// radices (host memory) equal to pair_radix's.
+template <typename T, int Threads>
+inline bool pair_geometry_matches(int rows, int cols, int threads, int npasses,
+                                  const int* radices) {
+  if (rows < 1 || threads != Threads || npasses != pair_npasses(rows)) {
+    return false;
+  }
+  if (cols != pair_cols(static_cast<int>(sizeof(T)), Threads, rows)) return false;
+  for (int s = 0; s < npasses; ++s) {
+    if (radices[s] != pair_radix(rows, s)) return false;
+  }
+  return true;
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<std::uintptr_t>(p) & 15u) == 0;
+}
+
+// Launch `kern` as clusters of two blocks of `threads` threads with `smem`
+// bytes of dynamic shared memory each, as many clusters as fit on the card
+// at once and at most `ntiles`. Returns a cudaError_t code, 0 on success.
+template <typename... Params, typename... Args>
+int launch_pairs(void (*kern)(Params...), int ntiles, int threads, size_t smem,
+                 int device, void* stream, Args... args) {
+  int err = prepare_launch(kern, smem, device);
+  if (err != 0) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 2;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(2);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (clusters <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  cfg.gridDim = dim3(2 * std::min(clusters, ntiles));
+  e = cudaLaunchKernelEx(&cfg, kern, args...);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace

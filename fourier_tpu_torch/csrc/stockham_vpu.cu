@@ -205,6 +205,13 @@ four_step_row_c64(const float* __restrict__ xre, const float* __restrict__ xim,
 //   (the TPU kernel's row reverse takes only powers of two).
 // - The twiddle w is a planar (2, m) table of exp(-2*pi*i*k/n), f64 at plan
 //   time, narrowed; B4b conjugates it.
+// - B4a's body here (rfft_even_c64<true>) is the kernel for odd m (243, 625,
+//   729, 2187, 3125) and for m above 2048. For every other m the wrapper
+//   launches the paired-block body of rfft_pack_pair.cu: 32-byte row runs
+//   over two blocks of a cluster, persistent, fed by cp.async, its passes
+//   fixed at compile time. At 4096 x 16384 on an H100 80GB HBM3 at 700 W
+//   (chip_smoke.py phase 5d, same run) that body took 0.49 ms, 0.33 of the
+//   0.160 ms byte bound, and this one 0.85 ms, 0.19 of it.
 //
 // Kernels B5a and B5b: the odd-n real transforms, two-for-one, batch-minor.
 //

@@ -16,10 +16,14 @@ Port of ``fourier_tpu/ops/pallas/stockham_vpu.py`` (all of its kernels):
 * B3, the row leg of the four-step transform:
   :func:`vpu_fft_four_step_row_reference` and the wrapper
   :func:`vpu_fft_four_step_row`;
-* B4a/B4b, the even-n real transforms (B1's stages with the Hermitian pack
-  or unpack fused in): :func:`vpu_rfft_pack_batch_minor_reference`,
+* B4a/B4b, the even-n real transforms (an m-point transform with the
+  Hermitian pack or unpack fused in): :func:`vpu_rfft_pack_batch_minor_reference`,
   :func:`vpu_irfft_unpack_batch_minor_reference` and the wrappers
-  :func:`vpu_rfft_pack_batch_minor`, :func:`vpu_irfft_unpack_batch_minor`;
+  :func:`vpu_rfft_pack_batch_minor`, :func:`vpu_irfft_unpack_batch_minor`.
+  B4a runs the paired-block body of ``csrc/rfft_pack_pair.cu`` (its own
+  library) for even m up to 2048 (:func:`rfft_pack_geometry`, with
+  :func:`pass_schedule` and :func:`pair_tables`) and B1's stages for the
+  other m; B4b runs B1's stages;
 * B5a/B5b, the odd-n real transforms (B2's chirp-z with the two-for-one
   separation or recombination fused in):
   :func:`vpu_rfft_odd_pack_batch_minor_reference`,
@@ -28,7 +32,8 @@ Port of ``fourier_tpu/ops/pallas/stockham_vpu.py`` (all of its kernels):
   :func:`vpu_irfft_odd_unpack_batch_minor`. Column j pairs with column
   j + ceil(B/2); an unpaired last column runs against zeros.
 
-The kernels are one library, built from ``csrc/stockham_vpu.cu``.
+The kernels are one library, built from ``csrc/stockham_vpu.cu``, and B4a's
+paired-block body a second, built from ``csrc/rfft_pack_pair.cu``.
 
 Each wrapper runs its plain version for tensors on the CPU, and launches its
 kernel (or raises) for tensors on a CUDA device; it counts its launches in
@@ -44,7 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -72,6 +77,17 @@ BLOCK_POINTS = 8192
 MAX_BLOCK_POINTS = 16384
 MAX_COLS = 32
 RUN_COLS = 8
+# The paired-block bodies (B4a here, B7 in stockham_vpu_dd.py;
+# csrc/stockham_pair.cuh): a tile's row runs are at least PAIR_RUN_BYTES,
+# because on an H100 a copy-only persistent kernel moved a (2048, 32768) f32
+# plane in 0.663 ms through 16-byte runs and in 0.272 ms through 32-byte
+# ones; a thread holds PAIR_POINTS points a pass.
+PAIR_RUN_BYTES = 32
+PAIR_POINTS = 16
+# B4a's paired-block body: 512 threads a block, one compiled body per even m
+# of B1's domain up to 2048 (FOURIER_B4A_PAIR_ROWS in csrc/rfft_pack_pair.cu).
+PAIR_THREADS = 512
+PAIR_MAX_M = 2048
 
 
 def radix_schedule(n: int) -> Optional[List[int]]:
@@ -196,6 +212,90 @@ def launch_geometry(n: int) -> Tuple[int, int]:
     return cols, threads
 
 
+class PairGeometry(NamedTuple):
+    """A paired-block body's launch: each block of a two-block cluster holds
+    `rows` = M/2 rows of `cols` columns (whole `PAIR_RUN_BYTES` groups) in
+    each of two buffers, `smem` bytes in all, with `threads` threads."""
+    rows: int
+    cols: int
+    threads: int
+    smem: int
+
+
+def pass_schedule(h: int) -> Tuple[int, ...]:
+    """The radices of a paired-block body's h-point passes (pair_radix in
+    csrc/stockham_pair.cuh), h = 2^(4q + r) * 3^b * 5^c. A power of two
+    takes q passes of 16 and one of 2^r: 1024 -> (16, 16, 4), 512 ->
+    (16, 16, 2). Otherwise the 3s and 5s come first, then 2^r and q 16s, or
+    8, 8 and q - 1 16s where r = 2: 96 -> (3, 2, 16), 960 -> (3, 5, 8, 8)
+    (the orders that ptxas compiles without spills at 512 threads)."""
+    rest = h
+    a = 0
+    while rest % 2 == 0:
+        rest //= 2
+        a += 1
+    threes = fives = 0
+    while rest % 3 == 0:
+        rest //= 3
+        threes += 1
+    while rest % 5 == 0:
+        rest //= 5
+        fives += 1
+    if rest != 1:
+        raise ValueError(f"{h} is not 2^a * 3^b * 5^c")
+    q, r = divmod(a, 4)
+    if threes + fives == 0:
+        return tuple([16] * q + ([2 ** r] if r else []))
+    pows = [8, 8] + [16] * (q - 1) if r == 2 and q else ([2 ** r] if r else []) + [16] * q
+    return tuple([3] * threes + [5] * fives + pows)
+
+
+def pair_tables(m: int, forward: bool, real=np.float64) -> np.ndarray:
+    """A paired-block body's twiddles for an m-point transform, a planar
+    (2, m/2 + L) array of `real` computed in f64: the cross-block split's
+    W_m^p for p < m/2, then the (size // r, r) tables of every pass of
+    :func:`pass_schedule` (m/2) but the last."""
+    h = m // 2
+    split = stage_twiddles(m, 2, forward)[:, 1]
+    rest = kernel_tables(h, pass_schedule(h), forward, np.float64)
+    return np.concatenate([np.stack([split.real, split.imag]), rest],
+                          axis=1).astype(real)
+
+
+@functools.lru_cache(maxsize=None)
+def pair_device_tables(m: int, forward: bool, dtype: torch.dtype,
+                       device: torch.device) -> torch.Tensor:
+    """:func:`pair_tables` narrowed to `dtype` on `device`, made once per
+    (m, direction, dtype, device) at the first launch."""
+    real = np.float32 if dtype == torch.float32 else np.float64
+    return torch.as_tensor(pair_tables(m, forward, real), device=device)
+
+
+def pair_geometry(m: int, itemsize: int, threads: int) -> PairGeometry:
+    """The tile of a paired-block body at size m (pair_cols in
+    csrc/stockham_pair.cuh): m/2 rows and the widest power-of-two number of
+    PAIR_RUN_BYTES column groups whose points `threads` threads cover at
+    PAIR_POINTS each, one group rather than two where m/2 is not a power of
+    two."""
+    h = m // 2
+    cols = PAIR_RUN_BYTES // itemsize
+    while h * cols * 2 <= PAIR_POINTS * threads:
+        cols *= 2
+    if cols * itemsize == 2 * PAIR_RUN_BYTES and h & (h - 1):
+        cols //= 2
+    return PairGeometry(h, cols, threads, 4 * h * cols * itemsize)
+
+
+def rfft_pack_geometry(m: int) -> Optional[PairGeometry]:
+    """B4a's paired-block launch at m (PAIR_THREADS threads), or None where
+    the stage body stays the kernel: odd m, and m above PAIR_MAX_M, whose
+    tile of 32-byte runs needs more than PAIR_THREADS threads at PAIR_POINTS
+    each (and 1024 threads leave a thread 64 registers)."""
+    if m % 2 or m > PAIR_MAX_M or radix_schedule(m) is None:
+        return None
+    return pair_geometry(m, 4, PAIR_THREADS)
+
+
 def stages_reference(re_t, im_t, schedule: Sequence[int], tables,
                      forward: bool, scale: Optional[float]):
     """The stages of a TPU `schedule` over (n, B) planes with its compact
@@ -263,6 +363,7 @@ def check_tables(device, *tables, dtype=torch.float32):
 
 
 LIBRARY = "stockham_vpu"  # csrc/stockham_vpu.cu
+PAIR_LIBRARY = "rfft_pack_pair"  # csrc/rfft_pack_pair.cu: B4a's paired body
 # The library's C entry points and their argument types.
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ENTRY_POINTS = {
@@ -276,9 +377,19 @@ ENTRY_POINTS = {
 }
 
 
+PAIR_ENTRY_POINTS = {
+    "fourier_rfft_pack_pair_c64": [_P] * 3 + [_I] * 5 + [_P] * 5 + [_I, _P],
+}
+
+
 def library():
     """Build (at first use) and load the kernel library."""
     return build.bind(LIBRARY, ENTRY_POINTS)
+
+
+def pair_library():
+    """Build (at first use) and load B4a's paired-block library."""
+    return build.bind(PAIR_LIBRARY, PAIR_ENTRY_POINTS)
 
 
 def _launch(fn_name: str, what: str, *args) -> None:
@@ -494,14 +605,18 @@ def _check_w(w, m: int, device):
         raise ValueError(f"w must be a (2, {m}) table, got {tuple(w.shape)}")
 
 
-def vpu_rfft_pack_batch_minor(x_t, m: int, *, tables, kernel_tables, w):
+def vpu_rfft_pack_batch_minor(x_t, m: int, *, tables, kernel_tables, w,
+                              _body: Optional[str] = None):
     """B4a over a contiguous real f32 (2m, B) plane; returns new planar
     (m+1, B) spectrum planes.
 
     `tables`: the compact forward stage tables of m as tensors (plain
     version); `kernel_tables`: the forward (2, L) tensor of
-    :func:`make_kernel_tables` for m (kernel); `w`: the (2, m) f32 table of
-    exp(-2*pi*i*k/(2m)); all on the plane's device.
+    :func:`make_kernel_tables` for m (the stage body); `w`: the (2, m) f32
+    table of exp(-2*pi*i*k/(2m)); all on the plane's device. The kernel is
+    the paired-block body where :func:`rfft_pack_geometry` gives one (its
+    tables from :func:`pair_device_tables`), else the stage body; `_body`
+    ("pair" or "stage") forces one, for same-run comparisons.
     """
     check_planes(x_t, x_t, (2 * m,), "B4a")
     _check_w(w, m, x_t.device)
@@ -513,14 +628,31 @@ def vpu_rfft_pack_batch_minor(x_t, m: int, *, tables, kernel_tables, w):
     out_im = torch.empty_like(out_re)
     if batch == 0:
         return out_re, out_im
-    cols, threads = launch_geometry(m)
-    _launch(
-        "fourier_rfft_pack_c64", f"B4a at m={m}, B={batch}",
-        x_t.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
-        m, batch, cols, threads, *_radices(m),
-        kernel_tables[0].data_ptr(), kernel_tables[1].data_ptr(),
-        w[0].data_ptr(), w[1].data_ptr(), x_t.device.index, stream_of(x_t),
-    )
+    geo = rfft_pack_geometry(m)
+    body = _body or ("pair" if geo else "stage")
+    if body == "pair":
+        if geo is None:
+            raise ValueError(f"B4a has no paired-block body at m={m}")
+        tw = pair_device_tables(m, True, torch.float32, x_t.device)
+        build.call(
+            pair_library(), "fourier_rfft_pack_pair_c64",
+            f"B4a (paired blocks) at m={m}, B={batch}",
+            x_t.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
+            m, batch, geo.cols, geo.threads, *radices_arg(pass_schedule(m // 2)),
+            tw[0].data_ptr(), tw[1].data_ptr(),
+            w[0].data_ptr(), w[1].data_ptr(), x_t.device.index, stream_of(x_t),
+        )
+    elif body == "stage":
+        cols, threads = launch_geometry(m)
+        _launch(
+            "fourier_rfft_pack_c64", f"B4a at m={m}, B={batch}",
+            x_t.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
+            m, batch, cols, threads, *_radices(m),
+            kernel_tables[0].data_ptr(), kernel_tables[1].data_ptr(),
+            w[0].data_ptr(), w[1].data_ptr(), x_t.device.index, stream_of(x_t),
+        )
+    else:
+        raise ValueError(f"B4a body {body!r}: 'pair' or 'stage'")
     vpu_rfft_pack_batch_minor.launches += 1
     return out_re, out_im
 

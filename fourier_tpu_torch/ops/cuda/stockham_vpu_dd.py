@@ -14,15 +14,17 @@ planes (re, im) and the kernels are B1's and B2's stage code at double:
   is the plain PyTorch version, :func:`vpu_dd_fft_batch_minor` the kernel's
   wrapper;
 * B7, the fused Bluestein transform: :func:`vpu_dd_bluestein_batch_minor_reference`
-  and the wrapper :func:`vpu_dd_bluestein_batch_minor`.
+  and the wrapper :func:`vpu_dd_bluestein_batch_minor`, which launches the
+  paired-block body of ``csrc/stockham_pair.cuh`` (:func:`bluestein_pair_geometry`,
+  the pass schedule and tables of :mod:`.stockham_vpu`).
 
 The kernels, and B8 of :mod:`.dd_combine`, are one library built from
 ``csrc/stockham_vpu_dd.cu``. Each wrapper runs its plain version for tensors
 on the CPU, and launches its kernel (or raises) for tensors on a CUDA
-device; it counts its launches in its ``launches`` attribute. The kernels run
-:func:`kernel_schedule_dd`, each radix of the TPU schedule split into 8, 4,
-2, 3 and 5, with twiddles from :func:`make_kernel_tables_dd`; no table is
-narrowed.
+device; it counts its launches in its ``launches`` attribute. B6 (and B7's
+stage body, kept for same-run comparisons) run :func:`kernel_schedule_dd`,
+each radix of the TPU schedule split into 8, 4, 2, 3 and 5, with twiddles
+from :func:`make_kernel_tables_dd`; no table is narrowed.
 """
 
 from __future__ import annotations
@@ -36,9 +38,13 @@ import torch
 
 from fourier_tpu_torch.ops.cuda import build
 from fourier_tpu_torch.ops.cuda.stockham_vpu import (POINTS_PER_THREAD,
+                                                     PairGeometry,
                                                      chirp_z_reference,
                                                      check_planes, check_tables,
-                                                     kernel_tables, radices_arg,
+                                                     kernel_tables,
+                                                     pair_device_tables,
+                                                     pair_geometry,
+                                                     pass_schedule, radices_arg,
                                                      scale_arg, split_schedule,
                                                      stage_tables,
                                                      stages_reference,
@@ -57,6 +63,10 @@ F64 = torch.float64
 MAX_THREADS = 512
 BLOCK_POINTS = MAX_THREADS * POINTS_PER_THREAD
 MAX_COLS = 32
+# Threads a block of B7's paired-block body (kPairThreadsDd in the .cu): 16
+# complex f64 points a thread in a pass, 64 32-bit registers of data, with up
+# to 255 registers a thread at one block an SM.
+PAIR_THREADS_DD = 256
 
 
 def radix_schedule_dd(n: int) -> Optional[List[int]]:
@@ -120,6 +130,12 @@ def launch_geometry_dd(n: int) -> Tuple[int, int]:
     return cols, -(-threads // 32) * 32
 
 
+def bluestein_pair_geometry(m: int) -> PairGeometry:
+    """B7's paired-block launch at inner size m (a power of two, 64..2048):
+    m/2 rows, 4 f64 columns a group, groups up to 16 points a thread."""
+    return pair_geometry(m, 8, PAIR_THREADS_DD)
+
+
 def vpu_dd_fft_batch_minor_reference(re_t, im_t, n: int, tables, forward: bool,
                                      scale: Optional[float]):
     """Plain PyTorch B6: the stages of :func:`radix_schedule_dd` over f64
@@ -146,6 +162,7 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 ENTRY_POINTS = {
     "fourier_stockham_c128": [_P] * 4 + [_I] * 5 + [_P] * 3 + [_I, _D, _I, _P],
     "fourier_bluestein_c128": [_P] * 4 + [_I] * 6 + [_P] * 11 + [_D, _I, _P],
+    "fourier_bluestein_pair_c128": [_P] * 4 + [_I] * 6 + [_P] * 11 + [_D, _I, _P],
     "fourier_split_combine_c128": [_P] * 4 + [_I] * 3 + [_P] * 2 + [_I, _D, _I, _P],
 }
 
@@ -196,13 +213,18 @@ vpu_dd_fft_batch_minor.launches = 0
 
 def vpu_dd_bluestein_batch_minor(re_t, im_t, n: int, m: int,
                                  scale: Optional[float], *, tables,
-                                 kernel_tables, chirps):
+                                 kernel_tables, chirps,
+                                 _body: Optional[str] = None):
     """B7 over contiguous planar f64 (n, B) planes; returns new planes.
 
     `tables`: (forward, inverse) compact stage tables for m as tensors
     (plain version); `kernel_tables`: the (forward, inverse) (2, L) tensors
-    of :func:`make_kernel_tables_dd` for m (kernel); `chirps`: the
-    direction-matched (xt, wt, xo); all f64 on the planes' device.
+    of :func:`make_kernel_tables_dd` for m (the stage body); `chirps`: the
+    direction-matched (xt, wt, xo); all f64 on the planes' device. The
+    kernel is the paired-block body, its tables from
+    :func:`~fourier_tpu_torch.ops.cuda.stockham_vpu.pair_device_tables`;
+    `_body="stage"` launches the stage body instead, which nothing else
+    launches, for same-run comparisons.
     """
     check_planes(re_t, im_t, (n,), "B7", F64)
     if re_t.device.type == "cpu":
@@ -214,13 +236,25 @@ def vpu_dd_bluestein_batch_minor(re_t, im_t, n: int, m: int,
     batch = re_t.shape[1]
     if batch == 0:
         return out_re, out_im
-    cols, threads = launch_geometry_dd(m)
-    kf, ki = kernel_tables
+    body = _body or "pair"
+    if body == "pair":
+        fn, what = "fourier_bluestein_pair_c128", "B7 (paired blocks)"
+        geo = bluestein_pair_geometry(m)
+        cols, threads, schedule = geo.cols, geo.threads, pass_schedule(m // 2)
+        kf, ki = (pair_device_tables(m, fwd, F64, re_t.device)
+                  for fwd in (True, False))
+    elif body == "stage":
+        fn, what = "fourier_bluestein_c128", "B7"
+        cols, threads = launch_geometry_dd(m)
+        schedule = kernel_schedule_dd(m)
+        kf, ki = kernel_tables
+    else:
+        raise ValueError(f"B7 body {body!r}: 'pair' or 'stage'")
     xt, wt, xo = chirps
     launch(
-        "fourier_bluestein_c128", f"B7 at n={n}, M={m}, B={batch}",
+        fn, f"{what} at n={n}, M={m}, B={batch}",
         re_t.data_ptr(), im_t.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
-        n, m, batch, cols, threads, *radices_arg(kernel_schedule_dd(m)),
+        n, m, batch, cols, threads, *radices_arg(schedule),
         kf[0].data_ptr(), kf[1].data_ptr(), ki[0].data_ptr(), ki[1].data_ptr(),
         xt[0].data_ptr(), xt[1].data_ptr(), wt[0].data_ptr(), wt[1].data_ptr(),
         xo[0].data_ptr(), xo[1].data_ptr(),

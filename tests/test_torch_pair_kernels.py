@@ -1,0 +1,454 @@
+"""The paired-block bodies of kernels B4a and B7 (csrc/stockham_pair.cuh).
+
+The CUDA kernels run only on a card. Here a numpy transliteration of each
+body's order of operations is held against ``np.fft`` and against the
+unchanged plain versions (``vpu_rfft_pack_batch_minor_reference``,
+``vpu_dd_bluestein_batch_minor_reference``): the two blocks of a cluster,
+each holding half the rows of a tile in rows swizzled inside their 128-byte
+lines; the cross-block radix-2 split on the first pass's read; the passes of
+``pass_schedule`` with the tables of ``pair_tables`` (narrowed to f32 for
+B4a); B4a's even/odd rows copied into the re/im planes and the pack read
+from each block's own rows; B7's chirp on the first read, w on the last
+forward store and the output chirp on the final store; the persistent walk
+of the clusters over column groups, ending on a ragged group. Columns past
+B and rows never copied are NaN in the emulated shared memory, so a read of
+either would show. Gates: rel-L2 1e-6 (c64), 1e-12 (c128).
+
+The launch geometry and schedules are checked over each body's whole
+domain, with the m at which B4a keeps its stage body.
+"""
+
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from fourier_tpu_torch import Transform
+from fourier_tpu_torch.ops.cuda import stockham_vpu as sv
+from fourier_tpu_torch.ops.cuda import stockham_vpu_dd as dv
+from fourier_tpu_torch.precision import VpuDdBluesteinPlan
+from fourier_tpu_torch.rfft import RfftPlan
+
+RNG_SEED = 0xB4A7
+C64_GATE = 1e-6
+C128_GATE = 1e-12
+BATCHES = (1, 7, 1000)
+# Clusters of the emulated walk: 1000 columns in groups of 8 are 125 tiles,
+# four rounds of 40 clusters, the last ragged.
+CLUSTERS = 40
+SMEM_PER_BLOCK = 232448  # bytes of shared memory a block may take on an H100
+
+B1_DOMAIN = [m for m in range(64, 16385) if sv.radix_schedule(m) is not None]
+B4A_PAIR = [m for m in B1_DOMAIN if sv.rfft_pack_geometry(m) is not None]
+B7_INNER = (64, 128, 256, 512, 1024, 2048)
+
+
+def _rel(got, want):
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def _cplx(t):
+    t = np.asarray(t, np.float64)
+    return t[0] + 1j * t[1]
+
+
+def _rpl_log(cols, itemsize):
+    """log2 of the rows in a 128-byte line (PairTile::kRplLog)."""
+    row_bytes = cols * itemsize
+    return 0 if row_bytes >= 128 else (1 if row_bytes == 64 else 2)
+
+
+def _swizzle(row, rpl_log):
+    """swizzle_row: the row moves inside its line by the XOR of the line's
+    2-bit digits (4 rows a line) or its parity (2 rows a line)."""
+    row = np.asarray(row)
+    if rpl_log == 0:
+        return row
+    line = row >> rpl_log
+    if rpl_log == 2:
+        g = line ^ (line >> 8)
+        g = g ^ (g >> 4)
+        g = g ^ (g >> 2)
+        return row ^ (g & 3)
+    parity = np.zeros_like(line)
+    for bit in range(16):
+        parity ^= (line >> bit) & 1
+    return row ^ parity
+
+
+def _offsets(h, schedule):
+    """(radix, stride, table offset) of each pass (pair_stride,
+    pair_tw_off)."""
+    out, size, stride, off = [], h, 1, h
+    for r in schedule:
+        out.append((r, stride, off))
+        if size // r > 1:
+            off += size
+        size //= r
+        stride *= r
+    return out
+
+
+def _dft(r, forward):
+    k = np.arange(r)
+    return np.exp((-2j if forward else 2j) * np.pi * np.outer(k, k) / r)
+
+
+class _Pair:
+    """The two blocks of a cluster over T tiles at once: per rank a (T,
+    rows * cols) plane of complex points, row r at _swizzle(r) * cols."""
+
+    def __init__(self, geo, itemsize, tiles):
+        self.rows, self.cols = geo.rows, geo.cols
+        self.rpl = _rpl_log(geo.cols, itemsize)
+        self.bufs = [np.full((tiles, geo.rows * geo.cols), np.nan, complex)
+                     for _ in range(2)]
+
+    def index(self, row, col):
+        return _swizzle(row, self.rpl) * self.cols + col
+
+    def load(self, rank, row, col):
+        return self.bufs[rank][:, self.index(row, col)]
+
+    def passes(self, schedule, table, forward, first_load, hook=None):
+        """pair_passes on both ranks: every pass reads all its points (the
+        first through `first_load`, across the pair) before it stores; the
+        last stores through `hook`."""
+        plan = _offsets(self.rows, schedule)
+        for s, (r, stride, off) in enumerate(plan):
+            last = s == len(plan) - 1
+            blk = self.rows // r
+            ids = np.arange(blk * self.cols)
+            col, p = ids % self.cols, ids // self.cols
+            load = first_load if s == 0 else self.load
+            xs = [np.stack([load(rank, k * blk + p, col) for k in range(r)])
+                  for rank in (0, 1)]
+            i, j = p // stride, p % stride
+            for rank, x in enumerate(xs):
+                y = np.tensordot(_dft(r, forward), x, axes=(1, 0))
+                if not last:
+                    k = np.arange(1, r)[:, None]
+                    y[1:] *= table[off + i[None, :] * r + k][:, None, :]
+                for k in range(r):
+                    row = (i * r + k) * stride + j
+                    v = hook(rank, row, y[k]) if (last and hook) else y[k]
+                    self.bufs[rank][:, self.index(row, col)] = v
+
+
+def _tile_columns(tiles, cols, b):
+    idx = tiles[:, None] * cols + np.arange(cols)
+    return idx, idx < b
+
+
+def emulate_b4a_pair(x, m, w):
+    """rfft_pack_pair_c64 on a real (2m, B) array x, in f64 with the f32
+    tables: the (2m, B) -> (m+1, B) one-sided spectrum."""
+    geo = sv.rfft_pack_geometry(m)
+    h, cols = geo.rows, geo.cols
+    tab = _cplx(sv.pair_tables(m, True, np.float32))
+    wc = _cplx(w)
+    b = x.shape[1]
+    ntiles = -(-b // cols)
+    out = np.full((m + 1, b), np.nan, complex)
+    rows = np.repeat(np.arange(h), cols)
+    cgrid = np.tile(np.arange(cols), h)
+    for t0 in range(0, ntiles, CLUSTERS):
+        tiles = np.arange(t0, min(ntiles, t0 + CLUSTERS))
+        cidx, valid = _tile_columns(tiles, cols, b)
+        pair = _Pair(geo, 4, len(tiles))
+        for rank in (0, 1):
+            src = 2 * (rank * h + rows)
+            col = cidx[:, cgrid]
+            ok = valid[:, cgrid]
+            bc = np.minimum(col, b - 1)
+            z = x[src, bc] + 1j * x[src + 1, bc]  # (T, rows * cols)
+            pair.bufs[rank][:, pair.index(rows, cgrid)] = np.where(ok, z, np.nan)
+
+        def split(rank, row, col):
+            a, c = pair.load(0, row, col), pair.load(1, row, col)
+            return a + c if rank == 0 else (a - c) * tab[row]
+
+        pair.passes(sv.pass_schedule(h), tab, True, split)
+        for rank in (0, 1):
+            j = np.arange(h + 1 if rank == 0 else h)
+            if rank == 0:
+                k, zk = 2 * j, np.where(j == h, 0, j)
+                zm = np.where((j == 0) | (j == h), 0, h - j)
+            else:
+                k, zk, zm = 2 * j + 1, j, h - 1 - j
+            ccol = np.arange(cols)
+            z = pair.bufs[rank][:, pair.index(zk[:, None], ccol)]
+            c = np.conj(pair.bufs[rank][:, pair.index(zm[:, None], ccol)])
+            e, o = 0.5 * (z + c), -0.5j * (z - c)
+            inner = (k < m)[:, None]
+            wk = np.where(k < m, wc[np.minimum(k, m - 1)], 0.0)[:, None]
+            got = np.where(inner, e + wk * o, e - o)  # (T, rows, cols)
+            for ti in range(len(tiles)):
+                out[k[:, None], cidx[ti][valid[ti]][None, :]] = got[ti][:, valid[ti]]
+    return out
+
+
+def emulate_b7_pair(x, n, m, chirps, scale):
+    """bluestein_pair_c128 on a complex (n, B) array x, in f64."""
+    geo = dv.bluestein_pair_geometry(m)
+    h, cols = geo.rows, geo.cols
+    fw = _cplx(sv.pair_tables(m, True))
+    iv = _cplx(sv.pair_tables(m, False))
+    xt, wt, xo = (_cplx(c) for c in chirps)
+    b = x.shape[1]
+    ntiles = -(-b // cols)
+    out = np.full((n, b), np.nan, complex)
+    n0 = (n + 1) // 2  # rank 0 copies input rows [0, n0), rank 1 [n0, n)
+    schedule = sv.pass_schedule(h)
+    for t0 in range(0, ntiles, CLUSTERS):
+        tiles = np.arange(t0, min(ntiles, t0 + CLUSTERS))
+        cidx, valid = _tile_columns(tiles, cols, b)
+        pair = _Pair(geo, 8, len(tiles))
+        for rank, (r0, r1) in enumerate(((0, n0), (n0, n))):
+            rows = np.repeat(np.arange(r0, r1), cols)
+            cgrid = np.tile(np.arange(cols), r1 - r0)
+            col = cidx[:, cgrid]
+            pair.bufs[rank][:, pair.index(rows, cgrid)] = np.where(
+                valid[:, cgrid], x[rows, np.minimum(col, b - 1)], np.nan)
+
+        def chirp_in(rank, row, col):
+            inside = row < n
+            r = np.where(inside, row, 0)
+            a = np.where(r < n0, pair.load(0, r, col), pair.load(1, r, col))
+            v = a * xt[r]
+            if rank == 1:
+                v = v * fw[row]
+            return np.where(inside, v, 0.0)
+
+        def times_w(rank, row, v):
+            return v * wt[2 * row + rank]
+
+        pair.passes(schedule, fw, True, chirp_in, times_w)
+        pair.passes(schedule, iv, False, pair.load)
+        ccol = np.arange(cols)
+        for r0, r1 in ((0, n0), (n0, n)):  # each rank stores its rows
+            p = np.arange(r0, r1)[:, None]
+            e = pair.bufs[0][:, pair.index(p, ccol)]
+            o = pair.bufs[1][:, pair.index(p, ccol)]
+            got = (e + iv[p] * o) * (xo[p] * scale)
+            for ti in range(len(tiles)):
+                out[r0:r1, cidx[ti][valid[ti]]] = got[ti][:, valid[ti]]
+    return out
+
+
+# -- geometry ------------------------------------------------------------------
+
+
+def test_b4a_pair_geometry_over_its_domain():
+    keep = []
+    for m in B1_DOMAIN:
+        geo = sv.rfft_pack_geometry(m)
+        if geo is None:
+            keep.append(m)
+            continue
+        h = m // 2
+        assert geo.rows == h and geo.cols % 8 == 0 and geo.cols & (geo.cols - 1) == 0
+        assert 8 * 4 == sv.PAIR_RUN_BYTES  # a group's run: 8 f32 columns
+        assert geo.smem == 4 * h * geo.cols * 4 <= SMEM_PER_BLOCK
+        assert geo.threads == sv.PAIR_THREADS == 512
+        assert geo.threads * sv.PAIR_POINTS >= h * geo.cols
+        # The widest tile, but one group where two (64-byte rows) would fit
+        # and h is not a power of two.
+        assert geo.threads * sv.PAIR_POINTS < 2 * h * geo.cols or geo.cols == 8
+        assert h % (1 << _rpl_log(geo.cols, 4)) == 0
+        sched = sv.pass_schedule(h)
+        assert np.prod(sched) == h and len(sched) >= 2
+        rows = np.arange(h)
+        assert np.array_equal(np.sort(_swizzle(rows, _rpl_log(geo.cols, 4))), rows)
+    # The stage body stays the kernel for odd m and above m = 2048, where a
+    # tile of 32-byte runs needs more than 512 threads (the double buffer
+    # would fit up to m = 3632: 64 m bytes).
+    assert 64 * 3632 <= SMEM_PER_BLOCK < 64 * 3640
+    assert keep == [m for m in B1_DOMAIN if m % 2 or m > sv.PAIR_MAX_M]
+    assert {243, 625, 729, 2187, 3125, 4096, 8192, 16384} <= set(keep)
+    assert max(B4A_PAIR) == 2048 and min(m for m in keep if m % 2 == 0) == 2160
+    assert sv.rfft_pack_geometry(2048) == sv.PairGeometry(1024, 8, 512, 131072)
+    # One compiled body per size: the kernel file lists exactly these m/2.
+    src = (Path(sv.__file__).parents[2] / "csrc" / "rfft_pack_pair.cu").read_text()
+    block = src[src.index("#define FOURIER_B4A_PAIR_ROWS"):]
+    block = block[:block.index("\n\n")]
+    assert [int(v) for v in re.findall(r"X\((\d+)\)", block)] == [m // 2 for m in B4A_PAIR]
+
+
+def test_b7_pair_geometry_over_its_domain():
+    for m in B7_INNER:
+        geo = dv.bluestein_pair_geometry(m)
+        h = m // 2
+        assert geo.rows == h and geo.cols % 4 == 0 and geo.cols * 8 >= sv.PAIR_RUN_BYTES
+        assert geo.smem == 4 * h * geo.cols * 8 <= SMEM_PER_BLOCK
+        assert geo.threads == dv.PAIR_THREADS_DD
+        assert geo.threads * sv.PAIR_POINTS >= h * geo.cols
+        sched = sv.pass_schedule(h)
+        assert np.prod(sched) == h and set(sched) <= {2, 4, 8, 16}
+    assert dv.bluestein_pair_geometry(2048) == sv.PairGeometry(1024, 4, 256, 131072)
+    assert sv.pass_schedule(1024) == (16, 16, 4) and sv.pass_schedule(512) == (16, 16, 2)
+    assert sv.pass_schedule(96) == (3, 2, 16) and sv.pass_schedule(500) == (5, 5, 5, 4)
+    assert sv.pass_schedule(960) == (3, 5, 8, 8) and sv.pass_schedule(480) == (3, 5, 2, 16)
+    assert sv.rfft_pack_geometry(960).cols == 8 and sv.rfft_pack_geometry(1024).cols == 16
+
+
+def test_pair_library_entry_point():
+    """B4a's paired-block library includes the engine and defines the entry
+    point its wrapper binds with as many parameters; it is built apart from
+    the stage library."""
+    from fourier_tpu_torch.ops.cuda import build
+
+    src = (build.CSRC / f"{sv.PAIR_LIBRARY}.cu").read_text()
+    assert '#include "stockham_pair.cuh"' in src
+    for fn_name, argtypes in [*sv.PAIR_ENTRY_POINTS.items(),
+                              ("fourier_cuda_error_string", [int])]:
+        m = re.search(rf"\b{fn_name}\(([^)]*)\)\s*{{", src)
+        assert m is not None, fn_name
+        assert len(m.group(1).split(",")) == len(argtypes), fn_name
+    assert build.library_path(sv.PAIR_LIBRARY) != build.library_path(sv.LIBRARY)
+
+
+def test_pair_tables():
+    m = 2048
+    tab = _cplx(sv.pair_tables(m, True))
+    p = np.arange(m // 2)
+    assert np.allclose(tab[:m // 2], np.exp(-2j * np.pi * p / m), atol=1e-15)
+    assert np.allclose(_cplx(sv.pair_tables(m, False))[:m // 2],
+                       np.exp(2j * np.pi * p / m), atol=1e-15)
+    assert sv.pair_tables(m, True, np.float32).dtype == np.float32
+
+
+# -- the bodies ------------------------------------------------------------------
+
+
+_PLANS = {}
+
+
+def _rfft_plan(m):
+    if m not in _PLANS:
+        _PLANS[m] = RfftPlan(2 * m, backend="vpu", device="cpu")
+    return _PLANS[m]
+
+
+@pytest.mark.parametrize("m", B4A_PAIR)
+def test_b4a_pair_body_emulated(m):
+    plan = _rfft_plan(m)
+    assert plan.fused and plan.m == m
+    rng = np.random.default_rng(RNG_SEED + m)
+    for b in BATCHES:
+        x = rng.standard_normal((2 * m, b)).astype(np.float32)
+        got = emulate_b4a_pair(x.astype(np.float64), m, plan.w.numpy())
+        assert np.isfinite(got).all(), (m, b)
+        assert _rel(got, np.fft.rfft(x.astype(np.float64), axis=0)) <= C64_GATE, (m, b)
+        pre, pim = sv.vpu_rfft_pack_batch_minor_reference(
+            torch.as_tensor(x), m, plan.inner.tables(True), plan.w)
+        assert _rel(got, pre.double().numpy() + 1j * pim.double().numpy()) <= C64_GATE
+
+
+def _b7_sizes():
+    """(n, M) at the least and the greatest n of each inner size M that
+    plans a VpuDdBluesteinPlan, and n = 1013."""
+    out = []
+    for m in B7_INNER:
+        ns = [n for n in range(m // 4 + 1, m // 2 + 1)
+              if VpuDdBluesteinPlan.create(n, device="cpu") is not None
+              and VpuDdBluesteinPlan.create(n, device="cpu").m_inner == m]
+        out += sorted({(ns[0], m), (ns[-1], m)})
+    return out + [(1013, 2048)]
+
+
+@pytest.mark.parametrize("n,m", _b7_sizes())
+def test_b7_pair_body_emulated(n, m):
+    plan = VpuDdBluesteinPlan.create(n, device="cpu")
+    assert plan.m_inner == m
+    st = plan.stages
+    tables = (st.tables(True), st.tables(False))
+    rng = np.random.default_rng(RNG_SEED + n)
+    for b in BATCHES:
+        x = rng.standard_normal((n, b)) + 1j * rng.standard_normal((n, b))
+        modes = list(Transform) if b == 7 else [Transform.FFT]
+        for mode in modes:
+            scale = mode.scale(n)
+            chirps = plan.chirps(mode.is_forward)
+            got = emulate_b7_pair(x, n, m, [c.numpy() for c in chirps],
+                                  1.0 if scale is None else scale)
+            want = (np.fft.fft(x, axis=0) if mode.is_forward
+                    else np.fft.ifft(x, axis=0) * n) * (scale or 1.0)
+            assert np.isfinite(got).all()
+            assert _rel(got, want) <= C128_GATE, (n, b, mode)
+            pre, pim = dv.vpu_dd_bluestein_batch_minor_reference(
+                torch.as_tensor(x.real.copy()), torch.as_tensor(x.imag.copy()), n, m,
+                tables, chirps, scale)
+            assert _rel(got, pre.numpy() + 1j * pim.numpy()) <= C128_GATE
+
+
+def test_body_argument_on_the_cpu():
+    """On CPU tensors the wrappers run the plain version whatever `_body`
+    asks, and count no launch; an unknown body is refused on the card only."""
+    plan = _rfft_plan(1024)
+    x = torch.randn(2048, 5)
+    kw = dict(tables=plan.inner.tables(True), kernel_tables=plan.inner.kernel_fwd,
+              w=plan.w)
+    before = sv.vpu_rfft_pack_batch_minor.launches
+    want = sv.vpu_rfft_pack_batch_minor_reference(x, 1024, kw["tables"], plan.w)
+    for body in (None, "pair", "stage"):
+        got = sv.vpu_rfft_pack_batch_minor(x, 1024, _body=body, **kw)
+        assert all(torch.equal(g, w_) for g, w_ in zip(got, want))
+    assert sv.vpu_rfft_pack_batch_minor.launches == before
+    bplan = VpuDdBluesteinPlan.create(100, device="cpu")
+    st = bplan.stages
+    re = torch.randn(100, 3, dtype=torch.float64)
+    bkw = dict(tables=(st.tables(True), st.tables(False)),
+               kernel_tables=(st.kernel_fwd, st.kernel_inv), chirps=bplan.chirps(True))
+    before = dv.vpu_dd_bluestein_batch_minor.launches
+    a = dv.vpu_dd_bluestein_batch_minor(re, re, 100, st.size, None, _body="stage", **bkw)
+    c = dv.vpu_dd_bluestein_batch_minor(re, re, 100, st.size, None, **bkw)
+    assert all(torch.equal(u, v) for u, v in zip(a, c))
+    assert dv.vpu_dd_bluestein_batch_minor.launches == before
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run `pytest -m cuda` where a card is")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [64, 96, 1000, 1024, 2048])
+def test_b4a_bodies_agree_on_card(cuda_device, m):
+    plan = RfftPlan(2 * m, device=cuda_device)
+    inner = plan.inner
+    kw = dict(tables=inner.tables(True), kernel_tables=inner.kernel_fwd, w=plan.w)
+    for b in (1, 7, 1000, 1588, 1589):
+        x = torch.randn(2 * m, b, device=cuda_device)
+        pair = sv.vpu_rfft_pack_batch_minor(x, m, _body="pair", **kw)
+        stage = sv.vpu_rfft_pack_batch_minor(x, m, _body="stage", **kw)
+        want = np.fft.rfft(x.double().cpu().numpy(), axis=0)
+        for got in (pair, stage):
+            c = got[0].double().cpu().numpy() + 1j * got[1].double().cpu().numpy()
+            assert _rel(c, want) <= C64_GATE, (m, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [17, 33, 191, 439, 1013])
+def test_b7_bodies_agree_on_card(cuda_device, n):
+    plan = VpuDdBluesteinPlan.create(n, device=cuda_device)
+    st = plan.stages
+    kw = dict(tables=(st.tables(True), st.tables(False)),
+              kernel_tables=(st.kernel_fwd, st.kernel_inv))
+    for b in (1, 7, 794, 795):
+        re = torch.randn(n, b, dtype=torch.float64, device=cuda_device)
+        im = torch.randn(n, b, dtype=torch.float64, device=cuda_device)
+        x = re.cpu().numpy() + 1j * im.cpu().numpy()
+        for mode in Transform:
+            want = (np.fft.fft(x, axis=0) if mode.is_forward
+                    else np.fft.ifft(x, axis=0) * n) * (mode.scale(n) or 1.0)
+            for body in ("pair", "stage"):
+                got = dv.vpu_dd_bluestein_batch_minor(
+                    re, im, n, st.size, mode.scale(n), _body=body,
+                    chirps=plan.chirps(mode.is_forward), **kw)
+                c = got[0].cpu().numpy() + 1j * got[1].cpu().numpy()
+                assert _rel(c, want) <= C128_GATE, (n, b, mode, body)
