@@ -3,14 +3,16 @@
 
     python3 chip_smoke.py
 
-Builds kernels B1-B5 (complex64), B4a's paired-block body, B6-B8
-(complex128 in native f64) and B9a/B9b (the dense DFT products of
-MxuFftPlan(impl="pallas")) from fourier_tpu_torch/csrc with nvcc, four
-libraries built at once, checks that the paired-block bodies of B4a and B7
-spill nothing, and holds each kernel against its plain PyTorch version and
-against np.fft, at the listed sizes and at every shape the routes below
-give it (B4a and B7 also at a walk of several tiles a cluster ending on a
-partial group, and B4a on both bodies at the m where they meet). Then it drives the
+Builds kernels B1-B5 (complex64, the stage bodies), the clustered-block
+bodies of B1, B2 and B4a, B6-B8 (complex128 in native f64) and B9a/B9b (the
+dense DFT products of MxuFftPlan(impl="pallas")) from fourier_tpu_torch/csrc
+with nvcc, six libraries built at once, checks that the clustered-block
+bodies of B1, B2, B4a and B7 spill nothing, and holds each kernel against
+its plain PyTorch version and against np.fft, at the listed sizes and at
+every shape the routes below give it (B1, B2, B4a and B7 also at a walk of
+several tiles a cluster ending on a partial group, and on both bodies at
+the sizes where they meet; B1 and B2 at the routes' shapes in phase 4g,
+from the calls phases 4-4d made). Then it drives the
 main path (the default complex64 1-D transform through create_fft_f32 on
 device="cuda") and the routes of the other sizes the JAX package plans
 differently (fused Bluestein B2, four-step with B3 rows, DFT products), then
@@ -25,8 +27,10 @@ path launched the kernels its plan holds. Last it times the kernels against
 their plain versions and torch.fft, the rfft round trips of the suite's
 rows fused, unfused and through torch.fft, the suite's c128 rows and B9a/B9b
 at three shapes, each beside the least time the card could take for its
-bytes or operations; B4a at 4096x16384 and B7 at 1013x65536 also on their
-stage bodies in the same run.
+bytes or operations; B1 at 4096x16384 and 1024x65536, B2 at 1013x65536, B4a
+at 4096x16384 and B7 at 1013x65536 also on their stage bodies in the same
+run, and B1 and B2 on both bodies at every size with a clustered one
+(phase 5g, the A/B behind the wrappers' choice of body).
 Every phase prints its lines;
 any failed check raises, so the exit code is non-zero. The next-to-last
 line is a JSON record of the kernels; the last line is
@@ -111,6 +115,17 @@ B4A_BOUNDARY = (2048, 2160)
 # partial group: B a multiple of the 16-byte chunk (16-byte copies) or not.
 B4A_WALK = ((4096, 1588), (4096, 1589))
 B7_WALK = ((1013, 794), (1013, 795))
+# B1's bodies meet at 2048 (two-block clusters), 2160 and 4096 (four-block),
+# 3000 and 4320 (the stage body); B2's at M = 2048 (n = 1013, paired) and
+# 2160 (n = 1031) and 1024 (n = 509), the stage body. Both bodies are
+# checked wherever a clustered one exists, at B_BOUNDARY columns.
+B1_BOUNDARY = (2048, 2160, 4096, 3000, 4320)
+B2_BOUNDARY = (1013, 1031, 509)
+B_BOUNDARY = 1000
+B1_WALK = ((4096, 1588), (4096, 1589))  # 199 tiles of 8, 30 clusters of 4
+B2_WALK = B7_WALK
+AB_POINTS = 1 << 26  # points a call in phase 5g's sweep (B = AB_POINTS // n)
+AB_CHAIN = 8
 RF_ODD = (769, 1013, 4093)  # B5 at inner 1600, 2048, 8192
 RF_BATCHES = (1, 2, 7, 1000)  # B5's pairing: none, one pair, odd, even
 # The route of the JAX package's RfftPlan(n, np.complex64, backend="vpu"),
@@ -446,17 +461,21 @@ def main() -> int:
         return ((torch.linalg.norm(k - p) / torch.linalg.norm(p)).item(),
                 (k - p).abs().max().item())
 
-    # 2. Build: the four kernel libraries, one nvcc each, at once.
+    # 2. Build: the six kernel libraries, one nvcc each, at once.
     t0 = time.perf_counter()
-    libraries = (sv.LIBRARY, sv.PAIR_LIBRARY, dv.LIBRARY, bk.LIBRARY)
+    libraries = (sv.LIBRARY, sv.PAIR_LIBRARY, sv.FFT_PAIR_LIBRARY,
+                 sv.BLUESTEIN_PAIR_LIBRARY, dv.LIBRARY, bk.LIBRARY)
     build.load_all(libraries)
     sv.library()
     sv.pair_library()
+    sv.fft_pair_library()
+    sv.bluestein_pair_library()
     dv.library()
     bk.library()
-    print(f"build: fourier_tpu_torch/csrc/{sv.LIBRARY}.cu (B1-B5), "
-          f"{sv.PAIR_LIBRARY}.cu (B4a's paired-block body), {dv.LIBRARY}.cu "
-          f"(B6-B8) and {bk.LIBRARY}.cu (B9a, B9b) in "
+    print(f"build: fourier_tpu_torch/csrc/{sv.LIBRARY}.cu (B1-B5, stage bodies), "
+          f"{sv.PAIR_LIBRARY}.cu (B4a's paired-block bodies), {sv.FFT_PAIR_LIBRARY}.cu "
+          f"(B1's clustered bodies), {sv.BLUESTEIN_PAIR_LIBRARY}.cu (B2's paired "
+          f"bodies), {dv.LIBRARY}.cu (B6-B8) and {bk.LIBRARY}.cu (B9a, B9b) in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     pair_kernels = []
     for lib in libraries:
@@ -469,13 +488,20 @@ def main() -> int:
     spilled = [(k, sp) for k, _, sp in pair_kernels if sp != (0, 0)]
     n_b4a = sum(1 for m in range(2, sv.PAIR_MAX_M + 1) if sv.rfft_pack_geometry(m))
     n_b7 = len(B7_INNER)
-    check(len(pair_kernels) == n_b4a + n_b7 and not spilled,
-          f"the paired-block bodies of B4a and B7: {len(pair_kernels)} built, "
-          f"{n_b4a} + {n_b7} expected; spills {spilled}")
+    n_b1 = sum(1 for n in range(2, 2 * sv.PAIR_MAX_M + 1) if sv.fft_pair_geometry(n))
+    n_b2 = sum(1 for m in range(2, sv.PAIR_MAX_M + 1) if sv.bluestein_pair_geometry_c64(m))
+    check(len(pair_kernels) == n_b4a + n_b7 + n_b1 + n_b2 and not spilled,
+          f"the clustered-block bodies of B4a, B7, B1 and B2: {len(pair_kernels)} "
+          f"built, {n_b4a} + {n_b7} + {n_b1} + {n_b2} expected; spills {spilled}")
     regs = [r for _, r, _ in pair_kernels]
-    print(f"ptxas (paired-block bodies): {len(pair_kernels)} instantiations (B4a at "
-          f"{n_b4a} m, B7 at {n_b7} M), {min(regs)}-{max(regs)} registers, 0 spill "
-          "bytes", flush=True)
+    print(f"ptxas (clustered-block bodies): {len(pair_kernels)} instantiations (B4a at "
+          f"{n_b4a} m, B7 at {n_b7} M, B1 at {n_b1} n, B2 at {n_b2} M), "
+          f"{min(regs)}-{max(regs)} registers, 0 spill bytes", flush=True)
+    clusters = {n: (sv.fft_pair_geometry(n).ranks, sv.fft_pair_clusters(n, dev))
+                for n in (1024, 2048, 2160, 4096)}
+    print("B1 clusters on the card at once (cudaOccupancyMaxActiveClusters): "
+          + ", ".join(f"n={n}: {c} clusters of {r} blocks"
+                      for n, (r, c) in clusters.items()), flush=True)
 
     # 3. Kernel against its plain version, and against np.fft on the host.
     worst_plain = worst_host = max_abs = 0.0
@@ -502,6 +528,68 @@ def main() -> int:
           f"rel-L2 {worst_plain:.3e} vs plain, {worst_host:.3e} vs np.fft "
           f"(gate {REL_L2_GATE:g}); max abs err {max_abs:.3e}", flush=True)
     max_abs_err = {"B1": max_abs}
+
+    def bodies_case(kernel, n, b):
+        """B1 or B2 at (n, B) in every mode on both bodies where a clustered
+        one exists (else the stage body), against the plain version and
+        np.fft: (bodies run, worst rel-L2 vs plain, vs np.fft, max abs)."""
+        if kernel == "B1":
+            plan = ftt.VpuFftPlan.create(n, device=dev)
+            bodies = ("pair", "stage") if sv.fft_pair_geometry(n) else ("stage",)
+        else:
+            plan = ftt.VpuBluesteinPlan.create(n, device=dev)
+            st = plan.stages
+            bodies = (("pair", "stage") if sv.bluestein_pair_geometry_c64(st.size)
+                      else ("stage",))
+        re, im = planes(n, b)
+        x = host_cols(re, im)
+        worst_p = worst_h = mx = 0.0
+        for mode in Transform:
+            fwd, scale = mode.is_forward, mode.scale(n)
+            if kernel == "B1":
+                kw = dict(tables=plan.tables(fwd),
+                          kernel_tables=plan.kernel_fwd if fwd else plan.kernel_inv)
+                p = sv.vpu_fft_batch_minor_reference(re, im, n, kw["tables"], fwd, scale)
+                run = lambda body: sv.vpu_fft_batch_minor(re, im, n, fwd, scale,
+                                                          _body=body, **kw)
+            else:
+                kw = dict(tables=(st.tables(True), st.tables(False)),
+                          kernel_tables=(st.kernel_fwd, st.kernel_inv),
+                          chirps=plan.chirps(fwd))
+                p = sv.vpu_bluestein_batch_minor_reference(
+                    re, im, n, st.size, kw["tables"], kw["chirps"], scale)
+                run = lambda body: sv.vpu_bluestein_batch_minor(
+                    re, im, n, st.size, scale, _body=body, **kw)
+            for body in bodies:
+                k = run(body)
+                torch.cuda.synchronize()
+                err, m_ = vs_plain(k, p)
+                herr = rel_l2(host_cols(*k), np_want(x, mode, n))
+                check(err <= REL_L2_GATE and herr <= REL_L2_GATE,
+                      f"{kernel} {body} body n={n} B={b} {mode.name}: rel-L2 "
+                      f"{err:.3e} vs plain, {herr:.3e} vs np.fft")
+                worst_p, worst_h, mx = max(worst_p, err), max(worst_h, herr), max(mx, m_)
+        return bodies, worst_p, worst_h, mx
+
+    def boundary_checks(kernel, cases, want_pair):
+        """bodies_case over `cases`; the sizes that have a clustered body must
+        be `want_pair`."""
+        worst_p = worst_h = 0.0
+        ran = []
+        for n, b in cases:
+            bodies, e_p, e_h, mx = bodies_case(kernel, n, b)
+            worst_p, worst_h = max(worst_p, e_p), max(worst_h, e_h)
+            max_abs_err[kernel] = max(max_abs_err[kernel], mx)
+            ran.append((n, b, "+".join(bodies)))
+        paired = {n for n, _, bodies in ran if "pair" in bodies}
+        check(paired == set(want_pair), f"{kernel}'s clustered bodies at {sorted(paired)}, "
+              f"expected {sorted(want_pair)}")
+        print(f"{kernel} bodies at their boundaries and walks {ran} x 5 modes pass; worst "
+              f"rel-L2 {worst_p:.3e} vs plain, {worst_h:.3e} vs np.fft (gate "
+              f"{REL_L2_GATE:g})", flush=True)
+
+    boundary_checks("B1", [(n, B_BOUNDARY) for n in B1_BOUNDARY] + list(B1_WALK),
+                    (2048, 2160, 4096))
 
     # 3b. B2 against its plain version and np.fft, at the listed sizes and at
     # the routes' shapes.
@@ -531,6 +619,8 @@ def main() -> int:
           f"worst rel-L2 {worst_plain:.3e} vs plain, {worst_host:.3e} vs np.fft "
           f"(gate {REL_L2_GATE:g}); max abs err {max_abs:.3e}", flush=True)
     max_abs_err["B2"] = max_abs
+    boundary_checks("B2", [(n, B_BOUNDARY) for n in B2_BOUNDARY] + list(B2_WALK),
+                    (1013,))
 
     # 3c. B3 against its plain version on the same (q, p, B) input, and the
     # whole four-step plan (B1 columns, B3 rows) against np.fft, at the listed
@@ -817,6 +907,19 @@ def main() -> int:
         max_abs_err[kernel_id] = mx
     torch.set_float32_matmul_precision(caller_precision)
 
+    # Phases 4-4d note every (n, B) they give B1 and B2 (the plans reach the
+    # wrappers through their class's `run`); phase 4g checks each shape.
+    route_shapes = {"B1": set(), "B2": set()}
+
+    def recording(kernel, fn):
+        def call(re_t, im_t, *args, **kwargs):
+            route_shapes[kernel].add(tuple(re_t.shape))
+            return fn(re_t, im_t, *args, **kwargs)
+        return staticmethod(call)
+
+    ftt.VpuFftPlan.run = recording("B1", sv.vpu_fft_batch_minor)
+    ftt.VpuBluesteinPlan.run = recording("B2", sv.vpu_bluestein_batch_minor)
+
     # 4. Main path through the entry points, with the launch count.
     zero_counts()
     plan = ftt.create_fft_f32(MAIN_N, device="cuda")
@@ -1054,6 +1157,23 @@ def main() -> int:
           f"(n={GRAD_SIZES[0]}) and B5 (n={GRAD_SIZES[1]}) match the unfused branch within "
           f"atol=rtol={GRAD_TOL:g}; worst max|diff|/max|grad| {worst_grad:.3e}",
           flush=True)
+
+    # 4g. B1 and B2 at every (n, B) that phases 4-4d gave them, in every
+    # mode, on both bodies where a clustered one exists.
+    ftt.VpuFftPlan.run = staticmethod(sv.vpu_fft_batch_minor)
+    ftt.VpuBluesteinPlan.run = staticmethod(sv.vpu_bluestein_batch_minor)
+    for kernel in ("B1", "B2"):
+        worst_p = worst_h = 0.0
+        ran = []
+        for n, b in sorted(route_shapes[kernel]):
+            bodies, e_p, e_h, mx = bodies_case(kernel, n, b)
+            worst_p, worst_h = max(worst_p, e_p), max(worst_h, e_h)
+            max_abs_err[kernel] = max(max_abs_err[kernel], mx)
+            ran.append((n, b, "+".join(bodies)))
+        check(ran, f"phases 4-4d gave {kernel} no call")
+        print(f"{kernel} at the routes' shapes {ran} x 5 modes pass; worst rel-L2 "
+              f"{worst_p:.3e} vs plain, {worst_h:.3e} vs np.fft (gate "
+              f"{REL_L2_GATE:g})", flush=True)
 
     # 4e. The complex128 route: the plan trees of create_fft_f64(n) with no
     # device argument (the card by default), then every route through the
@@ -1327,6 +1447,24 @@ def main() -> int:
     kernel_ms = {"B1": (timed["B1 kernel"], timed["plain PyTorch B1"],
                         timed["torch.fft.fft"])}
     bounds = {"B1": bound(16.0 * MAIN_N * MAIN_B, flops, F32_RATE)}
+    print(f"time: B1 n={MAIN_N} B={MAIN_B} kernel {timed['B1 kernel']:.4f} ms, "
+          f"{bounds['B1'][0] / timed['B1 kernel']:.4f} of its bound "
+          f"{bounds['B1'][0]:.4f} ms ({bounds['B1'][1]}) on {card}", flush=True)
+
+    def b1_bodies(n, a, c, scale_, kernel_tables, tables_):
+        """B1's stage and clustered bodies on (a, c), for same_run_ab."""
+        return [lambda body=body: sv.vpu_fft_batch_minor(
+            a, c, n, True, scale_, tables=tables_, kernel_tables=kernel_tables,
+            _body=body) for body in ("stage", "pair")]
+
+    same_run_ab(f"B1 n={MAIN_N} B={MAIN_B}",
+                *b1_bodies(MAIN_N, re, im, scale, plan.kernel_fwd, tables), CHAIN)
+    plan_1k = ftt.create_fft_f32(1024, device="cuda")
+    a1k, c1k = planes(1024, 65536)
+    same_run_ab("B1 n=1024 B=65536", *b1_bodies(1024, a1k, c1k, 1024 ** -0.5,
+                                                  plan_1k.kernel_fwd,
+                                                  plan_1k.tables(True)), CHAIN)
+    del a1k, c1k
 
     # 5b. B2 at n=1013, B=65536: kernel, plain version, torch.fft.
     n, b = B2_TIME
@@ -1357,6 +1495,13 @@ def main() -> int:
               f"{REPS}) on {card}", flush=True)
     kernel_ms["B2"] = tuple(t2.values())
     bounds["B2"] = bound(16.0 * n * b, chirp_z_flops(n, st.size) * b, F32_RATE)
+    print(f"time: B2 n={n} B={b} kernel {kernel_ms['B2'][0]:.4f} ms, "
+          f"{bounds['B2'][0] / kernel_ms['B2'][0]:.4f} of its bound "
+          f"{bounds['B2'][0]:.4f} ms ({bounds['B2'][1]}) on {card}", flush=True)
+    same_run_ab(f"B2 n={n} B={b}", *[
+        lambda body=body: sv.vpu_bluestein_batch_minor(
+            re, im, n, st.size, scale, kernel_tables=(st.kernel_fwd, st.kernel_inv),
+            _body=body, **kw) for body in ("stage", "pair")], CHAIN_NEW)
     del re, im, xc
 
     # 5c. B3 at n=65536, B=1024: kernel alone (its (q, p, B) input), the
@@ -1609,9 +1754,59 @@ def main() -> int:
             bounds[kernel_id] = kb_
         del re, im, xc
 
+    # 5g. Both bodies of B1 and B2 at every size that has a clustered one,
+    # about AB_POINTS points a call, timed stage, pair, pair, stage (median of
+    # REPS each): the same-run A/B behind the sizes at which the wrappers keep
+    # the stage body (B1_STAGE_FASTER, B2_STAGE_FASTER).
+    def ab_sweep(kernel, sizes, stage_faster):
+        slower = []
+        for size in sizes:
+            if kernel == "B1":
+                n = size
+                plan_ = ftt.VpuFftPlan.create(n, device=dev)
+                kw_ = dict(tables=plan_.tables(True), kernel_tables=plan_.kernel_fwd)
+                run = lambda a, c, body: sv.vpu_fft_batch_minor(
+                    a, c, n, True, None, _body=body, **kw_)
+            else:
+                n = size // 2  # the largest n whose inner size is M
+                plan_ = ftt.VpuBluesteinPlan.create(n, device=dev)
+                st_ = plan_.stages
+                check(st_.size == size, f"B2 at n={n} plans M={st_.size}, not {size}")
+                kw_ = dict(tables=(st_.tables(True), st_.tables(False)),
+                           kernel_tables=(st_.kernel_fwd, st_.kernel_inv),
+                           chirps=plan_.chirps(True))
+                run = lambda a, c, body: sv.vpu_bluestein_batch_minor(
+                    a, c, n, size, None, _body=body, **kw_)
+            b = AB_POINTS // n
+            a, c = planes(n, b)
+            got = {"stage": [], "pair": []}
+            for body in ("stage", "pair", "pair", "stage"):
+                got[body].append(median_ms(lambda *_: (run(a, c, body), None), None,
+                                           None, AB_CHAIN))
+            ratio = min(got["stage"]) / max(got["pair"])
+            if ratio < 1.0:
+                slower.append(size)
+            print(f"time: A/B {kernel} {'n' if kernel == 'B1' else 'M'}={size} (n={n}, "
+                  f"B={b}): stage body {got['stage'][0]:.4f} / {got['stage'][1]:.4f} ms, "
+                  f"clustered body {got['pair'][0]:.4f} / {got['pair'][1]:.4f} ms, "
+                  f"slower stage / faster pair {ratio:.3f}; the wrapper runs the "
+                  f"{'stage' if size in stage_faster else 'clustered'} body", flush=True)
+            del a, c
+        print(f"time: A/B {kernel}: the clustered body was the slower at {slower} in "
+              f"this run; the wrapper keeps the stage body at {sorted(stage_faster)} "
+              f"(chain {AB_CHAIN}, median of {REPS}, order stage, pair, pair, stage) "
+              f"on {card}", flush=True)
+
+    ab_sweep("B1", [n for n in range(64, 2 * sv.PAIR_MAX_M + 1)
+                    if sv.fft_pair_geometry(n)], sv.B1_STAGE_FASTER)
+    ab_sweep("B2", [m for m in range(64, sv.PAIR_MAX_M + 1)
+                    if sv.bluestein_pair_geometry_c64(m)], sv.B2_STAGE_FASTER)
+
     kernels = (
-        ("B1", "B1 fused Stockham c64 (vpu_fft_batch_minor)", 422),
-        ("B2", "B2 fused Bluestein c64 (vpu_bluestein_batch_minor)", 881),
+        ("B1", "B1 fused Stockham c64 (vpu_fft_batch_minor; clustered-block body, "
+         "the stage body of stockham_vpu.cu at the other n)", 422),
+        ("B2", "B2 fused Bluestein c64 (vpu_bluestein_batch_minor; paired-block "
+         "body, the stage body of stockham_vpu.cu at the other M)", 881),
         ("B3", "B3 four-step row leg c64 (vpu_fft_four_step_row)", 778),
         ("B4a", "B4a even-n rfft pack (vpu_rfft_pack_batch_minor; paired-block "
          "body, the stage body of stockham_vpu.cu for odd m and m > 2048)", 529),
@@ -1633,7 +1828,9 @@ def main() -> int:
         ("B9a", "B9a dense DFT product c64 (mxu_fft_single)", "bailey.py:81"),
         ("B9b", "B9b fused two-phase DFT c64 (mxu_fft_two_phase)", "bailey.py:92"),
     )
-    rows = ([(k, name, sv.PAIR_LIBRARY if k == "B4a" else sv.LIBRARY,
+    pair_libs = {"B1": sv.FFT_PAIR_LIBRARY, "B2": sv.BLUESTEIN_PAIR_LIBRARY,
+                 "B4a": sv.PAIR_LIBRARY}
+    rows = ([(k, name, pair_libs.get(k, sv.LIBRARY),
               f"stockham_vpu.py:{line}") for k, name, line in kernels]
             + [(k, name, dv.LIBRARY, where) for k, name, where in dd_kernels]
             + [(k, name, bk.LIBRARY, where) for k, name, where in b9_kernels])

@@ -74,7 +74,6 @@ rfft_pack_pair_c64(const float* __restrict__ x, float* __restrict__ yre,
   float* const smem = reinterpret_cast<float*>(smem_raw);
   const size_t bs = static_cast<size_t>(batch);
   const int ntiles = (batch + cols - 1) >> logc;
-  const int clusters = static_cast<int>(gridDim.x >> 1);
   // Rows 2(rank*H + j) and 2(rank*H + j) + 1 of x into the re and im planes
   // of row j, for the columns of tile t below B.
   auto fetch = [&](int t, float* sre, float* sim) {
@@ -112,15 +111,15 @@ rfft_pack_pair_c64(const float* __restrict__ x, float* __restrict__ yre,
     }
   };
   int buf = 0;
-  int t = static_cast<int>(blockIdx.x >> 1);
+  int t = cluster_id();
   if (t < ntiles) fetch(t, smem, smem + plane);
   copy_commit();
-  for (; t < ntiles; t += clusters, buf ^= 1) {
+  for (; t < ntiles; t += cluster_count(), buf ^= 1) {
     float* sre = smem + 2 * buf * plane;
     float* sim = sre + plane;
-    if (t + clusters < ntiles) {
+    if (t + cluster_count() < ntiles) {
       float* next = smem + 2 * (buf ^ 1) * plane;
-      fetch(t + clusters, next, next + plane);
+      fetch(t + cluster_count(), next, next + plane);
     }
     copy_commit();
     copy_wait_previous();
@@ -140,8 +139,8 @@ rfft_pack_pair_c64(const float* __restrict__ x, float* __restrict__ yre,
       }
     };
     auto split_done = [&] { cluster.sync(); };  // the partner read its rows
-    pair_passes<0, true, Tile, kThreads>(sre, sim, twre, twim, split, split_done,
-                                         NoHook{});
+    pair_passes<0, true, Tile, kThreads, H>(sre, sim, twre, twim, split,
+                                            split_done, NoHook{});
     const int b0 = t << logc;
     const int nrows = rank == 0 ? H + 1 : H;
     if (vec) {
@@ -190,23 +189,13 @@ rfft_pack_pair_c64(const float* __restrict__ x, float* __restrict__ yre,
   cluster.sync();  // the partner may still read this block's tile
 }
 
-// The h = m/2 of every body: m even in B1's domain, 64 <= m <= 2048
-// (rfft_pack_geometry in ops/cuda/stockham_vpu.py; tests/test_torch_pair_
-// kernels.py holds the two lists equal).
-#define FOURIER_B4A_PAIR_ROWS(X)                                              \
-  X(32) X(36) X(40) X(48) X(60) X(64) X(72) X(80) X(96) X(100) X(108) X(120)  \
-  X(128) X(144) X(160) X(180) X(192) X(200) X(216) X(240) X(256) X(288)       \
-  X(300) X(320) X(324) X(360) X(384) X(400) X(432) X(480) X(500) X(512)       \
-  X(540) X(576) X(600) X(640) X(648) X(720) X(768) X(800) X(864) X(900)       \
-  X(960) X(972) X(1000) X(1024)
-
 }  // namespace
 
 extern "C" {
 
 // Even-n rfft (B4a), paired-block body: the real (2m, B) input `x`
 // (B = `batch`) into the planar (m+1, B) one-sided spectrum, for the m of
-// FOURIER_B4A_PAIR_ROWS (times 2). `cols`, `threads` and the `npasses`
+// FOURIER_PAIR_ROWS (times 2). `cols`, `threads` and the `npasses`
 // `radices` (host memory) must be the compiled body's tile and schedule of
 // m/2; `twre`/`twim` hold the m/2 forward split twiddles W_m^p, then the
 // concatenated pass tables; `wre`/`wim` the m entries of exp(-2*pi*i*k/(2m)).
@@ -229,7 +218,7 @@ int fourier_rfft_pack_pair_c64(const float* x, float* yre, float* yim, int m,
   case R:                   \
     kern = rfft_pack_pair_c64<R>; \
     break;
-    FOURIER_B4A_PAIR_ROWS(FOURIER_B4A_CASE)
+    FOURIER_PAIR_ROWS(FOURIER_B4A_CASE)
 #undef FOURIER_B4A_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -237,8 +226,9 @@ int fourier_rfft_pack_pair_c64(const float* x, float* yre, float* yim, int m,
   const size_t smem = 4 * sizeof(float) * static_cast<size_t>(h) * cols;
   const int vec = batch % 4 == 0 && aligned16(x) && aligned16(yre) &&
                   aligned16(yim);
-  return launch_pairs(kern, (batch + cols - 1) / cols, threads, smem, device,
-                      stream, x, yre, yim, batch, twre, twim, wre, wim, vec);
+  return launch_clusters<2>(kern, (batch + cols - 1) / cols, threads, smem,
+                            device, stream, x, yre, yim, batch, twre, twim,
+                            wre, wim, vec);
 }
 
 const char* fourier_cuda_error_string(int code) {

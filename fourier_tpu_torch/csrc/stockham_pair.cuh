@@ -1,25 +1,31 @@
-// Paired-block Stockham engine for NVIDIA Hopper sm_90a: the stage code of
-// the redesigned kernels B4a (rfft_pack_pair.cu, float) and B7
-// (stockham_vpu_dd.cu, double). B1, B2, B3, B4b, B5 and B6 keep the stage
-// code of stockham_stages.cuh; this header reuses its butterflies.
+// Clustered-block Stockham engine for NVIDIA Hopper sm_90a: the stage code
+// of the redesigned kernels B1 (fft_pair.cu), B2 (bluestein_pair.cu), B4a
+// (rfft_pack_pair.cu), all float, and B7 (stockham_vpu_dd.cu, double). B3,
+// B4b, B5 and B6, and B1 and B2 at the sizes their clustered bodies do not
+// cover, keep the stage code of stockham_stages.cuh; this header reuses its
+// butterflies.
 //
 // The layout. A column group is 32 bytes of a row (8 float or 4 double
 // columns): a copy-only probe on an H100 moved a (2048, 32768) f32 plane in
 // 0.663 ms through 16-byte row runs and in 0.272 ms through 32-byte ones,
 // so no tile reads a run narrower than 32 bytes. A whole M-point column
-// group of 32-byte runs does not fit a block twice over at M = 2048, so two
-// blocks of a thread-block cluster share it: rank 0 holds rows [0, M/2),
-// rank 1 rows [M/2, M). The first radix-2 step runs across the pair, read
-// through distributed shared memory:
-//   rank 0: u[p] = a[p] + b[p],           FFT_{M/2}(u) = X[2k],
-//   rank 1: v[p] = (a[p] - b[p]) * W_M^p, FFT_{M/2}(v) = X[2k + 1],
-// with a the rows of rank 0 and b those of rank 1. After it each block runs
-// an independent M/2-point Stockham transform over its own tile of M/2 rows,
-// so each block holds one tile in each of two buffers: at M = 2048, 2 x 64
-// KiB in f32 (8 columns) and in f64 (4 columns). Where M/2 is smaller, a
-// tile takes several adjacent groups, up to kPairPoints points a thread.
+// group of 32-byte runs does not fit a block twice over at M = 2048, so the
+// C blocks of a thread-block cluster (C = 2 or 4) share it: rank r holds
+// rows [r*h, (r+1)*h), h = M/C. The first radix-C step runs across the
+// cluster, read through distributed shared memory:
+//   rank r: v_r[p] = W_M^(r*p) * sum_s a_s[p] * W_C^(r*s),
+//           FFT_h(v_r) = X[C*k + r],
+// with a_s the rows of rank s. For C = 2 that is u = a + b on rank 0 and
+// v = (a - b) * W_M^p on rank 1. After it each block runs an independent
+// h-point Stockham transform over its own tile of h rows, so each block
+// holds one tile in each of two buffers: at h = 1024, 2 x 64 KiB in f32 (8
+// columns) and in f64 (4 columns); B1 at n = 4096 takes C = 4 for this h.
+// Where h is smaller, a tile takes several
+// adjacent groups, up to kPairPoints points a thread. The split twiddles
+// W_M^(r*p), r = 1..C-1, are the (C-1)*h entries before the pass tables
+// (pair_tables in ops/cuda/stockham_vpu.py).
 //
-// Persistent pairs. The grid is as many clusters as fit on the card at
+// Persistent clusters. The grid is as many clusters as fit on the card at
 // once (cudaOccupancyMaxActiveClusters), and cluster c walks the column
 // groups c, c + clusters, ...; while the passes run on one buffer,
 // cp.async brings the next group into the other (16-byte copies, one
@@ -28,8 +34,11 @@
 // ragged batch (B not a multiple of the 16-byte chunk, or a misaligned
 // pointer) copies element by element instead; columns past B are never
 // copied or stored, and each column's transform reads only its own column.
+// The first pass reads the partners' buffers; it synchronises the cluster
+// after its reads and before its stores (`sy0`), so no rank overwrites a
+// buffer, or copies the next tile into one, that a partner still reads.
 //
-// The passes. The M/2-point schedule, fixed at compile time for each M/2 a
+// The passes. The h-point schedule, fixed at compile time for each h a
 // kernel is built for (pair_radix; pass_schedule in
 // ops/cuda/stockham_vpu.py), takes a power of two in radix-16 passes and
 // one of 8, 4 or 2 (1024 = 16*16*4); other sizes put their radix-3 and -5
@@ -44,6 +53,15 @@
 // switch on the radix: such a loop keeps every radix's code, several times
 // over, in one kernel, and its index arithmetic live across the walk over
 // tiles, and was no faster than the stage body.
+//
+// Registers. A float body has 512 threads and so at most 128 registers a
+// thread, and the passes of the mixed-radix heights use nearly all of them:
+// any value kept live across the passes can make ptxas spill. So the thread
+// index, the block's rank, the cluster's index and the grid's clusters are
+// read where they are used, through volatile asm (thread_x, cluster_rank,
+// cluster_id, cluster_count), and a partner's tile is read at a 32-bit
+// shared::cluster address made where it is read (cluster_addr,
+// load_cluster), not through 64-bit generic pointers held across the tile.
 
 #pragma once
 
@@ -166,8 +184,8 @@ __host__ __device__ constexpr int pair_radix(int h, int s) {
   return 16;
 }
 
-// Stride (product of the earlier radices) and twiddle-table offset (after
-// the h split twiddles) of pass s.
+// Stride (product of the earlier radices) and offset in the pass tables of
+// pass s.
 __host__ __device__ constexpr int pair_stride(int h, int s) {
   int v = 1;
   for (int t = 0; t < s; ++t) v *= pair_radix(h, t);
@@ -175,7 +193,7 @@ __host__ __device__ constexpr int pair_stride(int h, int s) {
 }
 
 __host__ __device__ constexpr int pair_tw_off(int h, int s) {
-  int off = h, size = h;
+  int off = 0, size = h;
   for (int t = 0; t < s; ++t) {
     if (size / pair_radix(h, t) > 1) off += size;
     size /= pair_radix(h, t);
@@ -324,9 +342,10 @@ __device__ __forceinline__ void pair_pass(T* sre, T* sim,
 // Passes S.. of the tile's H-point transform: the first reads through
 // `ld0` and synchronises with `sy0` (the cross-block split), the last
 // stores through `hook`; the tile is complete when it returns. `twre` and
-// `twim` hold the H split twiddles, then the pass tables.
-template <int S, bool F, class Tile, int Threads, typename T, class Ld0, class Sy0,
-          class Hook>
+// `twim` hold the pass tables from entry Off on (after the split
+// twiddles).
+template <int S, bool F, class Tile, int Threads, int Off, typename T, class Ld0,
+          class Sy0, class Hook>
 __device__ __forceinline__ void pair_passes(T* sre, T* sim,
                                             const T* __restrict__ twre,
                                             const T* __restrict__ twim,
@@ -337,7 +356,7 @@ __device__ __forceinline__ void pair_passes(T* sre, T* sim,
   static_assert(kPasses >= 2, "the first pass is not the last");
   if constexpr (S < kPasses) {
     constexpr int R = pair_radix(H, S), St = pair_stride(H, S);
-    constexpr int off = pair_tw_off(H, S);
+    constexpr int off = Off + pair_tw_off(H, S);
     constexpr bool last = S == kPasses - 1;
     const TileLoad<Tile, T> ld{sre, sim};
     if constexpr (S == 0) {
@@ -350,7 +369,7 @@ __device__ __forceinline__ void pair_passes(T* sre, T* sim,
       pair_pass<R, St, true, F, Tile, Threads>(sre, sim, twre + off, twim + off,
                                                ld, BlockSync{}, NoHook{});
     }
-    pair_passes<S + 1, F, Tile, Threads>(sre, sim, twre, twim, ld0, sy0, hook);
+    pair_passes<S + 1, F, Tile, Threads, Off>(sre, sim, twre, twim, ld0, sy0, hook);
   }
 }
 
@@ -374,6 +393,224 @@ __device__ __forceinline__ void copy_wait_previous() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
+// A 16-byte store of 4 float or 2 double values.
+__device__ __forceinline__ void store16(float* dst, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void store16(double* dst, const double (&v)[2]) {
+  *reinterpret_cast<double2*>(dst) = make_double2(v[0], v[1]);
+}
+
+// The 32-bit shared::cluster address of `p`, a location in this block's
+// shared memory, in the shared memory of the cluster's block `rank` (mapa),
+// and a load from such an address (distributed shared memory). Volatile
+// asm: a load does not move across a cluster barrier, and an address is made
+// where it is read, not kept live (spilled) across the passes.
+__device__ __forceinline__ unsigned cluster_addr(const void* p, int rank) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  unsigned d;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(rank));
+  return d;
+}
+
+__device__ __forceinline__ void load_cluster(unsigned addr, float& v) {
+  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(addr));
+}
+
+__device__ __forceinline__ void load_cluster(unsigned addr, double& v) {
+  asm volatile("ld.shared::cluster.f64 %0, [%1];" : "=d"(v) : "r"(addr));
+}
+
+template <typename T>
+__device__ __forceinline__ T load_cluster(unsigned addr) {
+  T v;
+  load_cluster(addr, v);
+  return v;
+}
+
+// The block's rank in its cluster, the cluster's index in the grid and the
+// grid's clusters, read where they are used (volatile, like thread_x()), so
+// that neither they nor what is derived from them is kept live across the
+// passes of the clustered bodies.
+__device__ __forceinline__ int cluster_rank() {
+  int r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ int cluster_id() {
+  int r;
+  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ int cluster_count() {
+  int r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;" : "=r"(r));
+  return r;
+}
+
+// The paired-block chirp-z body of B2 (float, bluestein_pair.cu) and B7
+// (double, stockham_vpu_dd.cu) over M = 2H, on a pair of blocks. The input
+// rows [0, n) are all in the first half of the padded column (n <= H), so
+// the cross-block split has b = 0: rank 0 transforms u = a * xt, rank 1
+// v = a * xt * W_M^row, rows n.. read as zeros, never copied. The ranks
+// copy half of the input rows each, at their rows in their own buffers, and
+// the first forward pass reads them across the pair; the last forward pass
+// stores times wt at frequency 2*row + rank; after the inverse passes each
+// rank stores half of the rows p < n of (E[p] + W_M^-p * O[p]) * xo[p] *
+// scale, E from rank 0 and O from rank 1. The t.fw* and t.iv* tables hold
+// the H split twiddles of their direction, then the pass tables; `vec`:
+// 16-byte copies and stores. The tile and passes of M = 2H are fixed at
+// compile time.
+template <typename T, int Threads, int H>
+__device__ __forceinline__ void bluestein_pair(const T* __restrict__ xre,
+                                               const T* __restrict__ xim,
+                                               T* __restrict__ yre,
+                                               T* __restrict__ yim, int n,
+                                               int batch, const ChirpZ<T>& t,
+                                               T scale, int vec) {
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const smem = reinterpret_cast<T*>(smem_raw);
+  using Tile = PairTile<T, Threads, H>;
+  constexpr int cols = Tile::kCols, logc = Tile::kLogC, plane = H * cols;
+  constexpr int kV = 16 / static_cast<int>(sizeof(T));  // values a 16-byte chunk
+  constexpr int kLogV = pair_exponent(kV, 2);
+  constexpr unsigned kItem = sizeof(T);
+  const size_t bs = static_cast<size_t>(batch);
+  // Input rows [0, n) are split between the ranks at (n + 1) / 2: this
+  // block's rows [r0, r1), copied into its own buffer at the same rows.
+  auto own_rows = [&](int& r0, int& r1) {
+    const int n0 = (n + 1) / 2;
+    const bool first = cluster_rank() == 0;
+    r0 = first ? 0 : n0;
+    r1 = first ? n0 : n;
+  };
+  auto fetch = [&](int tile, T* sre, T* sim) {
+    const int b0 = tile << logc;
+    int r0, r1;
+    own_rows(r0, r1);
+    if (vec) {
+      constexpr int lc = logc - kLogV;  // a row is 1 << lc 16-byte chunks
+      const int total = (2 * (r1 - r0)) << lc;
+      for (int e = thread_x(); e < total; e += Threads) {
+        const int c = (e & ((1 << lc) - 1)) << kLogV, rr = e >> lc;
+        if (b0 + c < batch) {
+          const int row = r0 + (rr >> 1);
+          copy_async<16>((rr & 1 ? sim : sre) + Tile::index(row, c),
+                         (rr & 1 ? xim : xre) + row * bs + b0 + c);
+        }
+      }
+    } else {
+      const int total = (2 * (r1 - r0)) << logc;
+      for (int e = thread_x(); e < total; e += Threads) {
+        const int col = e & (cols - 1), rr = e >> logc;
+        if (b0 + col < batch) {
+          const int row = r0 + (rr >> 1);
+          copy_async<static_cast<int>(sizeof(T))>(
+              (rr & 1 ? sim : sre) + Tile::index(row, col),
+              (rr & 1 ? xim : xre) + row * bs + b0 + col);
+        }
+      }
+    }
+  };
+  // Cluster c walks tiles c, c + clusters, ...; its k-th tile is in
+  // buffer k mod 2. The walk's state is the tile alone: the rest is read
+  // again where it is used.
+  if ((cluster_id() << logc) < batch) fetch(cluster_id(), smem, smem + plane);
+  copy_commit();
+  for (int tile = cluster_id(); (tile << logc) < batch; tile += cluster_count()) {
+    const int buf = (tile / cluster_count()) & 1;
+    T* sre = smem + 2 * buf * plane;
+    T* sim = sre + plane;
+    const int next_tile = tile + cluster_count();
+    if ((next_tile << logc) < batch) {
+      T* next = smem + 2 * (buf ^ 1) * plane;
+      fetch(next_tile, next, next + plane);
+    }
+    copy_commit();
+    copy_wait_previous();
+    cluster.sync();  // both ranks' rows of the tile are in shared memory
+    // Input row `row` from the rank that copied it, times the input chirp
+    // (and W_M^row on rank 1).
+    auto chirp_in = [&](int row, int col, T& re, T& im) {
+      if (row >= n) {
+        re = T(0);
+        im = T(0);
+        return;
+      }
+      const unsigned e = kItem * Tile::index(row, col);
+      const int src = row < (n + 1) / 2 ? 0 : 1;
+      re = load_cluster<T>(cluster_addr(sre, src) + e);
+      im = load_cluster<T>(cluster_addr(sim, src) + e);
+      cmul(re, im, __ldg(t.xtre + row), __ldg(t.xtim + row));
+      if (cluster_rank() == 1) cmul(re, im, __ldg(t.fwre + row), __ldg(t.fwim + row));
+    };
+    auto split_done = [&] { cluster.sync(); };  // both read their input rows
+    auto times_w = [&](int row, int, T& re, T& im) {
+      const int f = 2 * row + cluster_rank();
+      cmul(re, im, __ldg(t.wtre + f), __ldg(t.wtim + f));
+    };
+    pair_passes<0, true, Tile, Threads, H>(sre, sim, t.fwre, t.fwim, chirp_in,
+                                           split_done, times_w);
+    pair_passes<0, false, Tile, Threads, H>(sre, sim, t.ivre, t.ivim,
+                                            TileLoad<Tile, T>{sre, sim},
+                                            BlockSync{}, NoHook{});
+    cluster.sync();  // both halves are complete
+    // This block stores output rows [r0, r1): E from rank 0, O from rank 1.
+    const unsigned er = cluster_addr(sre, 0), ei = cluster_addr(sim, 0);
+    const unsigned o_r = cluster_addr(sre, 1), o_i = cluster_addr(sim, 1);
+    int r0, r1;
+    own_rows(r0, r1);
+    const int b0 = tile << logc;
+    const int lc = vec ? logc - kLogV : logc;
+    const int width = vec ? kV : 1;
+    const int total = (r1 - r0) << lc;
+    for (int e = thread_x(); e < total; e += Threads) {
+      const int c = (e & ((1 << lc) - 1)) * width, p = r0 + (e >> lc);
+      if (b0 + c >= batch) continue;
+      const unsigned s = kItem * Tile::index(p, c);
+      const T wr = __ldg(t.ivre + p), wi = __ldg(t.ivim + p);
+      const T cr = __ldg(t.xore + p) * scale, ci = __ldg(t.xoim + p) * scale;
+      T vr[kV] = {}, vi[kV] = {};
+#pragma unroll
+      for (int u = 0; u < kV; ++u) {
+        if (u >= width) break;
+        const unsigned su = s + kItem * u;
+        T o_re = load_cluster<T>(o_r + su), o_im = load_cluster<T>(o_i + su);
+        cmul(o_re, o_im, wr, wi);
+        vr[u] = load_cluster<T>(er + su) + o_re;
+        vi[u] = load_cluster<T>(ei + su) + o_im;
+        cmul(vr[u], vi[u], cr, ci);
+      }
+      const size_t g = static_cast<size_t>(p) * bs + b0 + c;
+      if (vec) {
+        store16(yre + g, vr);
+        store16(yim + g, vi);
+      } else {
+        yre[g] = vr[0];
+        yim[g] = vi[0];
+      }
+    }
+    cluster.sync();  // no copy into a buffer the partner still reads
+  }
+  cluster.sync();  // the partner may still read this block's tile
+}
+
+// The h = m/2 of each even m of B1's domain up to 2048 (46 sizes): the
+// heights of B4a's bodies and of B1's two-block ones, and of B2's but 512
+// (rfft_pack_geometry, fft_pair_geometry and bluestein_pair_geometry_c64 in
+// ops/cuda/stockham_vpu.py; tests/test_torch_pair_kernels.py holds the
+// lists equal).
+#define FOURIER_PAIR_ROWS(X)                                                  \
+  X(32) X(36) X(40) X(48) X(60) X(64) X(72) X(80) X(96) X(100) X(108) X(120)  \
+  X(128) X(144) X(160) X(180) X(192) X(200) X(216) X(240) X(256) X(288)       \
+  X(300) X(320) X(324) X(360) X(384) X(400) X(432) X(480) X(500) X(512)       \
+  X(540) X(576) X(600) X(640) X(648) X(720) X(768) X(800) X(864) X(900)       \
+  X(960) X(972) X(1000) X(1024)
+
 // Host side. True when the caller's geometry is the compiled body's for
 // h = `rows`: `cols` columns a tile, `threads` threads, and `npasses`
 // radices (host memory) equal to pair_radix's.
@@ -394,32 +631,47 @@ inline bool aligned16(const void* p) {
   return (reinterpret_cast<std::uintptr_t>(p) & 15u) == 0;
 }
 
-// Launch `kern` as clusters of two blocks of `threads` threads with `smem`
-// bytes of dynamic shared memory each, as many clusters as fit on the card
-// at once and at most `ntiles`. Returns a cudaError_t code, 0 on success.
-template <typename... Params, typename... Args>
-int launch_pairs(void (*kern)(Params...), int ntiles, int threads, size_t smem,
-                 int device, void* stream, Args... args) {
+// The clusters of C blocks that `kern` keeps on the card at once with
+// `threads` threads and `smem` bytes of dynamic shared memory a block, into
+// `clusters`; fills `cfg` and `attr` for the launch. Returns a cudaError_t
+// code, 0 on success.
+template <int C, typename... Params>
+int max_clusters(void (*kern)(Params...), int threads, size_t smem, int device,
+                 void* stream, cudaLaunchConfig_t* cfg,
+                 cudaLaunchAttribute* attr, int* clusters) {
   int err = prepare_launch(kern, smem, device);
   if (err != 0) return err;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 2;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(2);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = {};
+  cfg->gridDim = dim3(C);
+  cfg->blockDim = dim3(threads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = static_cast<cudaStream_t>(stream);
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  *clusters = 0;
+  cudaError_t e = cudaOccupancyMaxActiveClusters(clusters, kern, cfg);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (clusters <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-  cfg.gridDim = dim3(2 * std::min(clusters, ntiles));
-  e = cudaLaunchKernelEx(&cfg, kern, args...);
+  return *clusters > 0 ? 0 : static_cast<int>(cudaErrorInvalidConfiguration);
+}
+
+// Launch `kern` as clusters of C blocks of `threads` threads with `smem`
+// bytes of dynamic shared memory each, as many clusters as fit on the card
+// at once and at most `ntiles`. Returns a cudaError_t code, 0 on success.
+template <int C, typename... Params, typename... Args>
+int launch_clusters(void (*kern)(Params...), int ntiles, int threads,
+                    size_t smem, int device, void* stream, Args... args) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  int clusters = 0;
+  int err = max_clusters<C>(kern, threads, smem, device, stream, &cfg, attr,
+                            &clusters);
+  if (err != 0) return err;
+  cfg.gridDim = dim3(C * std::min(clusters, ntiles));
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, args...);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

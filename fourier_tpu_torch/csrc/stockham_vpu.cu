@@ -7,7 +7,11 @@
 // synchronises, and returns cudaGetLastError().
 //
 // Kernel B1: the fused all-stages mixed-radix Stockham FFT, batch-minor
-// (n, B).
+// (n, B). This is its stage body; the clustered-block body of fft_pair.cu
+// (its own library) is the kernel at the 60 n of fft_pair_geometry (8 | n up
+// to 4096, but 3000 and 3240) except B1_STAGE_FASTER (ops/cuda/
+// stockham_vpu.py), and this body at the rest of B1's domain: those, 3000,
+// 3240, the pure powers of 3 and 5, and every n above 4096.
 //
 // Replaces fourier_tpu/ops/pallas/stockham_vpu.py:_kernel, launched by
 // vpu_fft_batch_minor. It computes the DFT of every column of a contiguous
@@ -28,8 +32,8 @@
 //   padded. Narrow runs are the kernel's main cost at large n: on an H100 a
 //   load-and-store-only version of it took 2.24 ms at n=4096 with 2 columns
 //   (8-byte runs) but 0.54 ms at n=1024 with 8 columns, on the same bytes.
-//   Wider column groups (a two-pass split, or a cluster sharing its shared
-//   memory) are the next step.
+//   The clustered body keeps 32-byte runs by sharing a column group among
+//   the blocks of a cluster.
 // - Shared memory. The block's (n, cols) planes live in dynamic shared
 //   memory, 8*n*cols bytes, at most 128 KiB. A Stockham ping-pong pair would
 //   need twice that, past the 227 KB a block may use at n = 16384, so every
@@ -57,7 +61,11 @@
 
 #include "stockham_stages.cuh"
 
-// Kernel B2: the fused Bluestein (chirp-z) FFT, batch-minor (n, B).
+// Kernel B2: the fused Bluestein (chirp-z) FFT, batch-minor (n, B). This is
+// its stage body; the paired-block body of bluestein_pair.cu (its own
+// library) is the kernel at the inner sizes M <= 2048 but 1024 of
+// bluestein_pair_geometry_c64 except B2_STAGE_FASTER (ops/cuda/
+// stockham_vpu.py), and this body at those, at M = 1024 and above 2048.
 //
 // Replaces fourier_tpu/ops/pallas/stockham_vpu.py:_bluestein_kernel (:881,
 // body _bluestein_value :918), launched by vpu_bluestein_batch_minor (:946).

@@ -136,137 +136,15 @@ split_combine_c128(const double* __restrict__ xre,
   }
 }
 
-// B7's paired-block body (stockham_pair.cuh) over M = 2h. The input rows
-// [0, n) are all in the first half of the padded column (n <= h), so the
-// cross-block split has b = 0: rank 0 transforms u = a * xt, rank 1
-// v = a * xt * W_M^row, rows n.. read as zeros, never copied. The ranks
-// copy half of the input rows each, at their rows in their own buffers, and
-// the first forward pass reads them across the pair; the last forward pass
-// stores times wt at frequency 2*row + rank; after the inverse passes each
-// rank stores half of the rows p < n of (E[p] + W_M^-p * O[p]) * xo[p] *
-// scale, E from rank 0 and O from rank 1. The t.fw*
-// and t.iv* tables hold the h split twiddles of their direction, then the
-// pass tables; `vec`: 16-byte copies and stores. The tile and passes of
-// M = 2H are fixed at compile time.
+// B7's paired-block body: bluestein_pair of stockham_pair.cuh at double.
 template <int Threads, int H>
 __global__ void __launch_bounds__(Threads, 1)
 bluestein_pair_c128(const double* __restrict__ xre,
                     const double* __restrict__ xim, double* __restrict__ yre,
                     double* __restrict__ yim, int n, int batch,
                     ChirpZ<double> t, double scale, int vec) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  double* const smem = reinterpret_cast<double*>(smem_raw);
-  using Tile = PairTile<double, Threads, H>;
-  constexpr int cols = Tile::kCols, logc = Tile::kLogC, plane = H * cols;
-  const size_t bs = static_cast<size_t>(batch);
-  const int ntiles = (batch + cols - 1) >> logc;
-  const int clusters = static_cast<int>(gridDim.x >> 1);
-  // Input rows [0, n) are split between the ranks at n0: rank r copies rows
-  // [r0, r1) into its own buffer, at the same rows.
-  const int n0 = (n + 1) / 2;
-  const int r0 = rank == 0 ? 0 : n0, r1 = rank == 0 ? n0 : n;
-  auto fetch = [&](int tile, double* sre, double* sim) {
-    const int b0 = tile << logc;
-    if (vec) {
-      constexpr int lc = logc - 1;  // a row is 1 << lc 16-byte chunks
-      const int total = (2 * (r1 - r0)) << lc;
-      for (int e = thread_x(); e < total; e += Threads) {
-        const int c2 = (e & ((1 << lc) - 1)) << 1, rr = e >> lc;
-        if (b0 + c2 < batch) {
-          const int row = r0 + (rr >> 1);
-          copy_async<16>((rr & 1 ? sim : sre) + Tile::index(row, c2),
-                         (rr & 1 ? xim : xre) + row * bs + b0 + c2);
-        }
-      }
-    } else {
-      const int total = (2 * (r1 - r0)) << logc;
-      for (int e = thread_x(); e < total; e += Threads) {
-        const int col = e & (cols - 1), rr = e >> logc;
-        if (b0 + col < batch) {
-          const int row = r0 + (rr >> 1);
-          copy_async<8>((rr & 1 ? sim : sre) + Tile::index(row, col),
-                        (rr & 1 ? xim : xre) + row * bs + b0 + col);
-        }
-      }
-    }
-  };
-  int buf = 0;
-  int tile = static_cast<int>(blockIdx.x >> 1);
-  if (tile < ntiles) fetch(tile, smem, smem + plane);
-  copy_commit();
-  for (; tile < ntiles; tile += clusters, buf ^= 1) {
-    double* sre = smem + 2 * buf * plane;
-    double* sim = sre + plane;
-    if (tile + clusters < ntiles) {
-      double* next = smem + 2 * (buf ^ 1) * plane;
-      fetch(tile + clusters, next, next + plane);
-    }
-    copy_commit();
-    copy_wait_previous();
-    cluster.sync();  // both ranks' rows of the tile are in shared memory
-    // The two ranks' buffers, each local or through distributed shared memory.
-    const double* re0 = rank == 0 ? sre : cluster.map_shared_rank(sre, 0);
-    const double* im0 = rank == 0 ? sim : cluster.map_shared_rank(sim, 0);
-    const double* re1 = rank == 1 ? sre : cluster.map_shared_rank(sre, 1);
-    const double* im1 = rank == 1 ? sim : cluster.map_shared_rank(sim, 1);
-    auto chirp_in = [&](int row, int col, double& re, double& im) {
-      if (row >= n) {
-        re = 0.0;
-        im = 0.0;
-        return;
-      }
-      const int e = Tile::index(row, col);
-      re = row < n0 ? re0[e] : re1[e];
-      im = row < n0 ? im0[e] : im1[e];
-      cmul(re, im, __ldg(t.xtre + row), __ldg(t.xtim + row));
-      if (rank == 1) cmul(re, im, __ldg(t.fwre + row), __ldg(t.fwim + row));
-    };
-    auto split_done = [&] { cluster.sync(); };  // both read their input rows
-    auto times_w = [&](int row, int, double& re, double& im) {
-      const int f = 2 * row + rank;
-      cmul(re, im, __ldg(t.wtre + f), __ldg(t.wtim + f));
-    };
-    pair_passes<0, true, Tile, Threads>(sre, sim, t.fwre, t.fwim, chirp_in,
-                                        split_done, times_w);
-    pair_passes<0, false, Tile, Threads>(sre, sim, t.ivre, t.ivim,
-                                         TileLoad<Tile, double>{sre, sim},
-                                         BlockSync{}, NoHook{});
-    cluster.sync();  // both halves are complete
-    // Rank r stores output rows [r0, r1): E from rank 0, O from rank 1.
-    const int b0 = tile << logc;
-    const int lc = vec ? logc - 1 : logc;
-    const int width = vec ? 2 : 1;
-    const int total = (r1 - r0) << lc;
-    for (int e = thread_x(); e < total; e += Threads) {
-      const int c = (e & ((1 << lc) - 1)) * width, p = r0 + (e >> lc);
-      if (b0 + c >= batch) continue;
-      const int s = Tile::index(p, c);
-      const double wr = __ldg(t.ivre + p), wi = __ldg(t.ivim + p);
-      const double cr = __ldg(t.xore + p) * scale, ci = __ldg(t.xoim + p) * scale;
-      double vr[2] = {0.0, 0.0}, vi[2] = {0.0, 0.0};
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        if (u >= width) break;
-        double o_r = re1[s + u], o_i = im1[s + u];
-        cmul(o_r, o_i, wr, wi);
-        vr[u] = re0[s + u] + o_r;
-        vi[u] = im0[s + u] + o_i;
-        cmul(vr[u], vi[u], cr, ci);
-      }
-      const size_t g = static_cast<size_t>(p) * bs + b0 + c;
-      if (vec) {
-        *reinterpret_cast<double2*>(yre + g) = make_double2(vr[0], vr[1]);
-        *reinterpret_cast<double2*>(yim + g) = make_double2(vi[0], vi[1]);
-      } else {
-        yre[g] = vr[0];
-        yim[g] = vi[0];
-      }
-    }
-    cluster.sync();  // no copy into a buffer the partner still reads
-  }
-  cluster.sync();  // the partner may still read this block's tile
+  bluestein_pair<double, Threads, H>(xre, xim, yre, yim, n, batch, t, scale,
+                                     vec);
 }
 
 template <int R>
@@ -364,8 +242,9 @@ int fourier_bluestein_pair_c128(const double* xre, const double* xim,
                   aligned16(yre) && aligned16(yim);
   const ChirpZ<double> t{fwre, fwim, ivre, ivim, xtre, xtim,
                          wtre, wtim, xore, xoim};
-  return launch_pairs(kern, (batch + cols - 1) / cols, threads, smem, device,
-                      stream, xre, xim, yre, yim, n, batch, t, scale, vec);
+  return launch_clusters<2>(kern, (batch + cols - 1) / cols, threads, smem,
+                            device, stream, xre, xim, yre, yim, n, batch, t,
+                            scale, vec);
 }
 
 // B8: combine the planar f64 (m, r*B) sub-spectra of the r residue classes

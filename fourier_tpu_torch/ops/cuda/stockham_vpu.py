@@ -9,10 +9,18 @@ Port of ``fourier_tpu/ops/pallas/stockham_vpu.py`` (all of its kernels):
 * :func:`make_stage_tables` gives its compact (m, r) twiddle tables;
 * B1, the fused all-stages transform: :func:`vpu_fft_batch_minor_reference`
   is the plain PyTorch version (a port of ``_stages_value`` plus the mode
-  scale), :func:`vpu_fft_batch_minor` the kernel's wrapper;
+  scale), :func:`vpu_fft_batch_minor` the kernel's wrapper. B1 runs the
+  clustered-block body of ``csrc/fft_pair.cu`` (its own library) at the 60
+  n of :func:`fft_pair_geometry` (clusters of two blocks for 8 | n up to
+  2048, of four for 14 n in (2048, 4096]) but those of B1_STAGE_FASTER, and
+  the stage body of ``csrc/stockham_vpu.cu`` at the rest of its domain
+  (those, 3000, 3240, 4320, the pure powers of 3 and 5, n above 4096);
 * B2, the fused Bluestein transform: :func:`vpu_bluestein_batch_minor_reference`
   (a port of ``_bluestein_value``) and the wrapper
-  :func:`vpu_bluestein_batch_minor`;
+  :func:`vpu_bluestein_batch_minor`. B2 runs the paired-block body of
+  ``csrc/bluestein_pair.cu`` (its own library) at the inner sizes M up to
+  2048 of :func:`bluestein_pair_geometry_c64` but those of B2_STAGE_FASTER,
+  and the stage body at the others (those, M = 1024 and M above 2048);
 * B3, the row leg of the four-step transform:
   :func:`vpu_fft_four_step_row_reference` and the wrapper
   :func:`vpu_fft_four_step_row`;
@@ -32,17 +40,20 @@ Port of ``fourier_tpu/ops/pallas/stockham_vpu.py`` (all of its kernels):
   :func:`vpu_irfft_odd_unpack_batch_minor`. Column j pairs with column
   j + ceil(B/2); an unpaired last column runs against zeros.
 
-The kernels are one library, built from ``csrc/stockham_vpu.cu``, and B4a's
-paired-block body a second, built from ``csrc/rfft_pack_pair.cu``.
+The stage bodies are one library, built from ``csrc/stockham_vpu.cu``; the
+clustered-block bodies of B1, B2 and B4a (``csrc/stockham_pair.cuh``) are a
+library each, built from ``csrc/fft_pair.cu``, ``csrc/bluestein_pair.cu``
+and ``csrc/rfft_pack_pair.cu``.
 
 Each wrapper runs its plain version for tensors on the CPU, and launches its
 kernel (or raises) for tensors on a CUDA device; it counts its launches in
 its ``launches`` attribute.
 
-The kernels run their own schedule, :func:`kernel_schedule`, which splits
-each radix of :func:`radix_schedule` into radices 8, 4, 2, 3 and 5, with
-twiddles from :func:`make_kernel_tables`. The source notes in the .cu file
-give the designs.
+The stage bodies run their own schedule, :func:`kernel_schedule`, which
+splits each radix of :func:`radix_schedule` into radices 8, 4, 2, 3 and 5,
+with twiddles from :func:`make_kernel_tables`; the clustered bodies run the
+passes of :func:`pass_schedule` with the tables of :func:`pair_tables`. The
+source notes in the .cu files give the designs.
 """
 
 from __future__ import annotations
@@ -77,15 +88,16 @@ BLOCK_POINTS = 8192
 MAX_BLOCK_POINTS = 16384
 MAX_COLS = 32
 RUN_COLS = 8
-# The paired-block bodies (B4a here, B7 in stockham_vpu_dd.py;
+# The clustered-block bodies (B1, B2, B4a here, B7 in stockham_vpu_dd.py;
 # csrc/stockham_pair.cuh): a tile's row runs are at least PAIR_RUN_BYTES,
 # because on an H100 a copy-only persistent kernel moved a (2048, 32768) f32
 # plane in 0.663 ms through 16-byte runs and in 0.272 ms through 32-byte
 # ones; a thread holds PAIR_POINTS points a pass.
 PAIR_RUN_BYTES = 32
 PAIR_POINTS = 16
-# B4a's paired-block body: 512 threads a block, one compiled body per even m
-# of B1's domain up to 2048 (FOURIER_B4A_PAIR_ROWS in csrc/rfft_pack_pair.cu).
+# The float clustered-block bodies (B1, B2, B4a): 512 threads a block, one
+# compiled body per block height h in PAIR_ROWS, the h = m/2 of each even m
+# of B1's domain up to 2048 (FOURIER_PAIR_ROWS in csrc/stockham_pair.cuh).
 PAIR_THREADS = 512
 PAIR_MAX_M = 2048
 
@@ -139,6 +151,24 @@ def radix_schedule(n: int) -> Optional[List[int]]:
     elif rem5 == 1:
         sched.append(5)
     return sched
+
+
+PAIR_ROWS = tuple(m // 2 for m in range(2, PAIR_MAX_M + 1, 2) if radix_schedule(m))
+# The block heights of B1's bodies, by the blocks of a cluster: PAIR_ROWS on
+# two, its h above 512 on four (FOURIER_B1_QUAD_ROWS in csrc/fft_pair.cu);
+# and of B2's (FOURIER_B2_ROWS in csrc/bluestein_pair.cu): PAIR_ROWS but 512
+# (M = 1024), where ptxas spilled in every arrangement of the body tried, so
+# the stage body stays the kernel there.
+FFT_PAIR_ROWS = {2: PAIR_ROWS, 4: tuple(h for h in PAIR_ROWS if h > 512)}
+BLUESTEIN_PAIR_ROWS = tuple(h for h in PAIR_ROWS if h != 512)
+# Sizes with a clustered body that lost to the stage body in a same-run A/B
+# over every such size (chip_smoke.py phase 5g, about 2^26 points a call, on
+# an H100 80GB HBM3 at 700 W; sizes within 2% of a tie went to the body that
+# won most of three runs): there the wrapper launches the stage body. B1 at
+# n, B2 at the inner size M; mostly small non-power-of-two heights, whose
+# tile is one 32-byte column group and leaves most threads idle.
+B1_STAGE_FASTER = frozenset({576, 648, 800, 960, 1000})
+B2_STAGE_FASTER = frozenset({64, 72, 120, 320, 576, 600, 640, 648, 800, 960, 1000})
 
 
 def _stage_sizes(n: int, schedule: Sequence[int]):
@@ -213,13 +243,15 @@ def launch_geometry(n: int) -> Tuple[int, int]:
 
 
 class PairGeometry(NamedTuple):
-    """A paired-block body's launch: each block of a two-block cluster holds
-    `rows` = M/2 rows of `cols` columns (whole `PAIR_RUN_BYTES` groups) in
-    each of two buffers, `smem` bytes in all, with `threads` threads."""
+    """A clustered-block body's launch: each block of a cluster of `ranks`
+    blocks holds `rows` = M/ranks rows of `cols` columns (whole
+    `PAIR_RUN_BYTES` groups) in each of two buffers, `smem` bytes in all,
+    with `threads` threads."""
     rows: int
     cols: int
     threads: int
     smem: int
+    ranks: int = 2
 
 
 def pass_schedule(h: int) -> Tuple[int, ...]:
@@ -250,13 +282,14 @@ def pass_schedule(h: int) -> Tuple[int, ...]:
     return tuple([3] * threes + [5] * fives + pows)
 
 
-def pair_tables(m: int, forward: bool, real=np.float64) -> np.ndarray:
-    """A paired-block body's twiddles for an m-point transform, a planar
-    (2, m/2 + L) array of `real` computed in f64: the cross-block split's
-    W_m^p for p < m/2, then the (size // r, r) tables of every pass of
-    :func:`pass_schedule` (m/2) but the last."""
-    h = m // 2
-    split = stage_twiddles(m, 2, forward)[:, 1]
+def pair_tables(m: int, forward: bool, real=np.float64, ranks: int = 2) -> np.ndarray:
+    """A clustered-block body's twiddles for an m-point transform on
+    clusters of `ranks` blocks, h = m/ranks, a planar (2, (ranks-1)*h + L)
+    array of `real` computed in f64: the cross-block split's W_m^(r*p) for
+    r = 1..ranks-1 (rank-major) and p < h, then the (size // r, r) tables of
+    every pass of :func:`pass_schedule` (h) but the last."""
+    h = m // ranks
+    split = stage_twiddles(m, ranks, forward)[:, 1:].T.ravel()
     rest = kernel_tables(h, pass_schedule(h), forward, np.float64)
     return np.concatenate([np.stack([split.real, split.imag]), rest],
                           axis=1).astype(real)
@@ -264,26 +297,26 @@ def pair_tables(m: int, forward: bool, real=np.float64) -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def pair_device_tables(m: int, forward: bool, dtype: torch.dtype,
-                       device: torch.device) -> torch.Tensor:
+                       device: torch.device, ranks: int = 2) -> torch.Tensor:
     """:func:`pair_tables` narrowed to `dtype` on `device`, made once per
-    (m, direction, dtype, device) at the first launch."""
+    (m, direction, dtype, device, ranks) at the first launch."""
     real = np.float32 if dtype == torch.float32 else np.float64
-    return torch.as_tensor(pair_tables(m, forward, real), device=device)
+    return torch.as_tensor(pair_tables(m, forward, real, ranks), device=device)
 
 
-def pair_geometry(m: int, itemsize: int, threads: int) -> PairGeometry:
-    """The tile of a paired-block body at size m (pair_cols in
-    csrc/stockham_pair.cuh): m/2 rows and the widest power-of-two number of
-    PAIR_RUN_BYTES column groups whose points `threads` threads cover at
-    PAIR_POINTS each, one group rather than two where m/2 is not a power of
-    two."""
-    h = m // 2
+def pair_geometry(m: int, itemsize: int, threads: int, ranks: int = 2) -> PairGeometry:
+    """The tile of a clustered-block body at size m on clusters of `ranks`
+    blocks (pair_cols in csrc/stockham_pair.cuh): m/ranks rows and the
+    widest power-of-two number of PAIR_RUN_BYTES column groups whose points
+    `threads` threads cover at PAIR_POINTS each, one group rather than two
+    where m/ranks is not a power of two."""
+    h = m // ranks
     cols = PAIR_RUN_BYTES // itemsize
     while h * cols * 2 <= PAIR_POINTS * threads:
         cols *= 2
     if cols * itemsize == 2 * PAIR_RUN_BYTES and h & (h - 1):
         cols //= 2
-    return PairGeometry(h, cols, threads, 4 * h * cols * itemsize)
+    return PairGeometry(h, cols, threads, 4 * h * cols * itemsize, ranks)
 
 
 def rfft_pack_geometry(m: int) -> Optional[PairGeometry]:
@@ -292,6 +325,27 @@ def rfft_pack_geometry(m: int) -> Optional[PairGeometry]:
     tile of 32-byte runs needs more than PAIR_THREADS threads at PAIR_POINTS
     each (and 1024 threads leave a thread 64 registers)."""
     if m % 2 or m > PAIR_MAX_M or radix_schedule(m) is None:
+        return None
+    return pair_geometry(m, 4, PAIR_THREADS)
+
+
+def fft_pair_geometry(n: int) -> Optional[PairGeometry]:
+    """B1's clustered-block launch at n (PAIR_THREADS threads), or None where
+    the stage body stays the kernel: two blocks of n/2 rows for 8 | n up to
+    2048, else four blocks of n/4 rows for the n in (2048, 4096] whose n/4
+    is in PAIR_ROWS (FFT_PAIR_ROWS); not 3000, 3240, 4320, the pure powers
+    of 3 and 5, or n above 4096."""
+    for ranks in (2, 4):
+        if n % ranks == 0 and n // ranks in FFT_PAIR_ROWS[ranks]:
+            return pair_geometry(n, 4, PAIR_THREADS, ranks)
+    return None
+
+
+def bluestein_pair_geometry_c64(m: int) -> Optional[PairGeometry]:
+    """B2's paired-block launch at inner size m (two blocks of m/2 rows,
+    PAIR_THREADS threads), or None where the stage body stays the kernel:
+    M = 1024 and M above PAIR_MAX_M (BLUESTEIN_PAIR_ROWS)."""
+    if m % 2 or m // 2 not in BLUESTEIN_PAIR_ROWS:
         return None
     return pair_geometry(m, 4, PAIR_THREADS)
 
@@ -380,6 +434,15 @@ ENTRY_POINTS = {
 PAIR_ENTRY_POINTS = {
     "fourier_rfft_pack_pair_c64": [_P] * 3 + [_I] * 5 + [_P] * 5 + [_I, _P],
 }
+FFT_PAIR_LIBRARY = "fft_pair"  # csrc/fft_pair.cu: B1's clustered bodies
+FFT_PAIR_ENTRY_POINTS = {
+    "fourier_stockham_pair_c64": [_P] * 4 + [_I] * 6 + [_P] * 3 + [_I, _F, _I, _P],
+    "fourier_stockham_pair_clusters": [_I] * 4 + [ctypes.POINTER(_I)],
+}
+BLUESTEIN_PAIR_LIBRARY = "bluestein_pair"  # csrc/bluestein_pair.cu: B2's
+BLUESTEIN_PAIR_ENTRY_POINTS = {
+    "fourier_bluestein_pair_c64": [_P] * 4 + [_I] * 6 + [_P] * 11 + [_F, _I, _P],
+}
 
 
 def library():
@@ -390,6 +453,29 @@ def library():
 def pair_library():
     """Build (at first use) and load B4a's paired-block library."""
     return build.bind(PAIR_LIBRARY, PAIR_ENTRY_POINTS)
+
+
+def fft_pair_library():
+    """Build (at first use) and load B1's clustered-block library."""
+    return build.bind(FFT_PAIR_LIBRARY, FFT_PAIR_ENTRY_POINTS)
+
+
+def bluestein_pair_library():
+    """Build (at first use) and load B2's paired-block library."""
+    return build.bind(BLUESTEIN_PAIR_LIBRARY, BLUESTEIN_PAIR_ENTRY_POINTS)
+
+
+def fft_pair_clusters(n: int, device) -> int:
+    """The clusters of B1's clustered body at n that the card keeps at once
+    (cudaOccupancyMaxActiveClusters), the grid of its persistent walk."""
+    geo = fft_pair_geometry(n)
+    if geo is None:
+        raise ValueError(f"B1 has no clustered-block body at n={n}")
+    out = ctypes.c_int(0)
+    build.call(fft_pair_library(), "fourier_stockham_pair_clusters",
+               f"B1's cluster count at n={n}", n, geo.ranks, geo.cols,
+               torch.device(device).index or 0, ctypes.byref(out))
+    return out.value
 
 
 def _launch(fn_name: str, what: str, *args) -> None:
@@ -415,14 +501,31 @@ def scale_arg(scale: Optional[float]) -> float:
     return 1.0 if scale is None else float(scale)
 
 
+def _pick_body(what: str, geo, body: Optional[str], stage_faster: bool = False) -> str:
+    """The body a wrapper launches: `body` if given, else the clustered one
+    where its geometry `geo` exists and the stage body is not the faster
+    one; a clustered body that does not exist at the size is refused."""
+    body = body or ("pair" if geo and not stage_faster else "stage")
+    if body not in ("pair", "stage"):
+        raise ValueError(f"{what} body {body!r}: 'pair' or 'stage'")
+    if body == "pair" and geo is None:
+        raise ValueError(f"{what} has no clustered-block body here")
+    return body
+
+
 def vpu_fft_batch_minor(re_t, im_t, n: int, forward: bool,
-                        scale: Optional[float], *, tables, kernel_tables):
+                        scale: Optional[float], *, tables, kernel_tables,
+                        _body: Optional[str] = None):
     """B1 over contiguous planar f32 (n, B) planes; returns new planes.
 
     `tables`: the compact stage tables of :func:`make_stage_tables` as
     tensors (plain version); `kernel_tables`: the (2, L) f32 tensor of
-    :func:`make_kernel_tables` (kernel), both direction-matched and on the
-    planes' device.
+    :func:`make_kernel_tables` (the stage body), both direction-matched and
+    on the planes' device. The kernel is the clustered-block body of
+    ``csrc/fft_pair.cu`` where :func:`fft_pair_geometry` gives one and n is
+    not in B1_STAGE_FASTER (its forward tables, for both directions, from
+    :func:`pair_device_tables`), else the stage body; `_body` ("pair" or
+    "stage") forces one, for same-run comparisons.
     """
     check_planes(re_t, im_t, (n,), "B1")
     if re_t.device.type == "cpu":
@@ -434,14 +537,26 @@ def vpu_fft_batch_minor(re_t, im_t, n: int, forward: bool,
     batch = re_t.shape[1]
     if batch == 0:
         return out_re, out_im
-    cols, threads = launch_geometry(n)
-    _launch(
-        "fourier_stockham_c64", f"B1 at n={n}, B={batch}",
-        re_t.data_ptr(), im_t.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
-        n, batch, cols, threads, *_radices(n),
-        kernel_tables[0].data_ptr(), kernel_tables[1].data_ptr(),
-        int(forward), scale_arg(scale), re_t.device.index, stream_of(re_t),
-    )
+    geo = fft_pair_geometry(n)
+    data = (re_t.data_ptr(), im_t.data_ptr(), out_re.data_ptr(), out_im.data_ptr())
+    if _pick_body(f"B1 at n={n}", geo, _body, n in B1_STAGE_FASTER) == "pair":
+        tw = pair_device_tables(n, True, torch.float32, re_t.device, geo.ranks)
+        build.call(
+            fft_pair_library(), "fourier_stockham_pair_c64",
+            f"B1 ({geo.ranks}-block clusters) at n={n}, B={batch}", *data,
+            n, batch, geo.ranks, geo.cols, geo.threads,
+            *radices_arg(pass_schedule(geo.rows)),
+            tw[0].data_ptr(), tw[1].data_ptr(), int(forward), scale_arg(scale),
+            re_t.device.index, stream_of(re_t),
+        )
+    else:
+        cols, threads = launch_geometry(n)
+        _launch(
+            "fourier_stockham_c64", f"B1 at n={n}, B={batch}", *data,
+            n, batch, cols, threads, *_radices(n),
+            kernel_tables[0].data_ptr(), kernel_tables[1].data_ptr(),
+            int(forward), scale_arg(scale), re_t.device.index, stream_of(re_t),
+        )
     vpu_fft_batch_minor.launches += 1
     return out_re, out_im
 
@@ -481,14 +596,18 @@ def vpu_bluestein_batch_minor_reference(re_t, im_t, n: int, m: int, tables,
 
 def vpu_bluestein_batch_minor(re_t, im_t, n: int, m: int,
                               scale: Optional[float], *, tables, kernel_tables,
-                              chirps):
+                              chirps, _body: Optional[str] = None):
     """B2 over contiguous planar f32 (n, B) planes; returns new planes.
 
     `tables`: (forward, inverse) compact stage tables for m as tensors
     (plain version); `kernel_tables`: the (forward, inverse) (2, L) tensors
-    of :func:`make_kernel_tables` for m (kernel); `chirps`: the
+    of :func:`make_kernel_tables` for m (the stage body); `chirps`: the
     direction-matched (xt, wt, xo) of :func:`vpu_bluestein_batch_minor_reference`;
-    all on the planes' device.
+    all on the planes' device. The kernel is the paired-block body of
+    ``csrc/bluestein_pair.cu`` where :func:`bluestein_pair_geometry_c64`
+    gives one (M <= 2048) and M is not in B2_STAGE_FASTER (its tables from
+    :func:`pair_device_tables`), else the stage body; `_body` ("pair" or
+    "stage") forces one, for same-run comparisons.
     """
     check_planes(re_t, im_t, (n,), "B2")
     if re_t.device.type == "cpu":
@@ -500,13 +619,23 @@ def vpu_bluestein_batch_minor(re_t, im_t, n: int, m: int,
     batch = re_t.shape[1]
     if batch == 0:
         return out_re, out_im
-    cols, threads = launch_geometry(m)
-    kf, ki = kernel_tables
+    geo = bluestein_pair_geometry_c64(m)
+    if _pick_body(f"B2 at M={m}", geo, _body, m in B2_STAGE_FASTER) == "pair":
+        lib, fn, what = (bluestein_pair_library(), "fourier_bluestein_pair_c64",
+                         "B2 (paired blocks)")
+        cols, threads, schedule = geo.cols, geo.threads, pass_schedule(geo.rows)
+        kf, ki = (pair_device_tables(m, fwd, torch.float32, re_t.device)
+                  for fwd in (True, False))
+    else:
+        lib, fn, what = library(), "fourier_bluestein_c64", "B2"
+        cols, threads = launch_geometry(m)
+        schedule = kernel_schedule(m)
+        kf, ki = kernel_tables
     xt, wt, xo = chirps
-    _launch(
-        "fourier_bluestein_c64", f"B2 at n={n}, M={m}, B={batch}",
+    build.call(
+        lib, fn, f"{what} at n={n}, M={m}, B={batch}",
         re_t.data_ptr(), im_t.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
-        n, m, batch, cols, threads, *_radices(m),
+        n, m, batch, cols, threads, *radices_arg(schedule),
         kf[0].data_ptr(), kf[1].data_ptr(), ki[0].data_ptr(), ki[1].data_ptr(),
         xt[0].data_ptr(), xt[1].data_ptr(), wt[0].data_ptr(), wt[1].data_ptr(),
         xo[0].data_ptr(), xo[1].data_ptr(),
@@ -629,10 +758,7 @@ def vpu_rfft_pack_batch_minor(x_t, m: int, *, tables, kernel_tables, w,
     if batch == 0:
         return out_re, out_im
     geo = rfft_pack_geometry(m)
-    body = _body or ("pair" if geo else "stage")
-    if body == "pair":
-        if geo is None:
-            raise ValueError(f"B4a has no paired-block body at m={m}")
+    if _pick_body(f"B4a at m={m}", geo, _body) == "pair":
         tw = pair_device_tables(m, True, torch.float32, x_t.device)
         build.call(
             pair_library(), "fourier_rfft_pack_pair_c64",
@@ -642,7 +768,7 @@ def vpu_rfft_pack_batch_minor(x_t, m: int, *, tables, kernel_tables, w,
             tw[0].data_ptr(), tw[1].data_ptr(),
             w[0].data_ptr(), w[1].data_ptr(), x_t.device.index, stream_of(x_t),
         )
-    elif body == "stage":
+    else:
         cols, threads = launch_geometry(m)
         _launch(
             "fourier_rfft_pack_c64", f"B4a at m={m}, B={batch}",
@@ -651,8 +777,6 @@ def vpu_rfft_pack_batch_minor(x_t, m: int, *, tables, kernel_tables, w,
             kernel_tables[0].data_ptr(), kernel_tables[1].data_ptr(),
             w[0].data_ptr(), w[1].data_ptr(), x_t.device.index, stream_of(x_t),
         )
-    else:
-        raise ValueError(f"B4a body {body!r}: 'pair' or 'stage'")
     vpu_rfft_pack_batch_minor.launches += 1
     return out_re, out_im
 

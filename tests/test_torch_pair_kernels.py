@@ -1,21 +1,28 @@
-"""The paired-block bodies of kernels B4a and B7 (csrc/stockham_pair.cuh).
+"""The clustered-block bodies of kernels B1, B2, B4a and B7
+(csrc/stockham_pair.cuh).
 
 The CUDA kernels run only on a card. Here a numpy transliteration of each
 body's order of operations is held against ``np.fft`` and against the
-unchanged plain versions (``vpu_rfft_pack_batch_minor_reference``,
-``vpu_dd_bluestein_batch_minor_reference``): the two blocks of a cluster,
-each holding half the rows of a tile in rows swizzled inside their 128-byte
-lines; the cross-block radix-2 split on the first pass's read; the passes of
-``pass_schedule`` with the tables of ``pair_tables`` (narrowed to f32 for
-B4a); B4a's even/odd rows copied into the re/im planes and the pack read
-from each block's own rows; B7's chirp on the first read, w on the last
-forward store and the output chirp on the final store; the persistent walk
-of the clusters over column groups, ending on a ragged group. Columns past
-B and rows never copied are NaN in the emulated shared memory, so a read of
-either would show. Gates: rel-L2 1e-6 (c64), 1e-12 (c128).
+unchanged plain versions (``vpu_fft_batch_minor_reference``,
+``vpu_bluestein_batch_minor_reference``,
+``vpu_rfft_pack_batch_minor_reference``,
+``vpu_dd_bluestein_batch_minor_reference``): the C blocks of a cluster (two,
+or four for B1 at n in (2048, 4096]), each holding 1/C of the rows of a tile
+in rows swizzled inside their 128-byte lines; the cross-block radix-C split
+on the first pass's read; the passes of ``pass_schedule`` with the tables of
+``pair_tables`` (narrowed to f32 for B1, B2 and B4a); B1's store of row k of
+rank r to output row C*k + r, and its inverse as the forward body on the
+planes exchanged, IDFT(x) = swap(DFT(swap(x))); B4a's even/odd rows copied
+into the re/im planes and the pack read from each block's own rows; the
+chirp-z bodies' (B2, B7) chirp on the first read, w on the last forward
+store and the output chirp on the final store; the persistent walk of the
+clusters over column groups, ending on a ragged group. Columns past B and
+rows never copied are NaN in the emulated shared memory, so a read of either
+would show. Gates: rel-L2 1e-6 (c64), 1e-12 (c128).
 
 The launch geometry and schedules are checked over each body's whole
-domain, with the m at which B4a keeps its stage body.
+domain, with the sizes at which each wrapper keeps its stage body, and the
+size lists of the .cu files against the Python ones.
 """
 
 import re
@@ -25,7 +32,7 @@ import numpy as np
 import pytest
 import torch
 
-from fourier_tpu_torch import Transform
+from fourier_tpu_torch import Transform, VpuBluesteinPlan, VpuFftPlan
 from fourier_tpu_torch.ops.cuda import stockham_vpu as sv
 from fourier_tpu_torch.ops.cuda import stockham_vpu_dd as dv
 from fourier_tpu_torch.precision import VpuDdBluesteinPlan
@@ -43,6 +50,22 @@ SMEM_PER_BLOCK = 232448  # bytes of shared memory a block may take on an H100
 B1_DOMAIN = [m for m in range(64, 16385) if sv.radix_schedule(m) is not None]
 B4A_PAIR = [m for m in B1_DOMAIN if sv.rfft_pack_geometry(m) is not None]
 B7_INNER = (64, 128, 256, 512, 1024, 2048)
+B1_PAIR = [n for n in B1_DOMAIN if sv.fft_pair_geometry(n) is not None]
+# Every inner size M that VpuBluesteinPlan.choose_inner gives (n = 17..4096).
+B2_INNER = sorted({m for m in (VpuBluesteinPlan.choose_inner(n, 8192)
+                           for n in range(17, 4097)) if m is not None})
+CSRC = Path(sv.__file__).parents[2] / "csrc"
+
+
+def _xmacro(path, name):
+    """The X(...) entries of the #define `name` in csrc/`path`."""
+    lines = (CSRC / path).read_text().splitlines()
+    i = next(i for i, line in enumerate(lines) if line.startswith(f"#define {name}("))
+    block = [lines[i]]
+    while block[-1].endswith("\\"):
+        i += 1
+        block.append(lines[i])
+    return [int(v) for v in re.findall(r"X\((\d+)\)", "\n".join(block))]
 
 
 def _rel(got, want):
@@ -78,10 +101,10 @@ def _swizzle(row, rpl_log):
     return row ^ parity
 
 
-def _offsets(h, schedule):
+def _offsets(h, schedule, start):
     """(radix, stride, table offset) of each pass (pair_stride,
-    pair_tw_off)."""
-    out, size, stride, off = [], h, 1, h
+    pair_tw_off), the pass tables starting at `start`."""
+    out, size, stride, off = [], h, 1, start
     for r in schedule:
         out.append((r, stride, off))
         if size // r > 1:
@@ -97,14 +120,15 @@ def _dft(r, forward):
 
 
 class _Pair:
-    """The two blocks of a cluster over T tiles at once: per rank a (T,
-    rows * cols) plane of complex points, row r at _swizzle(r) * cols."""
+    """The C blocks of a cluster (C = geo.ranks) over T tiles at once: per
+    rank a (T, rows * cols) plane of complex points, row r at _swizzle(r) *
+    cols."""
 
     def __init__(self, geo, itemsize, tiles):
         self.rows, self.cols = geo.rows, geo.cols
         self.rpl = _rpl_log(geo.cols, itemsize)
         self.bufs = [np.full((tiles, geo.rows * geo.cols), np.nan, complex)
-                     for _ in range(2)]
+                     for _ in range(geo.ranks)]
 
     def index(self, row, col):
         return _swizzle(row, self.rpl) * self.cols + col
@@ -113,10 +137,12 @@ class _Pair:
         return self.bufs[rank][:, self.index(row, col)]
 
     def passes(self, schedule, table, forward, first_load, hook=None):
-        """pair_passes on both ranks: every pass reads all its points (the
-        first through `first_load`, across the pair) before it stores; the
-        last stores through `hook`."""
-        plan = _offsets(self.rows, schedule)
+        """pair_passes on every rank: every pass reads all its points (the
+        first through `first_load`, across the cluster) before it stores;
+        the last stores through `hook`. `table` holds the (C-1)*rows split
+        twiddles, then the pass tables."""
+        ranks = range(len(self.bufs))
+        plan = _offsets(self.rows, schedule, (len(self.bufs) - 1) * self.rows)
         for s, (r, stride, off) in enumerate(plan):
             last = s == len(plan) - 1
             blk = self.rows // r
@@ -124,7 +150,7 @@ class _Pair:
             col, p = ids % self.cols, ids // self.cols
             load = first_load if s == 0 else self.load
             xs = [np.stack([load(rank, k * blk + p, col) for k in range(r)])
-                  for rank in (0, 1)]
+                  for rank in ranks]
             i, j = p // stride, p % stride
             for rank, x in enumerate(xs):
                 y = np.tensordot(_dft(r, forward), x, axes=(1, 0))
@@ -190,22 +216,64 @@ def emulate_b4a_pair(x, m, w):
     return out
 
 
-def emulate_b7_pair(x, n, m, chirps, scale):
-    """bluestein_pair_c128 on a complex (n, B) array x, in f64."""
-    geo = dv.bluestein_pair_geometry(m)
+def emulate_b1_pair(x, n, forward, scale):
+    """fft_pair_c64 on a complex (n, B) array x, in f64 with the f32 tables:
+    the inverse is the forward body on the planes exchanged."""
+    geo = sv.fft_pair_geometry(n)
+    c, h, cols = geo.ranks, geo.rows, geo.cols
+    tab = _cplx(sv.pair_tables(n, True, np.float32, c))
+    swap = lambda z: z.imag + 1j * z.real
+    xin = x if forward else swap(x)
+    b = x.shape[1]
+    ntiles = -(-b // cols)
+    out = np.full((n, b), np.nan, complex)
+    rows = np.repeat(np.arange(h), cols)
+    cgrid = np.tile(np.arange(cols), h)
+    for t0 in range(0, ntiles, CLUSTERS):
+        tiles = np.arange(t0, min(ntiles, t0 + CLUSTERS))
+        cidx, valid = _tile_columns(tiles, cols, b)
+        cl = _Pair(geo, 4, len(tiles))
+        for rank in range(c):  # rank r copies rows [r*h, (r+1)*h)
+            col = cidx[:, cgrid]
+            cl.bufs[rank][:, cl.index(rows, cgrid)] = np.where(
+                valid[:, cgrid], xin[rank * h + rows, np.minimum(col, b - 1)], np.nan)
+
+        def split(rank, row, col):
+            # (a_0 + (-1)^r a_2) + W_4^r (a_1 + (-1)^r a_3), or a_0 + (-1)^r a_1
+            a = [cl.load(s, row, col) for s in range(c)]
+            rho = -1 if rank & 1 else 1
+            v = (a[0] + rho * a[1] if c == 2 else
+                 a[0] + rho * a[2] + (-1j) ** rank * (a[1] + rho * a[3]))
+            return v if rank == 0 else v * tab[(rank - 1) * h + row]
+
+        cl.passes(sv.pass_schedule(h), tab, True, split)
+        k = np.arange(h)[:, None]
+        for rank in range(c):  # row k of rank r is output row c*k + r
+            got = cl.bufs[rank][:, cl.index(k, np.arange(cols))] * scale
+            got = got if forward else swap(got)
+            for ti in range(len(tiles)):
+                out[c * np.arange(h)[:, None] + rank, cidx[ti][valid[ti]][None, :]] = \
+                    got[ti][:, valid[ti]]
+    return out
+
+
+def emulate_chirp_pair(x, n, m, chirps, scale, geo, real):
+    """bluestein_pair (B2 at float, B7 at double) on a complex (n, B) array
+    x, in f64 with the tables of pair_tables narrowed to `real`."""
     h, cols = geo.rows, geo.cols
-    fw = _cplx(sv.pair_tables(m, True))
-    iv = _cplx(sv.pair_tables(m, False))
+    fw = _cplx(sv.pair_tables(m, True, real))
+    iv = _cplx(sv.pair_tables(m, False, real))
     xt, wt, xo = (_cplx(c) for c in chirps)
     b = x.shape[1]
     ntiles = -(-b // cols)
     out = np.full((n, b), np.nan, complex)
     n0 = (n + 1) // 2  # rank 0 copies input rows [0, n0), rank 1 [n0, n)
     schedule = sv.pass_schedule(h)
+    itemsize = np.dtype(real).itemsize
     for t0 in range(0, ntiles, CLUSTERS):
         tiles = np.arange(t0, min(ntiles, t0 + CLUSTERS))
         cidx, valid = _tile_columns(tiles, cols, b)
-        pair = _Pair(geo, 8, len(tiles))
+        pair = _Pair(geo, itemsize, len(tiles))
         for rank, (r0, r1) in enumerate(((0, n0), (n0, n))):
             rows = np.repeat(np.arange(r0, r1), cols)
             cgrid = np.tile(np.arange(cols), r1 - r0)
@@ -236,6 +304,19 @@ def emulate_b7_pair(x, n, m, chirps, scale):
             for ti in range(len(tiles)):
                 out[r0:r1, cidx[ti][valid[ti]]] = got[ti][:, valid[ti]]
     return out
+
+
+def emulate_b7_pair(x, n, m, chirps, scale):
+    """bluestein_pair_c128 on a complex (n, B) array x, in f64."""
+    return emulate_chirp_pair(x, n, m, chirps, scale,
+                              dv.bluestein_pair_geometry(m), np.float64)
+
+
+def emulate_b2_pair(x, n, m, chirps, scale):
+    """bluestein_pair_c64 on a complex (n, B) array x, in f64 with the f32
+    tables."""
+    return emulate_chirp_pair(x, n, m, chirps, scale,
+                              sv.bluestein_pair_geometry_c64(m), np.float32)
 
 
 # -- geometry ------------------------------------------------------------------
@@ -270,11 +351,10 @@ def test_b4a_pair_geometry_over_its_domain():
     assert {243, 625, 729, 2187, 3125, 4096, 8192, 16384} <= set(keep)
     assert max(B4A_PAIR) == 2048 and min(m for m in keep if m % 2 == 0) == 2160
     assert sv.rfft_pack_geometry(2048) == sv.PairGeometry(1024, 8, 512, 131072)
-    # One compiled body per size: the kernel file lists exactly these m/2.
-    src = (Path(sv.__file__).parents[2] / "csrc" / "rfft_pack_pair.cu").read_text()
-    block = src[src.index("#define FOURIER_B4A_PAIR_ROWS"):]
-    block = block[:block.index("\n\n")]
-    assert [int(v) for v in re.findall(r"X\((\d+)\)", block)] == [m // 2 for m in B4A_PAIR]
+    # One compiled body per size: the engine lists exactly these m/2.
+    assert _xmacro("stockham_pair.cuh", "FOURIER_PAIR_ROWS") == [m // 2 for m in B4A_PAIR]
+    assert list(sv.PAIR_ROWS) == [m // 2 for m in B4A_PAIR]
+    assert "FOURIER_PAIR_ROWS(FOURIER_B4A_CASE)" in (CSRC / "rfft_pack_pair.cu").read_text()
 
 
 def test_b7_pair_geometry_over_its_domain():
@@ -292,6 +372,95 @@ def test_b7_pair_geometry_over_its_domain():
     assert sv.pass_schedule(96) == (3, 2, 16) and sv.pass_schedule(500) == (5, 5, 5, 4)
     assert sv.pass_schedule(960) == (3, 5, 8, 8) and sv.pass_schedule(480) == (3, 5, 2, 16)
     assert sv.rfft_pack_geometry(960).cols == 8 and sv.rfft_pack_geometry(1024).cols == 16
+
+
+def test_b1_pair_geometry_over_its_domain():
+    quad = []
+    for n in B1_PAIR:
+        geo = sv.fft_pair_geometry(n)
+        c = geo.ranks
+        assert c == (2 if n <= sv.PAIR_MAX_M else 4), n
+        h = n // c
+        assert geo == sv.pair_geometry(n, 4, sv.PAIR_THREADS, c)
+        assert geo.rows == h and h in sv.PAIR_ROWS and h in sv.FFT_PAIR_ROWS[c]
+        assert geo.cols % 8 == 0 and geo.cols & (geo.cols - 1) == 0
+        assert geo.smem == 4 * h * geo.cols * 4 <= SMEM_PER_BLOCK
+        assert geo.threads == 512 and geo.threads * sv.PAIR_POINTS >= h * geo.cols
+        if c == 4:
+            quad.append(n)
+    # Two-block clusters for the 46 n with 8 | n up to 2048, four-block ones
+    # for the 14 n in (2048, 4096] whose n/4 is a two-block height.
+    assert [n for n in B1_PAIR if n <= 2048] == [
+        n for n in B1_DOMAIN if n % 8 == 0 and n <= 2048]
+    assert quad == [2160, 2304, 2400, 2560, 2592, 2880, 3072, 3200, 3456, 3600,
+                    3840, 3888, 4000, 4096]
+    assert len(B1_PAIR) == 60
+    keep = set(B1_DOMAIN) - set(B1_PAIR)
+    assert {243, 625, 729, 2187, 3000, 3125, 3240, 4320, 6561} <= keep
+    assert all(n in keep for n in B1_DOMAIN if n > 4096)
+    assert sv.fft_pair_geometry(4096) == sv.PairGeometry(1024, 8, 512, 131072, 4)
+    assert sv.fft_pair_geometry(2048) == sv.PairGeometry(1024, 8, 512, 131072, 2)
+    assert sv.fft_pair_geometry(2160) == sv.PairGeometry(540, 8, 512, 69120, 4)
+    assert sv.fft_pair_geometry(256).cols == 64
+    # One compiled body per (clusters, height): the kernel file lists these.
+    assert "FOURIER_PAIR_ROWS(FOURIER_B1_PAIR_CASE)" in (CSRC / "fft_pair.cu").read_text()
+    assert [n // 2 for n in B1_PAIR if n <= 2048] == list(sv.FFT_PAIR_ROWS[2])
+    assert _xmacro("fft_pair.cu", "FOURIER_B1_QUAD_ROWS") == [
+        n // 4 for n in quad] == list(sv.FFT_PAIR_ROWS[4])
+
+
+def test_b2_pair_geometry_over_its_domain():
+    pair = [m for m in B2_INNER if sv.bluestein_pair_geometry_c64(m)]
+    # Every inner size up to 2048 is a paired-block height's 2h, and all
+    # but M = 1024 (whose body spilled) run the paired body.
+    assert set(m // 2 for m in B2_INNER if m <= 2048) <= set(sv.PAIR_ROWS)
+    assert pair == [m for m in B2_INNER if m <= 2048 and m != 1024]
+    assert 1024 in B2_INNER and 2160 in B2_INNER and max(B2_INNER) == 8192
+    for m in pair:
+        geo = sv.bluestein_pair_geometry_c64(m)
+        assert geo == sv.pair_geometry(m, 4, sv.PAIR_THREADS) and geo.ranks == 2
+        assert geo.smem <= SMEM_PER_BLOCK and geo.threads == 512
+        # The input rows lie in rank 0's half of the padded column.
+        assert max(n for n in range(17, 4097)
+                   if VpuBluesteinPlan.choose_inner(n, 8192) == m) <= geo.rows
+    assert sv.bluestein_pair_geometry_c64(2048) == sv.PairGeometry(1024, 8, 512, 131072, 2)
+    assert sv.bluestein_pair_geometry_c64(1024) is None
+    assert sv.bluestein_pair_geometry_c64(2160) is None
+    assert _xmacro("bluestein_pair.cu", "FOURIER_B2_ROWS") == [
+        h for h in sv.PAIR_ROWS if h != 512] == list(sv.BLUESTEIN_PAIR_ROWS)
+
+
+@pytest.mark.parametrize("lib,entry_points", [
+    (sv.FFT_PAIR_LIBRARY, sv.FFT_PAIR_ENTRY_POINTS),
+    (sv.BLUESTEIN_PAIR_LIBRARY, sv.BLUESTEIN_PAIR_ENTRY_POINTS)])
+def test_b1_b2_library_entry_points(lib, entry_points):
+    """B1's and B2's clustered-block libraries include the engine and define
+    each entry point their wrappers bind with as many parameters; every
+    library is built apart."""
+    from fourier_tpu_torch.ops.cuda import build
+
+    src = (build.CSRC / f"{lib}.cu").read_text()
+    assert '#include "stockham_pair.cuh"' in src
+    for fn_name, argtypes in [*entry_points.items(),
+                              ("fourier_cuda_error_string", [int])]:
+        m = re.search(rf"\b{fn_name}\(([^)]*)\)\s*{{", src)
+        assert m is not None, fn_name
+        assert len(m.group(1).split(",")) == len(argtypes), fn_name
+    libs = (sv.LIBRARY, sv.PAIR_LIBRARY, sv.FFT_PAIR_LIBRARY,
+            sv.BLUESTEIN_PAIR_LIBRARY, dv.LIBRARY)
+    assert len({build.library_path(name) for name in libs}) == len(libs)
+
+
+def test_pair_tables_four_ranks():
+    n, h = 4096, 1024
+    tab = _cplx(sv.pair_tables(n, True, np.float64, 4))
+    p = np.arange(h)
+    for r in (1, 2, 3):
+        assert np.allclose(tab[(r - 1) * h:r * h], np.exp(-2j * np.pi * r * p / n),
+                           atol=1e-15)
+    rest = _cplx(sv.kernel_tables(h, sv.pass_schedule(h), True))
+    assert np.array_equal(tab[3 * h:], rest)
+    assert np.array_equal(sv.pair_tables(2048, False), sv.pair_tables(2048, False, ranks=2))
 
 
 def test_pair_library_entry_point():
@@ -384,6 +553,81 @@ def test_b7_pair_body_emulated(n, m):
             assert _rel(got, pre.numpy() + 1j * pim.numpy()) <= C128_GATE
 
 
+def _modes(b):
+    """Every mode at B = 7; a forward and an inverse one at the others."""
+    return list(Transform) if b == 7 else [Transform.FFT, Transform.UNSCALED_IFFT]
+
+
+def _want(x, mode, n):
+    return (np.fft.fft(x, axis=0) if mode.is_forward
+            else np.fft.ifft(x, axis=0) * n) * (mode.scale(n) or 1.0)
+
+
+@pytest.mark.parametrize("n", [64, 96, 1000, 2048, 2160, 3888, 4096])
+def test_b1_pair_body_emulated(n):
+    plan = VpuFftPlan.create(n, device="cpu")
+    rng = np.random.default_rng(RNG_SEED + n)
+    for b in BATCHES:
+        x = (rng.standard_normal((n, b)) + 1j * rng.standard_normal((n, b))).astype(np.complex64)
+        for mode in _modes(b):
+            fwd, scale = mode.is_forward, mode.scale(n)
+            got = emulate_b1_pair(x.astype(np.complex128), n, fwd,
+                                  1.0 if scale is None else scale)
+            assert np.isfinite(got).all(), (n, b, mode)
+            assert _rel(got, _want(x.astype(np.complex128), mode, n)) <= C64_GATE, (n, b, mode)
+            pre, pim = sv.vpu_fft_batch_minor_reference(
+                torch.as_tensor(x.real.copy()), torch.as_tensor(x.imag.copy()), n,
+                plan.tables(fwd), fwd, scale)
+            assert _rel(got, pre.double().numpy() + 1j * pim.double().numpy()) <= C64_GATE
+
+
+@pytest.mark.parametrize("n,m", [(17, 64), (73, 160), (769, 1600), (1013, 2048)])
+def test_b2_pair_body_emulated(n, m):
+    plan = VpuBluesteinPlan.create(n, device="cpu")
+    assert plan.m_inner == m
+    st = plan.stages
+    tables = (st.tables(True), st.tables(False))
+    rng = np.random.default_rng(RNG_SEED + n)
+    for b in BATCHES:
+        x = (rng.standard_normal((n, b)) + 1j * rng.standard_normal((n, b))).astype(np.complex64)
+        for mode in _modes(b):
+            scale = mode.scale(n)
+            chirps = plan.chirps(mode.is_forward)
+            got = emulate_b2_pair(x.astype(np.complex128), n, m,
+                                  [c.numpy() for c in chirps],
+                                  1.0 if scale is None else scale)
+            assert np.isfinite(got).all(), (n, b, mode)
+            assert _rel(got, _want(x.astype(np.complex128), mode, n)) <= C64_GATE, (n, b, mode)
+            pre, pim = sv.vpu_bluestein_batch_minor_reference(
+                torch.as_tensor(x.real.copy()), torch.as_tensor(x.imag.copy()), n, m,
+                tables, chirps, scale)
+            assert _rel(got, pre.double().numpy() + 1j * pim.double().numpy()) <= C64_GATE
+
+
+def test_b1_b2_body_argument_on_the_cpu():
+    """On CPU tensors B1's and B2's wrappers run the plain version whatever
+    `_body` asks, and count no launch."""
+    plan = VpuFftPlan.create(4096, device="cpu")
+    re_, im_ = torch.randn(4096, 5), torch.randn(4096, 5)
+    before = sv.vpu_fft_batch_minor.launches
+    want = sv.vpu_fft_batch_minor_reference(re_, im_, 4096, plan.tables(False), False, 0.5)
+    for body in (None, "pair", "stage"):
+        got = sv.vpu_fft_batch_minor(re_, im_, 4096, False, 0.5, tables=plan.tables(False),
+                                     kernel_tables=plan.kernel_inv, _body=body)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert sv.vpu_fft_batch_minor.launches == before
+    bplan = VpuBluesteinPlan.create(1013, device="cpu")
+    st = bplan.stages
+    re_, im_ = torch.randn(1013, 3), torch.randn(1013, 3)
+    kw = dict(tables=(st.tables(True), st.tables(False)),
+              kernel_tables=(st.kernel_fwd, st.kernel_inv), chirps=bplan.chirps(True))
+    before = sv.vpu_bluestein_batch_minor.launches
+    a = sv.vpu_bluestein_batch_minor(re_, im_, 1013, st.size, None, _body="stage", **kw)
+    c = sv.vpu_bluestein_batch_minor(re_, im_, 1013, st.size, None, **kw)
+    assert all(torch.equal(u, v) for u, v in zip(a, c))
+    assert sv.vpu_bluestein_batch_minor.launches == before
+
+
 def test_body_argument_on_the_cpu():
     """On CPU tensors the wrappers run the plain version whatever `_body`
     asks, and count no launch; an unknown body is refused on the card only."""
@@ -452,3 +696,41 @@ def test_b7_bodies_agree_on_card(cuda_device, n):
                     chirps=plan.chirps(mode.is_forward), **kw)
                 c = got[0].cpu().numpy() + 1j * got[1].cpu().numpy()
                 assert _rel(c, want) <= C128_GATE, (n, b, mode, body)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [256, 2048, 4096])
+def test_b1_bodies_agree_on_card(cuda_device, n):
+    plan = VpuFftPlan.create(n, device=cuda_device)
+    for b in (1, 7, 1588, 1589):
+        re_ = torch.randn(n, b, device=cuda_device)
+        im_ = torch.randn(n, b, device=cuda_device)
+        x = re_.double().cpu().numpy() + 1j * im_.double().cpu().numpy()
+        for mode in Transform:
+            fwd = mode.is_forward
+            for body in ("pair", "stage"):
+                got = sv.vpu_fft_batch_minor(
+                    re_, im_, n, fwd, mode.scale(n), tables=plan.tables(fwd),
+                    kernel_tables=plan.kernel_fwd if fwd else plan.kernel_inv, _body=body)
+                c = got[0].double().cpu().numpy() + 1j * got[1].double().cpu().numpy()
+                assert _rel(c, _want(x, mode, n)) <= C64_GATE, (n, b, mode, body)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [73, 1013])
+def test_b2_bodies_agree_on_card(cuda_device, n):
+    plan = VpuBluesteinPlan.create(n, device=cuda_device)
+    st = plan.stages
+    kw = dict(tables=(st.tables(True), st.tables(False)),
+              kernel_tables=(st.kernel_fwd, st.kernel_inv))
+    for b in (1, 7, 794, 795):
+        re_ = torch.randn(n, b, device=cuda_device)
+        im_ = torch.randn(n, b, device=cuda_device)
+        x = re_.double().cpu().numpy() + 1j * im_.double().cpu().numpy()
+        for mode in Transform:
+            for body in ("pair", "stage"):
+                got = sv.vpu_bluestein_batch_minor(
+                    re_, im_, n, st.size, mode.scale(n), _body=body,
+                    chirps=plan.chirps(mode.is_forward), **kw)
+                c = got[0].double().cpu().numpy() + 1j * got[1].double().cpu().numpy()
+                assert _rel(c, _want(x, mode, n)) <= C64_GATE, (n, b, mode, body)
