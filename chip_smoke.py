@@ -4,15 +4,17 @@
     python3 chip_smoke.py
 
 Builds kernels B1-B5 (complex64, the stage bodies), the clustered-block
-bodies of B1, B2 and B4a, B6-B8 (complex128 in native f64) and B9a/B9b (the
-dense DFT products of MxuFftPlan(impl="pallas")) from fourier_tpu_torch/csrc
-with nvcc, six libraries built at once, checks that the clustered-block
-bodies of B1, B2, B4a and B7 spill nothing, and holds each kernel against
-its plain PyTorch version and against np.fft, at the listed sizes and at
-every shape the routes below give it (B1, B2, B4a and B7 also at a walk of
-several tiles a cluster ending on a partial group, and on both bodies at
-the sizes where they meet; B1 and B2 at the routes' shapes in phase 4g,
-from the calls phases 4-4d made). Then it drives the
+bodies of B1, B2, B4a and B5a, B6-B8 (complex128 in native f64; B6 also on
+its clustered-block bodies) and B9a/B9b (the dense DFT products of
+MxuFftPlan(impl="pallas")) from fourier_tpu_torch/csrc with nvcc, eight
+libraries built at once (each build's time printed), checks that the
+clustered-block bodies of B1, B2, B4a, B5a, B6 and B7 spill nothing, and
+holds each kernel against its plain PyTorch version and against np.fft, at
+the listed sizes and at every shape the routes below give it (B1, B2, B4a,
+B5a, B6 and B7 also at a walk of several tiles a cluster ending on a
+partial group, and on both bodies at the sizes where they meet; B1, B2 and
+B5a at the routes' shapes in phase 4g, from the calls phases 4-4d made, B6
+in phase 4h, from those of phase 4e). Then it drives the
 main path (the default complex64 1-D transform through create_fft_f32 on
 device="cuda") and the routes of the other sizes the JAX package plans
 differently (fused Bluestein B2, four-step with B3 rows, DFT products), then
@@ -25,12 +27,13 @@ MxuFftPlans alone, under a BluesteinPlan and a FourStepLocalPlan, and their
 gradients), checking each plan tree against the JAX package's and that each
 path launched the kernels its plan holds. Last it times the kernels against
 their plain versions and torch.fft, the rfft round trips of the suite's
-rows fused, unfused and through torch.fft, the suite's c128 rows and B9a/B9b
-at three shapes, each beside the least time the card could take for its
-bytes or operations; B1 at 4096x16384 and 1024x65536, B2 at 1013x65536, B4a
-at 4096x16384 and B7 at 1013x65536 also on their stage bodies in the same
-run, and B1 and B2 on both bodies at every size with a clustered one
-(phase 5g, the A/B behind the wrappers' choice of body).
+rows fused, unfused and through torch.fft, the suite's c128 rows (and B6 at
+4096x16384) and B9a/B9b at three shapes, each beside the least time the
+card could take for its bytes or operations; B1 at 4096x16384 and
+1024x65536, B2 at 1013x65536, B4a at 4096x16384, B5a at 1013x65536, B6 at
+1024x65536 and 4096x16384 and B7 at 1013x65536 also on their stage bodies
+in the same run, and B1, B2, B5a and B6 on both bodies at every size with a
+clustered one (phase 5g, the A/B behind the wrappers' choice of body).
 Every phase prints its lines;
 any failed check raises, so the exit code is non-zero. The next-to-last
 line is a JSON record of the kernels; the last line is
@@ -124,6 +127,19 @@ B2_BOUNDARY = (1013, 1031, 509)
 B_BOUNDARY = 1000
 B1_WALK = ((4096, 1588), (4096, 1589))  # 199 tiles of 8, 30 clusters of 4
 B2_WALK = B7_WALK
+# B5a's bodies meet at M = 2048 (n = 1013, paired) and 2160 (n = 1031), 1024
+# (n = 509) and 8192 (n = 4093, the largest M), the stage body; at M = 1728
+# (n = 863) and 160 (n = 73) the paired body stores in two steps (a
+# mixed-radix height). Its walk: 795 and 796 column pairs in tiles of 8 (66
+# clusters), odd B (element copies, an unpaired last column) and B a
+# multiple of 8 (16-byte copies).
+B5A_BOUNDARY = (1013, 1031, 509, 4093, 863, 73)
+B5A_WALK = ((1013, 1589), (1013, 1592))
+# B6's bodies meet at 2048 (two-block clusters), 2160 and 4096 (four-block)
+# and 3000 (the stage body); its walk: 397 tiles of 4 f64 columns on 30
+# clusters of four, B even (16-byte copies) or odd.
+B6_BOUNDARY = (2048, 2160, 4096, 3000)
+B6_WALK = ((4096, 1588), (4096, 1589))
 AB_POINTS = 1 << 26  # points a call in phase 5g's sweep (B = AB_POINTS // n)
 AB_CHAIN = 8
 RF_ODD = (769, 1013, 4093)  # B5 at inner 1600, 2048, 8192
@@ -213,9 +229,10 @@ DD_RFFT_TREES = {2048: ("VpuDdFftPlan", 1024),
                  16384: ("DdSplitPow2Plan", 8192, ("VpuDdFftPlan", 4096)),
                  1013: ("VpuDdBluesteinPlan", 1013, 2048)}
 DD_RFFT_B = 65  # odd: the unfused odd path's single-column fallback runs
-# The suite's c128 rows (BENCH_SUITE_r5.json) timed in phase 5e.
+# The suite's c128 rows (BENCH_SUITE_r5.json) timed in phase 5e, and the c64
+# headline's shape 4096x16384 at c128 (B6 on four-block clusters).
 DD_TIME = ((1024, 65536), (1013, 65536), (2187, 16384), (3125, 16384),
-           (1418, 32768))
+           (1418, 32768), (4096, 16384))
 DD_CHAIN = 16
 # Kernels B9a/B9b, reached through user-built MxuFftPlans (impl="pallas", and
 # impl="xla_packed" for n <= 128); no planner route runs them.
@@ -461,22 +478,30 @@ def main() -> int:
         return ((torch.linalg.norm(k - p) / torch.linalg.norm(p)).item(),
                 (k - p).abs().max().item())
 
-    # 2. Build: the six kernel libraries, one nvcc each, at once.
+    # 2. Build: the eight kernel libraries, one nvcc each, at once.
     t0 = time.perf_counter()
     libraries = (sv.LIBRARY, sv.PAIR_LIBRARY, sv.FFT_PAIR_LIBRARY,
-                 sv.BLUESTEIN_PAIR_LIBRARY, dv.LIBRARY, bk.LIBRARY)
+                 sv.BLUESTEIN_PAIR_LIBRARY, sv.RFFT_ODD_PAIR_LIBRARY, dv.LIBRARY,
+                 dv.FFT_PAIR_DD_LIBRARY, bk.LIBRARY)
     build.load_all(libraries)
     sv.library()
     sv.pair_library()
     sv.fft_pair_library()
     sv.bluestein_pair_library()
+    sv.rfft_odd_pair_library()
     dv.library()
+    dv.fft_pair_dd_library()
     bk.library()
     print(f"build: fourier_tpu_torch/csrc/{sv.LIBRARY}.cu (B1-B5, stage bodies), "
           f"{sv.PAIR_LIBRARY}.cu (B4a's paired-block bodies), {sv.FFT_PAIR_LIBRARY}.cu "
           f"(B1's clustered bodies), {sv.BLUESTEIN_PAIR_LIBRARY}.cu (B2's paired "
-          f"bodies), {dv.LIBRARY}.cu (B6-B8) and {bk.LIBRARY}.cu (B9a, B9b) in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+          f"bodies), {sv.RFFT_ODD_PAIR_LIBRARY}.cu (B5a's paired bodies), "
+          f"{dv.LIBRARY}.cu (B6-B8, stage bodies and B7's paired bodies), "
+          f"{dv.FFT_PAIR_DD_LIBRARY}.cu (B6's clustered bodies) and {bk.LIBRARY}.cu "
+          f"(B9a, B9b) in {time.perf_counter() - t0:.2f} s; each nvcc: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(build.build_seconds.items(),
+                                                          key=lambda kv: -kv[1])),
+          flush=True)
     pair_kernels = []
     for lib in libraries:
         kerns, worst = ptxas_usage(build.resource_usage(lib))
@@ -490,18 +515,22 @@ def main() -> int:
     n_b7 = len(B7_INNER)
     n_b1 = sum(1 for n in range(2, 2 * sv.PAIR_MAX_M + 1) if sv.fft_pair_geometry(n))
     n_b2 = sum(1 for m in range(2, sv.PAIR_MAX_M + 1) if sv.bluestein_pair_geometry_c64(m))
-    check(len(pair_kernels) == n_b4a + n_b7 + n_b1 + n_b2 and not spilled,
-          f"the clustered-block bodies of B4a, B7, B1 and B2: {len(pair_kernels)} "
-          f"built, {n_b4a} + {n_b7} + {n_b1} + {n_b2} expected; spills {spilled}")
+    n_b5a = sum(1 for m in range(2, sv.PAIR_MAX_M + 1) if sv.rfft_odd_pack_geometry(m))
+    n_b6 = sum(1 for n in range(2, 2 * sv.PAIR_MAX_M + 1) if dv.fft_pair_geometry_dd(n))
+    check(len(pair_kernels) == n_b4a + n_b7 + n_b1 + n_b2 + n_b5a + n_b6 and not spilled,
+          f"the clustered-block bodies of B4a, B7, B1, B2, B5a and B6: "
+          f"{len(pair_kernels)} built, {n_b4a} + {n_b7} + {n_b1} + {n_b2} + {n_b5a} + "
+          f"{n_b6} expected; spills {spilled}")
     regs = [r for _, r, _ in pair_kernels]
     print(f"ptxas (clustered-block bodies): {len(pair_kernels)} instantiations (B4a at "
-          f"{n_b4a} m, B7 at {n_b7} M, B1 at {n_b1} n, B2 at {n_b2} M), "
-          f"{min(regs)}-{max(regs)} registers, 0 spill bytes", flush=True)
-    clusters = {n: (sv.fft_pair_geometry(n).ranks, sv.fft_pair_clusters(n, dev))
-                for n in (1024, 2048, 2160, 4096)}
-    print("B1 clusters on the card at once (cudaOccupancyMaxActiveClusters): "
-          + ", ".join(f"n={n}: {c} clusters of {r} blocks"
-                      for n, (r, c) in clusters.items()), flush=True)
+          f"{n_b4a} m, B7 at {n_b7} M, B1 at {n_b1} n, B2 at {n_b2} M, B5a at {n_b5a} M, "
+          f"B6 at {n_b6} n), {min(regs)}-{max(regs)} registers, 0 spill bytes", flush=True)
+    for kernel, geometry, count in (("B1", sv.fft_pair_geometry, sv.fft_pair_clusters),
+                                    ("B6", dv.fft_pair_geometry_dd, dv.fft_pair_clusters_dd)):
+        clusters = {n: (geometry(n).ranks, count(n, dev)) for n in (1024, 2048, 2160, 4096)}
+        print(f"{kernel} clusters on the card at once (cudaOccupancyMaxActiveClusters): "
+              + ", ".join(f"n={n}: {c} clusters of {r} blocks"
+                          for n, (r, c) in clusters.items()), flush=True)
 
     # 3. Kernel against its plain version, and against np.fft on the host.
     worst_plain = worst_host = max_abs = 0.0
@@ -529,45 +558,76 @@ def main() -> int:
           f"(gate {REL_L2_GATE:g}); max abs err {max_abs:.3e}", flush=True)
     max_abs_err = {"B1": max_abs}
 
-    def bodies_case(kernel, n, b):
-        """B1 or B2 at (n, B) in every mode on both bodies where a clustered
-        one exists (else the stage body), against the plain version and
-        np.fft: (bodies run, worst rel-L2 vs plain, vs np.fft, max abs)."""
-        if kernel == "B1":
-            plan = ftt.VpuFftPlan.create(n, device=dev)
-            bodies = ("pair", "stage") if sv.fft_pair_geometry(n) else ("stage",)
-        else:
+    def body_runs(kernel, n, b):
+        """The cases of B1, B2, B5a or B6 at (n, B): (bodies, [(mode, plain
+        result, np.fft of the first columns, run(body) -> kernel result)]),
+        every mode (B5a: its one), on both bodies where a clustered one
+        exists, else the stage body."""
+        if kernel == "B5a":
             plan = ftt.VpuBluesteinPlan.create(n, device=dev)
             st = plan.stages
-            bodies = (("pair", "stage") if sv.bluestein_pair_geometry_c64(st.size)
-                      else ("stage",))
-        re, im = planes(n, b)
+            x = planes(n, b)[0]
+            kw = dict(tables=(st.tables(True), st.tables(False)),
+                      kernel_tables=(st.kernel_fwd, st.kernel_inv), chirps=plan.chirps(True))
+            p = sv.vpu_rfft_odd_pack_batch_minor_reference(x, n, st.size, kw["tables"],
+                                                           kw["chirps"])
+            run = lambda body: sv.vpu_rfft_odd_pack_batch_minor(x, n, st.size,
+                                                                _body=body, **kw)
+            geo = sv.rfft_odd_pack_geometry(st.size)
+            return ("pair", "stage") if geo else ("stage",), [("RFFT", p, rfft_host(x), run)]
+        if kernel == "B1":
+            plan = ftt.VpuFftPlan.create(n, device=dev)
+            geo = sv.fft_pair_geometry(n)
+            re, im = planes(n, b)
+        elif kernel == "B2":
+            plan = ftt.VpuBluesteinPlan.create(n, device=dev)
+            st = plan.stages
+            geo = sv.bluestein_pair_geometry_c64(st.size)
+            re, im = planes(n, b)
+        else:
+            plan = ftt.VpuDdFftPlan.create(n, device=dev)
+            geo = dv.fft_pair_geometry_dd(n)
+            re, im = planes64(n, b)
         x = host_cols(re, im)
-        worst_p = worst_h = mx = 0.0
+        cases = []
         for mode in Transform:
             fwd, scale = mode.is_forward, mode.scale(n)
-            if kernel == "B1":
+            if kernel in ("B1", "B6"):
+                ref, wrapper = ((sv.vpu_fft_batch_minor_reference, sv.vpu_fft_batch_minor)
+                                if kernel == "B1" else (dv.vpu_dd_fft_batch_minor_reference,
+                                                        dv.vpu_dd_fft_batch_minor))
                 kw = dict(tables=plan.tables(fwd),
                           kernel_tables=plan.kernel_fwd if fwd else plan.kernel_inv)
-                p = sv.vpu_fft_batch_minor_reference(re, im, n, kw["tables"], fwd, scale)
-                run = lambda body: sv.vpu_fft_batch_minor(re, im, n, fwd, scale,
-                                                          _body=body, **kw)
+                p = ref(re, im, n, kw["tables"], fwd, scale)
+                run = (lambda body, fwd=fwd, scale=scale, kw=kw, wrapper=wrapper:
+                       wrapper(re, im, n, fwd, scale, _body=body, **kw))
             else:
                 kw = dict(tables=(st.tables(True), st.tables(False)),
                           kernel_tables=(st.kernel_fwd, st.kernel_inv),
                           chirps=plan.chirps(fwd))
                 p = sv.vpu_bluestein_batch_minor_reference(
                     re, im, n, st.size, kw["tables"], kw["chirps"], scale)
-                run = lambda body: sv.vpu_bluestein_batch_minor(
+                run = lambda body, scale=scale, kw=kw: sv.vpu_bluestein_batch_minor(
                     re, im, n, st.size, scale, _body=body, **kw)
+            cases.append((mode.name, p, np_want(x, mode, n), run))
+        return ("pair", "stage") if geo else ("stage",), cases
+
+    def bodies_case(kernel, n, b):
+        """body_runs of a kernel at (n, B), each result against the plain
+        version and np.fft (gate DD_GATE for B6, else REL_L2_GATE): (bodies
+        run, worst rel-L2 vs plain, vs np.fft, max abs)."""
+        gate = DD_GATE if kernel == "B6" else REL_L2_GATE
+        bodies, cases = body_runs(kernel, n, b)
+        worst_p = worst_h = mx = 0.0
+        for mode, p, want, run in cases:
             for body in bodies:
                 k = run(body)
                 torch.cuda.synchronize()
                 err, m_ = vs_plain(k, p)
-                herr = rel_l2(host_cols(*k), np_want(x, mode, n))
-                check(err <= REL_L2_GATE and herr <= REL_L2_GATE,
-                      f"{kernel} {body} body n={n} B={b} {mode.name}: rel-L2 "
-                      f"{err:.3e} vs plain, {herr:.3e} vs np.fft")
+                herr = rel_l2(host_cols(*k), want)
+                check(err <= gate and herr <= gate,
+                      f"{kernel} {body} body n={n} B={b} {mode}: rel-L2 "
+                      f"{err:.3e} vs plain, {herr:.3e} vs np.fft (gate {gate:g})")
                 worst_p, worst_h, mx = max(worst_p, err), max(worst_h, herr), max(mx, m_)
         return bodies, worst_p, worst_h, mx
 
@@ -584,9 +644,10 @@ def main() -> int:
         paired = {n for n, _, bodies in ran if "pair" in bodies}
         check(paired == set(want_pair), f"{kernel}'s clustered bodies at {sorted(paired)}, "
               f"expected {sorted(want_pair)}")
-        print(f"{kernel} bodies at their boundaries and walks {ran} x 5 modes pass; worst "
-              f"rel-L2 {worst_p:.3e} vs plain, {worst_h:.3e} vs np.fft (gate "
-              f"{REL_L2_GATE:g})", flush=True)
+        print(f"{kernel} bodies at their boundaries and walks {ran} x "
+              f"{'1 mode' if kernel == 'B5a' else '5 modes'} pass; worst rel-L2 "
+              f"{worst_p:.3e} vs plain, {worst_h:.3e} vs np.fft (gate "
+              f"{DD_GATE if kernel == 'B6' else REL_L2_GATE:g})", flush=True)
 
     boundary_checks("B1", [(n, B_BOUNDARY) for n in B1_BOUNDARY] + list(B1_WALK),
                     (2048, 2160, 4096))
@@ -752,6 +813,8 @@ def main() -> int:
     print(f"B4a bodies at their boundary {ran} (B={BATCHES[-1]}): worst rel-L2 "
           f"{worst[0]:.3e} vs plain, {worst[1]:.3e} vs np.fft (gate {REL_L2_GATE:g})",
           flush=True)
+    boundary_checks("B5a", [(n, B_BOUNDARY) for n in B5A_BOUNDARY] + list(B5A_WALK),
+                    (1013, 863, 73))
 
     # 3e. B6, B7 and B8 (complex128 in f64) against their plain versions
     # and np.fft in f64, at the listed sizes and batches in every mode, and
@@ -829,6 +892,8 @@ def main() -> int:
               f"{worst_p:.3e} vs plain, {worst_h:.3e} vs np.fft (gate "
               f"{DD_GATE:g}); max abs err {mx:.3e}", flush=True)
         max_abs_err[kernel] = mx
+    boundary_checks("B6", [(n, B_BOUNDARY) for n in B6_BOUNDARY] + list(B6_WALK),
+                    (2048, 2160, 4096))
     # The split plans whole (B6 sub-plan, B8 combine) against np.fft.
     worst = 0.0
     for n in DD_B8_SIZES:
@@ -907,18 +972,25 @@ def main() -> int:
         max_abs_err[kernel_id] = mx
     torch.set_float32_matmul_precision(caller_precision)
 
-    # Phases 4-4d note every (n, B) they give B1 and B2 (the plans reach the
-    # wrappers through their class's `run`); phase 4g checks each shape.
-    route_shapes = {"B1": set(), "B2": set()}
+    # Phases 4-4d note every (n, B) they give B1, B2 and B5a, phase 4e every
+    # one it gives B6 (the plans reach B1, B2 and B6 through their class's
+    # `run`, B5a through rfft.py's reference to its module, here a namespace
+    # with B5a's wrapper recorded); phases 4g and 4h check each shape on both
+    # bodies.
+    route_shapes = {"B1": set(), "B2": set(), "B5a": set(), "B6": set()}
 
     def recording(kernel, fn):
-        def call(re_t, im_t, *args, **kwargs):
-            route_shapes[kernel].add(tuple(re_t.shape))
-            return fn(re_t, im_t, *args, **kwargs)
-        return staticmethod(call)
+        def call(x_t, *args, **kwargs):
+            route_shapes[kernel].add(tuple(x_t.shape))
+            return fn(x_t, *args, **kwargs)
+        return call
 
-    ftt.VpuFftPlan.run = recording("B1", sv.vpu_fft_batch_minor)
-    ftt.VpuBluesteinPlan.run = recording("B2", sv.vpu_bluestein_batch_minor)
+    ftt.VpuFftPlan.run = staticmethod(recording("B1", sv.vpu_fft_batch_minor))
+    ftt.VpuBluesteinPlan.run = staticmethod(recording("B2", sv.vpu_bluestein_batch_minor))
+    rfft_module = sys.modules["fourier_tpu_torch.rfft"]
+    rfft_module.stockham_vpu = types.SimpleNamespace(**{
+        **vars(sv), "vpu_rfft_odd_pack_batch_minor": recording(
+            "B5a", sv.vpu_rfft_odd_pack_batch_minor)})
 
     # 4. Main path through the entry points, with the launch count.
     zero_counts()
@@ -1158,11 +1230,13 @@ def main() -> int:
           f"atol=rtol={GRAD_TOL:g}; worst max|diff|/max|grad| {worst_grad:.3e}",
           flush=True)
 
-    # 4g. B1 and B2 at every (n, B) that phases 4-4d gave them, in every
-    # mode, on both bodies where a clustered one exists.
+    # 4g. B1, B2 and B5a at every (n, B) that phases 4-4d gave them, in
+    # every mode, on both bodies where a clustered one exists.
     ftt.VpuFftPlan.run = staticmethod(sv.vpu_fft_batch_minor)
     ftt.VpuBluesteinPlan.run = staticmethod(sv.vpu_bluestein_batch_minor)
-    for kernel in ("B1", "B2"):
+    rfft_module.stockham_vpu = sv
+
+    def route_checks(kernel, phases):
         worst_p = worst_h = 0.0
         ran = []
         for n, b in sorted(route_shapes[kernel]):
@@ -1170,10 +1244,14 @@ def main() -> int:
             worst_p, worst_h = max(worst_p, e_p), max(worst_h, e_h)
             max_abs_err[kernel] = max(max_abs_err[kernel], mx)
             ran.append((n, b, "+".join(bodies)))
-        check(ran, f"phases 4-4d gave {kernel} no call")
-        print(f"{kernel} at the routes' shapes {ran} x 5 modes pass; worst rel-L2 "
+        check(ran, f"phases {phases} gave {kernel} no call")
+        print(f"{kernel} at the routes' shapes {ran} x "
+              f"{'1 mode' if kernel == 'B5a' else '5 modes'} pass; worst rel-L2 "
               f"{worst_p:.3e} vs plain, {worst_h:.3e} vs np.fft (gate "
-              f"{REL_L2_GATE:g})", flush=True)
+              f"{DD_GATE if kernel == 'B6' else REL_L2_GATE:g})", flush=True)
+
+    for kernel in ("B1", "B2", "B5a"):
+        route_checks(kernel, "4-4d")
 
     # 4e. The complex128 route: the plan trees of create_fft_f64(n) with no
     # device argument (the card by default), then every route through the
@@ -1189,6 +1267,7 @@ def main() -> int:
     print(f"c128 route: the plan trees of {len(DD_TREES)} sizes and "
           f"{len(DD_RFFT_TREES)} rfft sizes equal the JAX package's dd route "
           f"on a TPU", flush=True)
+    ftt.VpuDdFftPlan.run = staticmethod(recording("B6", dv.vpu_dd_fft_batch_minor))
     zero_counts()
 
     def only_ran(what, held, seen):
@@ -1276,6 +1355,11 @@ def main() -> int:
         path_launches[k] += v
     for k in ("B6", "B7", "B8"):
         check(path_launches[k] > 0, f"the c128 routes launched {k} no time")
+
+    # 4h. B6 at every (n, B) that phase 4e gave it, in every mode, on both
+    # bodies where a clustered one exists.
+    ftt.VpuDdFftPlan.run = staticmethod(dv.vpu_dd_fft_batch_minor)
+    route_checks("B6", "4e")
 
     # 4f. The user-built paths of B9a and B9b: MxuFftPlan(impl="pallas") and
     # (impl="xla_packed") at n <= 128, pallas two-phase plans alone, as the
@@ -1596,6 +1680,15 @@ def main() -> int:
                         lambda: sv.vpu_rfft_pack_batch_minor(x, n // 2, _body="stage", **kw),
                         lambda: sv.vpu_rfft_pack_batch_minor(x, n // 2, _body="pair", **kw),
                         RF_CHAIN)
+        if (n, b) == (1013, 65536):
+            st = plan.inner.stages
+            kw = dict(tables=(st.tables(True), st.tables(False)),
+                      kernel_tables=(st.kernel_fwd, st.kernel_inv),
+                      chirps=plan.inner.chirps(True))
+            same_run_ab(f"B5a n={n} B={b}", *[
+                lambda body=body: sv.vpu_rfft_odd_pack_batch_minor(
+                    x, n, st.size, _body=body, **kw) for body in ("stage", "pair")],
+                RF_CHAIN)
         if (n, b) in ((4096, 16384), (1013, 65536)):
             library = {"a": trip["torch.fft.rfft"], "b": trip["torch.fft.irfft"]}
             for k in ("a", "b"):
@@ -1630,8 +1723,9 @@ def main() -> int:
         }
         if tree[0] == "VpuDdFftPlan":
             k, tb = "B6", plan.tables(True)
-            kernel = lambda a, c: dv.vpu_dd_fft_batch_minor(
-                a, c, n, True, scale, tables=tb, kernel_tables=plan.kernel_fwd)
+            kernel = lambda a, c, body=None: dv.vpu_dd_fft_batch_minor(
+                a, c, n, True, scale, tables=tb, kernel_tables=plan.kernel_fwd,
+                _body=body)
             plain = lambda a, c: dv.vpu_dd_fft_batch_minor_reference(
                 a, c, n, tb, True, scale)
             kb = bound(32.0 * n * b, 5.0 * n * math.log2(n) * b, F64_RATE)
@@ -1679,6 +1773,9 @@ def main() -> int:
                 kernel_tables=(st.kernel_fwd, st.kernel_inv), chirps=chirps,
                 _body=body)) for body in ("stage", "pair")}
             same_run_ab(f"B7 n={n} B={b}", bodies["stage"], bodies["pair"], DD_CHAIN)
+        if tree[0] == "VpuDdFftPlan" and dv.fft_pair_geometry_dd(n):
+            same_run_ab(f"B6 n={n} B={b}", *[lambda body=body: kernel(re, im, body)
+                                              for body in ("stage", "pair")], DD_CHAIN)
         for what, ms in rows.items():
             nb = 32.0 * (args[0].shape[0] if "kernel" in what or "plain" in what
                          else n) * b
@@ -1754,31 +1851,38 @@ def main() -> int:
             bounds[kernel_id] = kb_
         del re, im, xc
 
-    # 5g. Both bodies of B1 and B2 at every size that has a clustered one,
-    # about AB_POINTS points a call, timed stage, pair, pair, stage (median of
-    # REPS each): the same-run A/B behind the sizes at which the wrappers keep
-    # the stage body (B1_STAGE_FASTER, B2_STAGE_FASTER).
+    # 5g. Both bodies of B1, B2, B5a and B6 at every size that has a
+    # clustered one, about AB_POINTS points a call, timed stage, pair, pair,
+    # stage (median of REPS each): the same-run A/B behind the sizes at which
+    # the wrappers keep the stage body (B1_STAGE_FASTER, B2_STAGE_FASTER,
+    # B5A_STAGE_FASTER, B6_STAGE_FASTER).
     def ab_sweep(kernel, sizes, stage_faster):
         slower = []
         for size in sizes:
-            if kernel == "B1":
+            if kernel in ("B1", "B6"):
                 n = size
-                plan_ = ftt.VpuFftPlan.create(n, device=dev)
+                plan_ = (ftt.VpuFftPlan if kernel == "B1" else ftt.VpuDdFftPlan).create(
+                    n, device=dev)
                 kw_ = dict(tables=plan_.tables(True), kernel_tables=plan_.kernel_fwd)
-                run = lambda a, c, body: sv.vpu_fft_batch_minor(
-                    a, c, n, True, None, _body=body, **kw_)
+                wrapper = sv.vpu_fft_batch_minor if kernel == "B1" else dv.vpu_dd_fft_batch_minor
+                run = lambda a, c, body: wrapper(a, c, n, True, None, _body=body, **kw_)
             else:
-                n = size // 2  # the largest n whose inner size is M
+                # The largest n whose inner size is M (odd for B5a).
+                n = size // 2 - (kernel == "B5a" and size % 4 == 0)
                 plan_ = ftt.VpuBluesteinPlan.create(n, device=dev)
                 st_ = plan_.stages
-                check(st_.size == size, f"B2 at n={n} plans M={st_.size}, not {size}")
+                check(st_.size == size, f"{kernel} at n={n} plans M={st_.size}, not {size}")
                 kw_ = dict(tables=(st_.tables(True), st_.tables(False)),
                            kernel_tables=(st_.kernel_fwd, st_.kernel_inv),
                            chirps=plan_.chirps(True))
-                run = lambda a, c, body: sv.vpu_bluestein_batch_minor(
-                    a, c, n, size, None, _body=body, **kw_)
+                if kernel == "B2":
+                    run = lambda a, c, body: sv.vpu_bluestein_batch_minor(
+                        a, c, n, size, None, _body=body, **kw_)
+                else:
+                    run = lambda a, c, body: sv.vpu_rfft_odd_pack_batch_minor(
+                        a, n, size, _body=body, **kw_)
             b = AB_POINTS // n
-            a, c = planes(n, b)
+            a, c = planes64(n, b) if kernel == "B6" else planes(n, b)
             got = {"stage": [], "pair": []}
             for body in ("stage", "pair", "pair", "stage"):
                 got[body].append(median_ms(lambda *_: (run(a, c, body), None), None,
@@ -1786,7 +1890,7 @@ def main() -> int:
             ratio = min(got["stage"]) / max(got["pair"])
             if ratio < 1.0:
                 slower.append(size)
-            print(f"time: A/B {kernel} {'n' if kernel == 'B1' else 'M'}={size} (n={n}, "
+            print(f"time: A/B {kernel} {'n' if kernel in ('B1', 'B6') else 'M'}={size} (n={n}, "
                   f"B={b}): stage body {got['stage'][0]:.4f} / {got['stage'][1]:.4f} ms, "
                   f"clustered body {got['pair'][0]:.4f} / {got['pair'][1]:.4f} ms, "
                   f"slower stage / faster pair {ratio:.3f}; the wrapper runs the "
@@ -1801,6 +1905,10 @@ def main() -> int:
                     if sv.fft_pair_geometry(n)], sv.B1_STAGE_FASTER)
     ab_sweep("B2", [m for m in range(64, sv.PAIR_MAX_M + 1)
                     if sv.bluestein_pair_geometry_c64(m)], sv.B2_STAGE_FASTER)
+    ab_sweep("B5a", [m for m in range(64, sv.PAIR_MAX_M + 1)
+                     if sv.rfft_odd_pack_geometry(m)], sv.B5A_STAGE_FASTER)
+    ab_sweep("B6", [n for n in range(64, 2 * sv.PAIR_MAX_M + 1)
+                    if dv.fft_pair_geometry_dd(n)], dv.B6_STAGE_FASTER)
 
     kernels = (
         ("B1", "B1 fused Stockham c64 (vpu_fft_batch_minor; clustered-block body, "
@@ -1811,12 +1919,14 @@ def main() -> int:
         ("B4a", "B4a even-n rfft pack (vpu_rfft_pack_batch_minor; paired-block "
          "body, the stage body of stockham_vpu.cu for odd m and m > 2048)", 529),
         ("B4b", "B4b even-n irfft unpack (vpu_irfft_unpack_batch_minor)", 574),
-        ("B5a", "B5a odd-n rfft two-for-one (vpu_rfft_odd_pack_batch_minor)", 1029),
+        ("B5a", "B5a odd-n rfft two-for-one (vpu_rfft_odd_pack_batch_minor; "
+         "paired-block body, the stage body of stockham_vpu.cu at the other M)", 1029),
         ("B5b", "B5b odd-n irfft two-for-one (vpu_irfft_odd_unpack_batch_minor)",
          1051),
     )
     dd_kernels = (
-        ("B6", "B6 fused Stockham c128 f64 (vpu_dd_fft_batch_minor)",
+        ("B6", "B6 fused Stockham c128 f64 (vpu_dd_fft_batch_minor; clustered-block "
+         "body, the stage body of stockham_vpu_dd.cu at the other n)",
          "stockham_vpu_dd.py:344"),
         ("B7", "B7 fused Bluestein c128 f64 (vpu_dd_bluestein_batch_minor; "
          "paired-block body)",
@@ -1829,10 +1939,12 @@ def main() -> int:
         ("B9b", "B9b fused two-phase DFT c64 (mxu_fft_two_phase)", "bailey.py:92"),
     )
     pair_libs = {"B1": sv.FFT_PAIR_LIBRARY, "B2": sv.BLUESTEIN_PAIR_LIBRARY,
-                 "B4a": sv.PAIR_LIBRARY}
+                 "B4a": sv.PAIR_LIBRARY, "B5a": sv.RFFT_ODD_PAIR_LIBRARY,
+                 "B6": dv.FFT_PAIR_DD_LIBRARY}
     rows = ([(k, name, pair_libs.get(k, sv.LIBRARY),
               f"stockham_vpu.py:{line}") for k, name, line in kernels]
-            + [(k, name, dv.LIBRARY, where) for k, name, where in dd_kernels]
+            + [(k, name, pair_libs.get(k, dv.LIBRARY), where)
+               for k, name, where in dd_kernels]
             + [(k, name, bk.LIBRARY, where) for k, name, where in b9_kernels])
     print(json.dumps({"kernels": [{
         "name": name,

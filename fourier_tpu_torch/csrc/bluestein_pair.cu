@@ -7,7 +7,8 @@
 // Replaces fourier_tpu/ops/pallas/stockham_vpu.py:_bluestein_kernel (:881),
 // launched by vpu_bluestein_batch_minor (:946), for the inner sizes M <=
 // 2048 (n <= 1024) that VpuBluesteinPlan.choose_inner gives, the even m of
-// B1's domain, 64..2048, but M = 1024 (FOURIER_B2_ROWS below) and those of
+// B1's domain, 64..2048, but M = 1024 (FOURIER_B2_ROWS of stockham_pair.cuh,
+// where ptxas spilled in every arrangement of the body tried) and those of
 // B2_STAGE_FASTER, where the stage body won a same-run A/B. The stage body
 // of stockham_vpu.cu (bluestein_planar<float>) stays the kernel there and
 // for M above 2048 (n >= 1025, up to M = 8192), where half a tile of
@@ -21,9 +22,10 @@
 // 4.82 ms for the stage body in the same run: a cluster's tile takes about
 // 26 us, so the passes' latency and barriers, not the bytes, bound it.
 //
-// Design: bluestein_pair of stockham_pair.cuh (B7's body) at float, 512
-// threads a block, 16 points a thread, 8 columns a block at M = 2048 (more
-// where M is small). The two blocks of a cluster share an (M, 32-byte)
+// Design: bluestein_pair of stockham_pair.cuh (B7's and B5a's body) with
+// its default planes (ChirpPlanes) at float, 512 threads a block, 16 points
+// a thread, 8 columns a block at M = 2048 (more where M is small). The two
+// blocks of a cluster share an (M, 32-byte)
 // column group, M/2 rows each; persistent clusters walk the groups, cp.async
 // bringing the next group in while the passes run. The input rows [0, n)
 // lie in the first half of the padded column (M >= 2n - 1), so each rank
@@ -42,25 +44,13 @@ namespace {
 
 constexpr int kThreads = 512;
 
-// The M/2 of the bodies: FOURIER_PAIR_ROWS but 512 (M = 1024), where ptxas
-// spilled in the passes with every arrangement of the body that was tried,
-// so the stage body stays the kernel there
-// (bluestein_pair_geometry_c64 in ops/cuda/stockham_vpu.py;
-// tests/test_torch_pair_kernels.py holds the lists equal).
-#define FOURIER_B2_ROWS(X)                                                    \
-  X(32) X(36) X(40) X(48) X(60) X(64) X(72) X(80) X(96) X(100) X(108) X(120)  \
-  X(128) X(144) X(160) X(180) X(192) X(200) X(216) X(240) X(256) X(288)       \
-  X(300) X(320) X(324) X(360) X(384) X(400) X(432) X(480) X(500) X(540)       \
-  X(576) X(600) X(640) X(648) X(720) X(768) X(800) X(864) X(900) X(960)       \
-  X(972) X(1000) X(1024)
-
 template <int H>
 __global__ void __launch_bounds__(kThreads, 1)
 bluestein_pair_c64(const float* __restrict__ xre, const float* __restrict__ xim,
                    float* __restrict__ yre, float* __restrict__ yim, int n,
                    int batch, ChirpZ<float> t, float scale, int vec) {
-  bluestein_pair<float, kThreads, H>(xre, xim, yre, yim, n, batch, t, scale,
-                                     vec);
+  bluestein_pair<float, kThreads, H>(
+      ChirpPlanes<float>{xre, xim, yre, yim, batch, scale, vec}, n, t);
 }
 
 }  // namespace

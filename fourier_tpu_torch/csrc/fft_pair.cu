@@ -8,7 +8,8 @@
 // by vpu_fft_batch_minor (:1208), for 60 sizes of B1's domain: the 46 n
 // with 8 | n up to 2048 on clusters of C = 2 blocks, and the 14 n in
 // (2048, 4096] whose n/4 is one of those 46 halves on clusters of C = 4
-// (2160, 2304, ..., 4000, 4096). The stage body of stockham_vpu.cu
+// (2160, 2304, ..., 4000, 4096; FOURIER_PAIR_ROWS and FOURIER_B1_QUAD_ROWS
+// in stockham_pair.cuh). The stage body of stockham_vpu.cu
 // (stockham_planar<float>) stays the kernel for 3000 and 3240, for the
 // pure powers 243, 625, 729, 2187, 3125 and 6561, and above 4096, where h =
 // n/4 is no body of the engine, and at the n of B1_STAGE_FASTER, where it
@@ -21,9 +22,10 @@
 // ms, 0.23 of that bound, against 2.12 ms for the stage body in the same
 // run; at 1024 x 65536 0.80 ms against 1.52.
 //
-// Design: the clustered-block engine of stockham_pair.cuh at float, 512
-// threads a block, 16 points a thread, the passes of h = n/C fixed at
-// compile time for each size. Rank r of a cluster copies rows [r*h,
+// Design: fft_pair of the clustered-block engine (stockham_pair.cuh; B6's
+// body at double) at float, 512 threads a block, 16 points a thread, the
+// passes of h = n/C fixed at compile time for each size. Rank r of a
+// cluster copies rows [r*h,
 // (r+1)*h) of both planes, 32-byte runs of 8 columns (more where h is
 // small), into its own buffer; the first pass reads all C ranks' rows for
 // the cross-block radix-C split, v_r[p] = W_n^(r*p) * sum_s a_s[p] *
@@ -45,146 +47,22 @@ namespace {
 
 constexpr int kThreads = 512;
 
-// The forward DFT for n = C*H, times `scale`. `twre`/`twim`: the (C-1)*H
-// split twiddles W_n^(r*p) (rank r = 1..C-1, p < H), then the pass tables;
-// `vec`: 16-byte copies and stores.
+// The forward DFT for n = C*H, times `scale`: fft_pair of
+// stockham_pair.cuh at float. `twre`/`twim`: the (C-1)*H split twiddles
+// W_n^(r*p) (rank r = 1..C-1, p < H), then the pass tables; `vec`: 16-byte
+// copies and stores.
 template <int C, int H>
 __global__ void __launch_bounds__(kThreads, 1)
 fft_pair_c64(const float* __restrict__ xre, const float* __restrict__ xim,
              float* __restrict__ yre, float* __restrict__ yim, int batch,
              const float* __restrict__ twre, const float* __restrict__ twim,
              float scale, int vec) {
-  using Tile = PairTile<float, kThreads, H>;
-  constexpr int cols = Tile::kCols, logc = Tile::kLogC, plane = H * cols;
-  cg::cluster_group cluster = cg::this_cluster();
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* const smem = reinterpret_cast<float*>(smem_raw);
-  const size_t bs = static_cast<size_t>(batch);
-  const int ntiles = (batch + cols - 1) >> logc;
-  // Rows [rank*H, (rank+1)*H) of both planes into rows 0..H-1, for the
-  // columns of tile t below B. The copy loops are not unrolled: unrolled,
-  // ptxas spilled a register of four of the sixty bodies.
-  auto fetch = [&](int t, float* sre, float* sim) {
-    const int b0 = t << logc;
-    const size_t src = static_cast<size_t>(cluster_rank()) * H * bs + b0;
-    if (vec) {
-      constexpr int lc = logc - 2;  // a row is 1 << lc 16-byte chunks
-#pragma unroll 1
-      for (int e = thread_x(); e < (2 * H) << lc; e += kThreads) {
-        const int c4 = (e & ((1 << lc) - 1)) << 2, rr = e >> lc;
-        if (b0 + c4 < batch) {
-          const int row = rr >> 1;
-          copy_async<16>((rr & 1 ? sim : sre) + Tile::index(row, c4),
-                         (rr & 1 ? xim : xre) + src + row * bs + c4);
-        }
-      }
-    } else {
-#pragma unroll 1
-      for (int e = thread_x(); e < (2 * H) << logc; e += kThreads) {
-        const int col = e & (cols - 1), rr = e >> logc;
-        if (b0 + col < batch) {
-          const int row = rr >> 1;
-          copy_async<4>((rr & 1 ? sim : sre) + Tile::index(row, col),
-                        (rr & 1 ? xim : xre) + src + row * bs + col);
-        }
-      }
-    }
-  };
-  int buf = 0;
-  int t = cluster_id();
-  if (t < ntiles) fetch(t, smem, smem + plane);
-  copy_commit();
-  for (; t < ntiles; t += cluster_count(), buf ^= 1) {
-    float* sre = smem + 2 * buf * plane;
-    float* sim = sre + plane;
-    if (t + cluster_count() < ntiles) {
-      float* next = smem + 2 * (buf ^ 1) * plane;
-      fetch(t + cluster_count(), next, next + plane);
-    }
-    copy_commit();
-    copy_wait_previous();
-    cluster.sync();  // every rank's rows of tile t are in shared memory
-    // Row p of every rank through this rank's output of the radix-C step,
-    // v = sum_s a_s * W_C^(rank*s): a_0 + (-1)^rank * a_1 (C = 2), or
-    // u + W_4^rank * w with u = a_0 + (-1)^rank * a_2 and w = a_1 +
-    // (-1)^rank * a_3 (C = 4); times W_n^(rank*p). The ranks' tiles are
-    // read at 32-bit shared::cluster addresses, and only this rank's output
-    // is formed, so few registers are live across the first pass's loads.
-    unsigned are[C], aim[C];
-#pragma unroll
-    for (int s = 0; s < C; ++s) {
-      are[s] = cluster_addr(sre, s);
-      aim[s] = cluster_addr(sim, s);
-    }
-    auto split = [&](int row, int col, float& re, float& im) {
-      const int rank = cluster_rank();
-      const unsigned off = 4u * static_cast<unsigned>(Tile::index(row, col));
-      float ar[C], ai[C];
-#pragma unroll
-      for (int s = 0; s < C; ++s) {
-        ar[s] = load_cluster<float>(are[s] + off);
-        ai[s] = load_cluster<float>(aim[s] + off);
-      }
-      const float rho = rank & 1 ? -1.0f : 1.0f;
-      if constexpr (C == 2) {
-        re = ar[0] + rho * ar[1];
-        im = ai[0] + rho * ai[1];
-      } else {
-        const float ur = ar[0] + rho * ar[2], ui = ai[0] + rho * ai[2];
-        float wr = ar[1] + rho * ar[3], wi = ai[1] + rho * ai[3];
-        // W_4^rank = 1, -i, -1, i.
-        cmul(wr, wi, static_cast<float>((rank == 0) - (rank == 2)),
-             static_cast<float>((rank == 3) - (rank == 1)));
-        re = ur + wr;
-        im = ui + wi;
-      }
-      if (rank > 0) {
-        const int w = (rank - 1) * H + row;
-        cmul(re, im, __ldg(twre + w), __ldg(twim + w));
-      }
-    };
-    auto split_done = [&] { cluster.sync(); };  // the partners read their rows
-    pair_passes<0, true, Tile, kThreads, (C - 1) * H>(sre, sim, twre, twim, split,
-                                                      split_done, NoHook{});
-    // Row k holds X[C*k + rank]: output row C*k + rank, times the scale.
-    const int b0 = t << logc;
-    if (vec) {
-      constexpr int lc = logc - 2;
-      for (int e = thread_x(); e < H << lc; e += kThreads) {
-        const int c4 = (e & ((1 << lc) - 1)) << 2, k = e >> lc;
-        if (b0 + c4 >= batch) continue;
-        const int s = Tile::index(k, c4);
-        const float4 a = *reinterpret_cast<const float4*>(sre + s);
-        const float4 b = *reinterpret_cast<const float4*>(sim + s);
-        const float vr[4] = {a.x * scale, a.y * scale, a.z * scale, a.w * scale};
-        const float vi[4] = {b.x * scale, b.y * scale, b.z * scale, b.w * scale};
-        const size_t g = static_cast<size_t>(C * k + cluster_rank()) * bs + b0 + c4;
-        store16(yre + g, vr);
-        store16(yim + g, vi);
-      }
-    } else {
-      for (int e = thread_x(); e < H << logc; e += kThreads) {
-        const int col = e & (cols - 1), k = e >> logc;
-        if (b0 + col >= batch) continue;
-        const int s = Tile::index(k, col);
-        const size_t g = static_cast<size_t>(C * k + cluster_rank()) * bs + b0 + col;
-        yre[g] = sre[s] * scale;
-        yim[g] = sim[s] * scale;
-      }
-    }
-    __syncthreads();  // the next copy into this buffer follows the stores
-  }
-  cluster.sync();  // a partner may still read this block's tile
+  fft_pair<float, kThreads, C, H>(xre, xim, yre, yim, batch, twre, twim, scale,
+                                  vec);
 }
 
-// The h = n/4 of the four-block bodies: n in (2048, 4096] of B1's domain
-// with n/4 in FOURIER_PAIR_ROWS (fft_pair_geometry in
-// ops/cuda/stockham_vpu.py; tests/test_torch_pair_kernels.py holds the
-// lists equal). The two-block bodies are FOURIER_PAIR_ROWS.
-#define FOURIER_B1_QUAD_ROWS(X)                                               \
-  X(540) X(576) X(600) X(640) X(648) X(720) X(768) X(800) X(864) X(900)       \
-  X(960) X(972) X(1000) X(1024)
-
+// The two-block bodies are FOURIER_PAIR_ROWS, the four-block ones
+// FOURIER_B1_QUAD_ROWS (both in stockham_pair.cuh).
 using Body = void (*)(const float*, const float*, float*, float*, int,
                       const float*, const float*, float, int);
 

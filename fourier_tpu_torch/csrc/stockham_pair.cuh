@@ -1,8 +1,9 @@
 // Clustered-block Stockham engine for NVIDIA Hopper sm_90a: the stage code
 // of the redesigned kernels B1 (fft_pair.cu), B2 (bluestein_pair.cu), B4a
-// (rfft_pack_pair.cu), all float, and B7 (stockham_vpu_dd.cu, double). B3,
-// B4b, B5 and B6, and B1 and B2 at the sizes their clustered bodies do not
-// cover, keep the stage code of stockham_stages.cuh; this header reuses its
+// (rfft_pack_pair.cu) and B5a (rfft_odd_pair.cu), all float, and B6
+// (fft_pair_dd.cu) and B7 (stockham_vpu_dd.cu), double. B3, B4b and B5b,
+// and B1, B2, B5a and B6 at the sizes their clustered bodies do not cover,
+// keep the stage code of stockham_stages.cuh; this header reuses its
 // butterflies.
 //
 // The layout. A column group is 32 bytes of a row (8 float or 4 double
@@ -19,7 +20,8 @@
 // v = (a - b) * W_M^p on rank 1. After it each block runs an independent
 // h-point Stockham transform over its own tile of h rows, so each block
 // holds one tile in each of two buffers: at h = 1024, 2 x 64 KiB in f32 (8
-// columns) and in f64 (4 columns); B1 at n = 4096 takes C = 4 for this h.
+// columns) and in f64 (4 columns); B1 and B6 take C = 4 for n in (2048,
+// 4096].
 // Where h is smaller, a tile takes several
 // adjacent groups, up to kPairPoints points a thread. The split twiddles
 // W_M^(r*p), r = 1..C-1, are the (C-1)*h entries before the pass tables
@@ -55,7 +57,9 @@
 // tiles, and was no faster than the stage body.
 //
 // Registers. A float body has 512 threads and so at most 128 registers a
-// thread, and the passes of the mixed-radix heights use nearly all of them:
+// thread (a double body, B6 and B7, has 256 threads, 16 points a thread
+// too, and up to 255), and the passes of the mixed-radix heights use
+// nearly all of them:
 // any value kept live across the passes can make ptxas spill. So the thread
 // index, the block's rank, the cluster's index and the grid's clusters are
 // read where they are used, through volatile asm (thread_x, cluster_rank,
@@ -451,47 +455,242 @@ __device__ __forceinline__ int cluster_count() {
   return r;
 }
 
-// The paired-block chirp-z body of B2 (float, bluestein_pair.cu) and B7
-// (double, stockham_vpu_dd.cu) over M = 2H, on a pair of blocks. The input
-// rows [0, n) are all in the first half of the padded column (n <= H), so
-// the cross-block split has b = 0: rank 0 transforms u = a * xt, rank 1
-// v = a * xt * W_M^row, rows n.. read as zeros, never copied. The ranks
-// copy half of the input rows each, at their rows in their own buffers, and
-// the first forward pass reads them across the pair; the last forward pass
-// stores times wt at frequency 2*row + rank; after the inverse passes each
-// rank stores half of the rows p < n of (E[p] + W_M^-p * O[p]) * xo[p] *
-// scale, E from rank 0 and O from rank 1. The t.fw* and t.iv* tables hold
-// the H split twiddles of their direction, then the pass tables; `vec`:
-// 16-byte copies and stores. The tile and passes of M = 2H are fixed at
-// compile time.
-template <typename T, int Threads, int H>
-__device__ __forceinline__ void bluestein_pair(const T* __restrict__ xre,
-                                               const T* __restrict__ xim,
-                                               T* __restrict__ yre,
-                                               T* __restrict__ yim, int n,
-                                               int batch, const ChirpZ<T>& t,
-                                               T scale, int vec) {
-  cg::cluster_group cluster = cg::this_cluster();
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* const smem = reinterpret_cast<T*>(smem_raw);
+// A 16-byte load from shared memory of 4 float or 2 double values.
+__device__ __forceinline__ void load16(const float* src, float (&v)[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(src);
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = a.z;
+  v[3] = a.w;
+}
+
+__device__ __forceinline__ void load16(const double* src, double (&v)[2]) {
+  const double2 a = *reinterpret_cast<const double2*>(src);
+  v[0] = a.x;
+  v[1] = a.y;
+}
+
+// The clustered-block body of B1 (float, fft_pair.cu) and B6 (double,
+// fft_pair_dd.cu): the forward DFT of every column of the planar (n, B)
+// input, n = C*H, times `scale`, into the planar (n, B) output. Rank r
+// copies rows [r*H, (r+1)*H) of both planes into its own buffer; the first
+// pass reads all C ranks' rows for the cross-block radix-C split (see the
+// top of this file); after the passes row k holds X[C*k + r], stored to
+// output row C*k + r. `twre`/`twim`: the (C-1)*H split twiddles W_n^(r*p)
+// (rank r = 1..C-1, p < H), then the pass tables; `vec`: 16-byte copies and
+// stores (kV values a chunk). The inverse is this body on the planes
+// exchanged (the host swaps the pointers).
+template <typename T, int Threads, int C, int H>
+__device__ __forceinline__ void fft_pair(const T* __restrict__ xre,
+                                         const T* __restrict__ xim,
+                                         T* __restrict__ yre, T* __restrict__ yim,
+                                         int batch, const T* __restrict__ twre,
+                                         const T* __restrict__ twim, T scale,
+                                         int vec) {
   using Tile = PairTile<T, Threads, H>;
   constexpr int cols = Tile::kCols, logc = Tile::kLogC, plane = H * cols;
   constexpr int kV = 16 / static_cast<int>(sizeof(T));  // values a 16-byte chunk
   constexpr int kLogV = pair_exponent(kV, 2);
   constexpr unsigned kItem = sizeof(T);
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const smem = reinterpret_cast<T*>(smem_raw);
   const size_t bs = static_cast<size_t>(batch);
-  // Input rows [0, n) are split between the ranks at (n + 1) / 2: this
-  // block's rows [r0, r1), copied into its own buffer at the same rows.
-  auto own_rows = [&](int& r0, int& r1) {
-    const int n0 = (n + 1) / 2;
-    const bool first = cluster_rank() == 0;
-    r0 = first ? 0 : n0;
-    r1 = first ? n0 : n;
+  const int ntiles = (batch + cols - 1) >> logc;
+  // Rows [rank*H, (rank+1)*H) of both planes into rows 0..H-1, for the
+  // columns of tile t below B. The copy loops are not unrolled: unrolled,
+  // ptxas spilled a register of four of B1's sixty bodies.
+  auto fetch = [&](int t, T* sre, T* sim) {
+    const int b0 = t << logc;
+    const size_t src = static_cast<size_t>(cluster_rank()) * H * bs + b0;
+    if (vec) {
+      constexpr int lc = logc - kLogV;  // a row is 1 << lc 16-byte chunks
+#pragma unroll 1
+      for (int e = thread_x(); e < (2 * H) << lc; e += Threads) {
+        const int c = (e & ((1 << lc) - 1)) << kLogV, rr = e >> lc;
+        if (b0 + c < batch) {
+          const int row = rr >> 1;
+          copy_async<16>((rr & 1 ? sim : sre) + Tile::index(row, c),
+                         (rr & 1 ? xim : xre) + src + row * bs + c);
+        }
+      }
+    } else {
+#pragma unroll 1
+      for (int e = thread_x(); e < (2 * H) << logc; e += Threads) {
+        const int col = e & (cols - 1), rr = e >> logc;
+        if (b0 + col < batch) {
+          const int row = rr >> 1;
+          copy_async<static_cast<int>(sizeof(T))>(
+              (rr & 1 ? sim : sre) + Tile::index(row, col),
+              (rr & 1 ? xim : xre) + src + row * bs + col);
+        }
+      }
+    }
   };
-  auto fetch = [&](int tile, T* sre, T* sim) {
-    const int b0 = tile << logc;
+  int buf = 0;
+  int t = cluster_id();
+  if (t < ntiles) fetch(t, smem, smem + plane);
+  copy_commit();
+  for (; t < ntiles; t += cluster_count(), buf ^= 1) {
+    T* sre = smem + 2 * buf * plane;
+    T* sim = sre + plane;
+    if (t + cluster_count() < ntiles) {
+      T* next = smem + 2 * (buf ^ 1) * plane;
+      fetch(t + cluster_count(), next, next + plane);
+    }
+    copy_commit();
+    copy_wait_previous();
+    cluster.sync();  // every rank's rows of tile t are in shared memory
+    // Row p of every rank through this rank's output of the radix-C step,
+    // v = sum_s a_s * W_C^(rank*s): a_0 + (-1)^rank * a_1 (C = 2), or
+    // u + W_4^rank * w with u = a_0 + (-1)^rank * a_2 and w = a_1 +
+    // (-1)^rank * a_3 (C = 4); times W_n^(rank*p). The ranks' tiles are
+    // read at 32-bit shared::cluster addresses, and only this rank's output
+    // is formed, so few registers are live across the first pass's loads.
+    unsigned are[C], aim[C];
+#pragma unroll
+    for (int s = 0; s < C; ++s) {
+      are[s] = cluster_addr(sre, s);
+      aim[s] = cluster_addr(sim, s);
+    }
+    auto split = [&](int row, int col, T& re, T& im) {
+      const int rank = cluster_rank();
+      const unsigned off = kItem * static_cast<unsigned>(Tile::index(row, col));
+      T ar[C], ai[C];
+#pragma unroll
+      for (int s = 0; s < C; ++s) {
+        ar[s] = load_cluster<T>(are[s] + off);
+        ai[s] = load_cluster<T>(aim[s] + off);
+      }
+      const T rho = rank & 1 ? static_cast<T>(-1) : static_cast<T>(1);
+      if constexpr (C == 2) {
+        re = ar[0] + rho * ar[1];
+        im = ai[0] + rho * ai[1];
+      } else {
+        const T ur = ar[0] + rho * ar[2], ui = ai[0] + rho * ai[2];
+        T wr = ar[1] + rho * ar[3], wi = ai[1] + rho * ai[3];
+        // W_4^rank = 1, -i, -1, i.
+        cmul(wr, wi, static_cast<T>((rank == 0) - (rank == 2)),
+             static_cast<T>((rank == 3) - (rank == 1)));
+        re = ur + wr;
+        im = ui + wi;
+      }
+      if (rank > 0) {
+        const int w = (rank - 1) * H + row;
+        cmul(re, im, __ldg(twre + w), __ldg(twim + w));
+      }
+    };
+    auto split_done = [&] { cluster.sync(); };  // the partners read their rows
+    pair_passes<0, true, Tile, Threads, (C - 1) * H>(sre, sim, twre, twim, split,
+                                                     split_done, NoHook{});
+    // Row k holds X[C*k + rank]: output row C*k + rank, times the scale.
+    const int b0 = t << logc;
+    if (vec) {
+      constexpr int lc = logc - kLogV;
+      for (int e = thread_x(); e < H << lc; e += Threads) {
+        const int c = (e & ((1 << lc) - 1)) << kLogV, k = e >> lc;
+        if (b0 + c >= batch) continue;
+        const int s = Tile::index(k, c);
+        T a[kV], b[kV], vr[kV], vi[kV];
+        load16(sre + s, a);
+        load16(sim + s, b);
+#pragma unroll
+        for (int u = 0; u < kV; ++u) {
+          vr[u] = a[u] * scale;
+          vi[u] = b[u] * scale;
+        }
+        const size_t g = static_cast<size_t>(C * k + cluster_rank()) * bs + b0 + c;
+        store16(yre + g, vr);
+        store16(yim + g, vi);
+      }
+    } else {
+      for (int e = thread_x(); e < H << logc; e += Threads) {
+        const int col = e & (cols - 1), k = e >> logc;
+        if (b0 + col >= batch) continue;
+        const int s = Tile::index(k, col);
+        const size_t g = static_cast<size_t>(C * k + cluster_rank()) * bs + b0 + col;
+        yre[g] = sre[s] * scale;
+        yim[g] = sim[s] * scale;
+      }
+    }
+    __syncthreads();  // the next copy into this buffer follows the stores
+  }
+  cluster.sync();  // a partner may still read this block's tile
+}
+
+// The input rows [r0, r1) a rank of a chirp-z body copies: the n rows split
+// at (n + 1) / 2.
+__device__ __forceinline__ void pair_input_rows(int n, int& r0, int& r1) {
+  const int n0 = (n + 1) / 2;
+  const bool first = cluster_rank() == 0;
+  r0 = first ? 0 : n0;
+  r1 = first ? n0 : n;
+}
+
+// Input row `row` < n of column `col` of a chirp-z body's tile, read from the
+// rank that copied it (pair_input_rows).
+template <class Tile, typename T>
+__device__ __forceinline__ void pair_input(int row, int col, const T* sre,
+                                           const T* sim, int n, T& re, T& im) {
+  constexpr unsigned kItem = sizeof(T);
+  const unsigned e = kItem * Tile::index(row, col);
+  const int src = row < (n + 1) / 2 ? 0 : 1;
+  re = load_cluster<T>(cluster_addr(sre, src) + e);
+  im = load_cluster<T>(cluster_addr(sim, src) + e);
+}
+
+// Row p of the chirp-z's M-point inverse at `width` (1 or kV) adjacent
+// columns from tile offset `s` (bytes) on: (E[p] + W_M^-p * O[p]) * c, E
+// from rank 0's finished tile (er, ei), O from rank 1's (o_r, o_i), (wr, wi)
+// = W_M^-p and (cr, ci) = c, into the first `width` entries of (vr, vi).
+template <typename T, int kV>
+__device__ __forceinline__ void pair_join(unsigned er, unsigned ei, unsigned o_r,
+                                          unsigned o_i, unsigned s, int width,
+                                          T wr, T wi, T cr, T ci, T (&vr)[kV],
+                                          T (&vi)[kV]) {
+  constexpr unsigned kItem = sizeof(T);
+#pragma unroll
+  for (int u = 0; u < kV; ++u) {
+    if (u >= width) break;
+    const unsigned su = s + kItem * u;
+    T o_re = load_cluster<T>(o_r + su), o_im = load_cluster<T>(o_i + su);
+    cmul(o_re, o_im, wr, wi);
+    vr[u] = load_cluster<T>(er + su) + o_re;
+    vi[u] = load_cluster<T>(ei + su) + o_im;
+    cmul(vr[u], vi[u], cr, ci);
+  }
+}
+
+// The default input and output of bluestein_pair (B2, B7): the planar
+// (n, B) input and output planes, B = `batch`, whose B columns the clusters
+// walk; each rank copies its half of the input rows at their rows in its
+// own buffer (`fetch`), where the first pass reads them (pair_input), and
+// each rank stores half of the output rows, times xo * `scale` (`store`);
+// `vec`: 16-byte copies and stores. A kernel that reads or writes other
+// planes (B5a's two-for-one in rfft_odd_pair.cu) passes its own policy
+// with these three members.
+template <typename T>
+struct ChirpPlanes {
+  static constexpr int kV = 16 / static_cast<int>(sizeof(T));  // values a chunk
+  static constexpr int kLogV = pair_exponent(kV, 2);
+  static constexpr unsigned kItem = sizeof(T);
+  const T* xre;
+  const T* xim;
+  T* yre;
+  T* yim;
+  int batch;
+  T scale;
+  int vec;
+
+  __device__ __forceinline__ int columns() const { return batch; }
+
+  // This rank's input rows of the columns b0.. of a tile into its buffer.
+  template <class Tile, int Threads>
+  __device__ __forceinline__ void fetch(int b0, int n, T* sre, T* sim) const {
+    constexpr int cols = Tile::kCols, logc = Tile::kLogC;
+    const size_t bs = static_cast<size_t>(batch);
     int r0, r1;
-    own_rows(r0, r1);
+    pair_input_rows(n, r0, r1);
     if (vec) {
       constexpr int lc = logc - kLogV;  // a row is 1 << lc 16-byte chunks
       const int total = (2 * (r1 - r0)) << lc;
@@ -515,36 +714,92 @@ __device__ __forceinline__ void bluestein_pair(const T* __restrict__ xre,
         }
       }
     }
-  };
+  }
+
+  // This block's output rows [r0, r1) of the columns b0.. of a tile.
+  template <class Tile, int Threads>
+  __device__ __forceinline__ void store(int b0, int n, T* sre, T* sim,
+                                        const ChirpZ<T>& t) const {
+    constexpr int logc = Tile::kLogC;
+    const unsigned er = cluster_addr(sre, 0), ei = cluster_addr(sim, 0);
+    const unsigned o_r = cluster_addr(sre, 1), o_i = cluster_addr(sim, 1);
+    const size_t bs = static_cast<size_t>(batch);
+    int r0, r1;
+    pair_input_rows(n, r0, r1);
+    const int lc = vec ? logc - kLogV : logc;
+    const int width = vec ? kV : 1;
+    const int total = (r1 - r0) << lc;
+    for (int e = thread_x(); e < total; e += Threads) {
+      const int c = (e & ((1 << lc) - 1)) * width, p = r0 + (e >> lc);
+      if (b0 + c >= batch) continue;
+      T vr[kV] = {}, vi[kV] = {};
+      pair_join(er, ei, o_r, o_i, kItem * Tile::index(p, c), width,
+                __ldg(t.ivre + p), __ldg(t.ivim + p), __ldg(t.xore + p) * scale,
+                __ldg(t.xoim + p) * scale, vr, vi);
+      const size_t g = static_cast<size_t>(p) * bs + b0 + c;
+      if (vec) {
+        store16(yre + g, vr);
+        store16(yim + g, vi);
+      } else {
+        yre[g] = vr[0];
+        yim[g] = vi[0];
+      }
+    }
+  }
+};
+
+// The paired-block chirp-z body of B2 (float, bluestein_pair.cu), B7
+// (double, stockham_vpu_dd.cu) and B5a (float, rfft_odd_pair.cu) over M =
+// 2H, on a pair of blocks. The input rows [0, n) are all in the first half
+// of the padded column (n <= H), so the cross-block split has b = 0: rank 0
+// transforms u = a * xt, rank 1 v = a * xt * W_M^row, rows n.. read as
+// zeros, never copied. The policy `io` (ChirpPlanes above for B2 and B7)
+// gives the columns the clusters walk (`columns`), copies a tile's input
+// rows into a rank's buffer (`fetch`, cp.async: rows [0, (n+1)/2) on rank
+// 0, the rest on rank 1, where the first forward pass reads them,
+// pair_input), and, once both ranks' inverse passes are done, stores the
+// tile's output (`store`, which may read both ranks' tiles, rank 0 holding
+// E and rank 1 O of the M-point inverse, and may write its own after a
+// cluster barrier). The last forward pass stores times wt at frequency
+// 2*row + rank. The t.fw* and t.iv* tables hold the H split twiddles of
+// their direction, then the pass tables. The tile and passes of M = 2H are
+// fixed at compile time.
+template <typename T, int Threads, int H, class IO>
+__device__ __forceinline__ void bluestein_pair(const IO& io, int n,
+                                               const ChirpZ<T>& t) {
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const smem = reinterpret_cast<T*>(smem_raw);
+  using Tile = PairTile<T, Threads, H>;
+  constexpr int logc = Tile::kLogC, plane = H * Tile::kCols;
   // Cluster c walks tiles c, c + clusters, ...; its k-th tile is in
   // buffer k mod 2. The walk's state is the tile alone: the rest is read
   // again where it is used.
-  if ((cluster_id() << logc) < batch) fetch(cluster_id(), smem, smem + plane);
+  if ((cluster_id() << logc) < io.columns()) {
+    io.template fetch<Tile, Threads>(cluster_id() << logc, n, smem, smem + plane);
+  }
   copy_commit();
-  for (int tile = cluster_id(); (tile << logc) < batch; tile += cluster_count()) {
+  for (int tile = cluster_id(); (tile << logc) < io.columns();
+       tile += cluster_count()) {
     const int buf = (tile / cluster_count()) & 1;
     T* sre = smem + 2 * buf * plane;
     T* sim = sre + plane;
     const int next_tile = tile + cluster_count();
-    if ((next_tile << logc) < batch) {
+    if ((next_tile << logc) < io.columns()) {
       T* next = smem + 2 * (buf ^ 1) * plane;
-      fetch(next_tile, next, next + plane);
+      io.template fetch<Tile, Threads>(next_tile << logc, n, next, next + plane);
     }
     copy_commit();
     copy_wait_previous();
     cluster.sync();  // both ranks' rows of the tile are in shared memory
-    // Input row `row` from the rank that copied it, times the input chirp
-    // (and W_M^row on rank 1).
+    // Input row `row` times the input chirp (and W_M^row on rank 1).
     auto chirp_in = [&](int row, int col, T& re, T& im) {
       if (row >= n) {
         re = T(0);
         im = T(0);
         return;
       }
-      const unsigned e = kItem * Tile::index(row, col);
-      const int src = row < (n + 1) / 2 ? 0 : 1;
-      re = load_cluster<T>(cluster_addr(sre, src) + e);
-      im = load_cluster<T>(cluster_addr(sim, src) + e);
+      pair_input<Tile>(row, col, sre, sim, n, re, im);
       cmul(re, im, __ldg(t.xtre + row), __ldg(t.xtim + row));
       if (cluster_rank() == 1) cmul(re, im, __ldg(t.fwre + row), __ldg(t.fwim + row));
     };
@@ -559,41 +814,7 @@ __device__ __forceinline__ void bluestein_pair(const T* __restrict__ xre,
                                             TileLoad<Tile, T>{sre, sim},
                                             BlockSync{}, NoHook{});
     cluster.sync();  // both halves are complete
-    // This block stores output rows [r0, r1): E from rank 0, O from rank 1.
-    const unsigned er = cluster_addr(sre, 0), ei = cluster_addr(sim, 0);
-    const unsigned o_r = cluster_addr(sre, 1), o_i = cluster_addr(sim, 1);
-    int r0, r1;
-    own_rows(r0, r1);
-    const int b0 = tile << logc;
-    const int lc = vec ? logc - kLogV : logc;
-    const int width = vec ? kV : 1;
-    const int total = (r1 - r0) << lc;
-    for (int e = thread_x(); e < total; e += Threads) {
-      const int c = (e & ((1 << lc) - 1)) * width, p = r0 + (e >> lc);
-      if (b0 + c >= batch) continue;
-      const unsigned s = kItem * Tile::index(p, c);
-      const T wr = __ldg(t.ivre + p), wi = __ldg(t.ivim + p);
-      const T cr = __ldg(t.xore + p) * scale, ci = __ldg(t.xoim + p) * scale;
-      T vr[kV] = {}, vi[kV] = {};
-#pragma unroll
-      for (int u = 0; u < kV; ++u) {
-        if (u >= width) break;
-        const unsigned su = s + kItem * u;
-        T o_re = load_cluster<T>(o_r + su), o_im = load_cluster<T>(o_i + su);
-        cmul(o_re, o_im, wr, wi);
-        vr[u] = load_cluster<T>(er + su) + o_re;
-        vi[u] = load_cluster<T>(ei + su) + o_im;
-        cmul(vr[u], vi[u], cr, ci);
-      }
-      const size_t g = static_cast<size_t>(p) * bs + b0 + c;
-      if (vec) {
-        store16(yre + g, vr);
-        store16(yim + g, vi);
-      } else {
-        yre[g] = vr[0];
-        yim[g] = vi[0];
-      }
-    }
+    io.template store<Tile, Threads>(tile << logc, n, sre, sim, t);
     cluster.sync();  // no copy into a buffer the partner still reads
   }
   cluster.sync();  // the partner may still read this block's tile
@@ -602,14 +823,35 @@ __device__ __forceinline__ void bluestein_pair(const T* __restrict__ xre,
 // The h = m/2 of each even m of B1's domain up to 2048 (46 sizes): the
 // heights of B4a's bodies and of B1's two-block ones, and of B2's but 512
 // (rfft_pack_geometry, fft_pair_geometry and bluestein_pair_geometry_c64 in
-// ops/cuda/stockham_vpu.py; tests/test_torch_pair_kernels.py holds the
-// lists equal).
+// ops/cuda/stockham_vpu.py; tests/test_torch_pair_kernels.py holds each
+// list here equal to its Python one).
 #define FOURIER_PAIR_ROWS(X)                                                  \
   X(32) X(36) X(40) X(48) X(60) X(64) X(72) X(80) X(96) X(100) X(108) X(120)  \
   X(128) X(144) X(160) X(180) X(192) X(200) X(216) X(240) X(256) X(288)       \
   X(300) X(320) X(324) X(360) X(384) X(400) X(432) X(480) X(500) X(512)       \
   X(540) X(576) X(600) X(640) X(648) X(720) X(768) X(800) X(864) X(900)       \
   X(960) X(972) X(1000) X(1024)
+
+// The h = n/4 of the four-block bodies of B1 (fft_pair.cu) and B6
+// (fft_pair_dd.cu): n in (2048, 4096] with n/4 in FOURIER_PAIR_ROWS
+// (fft_pair_geometry in ops/cuda/stockham_vpu.py, fft_pair_geometry_dd in
+// ops/cuda/stockham_vpu_dd.py). Their two-block bodies are
+// FOURIER_PAIR_ROWS.
+#define FOURIER_B1_QUAD_ROWS(X)                                               \
+  X(540) X(576) X(600) X(640) X(648) X(720) X(768) X(800) X(864) X(900)       \
+  X(960) X(972) X(1000) X(1024)
+
+// The M/2 of the paired chirp-z bodies of B2 (bluestein_pair.cu):
+// FOURIER_PAIR_ROWS but 512 (M = 1024), where ptxas spilled in the passes
+// with every arrangement of the body that was tried, so the stage body
+// stays the kernel there (bluestein_pair_geometry_c64 in
+// ops/cuda/stockham_vpu.py). B5a's (rfft_odd_pair.cu) are these but 240.
+#define FOURIER_B2_ROWS(X)                                                    \
+  X(32) X(36) X(40) X(48) X(60) X(64) X(72) X(80) X(96) X(100) X(108) X(120)  \
+  X(128) X(144) X(160) X(180) X(192) X(200) X(216) X(240) X(256) X(288)       \
+  X(300) X(320) X(324) X(360) X(384) X(400) X(432) X(480) X(500) X(540)       \
+  X(576) X(600) X(640) X(648) X(720) X(768) X(800) X(864) X(900) X(960)       \
+  X(972) X(1000) X(1024)
 
 // Host side. True when the caller's geometry is the compiled body's for
 // h = `rows`: `cols` columns a tile, `threads` threads, and `npasses`

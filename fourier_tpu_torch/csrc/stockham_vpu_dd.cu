@@ -18,9 +18,12 @@
 // against 5*n*log2(n) f64 flops per column (0.10 ms at 34 TFLOP/s f64 on the
 // same shape).
 //
-// Design: stockham_planar<double> of stockham_stages.cuh, B1's kernel at
-// double, with the stage code, the masked ragged column group and the store
-// scale of B1.
+// Design: the clustered-block body of fft_pair_dd.cu (B1's body at double,
+// a library of its own) is the kernel at the 60 n of fft_pair_geometry_dd;
+// this file's stage body, stockham_planar<double> of stockham_stages.cuh
+// (B1's stage kernel at double, with its stage code, masked ragged column
+// group and store scale), at the rest of the domain (243, 625, 729, 3000,
+// 3240 and the n of B6_STAGE_FASTER):
 // - Schedule. The plan's domain is radix_schedule_dd of the TPU kernel; the
 //   kernel runs kernel_schedule_dd (ops/cuda/stockham_vpu_dd.py), every
 //   radix split into 8, 4, 2, 3 and 5 (27 -> 3, 3, 3; 25 -> 5, 5).
@@ -143,8 +146,8 @@ bluestein_pair_c128(const double* __restrict__ xre,
                     const double* __restrict__ xim, double* __restrict__ yre,
                     double* __restrict__ yim, int n, int batch,
                     ChirpZ<double> t, double scale, int vec) {
-  bluestein_pair<double, Threads, H>(xre, xim, yre, yim, n, batch, t, scale,
-                                     vec);
+  bluestein_pair<double, Threads, H>(
+      ChirpPlanes<double>{xre, xim, yre, yim, batch, scale, vec}, n, t);
 }
 
 template <int R>

@@ -8,7 +8,8 @@ includes headers), and loaded with ``ctypes``. A file lock is taken before
 the library's existence is tested, so concurrent processes neither load a
 half-written library nor build it twice; the compiler writes to a temporary
 name that is renamed into place. :func:`load_all` builds several libraries at
-once, one ``nvcc`` each. ptxas reports each function's registers and spills
+once, one ``nvcc`` each, and ``build_seconds`` keeps each build's time.
+ptxas reports each function's registers and spills
 (``-Xptxas -v``); the report is kept beside the library
 (:func:`resource_usage`).
 """
@@ -22,6 +23,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -37,6 +39,8 @@ NVCC_FLAGS = (
 SOURCE_SUFFIXES = (".cu", ".cuh", ".h")
 
 _loaded: dict = {}
+# Seconds each library's nvcc took, for the libraries this process built.
+build_seconds: dict = {}
 _locks: dict = {}  # one per library, so that two libraries build at once
 _guard = threading.Lock()
 
@@ -80,7 +84,9 @@ def load(name: str) -> ctypes.CDLL:
                 tmp = so.with_suffix(f".tmp{os.getpid()}")
                 cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
                        str(CSRC / f"{name}.cu")]
+                t0 = time.perf_counter()
                 proc = subprocess.run(cmd, capture_output=True, text=True)
+                build_seconds[name] = time.perf_counter() - t0
                 if proc.returncode != 0:
                     raise RuntimeError(
                         f"nvcc failed ({proc.returncode}) for {name}.cu:\n"

@@ -38,12 +38,18 @@ Port of ``fourier_tpu/ops/pallas/stockham_vpu.py`` (all of its kernels):
   :func:`vpu_irfft_odd_unpack_batch_minor_reference` and the wrappers
   :func:`vpu_rfft_odd_pack_batch_minor`,
   :func:`vpu_irfft_odd_unpack_batch_minor`. Column j pairs with column
-  j + ceil(B/2); an unpaired last column runs against zeros.
+  j + ceil(B/2); an unpaired last column runs against zeros. B5a runs the
+  paired-block body of ``csrc/rfft_odd_pair.cu`` (its own library; B2's
+  body with the pairing on its copies and the separation on its store) at
+  B2's inner sizes (:func:`rfft_odd_pack_geometry`) but those of
+  B5A_STAGE_FASTER, and the stage body at the others; B5b runs the stage
+  body.
 
 The stage bodies are one library, built from ``csrc/stockham_vpu.cu``; the
-clustered-block bodies of B1, B2 and B4a (``csrc/stockham_pair.cuh``) are a
-library each, built from ``csrc/fft_pair.cu``, ``csrc/bluestein_pair.cu``
-and ``csrc/rfft_pack_pair.cu``.
+clustered-block bodies of B1, B2, B4a and B5a (``csrc/stockham_pair.cuh``)
+are a library each, built from ``csrc/fft_pair.cu``,
+``csrc/bluestein_pair.cu``, ``csrc/rfft_pack_pair.cu`` and
+``csrc/rfft_odd_pair.cu``.
 
 Each wrapper runs its plain version for tensors on the CPU, and launches its
 kernel (or raises) for tensors on a CUDA device; it counts its launches in
@@ -154,21 +160,29 @@ def radix_schedule(n: int) -> Optional[List[int]]:
 
 
 PAIR_ROWS = tuple(m // 2 for m in range(2, PAIR_MAX_M + 1, 2) if radix_schedule(m))
-# The block heights of B1's bodies, by the blocks of a cluster: PAIR_ROWS on
-# two, its h above 512 on four (FOURIER_B1_QUAD_ROWS in csrc/fft_pair.cu);
-# and of B2's (FOURIER_B2_ROWS in csrc/bluestein_pair.cu): PAIR_ROWS but 512
-# (M = 1024), where ptxas spilled in every arrangement of the body tried, so
-# the stage body stays the kernel there.
+# The block heights of B1's bodies (and B6's at double), by the blocks of a
+# cluster: PAIR_ROWS on two, its h above 512 on four (FOURIER_B1_QUAD_ROWS
+# in csrc/stockham_pair.cuh); and of B2's and B5a's (FOURIER_B2_ROWS there):
+# PAIR_ROWS but 512 (M = 1024), where ptxas spilled in every arrangement of
+# B2's body tried, so the stage body stays the kernel there.
 FFT_PAIR_ROWS = {2: PAIR_ROWS, 4: tuple(h for h in PAIR_ROWS if h > 512)}
 BLUESTEIN_PAIR_ROWS = tuple(h for h in PAIR_ROWS if h != 512)
+# B5a's (FOURIER_B5A_ROWS in csrc/rfft_odd_pair.cu): B2's but 240 (M = 480),
+# where its body spilled in every arrangement of its store tried.
+RFFT_ODD_PAIR_ROWS = tuple(h for h in BLUESTEIN_PAIR_ROWS if h != 240)
 # Sizes with a clustered body that lost to the stage body in a same-run A/B
 # over every such size (chip_smoke.py phase 5g, about 2^26 points a call, on
-# an H100 80GB HBM3 at 700 W; sizes within 2% of a tie went to the body that
-# won most of three runs): there the wrapper launches the stage body. B1 at
-# n, B2 at the inner size M; mostly small non-power-of-two heights, whose
-# tile is one 32-byte column group and leaves most threads idle.
+# an H100 80GB HBM3 at 700 W; a size whose winner changed between runs went
+# to the body that won two of three): there the wrapper launches the stage
+# body.
+# B1 at n, B2 and B5a at the inner size M; mostly small non-power-of-two
+# heights, whose tile is one 32-byte column group and leaves most threads
+# idle, and for B5a mixed-radix heights, whose store takes two steps (1600
+# among the rfft routes' M).
 B1_STAGE_FASTER = frozenset({576, 648, 800, 960, 1000})
 B2_STAGE_FASTER = frozenset({64, 72, 120, 320, 576, 600, 640, 648, 800, 960, 1000})
+B5A_STAGE_FASTER = frozenset({64, 72, 120, 200, 320, 576, 600, 640, 648, 800, 864,
+                              960, 1000, 1080, 1600})
 
 
 def _stage_sizes(n: int, schedule: Sequence[int]):
@@ -350,6 +364,17 @@ def bluestein_pair_geometry_c64(m: int) -> Optional[PairGeometry]:
     return pair_geometry(m, 4, PAIR_THREADS)
 
 
+def rfft_odd_pack_geometry(m: int) -> Optional[PairGeometry]:
+    """B5a's paired-block launch at inner size m, B2's tile
+    (:func:`bluestein_pair_geometry_c64`): two blocks of m/2 rows, each of
+    `cols` column pairs (column j in the re plane, j + ceil(B/2) in the im
+    plane), or None where the stage body stays the kernel: M = 480, 1024
+    and above PAIR_MAX_M (RFFT_ODD_PAIR_ROWS)."""
+    if m % 2 or m // 2 not in RFFT_ODD_PAIR_ROWS:
+        return None
+    return pair_geometry(m, 4, PAIR_THREADS)
+
+
 def stages_reference(re_t, im_t, schedule: Sequence[int], tables,
                      forward: bool, scale: Optional[float]):
     """The stages of a TPU `schedule` over (n, B) planes with its compact
@@ -443,6 +468,10 @@ BLUESTEIN_PAIR_LIBRARY = "bluestein_pair"  # csrc/bluestein_pair.cu: B2's
 BLUESTEIN_PAIR_ENTRY_POINTS = {
     "fourier_bluestein_pair_c64": [_P] * 4 + [_I] * 6 + [_P] * 11 + [_F, _I, _P],
 }
+RFFT_ODD_PAIR_LIBRARY = "rfft_odd_pair"  # csrc/rfft_odd_pair.cu: B5a's
+RFFT_ODD_PAIR_ENTRY_POINTS = {
+    "fourier_rfft_odd_pack_pair_c64": [_P] * 3 + [_I] * 6 + [_P] * 11 + [_I, _P],
+}
 
 
 def library():
@@ -463,6 +492,11 @@ def fft_pair_library():
 def bluestein_pair_library():
     """Build (at first use) and load B2's paired-block library."""
     return build.bind(BLUESTEIN_PAIR_LIBRARY, BLUESTEIN_PAIR_ENTRY_POINTS)
+
+
+def rfft_odd_pair_library():
+    """Build (at first use) and load B5a's paired-block library."""
+    return build.bind(RFFT_ODD_PAIR_LIBRARY, RFFT_ODD_PAIR_ENTRY_POINTS)
 
 
 def fft_pair_clusters(n: int, device) -> int:
@@ -501,7 +535,7 @@ def scale_arg(scale: Optional[float]) -> float:
     return 1.0 if scale is None else float(scale)
 
 
-def _pick_body(what: str, geo, body: Optional[str], stage_faster: bool = False) -> str:
+def pick_body(what: str, geo, body: Optional[str], stage_faster: bool = False) -> str:
     """The body a wrapper launches: `body` if given, else the clustered one
     where its geometry `geo` exists and the stage body is not the faster
     one; a clustered body that does not exist at the size is refused."""
@@ -539,7 +573,7 @@ def vpu_fft_batch_minor(re_t, im_t, n: int, forward: bool,
         return out_re, out_im
     geo = fft_pair_geometry(n)
     data = (re_t.data_ptr(), im_t.data_ptr(), out_re.data_ptr(), out_im.data_ptr())
-    if _pick_body(f"B1 at n={n}", geo, _body, n in B1_STAGE_FASTER) == "pair":
+    if pick_body(f"B1 at n={n}", geo, _body, n in B1_STAGE_FASTER) == "pair":
         tw = pair_device_tables(n, True, torch.float32, re_t.device, geo.ranks)
         build.call(
             fft_pair_library(), "fourier_stockham_pair_c64",
@@ -620,7 +654,7 @@ def vpu_bluestein_batch_minor(re_t, im_t, n: int, m: int,
     if batch == 0:
         return out_re, out_im
     geo = bluestein_pair_geometry_c64(m)
-    if _pick_body(f"B2 at M={m}", geo, _body, m in B2_STAGE_FASTER) == "pair":
+    if pick_body(f"B2 at M={m}", geo, _body, m in B2_STAGE_FASTER) == "pair":
         lib, fn, what = (bluestein_pair_library(), "fourier_bluestein_pair_c64",
                          "B2 (paired blocks)")
         cols, threads, schedule = geo.cols, geo.threads, pass_schedule(geo.rows)
@@ -758,7 +792,7 @@ def vpu_rfft_pack_batch_minor(x_t, m: int, *, tables, kernel_tables, w,
     if batch == 0:
         return out_re, out_im
     geo = rfft_pack_geometry(m)
-    if _pick_body(f"B4a at m={m}", geo, _body) == "pair":
+    if pick_body(f"B4a at m={m}", geo, _body) == "pair":
         tw = pair_device_tables(m, True, torch.float32, x_t.device)
         build.call(
             pair_library(), "fourier_rfft_pack_pair_c64",
@@ -863,17 +897,24 @@ def vpu_irfft_odd_unpack_batch_minor_reference(re_t, im_t, n: int, m: int,
 
 
 def _launch_odd(fn_name: str, what: str, inp, out, n: int, m: int,
-                kernel_tables, chirps, *tail):
+                kernel_tables, chirps, *tail, lib=None, geo=None):
     """Launch B5a or B5b: `inp`/`out` the tensors of the data arguments,
-    `tail` the arguments after the tables."""
+    `tail` the arguments after the tables; the stage body, or the paired
+    body of `lib` with the tile `geo` and the tables of
+    :func:`pair_device_tables`."""
     batch = inp[0].shape[1]
-    cols, threads = launch_geometry(m)
-    kf, ki = kernel_tables
+    if geo is None:
+        lib, (cols, threads), schedule = library(), launch_geometry(m), kernel_schedule(m)
+        kf, ki = kernel_tables
+    else:
+        cols, threads, schedule = geo.cols, geo.threads, pass_schedule(geo.rows)
+        kf, ki = (pair_device_tables(m, fwd, torch.float32, inp[0].device)
+                  for fwd in (True, False))
     xt, wt, xo = chirps
-    _launch(
-        fn_name, f"{what} at n={n}, M={m}, B={batch}",
+    build.call(
+        lib, fn_name, f"{what} at n={n}, M={m}, B={batch}",
         *(t.data_ptr() for t in (*inp, *out)),
-        n, m, batch, cols, threads, *_radices(m),
+        n, m, batch, cols, threads, *radices_arg(schedule),
         kf[0].data_ptr(), kf[1].data_ptr(), ki[0].data_ptr(), ki[1].data_ptr(),
         xt[0].data_ptr(), xt[1].data_ptr(), wt[0].data_ptr(), wt[1].data_ptr(),
         xo[0].data_ptr(), xo[1].data_ptr(),
@@ -882,12 +923,18 @@ def _launch_odd(fn_name: str, what: str, inp, out, n: int, m: int,
 
 
 def vpu_rfft_odd_pack_batch_minor(x_t, n: int, m: int, *, tables,
-                                  kernel_tables, chirps):
+                                  kernel_tables, chirps,
+                                  _body: Optional[str] = None):
     """B5a over a contiguous real f32 (n, B) plane, n odd; returns new planar
     (L, B) spectrum planes, L = (n+1)/2.
 
     `tables`, `kernel_tables`: as for :func:`vpu_bluestein_batch_minor`;
-    `chirps`: the forward (xt, wt, xo); all on the plane's device.
+    `chirps`: the forward (xt, wt, xo); all on the plane's device. The
+    kernel is the paired-block body of ``csrc/rfft_odd_pair.cu`` where
+    :func:`rfft_odd_pack_geometry` gives one and M is not in
+    B5A_STAGE_FASTER (its tables from :func:`pair_device_tables`), else the
+    stage body; `_body` ("pair" or "stage") forces one, for same-run
+    comparisons.
     """
     check_planes(x_t, x_t, (n,), "B5a")
     if x_t.device.type == "cpu":
@@ -900,8 +947,14 @@ def vpu_rfft_odd_pack_batch_minor(x_t, n: int, m: int, *, tables,
     out_im = torch.empty_like(out_re)
     if x_t.shape[1] == 0:
         return out_re, out_im
-    _launch_odd("fourier_rfft_odd_pack_c64", "B5a", (x_t,), (out_re, out_im),
-                n, m, kernel_tables, chirps)
+    geo = rfft_odd_pack_geometry(m)
+    if pick_body(f"B5a at M={m}", geo, _body, m in B5A_STAGE_FASTER) == "pair":
+        _launch_odd("fourier_rfft_odd_pack_pair_c64", "B5a (paired blocks)",
+                    (x_t,), (out_re, out_im), n, m, kernel_tables, chirps,
+                    lib=rfft_odd_pair_library(), geo=geo)
+    else:
+        _launch_odd("fourier_rfft_odd_pack_c64", "B5a", (x_t,), (out_re, out_im),
+                    n, m, kernel_tables, chirps)
     vpu_rfft_odd_pack_batch_minor.launches += 1
     return out_re, out_im
 

@@ -12,14 +12,17 @@ planes (re, im) and the kernels are B1's and B2's stage code at double:
   (the TPU kernel's (n/r, r) dd tables repeat each row `stride` times);
 * B6, the fused all-stages transform: :func:`vpu_dd_fft_batch_minor_reference`
   is the plain PyTorch version, :func:`vpu_dd_fft_batch_minor` the kernel's
-  wrapper;
+  wrapper, which launches the clustered-block body of ``csrc/fft_pair_dd.cu``
+  (B1's body at double, its own library) at the 60 n of
+  :func:`fft_pair_geometry_dd` but those of B6_STAGE_FASTER, and the stage
+  body at the rest of its domain;
 * B7, the fused Bluestein transform: :func:`vpu_dd_bluestein_batch_minor_reference`
   and the wrapper :func:`vpu_dd_bluestein_batch_minor`, which launches the
   paired-block body of ``csrc/stockham_pair.cuh`` (:func:`bluestein_pair_geometry`,
   the pass schedule and tables of :mod:`.stockham_vpu`).
 
-The kernels, and B8 of :mod:`.dd_combine`, are one library built from
-``csrc/stockham_vpu_dd.cu``. Each wrapper runs its plain version for tensors
+The stage bodies, B7's paired body and B8 of :mod:`.dd_combine` are one
+library built from ``csrc/stockham_vpu_dd.cu``. Each wrapper runs its plain version for tensors
 on the CPU, and launches its kernel (or raises) for tensors on a CUDA
 device; it counts its launches in its ``launches`` attribute. B6 (and B7's
 stage body, kept for same-run comparisons) run :func:`kernel_schedule_dd`,
@@ -37,15 +40,17 @@ import numpy as np
 import torch
 
 from fourier_tpu_torch.ops.cuda import build
-from fourier_tpu_torch.ops.cuda.stockham_vpu import (POINTS_PER_THREAD,
+from fourier_tpu_torch.ops.cuda.stockham_vpu import (FFT_PAIR_ROWS,
+                                                     POINTS_PER_THREAD,
                                                      PairGeometry,
                                                      chirp_z_reference,
                                                      check_planes, check_tables,
                                                      kernel_tables,
                                                      pair_device_tables,
                                                      pair_geometry,
-                                                     pass_schedule, radices_arg,
-                                                     scale_arg, split_schedule,
+                                                     pass_schedule, pick_body,
+                                                     radices_arg, scale_arg,
+                                                     split_schedule,
                                                      stage_tables,
                                                      stages_reference,
                                                      stream_of)
@@ -63,10 +68,16 @@ F64 = torch.float64
 MAX_THREADS = 512
 BLOCK_POINTS = MAX_THREADS * POINTS_PER_THREAD
 MAX_COLS = 32
-# Threads a block of B7's paired-block body (kPairThreadsDd in the .cu): 16
-# complex f64 points a thread in a pass, 64 32-bit registers of data, with up
-# to 255 registers a thread at one block an SM.
+# Threads a block of B7's paired-block body (kPairThreadsDd in the .cu) and
+# of B6's clustered ones (kThreads in csrc/fft_pair_dd.cu): 16 complex f64
+# points a thread in a pass, 64 32-bit registers of data, with up to 255
+# registers a thread at one block an SM.
 PAIR_THREADS_DD = 256
+# Sizes at which B6's stage body won a same-run A/B against its clustered
+# body (chip_smoke.py phase 5g, about 2^26 points a call, on an H100 80GB
+# HBM3 at 700 W): there the wrapper would launch the stage body. None: the
+# clustered body won at all 60 n, by 1.003x (n = 640) to 2.05x.
+B6_STAGE_FASTER = frozenset()
 
 
 def radix_schedule_dd(n: int) -> Optional[List[int]]:
@@ -130,6 +141,21 @@ def launch_geometry_dd(n: int) -> Tuple[int, int]:
     return cols, -(-threads // 32) * 32
 
 
+def fft_pair_geometry_dd(n: int) -> Optional[PairGeometry]:
+    """B6's clustered-block launch at n (PAIR_THREADS_DD threads), or None
+    where the stage body stays the kernel: B1's 60 clustered sizes
+    (``fft_pair_geometry`` of :mod:`.stockham_vpu`), two blocks of n/2 rows
+    for 8 | n up to 2048 and four of n/4 for the 14 n in (2048, 4096] whose
+    n/4 is a two-block height; not 243, 625, 729, 3000 or 3240. 4 f64
+    columns a tile at n/C = 1024, 8 at 512, more where n/C is small."""
+    if radix_schedule_dd(n) is None:
+        return None
+    for ranks in (2, 4):
+        if n % ranks == 0 and n // ranks in FFT_PAIR_ROWS[ranks]:
+            return pair_geometry(n, 8, PAIR_THREADS_DD, ranks)
+    return None
+
+
 def bluestein_pair_geometry(m: int) -> PairGeometry:
     """B7's paired-block launch at inner size m (a power of two, 64..2048):
     m/2 rows, 4 f64 columns a group, groups up to 16 points a thread."""
@@ -165,11 +191,34 @@ ENTRY_POINTS = {
     "fourier_bluestein_pair_c128": [_P] * 4 + [_I] * 6 + [_P] * 11 + [_D, _I, _P],
     "fourier_split_combine_c128": [_P] * 4 + [_I] * 3 + [_P] * 2 + [_I, _D, _I, _P],
 }
+FFT_PAIR_DD_LIBRARY = "fft_pair_dd"  # csrc/fft_pair_dd.cu: B6's clustered bodies
+FFT_PAIR_DD_ENTRY_POINTS = {
+    "fourier_stockham_pair_c128": [_P] * 4 + [_I] * 6 + [_P] * 3 + [_I, _D, _I, _P],
+    "fourier_stockham_pair_clusters_c128": [_I] * 4 + [ctypes.POINTER(_I)],
+}
 
 
 def library():
     """Build (at first use) and load the f64 kernel library."""
     return build.bind(LIBRARY, ENTRY_POINTS)
+
+
+def fft_pair_dd_library():
+    """Build (at first use) and load B6's clustered-block library."""
+    return build.bind(FFT_PAIR_DD_LIBRARY, FFT_PAIR_DD_ENTRY_POINTS)
+
+
+def fft_pair_clusters_dd(n: int, device) -> int:
+    """The clusters of B6's clustered body at n that the card keeps at once
+    (cudaOccupancyMaxActiveClusters), the grid of its persistent walk."""
+    geo = fft_pair_geometry_dd(n)
+    if geo is None:
+        raise ValueError(f"B6 has no clustered-block body at n={n}")
+    out = ctypes.c_int(0)
+    build.call(fft_pair_dd_library(), "fourier_stockham_pair_clusters_c128",
+               f"B6's cluster count at n={n}", n, geo.ranks, geo.cols,
+               torch.device(device).index or 0, ctypes.byref(out))
+    return out.value
 
 
 def launch(fn_name: str, what: str, *args) -> None:
@@ -178,13 +227,18 @@ def launch(fn_name: str, what: str, *args) -> None:
 
 
 def vpu_dd_fft_batch_minor(re_t, im_t, n: int, forward: bool,
-                           scale: Optional[float], *, tables, kernel_tables):
+                           scale: Optional[float], *, tables, kernel_tables,
+                           _body: Optional[str] = None):
     """B6 over contiguous planar f64 (n, B) planes; returns new planes.
 
     `tables`: the compact stage tables of :func:`make_stage_tables_dd` as
     tensors (plain version); `kernel_tables`: the (2, L) f64 tensor of
-    :func:`make_kernel_tables_dd` (kernel), both direction-matched and on the
-    planes' device.
+    :func:`make_kernel_tables_dd` (the stage body), both direction-matched
+    and on the planes' device. The kernel is the clustered-block body of
+    ``csrc/fft_pair_dd.cu`` where :func:`fft_pair_geometry_dd` gives one and
+    n is not in B6_STAGE_FASTER (its forward f64 tables, for both
+    directions, from :func:`pair_device_tables`), else the stage body;
+    `_body` ("pair" or "stage") forces one, for same-run comparisons.
     """
     check_planes(re_t, im_t, (n,), "B6", F64)
     if re_t.device.type == "cpu":
@@ -196,14 +250,26 @@ def vpu_dd_fft_batch_minor(re_t, im_t, n: int, forward: bool,
     batch = re_t.shape[1]
     if batch == 0:
         return out_re, out_im
-    cols, threads = launch_geometry_dd(n)
-    launch(
-        "fourier_stockham_c128", f"B6 at n={n}, B={batch}",
-        re_t.data_ptr(), im_t.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
-        n, batch, cols, threads, *radices_arg(kernel_schedule_dd(n)),
-        kernel_tables[0].data_ptr(), kernel_tables[1].data_ptr(),
-        int(forward), scale_arg(scale), re_t.device.index, stream_of(re_t),
-    )
+    geo = fft_pair_geometry_dd(n)
+    data = (re_t.data_ptr(), im_t.data_ptr(), out_re.data_ptr(), out_im.data_ptr())
+    if pick_body(f"B6 at n={n}", geo, _body, n in B6_STAGE_FASTER) == "pair":
+        tw = pair_device_tables(n, True, F64, re_t.device, geo.ranks)
+        build.call(
+            fft_pair_dd_library(), "fourier_stockham_pair_c128",
+            f"B6 ({geo.ranks}-block clusters) at n={n}, B={batch}", *data,
+            n, batch, geo.ranks, geo.cols, geo.threads,
+            *radices_arg(pass_schedule(geo.rows)),
+            tw[0].data_ptr(), tw[1].data_ptr(), int(forward), scale_arg(scale),
+            re_t.device.index, stream_of(re_t),
+        )
+    else:
+        cols, threads = launch_geometry_dd(n)
+        launch(
+            "fourier_stockham_c128", f"B6 at n={n}, B={batch}", *data,
+            n, batch, cols, threads, *radices_arg(kernel_schedule_dd(n)),
+            kernel_tables[0].data_ptr(), kernel_tables[1].data_ptr(),
+            int(forward), scale_arg(scale), re_t.device.index, stream_of(re_t),
+        )
     vpu_dd_fft_batch_minor.launches += 1
     return out_re, out_im
 

@@ -1,4 +1,4 @@
-"""The clustered-block bodies of kernels B1, B2, B4a and B7
+"""The clustered-block bodies of kernels B1, B2, B4a, B5a, B6 and B7
 (csrc/stockham_pair.cuh).
 
 The CUDA kernels run only on a card. Here a numpy transliteration of each
@@ -6,19 +6,29 @@ body's order of operations is held against ``np.fft`` and against the
 unchanged plain versions (``vpu_fft_batch_minor_reference``,
 ``vpu_bluestein_batch_minor_reference``,
 ``vpu_rfft_pack_batch_minor_reference``,
+``vpu_rfft_odd_pack_batch_minor_reference``,
+``vpu_dd_fft_batch_minor_reference``,
 ``vpu_dd_bluestein_batch_minor_reference``): the C blocks of a cluster (two,
-or four for B1 at n in (2048, 4096]), each holding 1/C of the rows of a tile
-in rows swizzled inside their 128-byte lines; the cross-block radix-C split
-on the first pass's read; the passes of ``pass_schedule`` with the tables of
-``pair_tables`` (narrowed to f32 for B1, B2 and B4a); B1's store of row k of
-rank r to output row C*k + r, and its inverse as the forward body on the
-planes exchanged, IDFT(x) = swap(DFT(swap(x))); B4a's even/odd rows copied
-into the re/im planes and the pack read from each block's own rows; the
-chirp-z bodies' (B2, B7) chirp on the first read, w on the last forward
-store and the output chirp on the final store; the persistent walk of the
-clusters over column groups, ending on a ragged group. Columns past B and
-rows never copied are NaN in the emulated shared memory, so a read of either
-would show. Gates: rel-L2 1e-6 (c64), 1e-12 (c128).
+or four for B1 and B6 at n in (2048, 4096]), each holding 1/C of the rows of
+a tile in rows swizzled inside their 128-byte lines; the cross-block radix-C
+split on the first pass's read; the passes of ``pass_schedule`` with the
+tables of ``pair_tables`` (narrowed to f32 for B1, B2, B4a and B5a, f64 for
+B6 and B7); the store of row k of rank r to output row C*k + r of B1 and B6
+(``fft_pair``, the same body at float and at double), and their inverse as
+the forward body on the planes exchanged, IDFT(x) = swap(DFT(swap(x)));
+B4a's even/odd rows copied into the re/im planes and the pack read from
+each block's own rows; the chirp-z bodies' (B2, B7, B5a) chirp on the first
+read, w on the last forward store and the join E + W_M^-p * O times the
+output chirp on the final store; B5a's walk over the ceil(B/2) column pairs,
+column j copied into the re plane and j + ceil(B/2) into the im plane, and
+its separation of the bins k < (n+1)/2 into the two columns; the persistent
+walk of the clusters over column groups, ending on a ragged group. Columns
+past B and rows never copied are NaN in the emulated shared memory, so a
+read of either would show; the one exception is B5a's partner of an
+unpaired last column, written as zeros, which the emulation checks as such.
+Gates: rel-L2 1e-6 (c64), 1e-12 (c128). B5a's and B6's bodies are also held
+against the JAX package's Pallas kernels in interpret mode at one small
+size each.
 
 The launch geometry and schedules are checked over each body's whole
 domain, with the sizes at which each wrapper keeps its stage body, and the
@@ -32,10 +42,16 @@ import numpy as np
 import pytest
 import torch
 
+from fourier_tpu import Transform as JTransform
+from fourier_tpu.ops.pallas import stockham_vpu as jsv
+from fourier_tpu.plan.bluestein_fused import VpuBluesteinPlan as JVpuBluesteinPlan
+from fourier_tpu.precision import ddreal
+from fourier_tpu.precision.vpu_dd_plan import VpuDdFftPlan as JVpuDdFftPlan
+
 from fourier_tpu_torch import Transform, VpuBluesteinPlan, VpuFftPlan
 from fourier_tpu_torch.ops.cuda import stockham_vpu as sv
 from fourier_tpu_torch.ops.cuda import stockham_vpu_dd as dv
-from fourier_tpu_torch.precision import VpuDdBluesteinPlan
+from fourier_tpu_torch.precision import VpuDdBluesteinPlan, VpuDdFftPlan
 from fourier_tpu_torch.rfft import RfftPlan
 
 RNG_SEED = 0xB4A7
@@ -51,6 +67,8 @@ B1_DOMAIN = [m for m in range(64, 16385) if sv.radix_schedule(m) is not None]
 B4A_PAIR = [m for m in B1_DOMAIN if sv.rfft_pack_geometry(m) is not None]
 B7_INNER = (64, 128, 256, 512, 1024, 2048)
 B1_PAIR = [n for n in B1_DOMAIN if sv.fft_pair_geometry(n) is not None]
+B6_DOMAIN = [n for n in range(1, 4097) if dv.radix_schedule_dd(n) is not None]
+B6_PAIR = [n for n in B6_DOMAIN if dv.fft_pair_geometry_dd(n) is not None]
 # Every inner size M that VpuBluesteinPlan.choose_inner gives (n = 17..4096).
 B2_INNER = sorted({m for m in (VpuBluesteinPlan.choose_inner(n, 8192)
                            for n in range(17, 4097)) if m is not None})
@@ -216,12 +234,12 @@ def emulate_b4a_pair(x, m, w):
     return out
 
 
-def emulate_b1_pair(x, n, forward, scale):
-    """fft_pair_c64 on a complex (n, B) array x, in f64 with the f32 tables:
-    the inverse is the forward body on the planes exchanged."""
-    geo = sv.fft_pair_geometry(n)
+def emulate_fft_pair(x, n, forward, scale, geo, real):
+    """fft_pair (B1 at float, B6 at double) on a complex (n, B) array x, in
+    f64 with the tables of pair_tables narrowed to `real`: the inverse is
+    the forward body on the planes exchanged."""
     c, h, cols = geo.ranks, geo.rows, geo.cols
-    tab = _cplx(sv.pair_tables(n, True, np.float32, c))
+    tab = _cplx(sv.pair_tables(n, True, real, c))
     swap = lambda z: z.imag + 1j * z.real
     xin = x if forward else swap(x)
     b = x.shape[1]
@@ -232,7 +250,7 @@ def emulate_b1_pair(x, n, forward, scale):
     for t0 in range(0, ntiles, CLUSTERS):
         tiles = np.arange(t0, min(ntiles, t0 + CLUSTERS))
         cidx, valid = _tile_columns(tiles, cols, b)
-        cl = _Pair(geo, 4, len(tiles))
+        cl = _Pair(geo, np.dtype(real).itemsize, len(tiles))
         for rank in range(c):  # rank r copies rows [r*h, (r+1)*h)
             col = cidx[:, cgrid]
             cl.bufs[rank][:, cl.index(rows, cgrid)] = np.where(
@@ -257,18 +275,64 @@ def emulate_b1_pair(x, n, forward, scale):
     return out
 
 
+def emulate_b1_pair(x, n, forward, scale):
+    """fft_pair_c64 on a complex (n, B) array x, in f64 with the f32
+    tables."""
+    return emulate_fft_pair(x, n, forward, scale, sv.fft_pair_geometry(n), np.float32)
+
+
+def emulate_b6_pair(x, n, forward, scale):
+    """fft_pair_c128 on a complex (n, B) array x, in f64 with the f64
+    tables."""
+    return emulate_fft_pair(x, n, forward, scale, dv.fft_pair_geometry_dd(n), np.float64)
+
+
+def _chirp_passes(pair, n, m, real, chirps):
+    """bluestein_pair's passes on a filled _Pair (rows [0, n0) on rank 0,
+    [n0, n) on rank 1): the input chirp on the first forward read (rank 1
+    also times W_M^row), wt on the last forward store, the inverse passes.
+    Returns the inverse tables, for the join."""
+    fw = _cplx(sv.pair_tables(m, True, real))
+    iv = _cplx(sv.pair_tables(m, False, real))
+    xt, wt = _cplx(chirps[0]), _cplx(chirps[1])
+    n0 = (n + 1) // 2
+
+    def chirp_in(rank, row, col):
+        inside = row < n
+        r = np.where(inside, row, 0)
+        a = np.where(r < n0, pair.load(0, r, col), pair.load(1, r, col))
+        v = a * xt[r]
+        if rank == 1:
+            v = v * fw[row]
+        return np.where(inside, v, 0.0)
+
+    def times_w(rank, row, v):
+        return v * wt[2 * row + rank]
+
+    schedule = sv.pass_schedule(pair.rows)
+    pair.passes(schedule, fw, True, chirp_in, times_w)
+    pair.passes(schedule, iv, False, pair.load)
+    return iv
+
+
+def _join(pair, p, iv, c):
+    """pair_join: (E[p] + W_M^-p * O[p]) * c at rows p (a column array) of
+    every column of the tiles, E from rank 0, O from rank 1."""
+    ccol = np.arange(pair.cols)
+    e = pair.bufs[0][:, pair.index(p, ccol)]
+    o = pair.bufs[1][:, pair.index(p, ccol)]
+    return (e + iv[p] * o) * c
+
+
 def emulate_chirp_pair(x, n, m, chirps, scale, geo, real):
     """bluestein_pair (B2 at float, B7 at double) on a complex (n, B) array
     x, in f64 with the tables of pair_tables narrowed to `real`."""
-    h, cols = geo.rows, geo.cols
-    fw = _cplx(sv.pair_tables(m, True, real))
-    iv = _cplx(sv.pair_tables(m, False, real))
-    xt, wt, xo = (_cplx(c) for c in chirps)
+    cols = geo.cols
+    xo = _cplx(chirps[2])
     b = x.shape[1]
     ntiles = -(-b // cols)
     out = np.full((n, b), np.nan, complex)
     n0 = (n + 1) // 2  # rank 0 copies input rows [0, n0), rank 1 [n0, n)
-    schedule = sv.pass_schedule(h)
     itemsize = np.dtype(real).itemsize
     for t0 in range(0, ntiles, CLUSTERS):
         tiles = np.arange(t0, min(ntiles, t0 + CLUSTERS))
@@ -280,27 +344,10 @@ def emulate_chirp_pair(x, n, m, chirps, scale, geo, real):
             col = cidx[:, cgrid]
             pair.bufs[rank][:, pair.index(rows, cgrid)] = np.where(
                 valid[:, cgrid], x[rows, np.minimum(col, b - 1)], np.nan)
-
-        def chirp_in(rank, row, col):
-            inside = row < n
-            r = np.where(inside, row, 0)
-            a = np.where(r < n0, pair.load(0, r, col), pair.load(1, r, col))
-            v = a * xt[r]
-            if rank == 1:
-                v = v * fw[row]
-            return np.where(inside, v, 0.0)
-
-        def times_w(rank, row, v):
-            return v * wt[2 * row + rank]
-
-        pair.passes(schedule, fw, True, chirp_in, times_w)
-        pair.passes(schedule, iv, False, pair.load)
-        ccol = np.arange(cols)
+        iv = _chirp_passes(pair, n, m, real, chirps)
         for r0, r1 in ((0, n0), (n0, n)):  # each rank stores its rows
             p = np.arange(r0, r1)[:, None]
-            e = pair.bufs[0][:, pair.index(p, ccol)]
-            o = pair.bufs[1][:, pair.index(p, ccol)]
-            got = (e + iv[p] * o) * (xo[p] * scale)
+            got = _join(pair, p, iv, xo[p] * scale)
             for ti in range(len(tiles)):
                 out[r0:r1, cidx[ti][valid[ti]]] = got[ti][:, valid[ti]]
     return out
@@ -317,6 +364,49 @@ def emulate_b2_pair(x, n, m, chirps, scale):
     tables."""
     return emulate_chirp_pair(x, n, m, chirps, scale,
                               sv.bluestein_pair_geometry_c64(m), np.float32)
+
+
+def emulate_b5a_pair(x, n, m, chirps):
+    """rfft_odd_pack_pair_c64 on a real (n, B) array x, n odd, in f64 with
+    the f32 tables: the h = ceil(B/2) column pairs walked, z = x_j +
+    i*x_{j+h} copied (the partner of an unpaired last column written as
+    zeros), B2's passes, and the separation of the bins k < L, split
+    between the ranks, into X1 (column j) and X2 (column j + h)."""
+    geo = sv.rfft_odd_pack_geometry(m)
+    cols = geo.cols
+    xo = _cplx(chirps[2])
+    b = x.shape[1]
+    half, nbins = (b + 1) // 2, (n + 1) // 2
+    ntiles = -(-half // cols)
+    out = np.full((nbins, b), np.nan, complex)
+    n0, k_half = (n + 1) // 2, (nbins + 1) // 2
+    for t0 in range(0, ntiles, CLUSTERS):
+        tiles = np.arange(t0, min(ntiles, t0 + CLUSTERS))
+        cidx, valid = _tile_columns(tiles, cols, half)
+        pair = _Pair(geo, 4, len(tiles))
+        for rank, (r0, r1) in enumerate(((0, n0), (n0, n))):
+            rows = np.repeat(np.arange(r0, r1), cols)
+            cgrid = np.tile(np.arange(cols), r1 - r0)
+            j, ok = cidx[:, cgrid], valid[:, cgrid]
+            jp = j + half
+            partner = np.where(jp < b, x[rows, np.minimum(jp, b - 1)], 0.0)
+            z = np.where(ok, x[rows, np.minimum(j, b - 1)] + 1j * partner, np.nan)
+            # The zeroed partners: copied columns whose partner is past B.
+            assert np.all(z.imag[ok & (jp >= b)] == 0.0)
+            pair.bufs[rank][:, pair.index(rows, cgrid)] = z
+        iv = _chirp_passes(pair, n, m, np.float32, chirps)
+        for k0, k1 in ((0, k_half), (k_half, nbins)):  # each rank's bins
+            k = np.arange(k0, k1)[:, None]
+            kr = np.where(k == 0, 0, n - k)
+            z = _join(pair, k, iv, xo[k])
+            c = np.conj(_join(pair, kr, iv, xo[kr]))
+            x1, x2 = 0.5 * (z + c), -0.5j * (z - c)
+            for ti in range(len(tiles)):
+                js = cidx[ti][valid[ti]]
+                out[k0:k1, js] = x1[ti][:, valid[ti]]
+                paired = js + half < b
+                out[k0:k1, js[paired] + half] = x2[ti][:, valid[ti]][:, paired]
+    return out
 
 
 # -- geometry ------------------------------------------------------------------
@@ -405,7 +495,7 @@ def test_b1_pair_geometry_over_its_domain():
     # One compiled body per (clusters, height): the kernel file lists these.
     assert "FOURIER_PAIR_ROWS(FOURIER_B1_PAIR_CASE)" in (CSRC / "fft_pair.cu").read_text()
     assert [n // 2 for n in B1_PAIR if n <= 2048] == list(sv.FFT_PAIR_ROWS[2])
-    assert _xmacro("fft_pair.cu", "FOURIER_B1_QUAD_ROWS") == [
+    assert _xmacro("stockham_pair.cuh", "FOURIER_B1_QUAD_ROWS") == [
         n // 4 for n in quad] == list(sv.FFT_PAIR_ROWS[4])
 
 
@@ -426,17 +516,77 @@ def test_b2_pair_geometry_over_its_domain():
     assert sv.bluestein_pair_geometry_c64(2048) == sv.PairGeometry(1024, 8, 512, 131072, 2)
     assert sv.bluestein_pair_geometry_c64(1024) is None
     assert sv.bluestein_pair_geometry_c64(2160) is None
-    assert _xmacro("bluestein_pair.cu", "FOURIER_B2_ROWS") == [
+    assert _xmacro("stockham_pair.cuh", "FOURIER_B2_ROWS") == [
         h for h in sv.PAIR_ROWS if h != 512] == list(sv.BLUESTEIN_PAIR_ROWS)
+
+
+def test_b5a_pair_geometry_over_its_domain():
+    """B5a's paired bodies are B2's but M = 480: every inner size M up to
+    2048 that a VpuBluesteinPlan takes but 480 and 1024, with B2's tile (now
+    of column pairs); the stage body keeps those, M above 2048 and
+    B5A_STAGE_FASTER."""
+    pair = [m for m in B2_INNER if sv.rfft_odd_pack_geometry(m)]
+    assert pair == [m for m in B2_INNER if m <= 2048 and m not in (480, 1024)]
+    for m in pair:
+        assert sv.rfft_odd_pack_geometry(m) == sv.bluestein_pair_geometry_c64(m)
+    assert sv.rfft_odd_pack_geometry(480) is None and sv.bluestein_pair_geometry_c64(480)
+    assert sv.B5A_STAGE_FASTER <= set(pair)
+    # The odd n of the fused rfft routes (769..1023 plan their inner
+    # 1600..2048) and the input rows in rank 0's half of the padded column.
+    for n in range(769, 1025, 2):
+        m = VpuBluesteinPlan.choose_inner(n, 8192)
+        assert m in pair and n <= m // 2, n
+    assert sv.rfft_odd_pack_geometry(2048) == sv.PairGeometry(1024, 8, 512, 131072, 2)
+    # One compiled body per M/2 in FOURIER_B5A_ROWS, which rfft_odd_pair.cu
+    # instantiates.
+    assert "FOURIER_B5A_ROWS(FOURIER_B5A_CASE)" in (CSRC / "rfft_odd_pair.cu").read_text()
+    assert _xmacro("rfft_odd_pair.cu", "FOURIER_B5A_ROWS") == [
+        m // 2 for m in pair] == list(sv.RFFT_ODD_PAIR_ROWS)
+
+
+def test_b6_pair_geometry_over_its_domain():
+    """B6's clustered bodies are B1's 60 sizes at double: two blocks for
+    8 | n up to 2048, four for the 14 n in (2048, 4096]; 256 threads, 32-byte
+    runs of 4 f64 columns at the largest height; the stage body keeps 243,
+    625, 729, 3000 and 3240."""
+    assert B6_PAIR == B1_PAIR and len(B6_PAIR) == 60
+    assert sorted(set(B6_DOMAIN) - set(B6_PAIR)) == [243, 625, 729, 3000, 3240]
+    assert dv.B6_STAGE_FASTER <= set(B6_PAIR)
+    for n in B6_PAIR:
+        geo = dv.fft_pair_geometry_dd(n)
+        c = geo.ranks
+        assert c == (2 if n <= 2048 else 4) and geo.rows == n // c
+        assert geo.rows in sv.FFT_PAIR_ROWS[c]
+        assert geo == sv.pair_geometry(n, 8, dv.PAIR_THREADS_DD, c)
+        assert geo.cols % 4 == 0 and geo.cols & (geo.cols - 1) == 0
+        assert geo.smem == 4 * geo.rows * geo.cols * 8 <= SMEM_PER_BLOCK
+        assert geo.threads == 256 and geo.threads * sv.PAIR_POINTS >= geo.rows * geo.cols
+        assert geo.rows % (1 << _rpl_log(geo.cols, 8)) == 0
+    assert dv.fft_pair_geometry_dd(4096) == sv.PairGeometry(1024, 4, 256, 131072, 4)
+    assert dv.fft_pair_geometry_dd(2048) == sv.PairGeometry(1024, 4, 256, 131072, 2)
+    assert dv.fft_pair_geometry_dd(1024) == sv.PairGeometry(512, 8, 256, 131072, 2)
+    assert dv.fft_pair_geometry_dd(2160) == sv.PairGeometry(540, 4, 256, 69120, 4)
+    # The stage body's 2 columns at n = 4096 (16-byte runs) against 4 here.
+    assert dv.launch_geometry_dd(4096)[0] == 2
+    # One compiled body per (clusters, height), from the engine's lists.
+    src = (CSRC / "fft_pair_dd.cu").read_text()
+    assert "FOURIER_PAIR_ROWS(FOURIER_B6_PAIR_CASE)" in src
+    assert "FOURIER_B1_QUAD_ROWS(FOURIER_B6_QUAD_CASE)" in src
+    assert _xmacro("stockham_pair.cuh", "FOURIER_PAIR_ROWS") == [
+        n // 2 for n in B6_PAIR if n <= 2048]
+    assert _xmacro("stockham_pair.cuh", "FOURIER_B1_QUAD_ROWS") == [
+        n // 4 for n in B6_PAIR if n > 2048]
 
 
 @pytest.mark.parametrize("lib,entry_points", [
     (sv.FFT_PAIR_LIBRARY, sv.FFT_PAIR_ENTRY_POINTS),
-    (sv.BLUESTEIN_PAIR_LIBRARY, sv.BLUESTEIN_PAIR_ENTRY_POINTS)])
+    (sv.BLUESTEIN_PAIR_LIBRARY, sv.BLUESTEIN_PAIR_ENTRY_POINTS),
+    (sv.RFFT_ODD_PAIR_LIBRARY, sv.RFFT_ODD_PAIR_ENTRY_POINTS),
+    (dv.FFT_PAIR_DD_LIBRARY, dv.FFT_PAIR_DD_ENTRY_POINTS)])
 def test_b1_b2_library_entry_points(lib, entry_points):
-    """B1's and B2's clustered-block libraries include the engine and define
-    each entry point their wrappers bind with as many parameters; every
-    library is built apart."""
+    """The clustered-block libraries of B1, B2, B5a and B6 include the
+    engine and define each entry point their wrappers bind with as many
+    parameters; every library is built apart."""
     from fourier_tpu_torch.ops.cuda import build
 
     src = (build.CSRC / f"{lib}.cu").read_text()
@@ -447,7 +597,8 @@ def test_b1_b2_library_entry_points(lib, entry_points):
         assert m is not None, fn_name
         assert len(m.group(1).split(",")) == len(argtypes), fn_name
     libs = (sv.LIBRARY, sv.PAIR_LIBRARY, sv.FFT_PAIR_LIBRARY,
-            sv.BLUESTEIN_PAIR_LIBRARY, dv.LIBRARY)
+            sv.BLUESTEIN_PAIR_LIBRARY, sv.RFFT_ODD_PAIR_LIBRARY, dv.LIBRARY,
+            dv.FFT_PAIR_DD_LIBRARY)
     assert len({build.library_path(name) for name in libs}) == len(libs)
 
 
@@ -604,6 +755,108 @@ def test_b2_pair_body_emulated(n, m):
             assert _rel(got, pre.double().numpy() + 1j * pim.double().numpy()) <= C64_GATE
 
 
+@pytest.mark.parametrize("n,m", [(17, 64), (73, 160), (1013, 2048)])
+def test_b5a_pair_body_emulated(n, m):
+    """B5a's paired body at odd B (an unpaired last column against zeros),
+    B = 1 (no pair at all) and a walk of several rounds ending on a ragged
+    group of column pairs."""
+    plan = VpuBluesteinPlan.create(n, device="cpu")
+    assert plan.m_inner == m
+    st = plan.stages
+    tables = (st.tables(True), st.tables(False))
+    chirps = plan.chirps(True)
+    rng = np.random.default_rng(RNG_SEED + n)
+    for b in BATCHES:
+        x = rng.standard_normal((n, b)).astype(np.float32)
+        got = emulate_b5a_pair(x.astype(np.float64), n, m, [c.numpy() for c in chirps])
+        assert got.shape == ((n + 1) // 2, b) and np.isfinite(got).all(), (n, b)
+        assert _rel(got, np.fft.rfft(x.astype(np.float64), axis=0)) <= C64_GATE, (n, b)
+        pre, pim = sv.vpu_rfft_odd_pack_batch_minor_reference(
+            torch.as_tensor(x), n, m, tables, chirps)
+        assert _rel(got, pre.double().numpy() + 1j * pim.double().numpy()) <= C64_GATE
+
+
+@pytest.mark.parametrize("n", [64, 96, 1000, 1024, 2048, 2160, 3888, 4096])
+def test_b6_pair_body_emulated(n):
+    plan = VpuDdFftPlan.create(n, device="cpu")
+    rng = np.random.default_rng(RNG_SEED + n)
+    for b in BATCHES:
+        x = rng.standard_normal((n, b)) + 1j * rng.standard_normal((n, b))
+        for mode in _modes(b):
+            fwd, scale = mode.is_forward, mode.scale(n)
+            got = emulate_b6_pair(x, n, fwd, 1.0 if scale is None else scale)
+            assert np.isfinite(got).all(), (n, b, mode)
+            assert _rel(got, _want(x, mode, n)) <= C128_GATE, (n, b, mode)
+            pre, pim = dv.vpu_dd_fft_batch_minor_reference(
+                torch.as_tensor(x.real.copy()), torch.as_tensor(x.imag.copy()), n,
+                plan.tables(fwd), fwd, scale)
+            assert _rel(got, pre.numpy() + 1j * pim.numpy()) <= C128_GATE
+
+
+def test_b5a_pair_matches_pallas_interpret():
+    """B5a's paired body against the JAX package's kernel in interpret mode.
+    At B = 256 the JAX lane pairing (block t with t + B/(2*128)) and the
+    port's (column j with j + ceil(B/2)) coincide, column for column."""
+    n, b = 17, 256
+    rng = np.random.default_rng(RNG_SEED + n)
+    x = rng.standard_normal((n, b)).astype(np.float32)
+    jplan = JVpuBluesteinPlan.create(n, interpret=True)
+    plan = VpuBluesteinPlan.create(n, device="cpu")
+    assert plan.m_inner == jplan.m_inner == 64
+    parts = jsv.vpu_rfft_odd_pack_batch_minor(
+        x, n, jplan.m_inner, jplan.stage_tables, jplan.chirps_fwd, interpret=True)
+    f = lambda t: np.asarray(t, np.float64)
+    want = np.concatenate([f(parts[0]) + 1j * f(parts[1]),
+                           f(parts[2]) + 1j * f(parts[3])], 1)
+    got = emulate_b5a_pair(x.astype(np.float64), n, plan.m_inner,
+                           [c.numpy() for c in plan.chirps(True)])
+    assert want.shape == got.shape == (9, b)
+    assert _rel(got, want) <= C64_GATE
+
+
+def test_b6_pair_matches_pallas_interpret():
+    """B6's clustered body against the JAX package's double-word kernel in
+    interpret mode (its four f32 planes recombined as hi + lo in f64)."""
+    n, b = 96, 5
+    rng = np.random.default_rng(RNG_SEED + n)
+    x = rng.standard_normal((n, b)) + 1j * rng.standard_normal((n, b))
+    ref = JVpuDdFftPlan.create(n)
+    assert ref.interpret
+    dd = (*ddreal.from_f64(x.real), *ddreal.from_f64(x.imag))
+    rh, rl, ih, il = (np.asarray(t, np.float64) for t in ref.transform_planar_dd_bm(
+        dd[0], dd[1], dd[2], dd[3], JTransform(int(Transform.IFFT))))
+    want = (rh + rl) + 1j * (ih + il)
+    got = emulate_b6_pair(x, n, False, Transform.IFFT.scale(n))
+    assert _rel(got, want) <= C128_GATE
+
+
+def test_b5a_b6_body_argument_on_the_cpu():
+    """On CPU tensors B5a's and B6's wrappers run the plain version whatever
+    `_body` asks, and count no launch."""
+    bplan = VpuBluesteinPlan.create(1013, device="cpu")
+    st = bplan.stages
+    x = torch.randn(1013, 7)
+    kw = dict(tables=(st.tables(True), st.tables(False)),
+              kernel_tables=(st.kernel_fwd, st.kernel_inv), chirps=bplan.chirps(True))
+    before = sv.vpu_rfft_odd_pack_batch_minor.launches
+    want = sv.vpu_rfft_odd_pack_batch_minor_reference(x, 1013, st.size, kw["tables"],
+                                                      kw["chirps"])
+    for body in (None, "pair", "stage"):
+        got = sv.vpu_rfft_odd_pack_batch_minor(x, 1013, st.size, _body=body, **kw)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert sv.vpu_rfft_odd_pack_batch_minor.launches == before
+    plan = VpuDdFftPlan.create(4096, device="cpu")
+    re_ = torch.randn(4096, 3, dtype=torch.float64)
+    im_ = torch.randn(4096, 3, dtype=torch.float64)
+    before = dv.vpu_dd_fft_batch_minor.launches
+    want = dv.vpu_dd_fft_batch_minor_reference(re_, im_, 4096, plan.tables(False), False, 0.5)
+    for body in (None, "pair", "stage"):
+        got = dv.vpu_dd_fft_batch_minor(re_, im_, 4096, False, 0.5, tables=plan.tables(False),
+                                        kernel_tables=plan.kernel_inv, _body=body)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert dv.vpu_dd_fft_batch_minor.launches == before
+
+
 def test_b1_b2_body_argument_on_the_cpu():
     """On CPU tensors B1's and B2's wrappers run the plain version whatever
     `_body` asks, and count no launch."""
@@ -734,3 +987,39 @@ def test_b2_bodies_agree_on_card(cuda_device, n):
                     chirps=plan.chirps(mode.is_forward), **kw)
                 c = got[0].double().cpu().numpy() + 1j * got[1].double().cpu().numpy()
                 assert _rel(c, _want(x, mode, n)) <= C64_GATE, (n, b, mode, body)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [17, 73, 509, 863, 1013])
+def test_b5a_bodies_agree_on_card(cuda_device, n):
+    plan = VpuBluesteinPlan.create(n, device=cuda_device)
+    st = plan.stages
+    kw = dict(tables=(st.tables(True), st.tables(False)),
+              kernel_tables=(st.kernel_fwd, st.kernel_inv), chirps=plan.chirps(True))
+    bodies = ("pair", "stage") if sv.rfft_odd_pack_geometry(st.size) else ("stage",)
+    for b in (1, 2, 7, 1589, 1592):
+        x = torch.randn(n, b, device=cuda_device)
+        want = np.fft.rfft(x.double().cpu().numpy(), axis=0)
+        for body in bodies:
+            got = sv.vpu_rfft_odd_pack_batch_minor(x, n, st.size, _body=body, **kw)
+            c = got[0].double().cpu().numpy() + 1j * got[1].double().cpu().numpy()
+            assert _rel(c, want) <= C64_GATE, (n, b, body)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [256, 1024, 2048, 3000, 4096])
+def test_b6_bodies_agree_on_card(cuda_device, n):
+    plan = VpuDdFftPlan.create(n, device=cuda_device)
+    bodies = ("pair", "stage") if dv.fft_pair_geometry_dd(n) else ("stage",)
+    for b in (1, 7, 1588, 1589):
+        re_ = torch.randn(n, b, dtype=torch.float64, device=cuda_device)
+        im_ = torch.randn(n, b, dtype=torch.float64, device=cuda_device)
+        x = re_.cpu().numpy() + 1j * im_.cpu().numpy()
+        for mode in Transform:
+            fwd = mode.is_forward
+            for body in bodies:
+                got = dv.vpu_dd_fft_batch_minor(
+                    re_, im_, n, fwd, mode.scale(n), tables=plan.tables(fwd),
+                    kernel_tables=plan.kernel_fwd if fwd else plan.kernel_inv, _body=body)
+                c = got[0].cpu().numpy() + 1j * got[1].cpu().numpy()
+                assert _rel(c, _want(x, mode, n)) <= C128_GATE, (n, b, mode, body)
