@@ -4,17 +4,18 @@
     python3 chip_smoke.py
 
 Builds kernels B1-B5 (complex64, the stage bodies), the clustered-block
-bodies of B1, B2, B4a and B5a, B6-B8 (complex128 in native f64; B6 also on
-its clustered-block bodies) and B9a/B9b (the dense DFT products of
-MxuFftPlan(impl="pallas")) from fourier_tpu_torch/csrc with nvcc, eight
+bodies of B1, B2, B4a, B4b, B5a and B5b, B6-B8 (complex128 in native f64;
+B6 also on its clustered-block bodies) and B9a/B9b (the dense DFT products
+of MxuFftPlan(impl="pallas")) from fourier_tpu_torch/csrc with nvcc, ten
 libraries built at once (each build's time printed), checks that the
-clustered-block bodies of B1, B2, B4a, B5a, B6 and B7 spill nothing, and
-holds each kernel against its plain PyTorch version and against np.fft, at
-the listed sizes and at every shape the routes below give it (B1, B2, B4a,
-B5a, B6 and B7 also at a walk of several tiles a cluster ending on a
-partial group, and on both bodies at the sizes where they meet; B1, B2 and
-B5a at the routes' shapes in phase 4g, from the calls phases 4-4d made, B6
-in phase 4h, from those of phase 4e). Then it drives the
+clustered-block bodies of B1, B2, B4a, B4b, B5a, B5b, B6 and B7 spill
+nothing, and holds each kernel against its plain PyTorch version and
+against np.fft, at the listed sizes and at every shape the routes below
+give it (B1, B2, B4a, B4b, B5a, B5b, B6 and B7 also at a walk of several
+tiles a cluster ending on a partial group, and on both bodies at the sizes
+where they meet; B1, B2, B4b, B5a and B5b at the routes' shapes in phase
+4g, from the calls phases 4-4d made, B6 in phase 4h, from those of phase
+4e). Then it drives the
 main path (the default complex64 1-D transform through create_fft_f32 on
 device="cuda") and the routes of the other sizes the JAX package plans
 differently (fused Bluestein B2, four-step with B3 rows, DFT products), then
@@ -30,10 +31,12 @@ their plain versions and torch.fft, the rfft round trips of the suite's
 rows fused, unfused and through torch.fft, the suite's c128 rows (and B6 at
 4096x16384) and B9a/B9b at three shapes, each beside the least time the
 card could take for its bytes or operations; B1 at 4096x16384 and
-1024x65536, B2 at 1013x65536, B4a at 4096x16384, B5a at 1013x65536, B6 at
-1024x65536 and 4096x16384 and B7 at 1013x65536 also on their stage bodies
-in the same run, and B1, B2, B5a and B6 on both bodies at every size with a
-clustered one (phase 5g, the A/B behind the wrappers' choice of body).
+1024x65536, B2 at 1013x65536, B4a and B4b at 4096x16384, B5a and B5b at
+1013x65536, B6 at 1024x65536 and 4096x16384 and B7 at 1013x65536 also on
+their stage bodies in the same run (and the rfft round trips with B4b and
+B5b on their stage bodies, the parent's path), and B1, B2, B4b, B5a, B5b
+and B6 on both bodies at every size with a clustered one (phase 5g, the A/B
+behind the wrappers' choice of body).
 Every phase prints its lines;
 any failed check raises, so the exit code is non-zero. The next-to-last
 line is a JSON record of the kernels; the last line is
@@ -110,8 +113,8 @@ B3_TIME = (65536, 1024)
 CHAIN_NEW = 32  # chain of the B2/B3 timings
 PLAIN_CHAIN = 4  # shorter chain of the plain versions there
 RF_EVEN = (128, 192, 486, 1024, 2000, 4096, 32768)  # B4 at m = n/2
-# B4a's bodies meet at m = 2048 (the largest paired-block m) and 2160 (the
-# smallest even m the stage body keeps): both are checked there.
+# B4a's and B4b's bodies meet at m = 2048 (the largest paired-block m) and
+# 2160 (the smallest even m the stage body keeps): both are checked there.
 B4A_BOUNDARY = (2048, 2160)
 # (n, B) whose clusters each walk several tiles of B4a's and B7's paired
 # bodies (8 and 4 columns a tile, 66 clusters on an H100) and end on a
@@ -127,14 +130,21 @@ B2_BOUNDARY = (1013, 1031, 509)
 B_BOUNDARY = 1000
 B1_WALK = ((4096, 1588), (4096, 1589))  # 199 tiles of 8, 30 clusters of 4
 B2_WALK = B7_WALK
-# B5a's bodies meet at M = 2048 (n = 1013, paired) and 2160 (n = 1031), 1024
-# (n = 509) and 8192 (n = 4093, the largest M), the stage body; at M = 1728
-# (n = 863) and 160 (n = 73) the paired body stores in two steps (a
-# mixed-radix height). Its walk: 795 and 796 column pairs in tiles of 8 (66
-# clusters), odd B (element copies, an unpaired last column) and B a
-# multiple of 8 (16-byte copies).
+# B4b's also meet at m = 1728, which keeps the stage body between paired
+# sizes, and m = 512 is its one body that loads w[p + m/2].
+B4B_BOUNDARY = B4A_BOUNDARY + (1728, 512)
+# B5a's and B5b's bodies meet at M = 2048 (n = 1013, paired) and 2160 (n =
+# 1031), 1024 (n = 509) and 8192 (n = 4093, the largest M), the stage body;
+# at M = 1728 (n = 863) and 160 (n = 73) B5a's paired body stores in two
+# steps (a mixed-radix height), and B5b's stores four columns a thread at
+# 1728 and one at 160. Their walk: 795 and 796 column pairs in tiles of 8
+# (66 clusters), odd B (element copies, an unpaired last column) and B a
+# multiple of 8 (16-byte copies). B4b's walk is B4A_WALK.
 B5A_BOUNDARY = (1013, 1031, 509, 4093, 863, 73)
 B5A_WALK = ((1013, 1589), (1013, 1592))
+# More batches of B4b and B5b on both bodies: B = 1 (B5b: no pair) and odd B.
+B45B_BATCHES = (1, 7)
+ONE_MODE = ("B4b", "B5a", "B5b")  # the kernels checked in one mode, their own
 # B6's bodies meet at 2048 (two-block clusters), 2160 and 4096 (four-block)
 # and 3000 (the stage body); its walk: 397 tiles of 4 f64 columns on 30
 # clusters of four, B even (16-byte copies) or odd.
@@ -400,6 +410,12 @@ def ptxas_usage(report: str) -> list:
              for name, k in zip(names, kernels)], worst)
 
 
+def pair_heights(kerns) -> dict:
+    """{H: registers} of the paired bodies `name_pair_c64<H>` among
+    ptxas_usage's kernels."""
+    return {int(h): r for k, r, _ in kerns for h in re.findall(r"_pair_c64<(\d+)>", k)}
+
+
 def rel_l2(got, want) -> float:
     return float(np.linalg.norm(got - want) / np.linalg.norm(want))
 
@@ -478,10 +494,11 @@ def main() -> int:
         return ((torch.linalg.norm(k - p) / torch.linalg.norm(p)).item(),
                 (k - p).abs().max().item())
 
-    # 2. Build: the eight kernel libraries, one nvcc each, at once.
+    # 2. Build: the ten kernel libraries, one nvcc each, at once.
     t0 = time.perf_counter()
     libraries = (sv.LIBRARY, sv.PAIR_LIBRARY, sv.FFT_PAIR_LIBRARY,
-                 sv.BLUESTEIN_PAIR_LIBRARY, sv.RFFT_ODD_PAIR_LIBRARY, dv.LIBRARY,
+                 sv.BLUESTEIN_PAIR_LIBRARY, sv.RFFT_ODD_PAIR_LIBRARY,
+                 sv.IRFFT_UNPACK_PAIR_LIBRARY, sv.IRFFT_ODD_PAIR_LIBRARY, dv.LIBRARY,
                  dv.FFT_PAIR_DD_LIBRARY, bk.LIBRARY)
     build.load_all(libraries)
     sv.library()
@@ -489,6 +506,8 @@ def main() -> int:
     sv.fft_pair_library()
     sv.bluestein_pair_library()
     sv.rfft_odd_pair_library()
+    sv.irfft_unpack_pair_library()
+    sv.irfft_odd_pair_library()
     dv.library()
     dv.fft_pair_dd_library()
     bk.library()
@@ -496,6 +515,8 @@ def main() -> int:
           f"{sv.PAIR_LIBRARY}.cu (B4a's paired-block bodies), {sv.FFT_PAIR_LIBRARY}.cu "
           f"(B1's clustered bodies), {sv.BLUESTEIN_PAIR_LIBRARY}.cu (B2's paired "
           f"bodies), {sv.RFFT_ODD_PAIR_LIBRARY}.cu (B5a's paired bodies), "
+          f"{sv.IRFFT_UNPACK_PAIR_LIBRARY}.cu (B4b's paired bodies), "
+          f"{sv.IRFFT_ODD_PAIR_LIBRARY}.cu (B5b's paired bodies), "
           f"{dv.LIBRARY}.cu (B6-B8, stage bodies and B7's paired bodies), "
           f"{dv.FFT_PAIR_DD_LIBRARY}.cu (B6's clustered bodies) and {bk.LIBRARY}.cu "
           f"(B9a, B9b) in {time.perf_counter() - t0:.2f} s; each nvcc: "
@@ -503,6 +524,7 @@ def main() -> int:
                                                           key=lambda kv: -kv[1])),
           flush=True)
     pair_kernels = []
+    body_regs = {}  # library -> {height: registers} of its clustered bodies
     for lib in libraries:
         kerns, worst = ptxas_usage(build.resource_usage(lib))
         print(f"ptxas ({lib}.cu): " + "; ".join(
@@ -510,21 +532,31 @@ def main() -> int:
             + f"; the stage functions spill up to {worst[0]}/{worst[1]} bytes "
             "(stores/loads)", flush=True)
         pair_kernels += [(k, r, sp) for k, r, sp in kerns if "_pair_" in k]
+        body_regs[lib] = pair_heights(kerns)
     spilled = [(k, sp) for k, _, sp in pair_kernels if sp != (0, 0)]
     n_b4a = sum(1 for m in range(2, sv.PAIR_MAX_M + 1) if sv.rfft_pack_geometry(m))
+    n_b4b = sum(1 for m in range(2, sv.PAIR_MAX_M + 1) if sv.irfft_unpack_geometry(m))
     n_b7 = len(B7_INNER)
     n_b1 = sum(1 for n in range(2, 2 * sv.PAIR_MAX_M + 1) if sv.fft_pair_geometry(n))
     n_b2 = sum(1 for m in range(2, sv.PAIR_MAX_M + 1) if sv.bluestein_pair_geometry_c64(m))
     n_b5a = sum(1 for m in range(2, sv.PAIR_MAX_M + 1) if sv.rfft_odd_pack_geometry(m))
+    n_b5b = sum(1 for m in range(2, sv.PAIR_MAX_M + 1) if sv.irfft_odd_unpack_geometry(m))
     n_b6 = sum(1 for n in range(2, 2 * sv.PAIR_MAX_M + 1) if dv.fft_pair_geometry_dd(n))
-    check(len(pair_kernels) == n_b4a + n_b7 + n_b1 + n_b2 + n_b5a + n_b6 and not spilled,
-          f"the clustered-block bodies of B4a, B7, B1, B2, B5a and B6: "
-          f"{len(pair_kernels)} built, {n_b4a} + {n_b7} + {n_b1} + {n_b2} + {n_b5a} + "
-          f"{n_b6} expected; spills {spilled}")
+    counts_ = (n_b4a, n_b4b, n_b7, n_b1, n_b2, n_b5a, n_b5b, n_b6)
+    check(len(pair_kernels) == sum(counts_) and not spilled,
+          f"the clustered-block bodies of B4a, B4b, B7, B1, B2, B5a, B5b and B6: "
+          f"{len(pair_kernels)} built, {' + '.join(map(str, counts_))} expected; "
+          f"spills {spilled}")
     regs = [r for _, r, _ in pair_kernels]
     print(f"ptxas (clustered-block bodies): {len(pair_kernels)} instantiations (B4a at "
-          f"{n_b4a} m, B7 at {n_b7} M, B1 at {n_b1} n, B2 at {n_b2} M, B5a at {n_b5a} M, "
-          f"B6 at {n_b6} n), {min(regs)}-{max(regs)} registers, 0 spill bytes", flush=True)
+          f"{n_b4a} m, B4b at {n_b4b} m, B7 at {n_b7} M, B1 at {n_b1} n, B2 at {n_b2} M, "
+          f"B5a at {n_b5a} M, B5b at {n_b5b} M, B6 at {n_b6} n), {min(regs)}-{max(regs)} "
+          f"registers, 0 spill bytes", flush=True)
+    for new, old, what in ((sv.IRFFT_UNPACK_PAIR_LIBRARY, sv.PAIR_LIBRARY, "B4b/B4a"),
+                           (sv.IRFFT_ODD_PAIR_LIBRARY, sv.RFFT_ODD_PAIR_LIBRARY, "B5b/B5a")):
+        print(f"ptxas registers {what} by height: " + ", ".join(
+            f"{h}: {r}/{body_regs[old].get(h, '-')}"
+            for h, r in sorted(body_regs[new].items())), flush=True)
     for kernel, geometry, count in (("B1", sv.fft_pair_geometry, sv.fft_pair_clusters),
                                     ("B6", dv.fft_pair_geometry_dd, dv.fft_pair_clusters_dd)):
         clusters = {n: (geometry(n).ranks, count(n, dev)) for n in (1024, 2048, 2160, 4096)}
@@ -559,10 +591,35 @@ def main() -> int:
     max_abs_err = {"B1": max_abs}
 
     def body_runs(kernel, n, b):
-        """The cases of B1, B2, B5a or B6 at (n, B): (bodies, [(mode, plain
-        result, np.fft of the first columns, run(body) -> kernel result)]),
-        every mode (B5a: its one), on both bodies where a clustered one
-        exists, else the stage body."""
+        """The cases of B1, B2, B4b, B5a, B5b or B6 at (n, B), n the real
+        length for B4b, B5a and B5b: (bodies, [(mode, plain result, np.fft of
+        the first columns, run(body) -> kernel result)]), every mode (B4b,
+        B5a, B5b: their one), on both bodies where a clustered one exists,
+        else the stage body."""
+        if kernel == "B4b":
+            m = n // 2
+            plan = ftt.RfftPlan(n, device=dev)
+            re, im = planes(m + 1, b)
+            kw = dict(tables=plan.inner.tables(False), kernel_tables=plan.inner.kernel_inv,
+                      w=plan.w)
+            p = (sv.vpu_irfft_unpack_batch_minor_reference(re, im, m, kw["tables"], plan.w),)
+            run = lambda body: (sv.vpu_irfft_unpack_batch_minor(re, im, m, _body=body, **kw),)
+            geo = sv.irfft_unpack_geometry(m)
+            return (("pair", "stage") if geo else ("stage",),
+                    [("IRFFT", p, np.fft.irfft(host_cols(re, im), n, axis=0), run)])
+        if kernel == "B5b":
+            plan = ftt.VpuBluesteinPlan.create(n, device=dev)
+            st = plan.stages
+            re, im = planes((n + 1) // 2, b)
+            kw = dict(tables=(st.tables(True), st.tables(False)),
+                      kernel_tables=(st.kernel_fwd, st.kernel_inv), chirps=plan.chirps(False))
+            p = (sv.vpu_irfft_odd_unpack_batch_minor_reference(re, im, n, st.size, kw["tables"],
+                                                               kw["chirps"]),)
+            run = lambda body: (sv.vpu_irfft_odd_unpack_batch_minor(re, im, n, st.size,
+                                                                    _body=body, **kw),)
+            geo = sv.irfft_odd_unpack_geometry(st.size)
+            return (("pair", "stage") if geo else ("stage",),
+                    [("IRFFT", p, np.fft.irfft(host_cols(re, im), n, axis=0), run)])
         if kernel == "B5a":
             plan = ftt.VpuBluesteinPlan.create(n, device=dev)
             st = plan.stages
@@ -624,7 +681,9 @@ def main() -> int:
                 k = run(body)
                 torch.cuda.synchronize()
                 err, m_ = vs_plain(k, p)
-                herr = rel_l2(host_cols(*k), want)
+                got = (host_cols(*k) if len(k) == 2
+                       else k[0][:, :HOST_COLUMNS].double().cpu().numpy())
+                herr = rel_l2(got, want)
                 check(err <= gate and herr <= gate,
                       f"{kernel} {body} body n={n} B={b} {mode}: rel-L2 "
                       f"{err:.3e} vs plain, {herr:.3e} vs np.fft (gate {gate:g})")
@@ -645,7 +704,7 @@ def main() -> int:
         check(paired == set(want_pair), f"{kernel}'s clustered bodies at {sorted(paired)}, "
               f"expected {sorted(want_pair)}")
         print(f"{kernel} bodies at their boundaries and walks {ran} x "
-              f"{'1 mode' if kernel == 'B5a' else '5 modes'} pass; worst rel-L2 "
+              f"{'1 mode' if kernel in ONE_MODE else '5 modes'} pass; worst rel-L2 "
               f"{worst_p:.3e} vs plain, {worst_h:.3e} vs np.fft (gate "
               f"{DD_GATE if kernel == 'B6' else REL_L2_GATE:g})", flush=True)
 
@@ -815,6 +874,13 @@ def main() -> int:
           flush=True)
     boundary_checks("B5a", [(n, B_BOUNDARY) for n in B5A_BOUNDARY] + list(B5A_WALK),
                     (1013, 863, 73))
+    # B4b and B5b on both bodies where they meet, at the walks, at B = 1 and
+    # odd B, and at B a multiple of 8 (B_BOUNDARY, B4A_WALK's 1588 and
+    # B5A_WALK's 1592: 16-byte copies and stores).
+    boundary_checks("B4b", [(2 * m, B_BOUNDARY) for m in B4B_BOUNDARY] + list(B4A_WALK)
+                    + [(4096, b) for b in B45B_BATCHES], (4096, 1024))
+    boundary_checks("B5b", [(n, B_BOUNDARY) for n in B5A_BOUNDARY] + list(B5A_WALK)
+                    + [(1013, b) for b in B45B_BATCHES], (1013, 863, 73))
 
     # 3e. B6, B7 and B8 (complex128 in f64) against their plain versions
     # and np.fft in f64, at the listed sizes and batches in every mode, and
@@ -972,25 +1038,33 @@ def main() -> int:
         max_abs_err[kernel_id] = mx
     torch.set_float32_matmul_precision(caller_precision)
 
-    # Phases 4-4d note every (n, B) they give B1, B2 and B5a, phase 4e every
-    # one it gives B6 (the plans reach B1, B2 and B6 through their class's
-    # `run`, B5a through rfft.py's reference to its module, here a namespace
-    # with B5a's wrapper recorded); phases 4g and 4h check each shape on both
-    # bodies.
-    route_shapes = {"B1": set(), "B2": set(), "B5a": set(), "B6": set()}
+    # Phases 4-4d note every (n, B) they give B1, B2, B4b, B5a and B5b (n the
+    # real length for the last three), phase 4e every one it gives B6 (the
+    # plans reach B1, B2 and B6 through their class's `run`, B4b, B5a and B5b
+    # through rfft.py's reference to its module, here a namespace with their
+    # wrappers recorded); phases 4g and 4h check each shape on both bodies.
+    route_shapes = {"B1": set(), "B2": set(), "B4b": set(), "B5a": set(), "B5b": set(),
+                    "B6": set()}
 
-    def recording(kernel, fn):
-        def call(x_t, *args, **kwargs):
-            route_shapes[kernel].add(tuple(x_t.shape))
-            return fn(x_t, *args, **kwargs)
+    def recording(kernel, fn, shape=lambda x_t, *args: tuple(x_t.shape)):
+        def call(*args, **kwargs):
+            route_shapes[kernel].add(shape(*args))
+            return fn(*args, **kwargs)
         return call
 
     ftt.VpuFftPlan.run = staticmethod(recording("B1", sv.vpu_fft_batch_minor))
     ftt.VpuBluesteinPlan.run = staticmethod(recording("B2", sv.vpu_bluestein_batch_minor))
     rfft_module = sys.modules["fourier_tpu_torch.rfft"]
     rfft_module.stockham_vpu = types.SimpleNamespace(**{
-        **vars(sv), "vpu_rfft_odd_pack_batch_minor": recording(
-            "B5a", sv.vpu_rfft_odd_pack_batch_minor)})
+        **vars(sv),
+        "vpu_rfft_odd_pack_batch_minor": recording(
+            "B5a", sv.vpu_rfft_odd_pack_batch_minor),
+        "vpu_irfft_unpack_batch_minor": recording(
+            "B4b", sv.vpu_irfft_unpack_batch_minor,
+            lambda re_t, im_t, m, *a: (2 * m, re_t.shape[1])),
+        "vpu_irfft_odd_unpack_batch_minor": recording(
+            "B5b", sv.vpu_irfft_odd_unpack_batch_minor,
+            lambda re_t, im_t, n, *a: (n, re_t.shape[1]))})
 
     # 4. Main path through the entry points, with the launch count.
     zero_counts()
@@ -1230,8 +1304,8 @@ def main() -> int:
           f"atol=rtol={GRAD_TOL:g}; worst max|diff|/max|grad| {worst_grad:.3e}",
           flush=True)
 
-    # 4g. B1, B2 and B5a at every (n, B) that phases 4-4d gave them, in
-    # every mode, on both bodies where a clustered one exists.
+    # 4g. B1, B2, B4b, B5a and B5b at every (n, B) that phases 4-4d gave
+    # them, in every mode, on both bodies where a clustered one exists.
     ftt.VpuFftPlan.run = staticmethod(sv.vpu_fft_batch_minor)
     ftt.VpuBluesteinPlan.run = staticmethod(sv.vpu_bluestein_batch_minor)
     rfft_module.stockham_vpu = sv
@@ -1246,11 +1320,11 @@ def main() -> int:
             ran.append((n, b, "+".join(bodies)))
         check(ran, f"phases {phases} gave {kernel} no call")
         print(f"{kernel} at the routes' shapes {ran} x "
-              f"{'1 mode' if kernel == 'B5a' else '5 modes'} pass; worst rel-L2 "
+              f"{'1 mode' if kernel in ONE_MODE else '5 modes'} pass; worst rel-L2 "
               f"{worst_p:.3e} vs plain, {worst_h:.3e} vs np.fft (gate "
               f"{DD_GATE if kernel == 'B6' else REL_L2_GATE:g})", flush=True)
 
-    for kernel in ("B1", "B2", "B5a"):
+    for kernel in ("B1", "B2", "B4b", "B5a", "B5b"):
         route_checks(kernel, "4-4d")
 
     # 4e. The complex128 route: the plan trees of create_fft_f64(n) with no
@@ -1674,12 +1748,20 @@ def main() -> int:
                   f"(inner {plan_tree(plan)[2]}, median of {REPS}) on {card}",
                   flush=True)
         if (n, b) == (4096, 16384):
+            m = n // 2
             kw = dict(tables=plan.inner.tables(True), kernel_tables=plan.inner.kernel_fwd,
                       w=plan.w)
             same_run_ab(f"B4a n={n} B={b}",
-                        lambda: sv.vpu_rfft_pack_batch_minor(x, n // 2, _body="stage", **kw),
-                        lambda: sv.vpu_rfft_pack_batch_minor(x, n // 2, _body="pair", **kw),
+                        lambda: sv.vpu_rfft_pack_batch_minor(x, m, _body="stage", **kw),
+                        lambda: sv.vpu_rfft_pack_batch_minor(x, m, _body="pair", **kw),
                         RF_CHAIN)
+            ikw = dict(tables=plan.inner.tables(False), kernel_tables=plan.inner.kernel_inv,
+                       w=plan.w)
+            same_run_ab(f"B4b n={n} B={b}", *[
+                lambda body=body: sv.vpu_irfft_unpack_batch_minor(*spec, m, _body=body, **ikw)
+                for body in ("stage", "pair")], RF_CHAIN)
+            stage_back = lambda re_, im_: sv.vpu_irfft_unpack_batch_minor(
+                re_, im_, m, _body="stage", **ikw)
         if (n, b) == (1013, 65536):
             st = plan.inner.stages
             kw = dict(tables=(st.tables(True), st.tables(False)),
@@ -1689,7 +1771,22 @@ def main() -> int:
                 lambda body=body: sv.vpu_rfft_odd_pack_batch_minor(
                     x, n, st.size, _body=body, **kw) for body in ("stage", "pair")],
                 RF_CHAIN)
+            ikw = dict(kw, chirps=plan.inner.chirps(False))
+            same_run_ab(f"B5b n={n} B={b}", *[
+                lambda body=body: sv.vpu_irfft_odd_unpack_batch_minor(
+                    *spec, n, st.size, _body=body, **ikw) for body in ("stage", "pair")],
+                RF_CHAIN)
+            stage_back = lambda re_, im_: sv.vpu_irfft_odd_unpack_batch_minor(
+                re_, im_, n, st.size, _body="stage", **ikw)
         if (n, b) in ((4096, 16384), (1013, 65536)):
+            # The parent's path in this run: the fused trip with the inverse
+            # on its stage body.
+            parent_trip = median_ms(
+                lambda a, _c: (stage_back(*plan.rfft_planar_bm(a)), None), x, None, RF_CHAIN)
+            print(f"time: rfft n={n} B={b} fused {fam} round trip, {fam}b on its stage "
+                  f"body (the parent's path; chain {RF_CHAIN}): {parent_trip:.4f} ms per "
+                  f"call, against {trip[f'fused {fam} round trip (chain {RF_CHAIN})']:.4f} "
+                  f"(median of {REPS}) on {card}", flush=True)
             library = {"a": trip["torch.fft.rfft"], "b": trip["torch.fft.irfft"]}
             for k in ("a", "b"):
                 kernel_ms[fam + k] = (trip[f"{fam}{k} kernel"], trip[f"plain {fam}{k}"],
@@ -1851,38 +1948,52 @@ def main() -> int:
             bounds[kernel_id] = kb_
         del re, im, xc
 
-    # 5g. Both bodies of B1, B2, B5a and B6 at every size that has a
-    # clustered one, about AB_POINTS points a call, timed stage, pair, pair,
-    # stage (median of REPS each): the same-run A/B behind the sizes at which
-    # the wrappers keep the stage body (B1_STAGE_FASTER, B2_STAGE_FASTER,
-    # B5A_STAGE_FASTER, B6_STAGE_FASTER).
+    # 5g. Both bodies of B1, B2, B4b, B5a, B5b and B6 at every size that has
+    # a clustered one, about AB_POINTS points a call, timed stage, pair,
+    # pair, stage (median of REPS each): the same-run A/B behind the sizes at
+    # which the wrappers keep the stage body (B1_STAGE_FASTER,
+    # B2_STAGE_FASTER, B4B_STAGE_FASTER, B5A_STAGE_FASTER, B5B_STAGE_FASTER,
+    # B6_STAGE_FASTER).
     def ab_sweep(kernel, sizes, stage_faster):
         slower = []
         for size in sizes:
-            if kernel in ("B1", "B6"):
-                n = size
+            if kernel == "B4b":
+                m, n = size, 2 * size
+                rows = m + 1
+                plan_ = ftt.RfftPlan(n, backend="vpu", device=dev)
+                check(plan_.fused, f"B4b at m={m}: RfftPlan({n}) is not fused")
+                kw_ = dict(tables=plan_.inner.tables(False),
+                           kernel_tables=plan_.inner.kernel_inv, w=plan_.w)
+                run = lambda a, c, body: sv.vpu_irfft_unpack_batch_minor(
+                    a, c, m, _body=body, **kw_)
+            elif kernel in ("B1", "B6"):
+                n = rows = size
                 plan_ = (ftt.VpuFftPlan if kernel == "B1" else ftt.VpuDdFftPlan).create(
                     n, device=dev)
                 kw_ = dict(tables=plan_.tables(True), kernel_tables=plan_.kernel_fwd)
                 wrapper = sv.vpu_fft_batch_minor if kernel == "B1" else dv.vpu_dd_fft_batch_minor
                 run = lambda a, c, body: wrapper(a, c, n, True, None, _body=body, **kw_)
             else:
-                # The largest n whose inner size is M (odd for B5a).
-                n = size // 2 - (kernel == "B5a" and size % 4 == 0)
+                # The largest n whose inner size is M (odd for B5a and B5b).
+                n = rows = size // 2 - (kernel in ("B5a", "B5b") and size % 4 == 0)
                 plan_ = ftt.VpuBluesteinPlan.create(n, device=dev)
                 st_ = plan_.stages
                 check(st_.size == size, f"{kernel} at n={n} plans M={st_.size}, not {size}")
                 kw_ = dict(tables=(st_.tables(True), st_.tables(False)),
                            kernel_tables=(st_.kernel_fwd, st_.kernel_inv),
-                           chirps=plan_.chirps(True))
+                           chirps=plan_.chirps(kernel != "B5b"))
                 if kernel == "B2":
                     run = lambda a, c, body: sv.vpu_bluestein_batch_minor(
                         a, c, n, size, None, _body=body, **kw_)
-                else:
+                elif kernel == "B5a":
                     run = lambda a, c, body: sv.vpu_rfft_odd_pack_batch_minor(
                         a, n, size, _body=body, **kw_)
+                else:
+                    rows = (n + 1) // 2
+                    run = lambda a, c, body: sv.vpu_irfft_odd_unpack_batch_minor(
+                        a, c, n, size, _body=body, **kw_)
             b = AB_POINTS // n
-            a, c = planes64(n, b) if kernel == "B6" else planes(n, b)
+            a, c = planes64(rows, b) if kernel == "B6" else planes(rows, b)
             got = {"stage": [], "pair": []}
             for body in ("stage", "pair", "pair", "stage"):
                 got[body].append(median_ms(lambda *_: (run(a, c, body), None), None,
@@ -1890,7 +2001,7 @@ def main() -> int:
             ratio = min(got["stage"]) / max(got["pair"])
             if ratio < 1.0:
                 slower.append(size)
-            print(f"time: A/B {kernel} {'n' if kernel in ('B1', 'B6') else 'M'}={size} (n={n}, "
+            print(f"time: A/B {kernel} {'n' if kernel in ('B1', 'B6') else 'm' if kernel == 'B4b' else 'M'}={size} (n={n}, "
                   f"B={b}): stage body {got['stage'][0]:.4f} / {got['stage'][1]:.4f} ms, "
                   f"clustered body {got['pair'][0]:.4f} / {got['pair'][1]:.4f} ms, "
                   f"slower stage / faster pair {ratio:.3f}; the wrapper runs the "
@@ -1907,6 +2018,10 @@ def main() -> int:
                     if sv.bluestein_pair_geometry_c64(m)], sv.B2_STAGE_FASTER)
     ab_sweep("B5a", [m for m in range(64, sv.PAIR_MAX_M + 1)
                      if sv.rfft_odd_pack_geometry(m)], sv.B5A_STAGE_FASTER)
+    ab_sweep("B5b", [m for m in range(64, sv.PAIR_MAX_M + 1)
+                     if sv.irfft_odd_unpack_geometry(m)], sv.B5B_STAGE_FASTER)
+    ab_sweep("B4b", [m for m in range(64, sv.PAIR_MAX_M + 1)
+                     if sv.irfft_unpack_geometry(m)], sv.B4B_STAGE_FASTER)
     ab_sweep("B6", [n for n in range(64, 2 * sv.PAIR_MAX_M + 1)
                     if dv.fft_pair_geometry_dd(n)], dv.B6_STAGE_FASTER)
 
@@ -1918,11 +2033,12 @@ def main() -> int:
         ("B3", "B3 four-step row leg c64 (vpu_fft_four_step_row)", 778),
         ("B4a", "B4a even-n rfft pack (vpu_rfft_pack_batch_minor; paired-block "
          "body, the stage body of stockham_vpu.cu for odd m and m > 2048)", 529),
-        ("B4b", "B4b even-n irfft unpack (vpu_irfft_unpack_batch_minor)", 574),
+        ("B4b", "B4b even-n irfft unpack (vpu_irfft_unpack_batch_minor; paired-block "
+         "body, the stage body of stockham_vpu.cu for odd m and m > 2048)", 574),
         ("B5a", "B5a odd-n rfft two-for-one (vpu_rfft_odd_pack_batch_minor; "
          "paired-block body, the stage body of stockham_vpu.cu at the other M)", 1029),
-        ("B5b", "B5b odd-n irfft two-for-one (vpu_irfft_odd_unpack_batch_minor)",
-         1051),
+        ("B5b", "B5b odd-n irfft two-for-one (vpu_irfft_odd_unpack_batch_minor; "
+         "paired-block body, the stage body of stockham_vpu.cu at the other M)", 1051),
     )
     dd_kernels = (
         ("B6", "B6 fused Stockham c128 f64 (vpu_dd_fft_batch_minor; clustered-block "
@@ -1939,7 +2055,8 @@ def main() -> int:
         ("B9b", "B9b fused two-phase DFT c64 (mxu_fft_two_phase)", "bailey.py:92"),
     )
     pair_libs = {"B1": sv.FFT_PAIR_LIBRARY, "B2": sv.BLUESTEIN_PAIR_LIBRARY,
-                 "B4a": sv.PAIR_LIBRARY, "B5a": sv.RFFT_ODD_PAIR_LIBRARY,
+                 "B4a": sv.PAIR_LIBRARY, "B4b": sv.IRFFT_UNPACK_PAIR_LIBRARY,
+                 "B5a": sv.RFFT_ODD_PAIR_LIBRARY, "B5b": sv.IRFFT_ODD_PAIR_LIBRARY,
                  "B6": dv.FFT_PAIR_DD_LIBRARY}
     rows = ([(k, name, pair_libs.get(k, sv.LIBRARY),
               f"stockham_vpu.py:{line}") for k, name, line in kernels]

@@ -114,6 +114,14 @@ struct OddPackPlanes {
     }
   }
 
+  // Input row `row` < n of column pair `col`, from the rank that copied it.
+  template <class Tile>
+  __device__ __forceinline__ void input(int row, int col, const float* sre,
+                                        const float* sim, int n, float& re,
+                                        float& im) const {
+    pair_input<Tile>(row, col, sre, sim, n, re, im);
+  }
+
   // The tile's output. Rank 0 holds E and rank 1 O of the chirp-z's
   // M-point inverse; Z[p] = (E[p] + W_M^-p * O[p]) * xo[p] (pair_join), and
   // the ranks split the bins k < L = (n+1)/2, separating Z[k] and

@@ -1,10 +1,10 @@
 // Clustered-block Stockham engine for NVIDIA Hopper sm_90a: the stage code
 // of the redesigned kernels B1 (fft_pair.cu), B2 (bluestein_pair.cu), B4a
-// (rfft_pack_pair.cu) and B5a (rfft_odd_pair.cu), all float, and B6
-// (fft_pair_dd.cu) and B7 (stockham_vpu_dd.cu), double. B3, B4b and B5b,
-// and B1, B2, B5a and B6 at the sizes their clustered bodies do not cover,
-// keep the stage code of stockham_stages.cuh; this header reuses its
-// butterflies.
+// (rfft_pack_pair.cu), B4b (irfft_unpack_pair.cu), B5a (rfft_odd_pair.cu)
+// and B5b (irfft_odd_pair.cu), all float, and B6 (fft_pair_dd.cu) and B7
+// (stockham_vpu_dd.cu), double. B3, and B1, B2, B4a, B4b, B5a, B5b and B6
+// at the sizes their clustered bodies do not cover, keep the stage code of
+// stockham_stages.cuh; this header reuses its butterflies.
 //
 // The layout. A column group is 32 bytes of a row (8 float or 4 double
 // columns): a copy-only probe on an H100 moved a (2048, 32768) f32 plane in
@@ -664,11 +664,11 @@ __device__ __forceinline__ void pair_join(unsigned er, unsigned ei, unsigned o_r
 // The default input and output of bluestein_pair (B2, B7): the planar
 // (n, B) input and output planes, B = `batch`, whose B columns the clusters
 // walk; each rank copies its half of the input rows at their rows in its
-// own buffer (`fetch`), where the first pass reads them (pair_input), and
-// each rank stores half of the output rows, times xo * `scale` (`store`);
-// `vec`: 16-byte copies and stores. A kernel that reads or writes other
-// planes (B5a's two-for-one in rfft_odd_pair.cu) passes its own policy
-// with these three members.
+// own buffer (`fetch`), where the first pass reads them (`input`,
+// pair_input), and each rank stores half of the output rows, times xo *
+// `scale` (`store`); `vec`: 16-byte copies and stores. A kernel that reads
+// or writes other planes (B5a's and B5b's two-for-one in rfft_odd_pair.cu
+// and irfft_odd_pair.cu) passes its own policy with these four members.
 template <typename T>
 struct ChirpPlanes {
   static constexpr int kV = 16 / static_cast<int>(sizeof(T));  // values a chunk
@@ -716,6 +716,13 @@ struct ChirpPlanes {
     }
   }
 
+  // Input row `row` < n of column `col`, from the rank that copied it.
+  template <class Tile>
+  __device__ __forceinline__ void input(int row, int col, const T* sre,
+                                        const T* sim, int n, T& re, T& im) const {
+    pair_input<Tile>(row, col, sre, sim, n, re, im);
+  }
+
   // This block's output rows [r0, r1) of the columns b0.. of a tile.
   template <class Tile, int Threads>
   __device__ __forceinline__ void store(int b0, int n, T* sre, T* sim,
@@ -749,15 +756,17 @@ struct ChirpPlanes {
 };
 
 // The paired-block chirp-z body of B2 (float, bluestein_pair.cu), B7
-// (double, stockham_vpu_dd.cu) and B5a (float, rfft_odd_pair.cu) over M =
-// 2H, on a pair of blocks. The input rows [0, n) are all in the first half
-// of the padded column (n <= H), so the cross-block split has b = 0: rank 0
-// transforms u = a * xt, rank 1 v = a * xt * W_M^row, rows n.. read as
-// zeros, never copied. The policy `io` (ChirpPlanes above for B2 and B7)
-// gives the columns the clusters walk (`columns`), copies a tile's input
-// rows into a rank's buffer (`fetch`, cp.async: rows [0, (n+1)/2) on rank
-// 0, the rest on rank 1, where the first forward pass reads them,
-// pair_input), and, once both ranks' inverse passes are done, stores the
+// (double, stockham_vpu_dd.cu), B5a (float, rfft_odd_pair.cu) and B5b
+// (float, irfft_odd_pair.cu) over M = 2H, on a pair of blocks. The input
+// rows [0, n) are all in the first half of the padded column (n <= H), so
+// the cross-block split has b = 0: rank 0 transforms u = a * xt, rank 1
+// v = a * xt * W_M^row, rows n.. read as zeros, never copied. The policy
+// `io` (ChirpPlanes above for B2 and B7) gives the columns the clusters
+// walk (`columns`), copies a tile's input into a rank's buffer (`fetch`,
+// cp.async), reads input row a < n of a column from the ranks' buffers for
+// the first forward pass (`input`; ChirpPlanes: rows [0, (n+1)/2) copied on
+// rank 0, the rest on rank 1, pair_input), and, once both ranks' inverse
+// passes are done, stores the
 // tile's output (`store`, which may read both ranks' tiles, rank 0 holding
 // E and rank 1 O of the M-point inverse, and may write its own after a
 // cluster barrier). The last forward pass stores times wt at frequency
@@ -799,7 +808,7 @@ __device__ __forceinline__ void bluestein_pair(const IO& io, int n,
         im = T(0);
         return;
       }
-      pair_input<Tile>(row, col, sre, sim, n, re, im);
+      io.template input<Tile>(row, col, sre, sim, n, re, im);
       cmul(re, im, __ldg(t.xtre + row), __ldg(t.xtim + row));
       if (cluster_rank() == 1) cmul(re, im, __ldg(t.fwre + row), __ldg(t.fwim + row));
     };

@@ -31,7 +31,11 @@ Port of ``fourier_tpu/ops/pallas/stockham_vpu.py`` (all of its kernels):
   B4a runs the paired-block body of ``csrc/rfft_pack_pair.cu`` (its own
   library) for even m up to 2048 (:func:`rfft_pack_geometry`, with
   :func:`pass_schedule` and :func:`pair_tables`) and B1's stages for the
-  other m; B4b runs B1's stages;
+  other m; B4b runs B4a's body backwards, the paired-block body of
+  ``csrc/irfft_unpack_pair.cu`` (its own library; the Hermitian unpack on
+  the first inverse pass's read), at the same m but 1728
+  (:func:`irfft_unpack_geometry`) and those of B4B_STAGE_FASTER, and B1's
+  stages for the other m;
 * B5a/B5b, the odd-n real transforms (B2's chirp-z with the two-for-one
   separation or recombination fused in):
   :func:`vpu_rfft_odd_pack_batch_minor_reference`,
@@ -42,14 +46,18 @@ Port of ``fourier_tpu/ops/pallas/stockham_vpu.py`` (all of its kernels):
   paired-block body of ``csrc/rfft_odd_pair.cu`` (its own library; B2's
   body with the pairing on its copies and the separation on its store) at
   B2's inner sizes (:func:`rfft_odd_pack_geometry`) but those of
-  B5A_STAGE_FASTER, and the stage body at the others; B5b runs the stage
-  body.
+  B5A_STAGE_FASTER, and the stage body at the others; B5b runs the
+  paired-block body of ``csrc/irfft_odd_pair.cu`` (its own library; B2's
+  body with the pairing and the Hermitian tail on its first read) at B2's
+  inner sizes (:func:`irfft_odd_unpack_geometry`) but those of
+  B5B_STAGE_FASTER, and the stage body at the others.
 
 The stage bodies are one library, built from ``csrc/stockham_vpu.cu``; the
-clustered-block bodies of B1, B2, B4a and B5a (``csrc/stockham_pair.cuh``)
-are a library each, built from ``csrc/fft_pair.cu``,
-``csrc/bluestein_pair.cu``, ``csrc/rfft_pack_pair.cu`` and
-``csrc/rfft_odd_pair.cu``.
+clustered-block bodies of B1, B2, B4a, B4b, B5a and B5b
+(``csrc/stockham_pair.cuh``) are a library each, built from
+``csrc/fft_pair.cu``, ``csrc/bluestein_pair.cu``, ``csrc/rfft_pack_pair.cu``,
+``csrc/irfft_unpack_pair.cu``, ``csrc/rfft_odd_pair.cu`` and
+``csrc/irfft_odd_pair.cu``.
 
 Each wrapper runs its plain version for tensors on the CPU, and launches its
 kernel (or raises) for tensors on a CUDA device; it counts its launches in
@@ -170,6 +178,11 @@ BLUESTEIN_PAIR_ROWS = tuple(h for h in PAIR_ROWS if h != 512)
 # B5a's (FOURIER_B5A_ROWS in csrc/rfft_odd_pair.cu): B2's but 240 (M = 480),
 # where its body spilled in every arrangement of its store tried.
 RFFT_ODD_PAIR_ROWS = tuple(h for h in BLUESTEIN_PAIR_ROWS if h != 240)
+# B5b's (FOURIER_B5B_ROWS in csrc/irfft_odd_pair.cu): B2's. B4b's
+# (FOURIER_B4B_ROWS in csrc/irfft_unpack_pair.cu): B4a's but 864 (m = 1728),
+# where its body spilled in every arrangement tried.
+IRFFT_ODD_PAIR_ROWS = BLUESTEIN_PAIR_ROWS
+IRFFT_UNPACK_PAIR_ROWS = tuple(h for h in PAIR_ROWS if h != 864)
 # Sizes with a clustered body that lost to the stage body in a same-run A/B
 # over every such size (chip_smoke.py phase 5g, about 2^26 points a call, on
 # an H100 80GB HBM3 at 700 W; a size whose winner changed between runs went
@@ -183,6 +196,10 @@ B1_STAGE_FASTER = frozenset({576, 648, 800, 960, 1000})
 B2_STAGE_FASTER = frozenset({64, 72, 120, 320, 576, 600, 640, 648, 800, 960, 1000})
 B5A_STAGE_FASTER = frozenset({64, 72, 120, 200, 320, 576, 600, 640, 648, 800, 864,
                               960, 1000, 1080, 1600})
+# B4b at m and B5b at M (two runs that agreed at every size): none of the
+# rfft routes' B5b sizes (M 1600..2048) and, of their B4b sizes, m = 1000.
+B4B_STAGE_FASTER = frozenset({72, 320, 576, 600, 640, 648, 768, 800, 960, 1000})
+B5B_STAGE_FASTER = frozenset({64, 72, 120, 200, 320, 576, 600, 648, 800, 864, 960, 1000})
 
 
 def _stage_sizes(n: int, schedule: Sequence[int]):
@@ -375,6 +392,26 @@ def rfft_odd_pack_geometry(m: int) -> Optional[PairGeometry]:
     return pair_geometry(m, 4, PAIR_THREADS)
 
 
+def irfft_unpack_geometry(m: int) -> Optional[PairGeometry]:
+    """B4b's paired-block launch at m, B4a's tile (:func:`rfft_pack_geometry`):
+    two blocks of m/2 spectrum rows, or None where the stage body stays the
+    kernel: odd m, m = 1728 and m above PAIR_MAX_M (IRFFT_UNPACK_PAIR_ROWS)."""
+    if m % 2 or m // 2 not in IRFFT_UNPACK_PAIR_ROWS:
+        return None
+    return pair_geometry(m, 4, PAIR_THREADS)
+
+
+def irfft_odd_unpack_geometry(m: int) -> Optional[PairGeometry]:
+    """B5b's paired-block launch at inner size m, B2's tile
+    (:func:`bluestein_pair_geometry_c64`): two blocks of m/2 rows, each of
+    `cols` column pairs (column j's bins on rank 0, j + ceil(B/2)'s on rank
+    1), or None where the stage body stays the kernel: M = 1024 and above
+    PAIR_MAX_M (IRFFT_ODD_PAIR_ROWS)."""
+    if m % 2 or m // 2 not in IRFFT_ODD_PAIR_ROWS:
+        return None
+    return pair_geometry(m, 4, PAIR_THREADS)
+
+
 def stages_reference(re_t, im_t, schedule: Sequence[int], tables,
                      forward: bool, scale: Optional[float]):
     """The stages of a TPU `schedule` over (n, B) planes with its compact
@@ -472,6 +509,14 @@ RFFT_ODD_PAIR_LIBRARY = "rfft_odd_pair"  # csrc/rfft_odd_pair.cu: B5a's
 RFFT_ODD_PAIR_ENTRY_POINTS = {
     "fourier_rfft_odd_pack_pair_c64": [_P] * 3 + [_I] * 6 + [_P] * 11 + [_I, _P],
 }
+IRFFT_UNPACK_PAIR_LIBRARY = "irfft_unpack_pair"  # csrc/irfft_unpack_pair.cu: B4b's
+IRFFT_UNPACK_PAIR_ENTRY_POINTS = {
+    "fourier_irfft_unpack_pair_c64": [_P] * 3 + [_I] * 5 + [_P] * 5 + [_F, _I, _P],
+}
+IRFFT_ODD_PAIR_LIBRARY = "irfft_odd_pair"  # csrc/irfft_odd_pair.cu: B5b's
+IRFFT_ODD_PAIR_ENTRY_POINTS = {
+    "fourier_irfft_odd_unpack_pair_c64": [_P] * 3 + [_I] * 6 + [_P] * 11 + [_F, _I, _P],
+}
 
 
 def library():
@@ -497,6 +542,16 @@ def bluestein_pair_library():
 def rfft_odd_pair_library():
     """Build (at first use) and load B5a's paired-block library."""
     return build.bind(RFFT_ODD_PAIR_LIBRARY, RFFT_ODD_PAIR_ENTRY_POINTS)
+
+
+def irfft_unpack_pair_library():
+    """Build (at first use) and load B4b's paired-block library."""
+    return build.bind(IRFFT_UNPACK_PAIR_LIBRARY, IRFFT_UNPACK_PAIR_ENTRY_POINTS)
+
+
+def irfft_odd_pair_library():
+    """Build (at first use) and load B5b's paired-block library."""
+    return build.bind(IRFFT_ODD_PAIR_LIBRARY, IRFFT_ODD_PAIR_ENTRY_POINTS)
 
 
 def fft_pair_clusters(n: int, device) -> int:
@@ -819,14 +874,19 @@ vpu_rfft_pack_batch_minor.launches = 0
 
 
 def vpu_irfft_unpack_batch_minor(re_t, im_t, m: int, *, tables, kernel_tables,
-                                 w):
+                                 w, _body: Optional[str] = None):
     """B4b over contiguous planar f32 (m+1, B) spectrum planes; returns a new
     real (2m, B) plane (the irfft, 1/(2m) included).
 
     `tables`: the compact inverse stage tables of m as tensors (plain
     version); `kernel_tables`: the inverse (2, L) tensor of
-    :func:`make_kernel_tables` for m (kernel); `w`: as for
-    :func:`vpu_rfft_pack_batch_minor` (conjugated here).
+    :func:`make_kernel_tables` for m (the stage body); `w`: as for
+    :func:`vpu_rfft_pack_batch_minor` (conjugated here). The kernel is the
+    paired-block body of ``csrc/irfft_unpack_pair.cu`` where
+    :func:`irfft_unpack_geometry` gives one and m is not in
+    B4B_STAGE_FASTER (its inverse tables from :func:`pair_device_tables`),
+    else the stage body; `_body` ("pair" or "stage") forces one, for
+    same-run comparisons.
     """
     check_planes(re_t, im_t, (m + 1,), "B4b")
     _check_w(w, m, re_t.device)
@@ -837,15 +897,26 @@ def vpu_irfft_unpack_batch_minor(re_t, im_t, m: int, *, tables, kernel_tables,
     out = torch.empty(2 * m, batch, dtype=torch.float32, device=re_t.device)
     if batch == 0:
         return out
-    cols, threads = launch_geometry(m)
-    _launch(
-        "fourier_irfft_unpack_c64", f"B4b at m={m}, B={batch}",
-        re_t.data_ptr(), im_t.data_ptr(), out.data_ptr(),
-        m, batch, cols, threads, *_radices(m),
-        kernel_tables[0].data_ptr(), kernel_tables[1].data_ptr(),
-        w[0].data_ptr(), w[1].data_ptr(), float(np.float32(0.5 / m)),
-        re_t.device.index, stream_of(re_t),
-    )
+    data = (re_t.data_ptr(), im_t.data_ptr(), out.data_ptr())
+    h = float(np.float32(0.5 / m))
+    geo = irfft_unpack_geometry(m)
+    if pick_body(f"B4b at m={m}", geo, _body, m in B4B_STAGE_FASTER) == "pair":
+        tw = pair_device_tables(m, False, torch.float32, re_t.device)
+        build.call(
+            irfft_unpack_pair_library(), "fourier_irfft_unpack_pair_c64",
+            f"B4b (paired blocks) at m={m}, B={batch}", *data,
+            m, batch, geo.cols, geo.threads, *radices_arg(pass_schedule(m // 2)),
+            tw[0].data_ptr(), tw[1].data_ptr(), w[0].data_ptr(), w[1].data_ptr(),
+            h, re_t.device.index, stream_of(re_t),
+        )
+    else:
+        cols, threads = launch_geometry(m)
+        _launch(
+            "fourier_irfft_unpack_c64", f"B4b at m={m}, B={batch}", *data,
+            m, batch, cols, threads, *_radices(m),
+            kernel_tables[0].data_ptr(), kernel_tables[1].data_ptr(),
+            w[0].data_ptr(), w[1].data_ptr(), h, re_t.device.index, stream_of(re_t),
+        )
     vpu_irfft_unpack_batch_minor.launches += 1
     return out
 
@@ -963,12 +1034,18 @@ vpu_rfft_odd_pack_batch_minor.launches = 0
 
 
 def vpu_irfft_odd_unpack_batch_minor(re_t, im_t, n: int, m: int, *, tables,
-                                     kernel_tables, chirps):
+                                     kernel_tables, chirps,
+                                     _body: Optional[str] = None):
     """B5b over contiguous planar f32 (L, B) spectrum planes, n odd; returns
     a new real (n, B) plane (the irfft, 1/n included).
 
     `tables`, `kernel_tables`: as for :func:`vpu_bluestein_batch_minor`;
-    `chirps`: the inverse (xt, wt, xo); all on the planes' device.
+    `chirps`: the inverse (xt, wt, xo); all on the planes' device. The
+    kernel is the paired-block body of ``csrc/irfft_odd_pair.cu`` where
+    :func:`irfft_odd_unpack_geometry` gives one and M is not in
+    B5B_STAGE_FASTER (its tables from :func:`pair_device_tables`), else the
+    stage body; `_body` ("pair" or "stage") forces one, for same-run
+    comparisons.
     """
     check_planes(re_t, im_t, ((n + 1) // 2,), "B5b")
     if re_t.device.type == "cpu":
@@ -978,8 +1055,14 @@ def vpu_irfft_odd_unpack_batch_minor(re_t, im_t, n: int, m: int, *, tables,
     out = torch.empty(n, re_t.shape[1], dtype=torch.float32, device=re_t.device)
     if re_t.shape[1] == 0:
         return out
-    _launch_odd("fourier_irfft_odd_unpack_c64", "B5b", (re_t, im_t), (out,),
-                n, m, kernel_tables, chirps, 1.0 / n)
+    geo = irfft_odd_unpack_geometry(m)
+    if pick_body(f"B5b at M={m}", geo, _body, m in B5B_STAGE_FASTER) == "pair":
+        _launch_odd("fourier_irfft_odd_unpack_pair_c64", "B5b (paired blocks)",
+                    (re_t, im_t), (out,), n, m, kernel_tables, chirps, 1.0 / n,
+                    lib=irfft_odd_pair_library(), geo=geo)
+    else:
+        _launch_odd("fourier_irfft_odd_unpack_c64", "B5b", (re_t, im_t), (out,),
+                    n, m, kernel_tables, chirps, 1.0 / n)
     vpu_irfft_odd_unpack_batch_minor.launches += 1
     return out
 

@@ -1,12 +1,14 @@
-"""The clustered-block bodies of kernels B1, B2, B4a, B5a, B6 and B7
-(csrc/stockham_pair.cuh).
+"""The clustered-block bodies of kernels B1, B2, B4a, B4b, B5a, B5b, B6 and
+B7 (csrc/stockham_pair.cuh).
 
 The CUDA kernels run only on a card. Here a numpy transliteration of each
 body's order of operations is held against ``np.fft`` and against the
 unchanged plain versions (``vpu_fft_batch_minor_reference``,
 ``vpu_bluestein_batch_minor_reference``,
 ``vpu_rfft_pack_batch_minor_reference``,
+``vpu_irfft_unpack_batch_minor_reference``,
 ``vpu_rfft_odd_pack_batch_minor_reference``,
+``vpu_irfft_odd_unpack_batch_minor_reference``,
 ``vpu_dd_fft_batch_minor_reference``,
 ``vpu_dd_bluestein_batch_minor_reference``): the C blocks of a cluster (two,
 or four for B1 and B6 at n in (2048, 4096]), each holding 1/C of the rows of
@@ -21,14 +23,18 @@ each block's own rows; the chirp-z bodies' (B2, B7, B5a) chirp on the first
 read, w on the last forward store and the join E + W_M^-p * O times the
 output chirp on the final store; B5a's walk over the ceil(B/2) column pairs,
 column j copied into the re plane and j + ceil(B/2) into the im plane, and
-its separation of the bins k < (n+1)/2 into the two columns; the persistent
-walk of the clusters over column groups, ending on a ragged group. Columns
-past B and rows never copied are NaN in the emulated shared memory, so a
-read of either would show; the one exception is B5a's partner of an
-unpaired last column, written as zeros, which the emulation checks as such.
-Gates: rel-L2 1e-6 (c64), 1e-12 (c128). B5a's and B6's bodies are also held
-against the JAX package's Pallas kernels in interpret mode at one small
-size each.
+its separation of the bins k < (n+1)/2 into the two columns; B5b's bins of
+column j on rank 0 and of j + ceil(B/2) on rank 1, read as Z on the first
+forward read with the Hermitian tail as an index; B4b's unpack on the first
+inverse pass's read from both ranks' rows and the Nyquist row, and its
+store of row j of rank r to real rows 4j + 2r and 4j + 2r + 1; the
+persistent walk of the clusters over column groups, ending on a ragged
+group. Columns past B and rows never copied are NaN in the emulated shared
+memory, so a read of either would show; the one exception is B5a's and
+B5b's partner of an unpaired last column, written as zeros, which the
+emulations check as such. Gates: rel-L2 1e-6 (c64), 1e-12 (c128). B4b's,
+B5a's, B5b's and B6's bodies are also held against the JAX package's Pallas
+kernels in interpret mode at one small size each.
 
 The launch geometry and schedules are checked over each body's whole
 domain, with the sizes at which each wrapper keeps its stage body, and the
@@ -45,6 +51,7 @@ import torch
 from fourier_tpu import Transform as JTransform
 from fourier_tpu.ops.pallas import stockham_vpu as jsv
 from fourier_tpu.plan.bluestein_fused import VpuBluesteinPlan as JVpuBluesteinPlan
+from fourier_tpu.plan.vpu import VpuFftPlan as JVpuFftPlan
 from fourier_tpu.precision import ddreal
 from fourier_tpu.precision.vpu_dd_plan import VpuDdFftPlan as JVpuDdFftPlan
 
@@ -287,20 +294,24 @@ def emulate_b6_pair(x, n, forward, scale):
     return emulate_fft_pair(x, n, forward, scale, dv.fft_pair_geometry_dd(n), np.float64)
 
 
-def _chirp_passes(pair, n, m, real, chirps):
-    """bluestein_pair's passes on a filled _Pair (rows [0, n0) on rank 0,
-    [n0, n) on rank 1): the input chirp on the first forward read (rank 1
-    also times W_M^row), wt on the last forward store, the inverse passes.
-    Returns the inverse tables, for the join."""
+def _chirp_passes(pair, n, m, real, chirps, read=None):
+    """bluestein_pair's passes on a filled _Pair: input row r < n of the
+    tiles' columns through `read(r, col)` (the policy's `input`; by default
+    ChirpPlanes', rows [0, n0) on rank 0, [n0, n) on rank 1), times the
+    input chirp on the first forward read (rank 1 also times W_M^row), wt on
+    the last forward store, the inverse passes. Returns the inverse tables,
+    for the join."""
     fw = _cplx(sv.pair_tables(m, True, real))
     iv = _cplx(sv.pair_tables(m, False, real))
     xt, wt = _cplx(chirps[0]), _cplx(chirps[1])
     n0 = (n + 1) // 2
+    if read is None:
+        read = lambda r, col: np.where(r < n0, pair.load(0, r, col), pair.load(1, r, col))
 
     def chirp_in(rank, row, col):
         inside = row < n
         r = np.where(inside, row, 0)
-        a = np.where(r < n0, pair.load(0, r, col), pair.load(1, r, col))
+        a = read(r, col)
         v = a * xt[r]
         if rank == 1:
             v = v * fw[row]
@@ -406,6 +417,115 @@ def emulate_b5a_pair(x, n, m, chirps):
                 out[k0:k1, js] = x1[ti][:, valid[ti]]
                 paired = js + half < b
                 out[k0:k1, js[paired] + half] = x2[ti][:, valid[ti]][:, paired]
+    return out
+
+
+def emulate_b5b_pair(spec, n, m, chirps):
+    """irfft_odd_unpack_pair_c64 on a complex (L, B) one-sided spectrum, n
+    odd, in f64 with the f32 tables: the h = ceil(B/2) column pairs walked,
+    bins [0, L) of column j copied on rank 0 and of column j + h on rank 1
+    (written as zeros where j + h >= B, and the DC bin's imaginary row as
+    zeros), Z formed on the first forward read from bin k = p (p < L) or
+    n - p of both ranks (the Hermitian tail an index), B2's passes and join times
+    xo / n, the real part to column j and the imaginary part to column
+    j + h: the real (n, B) signal."""
+    geo = sv.irfft_odd_unpack_geometry(m)
+    cols = geo.cols
+    xo = _cplx(chirps[2])
+    b = spec.shape[1]
+    half, nbins = (b + 1) // 2, (n + 1) // 2
+    ntiles = -(-half // cols)
+    out = np.full((n, b), np.nan)
+    rows = np.repeat(np.arange(nbins), cols)
+    cgrid = np.tile(np.arange(cols), nbins)
+    for t0 in range(0, ntiles, CLUSTERS):
+        tiles = np.arange(t0, min(ntiles, t0 + CLUSTERS))
+        cidx, valid = _tile_columns(tiles, cols, half)
+        pair = _Pair(geo, 4, len(tiles))
+        j, ok = cidx[:, cgrid], valid[:, cgrid]
+        for rank in (0, 1):
+            src = j + rank * half
+            v = np.where(src < b, spec[rows, np.minimum(src, b - 1)], 0.0)
+            # The zeroed partners: copied columns whose partner is past B.
+            assert np.all(v[ok & (src >= b)] == 0.0)
+            v = np.where(rows == 0, v.real, v)  # the DC bin's imaginary row: zeros
+            pair.bufs[rank][:, pair.index(rows, cgrid)] = np.where(ok, v, np.nan)
+
+        def z_in(row, col):  # OddUnpackPlanes::input
+            head = row < nbins
+            k = np.where(head, row, n - row)
+            x1, x2 = pair.load(0, k, col), pair.load(1, k, col)
+            return np.where(head, x1 + 1j * x2, np.conj(x1) + 1j * np.conj(x2))
+
+        iv = _chirp_passes(pair, n, m, np.float32, chirps, z_in)
+        for r0, r1 in ((0, nbins), (nbins, n)):  # each rank stores its rows
+            p = np.arange(r0, r1)[:, None]
+            z = _join(pair, p, iv, xo[p] / n)
+            for ti in range(len(tiles)):
+                js = cidx[ti][valid[ti]]
+                zt = z[ti][:, valid[ti]]
+                out[r0:r1, js] = zt.real
+                paired = js + half < b
+                out[r0:r1, js[paired] + half] = zt[:, paired].imag
+    return out
+
+
+def emulate_b4b_pair(spec, m, w):
+    """irfft_unpack_pair_c64 on a complex (m+1, B) one-sided spectrum, in f64
+    with the f32 tables: rank r copies spectrum rows [r*h, (r+1)*h); the
+    first inverse pass's read of split row p forms Z[p] from X[p] (rank 0)
+    and X[m-p] (rank 1's row h-p, the Nyquist row X[m] from the input at
+    p = 0) and Z[p+h] from X[p+h] (rank 1) and X[h-p] (rank 0's row h-p,
+    rank 1's row 0 at p = 0), X[0]'s imaginary row written as zeros at the
+    copy and X[m] read as real, w[p + h] formed as -i*w[p] (loaded at
+    h = 256), then the radix-2 split; the inverse passes; rank r's row j is z[2j + r],
+    stored to real rows 4j + 2r and 4j + 2r + 1: the real (2m, B) signal."""
+    geo = sv.irfft_unpack_geometry(m)
+    h, cols = geo.rows, geo.cols
+    tab = _cplx(sv.pair_tables(m, False, np.float32))
+    wc = _cplx(w)
+    hh = float(np.float32(0.5 / m))
+    b = spec.shape[1]
+    ntiles = -(-b // cols)
+    out = np.full((2 * m, b), np.nan)
+    rows = np.repeat(np.arange(h), cols)
+    cgrid = np.tile(np.arange(cols), h)
+    for t0 in range(0, ntiles, CLUSTERS):
+        tiles = np.arange(t0, min(ntiles, t0 + CLUSTERS))
+        cidx, valid = _tile_columns(tiles, cols, b)
+        pair = _Pair(geo, 4, len(tiles))
+        col = cidx[:, cgrid]
+        for rank in (0, 1):
+            v = spec[rank * h + rows, np.minimum(col, b - 1)]
+            if rank == 0:  # X[0]'s imaginary row: zeros
+                v = np.where(rows == 0, v.real, v)
+            pair.bufs[rank][:, pair.index(rows, cgrid)] = np.where(valid[:, cgrid], v, np.nan)
+        # X[m] of the tiles' columns, read from the input (0 past B).
+        nyquist = np.where(valid, spec[m, np.minimum(cidx, b - 1)].real, 0.0)
+
+        def unpack(x, xm, w):  # E[k] + i*conj(w^k)*O[k], 1/n folded into hh
+            return hh * (x + np.conj(xm)) + 1j * np.conj(w) * hh * (x - np.conj(xm))
+
+        def split(rank, row, col):
+            head = row == 0
+            q = np.where(head, 0, h - row)
+            c = np.where(head, nyquist[:, col], pair.load(1, q, col))
+            d = np.where(head, pair.load(1, q, col), pair.load(0, q, col))
+            w = wc[row]  # w[p + h] = -i * w[p], loaded at h = 256
+            z0 = unpack(pair.load(0, row, col), c, w)
+            z1 = unpack(pair.load(1, row, col), d, wc[row + h] if h == 256 else -1j * w)
+            return z0 + z1 if rank == 0 else (z0 - z1) * tab[row]
+
+        pair.passes(sv.pass_schedule(h), tab, False, split)
+        j, ccol = np.arange(h)[:, None], np.arange(cols)
+        for rank in (0, 1):
+            z = pair.bufs[rank][:, pair.index(j, ccol)]
+            q = (2 * j + rank)[:, 0]
+            for ti in range(len(tiles)):
+                zt = z[ti][:, valid[ti]]
+                js = cidx[ti][valid[ti]][None, :]
+                out[2 * q[:, None], js] = zt.real
+                out[2 * q[:, None] + 1, js] = zt.imag
     return out
 
 
@@ -544,6 +664,52 @@ def test_b5a_pair_geometry_over_its_domain():
         m // 2 for m in pair] == list(sv.RFFT_ODD_PAIR_ROWS)
 
 
+def test_b4b_pair_geometry_over_its_domain():
+    """B4b's paired bodies are B4a's backwards: every even m up to 2048 of
+    B1's domain but 1728, with B4a's tile of m/2 spectrum rows a rank (row m,
+    the Nyquist row, on neither); the stage body keeps odd m, 1728, m above
+    2048 and B4B_STAGE_FASTER."""
+    pair = [m for m in B1_DOMAIN if sv.irfft_unpack_geometry(m)]
+    assert pair == [m for m in B4A_PAIR if m // 2 in sv.IRFFT_UNPACK_PAIR_ROWS]
+    assert set(sv.IRFFT_UNPACK_PAIR_ROWS) <= set(sv.PAIR_ROWS)
+    for m in pair:
+        geo = sv.irfft_unpack_geometry(m)
+        assert geo == sv.rfft_pack_geometry(m) and 2 * geo.rows == m
+    assert sv.B4B_STAGE_FASTER <= set(pair)
+    assert sv.irfft_unpack_geometry(2048) == sv.PairGeometry(1024, 8, 512, 131072, 2)
+    assert all(sv.irfft_unpack_geometry(m) is None for m in (243, 625, 729, 1728, 2160, 4096))
+    assert len(pair) == len(B4A_PAIR) - 1
+    # One compiled body per m/2 in FOURIER_B4B_ROWS, which
+    # irfft_unpack_pair.cu instantiates.
+    src = (CSRC / "irfft_unpack_pair.cu").read_text()
+    assert "FOURIER_B4B_ROWS(FOURIER_B4B_CASE)" in src
+    assert _xmacro("irfft_unpack_pair.cu", "FOURIER_B4B_ROWS") == [
+        m // 2 for m in pair] == list(sv.IRFFT_UNPACK_PAIR_ROWS)
+
+
+def test_b5b_pair_geometry_over_its_domain():
+    """B5b's paired bodies are at B2's inner sizes, with B2's tile (of
+    column pairs): every inner size M up to 2048 that a VpuBluesteinPlan
+    takes but 1024; the stage body keeps those, M above 2048 and
+    B5B_STAGE_FASTER. A rank's tile holds the L = (n+1)/2 bins it copies."""
+    pair = [m for m in B2_INNER if sv.irfft_odd_unpack_geometry(m)]
+    assert pair == [m for m in B2_INNER if m // 2 in sv.IRFFT_ODD_PAIR_ROWS]
+    assert set(sv.IRFFT_ODD_PAIR_ROWS) <= set(sv.BLUESTEIN_PAIR_ROWS)
+    for m in pair:
+        geo = sv.irfft_odd_unpack_geometry(m)
+        assert geo == sv.bluestein_pair_geometry_c64(m)
+        n = max(n for n in range(17, 4097) if VpuBluesteinPlan.choose_inner(n, 8192) == m)
+        assert (n + 1) // 2 <= n <= geo.rows
+    assert sv.B5B_STAGE_FASTER <= set(pair)
+    assert sv.irfft_odd_unpack_geometry(2048) == sv.PairGeometry(1024, 8, 512, 131072, 2)
+    assert sv.irfft_odd_unpack_geometry(1024) is None
+    assert sv.irfft_odd_unpack_geometry(2160) is None
+    src = (CSRC / "irfft_odd_pair.cu").read_text()
+    assert "FOURIER_B5B_ROWS(FOURIER_B5B_CASE)" in src
+    assert _xmacro("irfft_odd_pair.cu", "FOURIER_B5B_ROWS") == [
+        m // 2 for m in pair] == list(sv.IRFFT_ODD_PAIR_ROWS)
+
+
 def test_b6_pair_geometry_over_its_domain():
     """B6's clustered bodies are B1's 60 sizes at double: two blocks for
     8 | n up to 2048, four for the 14 n in (2048, 4096]; 256 threads, 32-byte
@@ -582,10 +748,12 @@ def test_b6_pair_geometry_over_its_domain():
     (sv.FFT_PAIR_LIBRARY, sv.FFT_PAIR_ENTRY_POINTS),
     (sv.BLUESTEIN_PAIR_LIBRARY, sv.BLUESTEIN_PAIR_ENTRY_POINTS),
     (sv.RFFT_ODD_PAIR_LIBRARY, sv.RFFT_ODD_PAIR_ENTRY_POINTS),
+    (sv.IRFFT_UNPACK_PAIR_LIBRARY, sv.IRFFT_UNPACK_PAIR_ENTRY_POINTS),
+    (sv.IRFFT_ODD_PAIR_LIBRARY, sv.IRFFT_ODD_PAIR_ENTRY_POINTS),
     (dv.FFT_PAIR_DD_LIBRARY, dv.FFT_PAIR_DD_ENTRY_POINTS)])
 def test_b1_b2_library_entry_points(lib, entry_points):
-    """The clustered-block libraries of B1, B2, B5a and B6 include the
-    engine and define each entry point their wrappers bind with as many
+    """The clustered-block libraries of B1, B2, B4b, B5a, B5b and B6 include
+    the engine and define each entry point their wrappers bind with as many
     parameters; every library is built apart."""
     from fourier_tpu_torch.ops.cuda import build
 
@@ -597,7 +765,8 @@ def test_b1_b2_library_entry_points(lib, entry_points):
         assert m is not None, fn_name
         assert len(m.group(1).split(",")) == len(argtypes), fn_name
     libs = (sv.LIBRARY, sv.PAIR_LIBRARY, sv.FFT_PAIR_LIBRARY,
-            sv.BLUESTEIN_PAIR_LIBRARY, sv.RFFT_ODD_PAIR_LIBRARY, dv.LIBRARY,
+            sv.BLUESTEIN_PAIR_LIBRARY, sv.RFFT_ODD_PAIR_LIBRARY,
+            sv.IRFFT_UNPACK_PAIR_LIBRARY, sv.IRFFT_ODD_PAIR_LIBRARY, dv.LIBRARY,
             dv.FFT_PAIR_DD_LIBRARY)
     assert len({build.library_path(name) for name in libs}) == len(libs)
 
@@ -776,6 +945,53 @@ def test_b5a_pair_body_emulated(n, m):
         assert _rel(got, pre.double().numpy() + 1j * pim.double().numpy()) <= C64_GATE
 
 
+def _spectrum(rng, rows, b):
+    """A random complex64 (rows, B) spectrum, imaginary DC (and Nyquist)
+    parts included: the kernels read them as 0, as np.fft.irfft does."""
+    return (rng.standard_normal((rows, b))
+            + 1j * rng.standard_normal((rows, b))).astype(np.complex64)
+
+
+@pytest.mark.parametrize("m", [64, 96, 512, 1000, 2048])
+def test_b4b_pair_body_emulated(m):
+    """B4b's paired body at B = 1, odd B and a walk of several rounds
+    ending on a ragged group, against np.fft.irfft and the plain version."""
+    plan = _rfft_plan(m)
+    assert plan.fused and plan.m == m
+    rng = np.random.default_rng(RNG_SEED + m + 1)
+    for b in BATCHES:
+        spec = _spectrum(rng, m + 1, b)
+        got = emulate_b4b_pair(spec.astype(np.complex128), m, plan.w.numpy())
+        assert got.shape == (2 * m, b) and np.isfinite(got).all(), (m, b)
+        assert _rel(got, np.fft.irfft(spec.astype(np.complex128), 2 * m, axis=0)) <= C64_GATE
+        p = sv.vpu_irfft_unpack_batch_minor_reference(
+            torch.as_tensor(spec.real.copy()), torch.as_tensor(spec.imag.copy()), m,
+            plan.inner.tables(False), plan.w)
+        assert _rel(got, p.double().numpy()) <= C64_GATE, (m, b)
+
+
+@pytest.mark.parametrize("n,m", [(17, 64), (73, 160), (1013, 2048)])
+def test_b5b_pair_body_emulated(n, m):
+    """B5b's paired body at odd B (an unpaired last column against zeros),
+    B = 1 (no pair at all) and a walk of several rounds ending on a ragged
+    group of column pairs, against np.fft.irfft and the plain version."""
+    plan = VpuBluesteinPlan.create(n, device="cpu")
+    assert plan.m_inner == m
+    st = plan.stages
+    tables = (st.tables(True), st.tables(False))
+    chirps = plan.chirps(False)
+    rng = np.random.default_rng(RNG_SEED + n + 1)
+    for b in BATCHES:
+        spec = _spectrum(rng, (n + 1) // 2, b)
+        got = emulate_b5b_pair(spec.astype(np.complex128), n, m, [c.numpy() for c in chirps])
+        assert got.shape == (n, b) and np.isfinite(got).all(), (n, b)
+        assert _rel(got, np.fft.irfft(spec.astype(np.complex128), n, axis=0)) <= C64_GATE
+        p = sv.vpu_irfft_odd_unpack_batch_minor_reference(
+            torch.as_tensor(spec.real.copy()), torch.as_tensor(spec.imag.copy()), n, m,
+            tables, chirps)
+        assert _rel(got, p.double().numpy()) <= C64_GATE, (n, b)
+
+
 @pytest.mark.parametrize("n", [64, 96, 1000, 1024, 2048, 2160, 3888, 4096])
 def test_b6_pair_body_emulated(n):
     plan = VpuDdFftPlan.create(n, device="cpu")
@@ -811,6 +1027,43 @@ def test_b5a_pair_matches_pallas_interpret():
     got = emulate_b5a_pair(x.astype(np.float64), n, plan.m_inner,
                            [c.numpy() for c in plan.chirps(True)])
     assert want.shape == got.shape == (9, b)
+    assert _rel(got, want) <= C64_GATE
+
+
+def test_b4b_pair_matches_pallas_interpret():
+    """B4b's paired body against the JAX package's kernel in interpret mode
+    at a power of two (its _rev_rows takes only those), B = 128 (the JAX
+    wrapper's lane block)."""
+    m, b = 64, 128
+    rng = np.random.default_rng(RNG_SEED + m)
+    spec = _spectrum(rng, m + 1, b)
+    jplan = JVpuFftPlan.create(m, interpret=True)
+    w = _rfft_plan(m).w.numpy()
+    want = np.asarray(jsv.vpu_irfft_unpack_batch_minor(
+        spec.real.copy(), spec.imag.copy(), m, jplan.inv_tables,
+        (w[0].reshape(-1, 1), w[1].reshape(-1, 1)), interpret=True), np.float64)
+    got = emulate_b4b_pair(spec.astype(np.complex128), m, w)
+    assert want.shape == got.shape == (2 * m, b)
+    assert _rel(got, want) <= C64_GATE
+
+
+def test_b5b_pair_matches_pallas_interpret():
+    """B5b's paired body against the JAX package's kernel in interpret mode.
+    At B = 256 the JAX lane pairing (block t with t + B/(2*128)) and the
+    port's (column j with j + ceil(B/2)) coincide, column for column."""
+    n, b = 17, 256
+    rng = np.random.default_rng(RNG_SEED + n)
+    spec = _spectrum(rng, (n + 1) // 2, b)
+    jplan = JVpuBluesteinPlan.create(n, interpret=True)
+    plan = VpuBluesteinPlan.create(n, device="cpu")
+    assert plan.m_inner == jplan.m_inner == 64
+    oa, ob = jsv.vpu_irfft_odd_unpack_batch_minor(
+        spec.real.copy(), spec.imag.copy(), n, jplan.m_inner, jplan.stage_tables,
+        jplan.chirps_inv, interpret=True)
+    want = np.concatenate([np.asarray(oa, np.float64), np.asarray(ob, np.float64)], 1)
+    got = emulate_b5b_pair(spec.astype(np.complex128), n, plan.m_inner,
+                           [c.numpy() for c in plan.chirps(False)])
+    assert want.shape == got.shape == (n, b)
     assert _rel(got, want) <= C64_GATE
 
 
@@ -855,6 +1108,33 @@ def test_b5a_b6_body_argument_on_the_cpu():
                                         kernel_tables=plan.kernel_inv, _body=body)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert dv.vpu_dd_fft_batch_minor.launches == before
+
+
+def test_b4b_b5b_body_argument_on_the_cpu():
+    """On CPU tensors B4b's and B5b's wrappers run the plain version whatever
+    `_body` asks, and count no launch."""
+    plan = _rfft_plan(1024)
+    re_, im_ = torch.randn(1025, 5), torch.randn(1025, 5)
+    kw = dict(tables=plan.inner.tables(False), kernel_tables=plan.inner.kernel_inv,
+              w=plan.w)
+    before = sv.vpu_irfft_unpack_batch_minor.launches
+    want = sv.vpu_irfft_unpack_batch_minor_reference(re_, im_, 1024, kw["tables"], plan.w)
+    for body in (None, "pair", "stage"):
+        got = sv.vpu_irfft_unpack_batch_minor(re_, im_, 1024, _body=body, **kw)
+        assert torch.equal(got, want)
+    assert sv.vpu_irfft_unpack_batch_minor.launches == before
+    bplan = VpuBluesteinPlan.create(1013, device="cpu")
+    st = bplan.stages
+    re_, im_ = torch.randn(507, 7), torch.randn(507, 7)
+    kw = dict(tables=(st.tables(True), st.tables(False)),
+              kernel_tables=(st.kernel_fwd, st.kernel_inv), chirps=bplan.chirps(False))
+    before = sv.vpu_irfft_odd_unpack_batch_minor.launches
+    want = sv.vpu_irfft_odd_unpack_batch_minor_reference(re_, im_, 1013, st.size,
+                                                         kw["tables"], kw["chirps"])
+    for body in (None, "pair", "stage"):
+        got = sv.vpu_irfft_odd_unpack_batch_minor(re_, im_, 1013, st.size, _body=body, **kw)
+        assert torch.equal(got, want)
+    assert sv.vpu_irfft_odd_unpack_batch_minor.launches == before
 
 
 def test_b1_b2_body_argument_on_the_cpu():
@@ -1023,3 +1303,38 @@ def test_b6_bodies_agree_on_card(cuda_device, n):
                     kernel_tables=plan.kernel_fwd if fwd else plan.kernel_inv, _body=body)
                 c = got[0].cpu().numpy() + 1j * got[1].cpu().numpy()
                 assert _rel(c, _want(x, mode, n)) <= C128_GATE, (n, b, mode, body)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [64, 96, 1000, 2048, 2160])
+def test_b4b_bodies_agree_on_card(cuda_device, m):
+    plan = RfftPlan(2 * m, device=cuda_device)
+    kw = dict(tables=plan.inner.tables(False), kernel_tables=plan.inner.kernel_inv, w=plan.w)
+    bodies = ("pair", "stage") if sv.irfft_unpack_geometry(m) else ("stage",)
+    for b in (1, 7, 1000, 1588, 1589):
+        re_ = torch.randn(m + 1, b, device=cuda_device)
+        im_ = torch.randn(m + 1, b, device=cuda_device)
+        want = np.fft.irfft(re_.double().cpu().numpy() + 1j * im_.double().cpu().numpy(),
+                            2 * m, axis=0)
+        for body in bodies:
+            got = sv.vpu_irfft_unpack_batch_minor(re_, im_, m, _body=body, **kw)
+            assert _rel(got.double().cpu().numpy(), want) <= C64_GATE, (m, b, body)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [17, 73, 509, 863, 1013])
+def test_b5b_bodies_agree_on_card(cuda_device, n):
+    plan = VpuBluesteinPlan.create(n, device=cuda_device)
+    st = plan.stages
+    kw = dict(tables=(st.tables(True), st.tables(False)),
+              kernel_tables=(st.kernel_fwd, st.kernel_inv), chirps=plan.chirps(False))
+    bodies = ("pair", "stage") if sv.irfft_odd_unpack_geometry(st.size) else ("stage",)
+    L = (n + 1) // 2
+    for b in (1, 2, 7, 1589, 1592):
+        re_ = torch.randn(L, b, device=cuda_device)
+        im_ = torch.randn(L, b, device=cuda_device)
+        want = np.fft.irfft(re_.double().cpu().numpy() + 1j * im_.double().cpu().numpy(),
+                            n, axis=0)
+        for body in bodies:
+            got = sv.vpu_irfft_odd_unpack_batch_minor(re_, im_, n, st.size, _body=body, **kw)
+            assert _rel(got.double().cpu().numpy(), want) <= C64_GATE, (n, b, body)
