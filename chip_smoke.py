@@ -4,16 +4,20 @@
     python3 chip_smoke.py
 
 Builds kernels B1-B5 (complex64, the stage bodies), the clustered-block
-bodies of B1, B2, B4a, B4b, B5a and B5b, B6-B8 (complex128 in native f64;
-B6 also on its clustered-block bodies) and B9a/B9b (the dense DFT products
-of MxuFftPlan(impl="pallas")) from fourier_tpu_torch/csrc with nvcc, ten
-libraries built at once (each build's time printed), checks that the
-clustered-block bodies of B1, B2, B4a, B4b, B5a, B5b, B6 and B7 spill
-nothing, and holds each kernel against its plain PyTorch version and
+bodies of B1, B2, B3, B4a, B4b, B5a and B5b, B6-B8 (complex128 in native
+f64; B6 also on its clustered-block bodies) and B9a/B9b (the dense DFT
+products of MxuFftPlan(impl="pallas"); B9a on the tensor cores, and on
+the CUDA cores for comparison) from fourier_tpu_torch/csrc with nvcc,
+twelve libraries built at once (each build's time printed), checks that
+the clustered-block bodies of B1, B2, B3, B4a, B4b, B5a, B5b, B6 and B7 and
+B9a's tensor-core body spill nothing (and prints B1's and B6's registers
+beside those they had before fft_pair took an I/O policy), and holds each kernel against its plain PyTorch version and
 against np.fft, at the listed sizes and at every shape the routes below
 give it (B1, B2, B4a, B4b, B5a, B5b, B6 and B7 also at a walk of several
 tiles a cluster ending on a partial group, and on both bodies at the sizes
-where they meet; B1, B2, B4b, B5a and B5b at the routes' shapes in phase
+where they meet; B3 and B9a on both bodies, B9a also with a NaN row and
+an infinite one; B1, B2, B4b, B5a and B5b at
+the routes' shapes in phase
 4g, from the calls phases 4-4d made, B6 in phase 4h, from those of phase
 4e). Then it drives the
 main path (the default complex64 1-D transform through create_fft_f32 on
@@ -32,11 +36,13 @@ rows fused, unfused and through torch.fft, the suite's c128 rows (and B6 at
 4096x16384) and B9a/B9b at three shapes, each beside the least time the
 card could take for its bytes or operations; B1 at 4096x16384 and
 1024x65536, B2 at 1013x65536, B4a and B4b at 4096x16384, B5a and B5b at
-1013x65536, B6 at 1024x65536 and 4096x16384 and B7 at 1013x65536 also on
-their stage bodies in the same run (and the rfft round trips with B4b and
-B5b on their stage bodies, the parent's path), and B1, B2, B4b, B5a, B5b
-and B6 on both bodies at every size with a clustered one (phase 5g, the A/B
-behind the wrappers' choice of body).
+1013x65536, B6 at 1024x65536 and 4096x16384, B7 at 1013x65536 and B3 at
+65536x1024 also on their stage bodies in the same run (and the rfft round
+trips with B4b and B5b on their stage bodies, the parent's path, and the
+four-step plans of 65536 and 262144 with B3 on its stage body), and B9a's
+tensor-core body against its CUDA-core one (its bound restated for 3xTF32 on the tensor cores), and B1, B2, B3,
+B4b, B5a, B5b and B6 on both bodies at every size with a clustered one
+(phase 5g, the A/B behind the wrappers' choice of body).
 Every phase prints its lines;
 any failed check raises, so the exit code is non-zero. The next-to-last
 line is a JSON record of the kernels; the last line is
@@ -70,6 +76,38 @@ REPS = 3
 SEED = 20261016
 B2_SIZES = (73, 769, 1013, 1418, 4093)  # inner 160, 1600, 2048, 2880, 8192
 B3_SIZES = (32768, 65536, 262144)  # FourStepLocalPlan (128,256) .. (512,512)
+# B3 on four-block clusters: n = 4096 * 4096, (p, q) = (4096, 4096), B = 1.
+B3_QUAD = ((4096 * 4096, 1),)
+B3_PLANS = ((65536, 1024), (262144, 256))  # the plans phase 5c times
+B3_AB_Q = 256  # the q of phase 5g's B3 sweep
+# The registers of B1's and B6's clustered bodies (fft_pair.cu, fft_pair_dd.cu)
+# before fft_pair took an I/O policy, by blocks a cluster and height (ptxas
+# -v for sm_90a, with the toolkit of the H100's machine); phase 2 prints
+# this build's beside them.
+PARENT_B1_REGS = {(c, h): r for c, rows in {
+    2: {32: 128, 36: 80, 40: 102, 48: 104, 60: 128, 64: 128, 72: 94, 80: 102,
+        96: 127, 100: 115, 108: 105, 120: 128, 128: 128, 144: 96, 160: 122,
+        180: 122, 192: 96, 200: 115, 216: 105, 240: 128, 256: 127, 288: 123,
+        300: 80, 320: 72, 324: 70, 360: 93, 384: 128, 400: 126, 432: 122, 480:
+        128, 500: 88, 512: 128, 540: 106, 576: 96, 600: 122, 640: 128, 648:
+        106, 720: 128, 768: 122, 800: 128, 864: 128, 900: 128, 960: 128, 972:
+        114, 1000: 124, 1024: 128},
+    4: {540: 128, 576: 109, 600: 128, 640: 128, 648: 126, 720: 128, 768: 121,
+        800: 128, 864: 128, 900: 128, 960: 128, 972: 128, 1000: 128, 1024:
+        128},
+}.items() for h, r in rows.items()}
+PARENT_B6_REGS = {(c, h): r for c, rows in {
+    2: {32: 255, 36: 124, 40: 164, 48: 200, 60: 240, 64: 254, 72: 150, 80: 192,
+        96: 240, 100: 190, 108: 164, 120: 238, 128: 254, 144: 186, 160: 228,
+        180: 212, 192: 162, 200: 190, 216: 174, 240: 254, 256: 208, 288: 234,
+        300: 120, 320: 112, 324: 96, 360: 159, 384: 232, 400: 225, 432: 221,
+        480: 254, 500: 130, 512: 254, 540: 187, 576: 159, 600: 218, 640: 254,
+        648: 178, 720: 255, 768: 222, 800: 255, 864: 255, 900: 230, 960: 241,
+        972: 186, 1000: 209, 1024: 254},
+    4: {540: 204, 576: 179, 600: 234, 640: 255, 648: 192, 720: 255, 768: 222,
+        800: 255, 864: 255, 900: 254, 960: 254, 972: 222, 1000: 250, 1024:
+        254},
+}.items() for h, r in rows.items()}
 # The vpu route of the JAX package (fourier_tpu.create_fft(n, backend="vpu")),
 # as fourier_tpu_torch.plan.plan_tree gives it: (class, size, split or inner,
 # sub-plans).
@@ -190,10 +228,13 @@ RF_TIME = ((1024, 65536), (4096, 16384), (1013, 65536))  # the suite's rows
 RF_CHAIN = 16  # round trips per timing; the plain versions run RF_PLAIN_CHAIN
 RF_PLAIN_CHAIN = 2
 # The card's peaks for the bounds (NVIDIA H100 SXM data sheet, 700 W): HBM
-# bytes per second and flops per second outside the tensor cores.
+# bytes per second, flops per second outside the tensor cores, and dense
+# TF32 flops per second on them (B9a's 3xTF32 body: three TF32 products an
+# f32 one).
 HBM_RATE = 3.35e12
 F32_RATE = 67e12
 F64_RATE = 34e12
+TF32_RATE = 495e12
 # complex128: the reference's c128 gate (two f64 results, each near exact).
 DD_GATE = 1e-12
 DD_B6_SIZES = (64, 243, 625, 729, 1000, 1024, 3000, 4096)
@@ -247,6 +288,7 @@ DD_CHAIN = 16
 # Kernels B9a/B9b, reached through user-built MxuFftPlans (impl="pallas", and
 # impl="xla_packed" for n <= 128); no planner route runs them.
 B9A_SIZES = (1, 2, 7, 16, 64, 100, 125, 127, 128)
+B9A_POISON = (7, 125)  # n not a multiple of 8: a NaN row must stay in its row
 B9B_SIZES = (129, 243, 250, 384, 1000, 2048, 4096, 16129, 16384)
 B9_TB = 4  # the TPU tile cap the odd batches are checked with as well
 B9_ROUTE_B = 257  # phase 4f's batch
@@ -254,6 +296,9 @@ B9_ROUTE_B_LARGE = 16  # its batch for the four-step of 65536
 B9_GRAD = (1000, 64)  # (n, B) of phase 4f's gradient
 B9_TIME = (("B9a", 125, 65536), ("B9b", 4096, 16384), ("B9b", 16384, 1024))
 B9_CHAIN = 16
+# B9a's bodies: the tensor cores' in 3xTF32 (csrc/dft_mma.cu, the kernel)
+# and the CUDA cores' in fp32 FMA (csrc/bailey.cu, the parent's).
+B9A_BODY_NAMES = {"mma": "tensor-core body (3xTF32)", "fma": "CUDA-core body (fp32 FMA)"}
 # A batch that walks B9a's persistent loop over several tiles a block (one
 # block an SM at n = 127) and ends on a partial tile.
 B9A_WALK = ("B9a", 127, 20001)
@@ -411,9 +456,18 @@ def ptxas_usage(report: str) -> list:
 
 
 def pair_heights(kerns) -> dict:
-    """{H: registers} of the paired bodies `name_pair_c64<H>` among
-    ptxas_usage's kernels."""
-    return {int(h): r for k, r, _ in kerns for h in re.findall(r"_pair_c64<(\d+)>", k)}
+    """{template arguments: registers} of the clustered bodies
+    `name_pair_c64<...>` and `name_pair_c128<...>` among ptxas_usage's
+    kernels: the height H of a body with one argument, else the tuple
+    (C, H) or (C, H, twiddle in a pass) (B3's)."""
+    out = {}
+    for k, r, _ in kerns:
+        m = re.search(r"_pair_c(?:64|128)<([^>]*)>", k)
+        if m:
+            args = tuple(int(a) if a.strip().isdigit() else a.strip() == "true"
+                         for a in m.group(1).split(","))
+            out[args[0] if len(args) == 1 else args] = r
+    return out
 
 
 def rel_l2(got, want) -> float:
@@ -496,14 +550,15 @@ def main() -> int:
 
     # 2. Build: the ten kernel libraries, one nvcc each, at once.
     t0 = time.perf_counter()
-    libraries = (sv.LIBRARY, sv.PAIR_LIBRARY, sv.FFT_PAIR_LIBRARY,
-                 sv.BLUESTEIN_PAIR_LIBRARY, sv.RFFT_ODD_PAIR_LIBRARY,
+    libraries = (sv.FOUR_STEP_PAIR_LIBRARY, sv.LIBRARY, sv.PAIR_LIBRARY,
+                 sv.FFT_PAIR_LIBRARY, sv.BLUESTEIN_PAIR_LIBRARY, sv.RFFT_ODD_PAIR_LIBRARY,
                  sv.IRFFT_UNPACK_PAIR_LIBRARY, sv.IRFFT_ODD_PAIR_LIBRARY, dv.LIBRARY,
-                 dv.FFT_PAIR_DD_LIBRARY, bk.LIBRARY)
+                 dv.FFT_PAIR_DD_LIBRARY, bk.LIBRARY, bk.MMA_LIBRARY)
     build.load_all(libraries)
     sv.library()
     sv.pair_library()
     sv.fft_pair_library()
+    sv.four_step_pair_library()
     sv.bluestein_pair_library()
     sv.rfft_odd_pair_library()
     sv.irfft_unpack_pair_library()
@@ -511,15 +566,18 @@ def main() -> int:
     dv.library()
     dv.fft_pair_dd_library()
     bk.library()
+    bk.mma_library()
     print(f"build: fourier_tpu_torch/csrc/{sv.LIBRARY}.cu (B1-B5, stage bodies), "
           f"{sv.PAIR_LIBRARY}.cu (B4a's paired-block bodies), {sv.FFT_PAIR_LIBRARY}.cu "
-          f"(B1's clustered bodies), {sv.BLUESTEIN_PAIR_LIBRARY}.cu (B2's paired "
+          f"(B1's clustered bodies), {sv.FOUR_STEP_PAIR_LIBRARY}.cu (B3's clustered "
+          f"bodies), {sv.BLUESTEIN_PAIR_LIBRARY}.cu (B2's paired "
           f"bodies), {sv.RFFT_ODD_PAIR_LIBRARY}.cu (B5a's paired bodies), "
           f"{sv.IRFFT_UNPACK_PAIR_LIBRARY}.cu (B4b's paired bodies), "
           f"{sv.IRFFT_ODD_PAIR_LIBRARY}.cu (B5b's paired bodies), "
           f"{dv.LIBRARY}.cu (B6-B8, stage bodies and B7's paired bodies), "
-          f"{dv.FFT_PAIR_DD_LIBRARY}.cu (B6's clustered bodies) and {bk.LIBRARY}.cu "
-          f"(B9a, B9b) in {time.perf_counter() - t0:.2f} s; each nvcc: "
+          f"{dv.FFT_PAIR_DD_LIBRARY}.cu (B6's clustered bodies), {bk.LIBRARY}.cu "
+          f"(B9a's CUDA-core body, B9b) and {bk.MMA_LIBRARY}.cu (B9a's tensor-core "
+          f"body) in {time.perf_counter() - t0:.2f} s; each nvcc: "
           + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(build.build_seconds.items(),
                                                           key=lambda kv: -kv[1])),
           flush=True)
@@ -542,22 +600,44 @@ def main() -> int:
     n_b5a = sum(1 for m in range(2, sv.PAIR_MAX_M + 1) if sv.rfft_odd_pack_geometry(m))
     n_b5b = sum(1 for m in range(2, sv.PAIR_MAX_M + 1) if sv.irfft_odd_unpack_geometry(m))
     n_b6 = sum(1 for n in range(2, 2 * sv.PAIR_MAX_M + 1) if dv.fft_pair_geometry_dd(n))
-    counts_ = (n_b4a, n_b4b, n_b7, n_b1, n_b2, n_b5a, n_b5b, n_b6)
+    n_b3 = sum(1 for p in range(2, 2 * sv.PAIR_MAX_M + 1) if sv.four_step_pair_geometry(p))
+    counts_ = (n_b4a, n_b4b, n_b7, n_b1, n_b2, n_b5a, n_b5b, n_b6, n_b3)
     check(len(pair_kernels) == sum(counts_) and not spilled,
-          f"the clustered-block bodies of B4a, B4b, B7, B1, B2, B5a, B5b and B6: "
+          f"the clustered-block bodies of B4a, B4b, B7, B1, B2, B5a, B5b, B6 and B3: "
           f"{len(pair_kernels)} built, {' + '.join(map(str, counts_))} expected; "
           f"spills {spilled}")
     regs = [r for _, r, _ in pair_kernels]
     print(f"ptxas (clustered-block bodies): {len(pair_kernels)} instantiations (B4a at "
           f"{n_b4a} m, B4b at {n_b4b} m, B7 at {n_b7} M, B1 at {n_b1} n, B2 at {n_b2} M, "
-          f"B5a at {n_b5a} M, B5b at {n_b5b} M, B6 at {n_b6} n), {min(regs)}-{max(regs)} "
-          f"registers, 0 spill bytes", flush=True)
+          f"B5a at {n_b5a} M, B5b at {n_b5b} M, B6 at {n_b6} n, B3 at {n_b3} p), "
+          f"{min(regs)}-{max(regs)} registers, 0 spill bytes", flush=True)
+    mma_kernels, _ = ptxas_usage(build.resource_usage(bk.MMA_LIBRARY))
+    check(len(mma_kernels) == 1 and mma_kernels[0][2] == (0, 0),
+          f"B9a's tensor-core body: {mma_kernels}")
+    print(f"ptxas (B9a's tensor-core body): {mma_kernels[0][1]} registers, 0 spill "
+          f"bytes", flush=True)
+    # B1's and B6's bodies beside their registers before fft_pair took an
+    # I/O policy, and B3's beside B1's.
+    for lib, parent in ((sv.FFT_PAIR_LIBRARY, PARENT_B1_REGS),
+                        (dv.FFT_PAIR_DD_LIBRARY, PARENT_B6_REGS)):
+        now = body_regs[lib]
+        moved = {h: (parent.get(h), r) for h, r in now.items() if parent.get(h) != r}
+        print(f"ptxas registers {lib} by (blocks, height), this build/before the "
+              "policy: " + ", ".join(f"{h}: {r}/{parent.get(h, '-')}"
+                                     for h, r in sorted(now.items()))
+              + f"; {len(now) - len(moved)} of {len(now)} unchanged, moved: {moved}",
+              flush=True)
+    print("ptxas registers B3/B1 by (blocks, height): " + ", ".join(
+        f"{h}: {r}/{body_regs[sv.FFT_PAIR_LIBRARY].get(h[:2], '-')}"
+        for h, r in sorted(body_regs[sv.FOUR_STEP_PAIR_LIBRARY].items())), flush=True)
     for new, old, what in ((sv.IRFFT_UNPACK_PAIR_LIBRARY, sv.PAIR_LIBRARY, "B4b/B4a"),
                            (sv.IRFFT_ODD_PAIR_LIBRARY, sv.RFFT_ODD_PAIR_LIBRARY, "B5b/B5a")):
         print(f"ptxas registers {what} by height: " + ", ".join(
             f"{h}: {r}/{body_regs[old].get(h, '-')}"
             for h, r in sorted(body_regs[new].items())), flush=True)
     for kernel, geometry, count in (("B1", sv.fft_pair_geometry, sv.fft_pair_clusters),
+                                    ("B3", sv.four_step_pair_geometry,
+                                     sv.four_step_pair_clusters),
                                     ("B6", dv.fft_pair_geometry_dd, dv.fft_pair_clusters_dd)):
         clusters = {n: (geometry(n).ranks, count(n, dev)) for n in (1024, 2048, 2160, 4096)}
         print(f"{kernel} clusters on the card at once (cudaOccupancyMaxActiveClusters): "
@@ -742,11 +822,14 @@ def main() -> int:
     boundary_checks("B2", [(n, B_BOUNDARY) for n in B2_BOUNDARY] + list(B2_WALK),
                     (1013,))
 
-    # 3c. B3 against its plain version on the same (q, p, B) input, and the
-    # whole four-step plan (B1 columns, B3 rows) against np.fft, at the listed
-    # sizes and at the routes' shapes.
-    worst_plain = worst_host = max_abs = 0.0
-    b3_cases = [(n, b) for n in B3_SIZES for b in BATCHES] + _route_cases("B3")
+    # 3c. B3 on both bodies against its plain version on the same (q, p, B) input, and the whole
+    # four-step plan (B1 columns, B3 rows) against np.fft, at the listed
+    # sizes (B = 1, odd B, B a multiple of 4: 16-byte copies), on four-block
+    # clusters (B3_QUAD) and at the routes' shapes, in every mode.
+    worst_host = max_abs = 0.0
+    b3_worst = {}
+    b3_cases = ([(n, b) for n in B3_SIZES for b in BATCHES] + list(B3_QUAD)
+                + _route_cases("B3"))
     for n, b in b3_cases:
         plan = ftt.create_fft_f32(n, device="cuda")
         check(isinstance(plan, ftt.FourStepLocalPlan)
@@ -756,28 +839,34 @@ def main() -> int:
         for mode in Transform:
             fwd = mode.is_forward
             tw = plan.tw_fwd if fwd else plan.tw_inv
-            kw = dict(tables=rp.tables(fwd), pre_tw=(tw[0], tw[1]))
-            k = sv.vpu_fft_four_step_row(
-                re3, im3, p_, q_, fwd, mode.scale(n),
-                kernel_tables=rp.kernel_fwd if fwd else rp.kernel_inv, **kw)
+            kw = dict(tables=rp.tables(fwd), pre_tw=(tw[0], tw[1]),
+                      tw_fwd=(plan.tw_fwd[0], plan.tw_fwd[1]),
+                      kernel_tables=rp.kernel_fwd if fwd else rp.kernel_inv)
             p = sv.vpu_fft_four_step_row_reference(
                 re3, im3, p_, q_, kw["tables"], kw["pre_tw"], fwd, mode.scale(n))
-            torch.cuda.synchronize()
-            err, mx = vs_plain(k, p)
-            check(err <= REL_L2_GATE,
-                  f"B3 vs plain n={n} B={b} {mode.name}: rel-L2 {err:.3e}")
+            for body in ("stage", "pair"):
+                k = sv.vpu_fft_four_step_row(re3, im3, p_, q_, fwd, mode.scale(n),
+                                             _body=body, **kw)
+                torch.cuda.synchronize()
+                err, mx = vs_plain(k, p)
+                check(err <= REL_L2_GATE, f"B3 {body} vs plain n={n} B={b} "
+                      f"{mode.name}: rel-L2 {err:.3e}")
+                b3_worst[body] = max(b3_worst.get(body, 0.0), err)
+                max_abs = max(max_abs, mx)
+                del k
             re, im = re3.view(n, b), im3.view(n, b)
             herr = rel_l2(host_cols(*plan.transform_planar_bm(re, im, mode)),
                           np_want(host_cols(re, im), mode, n))
             check(herr <= REL_L2_GATE,
                   f"four-step vs np.fft n={n} B={b} {mode.name}: rel-L2 {herr:.3e}")
-            worst_plain, worst_host = max(worst_plain, err), max(worst_host, herr)
-            max_abs = max(max_abs, mx)
-            del k, p
-    print(f"B3 kernel vs plain: {len(b3_cases)} (n, B) cases x 5 modes pass "
-          f"(n in {B3_SIZES} x B in {BATCHES}, routes {_route_cases('B3')}); "
-          f"worst rel-L2 {worst_plain:.3e} vs plain, whole plan {worst_host:.3e} "
-          f"vs np.fft (gate {REL_L2_GATE:g}); max abs err {max_abs:.3e}", flush=True)
+            worst_host = max(worst_host, herr)
+            del p
+    print(f"B3 kernel vs plain: {len(b3_cases)} (n, B) cases x 5 modes pass on every "
+          f"body (n in {B3_SIZES} x B in {BATCHES}, {B3_QUAD} on four-block clusters, "
+          f"routes {_route_cases('B3')}); worst rel-L2 vs plain by body "
+          + ", ".join(f"{k} {v:.3e}" for k, v in b3_worst.items())
+          + f"; whole plan {worst_host:.3e} vs np.fft (gate {REL_L2_GATE:g}); max abs "
+          f"err {max_abs:.3e}", flush=True)
     max_abs_err["B3"] = max_abs
 
     # 3d. B4a/B4b and B5a/B5b against their plain versions and np.fft (f64),
@@ -1004,7 +1093,11 @@ def main() -> int:
     b9_routes = _b9_route_cases()
     for kernel_id, sizes in (("B9a", B9A_SIZES), ("B9b", B9B_SIZES)):
         routes = [(n, b) for k, n, b in b9_routes if k == kernel_id]
-        worst_p = worst_h = mx = 0.0
+        # B9a on both bodies: the tensor cores' (the kernel) and the CUDA
+        # cores' (the parent's), each with its worst rel-L2.
+        bodies = ("mma", "fma") if kernel_id == "B9a" else (None,)
+        worst = {body: [0.0, 0.0] for body in bodies}
+        mx = 0.0
         for n, b in [(n, b) for n in sizes for b in BATCHES] + routes:
             plan = ftt.MxuFftPlan.create(n, impl="pallas", device=dev)
             got_id, kernel, plain = b9_fns(plan)
@@ -1013,29 +1106,62 @@ def main() -> int:
             x = rows_host(re, im)
             for mode in Transform:
                 tabs = b9_tables(plan, mode)
-                k = kernel(re, im, *tabs)
                 p = plain(re, im, *tabs)
-                if b % 2:
-                    kt = kernel(re, im, *tabs, tb=B9_TB)
+                for body in bodies:
+                    kb_ = {} if body is None else {"_body": body}
+                    k = kernel(re, im, *tabs, **kb_)
+                    if b % 2:
+                        kt = kernel(re, im, *tabs, tb=B9_TB, **kb_)
+                        torch.cuda.synchronize()
+                        check(torch.equal(kt[0], k[0]) and torch.equal(kt[1], k[1]),
+                              f"{kernel_id} {body or ''} n={n} B={b}: tb={B9_TB} "
+                              "changed the result")
                     torch.cuda.synchronize()
-                    check(torch.equal(kt[0], k[0]) and torch.equal(kt[1], k[1]),
-                          f"{kernel_id} n={n} B={b}: tb={B9_TB} changed the result")
-                torch.cuda.synchronize()
-                err, m_ = vs_plain(k, p)
-                herr = rel_l2(rows_host(*k), np_want(x, mode, n))
-                check(err <= REL_L2_GATE and herr <= REL_L2_GATE,
-                      f"{kernel_id} n={n} B={b} {mode.name}: rel-L2 {err:.3e} vs "
-                      f"plain, {herr:.3e} vs np.fft (gate {REL_L2_GATE:g})")
-                worst_p, worst_h, mx = max(worst_p, err), max(worst_h, herr), max(mx, m_)
+                    err, m_ = vs_plain(k, p)
+                    herr = rel_l2(rows_host(*k), np_want(x, mode, n))
+                    check(err <= REL_L2_GATE and herr <= REL_L2_GATE,
+                          f"{kernel_id} {body or ''} n={n} B={b} {mode.name}: rel-L2 "
+                          f"{err:.3e} vs plain, {herr:.3e} vs np.fft (gate "
+                          f"{REL_L2_GATE:g})")
+                    worst[body] = [max(worst[body][0], err), max(worst[body][1], herr)]
+                    if body in (None, "mma"):  # the kernel's own body
+                        mx = max(mx, m_)
             del re, im, k, p
         check(torch.backends.cuda.matmul.allow_tf32,
               "a plain version did not restore the caller's TF32 setting")
         print(f"{kernel_id} kernel vs plain: n in {sizes} x B in {BATCHES} and the "
               f"routes' shapes {routes} x 5 modes pass with the caller's TF32 on (odd "
-              f"B also at tb={B9_TB}, bitwise equal); worst rel-L2 {worst_p:.3e} vs "
-              f"plain, {worst_h:.3e} vs np.fft (gate {REL_L2_GATE:g}); max abs err "
-              f"{mx:.3e}", flush=True)
+              f"B also at tb={B9_TB}, bitwise equal); worst rel-L2 "
+              + "; ".join(f"{B9A_BODY_NAMES.get(body, kernel_id)} {w[0]:.3e} vs plain, "
+                          f"{w[1]:.3e} vs np.fft" for body, w in worst.items())
+              + f" (gate {REL_L2_GATE:g}); max abs err {mx:.3e}", flush=True)
         max_abs_err[kernel_id] = mx
+    # B9a keeps a NaN and an infinity in their rows at n not a multiple of 8:
+    # the zero-padded columns of a tile buffer must stay zero for the later
+    # tiles of a block (three tiles a block at least, whatever the grid).
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for n in B9A_POISON:
+        plan = ftt.MxuFftPlan.create(n, impl="pallas", device=dev)
+        b = 3 * bk.single_mma_geometry(n).valid * 2048 // (32 * bk.MMA_WARPS) * sms
+        re, im = planes(b, n)
+        poisoned = (5, b // 2)
+        re[poisoned[0], n // 2], im[poisoned[1], 0] = float("nan"), float("inf")
+        tabs = b9_tables(plan, Transform.FFT)
+        rest = torch.ones(b, dtype=torch.bool, device=dev)
+        rest[list(poisoned)] = False
+        p = tuple(t[rest] for t in bp.xla_fft_single(re, im, *tabs))
+        for body in ("mma", "fma"):
+            k = bk.mxu_fft_single(re, im, *tabs, _body=body)
+            err, _ = vs_plain(tuple(t[rest] for t in k), p)
+            finite = [bool(torch.isfinite(k[0][r]).all() and torch.isfinite(k[1][r]).all())
+                      for r in poisoned]
+            check(err <= REL_L2_GATE and not any(finite),
+                  f"B9a {body} n={n} B={b}, a NaN in row {poisoned[0]} and an infinity "
+                  f"in row {poisoned[1]}: the other rows rel-L2 {err:.3e} vs plain, "
+                  f"the poisoned rows finite {finite}")
+        del re, im, k, p
+    print(f"B9a with a NaN row and an infinite row (n in {B9A_POISON}, three tiles a "
+          "block): both bodies keep them in their rows, the others pass", flush=True)
     torch.set_float32_matmul_precision(caller_precision)
 
     # Phases 4-4d note every (n, B) they give B1, B2, B4b, B5a and B5b (n the
@@ -1663,7 +1789,9 @@ def main() -> int:
     del re, im, xc
 
     # 5c. B3 at n=65536, B=1024: kernel alone (its (q, p, B) input), the
-    # whole FourStepLocalPlan, torch.fft.
+    # whole FourStepLocalPlan, torch.fft; B3's stage body against its
+    # clustered one in the same run; then the plans of B3_PLANS beside torch.fft, each also
+    # with B3 on its stage body (the parent's path).
     n, b = B3_TIME
     plan = ftt.create_fft_f32(n, device="cuda")
     p_, q_, rp = plan.p, plan.q, plan.row_plan
@@ -1672,11 +1800,10 @@ def main() -> int:
     re, im = planes(n, b)
     xc = torch.complex(re.T.contiguous(), im.T.contiguous())
 
-    def b3(a, c):
-        out = sv.vpu_fft_four_step_row(a.view(q_, p_, b), c.view(q_, p_, b), p_,
-                                       q_, True, s3, kernel_tables=rp.kernel_fwd,
-                                       **kw)
-        return out
+    def b3(a, c, body=None):
+        return sv.vpu_fft_four_step_row(a.view(q_, p_, b), c.view(q_, p_, b), p_,
+                                        q_, True, s3, kernel_tables=rp.kernel_fwd,
+                                        _body=body, **kw)
 
     def b3_plain(a, c):
         return sv.vpu_fft_four_step_row_reference(
@@ -1702,12 +1829,36 @@ def main() -> int:
     kernel_ms["B3"] = (*tuple(t3.values())[:2], None)
     bounds["B3"] = bound(16.0 * n * b, (5 * p_ * math.log2(p_) + 6 * p_) * q_ * b,
                          F32_RATE)
+    print(f"time: B3 n={n} B={b} kernel {kernel_ms['B3'][0]:.4f} ms, "
+          f"{bounds['B3'][0] / kernel_ms['B3'][0]:.4f} of its bound "
+          f"{bounds['B3'][0]:.4f} ms ({bounds['B3'][1]}) on {card}", flush=True)
+    same_run_ab(f"B3 n={n} B={b}", *[lambda body=body: b3(re, im, body)
+                                     for body in ("stage", "pair")], CHAIN_NEW)
+    del re, im, xc
+    for n, b in B3_PLANS:
+        plan = ftt.create_fft_f32(n, device="cuda")
+        re, im = planes(n, b)
+        xc = torch.complex(re.T.contiguous(), im.T.contiguous())
+        step = lambda a, c: plan.transform_planar_bm(a, c, mode)
+        got = {"plan": median_ms(step, re, im, CHAIN_NEW)}
+        kept = sv.B3_STAGE_FASTER
+        sv.B3_STAGE_FASTER = kept | {plan.p}  # the parent's path: B3's stage body
+        try:
+            got["plan, B3 on its stage body"] = median_ms(step, re, im, CHAIN_NEW)
+        finally:
+            sv.B3_STAGE_FASTER = kept
+        got["plan again"] = median_ms(step, re, im, CHAIN_NEW)
+        got["torch.fft.fft"] = median_ms(
+            lambda a, _c: (torch.fft.fft(a, norm="ortho"), None), xc, None, CHAIN_NEW)
+        print(f"time: four-step n={n} B={b} ({plan.p}, {plan.q}): " + ", ".join(
+            f"{what} {ms:.4f} ms" for what, ms in got.items())
+              + f" (chain {CHAIN_NEW}, median of {REPS}) on {card}", flush=True)
+        del re, im, xc
 
     # 5d. rfft + irfft round trips at the suite's rows, batch-minor, chained:
     # the fused plan, the same plan's unfused branch around the same inner
     # plan, torch.fft.rfft/irfft on the same data as (B, n), and the plain
     # versions (shorter chain); then each kernel alone, repeated on one input.
-    del re, im, xc
     for n, b in RF_TIME:
         plan = ftt.RfftPlan(n, device="cuda")
         plain_f, plain_i = plain_fns(plan)
@@ -1902,8 +2053,12 @@ def main() -> int:
         re, im = planes(b, n)
         xc = torch.complex(re, im)
         summary = ftt.summarize(plan)
-        kb_ = bound(summary.min_hbm_bytes_per_transform * b,
-                    summary.flops_per_transform * b, F32_RATE)
+        # B9a runs 3 TF32 products on the tensor cores for each f32 one.
+        kb_ = (bound(summary.min_hbm_bytes_per_transform * b,
+                     3 * summary.flops_per_transform * b, TF32_RATE)
+               if kernel_id == "B9a" else
+               bound(summary.min_hbm_bytes_per_transform * b,
+                     summary.flops_per_transform * b, F32_RATE))
         rows = {
             f"{kernel_id} kernel": median_ms(lambda a, c: kernel(a, c, *tabs), re, im,
                                              B9_CHAIN),
@@ -1915,6 +2070,17 @@ def main() -> int:
                 lambda a, _c: (torch.fft.fft(a, norm="ortho"), None), xc, None,
                 B9_CHAIN),
         }
+        if kernel_id == "B9a":
+            # The CUDA-core body (the parent's) against the tensor-core one,
+            # timed fma, mma, mma, fma.
+            ab = {body: [] for body in B9A_BODY_NAMES}
+            for body in ("fma", "mma", "mma", "fma"):
+                ab[body].append(median_ms(
+                    lambda a, c: kernel(a, c, *tabs, _body=body), re, im, B9_CHAIN))
+            print(f"time: B9a n={n} B={b} A/B, same run: " + ", ".join(
+                f"{B9A_BODY_NAMES[body]} {t[0]:.4f} / {t[1]:.4f} ms"
+                for body, t in ab.items()) + f" (median of {REPS} each, in the order "
+                f"fma, mma, mma, fma) on {card}", flush=True)
         if kernel_id == "B9b":
             sms = torch.cuda.get_device_properties(dev).multi_processor_count
             tpb, threads = bk.two_phase_geometry(plan.n1, plan.n2, b, sms)
@@ -1948,13 +2114,15 @@ def main() -> int:
             bounds[kernel_id] = kb_
         del re, im, xc
 
-    # 5g. Both bodies of B1, B2, B4b, B5a, B5b and B6 at every size that has
-    # a clustered one, about AB_POINTS points a call, timed stage, pair,
+    # 5g. Both bodies of B1, B2, B3, B4b, B5a, B5b and B6 at every size that
+    # has a clustered one, about AB_POINTS points a call, timed stage, pair,
     # pair, stage (median of REPS each): the same-run A/B behind the sizes at
     # which the wrappers keep the stage body (B1_STAGE_FASTER,
-    # B2_STAGE_FASTER, B4B_STAGE_FASTER, B5A_STAGE_FASTER, B5B_STAGE_FASTER,
-    # B6_STAGE_FASTER).
-    def ab_sweep(kernel, sizes, stage_faster):
+    # B2_STAGE_FASTER, B3_STAGE_FASTER, B4B_STAGE_FASTER, B5A_STAGE_FASTER,
+    # B5B_STAGE_FASTER, B6_STAGE_FASTER).
+    def ab_sweep(kernel, sizes, stage_faster, batches=lambda n: (AB_POINTS // n,)):
+        """`batches(n)`: the batches timed at length n; with more than one,
+        the sizes where the clustered body lost are listed as (size, B)."""
         slower = []
         for size in sizes:
             if kernel == "B4b":
@@ -1966,6 +2134,18 @@ def main() -> int:
                            kernel_tables=plan_.inner.kernel_inv, w=plan_.w)
                 run = lambda a, c, body: sv.vpu_irfft_unpack_batch_minor(
                     a, c, m, _body=body, **kw_)
+            elif kernel == "B3":
+                p_, q_ = size, B3_AB_Q
+                n = rows = p_ * q_
+                plan_ = ftt.FourStepLocalPlan.create(
+                    n, torch.complex64, p_, q_,
+                    lambda m, dt, dv_: ftt.VpuFftPlan.create(m, dt, dv_), device=dev)
+                rp_ = plan_.row_plan
+                kw_ = dict(tables=rp_.tables(True), kernel_tables=rp_.kernel_fwd,
+                           pre_tw=(plan_.tw_fwd[0], plan_.tw_fwd[1]))
+                run = lambda a, c, body: sv.vpu_fft_four_step_row(
+                    a.view(q_, p_, -1), c.view(q_, p_, -1), p_, q_, True, None,
+                    _body=body, **kw_)
             elif kernel in ("B1", "B6"):
                 n = rows = size
                 plan_ = (ftt.VpuFftPlan if kernel == "B1" else ftt.VpuDdFftPlan).create(
@@ -1992,21 +2172,23 @@ def main() -> int:
                     rows = (n + 1) // 2
                     run = lambda a, c, body: sv.vpu_irfft_odd_unpack_batch_minor(
                         a, c, n, size, _body=body, **kw_)
-            b = AB_POINTS // n
-            a, c = planes64(rows, b) if kernel == "B6" else planes(rows, b)
-            got = {"stage": [], "pair": []}
-            for body in ("stage", "pair", "pair", "stage"):
-                got[body].append(median_ms(lambda *_: (run(a, c, body), None), None,
-                                           None, AB_CHAIN))
-            ratio = min(got["stage"]) / max(got["pair"])
-            if ratio < 1.0:
-                slower.append(size)
-            print(f"time: A/B {kernel} {'n' if kernel in ('B1', 'B6') else 'm' if kernel == 'B4b' else 'M'}={size} (n={n}, "
-                  f"B={b}): stage body {got['stage'][0]:.4f} / {got['stage'][1]:.4f} ms, "
-                  f"clustered body {got['pair'][0]:.4f} / {got['pair'][1]:.4f} ms, "
-                  f"slower stage / faster pair {ratio:.3f}; the wrapper runs the "
-                  f"{'stage' if size in stage_faster else 'clustered'} body", flush=True)
-            del a, c
+            bs = batches(n)
+            for b in bs:
+                a, c = planes64(rows, b) if kernel == "B6" else planes(rows, b)
+                got = {"stage": [], "pair": []}
+                for body in ("stage", "pair", "pair", "stage"):
+                    got[body].append(median_ms(lambda *_: (run(a, c, body), None), None,
+                                               None, AB_CHAIN))
+                ratio = min(got["stage"]) / max(got["pair"])
+                if ratio < 1.0:
+                    slower.append(size if len(bs) == 1 else (size, b))
+                what = {"B1": "n", "B6": "n", "B4b": "m", "B3": "p"}.get(kernel, "M")
+                print(f"time: A/B {kernel} {what}={size} (n={n}, "
+                      f"B={b}): stage body {got['stage'][0]:.4f} / {got['stage'][1]:.4f} ms, "
+                      f"clustered body {got['pair'][0]:.4f} / {got['pair'][1]:.4f} ms, "
+                      f"slower stage / faster pair {ratio:.3f}; the wrapper runs the "
+                      f"{'stage' if size in stage_faster else 'clustered'} body", flush=True)
+                del a, c
         print(f"time: A/B {kernel}: the clustered body was the slower at {slower} in "
               f"this run; the wrapper keeps the stage body at {sorted(stage_faster)} "
               f"(chain {AB_CHAIN}, median of {REPS}, order stage, pair, pair, stage) "
@@ -2024,13 +2206,19 @@ def main() -> int:
                      if sv.irfft_unpack_geometry(m)], sv.B4B_STAGE_FASTER)
     ab_sweep("B6", [n for n in range(64, 2 * sv.PAIR_MAX_M + 1)
                     if dv.fft_pair_geometry_dd(n)], dv.B6_STAGE_FASTER)
+    # B3 at a batch that is a multiple of 4 (16-byte copies and stores) and
+    # at an odd one (4-byte ones).
+    ab_sweep("B3", [p_ for p_ in range(64, 2 * sv.PAIR_MAX_M + 1)
+                    if sv.four_step_pair_geometry(p_)], sv.B3_STAGE_FASTER,
+             lambda n: ((AB_POINTS // n) & ~3, ((AB_POINTS // n) & ~3) - 1))
 
     kernels = (
         ("B1", "B1 fused Stockham c64 (vpu_fft_batch_minor; clustered-block body, "
          "the stage body of stockham_vpu.cu at the other n)", 422),
         ("B2", "B2 fused Bluestein c64 (vpu_bluestein_batch_minor; paired-block "
          "body, the stage body of stockham_vpu.cu at the other M)", 881),
-        ("B3", "B3 four-step row leg c64 (vpu_fft_four_step_row)", 778),
+        ("B3", "B3 four-step row leg c64 (vpu_fft_four_step_row; clustered-block "
+         "body, the stage body of stockham_vpu.cu at the other p)", 778),
         ("B4a", "B4a even-n rfft pack (vpu_rfft_pack_batch_minor; paired-block "
          "body, the stage body of stockham_vpu.cu for odd m and m > 2048)", 529),
         ("B4b", "B4b even-n irfft unpack (vpu_irfft_unpack_batch_minor; paired-block "
@@ -2051,10 +2239,12 @@ def main() -> int:
          "dd_combine.py:58"),
     )
     b9_kernels = (
-        ("B9a", "B9a dense DFT product c64 (mxu_fft_single)", "bailey.py:81"),
+        ("B9a", "B9a dense DFT product c64 (mxu_fft_single; 3xTF32 on the tensor "
+         "cores)", "bailey.py:81"),
         ("B9b", "B9b fused two-phase DFT c64 (mxu_fft_two_phase)", "bailey.py:92"),
     )
     pair_libs = {"B1": sv.FFT_PAIR_LIBRARY, "B2": sv.BLUESTEIN_PAIR_LIBRARY,
+                 "B3": sv.FOUR_STEP_PAIR_LIBRARY,
                  "B4a": sv.PAIR_LIBRARY, "B4b": sv.IRFFT_UNPACK_PAIR_LIBRARY,
                  "B5a": sv.RFFT_ODD_PAIR_LIBRARY, "B5b": sv.IRFFT_ODD_PAIR_LIBRARY,
                  "B6": dv.FFT_PAIR_DD_LIBRARY}
@@ -2062,7 +2252,8 @@ def main() -> int:
               f"stockham_vpu.py:{line}") for k, name, line in kernels]
             + [(k, name, pair_libs.get(k, dv.LIBRARY), where)
                for k, name, where in dd_kernels]
-            + [(k, name, bk.LIBRARY, where) for k, name, where in b9_kernels])
+            + [(k, name, bk.MMA_LIBRARY if k == "B9a" else bk.LIBRARY, where)
+               for k, name, where in b9_kernels])
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -48,17 +48,17 @@ namespace {
 constexpr int kThreads = 512;
 
 // The forward DFT for n = C*H, times `scale`: fft_pair of
-// stockham_pair.cuh at float. `twre`/`twim`: the (C-1)*H split twiddles
-// W_n^(r*p) (rank r = 1..C-1, p < H), then the pass tables; `vec`: 16-byte
-// copies and stores.
+// stockham_pair.cuh at float, on the planes of its PlanePolicy.
+// `twre`/`twim`: the (C-1)*H split twiddles W_n^(r*p) (rank r = 1..C-1,
+// p < H), then the pass tables; `vec`: 16-byte copies and stores.
 template <int C, int H>
 __global__ void __launch_bounds__(kThreads, 1)
 fft_pair_c64(const float* __restrict__ xre, const float* __restrict__ xim,
              float* __restrict__ yre, float* __restrict__ yim, int batch,
              const float* __restrict__ twre, const float* __restrict__ twim,
              float scale, int vec) {
-  fft_pair<float, kThreads, C, H>(xre, xim, yre, yim, batch, twre, twim, scale,
-                                  vec);
+  fft_pair<float, kThreads, C, H>(
+      PlanePolicy<float>{xre, xim, yre, yim, batch, scale, vec}, twre, twim);
 }
 
 // The two-block bodies are FOURIER_PAIR_ROWS, the four-block ones

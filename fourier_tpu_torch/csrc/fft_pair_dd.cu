@@ -44,16 +44,17 @@ namespace {
 constexpr int kThreads = 256;
 
 // The forward DFT for n = C*H, times `scale`: fft_pair of
-// stockham_pair.cuh at double. `twre`/`twim`: the (C-1)*H split twiddles,
-// then the pass tables; `vec`: 16-byte copies and stores.
+// stockham_pair.cuh at double, on the planes of its PlanePolicy.
+// `twre`/`twim`: the (C-1)*H split twiddles, then the pass tables; `vec`:
+// 16-byte copies and stores.
 template <int C, int H>
 __global__ void __launch_bounds__(kThreads, 1)
 fft_pair_c128(const double* __restrict__ xre, const double* __restrict__ xim,
               double* __restrict__ yre, double* __restrict__ yim, int batch,
               const double* __restrict__ twre, const double* __restrict__ twim,
               double scale, int vec) {
-  fft_pair<double, kThreads, C, H>(xre, xim, yre, yim, batch, twre, twim,
-                                   scale, vec);
+  fft_pair<double, kThreads, C, H>(
+      PlanePolicy<double>{xre, xim, yre, yim, batch, scale, vec}, twre, twim);
 }
 
 using Body = void (*)(const double*, const double*, double*, double*, int,

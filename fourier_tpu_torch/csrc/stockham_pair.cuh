@@ -1,10 +1,12 @@
 // Clustered-block Stockham engine for NVIDIA Hopper sm_90a: the stage code
-// of the redesigned kernels B1 (fft_pair.cu), B2 (bluestein_pair.cu), B4a
-// (rfft_pack_pair.cu), B4b (irfft_unpack_pair.cu), B5a (rfft_odd_pair.cu)
-// and B5b (irfft_odd_pair.cu), all float, and B6 (fft_pair_dd.cu) and B7
-// (stockham_vpu_dd.cu), double. B3, and B1, B2, B4a, B4b, B5a, B5b and B6
-// at the sizes their clustered bodies do not cover, keep the stage code of
-// stockham_stages.cuh; this header reuses its butterflies.
+// of the redesigned kernels B1 (fft_pair.cu), B2 (bluestein_pair.cu), B3
+// (four_step_pair.cu), B4a (rfft_pack_pair.cu), B4b (irfft_unpack_pair.cu),
+// B5a (rfft_odd_pair.cu) and B5b (irfft_odd_pair.cu), all float, and B6
+// (fft_pair_dd.cu) and B7 (stockham_vpu_dd.cu), double. B1-B6 at the sizes
+// their clustered bodies do not cover keep the stage code of
+// stockham_stages.cuh; this header reuses its butterflies. fft_pair (B1, B3,
+// B6) and bluestein_pair (B2, B5a, B5b, B7) take an I/O policy: the engine's
+// passes and walk, each kernel's own tiles, copies and stores.
 //
 // The layout. A column group is 32 bytes of a row (8 float or 4 double
 // columns): a copy-only probe on an H100 moved a (2048, 32768) f32 plane in
@@ -76,6 +78,7 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "async_copy.cuh"
 #include "stockham_stages.cuh"
 
 namespace {
@@ -377,26 +380,6 @@ __device__ __forceinline__ void pair_passes(T* sre, T* sim,
   }
 }
 
-// cp.async of `Bytes` (16, 8 or 4) from global to shared memory.
-template <int Bytes>
-__device__ __forceinline__ void copy_async(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if constexpr (Bytes == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src),
-                 "n"(Bytes));
-  }
-}
-
-__device__ __forceinline__ void copy_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void copy_wait_previous() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
 // A 16-byte store of 4 float or 2 double values.
 __device__ __forceinline__ void store16(float* dst, const float (&v)[4]) {
   *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
@@ -470,37 +453,44 @@ __device__ __forceinline__ void load16(const double* src, double (&v)[2]) {
   v[1] = a.y;
 }
 
-// The clustered-block body of B1 (float, fft_pair.cu) and B6 (double,
-// fft_pair_dd.cu): the forward DFT of every column of the planar (n, B)
-// input, n = C*H, times `scale`, into the planar (n, B) output. Rank r
-// copies rows [r*H, (r+1)*H) of both planes into its own buffer; the first
-// pass reads all C ranks' rows for the cross-block radix-C split (see the
-// top of this file); after the passes row k holds X[C*k + r], stored to
-// output row C*k + r. `twre`/`twim`: the (C-1)*H split twiddles W_n^(r*p)
-// (rank r = 1..C-1, p < H), then the pass tables; `vec`: 16-byte copies and
-// stores (kV values a chunk). The inverse is this body on the planes
-// exchanged (the host swaps the pointers).
-template <typename T, int Threads, int C, int H>
-__device__ __forceinline__ void fft_pair(const T* __restrict__ xre,
-                                         const T* __restrict__ xim,
-                                         T* __restrict__ yre, T* __restrict__ yim,
-                                         int batch, const T* __restrict__ twre,
-                                         const T* __restrict__ twim, T scale,
-                                         int vec) {
-  using Tile = PairTile<T, Threads, H>;
-  constexpr int cols = Tile::kCols, logc = Tile::kLogC, plane = H * cols;
-  constexpr int kV = 16 / static_cast<int>(sizeof(T));  // values a 16-byte chunk
-  constexpr int kLogV = pair_exponent(kV, 2);
-  constexpr unsigned kItem = sizeof(T);
-  cg::cluster_group cluster = cg::this_cluster();
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* const smem = reinterpret_cast<T*>(smem_raw);
-  const size_t bs = static_cast<size_t>(batch);
-  const int ntiles = (batch + cols - 1) >> logc;
+// The default input and output of fft_pair (B1, B6): the planar (n, B)
+// input and output planes, B = `batch`, whose column groups of kCols the
+// clusters walk (`tiles`). Rank r copies rows [r*H, (r+1)*H) of a tile's
+// columns into its own buffer (`fetch`), the split reads the C ranks' rows
+// as they are (`weight` is the identity, `prepare` does nothing), and rank
+// r stores row k of its finished tile to output row C*k + r, times `scale`
+// (`store`); `vec`: 16-byte copies and stores. A kernel that reads or writes
+// other planes (B3's four-step row leg, four_step_pair.cu) passes its own
+// policy with these five members.
+template <typename T>
+struct PlanePolicy {
+  static constexpr int kV = 16 / static_cast<int>(sizeof(T));  // values a chunk
+  static constexpr int kLogV = pair_exponent(kV, 2);
+  const T* xre;
+  const T* xim;
+  T* yre;
+  T* yim;
+  int batch;
+  size_t bs;  // the row stride B, widened once
+  T scale;
+  int vec;
+
+  __device__ __forceinline__ PlanePolicy(const T* xre_, const T* xim_, T* yre_,
+                                         T* yim_, int batch_, T scale_, int vec_)
+      : xre(xre_), xim(xim_), yre(yre_), yim(yim_), batch(batch_),
+        bs(static_cast<size_t>(batch_)), scale(scale_), vec(vec_) {}
+
+  template <class Tile>
+  __device__ __forceinline__ int tiles() const {
+    return (batch + Tile::kCols - 1) >> Tile::kLogC;
+  }
+
   // Rows [rank*H, (rank+1)*H) of both planes into rows 0..H-1, for the
   // columns of tile t below B. The copy loops are not unrolled: unrolled,
   // ptxas spilled a register of four of B1's sixty bodies.
-  auto fetch = [&](int t, T* sre, T* sim) {
+  template <class Tile, int Threads, int H>
+  __device__ __forceinline__ void fetch(int t, T* sre, T* sim) const {
+    constexpr int cols = Tile::kCols, logc = Tile::kLogC;
     const int b0 = t << logc;
     const size_t src = static_cast<size_t>(cluster_rank()) * H * bs + b0;
     if (vec) {
@@ -526,64 +516,22 @@ __device__ __forceinline__ void fft_pair(const T* __restrict__ xre,
         }
       }
     }
-  };
-  int buf = 0;
-  int t = cluster_id();
-  if (t < ntiles) fetch(t, smem, smem + plane);
-  copy_commit();
-  for (; t < ntiles; t += cluster_count(), buf ^= 1) {
-    T* sre = smem + 2 * buf * plane;
-    T* sim = sre + plane;
-    if (t + cluster_count() < ntiles) {
-      T* next = smem + 2 * (buf ^ 1) * plane;
-      fetch(t + cluster_count(), next, next + plane);
-    }
-    copy_commit();
-    copy_wait_previous();
-    cluster.sync();  // every rank's rows of tile t are in shared memory
-    // Row p of every rank through this rank's output of the radix-C step,
-    // v = sum_s a_s * W_C^(rank*s): a_0 + (-1)^rank * a_1 (C = 2), or
-    // u + W_4^rank * w with u = a_0 + (-1)^rank * a_2 and w = a_1 +
-    // (-1)^rank * a_3 (C = 4); times W_n^(rank*p). The ranks' tiles are
-    // read at 32-bit shared::cluster addresses, and only this rank's output
-    // is formed, so few registers are live across the first pass's loads.
-    unsigned are[C], aim[C];
-#pragma unroll
-    for (int s = 0; s < C; ++s) {
-      are[s] = cluster_addr(sre, s);
-      aim[s] = cluster_addr(sim, s);
-    }
-    auto split = [&](int row, int col, T& re, T& im) {
-      const int rank = cluster_rank();
-      const unsigned off = kItem * static_cast<unsigned>(Tile::index(row, col));
-      T ar[C], ai[C];
-#pragma unroll
-      for (int s = 0; s < C; ++s) {
-        ar[s] = load_cluster<T>(are[s] + off);
-        ai[s] = load_cluster<T>(aim[s] + off);
-      }
-      const T rho = rank & 1 ? static_cast<T>(-1) : static_cast<T>(1);
-      if constexpr (C == 2) {
-        re = ar[0] + rho * ar[1];
-        im = ai[0] + rho * ai[1];
-      } else {
-        const T ur = ar[0] + rho * ar[2], ui = ai[0] + rho * ai[2];
-        T wr = ar[1] + rho * ar[3], wi = ai[1] + rho * ai[3];
-        // W_4^rank = 1, -i, -1, i.
-        cmul(wr, wi, static_cast<T>((rank == 0) - (rank == 2)),
-             static_cast<T>((rank == 3) - (rank == 1)));
-        re = ur + wr;
-        im = ui + wi;
-      }
-      if (rank > 0) {
-        const int w = (rank - 1) * H + row;
-        cmul(re, im, __ldg(twre + w), __ldg(twim + w));
-      }
-    };
-    auto split_done = [&] { cluster.sync(); };  // the partners read their rows
-    pair_passes<0, true, Tile, Threads, (C - 1) * H>(sre, sim, twre, twim, split,
-                                                     split_done, NoHook{});
-    // Row k holds X[C*k + rank]: output row C*k + rank, times the scale.
+  }
+
+  // After this thread's copies of tile t have landed and before the
+  // cluster barrier that opens the split: nothing.
+  template <class Tile, int Threads, int H>
+  __device__ __forceinline__ void prepare(int, T*, T*) const {}
+
+  // Rank s's row `row` of tile t, as the split reads it: as copied.
+  template <int H>
+  __device__ __forceinline__ void weight(int, int, int, T&, T&) const {}
+
+  // Row k of this rank's finished tile t holds X[C*k + rank]: output row
+  // C*k + rank, times the scale.
+  template <class Tile, int Threads, int C, int H>
+  __device__ __forceinline__ void store(int t, const T* sre, const T* sim) const {
+    constexpr int cols = Tile::kCols, logc = Tile::kLogC;
     const int b0 = t << logc;
     if (vec) {
       constexpr int lc = logc - kLogV;
@@ -613,6 +561,90 @@ __device__ __forceinline__ void fft_pair(const T* __restrict__ xre,
         yim[g] = sim[s] * scale;
       }
     }
+  }
+};
+
+// The clustered-block body of B1 (float, fft_pair.cu), B6 (double,
+// fft_pair_dd.cu) and B3 (float, four_step_pair.cu): the forward DFT of
+// every column of a tile of n = C*H rows. The policy `io` (PlanePolicy above
+// for B1 and B6) gives the tiles the clusters walk (`tiles`), copies rank
+// r's rows [r*H, (r+1)*H) of tile t into its own buffer (`fetch`, cp.async),
+// may pass over the landed rows before the split (`prepare`), weighs rank
+// s's row as the split reads it (`weight`), and stores the finished tile,
+// whose row k holds X[C*k + r] on rank r (`store`). The first pass reads
+// all C ranks' rows for the cross-block radix-C split (see the top of this
+// file). `twre`/`twim`: the (C-1)*H split twiddles W_n^(r*p) (rank r =
+// 1..C-1, p < H), then the pass tables. The inverse is this body on the
+// planes exchanged (the host swaps the pointers).
+template <typename T, int Threads, int C, int H, class IO>
+__device__ __forceinline__ void fft_pair(const IO& io, const T* __restrict__ twre,
+                                         const T* __restrict__ twim) {
+  using Tile = PairTile<T, Threads, H>;
+  constexpr int plane = H * Tile::kCols;
+  constexpr unsigned kItem = sizeof(T);
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const smem = reinterpret_cast<T*>(smem_raw);
+  const int ntiles = io.template tiles<Tile>();
+  int buf = 0;
+  int t = cluster_id();
+  if (t < ntiles) io.template fetch<Tile, Threads, H>(t, smem, smem + plane);
+  copy_commit();
+  for (; t < ntiles; t += cluster_count(), buf ^= 1) {
+    T* sre = smem + 2 * buf * plane;
+    T* sim = sre + plane;
+    if (t + cluster_count() < ntiles) {
+      T* next = smem + 2 * (buf ^ 1) * plane;
+      io.template fetch<Tile, Threads, H>(t + cluster_count(), next, next + plane);
+    }
+    copy_commit();
+    copy_wait_previous();
+    io.template prepare<Tile, Threads, H>(t, sre, sim);
+    cluster.sync();  // every rank's rows of tile t are in shared memory
+    // Row p of every rank through this rank's output of the radix-C step,
+    // v = sum_s a_s * W_C^(rank*s): a_0 + (-1)^rank * a_1 (C = 2), or
+    // u + W_4^rank * w with u = a_0 + (-1)^rank * a_2 and w = a_1 +
+    // (-1)^rank * a_3 (C = 4); times W_n^(rank*p). The ranks' tiles are
+    // read at 32-bit shared::cluster addresses, and only this rank's output
+    // is formed, so few registers are live across the first pass's loads.
+    unsigned are[C], aim[C];
+#pragma unroll
+    for (int s = 0; s < C; ++s) {
+      are[s] = cluster_addr(sre, s);
+      aim[s] = cluster_addr(sim, s);
+    }
+    auto split = [&](int row, int col, T& re, T& im) {
+      const int rank = cluster_rank();
+      const unsigned off = kItem * static_cast<unsigned>(Tile::index(row, col));
+      T ar[C], ai[C];
+#pragma unroll
+      for (int s = 0; s < C; ++s) {
+        ar[s] = load_cluster<T>(are[s] + off);
+        ai[s] = load_cluster<T>(aim[s] + off);
+        io.template weight<H>(t, s, row, ar[s], ai[s]);
+      }
+      const T rho = rank & 1 ? static_cast<T>(-1) : static_cast<T>(1);
+      if constexpr (C == 2) {
+        re = ar[0] + rho * ar[1];
+        im = ai[0] + rho * ai[1];
+      } else {
+        const T ur = ar[0] + rho * ar[2], ui = ai[0] + rho * ai[2];
+        T wr = ar[1] + rho * ar[3], wi = ai[1] + rho * ai[3];
+        // W_4^rank = 1, -i, -1, i.
+        cmul(wr, wi, static_cast<T>((rank == 0) - (rank == 2)),
+             static_cast<T>((rank == 3) - (rank == 1)));
+        re = ur + wr;
+        im = ui + wi;
+      }
+      if (rank > 0) {
+        const int w = (rank - 1) * H + row;
+        cmul(re, im, __ldg(twre + w), __ldg(twim + w));
+      }
+    };
+    auto split_done = [&] { cluster.sync(); };  // the partners read their rows
+    pair_passes<0, true, Tile, Threads, (C - 1) * H>(sre, sim, twre, twim, split,
+                                                     split_done, NoHook{});
+    io.template store<Tile, Threads, C, H>(t, sre, sim);
     __syncthreads();  // the next copy into this buffer follows the stores
   }
   cluster.sync();  // a partner may still read this block's tile

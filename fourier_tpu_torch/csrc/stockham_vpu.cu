@@ -105,6 +105,10 @@
 //   the row each thread owns; they are f64 plan-time values narrowed to f32.
 
 // Kernel B3: the row leg of the single-chip four-step FFT, batch-minor.
+// This is its stage body; the clustered-block body of four_step_pair.cu
+// (its own library) is the kernel at the 56 p of four_step_pair_geometry
+// (B1's clustered sizes but 960, 1280, 2560 and 3840) except
+// B3_STAGE_FASTER (ops/cuda/stockham_vpu.py), and this body at the rest.
 //
 // Replaces fourier_tpu/ops/pallas/stockham_vpu.py:_four_step_row_kernel
 // (:778), launched by vpu_fft_four_step_row (:805). A transform of size

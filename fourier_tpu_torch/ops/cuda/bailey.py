@@ -12,19 +12,25 @@ planar f32 planes; the plan folds direction and mode scale into the tables.
   G'[k2, a] in natural order. Its plain version is
   :func:`fourier_tpu_torch.ops.bailey.reference_two_phase`.
 
-Both are one library built from ``csrc/bailey.cu`` (fp32 FMA on the CUDA
-cores, no TF32). Each wrapper runs its plain version for tensors on the CPU
-and launches its kernel (or raises) for tensors on a CUDA device; it counts
-its launches in its ``launches`` attribute. ``tb`` is the TPU kernel's batch
-tile; here it caps the transforms a block takes, and no result depends on
-it. :func:`single_geometry` and :func:`two_phase_geometry` give each
-launch's shape.
+B9a runs on the tensor cores: its body of ``csrc/dft_mma.cu`` (a library of
+its own) computes the product in 3xTF32 on ``mma.sync`` (each operand split
+into two TF32 parts, three TF32 products per f32 one, never one TF32
+product); :func:`single_mma_geometry` gives its tile. B9b, and B9a's
+earlier body (``_body="fma"``, for same-run comparisons), are one library
+built from ``csrc/bailey.cu`` (fp32 FMA on the CUDA cores, no TF32). No
+product takes the caller's TF32 setting. Each wrapper runs its plain
+version for tensors on the CPU and launches its kernel (or raises) for
+tensors on a CUDA device; it counts its launches in its ``launches``
+attribute. ``tb`` is the TPU kernel's batch tile; here it caps the rows or
+transforms a block takes at once, and no result depends on it.
+:func:`single_geometry` and :func:`two_phase_geometry` give the CUDA-core
+launches' shapes.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -40,17 +46,46 @@ MAX_THREADS = 1024
 SMALL_THREADS = 512  # B9b's instantiation with 128 registers a thread
 MAX_SMEM = 232448  # bytes of shared memory a block may use (227 KB)
 
+# B9a's tensor-core body (csrc/dft_mma.cu): eight warps a block, a warp
+# holding at most MMA_MAX_TILES 8-column n-tiles of 16 output rows.
+MMA_WARPS = 8
+MMA_MAX_TILES = 4
+
 LIBRARY = "bailey"  # csrc/bailey.cu
 _P, _I = ctypes.c_void_p, ctypes.c_int
 ENTRY_POINTS = {
     "fourier_dft_single_c64": [_P] * 6 + [_I] * 4 + [_P],
     "fourier_dft_two_phase_c64": [_P] * 10 + [_I] * 6 + [_P],
 }
+MMA_LIBRARY = "dft_mma"  # csrc/dft_mma.cu: B9a's tensor-core body
+MMA_ENTRY_POINTS = {
+    "fourier_dft_single_mma_c64": [_P] * 6 + [_I] * 4 + [_P],
+}
 
 
 def library():
     """Build (at first use) and load the B9 library."""
     return build.bind(LIBRARY, ENTRY_POINTS)
+
+
+def mma_library():
+    """Build (at first use) and load B9a's tensor-core library."""
+    return build.bind(MMA_LIBRARY, MMA_ENTRY_POINTS)
+
+
+class MmaGeometry(NamedTuple):
+    """B9a's tensor-core tile at size n (mma_geometry in csrc/dft_mma.cu):
+    N and K padded to `np8`, rows at a stride of `ld` floats in shared
+    memory, `wn` warps along the output's n-tiles and MMA_WARPS / `wn` along
+    its 16-row m-tiles, so `rows` rows a tile, of which `valid` are taken
+    (`tb` caps them); `smem` bytes: D and two buffers of a tile's two
+    planes."""
+    np8: int
+    ld: int
+    wn: int
+    rows: int
+    valid: int
+    smem: int
 
 
 def groups_of(rows: int) -> int:
@@ -63,6 +98,21 @@ def single_geometry(n: int, tb: Optional[int] = None) -> int:
     outputs of a row in groups of MAX_OUT, SINGLE_THREADS a block)."""
     tile = SINGLE_THREADS // groups_of(n)
     return max(1, min(tile, tb)) if tb else tile
+
+
+def single_mma_geometry(n: int, tb: Optional[int] = None) -> MmaGeometry:
+    """B9a's tensor-core tile: np8 = ceil(n / 8) * 8, the row stride np8 + 4
+    (4 mod 8 words: a fragment load's eight rows fall on distinct banks),
+    one, two or four warps along the np8 / 8 n-tiles so that a warp holds at
+    most MMA_MAX_TILES of them, and 16 rows for each warp along the m-tiles
+    (128, 64 or 32 rows); `tb` caps the rows a tile takes."""
+    np8 = -(-n // 8) * 8
+    ntiles = np8 // 8
+    wn = 1 if ntiles <= MMA_MAX_TILES else 2 if ntiles <= 2 * MMA_MAX_TILES else 4
+    rows = 16 * (MMA_WARPS // wn)
+    ld = np8 + 4
+    valid = max(1, min(rows, tb)) if tb else rows
+    return MmaGeometry(np8, ld, wn, rows, valid, 4 * ld * (2 * np8 + 4 * rows))
 
 
 def two_phase_geometry(n1: int, n2: int, batch: int, sms: int,
@@ -96,15 +146,22 @@ def _check_table(t, shape, what: str):
         raise ValueError(f"{what} takes a {shape} table, got {tuple(t.shape)}")
 
 
-def mxu_fft_single(re, im, dre, dim, *, tb: Optional[int] = None):
+def mxu_fft_single(re, im, dre, dim, *, tb: Optional[int] = None,
+                   _body: Optional[str] = None):
     """B9a over contiguous planar f32 (B, n) planes, n <= 128; returns new
-    planes. `dre`/`dim`: the (n, n) table, direction and scale folded in."""
+    planes. `dre`/`dim`: the (n, n) table, direction and scale folded in.
+    The kernel is the tensor-core body of ``csrc/dft_mma.cu``; `_body`
+    ("mma", the default, or "fma", the CUDA-core body of ``csrc/bailey.cu``)
+    picks one, for same-run comparisons."""
     n = dre.shape[0] if dre.ndim == 2 else -1
     if not 1 <= n <= MAX_N:
         raise ValueError(f"B9a takes n <= {MAX_N}, got a table of {tuple(dre.shape)}")
     _check(re, im, n, "B9a")
     for t in (dre, dim):
         _check_table(t, (n, n), "B9a")
+    body = _body or "mma"
+    if body not in ("mma", "fma"):
+        raise ValueError(f"B9a body {body!r}: 'mma' or 'fma'")
     if re.device.type == "cpu":
         return bailey.xla_fft_single(re, im, dre, dim)
     check_tables(re.device, dre, dim)
@@ -113,10 +170,16 @@ def mxu_fft_single(re, im, dre, dim, *, tb: Optional[int] = None):
     batch = re.shape[0]
     if batch == 0:
         return out_re, out_im
-    build.call(library(), "fourier_dft_single_c64", f"B9a at n={n}, B={batch}",
-               re.data_ptr(), im.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
-               dre.data_ptr(), dim.data_ptr(), n, batch, single_geometry(n, tb),
-               re.device.index, stream_of(re))
+    data = (re.data_ptr(), im.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
+            dre.data_ptr(), dim.data_ptr())
+    if body == "mma":
+        build.call(mma_library(), "fourier_dft_single_mma_c64",
+                   f"B9a (tensor cores) at n={n}, B={batch}", *data, n, batch,
+                   single_mma_geometry(n, tb).valid, re.device.index, stream_of(re))
+    else:
+        build.call(library(), "fourier_dft_single_c64", f"B9a at n={n}, B={batch}",
+                   *data, n, batch, single_geometry(n, tb), re.device.index,
+                   stream_of(re))
     mxu_fft_single.launches += 1
     return out_re, out_im
 

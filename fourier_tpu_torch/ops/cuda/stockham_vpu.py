@@ -23,7 +23,11 @@ Port of ``fourier_tpu/ops/pallas/stockham_vpu.py`` (all of its kernels):
   and the stage body at the others (those, M = 1024 and M above 2048);
 * B3, the row leg of the four-step transform:
   :func:`vpu_fft_four_step_row_reference` and the wrapper
-  :func:`vpu_fft_four_step_row`;
+  :func:`vpu_fft_four_step_row`. B3 runs the clustered-block body of
+  ``csrc/four_step_pair.cu`` (its own library; B1's body with the four-step
+  twiddle on the split's read, each tile a column group of one k2, the
+  transposed store) at the 56 p of :func:`four_step_pair_geometry` but
+  those of B3_STAGE_FASTER, and the stage body at the rest of its domain;
 * B4a/B4b, the even-n real transforms (an m-point transform with the
   Hermitian pack or unpack fused in): :func:`vpu_rfft_pack_batch_minor_reference`,
   :func:`vpu_irfft_unpack_batch_minor_reference` and the wrappers
@@ -53,11 +57,11 @@ Port of ``fourier_tpu/ops/pallas/stockham_vpu.py`` (all of its kernels):
   B5B_STAGE_FASTER, and the stage body at the others.
 
 The stage bodies are one library, built from ``csrc/stockham_vpu.cu``; the
-clustered-block bodies of B1, B2, B4a, B4b, B5a and B5b
+clustered-block bodies of B1, B2, B3, B4a, B4b, B5a and B5b
 (``csrc/stockham_pair.cuh``) are a library each, built from
-``csrc/fft_pair.cu``, ``csrc/bluestein_pair.cu``, ``csrc/rfft_pack_pair.cu``,
-``csrc/irfft_unpack_pair.cu``, ``csrc/rfft_odd_pair.cu`` and
-``csrc/irfft_odd_pair.cu``.
+``csrc/fft_pair.cu``, ``csrc/bluestein_pair.cu``, ``csrc/four_step_pair.cu``,
+``csrc/rfft_pack_pair.cu``, ``csrc/irfft_unpack_pair.cu``,
+``csrc/rfft_odd_pair.cu`` and ``csrc/irfft_odd_pair.cu``.
 
 Each wrapper runs its plain version for tensors on the CPU, and launches its
 kernel (or raises) for tensors on a CUDA device; it counts its launches in
@@ -200,7 +204,24 @@ B5A_STAGE_FASTER = frozenset({64, 72, 120, 200, 320, 576, 600, 640, 648, 800, 86
 # rfft routes' B5b sizes (M 1600..2048) and, of their B4b sizes, m = 1000.
 B4B_STAGE_FASTER = frozenset({72, 320, 576, 600, 640, 648, 768, 800, 960, 1000})
 B5B_STAGE_FASTER = frozenset({64, 72, 120, 200, 320, 576, 600, 648, 800, 864, 960, 1000})
-
+# B3 at the row size p (phase 5g's sweep at q = 256, at B = 2^26 / (256 p)
+# rounded down to a multiple of 4 and at that B - 1; two runs that agreed):
+# the p where the stage body won at the odd batch, which at B a multiple
+# of 4 lose or tie too (320 and 640 within 3%); no other p loses by more
+# than 0.3% at either (64, 72, 768, 864 and 2592 tie). The mixed-radix
+# heights of B1_STAGE_FASTER, and none of the routes' p (128, 256, 512).
+B3_STAGE_FASTER = frozenset({320, 576, 600, 640, 648, 800, 1000})
+# B3's clustered bodies (csrc/four_step_pair.cu), by blocks a cluster: the
+# heights h = p/C of B1's bodies at which each design of the four-step
+# twiddle is built, one design a height. Design (a), the twiddle in the
+# split read (FOURIER_B3_SPLIT_ROWS), at every height where it compiled
+# with no spill at 512 threads; design (b), a pass of its own over each
+# rank's rows (FOURIER_B3_PASS_ROWS), at 7 of the 11 where (a) spilled.
+# Both spilled at 2 x 480, 2 x 640, 4 x 640 and 4 x 960, which keep the
+# stage body.
+B3_SPLIT_ROWS = {2: tuple(h for h in FFT_PAIR_ROWS[2] if h not in (32, 60, 120, 480, 640, 720)),
+                 4: tuple(h for h in FFT_PAIR_ROWS[4] if h not in (640, 900, 960, 972, 1000))}
+B3_PASS_ROWS = {2: (32, 60, 120, 720), 4: (900, 972, 1000)}
 
 def _stage_sizes(n: int, schedule: Sequence[int]):
     """(size, radix) of every stage but the last (which has no twiddles)."""
@@ -372,6 +393,21 @@ def fft_pair_geometry(n: int) -> Optional[PairGeometry]:
     return None
 
 
+def four_step_pair_geometry(p: int) -> Optional[PairGeometry]:
+    """B3's clustered-block launch at row size p, B1's tile
+    (:func:`fft_pair_geometry`): clusters of two or four blocks of p/C rows,
+    a tile one group of `cols` columns of the (p, B) plane of one k2, or
+    None where the stage body stays the kernel (p above 4096, 3000, 3240,
+    4320, the pure powers of 3 and 5, and 960, 1280, 2560 and 3840, where
+    both designs spilled). The body's design is its height's: the twiddle in
+    a pass of its own where p/C is in B3_PASS_ROWS, else in the split read."""
+    geo = fft_pair_geometry(p)
+    if geo is None:
+        return None
+    built = B3_SPLIT_ROWS[geo.ranks] + B3_PASS_ROWS[geo.ranks]
+    return geo if geo.rows in built else None
+
+
 def bluestein_pair_geometry_c64(m: int) -> Optional[PairGeometry]:
     """B2's paired-block launch at inner size m (two blocks of m/2 rows,
     PAIR_THREADS threads), or None where the stage body stays the kernel:
@@ -513,6 +549,11 @@ IRFFT_UNPACK_PAIR_LIBRARY = "irfft_unpack_pair"  # csrc/irfft_unpack_pair.cu: B4
 IRFFT_UNPACK_PAIR_ENTRY_POINTS = {
     "fourier_irfft_unpack_pair_c64": [_P] * 3 + [_I] * 5 + [_P] * 5 + [_F, _I, _P],
 }
+FOUR_STEP_PAIR_LIBRARY = "four_step_pair"  # csrc/four_step_pair.cu: B3's
+FOUR_STEP_PAIR_ENTRY_POINTS = {
+    "fourier_four_step_pair_c64": [_P] * 4 + [_I] * 7 + [_P] * 5 + [_I, _F, _I, _P],
+    "fourier_four_step_pair_clusters": [_I] * 4 + [ctypes.POINTER(_I)],
+}
 IRFFT_ODD_PAIR_LIBRARY = "irfft_odd_pair"  # csrc/irfft_odd_pair.cu: B5b's
 IRFFT_ODD_PAIR_ENTRY_POINTS = {
     "fourier_irfft_odd_unpack_pair_c64": [_P] * 3 + [_I] * 6 + [_P] * 11 + [_F, _I, _P],
@@ -549,6 +590,11 @@ def irfft_unpack_pair_library():
     return build.bind(IRFFT_UNPACK_PAIR_LIBRARY, IRFFT_UNPACK_PAIR_ENTRY_POINTS)
 
 
+def four_step_pair_library():
+    """Build (at first use) and load B3's clustered-block library."""
+    return build.bind(FOUR_STEP_PAIR_LIBRARY, FOUR_STEP_PAIR_ENTRY_POINTS)
+
+
 def irfft_odd_pair_library():
     """Build (at first use) and load B5b's paired-block library."""
     return build.bind(IRFFT_ODD_PAIR_LIBRARY, IRFFT_ODD_PAIR_ENTRY_POINTS)
@@ -563,6 +609,20 @@ def fft_pair_clusters(n: int, device) -> int:
     out = ctypes.c_int(0)
     build.call(fft_pair_library(), "fourier_stockham_pair_clusters",
                f"B1's cluster count at n={n}", n, geo.ranks, geo.cols,
+               torch.device(device).index or 0, ctypes.byref(out))
+    return out.value
+
+
+def four_step_pair_clusters(p: int, device) -> int:
+    """The clusters of B3's clustered body at row size p that the card
+    keeps at once (cudaOccupancyMaxActiveClusters),
+    the grid of its persistent walk."""
+    geo = four_step_pair_geometry(p)
+    if geo is None:
+        raise ValueError(f"B3 has no clustered-block body at p={p}")
+    out = ctypes.c_int(0)
+    build.call(four_step_pair_library(), "fourier_four_step_pair_clusters",
+               f"B3's cluster count at p={p}", p, geo.ranks, geo.cols,
                torch.device(device).index or 0, ctypes.byref(out))
     return out.value
 
@@ -756,14 +816,21 @@ def vpu_fft_four_step_row_reference(re3, im3, p: int, q: int, tables, pre_tw,
 
 def vpu_fft_four_step_row(re3, im3, p: int, q: int, forward: bool,
                           scale: Optional[float], *, tables, kernel_tables,
-                          pre_tw):
+                          pre_tw, tw_fwd=None, _body: Optional[str] = None):
     """B3 over contiguous planar f32 (q, p, B) planes (the column leg's
     output); returns new natural-order (p*q, B) planes.
 
     `tables`: the compact stage tables of p as tensors (plain version);
     `kernel_tables`: the (2, L) tensor of :func:`make_kernel_tables` for p
-    (kernel); `pre_tw`: the (q, p) planar split twiddle, all direction-matched
-    and on the planes' device.
+    (the stage body); `pre_tw`: the (q, p) planar split twiddle, all
+    direction-matched and on the planes' device; `tw_fwd`: the forward
+    (q, p) split twiddle, which the clustered body reads in both directions
+    (None: `pre_tw`, which must then be the forward one). The kernel is the
+    clustered-block body of ``csrc/four_step_pair.cu`` where
+    :func:`four_step_pair_geometry` gives one and p is not in
+    B3_STAGE_FASTER (the forward tables of :func:`pair_device_tables`),
+    else the stage body; `_body` ("pair" or "stage") forces one, for
+    same-run comparisons.
     """
     check_planes(re3, im3, (q, p), "B3")
     if re3.device.type == "cpu":
@@ -775,15 +842,34 @@ def vpu_fft_four_step_row(re3, im3, p: int, q: int, forward: bool,
     out_im = torch.empty_like(out_re)
     if batch == 0:
         return out_re, out_im
-    cols, threads = launch_geometry(p)
-    _launch(
-        "fourier_four_step_row_c64", f"B3 at p={p}, q={q}, B={batch}",
-        re3.data_ptr(), im3.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
-        p, q, batch, cols, threads, *_radices(p),
-        kernel_tables[0].data_ptr(), kernel_tables[1].data_ptr(),
-        pre_tw[0].data_ptr(), pre_tw[1].data_ptr(),
-        int(forward), scale_arg(scale), re3.device.index, stream_of(re3),
-    )
+    data = (re3.data_ptr(), im3.data_ptr(), out_re.data_ptr(), out_im.data_ptr())
+    geo = four_step_pair_geometry(p)
+    if pick_body(f"B3 at p={p}", geo, _body, p in B3_STAGE_FASTER) == "pair":
+        if tw_fwd is None:
+            if not forward:
+                raise ValueError("B3's clustered body takes the forward split "
+                                 "twiddle (tw_fwd) for an inverse")
+            tw_fwd = pre_tw
+        check_tables(re3.device, *tw_fwd)
+        tw = pair_device_tables(p, True, torch.float32, re3.device, geo.ranks)
+        build.call(
+            four_step_pair_library(), "fourier_four_step_pair_c64",
+            f"B3 ({geo.ranks}-block clusters) at p={p}, q={q}, B={batch}", *data,
+            p, q, batch, geo.ranks, geo.cols, geo.threads,
+            *radices_arg(pass_schedule(geo.rows)),
+            tw[0].data_ptr(), tw[1].data_ptr(), tw_fwd[0].data_ptr(),
+            tw_fwd[1].data_ptr(), int(forward), scale_arg(scale),
+            re3.device.index, stream_of(re3),
+        )
+    else:
+        cols, threads = launch_geometry(p)
+        _launch(
+            "fourier_four_step_row_c64", f"B3 at p={p}, q={q}, B={batch}", *data,
+            p, q, batch, cols, threads, *_radices(p),
+            kernel_tables[0].data_ptr(), kernel_tables[1].data_ptr(),
+            pre_tw[0].data_ptr(), pre_tw[1].data_ptr(),
+            int(forward), scale_arg(scale), re3.device.index, stream_of(re3),
+        )
     vpu_fft_four_step_row.launches += 1
     return out_re, out_im
 

@@ -9,10 +9,12 @@ Batch-major (:meth:`_execute`): reshape to (q, p), column transforms, the
 dense split twiddle, row transforms, transpose to natural order.
 Batch-minor (:meth:`_execute_bm`): the (n, B) planes reshape contiguously to
 (q, p*B) for the column plan; then, when the row plan is a VpuFftPlan,
-kernel B3 (``csrc/stockham_vpu.cu``) applies the split twiddle and the mode
-scale, runs the p-point stages and stores in natural order; otherwise the
-twiddle (scale folded in), one (q, p, B) -> (p, q, B) transpose and the row
-plan do it in plain PyTorch.
+kernel B3 applies the split twiddle and the mode scale, runs the p-point
+transforms and stores in natural order (its clustered-block body,
+``csrc/four_step_pair.cu``, reads the forward twiddle in both directions;
+its stage body, ``csrc/stockham_vpu.cu``, the direction-matched one);
+otherwise the twiddle (scale folded in), one (q, p, B) -> (p, q, B)
+transpose and the row plan do it in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -125,7 +127,7 @@ class FourStepLocalPlan(FftPlan):
                 p, q, forward, scale,
                 tables=rp.tables(forward),
                 kernel_tables=rp.kernel_fwd if forward else rp.kernel_inv,
-                pre_tw=(tw[0], tw[1]),
+                pre_tw=(tw[0], tw[1]), tw_fwd=(self.tw_fwd[0], self.tw_fwd[1]),
             )
         twr, twi = tw[0], tw[1]
         if scale is not None:

@@ -12,6 +12,13 @@
   the chunked fma sums, B9b's G' written over M in the padded shared planes;
   against ``np.fft`` at rel-L2 <= 1e-6 (the card's gate), with and without a
   ``tb`` cap.
+* B9a's tensor-core body (``csrc/dft_mma.cu``): a numpy emulation of its
+  3xTF32 products (TF32 rounding as ``cvt.rna`` does it, hi and lo parts,
+  the zero-padding to a multiple of 8, each 8-wide step's hi*hi products
+  from a fresh accumulator, the cross products in accumulators of their
+  own), each tensor-core product rounded to nearest or toward zero, against
+  ``np.fft`` at every n = 1..128 and two batches, rel-L2 <= 1e-6: the CPU
+  evidence that 3xTF32 meets the card's gate.
 * The geometry within the kernels' limits for every split, the C constants
   and entry points as the wrapper binds them, the wrapper contract.
 * ``cuda``-marked tests hold each kernel against its plain version where a
@@ -275,6 +282,154 @@ def test_b9b_algorithm_emulated(n, b, tb, sms):
         assert _rel(got, plain[0].numpy() + 1j * plain[1].numpy()) <= CARD_GATE
 
 
+def _tf32(v):
+    """cvt.rna.tf32.f32: the float32 with its low 13 mantissa bits rounded
+    off, to nearest, ties away from zero (on the magnitude's bits)."""
+    bits = np.asarray(v, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(v):
+    v = np.asarray(v, np.float32)
+    hi = _tf32(v)
+    return hi, _tf32(v - hi)
+
+
+def _mma(acc, a, b, rounding):
+    """One tensor-core product: acc + a (rows, 8) @ b (8, cols)^T, the eight
+    products summed exactly (f64), the sum rounded to float32 to nearest
+    ("rn") or toward zero ("rz")."""
+    exact = acc.astype(np.float64) + a.astype(np.float64) @ b.astype(np.float64).T
+    out = exact.astype(np.float32)
+    if rounding == "rz":
+        over = np.abs(out.astype(np.float64)) > np.abs(exact)
+        out = np.where(over, np.nextafter(out, np.float32(0)), out)
+    return out
+
+
+def _emulate_b9a_3xtf32(xr, xi, d, rounding="rn"):
+    """dft_single_mma_c64 (warp_cmma_3xtf32 of csrc/dft_mma.cuh) on planar
+    f32 (B, n) planes and the (n, n) table d: N and K zero-padded to np8,
+    per 8-wide step of K the hi*hi products of Or and Oi from zero (Xr*Dr
+    then -Xi*Di; Xr*Di then Xi*Dr) joined to the totals by float adds, the
+    cross products hi*lo and lo*hi in accumulators of their own over all of
+    K, added at the end. A row's result does not depend on its tile."""
+    b, n = xr.shape
+    np8 = kb.single_mma_geometry(n).np8
+    pad = lambda a, rows: np.pad(np.asarray(a, np.float32),
+                                 ((0, rows - a.shape[0]), (0, np8 - a.shape[1])))
+    xr_, xi_ = pad(xr, b), pad(xi, b)
+    dr_, di_ = pad(d[0], np8), pad(d[1], np8)
+    zero = np.zeros((b, np8), np.float32)
+    acc_r, acc_i, small_r, small_i = zero, zero, zero, zero
+    for k0 in range(0, np8, 8):
+        ks = slice(k0, k0 + 8)
+        arh, arl = _split(xr_[:, ks])
+        aih, ail = _split(xi_[:, ks])
+        brh, brl = _split(dr_[:, ks])
+        bih, bil = _split(di_[:, ks])
+        big_r = _mma(_mma(zero, arh, brh, rounding), -aih, bih, rounding)
+        big_i = _mma(_mma(zero, arh, bih, rounding), aih, brh, rounding)
+        for a, bb in ((arl, brh), (arh, brl), (-ail, bih), (-aih, bil)):
+            small_r = _mma(small_r, a, bb, rounding)
+        for a, bb in ((arl, bih), (arh, bil), (ail, brh), (aih, brl)):
+            small_i = _mma(small_i, a, bb, rounding)
+        acc_r, acc_i = acc_r + big_r, acc_i + big_i
+    out_r, out_i = acc_r + small_r, acc_i + small_i
+    return out_r[:, :n].astype(np.float64) + 1j * out_i[:, :n]
+
+
+def test_tf32_rounding():
+    """_tf32 rounds to nearest with ties away from zero, keeping 10
+    mantissa bits, as cvt.rna.tf32.f32 does."""
+    one = np.float32(1.0)
+    ulp = np.float32(2.0 ** -10)
+    for sign in (1, -1):
+        assert _tf32(np.float32(sign * (1 + ulp / 2))) == np.float32(sign * (1 + ulp))
+        assert _tf32(np.float32(sign * (1 + ulp / 4))) == np.float32(sign * one)
+        assert _tf32(np.float32(sign * (1 + 3 * ulp / 4))) == np.float32(sign * (1 + ulp))
+    v = np.random.default_rng(RNG_SEED).standard_normal(1000).astype(np.float32)
+    hi, lo = _split(v)
+    assert np.all(hi.view(np.uint32) & 0x1FFF == 0) and np.all(lo.view(np.uint32) & 0x1FFF == 0)
+    assert np.all(np.abs(v.astype(np.float64) - hi - lo) <= 2.0 ** -21 * np.abs(v))
+
+
+@pytest.mark.parametrize("n", range(1, kb.MAX_N + 1))
+def test_b9a_3xtf32_emulated(n):
+    """3xTF32 meets the card's gate at every n B9a takes, whether a
+    tensor-core product rounds to nearest or toward zero; one TF32 product
+    a real product would not (checked at n = 128)."""
+    plan = MxuFftPlan.create(n, impl="pallas", device="cpu")
+    rng = np.random.default_rng(RNG_SEED + 1000 + n)
+    for b in (7, 64):
+        xr, xi = _planes((b, n), rng)
+        for mode in (Transform.FFT, Transform.IFFT):
+            (d,) = _tables(plan, mode)
+            want = _np_want(xr, xi, mode)
+            for rounding in ("rn", "rz"):
+                got = _emulate_b9a_3xtf32(xr, xi, d, rounding)
+                assert _rel(got, want) <= CARD_GATE, (n, b, mode, rounding)
+    if n == kb.MAX_N:
+        (d,) = _tables(plan, Transform.FFT)
+        one = lambda a, t: _tf32(a).astype(np.float64) @ _tf32(t).astype(np.float64).T
+        got = (one(xr, d[0]) - one(xi, d[1])) + 1j * (one(xr, d[1]) + one(xi, d[0]))
+        assert _rel(got, _np_want(xr, xi, Transform.FFT)) > 10 * CARD_GATE
+
+
+def test_b9a_mma_geometry_and_entry_point():
+    """B9a's tensor-core tile at every n: N and K padded to a multiple of
+    8, rows at a stride of 4 mod 8 words (a fragment load's eight rows on
+    distinct banks), at most MMA_MAX_TILES n-tiles a warp, 16 rows a warp
+    along the m-tiles, within a block's shared memory; `tb` caps the rows
+    a tile takes. The constants and the entry point of csrc/dft_mma.cu are
+    the wrapper's."""
+    for n in range(1, kb.MAX_N + 1):
+        for tb in (None, 1, 4, 100):
+            geo = kb.single_mma_geometry(n, tb)
+            assert geo.np8 % 8 == 0 and geo.np8 - 8 < n <= geo.np8
+            assert geo.ld == geo.np8 + 4 and (geo.ld // 4) % 2 == 1
+            ntiles = geo.np8 // 8
+            assert geo.wn in (1, 2, 4) and geo.wn <= ntiles
+            assert -(-ntiles // geo.wn) <= kb.MMA_MAX_TILES
+            assert geo.rows == 16 * (kb.MMA_WARPS // geo.wn)
+            assert 1 <= geo.valid <= geo.rows and (tb is None or geo.valid <= tb)
+            assert geo.smem == 4 * geo.ld * (2 * geo.np8 + 4 * geo.rows) <= kb.MAX_SMEM
+    assert kb.single_mma_geometry(128) == kb.MmaGeometry(128, 132, 4, 32, 32, 202752)
+    assert kb.single_mma_geometry(125) == kb.single_mma_geometry(128)
+    assert kb.single_mma_geometry(7).rows == 128
+    src = (build.CSRC / f"{kb.MMA_LIBRARY}.cu").read_text()
+    for name, value in (("kWarps", kb.MMA_WARPS), ("kMaxTiles", kb.MMA_MAX_TILES),
+                        ("kMaxN", kb.MAX_N), ("kMaxSmem", kb.MAX_SMEM)):
+        assert re.search(rf"\b{name} = {value};", src), name
+    assert '#include "dft_mma.cuh"' in src
+    header = (build.CSRC / "dft_mma.cuh").read_text()
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in header
+    assert "cvt.rna.tf32.f32" in header
+    for fn_name, argtypes in [*kb.MMA_ENTRY_POINTS.items(),
+                              ("fourier_cuda_error_string", [int])]:
+        m = re.search(rf"\b{fn_name}\(([^)]*)\)\s*{{", src)
+        assert m is not None, fn_name
+        assert len(m.group(1).split(",")) == len(argtypes), fn_name
+    assert build.library_path(kb.MMA_LIBRARY) != build.library_path(kb.LIBRARY)
+
+
+def test_b9a_body_argument_on_the_cpu():
+    """On CPU tensors B9a's wrapper runs the plain version whatever `_body`
+    asks, and counts no launch; an unknown body is refused."""
+    rng = np.random.default_rng(RNG_SEED)
+    xr, xi = (torch.as_tensor(t) for t in _planes((5, 16), rng))
+    (d,) = _tables(MxuFftPlan.create(16, impl="pallas", device="cpu"), Transform.FFT)
+    d = [torch.as_tensor(t) for t in d]
+    before = kb.mxu_fft_single.launches
+    want = bailey.xla_fft_single(xr, xi, *d)
+    for body in (None, "mma", "fma"):
+        got = kb.mxu_fft_single(xr, xi, *d, _body=body)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(ValueError):
+        kb.mxu_fft_single(xr, xi, *d, _body="wgmma")
+    assert kb.mxu_fft_single.launches == before
+
+
 def test_geometry_within_kernel_limits():
     """Every split and batch gets a launch csrc/bailey.cu accepts."""
     for n1 in range(1, kb.MAX_N + 1):
@@ -365,3 +520,42 @@ def test_kernel_matches_plain_on_card(cuda_device, n):
                 assert torch.equal(again[0], k[0]) and torch.equal(again[1], k[1])
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 16, 100, 125, 127, 128])
+def test_b9a_bodies_agree_on_card(cuda_device, n):
+    plan = MxuFftPlan.create(n, impl="pallas", device="cpu")
+    rng = np.random.default_rng(RNG_SEED + n)
+    for b in (1, 7, 1000, 20001):
+        xr, xi = _planes((b, n), rng)
+        re_, im_ = (torch.as_tensor(t, device=cuda_device) for t in (xr, xi))
+        for mode in Transform:
+            d = [torch.as_tensor(t, device=cuda_device)
+                 for pair in _tables(plan, mode) for t in pair]
+            want = _np_want(xr, xi, mode)
+            for body in ("mma", "fma"):
+                k = kb.mxu_fft_single(re_, im_, *d, _body=body)
+                got = k[0].cpu().numpy() + 1j * k[1].cpu().numpy()
+                assert _rel(got, want) <= CARD_GATE, (n, b, mode, body)
+                again = kb.mxu_fft_single(re_, im_, *d, _body=body, tb=4)
+                assert torch.equal(again[0], k[0]) and torch.equal(again[1], k[1])
+    # A NaN row and an infinite one stay in their rows: at n not a multiple
+    # of 8 the tile's zero-padded columns must not carry them into the other
+    # rows of later tiles in the same buffer.
+    # Three tiles a block at least, whatever the grid (at most 2048 threads
+    # an SM).
+    b = (3 * kb.single_mma_geometry(n).valid * 2048 // (32 * kb.MMA_WARPS)
+         * torch.cuda.get_device_properties(cuda_device).multi_processor_count)
+    xr, xi = _planes((b, n), rng)
+    xr[5, n // 2], xi[b // 2, 0] = np.nan, np.inf
+    re_, im_ = (torch.as_tensor(t, device=cuda_device) for t in (xr, xi))
+    d = [torch.as_tensor(t, device=cuda_device)
+         for pair in _tables(plan, Transform.FFT) for t in pair]
+    want = _np_want(np.nan_to_num(xr), np.nan_to_num(xi), Transform.FFT)
+    rest = np.setdiff1d(np.arange(b), [5, b // 2])
+    for body in ("mma", "fma"):
+        k = kb.mxu_fft_single(re_, im_, *d, _body=body)
+        got = k[0].cpu().numpy() + 1j * k[1].cpu().numpy()
+        assert _rel(got[rest], want[rest]) <= CARD_GATE, (n, body)
+        assert not np.isfinite(got[5]).all() and not np.isfinite(got[b // 2]).all()

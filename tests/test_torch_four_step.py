@@ -11,7 +11,9 @@
   (grid over column groups and k2, twiddle-and-scale load, the shared
   stages, the transposed store) is held against np.fft.
 * ``test_kernel_matches_plain_on_card`` runs the kernel where a card is
-  present (marker ``cuda``).
+  present (marker ``cuda``); its clustered body reads the forward twiddle
+  (``tw_fwd``) in both directions. The clustered body's own emulation is
+  in ``tests/test_torch_pair_kernels.py``.
 """
 
 import numpy as np
@@ -235,7 +237,8 @@ def test_kernel_matches_plain_on_card(cuda_device, n):
                   kernel_tables=rp.kernel_fwd if fwd else rp.kernel_inv,
                   pre_tw=(tw[0], tw[1]))
         before = sv.vpu_fft_four_step_row.launches
-        kre, kim = sv.vpu_fft_four_step_row(re, im, p, q, fwd, mode.scale(n), **kw)
+        kre, kim = sv.vpu_fft_four_step_row(re, im, p, q, fwd, mode.scale(n),
+                                            tw_fwd=(plan.tw_fwd[0], plan.tw_fwd[1]), **kw)
         assert sv.vpu_fft_four_step_row.launches == before + 1
         pre, pim = sv.vpu_fft_four_step_row_reference(
             re, im, p, q, kw["tables"], kw["pre_tw"], fwd, mode.scale(n))

@@ -55,7 +55,8 @@ from fourier_tpu.plan.vpu import VpuFftPlan as JVpuFftPlan
 from fourier_tpu.precision import ddreal
 from fourier_tpu.precision.vpu_dd_plan import VpuDdFftPlan as JVpuDdFftPlan
 
-from fourier_tpu_torch import Transform, VpuBluesteinPlan, VpuFftPlan
+from fourier_tpu_torch import (FourStepLocalPlan, MxuFftPlan, Transform,
+                               VpuBluesteinPlan, VpuFftPlan)
 from fourier_tpu_torch.ops.cuda import stockham_vpu as sv
 from fourier_tpu_torch.ops.cuda import stockham_vpu_dd as dv
 from fourier_tpu_torch.precision import VpuDdBluesteinPlan, VpuDdFftPlan
@@ -241,31 +242,68 @@ def emulate_b4a_pair(x, m, w):
     return out
 
 
-def emulate_fft_pair(x, n, forward, scale, geo, real):
+class _Planes:
+    """PlanePolicy (B1, B6): the (n, B) planes, tile t the t-th group of
+    `cols` columns, output row C*k + r of the same columns."""
+
+    def __init__(self, b):
+        self.b = b
+
+    def out_shape(self, n):
+        return (n, self.b)
+
+    def tiles(self, cols):
+        return -(-self.b // cols)
+
+    def columns(self, tiles, cols):
+        """The (T, cols) input columns of the tiles, and which are below B."""
+        return _tile_columns(tiles, cols, self.b)
+
+    def fetch(self, x, tiles, rows, cgrid, cols):
+        cidx, valid = self.columns(tiles, cols)
+        col = cidx[:, cgrid]
+        return np.where(valid[:, cgrid], x[rows, np.minimum(col, self.b - 1)], np.nan)
+
+    def prepare(self, cl, tiles, rank):
+        pass
+
+    def weight(self, tiles, rows, v):
+        return v
+
+    def store(self, out, tiles, rows, got, cols):
+        cidx, valid = self.columns(tiles, cols)
+        for ti in range(len(tiles)):
+            out[rows[:, None], cidx[ti][valid[ti]][None, :]] = got[ti][:, valid[ti]]
+
+
+def emulate_fft_pair(x, n, forward, scale, geo, real, io=None):
     """fft_pair (B1 at float, B6 at double) on a complex (n, B) array x, in
     f64 with the tables of pair_tables narrowed to `real`: the inverse is
-    the forward body on the planes exchanged."""
+    the forward body on the planes exchanged. `io` mirrors the body's I/O
+    policy (default _Planes, B1's and B6's PlanePolicy): the tiles walked,
+    the rows rank r copies, the pass over them before the split, the weight
+    of a row as the split reads it, and the store."""
     c, h, cols = geo.ranks, geo.rows, geo.cols
     tab = _cplx(sv.pair_tables(n, True, real, c))
     swap = lambda z: z.imag + 1j * z.real
     xin = x if forward else swap(x)
-    b = x.shape[1]
-    ntiles = -(-b // cols)
-    out = np.full((n, b), np.nan, complex)
+    io = _Planes(x.shape[1]) if io is None else io
+    ntiles = io.tiles(cols)
+    out = np.full(io.out_shape(n), np.nan, complex)
     rows = np.repeat(np.arange(h), cols)
     cgrid = np.tile(np.arange(cols), h)
     for t0 in range(0, ntiles, CLUSTERS):
         tiles = np.arange(t0, min(ntiles, t0 + CLUSTERS))
-        cidx, valid = _tile_columns(tiles, cols, b)
         cl = _Pair(geo, np.dtype(real).itemsize, len(tiles))
         for rank in range(c):  # rank r copies rows [r*h, (r+1)*h)
-            col = cidx[:, cgrid]
-            cl.bufs[rank][:, cl.index(rows, cgrid)] = np.where(
-                valid[:, cgrid], xin[rank * h + rows, np.minimum(col, b - 1)], np.nan)
+            cl.bufs[rank][:, cl.index(rows, cgrid)] = io.fetch(
+                xin, tiles, rank * h + rows, cgrid, cols)
+        for rank in range(c):
+            io.prepare(cl, tiles, rank)
 
         def split(rank, row, col):
             # (a_0 + (-1)^r a_2) + W_4^r (a_1 + (-1)^r a_3), or a_0 + (-1)^r a_1
-            a = [cl.load(s, row, col) for s in range(c)]
+            a = [io.weight(tiles, s * h + row, cl.load(s, row, col)) for s in range(c)]
             rho = -1 if rank & 1 else 1
             v = (a[0] + rho * a[1] if c == 2 else
                  a[0] + rho * a[2] + (-1j) ** rank * (a[1] + rho * a[3]))
@@ -275,10 +313,8 @@ def emulate_fft_pair(x, n, forward, scale, geo, real):
         k = np.arange(h)[:, None]
         for rank in range(c):  # row k of rank r is output row c*k + r
             got = cl.bufs[rank][:, cl.index(k, np.arange(cols))] * scale
-            got = got if forward else swap(got)
-            for ti in range(len(tiles)):
-                out[c * np.arange(h)[:, None] + rank, cidx[ti][valid[ti]][None, :]] = \
-                    got[ti][:, valid[ti]]
+            io.store(out, tiles, c * np.arange(h) + rank, got if forward else swap(got),
+                     cols)
     return out
 
 
@@ -292,6 +328,75 @@ def emulate_b6_pair(x, n, forward, scale):
     """fft_pair_c128 on a complex (n, B) array x, in f64 with the f64
     tables."""
     return emulate_fft_pair(x, n, forward, scale, dv.fft_pair_geometry_dd(n), np.float64)
+
+
+class _FourStepPlanes(_Planes):
+    """FourStepPlanes (B3, csrc/four_step_pair.cu): the (q, p, B) input,
+    tile t = k2*G + g the g-th group of `cols` columns of the (p, B) plane
+    of k2 (G = ceil(B / cols)); rank s's row a = s*h + row times the forward
+    four-step twiddle tw[k2, a] as the split reads it (`in_pass` False) or
+    in a pass over each rank's rows before the split (True); row C*k + r of
+    the (p, q*B) output at column k2*B + b."""
+
+    def __init__(self, b, p, q, tw, geo, in_pass):
+        super().__init__(b)
+        self.p, self.q, self.tw, self.geo, self.in_pass = p, q, tw, geo, in_pass
+        self.groups = -(-b // geo.cols)
+
+    def out_shape(self, n):
+        return (self.p, self.q * self.b)
+
+    def tiles(self, cols):
+        return self.q * self.groups
+
+    def columns(self, tiles, cols):
+        idx = (tiles % self.groups)[:, None] * cols + np.arange(cols)
+        return idx, idx < self.b
+
+    def fetch(self, x, tiles, rows, cgrid, cols):
+        cidx, valid = self.columns(tiles, cols)
+        col = np.minimum(cidx[:, cgrid], self.b - 1)
+        k2 = (tiles // self.groups)[:, None]
+        return np.where(valid[:, cgrid], x[k2, rows[None, :], col], np.nan)
+
+    def prepare(self, cl, tiles, rank):
+        if self.in_pass:  # every position of the rank's buffer, by its row
+            h, cols = self.geo.rows, self.geo.cols
+            rows = np.repeat(np.arange(h), cols)
+            at = cl.index(rows, np.tile(np.arange(cols), h))
+            k2 = (tiles // self.groups)[:, None]
+            cl.bufs[rank][:, at] *= self.tw[k2, rank * h + rows[None, :]]
+
+    def weight(self, tiles, rows, v):
+        """Design (a): W_n^(a*k2), a = s*h + row, as the body forms it:
+        tw[k2, row] * tw[k2, s*h] (both f32 table entries)."""
+        if self.in_pass:
+            return v
+        h = self.geo.rows
+        k2 = (tiles // self.groups)[:, None]
+        return v * (self.tw[k2, rows[None, :] % h] * self.tw[k2, rows[None, :] // h * h])
+
+    def store(self, out, tiles, rows, got, cols):
+        cidx, valid = self.columns(tiles, cols)
+        k2 = tiles // self.groups
+        for ti in range(len(tiles)):
+            cc = k2[ti] * self.b + cidx[ti][valid[ti]]
+            out[rows[:, None], cc[None, :]] = got[ti][:, valid[ti]]
+
+
+def emulate_b3_pair(x3, p, q, tw_fwd, forward, scale, in_pass=None):
+    """four_step_pair_c64 on a complex (q, p, B) array x3 (the column leg's
+    output), in f64 with the f32 tables: fft_pair with FourStepPlanes, the
+    inverse on the planes exchanged with the forward (q, p) twiddle
+    `tw_fwd` (complex), in the design `in_pass` (the one built at p's
+    height by default). Returns the natural-order (p*q, B) output."""
+    geo = sv.four_step_pair_geometry(p)
+    if in_pass is None:
+        in_pass = geo.rows in sv.B3_PASS_ROWS[geo.ranks]
+    b = x3.shape[-1]
+    io = _FourStepPlanes(b, p, q, tw_fwd, geo, in_pass)
+    out = emulate_fft_pair(x3, p, forward, scale, geo, np.float32, io)
+    return out.reshape(p * q, b)
 
 
 def _chirp_passes(pair, n, m, real, chirps, read=None):
@@ -1186,6 +1291,165 @@ def test_body_argument_on_the_cpu():
     assert dv.vpu_dd_bluestein_batch_minor.launches == before
 
 
+# -- B3, the four-step row leg on fft_pair -----------------------------------
+
+
+def _four_step(p, q):
+    """FourStepLocalPlan(p*q) over (p, q) with VpuFftPlan rows (MxuFftPlan
+    columns where q has no VpuFftPlan), on the CPU."""
+    return FourStepLocalPlan.create(
+        p * q, torch.complex64, p, q,
+        lambda m, dt, dev: VpuFftPlan.create(m, dt, dev) or MxuFftPlan.create(m, dt, dev),
+        device="cpu")
+
+
+def _column_leg(x_t, p, q, mode):
+    """The four-step's exact column leg in f64: q-point transforms over the
+    (q, p*B) view of the (n, B) input, as a (q, p, B) array."""
+    c = x_t.reshape(q, p * x_t.shape[1])
+    c = np.fft.fft(c, axis=0) if mode.is_forward else np.fft.ifft(c, axis=0) * q
+    return c.reshape(q, p, x_t.shape[1])
+
+
+def test_b3_pair_geometry_over_its_domain():
+    """B3's clustered bodies are at B1's sizes with B1's tile (two blocks for
+    8 | p up to 2048, four for p in (2048, 4096]) but the four heights where
+    both designs spilled, 56 p; the stage body keeps those, p above 4096,
+    3000, 3240, 4320, the pure powers and B3_STAGE_FASTER. Each height has
+    one design: (a) at 49 of them, (b) at the other 7; every route's row
+    size (32768..458752) has (a)."""
+    from fourier_tpu_torch.plan.four_step_local import choose_large_split
+
+    pair = [p for p in B1_DOMAIN if sv.four_step_pair_geometry(p)]
+    assert pair == [p for p in B1_PAIR if p not in (960, 1280, 2560, 3840)]
+    assert len(pair) == 56
+    for p in pair:
+        geo = sv.four_step_pair_geometry(p)
+        assert geo == sv.fft_pair_geometry(p) and geo.threads == 512
+        assert geo.cols * 4 >= 32 and geo.smem <= SMEM_PER_BLOCK
+        assert (geo.rows in sv.B3_SPLIT_ROWS[geo.ranks]) != (
+            geo.rows in sv.B3_PASS_ROWS[geo.ranks]), p
+    in_pass = [p for p in pair if p // sv.four_step_pair_geometry(p).ranks
+               in sv.B3_PASS_ROWS[sv.four_step_pair_geometry(p).ranks]]
+    assert in_pass == [64, 120, 240, 1440, 3600, 3888, 4000]
+    assert sv.B3_STAGE_FASTER <= set(pair)
+    assert all(sv.four_step_pair_geometry(p) is None
+               for p in (243, 960, 1280, 2560, 3000, 3240, 3840, 4320, 8192))
+    for n in (32768, 65536, 262144, 458752):
+        p, _ = choose_large_split(n)
+        geo = sv.four_step_pair_geometry(p)
+        assert geo.rows in sv.B3_SPLIT_ROWS[geo.ranks], n
+    assert sv.four_step_pair_geometry(256) == sv.PairGeometry(128, 64, 512, 131072, 2)
+    assert sv.four_step_pair_geometry(512) == sv.PairGeometry(256, 32, 512, 131072, 2)
+    # One compiled body per (clusters, height), from the .cu's lists.
+    text = (CSRC / "four_step_pair.cu").read_text()
+    lines = text.splitlines()
+    for name, rows in (("FOURIER_B3_SPLIT_ROWS", sv.B3_SPLIT_ROWS),
+                       ("FOURIER_B3_PASS_ROWS", sv.B3_PASS_ROWS)):
+        i = lines.index(f"#define {name}(X) \\")
+        block = [lines[i]]
+        while block[-1].endswith("\\"):
+            i += 1
+            block.append(lines[i])
+        assert [tuple(map(int, m)) for m in re.findall(r"X\((\d+), (\d+)\)",
+                                                        "\n".join(block))] == [
+            (c, h) for c in (2, 4) for h in rows[c]], name
+    assert "FOURIER_B3_SPLIT_ROWS(FOURIER_B3_SPLIT_CASE)" in text
+    assert "FOURIER_B3_PASS_ROWS(FOURIER_B3_PASS_CASE)" in text
+
+
+def test_b3_library_entry_points():
+    """B3's clustered-block library includes the engine and defines each
+    entry point its wrapper binds with as many parameters; it is built
+    apart from the other libraries."""
+    from fourier_tpu_torch.ops.cuda import build
+
+    src = (build.CSRC / f"{sv.FOUR_STEP_PAIR_LIBRARY}.cu").read_text()
+    assert '#include "stockham_pair.cuh"' in src
+    for fn_name, argtypes in [*sv.FOUR_STEP_PAIR_ENTRY_POINTS.items(),
+                              ("fourier_cuda_error_string", [int])]:
+        m = re.search(rf"\b{fn_name}\(([^)]*)\)\s*{{", src)
+        assert m is not None, fn_name
+        assert len(m.group(1).split(",")) == len(argtypes), fn_name
+    libs = (sv.LIBRARY, sv.FFT_PAIR_LIBRARY, sv.FOUR_STEP_PAIR_LIBRARY)
+    assert len({build.library_path(name) for name in libs}) == len(libs)
+
+
+# (p, q, B): two-block clusters at p = 128 and 256, four-block ones at
+# p = 4096; B = 1 and odd B, each walk several rounds of clusters but at
+# p = 4096 and ending on a ragged group of columns (128 x 65: two groups of
+# 64 a k2, the second of one column). These take design (a); design (b),
+# the twiddle in a pass of its own, is built at p = 120 (two blocks) and
+# 4000 (four).
+B3_EMULATED = [(128, 256, 1), (128, 256, 7), (128, 256, 65), (256, 256, 1),
+               (256, 256, 7), (4096, 16, 1), (4096, 16, 7), (120, 64, 1),
+               (120, 64, 7), (4000, 8, 3)]
+
+
+@pytest.mark.parametrize("p,q,b", B3_EMULATED)
+def test_b3_pair_body_emulated(p, q, b):
+    n = p * q
+    plan = _four_step(p, q)
+    rp = VpuFftPlan.create(p, device="cpu")
+    tw_fwd = _cplx(plan.tw_fwd.numpy())
+    rng = np.random.default_rng(RNG_SEED + n + b)
+    x = (rng.standard_normal((n, b)) + 1j * rng.standard_normal((n, b))).astype(np.complex64)
+    for mode in Transform:
+        fwd, scale = mode.is_forward, mode.scale(n)
+        x3 = _column_leg(x.astype(np.complex128), p, q, mode)
+        got = emulate_b3_pair(x3, p, q, tw_fwd, fwd, 1.0 if scale is None else scale)
+        assert got.shape == (n, b) and np.isfinite(got).all(), (p, b, mode)
+        assert _rel(got, _want(x.astype(np.complex128), mode, n)) <= C64_GATE, (p, b, mode)
+        tw = plan.tw_fwd if fwd else plan.tw_inv
+        pre, pim = sv.vpu_fft_four_step_row_reference(
+            torch.as_tensor(x3.real.astype(np.float32)),
+            torch.as_tensor(x3.imag.astype(np.float32)), p, q, rp.tables(fwd),
+            (tw[0], tw[1]), fwd, scale)
+        assert _rel(got, pre.double().numpy() + 1j * pim.double().numpy()) <= C64_GATE
+
+
+@pytest.mark.parametrize("mode", [Transform.FFT, Transform.SQRT_SCALED_IFFT])
+def test_b3_pair_matches_pallas_interpret(mode):
+    """B3's clustered body against the JAX package's kernel in interpret
+    mode on the same (q, p, B) input: p = 64 (two blocks of 32 rows)."""
+    p, q, b = 64, 16, 5
+    rng = np.random.default_rng(RNG_SEED + int(mode))
+    x3 = (rng.standard_normal((q, p, b)) + 1j * rng.standard_normal((q, p, b))).astype(
+        np.complex64)
+    plan = _four_step(p, q)
+    fwd, scale = mode.is_forward, mode.scale(p * q)
+    s = 1.0 if scale is None else np.float32(scale)
+    pre = plan.tw_fwd if fwd else plan.tw_inv
+    jpre = (pre[0].numpy().T * s, pre[1].numpy().T * s)
+    want = jsv.vpu_fft_four_step_row(x3.real.copy(), x3.imag.copy(), p, q,
+                                     jsv.make_stage_tables(p, fwd), jpre, fwd, cb=b,
+                                     interpret=True)
+    want = np.asarray(want[0], np.float64) + 1j * np.asarray(want[1], np.float64)
+    got = emulate_b3_pair(x3.astype(np.complex128), p, q, _cplx(plan.tw_fwd.numpy()),
+                          fwd, 1.0 if scale is None else scale)
+    assert want.shape == got.shape == (p * q, b)
+    assert _rel(got, want) <= C64_GATE
+
+
+def test_b3_body_argument_on_the_cpu():
+    """On CPU tensors B3's wrapper runs the plain version whatever `_body`
+    asks, and counts no launch."""
+    p, q = 256, 8
+    plan = _four_step(p, q)
+    rp = VpuFftPlan.create(p, device="cpu")
+    re3, im3 = torch.randn(q, p, 5), torch.randn(q, p, 5)
+    kw = dict(tables=rp.tables(False), kernel_tables=rp.kernel_inv,
+              pre_tw=(plan.tw_inv[0], plan.tw_inv[1]))
+    before = sv.vpu_fft_four_step_row.launches
+    want = sv.vpu_fft_four_step_row_reference(re3, im3, p, q, kw["tables"], kw["pre_tw"],
+                                              False, 0.25)
+    for body in (None, "pair", "stage"):
+        got = sv.vpu_fft_four_step_row(re3, im3, p, q, False, 0.25, _body=body,
+                                       tw_fwd=(plan.tw_fwd[0], plan.tw_fwd[1]), **kw)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert sv.vpu_fft_four_step_row.launches == before
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -1338,3 +1602,32 @@ def test_b5b_bodies_agree_on_card(cuda_device, n):
         for body in bodies:
             got = sv.vpu_irfft_odd_unpack_batch_minor(re_, im_, n, st.size, _body=body, **kw)
             assert _rel(got.double().cpu().numpy(), want) <= C64_GATE, (n, b, body)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [32768, 65536, 262144])
+def test_b3_bodies_agree_on_card(cuda_device, n):
+    from fourier_tpu_torch.plan.four_step_local import choose_large_split
+
+    p, q = choose_large_split(n)
+    plan = FourStepLocalPlan.create(n, torch.complex64, p, q,
+                                    lambda m, dt, dev: VpuFftPlan.create(m, dt, dev),
+                                    device=cuda_device)
+    rp = plan.row_plan
+    for b in (1, 7, 64, 65):
+        re3 = torch.randn(q, p, b, device=cuda_device)
+        im3 = torch.randn(q, p, b, device=cuda_device)
+        for mode in Transform:
+            fwd = mode.is_forward
+            tw = plan.tw_fwd if fwd else plan.tw_inv
+            kw = dict(tables=rp.tables(fwd), pre_tw=(tw[0], tw[1]),
+                      kernel_tables=rp.kernel_fwd if fwd else rp.kernel_inv,
+                      tw_fwd=(plan.tw_fwd[0], plan.tw_fwd[1]))
+            want = sv.vpu_fft_four_step_row_reference(re3, im3, p, q, kw["tables"],
+                                                      kw["pre_tw"], fwd, mode.scale(n))
+            want = want[0].double().cpu().numpy() + 1j * want[1].double().cpu().numpy()
+            for body in ("pair", "stage"):
+                got = sv.vpu_fft_four_step_row(re3, im3, p, q, fwd, mode.scale(n),
+                                               _body=body, **kw)
+                c = got[0].double().cpu().numpy() + 1j * got[1].double().cpu().numpy()
+                assert _rel(c, want) <= C64_GATE, (n, b, mode, body)
