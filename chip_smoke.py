@@ -6,31 +6,32 @@
 Builds kernels B1-B5 (complex64, the stage bodies), the clustered-block
 bodies of B1, B2, B3, B4a, B4b, B5a and B5b, B6-B8 (complex128 in native
 f64; B6 also on its clustered-block bodies) and B9a/B9b (the dense DFT
-products of MxuFftPlan(impl="pallas"); B9a on the tensor cores, and on
-the CUDA cores for comparison) from fourier_tpu_torch/csrc with nvcc,
+products of MxuFftPlan(impl="pallas"), on the tensor cores in 3xTF32, and
+on the CUDA cores for comparison) from fourier_tpu_torch/csrc with nvcc,
 twelve libraries built at once (each build's time printed), checks that
 the clustered-block bodies of B1, B2, B3, B4a, B4b, B5a, B5b, B6 and B7 and
-B9a's tensor-core body spill nothing (and prints B1's and B6's registers
-beside those they had before fft_pair took an I/O policy), and holds each kernel against its plain PyTorch version and
-against np.fft, at the listed sizes and at every shape the routes below
-give it (B1, B2, B4a, B4b, B5a, B5b, B6 and B7 also at a walk of several
-tiles a cluster ending on a partial group, and on both bodies at the sizes
-where they meet; B3 and B9a on both bodies, B9a also with a NaN row and
-an infinite one; B1, B2, B4b, B5a and B5b at
-the routes' shapes in phase
-4g, from the calls phases 4-4d made, B6 in phase 4h, from those of phase
-4e). Then it drives the
-main path (the default complex64 1-D transform through create_fft_f32 on
-device="cuda") and the routes of the other sizes the JAX package plans
-differently (fused Bluestein B2, four-step with B3 rows, DFT products), then
-the real transforms through RfftPlan and the module functions (B4 for even
-n, B5 for odd n, the c2c kernels inside the unfused routes) and their
-gradients, then the complex128 route (create_fft_f64 with no device
-argument: B6, B7, B8 over B6, and the composed plans over them, and c128
-RfftPlans), then the user-built paths of B9a/B9b (pallas and xla_packed
-MxuFftPlans alone, under a BluesteinPlan and a FourStepLocalPlan, and their
-gradients), checking each plan tree against the JAX package's and that each
-path launched the kernels its plan holds. Last it times the kernels against
+the tensor-core bodies of B9a and B9b spill nothing (and prints B1's and
+B6's registers beside those they had before fft_pair took an I/O policy),
+and holds each kernel against its plain PyTorch version and against np.fft,
+at the listed sizes and at every shape the routes below give it (B1, B2,
+B4a, B4b, B5a, B5b, B6 and B7 also at a walk of several tiles a cluster
+ending on a partial group, and on both bodies at the sizes where they meet;
+B3, B9a and B9b on both bodies, B9a and B9b also with a NaN row and an
+infinite one; B1, B2, B4b, B5a and B5b at the routes' shapes in phase 4g,
+from the calls phases 4-4d made, B6 in phase 4h, from those of phase 4e).
+Then it drives the main path (the default complex64 1-D transform through
+create_fft_f32 on device="cuda") and the routes of the other sizes the JAX
+package plans differently (fused Bluestein B2, four-step with B3 rows, DFT
+products), then the real transforms through RfftPlan and the module
+functions (B4 for even n, B5 for odd n, the c2c kernels inside the unfused
+routes) and their gradients, then the complex128 route (create_fft_f64 with
+no device argument: B6, B7, B8 over B6, and the composed plans over them,
+and c128 RfftPlans), then the user-built paths of B9a/B9b (pallas and
+xla_packed MxuFftPlans alone, under a BluesteinPlan and a
+FourStepLocalPlan, and their gradients, B9b on the body its wrapper
+picks),
+checking each plan tree against the JAX package's and that each path
+launched the kernels its plan holds. Last it times the kernels against
 their plain versions and torch.fft, the rfft round trips of the suite's
 rows fused, unfused and through torch.fft, the suite's c128 rows (and B6 at
 4096x16384) and B9a/B9b at three shapes, each beside the least time the
@@ -39,10 +40,12 @@ card could take for its bytes or operations; B1 at 4096x16384 and
 1013x65536, B6 at 1024x65536 and 4096x16384, B7 at 1013x65536 and B3 at
 65536x1024 also on their stage bodies in the same run (and the rfft round
 trips with B4b and B5b on their stage bodies, the parent's path, and the
-four-step plans of 65536 and 262144 with B3 on its stage body), and B9a's
-tensor-core body against its CUDA-core one (its bound restated for 3xTF32 on the tensor cores), and B1, B2, B3,
-B4b, B5a, B5b and B6 on both bodies at every size with a clustered one
-(phase 5g, the A/B behind the wrappers' choice of body).
+four-step plans of 65536 and 262144 with B3 on its stage body), B9a's and
+B9b's tensor-core bodies against their CUDA-core ones (their bound restated
+for 3xTF32 on the tensor cores), and B1, B2, B3, B4b, B5a, B5b and B6 on
+both bodies at every size with a clustered one and B9b's two bodies at
+the splits of _b9b_sweep_sizes() (phase 5g, the A/B behind the wrappers'
+choice of body).
 Every phase prints its lines;
 any failed check raises, so the exit code is non-zero. The next-to-last
 line is a JSON record of the kernels; the last line is
@@ -290,15 +293,24 @@ DD_CHAIN = 16
 B9A_SIZES = (1, 2, 7, 16, 64, 100, 125, 127, 128)
 B9A_POISON = (7, 125)  # n not a multiple of 8: a NaN row must stay in its row
 B9B_SIZES = (129, 243, 250, 384, 1000, 2048, 4096, 16129, 16384)
+B9B_POISON = (129, 250)  # splits (3, 43) and (10, 25): padded in both phases
+# Phase 5g's sweep of B9b's bodies, about AB_POINTS_B9B points a call:
+# B9B_SIZES, every n in (128, 640] with a split (n1, n2) and every 16th
+# such n above: all of the splits where two_phase_body picks the CUDA-core
+# body (n * (n1 + n2) < B9B_FMA_WORK holds only below n = 480), and a
+# spread of the others.
+AB_POINTS_B9B = 1 << 24
+B9B_WIDE_N = 250  # (10, 25): also the CUDA-core body's 1024-bound instantiation
 B9_TB = 4  # the TPU tile cap the odd batches are checked with as well
 B9_ROUTE_B = 257  # phase 4f's batch
 B9_ROUTE_B_LARGE = 16  # its batch for the four-step of 65536
 B9_GRAD = (1000, 64)  # (n, B) of phase 4f's gradient
 B9_TIME = (("B9a", 125, 65536), ("B9b", 4096, 16384), ("B9b", 16384, 1024))
 B9_CHAIN = 16
-# B9a's bodies: the tensor cores' in 3xTF32 (csrc/dft_mma.cu, the kernel)
-# and the CUDA cores' in fp32 FMA (csrc/bailey.cu, the parent's).
-B9A_BODY_NAMES = {"mma": "tensor-core body (3xTF32)", "fma": "CUDA-core body (fp32 FMA)"}
+# The bodies of B9a and B9b: the tensor cores' in 3xTF32 (csrc/dft_mma.cu,
+# the kernel) and the CUDA cores' in fp32 FMA (csrc/bailey.cu, the first
+# design).
+B9_BODY_NAMES = {"mma": "tensor-core body (3xTF32)", "fma": "CUDA-core body (fp32 FMA)"}
 # A batch that walks B9a's persistent loop over several tiles a block (one
 # block an SM at n = 127) and ends on a partial tile.
 B9A_WALK = ("B9a", 127, 20001)
@@ -397,6 +409,14 @@ def _dd_route_cases() -> list:
         batches = (DD_RFFT_B,) if n % 2 == 0 else (DD_RFFT_B // 2, 1)
         cases += [c for b in batches for c in _dd_cases(inner, b)]
     return sorted(set(cases)) + [("B7", n, b) for n, b in B7_WALK]
+
+
+def _b9b_sweep_sizes() -> list:
+    """The n of phase 5g's B9b sweep, in increasing order."""
+    from fourier_tpu_torch.ops.dft_matrix import choose_split
+    split = [n for n in range(129, 128 * 128 + 1) if choose_split(n)]
+    return sorted(set(B9B_SIZES) | {n for n in split if n <= 640}
+                  | set([n for n in split if n > 640][::16]))
 
 
 def _b9_route_cases() -> list:
@@ -576,8 +596,8 @@ def main() -> int:
           f"{sv.IRFFT_ODD_PAIR_LIBRARY}.cu (B5b's paired bodies), "
           f"{dv.LIBRARY}.cu (B6-B8, stage bodies and B7's paired bodies), "
           f"{dv.FFT_PAIR_DD_LIBRARY}.cu (B6's clustered bodies), {bk.LIBRARY}.cu "
-          f"(B9a's CUDA-core body, B9b) and {bk.MMA_LIBRARY}.cu (B9a's tensor-core "
-          f"body) in {time.perf_counter() - t0:.2f} s; each nvcc: "
+          f"(the CUDA-core bodies of B9a and B9b) and {bk.MMA_LIBRARY}.cu (their "
+          f"tensor-core bodies) in {time.perf_counter() - t0:.2f} s; each nvcc: "
           + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(build.build_seconds.items(),
                                                           key=lambda kv: -kv[1])),
           flush=True)
@@ -611,11 +631,18 @@ def main() -> int:
           f"{n_b4a} m, B4b at {n_b4b} m, B7 at {n_b7} M, B1 at {n_b1} n, B2 at {n_b2} M, "
           f"B5a at {n_b5a} M, B5b at {n_b5b} M, B6 at {n_b6} n, B3 at {n_b3} p), "
           f"{min(regs)}-{max(regs)} registers, 0 spill bytes", flush=True)
+    # The tensor-core bodies of B9a and B9b: registers, and no spill.
+    # B9b's in two instantiations: tables staged in shared memory (<true>),
+    # tables read from global memory with guarded reads (<false>).
     mma_kernels, _ = ptxas_usage(build.resource_usage(bk.MMA_LIBRARY))
-    check(len(mma_kernels) == 1 and mma_kernels[0][2] == (0, 0),
-          f"B9a's tensor-core body: {mma_kernels}")
-    print(f"ptxas (B9a's tensor-core body): {mma_kernels[0][1]} registers, 0 spill "
-          f"bytes", flush=True)
+    mma_regs = {("B9a" if "two_phase" not in k else "B9b staged" if "<true>" in k
+                 else "B9b global"): (r, sp) for k, r, sp in mma_kernels}
+    check(len(mma_kernels) == 3 and set(mma_regs) == {"B9a", "B9b staged", "B9b global"}
+          and all(sp == (0, 0) for _, sp in mma_regs.values()),
+          f"the tensor-core bodies of B9a and B9b: {mma_kernels}")
+    print("ptxas (tensor-core bodies): " + ", ".join(
+        f"{k} {r} registers, 0 spill bytes" for k, (r, _) in sorted(mma_regs.items())),
+        flush=True)
     # B1's and B6's bodies beside their registers before fft_pair took an
     # I/O policy, and B3's beside B1's.
     for lib, parent in ((sv.FFT_PAIR_LIBRARY, PARENT_B1_REGS),
@@ -1093,9 +1120,9 @@ def main() -> int:
     b9_routes = _b9_route_cases()
     for kernel_id, sizes in (("B9a", B9A_SIZES), ("B9b", B9B_SIZES)):
         routes = [(n, b) for k, n, b in b9_routes if k == kernel_id]
-        # B9a on both bodies: the tensor cores' (the kernel) and the CUDA
-        # cores' (the parent's), each with its worst rel-L2.
-        bodies = ("mma", "fma") if kernel_id == "B9a" else (None,)
+        # Both bodies: the tensor cores' (the kernel) and the CUDA cores'
+        # (the first design), each with its worst rel-L2.
+        bodies = ("mma", "fma")
         worst = {body: [0.0, 0.0] for body in bodies}
         mx = 0.0
         for n, b in [(n, b) for n in sizes for b in BATCHES] + routes:
@@ -1108,60 +1135,76 @@ def main() -> int:
                 tabs = b9_tables(plan, mode)
                 p = plain(re, im, *tabs)
                 for body in bodies:
-                    kb_ = {} if body is None else {"_body": body}
-                    k = kernel(re, im, *tabs, **kb_)
-                    if b % 2:
-                        kt = kernel(re, im, *tabs, tb=B9_TB, **kb_)
+                    k = kernel(re, im, *tabs, _body=body)
+                    if b % 2 and not (kernel_id == "B9b" and body == "mma"):
+                        kt = kernel(re, im, *tabs, tb=B9_TB, _body=body)
                         torch.cuda.synchronize()
                         check(torch.equal(kt[0], k[0]) and torch.equal(kt[1], k[1]),
-                              f"{kernel_id} {body or ''} n={n} B={b}: tb={B9_TB} "
+                              f"{kernel_id} {body} n={n} B={b}: tb={B9_TB} "
                               "changed the result")
+                    if kernel_id == "B9b" and b > 1:
+                        # Rows 1.. as a batch of their own: every transform
+                        # in another block (the tensor-core body takes no
+                        # tb, one transform a block at a time).
+                        kt = kernel(re[1:], im[1:], *tabs, _body=body)
+                        torch.cuda.synchronize()
+                        check(torch.equal(kt[0], k[0][1:]) and torch.equal(kt[1], k[1][1:]),
+                              f"{kernel_id} {body} n={n} B={b}: rows 1.. changed when "
+                              "run without row 0")
                     torch.cuda.synchronize()
                     err, m_ = vs_plain(k, p)
                     herr = rel_l2(rows_host(*k), np_want(x, mode, n))
                     check(err <= REL_L2_GATE and herr <= REL_L2_GATE,
-                          f"{kernel_id} {body or ''} n={n} B={b} {mode.name}: rel-L2 "
+                          f"{kernel_id} {body} n={n} B={b} {mode.name}: rel-L2 "
                           f"{err:.3e} vs plain, {herr:.3e} vs np.fft (gate "
                           f"{REL_L2_GATE:g})")
                     worst[body] = [max(worst[body][0], err), max(worst[body][1], herr)]
-                    if body in (None, "mma"):  # the kernel's own body
+                    if body == "mma":  # the kernel's own body
                         mx = max(mx, m_)
             del re, im, k, p
         check(torch.backends.cuda.matmul.allow_tf32,
               "a plain version did not restore the caller's TF32 setting")
         print(f"{kernel_id} kernel vs plain: n in {sizes} x B in {BATCHES} and the "
               f"routes' shapes {routes} x 5 modes pass with the caller's TF32 on (odd "
-              f"B also at tb={B9_TB}, bitwise equal); worst rel-L2 "
-              + "; ".join(f"{B9A_BODY_NAMES.get(body, kernel_id)} {w[0]:.3e} vs plain, "
+              f"B also at tb={B9_TB}"
+              + (", but the tensor-core body, which takes no tb; rows 1.. also as a "
+                 "batch of their own" if kernel_id == "B9b" else "")
+              + "; bitwise equal); worst rel-L2 "
+              + "; ".join(f"{B9_BODY_NAMES[body]} {w[0]:.3e} vs plain, "
                           f"{w[1]:.3e} vs np.fft" for body, w in worst.items())
               + f" (gate {REL_L2_GATE:g}); max abs err {mx:.3e}", flush=True)
         max_abs_err[kernel_id] = mx
-    # B9a keeps a NaN and an infinity in their rows at n not a multiple of 8:
-    # the zero-padded columns of a tile buffer must stay zero for the later
-    # tiles of a block (three tiles a block at least, whatever the grid).
+    # B9a and B9b keep a NaN and an infinity in their rows at sizes whose
+    # buffers are zero-padded: the padding must stay zero for the later
+    # tiles or transforms of a block (three a block at least, whatever the
+    # grid: at most 2048 threads an SM).
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for n in B9A_POISON:
-        plan = ftt.MxuFftPlan.create(n, impl="pallas", device=dev)
-        b = 3 * bk.single_mma_geometry(n).valid * 2048 // (32 * bk.MMA_WARPS) * sms
-        re, im = planes(b, n)
-        poisoned = (5, b // 2)
-        re[poisoned[0], n // 2], im[poisoned[1], 0] = float("nan"), float("inf")
-        tabs = b9_tables(plan, Transform.FFT)
-        rest = torch.ones(b, dtype=torch.bool, device=dev)
-        rest[list(poisoned)] = False
-        p = tuple(t[rest] for t in bp.xla_fft_single(re, im, *tabs))
-        for body in ("mma", "fma"):
-            k = bk.mxu_fft_single(re, im, *tabs, _body=body)
-            err, _ = vs_plain(tuple(t[rest] for t in k), p)
-            finite = [bool(torch.isfinite(k[0][r]).all() and torch.isfinite(k[1][r]).all())
-                      for r in poisoned]
-            check(err <= REL_L2_GATE and not any(finite),
-                  f"B9a {body} n={n} B={b}, a NaN in row {poisoned[0]} and an infinity "
-                  f"in row {poisoned[1]}: the other rows rel-L2 {err:.3e} vs plain, "
-                  f"the poisoned rows finite {finite}")
-        del re, im, k, p
-    print(f"B9a with a NaN row and an infinite row (n in {B9A_POISON}, three tiles a "
-          "block): both bodies keep them in their rows, the others pass", flush=True)
+    for kernel_id, sizes in (("B9a", B9A_POISON), ("B9b", B9B_POISON)):
+        for n in sizes:
+            plan = ftt.MxuFftPlan.create(n, impl="pallas", device=dev)
+            _, kernel, plain = b9_fns(plan)
+            rows_ = bk.single_mma_geometry(n).valid if kernel_id == "B9a" else 1
+            b = 3 * rows_ * 2048 // (32 * bk.MMA_WARPS) * sms
+            re, im = planes(b, n)
+            poisoned = (5, b // 2)
+            re[poisoned[0], n // 2], im[poisoned[1], 0] = float("nan"), float("inf")
+            tabs = b9_tables(plan, Transform.FFT)
+            rest = torch.ones(b, dtype=torch.bool, device=dev)
+            rest[list(poisoned)] = False
+            p = tuple(t[rest] for t in plain(re, im, *tabs))
+            for body in ("mma", "fma"):
+                k = kernel(re, im, *tabs, _body=body)
+                err, _ = vs_plain(tuple(t[rest] for t in k), p)
+                finite = [bool(torch.isfinite(k[0][r]).all()
+                               and torch.isfinite(k[1][r]).all()) for r in poisoned]
+                check(err <= REL_L2_GATE and not any(finite),
+                      f"{kernel_id} {body} n={n} B={b}, a NaN in row {poisoned[0]} and "
+                      f"an infinity in row {poisoned[1]}: the other rows rel-L2 "
+                      f"{err:.3e} vs plain, the poisoned rows finite {finite}")
+            del re, im, k, p
+        print(f"{kernel_id} with a NaN row and an infinite row (n in {sizes}, three "
+              "tiles or transforms a block): both bodies keep them in their rows, the "
+              "others pass", flush=True)
     torch.set_float32_matmul_precision(caller_precision)
 
     # Phases 4-4d note every (n, B) they give B1, B2, B4b, B5a and B5b (n the
@@ -1646,20 +1689,31 @@ def main() -> int:
     # The plans reach the wrappers through plan/mxu.py's module reference;
     # for these runs it notes each call's (kernel, n, B) and passes it on.
     b9_calls = set()
+    # B9b's calls at splits where the wrapper runs the tensor-core body.
+    b9b_mma_calls = [0]
 
     def recorded(kernel_id, fn):
         def call(re, im, *tables, **kwargs):
             b9_calls.add((kernel_id, re.shape[1], re.shape[0]))
+            if kernel_id == "B9b" and bk.two_phase_body(*tables[2].shape[::-1]) == "mma":
+                b9b_mma_calls[0] += 1
             return fn(re, im, *tables, **kwargs)
         return call
 
     mxu_plan.bailey_kernels = types.SimpleNamespace(
         mxu_fft_single=recorded("B9a", bk.mxu_fft_single),
         mxu_fft_two_phase=recorded("B9b", bk.mxu_fft_two_phase))
+    mma_before = bk.mxu_fft_two_phase.mma_launches
     try:
         b9_path_runs()
     finally:
         mxu_plan.bailey_kernels = bk
+    mma_ran = bk.mxu_fft_two_phase.mma_launches - mma_before
+    check(mma_ran == b9b_mma_calls[0] > 0, f"phase 4f launched B9b's tensor-core body "
+          f"{mma_ran} times in {b9b_mma_calls[0]} calls at splits where "
+          f"two_phase_body picks it (n * (n1 + n2) >= {bk.B9B_FMA_WORK})")
+    print(f"B9 paths: B9b's tensor-core body took all {mma_ran} of their calls at "
+          f"splits where two_phase_body picks it, the gradient's included", flush=True)
     unchecked = b9_calls - set(b9_routes)
     check(not unchecked, f"phase 4f gave B9 shapes that phase 3f did not check: "
           f"{sorted(unchecked)}")
@@ -2044,7 +2098,9 @@ def main() -> int:
     # 5f. B9a and B9b at the bound table's shapes, chained SQRT_SCALED_FFT:
     # the kernel alone, its plain version, the impl="xla" plan (cuBLAS, for
     # information) and torch.fft.fft on the same (B, n) complex64 tensor; the
-    # bound from the plan's own summary (flops and min bytes per transform).
+    # bound from the plan's own summary (flops and min bytes per transform),
+    # restated for the tensor cores: 3 TF32 products for each f32 one. Both
+    # bodies of each kernel in the same run, fma, mma, mma, fma.
     for kernel_id, n, b in B9_TIME:
         plan = ftt.MxuFftPlan.create(n, impl="pallas", device=dev)
         _, kernel, plain = b9_fns(plan)
@@ -2053,12 +2109,8 @@ def main() -> int:
         re, im = planes(b, n)
         xc = torch.complex(re, im)
         summary = ftt.summarize(plan)
-        # B9a runs 3 TF32 products on the tensor cores for each f32 one.
-        kb_ = (bound(summary.min_hbm_bytes_per_transform * b,
-                     3 * summary.flops_per_transform * b, TF32_RATE)
-               if kernel_id == "B9a" else
-               bound(summary.min_hbm_bytes_per_transform * b,
-                     summary.flops_per_transform * b, F32_RATE))
+        kb_ = bound(summary.min_hbm_bytes_per_transform * b,
+                    3 * summary.flops_per_transform * b, TF32_RATE)
         rows = {
             f"{kernel_id} kernel": median_ms(lambda a, c: kernel(a, c, *tabs), re, im,
                                              B9_CHAIN),
@@ -2070,37 +2122,19 @@ def main() -> int:
                 lambda a, _c: (torch.fft.fft(a, norm="ortho"), None), xc, None,
                 B9_CHAIN),
         }
-        if kernel_id == "B9a":
-            # The CUDA-core body (the parent's) against the tensor-core one,
-            # timed fma, mma, mma, fma.
-            ab = {body: [] for body in B9A_BODY_NAMES}
-            for body in ("fma", "mma", "mma", "fma"):
-                ab[body].append(median_ms(
-                    lambda a, c: kernel(a, c, *tabs, _body=body), re, im, B9_CHAIN))
-            print(f"time: B9a n={n} B={b} A/B, same run: " + ", ".join(
-                f"{B9A_BODY_NAMES[body]} {t[0]:.4f} / {t[1]:.4f} ms"
-                for body, t in ab.items()) + f" (median of {REPS} each, in the order "
-                f"fma, mma, mma, fma) on {card}", flush=True)
-        if kernel_id == "B9b":
-            sms = torch.cuda.get_device_properties(dev).multi_processor_count
-            tpb, threads = bk.two_phase_geometry(plan.n1, plan.n2, b, sms)
-            if threads <= bk.SMALL_THREADS:
-                # The same blocks with 32 idle threads more take the
-                # 1024-bound instantiation (64 registers a thread): what the
-                # 512-bound one (128) gains, in this run.
-                def wide(a, c):
-                    out = torch.empty_like(a), torch.empty_like(c)
-                    build.call(bk.library(), "fourier_dft_two_phase_c64", "B9b wide",
-                               a.data_ptr(), c.data_ptr(), out[0].data_ptr(),
-                               out[1].data_ptr(), *(t.data_ptr() for t in tabs),
-                               plan.n1, plan.n2, b, tpb, threads + 32, dev.index,
-                               sv.stream_of(a))
-                    return out
-                werr, _ = vs_plain(wide(re, im), kernel(re, im, *tabs))
-                check(werr <= REL_L2_GATE, f"B9b on the 1024-bound instantiation: "
-                      f"rel-L2 {werr:.3e} against the kernel")
-                rows[f"B9b kernel, {threads + 32} threads (1024-bound)"] = median_ms(
-                    wide, re, im, B9_CHAIN)
+        ab = {body: [] for body in B9_BODY_NAMES}
+        for body in ("fma", "mma", "mma", "fma"):
+            ab[body].append(median_ms(
+                lambda a, c: kernel(a, c, *tabs, _body=body), re, im, B9_CHAIN))
+        print(f"time: {kernel_id} n={n} B={b} A/B, same run: " + ", ".join(
+            f"{B9_BODY_NAMES[body]} {t[0]:.4f} / {t[1]:.4f} ms"
+            for body, t in ab.items()) + f" (median of {REPS} each, in the order "
+            f"fma, mma, mma, fma); the tensor-core body {min(ab['fma']) / max(ab['mma']):.2f}x "
+            f"as fast; {kb_[0] / min(ab['mma']):.4f} and {kb_[0] / min(ab['fma']):.4f} of "
+            f"the bound {kb_[0]:.4f} ms ({kb_[1]}) on {card}", flush=True)
+        check(kernel_id != "B9b" or max(ab["mma"]) < min(ab["fma"]),
+              f"B9b n={n} B={b}: the tensor-core body {ab['mma']} ms is not faster "
+              f"than the CUDA-core body {ab['fma']} ms")
         for what, ms in rows.items():
             share = (f", {kb_[0] / ms:.4f} of the bound {kb_[0]:.4f} ms ({kb_[1]})"
                      if "kernel" in what else "")
@@ -2212,6 +2246,68 @@ def main() -> int:
                     if sv.four_step_pair_geometry(p_)], sv.B3_STAGE_FASTER,
              lambda n: ((AB_POINTS // n) & ~3, ((AB_POINTS // n) & ~3) - 1))
 
+    # B9b's bodies at every split of _b9b_sweep_sizes(), about
+    # AB_POINTS_B9B points a call, timed fma, mma, mma, fma: the same-run
+    # A/B behind B9B_FMA_WORK. One line a split, then a summary: each side
+    # of the rule, where it went against the run, and what the rule cost
+    # (its body's time over the faster one's, summed over the splits).
+    fma_won, against, ratios = [], [], {"fma": [], "mma": []}
+    excess = 0.0
+    for n in _b9b_sweep_sizes():
+        plan_ = ftt.MxuFftPlan.create(n, impl="pallas", device=dev)
+        split = (plan_.n1, plan_.n2)
+        tabs_ = b9_tables(plan_, mode)
+        b = AB_POINTS_B9B // n
+        a, c = planes(b, n)
+        got = {"fma": [], "mma": []}
+        for body in ("fma", "mma", "mma", "fma"):
+            got[body].append(median_ms(
+                lambda x, y: bk.mxu_fft_two_phase(x, y, *tabs_, _body=body), a, c,
+                AB_CHAIN))
+        ratio = sum(got["fma"]) / sum(got["mma"])
+        runs = bk.two_phase_body(*split)
+        if ratio < 1.0:
+            fma_won.append(split)
+        if (ratio < 1.0) != (runs == "fma"):
+            against.append((split, round(ratio, 3)))
+            excess += max(ratio, 1.0 / ratio) - 1.0
+        ratios[runs].append(ratio)
+        print(f"time: A/B B9b n={n} {split} B={b}: CUDA-core body {got['fma'][0]:.4f} / "
+              f"{got['fma'][1]:.4f} ms, tensor-core body {got['mma'][0]:.4f} / "
+              f"{got['mma'][1]:.4f} ms, fma / mma {ratio:.3f}; the wrapper runs the "
+              f"{B9_BODY_NAMES[runs]}", flush=True)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        tpb, threads = bk.two_phase_geometry(*split, b, sms)
+        if n == B9B_WIDE_N and threads <= bk.SMALL_THREADS:
+            # The CUDA-core body's blocks with 32 idle threads more take its
+            # 1024-bound instantiation (64 registers a thread): what the
+            # 512-bound one (128) gains, in this run.
+            def wide(x, y):
+                out = torch.empty_like(x), torch.empty_like(y)
+                build.call(bk.library(), "fourier_dft_two_phase_c64", "B9b wide",
+                           x.data_ptr(), y.data_ptr(), out[0].data_ptr(),
+                           out[1].data_ptr(), *(t.data_ptr() for t in tabs_),
+                           *split, b, tpb, threads + 32, dev.index, sv.stream_of(x))
+                return out
+            werr, _ = vs_plain(wide(a, c), bk.mxu_fft_two_phase(a, c, *tabs_, _body="fma"))
+            check(werr <= REL_L2_GATE, f"B9b on the 1024-bound instantiation: "
+                  f"rel-L2 {werr:.3e} against the CUDA-core body")
+            print(f"time: B9b n={n} {split} B={b} CUDA-core body, {threads + 32} threads "
+                  f"(1024-bound): {median_ms(wide, a, c, AB_CHAIN):.4f} ms per call, "
+                  f"against {min(got['fma']):.4f} on {threads} (512-bound) on {card}",
+                  flush=True)
+        del a, c
+    print(f"time: A/B B9b fma / mma (count, min, median, max) where the wrapper runs "
+          f"the CUDA-core body (n * (n1 + n2) < {bk.B9B_FMA_WORK}) and the "
+          "tensor-core body: " + "; ".join(
+              f"{body} {len(v)}, {min(v):.3f}, {float(np.median(v)):.3f}, {max(v):.3f}"
+              for body, v in ratios.items() if v), flush=True)
+    print(f"time: A/B B9b: the CUDA-core body was the faster at {len(fma_won)} of "
+          f"{sum(map(len, ratios.values()))} splits in this run; the wrapper's choice "
+          f"went against this run at {len(against)}: {against}, costing {excess:.3f} "
+          f"of one split's time in all (chain {AB_CHAIN}, median of {REPS}, "
+          f"order fma, mma, mma, fma) on {card}", flush=True)
+
     kernels = (
         ("B1", "B1 fused Stockham c64 (vpu_fft_batch_minor; clustered-block body, "
          "the stage body of stockham_vpu.cu at the other n)", 422),
@@ -2241,7 +2337,8 @@ def main() -> int:
     b9_kernels = (
         ("B9a", "B9a dense DFT product c64 (mxu_fft_single; 3xTF32 on the tensor "
          "cores)", "bailey.py:81"),
-        ("B9b", "B9b fused two-phase DFT c64 (mxu_fft_two_phase)", "bailey.py:92"),
+        ("B9b", "B9b fused two-phase DFT c64 (mxu_fft_two_phase; 3xTF32 on the "
+         "tensor cores)", "bailey.py:92"),
     )
     pair_libs = {"B1": sv.FFT_PAIR_LIBRARY, "B2": sv.BLUESTEIN_PAIR_LIBRARY,
                  "B3": sv.FOUR_STEP_PAIR_LIBRARY,
@@ -2252,8 +2349,7 @@ def main() -> int:
               f"stockham_vpu.py:{line}") for k, name, line in kernels]
             + [(k, name, pair_libs.get(k, dv.LIBRARY), where)
                for k, name, where in dd_kernels]
-            + [(k, name, bk.MMA_LIBRARY if k == "B9a" else bk.LIBRARY, where)
-               for k, name, where in b9_kernels])
+            + [(k, name, bk.MMA_LIBRARY, where) for k, name, where in b9_kernels])
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -1,9 +1,9 @@
 // Asynchronous copies from global to shared memory (cp.async, sm_80 and
 // later): the copies of the clustered-block engine (stockham_pair.cuh) and
-// of B9a's tensor-core body (dft_mma.cu). A thread starts copies, closes
-// them into a commit group, and waits until all but its latest group have
-// landed; a block barrier after the wait makes every thread's copies
-// visible to the block.
+// of the tensor-core bodies of B9a and B9b (dft_mma.cu). A thread starts
+// copies, closes them into a commit group, and waits until all but its
+// latest group have landed; a block barrier after the wait makes every
+// thread's copies visible to the block.
 
 #pragma once
 

@@ -1,7 +1,15 @@
-// Kernels B9a and B9b: the DFT as dense complex products, planar complex64,
-// batch-major (B, n), for NVIDIA Hopper (sm_90a), in one library. Each host
-// function checks its arguments, launches on the caller's stream, neither
-// allocates nor synchronises, and returns cudaGetLastError().
+// Kernels B9a and B9b on the CUDA cores: the DFT as dense complex products,
+// planar complex64, batch-major (B, n), for NVIDIA Hopper (sm_90a), in one
+// library. Each host function checks its arguments, launches on the
+// caller's stream, neither allocates nor synchronises, and returns
+// cudaGetLastError().
+//
+// These are the kernels' first bodies. Both kernels now run on the tensor
+// cores in 3xTF32, in a library of their own (MMA_LIBRARY of
+// ops/cuda/bailey.py); the wrappers launch these bodies for same-run
+// comparisons (`_body="fma"`) and B9b's also for small transforms, n *
+// (n1 + n2) < B9B_FMA_WORK, where the card's sweep found it faster: the
+// tensor-core body leaves most of its warps idle there.
 //
 // Every product runs on the CUDA cores in fp32 FMA: no TF32 and no tensor
 // core, so the caller's TF32 setting cannot reach them (the JAX kernels pin
@@ -42,9 +50,11 @@
 // so the output is in natural order, the input read once and the output
 // written once.
 //
-// What bounds it on this card: operations. 8*n*(n1+n2) + 14*n flops per
-// transform against 16*n bytes: 1.04 ms against 0.32 ms at n = 4096 (64, 64),
-// B = 16384. On the CUDA cores the dense product is the cost, not memory.
+// What bounds it on the CUDA cores: operations. 8*n*(n1+n2) + 14*n flops
+// per transform against 16*n bytes: 1.04 ms against 0.32 ms at n = 4096
+// (64, 64), B = 16384. In one run of chip_smoke.py on an H100 80GB HBM3 at
+// 700 W (phase 5f) this body took 7.5456 ms there and 3.7279 ms at 16384 x
+// 1024, against 2.2013 and 1.5834 ms for the tensor-core body.
 //
 // Design: a block takes `tpb` whole transforms and keeps their M in dynamic
 // shared memory, rows padded to an odd stride ld = n1 | 1 (132 KiB at
@@ -56,8 +66,7 @@
 // coalesced. The odd stride keeps phase B's reads along k2 on distinct
 // banks. At n = 16384 a block is 1024 threads with 16 outputs each, at most
 // 64 registers a thread; a split that needs at most 512 threads a transform
-// runs blocks of at most 512 (128 registers a thread, no spill), which
-// chip_smoke.py's phase 5f times against the 1024-bound instantiation.
+// runs blocks of at most 512 (128 registers a thread, no spill).
 
 #include <cuda_runtime.h>
 

@@ -77,14 +77,20 @@ struct WarpCTile {
 // `xre`/`xim` on. Strides `ldx` and `ldd` are in floats; K is a multiple
 // of 8 and the entries of X and D in columns K.. are never read. `lane` is
 // the lane of the calling thread; all 32 lanes of the warp call it with the
-// same arguments otherwise.
-template <int NT>
+// same arguments otherwise. With `Guard`, X's rows from `x_rows` on, D's
+// rows (j * dstep + g) from `d_rows` on and both factors' columns from
+// `k_valid` on are read as zeros, never loaded: unpadded tables in global
+// memory.
+template <int NT, bool Guard = false>
 __device__ __forceinline__ void warp_cmma_3xtf32(const float* xre, const float* xim,
                                                  int ldx, const float* dre,
                                                  const float* dim, int ldd,
                                                  int dstep, int ntiles, int k_len,
-                                                 int lane, WarpCTile<NT>& out) {
+                                                 int lane, WarpCTile<NT>& out,
+                                                 int x_rows = 0, int d_rows = 0,
+                                                 int k_valid = 0) {
   const int g = lane >> 2, c = lane & 3;
+  const auto load = [](const float* p, bool ok) { return !Guard || ok ? *p : 0.f; };
   float small_re[NT][4], small_im[NT][4];
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
@@ -103,8 +109,9 @@ __device__ __forceinline__ void warp_cmma_3xtf32(const float* xre, const float* 
     const int offs[4] = {k0, 8 * ldx + k0, k0 + 4, 8 * ldx + k0 + 4};
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      tf32_split(xr0[offs[e]], ar_hi[e], ar_lo[e]);
-      tf32_split(xi0[offs[e]], ai_hi[e], ai_lo[e]);
+      const bool ok = g + 8 * (e & 1) < x_rows && k0 + c + 4 * (e >> 1) < k_valid;
+      tf32_split(load(xr0 + offs[e], ok), ar_hi[e], ar_lo[e]);
+      tf32_split(load(xi0 + offs[e], ok), ai_hi[e], ai_lo[e]);
       ni_hi[e] = tf32_neg(ai_hi[e]);
       ni_lo[e] = tf32_neg(ai_lo[e]);
     }
@@ -112,11 +119,13 @@ __device__ __forceinline__ void warp_cmma_3xtf32(const float* xre, const float* 
     for (int j = 0; j < NT; ++j) {
       if (j >= ntiles) break;
       const int row = (j * dstep + g) * ldd + k0 + c;
+      const bool in_row = j * dstep + g < d_rows;
+      const bool ok0 = in_row && k0 + c < k_valid, ok1 = in_row && k0 + c + 4 < k_valid;
       uint32_t br_hi[2], br_lo[2], bi_hi[2], bi_lo[2];
-      tf32_split(dre[row], br_hi[0], br_lo[0]);
-      tf32_split(dre[row + 4], br_hi[1], br_lo[1]);
-      tf32_split(dim[row], bi_hi[0], bi_lo[0]);
-      tf32_split(dim[row + 4], bi_hi[1], bi_lo[1]);
+      tf32_split(load(dre + row, ok0), br_hi[0], br_lo[0]);
+      tf32_split(load(dre + row + 4, ok1), br_hi[1], br_lo[1]);
+      tf32_split(load(dim + row, ok0), bi_hi[0], bi_lo[0]);
+      tf32_split(load(dim + row + 4, ok1), bi_hi[1], bi_lo[1]);
       // The hi*hi products of this step, from zero.
       float big_re[4] = {0.f, 0.f, 0.f, 0.f}, big_im[4] = {0.f, 0.f, 0.f, 0.f};
       mma_tf32(big_re, ar_hi, br_hi);

@@ -12,19 +12,26 @@ planar f32 planes; the plan folds direction and mode scale into the tables.
   G'[k2, a] in natural order. Its plain version is
   :func:`fourier_tpu_torch.ops.bailey.reference_two_phase`.
 
-B9a runs on the tensor cores: its body of ``csrc/dft_mma.cu`` (a library of
-its own) computes the product in 3xTF32 on ``mma.sync`` (each operand split
-into two TF32 parts, three TF32 products per f32 one, never one TF32
-product); :func:`single_mma_geometry` gives its tile. B9b, and B9a's
-earlier body (``_body="fma"``, for same-run comparisons), are one library
-built from ``csrc/bailey.cu`` (fp32 FMA on the CUDA cores, no TF32). No
-product takes the caller's TF32 setting. Each wrapper runs its plain
-version for tensors on the CPU and launches its kernel (or raises) for
-tensors on a CUDA device; it counts its launches in its ``launches``
-attribute. ``tb`` is the TPU kernel's batch tile; here it caps the rows or
-transforms a block takes at once, and no result depends on it.
-:func:`single_geometry` and :func:`two_phase_geometry` give the CUDA-core
-launches' shapes.
+Both run on the tensor cores: their bodies of ``csrc/dft_mma.cu`` (a
+library of its own) compute every complex product in 3xTF32 on
+``mma.sync`` (each operand split into two TF32 parts, three TF32 products
+per f32 one, never one TF32 product), through one warp-level product
+(``csrc/dft_mma.cuh``); :func:`single_mma_geometry` and
+:func:`two_phase_mma_geometry` give their layouts. B9b's tensor-core body
+runs phase A as G^T = M^T D_n2^T (M comes in transposed), the twiddle as a
+float multiply on the fragments into G', and phase B as O = D_n1 G'^T, on
+one transform at a time. The CUDA-core bodies of both (fp32 FMA, no TF32)
+are one library built from ``csrc/bailey.cu``: B9a's for same-run
+comparisons only (``_body="fma"``), B9b's also for the small transforms
+below ``B9B_FMA_WORK``, where the card's sweep found it faster
+(:func:`two_phase_body`). No product
+takes the caller's TF32 setting. Each wrapper runs its plain version for
+tensors on the CPU and launches its kernel (or raises) for tensors on a
+CUDA device; it counts its launches in its ``launches`` attribute (B9b's
+tensor-core ones also in ``mma_launches``). ``tb`` is the TPU kernel's
+batch tile; here it caps the rows or transforms a block takes at once,
+and no result depends on it. :func:`single_geometry` and
+:func:`two_phase_geometry` give the CUDA-core launches' shapes.
 """
 
 from __future__ import annotations
@@ -60,7 +67,16 @@ ENTRY_POINTS = {
 MMA_LIBRARY = "dft_mma"  # csrc/dft_mma.cu: B9a's tensor-core body
 MMA_ENTRY_POINTS = {
     "fourier_dft_single_mma_c64": [_P] * 6 + [_I] * 4 + [_P],
+    "fourier_dft_two_phase_mma_c64": [_P] * 10 + [_I] * 4 + [_P],
 }
+# B9b's body follows a transform's work n * (n1 + n2), the CUDA-core body's
+# flops over 8: below B9B_FMA_WORK the card's sweep (chip_smoke.py phase 5g:
+# every split of 128 < n <= 640 and every 16th above, both bodies) found the
+# CUDA-core body faster, above it the tensor-core body. The CUDA-core body's
+# time follows its flops; the tensor-core body takes one transform a block
+# at a time, with three barriers and at least one warp job a phase, so a
+# small transform leaves most of its warps idle.
+B9B_FMA_WORK = 21000
 
 
 def library():
@@ -85,6 +101,28 @@ class MmaGeometry(NamedTuple):
     wn: int
     rows: int
     valid: int
+    smem: int
+
+
+class TwoPhaseMmaGeometry(NamedTuple):
+    """B9b's tensor-core layout at split (n1, n2) (two_phase_geometry in
+    csrc/dft_mma.cu): `n1p` = ceil(n1 / 8) * 8, `arows` = ceil(n1 / 16) * 16
+    (rows a of phase A and k1 of phase B, in 16-row m-tiles), `k2p` =
+    ceil(n2 / 8) * 8; M^T (rows a) at a stride of `ldm` floats, `buffers`
+    of them; S, `chunk` rows k2 of G', at `ldg`; D_n1 and D_n2 at `ld1`
+    and `ld2`, in shared memory where `staged`, else read from global
+    memory as they are (strides n1 and n2, the reads past them guarded);
+    `smem` bytes."""
+    n1p: int
+    arows: int
+    k2p: int
+    ldm: int
+    ldg: int
+    ld1: int
+    ld2: int
+    staged: bool
+    buffers: int
+    chunk: int
     smem: int
 
 
@@ -113,6 +151,26 @@ def single_mma_geometry(n: int, tb: Optional[int] = None) -> MmaGeometry:
     ld = np8 + 4
     valid = max(1, min(rows, tb)) if tb else rows
     return MmaGeometry(np8, ld, wn, rows, valid, 4 * ld * (2 * np8 + 4 * rows))
+
+
+def two_phase_mma_geometry(n1: int, n2: int) -> TwoPhaseMmaGeometry:
+    """B9b's tensor-core layout: strides of 4 mod 8 words in shared memory
+    (a fragment load's eight rows on distinct banks); the first of (staged
+    tables, two buffers, all of S), (staged, two, S of 64 rows), (global
+    tables, two, all), (global, two, 64), (global, one, all), (global, one,
+    64) within MAX_SMEM bytes."""
+    n1p, arows, k2p = -(-n1 // 8) * 8, -(-n1 // 16) * 16, -(-n2 // 8) * 8
+    ldm, ldg = k2p + 4, n1p + 4
+    for option in range(6):
+        staged, buffers = option < 2, 2 if option < 4 else 1
+        chunk = 64 if option % 2 and k2p > 64 else k2p
+        ld2, ld1 = (k2p + 4, n1p + 4) if staged else (n2, n1)
+        floats = ((2 * (k2p * ld2 + arows * ld1) if staged else 0)
+                  + 2 * buffers * arows * ldm + 2 * chunk * ldg)
+        if 4 * floats <= MAX_SMEM:
+            break
+    return TwoPhaseMmaGeometry(n1p, arows, k2p, ldm, ldg, ld1, ld2, staged, buffers,
+                               chunk, 4 * floats)
 
 
 def two_phase_geometry(n1: int, n2: int, batch: int, sms: int,
@@ -187,11 +245,23 @@ def mxu_fft_single(re, im, dre, dim, *, tb: Optional[int] = None,
 mxu_fft_single.launches = 0
 
 
+def two_phase_body(n1: int, n2: int) -> str:
+    """The body mxu_fft_two_phase runs at split (n1, n2) unless asked:
+    "fma" (the CUDA-core body) where n * (n1 + n2) < B9B_FMA_WORK, else
+    "mma" (the tensor-core body)."""
+    return "fma" if n1 * n2 * (n1 + n2) < B9B_FMA_WORK else "mma"
+
+
 def mxu_fft_two_phase(re, im, d2re, d2im, tre, tim, d1re, d1im, *,
-                      tb: Optional[int] = None):
+                      tb: Optional[int] = None, _body: Optional[str] = None):
     """B9b over contiguous planar f32 (B, n) planes, n = n1*n2; returns new
     planes in natural order. Tables: D_n2 (n2, n2), the split twiddle T
-    (n2, n1) and D_n1 (n1, n1), direction and scale folded in."""
+    (n2, n1) and D_n1 (n1, n1), direction and scale folded in. The kernel
+    is the tensor-core body of ``csrc/dft_mma.cu``, but the CUDA-core body
+    of ``csrc/bailey.cu`` where :func:`two_phase_body` says so;
+    `_body` ("mma" or "fma") picks one, for same-run comparisons. The
+    tensor-core body takes one transform at a time, so `tb` caps only the
+    CUDA-core body's transforms a block."""
     if tre.ndim != 2:
         raise ValueError(f"B9b takes an (n2, n1) twiddle, got {tuple(tre.shape)}")
     n2, n1 = tre.shape
@@ -202,6 +272,9 @@ def mxu_fft_two_phase(re, im, d2re, d2im, tre, tim, d1re, d1im, *,
     for t, shape in ((d2re, (n2, n2)), (d2im, (n2, n2)), (tim, (n2, n1)),
                      (d1re, (n1, n1)), (d1im, (n1, n1))):
         _check_table(t, shape, "B9b")
+    body = _body or two_phase_body(n1, n2)
+    if body not in ("mma", "fma"):
+        raise ValueError(f"B9b body {body!r}: 'mma' or 'fma'")
     if re.device.type == "cpu":
         return bailey.reference_two_phase(re, im, d2re, d2im, tre, tim, d1re, d1im)
     check_tables(re.device, d2re, d2im, tre, tim, d1re, d1im)
@@ -210,16 +283,25 @@ def mxu_fft_two_phase(re, im, d2re, d2im, tre, tim, d1re, d1im, *,
     batch = re.shape[0]
     if batch == 0:
         return out_re, out_im
-    sms = torch.cuda.get_device_properties(re.device).multi_processor_count
-    tpb, threads = two_phase_geometry(n1, n2, batch, sms, tb)
-    build.call(library(), "fourier_dft_two_phase_c64",
-               f"B9b at n={n} ({n1}, {n2}), B={batch}",
-               re.data_ptr(), im.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
-               d2re.data_ptr(), d2im.data_ptr(), tre.data_ptr(), tim.data_ptr(),
-               d1re.data_ptr(), d1im.data_ptr(), n1, n2, batch, tpb, threads,
-               re.device.index, stream_of(re))
+    what = f"B9b at n={n} ({n1}, {n2}), B={batch}"
+    if body == "mma":
+        build.call(mma_library(), "fourier_dft_two_phase_mma_c64",
+                   f"{what} (tensor cores)", re.data_ptr(), im.data_ptr(),
+                   out_re.data_ptr(), out_im.data_ptr(), d2re.data_ptr(),
+                   d2im.data_ptr(), tre.data_ptr(), tim.data_ptr(), d1re.data_ptr(),
+                   d1im.data_ptr(), n1, n2, batch, re.device.index, stream_of(re))
+        mxu_fft_two_phase.mma_launches += 1
+    else:
+        sms = torch.cuda.get_device_properties(re.device).multi_processor_count
+        tpb, threads = two_phase_geometry(n1, n2, batch, sms, tb)
+        build.call(library(), "fourier_dft_two_phase_c64", what,
+                   re.data_ptr(), im.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
+                   d2re.data_ptr(), d2im.data_ptr(), tre.data_ptr(), tim.data_ptr(),
+                   d1re.data_ptr(), d1im.data_ptr(), n1, n2, batch, tpb, threads,
+                   re.device.index, stream_of(re))
     mxu_fft_two_phase.launches += 1
     return out_re, out_im
 
 
 mxu_fft_two_phase.launches = 0
+mxu_fft_two_phase.mma_launches = 0  # those of the tensor-core body

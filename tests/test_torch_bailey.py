@@ -25,6 +25,7 @@
   card is present.
 """
 
+import ctypes
 import re
 
 import jax.numpy as jnp
@@ -307,27 +308,20 @@ def _mma(acc, a, b, rounding):
     return out
 
 
-def _emulate_b9a_3xtf32(xr, xi, d, rounding="rn"):
-    """dft_single_mma_c64 (warp_cmma_3xtf32 of csrc/dft_mma.cuh) on planar
-    f32 (B, n) planes and the (n, n) table d: N and K zero-padded to np8,
-    per 8-wide step of K the hi*hi products of Or and Oi from zero (Xr*Dr
-    then -Xi*Di; Xr*Di then Xi*Dr) joined to the totals by float adds, the
-    cross products hi*lo and lo*hi in accumulators of their own over all of
-    K, added at the end. A row's result does not depend on its tile."""
-    b, n = xr.shape
-    np8 = kb.single_mma_geometry(n).np8
-    pad = lambda a, rows: np.pad(np.asarray(a, np.float32),
-                                 ((0, rows - a.shape[0]), (0, np8 - a.shape[1])))
-    xr_, xi_ = pad(xr, b), pad(xi, b)
-    dr_, di_ = pad(d[0], np8), pad(d[1], np8)
-    zero = np.zeros((b, np8), np.float32)
+def _cmma_3xtf32(xr, xi, dr, di, rounding="rn"):
+    """warp_cmma_3xtf32 of csrc/dft_mma.cuh: O = X (R, K) * D (N, K)^T,
+    planar complex f32, K a multiple of 8; per 8-wide step of K the hi*hi
+    products of Or and Oi from zero (Xr*Dr then -Xi*Di; Xr*Di then Xi*Dr)
+    joined to the totals by float adds, the cross products hi*lo and lo*hi
+    in accumulators of their own over all of K, added at the end."""
+    zero = np.zeros((xr.shape[0], dr.shape[0]), np.float32)
     acc_r, acc_i, small_r, small_i = zero, zero, zero, zero
-    for k0 in range(0, np8, 8):
+    for k0 in range(0, xr.shape[1], 8):
         ks = slice(k0, k0 + 8)
-        arh, arl = _split(xr_[:, ks])
-        aih, ail = _split(xi_[:, ks])
-        brh, brl = _split(dr_[:, ks])
-        bih, bil = _split(di_[:, ks])
+        arh, arl = _split(xr[:, ks])
+        aih, ail = _split(xi[:, ks])
+        brh, brl = _split(dr[:, ks])
+        bih, bil = _split(di[:, ks])
         big_r = _mma(_mma(zero, arh, brh, rounding), -aih, bih, rounding)
         big_i = _mma(_mma(zero, arh, bih, rounding), aih, brh, rounding)
         for a, bb in ((arl, brh), (arh, brl), (-ail, bih), (-aih, bil)):
@@ -335,8 +329,88 @@ def _emulate_b9a_3xtf32(xr, xi, d, rounding="rn"):
         for a, bb in ((arl, bih), (arh, bil), (ail, brh), (aih, brl)):
             small_i = _mma(small_i, a, bb, rounding)
         acc_r, acc_i = acc_r + big_r, acc_i + big_i
-    out_r, out_i = acc_r + small_r, acc_i + small_i
+    return acc_r + small_r, acc_i + small_i
+
+
+def _pad(a, rows, cols):
+    a = np.asarray(a, np.float32)
+    return np.pad(a, ((0, rows - a.shape[0]), (0, cols - a.shape[1])))
+
+
+def _emulate_b9a_3xtf32(xr, xi, d, rounding="rn"):
+    """dft_single_mma_c64 (csrc/dft_mma.cu) on planar f32 (B, n) planes and
+    the (n, n) table d: N and K zero-padded to np8, the product of
+    _cmma_3xtf32. A row's result does not depend on its tile."""
+    b, n = xr.shape
+    np8 = kb.single_mma_geometry(n).np8
+    out_r, out_i = _cmma_3xtf32(_pad(xr, b, np8), _pad(xi, b, np8), _pad(d[0], np8, np8),
+                                _pad(d[1], np8, np8), rounding)
     return out_r[:, :n].astype(np.float64) + 1j * out_i[:, :n]
+
+
+def _guarded_reads(t, rows, cols, ld):
+    """The (rows, cols) operand warp_cmma_3xtf32<NT, true> reads from the
+    (r, c) table `t` in global memory at stride `ld`: entry (i, j) loaded
+    from flat offset i * ld + j where i < r and j < c, a zero elsewhere;
+    no load leaves the table."""
+    flat = np.asarray(t, np.float32).reshape(-1)
+    r, c = t.shape
+    i, j = np.meshgrid(np.arange(rows), np.arange(cols), indexing="ij")
+    ok = (i < r) & (j < c)
+    at = np.where(ok, i * ld + j, 0)
+    assert at.max() < flat.size
+    return np.where(ok, flat[at], np.float32(0))
+
+
+def _emulate_b9b_3xtf32(xr, xi, d2, tw, d1, rounding="rn", grid=None):
+    """dft_two_phase_mma_c64 (csrc/dft_mma.cu) on planar f32 (B, n) planes:
+    `grid` persistent blocks (one a transform by default), each walking
+    transforms b, b + grid, ... through its buffers of
+    two_phase_mma_geometry, zeroed once: M^T copied in transposed (only
+    a < n1, b < n2 written); per chunk of S's rows k2, phase A's G^T = M^T *
+    D_n2^T through _cmma_3xtf32, G' = G * T by fmaf into S (zeros where a >=
+    n1 or k2 >= n2, columns a < n1p written), phase B's O = D_n1 * S^T
+    through _cmma_3xtf32, stored at k1 * n2 + k2 for k1 < n1, k2 < n2.
+    Unstaged tables are read from their flat memory by _guarded_reads."""
+    b, n = xr.shape
+    n2, n1 = tw[0].shape
+    geo = kb.two_phase_mma_geometry(n1, n2)
+    if geo.staged:
+        d2p = [_pad(t, geo.k2p, geo.k2p) for t in d2]
+        d1p = [_pad(t, geo.arows, geo.n1p) for t in d1]
+    else:
+        d2p = [_guarded_reads(t, geo.k2p, geo.k2p, geo.ld2) for t in d2]
+        d1p = [_guarded_reads(t, geo.arows, geo.n1p, geo.ld1) for t in d1]
+    grid = grid or b
+    out = np.full((b, n), np.nan, np.complex128)
+    for block in range(min(grid, b)):
+        bufs = np.zeros((geo.buffers, 2, geo.arows, geo.ldm), np.float32)
+        s = np.zeros((2, geo.chunk, geo.ldg), np.float32)
+        for i, t in enumerate(range(block, b, grid)):
+            m = bufs[i % geo.buffers]
+            m[0, :n1, :n2] = xr[t].reshape(n2, n1).T
+            m[1, :n1, :n2] = xi[t].reshape(n2, n1).T
+            for c0 in range(0, geo.k2p, geo.chunk):
+                rows = slice(c0, min(c0 + geo.chunk, geo.k2p))
+                gr, gi = _cmma_3xtf32(m[0][:, :geo.k2p], m[1][:, :geo.k2p],
+                                      d2p[0][rows], d2p[1][rows], rounding)
+                k2 = np.arange(c0, rows.stop)[:, None]
+                a = np.arange(geo.n1p)[None, :]
+                valid = (a < n1) & (k2 < n2)
+                at = (np.minimum(k2, n2 - 1), np.minimum(a, n1 - 1))
+                wr, wi = tw[0][at], tw[1][at]
+                gr, gi = gr[:geo.n1p].T, gi[:geo.n1p].T
+                cw = rows.stop - c0
+                s[0, :cw, :geo.n1p] = np.where(valid, _fma(gr, wr, -(gi * wi)), 0)
+                s[1, :cw, :geo.n1p] = np.where(valid, _fma(gr, wi, gi * wr), 0)
+                o_r, o_i = _cmma_3xtf32(d1p[0], d1p[1], s[0, :cw, :geo.n1p],
+                                        s[1, :cw, :geo.n1p], rounding)
+                keep = slice(c0, min(rows.stop, n2))
+                width = keep.stop - keep.start
+                o = out[t].reshape(n1, n2)
+                o[:, keep] = (o_r[:n1, :width].astype(np.float64)
+                              + 1j * o_i[:n1, :width])
+    return out
 
 
 def test_tf32_rounding():
@@ -411,6 +485,129 @@ def test_b9a_mma_geometry_and_entry_point():
         assert m is not None, fn_name
         assert len(m.group(1).split(",")) == len(argtypes), fn_name
     assert build.library_path(kb.MMA_LIBRARY) != build.library_path(kb.LIBRARY)
+
+
+def _b9b_case(n, b, mode, seed):
+    plan = MxuFftPlan.create(n, impl="pallas", device="cpu")
+    assert (plan.n1, plan.n2) == SPLITS[n]
+    xr, xi = _planes((b, n), np.random.default_rng(seed))
+    return xr, xi, _tables(plan, mode)
+
+
+@pytest.mark.parametrize("rounding", ["rn", "rz"])
+@pytest.mark.parametrize("n", sorted(SPLITS))
+def test_b9b_3xtf32_emulated(n, rounding):
+    """B9b's tensor-core body meets the card's gate at every split of
+    SPLITS, forward and inverse, whether a tensor-core product rounds to
+    nearest or toward zero."""
+    for mode in (Transform.FFT, Transform.IFFT):
+        xr, xi, (d2, tw, d1) = _b9b_case(n, 3, mode, RNG_SEED + 2000 + n)
+        got = _emulate_b9b_3xtf32(xr, xi, d2, tw, d1, rounding)
+        assert _rel(got, _np_want(xr, xi, mode)) <= CARD_GATE, (n, mode, rounding)
+
+
+@pytest.mark.parametrize("n", sorted(SPLITS))
+def test_b9b_3xtf32_matches_plain(n):
+    """The emulated tensor-core body against the plain version the wrapper
+    runs on the CPU (bailey.reference_two_phase), in a scaled mode, with
+    blocks that walk several transforms (grid 2)."""
+    mode = Transform.SQRT_SCALED_IFFT
+    xr, xi, tabs = _b9b_case(n, 5, mode, RNG_SEED + 3000 + n)
+    got = _emulate_b9b_3xtf32(xr, xi, *tabs, grid=2)
+    plain = bailey.reference_two_phase(
+        torch.as_tensor(xr), torch.as_tensor(xi),
+        *(torch.as_tensor(t) for pair in tabs for t in pair))
+    assert _rel(got, plain[0].numpy() + 1j * plain[1].numpy()) <= CARD_GATE, n
+    assert _rel(got, _emulate_b9b_3xtf32(xr, xi, *tabs)) == 0.0  # no block dependence
+
+
+@pytest.mark.parametrize("n", [129, 250])
+def test_b9b_3xtf32_poison_stays_in_its_row(n):
+    """At padded splits a NaN row and an infinite row stay in their rows,
+    with blocks that walk several transforms through the same buffers."""
+    xr, xi, tabs = _b9b_case(n, 9, Transform.FFT, RNG_SEED + 4000 + n)
+    xr[2, n // 2], xi[5, 0] = np.nan, np.inf
+    with np.errstate(invalid="ignore"):
+        got = _emulate_b9b_3xtf32(xr, xi, *tabs, grid=2)
+    rest = np.setdiff1d(np.arange(9), [2, 5])
+    want = _np_want(xr[rest], xi[rest], Transform.FFT)
+    assert _rel(got[rest], want) <= CARD_GATE
+    assert not np.isfinite(got[2]).all() and not np.isfinite(got[5]).all()
+
+
+def test_b9b_mma_geometry():
+    """B9b's tensor-core layout at every split n1, n2 <= 128: padded to the
+    fragments (n1p, k2p multiples of 8, arows of 16), shared strides of 4
+    mod 8 words, S a multiple of 8 rows, within a block's shared memory;
+    tables staged up to (64, 64), read from global memory at (128, 128)."""
+    for n1 in range(1, kb.MAX_N + 1):
+        for n2 in range(1, kb.MAX_N + 1):
+            geo = kb.two_phase_mma_geometry(n1, n2)
+            assert geo.n1p - 8 < n1 <= geo.n1p and geo.n1p % 8 == 0
+            assert geo.arows - 16 < n1 <= geo.arows and geo.arows % 16 == 0
+            assert geo.k2p - 8 < n2 <= geo.k2p and geo.k2p % 8 == 0
+            strides = [geo.ldm, geo.ldg] + ([geo.ld1, geo.ld2] if geo.staged else [])
+            assert all(ld % 8 == 4 for ld in strides), (n1, n2)
+            assert geo.ldm >= geo.k2p and geo.ldg >= geo.n1p
+            assert (geo.ld1, geo.ld2) == ((geo.n1p + 4, geo.k2p + 4) if geo.staged
+                                          else (n1, n2))
+            assert geo.chunk % 8 == 0 and 8 <= geo.chunk <= geo.k2p
+            assert geo.buffers in (1, 2)
+            tables = 2 * (geo.k2p * geo.ld2 + geo.arows * geo.ld1) if geo.staged else 0
+            assert geo.smem == 4 * (tables + 2 * geo.buffers * geo.arows * geo.ldm
+                                    + 2 * geo.chunk * geo.ldg) <= kb.MAX_SMEM
+    assert kb.two_phase_mma_geometry(64, 64) == kb.TwoPhaseMmaGeometry(
+        64, 64, 64, 68, 68, 68, 68, True, 2, 64, 174080)
+    assert kb.two_phase_mma_geometry(128, 128) == kb.TwoPhaseMmaGeometry(
+        128, 128, 128, 132, 132, 128, 128, False, 1, 64, 202752)
+    src = (build.CSRC / f"{kb.MMA_LIBRARY}.cu").read_text()
+    assert "two_phase_geometry(int n1, int n2)" in src
+    assert kb.MMA_ENTRY_POINTS["fourier_dft_two_phase_mma_c64"] == kb.ENTRY_POINTS[
+        "fourier_dft_two_phase_c64"][:10] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    assert "warp_cmma_3xtf32<kMaxTiles>" in src
+
+
+def test_b9b_global_tables_read_unpadded():
+    """Where the tables are not staged the kernel reads D_n2 and D_n1 as the
+    caller gives them, at strides n2 and n1, and the guarded product reads
+    zeros past them: the same operand as the table zero-padded to (k2p,
+    k2p) and (arows, n1p), with no load outside the table. The source
+    instantiates the guarded product for the unstaged layout."""
+    rng = np.random.default_rng(RNG_SEED)
+    for n1, n2 in [(127, 127), (33, 113), (128, 128), (100, 125)]:
+        geo = kb.two_phase_mma_geometry(n1, n2)
+        assert not geo.staged and (geo.ld1, geo.ld2) == (n1, n2)
+        for (r, c), (rows, cols, ld) in (((n2, n2), (geo.k2p, geo.k2p, geo.ld2)),
+                                         ((n1, n1), (geo.arows, geo.n1p, geo.ld1))):
+            t = rng.standard_normal((r, c)).astype(np.float32)
+            assert np.array_equal(_guarded_reads(t, rows, cols, ld), _pad(t, rows, cols))
+    src = (build.CSRC / f"{kb.MMA_LIBRARY}.cu").read_text()
+    assert src.count("warp_cmma_3xtf32<kMaxTiles, !Staged>") == 2
+    assert "geo.staged ? dft_two_phase_mma_c64<true> : dft_two_phase_mma_c64<false>" in src
+
+
+def test_b9b_body_argument_on_the_cpu():
+    """On CPU tensors B9b's wrapper runs the plain version whatever `_body`
+    asks, and counts no launch; an unknown body is refused. Unasked, the
+    CUDA-core body runs below B9B_FMA_WORK (n * (n1 + n2)) and the
+    tensor-core body from there on."""
+    rng = np.random.default_rng(RNG_SEED)
+    plan = MxuFftPlan.create(250, impl="pallas", device="cpu")
+    xr, xi = (torch.as_tensor(t) for t in _planes((3, 250), rng))
+    tabs = [torch.as_tensor(t) for pair in _tables(plan, Transform.FFT) for t in pair]
+    before = kb.mxu_fft_two_phase.launches
+    want = bailey.reference_two_phase(xr, xi, *tabs)
+    for body in (None, "mma", "fma"):
+        got = kb.mxu_fft_two_phase(xr, xi, *tabs, _body=body)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(ValueError):
+        kb.mxu_fft_two_phase(xr, xi, *tabs, _body="wgmma")
+    assert kb.mxu_fft_two_phase.launches == before
+    bodies = {split: kb.two_phase_body(*split) for split in
+              [(3, 43), (10, 25), (16, 16), (17, 17), (2, 101), (19, 25), (2, 103),
+               (20, 25), (25, 40), (64, 64), (128, 128)]}
+    assert [s for s, body in bodies.items() if body == "fma"] == [
+        (3, 43), (10, 25), (16, 16), (17, 17), (2, 101), (19, 25)], bodies
 
 
 def test_b9a_body_argument_on_the_cpu():
