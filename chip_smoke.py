@@ -29,7 +29,13 @@ no device argument: B6, B7, B8 over B6, and the composed plans over them,
 and c128 RfftPlans), then the user-built paths of B9a/B9b (pallas and
 xla_packed MxuFftPlans alone, under a BluesteinPlan and a
 FourStepLocalPlan, and their gradients, B9b on the body its wrapper
-picks),
+picks), then the numpy-compatible surface at full width (phase 4i: fft2,
+ifft2, fftn, ifftn in complex64 and complex128, rfft2, irfft2, rfftn,
+irfftn, hfft2, ihfft2, dctn, idctn, dstn, dct/idct/dst/idst of types 1-4
+at every norm, fht, ifht, fftshift, transform_planar and an NdFftPlan moved
+to the CPU and back, each against np.fft / scipy.fft in f64 on the whole
+array, and the kernels at every shape it gave them against their plain
+versions),
 checking each plan tree against the JAX package's and that each path
 launched the kernels its plan holds. Last it times the kernels against
 their plain versions and torch.fft, the rfft round trips of the suite's
@@ -45,7 +51,9 @@ B9b's tensor-core bodies against their CUDA-core ones (their bound restated
 for 3xTF32 on the tensor cores), and B1, B2, B3, B4b, B5a, B5b and B6 on
 both bodies at every size with a clustered one and B9b's two bodies at
 the splits of _b9b_sweep_sizes() (phase 5g, the A/B behind the wrappers'
-choice of body).
+choice of body); last the surface's entry points (phase 5h), each beside
+torch.fft's call (a DCT/DST or the FHT beside the real FFTs it runs) and
+its byte bound, and fft2 and rfft2 also on the literal port's layout.
 Every phase prints its lines;
 any failed check raises, so the exit code is non-zero. The next-to-last
 line is a JSON record of the kernels; the last line is
@@ -303,6 +311,17 @@ AB_POINTS_B9B = 1 << 24
 B9B_WIDE_N = 250  # (10, 25): also the CUDA-core body's 1024-bound instantiation
 B9_TB = 4  # the TPU tile cap the odd batches are checked with as well
 B9_ROUTE_B = 257  # phase 4f's batch
+# Phases 4i and 5h: the numpy-compatible surface (ndim.py, the N-D real
+# family of rfft.py, dctdst.py, fftlog.py, utils/helpers.py) at the shapes of
+# a spectral solver or an image pipeline, 128-256 MiB a complex array.
+SURF_2D = (4096, 4096)  # fft2/ifft2, rfft2/irfft2, hfft2/ihfft2, fftshift, ...
+SURF_3D = (256, 256, 256)  # fftn/ifftn, complex64 and complex128
+SURF_ODD = (4096, 1013)  # rfftn/irfftn: B5 on the last axis
+SURF_DCTN = (2048, 2048)  # dctn/idctn/dstn type 2
+SURF_DCT = (1024, 4096)  # dct/dst/idct/idst types 1-4, every norm
+SURF_FHT = (1024, 4096)  # fht/ifht, float64
+SURF_FHT_ARGS = (0.01, 0.5, 0.0, 0.0)  # dln, mu, offset, bias
+SURF_CHAIN = 4  # calls per timing
 B9_ROUTE_B_LARGE = 16  # its batch for the four-step of 65536
 B9_GRAD = (1000, 64)  # (n, B) of phase 4f's gradient
 B9_TIME = (("B9a", 125, 65536), ("B9b", 4096, 16384), ("B9b", 16384, 1024))
@@ -409,6 +428,18 @@ def _dd_route_cases() -> list:
         batches = (DD_RFFT_B,) if n % 2 == 0 else (DD_RFFT_B // 2, 1)
         cases += [c for b in batches for c in _dd_cases(inner, b)]
     return sorted(set(cases)) + [("B7", n, b) for n, b in B7_WALK]
+
+
+def _c2c_kernels(tree) -> set:
+    """The kernels a batch-minor call of a complex64 or complex128 plan tree
+    launches."""
+    return _kernels_of(tree, True) | {k for k, _, _ in _dd_cases(tree, 1)}
+
+
+def _real_kernels(n: int, inner, call: str) -> set:
+    """The kernels an RfftPlan(n) over the `inner` tree (complex64 or
+    complex128) launches on `call` ("rfft_bm" or "irfft_bm")."""
+    return _rfft_kernels(n, inner, call) | {k for k, _, _ in _dd_cases(inner, 1)}
 
 
 def _b9b_sweep_sizes() -> list:
@@ -1720,6 +1751,218 @@ def main() -> int:
     print(f"B9 paths: every (kernel, n, B) they gave a wrapper, {sorted(b9_calls)}, "
           "was checked against the plain version in phase 3f", flush=True)
 
+    # 4i. The numpy-compatible surface at full width: every entry point on
+    # device="cuda" (tensors already on the card, and a numpy input once),
+    # with the counts of the kernels its per-axis plan trees hold rising and
+    # no other; each result against np.fft / scipy.fft in f64 on the whole
+    # array (rel-L2 gate REL_L2_GATE * sqrt(k) for complex64, DD_GATE *
+    # sqrt(k) for complex128, k the transformed axes); then the kernels at
+    # every (n, B) the surface gave them against their plain versions (B1,
+    # B4b, B5a, B5b, B6 on both bodies in every mode as phase 4g; B4a and
+    # B5a with their inverses through rfft_case, as phase 3d).
+    def surface_runs():
+        """Phase 4i's runs, in a scope of their own (phase 5 reads the main
+        path's plan and planes); returns the inputs phase 5h times."""
+        import scipy.fft as sfft
+
+        ndim_module = sys.modules["fourier_tpu_torch.ndim"]
+        dctdst_module = sys.modules["fourier_tpu_torch.dctdst"]
+        for shapes in route_shapes.values():
+            shapes.clear()
+        route_shapes["B4a"] = set()
+        ftt.VpuFftPlan.run = staticmethod(recording("B1", sv.vpu_fft_batch_minor))
+        ftt.VpuBluesteinPlan.run = staticmethod(recording("B2", sv.vpu_bluestein_batch_minor))
+        ftt.VpuDdFftPlan.run = staticmethod(recording("B6", dv.vpu_dd_fft_batch_minor))
+        rfft_module.stockham_vpu = types.SimpleNamespace(**{
+            **vars(sv),
+            "vpu_rfft_pack_batch_minor": recording(
+                "B4a", sv.vpu_rfft_pack_batch_minor,
+                lambda x_t, m, *a: (2 * m, x_t.shape[1])),
+            "vpu_rfft_odd_pack_batch_minor": recording(
+                "B5a", sv.vpu_rfft_odd_pack_batch_minor),
+            "vpu_irfft_unpack_batch_minor": recording(
+                "B4b", sv.vpu_irfft_unpack_batch_minor,
+                lambda re_t, im_t, m, *a: (2 * m, re_t.shape[1])),
+            "vpu_irfft_odd_unpack_batch_minor": recording(
+                "B5b", sv.vpu_irfft_odd_unpack_batch_minor,
+                lambda re_t, im_t, n, *a: (n, re_t.shape[1]))})
+        c64, c128 = torch.complex64, torch.complex128
+
+        def c2c(shape, dt):
+            """The kernels of the cached axis plans' trees."""
+            return set().union(*(_c2c_kernels(plan_tree(p)) for p in
+                                 ndim_module._axis_plans(shape, dt, dev)))
+
+        def real(n, dt, call):
+            return _real_kernels(n, plan_tree(rfft_module._rfft_plan(n, dt, dev))[2], call)
+
+        def dct_kernels(kind, type_, n, dt=c64):
+            """The kernels of the plan that dctdst.py reduces the type to."""
+            plan = dctdst_module.reduction_plan(kind, type_, n, dt, dev)
+            if isinstance(plan, ftt.RfftPlan):
+                return _real_kernels(plan.n, plan_tree(plan)[2], "rfft_bm")
+            return _c2c_kernels(plan_tree(plan))
+
+        def host(t):
+            a = t.detach().cpu().numpy()
+            return a.astype(np.complex128 if np.iscomplexobj(a) else np.float64)
+
+        seen = counts()
+        worst = {}
+
+        def ran(what, out, held, want, k, double=False):
+            """`out` of entry `what` on the card: the counts of `held` and
+            no other rose; rel-L2 against the f64 host `want` in the gate."""
+            nonlocal seen
+            torch.cuda.synchronize()
+            seen = only_ran(f"surface {what}", held, seen)
+            check(out.device == dev, f"surface {what}: output on {out.device}")
+            err = rel_l2(host(out), want)
+            gate = (DD_GATE if double else REL_L2_GATE) * math.sqrt(k)
+            check(err <= gate, f"surface {what}: rel-L2 {err:.3e} vs np.fft/scipy.fft "
+                  f"(gate {gate:.3g})")
+            worst[what] = (err, gate, sorted(held))
+            return out
+
+        zero_counts()
+        seen = counts()
+        x2 = torch.complex(*planes(*SURF_2D))
+        h2 = host(x2)
+        ran(f"fft2 {SURF_2D} c64", ftt.fft2(x2), c2c(SURF_2D, c64), np.fft.fft2(h2), 2)
+        ran(f"ifft2 {SURF_2D} c64", ftt.ifft2(x2), c2c(SURF_2D, c64), np.fft.ifft2(h2), 2)
+        x3 = torch.complex(*planes(SURF_3D[0], SURF_3D[1] * SURF_3D[2])).reshape(SURF_3D)
+        h3 = host(x3)
+        ran(f"fftn {SURF_3D} c64", ftt.fftn(x3), c2c(SURF_3D, c64), np.fft.fftn(h3), 3)
+        ran(f"ifftn {SURF_3D} c64", ftt.ifftn(x3), c2c(SURF_3D, c64), np.fft.ifftn(h3), 3)
+        x3d = x3.to(c128)
+        ran(f"fftn {SURF_3D} c128", ftt.fftn(x3d), c2c(SURF_3D, c128), np.fft.fftn(h3), 3,
+            double=True)
+        del h3
+        n0, n1 = SURF_2D
+        xr = planes(*SURF_2D)[0]
+        hr = host(xr)
+        fwd2 = real(n1, c64, "rfft_bm") | c2c((n0,), c64)
+        inv2 = real(n1, c64, "irfft_bm") | c2c((n0,), c64)
+        spec = ran(f"rfft2 {SURF_2D} f32", ftt.rfft2(xr), fwd2, np.fft.rfft2(hr), 2)
+        hs = host(spec)
+        ran(f"irfft2 {SURF_2D} c64", ftt.irfft2(spec, shape=SURF_2D), inv2,
+            np.fft.irfft2(hs, s=SURF_2D), 2)
+        ran(f"hfft2 {SURF_2D} c64", ftt.hfft2(spec, shape=SURF_2D), inv2,
+            sfft.hfft2(hs, s=SURF_2D), 2)
+        ran(f"ihfft2 {SURF_2D} f32", ftt.ihfft2(xr), fwd2, sfft.ihfft2(hr), 2)
+        del hr, hs
+        xo = planes(*SURF_ODD)[0]
+        ho = host(xo)
+        m0, m1 = SURF_ODD
+        spec_o = ran(f"rfftn {SURF_ODD} f32", ftt.rfftn(xo),
+                     real(m1, c64, "rfft_bm") | c2c((m0,), c64), np.fft.rfftn(ho), 2)
+        ran(f"irfftn {SURF_ODD} c64", ftt.irfftn(spec_o, shape=SURF_ODD),
+            real(m1, c64, "irfft_bm") | c2c((m0,), c64),
+            np.fft.irfftn(host(spec_o), s=SURF_ODD), 2)
+        xd = planes(*SURF_DCTN)[0]
+        hd = host(xd)
+        for name, kind, inverse in (("dctn", "dct", False), ("idctn", "dct", True),
+                                    ("dstn", "dst", False)):
+            type_ = 3 if inverse else 2
+            held = set().union(*(dct_kernels(kind, type_, n) for n in SURF_DCTN))
+            ran(f"{name} type 2 {SURF_DCTN} f32", getattr(ftt, name)(xd, 2), held,
+                getattr(sfft, name)(hd, 2), 2)
+        xt = planes(*SURF_DCT)[0]
+        ht = host(xt)
+        for kind in ("dct", "dst"):
+            for type_ in (1, 2, 3, 4):
+                for norm in (None, "ortho", "forward"):
+                    for inv in ("", "i"):
+                        eff = {1: 1, 2: 3, 3: 2, 4: 4}[type_] if inv else type_
+                        name = f"{inv}{kind}"
+                        ran(f"{name} type {type_} norm={norm} {SURF_DCT} f32",
+                            getattr(ftt, name)(xt, type_, norm=norm),
+                            dct_kernels(kind, eff, SURF_DCT[1]),
+                            getattr(sfft, name)(ht, type_, norm=norm), 1)
+        del hd, ht
+        dln, mu, offset, bias = SURF_FHT_ARGS
+        decay = torch.exp(-4.0 * torch.linspace(-1.0, 1.0, SURF_FHT[1], device=dev,
+                                                dtype=torch.float64) ** 2)
+        a = planes(*SURF_FHT)[0].double() * decay
+        fht_held = real(SURF_FHT[1], c128, "rfft_bm") | real(SURF_FHT[1], c128, "irfft_bm")
+        big = ran(f"fht {SURF_FHT} f64", ftt.fht(a, dln, mu, offset, bias), fht_held,
+                  sfft.fht(host(a), dln, mu, offset=offset, bias=bias), 1, double=True)
+        ran(f"ifht {SURF_FHT} f64", ftt.ifht(big, dln, mu, offset, bias), fht_held,
+            sfft.ifht(host(big), dln, mu, offset=offset, bias=bias), 1, double=True)
+        shifted = ftt.fftshift(x2)
+        seen = only_ran("surface fftshift", set(), seen)
+        check(torch.equal(shifted, torch.fft.fftshift(x2))
+              and torch.equal(ftt.ifftshift(shifted), x2), "fftshift/ifftshift differ "
+              "from torch.fft's")
+        seen = counts()
+        ore, oim = ftt.transform_planar(x2.real, x2.imag, Transform.FFT)
+        ran(f"transform_planar {SURF_2D} c64", torch.complex(ore, oim), c2c((n1,), c64),
+            np.fft.fft(h2, axis=-1), 1)
+        # An NdFftPlan of its own: on the card, moved to the CPU (where the
+        # kernels' plain versions run and no count rises), and back.
+        nd = ftt.NdFftPlan(SURF_2D)
+        check(nd.device == dev, f"NdFftPlan planned on {nd.device}")
+        y_card = ran(f"NdFftPlan{SURF_2D}.fft", nd.fft(x2),
+                     set().union(*(_c2c_kernels(plan_tree(p)) for p in nd.plans)),
+                     np.fft.fft2(h2), 2)
+        nd.to("cpu")
+        y_cpu = nd.fft(x2.cpu())
+        seen = only_ran("surface NdFftPlan on the CPU", set(), seen)
+        check(nd.device.type == "cpu" and y_cpu.device.type == "cpu",
+              f"NdFftPlan.to('cpu') left it on {nd.device}")
+        cpu_err = rel_l2(y_cpu.numpy(), host(y_card))
+        check(cpu_err <= 2 * REL_L2_GATE * math.sqrt(2),
+              f"NdFftPlan on the CPU vs on the card: rel-L2 {cpu_err:.3e}")
+        nd.to(dev)
+        y_back = ran(f"NdFftPlan{SURF_2D}.fft after .to('cpu') and back", nd.fft(x2),
+                     set().union(*(_c2c_kernels(plan_tree(p)) for p in nd.plans)),
+                     np.fft.fft2(h2), 2)
+        check(torch.equal(y_back, y_card), "NdFftPlan after .to('cpu') and back "
+              "differs from its first run")
+        del h2
+        np_in = np.asarray(xo.cpu().numpy())
+        out_np = ftt.rfftn(np_in)
+        seen = only_ran("surface rfftn of a numpy array", real(m1, c64, "rfft_bm")
+                        | c2c((m0,), c64), seen)
+        check(isinstance(out_np, np.ndarray) and rel_l2(out_np, host(spec_o)) == 0.0,
+              "rfftn of a numpy array differs from the tensor run")
+        surface_launches = counts()
+        for k, v in surface_launches.items():
+            path_launches[k] += v
+        for what, (err, gate, held) in worst.items():
+            print(f"surface: {what} launched {held or 'no kernel'}; rel-L2 {err:.3e} vs "
+                  f"np.fft/scipy.fft in f64 (gate {gate:.3g})", flush=True)
+        print(f"surface: fftshift/ifftshift equal torch.fft's; NdFftPlan{SURF_2D} on "
+              f"the CPU vs the card rel-L2 {cpu_err:.3e}, back on the card bitwise "
+              f"equal; rfftn of a numpy array equals the tensor run; launches "
+              f"{ {k: v for k, v in surface_launches.items() if v} }", flush=True)
+
+        ftt.VpuFftPlan.run = staticmethod(sv.vpu_fft_batch_minor)
+        ftt.VpuBluesteinPlan.run = staticmethod(sv.vpu_bluestein_batch_minor)
+        ftt.VpuDdFftPlan.run = staticmethod(dv.vpu_dd_fft_batch_minor)
+        rfft_module.stockham_vpu = sv
+        check(route_shapes["B1"] and route_shapes["B4a"], "the surface gave B1 or B4a "
+              "no call")
+        for kernel in ("B1", "B2", "B4b", "B5a", "B5b", "B6"):
+            if route_shapes[kernel]:
+                route_checks(kernel, "4i")
+        ran_b4a, worst_b4a = [], 0.0
+        for n, b in sorted(route_shapes["B4a"]):
+            errs, mf, mi = rfft_case(ftt.RfftPlan(n, device=dev), planes(n, b)[0])
+            check(max(errs) <= REL_L2_GATE, f"B4a/B4b n={n} B={b}: rel-L2 (rfft vs "
+                  f"plain, irfft vs plain, rfft vs np.fft, irfft vs np.fft, round trip) "
+                  f"{errs}")
+            max_abs_err["B4a"] = max(max_abs_err["B4a"], mf)
+            max_abs_err["B4b"] = max(max_abs_err["B4b"], mi)
+            worst_b4a = max(worst_b4a, max(errs))
+            ran_b4a.append((n, b))
+        print(f"B4a (with B4b) at the surface's shapes {ran_b4a} pass; worst rel-L2 "
+              f"{worst_b4a:.3e} (gate {REL_L2_GATE:g})", flush=True)
+        return dict(x2=x2, x3=x3, x3d=x3d, xr=xr, spec=spec, xo=xo, spec_o=spec_o,
+                    xd=xd, xt=xt, a=a, big=big)
+
+    surface = surface_runs()
+
     # 5. Timing: CHAIN dependent SQRT_SCALED_FFT calls, median of REPS.
     mode = Transform.SQRT_SCALED_FFT
     tables = plan.tables(True)
@@ -2307,6 +2550,146 @@ def main() -> int:
           f"went against this run at {len(against)}: {against}, costing {excess:.3f} "
           f"of one split's time in all (chain {AB_CHAIN}, median of {REPS}, "
           f"order fma, mma, mma, fma) on {card}", flush=True)
+
+    # 5h. The surface's entry points on tensors already on the card (phase
+    # 4i's inputs), SURF_CHAIN calls, median of REPS, each beside the
+    # matching torch.fft call (for a DCT/DST or the FHT: the real FFTs it
+    # runs, alone) and beside its byte bound: one read of the input and one
+    # write of the output at HBM_RATE. fft2 and rfft2 also on the literal
+    # port's layout (each axis moved last, the batch-major calls, the
+    # unfused rfft pack), the layout that ndim.py does not take.
+    def surface_times(s):
+        c64 = torch.complex64
+
+        def t_ms(fn):
+            return median_ms(lambda *_: (fn(), None), None, None, SURF_CHAIN)
+
+        def nbytes(*ts):
+            return sum(t.numel() * t.element_size() for t in ts)
+
+        def literal_c2c(y, axes):
+            """The JAX package's N-D layout: each axis moved last, the plan's
+            batch-major call, moved back."""
+            for axis in axes:
+                p = ftt.create_fft(y.shape[axis], y.dtype, device=dev)
+                t = y.movedim(axis, -1)
+                y = torch.complex(*p.transform_planar(t.real, t.imag)).movedim(-1, axis)
+            return y
+
+        def literal_rfft2(x):
+            spec = rfft_module._rfft_plan(x.shape[-1], c64, dev).rfft(x)
+            return literal_c2c(spec, (0,))
+
+        x2, x3, x3d, xr, spec = s["x2"], s["x3"], s["x3d"], s["xr"], s["spec"]
+        xo, spec_o, xd, xt, a, big = (s[k] for k in ("xo", "spec_o", "xd", "xt", "a",
+                                                     "big"))
+        dln, mu, offset, bias = SURF_FHT_ARGS
+        n0, n1 = SURF_2D
+        check(rel_l2(host_c(literal_c2c(x2, (1, 0))), host_c(ftt.fft2(x2))) <= REL_L2_GATE
+              and rel_l2(host_c(literal_rfft2(xr)), host_c(ftt.rfft2(xr))) <= REL_L2_GATE,
+              "the literal layout's fft2/rfft2 differ from the port's")
+        rp = rfft_module._rfft_plan(2 * SURF_DCTN[0], c64, dev)
+        u = torch.cat([xd, xd.flip(0)]).contiguous()
+        cp = ftt.create_fft(SURF_DCTN[0], c64, device=dev)
+        fp = rfft_module._rfft_plan(SURF_FHT[1], torch.complex128, dev)
+        a_t = a.T.contiguous()
+        rows = [
+            (f"fft2 {SURF_2D} c64", lambda: ftt.fft2(x2), "torch.fft.fft2",
+             lambda: torch.fft.fft2(x2), nbytes(x2, x2)),
+            (f"fft2 {SURF_2D} c64, literal layout", lambda: literal_c2c(x2, (1, 0)),
+             None, None, nbytes(x2, x2)),
+            (f"ifft2 {SURF_2D} c64", lambda: ftt.ifft2(x2), "torch.fft.ifft2",
+             lambda: torch.fft.ifft2(x2), nbytes(x2, x2)),
+            (f"fftn {SURF_3D} c64", lambda: ftt.fftn(x3), "torch.fft.fftn",
+             lambda: torch.fft.fftn(x3), nbytes(x3, x3)),
+            (f"ifftn {SURF_3D} c64", lambda: ftt.ifftn(x3), "torch.fft.ifftn",
+             lambda: torch.fft.ifftn(x3), nbytes(x3, x3)),
+            (f"fftn {SURF_3D} c128", lambda: ftt.fftn(x3d), "torch.fft.fftn",
+             lambda: torch.fft.fftn(x3d), nbytes(x3d, x3d)),
+            (f"rfft2 {SURF_2D} f32", lambda: ftt.rfft2(xr), "torch.fft.rfft2",
+             lambda: torch.fft.rfft2(xr), nbytes(xr, spec)),
+            (f"rfft2 {SURF_2D} f32, literal layout", lambda: literal_rfft2(xr), None,
+             None, nbytes(xr, spec)),
+            (f"irfft2 {SURF_2D} c64", lambda: ftt.irfft2(spec, shape=SURF_2D),
+             "torch.fft.irfft2", lambda: torch.fft.irfft2(spec, s=SURF_2D),
+             nbytes(spec, xr)),
+            (f"hfft2 {SURF_2D} c64", lambda: ftt.hfft2(spec, shape=SURF_2D),
+             "torch.fft.hfft2", lambda: torch.fft.hfft2(spec, s=SURF_2D), nbytes(spec, xr)),
+            (f"ihfft2 {SURF_2D} f32", lambda: ftt.ihfft2(xr), "torch.fft.ihfft2",
+             lambda: torch.fft.ihfft2(xr), nbytes(xr, spec)),
+            (f"rfftn {SURF_ODD} f32", lambda: ftt.rfftn(xo), "torch.fft.rfftn",
+             lambda: torch.fft.rfftn(xo), nbytes(xo, spec_o)),
+            (f"irfftn {SURF_ODD} c64", lambda: ftt.irfftn(spec_o, shape=SURF_ODD),
+             "torch.fft.irfftn", lambda: torch.fft.irfftn(spec_o, s=SURF_ODD),
+             nbytes(spec_o, xo)),
+            (f"dctn type 2 {SURF_DCTN} f32", lambda: ftt.dctn(xd, 2),
+             "its rfft, one of its two passes", lambda: rp.rfft_planar_bm(u), nbytes(xd, xd)),
+            (f"dstn type 2 {SURF_DCTN} f32", lambda: ftt.dstn(xd, 2),
+             "its rfft, one of its two passes", lambda: rp.rfft_planar_bm(u), nbytes(xd, xd)),
+            (f"idctn type 2 {SURF_DCTN} f32", lambda: ftt.idctn(xd, 2),
+             "its c2c, one of its two passes", lambda: cp.transform_planar_bm(
+                 xd, xd, Transform.UNSCALED_IFFT), nbytes(xd, xd)),
+            *[(f"{kind} type {type_} {SURF_DCT} f32",
+               lambda kind=kind, type_=type_: getattr(ftt, kind)(xt, type_), None, None,
+               nbytes(xt, xt)) for kind in ("dct", "dst") for type_ in (1, 2, 3, 4)],
+            (f"fht {SURF_FHT} f64", lambda: ftt.fht(a, dln, mu, offset, bias),
+             "its rfft + irfft", lambda: fp.irfft_planar_bm(*fp.rfft_planar_bm(a_t)),
+             nbytes(a, a)),
+            (f"ifht {SURF_FHT} f64", lambda: ftt.ifht(big, dln, mu, offset, bias),
+             "its rfft + irfft", lambda: fp.irfft_planar_bm(*fp.rfft_planar_bm(a_t)),
+             nbytes(a, a)),
+            (f"fftshift {SURF_2D} c64", lambda: ftt.fftshift(x2), "torch.fft.fftshift",
+             lambda: torch.fft.fftshift(x2), nbytes(x2, x2)),
+            (f"transform_planar {SURF_2D} c64 (last axis)",
+             lambda: ftt.transform_planar(x2.real, x2.imag, Transform.FFT),
+             "torch.fft.fft", lambda: torch.fft.fft(x2), nbytes(x2, x2)),
+        ]
+        timed_ms = {}
+        for what, port, lib_name, lib, moved in rows:
+            ms = timed_ms[what] = t_ms(port)
+            bound_ms = moved / HBM_RATE * 1e3
+            beside = ""
+            if lib is not None:
+                lib_ms = t_ms(lib)
+                beside = (f", {lib_name} {lib_ms:.4f} ms (port / it "
+                          f"{ms / lib_ms:.3f})")
+            print(f"time: surface {what}: {ms:.4f} ms per call{beside}, byte bound "
+                  f"{bound_ms:.4f} ms ({bound_ms / ms:.4f} of it; chain {SURF_CHAIN}, "
+                  f"median of {REPS}) on {card}", flush=True)
+
+        # Where an entry point's time goes: its kernels' device time in one
+        # call under torch.profiler, largest first, beside the call's time
+        # above (the rest is the card idle, waiting for the host).
+        from torch.profiler import ProfilerActivity, profile
+
+        def kernel_name(key):
+            key = key.removeprefix("void ").replace("(anonymous namespace)::", "")
+            return key.split("(")[0][:70]
+
+        for what, port, *_ in rows:
+            if not what.startswith(("fft2", "ifft2", "rfft2", "irfftn", "dctn", "idctn",
+                                    "fht", "transform_planar")):
+                continue
+            port()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                port()
+                torch.cuda.synchronize()
+            kern = sorted(((e.key, e.count, e.self_device_time_total / 1e3)
+                           for e in prof.key_averages() if e.self_device_time_total > 0),
+                          key=lambda r: -r[2])
+            device_ms = sum(ms for _, _, ms in kern)
+            print(f"profile: surface {what}: {device_ms:.4f} ms of device time in "
+                  f"{sum(c for _, c, _ in kern)} kernels, {device_ms / timed_ms[what]:.3f} of "
+                  f"its {timed_ms[what]:.4f} ms: " + "; ".join(
+                      f"{kernel_name(k)} x{c} {ms:.4f}" for k, c, ms in kern[:6])
+                  + f" on {card}", flush=True)
+
+    def host_c(t):
+        return t.detach().cpu().numpy().astype(np.complex128)
+
+    surface_times(surface)
+    del surface
 
     kernels = (
         ("B1", "B1 fused Stockham c64 (vpu_fft_batch_minor; clustered-block body, "

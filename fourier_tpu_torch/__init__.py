@@ -19,6 +19,13 @@ B9b (a split n1*n2) of ``ops/cuda/bailey.py``; ``impl="xla_packed"`` runs
 B9a for n <= 128. ``describe`` / ``summarize`` give a plan's structure and
 cost model (``plan/summary.py``).
 
+The numpy-compatible surface runs on the same 1-D plans: ``NdFftPlan`` and
+``fftn`` / ``ifftn`` / ``fft2`` / ``ifft2`` (``ndim.py``), the N-D real and
+Hermitian family ``rfftn`` ... ``ihfft2`` (``rfft.py``), DCT/DST of types
+1-4 and their N-D forms (``dctdst.py``), the fast Hankel transform
+(``fftlog.py``) and ``fftfreq`` / ``fftshift`` / ``ifftshift``
+(``utils/helpers.py``).
+
 This package imports torch and never jax.
 """
 
@@ -45,9 +52,16 @@ from fourier_tpu_torch.plan import (
     create_fft_f64,
     load_jax_plan,
 )
-from fourier_tpu_torch.plan.base import resolve_device
 from fourier_tpu_torch.plan.summary import PlanSummary, describe, summarize
-from fourier_tpu_torch.rfft import RfftPlan, hfft, ihfft, irfft, rfft, rfftfreq
+from fourier_tpu_torch.ndim import (NdFftPlan, _as_tensor, _crop_pad_axis,
+                                    _norm_mode, fft2, fftn, ifft2, ifftn)
+from fourier_tpu_torch.dctdst import (dct, dctn, dst, dstn, idct, idctn, idst,
+                                      idstn)
+from fourier_tpu_torch.rfft import (RfftPlan, hfft, hfft2, hfftn, ihfft,
+                                    ihfft2, ihfftn, irfft, irfft2, irfftn,
+                                    rfft, rfft2, rfftfreq, rfftn)
+from fourier_tpu_torch.fftlog import fht, fhtoffset, ifht
+from fourier_tpu_torch.utils.helpers import fftfreq, fftshift, ifftshift
 from fourier_tpu_torch.transform import Transform
 
 __version__ = "0.1.0"
@@ -73,11 +87,7 @@ def transform(x, mode: Transform, dtype=None, device="cuda"):
 
 
 def _fft_1d(x, n, norm, dtype, forward: bool, axis: int, device):
-    from fourier_tpu_torch.ndim import _crop_pad_axis, _norm_mode
-
-    as_numpy = not isinstance(x, _torch.Tensor)
-    xt = (_torch.as_tensor(_np.asarray(x), device=resolve_device(device))
-          if as_numpy else x)
+    xt, as_numpy = _as_tensor(x, device)
     xt = _torch.movedim(xt, axis, -1)
     if n is not None:
         xt = _crop_pad_axis(xt, int(n), xt.ndim - 1)
@@ -101,6 +111,52 @@ def ifft(x, n=None, norm=None, dtype=None, axis: int = -1, device="cuda"):
     return _fft_1d(x, n, norm, dtype, False, axis, device)
 
 
+import contextlib as _contextlib
+
+_workers = 1
+
+
+@_contextlib.contextmanager
+def set_workers(workers: int):
+    """scipy.fft.set_workers-compatible context manager, accepted for API
+    compatibility: host-thread worker counts do not apply, the card runs
+    the batch in parallel."""
+    global _workers
+    prev, _workers = _workers, int(workers)
+    try:
+        yield
+    finally:
+        _workers = prev
+
+
+def get_workers() -> int:
+    """scipy.fft.get_workers-compatible accessor (see :func:`set_workers`)."""
+    return _workers
+
+
+def transform_planar(re, im, mode: Transform, dtype=None, device="cuda"):
+    """Planar plan-and-run over the last axis through the cached
+    ``create_fft`` (complex64 unless `dtype`). Tensor planes run on their
+    own device (tensors out); numpy planes run on ``device`` (numpy out)."""
+    re, as_numpy = _as_tensor(re, device)
+    im, _ = _as_tensor(im, re.device)
+    if dtype is None:
+        dtype = _torch.complex64
+    ore, oim = create_fft(re.shape[-1], dtype, device=re.device).transform_planar(
+        re, im, mode)
+    if as_numpy:
+        return ore.detach().cpu().numpy(), oim.detach().cpu().numpy()
+    return ore, oim
+
+
+def fft_planar(re, im, dtype=None, device="cuda"):
+    return transform_planar(re, im, Transform.FFT, dtype, device)
+
+
+def ifft_planar(re, im, dtype=None, device="cuda"):
+    return transform_planar(re, im, Transform.IFFT, dtype, device)
+
+
 __all__ = [
     "AutosortPlan",
     "BluesteinPlan",
@@ -120,16 +176,48 @@ __all__ = [
     "create_fft",
     "create_fft_f32",
     "create_fft_f64",
+    "NdFftPlan",
+    "dct",
+    "dctn",
     "describe",
+    "dst",
+    "dstn",
     "fft",
+    "fft2",
+    "fft_planar",
+    "fftfreq",
+    "fftn",
+    "fftshift",
+    "fht",
+    "fhtoffset",
+    "get_workers",
     "hfft",
+    "hfft2",
+    "hfftn",
+    "idct",
+    "idctn",
+    "idst",
+    "idstn",
     "ifft",
+    "ifft2",
+    "ifft_planar",
+    "ifftn",
+    "ifftshift",
+    "ifht",
     "ihfft",
+    "ihfft2",
+    "ihfftn",
     "irfft",
+    "irfft2",
+    "irfftn",
     "load_jax_plan",
     "rfft",
+    "rfft2",
     "rfftfreq",
+    "rfftn",
+    "set_workers",
     "summarize",
     "transform",
+    "transform_planar",
     "__version__",
 ]

@@ -1,16 +1,207 @@
-"""numpy.fft keyword helpers shared by the module-level wrappers.
+"""Multi-dimensional FFTs: NdFftPlan, fftn / ifftn / fft2 / ifft2.
 
-Private ports of ``fourier_tpu/ndim.py:_norm_mode`` and ``_crop_pad_axis``;
-the N-D transforms themselves are not ported yet (ROADMAP.md queue 1 item 8).
+Port of ``fourier_tpu/ndim.py``. An N-D transform is separable: a 1-D plan
+runs along each transformed axis, and the mode's normalization is applied
+once over the whole transformed size (IFFT scales by 1/prod(shape), the
+sqrt-scaled pair stays unitary).
+
+Layout: every pass runs its 1-D plan's batch-minor entry
+(``transform_planar_bm``) on a contiguous (n_axis, rest) plane, the native
+layout of kernels B1 and B6. Each pass therefore permutes the planes at
+most once, to bring its axis to the front; an axis that already leads in
+memory is taken first and costs no copy, and the result is handed back as
+a permuted view of the last pass's layout (no copy back). ``dims`` below
+names the original axis at each position of the planes as they lie.
+
+complex128 runs the ``dd`` route's plans in native f64 on a CUDA device, so
+the JAX package's 4-plane double-word path (``transform_planar_dd``) has no
+counterpart; the ``nn.Module`` takes the place of its pytree registration.
+
+Every entry point runs on the card unless the caller asks for the CPU: a
+plan is built on ``device`` ("cuda" by default), a numpy input is copied to
+``device`` once and back once, and a tensor input runs on its own device.
+An axis never runs on another device than its plan's: a mismatch raises.
+The module functions run the planner's cached 1-D plans (``_axis_plans``);
+only an ``NdFftPlan`` owns plans of its own.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
+from fourier_tpu_torch.plan.base import complex_dtype, resolve_device
+from fourier_tpu_torch.plan.planner import create_fft
 from fourier_tpu_torch.transform import Transform
+
+
+def _memory_order(planes):
+    """The planes permuted (a view) so that their dims run outermost first
+    in memory, and the original axis at each position."""
+    t = planes[0]
+    dims = sorted(range(t.ndim), key=lambda d: -t.stride(d))
+    return tuple(p.permute(dims) for p in planes), dims
+
+
+def _to_front(planes, dims, axis: int):
+    """The planes with original axis `axis` leading and contiguous (a copy
+    unless it leads in memory already), and their new dims."""
+    i = dims.index(axis)
+    dims = [axis] + dims[:i] + dims[i + 1:]
+    return tuple(p.movedim(i, 0).contiguous() for p in planes), dims
+
+
+def _restore(planes, dims):
+    """The planes as views in the original axis order."""
+    back = [int(d) for d in np.argsort(dims)]
+    return tuple(p.permute(back) for p in planes)
+
+
+def _c2c(planes, dims, axis_plans, mode: Transform):
+    """(re, im) after each (axis, 1-D plan) pass of `axis_plans` in `mode`,
+    each on the plan's batch-minor entry; the axis leading in memory goes
+    first."""
+    for axis, plan in sorted(axis_plans, key=lambda ap: ap[0] != dims[0]):
+        (re, im), dims = _to_front(planes, dims, axis)
+        shape = re.shape
+        ore, oim = plan.transform_planar_bm(re.reshape(shape[0], -1),
+                                            im.reshape(shape[0], -1), mode)
+        planes = (ore.reshape(shape), oim.reshape(shape))
+    return planes, dims
+
+
+def _run(planes, dims, axes, plans, transform: Transform):
+    """(planes, dims) after `transform` over the original `axes`, one 1-D
+    plan of `plans` each: unscaled passes, then the scale over the whole
+    transformed size."""
+    transform = Transform(transform)
+    mode = Transform.FFT if transform.is_forward else Transform.UNSCALED_IFFT
+    planes, dims = _c2c(planes, dims, list(zip(axes, plans)), mode)
+    scale = transform.scale(int(np.prod([p.size for p in plans], dtype=np.int64)))
+    if scale is not None:
+        planes = tuple(p * scale for p in planes)
+    return planes, dims
+
+
+def _transform_axes(x: torch.Tensor, axes, plans, transform: Transform):
+    """Complex `x` (a tensor on the plans' device) transformed over `axes`,
+    a complex tensor of the plans' dtype in `x`'s axis order."""
+    dtype = plans[0].dtype
+    if not x.is_complex() or x.dtype != dtype:
+        x = x.to(dtype)
+    planes, dims = _memory_order((x.real, x.imag))
+    return torch.complex(*_restore(*_run(planes, dims, axes, plans, transform)))
+
+
+def _axis_plans(sizes, dtype, device):
+    """The planner's cached default 1-D plan of each size on `device`."""
+    return [create_fft(int(n), dtype, device=device) for n in sizes]
+
+
+class NdFftPlan(torch.nn.Module):
+    """Separable N-D plan: one 1-D plan per transformed axis, owned by this
+    plan (built with ``cache=False``; equal sizes share one), so ``.to()``
+    moves them all and no plan another caller uses."""
+
+    def __init__(self, shape: Sequence[int], dtype=torch.complex64, *,
+                 backend: str = "auto", device="cuda"):
+        super().__init__()
+        shape = tuple(int(s) for s in shape)
+        if not shape:
+            raise ValueError("NdFftPlan needs at least one axis")
+        dtype = complex_dtype(dtype)
+        device = resolve_device(device)
+        owned = {}
+        for s in shape:
+            if s not in owned:
+                owned[s] = create_fft(s, dtype, backend=backend, device=device,
+                                      cache=False)
+        self._setup(shape, dtype, [owned[s] for s in shape])
+
+    @classmethod
+    def from_plans(cls, plans) -> "NdFftPlan":
+        """A plan over the given 1-D plans, one per axis in order (e.g.
+        each axis of a JAX ``NdFftPlan`` loaded with ``load_jax_plan``)."""
+        plans = list(plans)
+        if not plans:
+            raise ValueError("NdFftPlan needs at least one axis")
+        dtype, device = plans[0].dtype, plans[0].device
+        for p in plans:
+            if p.dtype != dtype or p.device != device:
+                raise ValueError(
+                    f"axis plans disagree: {p.dtype} on {p.device} vs "
+                    f"{dtype} on {device}")
+        plan = cls.__new__(cls)
+        torch.nn.Module.__init__(plan)
+        plan._setup(tuple(p.size for p in plans), dtype, plans)
+        return plan
+
+    def _setup(self, shape, dtype: torch.dtype, plans) -> None:
+        self.shape = shape
+        self.dtype = dtype
+        self.plans = torch.nn.ModuleList(plans)
+        self.size = int(np.prod(shape, dtype=np.int64))
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    @property
+    def device(self) -> torch.device:
+        return self.plans[0].device
+
+    @property
+    def real_dtype(self) -> torch.dtype:
+        return torch.float32 if self.dtype == torch.complex64 else torch.float64
+
+    def extra_repr(self) -> str:
+        return f"shape={self.shape}, dtype={self.dtype}"
+
+    def transform_planar(self, re, im, transform: Transform = Transform.FFT):
+        """Transform the trailing ``ndim`` axes of planar (re, im) planes."""
+        re = torch.as_tensor(re).to(self.real_dtype)
+        im = torch.as_tensor(im).to(self.real_dtype)
+        if re.shape != im.shape:
+            raise ValueError(f"re/im shapes differ: {tuple(re.shape)} vs "
+                             f"{tuple(im.shape)}")
+        if tuple(re.shape[max(re.ndim - self.ndim, 0):]) != self.shape:
+            raise ValueError(
+                f"trailing axes {tuple(re.shape[-self.ndim:])} do not match "
+                f"plan shape {self.shape}")
+        planes, dims = _memory_order((re, im))
+        axes = range(re.ndim - self.ndim, re.ndim)
+        return _restore(*_run(planes, dims, axes, self.plans, transform))
+
+    def transform(self, x, transform: Transform = Transform.FFT):
+        """Complex convenience over the trailing ``ndim`` axes: a numpy
+        array (run on the plan's device, numpy out) or a tensor on the
+        plan's device (tensor out)."""
+        as_numpy = not isinstance(x, torch.Tensor)
+        xt = torch.as_tensor(np.asarray(x), device=self.device) if as_numpy else x
+        if tuple(xt.shape[max(xt.ndim - self.ndim, 0):]) != self.shape:
+            raise ValueError(
+                f"trailing axes {tuple(xt.shape[-self.ndim:])} do not match "
+                f"plan shape {self.shape}")
+        out = _transform_axes(xt, range(xt.ndim - self.ndim, xt.ndim),
+                              self.plans, transform)
+        return out.detach().cpu().numpy() if as_numpy else out
+
+    def forward(self, x, transform: Transform = Transform.FFT):
+        return self.transform(x, transform)
+
+    def fft(self, x):
+        return self.transform(x, Transform.FFT)
+
+    def ifft(self, x):
+        return self.transform(x, Transform.IFFT)
+
+    def fft_planar(self, re, im):
+        return self.transform_planar(re, im, Transform.FFT)
+
+    def ifft_planar(self, re, im):
+        return self.transform_planar(re, im, Transform.IFFT)
 
 
 def _norm_mode(norm: Optional[str], forward: bool):
@@ -39,3 +230,75 @@ def _crop_pad_axis(x: torch.Tensor, n: int, axis: int) -> torch.Tensor:
     shape = list(x.shape)
     shape[axis] = n - cur
     return torch.cat([x, x.new_zeros(shape)], dim=axis)
+
+
+def _as_tensor(x, device):
+    """(`x` as a tensor, whether it came as numpy): a numpy `x` goes to
+    `device` once, a tensor stays on its own."""
+    if isinstance(x, torch.Tensor):
+        return x, False
+    return torch.as_tensor(np.asarray(x), device=resolve_device(device)), True
+
+
+def _resolve_axes(x_ndim: int, s, axes, ndim: Optional[int]):
+    if axes is not None:
+        axes = [int(a) % x_ndim for a in np.atleast_1d(axes)]
+        if len(set(axes)) != len(axes):
+            raise ValueError(f"repeated axis in axes={axes}")
+    elif s is not None:
+        axes = list(range(x_ndim - len(s), x_ndim))
+    else:
+        k = x_ndim if ndim is None else ndim
+        axes = list(range(x_ndim - k, x_ndim))
+    if s is not None and len(s) != len(axes):
+        raise ValueError("s and axes must have the same length")
+    return axes
+
+
+def _fftn_impl(x, s, axes, norm, ndim, dtype, forward: bool, device):
+    xt, as_numpy = _as_tensor(x, device)
+    if dtype is None:
+        # numpy-parity promotion: double-precision input (f64/c128) ->
+        # complex128, everything else -> the native complex64 path.
+        dtype = (torch.complex128
+                 if xt.dtype in (torch.float64, torch.complex128)
+                 else torch.complex64)
+    axes = _resolve_axes(xt.ndim, s, axes, ndim)
+    if s is not None:
+        for n, ax in zip(s, axes):
+            xt = _crop_pad_axis(xt, int(n), ax)
+    mode, fwd_scale = _norm_mode(norm, forward)
+    plans = _axis_plans([xt.shape[a] for a in axes], dtype, xt.device)
+    out = _transform_axes(xt, axes, plans, mode)
+    if fwd_scale:
+        out = out / int(np.prod([p.size for p in plans], dtype=np.int64))
+    return out.detach().cpu().numpy() if as_numpy else out
+
+
+def fftn(x, ndim: Optional[int] = None, dtype=None, *, s=None, axes=None,
+         norm: Optional[str] = None, device="cuda"):
+    """Forward FFT over `axes` (default: trailing `ndim` axes, default all).
+
+    numpy.fft.fftn compatibility: ``s`` crops/zero-pads each transformed
+    axis, ``axes`` selects arbitrary axes, ``norm`` is backward/ortho/forward.
+    A numpy `x` runs on ``device`` (numpy out), a tensor on its own device.
+    """
+    return _fftn_impl(x, s, axes, norm, ndim, dtype, True, device)
+
+
+def ifftn(x, ndim: Optional[int] = None, dtype=None, *, s=None, axes=None,
+          norm: Optional[str] = None, device="cuda"):
+    """Inverse FFT over `axes` (numpy.fft.ifftn compatibility)."""
+    return _fftn_impl(x, s, axes, norm, ndim, dtype, False, device)
+
+
+def fft2(x, dtype=None, *, s=None, axes=(-2, -1), norm: Optional[str] = None,
+         device="cuda"):
+    """2-D forward FFT (numpy.fft.fft2 compatibility)."""
+    return _fftn_impl(x, s, list(axes), norm, None, dtype, True, device)
+
+
+def ifft2(x, dtype=None, *, s=None, axes=(-2, -1), norm: Optional[str] = None,
+          device="cuda"):
+    """2-D inverse FFT (numpy.fft.ifft2 compatibility)."""
+    return _fftn_impl(x, s, list(axes), norm, None, dtype, False, device)

@@ -1,6 +1,6 @@
 """Real-input FFTs: rfft / irfft with numpy.fft conventions.
 
-Port of the 1-D part of ``fourier_tpu/rfft.py``. For even n the length-n
+Port of ``fourier_tpu/rfft.py``. For even n the length-n
 real signal is the length-m = n/2 complex signal z[j] = x[2j] + i*x[2j+1]
 (a reshape of the planar input), one c2c FFT of size m runs on the plan the
 planner picks, and a Hermitian pack with a plan-time twiddle table gives the
@@ -35,8 +35,12 @@ B6, as the JAX package's ``RfftPlan(n, np.complex128, backend="dd")`` on a
 TPU) and around the f64 Stockham family on the CPU. The JAX package's
 double-word twins (``rfft_planar_dd``, ``irfft_planar_dd``) have no
 counterpart: the port's c128 is native f64 and runs the same calls as c64.
-The N-D real family (``rfftn`` and the rest) waits for the N-D plans
-(ROADMAP.md queue 1 item 8).
+
+The N-D real family (``rfftn``, ``irfftn``, ``hfftn``, ``ihfftn`` and their
+2-D forms) runs its last-axis real transform on the batch-minor calls, where
+B4/B5 run, and the c2c passes over the other axes through
+:mod:`fourier_tpu_torch.ndim` on the same (n_axis, rest) layout: one copy an
+axis at most, no host round trip between the passes.
 
 Every entry point runs on the card unless the caller asks for the CPU:
 ``RfftPlan(..., device="cuda")`` by default, and the module functions plan
@@ -47,12 +51,13 @@ device.
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from fourier_tpu_torch.ndim import _crop_pad_axis
+from fourier_tpu_torch.ndim import (_as_tensor, _axis_plans, _crop_pad_axis,
+                                    _memory_order, _restore, _run, _to_front)
 from fourier_tpu_torch.ops import hermitian
 from fourier_tpu_torch.ops.cuda import stockham_vpu
 from fourier_tpu_torch.plan.base import complex_dtype, resolve_device
@@ -411,17 +416,18 @@ def _infer_cdtype(x: torch.Tensor) -> torch.dtype:
 def _as_last(x, axis: int, device):
     """(tensor with `axis` moved last, whether `x` came as numpy): a numpy
     `x` goes to `device`, a tensor stays on its own."""
-    as_numpy = not isinstance(x, torch.Tensor)
-    xt = (torch.as_tensor(np.asarray(x), device=resolve_device(device))
-          if as_numpy else x)
+    xt, as_numpy = _as_tensor(x, device)
     return torch.movedim(xt, axis, -1), as_numpy
 
 
-def _finish(out, axis: int, scale: float, as_numpy: bool):
-    out = torch.movedim(out, -1, axis)
+def _scaled(out, scale: float, as_numpy: bool):
     if scale != 1.0:
         out = out * scale
     return out.detach().cpu().numpy() if as_numpy else out
+
+
+def _finish(out, axis: int, scale: float, as_numpy: bool):
+    return _scaled(torch.movedim(out, -1, axis), scale, as_numpy)
 
 
 def _conj(t: torch.Tensor) -> torch.Tensor:
@@ -492,3 +498,134 @@ def ihfft(x, norm: Optional[str] = None, dtype=None, axis: int = -1,
 def rfftfreq(n: int, d: float = 1.0) -> np.ndarray:
     """Sample frequencies for :func:`rfft` (numpy.fft.rfftfreq)."""
     return np.arange(n // 2 + 1, dtype=np.float64) / (float(n) * float(d))
+
+
+# -- N-D real transforms (numpy.fft.rfftn family) ----------------------------
+
+
+def _c2c_over_leading(planes, dims, shape, ndim: int, dtype, forward: bool):
+    """(planes, dims) after the c2c transform over the `ndim` axes before the
+    last one of an array of `shape` (original axis order): FFT forward, IFFT
+    (1/their size) inverse."""
+    if ndim == 0:
+        return planes, dims
+    axes = range(len(shape) - 1 - ndim, len(shape) - 1)
+    plans = _axis_plans([shape[a] for a in axes], dtype, planes[0].device)
+    return _run(planes, dims, axes, plans,
+                Transform.FFT if forward else Transform.IFFT)
+
+
+def _rfftn_planes(x, ndim: Optional[int], dtype, device):
+    """((re, im) of the unnormalized rfftn in `x`'s axis order, the
+    transformed size, whether `x` came as numpy)."""
+    xt, as_numpy = _as_tensor(x, device)
+    k = xt.ndim if ndim is None else ndim
+    if not 1 <= k <= xt.ndim:
+        raise ValueError(f"ndim={k} out of range for rank-{xt.ndim} input")
+    plan = _plan_for(xt.shape[-1], dtype, xt)
+    xr = (xt.real if xt.is_complex() else xt).to(plan.real_dtype)
+    (xr,), dims = _to_front(*_memory_order((xr,)), xt.ndim - 1)
+    rest = xr.shape[1:]
+    re, im = plan.rfft_planar_bm(xr.reshape(plan.n, -1))
+    planes = (re.reshape(plan.out_len, *rest), im.reshape(plan.out_len, *rest))
+    planes, dims = _c2c_over_leading(planes, dims, xt.shape, k - 1, plan.dtype,
+                                     True)
+    total = int(np.prod(xt.shape[xt.ndim - k:], dtype=np.int64))
+    return _restore(planes, dims), total, as_numpy
+
+
+def _irfftn(x, shape, ndim, dtype, device, conj: bool):
+    """(the unnormalized irfftn of `x`, or of conj(x), in `x`'s axis order;
+    the transformed size; whether `x` came as numpy)."""
+    xt, as_numpy = _as_tensor(x, device)
+    if shape is not None:
+        k, n_last = len(shape), int(shape[-1])
+    else:
+        k, n_last = (xt.ndim if ndim is None else ndim), 2 * (xt.shape[-1] - 1)
+    if not 1 <= k <= xt.ndim:
+        raise ValueError(f"ndim={k} out of range for rank-{xt.ndim} input")
+    if shape is not None and (tuple(int(s) for s in shape[:-1])
+                              != tuple(xt.shape[xt.ndim - k:-1])):
+        raise ValueError(
+            f"shape {tuple(shape)} inconsistent with input axes "
+            f"{tuple(xt.shape[xt.ndim - k:])} (only the last axis may differ)")
+    plan = _plan_for(n_last, dtype, xt)
+    if xt.shape[-1] != plan.out_len:
+        raise ValueError(
+            f"spectrum length {xt.shape[-1]} inconsistent with last-axis size "
+            f"{n_last} (need {plan.out_len})")
+    xc = xt.to(plan.dtype)
+    planes, dims = _memory_order((xc.real, -xc.imag if conj else xc.imag))
+    planes, dims = _c2c_over_leading(planes, dims, xt.shape, k - 1, plan.dtype,
+                                     False)
+    (re, im), dims = _to_front(planes, dims, xt.ndim - 1)
+    rest = re.shape[1:]
+    out = plan.irfft_planar_bm(re.reshape(plan.out_len, -1),
+                               im.reshape(plan.out_len, -1))
+    (out,) = _restore((out.reshape(n_last, *rest),), dims)
+    total = int(np.prod(xt.shape[xt.ndim - k:-1], dtype=np.int64)) * n_last
+    return out, total, as_numpy
+
+
+def rfftn(x, ndim: Optional[int] = None, dtype=None,
+          norm: Optional[str] = None, device="cuda"):
+    """Real-input N-D FFT over the trailing `ndim` axes (numpy.fft.rfftn):
+    one-sided along the last axis, full along the others. A numpy `x` runs
+    on ``device`` (numpy out), a tensor on its own device."""
+    (re, im), total, as_numpy = _rfftn_planes(x, ndim, dtype, device)
+    return _scaled(torch.complex(re, im), _norm_scale(norm, total, True),
+                   as_numpy)
+
+
+def irfftn(x, shape: Optional[Sequence[int]] = None, ndim: Optional[int] = None,
+           dtype=None, norm: Optional[str] = None, device="cuda"):
+    """Inverse of :func:`rfftn` (numpy.fft.irfftn). ``shape`` gives the output
+    sizes of the transformed axes (its length sets ``ndim``); the default last
+    axis is the even size 2*(bins-1)."""
+    out, total, as_numpy = _irfftn(x, shape, ndim, dtype, device, conj=False)
+    return _scaled(out, _norm_scale(norm, total, False), as_numpy)
+
+
+def rfft2(x, dtype=None, device="cuda"):
+    """2-D real-input FFT over the last two axes (numpy.fft.rfft2)."""
+    return rfftn(x, 2, dtype, device=device)
+
+
+def irfft2(x, shape: Optional[Sequence[int]] = None, dtype=None,
+           device="cuda"):
+    """Inverse of :func:`rfft2` (numpy.fft.irfft2)."""
+    if shape is not None and len(shape) != 2:
+        raise ValueError("irfft2 shape must have length 2")
+    return irfftn(x, shape=shape, ndim=2, dtype=dtype, device=device)
+
+
+def hfftn(x, shape: Optional[Sequence[int]] = None, ndim: Optional[int] = None,
+          norm: Optional[str] = None, dtype=None, device="cuda"):
+    """N-D FFT of Hermitian-symmetric input -> real output (scipy.fft.hfftn).
+
+    Direction-swapped irfftn: ``hfftn(a, s) == irfftn(conj(a), s) * prod(s)``
+    with the norm applied in the forward direction. ``shape`` gives the real
+    output sizes of the transformed axes (its length sets ``ndim``)."""
+    out, total, as_numpy = _irfftn(x, shape, ndim, dtype, device, conj=True)
+    return _scaled(out, total * _norm_scale(norm, total, True), as_numpy)
+
+
+def ihfftn(x, ndim: Optional[int] = None, norm: Optional[str] = None,
+           dtype=None, device="cuda"):
+    """Inverse of :func:`hfftn` (scipy.fft.ihfftn): real input -> one-sided
+    Hermitian N-D spectrum, ``conj(rfftn(x)) / prod(transformed sizes)``."""
+    (re, im), total, as_numpy = _rfftn_planes(x, ndim, dtype, device)
+    return _scaled(torch.complex(re, -im),
+                   _norm_scale(norm, total, False) / total, as_numpy)
+
+
+def hfft2(x, shape: Optional[Sequence[int]] = None, dtype=None, device="cuda"):
+    """2-D Hermitian-input FFT over the last two axes (scipy.fft.hfft2)."""
+    if shape is not None and len(shape) != 2:
+        raise ValueError("hfft2 shape must have length 2")
+    return hfftn(x, shape=shape, ndim=2, dtype=dtype, device=device)
+
+
+def ihfft2(x, dtype=None, device="cuda"):
+    """Inverse of :func:`hfft2` (scipy.fft.ihfft2)."""
+    return ihfftn(x, ndim=2, dtype=dtype, device=device)
