@@ -322,6 +322,16 @@ SURF_DCT = (1024, 4096)  # dct/dst/idct/idst types 1-4, every norm
 SURF_FHT = (1024, 4096)  # fht/ifht, float64
 SURF_FHT_ARGS = (0.01, 0.5, 0.0, 0.0)  # dln, mu, offset, bias
 SURF_CHAIN = 4  # calls per timing
+# Phases 4j and 5i: signal.py, spectral.py and the scipy.fft backend at the
+# shapes of an image or audio pipeline, each held against scipy in f64.
+SIG_IMAGE, SIG_PSF = (3968, 3968), (129, 129)  # mode "same": 4096^2 padded
+SIG_AUDIO, SIG_FIR = (64, 1 << 20), 1023  # 64 channels; overlap-add blocks of 11664
+SIG_ROWS = (16384, 4096)  # hilbert, czt, zoom_fft
+SIG_RESAMPLE = ((1024, 48000), 44100)  # 48 kHz audio to 44.1 kHz
+SIG_BAND = (1024, 0.1, 0.35)  # czt/zoom_fft: points and band [f1, f2) at fs 1
+SIG_STFT = (1024, 256)  # nperseg, hop (Hann)
+SIG_WELCH = 4096  # nperseg of welch, csd, coherence, spectrogram; periodogram's records
+SIG_GATE, SIG_PSD_GATE = 1e-5, 1e-4  # rel-L2 of complex64 results, of PSD estimates
 B9_ROUTE_B_LARGE = 16  # its batch for the four-step of 65536
 B9_GRAD = (1000, 64)  # (n, B) of phase 4f's gradient
 B9_TIME = (("B9a", 125, 65536), ("B9b", 4096, 16384), ("B9b", 16384, 1024))
@@ -1963,6 +1973,312 @@ def main() -> int:
 
     surface = surface_runs()
 
+    # 4j. signal.py, spectral.py and the scipy.fft backend at full width on
+    # device="cuda": every entry point on tensors already on the card (the
+    # backend on numpy arrays, as scipy code calls it), with the counts of
+    # the kernels its plans hold rising and no other, each result on the
+    # whole array against scipy.signal / scipy.fft in f64 (SIG_GATE for
+    # complex64 results, SIG_PSD_GATE for PSD estimates, DD_GATE for
+    # complex128; the backend's fft2, rfft and dctn at the surface's gate);
+    # then the kernels at every (n, B) the slice gave them against their
+    # plain versions (B1, B2, B4b, B5a, B5b, B6 on both bodies in every mode
+    # as phase 4g; B4a with its inverse through rfft_case; B8 through
+    # dd_case).
+    def signal_runs():
+        """Phase 4j's runs, in a scope of their own; returns the inputs
+        phase 5i times."""
+        import os
+
+        import scipy.fft as sfft
+        import scipy.signal as ss
+
+        signal_module = sys.modules["fourier_tpu_torch.signal"]
+        split_module = sys.modules["fourier_tpu_torch.precision.dd_split"]
+        dctdst_module = sys.modules["fourier_tpu_torch.dctdst"]
+        for shapes in route_shapes.values():
+            shapes.clear()
+        route_shapes["B8"] = set()
+        ftt.VpuFftPlan.run = staticmethod(recording("B1", sv.vpu_fft_batch_minor))
+        ftt.VpuBluesteinPlan.run = staticmethod(recording("B2", sv.vpu_bluestein_batch_minor))
+        ftt.VpuDdFftPlan.run = staticmethod(recording("B6", dv.vpu_dd_fft_batch_minor))
+        rfft_module.stockham_vpu = types.SimpleNamespace(**{
+            **vars(sv),
+            "vpu_rfft_pack_batch_minor": recording(
+                "B4a", sv.vpu_rfft_pack_batch_minor,
+                lambda x_t, m, *a: (2 * m, x_t.shape[1])),
+            "vpu_rfft_odd_pack_batch_minor": recording(
+                "B5a", sv.vpu_rfft_odd_pack_batch_minor),
+            "vpu_irfft_unpack_batch_minor": recording(
+                "B4b", sv.vpu_irfft_unpack_batch_minor,
+                lambda re_t, im_t, m, *a: (2 * m, re_t.shape[1])),
+            "vpu_irfft_odd_unpack_batch_minor": recording(
+                "B5b", sv.vpu_irfft_odd_unpack_batch_minor,
+                lambda re_t, im_t, n, *a: (n, re_t.shape[1]))})
+        split_module.dd_combine = types.SimpleNamespace(**{
+            **vars(dc),
+            "dd_split_combine_batch_minor": recording(
+                "B8", dc.dd_split_combine_batch_minor,
+                lambda re_t, im_t, n, r, *a: (n, re_t.shape[1] // r))})
+        c64, c128 = torch.complex64, torch.complex128
+        oracle = lambda: sfft.set_workers(os.cpu_count() or 1)
+
+        def c2c(sizes, dt):
+            """The kernels of the cached axis plans' trees (batch-minor)."""
+            return set().union(*(_c2c_kernels(plan_tree(p)) for p in
+                                 signal_module._axis_plans(sizes, dt, dev)))
+
+        def major(n):
+            """The kernels of the cached complex64 plan of n, batch-major."""
+            return _kernels_of(plan_tree(ftt.create_fft(n, c64, device=dev)), False)
+
+        def real(n, dt, call):
+            return _real_kernels(n, plan_tree(rfft_module._rfft_plan(n, dt, dev))[2], call)
+
+        def host(t):
+            return t if isinstance(t, np.ndarray) else t.detach().cpu().numpy()
+
+        seen = counts()
+        worst = {}
+
+        def ran(what, out, held, want, gate, exact=True):
+            """`out` of entry `what`: the counts of `held` and no other rose
+            (not `exact`: some of them and no other, where the scipy version
+            decides the dtype of the backend's calls); rel-L2 against the f64
+            host `want` within `gate`."""
+            nonlocal seen
+            torch.cuda.synchronize()
+            if exact:
+                seen = only_ran(f"signal {what}", held, seen)
+            else:
+                now = counts()
+                rose = {k for k in counters if now[k] > seen[k]}
+                check(rose and rose <= held, f"signal {what}: {sorted(rose)} rose; "
+                      f"the plans run {sorted(held)}")
+                seen, held = now, rose
+            if isinstance(out, torch.Tensor):
+                check(out.device == dev, f"signal {what}: output on {out.device}")
+            err = rel_l2(host(out), want)
+            check(err <= gate, f"signal {what}: rel-L2 {err:.3e} vs scipy in f64 "
+                  f"(gate {gate:g})")
+            worst[what] = (err, gate, sorted(held))
+            print(f"signal: {what} launched {sorted(held) or 'no kernel'}; rel-L2 "
+                  f"{err:.3e} vs scipy in f64 (gate {gate:g})", flush=True)
+            return out
+
+        zero_counts()
+        seen = counts()
+        # Image pipeline: a 3968^2 image and a 129^2 point-spread function,
+        # "same" mode, padded to 4096^2.
+        img = planes(*SIG_IMAGE)[0]
+        psf = planes(*SIG_PSF)[0] / SIG_PSF[0]
+        h_img, h_psf = host(img).astype(np.float64), host(psf).astype(np.float64)
+        full = [a + b - 1 for a, b in zip(SIG_IMAGE, SIG_PSF)]
+        with oracle():
+            want = ss.fftconvolve(h_img, h_psf, "same")
+            want_corr = ss.correlate(h_img, h_psf, "same", method="fft")
+        ran(f"fftconvolve {SIG_IMAGE} * {SIG_PSF} same f32",
+            ftt.fftconvolve(img, psf, "same"), c2c(full, c64), want, SIG_GATE)
+        ran(f"correlate {SIG_IMAGE} x {SIG_PSF} same f32", ftt.correlate(img, psf, "same"),
+            c2c(full, c64), want_corr, SIG_GATE)
+        ran(f"fftconvolve {SIG_IMAGE} * {SIG_PSF} same complex128",
+            ftt.fftconvolve(img, psf, "same", dtype=c128), c2c(full, c128), want, DD_GATE)
+        del want, want_corr
+        # Audio: 64 channels of 2^20 samples, a bank of 1023-tap FIRs (one a
+        # channel) and a second set of signals for the cross spectra.
+        sig = planes(*SIG_AUDIO)[0]
+        sig2 = planes(*SIG_AUDIO)[0]
+        bank = planes(SIG_AUDIO[0], SIG_FIR)[0] / math.sqrt(SIG_FIR)
+        h_sig, h_sig2 = host(sig).astype(np.float64), host(sig2).astype(np.float64)
+        h_bank = host(bank).astype(np.float64)
+        blocks = signal_module.next_fast_len(sum(signal_module._oa_lens(SIG_AUDIO[1],
+                                                                        SIG_FIR)) - 1)
+        with oracle():
+            want = ss.oaconvolve(h_sig, h_bank, axes=-1)
+        ran(f"oaconvolve {SIG_AUDIO} * {SIG_AUDIO[0]} FIRs of {SIG_FIR} f32 (blocks of "
+            f"{blocks})", ftt.oaconvolve(sig, bank, axes=-1), c2c([blocks], c64), want,
+            SIG_GATE)
+        with oracle():
+            want = ss.oaconvolve(h_sig, h_bank[:1], axes=-1)
+        conv = ftt.ConvolvePlan(bank[0])
+        conv128 = ftt.ConvolvePlan(bank[0], dtype=c128)
+        check(conv.device == dev and conv128.device == dev,
+              f"ConvolvePlan planned on {conv.device}, {conv128.device}")
+        ran(f"ConvolvePlan({SIG_FIR} taps, block {conv.block}) on {SIG_AUDIO} f32",
+            conv(sig), _c2c_kernels(plan_tree(conv.inner)), want, SIG_GATE)
+        ran(f"ConvolvePlan({SIG_FIR} taps, complex128) on {SIG_AUDIO}", conv128(sig),
+            _c2c_kernels(plan_tree(conv128.inner)), want, DD_GATE)
+        del want
+        # Rows: hilbert, czt and zoom_fft over the last axis of 16384 x 4096.
+        rows = planes(*SIG_ROWS)[0]
+        with oracle():
+            want = ss.hilbert(host(rows).astype(np.float64))
+        ran(f"hilbert {SIG_ROWS} f32", ftt.hilbert(rows), major(SIG_ROWS[1]), want, SIG_GATE)
+        im2 = planes(*SURF_2D)[0]
+        with oracle():
+            want = ss.hilbert2(host(im2).astype(np.float64))
+        ran(f"hilbert2 {SURF_2D} f32", ftt.hilbert2(im2), c2c(SURF_2D, c64), want, SIG_GATE)
+        (rb, rn), rnum = SIG_RESAMPLE
+        aud = planes(rb, rn)[0]
+        with oracle():
+            want = ss.resample(host(aud).astype(np.float64), rnum, axis=-1)
+        ran(f"resample ({rb}, {rn}) to {rnum} f32", ftt.resample(aud, rnum),
+            major(rn) | major(rnum), want, SIG_GATE)
+        rowsc = torch.complex(*planes(*SIG_ROWS))
+        h_rowsc = host(rowsc).astype(np.complex128)
+        m, f1, f2 = SIG_BAND
+        w, a = np.exp(-2j * np.pi * (f2 - f1) / m), np.exp(2j * np.pi * f1)
+        inner = signal_module.next_fast_len(SIG_ROWS[1] + m - 1)
+        with oracle():
+            want = ss.czt(h_rowsc, m, w, a)
+            want_zoom = ss.zoom_fft(h_rowsc, [f1, f2], m, fs=1)
+        ran(f"czt {SIG_ROWS} c64 to {m} points (inner {inner})", ftt.czt(rowsc, m, w, a),
+            major(inner), want, SIG_GATE)
+        ran(f"zoom_fft {SIG_ROWS} c64 to [{f1}, {f2}) in {m} points",
+            ftt.zoom_fft(rowsc, [f1, f2], m, fs=1), major(inner), want_zoom, SIG_GATE)
+        del want, want_zoom, h_rowsc
+        # STFT and the Welch family on the audio signals.
+        nper, hop = SIG_STFT
+        stft_kw = dict(nperseg=nper, noverlap=nper - hop)
+        with oracle():
+            want = ss.stft(h_sig, **stft_kw)[2]
+        zxx = ran(f"stft {SIG_AUDIO} nperseg {nper} hop {hop} f32",
+                  ftt.stft(sig, **stft_kw)[2], real(nper, c64, "rfft_bm"), want, SIG_GATE)
+        # StftPlan frames the signal with no boundary extension: its frame k
+        # is the default stft's frame k + 2 (two hops of zeros lead there).
+        sp = ftt.StftPlan(nper, hop=hop)
+        check(sp.device == dev, f"StftPlan planned on {sp.device}")
+        lead = nper // 2 // hop
+        sre, sim = sp.stft_planar(sig)
+        k = sre.shape[-2]
+        ran(f"StftPlan({nper}, hop={hop}).stft_planar {SIG_AUDIO}", torch.complex(sre, sim),
+            real(nper, c64, "rfft_bm"), np.moveaxis(want[..., lead:lead + k], -1, -2),
+            SIG_GATE)
+        del want
+        with oracle():
+            want = ss.istft(host(zxx).astype(np.complex128), **stft_kw)[1]
+        back = ran(f"istft {tuple(zxx.shape)} nperseg {nper} hop {hop}",
+                   ftt.istft(zxx, **stft_kw)[1], real(nper, c64, "irfft_bm"), want,
+                   SIG_GATE)
+        del want
+        rt = rel_l2(host(back[..., :SIG_AUDIO[1]]), h_sig)
+        check(rt <= SIG_GATE, f"istft(stft(x)) rel-L2 {rt:.3e} vs x")
+        sback = sp.istft_planar(sre, sim)
+        torch.cuda.synchronize()
+        seen = only_ran("signal StftPlan.istft_planar", real(nper, c64, "irfft_bm"), seen)
+        n_sp = sback.shape[-1]
+        core = slice(nper, n_sp - nper)
+        srt = rel_l2(host(sback[..., core]), h_sig[..., core])
+        check(srt <= SIG_GATE, f"StftPlan round trip rel-L2 {srt:.3e} vs x")
+        print(f"signal: istft(stft(x)) rel-L2 {rt:.3e} vs x; StftPlan.istft_planar "
+              f"launched {sorted(real(nper, c64, 'irfft_bm'))}, its round trip rel-L2 "
+              f"{srt:.3e} vs x off the first and last {nper} samples (gate "
+              f"{SIG_GATE:g})", flush=True)
+        del zxx, back, sre, sim, sback
+        welch_kw = dict(nperseg=SIG_WELCH)
+        fwd = real(SIG_WELCH, c64, "rfft_bm")
+        with oracle():
+            pxx = ss.welch(h_sig, **welch_kw)[1]
+            pyy = ss.welch(h_sig2, **welch_kw)[1]
+            pxy = ss.csd(h_sig, h_sig2, **welch_kw)[1]
+            pmed = ss.welch(h_sig, average="median", **welch_kw)[1]
+            sxx = ss.spectrogram(h_sig, **welch_kw)[2]
+            records = h_sig.reshape(-1, SIG_WELCH)
+            prec = ss.periodogram(records)[1]
+        ran(f"welch {SIG_AUDIO} nperseg {SIG_WELCH} f32", ftt.welch(sig, **welch_kw)[1],
+            fwd, pxx, SIG_PSD_GATE)
+        ran(f"welch {SIG_AUDIO} nperseg {SIG_WELCH} median f32",
+            ftt.welch(sig, average="median", **welch_kw)[1], fwd, pmed, SIG_PSD_GATE)
+        ran(f"csd {SIG_AUDIO} nperseg {SIG_WELCH} f32", ftt.csd(sig, sig2, **welch_kw)[1],
+            fwd, pxy, SIG_PSD_GATE)
+        # scipy's coherence is |Pxy|^2 / (Pxx Pyy) of its welch and csd
+        ran(f"coherence {SIG_AUDIO} nperseg {SIG_WELCH} f32",
+            ftt.coherence(sig, sig2, **welch_kw)[1], fwd, np.abs(pxy) ** 2 / (pxx * pyy),
+            SIG_PSD_GATE)
+        ran(f"spectrogram {SIG_AUDIO} nperseg {SIG_WELCH} f32",
+            ftt.spectrogram(sig, **welch_kw)[2], fwd, sxx, SIG_PSD_GATE)
+        ran(f"periodogram {records.shape} f32", ftt.periodogram(
+            sig.reshape(-1, SIG_WELCH))[1], fwd, prec, SIG_PSD_GATE)
+        ran(f"welch {SIG_AUDIO} nperseg {SIG_WELCH} f64 (complex128)",
+            ftt.welch(sig.double(), **welch_kw)[1], real(SIG_WELCH, c128, "rfft_bm"), pxx,
+            DD_GATE)
+        del pyy, pxy, pmed, sxx, prec, records
+        # scipy code on the card through the backend (numpy in and out).
+        hx2 = host(torch.complex(*planes(*SURF_2D)))
+        hr2 = host(planes(*SURF_2D)[0])
+        dct_plan = dctdst_module.reduction_plan("dct", 2, SURF_2D[0], c64, dev)
+        dct_held = (_real_kernels(dct_plan.n, plan_tree(dct_plan)[2], "rfft_bm")
+                    if isinstance(dct_plan, ftt.RfftPlan) else _c2c_kernels(plan_tree(dct_plan)))
+        h_imgc = host(torch.complex(img, img.flip(0)))
+        h_psfc = host(torch.complex(psf, psf.flip(1)))
+        with oracle():
+            want = [np.fft.fft2(hx2.astype(np.complex128)),
+                    np.fft.rfft(hr2.astype(np.float64)),
+                    sfft.dctn(hr2.astype(np.float64), 2),
+                    ss.fftconvolve(h_imgc.astype(np.complex128),
+                                   h_psfc.astype(np.complex128), "same")]
+        backend_calls = [
+            (f"fft2 {SURF_2D} c64", lambda: sfft.fft2(hx2), c2c(SURF_2D, c64),
+             REL_L2_GATE * math.sqrt(2)),
+            (f"rfft {SURF_2D} f32", lambda: sfft.rfft(hr2), real(SURF_2D[1], c64, "major"),
+             REL_L2_GATE),
+            (f"dctn type 2 {SURF_2D} f32", lambda: sfft.dctn(hr2, 2), dct_held,
+             REL_L2_GATE * math.sqrt(2)),
+            (f"scipy.signal.fftconvolve {SIG_IMAGE} * {SIG_PSF} same c64",
+             lambda: ss.fftconvolve(h_imgc, h_psfc, "same"), c2c(full, c64), SIG_GATE)]
+        for (what, call, held, gate), w_ in zip(backend_calls, want):
+            with sfft.set_backend(ftt.scipy_fft_backend, only=True):
+                out = call()
+            check(isinstance(out, np.ndarray) and out.flags.writeable,
+                  f"backend {what}: {type(out)}")
+            ran(f"scipy_fft_backend {what}", out, held, w_, gate)
+        with sfft.set_backend(ftt.scipy_fft_backend, only=True):
+            out = ss.welch(host(sig), **welch_kw)[1]
+        ran(f"scipy_fft_backend scipy.signal.welch {SIG_AUDIO} nperseg {SIG_WELCH} f32",
+            out, real(SIG_WELCH, c64, "major") | real(SIG_WELCH, c128, "major"), pxx,
+            SIG_PSD_GATE, exact=False)
+        del want, out, pxx, hx2, hr2, h_imgc, h_psfc, h_sig, h_sig2, h_bank
+        slice_launches = counts()
+        for k, v in slice_launches.items():
+            path_launches[k] += v
+        print(f"signal: phase 4j launches {({k: v for k, v in slice_launches.items() if v})}",
+              flush=True)
+
+        ftt.VpuFftPlan.run = staticmethod(sv.vpu_fft_batch_minor)
+        ftt.VpuBluesteinPlan.run = staticmethod(sv.vpu_bluestein_batch_minor)
+        ftt.VpuDdFftPlan.run = staticmethod(dv.vpu_dd_fft_batch_minor)
+        rfft_module.stockham_vpu = sv
+        split_module.dd_combine = dc
+        for kernel in ("B1", "B4a", "B4b", "B6"):
+            check(slice_launches[kernel] > 0, f"phase 4j launched {kernel} no time")
+        for kernel in ("B1", "B2", "B4b", "B5a", "B5b", "B6"):
+            if route_shapes[kernel]:
+                route_checks(kernel, "4j")
+        ran_b4a, worst_b4a = [], 0.0
+        for n, b in sorted(route_shapes["B4a"]):
+            errs, mf, mi = rfft_case(ftt.RfftPlan(n, device=dev), planes(n, b)[0])
+            check(max(errs) <= REL_L2_GATE, f"B4a/B4b n={n} B={b}: rel-L2 (rfft vs "
+                  f"plain, irfft vs plain, rfft vs np.fft, irfft vs np.fft, round trip) "
+                  f"{errs}")
+            max_abs_err["B4a"] = max(max_abs_err["B4a"], mf)
+            max_abs_err["B4b"] = max(max_abs_err["B4b"], mi)
+            worst_b4a = max(worst_b4a, max(errs))
+            ran_b4a.append((n, b))
+        print(f"B4a (with B4b) at phase 4j's shapes {ran_b4a} pass; worst rel-L2 "
+              f"{worst_b4a:.3e} (gate {REL_L2_GATE:g})", flush=True)
+        ran_b8, worst_b8 = [], [0.0, 0.0]
+        for n, b in sorted(route_shapes["B8"]):
+            e_p, e_h, m_ = dd_case("B8", n, b)
+            worst_b8 = [max(worst_b8[0], e_p), max(worst_b8[1], e_h)]
+            max_abs_err["B8"] = max(max_abs_err["B8"], m_)
+            ran_b8.append((n, b))
+        print(f"B8 at phase 4j's shapes {ran_b8} x 5 modes pass; worst rel-L2 "
+              f"{worst_b8[0]:.3e} vs plain, {worst_b8[1]:.3e} vs np.fft (gate "
+              f"{DD_GATE:g})", flush=True)
+        return dict(img=img, psf=psf, sig=sig, sig2=sig2, bank=bank, conv=conv,
+                    conv128=conv128, rows=rows, im2=im2, aud=aud, rowsc=rowsc, sp=sp)
+
+    slice_inputs = signal_runs()
+
     # 5. Timing: CHAIN dependent SQRT_SCALED_FFT calls, median of REPS.
     mode = Transform.SQRT_SCALED_FFT
     tables = plan.tables(True)
@@ -2690,6 +3006,134 @@ def main() -> int:
 
     surface_times(surface)
     del surface
+
+    # 5i. The slice's entry points on tensors already on the card (phase
+    # 4j's inputs), SURF_CHAIN calls, median of REPS, each beside its byte
+    # bound (one read of each input and one write of the output at
+    # HBM_RATE), the share of one call's time that torch.profiler finds in
+    # kernels on the device, and the PyTorch calls that compute the same
+    # result where there are some: torch.stft / torch.istft (the same window
+    # and hop) for stft, istft and StftPlan, torch.fft.rfft2 -> product ->
+    # irfft2 for fftconvolve, torch.fft.fft -> mask -> ifft for hilbert. They
+    # are comparators only. The backend's calls take numpy arrays and are not
+    # timed here.
+    def signal_times(s):
+        from torch.profiler import ProfilerActivity, profile
+
+        def t_ms(fn):
+            return median_ms(lambda *_: (fn(), None), None, None, SURF_CHAIN)
+
+        def nbytes(*ts):
+            flat = [t for x in ts for t in (x if isinstance(x, (tuple, list)) else (x,))]
+            return sum(t.numel() * t.element_size() for t in flat)
+
+        img, psf, sig, sig2, bank = (s[k] for k in ("img", "psf", "sig", "sig2", "bank"))
+        conv, conv128, rows, im2, aud, rowsc, sp = (
+            s[k] for k in ("conv", "conv128", "rows", "im2", "aud", "rowsc", "sp"))
+        nper, hop = SIG_STFT
+        stft_kw = dict(nperseg=nper, noverlap=nper - hop)
+        welch_kw = dict(nperseg=SIG_WELCH)
+        (rb, rn), rnum = SIG_RESAMPLE
+        m, f1, f2 = SIG_BAND
+        w, a = np.exp(-2j * np.pi * (f2 - f1) / m), np.exp(2j * np.pi * f1)
+        zxx = ftt.stft(sig, **stft_kw)[2]
+        sre, sim = sp.stft_planar(sig)
+        sig64 = sig.double()
+        records = sig.reshape(-1, SIG_WELCH)
+        window = torch.hann_window(nper, periodic=True, device=dev)
+        fshape = [a_ + b_ - 1 for a_, b_ in zip(SIG_IMAGE, SIG_PSF)]
+        start = [(p - 1) // 2 for p in SIG_PSF]
+
+        def torch_fftconvolve():
+            y = torch.fft.irfft2(torch.fft.rfft2(img, s=fshape) * torch.fft.rfft2(psf, s=fshape),
+                                 s=fshape)
+            return y[start[0]:start[0] + SIG_IMAGE[0], start[1]:start[1] + SIG_IMAGE[1]]
+
+        hmask = torch.zeros(SIG_ROWS[1], device=dev)
+        hmask[0] = hmask[SIG_ROWS[1] // 2] = 1.0
+        hmask[1:SIG_ROWS[1] // 2] = 2.0
+        tz = torch.stft(sig, nper, hop, window=window, center=True, return_complex=True)
+        rows_ = [
+            (f"fftconvolve {SIG_IMAGE} * {SIG_PSF} same f32",
+             lambda: ftt.fftconvolve(img, psf, "same"), (img, psf),
+             "torch.fft.rfft2 -> product -> irfft2", torch_fftconvolve),
+            (f"correlate {SIG_IMAGE} x {SIG_PSF} same f32",
+             lambda: ftt.correlate(img, psf, "same"), (img, psf), None, None),
+            (f"fftconvolve {SIG_IMAGE} * {SIG_PSF} same complex128",
+             lambda: ftt.fftconvolve(img, psf, "same", dtype=torch.complex128), (img, psf),
+             None, None),
+            (f"oaconvolve {SIG_AUDIO} * FIRs of {SIG_FIR} f32",
+             lambda: ftt.oaconvolve(sig, bank, axes=-1), (sig, bank), None, None),
+            (f"ConvolvePlan({SIG_FIR} taps) on {SIG_AUDIO} f32", lambda: conv(sig), (sig,),
+             None, None),
+            (f"ConvolvePlan({SIG_FIR} taps, complex128) on {SIG_AUDIO}",
+             lambda: conv128(sig), (sig,), None, None),
+            (f"hilbert {SIG_ROWS} f32", lambda: ftt.hilbert(rows), (rows,),
+             "torch.fft.fft -> mask -> ifft",
+             lambda: torch.fft.ifft(torch.fft.fft(rows) * hmask)),
+            (f"hilbert2 {SURF_2D} f32", lambda: ftt.hilbert2(im2), (im2,), None, None),
+            (f"resample ({rb}, {rn}) to {rnum} f32", lambda: ftt.resample(aud, rnum), (aud,),
+             None, None),
+            (f"czt {SIG_ROWS} c64 to {m} points", lambda: ftt.czt(rowsc, m, w, a), (rowsc,),
+             None, None),
+            (f"zoom_fft {SIG_ROWS} c64 to {m} points",
+             lambda: ftt.zoom_fft(rowsc, [f1, f2], m, fs=1), (rowsc,), None, None),
+            (f"stft {SIG_AUDIO} nperseg {nper} hop {hop} f32",
+             lambda: ftt.stft(sig, **stft_kw)[2], (sig,), "torch.stft (center=False)",
+             lambda: torch.stft(sig, nper, hop, window=window, center=False,
+                                return_complex=True)),
+            (f"istft {tuple(zxx.shape)} nperseg {nper} hop {hop}",
+             lambda: ftt.istft(zxx, **stft_kw)[1], (zxx,),
+             "torch.istft (center=True: it refuses center=False with a Hann window)",
+             lambda: torch.istft(tz, nper, hop, window=window, center=True)),
+            (f"StftPlan({nper}, hop={hop}).stft_planar {SIG_AUDIO}",
+             lambda: sp.stft_planar(sig), (sig,), "torch.stft (center=False)",
+             lambda: torch.stft(sig, nper, hop, window=window, center=False,
+                                return_complex=True)),
+            (f"StftPlan({nper}, hop={hop}).istft_planar", lambda: sp.istft_planar(sre, sim),
+             (sre, sim), "torch.istft (center=True)",
+             lambda: torch.istft(tz, nper, hop, window=window, center=True)),
+            (f"welch {SIG_AUDIO} nperseg {SIG_WELCH} f32",
+             lambda: ftt.welch(sig, **welch_kw)[1], (sig,), None, None),
+            (f"welch {SIG_AUDIO} nperseg {SIG_WELCH} median f32",
+             lambda: ftt.welch(sig, average="median", **welch_kw)[1], (sig,), None, None),
+            (f"csd {SIG_AUDIO} nperseg {SIG_WELCH} f32",
+             lambda: ftt.csd(sig, sig2, **welch_kw)[1], (sig, sig2), None, None),
+            (f"coherence {SIG_AUDIO} nperseg {SIG_WELCH} f32",
+             lambda: ftt.coherence(sig, sig2, **welch_kw)[1], (sig, sig2), None, None),
+            (f"spectrogram {SIG_AUDIO} nperseg {SIG_WELCH} f32",
+             lambda: ftt.spectrogram(sig, **welch_kw)[2], (sig,), None, None),
+            (f"periodogram {tuple(records.shape)} f32",
+             lambda: ftt.periodogram(records)[1], (records,), None, None),
+            (f"welch {SIG_AUDIO} nperseg {SIG_WELCH} f64 (complex128)",
+             lambda: ftt.welch(sig64, **welch_kw)[1], (sig64,), None, None),
+        ]
+        for what, port, inputs, lib_name, lib in rows_:
+            ms = t_ms(port)
+            bound_ms = (nbytes(*inputs) + nbytes(port())) / HBM_RATE * 1e3
+            port()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                port()
+                torch.cuda.synchronize()
+            kern = sorted(((e.key.removeprefix("void ").replace("(anonymous namespace)::", "")
+                            .split("(")[0][:60], e.count, e.self_device_time_total / 1e3)
+                           for e in prof.key_averages() if e.self_device_time_total > 0),
+                          key=lambda r: -r[2])
+            device_ms = sum(ms_ for _, _, ms_ in kern)
+            beside = ""
+            if lib is not None:
+                lib_ms = t_ms(lib)
+                beside = f", {lib_name} {lib_ms:.4f} ms (port / it {ms / lib_ms:.3f})"
+            print(f"time: signal {what}: {ms:.4f} ms per call{beside}, byte bound "
+                  f"{bound_ms:.4f} ms ({bound_ms / ms:.4f} of it), device time "
+                  f"{device_ms:.4f} ms in one profiled call ({device_ms / ms:.3f} of the "
+                  f"call's time; chain {SURF_CHAIN}, median of {REPS}): " + "; ".join(
+                      f"{k} x{c} {ms_:.4f}" for k, c, ms_ in kern[:5]) + f" on {card}",
+                  flush=True)
+
+    signal_times(slice_inputs)
+    del slice_inputs
 
     kernels = (
         ("B1", "B1 fused Stockham c64 (vpu_fft_batch_minor; clustered-block body, "

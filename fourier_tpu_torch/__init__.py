@@ -24,7 +24,12 @@ The numpy-compatible surface runs on the same 1-D plans: ``NdFftPlan`` and
 Hermitian family ``rfftn`` ... ``ihfft2`` (``rfft.py``), DCT/DST of types
 1-4 and their N-D forms (``dctdst.py``), the fast Hankel transform
 (``fftlog.py``) and ``fftfreq`` / ``fftshift`` / ``ifftshift``
-(``utils/helpers.py``).
+(``utils/helpers.py``). Signal pipelines and convolution layers run on the
+same plans: FFT and overlap-add convolution, correlation, the analytic
+signal, resampling, the chirp-z transform, ``CztPlan`` and ``ConvolvePlan``
+(``signal.py``); the STFT, ``StftPlan`` and the Welch family
+(``spectral.py``); and ``scipy_fft_backend`` runs scipy.fft calls, and the
+scipy.signal code above them, on the port (``scipy_backend.py``).
 
 This package imports torch and never jax.
 """
@@ -62,6 +67,14 @@ from fourier_tpu_torch.rfft import (RfftPlan, hfft, hfft2, hfftn, ihfft,
                                     rfft, rfft2, rfftfreq, rfftn)
 from fourier_tpu_torch.fftlog import fht, fhtoffset, ifht
 from fourier_tpu_torch.utils.helpers import fftfreq, fftshift, ifftshift
+from fourier_tpu_torch.signal import (ConvolvePlan, CztPlan, correlate,
+                                      correlation_lags, czt, fftconvolve,
+                                      hilbert, hilbert2, next_fast_len,
+                                      oaconvolve, prev_fast_len, resample,
+                                      zoom_fft)
+from fourier_tpu_torch.spectral import (StftPlan, check_cola, check_nola,
+                                        coherence, csd, istft, periodogram,
+                                        spectrogram, stft, welch)
 from fourier_tpu_torch.transform import Transform
 
 __version__ = "0.1.0"
@@ -160,6 +173,8 @@ def ifft_planar(re, im, dtype=None, device="cuda"):
 __all__ = [
     "AutosortPlan",
     "BluesteinPlan",
+    "ConvolvePlan",
+    "CztPlan",
     "DdSplitPow2Plan",
     "DdSplitRadixPlan",
     "FftPlan",
@@ -167,6 +182,7 @@ __all__ = [
     "MxuFftPlan",
     "PlanSummary",
     "RfftPlan",
+    "StftPlan",
     "Transform",
     "VpuBluesteinPlan",
     "VpuDdBluesteinPlan",
@@ -177,6 +193,13 @@ __all__ = [
     "create_fft_f32",
     "create_fft_f64",
     "NdFftPlan",
+    "check_cola",
+    "check_nola",
+    "coherence",
+    "correlate",
+    "correlation_lags",
+    "csd",
+    "czt",
     "dct",
     "dctn",
     "describe",
@@ -185,6 +208,7 @@ __all__ = [
     "fft",
     "fft2",
     "fft_planar",
+    "fftconvolve",
     "fftfreq",
     "fftn",
     "fftshift",
@@ -194,6 +218,8 @@ __all__ = [
     "hfft",
     "hfft2",
     "hfftn",
+    "hilbert",
+    "hilbert2",
     "idct",
     "idctn",
     "idst",
@@ -210,14 +236,35 @@ __all__ = [
     "irfft",
     "irfft2",
     "irfftn",
+    "istft",
     "load_jax_plan",
+    "next_fast_len",
+    "oaconvolve",
+    "periodogram",
+    "prev_fast_len",
+    "resample",
     "rfft",
     "rfft2",
     "rfftfreq",
     "rfftn",
+    "scipy_fft_backend",
     "set_workers",
+    "spectrogram",
+    "stft",
     "summarize",
     "transform",
     "transform_planar",
+    "welch",
+    "zoom_fft",
     "__version__",
 ]
+
+
+def __getattr__(name):
+    # Lazy: scipy_backend imports this package back (its adapters run the
+    # public surface), so it must not load during package init.
+    if name == "scipy_fft_backend":
+        from fourier_tpu_torch.scipy_backend import scipy_fft_backend
+
+        return scipy_fft_backend
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -260,13 +260,21 @@ _EXPORTS = ("NdFftPlan", "fftn", "ifftn", "fft2", "ifft2", "rfftn", "irfftn",
             "idct", "dst", "idst", "dctn", "idctn", "dstn", "idstn", "fht",
             "ifht", "fhtoffset", "fftfreq", "fftshift", "ifftshift",
             "transform_planar", "fft_planar", "ifft_planar", "set_workers",
-            "get_workers")
+            "get_workers", "fftconvolve", "oaconvolve", "correlate",
+            "correlation_lags", "next_fast_len", "prev_fast_len", "hilbert",
+            "hilbert2", "resample", "czt", "zoom_fft", "CztPlan", "ConvolvePlan",
+            "stft", "istft", "StftPlan", "welch", "csd", "periodogram",
+            "coherence", "spectrogram", "check_cola", "check_nola",
+            "scipy_fft_backend")
 
 
 def test_exports():
+    """Every name is exported: a function or class, and the scipy.fft
+    backend object (a uarray backend, not a callable)."""
     for name in _EXPORTS:
         assert name in tft.__all__, name
-        assert callable(getattr(tft, name)), name
+        obj = getattr(tft, name)
+        assert callable(obj) or hasattr(obj, "__ua_function__"), name
     assert all(hasattr(tft, name) for name in tft.__all__)
 
 
