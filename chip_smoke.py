@@ -54,7 +54,17 @@ the splits of _b9b_sweep_sizes() (phase 5g, the A/B behind the wrappers'
 choice of body); last the surface's entry points (phase 5h), each beside
 torch.fft's call (a DCT/DST or the FHT beside the real FFTs it runs) and
 its byte bound, and fft2 and rfft2 also on the literal port's layout.
-Every phase prints its lines;
+Phase 4k holds the plan tooling on the card: save_plan/load_plan round
+trips (a file and bytes) of a tree at each route, buffers and outputs
+bitwise equal and the same kernels launched; measure_fft at five sizes,
+backend="measure" planning from the wisdom with the timer poisoned, the
+wisdom's export/import; export_compiled/load_compiled with static and
+symbolic batches, the graphs' fourier_tpu_torch::* operators printed, the
+loaded artifacts launching the kernels with outputs bitwise the plans'.
+Phase 5j runs the comparative suite (fourier_tpu_torch/tools/bench_suite.py)
+at one size a family, the large and rfft rows among them, each row's port,
+torch.fft and host times beside the card's name and power limit and its
+rel-L2 within the gate. Every phase prints its lines;
 any failed check raises, so the exit code is non-zero. The next-to-last
 line is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}.
@@ -334,6 +344,27 @@ SIG_WELCH = 4096  # nperseg of welch, csd, coherence, spectrogram; periodogram's
 SIG_GATE, SIG_PSD_GATE = 1e-5, 1e-4  # rel-L2 of complex64 results, of PSD estimates
 B9_ROUTE_B_LARGE = 16  # its batch for the four-step of 65536
 B9_GRAD = (1000, 64)  # (n, B) of phase 4f's gradient
+# Phase 4k: the plan tooling. Plan files of the card's trees at each route
+# (B1 4096, B2 1013, B1 + B3 65536, DFT products 125 and 722, composed
+# Bluestein 4099, B9b 384, B6 1024, B8 2187, B7 1013, composed c128 1418,
+# B4 4096 and B5 1013), each run at TOOL_B columns; measured planning; the
+# exported programs (n, dtype, batch_shape, batches run).
+TOOL_B = 64
+TOOL_TRIPS = (("c64", 4096), ("c64", 1013), ("c64", 65536), ("c64", 125), ("c64", 722),
+              ("c64", 4099), ("mxu", 384), ("c128", 1024), ("c128", 2187), ("c128", 1013),
+              ("c128", 1418), ("rfft", 4096), ("rfft", 1013))
+TOOL_MEASURE = ((4096, "complex64"), (1013, "complex64"), (125, "complex64"),
+                (1024, "complex128"), (1013, "complex128"))
+TOOL_EXPORT = ((4096, "complex64", (16384,), (16384,)),
+               (4096, "complex64", ("b",), (16, 16384)),
+               (1013, "complex64", (64,), (64,)), (1024, "complex128", (64,), (64,)))
+# Phase 5j: the suite at one size a family (5 families x 2 dtypes x 2
+# directions), the large family's first size (2 directions) and the 3 rfft
+# rows; the gate of its c64 and rfft rows, the JAX suite's.
+SUITE_ROWS = 25
+SUITE_GATE = 1e-5
+SUITE_HOST_ROWS = 256  # the full suite: 8192 (bench_suite._HOST_ROW_CAP)
+SUITE_HOST_ITERS = 2  # the full suite: 5 (bench_suite.HOST_ITERS)
 B9_TIME = (("B9a", 125, 65536), ("B9b", 4096, 16384), ("B9b", 16384, 1024))
 B9_CHAIN = 16
 # The bodies of B9a and B9b: the tensor cores' in 3xTF32 (csrc/dft_mma.cu,
@@ -749,7 +780,7 @@ def main() -> int:
             plan = ftt.RfftPlan(n, device=dev)
             re, im = planes(m + 1, b)
             kw = dict(tables=plan.inner.tables(False), kernel_tables=plan.inner.kernel_inv,
-                      w=plan.w)
+                      pair_tables=plan.inner.pair_inv, w=plan.w)
             p = (sv.vpu_irfft_unpack_batch_minor_reference(re, im, m, kw["tables"], plan.w),)
             run = lambda body: (sv.vpu_irfft_unpack_batch_minor(re, im, m, _body=body, **kw),)
             geo = sv.irfft_unpack_geometry(m)
@@ -760,7 +791,8 @@ def main() -> int:
             st = plan.stages
             re, im = planes((n + 1) // 2, b)
             kw = dict(tables=(st.tables(True), st.tables(False)),
-                      kernel_tables=(st.kernel_fwd, st.kernel_inv), chirps=plan.chirps(False))
+                      kernel_tables=(st.kernel_fwd, st.kernel_inv),
+                      pair_tables=(st.pair_fwd, st.pair_inv), chirps=plan.chirps(False))
             p = (sv.vpu_irfft_odd_unpack_batch_minor_reference(re, im, n, st.size, kw["tables"],
                                                                kw["chirps"]),)
             run = lambda body: (sv.vpu_irfft_odd_unpack_batch_minor(re, im, n, st.size,
@@ -773,7 +805,8 @@ def main() -> int:
             st = plan.stages
             x = planes(n, b)[0]
             kw = dict(tables=(st.tables(True), st.tables(False)),
-                      kernel_tables=(st.kernel_fwd, st.kernel_inv), chirps=plan.chirps(True))
+                      kernel_tables=(st.kernel_fwd, st.kernel_inv),
+                      pair_tables=(st.pair_fwd, st.pair_inv), chirps=plan.chirps(True))
             p = sv.vpu_rfft_odd_pack_batch_minor_reference(x, n, st.size, kw["tables"],
                                                            kw["chirps"])
             run = lambda body: sv.vpu_rfft_odd_pack_batch_minor(x, n, st.size,
@@ -802,13 +835,15 @@ def main() -> int:
                                 if kernel == "B1" else (dv.vpu_dd_fft_batch_minor_reference,
                                                         dv.vpu_dd_fft_batch_minor))
                 kw = dict(tables=plan.tables(fwd),
-                          kernel_tables=plan.kernel_fwd if fwd else plan.kernel_inv)
+                          kernel_tables=plan.kernel_fwd if fwd else plan.kernel_inv,
+                          pair_tables=plan.pair_fwd)
                 p = ref(re, im, n, kw["tables"], fwd, scale)
                 run = (lambda body, fwd=fwd, scale=scale, kw=kw, wrapper=wrapper:
                        wrapper(re, im, n, fwd, scale, _body=body, **kw))
             else:
                 kw = dict(tables=(st.tables(True), st.tables(False)),
                           kernel_tables=(st.kernel_fwd, st.kernel_inv),
+                          pair_tables=(st.pair_fwd, st.pair_inv),
                           chirps=plan.chirps(fwd))
                 p = sv.vpu_bluestein_batch_minor_reference(
                     re, im, n, st.size, kw["tables"], kw["chirps"], scale)
@@ -909,7 +944,8 @@ def main() -> int:
             tw = plan.tw_fwd if fwd else plan.tw_inv
             kw = dict(tables=rp.tables(fwd), pre_tw=(tw[0], tw[1]),
                       tw_fwd=(plan.tw_fwd[0], plan.tw_fwd[1]),
-                      kernel_tables=rp.kernel_fwd if fwd else rp.kernel_inv)
+                      kernel_tables=rp.kernel_fwd if fwd else rp.kernel_inv,
+                      pair_tables=rp.pair_fwd)
             p = sv.vpu_fft_four_step_row_reference(
                 re3, im3, p_, q_, kw["tables"], kw["pre_tw"], fwd, mode.scale(n))
             for body in ("stage", "pair"):
@@ -1009,7 +1045,7 @@ def main() -> int:
     for m in B4A_BOUNDARY:
         plan = ftt.RfftPlan(2 * m, device=dev)
         kw = dict(tables=plan.inner.tables(True), kernel_tables=plan.inner.kernel_fwd,
-                  w=plan.w)
+                  pair_tables=plan.inner.pair_fwd, w=plan.w)
         x = planes(2 * m, BATCHES[-1])[0]
         want = sv.vpu_rfft_pack_batch_minor_reference(x, m, kw["tables"], plan.w)
         bodies = ("pair", "stage") if sv.rfft_pack_geometry(m) else ("stage",)
@@ -2279,6 +2315,160 @@ def main() -> int:
 
     slice_inputs = signal_runs()
 
+    # 4k. The plan tooling on the card: plan files, measured planning and
+    # the exported programs, each with the counts zeroed before it and the
+    # kernels of its trees launched.
+    def tooling_runs():
+        """Phase 4k's runs, in a scope of their own (phase 5 reads the main
+        path's plan and planes)."""
+        from fourier_tpu_torch.plan import measure
+        from fourier_tpu_torch.tools.bench_suite import default_batch
+
+        t0 = time.perf_counter()
+
+        def launched(before):
+            return {k: v - before[k] for k, v in counts().items() if v != before[k]}
+
+        def trip_plan(kind, n):
+            if kind == "rfft":
+                return ftt.RfftPlan(n, device=dev)
+            if kind == "mxu":
+                return ftt.MxuFftPlan.create(n, impl="pallas", device=dev)
+            return ftt.create_fft(n, "complex64" if kind == "c64" else "complex128",
+                                  device=dev, cache=False)
+
+        def trip_run(plan):
+            """The plan's batch-minor calls (batch-major for B9b's plan) on
+            one seeded input, forward and inverse."""
+            g = torch.Generator(device=dev).manual_seed(SEED)
+            if isinstance(plan, ftt.RfftPlan):
+                x = torch.randn(plan.n, TOOL_B, generator=g, device=dev)
+                spec = plan.rfft_planar_bm(x)
+                return (*spec, plan.irfft_planar_bm(*spec))
+            real = plan.real_dtype
+            if isinstance(plan, ftt.MxuFftPlan):
+                re_, im_ = (torch.randn(TOOL_B, plan.size, generator=g, device=dev)
+                            for _ in range(2))
+                return (*plan.transform_planar(re_, im_), *plan.transform_planar(
+                    re_, im_, Transform.SQRT_SCALED_IFFT))
+            re_, im_ = (torch.randn(plan.size, TOOL_B, generator=g, device=dev).to(real)
+                        for _ in range(2))
+            return (*plan.transform_planar_bm(re_, im_),
+                    *plan.transform_planar_bm(re_, im_, Transform.SQRT_SCALED_IFFT))
+
+        def slots(module):
+            return [(f"{p}.{k}", b) for p, mod in module.named_modules()
+                    for k, b in mod._buffers.items()]
+
+        zero_counts()
+        for kind, n in TOOL_TRIPS:
+            plan = trip_plan(kind, n)
+            before = counts()
+            want = trip_run(plan)
+            ran = launched(before)
+            path = "build/phase4k_plan.npz"
+            ftt.save_plan(plan, path)
+            for how, loaded in (("file", ftt.load_plan(path, device=dev)),
+                                ("bytes", ftt.load_plan(ftt.plan_to_bytes(plan), device=dev))):
+                check(plan_tree(loaded) == plan_tree(plan), f"{kind} {n} {how}: tree "
+                      f"{plan_tree(loaded)}, saved {plan_tree(plan)}")
+                for (name_, a), (_, b_) in zip(slots(plan), slots(loaded)):
+                    check((a is None and b_ is None) or (
+                        a is not None and b_ is not None and a.dtype == b_.dtype
+                        and a.device == b_.device and torch.equal(a, b_)),
+                        f"{kind} {n} {how}: buffer {name_} differs after the round trip")
+                before = counts()
+                got = trip_run(loaded)
+                again = launched(before)
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b_) for a, b_ in zip(got, want)),
+                      f"{kind} {n} {how}: the loaded plan's output is not bitwise the "
+                      "saved plan's")
+                check(again == ran, f"{kind} {n} {how}: the loaded plan launched {again}, "
+                      f"the saved one {ran}")
+            print(f"tooling: save_plan/load_plan {kind} n={n} {plan_tree(plan)}: buffers "
+                  f"and outputs bitwise equal through a file and through bytes; "
+                  f"launches {ran or 'none (no kernel on this tree)'} each", flush=True)
+
+        # Measured planning on the card, then the same plans from wisdom.
+        measure.forget_wisdom()
+        winners = {}
+        for n, dtype in TOOL_MEASURE:
+            res = ftt.measure_fft(n, dtype, device=dev)
+            winners[(n, dtype)] = type(res.plan)
+            print(f"tooling: measure_fft n={n} {dtype}: " + ", ".join(
+                f"{k} {v:.1f} us" for k, v in res.timings_us.items())
+                + f" a transform (batch {max(64, default_batch(n) // 4)}); winner "
+                f"{res.best} ({type(res.plan).__name__}) on {card}", flush=True)
+            check(len(res.timings_us) == (3 if dtype == "complex64" else 2)
+                  and all(v > 0 for v in res.timings_us.values()),
+                  f"measure_fft n={n}: {res.timings_us}")
+        time_plan = measure._time_plan
+
+        def no_timing(*_a, **_k):
+            raise AssertionError("backend='measure' timed a plan that wisdom names")
+
+        measure._time_plan = no_timing
+        try:
+            for (n, dtype), cls in winners.items():
+                plan = ftt.create_fft(n, dtype, backend="measure", device=dev, cache=False)
+                check(type(plan) is cls, f"backend='measure' n={n} planned "
+                      f"{type(plan).__name__}, wisdom names {cls.__name__}")
+            doc = ftt.export_wisdom()
+            ftt.forget_wisdom()
+            check(ftt.import_wisdom(doc) == len(TOOL_MEASURE)
+                  and json.loads(ftt.export_wisdom()) == json.loads(doc),
+                  "the wisdom did not round-trip")
+            for n, dtype in TOOL_MEASURE:
+                check(measure.plan_from_wisdom(n, dtype, device=dev) is not None,
+                      f"no plan from the imported wisdom at n={n}")
+        finally:
+            measure._time_plan = time_plan
+        entries = json.loads(doc)["entries"]
+        print(f"tooling: create_fft(backend='measure') planned the winners from wisdom "
+              f"with the timer poisoned; export_wisdom/import_wisdom round trip of "
+              f"{len(entries)} entries ({sorted(entries)}) on {card}", flush=True)
+
+        # Ahead-of-time export: the programs call the kernel operators, and
+        # the loaded artifact launches the kernels.
+        for n, dtype, batch_shape, batches in TOOL_EXPORT:
+            plan = ftt.create_fft(n, dtype, device=dev)
+            path = "build/phase4k_compiled.npz"
+            t_export = time.perf_counter()
+            ftt.export_compiled(plan, path, batch_shape=batch_shape)
+            t_export = time.perf_counter() - t_export
+            t_load = time.perf_counter()
+            comp = ftt.load_compiled(path)
+            t_load = time.perf_counter() - t_load
+            ops = comp.meta["kernels"]
+            check(all(ops[m] for m in comp.modes), f"export n={n}: no kernel operator in "
+                  f"the graph: {ops}")
+            for b in batches:
+                re_, im_ = (torch.randn(b, n, generator=gen, device=dev).to(plan.real_dtype)
+                            for _ in range(2))
+                for mode in (Transform.FFT, Transform.IFFT):
+                    before = counts()
+                    got = comp.transform_planar(re_, im_, mode)
+                    by_artifact = launched(before)
+                    want = plan.transform_planar(re_, im_, mode)
+                    torch.cuda.synchronize()
+                    check(sum(by_artifact.values()) > 0, f"export n={n} B={b}: the loaded "
+                          "artifact launched no kernel")
+                    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                          f"export n={n} B={b} {mode.name}: the artifact's output is not "
+                          "bitwise the plan's")
+            print(f"tooling: export_compiled n={n} {dtype} batch {batch_shape} "
+                  f"({type(plan).__name__}): graph {ops}; export {t_export:.2f} s, load "
+                  f"{t_load:.2f} s; the loaded artifact at B in {batches} launched the "
+                  f"kernels, outputs bitwise equal to the plan's", flush=True)
+        tool_launches = counts()
+        for k, v in tool_launches.items():
+            path_launches[k] += v
+        print(f"tooling: phase 4k launches {({k: v for k, v in tool_launches.items() if v})}"
+              f" in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    tooling_runs()
+
     # 5. Timing: CHAIN dependent SQRT_SCALED_FFT calls, median of REPS.
     mode = Transform.SQRT_SCALED_FFT
     tables = plan.tables(True)
@@ -2286,7 +2476,8 @@ def main() -> int:
 
     def kernel(a, b):
         return sv.vpu_fft_batch_minor(a, b, MAIN_N, True, scale, tables=tables,
-                                      kernel_tables=plan.kernel_fwd)
+                                      kernel_tables=plan.kernel_fwd,
+                                      pair_tables=plan.pair_fwd)
 
     def plain(a, b):
         return sv.vpu_fft_batch_minor_reference(a, b, MAIN_N, tables, True, scale)
@@ -2348,19 +2539,18 @@ def main() -> int:
           f"{bounds['B1'][0] / timed['B1 kernel']:.4f} of its bound "
           f"{bounds['B1'][0]:.4f} ms ({bounds['B1'][1]}) on {card}", flush=True)
 
-    def b1_bodies(n, a, c, scale_, kernel_tables, tables_):
+    def b1_bodies(n, a, c, scale_, plan_, tables_):
         """B1's stage and clustered bodies on (a, c), for same_run_ab."""
         return [lambda body=body: sv.vpu_fft_batch_minor(
-            a, c, n, True, scale_, tables=tables_, kernel_tables=kernel_tables,
-            _body=body) for body in ("stage", "pair")]
+            a, c, n, True, scale_, tables=tables_, kernel_tables=plan_.kernel_fwd,
+            pair_tables=plan_.pair_fwd, _body=body) for body in ("stage", "pair")]
 
     same_run_ab(f"B1 n={MAIN_N} B={MAIN_B}",
-                *b1_bodies(MAIN_N, re, im, scale, plan.kernel_fwd, tables), CHAIN)
+                *b1_bodies(MAIN_N, re, im, scale, plan, tables), CHAIN)
     plan_1k = ftt.create_fft_f32(1024, device="cuda")
     a1k, c1k = planes(1024, 65536)
     same_run_ab("B1 n=1024 B=65536", *b1_bodies(1024, a1k, c1k, 1024 ** -0.5,
-                                                  plan_1k.kernel_fwd,
-                                                  plan_1k.tables(True)), CHAIN)
+                                                  plan_1k, plan_1k.tables(True)), CHAIN)
     del a1k, c1k
 
     # 5b. B2 at n=1013, B=65536: kernel, plain version, torch.fft.
@@ -2368,7 +2558,8 @@ def main() -> int:
     plan = ftt.create_fft_f32(n, device="cuda")
     st, scale = plan.stages, mode.scale(n)
     chirps = plan.chirps(True)
-    kw = dict(tables=(st.tables(True), st.tables(False)), chirps=chirps)
+    kw = dict(tables=(st.tables(True), st.tables(False)), chirps=chirps,
+              pair_tables=(st.pair_fwd, st.pair_inv))
     re, im = planes(n, b)
     xc = torch.complex(re.T.contiguous(), im.T.contiguous())
     flops = 5.0 * n * math.log2(n) * b
@@ -2409,7 +2600,8 @@ def main() -> int:
     plan = ftt.create_fft_f32(n, device="cuda")
     p_, q_, rp = plan.p, plan.q, plan.row_plan
     s3 = p_ ** -0.5  # a unitary row leg keeps the chained values bounded
-    kw = dict(tables=rp.tables(True), pre_tw=(plan.tw_fwd[0], plan.tw_fwd[1]))
+    kw = dict(tables=rp.tables(True), pre_tw=(plan.tw_fwd[0], plan.tw_fwd[1]),
+              pair_tables=rp.pair_fwd)
     re, im = planes(n, b)
     xc = torch.complex(re.T.contiguous(), im.T.contiguous())
 
@@ -2514,13 +2706,13 @@ def main() -> int:
         if (n, b) == (4096, 16384):
             m = n // 2
             kw = dict(tables=plan.inner.tables(True), kernel_tables=plan.inner.kernel_fwd,
-                      w=plan.w)
+                      pair_tables=plan.inner.pair_fwd, w=plan.w)
             same_run_ab(f"B4a n={n} B={b}",
                         lambda: sv.vpu_rfft_pack_batch_minor(x, m, _body="stage", **kw),
                         lambda: sv.vpu_rfft_pack_batch_minor(x, m, _body="pair", **kw),
                         RF_CHAIN)
             ikw = dict(tables=plan.inner.tables(False), kernel_tables=plan.inner.kernel_inv,
-                       w=plan.w)
+                       pair_tables=plan.inner.pair_inv, w=plan.w)
             same_run_ab(f"B4b n={n} B={b}", *[
                 lambda body=body: sv.vpu_irfft_unpack_batch_minor(*spec, m, _body=body, **ikw)
                 for body in ("stage", "pair")], RF_CHAIN)
@@ -2530,6 +2722,7 @@ def main() -> int:
             st = plan.inner.stages
             kw = dict(tables=(st.tables(True), st.tables(False)),
                       kernel_tables=(st.kernel_fwd, st.kernel_inv),
+                      pair_tables=(st.pair_fwd, st.pair_inv),
                       chirps=plan.inner.chirps(True))
             same_run_ab(f"B5a n={n} B={b}", *[
                 lambda body=body: sv.vpu_rfft_odd_pack_batch_minor(
@@ -2586,7 +2779,7 @@ def main() -> int:
             k, tb = "B6", plan.tables(True)
             kernel = lambda a, c, body=None: dv.vpu_dd_fft_batch_minor(
                 a, c, n, True, scale, tables=tb, kernel_tables=plan.kernel_fwd,
-                _body=body)
+                pair_tables=plan.pair_fwd, _body=body)
             plain = lambda a, c: dv.vpu_dd_fft_batch_minor_reference(
                 a, c, n, tb, True, scale)
             kb = bound(32.0 * n * b, 5.0 * n * math.log2(n) * b, F64_RATE)
@@ -2596,7 +2789,8 @@ def main() -> int:
             tb, chirps = (st.tables(True), st.tables(False)), plan.chirps(True)
             kernel = lambda a, c: dv.vpu_dd_bluestein_batch_minor(
                 a, c, n, st.size, scale, tables=tb,
-                kernel_tables=(st.kernel_fwd, st.kernel_inv), chirps=chirps)
+                kernel_tables=(st.kernel_fwd, st.kernel_inv),
+                pair_tables=(st.pair_fwd, st.pair_inv), chirps=chirps)
             plain = lambda a, c: dv.vpu_dd_bluestein_batch_minor_reference(
                 a, c, n, st.size, tb, chirps, scale)
             kb = bound(32.0 * n * b, chirp_z_flops(n, st.size) * b, F64_RATE)
@@ -2617,7 +2811,8 @@ def main() -> int:
             ni = inner.size
             tb = inner.tables(True)
             kernel = lambda a, c: dv.vpu_dd_fft_batch_minor(
-                a, c, ni, True, ni ** -0.5, tables=tb, kernel_tables=inner.kernel_fwd)
+                a, c, ni, True, ni ** -0.5, tables=tb, kernel_tables=inner.kernel_fwd,
+                pair_tables=inner.pair_fwd)
             plain = lambda a, c: dv.vpu_dd_fft_batch_minor_reference(
                 a, c, ni, tb, True, ni ** -0.5)
             kb = bound(32.0 * ni * b, 5.0 * ni * math.log2(ni) * b, F64_RATE)
@@ -2631,7 +2826,8 @@ def main() -> int:
         if k == "B7":
             bodies = {body: (lambda body=body: dv.vpu_dd_bluestein_batch_minor(
                 re, im, n, st.size, scale, tables=tb,
-                kernel_tables=(st.kernel_fwd, st.kernel_inv), chirps=chirps,
+                kernel_tables=(st.kernel_fwd, st.kernel_inv),
+                pair_tables=(st.pair_fwd, st.pair_inv), chirps=chirps,
                 _body=body)) for body in ("stage", "pair")}
             same_run_ab(f"B7 n={n} B={b}", bodies["stage"], bodies["pair"], DD_CHAIN)
         if tree[0] == "VpuDdFftPlan" and dv.fft_pair_geometry_dd(n):
@@ -2724,7 +2920,8 @@ def main() -> int:
                 plan_ = ftt.RfftPlan(n, backend="vpu", device=dev)
                 check(plan_.fused, f"B4b at m={m}: RfftPlan({n}) is not fused")
                 kw_ = dict(tables=plan_.inner.tables(False),
-                           kernel_tables=plan_.inner.kernel_inv, w=plan_.w)
+                           kernel_tables=plan_.inner.kernel_inv,
+                           pair_tables=plan_.inner.pair_inv, w=plan_.w)
                 run = lambda a, c, body: sv.vpu_irfft_unpack_batch_minor(
                     a, c, m, _body=body, **kw_)
             elif kernel == "B3":
@@ -2735,6 +2932,7 @@ def main() -> int:
                     lambda m, dt, dv_: ftt.VpuFftPlan.create(m, dt, dv_), device=dev)
                 rp_ = plan_.row_plan
                 kw_ = dict(tables=rp_.tables(True), kernel_tables=rp_.kernel_fwd,
+                           pair_tables=rp_.pair_fwd,
                            pre_tw=(plan_.tw_fwd[0], plan_.tw_fwd[1]))
                 run = lambda a, c, body: sv.vpu_fft_four_step_row(
                     a.view(q_, p_, -1), c.view(q_, p_, -1), p_, q_, True, None,
@@ -2743,7 +2941,8 @@ def main() -> int:
                 n = rows = size
                 plan_ = (ftt.VpuFftPlan if kernel == "B1" else ftt.VpuDdFftPlan).create(
                     n, device=dev)
-                kw_ = dict(tables=plan_.tables(True), kernel_tables=plan_.kernel_fwd)
+                kw_ = dict(tables=plan_.tables(True), kernel_tables=plan_.kernel_fwd,
+                           pair_tables=plan_.pair_fwd)
                 wrapper = sv.vpu_fft_batch_minor if kernel == "B1" else dv.vpu_dd_fft_batch_minor
                 run = lambda a, c, body: wrapper(a, c, n, True, None, _body=body, **kw_)
             else:
@@ -2754,6 +2953,7 @@ def main() -> int:
                 check(st_.size == size, f"{kernel} at n={n} plans M={st_.size}, not {size}")
                 kw_ = dict(tables=(st_.tables(True), st_.tables(False)),
                            kernel_tables=(st_.kernel_fwd, st_.kernel_inv),
+                           pair_tables=(st_.pair_fwd, st_.pair_inv),
                            chirps=plan_.chirps(kernel != "B5b"))
                 if kernel == "B2":
                     run = lambda a, c, body: sv.vpu_bluestein_batch_minor(
@@ -3134,6 +3334,39 @@ def main() -> int:
 
     signal_times(slice_inputs)
     del slice_inputs
+
+    # 5j. The comparative suite's rows at one size a family, the large and
+    # rfft rows among them (tools/bench_suite.py, the full run's code):
+    # the port, torch.fft and the host libraries, each row within its gate.
+    def suite_rows():
+        from fourier_tpu_torch.tools import bench_suite
+
+        t0 = time.perf_counter()
+        # The host columns at SUITE_HOST_ROWS rows and SUITE_HOST_ITERS calls
+        # (scaled to the row's batch, as the suite scales its 8192): this
+        # phase checks the rows; the full run keeps the suite's depth.
+        depth = bench_suite._HOST_ROW_CAP, bench_suite.HOST_ITERS
+        bench_suite._HOST_ROW_CAP, bench_suite.HOST_ITERS = SUITE_HOST_ROWS, SUITE_HOST_ITERS
+        try:
+            rows = bench_suite.run(max_sizes=1, device=dev)
+        finally:
+            bench_suite._HOST_ROW_CAP, bench_suite.HOST_ITERS = depth
+        for row in rows:
+            gate = DD_GATE if row["dtype"] == "c128" else SUITE_GATE
+            check(row["rel_l2"] <= gate, f"suite {row['family']} n={row['n']} "
+                  f"{row['dtype']} {row['direction']}: rel-L2 {row['rel_l2']:.3e} (gate "
+                  f"{gate:g})")
+            check(all(f"{k}_us" in row for k in ("fourier_tpu_torch", "torch_fft", "numpy",
+                                                  "scipy")),
+                  f"suite row lacks a time: {row}")
+        check(len(rows) == SUITE_ROWS, f"the suite ran {len(rows)} rows, not {SUITE_ROWS}")
+        print(f"suite: {len(rows)} rows (one size a family, the large and rfft rows) "
+              "within their gates; port / torch.fft us a transform: " + "; ".join(
+                  f"{r['family']} {r['n']} {r['dtype']} {r['direction']} "
+                  f"{r['fourier_tpu_torch_us']} / {r['torch_fft_us']}" for r in rows)
+              + f" on {card}; {time.perf_counter() - t0:.1f} s", flush=True)
+
+    suite_rows()
 
     kernels = (
         ("B1", "B1 fused Stockham c64 (vpu_fft_batch_minor; clustered-block body, "

@@ -31,6 +31,15 @@ signal, resampling, the chirp-z transform, ``CztPlan`` and ``ConvolvePlan``
 (``spectral.py``); and ``scipy_fft_backend`` runs scipy.fft calls, and the
 scipy.signal code above them, on the port (``scipy_backend.py``).
 
+Plans save and load without planning (``save_plan``, ``load_plan``,
+``plan_to_bytes``; ``plan/serialize.py``), plan by measurement on the card
+with wisdom (``measure_fft``, ``create_fft(backend="measure")``,
+``export_wisdom``, ``import_wisdom``; ``plan/measure.py``) and export ahead
+of time (``export_compiled``, ``load_compiled``, ``CompiledFft``;
+``plan/aot.py``, ``torch.export`` over the kernels as registered
+operators). ``tools/bench_suite.py`` times the suite's rows beside
+``torch.fft``; ``tools/prof.py`` runs a plan in a loop for the profiler.
+
 This package imports torch and never jax.
 """
 
@@ -42,6 +51,7 @@ import torch as _torch
 from fourier_tpu_torch.plan import (
     AutosortPlan,
     BluesteinPlan,
+    CompiledFft,
     DdSplitPow2Plan,
     DdSplitRadixPlan,
     FftPlan,
@@ -55,7 +65,16 @@ from fourier_tpu_torch.plan import (
     create_fft,
     create_fft_f32,
     create_fft_f64,
+    export_compiled,
+    export_wisdom,
+    forget_wisdom,
+    import_wisdom,
+    load_compiled,
     load_jax_plan,
+    load_plan,
+    measure_fft,
+    plan_to_bytes,
+    save_plan,
 )
 from fourier_tpu_torch.plan.summary import PlanSummary, describe, summarize
 from fourier_tpu_torch.ndim import (NdFftPlan, _as_tensor, _crop_pad_axis,
@@ -173,6 +192,7 @@ def ifft_planar(re, im, dtype=None, device="cuda"):
 __all__ = [
     "AutosortPlan",
     "BluesteinPlan",
+    "CompiledFft",
     "ConvolvePlan",
     "CztPlan",
     "DdSplitPow2Plan",
@@ -205,6 +225,8 @@ __all__ = [
     "describe",
     "dst",
     "dstn",
+    "export_compiled",
+    "export_wisdom",
     "fft",
     "fft2",
     "fft_planar",
@@ -214,6 +236,7 @@ __all__ = [
     "fftshift",
     "fht",
     "fhtoffset",
+    "forget_wisdom",
     "get_workers",
     "hfft",
     "hfft2",
@@ -233,20 +256,26 @@ __all__ = [
     "ihfft",
     "ihfft2",
     "ihfftn",
+    "import_wisdom",
     "irfft",
     "irfft2",
     "irfftn",
     "istft",
+    "load_compiled",
     "load_jax_plan",
+    "load_plan",
+    "measure_fft",
     "next_fast_len",
     "oaconvolve",
     "periodogram",
+    "plan_to_bytes",
     "prev_fast_len",
     "resample",
     "rfft",
     "rfft2",
     "rfftfreq",
     "rfftn",
+    "save_plan",
     "scipy_fft_backend",
     "set_workers",
     "spectrogram",

@@ -27,7 +27,9 @@ below ``B9B_FMA_WORK``, where the card's sweep found it faster
 (:func:`two_phase_body`). No product
 takes the caller's TF32 setting. Each wrapper runs its plain version for
 tensors on the CPU and launches its kernel (or raises) for tensors on a
-CUDA device; it counts its launches in its ``launches`` attribute (B9b's
+CUDA device, through a registered operator (``fourier_tpu_torch::
+mxu_fft_single``, ``::mxu_fft_two_phase``); it counts its launches in its
+``launches`` attribute (B9b's
 tensor-core ones also in ``mma_launches``). ``tb`` is the TPU kernel's
 batch tile; here it caps the rows or transforms a block takes at once,
 and no result depends on it. :func:`single_geometry` and
@@ -40,6 +42,7 @@ import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch import Tensor
 
 from fourier_tpu_torch.ops import bailey
 from fourier_tpu_torch.ops.cuda import build
@@ -223,6 +226,15 @@ def mxu_fft_single(re, im, dre, dim, *, tb: Optional[int] = None,
     if re.device.type == "cpu":
         return bailey.xla_fft_single(re, im, dre, dim)
     check_tables(re.device, dre, dim)
+    return _mxu_fft_single_op(re, im, dre, dim, tb, body)
+
+
+@torch.library.custom_op("fourier_tpu_torch::mxu_fft_single", mutates_args=(),
+                         device_types="cuda")
+def _mxu_fft_single_op(re: Tensor, im: Tensor, dre: Tensor, dim: Tensor,
+                       tb: Optional[int], body: str) -> Tuple[Tensor, Tensor]:
+    """B9a's launch (see :func:`mxu_fft_single`)."""
+    n = dre.shape[0]
     out_re = torch.empty_like(re)
     out_im = torch.empty_like(im)
     batch = re.shape[0]
@@ -240,6 +252,11 @@ def mxu_fft_single(re, im, dre, dim, *, tb: Optional[int] = None,
                    stream_of(re))
     mxu_fft_single.launches += 1
     return out_re, out_im
+
+
+@_mxu_fft_single_op.register_fake
+def _(re, im, *_):
+    return torch.empty_like(re), torch.empty_like(im)
 
 
 mxu_fft_single.launches = 0
@@ -278,6 +295,17 @@ def mxu_fft_two_phase(re, im, d2re, d2im, tre, tim, d1re, d1im, *,
     if re.device.type == "cpu":
         return bailey.reference_two_phase(re, im, d2re, d2im, tre, tim, d1re, d1im)
     check_tables(re.device, d2re, d2im, tre, tim, d1re, d1im)
+    return _mxu_fft_two_phase_op(re, im, d2re, d2im, tre, tim, d1re, d1im, tb, body)
+
+
+@torch.library.custom_op("fourier_tpu_torch::mxu_fft_two_phase", mutates_args=(),
+                         device_types="cuda")
+def _mxu_fft_two_phase_op(re: Tensor, im: Tensor, d2re: Tensor, d2im: Tensor,
+                          tre: Tensor, tim: Tensor, d1re: Tensor, d1im: Tensor,
+                          tb: Optional[int], body: str) -> Tuple[Tensor, Tensor]:
+    """B9b's launch (see :func:`mxu_fft_two_phase`)."""
+    n2, n1 = tre.shape
+    n = n1 * n2
     out_re = torch.empty_like(re)
     out_im = torch.empty_like(im)
     batch = re.shape[0]
@@ -301,6 +329,11 @@ def mxu_fft_two_phase(re, im, d2re, d2im, tre, tim, d1re, d1im, *,
                    re.device.index, stream_of(re))
     mxu_fft_two_phase.launches += 1
     return out_re, out_im
+
+
+@_mxu_fft_two_phase_op.register_fake
+def _(re, im, *_):
+    return torch.empty_like(re), torch.empty_like(im)
 
 
 mxu_fft_two_phase.launches = 0

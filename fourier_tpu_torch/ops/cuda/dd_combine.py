@@ -18,15 +18,17 @@ and the mode scale rides those tables and class 0.
 :func:`dd_split_combine_batch_minor_reference` is the plain PyTorch version,
 :func:`dd_split_combine_batch_minor` the kernel's wrapper (library
 ``csrc/stockham_vpu_dd.cu``): it runs the plain version for tensors on the
-CPU, launches the kernel (or raises) for tensors on a CUDA device, and counts
+CPU, launches the kernel (or raises) for tensors on a CUDA device, through
+the registered operator ``fourier_tpu_torch::dd_split_combine``, and counts
 its launches in ``launches``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+from torch import Tensor
 
 from fourier_tpu_torch.ops import cplx
 from fourier_tpu_torch.ops.butterflies import BUTTERFLIES
@@ -79,6 +81,16 @@ def dd_split_combine_batch_minor(re_t, im_t, n: int, r: int, forward: bool,
         return dd_split_combine_batch_minor_reference(re_t, im_t, n, r, tables,
                                                       forward, scale)
     check_tables(re_t.device, tables, dtype=F64)
+    return _dd_split_combine_op(re_t, im_t, n, r, forward, scale, tables)
+
+
+@torch.library.custom_op("fourier_tpu_torch::dd_split_combine", mutates_args=(),
+                         device_types="cuda")
+def _dd_split_combine_op(re_t: Tensor, im_t: Tensor, n: int, r: int, forward: bool,
+                         scale: Optional[float], tables: Tensor
+                         ) -> Tuple[Tensor, Tensor]:
+    """B8's launch (see :func:`dd_split_combine_batch_minor`)."""
+    m = n // r
     batch = re_t.shape[1] // r
     out_re = torch.empty(n, batch, dtype=F64, device=re_t.device)
     out_im = torch.empty_like(out_re)
@@ -92,6 +104,12 @@ def dd_split_combine_batch_minor(re_t, im_t, n: int, r: int, forward: bool,
     )
     dd_split_combine_batch_minor.launches += 1
     return out_re, out_im
+
+
+@_dd_split_combine_op.register_fake
+def _(re_t, im_t, n, r, *_):
+    out = re_t.new_empty((n, re_t.shape[1] // r))
+    return out, torch.empty_like(out)
 
 
 dd_split_combine_batch_minor.launches = 0

@@ -65,7 +65,13 @@ clustered-block bodies of B1, B2, B3, B4a, B4b, B5a and B5b
 
 Each wrapper runs its plain version for tensors on the CPU, and launches its
 kernel (or raises) for tensors on a CUDA device; it counts its launches in
-its ``launches`` attribute.
+its ``launches`` attribute. Each launch is a registered operator
+(``torch.library.custom_op``, ``fourier_tpu_torch::<name>``, with a fake
+implementation that gives the outputs' shapes), so that ``torch.export``
+keeps it in the graph of a plan on the card; the choice of body and
+geometry happens inside the operator. The clustered bodies read the tables
+of :func:`pair_tables`, which the plans build at plan time and pass in
+(``pair_tables=``); no wrapper computes a twiddle.
 
 The stage bodies run their own schedule, :func:`kernel_schedule`, which
 splits each radix of :func:`radix_schedule` into radices 8, 4, 2, 3 and 5,
@@ -82,6 +88,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import Tensor
 
 from fourier_tpu_torch.ops import cplx, hermitian
 from fourier_tpu_torch.ops.butterflies import BUTTERFLIES
@@ -347,13 +354,25 @@ def pair_tables(m: int, forward: bool, real=np.float64, ranks: int = 2) -> np.nd
                           axis=1).astype(real)
 
 
-@functools.lru_cache(maxsize=None)
-def pair_device_tables(m: int, forward: bool, dtype: torch.dtype,
-                       device: torch.device, ranks: int = 2) -> torch.Tensor:
-    """:func:`pair_tables` narrowed to `dtype` on `device`, made once per
-    (m, direction, dtype, device, ranks) at the first launch."""
-    real = np.float32 if dtype == torch.float32 else np.float64
-    return torch.as_tensor(pair_tables(m, forward, real, ranks), device=device)
+def pair_table_length(m: int, ranks: int = 2) -> int:
+    """Entries of each plane of :func:`pair_tables` (m, ranks): the split's
+    (ranks-1)*h and every pass's size but the last's (h = m/ranks)."""
+    h = m // ranks
+    return (ranks - 1) * h + sum(size for size, _ in _stage_sizes(h, pass_schedule(h)))
+
+
+def check_pair_tables(device, m: int, ranks: int, *tables, dtype=torch.float32):
+    """The plan's clustered-body tables: each the (2, L) :func:`pair_tables`
+    of (m, ranks), of `dtype` on `device`; a body whose plan holds none is
+    refused."""
+    for t in tables:
+        if t is None:
+            raise ValueError(f"the clustered-block body at m={m} needs the plan's "
+                             "pair tables (pair_tables=)")
+        if tuple(t.shape) != (2, pair_table_length(m, ranks)):
+            raise ValueError(f"pair tables of shape {tuple(t.shape)} are not those of "
+                             f"m={m} on clusters of {ranks} blocks")
+    check_tables(device, *tables, dtype=dtype)
 
 
 def pair_geometry(m: int, itemsize: int, threads: int, ranks: int = 2) -> PairGeometry:
@@ -664,23 +683,36 @@ def pick_body(what: str, geo, body: Optional[str], stage_faster: bool = False) -
 
 def vpu_fft_batch_minor(re_t, im_t, n: int, forward: bool,
                         scale: Optional[float], *, tables, kernel_tables,
-                        _body: Optional[str] = None):
+                        pair_tables=None, _body: Optional[str] = None):
     """B1 over contiguous planar f32 (n, B) planes; returns new planes.
 
     `tables`: the compact stage tables of :func:`make_stage_tables` as
     tensors (plain version); `kernel_tables`: the (2, L) f32 tensor of
-    :func:`make_kernel_tables` (the stage body), both direction-matched and
-    on the planes' device. The kernel is the clustered-block body of
-    ``csrc/fft_pair.cu`` where :func:`fft_pair_geometry` gives one and n is
-    not in B1_STAGE_FASTER (its forward tables, for both directions, from
-    :func:`pair_device_tables`), else the stage body; `_body` ("pair" or
-    "stage") forces one, for same-run comparisons.
+    :func:`make_kernel_tables` (the stage body), both direction-matched;
+    `pair_tables`: the forward (2, L) f32 :func:`pair_tables` of n on the
+    body's clusters (the clustered body reads it in both directions), None
+    where n has no clustered body; all on the planes' device. The kernel is
+    the clustered-block body of ``csrc/fft_pair.cu`` where
+    :func:`fft_pair_geometry` gives one and n is not in B1_STAGE_FASTER,
+    else the stage body; `_body` ("pair" or "stage") forces one, for
+    same-run comparisons. On a card the launch is the operator
+    ``fourier_tpu_torch::vpu_fft``.
     """
     check_planes(re_t, im_t, (n,), "B1")
     if re_t.device.type == "cpu":
         return vpu_fft_batch_minor_reference(re_t, im_t, n, tables, forward,
                                              scale)
     check_tables(re_t.device, kernel_tables)
+    return _vpu_fft_op(re_t, im_t, n, forward, scale, kernel_tables, pair_tables, _body)
+
+
+@torch.library.custom_op("fourier_tpu_torch::vpu_fft", mutates_args=(),
+                         device_types="cuda")
+def _vpu_fft_op(re_t: Tensor, im_t: Tensor, n: int, forward: bool,
+                scale: Optional[float], kernel_tables: Tensor,
+                pair_tables: Optional[Tensor], body: Optional[str]
+                ) -> Tuple[Tensor, Tensor]:
+    """B1's launch (see :func:`vpu_fft_batch_minor`)."""
     out_re = torch.empty_like(re_t)
     out_im = torch.empty_like(im_t)
     batch = re_t.shape[1]
@@ -688,15 +720,15 @@ def vpu_fft_batch_minor(re_t, im_t, n: int, forward: bool,
         return out_re, out_im
     geo = fft_pair_geometry(n)
     data = (re_t.data_ptr(), im_t.data_ptr(), out_re.data_ptr(), out_im.data_ptr())
-    if pick_body(f"B1 at n={n}", geo, _body, n in B1_STAGE_FASTER) == "pair":
-        tw = pair_device_tables(n, True, torch.float32, re_t.device, geo.ranks)
+    if pick_body(f"B1 at n={n}", geo, body, n in B1_STAGE_FASTER) == "pair":
+        check_pair_tables(re_t.device, n, geo.ranks, pair_tables)
         build.call(
             fft_pair_library(), "fourier_stockham_pair_c64",
             f"B1 ({geo.ranks}-block clusters) at n={n}, B={batch}", *data,
             n, batch, geo.ranks, geo.cols, geo.threads,
             *radices_arg(pass_schedule(geo.rows)),
-            tw[0].data_ptr(), tw[1].data_ptr(), int(forward), scale_arg(scale),
-            re_t.device.index, stream_of(re_t),
+            pair_tables[0].data_ptr(), pair_tables[1].data_ptr(), int(forward),
+            scale_arg(scale), re_t.device.index, stream_of(re_t),
         )
     else:
         cols, threads = launch_geometry(n)
@@ -708,6 +740,11 @@ def vpu_fft_batch_minor(re_t, im_t, n: int, forward: bool,
         )
     vpu_fft_batch_minor.launches += 1
     return out_re, out_im
+
+
+@_vpu_fft_op.register_fake
+def _(re_t, im_t, *_):
+    return torch.empty_like(re_t), torch.empty_like(im_t)
 
 
 vpu_fft_batch_minor.launches = 0
@@ -745,42 +782,55 @@ def vpu_bluestein_batch_minor_reference(re_t, im_t, n: int, m: int, tables,
 
 def vpu_bluestein_batch_minor(re_t, im_t, n: int, m: int,
                               scale: Optional[float], *, tables, kernel_tables,
-                              chirps, _body: Optional[str] = None):
+                              chirps, pair_tables=(None, None),
+                              _body: Optional[str] = None):
     """B2 over contiguous planar f32 (n, B) planes; returns new planes.
 
     `tables`: (forward, inverse) compact stage tables for m as tensors
     (plain version); `kernel_tables`: the (forward, inverse) (2, L) tensors
-    of :func:`make_kernel_tables` for m (the stage body); `chirps`: the
-    direction-matched (xt, wt, xo) of :func:`vpu_bluestein_batch_minor_reference`;
-    all on the planes' device. The kernel is the paired-block body of
-    ``csrc/bluestein_pair.cu`` where :func:`bluestein_pair_geometry_c64`
-    gives one (M <= 2048) and M is not in B2_STAGE_FASTER (its tables from
-    :func:`pair_device_tables`), else the stage body; `_body` ("pair" or
-    "stage") forces one, for same-run comparisons.
+    of :func:`make_kernel_tables` for m (the stage body); `pair_tables`:
+    the (forward, inverse) :func:`pair_tables` of m (the paired body; None
+    where m has none); `chirps`: the direction-matched (xt, wt, xo) of
+    :func:`vpu_bluestein_batch_minor_reference`; all on the planes' device.
+    The kernel is the paired-block body of ``csrc/bluestein_pair.cu`` where
+    :func:`bluestein_pair_geometry_c64` gives one (M <= 2048) and M is not
+    in B2_STAGE_FASTER, else the stage body; `_body` ("pair" or "stage")
+    forces one, for same-run comparisons. On a card the launch is the
+    operator ``fourier_tpu_torch::vpu_bluestein``.
     """
     check_planes(re_t, im_t, (n,), "B2")
     if re_t.device.type == "cpu":
         return vpu_bluestein_batch_minor_reference(re_t, im_t, n, m, tables,
                                                    chirps, scale)
     check_tables(re_t.device, *kernel_tables, *chirps)
+    return _vpu_bluestein_op(re_t, im_t, n, m, scale, *kernel_tables, *pair_tables,
+                             *chirps, _body)
+
+
+@torch.library.custom_op("fourier_tpu_torch::vpu_bluestein", mutates_args=(),
+                         device_types="cuda")
+def _vpu_bluestein_op(re_t: Tensor, im_t: Tensor, n: int, m: int,
+                      scale: Optional[float], kf: Tensor, ki: Tensor,
+                      pf: Optional[Tensor], pi: Optional[Tensor], xt: Tensor,
+                      wt: Tensor, xo: Tensor, body: Optional[str]
+                      ) -> Tuple[Tensor, Tensor]:
+    """B2's launch (see :func:`vpu_bluestein_batch_minor`)."""
     out_re = torch.empty_like(re_t)
     out_im = torch.empty_like(im_t)
     batch = re_t.shape[1]
     if batch == 0:
         return out_re, out_im
     geo = bluestein_pair_geometry_c64(m)
-    if pick_body(f"B2 at M={m}", geo, _body, m in B2_STAGE_FASTER) == "pair":
+    if pick_body(f"B2 at M={m}", geo, body, m in B2_STAGE_FASTER) == "pair":
         lib, fn, what = (bluestein_pair_library(), "fourier_bluestein_pair_c64",
                          "B2 (paired blocks)")
         cols, threads, schedule = geo.cols, geo.threads, pass_schedule(geo.rows)
-        kf, ki = (pair_device_tables(m, fwd, torch.float32, re_t.device)
-                  for fwd in (True, False))
+        check_pair_tables(re_t.device, m, 2, pf, pi)
+        kf, ki = pf, pi
     else:
         lib, fn, what = library(), "fourier_bluestein_c64", "B2"
         cols, threads = launch_geometry(m)
         schedule = kernel_schedule(m)
-        kf, ki = kernel_tables
-    xt, wt, xo = chirps
     build.call(
         lib, fn, f"{what} at n={n}, M={m}, B={batch}",
         re_t.data_ptr(), im_t.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
@@ -792,6 +842,11 @@ def vpu_bluestein_batch_minor(re_t, im_t, n: int, m: int,
     )
     vpu_bluestein_batch_minor.launches += 1
     return out_re, out_im
+
+
+@_vpu_bluestein_op.register_fake
+def _(re_t, im_t, *_):
+    return torch.empty_like(re_t), torch.empty_like(im_t)
 
 
 vpu_bluestein_batch_minor.launches = 0
@@ -816,7 +871,8 @@ def vpu_fft_four_step_row_reference(re3, im3, p: int, q: int, tables, pre_tw,
 
 def vpu_fft_four_step_row(re3, im3, p: int, q: int, forward: bool,
                           scale: Optional[float], *, tables, kernel_tables,
-                          pre_tw, tw_fwd=None, _body: Optional[str] = None):
+                          pre_tw, tw_fwd=None, pair_tables=None,
+                          _body: Optional[str] = None):
     """B3 over contiguous planar f32 (q, p, B) planes (the column leg's
     output); returns new natural-order (p*q, B) planes.
 
@@ -825,18 +881,34 @@ def vpu_fft_four_step_row(re3, im3, p: int, q: int, forward: bool,
     (the stage body); `pre_tw`: the (q, p) planar split twiddle, all
     direction-matched and on the planes' device; `tw_fwd`: the forward
     (q, p) split twiddle, which the clustered body reads in both directions
-    (None: `pre_tw`, which must then be the forward one). The kernel is the
-    clustered-block body of ``csrc/four_step_pair.cu`` where
-    :func:`four_step_pair_geometry` gives one and p is not in
-    B3_STAGE_FASTER (the forward tables of :func:`pair_device_tables`),
-    else the stage body; `_body` ("pair" or "stage") forces one, for
-    same-run comparisons.
+    (None: `pre_tw`, which must then be the forward one); `pair_tables`:
+    the forward :func:`pair_tables` of p on the body's clusters (None where
+    p has no clustered body). The kernel is the clustered-block body of
+    ``csrc/four_step_pair.cu`` where :func:`four_step_pair_geometry` gives
+    one and p is not in B3_STAGE_FASTER, else the stage body; `_body`
+    ("pair" or "stage") forces one, for same-run comparisons. On a card the
+    launch is the operator ``fourier_tpu_torch::four_step_row``.
     """
     check_planes(re3, im3, (q, p), "B3")
     if re3.device.type == "cpu":
         return vpu_fft_four_step_row_reference(re3, im3, p, q, tables, pre_tw,
                                                forward, scale)
     check_tables(re3.device, kernel_tables, *pre_tw)
+    if tw_fwd is None:
+        tw_fwd = pre_tw
+    return _four_step_row_op(re3, im3, p, q, forward, scale, kernel_tables,
+                             pair_tables, *pre_tw, *tw_fwd, tw_fwd is pre_tw, _body)
+
+
+@torch.library.custom_op("fourier_tpu_torch::four_step_row", mutates_args=(),
+                         device_types="cuda")
+def _four_step_row_op(re3: Tensor, im3: Tensor, p: int, q: int, forward: bool,
+                      scale: Optional[float], kernel_tables: Tensor,
+                      pair_tables: Optional[Tensor], pre_re: Tensor, pre_im: Tensor,
+                      fwd_re: Tensor, fwd_im: Tensor, fwd_is_pre: bool,
+                      body: Optional[str]) -> Tuple[Tensor, Tensor]:
+    """B3's launch (see :func:`vpu_fft_four_step_row`); `fwd_is_pre`: the
+    caller gave no forward twiddle of its own."""
     batch = re3.shape[-1]
     out_re = torch.empty(p * q, batch, dtype=torch.float32, device=re3.device)
     out_im = torch.empty_like(out_re)
@@ -844,21 +916,19 @@ def vpu_fft_four_step_row(re3, im3, p: int, q: int, forward: bool,
         return out_re, out_im
     data = (re3.data_ptr(), im3.data_ptr(), out_re.data_ptr(), out_im.data_ptr())
     geo = four_step_pair_geometry(p)
-    if pick_body(f"B3 at p={p}", geo, _body, p in B3_STAGE_FASTER) == "pair":
-        if tw_fwd is None:
-            if not forward:
-                raise ValueError("B3's clustered body takes the forward split "
-                                 "twiddle (tw_fwd) for an inverse")
-            tw_fwd = pre_tw
-        check_tables(re3.device, *tw_fwd)
-        tw = pair_device_tables(p, True, torch.float32, re3.device, geo.ranks)
+    if pick_body(f"B3 at p={p}", geo, body, p in B3_STAGE_FASTER) == "pair":
+        if fwd_is_pre and not forward:
+            raise ValueError("B3's clustered body takes the forward split "
+                             "twiddle (tw_fwd) for an inverse")
+        check_tables(re3.device, fwd_re, fwd_im)
+        check_pair_tables(re3.device, p, geo.ranks, pair_tables)
         build.call(
             four_step_pair_library(), "fourier_four_step_pair_c64",
             f"B3 ({geo.ranks}-block clusters) at p={p}, q={q}, B={batch}", *data,
             p, q, batch, geo.ranks, geo.cols, geo.threads,
             *radices_arg(pass_schedule(geo.rows)),
-            tw[0].data_ptr(), tw[1].data_ptr(), tw_fwd[0].data_ptr(),
-            tw_fwd[1].data_ptr(), int(forward), scale_arg(scale),
+            pair_tables[0].data_ptr(), pair_tables[1].data_ptr(), fwd_re.data_ptr(),
+            fwd_im.data_ptr(), int(forward), scale_arg(scale),
             re3.device.index, stream_of(re3),
         )
     else:
@@ -867,11 +937,17 @@ def vpu_fft_four_step_row(re3, im3, p: int, q: int, forward: bool,
             "fourier_four_step_row_c64", f"B3 at p={p}, q={q}, B={batch}", *data,
             p, q, batch, cols, threads, *_radices(p),
             kernel_tables[0].data_ptr(), kernel_tables[1].data_ptr(),
-            pre_tw[0].data_ptr(), pre_tw[1].data_ptr(),
+            pre_re.data_ptr(), pre_im.data_ptr(),
             int(forward), scale_arg(scale), re3.device.index, stream_of(re3),
         )
     vpu_fft_four_step_row.launches += 1
     return out_re, out_im
+
+
+@_four_step_row_op.register_fake
+def _(re3, im3, p, q, *_):
+    out = re3.new_empty((p * q, re3.shape[-1]))
+    return out, torch.empty_like(out)
 
 
 vpu_fft_four_step_row.launches = 0
@@ -910,37 +986,48 @@ def _check_w(w, m: int, device):
 
 
 def vpu_rfft_pack_batch_minor(x_t, m: int, *, tables, kernel_tables, w,
-                              _body: Optional[str] = None):
+                              pair_tables=None, _body: Optional[str] = None):
     """B4a over a contiguous real f32 (2m, B) plane; returns new planar
     (m+1, B) spectrum planes.
 
     `tables`: the compact forward stage tables of m as tensors (plain
     version); `kernel_tables`: the forward (2, L) tensor of
-    :func:`make_kernel_tables` for m (the stage body); `w`: the (2, m) f32
-    table of exp(-2*pi*i*k/(2m)); all on the plane's device. The kernel is
-    the paired-block body where :func:`rfft_pack_geometry` gives one (its
-    tables from :func:`pair_device_tables`), else the stage body; `_body`
-    ("pair" or "stage") forces one, for same-run comparisons.
+    :func:`make_kernel_tables` for m (the stage body); `pair_tables`: the
+    forward :func:`pair_tables` of m (the paired body; None where m has
+    none); `w`: the (2, m) f32 table of exp(-2*pi*i*k/(2m)); all on the
+    plane's device. The kernel is the paired-block body where
+    :func:`rfft_pack_geometry` gives one, else the stage body; `_body`
+    ("pair" or "stage") forces one, for same-run comparisons. On a card the
+    launch is the operator ``fourier_tpu_torch::rfft_pack``.
     """
     check_planes(x_t, x_t, (2 * m,), "B4a")
     _check_w(w, m, x_t.device)
     if x_t.device.type == "cpu":
         return vpu_rfft_pack_batch_minor_reference(x_t, m, tables, w)
     check_tables(x_t.device, kernel_tables)
+    return _rfft_pack_op(x_t, m, kernel_tables, pair_tables, w, _body)
+
+
+@torch.library.custom_op("fourier_tpu_torch::rfft_pack", mutates_args=(),
+                         device_types="cuda")
+def _rfft_pack_op(x_t: Tensor, m: int, kernel_tables: Tensor,
+                  pair_tables: Optional[Tensor], w: Tensor, body: Optional[str]
+                  ) -> Tuple[Tensor, Tensor]:
+    """B4a's launch (see :func:`vpu_rfft_pack_batch_minor`)."""
     batch = x_t.shape[1]
     out_re = torch.empty(m + 1, batch, dtype=torch.float32, device=x_t.device)
     out_im = torch.empty_like(out_re)
     if batch == 0:
         return out_re, out_im
     geo = rfft_pack_geometry(m)
-    if pick_body(f"B4a at m={m}", geo, _body) == "pair":
-        tw = pair_device_tables(m, True, torch.float32, x_t.device)
+    if pick_body(f"B4a at m={m}", geo, body) == "pair":
+        check_pair_tables(x_t.device, m, 2, pair_tables)
         build.call(
             pair_library(), "fourier_rfft_pack_pair_c64",
             f"B4a (paired blocks) at m={m}, B={batch}",
             x_t.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
             m, batch, geo.cols, geo.threads, *radices_arg(pass_schedule(m // 2)),
-            tw[0].data_ptr(), tw[1].data_ptr(),
+            pair_tables[0].data_ptr(), pair_tables[1].data_ptr(),
             w[0].data_ptr(), w[1].data_ptr(), x_t.device.index, stream_of(x_t),
         )
     else:
@@ -956,29 +1043,45 @@ def vpu_rfft_pack_batch_minor(x_t, m: int, *, tables, kernel_tables, w,
     return out_re, out_im
 
 
+@_rfft_pack_op.register_fake
+def _(x_t, m, *_):
+    out = x_t.new_empty((m + 1, x_t.shape[1]))
+    return out, torch.empty_like(out)
+
+
 vpu_rfft_pack_batch_minor.launches = 0
 
 
 def vpu_irfft_unpack_batch_minor(re_t, im_t, m: int, *, tables, kernel_tables,
-                                 w, _body: Optional[str] = None):
+                                 w, pair_tables=None, _body: Optional[str] = None):
     """B4b over contiguous planar f32 (m+1, B) spectrum planes; returns a new
     real (2m, B) plane (the irfft, 1/(2m) included).
 
     `tables`: the compact inverse stage tables of m as tensors (plain
     version); `kernel_tables`: the inverse (2, L) tensor of
-    :func:`make_kernel_tables` for m (the stage body); `w`: as for
-    :func:`vpu_rfft_pack_batch_minor` (conjugated here). The kernel is the
-    paired-block body of ``csrc/irfft_unpack_pair.cu`` where
-    :func:`irfft_unpack_geometry` gives one and m is not in
-    B4B_STAGE_FASTER (its inverse tables from :func:`pair_device_tables`),
-    else the stage body; `_body` ("pair" or "stage") forces one, for
-    same-run comparisons.
+    :func:`make_kernel_tables` for m (the stage body); `pair_tables`: the
+    inverse :func:`pair_tables` of m (the paired body; None where m has
+    none); `w`: as for :func:`vpu_rfft_pack_batch_minor` (conjugated here).
+    The kernel is the paired-block body of ``csrc/irfft_unpack_pair.cu``
+    where :func:`irfft_unpack_geometry` gives one and m is not in
+    B4B_STAGE_FASTER, else the stage body; `_body` ("pair" or "stage")
+    forces one, for same-run comparisons. On a card the launch is the
+    operator ``fourier_tpu_torch::irfft_unpack``.
     """
     check_planes(re_t, im_t, (m + 1,), "B4b")
     _check_w(w, m, re_t.device)
     if re_t.device.type == "cpu":
         return vpu_irfft_unpack_batch_minor_reference(re_t, im_t, m, tables, w)
     check_tables(re_t.device, kernel_tables)
+    return _irfft_unpack_op(re_t, im_t, m, kernel_tables, pair_tables, w, _body)
+
+
+@torch.library.custom_op("fourier_tpu_torch::irfft_unpack", mutates_args=(),
+                         device_types="cuda")
+def _irfft_unpack_op(re_t: Tensor, im_t: Tensor, m: int, kernel_tables: Tensor,
+                     pair_tables: Optional[Tensor], w: Tensor, body: Optional[str]
+                     ) -> Tensor:
+    """B4b's launch (see :func:`vpu_irfft_unpack_batch_minor`)."""
     batch = re_t.shape[1]
     out = torch.empty(2 * m, batch, dtype=torch.float32, device=re_t.device)
     if batch == 0:
@@ -986,14 +1089,14 @@ def vpu_irfft_unpack_batch_minor(re_t, im_t, m: int, *, tables, kernel_tables,
     data = (re_t.data_ptr(), im_t.data_ptr(), out.data_ptr())
     h = float(np.float32(0.5 / m))
     geo = irfft_unpack_geometry(m)
-    if pick_body(f"B4b at m={m}", geo, _body, m in B4B_STAGE_FASTER) == "pair":
-        tw = pair_device_tables(m, False, torch.float32, re_t.device)
+    if pick_body(f"B4b at m={m}", geo, body, m in B4B_STAGE_FASTER) == "pair":
+        check_pair_tables(re_t.device, m, 2, pair_tables)
         build.call(
             irfft_unpack_pair_library(), "fourier_irfft_unpack_pair_c64",
             f"B4b (paired blocks) at m={m}, B={batch}", *data,
             m, batch, geo.cols, geo.threads, *radices_arg(pass_schedule(m // 2)),
-            tw[0].data_ptr(), tw[1].data_ptr(), w[0].data_ptr(), w[1].data_ptr(),
-            h, re_t.device.index, stream_of(re_t),
+            pair_tables[0].data_ptr(), pair_tables[1].data_ptr(), w[0].data_ptr(),
+            w[1].data_ptr(), h, re_t.device.index, stream_of(re_t),
         )
     else:
         cols, threads = launch_geometry(m)
@@ -1005,6 +1108,11 @@ def vpu_irfft_unpack_batch_minor(re_t, im_t, m: int, *, tables, kernel_tables,
         )
     vpu_irfft_unpack_batch_minor.launches += 1
     return out
+
+
+@_irfft_unpack_op.register_fake
+def _(re_t, im_t, m, *_):
+    return re_t.new_empty((2 * m, re_t.shape[1]))
 
 
 vpu_irfft_unpack_batch_minor.launches = 0
@@ -1054,19 +1162,19 @@ def vpu_irfft_odd_unpack_batch_minor_reference(re_t, im_t, n: int, m: int,
 
 
 def _launch_odd(fn_name: str, what: str, inp, out, n: int, m: int,
-                kernel_tables, chirps, *tail, lib=None, geo=None):
+                kernel_tables, pair_tables, chirps, *tail, lib=None, geo=None):
     """Launch B5a or B5b: `inp`/`out` the tensors of the data arguments,
-    `tail` the arguments after the tables; the stage body, or the paired
-    body of `lib` with the tile `geo` and the tables of
-    :func:`pair_device_tables`."""
+    `tail` the arguments after the tables; the stage body with
+    `kernel_tables`, or the paired body of `lib` with the tile `geo` and
+    `pair_tables` (forward, inverse)."""
     batch = inp[0].shape[1]
     if geo is None:
         lib, (cols, threads), schedule = library(), launch_geometry(m), kernel_schedule(m)
         kf, ki = kernel_tables
     else:
         cols, threads, schedule = geo.cols, geo.threads, pass_schedule(geo.rows)
-        kf, ki = (pair_device_tables(m, fwd, torch.float32, inp[0].device)
-                  for fwd in (True, False))
+        check_pair_tables(inp[0].device, m, 2, *pair_tables)
+        kf, ki = pair_tables
     xt, wt, xo = chirps
     build.call(
         lib, fn_name, f"{what} at n={n}, M={m}, B={batch}",
@@ -1080,40 +1188,54 @@ def _launch_odd(fn_name: str, what: str, inp, out, n: int, m: int,
 
 
 def vpu_rfft_odd_pack_batch_minor(x_t, n: int, m: int, *, tables,
-                                  kernel_tables, chirps,
+                                  kernel_tables, chirps, pair_tables=(None, None),
                                   _body: Optional[str] = None):
     """B5a over a contiguous real f32 (n, B) plane, n odd; returns new planar
     (L, B) spectrum planes, L = (n+1)/2.
 
-    `tables`, `kernel_tables`: as for :func:`vpu_bluestein_batch_minor`;
-    `chirps`: the forward (xt, wt, xo); all on the plane's device. The
-    kernel is the paired-block body of ``csrc/rfft_odd_pair.cu`` where
-    :func:`rfft_odd_pack_geometry` gives one and M is not in
-    B5A_STAGE_FASTER (its tables from :func:`pair_device_tables`), else the
-    stage body; `_body` ("pair" or "stage") forces one, for same-run
-    comparisons.
+    `tables`, `kernel_tables`, `pair_tables`: as for
+    :func:`vpu_bluestein_batch_minor`; `chirps`: the forward (xt, wt, xo);
+    all on the plane's device. The kernel is the paired-block body of
+    ``csrc/rfft_odd_pair.cu`` where :func:`rfft_odd_pack_geometry` gives one
+    and M is not in B5A_STAGE_FASTER, else the stage body; `_body` ("pair"
+    or "stage") forces one, for same-run comparisons. On a card the launch
+    is the operator ``fourier_tpu_torch::rfft_odd_pack``.
     """
     check_planes(x_t, x_t, (n,), "B5a")
     if x_t.device.type == "cpu":
         return vpu_rfft_odd_pack_batch_minor_reference(x_t, n, m, tables,
                                                        chirps)
     check_tables(x_t.device, *kernel_tables, *chirps)
+    return _rfft_odd_pack_op(x_t, n, m, *kernel_tables, *pair_tables, *chirps, _body)
+
+
+@torch.library.custom_op("fourier_tpu_torch::rfft_odd_pack", mutates_args=(),
+                         device_types="cuda")
+def _rfft_odd_pack_op(x_t: Tensor, n: int, m: int, kf: Tensor, ki: Tensor,
+                      pf: Optional[Tensor], pi: Optional[Tensor], xt: Tensor,
+                      wt: Tensor, xo: Tensor, body: Optional[str]
+                      ) -> Tuple[Tensor, Tensor]:
+    """B5a's launch (see :func:`vpu_rfft_odd_pack_batch_minor`)."""
     L = (n + 1) // 2
-    out_re = torch.empty(L, x_t.shape[1], dtype=torch.float32,
-                         device=x_t.device)
+    out_re = torch.empty(L, x_t.shape[1], dtype=torch.float32, device=x_t.device)
     out_im = torch.empty_like(out_re)
     if x_t.shape[1] == 0:
         return out_re, out_im
     geo = rfft_odd_pack_geometry(m)
-    if pick_body(f"B5a at M={m}", geo, _body, m in B5A_STAGE_FASTER) == "pair":
-        _launch_odd("fourier_rfft_odd_pack_pair_c64", "B5a (paired blocks)",
-                    (x_t,), (out_re, out_im), n, m, kernel_tables, chirps,
+    args = ((x_t,), (out_re, out_im), n, m, (kf, ki), (pf, pi), (xt, wt, xo))
+    if pick_body(f"B5a at M={m}", geo, body, m in B5A_STAGE_FASTER) == "pair":
+        _launch_odd("fourier_rfft_odd_pack_pair_c64", "B5a (paired blocks)", *args,
                     lib=rfft_odd_pair_library(), geo=geo)
     else:
-        _launch_odd("fourier_rfft_odd_pack_c64", "B5a", (x_t,), (out_re, out_im),
-                    n, m, kernel_tables, chirps)
+        _launch_odd("fourier_rfft_odd_pack_c64", "B5a", *args)
     vpu_rfft_odd_pack_batch_minor.launches += 1
     return out_re, out_im
+
+
+@_rfft_odd_pack_op.register_fake
+def _(x_t, n, *_):
+    out = x_t.new_empty(((n + 1) // 2, x_t.shape[1]))
+    return out, torch.empty_like(out)
 
 
 vpu_rfft_odd_pack_batch_minor.launches = 0
@@ -1121,36 +1243,52 @@ vpu_rfft_odd_pack_batch_minor.launches = 0
 
 def vpu_irfft_odd_unpack_batch_minor(re_t, im_t, n: int, m: int, *, tables,
                                      kernel_tables, chirps,
+                                     pair_tables=(None, None),
                                      _body: Optional[str] = None):
     """B5b over contiguous planar f32 (L, B) spectrum planes, n odd; returns
     a new real (n, B) plane (the irfft, 1/n included).
 
-    `tables`, `kernel_tables`: as for :func:`vpu_bluestein_batch_minor`;
-    `chirps`: the inverse (xt, wt, xo); all on the planes' device. The
-    kernel is the paired-block body of ``csrc/irfft_odd_pair.cu`` where
-    :func:`irfft_odd_unpack_geometry` gives one and M is not in
-    B5B_STAGE_FASTER (its tables from :func:`pair_device_tables`), else the
-    stage body; `_body` ("pair" or "stage") forces one, for same-run
-    comparisons.
+    `tables`, `kernel_tables`, `pair_tables`: as for
+    :func:`vpu_bluestein_batch_minor`; `chirps`: the inverse (xt, wt, xo);
+    all on the planes' device. The kernel is the paired-block body of
+    ``csrc/irfft_odd_pair.cu`` where :func:`irfft_odd_unpack_geometry` gives
+    one and M is not in B5B_STAGE_FASTER, else the stage body; `_body`
+    ("pair" or "stage") forces one, for same-run comparisons. On a card the
+    launch is the operator ``fourier_tpu_torch::irfft_odd_unpack``.
     """
     check_planes(re_t, im_t, ((n + 1) // 2,), "B5b")
     if re_t.device.type == "cpu":
         return vpu_irfft_odd_unpack_batch_minor_reference(re_t, im_t, n, m,
                                                           tables, chirps)
     check_tables(re_t.device, *kernel_tables, *chirps)
+    return _irfft_odd_unpack_op(re_t, im_t, n, m, *kernel_tables, *pair_tables,
+                                *chirps, _body)
+
+
+@torch.library.custom_op("fourier_tpu_torch::irfft_odd_unpack", mutates_args=(),
+                         device_types="cuda")
+def _irfft_odd_unpack_op(re_t: Tensor, im_t: Tensor, n: int, m: int, kf: Tensor,
+                         ki: Tensor, pf: Optional[Tensor], pi: Optional[Tensor],
+                         xt: Tensor, wt: Tensor, xo: Tensor, body: Optional[str]
+                         ) -> Tensor:
+    """B5b's launch (see :func:`vpu_irfft_odd_unpack_batch_minor`)."""
     out = torch.empty(n, re_t.shape[1], dtype=torch.float32, device=re_t.device)
     if re_t.shape[1] == 0:
         return out
     geo = irfft_odd_unpack_geometry(m)
-    if pick_body(f"B5b at M={m}", geo, _body, m in B5B_STAGE_FASTER) == "pair":
-        _launch_odd("fourier_irfft_odd_unpack_pair_c64", "B5b (paired blocks)",
-                    (re_t, im_t), (out,), n, m, kernel_tables, chirps, 1.0 / n,
+    args = ((re_t, im_t), (out,), n, m, (kf, ki), (pf, pi), (xt, wt, xo), 1.0 / n)
+    if pick_body(f"B5b at M={m}", geo, body, m in B5B_STAGE_FASTER) == "pair":
+        _launch_odd("fourier_irfft_odd_unpack_pair_c64", "B5b (paired blocks)", *args,
                     lib=irfft_odd_pair_library(), geo=geo)
     else:
-        _launch_odd("fourier_irfft_odd_unpack_c64", "B5b", (re_t, im_t), (out,),
-                    n, m, kernel_tables, chirps, 1.0 / n)
+        _launch_odd("fourier_irfft_odd_unpack_c64", "B5b", *args)
     vpu_irfft_odd_unpack_batch_minor.launches += 1
     return out
+
+
+@_irfft_odd_unpack_op.register_fake
+def _(re_t, im_t, n, *_):
+    return re_t.new_empty((n, re_t.shape[1]))
 
 
 vpu_irfft_odd_unpack_batch_minor.launches = 0

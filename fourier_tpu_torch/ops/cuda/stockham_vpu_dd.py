@@ -19,12 +19,14 @@ planes (re, im) and the kernels are B1's and B2's stage code at double:
 * B7, the fused Bluestein transform: :func:`vpu_dd_bluestein_batch_minor_reference`
   and the wrapper :func:`vpu_dd_bluestein_batch_minor`, which launches the
   paired-block body of ``csrc/stockham_pair.cuh`` (:func:`bluestein_pair_geometry`,
-  the pass schedule and tables of :mod:`.stockham_vpu`).
+  the pass schedule of :mod:`.stockham_vpu`).
 
 The stage bodies, B7's paired body and B8 of :mod:`.dd_combine` are one
 library built from ``csrc/stockham_vpu_dd.cu``. Each wrapper runs its plain version for tensors
 on the CPU, and launches its kernel (or raises) for tensors on a CUDA
-device; it counts its launches in its ``launches`` attribute. B6 (and B7's
+device, through a registered operator as in :mod:`.stockham_vpu`; it counts
+its launches in its ``launches`` attribute. The clustered and paired bodies
+read the plan's ``pair_tables`` (f64). B6 (and B7's
 stage body, kept for same-run comparisons) run :func:`kernel_schedule_dd`,
 each radix of the TPU schedule split into 8, 4, 2, 3 and 5, with twiddles
 from :func:`make_kernel_tables_dd`; no table is narrowed.
@@ -38,6 +40,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import Tensor
 
 from fourier_tpu_torch.ops.cuda import build
 from fourier_tpu_torch.ops.cuda.stockham_vpu import (FFT_PAIR_ROWS,
@@ -45,8 +48,8 @@ from fourier_tpu_torch.ops.cuda.stockham_vpu import (FFT_PAIR_ROWS,
                                                      PairGeometry,
                                                      chirp_z_reference,
                                                      check_planes, check_tables,
+                                                     check_pair_tables,
                                                      kernel_tables,
-                                                     pair_device_tables,
                                                      pair_geometry,
                                                      pass_schedule, pick_body,
                                                      radices_arg, scale_arg,
@@ -228,23 +231,37 @@ def launch(fn_name: str, what: str, *args) -> None:
 
 def vpu_dd_fft_batch_minor(re_t, im_t, n: int, forward: bool,
                            scale: Optional[float], *, tables, kernel_tables,
-                           _body: Optional[str] = None):
+                           pair_tables=None, _body: Optional[str] = None):
     """B6 over contiguous planar f64 (n, B) planes; returns new planes.
 
     `tables`: the compact stage tables of :func:`make_stage_tables_dd` as
     tensors (plain version); `kernel_tables`: the (2, L) f64 tensor of
-    :func:`make_kernel_tables_dd` (the stage body), both direction-matched
-    and on the planes' device. The kernel is the clustered-block body of
-    ``csrc/fft_pair_dd.cu`` where :func:`fft_pair_geometry_dd` gives one and
-    n is not in B6_STAGE_FASTER (its forward f64 tables, for both
-    directions, from :func:`pair_device_tables`), else the stage body;
-    `_body` ("pair" or "stage") forces one, for same-run comparisons.
+    :func:`make_kernel_tables_dd` (the stage body), both direction-matched;
+    `pair_tables`: the forward f64 ``pair_tables`` of n on the body's
+    clusters, which the clustered body reads in both directions (None where
+    n has no clustered body); all on the planes' device. The kernel is the
+    clustered-block body of ``csrc/fft_pair_dd.cu`` where
+    :func:`fft_pair_geometry_dd` gives one and n is not in B6_STAGE_FASTER,
+    else the stage body; `_body` ("pair" or "stage") forces one, for
+    same-run comparisons. On a card the launch is the operator
+    ``fourier_tpu_torch::vpu_dd_fft``.
     """
     check_planes(re_t, im_t, (n,), "B6", F64)
     if re_t.device.type == "cpu":
         return vpu_dd_fft_batch_minor_reference(re_t, im_t, n, tables, forward,
                                                 scale)
     check_tables(re_t.device, kernel_tables, dtype=F64)
+    return _vpu_dd_fft_op(re_t, im_t, n, forward, scale, kernel_tables, pair_tables,
+                          _body)
+
+
+@torch.library.custom_op("fourier_tpu_torch::vpu_dd_fft", mutates_args=(),
+                         device_types="cuda")
+def _vpu_dd_fft_op(re_t: Tensor, im_t: Tensor, n: int, forward: bool,
+                   scale: Optional[float], kernel_tables: Tensor,
+                   pair_tables: Optional[Tensor], body: Optional[str]
+                   ) -> Tuple[Tensor, Tensor]:
+    """B6's launch (see :func:`vpu_dd_fft_batch_minor`)."""
     out_re = torch.empty_like(re_t)
     out_im = torch.empty_like(im_t)
     batch = re_t.shape[1]
@@ -252,15 +269,15 @@ def vpu_dd_fft_batch_minor(re_t, im_t, n: int, forward: bool,
         return out_re, out_im
     geo = fft_pair_geometry_dd(n)
     data = (re_t.data_ptr(), im_t.data_ptr(), out_re.data_ptr(), out_im.data_ptr())
-    if pick_body(f"B6 at n={n}", geo, _body, n in B6_STAGE_FASTER) == "pair":
-        tw = pair_device_tables(n, True, F64, re_t.device, geo.ranks)
+    if pick_body(f"B6 at n={n}", geo, body, n in B6_STAGE_FASTER) == "pair":
+        check_pair_tables(re_t.device, n, geo.ranks, pair_tables, dtype=F64)
         build.call(
             fft_pair_dd_library(), "fourier_stockham_pair_c128",
             f"B6 ({geo.ranks}-block clusters) at n={n}, B={batch}", *data,
             n, batch, geo.ranks, geo.cols, geo.threads,
             *radices_arg(pass_schedule(geo.rows)),
-            tw[0].data_ptr(), tw[1].data_ptr(), int(forward), scale_arg(scale),
-            re_t.device.index, stream_of(re_t),
+            pair_tables[0].data_ptr(), pair_tables[1].data_ptr(), int(forward),
+            scale_arg(scale), re_t.device.index, stream_of(re_t),
         )
     else:
         cols, threads = launch_geometry_dd(n)
@@ -274,49 +291,65 @@ def vpu_dd_fft_batch_minor(re_t, im_t, n: int, forward: bool,
     return out_re, out_im
 
 
+@_vpu_dd_fft_op.register_fake
+def _(re_t, im_t, *_):
+    return torch.empty_like(re_t), torch.empty_like(im_t)
+
+
 vpu_dd_fft_batch_minor.launches = 0
 
 
 def vpu_dd_bluestein_batch_minor(re_t, im_t, n: int, m: int,
                                  scale: Optional[float], *, tables,
-                                 kernel_tables, chirps,
+                                 kernel_tables, chirps, pair_tables=(None, None),
                                  _body: Optional[str] = None):
     """B7 over contiguous planar f64 (n, B) planes; returns new planes.
 
     `tables`: (forward, inverse) compact stage tables for m as tensors
     (plain version); `kernel_tables`: the (forward, inverse) (2, L) tensors
-    of :func:`make_kernel_tables_dd` for m (the stage body); `chirps`: the
-    direction-matched (xt, wt, xo); all f64 on the planes' device. The
-    kernel is the paired-block body, its tables from
-    :func:`~fourier_tpu_torch.ops.cuda.stockham_vpu.pair_device_tables`;
-    `_body="stage"` launches the stage body instead, which nothing else
-    launches, for same-run comparisons.
+    of :func:`make_kernel_tables_dd` for m (the stage body); `pair_tables`:
+    the (forward, inverse) f64 ``pair_tables`` of m (the paired body);
+    `chirps`: the direction-matched (xt, wt, xo); all f64 on the planes'
+    device. The kernel is the paired-block body; `_body="stage"` launches
+    the stage body instead, which nothing else launches, for same-run
+    comparisons. On a card the launch is the operator
+    ``fourier_tpu_torch::vpu_dd_bluestein``.
     """
     check_planes(re_t, im_t, (n,), "B7", F64)
     if re_t.device.type == "cpu":
         return vpu_dd_bluestein_batch_minor_reference(re_t, im_t, n, m, tables,
                                                       chirps, scale)
     check_tables(re_t.device, *kernel_tables, *chirps, dtype=F64)
+    return _vpu_dd_bluestein_op(re_t, im_t, n, m, scale, *kernel_tables, *pair_tables,
+                                *chirps, _body)
+
+
+@torch.library.custom_op("fourier_tpu_torch::vpu_dd_bluestein", mutates_args=(),
+                         device_types="cuda")
+def _vpu_dd_bluestein_op(re_t: Tensor, im_t: Tensor, n: int, m: int,
+                         scale: Optional[float], kf: Tensor, ki: Tensor,
+                         pf: Optional[Tensor], pi: Optional[Tensor], xt: Tensor,
+                         wt: Tensor, xo: Tensor, body: Optional[str]
+                         ) -> Tuple[Tensor, Tensor]:
+    """B7's launch (see :func:`vpu_dd_bluestein_batch_minor`)."""
     out_re = torch.empty_like(re_t)
     out_im = torch.empty_like(im_t)
     batch = re_t.shape[1]
     if batch == 0:
         return out_re, out_im
-    body = _body or "pair"
+    body = body or "pair"
     if body == "pair":
         fn, what = "fourier_bluestein_pair_c128", "B7 (paired blocks)"
         geo = bluestein_pair_geometry(m)
         cols, threads, schedule = geo.cols, geo.threads, pass_schedule(m // 2)
-        kf, ki = (pair_device_tables(m, fwd, F64, re_t.device)
-                  for fwd in (True, False))
+        check_pair_tables(re_t.device, m, 2, pf, pi, dtype=F64)
+        kf, ki = pf, pi
     elif body == "stage":
         fn, what = "fourier_bluestein_c128", "B7"
         cols, threads = launch_geometry_dd(m)
         schedule = kernel_schedule_dd(m)
-        kf, ki = kernel_tables
     else:
         raise ValueError(f"B7 body {body!r}: 'pair' or 'stage'")
-    xt, wt, xo = chirps
     launch(
         fn, f"{what} at n={n}, M={m}, B={batch}",
         re_t.data_ptr(), im_t.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
@@ -330,4 +363,10 @@ def vpu_dd_bluestein_batch_minor(re_t, im_t, n: int, m: int,
     return out_re, out_im
 
 
+@_vpu_dd_bluestein_op.register_fake
+def _(re_t, im_t, *_):
+    return torch.empty_like(re_t), torch.empty_like(im_t)
+
+
 vpu_dd_bluestein_batch_minor.launches = 0
+

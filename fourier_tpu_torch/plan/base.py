@@ -15,6 +15,7 @@ same plan in the transposed mode (``_TRANSPOSE_MODE``), wrapped in the
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -201,7 +202,7 @@ class BatchMinorPlan(FftPlan):
 
     def _execute(self, re, im, transform: Transform):
         batch_shape = re.shape[:-1]
-        b = int(np.prod(batch_shape, dtype=np.int64))
+        b = math.prod(batch_shape)  # symbolic under torch.export
         re_t = re.reshape(b, self.size).T.contiguous()
         im_t = im.reshape(b, self.size).T.contiguous()
         ore, oim = self._execute_bm(re_t, im_t, transform)

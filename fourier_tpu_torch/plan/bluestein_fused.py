@@ -44,7 +44,7 @@ class FusedBluesteinPlan(BatchMinorPlan):
     family = "vpu"
 
     def __init__(self, size: int, stages, chirps_fwd, chirps_inv, device):
-        """`stages`: the M-point stage plan whose stage tables and kernel
+        """`stages`: the M-point stage plan whose stage, kernel and pair
         tables the inner transforms use (it is never run on its own);
         `chirps_fwd`/`chirps_inv`: planar numpy (re, im) pairs (xt, wt, xo)
         of lengths n, M and n, 1/M folded into xo."""
@@ -92,6 +92,7 @@ class FusedBluesteinPlan(BatchMinorPlan):
             re_t, im_t, self.size, st.size, self._scale_for(transform),
             tables=(st.tables(True), st.tables(False)),
             kernel_tables=(st.kernel_fwd, st.kernel_inv),
+            pair_tables=(st.pair_fwd, st.pair_inv),
             chirps=self.chirps(transform.is_forward),
         )
 

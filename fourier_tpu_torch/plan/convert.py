@@ -195,6 +195,9 @@ def load_jax_plan(path_or_arrays: Union[str, Mapping[str, np.ndarray]],
 
 
 def _from_arrays(data, device) -> FftPlan:
+    if "format" in data:  # the port's own files carry a format tag
+        raise ValueError("this plan file was written by fourier_tpu_torch's save_plan; "
+                         "load it with fourier_tpu_torch.load_plan")
     if "structure" not in data or "version" not in data:
         raise ValueError("not a plan file written by fourier_tpu's save_plan")
     version = int(np.asarray(data["version"])[0])

@@ -127,6 +127,7 @@ class FourStepLocalPlan(FftPlan):
                 p, q, forward, scale,
                 tables=rp.tables(forward),
                 kernel_tables=rp.kernel_fwd if forward else rp.kernel_inv,
+                pair_tables=rp.pair_fwd,
                 pre_tw=(tw[0], tw[1]), tw_fwd=(self.tw_fwd[0], self.tw_fwd[1]),
             )
         twr, twi = tw[0], tw[1]

@@ -21,6 +21,7 @@ package (``impl``):
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -135,7 +136,7 @@ class MxuFftPlan(FftPlan):
 
     def _execute(self, re, im, transform: Transform):
         batch_shape = re.shape[:-1]
-        b = int(np.prod(batch_shape, dtype=np.int64))
+        b = math.prod(batch_shape)  # symbolic under torch.export
         re2 = re.reshape(b, self.size)
         im2 = im.reshape(b, self.size)
         *head, (lre, lim) = self.tables(transform.is_forward)

@@ -29,13 +29,16 @@ the JAX package plans on a TPU:
                   complex128; on the CPU ``stockham`` (as the JAX package
                   picks off the TPU with x64 on).
 
-``measure`` is not ported yet and raises ``NotImplementedError`` naming the
-ROADMAP item that ports it.
+* ``measure``  -- the winner of :func:`plan.measure.measure_fft` on the
+                  plan's device: wisdom if there is an entry for (size,
+                  dtype) on its platform, else the eligible families timed
+                  now (``plan/measure.py``; on the CPU ``stockham`` alone).
 
 Every entry point plans on the card (``device="cuda"``) unless the caller
 asks for the CPU; with no card it raises (``plan.base.resolve_device``).
 
-Plans are cached per (size, dtype, resolved backend, device), LRU-bounded.
+Plans are cached per (size, dtype, resolved backend, device), LRU-bounded
+(``measure`` plans per (size, dtype, "measure", device)).
 """
 
 from __future__ import annotations
@@ -61,18 +64,10 @@ _PLAN_CACHE_MAX = 256
 
 BACKENDS = ("auto", "mxu", "stockham", "dd", "vpu", "measure")
 
-_NOT_PORTED = {
-    "measure": "ROADMAP.md queue 1 item 10 (plan/measure.py)",
-}
-
 
 def _resolve_backend(backend: str, dtype: torch.dtype, device: torch.device) -> str:
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; use one of {BACKENDS}")
-    if backend in _NOT_PORTED:
-        raise NotImplementedError(
-            f"backend={backend!r} is not ported yet: {_NOT_PORTED[backend]}"
-        )
     if backend != "auto":
         return backend
     if device.type == "cuda":
@@ -175,7 +170,13 @@ def create_fft(size: int, dtype=torch.complex64, *, backend: str = "auto",
     if cache and key in _PLAN_CACHE:
         _PLAN_CACHE.move_to_end(key)
         return _PLAN_CACHE[key]
-    if resolved == "mxu":
+    if resolved == "measure":
+        from fourier_tpu_torch.plan import measure as _measure
+
+        plan = _measure.plan_from_wisdom(size, dtype, device)
+        if plan is None:
+            plan = _measure.measure_fft(size, dtype, device=device).plan
+    elif resolved == "mxu":
         plan = _create_mxu(size, dtype, device)
     elif resolved == "vpu":
         plan = VpuFftPlan.create(size, dtype, device)

@@ -27,13 +27,23 @@ class FusedStagesPlan(BatchMinorPlan):
     """A plan whose every call is one fused all-stages kernel. Subclasses
     set ``dtype`` and the static functions of their kernel module:
     ``radix_schedule(n)``, ``make_stage_tables(n, forward)``,
-    ``make_kernel_tables(n, forward)`` and the wrapper ``run``."""
+    ``make_kernel_tables(n, forward)``, ``pair_geometry(n)`` (the
+    clustered body's launch, or None) and the wrapper ``run``."""
 
     family = "vpu"
 
-    def __init__(self, size: int, fwd_tables, inv_tables, device):
+    #: The buffers of the kernel's own tables: the stage body's and the
+    #: clustered body's (None where the size has no clustered body), by
+    #: direction.
+    KERNEL_BUFFERS = ("kernel_fwd", "kernel_inv", "pair_fwd", "pair_inv")
+
+    def __init__(self, size: int, fwd_tables, inv_tables, device,
+                 kernel_tables=None):
         """`fwd_tables`/`inv_tables`: the compact planar numpy (m, r) tables
-        of the schedule. The kernel's own tables are derived from the size."""
+        of the schedule. `kernel_tables`: the kernel's own tables, a mapping
+        of each name of KERNEL_BUFFERS to a planar (2, L) array or None, as
+        a saved plan holds them; None: built here from the size, in f64
+        narrowed to the plan's precision."""
         super().__init__()
         self.size = int(size)
         self.schedule = tuple(self.radix_schedule(self.size))
@@ -42,10 +52,28 @@ class FusedStagesPlan(BatchMinorPlan):
         for name, tables in (("fwd", fwd_tables), ("inv", inv_tables)):
             self.register_buffer(name, planar_buffer(tables, real, device),
                                  persistent=False)
-            ktw = self.make_kernel_tables(self.size, name == "fwd")
-            self.register_buffer(f"kernel_{name}",
-                                 torch.as_tensor(ktw, device=device),
-                                 persistent=False)
+        if kernel_tables is None:
+            kernel_tables = self.build_kernel_tables(self.size)
+        for name in self.KERNEL_BUFFERS:
+            table = kernel_tables[name]
+            self.register_buffer(
+                name, None if table is None else torch.as_tensor(table, device=device),
+                persistent=False)
+
+    @classmethod
+    def build_kernel_tables(cls, size: int) -> dict:
+        """The kernel's own tables at `size` (KERNEL_BUFFERS): the stage
+        body's (``make_kernel_tables``) and, where ``pair_geometry`` gives a
+        clustered body, its :func:`~fourier_tpu_torch.ops.cuda.stockham_vpu.pair_tables`
+        on the body's clusters."""
+        geo = cls.pair_geometry(size)
+        real = numpy_real(cls.dtype)
+        out = {}
+        for forward, d in ((True, "fwd"), (False, "inv")):
+            out[f"kernel_{d}"] = cls.make_kernel_tables(size, forward)
+            out[f"pair_{d}"] = (None if geo is None else
+                                stockham_vpu.pair_tables(size, forward, real, geo.ranks))
+        return out
 
     @classmethod
     def create(cls, size: int, dtype=None, device="cuda"):
@@ -68,6 +96,7 @@ class FusedStagesPlan(BatchMinorPlan):
             re_t, im_t, self.size, forward, self._scale_for(transform),
             tables=self.tables(forward),
             kernel_tables=self.kernel_fwd if forward else self.kernel_inv,
+            pair_tables=self.pair_fwd,
         )
 
     def extra_repr(self) -> str:
@@ -82,4 +111,5 @@ class VpuFftPlan(FusedStagesPlan):
     radix_schedule = staticmethod(stockham_vpu.radix_schedule)
     make_stage_tables = staticmethod(stockham_vpu.make_stage_tables)
     make_kernel_tables = staticmethod(stockham_vpu.make_kernel_tables)
+    pair_geometry = staticmethod(stockham_vpu.fft_pair_geometry)
     run = staticmethod(stockham_vpu.vpu_fft_batch_minor)

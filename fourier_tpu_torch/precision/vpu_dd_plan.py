@@ -26,4 +26,5 @@ class VpuDdFftPlan(FusedStagesPlan):
     radix_schedule = staticmethod(stockham_vpu_dd.radix_schedule_dd)
     make_stage_tables = staticmethod(stockham_vpu_dd.make_stage_tables_dd)
     make_kernel_tables = staticmethod(stockham_vpu_dd.make_kernel_tables_dd)
+    pair_geometry = staticmethod(stockham_vpu_dd.fft_pair_geometry_dd)
     run = staticmethod(stockham_vpu_dd.vpu_dd_fft_batch_minor)

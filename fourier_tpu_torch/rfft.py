@@ -214,12 +214,12 @@ class RfftPlan(torch.nn.Module):
         if self.even:
             return stockham_vpu.vpu_rfft_pack_batch_minor(
                 x_t, self.m, tables=inner.tables(True),
-                kernel_tables=inner.kernel_fwd, w=self.w)
+                kernel_tables=inner.kernel_fwd, pair_tables=inner.pair_fwd, w=self.w)
         st = inner.stages
         return stockham_vpu.vpu_rfft_odd_pack_batch_minor(
             x_t, self.n, st.size, tables=(st.tables(True), st.tables(False)),
             kernel_tables=(st.kernel_fwd, st.kernel_inv),
-            chirps=inner.chirps(True))
+            pair_tables=(st.pair_fwd, st.pair_inv), chirps=inner.chirps(True))
 
     def _irfft_bm(self, re_t, im_t):
         """Batch-minor inverse on contiguous (n//2+1, B) planes."""
@@ -229,13 +229,13 @@ class RfftPlan(torch.nn.Module):
         if self.even:
             return stockham_vpu.vpu_irfft_unpack_batch_minor(
                 re_t, im_t, self.m, tables=inner.tables(False),
-                kernel_tables=inner.kernel_inv, w=self.w)
+                kernel_tables=inner.kernel_inv, pair_tables=inner.pair_inv, w=self.w)
         st = inner.stages
         return stockham_vpu.vpu_irfft_odd_unpack_batch_minor(
             re_t, im_t, self.n, st.size,
             tables=(st.tables(True), st.tables(False)),
             kernel_tables=(st.kernel_fwd, st.kernel_inv),
-            chirps=inner.chirps(False))
+            pair_tables=(st.pair_fwd, st.pair_inv), chirps=inner.chirps(False))
 
     def _rfft_bm_unfused(self, x_t):
         """The unfused batch-minor forward: plain torch packing around the

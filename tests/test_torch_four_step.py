@@ -235,7 +235,7 @@ def test_kernel_matches_plain_on_card(cuda_device, n):
         tw = plan.tw_fwd if fwd else plan.tw_inv
         kw = dict(tables=rp.tables(fwd),
                   kernel_tables=rp.kernel_fwd if fwd else rp.kernel_inv,
-                  pre_tw=(tw[0], tw[1]))
+                  pair_tables=rp.pair_fwd, pre_tw=(tw[0], tw[1]))
         before = sv.vpu_fft_four_step_row.launches
         kre, kim = sv.vpu_fft_four_step_row(re, im, p, q, fwd, mode.scale(n),
                                             tw_fwd=(plan.tw_fwd[0], plan.tw_fwd[1]), **kw)

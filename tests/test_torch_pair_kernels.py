@@ -1462,7 +1462,8 @@ def cuda_device():
 def test_b4a_bodies_agree_on_card(cuda_device, m):
     plan = RfftPlan(2 * m, device=cuda_device)
     inner = plan.inner
-    kw = dict(tables=inner.tables(True), kernel_tables=inner.kernel_fwd, w=plan.w)
+    kw = dict(tables=inner.tables(True), kernel_tables=inner.kernel_fwd,
+              pair_tables=inner.pair_fwd, w=plan.w)
     for b in (1, 7, 1000, 1588, 1589):
         x = torch.randn(2 * m, b, device=cuda_device)
         pair = sv.vpu_rfft_pack_batch_minor(x, m, _body="pair", **kw)
@@ -1479,7 +1480,8 @@ def test_b7_bodies_agree_on_card(cuda_device, n):
     plan = VpuDdBluesteinPlan.create(n, device=cuda_device)
     st = plan.stages
     kw = dict(tables=(st.tables(True), st.tables(False)),
-              kernel_tables=(st.kernel_fwd, st.kernel_inv))
+              kernel_tables=(st.kernel_fwd, st.kernel_inv),
+              pair_tables=(st.pair_fwd, st.pair_inv))
     for b in (1, 7, 794, 795):
         re = torch.randn(n, b, dtype=torch.float64, device=cuda_device)
         im = torch.randn(n, b, dtype=torch.float64, device=cuda_device)
@@ -1508,7 +1510,8 @@ def test_b1_bodies_agree_on_card(cuda_device, n):
             for body in ("pair", "stage"):
                 got = sv.vpu_fft_batch_minor(
                     re_, im_, n, fwd, mode.scale(n), tables=plan.tables(fwd),
-                    kernel_tables=plan.kernel_fwd if fwd else plan.kernel_inv, _body=body)
+                    kernel_tables=plan.kernel_fwd if fwd else plan.kernel_inv,
+                    pair_tables=plan.pair_fwd, _body=body)
                 c = got[0].double().cpu().numpy() + 1j * got[1].double().cpu().numpy()
                 assert _rel(c, _want(x, mode, n)) <= C64_GATE, (n, b, mode, body)
 
@@ -1519,7 +1522,8 @@ def test_b2_bodies_agree_on_card(cuda_device, n):
     plan = VpuBluesteinPlan.create(n, device=cuda_device)
     st = plan.stages
     kw = dict(tables=(st.tables(True), st.tables(False)),
-              kernel_tables=(st.kernel_fwd, st.kernel_inv))
+              kernel_tables=(st.kernel_fwd, st.kernel_inv),
+              pair_tables=(st.pair_fwd, st.pair_inv))
     for b in (1, 7, 794, 795):
         re_ = torch.randn(n, b, device=cuda_device)
         im_ = torch.randn(n, b, device=cuda_device)
@@ -1539,7 +1543,8 @@ def test_b5a_bodies_agree_on_card(cuda_device, n):
     plan = VpuBluesteinPlan.create(n, device=cuda_device)
     st = plan.stages
     kw = dict(tables=(st.tables(True), st.tables(False)),
-              kernel_tables=(st.kernel_fwd, st.kernel_inv), chirps=plan.chirps(True))
+              kernel_tables=(st.kernel_fwd, st.kernel_inv),
+              pair_tables=(st.pair_fwd, st.pair_inv), chirps=plan.chirps(True))
     bodies = ("pair", "stage") if sv.rfft_odd_pack_geometry(st.size) else ("stage",)
     for b in (1, 2, 7, 1589, 1592):
         x = torch.randn(n, b, device=cuda_device)
@@ -1564,7 +1569,8 @@ def test_b6_bodies_agree_on_card(cuda_device, n):
             for body in bodies:
                 got = dv.vpu_dd_fft_batch_minor(
                     re_, im_, n, fwd, mode.scale(n), tables=plan.tables(fwd),
-                    kernel_tables=plan.kernel_fwd if fwd else plan.kernel_inv, _body=body)
+                    kernel_tables=plan.kernel_fwd if fwd else plan.kernel_inv,
+                    pair_tables=plan.pair_fwd, _body=body)
                 c = got[0].cpu().numpy() + 1j * got[1].cpu().numpy()
                 assert _rel(c, _want(x, mode, n)) <= C128_GATE, (n, b, mode, body)
 
@@ -1573,7 +1579,8 @@ def test_b6_bodies_agree_on_card(cuda_device, n):
 @pytest.mark.parametrize("m", [64, 96, 1000, 2048, 2160])
 def test_b4b_bodies_agree_on_card(cuda_device, m):
     plan = RfftPlan(2 * m, device=cuda_device)
-    kw = dict(tables=plan.inner.tables(False), kernel_tables=plan.inner.kernel_inv, w=plan.w)
+    kw = dict(tables=plan.inner.tables(False), kernel_tables=plan.inner.kernel_inv,
+              pair_tables=plan.inner.pair_inv, w=plan.w)
     bodies = ("pair", "stage") if sv.irfft_unpack_geometry(m) else ("stage",)
     for b in (1, 7, 1000, 1588, 1589):
         re_ = torch.randn(m + 1, b, device=cuda_device)
@@ -1591,7 +1598,8 @@ def test_b5b_bodies_agree_on_card(cuda_device, n):
     plan = VpuBluesteinPlan.create(n, device=cuda_device)
     st = plan.stages
     kw = dict(tables=(st.tables(True), st.tables(False)),
-              kernel_tables=(st.kernel_fwd, st.kernel_inv), chirps=plan.chirps(False))
+              kernel_tables=(st.kernel_fwd, st.kernel_inv),
+              pair_tables=(st.pair_fwd, st.pair_inv), chirps=plan.chirps(False))
     bodies = ("pair", "stage") if sv.irfft_odd_unpack_geometry(st.size) else ("stage",)
     L = (n + 1) // 2
     for b in (1, 2, 7, 1589, 1592):
@@ -1622,7 +1630,7 @@ def test_b3_bodies_agree_on_card(cuda_device, n):
             tw = plan.tw_fwd if fwd else plan.tw_inv
             kw = dict(tables=rp.tables(fwd), pre_tw=(tw[0], tw[1]),
                       kernel_tables=rp.kernel_fwd if fwd else rp.kernel_inv,
-                      tw_fwd=(plan.tw_fwd[0], plan.tw_fwd[1]))
+                      pair_tables=rp.pair_fwd, tw_fwd=(plan.tw_fwd[0], plan.tw_fwd[1]))
             want = sv.vpu_fft_four_step_row_reference(re3, im3, p, q, kw["tables"],
                                                       kw["pre_tw"], fwd, mode.scale(n))
             want = want[0].double().cpu().numpy() + 1j * want[1].double().cpu().numpy()

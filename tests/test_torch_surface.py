@@ -265,7 +265,9 @@ _EXPORTS = ("NdFftPlan", "fftn", "ifftn", "fft2", "ifft2", "rfftn", "irfftn",
             "hilbert2", "resample", "czt", "zoom_fft", "CztPlan", "ConvolvePlan",
             "stft", "istft", "StftPlan", "welch", "csd", "periodogram",
             "coherence", "spectrogram", "check_cola", "check_nola",
-            "scipy_fft_backend")
+            "scipy_fft_backend", "save_plan", "load_plan", "plan_to_bytes",
+            "measure_fft", "export_wisdom", "import_wisdom", "forget_wisdom",
+            "export_compiled", "load_compiled", "CompiledFft")
 
 
 def test_exports():
@@ -283,11 +285,15 @@ def _port_sources():
 
 
 def test_no_jax_import_in_sources():
-    """No source file of the port, and not chip_smoke.py, imports jax or the
-    JAX package (any import or from-import, at any depth)."""
+    """No source file of the port (its tools included), and not
+    chip_smoke.py, imports jax or the JAX package (any import or
+    from-import, at any depth)."""
     banned = {"jax", "jaxlib", "fourier_tpu"}
     found = []
-    for path in _port_sources():
+    sources = _port_sources()
+    tools = {p.name for p in sources if p.parent.name == "tools"}
+    assert {"bench_suite.py", "prof.py"} <= tools, tools
+    for path in sources:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             names = []
             if isinstance(node, ast.Import):
@@ -300,11 +306,13 @@ def test_no_jax_import_in_sources():
 
 
 def test_no_jax_in_a_fresh_process():
-    """Importing the port and every module under it loads neither jax nor
-    the JAX package."""
+    """Importing the port and every module under it, its tools included,
+    loads neither jax nor the JAX package."""
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
         for p in (REPO / "fourier_tpu_torch").rglob("*.py"))
+    assert {"fourier_tpu_torch.tools.bench_suite",
+            "fourier_tpu_torch.tools.prof"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
