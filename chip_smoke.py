@@ -64,7 +64,20 @@ loaded artifacts launching the kernels with outputs bitwise the plans'.
 Phase 5j runs the comparative suite (fourier_tpu_torch/tools/bench_suite.py)
 at one size a family, the large and rfft rows among them, each row's port,
 torch.fft and host times beside the card's name and power limit and its
-rel-L2 within the gate. Every phase prints its lines;
+rel-L2 within the gate. Phase 4l drives the sharded plans
+(fourier_tpu_torch.parallel) at full width on a one-rank NCCL mesh:
+Fft2dPlan 8 x 4096^2 (forward, inverse, pipeline_chunks bitwise) and
+4096 x 1013, c128 4096^2 and 2187 x 1013, FourStepPlan of 2^24 points in
+digit and natural order (4096 x 4096 and 256 x 65536), Rfft2dPlan 4096^2 and
+4096 x 1013, Fft3dPlan and Rfft3dPlan at 256^3 on 1x1 pencils and slabs with
+the spectral round trips, and the batch-sharded calls at 4096 x 16384, each
+against torch.fft and the port's single-device call with B1-B8 launched
+under them, then those kernels at every (n, B) the legs gave them against
+their plain versions; phase 4m spawns four gloo ranks on the one card (a
+mesh of 4 and a 2x2 one), each rank's block held against the block of the
+single-device result; phase 5k times the sharded calls beside the
+single-device ones and torch.fft, with one call's device time by kernel.
+Every phase prints its lines;
 any failed check raises, so the exit code is non-zero. The next-to-last
 line is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}.
@@ -365,6 +378,31 @@ SUITE_ROWS = 25
 SUITE_GATE = 1e-5
 SUITE_HOST_ROWS = 256  # the full suite: 8192 (bench_suite._HOST_ROW_CAP)
 SUITE_HOST_ITERS = 2  # the full suite: 5 (bench_suite.HOST_ITERS)
+# Phases 4l and 5k: the sharded plans (fourier_tpu_torch.parallel) on a
+# one-rank NCCL mesh at full width, each kernel row of the port on a sharded
+# entry point: Fft2dPlan at BASELINE config 5 per chip (8 x 4096^2, B1) and
+# 4096 x 1013 (B2); c128 4096^2 (B6) and 2187 x 1013 (B8 over B6, B7);
+# FourStepPlan of 2^24 points, 4096 x 4096 (B1) and 256 x 65536 (its row
+# leg the local four-step: B1 + B3); Rfft2dPlan 4096^2 (B4a/B4b) and
+# 4096 x 1013 (B5a/B5b); Fft3dPlan and Rfft3dPlan at 256^3 on a 1x1 pencil
+# mesh and as slabs, spectral round trips; the batch-sharded calls at
+# 4096 x 16384.
+SHARD_FFT2 = (8, 4096, 4096)  # batch, n1, n2
+SHARD_FFT2_B2 = (4, 4096, 1013)
+SHARD_FFT2_C128 = ((2, 4096, 4096), (16, 2187, 1013))
+SHARD_FOUR = ((4096, 4096), (256, 65536))
+SHARD_RFFT2 = ((4096, 4096), (4096, 1013))
+SHARD_3D = (256, 256, 256)
+SHARD_BATCHED = (4096, 16384)  # n, B
+SHARD_CHUNKS = 4
+SHARD_RFFT_GATE = 1e-5  # the real family's gate (the reference's rfft tests)
+# B3's (n, B) under FourStepPlan(256, 65536) on one rank: checked in 3c.
+SHARD_B3 = ((65536, 256),)
+# Phase 4m: four gloo ranks on the one card, on a mesh of 4 and a 2x2 one.
+SHARD_4M_RANKS = 4
+SHARD_4M = {"fft2": (1024, 1024), "four": (256, 1024), "rfft2": (1024, 1013),
+            "cube": (64, 64, 64)}
+SHARD_4M_TIMEOUT = 240.0  # seconds for the four ranks, start-up included
 B9_TIME = (("B9a", 125, 65536), ("B9b", 4096, 16384), ("B9b", 16384, 1024))
 B9_CHAIN = 16
 # The bodies of B9a and B9b: the tensor cores' in 3xTF32 (csrc/dft_mma.cu,
@@ -560,6 +598,152 @@ def pair_heights(kerns) -> dict:
                          for a in m.group(1).split(","))
             out[args[0] if len(args) == 1 else args] = r
     return out
+
+
+def _free_port() -> int:
+    """A free TCP port on localhost for a process group's rendezvous."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _local_block(t, mesh, placements):
+    """The block of the whole tensor `t` that this rank holds under a
+    DTensor's `placements` on `mesh` (even shards)."""
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            k = t.shape[p.dim] // mesh.size(i)
+            t = t.narrow(p.dim, coord[i] * k, k)
+    return t
+
+
+def _rel_t(got, want) -> float:
+    """rel-L2 of two tensors on the card, in f64."""
+    import torch
+
+    dt = torch.complex128 if got.is_complex() or want.is_complex() else torch.float64
+    g, w = got.to(dt), want.to(dt)
+    return float((g - w).norm() / w.norm())
+
+
+def _rank_4m(rank: int, store: str, out_dir: str) -> None:
+    """Phase 4m, one rank of SHARD_4M_RANKS gloo ranks on the one card: the
+    sharded plans on a mesh of 4 ("fft") and a 2x2 one ("x", "y"), each
+    rank's block held against the block of the single-device result
+    (torch.fft and the port's own surface); the kernels each launched, by
+    rank, written to out_dir/rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=SHARD_4M_RANKS, rank=rank)
+    try:
+        import fourier_tpu_torch as ftt
+        from fourier_tpu_torch import parallel
+        from fourier_tpu_torch.ops.cuda import stockham_vpu as sv
+
+        dev = torch.device("cuda", 0)
+        counters = {"B1": sv.vpu_fft_batch_minor, "B2": sv.vpu_bluestein_batch_minor,
+                    "B3": sv.vpu_fft_four_step_row, "B4a": sv.vpu_rfft_pack_batch_minor,
+                    "B4b": sv.vpu_irfft_unpack_batch_minor,
+                    "B5a": sv.vpu_rfft_odd_pack_batch_minor,
+                    "B5b": sv.vpu_irfft_odd_unpack_batch_minor}
+        fft = init_device_mesh("cuda", (SHARD_4M_RANKS,), mesh_dim_names=("fft",))
+        xy = init_device_mesh("cuda", (2, 2), mesh_dim_names=("x", "y"))
+        gen = torch.Generator(device=dev).manual_seed(SEED)  # one input on every rank
+        results = {}
+
+        def rand(*shape, complex_=True):
+            re = torch.randn(*shape, generator=gen, device=dev)
+            return torch.complex(re, torch.randn(*shape, generator=gen, device=dev)
+                                 ) if complex_ else re
+
+        def case(name, run, wants, gate, crop=None):
+            """`run` gives DTensors (planes); each (label, whole reference)
+            of `wants`, blocked as the result is, against the result."""
+            refs = [(label, want()) for label, want in wants]
+            torch.cuda.synchronize()
+            for fn in counters.values():
+                fn.launches = 0
+            outs = run()
+            torch.cuda.synchronize()
+            launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+            local = [o.to_local() for o in outs]
+            got = torch.complex(*local) if len(local) == 2 else local[0]
+            if crop is not None:
+                got = got[..., :crop]
+            errs = {}
+            for label, ref in refs:
+                if crop is not None and ref.shape[-1] != outs[0].shape[-1]:
+                    ref = torch.nn.functional.pad(ref, (0, outs[0].shape[-1] - ref.shape[-1]))
+                block = _local_block(ref, outs[0].device_mesh, outs[0].placements)
+                errs[label] = _rel_t(got, block[..., :got.shape[-1]])
+            results[name] = {"errs": errs, "gate": gate, "launches": launches}
+            return outs
+
+        n1, n2 = SHARD_4M["fft2"]
+        x = rand(n1, n2)
+        plan = parallel.Fft2dPlan(n1, n2, fft)
+        one = case(f"Fft2dPlan({n1}, {n2})", lambda: plan.fft_planar(x.real, x.imag),
+                   [("torch.fft.fft2", lambda: torch.fft.fft2(x)),
+                    ("ftt.fft2", lambda: ftt.fft2(x))], REL_L2_GATE)
+        chunked = parallel.Fft2dPlan(n1, n2, fft, pipeline_chunks=2)
+        two = case(f"Fft2dPlan({n1}, {n2}, pipeline_chunks=2)",
+                   lambda: chunked.fft_planar(x.real, x.imag),
+                   [("torch.fft.fft2", lambda: torch.fft.fft2(x))], REL_L2_GATE)
+        results["chunks bitwise"] = all(torch.equal(a.to_local(), b.to_local())
+                                        for a, b in zip(one, two))
+        p1, p2 = SHARD_4M["four"]
+        xf = rand(p1 * p2)
+        four = parallel.FourStepPlan(p1, p2, fft, natural_order=True)
+        case(f"FourStepPlan({p1}, {p2}, natural_order=True)",
+             lambda: four.fft_planar(xf.real.view(p1, p2), xf.imag.view(p1, p2)),
+             [("torch.fft.fft", lambda: torch.fft.fft(xf)),
+              ("create_fft_f32", lambda: ftt.create_fft_f32(p1 * p2, device=dev).fft(xf))],
+             REL_L2_GATE)
+        digit = parallel.FourStepPlan(p1, p2, fft)
+        case(f"FourStepPlan({p1}, {p2})",
+             lambda: digit.fft_planar(xf.real.view(p1, p2), xf.imag.view(p1, p2)),
+             [("torch.fft.fft", lambda: torch.fft.fft(xf).view(p2, p1).T)], REL_L2_GATE)
+        r1, r2 = SHARD_4M["rfft2"]
+        xr = rand(r1, r2, complex_=False)
+        rplan = parallel.Rfft2dPlan(r1, r2, fft)
+        spec = case(f"Rfft2dPlan({r1}, {r2}).rfft_planar", lambda: rplan.rfft_planar(xr),
+                    [("torch.fft.rfft2", lambda: torch.fft.rfft2(xr)),
+                     ("ftt.rfft2", lambda: ftt.rfft2(xr))], SHARD_RFFT_GATE,
+                    crop=rplan.out_len)
+        case(f"Rfft2dPlan({r1}, {r2}).irfft_planar", lambda: (rplan.irfft_planar(*spec),),
+             [("input", lambda: xr)], SHARD_RFFT_GATE)
+        c = SHARD_4M["cube"]
+        xc = rand(*c)
+        cube = parallel.Fft3dPlan(*c, xy, spectral_output=True)
+        sp = case(f"Fft3dPlan{c} 2x2 spectral", lambda: cube.fft_planar(xc.real, xc.imag),
+                  [("torch.fft.fftn", lambda: torch.fft.fftn(xc)),
+                   ("ftt.fftn", lambda: ftt.fftn(xc))], REL_L2_GATE)
+        case(f"Fft3dPlan{c} 2x2 from_spectral",
+             lambda: cube.transform_planar(*sp, ftt.Transform.IFFT, from_spectral=True),
+             [("input", lambda: xc)], REL_L2_GATE)
+        slab = parallel.Fft3dPlan(*c, fft, axes=("fft",))
+        case(f"Fft3dPlan{c} slab", lambda: slab.fft_planar(xc.real, xc.imag),
+             [("torch.fft.fftn", lambda: torch.fft.fftn(xc))], REL_L2_GATE)
+        xrc = rand(*c, complex_=False)
+        rcube = parallel.Rfft3dPlan(*c, xy, spectral_output=True)
+        rsp = case(f"Rfft3dPlan{c} 2x2 spectral", lambda: rcube.rfft_planar(xrc),
+                   [("torch.fft.rfftn", lambda: torch.fft.rfftn(xrc)),
+                    ("ftt.rfftn", lambda: ftt.rfftn(xrc))], SHARD_RFFT_GATE,
+                   crop=rcube.out_len)
+        case(f"Rfft3dPlan{c} 2x2 from_spectral",
+             lambda: (rcube.irfft_planar(*rsp, from_spectral=True),),
+             [("input", lambda: xrc)], SHARD_RFFT_GATE)
+        with open(f"{out_dir}/rank{rank}.json", "w") as f:
+            json.dump(results, f)
+    finally:
+        dist.destroy_process_group()
 
 
 def rel_l2(got, want) -> float:
@@ -932,7 +1116,7 @@ def main() -> int:
     worst_host = max_abs = 0.0
     b3_worst = {}
     b3_cases = ([(n, b) for n in B3_SIZES for b in BATCHES] + list(B3_QUAD)
-                + _route_cases("B3"))
+                + _route_cases("B3") + list(SHARD_B3))
     for n, b in b3_cases:
         plan = ftt.create_fft_f32(n, device="cuda")
         check(isinstance(plan, ftt.FourStepLocalPlan)
@@ -967,7 +1151,8 @@ def main() -> int:
             del p
     print(f"B3 kernel vs plain: {len(b3_cases)} (n, B) cases x 5 modes pass on every "
           f"body (n in {B3_SIZES} x B in {BATCHES}, {B3_QUAD} on four-block clusters, "
-          f"routes {_route_cases('B3')}); worst rel-L2 vs plain by body "
+          f"routes {_route_cases('B3')}, the sharded four-step's {SHARD_B3}); worst "
+          "rel-L2 vs plain by body "
           + ", ".join(f"{k} {v:.3e}" for k, v in b3_worst.items())
           + f"; whole plan {worst_host:.3e} vs np.fft (gate {REL_L2_GATE:g}); max abs "
           f"err {max_abs:.3e}", flush=True)
@@ -2469,6 +2654,330 @@ def main() -> int:
 
     tooling_runs()
 
+    # 4l. The sharded plans (fourier_tpu_torch.parallel) at full width on a
+    # one-rank NCCL mesh (the card's one rank: its exchanges are NCCL's
+    # all-to-all with itself): every entry point, each against torch.fft
+    # and the port's single-device surface (gates REL_L2_GATE c64,
+    # SHARD_RFFT_GATE for the real family, DD_GATE c128), pipeline_chunks
+    # bitwise equal to one chunk, the counts zeroed before each and the
+    # kernels its sub-plans hold launched; then the kernels at every (n, B)
+    # the sharded legs gave them against their plain versions (as phase 4j;
+    # B3's shape is among phase 3c's).
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0, device_id=dev)
+    meshes = {"fft": init_device_mesh("cuda", (1,), mesh_dim_names=("fft",)),
+              "batch": init_device_mesh("cuda", (1,), mesh_dim_names=("batch",)),
+              "xy": init_device_mesh("cuda", (1, 1), mesh_dim_names=("x", "y"))}
+
+    def sharded_runs():
+        """Phase 4l's runs, in a scope of their own (phase 5 reads the main
+        path's plan and planes)."""
+        from fourier_tpu_torch import parallel
+
+        split_module = sys.modules["fourier_tpu_torch.precision.dd_split"]
+        four_module = sys.modules["fourier_tpu_torch.plan.four_step_local"]
+        for shapes in route_shapes.values():
+            shapes.clear()
+        for k in ("B3", "B4a", "B7", "B8"):
+            route_shapes[k] = set()
+        ftt.VpuFftPlan.run = staticmethod(recording("B1", sv.vpu_fft_batch_minor))
+        ftt.VpuBluesteinPlan.run = staticmethod(recording("B2", sv.vpu_bluestein_batch_minor))
+        ftt.VpuDdFftPlan.run = staticmethod(recording("B6", dv.vpu_dd_fft_batch_minor))
+        ftt.VpuDdBluesteinPlan.run = staticmethod(recording(
+            "B7", dv.vpu_dd_bluestein_batch_minor))
+        rfft_module.stockham_vpu = types.SimpleNamespace(**{
+            **vars(sv),
+            "vpu_rfft_pack_batch_minor": recording(
+                "B4a", sv.vpu_rfft_pack_batch_minor,
+                lambda x_t, m, *a: (2 * m, x_t.shape[1])),
+            "vpu_rfft_odd_pack_batch_minor": recording(
+                "B5a", sv.vpu_rfft_odd_pack_batch_minor),
+            "vpu_irfft_unpack_batch_minor": recording(
+                "B4b", sv.vpu_irfft_unpack_batch_minor,
+                lambda re_t, im_t, m, *a: (2 * m, re_t.shape[1])),
+            "vpu_irfft_odd_unpack_batch_minor": recording(
+                "B5b", sv.vpu_irfft_odd_unpack_batch_minor,
+                lambda re_t, im_t, n, *a: (n, re_t.shape[1]))})
+        four_module.stockham_vpu = types.SimpleNamespace(**{
+            **vars(sv),
+            "vpu_fft_four_step_row": recording(
+                "B3", sv.vpu_fft_four_step_row,
+                lambda re3, im3, p_, q_, *a: (p_ * q_, re3.shape[2]))})
+        split_module.dd_combine = types.SimpleNamespace(**{
+            **vars(dc),
+            "dd_split_combine_batch_minor": recording(
+                "B8", dc.dd_split_combine_batch_minor,
+                lambda re_t, im_t, n, r, *a: (n, re_t.shape[1] // r))})
+        t0 = time.perf_counter()
+        c64, c128 = torch.complex64, torch.complex128
+        m_fft, m_batch, m_xy = meshes["fft"], meshes["batch"], meshes["xy"]
+        launched, worst = counts(), {}
+        for k in launched:
+            launched[k] = 0
+        sharded_launches = dict(launched)
+
+        def rand(*shape, dtype=c64):
+            rt = torch.float32 if dtype in (c64, torch.float32) else torch.float64
+            re = torch.randn(*shape, generator=gen, device=dev, dtype=rt)
+            if dtype in (torch.float32, torch.float64):
+                return re
+            return torch.complex(re, torch.randn(*shape, generator=gen, device=dev,
+                                                 dtype=rt))
+
+        def entry(what, run, wants, gate, held):
+            """`run` (DTensor planes out, or a complex/real tensor) against
+            each (label, reference) of `wants`, computed first; the counts
+            zeroed before the run, the kernels of `held` launched."""
+            refs = [(label, want()) for label, want in wants]
+            torch.cuda.synchronize()
+            zero_counts()
+            out = run()
+            torch.cuda.synchronize()
+            now = counts()
+            if isinstance(out, tuple):
+                shapes = {tuple(o.shape) for o in out}
+                local = [o.to_local() for o in out]
+                check(len(shapes) == 1 and tuple(local[0].shape) == shapes.pop(),
+                      f"{what}: the one rank does not hold the whole result")
+                out = torch.complex(*local) if len(local) == 2 else local[0]
+            errs = []
+            for label, ref in refs:
+                err = _rel_t(out[..., :ref.shape[-1]], ref)
+                check(err <= gate, f"{what}: rel-L2 {err:.3e} vs {label} (gate {gate:g})")
+                errs.append(f"{label} {err:.3e}")
+                worst[what] = max(worst.get(what, 0.0), err)
+            ran = {k: v for k, v in now.items() if v}
+            for k in held:
+                check(now[k] > 0, f"{what} launched {k} no time ({ran})")
+            for k, v in now.items():
+                sharded_launches[k] += v
+            print(f"sharded: {what}: rel-L2 " + ", ".join(errs) + f" (gate {gate:g}); "
+                  f"launched {ran}", flush=True)
+            return out
+
+        # Fft2dPlan: BASELINE config 5 per chip; inverse; pipeline_chunks.
+        b, n1, n2 = SHARD_FFT2
+        x = rand(b, n1, n2)
+        plan2 = parallel.Fft2dPlan(n1, n2, m_fft)
+        y1 = entry(f"Fft2dPlan({n1}, {n2}) {b}x fft", lambda: plan2.fft_planar(x.real, x.imag),
+                   [("torch.fft.fft2", lambda: torch.fft.fft2(x)),
+                    ("ftt.fft2", lambda: ftt.fft2(x))], REL_L2_GATE, {"B1"})
+        entry(f"Fft2dPlan({n1}, {n2}) {b}x ifft", lambda: plan2.ifft_planar(x.real, x.imag),
+              [("torch.fft.ifft2", lambda: torch.fft.ifft2(x)),
+               ("ftt.ifft2", lambda: ftt.ifft2(x))], REL_L2_GATE, {"B1"})
+        chunked = parallel.Fft2dPlan(n1, n2, m_fft, pipeline_chunks=SHARD_CHUNKS)
+        y4 = entry(f"Fft2dPlan({n1}, {n2}, pipeline_chunks={SHARD_CHUNKS}) {b}x fft",
+                   lambda: chunked.fft_planar(x.real, x.imag),
+                   [("torch.fft.fft2", lambda: torch.fft.fft2(x))], REL_L2_GATE, {"B1"})
+        check(torch.equal(y1, y4), f"pipeline_chunks={SHARD_CHUNKS} differs from one chunk")
+        print(f"sharded: pipeline_chunks={SHARD_CHUNKS} bitwise equal to one chunk",
+              flush=True)
+        del x, y1, y4, plan2, chunked
+        b, n1, n2 = SHARD_FFT2_B2
+        x = rand(b, n1, n2)
+        plan2 = parallel.Fft2dPlan(n1, n2, m_fft)
+        entry(f"Fft2dPlan({n1}, {n2}) {b}x fft", lambda: plan2.fft_planar(x.real, x.imag),
+              [("torch.fft.fft2", lambda: torch.fft.fft2(x)),
+               ("ftt.fft2", lambda: ftt.fft2(x))], REL_L2_GATE, {"B1", "B2"})
+        for b, n1, n2 in SHARD_FFT2_C128:
+            x = rand(b, n1, n2, dtype=c128)
+            plan2 = parallel.Fft2dPlan(n1, n2, m_fft, dtype=c128)
+            held = {"B6"} if n2 == n1 else {"B6", "B7", "B8"}
+            entry(f"Fft2dPlan({n1}, {n2}) c128 {b}x fft",
+                  lambda: plan2.fft_planar(x.real, x.imag),
+                  [("torch.fft.fft2", lambda: torch.fft.fft2(x)),
+                   ("ftt.fft2", lambda: ftt.fft2(x))], DD_GATE, held)
+            entry(f"Fft2dPlan({n1}, {n2}) c128 {b}x ifft",
+                  lambda: plan2.ifft_planar(x.real, x.imag),
+                  [("torch.fft.ifft2", lambda: torch.fft.ifft2(x))], DD_GATE, held)
+        del x, plan2
+        # FourStepPlan: 2^24 points, digit and natural order; the 256 x 65536
+        # split, whose row leg is the local four-step.
+        for p1, p2 in SHARD_FOUR:
+            xf = rand(p1 * p2)
+            held = {"B1"} if p2 <= 16384 else {"B1", "B3"}
+            for natural in (False, True):
+                fs = parallel.FourStepPlan(p1, p2, m_fft, natural_order=natural)
+                want = ((lambda: torch.fft.fft(xf)) if natural
+                        else (lambda: torch.fft.fft(xf).view(p2, p1).T))
+                wants = [("torch.fft.fft", want)]
+                if natural:
+                    wants.append(("create_fft_f32", lambda: ftt.create_fft_f32(
+                        p1 * p2, device=dev).fft(xf)))
+                entry(f"FourStepPlan({p1}, {p2}, natural_order={natural}) fft",
+                      lambda: fs.fft_planar(xf.real.view(p1, p2), xf.imag.view(p1, p2)),
+                      wants, REL_L2_GATE, held)
+            del xf, fs
+        # Rfft2dPlan: even n2 (B4a/B4b) and odd (B5a/B5b), rfft and irfft.
+        for n1, n2 in SHARD_RFFT2:
+            xr = rand(n1, n2, dtype=torch.float32)
+            rp = parallel.Rfft2dPlan(n1, n2, m_fft)
+            fwd, inv = ({"B1", "B4a"}, {"B1", "B4b"}) if n2 % 2 == 0 else (
+                {"B1", "B5a"}, {"B1", "B5b"})
+            spec = entry(f"Rfft2dPlan({n1}, {n2}) rfft", lambda: rp.rfft_planar(xr),
+                         [("torch.fft.rfft2", lambda: torch.fft.rfft2(xr)),
+                          ("ftt.rfft2", lambda: ftt.rfft2(xr))], SHARD_RFFT_GATE, fwd)
+            sre = spec.real.contiguous()
+            sim = spec.imag.contiguous()
+            entry(f"Rfft2dPlan({n1}, {n2}) irfft", lambda: (rp.irfft_planar(sre, sim),),
+                  [("torch.fft.irfft2", lambda: torch.fft.irfft2(spec, s=(n1, n2))),
+                   ("input", lambda: xr)], SHARD_RFFT_GATE, inv)
+            del xr, rp, spec, sre, sim
+        # 3-D: a 1x1 pencil mesh and the slab, natural and the spectral
+        # round trip.
+        shape3 = SHARD_3D
+        xc = rand(*shape3)
+        for label, mesh, axes in (("1x1 pencils", m_xy, ("x", "y")),
+                                  ("slab", m_fft, ("fft",))):
+            nat = parallel.Fft3dPlan(*shape3, mesh, axes=axes)
+            entry(f"Fft3dPlan{shape3} {label} fft", lambda: nat.fft_planar(xc.real, xc.imag),
+                  [("torch.fft.fftn", lambda: torch.fft.fftn(xc)),
+                   ("ftt.fftn", lambda: ftt.fftn(xc))], REL_L2_GATE, {"B1"})
+            spc = parallel.Fft3dPlan(*shape3, mesh, axes=axes, spectral_output=True)
+            sp = entry(f"Fft3dPlan{shape3} {label} spectral fft",
+                       lambda: spc.fft_planar(xc.real, xc.imag),
+                       [("torch.fft.fftn", lambda: torch.fft.fftn(xc))], REL_L2_GATE, {"B1"})
+            entry(f"Fft3dPlan{shape3} {label} ifft from_spectral",
+                  lambda: spc.transform_planar(sp.real, sp.imag, Transform.IFFT,
+                                               from_spectral=True),
+                  [("input", lambda: xc)], REL_L2_GATE, {"B1"})
+        xr3 = rand(*shape3, dtype=torch.float32)
+        for label, mesh, axes in (("1x1 pencils", m_xy, ("x", "y")),
+                                  ("slab", m_fft, ("fft",))):
+            for spectral in (False, True):
+                r3 = parallel.Rfft3dPlan(*shape3, mesh, axes=axes, spectral_output=spectral)
+                sp = entry(f"Rfft3dPlan{shape3} {label} spectral_output={spectral} rfft",
+                           lambda: r3.rfft_planar(xr3),
+                           [("torch.fft.rfftn", lambda: torch.fft.rfftn(xr3)),
+                            ("ftt.rfftn", lambda: ftt.rfftn(xr3))], SHARD_RFFT_GATE,
+                           {"B1", "B4a"})
+                spr, spi = sp.real.contiguous(), sp.imag.contiguous()
+                entry(f"Rfft3dPlan{shape3} {label} irfft from_spectral={spectral}",
+                      lambda: (r3.irfft_planar(spr, spi, from_spectral=spectral),),
+                      [("input", lambda: xr3)], SHARD_RFFT_GATE, {"B1", "B4b"})
+        del xc, xr3
+        # Batch sharding at the main path's shape.
+        n, bb = SHARD_BATCHED
+        xb = rand(n, bb).T  # (B, n), the batch-minor layout's view
+        bplan = ftt.create_fft_f32(n, device=dev)
+        entry(f"batched_transform {n}x{bb}",
+              lambda: parallel.batched_transform(bplan, xb.real, xb.imag, m_batch),
+              [("torch.fft.fft", lambda: torch.fft.fft(xb)),
+               ("plan.fft", lambda: bplan.fft(xb))], REL_L2_GATE, {"B1"})
+        rplan = ftt.RfftPlan(n, device=dev)
+        xrb = rand(n, bb, dtype=torch.float32).T
+        sb = entry(f"batched_rfft {n}x{bb}", lambda: parallel.batched_rfft(rplan, xrb, m_batch),
+                   [("torch.fft.rfft", lambda: torch.fft.rfft(xrb)),
+                    ("plan.rfft", lambda: rplan.rfft(xrb))], SHARD_RFFT_GATE, {"B4a"})
+        entry(f"batched_irfft {n}x{bb}",
+              lambda: (parallel.batched_irfft(rplan, sb.real, sb.imag, m_batch),),
+              [("input", lambda: xrb)], SHARD_RFFT_GATE, {"B4b"})
+        del xb, xrb, sb
+
+        ftt.VpuFftPlan.run = staticmethod(sv.vpu_fft_batch_minor)
+        ftt.VpuBluesteinPlan.run = staticmethod(sv.vpu_bluestein_batch_minor)
+        ftt.VpuDdFftPlan.run = staticmethod(dv.vpu_dd_fft_batch_minor)
+        ftt.VpuDdBluesteinPlan.run = staticmethod(dv.vpu_dd_bluestein_batch_minor)
+        rfft_module.stockham_vpu = sv
+        four_module.stockham_vpu = sv
+        split_module.dd_combine = dc
+        for kernel in ("B1", "B2", "B3", "B4a", "B4b", "B5a", "B5b", "B6", "B7", "B8"):
+            check(sharded_launches[kernel] > 0, f"phase 4l launched {kernel} no time")
+        t_runs = time.perf_counter() - t0
+        for kernel in ("B1", "B2", "B4b", "B5a", "B5b", "B6"):
+            route_checks(kernel, "4l")
+        ran_b4a, worst_b4a = [], 0.0
+        for n, b in sorted(route_shapes["B4a"]):
+            errs, mf, mi = rfft_case(ftt.RfftPlan(n, device=dev), planes(n, b)[0])
+            check(max(errs) <= REL_L2_GATE, f"B4a/B4b n={n} B={b}: rel-L2 (rfft vs "
+                  f"plain, irfft vs plain, rfft vs np.fft, irfft vs np.fft, round trip) "
+                  f"{errs}")
+            max_abs_err["B4a"] = max(max_abs_err["B4a"], mf)
+            max_abs_err["B4b"] = max(max_abs_err["B4b"], mi)
+            worst_b4a = max(worst_b4a, max(errs))
+            ran_b4a.append((n, b))
+        print(f"B4a (with B4b) at phase 4l's shapes {ran_b4a} pass; worst rel-L2 "
+              f"{worst_b4a:.3e} (gate {REL_L2_GATE:g})", flush=True)
+        for kernel in ("B7", "B8"):
+            ran_dd, worst_dd = [], [0.0, 0.0]
+            for n, b in sorted(route_shapes[kernel]):
+                e_p, e_h, m_ = dd_case(kernel, n, b)
+                worst_dd = [max(worst_dd[0], e_p), max(worst_dd[1], e_h)]
+                max_abs_err[kernel] = max(max_abs_err[kernel], m_)
+                ran_dd.append((n, b))
+            print(f"{kernel} at phase 4l's shapes {ran_dd} x 5 modes pass; worst rel-L2 "
+                  f"{worst_dd[0]:.3e} vs plain, {worst_dd[1]:.3e} vs np.fft (gate "
+                  f"{DD_GATE:g})", flush=True)
+        unchecked = route_shapes["B3"] - set(b3_cases)
+        check(route_shapes["B3"] and not unchecked, f"phase 4l gave B3 {unchecked}, "
+              f"not among phase 3c's cases")
+        print(f"B3 at phase 4l's shapes {sorted(route_shapes['B3'])}: checked in phase 3c",
+              flush=True)
+        for k, v in sharded_launches.items():
+            path_launches[k] += v
+        print(f"sharded: phase 4l launches {({k: v for k, v in sharded_launches.items() if v})}"
+              f"; runs {t_runs:.1f} s, kernel checks {time.perf_counter() - t0 - t_runs:.1f} s",
+              flush=True)
+
+    sharded_runs()
+
+    # 4m. Four gloo ranks on the one card (NCCL takes one rank a card), on a
+    # mesh of 4 and a 2x2 one: the exchanges between ranks, their block
+    # order and the uneven pad of the one-sided axis, which a one-rank mesh
+    # cannot show. Each rank's block against the block of the single-device
+    # result; the kernels launched in every rank.
+    def four_rank_runs():
+        import shutil as shutil_
+        import tempfile
+
+        import torch.multiprocessing as tmp
+
+        t0 = time.perf_counter()
+        work = tempfile.mkdtemp()
+        try:
+            context = tmp.start_processes(
+                _rank_4m, args=(f"{work}/store", work), nprocs=SHARD_4M_RANKS,
+                join=False, start_method="spawn")
+            deadline = time.monotonic() + SHARD_4M_TIMEOUT
+            try:
+                while not context.join(timeout=5):
+                    check(time.monotonic() < deadline,
+                          f"phase 4m's ranks did not finish in {SHARD_4M_TIMEOUT} s")
+            finally:
+                for proc in context.processes:
+                    if proc.is_alive():
+                        proc.terminate()
+                    proc.join(10)
+            ranks = []
+            for r in range(SHARD_4M_RANKS):
+                with open(f"{work}/rank{r}.json") as f:
+                    ranks.append(json.load(f))
+        finally:
+            shutil_.rmtree(work, ignore_errors=True)
+        for r, res in enumerate(ranks):
+            check(res.pop("chunks bitwise"), f"rank {r}: pipeline_chunks=2 differs from one "
+                  "chunk")
+            for what, case in res.items():
+                for label, err in case["errs"].items():
+                    check(err <= case["gate"], f"rank {r} {what}: rel-L2 {err:.3e} vs "
+                          f"{label} (gate {case['gate']:g})")
+            launched = {k for case in res.values() for k in case["launches"]}
+            check({"B1", "B5a", "B5b"} <= launched,
+                  f"rank {r} launched {sorted(launched)}, not B1, B5a and B5b")
+        for what in ranks[0]:
+            print(f"4 gloo ranks on the card: {what}: worst rel-L2 " + ", ".join(
+                f"{label} {max(res[what]['errs'][label] for res in ranks):.3e}"
+                for label in ranks[0][what]["errs"])
+                + f" (gate {ranks[0][what]['gate']:g}); launches by rank "
+                + str([res[what]["launches"] for res in ranks]), flush=True)
+        print(f"4 gloo ranks on the card: pipeline_chunks=2 bitwise in every rank; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    four_rank_runs()
+
     # 5. Timing: CHAIN dependent SQRT_SCALED_FFT calls, median of REPS.
     mode = Transform.SQRT_SCALED_FFT
     tables = plan.tables(True)
@@ -3367,6 +3876,80 @@ def main() -> int:
               + f" on {card}; {time.perf_counter() - t0:.1f} s", flush=True)
 
     suite_rows()
+
+    # 5k. The sharded plans on the one-rank mesh beside the port's own
+    # single-device call and torch.fft on the same tensor: ms a call
+    # (SURF_CHAIN calls, median of REPS) and the byte bound (the input read
+    # once, the output written once at HBM_RATE): what the sharded layout
+    # and the rank's exchanges cost over the single-device route. Beside
+    # each call's time, the host's time to issue it (SURF_CHAIN calls with
+    # no synchronisation between them, median of REPS): near the call's own
+    # time where the host, not the card, sets the pace. (torch.profiler's
+    # record of one sharded call held only part of its kernels, a memcpy
+    # and unnamed entries, so it does not read the device's share here.)
+    def sharded_times():
+        from fourier_tpu_torch import parallel
+
+        t0 = time.perf_counter()
+
+        def t_ms(fn):
+            return median_ms(lambda *_: (fn(), None), None, None, SURF_CHAIN)
+
+        def host_ms(fn):
+            fn()
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(REPS):
+                start = time.perf_counter()
+                for _ in range(SURF_CHAIN):
+                    fn()
+                times.append((time.perf_counter() - start) * 1e3 / SURF_CHAIN)
+                torch.cuda.synchronize()
+            return float(np.median(times))
+
+        def rand(*shape):
+            return torch.complex(torch.randn(*shape, generator=gen, device=dev),
+                                 torch.randn(*shape, generator=gen, device=dev))
+
+        def row(what, nbytes, calls):
+            times = [(label, t_ms(fn), host_ms(fn)) for label, fn in calls]
+            print(f"sharded time: {what}: " + "; ".join(
+                f"{label} {ms:.4f} ms (host {h:.4f})" for label, ms, h in times)
+                + f"; byte bound {nbytes / HBM_RATE * 1e3:.4f} ms; sharded / "
+                f"single-device {times[0][1] / times[-2][1]:.3f}, / torch.fft "
+                f"{times[0][1] / times[-1][1]:.3f} on {card}", flush=True)
+
+        b, n1, n2 = SHARD_FFT2
+        x = rand(b, n1, n2)
+        plan2 = parallel.Fft2dPlan(n1, n2, meshes["fft"])
+        chunked = parallel.Fft2dPlan(n1, n2, meshes["fft"], pipeline_chunks=SHARD_CHUNKS)
+        row(f"Fft2dPlan({n1}, {n2}) {b}x c64", 16.0 * x.numel(), [
+            ("Fft2dPlan.fft_planar", lambda: plan2.fft_planar(x.real, x.imag)),
+            (f"pipeline_chunks={SHARD_CHUNKS}", lambda: chunked.fft_planar(x.real, x.imag)),
+            ("ftt.fft2", lambda: ftt.fft2(x)), ("torch.fft.fft2", lambda: torch.fft.fft2(x))])
+        del x, plan2, chunked
+        p1, p2 = SHARD_FOUR[0]
+        xf = rand(p1 * p2)
+        fs = parallel.FourStepPlan(p1, p2, meshes["fft"], natural_order=True)
+        one = ftt.create_fft_f32(p1 * p2, device=dev)
+        row(f"FourStepPlan({p1}, {p2}, natural_order=True) c64", 16.0 * xf.numel(), [
+            ("FourStepPlan.fft_planar",
+             lambda: fs.fft_planar(xf.real.view(p1, p2), xf.imag.view(p1, p2))),
+            (f"create_fft_f32({p1 * p2}).fft", lambda: one.fft(xf)),
+            ("torch.fft.fft", lambda: torch.fft.fft(xf))])
+        del xf, fs, one
+        xr = torch.randn(*SHARD_3D, generator=gen, device=dev)
+        r3 = parallel.Rfft3dPlan(*SHARD_3D, meshes["xy"])
+        r3s = parallel.Rfft3dPlan(*SHARD_3D, meshes["xy"], spectral_output=True)
+        out_bytes = 8.0 * math.prod(SHARD_3D[:2]) * r3.out_len
+        row(f"Rfft3dPlan{SHARD_3D} f32 on 1x1 pencils", 4.0 * xr.numel() + out_bytes, [
+            ("Rfft3dPlan.rfft_planar", lambda: r3.rfft_planar(xr)),
+            ("spectral_output=True", lambda: r3s.rfft_planar(xr)),
+            ("ftt.rfftn", lambda: ftt.rfftn(xr)), ("torch.fft.rfftn", lambda: torch.fft.rfftn(xr))])
+        print(f"sharded time: phase 5k {time.perf_counter() - t0:.1f} s", flush=True)
+
+    sharded_times()
+    dist.destroy_process_group()
 
     kernels = (
         ("B1", "B1 fused Stockham c64 (vpu_fft_batch_minor; clustered-block body, "

@@ -40,6 +40,12 @@ of time (``export_compiled``, ``load_compiled``, ``CompiledFft``;
 operators). ``tools/bench_suite.py`` times the suite's rows beside
 ``torch.fft``; ``tools/prof.py`` runs a plan in a loop for the profiler.
 
+The sharded plans, ``fourier_tpu_torch.parallel`` (``FourStepPlan``,
+``Fft2dPlan``, ``Fft3dPlan``, ``Rfft2dPlan``, ``Rfft3dPlan``,
+``batched_transform``, ``batched_rfft``, ``batched_irfft``), run the same
+1-D plans on every rank of a ``torch.distributed`` DeviceMesh, exchanging
+through ``all_to_all_single`` (NCCL between cards).
+
 This package imports torch and never jax.
 """
 
@@ -296,4 +302,10 @@ def __getattr__(name):
         from fourier_tpu_torch.scipy_backend import scipy_fft_backend
 
         return scipy_fft_backend
+    # The sharded plans (fourier_tpu_torch.parallel, as fourier_tpu.parallel)
+    # load torch.distributed.tensor: on first use only.
+    if name == "parallel":
+        import importlib
+
+        return importlib.import_module("fourier_tpu_torch.parallel")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

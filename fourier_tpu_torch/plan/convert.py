@@ -11,6 +11,12 @@ pairs in four planes (re_hi, re_lo, im_hi, im_lo); each f64 table is
 rebuilt as float64(hi) + float64(lo), about 48 bits of the f64 value the
 JAX package split. A ``DdFftPlan`` becomes the f64 :class:`AutosortPlan`
 (kind stockham) or :class:`BluesteinPlan` (kind bluestein).
+
+The JAX package's sharded plans (``fourier_tpu/parallel/sharded.py``) load
+as the port's (``fourier_tpu_torch.parallel``) onto ``mesh``, a DeviceMesh
+with the dim names and shape the file records; c64 and native-f64 c128
+plans load, the double-word (4-plane) ones do not (ROADMAP.md queue 1 item
+7: the port's c128 is native f64).
 """
 
 from __future__ import annotations
@@ -37,22 +43,48 @@ from fourier_tpu_torch.rfft import RfftPlan
 
 FORMAT_VERSION = 2
 
-# Plan classes of the JAX package that have no port yet, and the ROADMAP.md
-# item that ports them.
+# Plan classes of the JAX package that have no port, and the ROADMAP.md
+# item that says why.
 _NOT_PORTED = {
     "DdMxuDirectPlan": "queue 1 item 7 (on no route of the reference)",
-    "FourStepPlan": "queue 1 item 12",
-    "Fft2dPlan": "queue 1 item 12",
-    "Fft3dPlan": "queue 1 item 12",
-    "Rfft2dPlan": "queue 1 item 12",
-    "Rfft3dPlan": "queue 1 item 12",
 }
 
+#: The sharded plan classes (``fourier_tpu_torch.parallel``, whose module
+#: loads the DTensor machinery: imported where a plan file names one).
+SHARDED_CLASSES = ("Fft2dPlan", "Fft3dPlan", "FourStepPlan", "Rfft2dPlan", "Rfft3dPlan")
 
-def _aux(node):
+# The JAX package's double-word (4-plane) c128 plans: a sharded plan over
+# them runs the 4-plane API, which the port does not have.
+_DOUBLE_WORD = ("DdFftPlan", "VpuDdFftPlan", "VpuDdBluesteinPlan", "DdSplitPow2Plan",
+                "DdSplitRadixPlan", "DdMxuDirectPlan")
+
+
+def _aux(node, mesh=None):
+    """A plan node's aux data: tuples untagged, a recorded mesh geometry
+    rebound to `mesh` (which must match it)."""
+    if isinstance(node, dict) and "__mesh__" in node:
+        want = node["__mesh__"]
+        if mesh is None:
+            raise ValueError(
+                "this plan file contains a sharded plan; pass load_plan(..., "
+                f"mesh=...) with axes {want['axis_names']} of shape {want['shape']}")
+        names = list(mesh.mesh_dim_names or ())
+        shape = [int(s) for s in mesh.shape]
+        if names != want["axis_names"] or shape != want["shape"]:
+            raise ValueError(
+                f"provided mesh (axes {names}, shape {shape}) does not match the plan's "
+                f"mesh (axes {want['axis_names']}, shape {want['shape']})")
+        return mesh
     if isinstance(node, dict):
-        return tuple(_aux(v) for v in node["__tuple__"])
+        return tuple(_aux(v, mesh) for v in node["__tuple__"])
     return node
+
+
+def _double_word(node) -> bool:
+    """A JAX plan node over double-word tables (an RfftPlan over one)."""
+    name = node.get("__plan__")
+    return name in _DOUBLE_WORD or (name == "RfftPlan"
+                                    and _double_word(node["children"][0]))
 
 
 def _tree(node, leaves):
@@ -98,12 +130,24 @@ def _dd_rows(tables):
                      np.stack([np.ravel(im) for _, im in pairs])])
 
 
-def _build(node, leaves, device) -> FftPlan:
+def _build(node, leaves, device, mesh=None) -> FftPlan:
     name = node.get("__plan__")
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"{name} is not ported yet: ROADMAP.md {_NOT_PORTED[name]}"
         )
+    if name in SHARDED_CLASSES:
+        is_plan = lambda c: isinstance(c, dict) and "__plan__" in c
+        if any(is_plan(c) and _double_word(c) for c in node["children"]):
+            raise NotImplementedError(
+                f"{name} over double-word (4-plane) c128 plans is not ported: ROADMAP.md "
+                "queue 1 item 7 (the port's c128 is native f64; save the JAX plan with "
+                "x64 on and backend='stockham')")
+        from fourier_tpu_torch.parallel.sharded import PLANS
+
+        kids = [_build(c, leaves, device) if is_plan(c) else _tree(c, leaves)
+                for c in node["children"]]
+        return PLANS[name].from_aux(_aux(node["aux"], mesh), kids)
     aux = _aux(node["aux"])
     if name == "AutosortPlan":
         size, radices, dtype = aux
@@ -184,17 +228,19 @@ def _build(node, leaves, device) -> FftPlan:
 
 
 def load_jax_plan(path_or_arrays: Union[str, Mapping[str, np.ndarray]],
-                  device="cuda") -> FftPlan:
+                  device="cuda", mesh=None) -> FftPlan:
     """Build the port's plan on `device` from a JAX ``save_plan`` file (a
-    path) or its arrays (a mapping such as the ``np.load`` result)."""
+    path) or its arrays (a mapping such as the ``np.load`` result). A
+    sharded plan is rebound to ``mesh`` (on `device`), which must have the
+    dim names and shape its file records."""
     device = resolve_device(device)
     if isinstance(path_or_arrays, Mapping):
-        return _from_arrays(path_or_arrays, device)
+        return _from_arrays(path_or_arrays, device, mesh)
     with np.load(path_or_arrays, allow_pickle=False) as data:
-        return _from_arrays(data, device)
+        return _from_arrays(data, device, mesh)
 
 
-def _from_arrays(data, device) -> FftPlan:
+def _from_arrays(data, device, mesh=None) -> FftPlan:
     if "format" in data:  # the port's own files carry a format tag
         raise ValueError("this plan file was written by fourier_tpu_torch's save_plan; "
                          "load it with fourier_tpu_torch.load_plan")
@@ -205,4 +251,4 @@ def _from_arrays(data, device) -> FftPlan:
         raise ValueError(f"unsupported plan format version {version}")
     structure = json.loads(bytes(np.asarray(data["structure"]).tobytes()).decode("utf-8"))
     leaves = {k: np.asarray(data[k]) for k in data if k.startswith("leaf_")}
-    return _build(structure, leaves, device)
+    return _build(structure, leaves, device, mesh)

@@ -18,6 +18,12 @@ right one (:func:`~fourier_tpu_torch.plan.convert.load_jax_plan` reads the
 JAX package's files). Loading can only select classes of an explicit
 allowlist of the port's plan classes; the tag tree is walked by the
 helpers that ``convert.py`` uses for the JAX format.
+
+The sharded plans (``fourier_tpu_torch.parallel``) are saved as the JAX
+package saves its own: their structure, the full tables (the four-step's
+split twiddle, every rank's columns) and their sub-plans, the mesh as its
+dim names and shape only. ``load_plan(..., mesh=...)`` rebinds them to a
+mesh of that geometry, and each rank takes its own columns.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from typing import Callable, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from fourier_tpu_torch.plan import convert
 from fourier_tpu_torch.plan.autosort import AutosortPlan
@@ -139,7 +146,19 @@ _CODECS: Dict[str, _Codec] = {c.cls.__name__: c for c in (
 )}
 
 #: The plan classes a plan file may name.
-PLAN_CLASSES: Tuple[str, ...] = tuple(sorted(_CODECS))
+PLAN_CLASSES: Tuple[str, ...] = tuple(sorted((*_CODECS, *convert.SHARDED_CLASSES)))
+
+
+def _codec(name: str):
+    """The codec of plan class `name`, or None (the sharded plans' are made
+    at first use)."""
+    if name in convert.SHARDED_CLASSES and name not in _CODECS:
+        from fourier_tpu_torch.parallel.sharded import PLANS
+
+        cls = PLANS[name]
+        _CODECS[name] = _Codec(cls, cls.aux, cls.parts,
+                               lambda aux, kids, device, cls=cls: cls.from_aux(aux, kids))
+    return _CODECS.get(name)
 
 
 def _encode_aux(value):
@@ -147,6 +166,9 @@ def _encode_aux(value):
         return value
     if isinstance(value, tuple):
         return {"__tuple__": [_encode_aux(v) for v in value]}
+    if isinstance(value, DeviceMesh):  # its geometry: load_plan rebinds a mesh
+        return {"__mesh__": {"axis_names": list(value.mesh_dim_names or ()),
+                             "shape": [int(s) for s in value.shape]}}
     raise TypeError(f"plan aux data of type {type(value).__name__} is not serializable")
 
 
@@ -159,25 +181,25 @@ def _encode(node, arrays: list):
     if isinstance(node, tuple):
         return {"__tuple__": [_encode(c, arrays) for c in node]}
     name = type(node).__name__
-    codec = _CODECS.get(name)
+    codec = _codec(name)
     if codec is None or type(node) is not codec.cls:
         raise TypeError(
             f"cannot serialize {name}: not a plan class of the port (known: "
-            f"{list(PLAN_CLASSES)}; the sharded plans wait for ROADMAP.md queue 1 "
-            "item 12)")
+            f"{list(PLAN_CLASSES)})")
     return {"__plan__": name, "aux": _encode_aux(codec.aux(node)),
             "children": [_encode(c, arrays) for c in codec.children(node)]}
 
 
-def _decode(node, leaves, device):
+def _decode(node, leaves, device, mesh=None):
     if isinstance(node, dict) and "__plan__" in node:
         name = node["__plan__"]
-        if name not in _CODECS:
+        codec = _codec(name)
+        if codec is None:
             raise ValueError(
-                f"unknown plan class {name!r} in plan file (known: {list(PLAN_CLASSES)}; "
-                "the sharded plans wait for ROADMAP.md queue 1 item 12)")
-        kids = [_decode(c, leaves, device) for c in node["children"]]
-        return _CODECS[name].build(convert._aux(node["aux"]), kids, device)
+                f"unknown plan class {name!r} in plan file (known: {list(PLAN_CLASSES)})")
+        aux = convert._aux(node["aux"], mesh)
+        kids = [_decode(c, leaves, device, mesh) for c in node["children"]]
+        return codec.build(aux, kids, device)
     return convert._tree(node, leaves)
 
 
@@ -213,11 +235,14 @@ def plan_to_bytes(plan) -> bytes:
     return buf.getvalue()
 
 
-def load_plan(path_or_bytes, device="cuda") -> FftPlan:
+def load_plan(path_or_bytes, device="cuda", mesh=None) -> FftPlan:
     """Rebuild on `device` (the card unless the caller asks for the CPU) a
     plan written by :func:`save_plan` (a path) or :func:`plan_to_bytes` (the
     bytes). Safe on untrusted files: no pickle is involved, and the file can
-    only select plan classes of the allowlist and give their arrays."""
+    only select plan classes of the allowlist and give their arrays.
+
+    A sharded plan stores its mesh's dim names and shape only: pass
+    ``mesh=`` with the same names and shape (on `device`) to rebind it."""
     device = resolve_device(device)
     src = io.BytesIO(path_or_bytes) if isinstance(path_or_bytes, bytes) else path_or_bytes
     with np.load(src, allow_pickle=False) as data:
@@ -233,4 +258,4 @@ def load_plan(path_or_bytes, device="cuda") -> FftPlan:
         leaves = {k: np.asarray(data[k]) for k in data.files if k.startswith("leaf_")}
     if not (isinstance(structure, dict) and "__plan__" in structure):
         raise ValueError("plan file holds no plan")
-    return _decode(structure, leaves, device)
+    return _decode(structure, leaves, device, mesh)

@@ -2,8 +2,8 @@
 
 Port of ``fourier_tpu/plan/summary.py``: :func:`summarize` gives a
 :class:`PlanSummary` (kind, stages, flops and minimum device-memory bytes per
-transform, table bytes, sub-plan summaries) of any non-sharded plan of the
-port, :func:`describe` its rendering.
+transform, table bytes, sub-plan summaries) of any plan of the port,
+:func:`describe` its rendering.
 
 The complex64 plans (``RfftPlan``, ``AutosortPlan``, ``MxuFftPlan``,
 ``BluesteinPlan``, ``FourStepLocalPlan``, ``VpuFftPlan``,
@@ -18,8 +18,10 @@ f32: they get the port's own kinds (``VpuFusedF64``,
 ``VpuFusedBluesteinF64``, ``SplitRadix<r>F64``; the f64 ``AutosortPlan`` and
 ``BluesteinPlan`` keep the c64 kinds) with f64 flop counts and two f64 planes
 in and out, not the double-word multipliers and four f32 planes of the JAX
-package's summaries. The sharded plan families wait for the port of
-``parallel/sharded.py``.
+package's summaries. The sharded plans (``fourier_tpu_torch.parallel``)
+get the JAX package's kinds, flops and stages, with each exchange named for
+its transport (the mesh's process-group backend: NCCL between cards), not
+ICI; their ``table_bytes`` are this rank's buffers.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ from typing import List
 
 import numpy as np
 import torch
+
+from fourier_tpu_torch.plan.convert import SHARDED_CLASSES
 
 
 @dataclass
@@ -69,7 +73,7 @@ def _stage_flops(n: int, schedule) -> float:
 
 
 def summarize(plan) -> PlanSummary:
-    """Build a PlanSummary for any non-sharded plan of the port."""
+    """Build a PlanSummary for any plan of the port."""
     from fourier_tpu_torch.plan.autosort import AutosortPlan
     from fourier_tpu_torch.plan.bluestein import BluesteinPlan
     from fourier_tpu_torch.plan.bluestein_fused import VpuBluesteinPlan
@@ -83,6 +87,8 @@ def summarize(plan) -> PlanSummary:
     tables = _buffer_bytes(plan)
     dtype = _dtype_name(plan.dtype)
     c64 = plan.dtype == torch.complex64
+    if type(plan).__name__ in SHARDED_CLASSES:
+        return _summarize_sharded(plan, tables, dtype, 8 if c64 else 16)
 
     if isinstance(plan, RfftPlan):
         inner = summarize(plan.inner)
@@ -193,6 +199,67 @@ def summarize(plan) -> PlanSummary:
                            stages, [sub])
 
     return PlanSummary(type(plan).__name__, n, dtype, 0.0, tables, io)
+
+
+def _summarize_sharded(plan, tables: int, dtype: str, eb: int) -> PlanSummary:
+    """The sharded families: port of ``fourier_tpu/plan/summary.py:257-350``
+    (the exchange named for its transport)."""
+    from fourier_tpu_torch.parallel.sharded import exchange_backend
+
+    n, io = plan.size, 2 * plan.size * eb
+    via = exchange_backend(plan)
+    overlap = (f", {plan.pipeline_chunks} overlapped chunks"
+               if getattr(plan, "pipeline_chunks", 1) > 1 else "")
+    kind = type(plan).__name__
+    if kind == "FourStepPlan":
+        col, row = summarize(plan.col_plan), summarize(plan.row_plan)
+        flops = (plan.n2 * col.flops_per_transform + plan.n1 * row.flops_per_transform
+                 + 6.0 * n)
+        stages = [f"column FFTs ({plan.n1}-point, sharded over {plan.axis!r})",
+                  "split twiddle",
+                  f"all_to_all transpose over {plan.axis!r} ({via})",
+                  f"row FFTs ({plan.n2}-point)"]
+        return PlanSummary("FourStepSharded", n, dtype, flops, tables, io, stages,
+                           [col, row])
+    restore = [] if getattr(plan, "transposed_output", False) else [
+        f"all_to_all layout restore ({via})"]
+    if kind == "Fft2dPlan":
+        col, row = summarize(plan.col_plan), summarize(plan.row_plan)
+        flops = plan.n1 * row.flops_per_transform + plan.n2 * col.flops_per_transform
+        stages = [f"row FFTs ({plan.n2}-point, rows sharded over {plan.axis!r})",
+                  f"all_to_all transpose over {plan.axis!r} ({via}){overlap}",
+                  f"column FFTs ({plan.n1}-point)"] + restore
+        return PlanSummary("Fft2dSharded", n, dtype, flops, tables, io, stages,
+                           [row, col])
+    if kind == "Rfft2dPlan":
+        rp, col = summarize(plan.rplan), summarize(plan.col_plan)
+        flops = plan.n1 * rp.flops_per_transform + plan.n2p * col.flops_per_transform
+        stages = [f"row r2c FFTs ({plan.n2}->{plan.out_len} bins, pad to {plan.n2p})",
+                  f"all_to_all transpose over {plan.axis!r} (half-spectrum bytes, {via})",
+                  f"column FFTs ({plan.n1}-point)"] + restore
+        return PlanSummary("Rfft2dSharded", n, dtype, flops, tables, n * eb // 2,
+                           stages, [rp, col])
+    ax = "/".join(repr(a) for a in plan.axes)
+    mirror = [] if plan.spectral_output else ["mirror all_to_alls: natural layout restore"]
+    if kind == "Fft3dPlan":
+        subs = [summarize(p) for p in (plan.plan0, plan.plan1, plan.plan2)]
+        per_line = (plan.n0 * plan.n1, plan.n0 * plan.n2, plan.n1 * plan.n2)
+        flops = sum(c * s.flops_per_transform for c, s in zip(per_line, subs))
+        first = f"n2 FFTs ({plan.n2}-point, pencils whole)"
+        io_bytes, name = io, "Fft3dPencil"
+        a2a = f"all_to_all over {ax} ({via}){overlap}"
+    else:
+        subs = [summarize(p) for p in (plan.rplan, plan.plan1, plan.plan0)]
+        flops = (plan.n0 * plan.n1 * subs[0].flops_per_transform
+                 + plan.n0 * plan.n2p * subs[1].flops_per_transform
+                 + plan.n1 * plan.n2p * subs[2].flops_per_transform)
+        first = f"n2 r2c FFTs ({plan.n2}->{plan.out_len} bins, pad to {plan.n2p})"
+        io_bytes, name = n * eb // 2, "Rfft3dPencil"
+        a2a = f"all_to_all over {ax} (half-spectrum bytes, {via}){overlap}"
+    stages = [first, a2a, f"n1 FFTs ({plan.n1}-point)",
+              f"all_to_all over first mesh axis ({via})",
+              f"n0 FFTs ({plan.n0}-point)"] + mirror
+    return PlanSummary(name, n, dtype, flops, tables, io_bytes, stages, subs)
 
 
 def describe(plan) -> str:

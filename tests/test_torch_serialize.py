@@ -138,8 +138,9 @@ def test_allowlist_is_the_port_plan_classes(tmp_path):
     assert serialize.PLAN_CLASSES == tuple(sorted((
         "AutosortPlan", "BluesteinPlan", "FourStepLocalPlan", "MxuFftPlan", "VpuFftPlan",
         "VpuBluesteinPlan", "VpuDdFftPlan", "VpuDdBluesteinPlan", "DdSplitPow2Plan",
-        "DdSplitRadixPlan", "RfftPlan")))
-    with pytest.raises(TypeError, match="item 12"):
+        "DdSplitRadixPlan", "RfftPlan", "FourStepPlan", "Fft2dPlan", "Fft3dPlan",
+        "Rfft2dPlan", "Rfft3dPlan")))
+    with pytest.raises(TypeError, match="not a plan class of the port"):
         save_plan(torch.nn.Linear(2, 2), str(tmp_path / "refused.npz"))
     assert not (tmp_path / "refused.npz").exists()
 

@@ -293,6 +293,8 @@ def test_no_jax_import_in_sources():
     sources = _port_sources()
     tools = {p.name for p in sources if p.parent.name == "tools"}
     assert {"bench_suite.py", "prof.py"} <= tools, tools
+    sharded = {p.name for p in sources if p.parent.name == "parallel"}
+    assert {"__init__.py", "sharded.py", "exchange.py"} <= sharded, sharded
     for path in sources:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             names = []
@@ -311,8 +313,8 @@ def test_no_jax_in_a_fresh_process():
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
         for p in (REPO / "fourier_tpu_torch").rglob("*.py"))
-    assert {"fourier_tpu_torch.tools.bench_suite",
-            "fourier_tpu_torch.tools.prof"} <= set(modules)
+    assert {"fourier_tpu_torch.tools.bench_suite", "fourier_tpu_torch.tools.prof",
+            "fourier_tpu_torch.parallel.sharded"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
