@@ -77,6 +77,14 @@ their plain versions; phase 4m spawns four gloo ranks on the one card (a
 mesh of 4 and a 2x2 one), each rank's block held against the block of the
 single-device result; phase 5k times the sharded calls beside the
 single-device ones and torch.fft, with one call's device time by kernel.
+Phase 4n runs the native FFI (fourier_tpu_torch/ffi, the host C++ core, no
+kernel): it builds the core's library and dump_plan with the host C++
+compiler (no CMake), holds the core against np.fft in f64 and against the
+port's create_fft_f32/create_fft_f64 plans on the card on the same data at
+FFI_SIZES x 5 modes (gates 1e-6 and 1e-12), runs native_fft under
+torch.compile(fullgraph=True) on CPU tensors, fails unless a CUDA tensor is
+refused, runs the plan-parity gate, and times one call at FFI_TIME on the
+host beside the port's call on the card.
 Every phase prints its lines;
 any failed check raises, so the exit code is non-zero. The next-to-last
 line is a JSON record of the kernels; the last line is
@@ -89,6 +97,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -403,6 +412,12 @@ SHARD_4M_RANKS = 4
 SHARD_4M = {"fft2": (1024, 1024), "four": (256, 1024), "rfft2": (1024, 1013),
             "cube": (64, 64, 64)}
 SHARD_4M_TIMEOUT = 240.0  # seconds for the four ranks, start-up included
+# Phase 4n: the native FFI (fourier_tpu_torch/ffi), the host C++ core, at
+# these sizes (every plan family: 1, Stockham 24/243/4096, Bluestein 73/1013)
+# on FFI_ROWS rows, and timed once at FFI_TIME (n, B) c64 beside the card.
+FFI_SIZES = (1, 24, 73, 243, 1013, 4096)
+FFI_ROWS = 8
+FFI_TIME = (4096, 256)
 B9_TIME = (("B9a", 125, 65536), ("B9b", 4096, 16384), ("B9b", 16384, 1024))
 B9_CHAIN = 16
 # The bodies of B9a and B9b: the tensor cores' in 3xTF32 (csrc/dft_mma.cu,
@@ -2977,6 +2992,127 @@ def main() -> int:
               f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     four_rank_runs()
+
+    # 4n. The native FFI (fourier_tpu_torch/ffi): the host C++ core, built by
+    # the host compiler with no CMake, against np.fft in f64 and against the
+    # port's plans on the card on the same data; its operator under
+    # torch.compile(fullgraph=True) on CPU tensors and a CUDA tensor refused;
+    # the plan-parity gate; one call timed on the host beside the card's.
+    # The card's launches here compare, so they stay out of path_launches.
+    def native_ffi_runs():
+        from concurrent.futures import ThreadPoolExecutor
+
+        from fourier_tpu_torch import ffi
+        from fourier_tpu_torch.ffi import build as ffi_build
+        from fourier_tpu_torch.ffi import op as ffi_op
+        from fourier_tpu_torch.ffi import plan_parity
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(2) as pool:
+            so, dump_bin = (f.result() for f in (pool.submit(ffi_build.build_library),
+                                                 pool.submit(ffi_build.build_dump_plan)))
+        ffi.load_library()
+        print(f"native FFI: built {so.name} and {dump_bin.name} under "
+              f"build/fourier_tpu_torch/ffi/ with {' '.join(ffi_build.compiler())} "
+              f"{' '.join(ffi_build.CXX_FLAGS)} (no CMake) in "
+              f"{time.perf_counter() - t0:.2f} s; each: " + ", ".join(
+                  f"{k} {v:.2f} s" for k, v in sorted(ffi_build.build_seconds.items())),
+              flush=True)
+        rng = np.random.default_rng(SEED)
+        zero_counts()
+        for dtype, card_plan, gate in ((np.complex64, ftt.create_fft_f32, REL_L2_GATE),
+                                       (np.complex128, ftt.create_fft_f64, DD_GATE)):
+            worst_np = worst_card = 0.0
+            for n in FFI_SIZES:
+                x = (rng.standard_normal((FFI_ROWS, n))
+                     + 1j * rng.standard_normal((FFI_ROWS, n))).astype(dtype)
+                plan, cplan = ffi.NativeFftPlan(n, dtype), card_plan(n)
+                for mode in Transform:
+                    got = x.copy()
+                    plan.transform_batch_in_place(got, mode)
+                    x64 = x.astype(np.complex128)
+                    want = (np.fft.fft(x64, axis=-1) if mode.is_forward
+                            else np.fft.ifft(x64, axis=-1) * n) * (mode.scale(n) or 1.0)
+                    e_np = rel_l2(got, want)
+                    e_card = rel_l2(got, cplan.transform(x, mode))
+                    check(e_np <= gate and e_card <= gate,
+                          f"native FFI {np.dtype(dtype).name} n={n} {mode.name}: rel-L2 "
+                          f"{e_np:.3e} vs np.fft, {e_card:.3e} vs {type(cplan).__name__} "
+                          f"on the card (gate {gate:g})")
+                    worst_np, worst_card = max(worst_np, e_np), max(worst_card, e_card)
+            print(f"native FFI {np.dtype(dtype).name} at n {FFI_SIZES} x {FFI_ROWS} rows x "
+                  f"5 modes: worst rel-L2 {worst_np:.3e} vs np.fft (f64), "
+                  f"{worst_card:.3e} vs the card's {card_plan.__name__}(n) (gate {gate:g})",
+                  flush=True)
+        print(f"native FFI: the card's plans launched "
+              f"{ {k: v for k, v in counts().items() if v} } (comparisons)", flush=True)
+
+        # The operator in a compiled graph on CPU tensors.
+        xc = torch.as_tensor(rng.standard_normal((4, 1013))
+                             + 1j * rng.standard_normal((4, 1013)))
+        f = torch.compile(lambda a: ffi_op.native_fft(2.0 * a, Transform.SQRT_SCALED_FFT),
+                          fullgraph=True, backend="aot_eager")
+        e_op = rel_l2(f(xc).numpy(), np.fft.fft(2.0 * xc.numpy(), axis=-1, norm="ortho"))
+        check(e_op <= DD_GATE, f"native_fft under torch.compile: rel-L2 {e_op:.3e}")
+        # A CUDA tensor is refused: by native_fft, by the operator's dispatcher
+        # (no CUDA kernel) and by NativeFftPlan.
+        xd = torch.ones(1013, dtype=torch.complex128, device=dev)
+        refused = []
+        for what, call in (("native_fft", lambda: ffi_op.native_fft(xd, 0)),
+                           ("the operator", lambda: ffi_op._native_fft_op(xd, 0)),
+                           ("NativeFftPlan", lambda: ffi.NativeFftPlan(
+                               1013, np.complex128).transform(xd))):
+            try:
+                call()
+            except (TypeError, NotImplementedError, RuntimeError) as e:
+                refused.append(f"{what}: {type(e).__name__}")
+            else:
+                check(False, f"{what} took a CUDA tensor")
+        print(f"native FFI: under torch.compile(fullgraph=True) rel-L2 {e_op:.3e} "
+              f"(gate {DD_GATE:g}); a CUDA tensor refused by " + ", ".join(refused),
+              flush=True)
+        failures = plan_parity.run(dump_bin)
+        check(not failures, f"plan parity: {failures}")
+        print(f"native FFI: plan parity with the port's plan-time math OK at "
+              f"{plan_parity.SIZES} x {list(plan_parity.DTYPES)}", flush=True)
+
+        # One call at FFI_TIME c64: the core on the host, the port on the card.
+        n, b = FFI_TIME
+        x = (rng.standard_normal((b, n)) + 1j * rng.standard_normal((b, n))).astype(
+            np.complex64)
+        plan = ffi.NativeFftPlan(n, np.complex64)
+        host = []
+        for _ in range(REPS + 1):
+            buf = x.copy()
+            t1 = time.perf_counter()
+            plan.transform_batch_in_place(buf, Transform.FFT)
+            host.append((time.perf_counter() - t1) * 1e3)
+        cplan, xd = ftt.create_fft_f32(n), torch.as_tensor(x, device=dev)
+        card_ms = []
+        for _ in range(REPS + 1):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            yd = cplan.transform(xd, Transform.FFT)
+            stop.record()
+            torch.cuda.synchronize()
+            card_ms.append(start.elapsed_time(stop))
+        e_t = rel_l2(buf, yd.cpu().numpy())
+        check(e_t <= REL_L2_GATE, f"native FFI {n}x{b}: rel-L2 {e_t:.3e} vs the card")
+        with open("/proc/cpuinfo") as info:  # the first processor's fields
+            fields = dict(ln.split(":", 1) for ln in info.read().split("\n\n")[0]
+                          .splitlines() if ":" in ln)
+        cpu = {k.strip(): v.strip() for k, v in fields.items()}
+        cpu = (f"{cpu.get('model name', '?')}: {cpu.get('vendor_id', '?')} family "
+               f"{cpu.get('cpu family', '?')} model {cpu.get('model', '?')}, "
+               f"{os.cpu_count()} CPUs")
+        print(f"time: native FFI c64 {n}x{b}, one call (transform_batch_in_place), "
+              f"median of {REPS} after one: {float(np.median(host[1:])):.4f} ms on the "
+              f"host ({cpu}); create_fft_f32({n}).transform on the card "
+              f"{float(np.median(card_ms[1:])):.4f} ms ({smi}); rel-L2 {e_t:.3e}; "
+              f"phase 4n {time.perf_counter() - t0:.1f} s", flush=True)
+
+    native_ffi_runs()
 
     # 5. Timing: CHAIN dependent SQRT_SCALED_FFT calls, median of REPS.
     mode = Transform.SQRT_SCALED_FFT

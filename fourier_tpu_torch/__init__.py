@@ -46,6 +46,11 @@ The sharded plans, ``fourier_tpu_torch.parallel`` (``FourStepPlan``,
 1-D plans on every rank of a ``torch.distributed`` DeviceMesh, exchanging
 through ``all_to_all_single`` (NCCL between cards).
 
+The native host core, ``fourier_tpu_torch.ffi`` (``NativeFftPlan`` over the
+C ABI of its C++ sources, and ``ffi.op.native_fft``, a registered CPU
+operator), runs on the host only; it is imported on demand, and its library
+is compiled by the host C++ compiler at first use.
+
 This package imports torch and never jax.
 """
 

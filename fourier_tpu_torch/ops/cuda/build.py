@@ -7,7 +7,8 @@ flags and of every source under ``csrc/`` (``*.cu``, ``*.cuh``, ``*.h``: it
 includes headers), and loaded with ``ctypes``. A file lock is taken before
 the library's existence is tested, so concurrent processes neither load a
 half-written library nor build it twice; the compiler writes to a temporary
-name that is renamed into place. :func:`load_all` builds several libraries at
+name that is renamed into place (``utils/native_build.py``, shared with the
+native host core's build). :func:`load_all` builds several libraries at
 once, one ``nvcc`` each, and ``build_seconds`` keeps each build's time.
 ptxas reports each function's registers and spills
 (``-Xptxas -v``); the report is kept beside the library
@@ -17,8 +18,6 @@ ptxas reports each function's registers and spills
 from __future__ import annotations
 
 import ctypes
-import fcntl
-import hashlib
 import os
 import shutil
 import subprocess
@@ -27,8 +26,10 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+from fourier_tpu_torch.utils.native_build import BUILD_ROOT, build_locked, source_hash
+
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "fourier_tpu_torch"
+BUILD_DIR = BUILD_ROOT
 
 # No --use_fast_math: it replaces sinf/cosf and flushes denormals.
 NVCC_FLAGS = (
@@ -62,11 +63,7 @@ def nvcc_path() -> str:
 def library_path(name: str) -> Path:
     """Where the build of csrc/<name>.cu goes, keyed by the flags and by the
     name and bytes of every source under csrc/."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    sources = sorted(p for p in CSRC.rglob("*") if p.suffix in SOURCE_SUFFIXES)
-    for src in sources:
-        h.update(str(src.relative_to(CSRC)).encode() + b"\0" + src.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{name}-{source_hash(NVCC_FLAGS, CSRC, SOURCE_SUFFIXES)}.so"
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -77,24 +74,21 @@ def load(name: str) -> ctypes.CDLL:
         if name in _loaded:
             return _loaded[name]
         so = library_path(name)
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        with open(BUILD_DIR / f"{name}.lock", "w") as lock:
-            fcntl.flock(lock, fcntl.LOCK_EX)
-            if not so.exists():
-                tmp = so.with_suffix(f".tmp{os.getpid()}")
-                cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                       str(CSRC / f"{name}.cu")]
-                t0 = time.perf_counter()
-                proc = subprocess.run(cmd, capture_output=True, text=True)
-                build_seconds[name] = time.perf_counter() - t0
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed ({proc.returncode}) for {name}.cu:\n"
-                        f"{proc.stdout}\n{proc.stderr}"
-                    )
-                so.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
-                os.replace(tmp, so)
-            _loaded[name] = ctypes.CDLL(str(so))
+
+        def compile_to(tmp):
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            build_seconds[name] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}) for {name}.cu:\n"
+                    f"{proc.stdout}\n{proc.stderr}"
+                )
+            so.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
+
+        build_locked(so, BUILD_DIR / f"{name}.lock", compile_to)
+        _loaded[name] = ctypes.CDLL(str(so))
         return _loaded[name]
 
 

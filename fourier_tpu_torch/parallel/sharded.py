@@ -102,6 +102,18 @@ def _local(t, mesh, spec, device, real_dtype, shape, what: str):
     if full[len(full) - len(shape):] != tuple(shape) or len(full) < len(shape):
         raise ValueError(f"trailing axes {full[len(full) - len(shape):]} {what} "
                          f"{tuple(shape)}")
+    # Before any collective: a rank's block must not drop rows (shard_map's
+    # check, with its wording).
+    for i, name in enumerate(mesh.mesh_dim_names):
+        if name not in spec:
+            continue
+        d, sz = spec.index(name), mesh.size(i)
+        if full[d] % sz:
+            raise ValueError(
+                f"input of shape {full} has axis sizes that are not evenly divisible "
+                f"by the corresponding mesh axis sizes: array axis {d} (of size "
+                f"{full[d]}) maps to mesh axis {name!r} (of size {sz}), but {sz} "
+                f"does not evenly divide {full[d]}")
     if local is None:
         if t.device != device:
             raise ValueError(f"input on {t.device} but plan on {device}")

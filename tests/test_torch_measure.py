@@ -68,9 +68,9 @@ def test_measure_cpu_single_candidate_no_timing(n, dtype):
     got = _fft_via(res.plan, x)
     gate = 1e-6 if dtype == np.complex64 else 1e-12
     assert _rel(got, np.fft.fft(x.astype(np.complex128))) <= gate
+    # Either family the JAX timer picks (c128: stockham or dd_xla) has .fft.
     jplan = jft.measure_fft(n, dtype, batch=8, chain=2, iters=1).plan
-    jre, jim = jplan.fft_planar(x.real.copy(), x.imag.copy())
-    assert _rel(got, np.asarray(jre) + 1j * np.asarray(jim)) <= gate
+    assert _rel(got, np.asarray(jplan.fft(x))) <= gate
 
 
 @pytest.mark.parametrize("dtype", [np.complex64, np.complex128])

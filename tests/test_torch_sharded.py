@@ -400,6 +400,13 @@ VALIDATION = {
     "fft2d_placements": ("ValueError", "differ from the plan's"),
     "rfft2d_pad_tail": ("ValueError", "planar spectra carry the pad tail"),
 }
+# The batch-sharded calls on 6 rows over 4 ranks, as tensors and as uneven
+# Shard(0) DTensors: shard_map's refusal, not rows dropped.
+UNEVEN = ("ValueError", "array axis 0 (of size {rows}) maps to mesh axis 'batch' "
+          "(of size {world}), but {world} does not evenly divide {rows}")
+BATCHED = [f"batched_{call}_uneven{kind}" for call in ("transform", "rfft", "irfft")
+           for kind in ("", "_dtensor")]
+VALIDATION.update({k: (UNEVEN[0], UNEVEN[1].format(rows=6, world=4)) for k in BATCHED})
 
 
 @pytest.mark.parametrize("what", sorted(VALIDATION))
@@ -409,6 +416,39 @@ def test_validation_errors(world, what):
     kind, msg = VALIDATION[what]
     assert got is not None, f"{what} raised nothing"
     assert got[0] == kind and msg in got[1], got
+
+
+@pytest.fixture(scope="module")
+def world3(tmp_path_factory):
+    """A 3-rank world: the odd size at which a batch of 10 rows is uneven."""
+    return world_cases.run_world(tmp_path_factory.mktemp("gloo3"), ["three_ranks"],
+                                 world=3)["three_ranks"]
+
+
+@pytest.mark.parametrize("what", BATCHED)
+def test_three_ranks_refuse_ten_rows(world3, what):
+    if "error" in world3:
+        pytest.fail(world3["error"])
+    got = world3[what]
+    assert got is not None, f"{what} raised nothing"
+    assert got[0] == UNEVEN[0] and UNEVEN[1].format(rows=10, world=3) in got[1], got
+
+
+@pytest.mark.parametrize("call", ["transform", "rfft", "irfft"])
+def test_three_ranks_nine_rows_match_single(world3, call):
+    if "error" in world3:
+        pytest.fail(world3["error"])
+    x = world3["x"]
+    if call == "transform":
+        z = (x + 1j * x[:, ::-1]).astype(np.complex64)
+        want = cpu_plan(x.shape[-1]).fft(z)
+    else:
+        rplan = tft.RfftPlan(x.shape[-1], np.complex64, device="cpu")
+        spec = np.fft.rfft(x.astype(np.float64)).astype(np.complex64)
+        want = rplan.rfft(x) if call == "rfft" else rplan.irfft(spec)
+    got = world3[call]
+    assert got.shape == (9,) + tuple(np.shape(want))[1:]
+    gate(got, np.asarray(want), C64 if call == "transform" else RFFT)
 
 
 def test_plans_are_modules(world):

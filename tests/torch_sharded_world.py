@@ -1,12 +1,12 @@
 """The sharded plans' cases, run on a local gloo world of CPU processes.
 
-``run_world`` spawns ``WORLD`` processes that join one gloo process group
-(a file store, so concurrent test workers never share a port), build the
-meshes (``"fft"`` and ``"batch"`` of 4, ``("x", "y")`` of 2x2 and
-``("p", "q")`` of 1x4), run every case named, each on every rank, and
-return rank 0's results: a dict per case of numpy arrays and plain values,
-or ``{"error": traceback}``. The tests hold them against numpy and the
-port's single-device surface.
+``run_world`` spawns ``WORLD`` processes (or ``world``) that join one gloo
+process group (a file store, so concurrent test workers never share a
+port), build the meshes (``"fft"`` and ``"batch"`` of the world's size,
+``("p", "q")`` of 1 by it and, on 4 ranks, ``("x", "y")`` of 2x2), run
+every case named, each on every rank, and return rank 0's results: a dict
+per case of numpy arrays and plain values, or ``{"error": traceback}``.
+The tests hold them against numpy and the port's single-device surface.
 
 This module imports the port and torch only, never JAX: the children
 import it (and not the test files, whose conftest loads JAX).
@@ -25,7 +25,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 from torch.distributed.device_mesh import init_device_mesh
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Shard, distribute_tensor
 from torch.utils._python_dispatch import TorchDispatchMode
 
 import fourier_tpu_torch as tft
@@ -42,13 +42,14 @@ CASES = {}
 class Ctx:
     """What a case gets: the meshes, this rank, and the caller's `extra`."""
 
-    def __init__(self, rank, extra):
+    def __init__(self, rank, extra, world=WORLD):
         self.rank = rank
         self.extra = extra
-        self.fft = init_device_mesh("cpu", (WORLD,), mesh_dim_names=("fft",))
-        self.batch = init_device_mesh("cpu", (WORLD,), mesh_dim_names=("batch",))
-        self.xy = init_device_mesh("cpu", (2, 2), mesh_dim_names=("x", "y"))
-        self.pq = init_device_mesh("cpu", (1, WORLD), mesh_dim_names=("p", "q"))
+        self.fft = init_device_mesh("cpu", (world,), mesh_dim_names=("fft",))
+        self.batch = init_device_mesh("cpu", (world,), mesh_dim_names=("batch",))
+        self.xy = (init_device_mesh("cpu", (2, 2), mesh_dim_names=("x", "y"))
+                   if world == 4 else None)
+        self.pq = init_device_mesh("cpu", (1, world), mesh_dim_names=("p", "q"))
 
 
 def case(*params):
@@ -526,6 +527,46 @@ def validation(ctx):
     r2 = P.Rfft2dPlan(16, 32, ctx.fft)
     out["rfft2d_pad_tail"] = _raises(lambda: r2.irfft_planar(torch.zeros(16, 17),
                                                              torch.zeros(16, 17)))
+    out.update(_uneven_batches(ctx, 6))
+    return out
+
+
+def _batched_calls(n, x, mesh):
+    """batched_transform, batched_rfft and batched_irfft of the rows of the
+    real (B, n) `x` (its one-sided spectrum for the inverse) on `mesh`."""
+    P = parallel
+    plan = tft.create_fft(n, np.complex64, device="cpu")
+    rplan = tft.RfftPlan(n, np.complex64, device="cpu")
+    spec = np.fft.rfft(x.astype(np.float64)).astype(np.complex64)
+    xt, sre, sim = torch.as_tensor(x), *planes(spec)
+    return {
+        "transform": lambda f: P.batched_transform(plan, f(xt), f(xt.flip(-1)), mesh),
+        "rfft": lambda f: P.batched_rfft(rplan, f(xt), mesh),
+        "irfft": lambda f: P.batched_irfft(rplan, f(sre), f(sim), mesh),
+    }
+
+
+def _uneven_batches(ctx, rows):
+    """The errors of the batch-sharded calls on `rows` rows, which the batch
+    mesh does not divide: as tensors and as (uneven) Shard(0) DTensors."""
+    out = {}
+    for call, fn in _batched_calls(16, real((rows, 16)), ctx.batch).items():
+        out[f"batched_{call}_uneven"] = _raises(lambda: fn(lambda t: t))
+        out[f"batched_{call}_uneven_dtensor"] = _raises(lambda: fn(
+            lambda t: distribute_tensor(t, ctx.batch, [Shard(0)])))
+    return out
+
+
+@case()
+def three_ranks(ctx):
+    """On a 3-rank world: 10 rows refused, 9 rows against the single-device
+    call."""
+    out = _uneven_batches(ctx, 10)
+    x = real((9, 48))
+    for call, fn in _batched_calls(48, x, ctx.batch).items():
+        got = fn(lambda t: t)
+        out[call] = full(*got) if isinstance(got, tuple) else full(got)
+    out["x"] = x
     return out
 
 
@@ -769,12 +810,12 @@ def copies_per_leg(ctx):
 # -- the world ------------------------------------------------------------------------
 
 
-def _rank_main(rank, store, names, out_path, extra):
+def _rank_main(rank, store, names, out_path, extra, world):
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{store}", world_size=WORLD,
+    dist.init_process_group("gloo", init_method=f"file://{store}", world_size=world,
                             rank=rank, timeout=timedelta(seconds=120))
     try:
-        ctx = Ctx(rank, extra)
+        ctx = Ctx(rank, extra, world)
         results = {}
         for name in names:
             fn, params = CASES[name]
@@ -791,15 +832,15 @@ def _rank_main(rank, store, names, out_path, extra):
         dist.destroy_process_group()
 
 
-def run_world(tmp_dir, names=None, extra=None, timeout=300.0) -> dict:
-    """Run the cases `names` (default all) on a fresh world of WORLD
-    processes; rank 0's results."""
-    names = list(CASES) if names is None else list(names)
+def run_world(tmp_dir, names=None, extra=None, timeout=300.0, world=WORLD) -> dict:
+    """Run the cases `names` (default all but ``three_ranks``) on a fresh
+    world of `world` processes; rank 0's results."""
+    names = [c for c in CASES if c != "three_ranks"] if names is None else list(names)
     extra = dict(extra or {}, tmp=str(tmp_dir))
     out_path = os.path.join(str(tmp_dir), "results.pkl")
     store = os.path.join(str(tmp_dir), "store")
-    context = mp.start_processes(_rank_main, args=(store, names, out_path, extra),
-                                 nprocs=WORLD, join=False, start_method="spawn")
+    context = mp.start_processes(_rank_main, args=(store, names, out_path, extra, world),
+                                 nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + timeout
     try:
         while not context.join(timeout=max(1.0, deadline - time.monotonic())):
