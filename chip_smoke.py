@@ -84,7 +84,16 @@ port's create_fft_f32/create_fft_f64 plans on the card on the same data at
 FFI_SIZES x 5 modes (gates 1e-6 and 1e-12), runs native_fft under
 torch.compile(fullgraph=True) on CPU tensors, fails unless a CUDA tensor is
 refused, runs the plan-parity gate, and times one call at FFI_TIME on the
-host beside the port's call on the card.
+host beside the port's call on the card. Phase 4o runs the JAX package's
+4-plane double-word c128 calls on the port (precision/planes.py: the f32
+(hi, lo) planes joined to f64, the plan's f64 call, the result split):
+transform_planar_dd_bm of B6's, B7's and B8's plans at DD4_ROWS, forward
+and inverse, each joined output against the plan's f64 call and torch.fft
+(gate 1e-12), their launches added to the kernels line's; DdFftPlan and
+DdMxuDirectPlan against torch.fft; ddreal.two_sum/two_prod on CUDA tensors
+bitwise against numpy; the times of the 4-plane call, the f64 call, the
+join and the split alone; phase 4m's ranks run the three batch-sharded
+double-word twins too.
 Every phase prints its lines;
 any failed check raises, so the exit code is non-zero. The next-to-last
 line is a JSON record of the kernels; the last line is
@@ -277,6 +286,7 @@ RF_PLAIN_CHAIN = 2
 HBM_RATE = 3.35e12
 F32_RATE = 67e12
 F64_RATE = 34e12
+F64_TENSOR_RATE = 67e12  # dense f64 on the tensor cores (DGEMM), same data sheet
 TF32_RATE = 495e12
 # complex128: the reference's c128 gate (two f64 results, each near exact).
 DD_GATE = 1e-12
@@ -412,6 +422,17 @@ SHARD_4M_RANKS = 4
 SHARD_4M = {"fft2": (1024, 1024), "four": (256, 1024), "rfft2": (1024, 1013),
             "cube": (64, 64, 64)}
 SHARD_4M_TIMEOUT = 240.0  # seconds for the four ranks, start-up included
+# Phase 4m's double-word twins (batched_*_dd, c128): n, rows (B6 at n and n/2).
+SHARD_4M_DD = (1024, 256)
+# Phase 4o: the 4-plane double-word calls (precision/planes.py) at the suite's
+# c128 shapes, one plan class a kernel: (class, n, B, kernels).
+DD4_ROWS = (("VpuDdFftPlan", 4096, 16384, ("B6",)),
+            ("VpuDdBluesteinPlan", 1013, 65536, ("B7",)),
+            ("DdSplitRadixPlan", 2187, 16384, ("B6", "B8")))
+DD4_CHAIN = 4  # calls per timing
+DD4_DDFFT = ((4096, 1024), (1013, 1024))  # DdFftPlan (n, B)
+DD4_MXU = (1024, 4096)  # DdMxuDirectPlan (n, B)
+DD4_EFT = 1 << 24  # elements of phase 4o's two_sum/two_prod check on the card
 # Phase 4n: the native FFI (fourier_tpu_torch/ffi), the host C++ core, at
 # these sizes (every plan family: 1, Stockham 24/243/4096, Bluestein 73/1013)
 # on FFI_ROWS rows, and timed once at FFI_TIME (n, B) c64 beside the card.
@@ -660,15 +681,21 @@ def _rank_4m(rank: int, store: str, out_dir: str) -> None:
     try:
         import fourier_tpu_torch as ftt
         from fourier_tpu_torch import parallel
+        from fourier_tpu_torch.ops.cuda import dd_combine as dc
         from fourier_tpu_torch.ops.cuda import stockham_vpu as sv
+        from fourier_tpu_torch.ops.cuda import stockham_vpu_dd as dv
+        from fourier_tpu_torch.precision import planes as dd_planes
 
         dev = torch.device("cuda", 0)
         counters = {"B1": sv.vpu_fft_batch_minor, "B2": sv.vpu_bluestein_batch_minor,
                     "B3": sv.vpu_fft_four_step_row, "B4a": sv.vpu_rfft_pack_batch_minor,
                     "B4b": sv.vpu_irfft_unpack_batch_minor,
                     "B5a": sv.vpu_rfft_odd_pack_batch_minor,
-                    "B5b": sv.vpu_irfft_odd_unpack_batch_minor}
+                    "B5b": sv.vpu_irfft_odd_unpack_batch_minor,
+                    "B6": dv.vpu_dd_fft_batch_minor, "B7": dv.vpu_dd_bluestein_batch_minor,
+                    "B8": dc.dd_split_combine_batch_minor}
         fft = init_device_mesh("cuda", (SHARD_4M_RANKS,), mesh_dim_names=("fft",))
+        batch = init_device_mesh("cuda", (SHARD_4M_RANKS,), mesh_dim_names=("batch",))
         xy = init_device_mesh("cuda", (2, 2), mesh_dim_names=("x", "y"))
         gen = torch.Generator(device=dev).manual_seed(SEED)  # one input on every rank
         results = {}
@@ -755,6 +782,25 @@ def _rank_4m(rank: int, store: str, out_dir: str) -> None:
         case(f"Rfft3dPlan{c} 2x2 from_spectral",
              lambda: (rcube.irfft_planar(*rsp, from_spectral=True),),
              [("input", lambda: xrc)], SHARD_RFFT_GATE)
+        # The double-word twins (c128): f32 limbs of whole tensors in, DTensors
+        # of limbs out, joined to f64 for the comparison.
+        nd, bd = SHARD_4M_DD
+        limbs = dd_planes.split((rand(bd, nd, complex_=False).double(),
+                                 rand(bd, nd, complex_=False).double()))
+        xd = torch.complex(*dd_planes.join(limbs))
+        pd = ftt.create_fft_f64(nd, device=dev)
+        case(f"batched_transform_dd({nd}) x{bd}",
+             lambda: dd_planes.join(parallel.batched_transform_dd(pd, *limbs, batch)),
+             [("torch.fft.fft", lambda: torch.fft.fft(xd))], DD_GATE)
+        rd = ftt.RfftPlan(nd, torch.complex128, device=dev)
+        case(f"batched_rfft_dd({nd}) x{bd}",
+                    lambda: dd_planes.join(parallel.batched_rfft_dd(rd, *limbs[:2], batch)),
+                    [("torch.fft.rfft", lambda: torch.fft.rfft(xd.real))], DD_GATE)
+        sd = torch.fft.rfft(xd.real)
+        case(f"batched_irfft_dd({nd}) x{bd}",
+             lambda: dd_planes.join(parallel.batched_irfft_dd(
+                 rd, *dd_planes.split((sd.real, sd.imag)), batch)),
+             [("input", lambda: xd.real)], DD_GATE)
         with open(f"{out_dir}/rank{rank}.json", "w") as f:
             json.dump(results, f)
     finally:
@@ -2980,8 +3026,8 @@ def main() -> int:
                     check(err <= case["gate"], f"rank {r} {what}: rel-L2 {err:.3e} vs "
                           f"{label} (gate {case['gate']:g})")
             launched = {k for case in res.values() for k in case["launches"]}
-            check({"B1", "B5a", "B5b"} <= launched,
-                  f"rank {r} launched {sorted(launched)}, not B1, B5a and B5b")
+            check({"B1", "B5a", "B5b", "B6"} <= launched,
+                  f"rank {r} launched {sorted(launched)}, not B1, B5a, B5b and B6")
         for what in ranks[0]:
             print(f"4 gloo ranks on the card: {what}: worst rel-L2 " + ", ".join(
                 f"{label} {max(res[what]['errs'][label] for res in ranks):.3e}"
@@ -3113,6 +3159,145 @@ def main() -> int:
               f"phase 4n {time.perf_counter() - t0:.1f} s", flush=True)
 
     native_ffi_runs()
+
+    # 4o. The JAX package's 4-plane double-word c128 calls on the port
+    # (precision/planes.py): the f32 (hi, lo) planes joined to f64, the
+    # plan's f64 call, the result split. At the suite's c128 shapes through
+    # transform_planar_dd_bm of B6's, B7's and B8's plans (forward and
+    # inverse), each joined output against the same plan's f64 call on the
+    # joined input and against torch.fft; DdFftPlan and DdMxuDirectPlan
+    # against torch.fft; two_sum/two_prod on the card bitwise against the
+    # same functions on the host's numpy. The 4-plane calls' launches join
+    # path_launches (the path this slice adds); the times: the 4-plane call,
+    # the f64 call, the join and the split alone, and torch.fft.
+    def dd_planes_runs():
+        from fourier_tpu_torch.precision import DdFftPlan, DdMxuDirectPlan, ddreal
+        from fourier_tpu_torch.precision import planes as dd_planes
+
+        t0 = time.perf_counter()
+
+        def t_ms(fn):
+            """Median of REPS, DD4_CHAIN calls each, ms a call (CUDA events)."""
+            fn()
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(REPS):
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(DD4_CHAIN):
+                    fn()
+                stop.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(stop) / DD4_CHAIN)
+            return float(np.median(times))
+
+        def limbs_of(n, b):
+            """f32 (hi, lo) limbs of random f64 (n, b) planes, and the f64
+            value they hold, complex."""
+            limbs = dd_planes.split(tuple(torch.randn(n, b, generator=gen, device=dev,
+                                                      dtype=torch.float64) for _ in range(2)))
+            return limbs, torch.complex(*dd_planes.join(limbs))
+
+        phase = {k: 0 for k in counters}  # the 4-plane calls' launches alone
+        for cls, n, b, kernels in DD4_ROWS:
+            plan = ftt.create_fft_f64(n)
+            check(type(plan).__name__ == cls, f"create_fft_f64({n}) is "
+                  f"{type(plan).__name__}, not {cls}")
+            limbs, x = limbs_of(n, b)
+            errs = []
+            for mode in (Transform.FFT, Transform.IFFT):
+                torch.cuda.synchronize()
+                zero_counts()
+                out = plan.transform_planar_dd_bm(*limbs, mode)
+                torch.cuda.synchronize()
+                for k, v in counts().items():
+                    phase[k] += v
+                check(all(o.dtype == torch.float32 and o.shape == (n, b) for o in out),
+                      f"{cls}({n}) 4-plane call gave {[(o.dtype, o.shape) for o in out]}")
+                got = torch.complex(*dd_planes.join(out))
+                del out
+                f64 = torch.complex(*plan.transform_planar_bm(x.real, x.imag, mode))
+                e_plan = _rel_t(got, f64)
+                del f64
+                want = torch.fft.fft(x, dim=0) if mode.is_forward else torch.fft.ifft(x, dim=0)
+                e_torch = _rel_t(got, want)
+                del want, got
+                check(e_plan <= DD_GATE and e_torch <= DD_GATE,
+                      f"{cls}({n})x{b} 4-plane {mode.name}: rel-L2 {e_plan:.3e} vs the f64 "
+                      f"call, {e_torch:.3e} vs torch.fft (gate {DD_GATE:g})")
+                errs.append(f"{mode.name} {e_plan:.3e} / {e_torch:.3e}")
+            f64_in = (x.real.contiguous(), x.imag.contiguous())
+            y64 = plan.transform_planar_bm(*f64_in, Transform.FFT)
+            ms = {"4-plane": t_ms(lambda: plan.transform_planar_dd_bm(*limbs, Transform.FFT)),
+                  "f64": t_ms(lambda: plan.transform_planar_bm(*f64_in, Transform.FFT)),
+                  "join": t_ms(lambda: dd_planes.join(limbs)),
+                  "split": t_ms(lambda: dd_planes.split(y64)),
+                  "torch.fft": t_ms(lambda: torch.fft.fft(x, dim=0))}
+            del y64, f64_in
+            bound = 32.0 * n * b / HBM_RATE * 1e3  # 4 f32 planes in, 4 out
+            print(f"time: 4-plane {cls}({n}).transform_planar_dd_bm x{b} FFT: "
+                  f"{ms['4-plane']:.4f} ms, the f64 call {ms['f64']:.4f} ms (4-plane / f64 "
+                  f"{ms['4-plane'] / ms['f64']:.3f}); join alone {ms['join']:.4f} ms, split "
+                  f"alone {ms['split']:.4f} ms; torch.fft.fft c128 {ms['torch.fft']:.4f} ms; "
+                  f"byte bound {bound:.4f} ms ({bound / ms['4-plane']:.4f} of the 4-plane "
+                  f"call); rel-L2 vs the f64 call / vs torch.fft: {', '.join(errs)} "
+                  f"(gate {DD_GATE:g}); kernels {'+'.join(kernels)} on {card}", flush=True)
+            del limbs, x
+            torch.cuda.empty_cache()
+        for k in ("B6", "B7", "B8"):
+            path_launches[k] += phase[k]
+            check(phase[k] > 0, f"phase 4o's 4-plane calls launched {k} no time")
+        print(f"4-plane: phase 4o launches {({k: v for k, v in phase.items() if v})}",
+              flush=True)
+
+        # DdFftPlan (no route: the f64 Stockham, or a Bluestein over it) and
+        # DdMxuDirectPlan (f64 matrix products) against torch.fft.
+        for n, b in DD4_DDFFT:
+            plan = DdFftPlan(n, device=dev)
+            _, x = limbs_of(b, n)
+            for mode in (Transform.FFT, Transform.IFFT):
+                e = _rel_t(plan.transform(x, mode), torch.fft.fft(x) if mode.is_forward
+                           else torch.fft.ifft(x))
+                gate = max(DD_GATE, 2.5e-16 * n)  # a composed Bluestein's chirp error
+                check(e <= gate, f"DdFftPlan({n}) {mode.name}: rel-L2 {e:.3e} (gate {gate:g})")
+            print(f"DdFftPlan({n}) kind {plan.kind} x{b}: rel-L2 {e:.3e} vs torch.fft "
+                  f"(IFFT)", flush=True)
+        n, b = DD4_MXU
+        mxu = DdMxuDirectPlan.create(n, device=dev)
+        limbs, x = limbs_of(b, n)
+        out = mxu.transform_planar_dd(*limbs)
+        e4 = _rel_t(torch.complex(*dd_planes.join(out)), torch.fft.fft(x))
+        e2 = _rel_t(mxu.transform(x, Transform.IFFT), torch.fft.ifft(x))
+        check(e4 <= DD_GATE and e2 <= DD_GATE, f"DdMxuDirectPlan({n}): rel-L2 {e4:.3e} "
+              f"(4-plane FFT), {e2:.3e} (IFFT) vs torch.fft")
+        mxu_ms, fft_ms = t_ms(lambda: mxu.transform(x)), t_ms(lambda: torch.fft.fft(x))
+        flops = 8.0 * n * n * b
+        print(f"time: DdMxuDirectPlan({n}).transform x{b} c128: {mxu_ms:.4f} ms "
+              f"({flops / mxu_ms / 1e9:.1f} GFLOP/s in f64 products; flop bound at "
+              f"{F64_TENSOR_RATE / 1e12:g} TFLOP/s {flops / F64_TENSOR_RATE * 1e3:.4f} ms), "
+              f"torch.fft.fft c128 {fft_ms:.4f} ms "
+              f"(DdMxuDirectPlan / torch.fft {mxu_ms / fft_ms:.3f}); rel-L2 {e4:.3e} "
+              f"4-plane FFT, {e2:.3e} IFFT vs torch.fft on {card}", flush=True)
+        del mxu, limbs, x, out
+
+        # The error-free transformations on the card, bitwise the host's.
+        a = (torch.randn(DD4_EFT, generator=gen, device=dev)
+             * torch.exp2(torch.randint(-100, 100, (DD4_EFT,), generator=gen, device=dev)
+                          .float()))
+        b_ = torch.randn(DD4_EFT, generator=gen, device=dev)
+        an, bn = a.cpu().numpy(), b_.cpu().numpy()
+        with np.errstate(all="ignore"):
+            for name, fn in (("two_sum", ddreal.two_sum), ("two_prod", ddreal.two_prod)):
+                card_out = [t.cpu().numpy() for t in fn(a, b_)]
+                host_out = fn(an, bn)
+                same = all(np.array_equal(c.view(np.uint32), h.view(np.uint32))
+                           for c, h in zip(card_out, host_out))
+                check(same, f"ddreal.{name} on the card differs from numpy on the host")
+        print(f"ddreal.two_sum and two_prod on {DD4_EFT} CUDA f32 elements: bitwise "
+              f"numpy's on the host; phase 4o {time.perf_counter() - t0:.1f} s", flush=True)
+
+    dd_planes_runs()
 
     # 5. Timing: CHAIN dependent SQRT_SCALED_FFT calls, median of REPS.
     mode = Transform.SQRT_SCALED_FFT

@@ -63,6 +63,8 @@ from fourier_tpu_torch.plan import (
     AutosortPlan,
     BluesteinPlan,
     CompiledFft,
+    DdFftPlan,
+    DdMxuDirectPlan,
     DdSplitPow2Plan,
     DdSplitRadixPlan,
     FftPlan,
@@ -206,6 +208,8 @@ __all__ = [
     "CompiledFft",
     "ConvolvePlan",
     "CztPlan",
+    "DdFftPlan",
+    "DdMxuDirectPlan",
     "DdSplitPow2Plan",
     "DdSplitRadixPlan",
     "FftPlan",

@@ -13,9 +13,12 @@ memory is taken first and costs no copy, and the result is handed back as
 a permuted view of the last pass's layout (no copy back). ``dims`` below
 names the original axis at each position of the planes as they lie.
 
-complex128 runs the ``dd`` route's plans in native f64 on a CUDA device, so
-the JAX package's 4-plane double-word path (``transform_planar_dd``) has no
-counterpart; the ``nn.Module`` takes the place of its pytree registration.
+complex128 runs the ``dd`` route's plans in native f64 on a CUDA device.
+The JAX package's 4-plane double-word call (``transform_planar_dd``) joins
+its planes to f64, runs the 2-plane call and splits the result
+(``precision/planes.py``); ``is_dd`` is False, since the plans' own
+representation is two f64 planes. The ``nn.Module`` takes the place of its
+pytree registration.
 
 Every entry point runs on the card unless the caller asks for the CPU: a
 plan is built on ``device`` ("cuda" by default), a numpy input is copied to
@@ -34,6 +37,7 @@ import torch
 
 from fourier_tpu_torch.plan.base import complex_dtype, resolve_device
 from fourier_tpu_torch.plan.planner import create_fft
+from fourier_tpu_torch.precision import planes as dd_planes
 from fourier_tpu_torch.transform import Transform
 
 
@@ -149,6 +153,13 @@ class NdFftPlan(torch.nn.Module):
         return len(self.shape)
 
     @property
+    def is_dd(self) -> bool:
+        """False: the port's complex128 is two f64 planes, not the JAX
+        package's four double-word f32 planes (whose 4-plane call
+        :meth:`transform_planar_dd` a complex128 plan takes as well)."""
+        return False
+
+    @property
     def device(self) -> torch.device:
         return self.plans[0].device
 
@@ -173,6 +184,14 @@ class NdFftPlan(torch.nn.Module):
         planes, dims = _memory_order((re, im))
         axes = range(re.ndim - self.ndim, re.ndim)
         return _restore(*_run(planes, dims, axes, self.plans, transform))
+
+    def transform_planar_dd(self, re_hi, re_lo, im_hi, im_lo,
+                            transform: Transform = Transform.FFT):
+        """The JAX package's N-D c128 call on double-word f32 planes of
+        shape (..., *shape): joined to f64, :meth:`transform_planar`, split
+        into four f32 planes. complex128 plans only."""
+        return dd_planes.run(self.transform_planar, (re_hi, re_lo, im_hi, im_lo),
+                          self.dtype, "transform_planar", transform)
 
     def transform(self, x, transform: Transform = Transform.FFT):
         """Complex convenience over the trailing ``ndim`` axes: a numpy

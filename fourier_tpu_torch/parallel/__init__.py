@@ -5,8 +5,11 @@ from fourier_tpu_torch.parallel.sharded import (
     Rfft2dPlan,
     Rfft3dPlan,
     batched_irfft,
+    batched_irfft_dd,
     batched_rfft,
+    batched_rfft_dd,
     batched_transform,
+    batched_transform_dd,
 )
 
 __all__ = [
@@ -16,6 +19,9 @@ __all__ = [
     "Rfft2dPlan",
     "Rfft3dPlan",
     "batched_irfft",
+    "batched_irfft_dd",
     "batched_rfft",
+    "batched_rfft_dd",
     "batched_transform",
+    "batched_transform_dd",
 ]

@@ -39,11 +39,15 @@ plan scales its own axis), so no extra pass scales the result.
 flight while the next chunk's copy and kernel run; results are bitwise
 those of one chunk.
 
-c128 runs native f64 on the ``dd`` route's plans, so the JAX package's
+c128 runs native f64 on the ``dd`` route's plans. The JAX package's
 double-word twins (``batched_transform_dd``, ``batched_rfft_dd``,
-``batched_irfft_dd``, ``transform_planar_dd``) are not ported (ROADMAP.md
-queue 1 item 7). The plans are ``nn.Module`` s owning their sub-plans and
-tables (the place of the pytree registration); ``mesh`` is an attribute.
+``batched_irfft_dd``, ``transform_planar_dd``, and the planar calls given
+four planes, or two real limbs) join their f32 (hi, lo) planes to f64, run
+the 2-plane call and split the results (``precision/planes.py``; on
+DTensors, elementwise on each rank, no communication); ``is_dd`` is False
+and ``nplanes`` 2, since the port's c128 is two f64 planes. The plans are
+``nn.Module`` s owning their sub-plans and tables (the place of the pytree
+registration); ``mesh`` is an attribute.
 """
 
 from __future__ import annotations
@@ -59,6 +63,7 @@ from fourier_tpu_torch.ops import cplx
 from fourier_tpu_torch.parallel import exchange as ex
 from fourier_tpu_torch.plan.base import complex_dtype, resolve_device
 from fourier_tpu_torch.plan.planner import create_fft
+from fourier_tpu_torch.precision import planes as dd_planes
 from fourier_tpu_torch.rfft import RfftPlan
 from fourier_tpu_torch.transform import Transform
 
@@ -236,6 +241,31 @@ def batched_irfft(plan: RfftPlan, re, im, mesh, axis: str = "batch"):
                     plan.real_dtype, plan.device)[0]
 
 
+def batched_transform_dd(plan, re_hi, re_lo, im_hi, im_lo, mesh, axis: str = "batch",
+                         transform: Transform = Transform.FFT):
+    """The double-word twin of :func:`batched_transform` (`plan` a
+    complex128 plan): four f32 planes (re_hi, re_lo, im_hi, im_lo) in and
+    out, as DTensors or whole tensors, no exchange."""
+    return dd_planes.run(
+        lambda re, im: batched_transform(plan, re, im, mesh, axis, transform),
+        (re_hi, re_lo, im_hi, im_lo), plan.dtype, "batched_transform", device=plan.device)
+
+
+def batched_rfft_dd(plan: RfftPlan, xh, xl, mesh, axis: str = "batch"):
+    """The double-word twin of :func:`batched_rfft`: two real limb planes
+    (hi, lo) in, four spectrum planes (re_hi, re_lo, im_hi, im_lo) out."""
+    return dd_planes.run(lambda x: batched_rfft(plan, x, mesh, axis), (xh, xl),
+                         plan.dtype, "batched_rfft", device=plan.device)
+
+
+def batched_irfft_dd(plan: RfftPlan, reh, rel, imh, iml, mesh, axis: str = "batch"):
+    """Inverse of :func:`batched_rfft_dd`: four spectrum planes in, the two
+    real limb planes (hi, lo) out."""
+    return dd_planes.run(lambda re, im: batched_irfft(plan, re, im, mesh, axis),
+                         (reh, rel, imh, iml), plan.dtype, "batched_irfft",
+                         device=plan.device)
+
+
 # ---------------------------------------------------------------------------
 # The sharded plans
 # ---------------------------------------------------------------------------
@@ -262,11 +292,49 @@ class _ShardedPlan(torch.nn.Module):
     def _group(self, axis: Optional[str]):
         return None if axis is None else self.mesh.get_group(axis)
 
-    def fft_planar(self, re, im):
-        return self.transform_planar(re, im, Transform.FFT)
+    @property
+    def is_dd(self) -> bool:
+        """False: the port's complex128 is two f64 planes, not the JAX
+        package's four double-word f32 planes (whose calls a complex128
+        plan takes as well)."""
+        return False
 
-    def ifft_planar(self, re, im):
-        return self.transform_planar(re, im, Transform.IFFT)
+    @property
+    def nplanes(self) -> int:
+        """Planes of the plan's own representation: 2 (re, im)."""
+        return 2
+
+    def _dd(self, call, planes, name: str, *args, **kwargs):
+        """`call` (a 2-plane method called `name`) on double-word planes."""
+        return dd_planes.run(call, planes, self.dtype, name, *args, device=self.device,
+                             **kwargs)
+
+    def transform_planar_dd(self, re_hi, re_lo, im_hi, im_lo,
+                            transform: Transform = Transform.FFT):
+        """The double-word twin of ``transform_planar``: four f32 planes
+        (re_hi, re_lo, im_hi, im_lo) in and out. complex128 plans only."""
+        return self._dd(self.transform_planar, (re_hi, re_lo, im_hi, im_lo),
+                        "transform_planar", transform)
+
+    def _by_count(self, call, planes, count: int, name: str, *args, **kwargs):
+        """`call` (a method called `name` that takes `count` planes) on
+        `planes`, or on twice `count` double-word ones, joined and split."""
+        if len(planes) == count:
+            return call(*planes, *args, **kwargs)
+        if len(planes) == 2 * count:
+            return self._dd(call, planes, name, *args, **kwargs)
+        raise ValueError(f"expected {count} plane(s), or {2 * count} double-word "
+                         f"(hi, lo) planes, got {len(planes)}")
+
+    def fft_planar(self, *planes):
+        """FFT of 2 planes (re, im), or of 4 double-word ones."""
+        return self._by_count(self.transform_planar, planes, 2, "transform_planar",
+                              Transform.FFT)
+
+    def ifft_planar(self, *planes):
+        """IFFT of 2 planes (re, im), or of 4 double-word ones."""
+        return self._by_count(self.transform_planar, planes, 2, "transform_planar",
+                              Transform.IFFT)
 
     def fft(self, x):
         return self.transform(x, Transform.FFT)
@@ -640,6 +708,14 @@ class Fft3dPlan(_Pencils):
         tail = spectral if self.spectral_output and not from_spectral else natural
         return _outputs(out, batch, self.mesh, tail)
 
+    def transform_planar_dd(self, re_hi, re_lo, im_hi, im_lo,
+                            transform: Transform = Transform.FFT,
+                            from_spectral: bool = False):
+        """The double-word twin of :meth:`transform_planar`. complex128
+        plans only."""
+        return self._dd(self.transform_planar, (re_hi, re_lo, im_hi, im_lo),
+                        "transform_planar", transform, from_spectral)
+
     def transform(self, x, transform: Transform = Transform.FFT,
                   from_spectral: bool = False):
         """The whole (..., n0, n1, n2) complex array in, the whole result out."""
@@ -702,10 +778,15 @@ class Rfft2dPlan(_ShardedPlan):
                 f"out_len={self.out_len}, n2p={self.n2p}, "
                 f"transposed_output={self.transposed_output}")
 
-    def rfft_planar(self, x):
+    def rfft_planar(self, *limbs):
         """A real plane (..., n1, n2) sharded as (..., axis, None): DTensors
         of the one-sided spectrum, (..., n1, n2p), or (..., n2p, n1) with
-        ``transposed_output``, sharded as (..., axis, None)."""
+        ``transposed_output``, sharded as (..., axis, None). Given the two
+        double-word limbs (hi, lo) of the plane (complex128), the four
+        double-word spectrum planes."""
+        return self._by_count(self._rfft_planar, limbs, 1, "rfft_planar")
+
+    def _rfft_planar(self, x):
         (x,), batch = _inputs((x,), self.mesh, (self.axis, None), (self.n1, self.n2),
                               self.device, self.real_dtype)
         group = self._group(self.axis)
@@ -720,10 +801,16 @@ class Rfft2dPlan(_ShardedPlan):
             out = ex.assemble([ex.exchange(y[0], group, "n2")], ("b", "n1", "n2"))
         return _outputs(out, batch, self.mesh, (self.axis, None))
 
-    def irfft_planar(self, re, im, from_transposed: bool = False):
+    def irfft_planar(self, *planes, from_transposed: bool = False):
         """One-sided spectrum planes (..., n1, n2p), or (..., n2p, n1) with
         ``from_transposed``, sharded as (..., axis, None): the real field
-        (..., n1, n2), a DTensor sharded as (..., axis, None)."""
+        (..., n1, n2), a DTensor sharded as (..., axis, None). Given four
+        double-word spectrum planes (complex128), the field's two limbs
+        (hi, lo)."""
+        return self._by_count(self._irfft_planar, planes, 2, "irfft_planar",
+                              from_transposed=from_transposed)
+
+    def _irfft_planar(self, re, im, from_transposed: bool = False):
         shape = (self.n2p, self.n1) if from_transposed else (self.n1, self.n2p)
         planes, batch = _inputs((re, im), self.mesh, (self.axis, None), shape,
                                 self.device, self.real_dtype,
@@ -818,10 +905,15 @@ class Rfft3dPlan(_Pencils):
                 f"spectral_output={self.spectral_output}, "
                 f"pipeline_chunks={self.pipeline_chunks}")
 
-    def rfft_planar(self, x):
+    def rfft_planar(self, *limbs):
         """A real field (..., n0, n1, n2) in the natural layout: DTensors of
         the one-sided spectrum (..., n0, n1, n2p), in the spectral layout
-        with ``spectral_output``, else the natural one."""
+        with ``spectral_output``, else the natural one. Given the field's
+        two double-word limbs (hi, lo) (complex128), the four double-word
+        spectrum planes."""
+        return self._by_count(self._rfft_planar, limbs, 1, "rfft_planar")
+
+    def _rfft_planar(self, x):
         natural, spectral = self._specs()
         (x,), batch = _inputs((x,), self.mesh, natural, (self.n0, self.n1, self.n2),
                               self.device, self.real_dtype)
@@ -846,10 +938,15 @@ class Rfft3dPlan(_Pencils):
         out = ex.assemble(y, names)
         return _outputs(out, batch, self.mesh, spectral if self.spectral_output else natural)
 
-    def irfft_planar(self, re, im, from_spectral: bool = False):
+    def irfft_planar(self, *planes, from_spectral: bool = False):
         """One-sided spectrum planes (..., n0, n1, n2p), natural layout or
         the spectral one with ``from_spectral``: the real field (..., n0,
-        n1, n2), a DTensor in the natural layout."""
+        n1, n2), a DTensor in the natural layout. Given four double-word
+        spectrum planes (complex128), the field's two limbs (hi, lo)."""
+        return self._by_count(self._irfft_planar, planes, 2, "irfft_planar",
+                              from_spectral=from_spectral)
+
+    def _irfft_planar(self, re, im, from_spectral: bool = False):
         natural, spectral = self._specs()
         planes, batch = _inputs(
             (re, im), self.mesh, spectral if from_spectral else natural,

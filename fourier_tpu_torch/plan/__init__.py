@@ -18,13 +18,16 @@ from fourier_tpu_torch.plan.planner import (
 )
 from fourier_tpu_torch.plan.serialize import load_plan, plan_to_bytes, save_plan
 from fourier_tpu_torch.plan.vpu import VpuFftPlan
-from fourier_tpu_torch.precision import (DdSplitPow2Plan, DdSplitRadixPlan,
-                                         VpuDdBluesteinPlan, VpuDdFftPlan)
+from fourier_tpu_torch.precision import (DdFftPlan, DdMxuDirectPlan, DdSplitPow2Plan,
+                                         DdSplitRadixPlan, VpuDdBluesteinPlan,
+                                         VpuDdFftPlan)
 
 __all__ = [
     "AutosortPlan",
     "BluesteinPlan",
     "CompiledFft",
+    "DdFftPlan",
+    "DdMxuDirectPlan",
     "DdSplitPow2Plan",
     "DdSplitRadixPlan",
     "FftPlan",

@@ -158,6 +158,32 @@ class FftPlan(torch.nn.Module):
         re_t, im_t = self._planes(re_t, im_t, 0)
         return _LinearFft.apply(self, re_t, im_t, Transform(transform), True)
 
+    # -- the JAX package's 4-plane double-word API (complex128 plans) --------
+
+    def _dd(self, call, planes, transform: Transform, name: str):
+        from fourier_tpu_torch.precision import planes as dd_planes
+
+        limbs = dd_planes.limbs(planes, self.dtype, name)
+        if limbs[0].numel() == 0:
+            return tuple(torch.empty_like(p) for p in limbs)
+        return dd_planes.split(call(*dd_planes.join(limbs), transform))
+
+    def transform_planar_dd(self, re_hi, re_lo, im_hi, im_lo,
+                            transform: Transform = Transform.FFT):
+        """The JAX package's c128 call on double-word f32 planes (re_hi,
+        re_lo, im_hi, im_lo) of shape (..., size): the planes joined to
+        f64, :meth:`transform_planar`, the result split into four f32
+        planes (``precision/planes.py``). complex128 plans only."""
+        return self._dd(self.transform_planar, (re_hi, re_lo, im_hi, im_lo),
+                        transform, "transform_planar")
+
+    def transform_planar_dd_bm(self, re_hi, re_lo, im_hi, im_lo,
+                               transform: Transform = Transform.FFT):
+        """:meth:`transform_planar_dd` on batch-minor (size, B) planes,
+        through :meth:`transform_planar_bm`."""
+        return self._dd(self.transform_planar_bm, (re_hi, re_lo, im_hi, im_lo),
+                        transform, "transform_planar_bm")
+
     # -- complex convenience ------------------------------------------------
 
     def transform(self, x, transform: Transform = Transform.FFT):

@@ -10,13 +10,16 @@ The JAX package's complex128 plans hold double-word tables, (hi, lo) f32
 pairs in four planes (re_hi, re_lo, im_hi, im_lo); each f64 table is
 rebuilt as float64(hi) + float64(lo), about 48 bits of the f64 value the
 JAX package split. A ``DdFftPlan`` becomes the f64 :class:`AutosortPlan`
-(kind stockham) or :class:`BluesteinPlan` (kind bluestein).
+(kind stockham) or :class:`BluesteinPlan` (kind bluestein); a
+``DdMxuDirectPlan`` the port's, its f64 DFT matrix the exact f64 sum of the
+saved 7-bit chunk tables.
 
 The JAX package's sharded plans (``fourier_tpu/parallel/sharded.py``) load
 as the port's (``fourier_tpu_torch.parallel``) onto ``mesh``, a DeviceMesh
-with the dim names and shape the file records; c64 and native-f64 c128
-plans load, the double-word (4-plane) ones do not (ROADMAP.md queue 1 item
-7: the port's c128 is native f64).
+with the dim names and shape the file records: complex64, native-f64
+complex128 and double-word complex128 plans alike (the double-word
+sub-plans and tables rebuilt in f64 as above; the port's plan takes the
+4-plane calls).
 """
 
 from __future__ import annotations
@@ -37,26 +40,16 @@ from fourier_tpu_torch.plan.bluestein_fused import VpuBluesteinPlan
 from fourier_tpu_torch.plan.four_step_local import FourStepLocalPlan
 from fourier_tpu_torch.plan.mxu import MxuFftPlan
 from fourier_tpu_torch.plan.vpu import VpuFftPlan
-from fourier_tpu_torch.precision import (DdSplitPow2Plan, DdSplitRadixPlan,
-                                         VpuDdBluesteinPlan, VpuDdFftPlan)
+from fourier_tpu_torch.precision import (DdMxuDirectPlan, DdSplitPow2Plan,
+                                         DdSplitRadixPlan, VpuDdBluesteinPlan,
+                                         VpuDdFftPlan)
 from fourier_tpu_torch.rfft import RfftPlan
 
 FORMAT_VERSION = 2
 
-# Plan classes of the JAX package that have no port, and the ROADMAP.md
-# item that says why.
-_NOT_PORTED = {
-    "DdMxuDirectPlan": "queue 1 item 7 (on no route of the reference)",
-}
-
 #: The sharded plan classes (``fourier_tpu_torch.parallel``, whose module
 #: loads the DTensor machinery: imported where a plan file names one).
 SHARDED_CLASSES = ("Fft2dPlan", "Fft3dPlan", "FourStepPlan", "Rfft2dPlan", "Rfft3dPlan")
-
-# The JAX package's double-word (4-plane) c128 plans: a sharded plan over
-# them runs the 4-plane API, which the port does not have.
-_DOUBLE_WORD = ("DdFftPlan", "VpuDdFftPlan", "VpuDdBluesteinPlan", "DdSplitPow2Plan",
-                "DdSplitRadixPlan", "DdMxuDirectPlan")
 
 
 def _aux(node, mesh=None):
@@ -78,13 +71,6 @@ def _aux(node, mesh=None):
     if isinstance(node, dict):
         return tuple(_aux(v, mesh) for v in node["__tuple__"])
     return node
-
-
-def _double_word(node) -> bool:
-    """A JAX plan node over double-word tables (an RfftPlan over one)."""
-    name = node.get("__plan__")
-    return name in _DOUBLE_WORD or (name == "RfftPlan"
-                                    and _double_word(node["children"][0]))
 
 
 def _tree(node, leaves):
@@ -130,22 +116,26 @@ def _dd_rows(tables):
                      np.stack([np.ravel(im) for _, im in pairs])])
 
 
+def _chunk_sum(chunks):
+    """The f64 table of a ``DdMxuDirectPlan``'s fixed-point chunks: their
+    sum, exact (each chunk is a 7-bit integer times its own power of two,
+    49 bits in all)."""
+    return np.sum([np.asarray(c, np.float64) for c in chunks], axis=0)
+
+
+def _table(t):
+    """A sharded plan's (re, im) table: a double-word one's four planes
+    rebuilt in f64."""
+    return _dd(t) if isinstance(t, tuple) and len(t) == 4 else t
+
+
 def _build(node, leaves, device, mesh=None) -> FftPlan:
     name = node.get("__plan__")
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{name} is not ported yet: ROADMAP.md {_NOT_PORTED[name]}"
-        )
     if name in SHARDED_CLASSES:
-        is_plan = lambda c: isinstance(c, dict) and "__plan__" in c
-        if any(is_plan(c) and _double_word(c) for c in node["children"]):
-            raise NotImplementedError(
-                f"{name} over double-word (4-plane) c128 plans is not ported: ROADMAP.md "
-                "queue 1 item 7 (the port's c128 is native f64; save the JAX plan with "
-                "x64 on and backend='stockham')")
         from fourier_tpu_torch.parallel.sharded import PLANS
 
-        kids = [_build(c, leaves, device) if is_plan(c) else _tree(c, leaves)
+        is_plan = lambda c: isinstance(c, dict) and "__plan__" in c
+        kids = [_build(c, leaves, device) if is_plan(c) else _table(_tree(c, leaves))
                 for c in node["children"]]
         return PLANS[name].from_aux(_aux(node["aux"], mesh), kids)
     aux = _aux(node["aux"])
@@ -196,6 +186,9 @@ def _build(node, leaves, device, mesh=None) -> FftPlan:
         tables = [_dd(_tree(c, leaves)) for c in node["children"][1:]]
         return BluesteinPlan(size, torch.complex128, inner, *tables,
                              device=device)
+    if name == "DdMxuDirectPlan":
+        u, v = (_chunk_sum(_tree(c, leaves)) for c in node["children"][:2])
+        return DdMxuDirectPlan(aux[0], u, v, device)
     if name == "MxuFftPlan":
         size, n1, n2, _dtype, _interpret, tb, impl = aux
         fwd, inv = (_tree(c, leaves) for c in node["children"])

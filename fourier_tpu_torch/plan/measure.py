@@ -17,12 +17,14 @@ once on its card and ships the table. The platform is the device type
 ``tpu/...`` keys are kept, and a plan on the card never reads them.
 
 Candidates on the card: complex64 ``vpu``, ``mxu`` and ``stockham``;
-complex128 ``dd`` (the native-f64 route) and ``stockham`` (the f64
-Stockham or composed Bluestein). On the CPU only ``stockham`` is eligible,
-so nothing is timed: as in the JAX package off its chip, the kernel
-families there would time their plain versions, not the machine. The JAX
-package's ``dd_xla`` (its double-word XLA plan) has no port (ROADMAP.md
-queue 1 item 7): :func:`import_wisdom` refuses an entry that names it.
+complex128 ``dd`` (the native-f64 route) and ``dd_xla``, the JAX package's
+two on its chip: its ``dd_xla`` is the double-word XLA plan
+(``DdFftPlan``), here the port's :class:`DdFftPlan`, the f64 Stockham or a
+Bluestein over it (what ``stockham`` builds in complex128, so that label is
+not timed twice). On the CPU only ``stockham`` is eligible, so nothing is
+timed: as in the JAX package off its chip, the kernel families there would
+time their plain versions, not the machine; the JAX package's CPU list
+adds ``dd_xla``, the same plan here.
 
 Like FFTW's wisdom, a winner holds for the batch it was timed at (stored
 in the entry); a deployment with a very different batch should measure
@@ -44,9 +46,7 @@ from fourier_tpu_torch.plan.base import complex_dtype, resolve_device
 WISDOM_VERSION = 1
 
 #: The plan families a wisdom entry may name.
-LABELS = ("vpu", "mxu", "stockham", "dd")
-_NOT_PORTED = {"dd_xla": "the double-word XLA plan is not ported: the card computes "
-                         "complex128 in native f64 (ROADMAP.md queue 1 item 7)"}
+LABELS = ("vpu", "mxu", "stockham", "dd", "dd_xla")
 
 # key "platform/dtype/size" -> entry dict (JSON-serializable)
 _WISDOM: Dict[str, dict] = {}
@@ -68,17 +68,22 @@ def _plan_for_label(label: str, size: int, dtype: torch.dtype, device):
         return planner.create_fft(size, dtype, backend=label, device=device, cache=False)
     if label == "dd":
         return planner._create_dd(size, dtype, device)
+    if label == "dd_xla":
+        from fourier_tpu_torch.precision import DdFftPlan
+
+        return DdFftPlan(size, device=device)
     raise ValueError(f"unknown wisdom plan label {label!r}")
 
 
 def _candidates(size: int, dtype: torch.dtype,
                 device: torch.device) -> List[Tuple[str, Callable[[], object]]]:
     """(label, factory) of every family eligible on `device`: on the card
-    the kernel families and the Stockham family; on the CPU the Stockham
-    family alone."""
+    the kernel families and the Stockham family (complex128: ``dd_xla``);
+    on the CPU the Stockham family alone."""
     labels = ["stockham"]
     if device.type == "cuda":
-        labels = (["vpu", "mxu"] if dtype == torch.complex64 else ["dd"]) + labels
+        labels = (["vpu", "mxu", "stockham"] if dtype == torch.complex64
+                  else ["dd", "dd_xla"])
     return [(label, lambda label=label: _plan_for_label(label, size, dtype, device))
             for label in labels]
 
@@ -213,9 +218,6 @@ def import_wisdom(source: str) -> int:
         raise ValueError("wisdom document has no entries table")
     for key, entry in entries.items():
         backend = entry.get("backend") if isinstance(entry, dict) else None
-        if backend in _NOT_PORTED:
-            raise ValueError(f"wisdom entry {key!r} names {backend!r}: "
-                             f"{_NOT_PORTED[backend]}")
         if backend not in LABELS or not _check_key(key):
             raise ValueError(f"malformed wisdom entry {key!r}")
     _WISDOM.update(entries)

@@ -44,8 +44,9 @@ from fourier_tpu_torch.plan.bluestein_fused import VpuBluesteinPlan
 from fourier_tpu_torch.plan.four_step_local import FourStepLocalPlan
 from fourier_tpu_torch.plan.mxu import MxuFftPlan
 from fourier_tpu_torch.plan.vpu import FusedStagesPlan, VpuFftPlan
-from fourier_tpu_torch.precision import (DdSplitPow2Plan, DdSplitRadixPlan,
-                                         VpuDdBluesteinPlan, VpuDdFftPlan)
+from fourier_tpu_torch.precision import (DdFftPlan, DdMxuDirectPlan, DdSplitPow2Plan,
+                                         DdSplitRadixPlan, VpuDdBluesteinPlan,
+                                         VpuDdFftPlan)
 from fourier_tpu_torch.rfft import RfftPlan
 
 FORMAT = "fourier_tpu_torch"
@@ -141,6 +142,10 @@ _CODECS: Dict[str, _Codec] = {c.cls.__name__: c for c in (
               lambda aux, kids, device: DdSplitPow2Plan(aux[0], *kids, device)),
     _dd_split(DdSplitRadixPlan, lambda p: (p.size, p.radix),
               lambda aux, kids, device: DdSplitRadixPlan(aux[0], aux[1], *kids, device)),
+    _Codec(DdFftPlan, lambda p: (p.size,), lambda p: [p.body],
+           lambda aux, kids, device: DdFftPlan.from_body(kids[0])),
+    _Codec(DdMxuDirectPlan, lambda p: (p.size,), lambda p: [p.dft],
+           lambda aux, kids, device: DdMxuDirectPlan(aux[0], *kids[0], device)),
     _Codec(RfftPlan, lambda p: (p.n, _dtype_name(p.dtype)), lambda p: [p.inner, p.w],
            lambda aux, kids, device: RfftPlan.from_parts(aux[0], aux[1], kids[0], kids[1])),
 )}

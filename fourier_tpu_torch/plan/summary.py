@@ -15,8 +15,9 @@ kernels' tables beside them).
 
 The complex128 plans are native f64 here, not the JAX package's double-word
 f32: they get the port's own kinds (``VpuFusedF64``,
-``VpuFusedBluesteinF64``, ``SplitRadix<r>F64``; the f64 ``AutosortPlan`` and
-``BluesteinPlan`` keep the c64 kinds) with f64 flop counts and two f64 planes
+``VpuFusedBluesteinF64``, ``SplitRadix<r>F64``, ``DdFft[<kind>]F64``,
+``MxuDdDirectF64``; the f64 ``AutosortPlan`` and ``BluesteinPlan`` keep the
+c64 kinds) with f64 flop counts and two f64 planes
 in and out, not the double-word multipliers and four f32 planes of the JAX
 package's summaries. The sharded plans (``fourier_tpu_torch.parallel``)
 get the JAX package's kinds, flops and stages, with each exchange named for
@@ -80,7 +81,8 @@ def summarize(plan) -> PlanSummary:
     from fourier_tpu_torch.plan.four_step_local import FourStepLocalPlan
     from fourier_tpu_torch.plan.mxu import MxuFftPlan
     from fourier_tpu_torch.plan.vpu import VpuFftPlan
-    from fourier_tpu_torch.precision import (DdSplitPow2Plan, DdSplitRadixPlan,
+    from fourier_tpu_torch.precision import (DdFftPlan, DdMxuDirectPlan,
+                                             DdSplitPow2Plan, DdSplitRadixPlan,
                                              VpuDdBluesteinPlan, VpuDdFftPlan)
     from fourier_tpu_torch.rfft import RfftPlan
 
@@ -197,6 +199,15 @@ def summarize(plan) -> PlanSummary:
         ]
         return PlanSummary(f"SplitRadix{r}F64", n, dtype, flops, tables, io,
                            stages, [sub])
+
+    if isinstance(plan, DdFftPlan):
+        body = summarize(plan.body)
+        return PlanSummary(f"DdFft[{plan.kind}]F64", n, dtype, body.flops_per_transform,
+                           tables, io, [f"f64 {plan.kind} body"], [body])
+
+    if isinstance(plan, DdMxuDirectPlan):
+        return PlanSummary("MxuDdDirectF64", n, dtype, 8.0 * n * n, tables, io,
+                           [f"dense {n}x{n} DFT matmul (f64, four real products)"])
 
     return PlanSummary(type(plan).__name__, n, dtype, 0.0, tables, io)
 

@@ -33,8 +33,10 @@ complex128 runs the unfused formulation in f64, with f64 tables, around the
 inner plan of the ``dd`` route on a CUDA device (kernels B6, B7 or B8 over
 B6, as the JAX package's ``RfftPlan(n, np.complex128, backend="dd")`` on a
 TPU) and around the f64 Stockham family on the CPU. The JAX package's
-double-word twins (``rfft_planar_dd``, ``irfft_planar_dd``) have no
-counterpart: the port's c128 is native f64 and runs the same calls as c64.
+double-word twins (``rfft_planar_dd``, ``irfft_planar_dd``) join their f32
+(hi, lo) planes to f64, run the batch-major calls and split the result
+(``precision/planes.py``); ``dd`` is False, since the port's c128 is native
+f64 and runs the same calls as c64.
 
 The N-D real family (``rfftn``, ``irfftn``, ``hfftn``, ``ihfftn`` and their
 2-D forms) runs its last-axis real transform on the batch-minor calls, where
@@ -64,6 +66,7 @@ from fourier_tpu_torch.plan.base import complex_dtype, resolve_device
 from fourier_tpu_torch.plan.bluestein_fused import VpuBluesteinPlan
 from fourier_tpu_torch.plan.planner import create_fft
 from fourier_tpu_torch.plan.vpu import VpuFftPlan
+from fourier_tpu_torch.precision import planes as dd_planes
 from fourier_tpu_torch.transform import Transform
 
 
@@ -126,6 +129,13 @@ class RfftPlan(torch.nn.Module):
     @property
     def device(self) -> torch.device:
         return self.inner.device
+
+    @property
+    def dd(self) -> bool:
+        """False: the port's complex128 is two f64 planes, not the JAX
+        package's double-word f32 pairs (whose calls ``rfft_planar_dd`` and
+        ``irfft_planar_dd`` a complex128 plan takes as well)."""
+        return False
 
     @property
     def fused(self) -> bool:
@@ -288,6 +298,26 @@ class RfftPlan(torch.nn.Module):
         flat = lambda t: t.reshape(-1, self.out_len)
         out = self._irfft_odd(flat(re), flat(im), -1, inner)
         return out.reshape(*re.shape[:-1], self.n)
+
+    def rfft_planar_dd(self, xh, xl):
+        """dd twin of :meth:`rfft_planar`: (hi, lo) f32 planes (..., n) ->
+        4 one-sided f32 planes (re_hi, re_lo, im_hi, im_lo). complex128
+        plans only."""
+        xh, xl = dd_planes.limbs((xh, xl), self.dtype, "rfft_planar")
+        if xh.ndim == 0 or xh.shape[-1] != self.n:
+            raise ValueError(f"last axis {xh.shape[-1] if xh.ndim else 0} != plan "
+                             f"size {self.n}")
+        return dd_planes.split(self.rfft_planar(*dd_planes.join((xh, xl))))
+
+    def irfft_planar_dd(self, reh, rel, imh, iml):
+        """dd twin of :meth:`irfft_planar`: 4 one-sided f32 planes
+        (..., n//2+1) -> the (hi, lo) f32 real planes (..., n). complex128
+        plans only."""
+        dd = dd_planes.limbs((reh, rel, imh, iml), self.dtype, "irfft_planar")
+        if dd[0].ndim == 0 or dd[0].shape[-1] != self.out_len:
+            raise ValueError(f"last axis {dd[0].shape[-1] if dd[0].ndim else 0} != "
+                             f"one-sided length {self.out_len}")
+        return dd_planes.split((self.irfft_planar(*dd_planes.join(dd)),))
 
     def rfft_planar_bm(self, x_t) -> Tuple[torch.Tensor, torch.Tensor]:
         """Batch-minor forward: real (n, B) plane -> (n//2+1, B) planes."""

@@ -20,8 +20,8 @@ along one axis through the same 1-D entry as ``fft`` (``plan.transform``).
 
 complex128 runs in native f64 on the card (the ``dd`` route), the spectral
 product included. The JAX package's double-word twin of
-:class:`ConvolvePlan` (``convolve_planar_dd``) has no counterpart: a c128
-plan runs ``convolve_planar`` on f64 planes.
+:class:`ConvolvePlan`'s planar call (``convolve_planar_dd``) joins its f32
+(hi, lo) planes to f64, runs ``convolve_planar`` and splits the result.
 
 Tables are computed in f64 numpy at plan time and moved to the device once,
 cast: the chirp-z chirps and chirp spectrum, ConvolvePlan's kernel spectrum,
@@ -45,6 +45,7 @@ from fourier_tpu_torch.ndim import (_as_tensor, _axis_plans, _crop_pad_axis,
                                     _restore, _run, _transform_axes)
 from fourier_tpu_torch.plan.base import complex_dtype, resolve_device
 from fourier_tpu_torch.plan.planner import create_fft
+from fourier_tpu_torch.precision import planes as dd_planes
 from fourier_tpu_torch.rfft import _infer_cdtype
 from fourier_tpu_torch.transform import Transform
 
@@ -645,8 +646,10 @@ class ConvolvePlan(torch.nn.Module):
     ``transform_planar_bm`` forward, the spectral product and the inverse on
     them, and folds the blocks back (:func:`_fold`); it is differentiable
     through the plan's linear rule. complex128 runs the same calls on f64
-    planes on the ``dd`` route (the JAX package's 4-plane double-word twin,
-    ``convolve_planar_dd``, has no counterpart).
+    planes on the ``dd`` route; the JAX package's 4-plane double-word twin,
+    ``convolve_planar_dd``, joins its f32 (hi, lo) planes to f64, runs
+    ``convolve_planar`` and splits the result (``precision/planes.py``), and
+    ``dd`` is False (the port's c128 is native f64).
     """
 
     def __init__(self, kernel, mode: str = "full", dtype=torch.complex64,
@@ -701,6 +704,12 @@ class ConvolvePlan(torch.nn.Module):
     def real_dtype(self) -> torch.dtype:
         return _real_of(self.dtype)
 
+    @property
+    def dd(self) -> bool:
+        """False: the port's complex128 is two f64 planes, not the JAX
+        package's double-word f32 pairs."""
+        return False
+
     # -- geometry ---------------------------------------------------------------
 
     def n_blocks(self, s1: int) -> int:
@@ -754,6 +763,22 @@ class ConvolvePlan(torch.nn.Module):
         if real_in and self.kernel_is_real:
             return self._fold(yr, lead, s1)
         return self._fold(yr, lead, s1), self._fold(yi, lead, s1)
+
+    def convolve_planar_dd(self, rh, rl, ih=None, il=None):
+        """dd twin of :meth:`convolve_planar` on f32 (hi, lo) planes
+        (..., s1): the real input's pair (``rl`` None: zero), and with
+        ``ih`` the imaginary input's (``il`` None: zero). Returns the
+        (hi, lo) pair of the real output for real input and a real kernel,
+        else four planes. complex128 plans only."""
+        if self.dtype != torch.complex128:
+            raise TypeError("c64 plan: use convolve_planar")
+        zeros = lambda p: (torch.zeros_like(p) if isinstance(p, torch.Tensor)
+                           else np.zeros_like(p))
+        dd = [rh, zeros(rh) if rl is None else rl]
+        if ih is not None:
+            dd += [ih, zeros(ih) if il is None else il]
+        return dd_planes.run(self.convolve_planar, dd, self.dtype, "convolve_planar",
+                          device=self.device)
 
     def convolve(self, x):
         """The convolution of `x` (..., s1): a numpy array (numpy out) or a

@@ -4,10 +4,11 @@ the JAX package's (``fourier_tpu.plan.measure``).
 Counterparts of ``tests/test_measure.py``'s six tests on the same numpy
 inputs. Off the card one family alone is eligible, so the CPU plans
 ``stockham`` without timing at c64 and c128 both (the JAX package times
-its XLA double-word family against the f64 Stockham on the CPU; that
-family is not ported); ``_time_plan`` is held on a CPU plan, the card's
-candidate lists without building them, and a document the JAX package
-exported imports here. Gates: rel-L2 <= 1e-6 (c64) and <= 1e-12 (c128)
+its XLA double-word family against the f64 Stockham on the CPU; the port's
+counterpart, ``DdFftPlan``, is the same f64 plan there); ``_time_plan`` is
+held on a CPU plan, the card's candidate lists without building them, a
+document the JAX package exported imports here, and an entry naming
+``dd_xla`` rebuilds a ``DdFftPlan``. Gates: rel-L2 <= 1e-6 (c64) and <= 1e-12 (c128)
 against np.fft and the JAX package's measured plan.
 """
 
@@ -90,7 +91,7 @@ def test_card_candidates():
     assert [l for l, _ in measure._candidates(4096, torch.complex64, cuda)] == \
         ["vpu", "mxu", "stockham"]
     assert [l for l, _ in measure._candidates(1024, torch.complex128, cuda)] == \
-        ["dd", "stockham"]
+        ["dd", "dd_xla"]
     cpu = torch.device("cpu")
     for dtype in (torch.complex64, torch.complex128):
         assert [l for l, _ in measure._candidates(64, dtype, cpu)] == ["stockham"]
@@ -160,12 +161,24 @@ def test_wisdom_rejects_malformed():
             "version": measure.WISDOM_VERSION,
             "entries": {"cpu/complex64": {"backend": "stockham"}},
         }))
-    with pytest.raises(ValueError, match="not ported"):
-        tft.import_wisdom(json.dumps({
-            "version": measure.WISDOM_VERSION,
-            "entries": {"tpu/complex128/64": {"backend": "dd_xla"}},
-        }))
     assert json.loads(tft.export_wisdom())["entries"] == {}
+
+
+def test_dd_xla_wisdom_imports():
+    """An entry naming the JAX package's dd_xla (its double-word XLA
+    DdFftPlan) imports, and rebuilds the port's DdFftPlan: the f64 Stockham
+    at 64, a Bluestein at 73, each against np.fft."""
+    from fourier_tpu_torch.precision import DdFftPlan
+
+    entry = {"backend": "dd_xla", "timings_us": {"dd_xla": 1.0}, "batch": 8, "chain": 8}
+    assert tft.import_wisdom(json.dumps({
+        "version": measure.WISDOM_VERSION,
+        "entries": {f"cpu/complex128/{n}": entry for n in (64, 73)}})) == 2
+    for n, kind in ((64, "stockham"), (73, "bluestein")):
+        plan = measure.plan_from_wisdom(n, np.complex128, device="cpu")
+        assert isinstance(plan, DdFftPlan) and plan.kind == kind
+        x = _rand((3, n), n, np.complex128)
+        assert _rel(_fft_via(plan, x), np.fft.fft(x)) <= 1e-12
 
 
 def test_measured_plan_modes_roundtrip():
@@ -184,7 +197,7 @@ def test_measure_on_card(cuda_device, n, dtype):
     the card's name."""
     res = tft.measure_fft(n, dtype, device=cuda_device)
     assert set(res.timings_us) == ({"vpu", "mxu", "stockham"} if dtype == torch.complex64
-                                   else {"dd", "stockham"})
+                                   else {"dd", "dd_xla"})
     assert all(v > 0 for v in res.timings_us.values())
     entry = json.loads(tft.export_wisdom())["entries"][f"cuda/{str(dtype)[6:]}/{n}"]
     assert entry["backend"] == res.best and entry["device_name"]

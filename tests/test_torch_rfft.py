@@ -451,8 +451,11 @@ def test_load_jax_plan(kind, tmp_path):
 
 def test_load_jax_plan_dd_raises(tmp_path):
     """A double-word rfft plan loads as an f64 one (its (hi, lo) twiddles
-    recombined); the dd class on no route of the reference still raises."""
+    recombined); the dd class on no route of the reference, which raised
+    before the port had it, loads too and runs as np.fft."""
     from fourier_tpu.precision.dd_mxu import DdMxuDirectPlan
+
+    from fourier_tpu_torch.precision import DdMxuDirectPlan as PortDdMxuDirectPlan
 
     path = tmp_path / "dd.npz"
     save_plan(JRfftPlan(64, np.complex128, backend="dd"), str(path))
@@ -461,8 +464,11 @@ def test_load_jax_plan_dd_raises(tmp_path):
     assert plan_tree(loaded) == plan_tree(own) == ("RfftPlan", 64, ("AutosortPlan", 32))
     assert (loaded.w - own.w).abs().max() <= 1e-14  # hi + lo keeps ~48 bits
     save_plan(DdMxuDirectPlan.create(64), str(path))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        load_jax_plan(str(path), device="cpu")
+    mxu = load_jax_plan(str(path), device="cpu")
+    assert isinstance(mxu, PortDdMxuDirectPlan) and mxu.size == 64
+    x = np.random.default_rng(RNG_SEED).standard_normal((2, 64)) + 0.5j
+    assert np.linalg.norm(mxu.fft(x) - np.fft.fft(x)) <= 1e-12 * np.linalg.norm(
+        np.fft.fft(x))
 
 
 # -- numpy transliterations of the CUDA kernels ---------------------------------

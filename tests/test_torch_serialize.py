@@ -32,6 +32,7 @@ from fourier_tpu_torch import Transform
 from fourier_tpu_torch.plan import (MxuFftPlan, VpuFftPlan, load_jax_plan,
                                     load_plan, plan_to_bytes, plan_tree, save_plan)
 from fourier_tpu_torch.plan import serialize
+from fourier_tpu_torch.precision import DdFftPlan, DdMxuDirectPlan
 
 RNG_SEED = 0x57A71C
 GATES = {np.complex64: 1e-6, np.complex128: 1e-12}
@@ -138,8 +139,8 @@ def test_allowlist_is_the_port_plan_classes(tmp_path):
     assert serialize.PLAN_CLASSES == tuple(sorted((
         "AutosortPlan", "BluesteinPlan", "FourStepLocalPlan", "MxuFftPlan", "VpuFftPlan",
         "VpuBluesteinPlan", "VpuDdFftPlan", "VpuDdBluesteinPlan", "DdSplitPow2Plan",
-        "DdSplitRadixPlan", "RfftPlan", "FourStepPlan", "Fft2dPlan", "Fft3dPlan",
-        "Rfft2dPlan", "Rfft3dPlan")))
+        "DdSplitRadixPlan", "DdFftPlan", "DdMxuDirectPlan", "RfftPlan", "FourStepPlan",
+        "Fft2dPlan", "Fft3dPlan", "Rfft2dPlan", "Rfft3dPlan")))
     with pytest.raises(TypeError, match="not a plan class of the port"):
         save_plan(torch.nn.Linear(2, 2), str(tmp_path / "refused.npz"))
     assert not (tmp_path / "refused.npz").exists()
@@ -152,6 +153,10 @@ def _plan(route):
         return tft.RfftPlan(n, dtype, backend=backend, device="cpu")
     if kind == "mxu":
         return MxuFftPlan.create(n, impl=backend, device="cpu")
+    if kind == "ddfft":
+        return DdFftPlan(n, device="cpu")
+    if kind == "ddmxu":
+        return DdMxuDirectPlan.create(n, device="cpu")
     dtype = torch.complex128 if backend in ("dd", "stockham128") else torch.complex64
     backend = "stockham" if backend == "stockham128" else backend
     return tft.create_fft(n, dtype, backend=backend, device="cpu", cache=False)
@@ -160,12 +165,14 @@ def _plan(route):
 # The card's trees (built on the CPU): B1 (64, 4096), B2 (1013), B1 + B3
 # (65536), DFT products (125, 722), composed Bluestein (4099); B9b (384);
 # B6 (1024), B8 (2187, 6144), B7 (1013), composed (1418); the f64 Stockham
-# (12, 73); the real plans (B4 4096, B5 1013, the c128 one).
+# (12, 73); the real plans (B4 4096, B5 1013, the c128 one); DdFftPlan of
+# both kinds (12, 73) and DdMxuDirectPlan (64), on no route.
 ROUTES = [("c2c", n, "vpu") for n in (64, 4096, 1013, 65536, 125, 722, 4099)] + [
     ("mxu", 384, "pallas"), ("mxu", 100, "xla_packed")] + [
     ("c2c", n, "dd") for n in (1024, 2187, 6144, 1013, 1418)] + [
     ("c2c", n, "stockham128") for n in (12, 73)] + [
-    ("rfft", 4096, "vpu"), ("rfft", 1013, "vpu"), ("rfft", 1013, "dd")]
+    ("rfft", 4096, "vpu"), ("rfft", 1013, "vpu"), ("rfft", 1013, "dd"),
+    ("ddfft", 12, "-"), ("ddfft", 73, "-"), ("ddmxu", 64, "-")]
 
 
 def _buffers(module):

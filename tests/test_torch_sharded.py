@@ -1,7 +1,8 @@
 """The sharded plans of the port (``fourier_tpu_torch.parallel``) on a
 4-rank gloo world of CPU processes: the counterparts of
-``tests/test_sharded.py`` (its double-word c128 cases as native-f64 c128),
-plus the output placements, the copies a leg makes, the exchanges of a
+``tests/test_sharded.py`` (its double-word c128 cases as native-f64 c128,
+and the double-word twins on f32 (hi, lo) limbs, joined to f64 for the
+gates), plus the output placements, the copies a leg makes, the exchanges of a
 spectral round trip, the card's routes on their plain versions, the plan
 files and the summaries.
 
@@ -199,16 +200,65 @@ def test_fft2d_c128(world, backend):
 
 
 def test_dd_names_not_ported():
-    """The 4-plane double-word API stays in the reference (ROADMAP.md queue
-    1 item 7): c128 runs native f64 through the same calls."""
-    assert sorted(parallel.__all__) == sorted([
-        "Fft2dPlan", "Fft3dPlan", "FourStepPlan", "Rfft2dPlan", "Rfft3dPlan",
-        "batched_transform", "batched_rfft", "batched_irfft"])
+    """No double-word name of the reference is left unported: the exports
+    equal the JAX package's, the twins and transform_planar_dd exist, and
+    the plans stay nn.Modules."""
+    from fourier_tpu import parallel as jparallel
+
+    assert sorted(parallel.__all__) == sorted(jparallel.__all__)
     for name in ("batched_transform_dd", "batched_rfft_dd", "batched_irfft_dd"):
-        assert not hasattr(parallel, name)
+        assert callable(getattr(parallel, name))
     for cls in (parallel.FourStepPlan, parallel.Fft2dPlan, parallel.Fft3dPlan):
-        assert not hasattr(cls, "transform_planar_dd") and issubclass(cls, torch.nn.Module)
+        assert callable(cls.transform_planar_dd) and issubclass(cls, torch.nn.Module)
     assert tft.parallel is parallel
+
+
+# -- the double-word twins: joined f64 against np.fft and the single device ----
+
+
+def test_batched_dd_matches_single(world):
+    """batched_transform_dd (both directions), batched_rfft_dd and
+    batched_irfft_dd against np.fft and the single-device 4-plane calls on
+    the same limbs; f32 DTensors out, sharded over the batch."""
+    r = res(world, "batched_dd")
+    x, xr = r["x"], r["xr"]
+    gate(r["y"], np.fft.fft(x, axis=-1), C128)
+    gate(r["y"], r["single"], C128)
+    gate(r["inv"], np.fft.ifft(x, axis=-1), C128)
+    gate(r["spec"], np.fft.rfft(xr, axis=-1), C128)
+    gate(r["spec"], r["spec_single"], C128)
+    gate(r["back"], xr, C128)
+    assert r["types"] == ["DTensor"] and r["dtypes"] == ["torch.float32"]
+    assert r["placements"] == [S0] * 10
+
+
+@pytest.mark.parametrize("name", ["four", "fft2d", "fft3d", "rfft2d", "rfft3d"])
+def test_sharded_dd_planes(world, name):
+    """Each class's 4-plane call (the real ones given two limbs) against
+    np.fft, and its inverse back to the input."""
+    r = res(world, "sharded_dd")
+    x = r[f"{name}_x"]
+    want = {"four": lambda: np.fft.fft(x.ravel()), "fft2d": lambda: np.fft.fft2(x),
+            "fft3d": lambda: np.fft.fftn(x), "rfft2d": lambda: np.fft.rfft2(x),
+            "rfft3d": lambda: np.fft.rfftn(x)}[name]()
+    gate(r[name], want, C128)
+    if name != "four":
+        gate(r[f"{name}_back"], x, C128)
+
+
+def test_sharded_dd_flags_and_refusals(world):
+    """is_dd False and nplanes 2 on the five classes (the port's c128 is two
+    f64 planes); a c64 plan refuses the double-word calls with TypeError,
+    three planes and f64 limbs are refused with ValueError."""
+    r = res(world, "sharded_dd")
+    assert r["flags"] == {k: (False, 2) for k in (
+        "FourStepPlan", "Fft2dPlan", "Fft3dPlan", "Rfft2dPlan", "Rfft3dPlan")}
+    assert r["fft3d_placements"] == [SPECTRAL3] * 4
+    assert r["c64_refused"] == ["TypeError", "this plan uses 2-plane planar data; call "
+                                             "transform_planar"]
+    assert r["c64_rfft_refused"][0] == "TypeError"
+    assert r["three_planes"][0] == "ValueError" and "got 3" in r["three_planes"][1]
+    assert r["f64_limbs"][0] == "ValueError" and "float32" in r["f64_limbs"][1]
 
 
 # -- Fft3dPlan ----------------------------------------------------------------
@@ -404,7 +454,8 @@ VALIDATION = {
 # Shard(0) DTensors: shard_map's refusal, not rows dropped.
 UNEVEN = ("ValueError", "array axis 0 (of size {rows}) maps to mesh axis 'batch' "
           "(of size {world}), but {world} does not evenly divide {rows}")
-BATCHED = [f"batched_{call}_uneven{kind}" for call in ("transform", "rfft", "irfft")
+BATCHED = [f"batched_{call}_uneven{kind}" for call in ("transform", "rfft", "irfft",
+                                                      "transform_dd", "rfft_dd", "irfft_dd")
            for kind in ("", "_dtensor")]
 VALIDATION.update({k: (UNEVEN[0], UNEVEN[1].format(rows=6, world=4)) for k in BATCHED})
 
@@ -449,6 +500,31 @@ def test_three_ranks_nine_rows_match_single(world3, call):
     got = world3[call]
     assert got.shape == (9,) + tuple(np.shape(want))[1:]
     gate(got, np.asarray(want), C64 if call == "transform" else RFFT)
+
+
+@pytest.mark.parametrize("call", ["transform_dd", "rfft_dd", "irfft_dd"])
+def test_three_ranks_nine_rows_match_single_dd(world3, call):
+    """The double-word twins on 9 rows over 3 ranks against the
+    single-device 4-plane calls on the same limbs, joined."""
+    if "error" in world3:
+        pytest.fail(world3["error"])
+    from fourier_tpu_torch.precision import ddreal
+
+    x = world3["x"].astype(np.float64)
+    limbs = lambda a: [p for t in ((torch.as_tensor(a.real), torch.as_tensor(a.imag))
+                                   if np.iscomplexobj(a) else (torch.as_tensor(a),))
+                       for p in ddreal.from_f64(t)]
+    if call == "transform_dd":
+        out = cpu_plan(48, np.complex128).transform_planar_dd(*limbs(x + 1j * x[:, ::-1]))
+    else:
+        rplan = tft.RfftPlan(48, np.complex128, device="cpu")
+        out = (rplan.rfft_planar_dd(*limbs(x)) if call == "rfft_dd"
+               else rplan.irfft_planar_dd(*limbs(np.fft.rfft(x))))
+    vals = [ddreal.to_f64(out[i:i + 2]).numpy() for i in range(0, len(out), 2)]
+    want = vals[0] + 1j * vals[1] if len(vals) == 2 else vals[0]
+    got = world3[call]
+    assert got.shape == want.shape
+    gate(got, want, C128)
 
 
 def test_plans_are_modules(world):

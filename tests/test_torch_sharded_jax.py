@@ -8,9 +8,10 @@ transposed_output=True)`` and ``Rfft3dPlan(8, 8, 8)`` on a 2x2 ``("x", "y")``
 mesh with ``spectral_output=True``; the global arrays agree to rel-L2 <=
 1e-6 (the pad tail included). Plan files the JAX package saved for each of
 the five classes load with ``load_jax_plan`` and give the port's own plan's
-results (the Fft2dPlan also the JAX run's); a double-word c128 file is
-refused (ROADMAP.md queue 1 item 7). ``summarize`` gives the JAX package's
-kinds and cost model.
+results (the Fft2dPlan also the JAX run's); a double-word c128 file loads
+too and its 4-plane call, joined to f64, matches the JAX run's, as does
+``batched_transform_dd`` (gate 1e-12). ``summarize`` gives the JAX
+package's kinds and cost model.
 """
 
 import jax
@@ -20,7 +21,9 @@ from jax.sharding import Mesh
 
 import fourier_tpu as jft
 import torch_sharded_world as world_cases
-from fourier_tpu.parallel import Fft2dPlan, Fft3dPlan, FourStepPlan, Rfft2dPlan, Rfft3dPlan
+from fourier_tpu.parallel import (Fft2dPlan, Fft3dPlan, FourStepPlan, Rfft2dPlan, Rfft3dPlan,
+                                  batched_transform_dd)
+from fourier_tpu.precision import ddreal as jddreal
 from fourier_tpu.plan.summary import summarize as jsummarize
 
 GATE = 1e-6
@@ -39,6 +42,16 @@ def _planar(x):
 
 def _joined(planes):
     return np.asarray(planes[0]) + 1j * np.asarray(planes[1])
+
+
+def _limbs(x):
+    """The JAX package's double-word split of complex128 `x`: 4 f32 planes."""
+    return (*jddreal.from_f64(x.real), *jddreal.from_f64(x.imag))
+
+
+def _joined_dd(planes):
+    planes = [np.asarray(p) for p in planes]
+    return (jddreal.to_f64(planes[:2]) + 1j * jddreal.to_f64(planes[2:]))
 
 
 @pytest.fixture(scope="module")
@@ -69,20 +82,29 @@ def parity(tmp_path_factory):
         kind = "real" if name.startswith("rfft") else "complex"
         files[name] = (path, mesh_of.get(name, "fft"), kind)
     dd_file = str(tmp / "jax-dd.npz")
-    jft.save_plan(Fft2dPlan(16, 16, fft, dtype=np.complex128, backend="dd"), dd_file)
+    dd_plan = Fft2dPlan(16, 16, fft, dtype=np.complex128, backend="dd")
+    jft.save_plan(dd_plan, dd_file)
+    x_dd, x_batched = cx((16, 16), np.complex128), cx((8, 32), np.complex128)
+    batch = Mesh(devs, ("batch",))
     jax_out = {
         "four": _joined(plans["four"].fft_planar(*_planar(inputs["four"]))),
         "fft2d": _joined(plans["fft2d"].fft_planar(*_planar(inputs["fft2d"]))),
         "rfft3d": _joined(plans["rfft3d"].rfft_planar(inputs["rfft3d"])),
+        # under jit: one compile each (an eager shard_map over the double-word
+        # arithmetic compiles op by op, ~170 s here)
+        "dd": _joined_dd(jax.jit(dd_plan.transform_planar_dd)(*_limbs(x_dd))),
+        "batched_dd": _joined_dd(jax.jit(lambda *p: batched_transform_dd(
+            jft.create_fft(32, np.complex128, backend="dd"), *p, batch))(*_limbs(x_batched))),
     }
     extra = {"x_four": inputs["four"], "x_fft2d": inputs["fft2d"],
              "x_rfft3d": inputs["rfft3d"], "inputs": inputs, "files": files,
-             "dd_file": dd_file}
+             "dd_file": dd_file, "x_dd": x_dd, "x_batched_dd": x_batched}
     port = world_cases.run_world(tmp, ["parity"], extra=extra)["parity"]
     if "error" in port:
         pytest.fail(port["error"])
     summaries = {k: jsummarize(plans[k]) for k in ("four", "fft2d", "rfft3d")}
-    return {"jax": jax_out, "port": port, "inputs": inputs, "summaries": summaries}
+    return {"jax": jax_out, "port": port, "inputs": inputs, "summaries": summaries,
+            "x_dd": x_dd, "x_batched_dd": x_batched}
 
 
 @pytest.mark.parametrize("name", ["four", "fft2d", "rfft3d"])
@@ -123,11 +145,25 @@ def test_load_jax_plan_runs_the_saved_plan(parity, name):
 
 
 def test_load_jax_plan_mesh_errors(parity):
+    """A sharded file needs a mesh of its geometry; the double-word file
+    loads as the port's Fft2dPlan over f64 sub-plans."""
     port = parity["port"]
     assert port["no_mesh"][0] == "ValueError" and "mesh=" in port["no_mesh"][1]
     assert port["wrong_mesh"][0] == "ValueError"
     assert "does not match the plan's mesh" in port["wrong_mesh"][1]
-    assert port["dd"][0] == "NotImplementedError" and "item 7" in port["dd"][1]
+    assert port["dd_type"] == ("Fft2dPlan", "torch.complex128", False)
+
+
+@pytest.mark.parametrize("name", ["dd", "batched_dd"])
+def test_dd_matches_jax(parity, name):
+    """The JAX package's double-word Fft2dPlan file, loaded, and
+    batched_transform_dd on the same f32 limbs: the port's four planes,
+    joined, against the JAX run's and np.fft."""
+    got, want = parity["port"][name], parity["jax"][name]
+    x = parity["x_" + ("dd" if name == "dd" else "batched_dd")]
+    assert _rel(got, want) <= 1e-12
+    ref = np.fft.fft2(x) if name == "dd" else np.fft.fft(x, axis=-1)
+    assert _rel(got, ref) <= 1e-12
 
 
 @pytest.mark.parametrize("name", ["four", "fft2d", "rfft3d"])

@@ -32,6 +32,7 @@ import fourier_tpu_torch as tft
 from fourier_tpu_torch import parallel
 from fourier_tpu_torch.parallel import exchange as ex
 from fourier_tpu_torch.parallel import sharded
+from fourier_tpu_torch.precision import ddreal
 from fourier_tpu_torch.transform import Transform
 
 WORLD = 4
@@ -453,6 +454,89 @@ def rfft2d_c128(ctx, backend):
     return {"x": x, "y": y, "back": plan.irfft(y)}
 
 
+# -- the double-word (4-plane) twins --------------------------------------------
+
+
+def dd(x):
+    """The f32 (hi, lo) limbs of an f64 numpy array's real and imaginary
+    parts: 4 planes of complex `x`, 2 of real `x`."""
+    t = torch.as_tensor(np.asarray(x))
+    parts = (t.real, t.imag) if t.is_complex() else (t,)
+    return tuple(limb for p in parts for limb in ddreal.from_f64(p))
+
+
+def joined(planes):
+    """numpy f64 of double-word planes (DTensors or tensors): 4 planes join
+    into one complex array, 2 into one real."""
+    f = [p.full_tensor() if isinstance(p, DTensor) else p for p in planes]
+    vals = [ddreal.to_f64(f[i:i + 2]).numpy() for i in range(0, len(f), 2)]
+    return vals[0] + 1j * vals[1] if len(vals) == 2 else vals[0]
+
+
+@case()
+def batched_dd(ctx):
+    """The three batch-sharded twins against the single-device 4-plane
+    calls on the same limbs."""
+    x = cx((16, 32), np.complex128)
+    plan = tft.create_fft(32, np.complex128, device="cpu")
+    y = parallel.batched_transform_dd(plan, *dd(x), ctx.batch)
+    inv = parallel.batched_transform_dd(plan, *dd(x), ctx.batch, transform=Transform.IFFT)
+    xr = real((16, 33), np.float64)
+    rplan = tft.RfftPlan(33, np.complex128, device="cpu")
+    spec = parallel.batched_rfft_dd(rplan, *dd(xr), ctx.batch)
+    back = parallel.batched_irfft_dd(rplan, *spec, ctx.batch)
+    return {"x": x, "y": joined(y), "inv": joined(inv),
+            "single": joined(plan.transform_planar_dd(*dd(x))), "xr": xr,
+            "spec": joined(spec), "spec_single": joined(rplan.rfft_planar_dd(*dd(xr))),
+            "back": joined(back), "types": sorted({type(p).__name__ for p in y + back}),
+            "dtypes": sorted({str(p.dtype) for p in y + spec + back}),
+            "placements": placements(*y, *spec, *back)}
+
+
+@case()
+def sharded_dd(ctx):
+    """transform_planar_dd and the planar calls given double-word planes on
+    the five classes (complex128), is_dd and nplanes, and the refusals."""
+    c128 = torch.complex128
+    out = {}
+    x4 = cx((16, 16), np.complex128)
+    four = parallel.FourStepPlan(16, 16, ctx.fft, dtype=c128, natural_order=True)
+    out["four_x"], out["four"] = x4, joined(four.transform_planar_dd(*dd(x4)))
+    x2 = cx((16, 32), np.complex128)
+    fft2 = parallel.Fft2dPlan(16, 32, ctx.fft, dtype=c128)
+    y2 = fft2.fft_planar(*dd(x2))
+    out["fft2d_x"], out["fft2d"], out["fft2d_back"] = x2, joined(y2), joined(
+        fft2.ifft_planar(*y2))
+    x3 = cx((8, 8, 8), np.complex128)
+    fft3 = parallel.Fft3dPlan(8, 8, 8, ctx.xy, dtype=c128, spectral_output=True)
+    y3 = fft3.transform_planar_dd(*dd(x3))
+    out["fft3d_x"], out["fft3d"] = x3, joined(y3)
+    out["fft3d_back"] = joined(fft3.transform_planar_dd(*y3, Transform.IFFT,
+                                                        from_spectral=True))
+    out["fft3d_placements"] = placements(*y3)
+    xr2 = real((16, 21), np.float64)
+    rf2 = parallel.Rfft2dPlan(16, 21, ctx.fft, dtype=c128)
+    s2 = rf2.rfft_planar(*dd(xr2))
+    out["rfft2d_x"], out["rfft2d"] = xr2, joined(s2)[..., :rf2.out_len]
+    out["rfft2d_back"] = joined(rf2.irfft_planar(*s2))
+    xr3 = real((8, 8, 16), np.float64)
+    rf3 = parallel.Rfft3dPlan(8, 8, 16, ctx.xy, dtype=c128, spectral_output=True)
+    s3 = rf3.rfft_planar(*dd(xr3))
+    out["rfft3d_x"], out["rfft3d"] = xr3, joined(s3)[..., :rf3.out_len]
+    out["rfft3d_back"] = joined(rf3.irfft_planar(*s3, from_spectral=True))
+    out["flags"] = {type(p).__name__: (p.is_dd, p.nplanes) for p in (four, fft2, fft3, rf2,
+                                                                     rf3)}
+    c64 = parallel.Fft2dPlan(16, 16, ctx.fft)
+    z = torch.zeros(16, 16)
+    out["c64_refused"] = _raises(lambda: c64.transform_planar_dd(z, z, z, z))
+    out["c64_rfft_refused"] = _raises(lambda: parallel.Rfft2dPlan(16, 16, ctx.fft)
+                                      .rfft_planar(z, z))
+    out["three_planes"] = _raises(lambda: fft2.fft_planar(*dd(x2)[:3]))
+    out["f64_limbs"] = _raises(lambda: fft2.transform_planar_dd(
+        *(p.double() for p in dd(x2))))
+    return out
+
+
 # -- the card's routes, on their kernels' plain versions -------------------------
 
 
@@ -546,11 +630,29 @@ def _batched_calls(n, x, mesh):
     }
 
 
+def _batched_dd_calls(n, x, mesh):
+    """The double-word twins of :func:`_batched_calls`: complex128 plans on
+    the f32 limbs of the same rows (the spectrum's for the inverse)."""
+    P = parallel
+    plan = tft.create_fft(n, np.complex128, device="cpu")
+    rplan = tft.RfftPlan(n, np.complex128, device="cpu")
+    x64 = x.astype(np.float64)
+    xs, ss = dd(x64 + 1j * x64[:, ::-1]), dd(np.fft.rfft(x64))
+    return {
+        "transform_dd": lambda f: P.batched_transform_dd(plan, *map(f, xs), mesh),
+        "rfft_dd": lambda f: P.batched_rfft_dd(rplan, *map(f, dd(x64)), mesh),
+        "irfft_dd": lambda f: P.batched_irfft_dd(rplan, *map(f, ss), mesh),
+    }
+
+
 def _uneven_batches(ctx, rows):
-    """The errors of the batch-sharded calls on `rows` rows, which the batch
-    mesh does not divide: as tensors and as (uneven) Shard(0) DTensors."""
+    """The errors of the batch-sharded calls and their double-word twins on
+    `rows` rows, which the batch mesh does not divide: as tensors and as
+    (uneven) Shard(0) DTensors."""
     out = {}
-    for call, fn in _batched_calls(16, real((rows, 16)), ctx.batch).items():
+    x = real((rows, 16))
+    calls = {**_batched_calls(16, x, ctx.batch), **_batched_dd_calls(16, x, ctx.batch)}
+    for call, fn in calls.items():
         out[f"batched_{call}_uneven"] = _raises(lambda: fn(lambda t: t))
         out[f"batched_{call}_uneven_dtensor"] = _raises(lambda: fn(
             lambda t: distribute_tensor(t, ctx.batch, [Shard(0)])))
@@ -566,6 +668,8 @@ def three_ranks(ctx):
     for call, fn in _batched_calls(48, x, ctx.batch).items():
         got = fn(lambda t: t)
         out[call] = full(*got) if isinstance(got, tuple) else full(got)
+    for call, fn in _batched_dd_calls(48, x, ctx.batch).items():
+        out[call] = joined(fn(lambda t: t))
     out["x"] = x
     return out
 
@@ -658,7 +762,8 @@ def _summary(plan):
 def parity(ctx):
     """The three parity shapes through the port's own plans, and each plan
     file the JAX package saved, loaded with load_jax_plan and run on the
-    same input (c64 and native-f64 c128; a double-word one refused)."""
+    same input (c64 and native-f64 c128; the double-word one through its
+    4-plane call), and batched_transform_dd."""
     e = ctx.extra
     meshes = {"fft": ctx.fft, "xy": ctx.xy}
     four = parallel.FourStepPlan(16, 16, ctx.fft, pipeline_chunks=2)
@@ -683,8 +788,12 @@ def parity(ctx):
     out["no_mesh"] = _raises(lambda: tft.load_jax_plan(path, device="cpu"))
     out["wrong_mesh"] = _raises(lambda: tft.load_jax_plan(path, device="cpu",
                                                           mesh=ctx.xy))
-    out["dd"] = _raises(lambda: tft.load_jax_plan(e["dd_file"], device="cpu",
-                                                  mesh=ctx.fft))
+    dd_plan = tft.load_jax_plan(e["dd_file"], device="cpu", mesh=ctx.fft)
+    out["dd_type"] = (type(dd_plan).__name__, str(dd_plan.dtype), dd_plan.is_dd)
+    out["dd"] = joined(dd_plan.transform_planar_dd(*dd(e["x_dd"])))
+    bplan = tft.create_fft(32, np.complex128, backend="dd", device="cpu")
+    out["batched_dd"] = joined(parallel.batched_transform_dd(
+        bplan, *dd(e["x_batched_dd"]), ctx.batch))
     return out
 
 
