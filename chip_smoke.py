@@ -132,6 +132,12 @@ B3_SIZES = (32768, 65536, 262144)  # FourStepLocalPlan (128,256) .. (512,512)
 B3_QUAD = ((4096 * 4096, 1),)
 B3_PLANS = ((65536, 1024), (262144, 256))  # the plans phase 5c times
 B3_AB_Q = 256  # the q of phase 5g's B3 sweep
+# Each kernel's registered operator, whose launches the port counts as
+# ``launches.fourier_tpu_torch::<op>`` (fourier_tpu_torch.trace).
+KERNEL_OPS = {"B1": "vpu_fft", "B2": "vpu_bluestein", "B3": "four_step_row",
+              "B4a": "rfft_pack", "B4b": "irfft_unpack", "B5a": "rfft_odd_pack",
+              "B5b": "irfft_odd_unpack", "B6": "vpu_dd_fft", "B7": "vpu_dd_bluestein",
+              "B8": "dd_split_combine", "B9a": "mxu_fft_single", "B9b": "mxu_fft_two_phase"}
 # The registers of B1's and B6's clustered bodies (fft_pair.cu, fft_pair_dd.cu)
 # before fft_pair took an I/O policy, by blocks a cluster and height (ptxas
 # -v for sm_90a, with the toolkit of the H100's machine); phase 2 prints
@@ -636,6 +642,20 @@ def pair_heights(kerns) -> dict:
     return out
 
 
+def launch_counts(trace, since: dict, kernels) -> dict:
+    """Each of `kernels`' launches since the registry snapshot `since`."""
+    now = trace.counters().snapshot()
+    keys = {k: f"launches.fourier_tpu_torch::{KERNEL_OPS[k]}" for k in kernels}
+    return {k: now.get(key, 0) - since.get(key, 0) for k, key in keys.items()}
+
+
+def build_times(trace, first: int = 0) -> dict:
+    """Seconds each build took (its ``lib.build`` span), by the file built,
+    from the `first`-th lifecycle span of the process on."""
+    return {s.attrs["target"]: (s.end_ns - s.start_ns) / 1e9 for s in trace.spans()[first:]
+            if s.name == "lib.build"}
+
+
 def _free_port() -> int:
     """A free TCP port on localhost for a process group's rendezvous."""
     import socket
@@ -680,20 +700,11 @@ def _rank_4m(rank: int, store: str, out_dir: str) -> None:
                             world_size=SHARD_4M_RANKS, rank=rank)
     try:
         import fourier_tpu_torch as ftt
-        from fourier_tpu_torch import parallel
-        from fourier_tpu_torch.ops.cuda import dd_combine as dc
-        from fourier_tpu_torch.ops.cuda import stockham_vpu as sv
-        from fourier_tpu_torch.ops.cuda import stockham_vpu_dd as dv
+        from fourier_tpu_torch import parallel, trace
         from fourier_tpu_torch.precision import planes as dd_planes
 
         dev = torch.device("cuda", 0)
-        counters = {"B1": sv.vpu_fft_batch_minor, "B2": sv.vpu_bluestein_batch_minor,
-                    "B3": sv.vpu_fft_four_step_row, "B4a": sv.vpu_rfft_pack_batch_minor,
-                    "B4b": sv.vpu_irfft_unpack_batch_minor,
-                    "B5a": sv.vpu_rfft_odd_pack_batch_minor,
-                    "B5b": sv.vpu_irfft_odd_unpack_batch_minor,
-                    "B6": dv.vpu_dd_fft_batch_minor, "B7": dv.vpu_dd_bluestein_batch_minor,
-                    "B8": dc.dd_split_combine_batch_minor}
+        kernels = [k for k in KERNEL_OPS if k not in ("B9a", "B9b")]
         fft = init_device_mesh("cuda", (SHARD_4M_RANKS,), mesh_dim_names=("fft",))
         batch = init_device_mesh("cuda", (SHARD_4M_RANKS,), mesh_dim_names=("batch",))
         xy = init_device_mesh("cuda", (2, 2), mesh_dim_names=("x", "y"))
@@ -710,11 +721,10 @@ def _rank_4m(rank: int, store: str, out_dir: str) -> None:
             of `wants`, blocked as the result is, against the result."""
             refs = [(label, want()) for label, want in wants]
             torch.cuda.synchronize()
-            for fn in counters.values():
-                fn.launches = 0
+            before = trace.counters().snapshot()
             outs = run()
             torch.cuda.synchronize()
-            launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+            launches = {k: v for k, v in launch_counts(trace, before, kernels).items() if v}
             local = [o.to_local() for o in outs]
             got = torch.complex(*local) if len(local) == 2 else local[0]
             if crop is not None:
@@ -823,7 +833,7 @@ def main() -> int:
         raise RuntimeError("chip_smoke needs a CUDA device; none is available")
 
     import fourier_tpu_torch as ftt
-    from fourier_tpu_torch import Transform
+    from fourier_tpu_torch import Transform, trace
     from fourier_tpu_torch.ops import bailey as bp
     from fourier_tpu_torch.ops.cuda import bailey as bk
     from fourier_tpu_torch.ops.cuda import build
@@ -849,23 +859,15 @@ def main() -> int:
     card = f"{smi} (torch {torch.__version__}, CUDA {torch.version.cuda})"
     print(f"device: {name} | nvidia-smi: {smi}", flush=True)
 
-    counters = {"B1": sv.vpu_fft_batch_minor, "B2": sv.vpu_bluestein_batch_minor,
-                "B3": sv.vpu_fft_four_step_row,
-                "B4a": sv.vpu_rfft_pack_batch_minor,
-                "B4b": sv.vpu_irfft_unpack_batch_minor,
-                "B5a": sv.vpu_rfft_odd_pack_batch_minor,
-                "B5b": sv.vpu_irfft_odd_unpack_batch_minor,
-                "B6": dv.vpu_dd_fft_batch_minor,
-                "B7": dv.vpu_dd_bluestein_batch_minor,
-                "B8": dc.dd_split_combine_batch_minor,
-                "B9a": bk.mxu_fft_single, "B9b": bk.mxu_fft_two_phase}
+    counters = list(KERNEL_OPS)
+    counted = [trace.counters().snapshot()]
 
     def zero_counts():
-        for fn in counters.values():
-            fn.launches = 0
+        counted[0] = trace.counters().snapshot()
 
     def counts():
-        return {k: fn.launches for k, fn in counters.items()}
+        """Each kernel's launches since the last zero_counts()."""
+        return launch_counts(trace, counted[0], counters)
 
     def host_cols(re, im):
         """The first HOST_COLUMNS columns of (n, B) planes, complex128 numpy."""
@@ -915,7 +917,7 @@ def main() -> int:
           f"{dv.FFT_PAIR_DD_LIBRARY}.cu (B6's clustered bodies), {bk.LIBRARY}.cu "
           f"(the CUDA-core bodies of B9a and B9b) and {bk.MMA_LIBRARY}.cu (their "
           f"tensor-core bodies) in {time.perf_counter() - t0:.2f} s; each nvcc: "
-          + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(build.build_seconds.items(),
+          + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(build_times(trace).items(),
                                                           key=lambda kv: -kv[1])),
           flush=True)
     pair_kernels = []
@@ -1566,7 +1568,7 @@ def main() -> int:
 
     def rose(what):
         nonlocal seen
-        now = sv.vpu_fft_batch_minor.launches
+        now = counts()["B1"]
         check(now > seen, f"{what} did not launch B1")
         seen = now
 
@@ -1602,7 +1604,7 @@ def main() -> int:
     pe = rel_l2(yp.cpu().numpy(),
                 np.fft.fft(xp.cpu().numpy().astype(np.complex128), axis=-1))
     check(pe <= REL_L2_GATE, f"n={PRIME} vs np.fft rel-L2 {pe:.3e}")
-    launches = sv.vpu_fft_batch_minor.launches
+    launches = counts()["B1"]
     check(launches > 0, "the main path launched B1 no time")
     path_launches = counts()
     print(f"main path: {plan!r}; bm, batch-major, fft, ifft and Bluestein "
@@ -2026,12 +2028,12 @@ def main() -> int:
     mxu_plan.bailey_kernels = types.SimpleNamespace(
         mxu_fft_single=recorded("B9a", bk.mxu_fft_single),
         mxu_fft_two_phase=recorded("B9b", bk.mxu_fft_two_phase))
-    mma_before = bk.mxu_fft_two_phase.mma_launches
+    mma_before = trace.counters()["launches.mxu_fft_two_phase.mma"]
     try:
         b9_path_runs()
     finally:
         mxu_plan.bailey_kernels = bk
-    mma_ran = bk.mxu_fft_two_phase.mma_launches - mma_before
+    mma_ran = trace.counters()["launches.mxu_fft_two_phase.mma"] - mma_before
     check(mma_ran == b9b_mma_calls[0] > 0, f"phase 4f launched B9b's tensor-core body "
           f"{mma_ran} times in {b9b_mma_calls[0]} calls at splits where "
           f"two_phase_body picks it (n * (n1 + n2) >= {bk.B9B_FMA_WORK})")
@@ -3053,7 +3055,7 @@ def main() -> int:
         from fourier_tpu_torch.ffi import op as ffi_op
         from fourier_tpu_torch.ffi import plan_parity
 
-        t0 = time.perf_counter()
+        t0, first = time.perf_counter(), len(trace.spans())
         with ThreadPoolExecutor(2) as pool:
             so, dump_bin = (f.result() for f in (pool.submit(ffi_build.build_library),
                                                  pool.submit(ffi_build.build_dump_plan)))
@@ -3062,7 +3064,7 @@ def main() -> int:
               f"build/fourier_tpu_torch/ffi/ with {' '.join(ffi_build.compiler())} "
               f"{' '.join(ffi_build.CXX_FLAGS)} (no CMake) in "
               f"{time.perf_counter() - t0:.2f} s; each: " + ", ".join(
-                  f"{k} {v:.2f} s" for k, v in sorted(ffi_build.build_seconds.items())),
+                  f"{k} {v:.2f} s" for k, v in sorted(build_times(trace, first).items())),
               flush=True)
         rng = np.random.default_rng(SEED)
         zero_counts()

@@ -51,6 +51,12 @@ C ABI of its C++ sources, and ``ffi.op.native_fft``, a registered CPU
 operator), runs on the host only; it is imported on demand, and its library
 is compiled by the host C++ compiler at first use.
 
+``fourier_tpu_torch.trace`` records what a call did at each layer
+boundary: spans (in a running ``torch.profiler``'s timeline, and set-up
+events always), and one registry of counts (calls, launches by operator,
+plan cache hits and misses, libraries loaded and built, exchange legs and
+bytes).
+
 This package imports torch and never jax.
 """
 
@@ -59,6 +65,7 @@ from __future__ import annotations
 import numpy as _np
 import torch as _torch
 
+from fourier_tpu_torch import trace
 from fourier_tpu_torch.plan import (
     AutosortPlan,
     BluesteinPlan,

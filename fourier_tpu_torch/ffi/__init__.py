@@ -25,6 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from fourier_tpu_torch import trace
 from fourier_tpu_torch.ffi import build
 
 _lib: Optional[ctypes.CDLL] = None
@@ -47,10 +48,11 @@ def load_library(build_if_missing: bool = True) -> ctypes.CDLL:
     with _lib_lock:
         if _lib is not None:
             return _lib
-        so = build.build_library() if build_if_missing else build.library_path()
-        if not so.exists():
-            raise FileNotFoundError(f"{so} not built; run build_library()")
-        lib = ctypes.CDLL(str(so))
+        with trace.span("lib.load", lib="fourier_tpu"):
+            so = build.build_library() if build_if_missing else build.library_path()
+            if not so.exists():
+                raise FileNotFoundError(f"{so} not built; run build_library()")
+            lib = ctypes.CDLL(str(so))
         for suffix in _SUFFIX.values():
             sigs = {
                 "create": (ctypes.c_void_p, [ctypes.c_size_t]),
@@ -68,6 +70,7 @@ def load_library(build_if_missing: bool = True) -> ctypes.CDLL:
                 fn.restype = restype
                 fn.argtypes = argtypes
         _lib = lib
+        trace.count("lib.loads")
         return lib
 
 

@@ -8,7 +8,8 @@ with the flags of the reference's CMake Release build, into
 hash of the flags and of every C/C++ source under ``ffi/``. The lock, the
 hash and the rename are those of the CUDA kernels' build
 (``utils/native_build.py``). A missing compiler or a failed compile raises
-``RuntimeError`` with the compiler's output; nothing falls back.
+``RuntimeError`` with the compiler's output; nothing falls back. Each build
+is a ``lib.build`` span of ``fourier_tpu_torch.trace``.
 ``CMakeLists.txt`` beside it builds the same sources for C and C++
 consumers and runs their ctest suite.
 """
@@ -19,7 +20,6 @@ import os
 import shlex
 import shutil
 import subprocess
-import time
 from pathlib import Path
 
 from fourier_tpu_torch.utils.native_build import BUILD_ROOT, build_locked, source_hash
@@ -31,9 +31,6 @@ CXX_FLAGS = ("-std=c++17", "-O3", "-DNDEBUG", "-Wall", "-Wextra", "-fPIC")
 SOURCE_SUFFIXES = (".cpp", ".hpp", ".h", ".c")
 LIBRARY_SOURCES = ("src/fft_core.cpp", "src/capi.cpp")
 DUMP_PLAN_SOURCES = ("tools/dump_plan.cpp", "src/fft_core.cpp")
-
-# Seconds each build of this process took, by target ("library", "dump_plan").
-build_seconds: dict = {}
 
 
 def compiler() -> list:
@@ -62,12 +59,10 @@ def _build(target: Path, what: str, sources, extra, force: bool) -> Path:
     def compile_to(tmp):
         cmd = [*compiler(), *CXX_FLAGS, *extra, "-o", str(tmp),
                *(str(FFI_DIR / s) for s in sources)]
-        t0 = time.perf_counter()
         try:
             proc = subprocess.run(cmd, capture_output=True, text=True)
         except OSError as e:
             raise RuntimeError(f"cannot run the host C++ compiler {cmd[0]!r}: {e}") from e
-        build_seconds[what] = time.perf_counter() - t0
         if proc.returncode != 0:
             raise RuntimeError(f"{' '.join(cmd)} failed ({proc.returncode}):\n"
                                f"{proc.stdout}\n{proc.stderr}")

@@ -26,6 +26,12 @@ plan is built on ``device`` ("cuda" by default), a numpy input is copied to
 An axis never runs on another device than its plan's: a mismatch raises.
 The module functions run the planner's cached 1-D plans (``_axis_plans``);
 only an ``NdFftPlan`` owns plans of its own.
+
+Spans (``fourier_tpu_torch.trace``): each public call is a ``call``, each
+pass an ``axis`` (attribute ``axis``, the original axis), and the layout
+work alone, never a plan's call, ``layout.to_front`` (the copy that brings
+an axis to the front), ``layout.scale`` (the normalization's multiply) and
+``layout.join`` (planes joined into a complex tensor).
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from fourier_tpu_torch import trace
 from fourier_tpu_torch.plan.base import complex_dtype, resolve_device
 from fourier_tpu_torch.plan.planner import create_fft
 from fourier_tpu_torch.precision import planes as dd_planes
@@ -68,11 +75,13 @@ def _c2c(planes, dims, axis_plans, mode: Transform):
     each on the plan's batch-minor entry; the axis leading in memory goes
     first."""
     for axis, plan in sorted(axis_plans, key=lambda ap: ap[0] != dims[0]):
-        (re, im), dims = _to_front(planes, dims, axis)
-        shape = re.shape
-        ore, oim = plan.transform_planar_bm(re.reshape(shape[0], -1),
-                                            im.reshape(shape[0], -1), mode)
-        planes = (ore.reshape(shape), oim.reshape(shape))
+        with trace.span("axis", axis=axis):
+            with trace.span("layout.to_front"):
+                (re, im), dims = _to_front(planes, dims, axis)
+            shape = re.shape
+            ore, oim = plan.transform_planar_bm(re.reshape(shape[0], -1),
+                                                im.reshape(shape[0], -1), mode)
+            planes = (ore.reshape(shape), oim.reshape(shape))
     return planes, dims
 
 
@@ -85,7 +94,8 @@ def _run(planes, dims, axes, plans, transform: Transform):
     planes, dims = _c2c(planes, dims, list(zip(axes, plans)), mode)
     scale = transform.scale(int(np.prod([p.size for p in plans], dtype=np.int64)))
     if scale is not None:
-        planes = tuple(p * scale for p in planes)
+        with trace.span("layout.scale"):
+            planes = tuple(p * scale for p in planes)
     return planes, dims
 
 
@@ -96,7 +106,9 @@ def _transform_axes(x: torch.Tensor, axes, plans, transform: Transform):
     if not x.is_complex() or x.dtype != dtype:
         x = x.to(dtype)
     planes, dims = _memory_order((x.real, x.imag))
-    return torch.complex(*_restore(*_run(planes, dims, axes, plans, transform)))
+    planes = _restore(*_run(planes, dims, axes, plans, transform))
+    with trace.span("layout.join"):
+        return torch.complex(*planes)
 
 
 def _axis_plans(sizes, dtype, device):
@@ -172,40 +184,43 @@ class NdFftPlan(torch.nn.Module):
 
     def transform_planar(self, re, im, transform: Transform = Transform.FFT):
         """Transform the trailing ``ndim`` axes of planar (re, im) planes."""
-        re = torch.as_tensor(re).to(self.real_dtype)
-        im = torch.as_tensor(im).to(self.real_dtype)
-        if re.shape != im.shape:
-            raise ValueError(f"re/im shapes differ: {tuple(re.shape)} vs "
-                             f"{tuple(im.shape)}")
-        if tuple(re.shape[max(re.ndim - self.ndim, 0):]) != self.shape:
-            raise ValueError(
-                f"trailing axes {tuple(re.shape[-self.ndim:])} do not match "
-                f"plan shape {self.shape}")
-        planes, dims = _memory_order((re, im))
-        axes = range(re.ndim - self.ndim, re.ndim)
-        return _restore(*_run(planes, dims, axes, self.plans, transform))
+        with trace.call("NdFftPlan.transform_planar"):
+            re = torch.as_tensor(re).to(self.real_dtype)
+            im = torch.as_tensor(im).to(self.real_dtype)
+            if re.shape != im.shape:
+                raise ValueError(f"re/im shapes differ: {tuple(re.shape)} vs "
+                                 f"{tuple(im.shape)}")
+            if tuple(re.shape[max(re.ndim - self.ndim, 0):]) != self.shape:
+                raise ValueError(
+                    f"trailing axes {tuple(re.shape[-self.ndim:])} do not match "
+                    f"plan shape {self.shape}")
+            planes, dims = _memory_order((re, im))
+            axes = range(re.ndim - self.ndim, re.ndim)
+            return _restore(*_run(planes, dims, axes, self.plans, transform))
 
     def transform_planar_dd(self, re_hi, re_lo, im_hi, im_lo,
                             transform: Transform = Transform.FFT):
         """The JAX package's N-D c128 call on double-word f32 planes of
         shape (..., *shape): joined to f64, :meth:`transform_planar`, split
         into four f32 planes. complex128 plans only."""
-        return dd_planes.run(self.transform_planar, (re_hi, re_lo, im_hi, im_lo),
-                          self.dtype, "transform_planar", transform)
+        with trace.call("NdFftPlan.transform_planar_dd"):
+            return dd_planes.run(self.transform_planar, (re_hi, re_lo, im_hi, im_lo),
+                                 self.dtype, "transform_planar", transform)
 
     def transform(self, x, transform: Transform = Transform.FFT):
         """Complex convenience over the trailing ``ndim`` axes: a numpy
         array (run on the plan's device, numpy out) or a tensor on the
         plan's device (tensor out)."""
-        as_numpy = not isinstance(x, torch.Tensor)
-        xt = torch.as_tensor(np.asarray(x), device=self.device) if as_numpy else x
-        if tuple(xt.shape[max(xt.ndim - self.ndim, 0):]) != self.shape:
-            raise ValueError(
-                f"trailing axes {tuple(xt.shape[-self.ndim:])} do not match "
-                f"plan shape {self.shape}")
-        out = _transform_axes(xt, range(xt.ndim - self.ndim, xt.ndim),
-                              self.plans, transform)
-        return out.detach().cpu().numpy() if as_numpy else out
+        with trace.call("NdFftPlan.transform"):
+            as_numpy = not isinstance(x, torch.Tensor)
+            xt = torch.as_tensor(np.asarray(x), device=self.device) if as_numpy else x
+            if tuple(xt.shape[max(xt.ndim - self.ndim, 0):]) != self.shape:
+                raise ValueError(
+                    f"trailing axes {tuple(xt.shape[-self.ndim:])} do not match "
+                    f"plan shape {self.shape}")
+            out = _transform_axes(xt, range(xt.ndim - self.ndim, xt.ndim),
+                                  self.plans, transform)
+            return out.detach().cpu().numpy() if as_numpy else out
 
     def forward(self, x, transform: Transform = Transform.FFT):
         return self.transform(x, transform)
@@ -290,7 +305,8 @@ def _fftn_impl(x, s, axes, norm, ndim, dtype, forward: bool, device):
     plans = _axis_plans([xt.shape[a] for a in axes], dtype, xt.device)
     out = _transform_axes(xt, axes, plans, mode)
     if fwd_scale:
-        out = out / int(np.prod([p.size for p in plans], dtype=np.int64))
+        with trace.span("layout.scale"):
+            out = out / int(np.prod([p.size for p in plans], dtype=np.int64))
     return out.detach().cpu().numpy() if as_numpy else out
 
 
@@ -302,22 +318,26 @@ def fftn(x, ndim: Optional[int] = None, dtype=None, *, s=None, axes=None,
     axis, ``axes`` selects arbitrary axes, ``norm`` is backward/ortho/forward.
     A numpy `x` runs on ``device`` (numpy out), a tensor on its own device.
     """
-    return _fftn_impl(x, s, axes, norm, ndim, dtype, True, device)
+    with trace.call("fftn"):
+        return _fftn_impl(x, s, axes, norm, ndim, dtype, True, device)
 
 
 def ifftn(x, ndim: Optional[int] = None, dtype=None, *, s=None, axes=None,
           norm: Optional[str] = None, device="cuda"):
     """Inverse FFT over `axes` (numpy.fft.ifftn compatibility)."""
-    return _fftn_impl(x, s, axes, norm, ndim, dtype, False, device)
+    with trace.call("ifftn"):
+        return _fftn_impl(x, s, axes, norm, ndim, dtype, False, device)
 
 
 def fft2(x, dtype=None, *, s=None, axes=(-2, -1), norm: Optional[str] = None,
          device="cuda"):
     """2-D forward FFT (numpy.fft.fft2 compatibility)."""
-    return _fftn_impl(x, s, list(axes), norm, None, dtype, True, device)
+    with trace.call("fft2"):
+        return _fftn_impl(x, s, list(axes), norm, None, dtype, True, device)
 
 
 def ifft2(x, dtype=None, *, s=None, axes=(-2, -1), norm: Optional[str] = None,
           device="cuda"):
     """2-D inverse FFT (numpy.fft.ifft2 compatibility)."""
-    return _fftn_impl(x, s, list(axes), norm, None, dtype, False, device)
+    with trace.call("ifft2"):
+        return _fftn_impl(x, s, list(axes), norm, None, dtype, False, device)

@@ -28,9 +28,9 @@ below ``B9B_FMA_WORK``, where the card's sweep found it faster
 takes the caller's TF32 setting. Each wrapper runs its plain version for
 tensors on the CPU and launches its kernel (or raises) for tensors on a
 CUDA device, through a registered operator (``fourier_tpu_torch::
-mxu_fft_single``, ``::mxu_fft_two_phase``); it counts its launches in its
-``launches`` attribute (B9b's
-tensor-core ones also in ``mma_launches``). ``tb`` is the TPU kernel's
+mxu_fft_single``, ``::mxu_fft_two_phase``), whose launches ``build.launch``
+counts (B9b's tensor-core ones also in ``launches.mxu_fft_two_phase.mma``
+of ``fourier_tpu_torch.trace``'s registry). ``tb`` is the TPU kernel's
 batch tile; here it caps the rows or transforms a block takes at once,
 and no result depends on it. :func:`single_geometry` and
 :func:`two_phase_geometry` give the CUDA-core launches' shapes.
@@ -44,6 +44,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import Tensor
 
+from fourier_tpu_torch import trace
 from fourier_tpu_torch.ops import bailey
 from fourier_tpu_torch.ops.cuda import build
 from fourier_tpu_torch.ops.cuda.stockham_vpu import (check_planes, check_tables,
@@ -229,8 +230,10 @@ def mxu_fft_single(re, im, dre, dim, *, tb: Optional[int] = None,
     return _mxu_fft_single_op(re, im, dre, dim, tb, body)
 
 
-@torch.library.custom_op("fourier_tpu_torch::mxu_fft_single", mutates_args=(),
-                         device_types="cuda")
+_SINGLE_OP = "fourier_tpu_torch::mxu_fft_single"
+
+
+@torch.library.custom_op(_SINGLE_OP, mutates_args=(), device_types="cuda")
 def _mxu_fft_single_op(re: Tensor, im: Tensor, dre: Tensor, dim: Tensor,
                        tb: Optional[int], body: str) -> Tuple[Tensor, Tensor]:
     """B9a's launch (see :func:`mxu_fft_single`)."""
@@ -243,23 +246,19 @@ def _mxu_fft_single_op(re: Tensor, im: Tensor, dre: Tensor, dim: Tensor,
     data = (re.data_ptr(), im.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
             dre.data_ptr(), dim.data_ptr())
     if body == "mma":
-        build.call(mma_library(), "fourier_dft_single_mma_c64",
-                   f"B9a (tensor cores) at n={n}, B={batch}", *data, n, batch,
-                   single_mma_geometry(n, tb).valid, re.device.index, stream_of(re))
+        build.launch(_SINGLE_OP, mma_library(), "fourier_dft_single_mma_c64",
+                     f"B9a (tensor cores) at n={n}, B={batch}", *data, n, batch,
+                     single_mma_geometry(n, tb).valid, re.device.index, stream_of(re))
     else:
-        build.call(library(), "fourier_dft_single_c64", f"B9a at n={n}, B={batch}",
-                   *data, n, batch, single_geometry(n, tb), re.device.index,
-                   stream_of(re))
-    mxu_fft_single.launches += 1
+        build.launch(_SINGLE_OP, library(), "fourier_dft_single_c64",
+                     f"B9a at n={n}, B={batch}", *data, n, batch,
+                     single_geometry(n, tb), re.device.index, stream_of(re))
     return out_re, out_im
 
 
 @_mxu_fft_single_op.register_fake
 def _(re, im, *_):
     return torch.empty_like(re), torch.empty_like(im)
-
-
-mxu_fft_single.launches = 0
 
 
 def two_phase_body(n1: int, n2: int) -> str:
@@ -298,8 +297,10 @@ def mxu_fft_two_phase(re, im, d2re, d2im, tre, tim, d1re, d1im, *,
     return _mxu_fft_two_phase_op(re, im, d2re, d2im, tre, tim, d1re, d1im, tb, body)
 
 
-@torch.library.custom_op("fourier_tpu_torch::mxu_fft_two_phase", mutates_args=(),
-                         device_types="cuda")
+_TWO_PHASE_OP = "fourier_tpu_torch::mxu_fft_two_phase"
+
+
+@torch.library.custom_op(_TWO_PHASE_OP, mutates_args=(), device_types="cuda")
 def _mxu_fft_two_phase_op(re: Tensor, im: Tensor, d2re: Tensor, d2im: Tensor,
                           tre: Tensor, tim: Tensor, d1re: Tensor, d1im: Tensor,
                           tb: Optional[int], body: str) -> Tuple[Tensor, Tensor]:
@@ -313,28 +314,23 @@ def _mxu_fft_two_phase_op(re: Tensor, im: Tensor, d2re: Tensor, d2im: Tensor,
         return out_re, out_im
     what = f"B9b at n={n} ({n1}, {n2}), B={batch}"
     if body == "mma":
-        build.call(mma_library(), "fourier_dft_two_phase_mma_c64",
-                   f"{what} (tensor cores)", re.data_ptr(), im.data_ptr(),
-                   out_re.data_ptr(), out_im.data_ptr(), d2re.data_ptr(),
-                   d2im.data_ptr(), tre.data_ptr(), tim.data_ptr(), d1re.data_ptr(),
-                   d1im.data_ptr(), n1, n2, batch, re.device.index, stream_of(re))
-        mxu_fft_two_phase.mma_launches += 1
+        build.launch(_TWO_PHASE_OP, mma_library(), "fourier_dft_two_phase_mma_c64",
+                     f"{what} (tensor cores)", re.data_ptr(), im.data_ptr(),
+                     out_re.data_ptr(), out_im.data_ptr(), d2re.data_ptr(),
+                     d2im.data_ptr(), tre.data_ptr(), tim.data_ptr(), d1re.data_ptr(),
+                     d1im.data_ptr(), n1, n2, batch, re.device.index, stream_of(re))
+        trace.count("launches.mxu_fft_two_phase.mma")
     else:
         sms = torch.cuda.get_device_properties(re.device).multi_processor_count
         tpb, threads = two_phase_geometry(n1, n2, batch, sms, tb)
-        build.call(library(), "fourier_dft_two_phase_c64", what,
-                   re.data_ptr(), im.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
-                   d2re.data_ptr(), d2im.data_ptr(), tre.data_ptr(), tim.data_ptr(),
-                   d1re.data_ptr(), d1im.data_ptr(), n1, n2, batch, tpb, threads,
-                   re.device.index, stream_of(re))
-    mxu_fft_two_phase.launches += 1
+        build.launch(_TWO_PHASE_OP, library(), "fourier_dft_two_phase_c64", what,
+                     re.data_ptr(), im.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
+                     d2re.data_ptr(), d2im.data_ptr(), tre.data_ptr(), tim.data_ptr(),
+                     d1re.data_ptr(), d1im.data_ptr(), n1, n2, batch, tpb, threads,
+                     re.device.index, stream_of(re))
     return out_re, out_im
 
 
 @_mxu_fft_two_phase_op.register_fake
 def _(re, im, *_):
     return torch.empty_like(re), torch.empty_like(im)
-
-
-mxu_fft_two_phase.launches = 0
-mxu_fft_two_phase.mma_launches = 0  # those of the tensor-core body

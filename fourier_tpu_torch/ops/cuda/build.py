@@ -9,8 +9,12 @@ the library's existence is tested, so concurrent processes neither load a
 half-written library nor build it twice; the compiler writes to a temporary
 name that is renamed into place (``utils/native_build.py``, shared with the
 native host core's build). :func:`load_all` builds several libraries at
-once, one ``nvcc`` each, and ``build_seconds`` keeps each build's time.
-ptxas reports each function's registers and spills
+once, one ``nvcc`` each. A load is the lifecycle span ``lib.load`` and the
+count ``lib.loads``, a build inside it ``lib.build`` (``fourier_tpu_torch.
+trace``). :func:`launch` calls a registered operator's C entry point:
+the span ``launch`` (``launch.first`` the first time in the process, where
+the CUDA driver loads the kernel's module), and one ``launches.<operator>``
+a launch. ptxas reports each function's registers and spills
 (``-Xptxas -v``); the report is kept beside the library
 (:func:`resource_usage`).
 """
@@ -22,10 +26,10 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+from fourier_tpu_torch import trace
 from fourier_tpu_torch.utils.native_build import BUILD_ROOT, build_locked, source_hash
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
@@ -40,8 +44,7 @@ NVCC_FLAGS = (
 SOURCE_SUFFIXES = (".cu", ".cuh", ".h")
 
 _loaded: dict = {}
-# Seconds each library's nvcc took, for the libraries this process built.
-build_seconds: dict = {}
+_launched: set = set()  # the (library, entry point) pairs launched once
 _locks: dict = {}  # one per library, so that two libraries build at once
 _guard = threading.Lock()
 
@@ -73,22 +76,22 @@ def load(name: str) -> ctypes.CDLL:
     with lock:
         if name in _loaded:
             return _loaded[name]
-        so = library_path(name)
+        with trace.span("lib.load", lib=name):
+            so = library_path(name)
 
-        def compile_to(tmp):
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            build_seconds[name] = time.perf_counter() - t0
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}) for {name}.cu:\n"
-                    f"{proc.stdout}\n{proc.stderr}"
-                )
-            so.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
+            def compile_to(tmp):
+                cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+                proc = subprocess.run(cmd, capture_output=True, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed ({proc.returncode}) for {name}.cu:\n"
+                        f"{proc.stdout}\n{proc.stderr}"
+                    )
+                so.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
 
-        build_locked(so, BUILD_DIR / f"{name}.lock", compile_to)
-        _loaded[name] = ctypes.CDLL(str(so))
+            build_locked(so, BUILD_DIR / f"{name}.lock", compile_to)
+            _loaded[name] = ctypes.CDLL(str(so))
+        trace.count("lib.loads")
         return _loaded[name]
 
 
@@ -125,3 +128,19 @@ def call(lib: ctypes.CDLL, fn_name: str, what: str, *args) -> None:
     if rc != 0:
         msg = lib.fourier_cuda_error_string(rc).decode()
         raise RuntimeError(f"{what} launch failed: {msg} ({rc})")
+
+
+def launch(op: str, lib: ctypes.CDLL, fn_name: str, what: str, *args) -> None:
+    """:func:`call` for a launch of the registered operator `op`
+    (``fourier_tpu_torch::<name>``), counted in ``launches.<op>``."""
+    key = (lib._name, fn_name)
+    if key not in _launched:
+        with trace.span("launch.first", op=op, entry=fn_name):
+            call(lib, fn_name, what, *args)
+        _launched.add(key)
+    elif trace.profiling():
+        with trace.span("launch", op=op):
+            call(lib, fn_name, what, *args)
+    else:
+        call(lib, fn_name, what, *args)
+    trace.count("launches." + op)

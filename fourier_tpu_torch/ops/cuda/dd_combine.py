@@ -19,8 +19,7 @@ and the mode scale rides those tables and class 0.
 :func:`dd_split_combine_batch_minor` the kernel's wrapper (library
 ``csrc/stockham_vpu_dd.cu``): it runs the plain version for tensors on the
 CPU, launches the kernel (or raises) for tensors on a CUDA device, through
-the registered operator ``fourier_tpu_torch::dd_split_combine``, and counts
-its launches in ``launches``.
+the registered operator ``fourier_tpu_torch::dd_split_combine``.
 """
 
 from __future__ import annotations
@@ -97,12 +96,12 @@ def _dd_split_combine_op(re_t: Tensor, im_t: Tensor, n: int, r: int, forward: bo
     if batch == 0:
         return out_re, out_im
     launch(
+        "fourier_tpu_torch::dd_split_combine",
         "fourier_split_combine_c128", f"B8 at n={n}, r={r}, B={batch}",
         re_t.data_ptr(), im_t.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
         r, m, batch, tables[0].data_ptr(), tables[1].data_ptr(),
         int(forward), scale_arg(scale), re_t.device.index, stream_of(re_t),
     )
-    dd_split_combine_batch_minor.launches += 1
     return out_re, out_im
 
 
@@ -110,6 +109,3 @@ def _dd_split_combine_op(re_t: Tensor, im_t: Tensor, n: int, r: int, forward: bo
 def _(re_t, im_t, n, r, *_):
     out = re_t.new_empty((n, re_t.shape[1] // r))
     return out, torch.empty_like(out)
-
-
-dd_split_combine_batch_minor.launches = 0

@@ -64,8 +64,10 @@ clustered-block bodies of B1, B2, B3, B4a, B4b, B5a and B5b
 ``csrc/rfft_odd_pair.cu`` and ``csrc/irfft_odd_pair.cu``.
 
 Each wrapper runs its plain version for tensors on the CPU, and launches its
-kernel (or raises) for tensors on a CUDA device; it counts its launches in
-its ``launches`` attribute. Each launch is a registered operator
+kernel (or raises) for tensors on a CUDA device, through
+:func:`~fourier_tpu_torch.ops.cuda.build.launch`, which counts
+``launches.fourier_tpu_torch::<name>`` in ``fourier_tpu_torch.trace``'s
+registry. Each launch is a registered operator
 (``torch.library.custom_op``, ``fourier_tpu_torch::<name>``, with a fake
 implementation that gives the outputs' shapes), so that ``torch.export``
 keeps it in the graph of a plan on the card; the choice of body and
@@ -646,9 +648,10 @@ def four_step_pair_clusters(p: int, device) -> int:
     return out.value
 
 
-def _launch(fn_name: str, what: str, *args) -> None:
-    """Call the library's C entry point `fn_name`; raise if it fails."""
-    build.call(library(), fn_name, what, *args)
+def _launch(op: str, fn_name: str, what: str, *args) -> None:
+    """Launch the operator `op` through the stage library's C entry point
+    `fn_name`; raise if it fails."""
+    build.launch(op, library(), fn_name, what, *args)
 
 
 def radices_arg(schedule: Sequence[int]):
@@ -722,7 +725,8 @@ def _vpu_fft_op(re_t: Tensor, im_t: Tensor, n: int, forward: bool,
     data = (re_t.data_ptr(), im_t.data_ptr(), out_re.data_ptr(), out_im.data_ptr())
     if pick_body(f"B1 at n={n}", geo, body, n in B1_STAGE_FASTER) == "pair":
         check_pair_tables(re_t.device, n, geo.ranks, pair_tables)
-        build.call(
+        build.launch(
+            "fourier_tpu_torch::vpu_fft",
             fft_pair_library(), "fourier_stockham_pair_c64",
             f"B1 ({geo.ranks}-block clusters) at n={n}, B={batch}", *data,
             n, batch, geo.ranks, geo.cols, geo.threads,
@@ -733,21 +737,18 @@ def _vpu_fft_op(re_t: Tensor, im_t: Tensor, n: int, forward: bool,
     else:
         cols, threads = launch_geometry(n)
         _launch(
+            "fourier_tpu_torch::vpu_fft",
             "fourier_stockham_c64", f"B1 at n={n}, B={batch}", *data,
             n, batch, cols, threads, *_radices(n),
             kernel_tables[0].data_ptr(), kernel_tables[1].data_ptr(),
             int(forward), scale_arg(scale), re_t.device.index, stream_of(re_t),
         )
-    vpu_fft_batch_minor.launches += 1
     return out_re, out_im
 
 
 @_vpu_fft_op.register_fake
 def _(re_t, im_t, *_):
     return torch.empty_like(re_t), torch.empty_like(im_t)
-
-
-vpu_fft_batch_minor.launches = 0
 
 
 def chirp_z_reference(re_t, im_t, n: int, m: int, schedule, tables, chirps,
@@ -831,7 +832,8 @@ def _vpu_bluestein_op(re_t: Tensor, im_t: Tensor, n: int, m: int,
         lib, fn, what = library(), "fourier_bluestein_c64", "B2"
         cols, threads = launch_geometry(m)
         schedule = kernel_schedule(m)
-    build.call(
+    build.launch(
+        "fourier_tpu_torch::vpu_bluestein",
         lib, fn, f"{what} at n={n}, M={m}, B={batch}",
         re_t.data_ptr(), im_t.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
         n, m, batch, cols, threads, *radices_arg(schedule),
@@ -840,16 +842,12 @@ def _vpu_bluestein_op(re_t: Tensor, im_t: Tensor, n: int, m: int,
         xo[0].data_ptr(), xo[1].data_ptr(),
         scale_arg(scale), re_t.device.index, stream_of(re_t),
     )
-    vpu_bluestein_batch_minor.launches += 1
     return out_re, out_im
 
 
 @_vpu_bluestein_op.register_fake
 def _(re_t, im_t, *_):
     return torch.empty_like(re_t), torch.empty_like(im_t)
-
-
-vpu_bluestein_batch_minor.launches = 0
 
 
 def vpu_fft_four_step_row_reference(re3, im3, p: int, q: int, tables, pre_tw,
@@ -922,7 +920,8 @@ def _four_step_row_op(re3: Tensor, im3: Tensor, p: int, q: int, forward: bool,
                              "twiddle (tw_fwd) for an inverse")
         check_tables(re3.device, fwd_re, fwd_im)
         check_pair_tables(re3.device, p, geo.ranks, pair_tables)
-        build.call(
+        build.launch(
+            "fourier_tpu_torch::four_step_row",
             four_step_pair_library(), "fourier_four_step_pair_c64",
             f"B3 ({geo.ranks}-block clusters) at p={p}, q={q}, B={batch}", *data,
             p, q, batch, geo.ranks, geo.cols, geo.threads,
@@ -934,13 +933,13 @@ def _four_step_row_op(re3: Tensor, im3: Tensor, p: int, q: int, forward: bool,
     else:
         cols, threads = launch_geometry(p)
         _launch(
+            "fourier_tpu_torch::four_step_row",
             "fourier_four_step_row_c64", f"B3 at p={p}, q={q}, B={batch}", *data,
             p, q, batch, cols, threads, *_radices(p),
             kernel_tables[0].data_ptr(), kernel_tables[1].data_ptr(),
             pre_re.data_ptr(), pre_im.data_ptr(),
             int(forward), scale_arg(scale), re3.device.index, stream_of(re3),
         )
-    vpu_fft_four_step_row.launches += 1
     return out_re, out_im
 
 
@@ -948,9 +947,6 @@ def _four_step_row_op(re3: Tensor, im3: Tensor, p: int, q: int, forward: bool,
 def _(re3, im3, p, q, *_):
     out = re3.new_empty((p * q, re3.shape[-1]))
     return out, torch.empty_like(out)
-
-
-vpu_fft_four_step_row.launches = 0
 
 
 def vpu_rfft_pack_batch_minor_reference(x_t, m: int, tables, w):
@@ -1022,7 +1018,8 @@ def _rfft_pack_op(x_t: Tensor, m: int, kernel_tables: Tensor,
     geo = rfft_pack_geometry(m)
     if pick_body(f"B4a at m={m}", geo, body) == "pair":
         check_pair_tables(x_t.device, m, 2, pair_tables)
-        build.call(
+        build.launch(
+            "fourier_tpu_torch::rfft_pack",
             pair_library(), "fourier_rfft_pack_pair_c64",
             f"B4a (paired blocks) at m={m}, B={batch}",
             x_t.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
@@ -1033,13 +1030,13 @@ def _rfft_pack_op(x_t: Tensor, m: int, kernel_tables: Tensor,
     else:
         cols, threads = launch_geometry(m)
         _launch(
+            "fourier_tpu_torch::rfft_pack",
             "fourier_rfft_pack_c64", f"B4a at m={m}, B={batch}",
             x_t.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
             m, batch, cols, threads, *_radices(m),
             kernel_tables[0].data_ptr(), kernel_tables[1].data_ptr(),
             w[0].data_ptr(), w[1].data_ptr(), x_t.device.index, stream_of(x_t),
         )
-    vpu_rfft_pack_batch_minor.launches += 1
     return out_re, out_im
 
 
@@ -1047,9 +1044,6 @@ def _rfft_pack_op(x_t: Tensor, m: int, kernel_tables: Tensor,
 def _(x_t, m, *_):
     out = x_t.new_empty((m + 1, x_t.shape[1]))
     return out, torch.empty_like(out)
-
-
-vpu_rfft_pack_batch_minor.launches = 0
 
 
 def vpu_irfft_unpack_batch_minor(re_t, im_t, m: int, *, tables, kernel_tables,
@@ -1091,7 +1085,8 @@ def _irfft_unpack_op(re_t: Tensor, im_t: Tensor, m: int, kernel_tables: Tensor,
     geo = irfft_unpack_geometry(m)
     if pick_body(f"B4b at m={m}", geo, body, m in B4B_STAGE_FASTER) == "pair":
         check_pair_tables(re_t.device, m, 2, pair_tables)
-        build.call(
+        build.launch(
+            "fourier_tpu_torch::irfft_unpack",
             irfft_unpack_pair_library(), "fourier_irfft_unpack_pair_c64",
             f"B4b (paired blocks) at m={m}, B={batch}", *data,
             m, batch, geo.cols, geo.threads, *radices_arg(pass_schedule(m // 2)),
@@ -1101,21 +1096,18 @@ def _irfft_unpack_op(re_t: Tensor, im_t: Tensor, m: int, kernel_tables: Tensor,
     else:
         cols, threads = launch_geometry(m)
         _launch(
+            "fourier_tpu_torch::irfft_unpack",
             "fourier_irfft_unpack_c64", f"B4b at m={m}, B={batch}", *data,
             m, batch, cols, threads, *_radices(m),
             kernel_tables[0].data_ptr(), kernel_tables[1].data_ptr(),
             w[0].data_ptr(), w[1].data_ptr(), h, re_t.device.index, stream_of(re_t),
         )
-    vpu_irfft_unpack_batch_minor.launches += 1
     return out
 
 
 @_irfft_unpack_op.register_fake
 def _(re_t, im_t, m, *_):
     return re_t.new_empty((2 * m, re_t.shape[1]))
-
-
-vpu_irfft_unpack_batch_minor.launches = 0
 
 
 def _pair_halves(t, h: int):
@@ -1161,10 +1153,10 @@ def vpu_irfft_odd_unpack_batch_minor_reference(re_t, im_t, n: int, m: int,
     return torch.cat([oa, ob[:, :b - h]], dim=1)
 
 
-def _launch_odd(fn_name: str, what: str, inp, out, n: int, m: int,
+def _launch_odd(fn_name: str, what: str, op: str, inp, out, n: int, m: int,
                 kernel_tables, pair_tables, chirps, *tail, lib=None, geo=None):
-    """Launch B5a or B5b: `inp`/`out` the tensors of the data arguments,
-    `tail` the arguments after the tables; the stage body with
+    """Launch B5a or B5b, the operator `op`: `inp`/`out` the tensors of the
+    data arguments, `tail` the arguments after the tables; the stage body with
     `kernel_tables`, or the paired body of `lib` with the tile `geo` and
     `pair_tables` (forward, inverse)."""
     batch = inp[0].shape[1]
@@ -1176,8 +1168,8 @@ def _launch_odd(fn_name: str, what: str, inp, out, n: int, m: int,
         check_pair_tables(inp[0].device, m, 2, *pair_tables)
         kf, ki = pair_tables
     xt, wt, xo = chirps
-    build.call(
-        lib, fn_name, f"{what} at n={n}, M={m}, B={batch}",
+    build.launch(
+        op, lib, fn_name, f"{what} at n={n}, M={m}, B={batch}",
         *(t.data_ptr() for t in (*inp, *out)),
         n, m, batch, cols, threads, *radices_arg(schedule),
         kf[0].data_ptr(), kf[1].data_ptr(), ki[0].data_ptr(), ki[1].data_ptr(),
@@ -1222,13 +1214,13 @@ def _rfft_odd_pack_op(x_t: Tensor, n: int, m: int, kf: Tensor, ki: Tensor,
     if x_t.shape[1] == 0:
         return out_re, out_im
     geo = rfft_odd_pack_geometry(m)
-    args = ((x_t,), (out_re, out_im), n, m, (kf, ki), (pf, pi), (xt, wt, xo))
+    args = ("fourier_tpu_torch::rfft_odd_pack", (x_t,), (out_re, out_im), n, m, (kf, ki),
+            (pf, pi), (xt, wt, xo))
     if pick_body(f"B5a at M={m}", geo, body, m in B5A_STAGE_FASTER) == "pair":
         _launch_odd("fourier_rfft_odd_pack_pair_c64", "B5a (paired blocks)", *args,
                     lib=rfft_odd_pair_library(), geo=geo)
     else:
         _launch_odd("fourier_rfft_odd_pack_c64", "B5a", *args)
-    vpu_rfft_odd_pack_batch_minor.launches += 1
     return out_re, out_im
 
 
@@ -1236,9 +1228,6 @@ def _rfft_odd_pack_op(x_t: Tensor, n: int, m: int, kf: Tensor, ki: Tensor,
 def _(x_t, n, *_):
     out = x_t.new_empty(((n + 1) // 2, x_t.shape[1]))
     return out, torch.empty_like(out)
-
-
-vpu_rfft_odd_pack_batch_minor.launches = 0
 
 
 def vpu_irfft_odd_unpack_batch_minor(re_t, im_t, n: int, m: int, *, tables,
@@ -1276,19 +1265,16 @@ def _irfft_odd_unpack_op(re_t: Tensor, im_t: Tensor, n: int, m: int, kf: Tensor,
     if re_t.shape[1] == 0:
         return out
     geo = irfft_odd_unpack_geometry(m)
-    args = ((re_t, im_t), (out,), n, m, (kf, ki), (pf, pi), (xt, wt, xo), 1.0 / n)
+    args = ("fourier_tpu_torch::irfft_odd_unpack", (re_t, im_t), (out,), n, m, (kf, ki),
+            (pf, pi), (xt, wt, xo), 1.0 / n)
     if pick_body(f"B5b at M={m}", geo, body, m in B5B_STAGE_FASTER) == "pair":
         _launch_odd("fourier_irfft_odd_unpack_pair_c64", "B5b (paired blocks)", *args,
                     lib=irfft_odd_pair_library(), geo=geo)
     else:
         _launch_odd("fourier_irfft_odd_unpack_c64", "B5b", *args)
-    vpu_irfft_odd_unpack_batch_minor.launches += 1
     return out
 
 
 @_irfft_odd_unpack_op.register_fake
 def _(re_t, im_t, n, *_):
     return re_t.new_empty((n, re_t.shape[1]))
-
-
-vpu_irfft_odd_unpack_batch_minor.launches = 0

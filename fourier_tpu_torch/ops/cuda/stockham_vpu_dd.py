@@ -24,8 +24,8 @@ planes (re, im) and the kernels are B1's and B2's stage code at double:
 The stage bodies, B7's paired body and B8 of :mod:`.dd_combine` are one
 library built from ``csrc/stockham_vpu_dd.cu``. Each wrapper runs its plain version for tensors
 on the CPU, and launches its kernel (or raises) for tensors on a CUDA
-device, through a registered operator as in :mod:`.stockham_vpu`; it counts
-its launches in its ``launches`` attribute. The clustered and paired bodies
+device, through a registered operator as in :mod:`.stockham_vpu`, whose
+launches ``build.launch`` counts. The clustered and paired bodies
 read the plan's ``pair_tables`` (f64). B6 (and B7's
 stage body, kept for same-run comparisons) run :func:`kernel_schedule_dd`,
 each radix of the TPU schedule split into 8, 4, 2, 3 and 5, with twiddles
@@ -224,9 +224,10 @@ def fft_pair_clusters_dd(n: int, device) -> int:
     return out.value
 
 
-def launch(fn_name: str, what: str, *args) -> None:
-    """Call the library's C entry point `fn_name`; raise if it fails."""
-    build.call(library(), fn_name, what, *args)
+def launch(op: str, fn_name: str, what: str, *args) -> None:
+    """Launch the operator `op` through this library's C entry point
+    `fn_name`; raise if it fails."""
+    build.launch(op, library(), fn_name, what, *args)
 
 
 def vpu_dd_fft_batch_minor(re_t, im_t, n: int, forward: bool,
@@ -271,7 +272,8 @@ def _vpu_dd_fft_op(re_t: Tensor, im_t: Tensor, n: int, forward: bool,
     data = (re_t.data_ptr(), im_t.data_ptr(), out_re.data_ptr(), out_im.data_ptr())
     if pick_body(f"B6 at n={n}", geo, body, n in B6_STAGE_FASTER) == "pair":
         check_pair_tables(re_t.device, n, geo.ranks, pair_tables, dtype=F64)
-        build.call(
+        build.launch(
+            "fourier_tpu_torch::vpu_dd_fft",
             fft_pair_dd_library(), "fourier_stockham_pair_c128",
             f"B6 ({geo.ranks}-block clusters) at n={n}, B={batch}", *data,
             n, batch, geo.ranks, geo.cols, geo.threads,
@@ -282,21 +284,18 @@ def _vpu_dd_fft_op(re_t: Tensor, im_t: Tensor, n: int, forward: bool,
     else:
         cols, threads = launch_geometry_dd(n)
         launch(
+            "fourier_tpu_torch::vpu_dd_fft",
             "fourier_stockham_c128", f"B6 at n={n}, B={batch}", *data,
             n, batch, cols, threads, *radices_arg(kernel_schedule_dd(n)),
             kernel_tables[0].data_ptr(), kernel_tables[1].data_ptr(),
             int(forward), scale_arg(scale), re_t.device.index, stream_of(re_t),
         )
-    vpu_dd_fft_batch_minor.launches += 1
     return out_re, out_im
 
 
 @_vpu_dd_fft_op.register_fake
 def _(re_t, im_t, *_):
     return torch.empty_like(re_t), torch.empty_like(im_t)
-
-
-vpu_dd_fft_batch_minor.launches = 0
 
 
 def vpu_dd_bluestein_batch_minor(re_t, im_t, n: int, m: int,
@@ -351,6 +350,7 @@ def _vpu_dd_bluestein_op(re_t: Tensor, im_t: Tensor, n: int, m: int,
     else:
         raise ValueError(f"B7 body {body!r}: 'pair' or 'stage'")
     launch(
+        "fourier_tpu_torch::vpu_dd_bluestein",
         fn, f"{what} at n={n}, M={m}, B={batch}",
         re_t.data_ptr(), im_t.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
         n, m, batch, cols, threads, *radices_arg(schedule),
@@ -359,14 +359,9 @@ def _vpu_dd_bluestein_op(re_t: Tensor, im_t: Tensor, n: int, m: int,
         xo[0].data_ptr(), xo[1].data_ptr(),
         scale_arg(scale), re_t.device.index, stream_of(re_t),
     )
-    vpu_dd_bluestein_batch_minor.launches += 1
     return out_re, out_im
 
 
 @_vpu_dd_bluestein_op.register_fake
 def _(re_t, im_t, *_):
     return torch.empty_like(re_t), torch.empty_like(im_t)
-
-
-vpu_dd_bluestein_batch_minor.launches = 0
-

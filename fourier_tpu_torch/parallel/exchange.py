@@ -37,6 +37,8 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from fourier_tpu_torch import trace
+
 
 def outer(name: str) -> str:
     """The name of the rank blocks of dim `name`."""
@@ -72,8 +74,11 @@ def local_blocks(planes: Sequence[torch.Tensor], names: Sequence[str]) -> Blocks
 
 
 def _wait(piece: Blocks) -> None:
-    for work, _sent in piece.pending:
-        work.wait()
+    if not piece.pending:
+        return
+    with trace.span("exchange.wait"):
+        for work, _sent in piece.pending:
+            work.wait()
 
 
 def _lead(names, name: str) -> tuple:
@@ -146,8 +151,11 @@ def exchange(blocks: Blocks, group, gathered: str, padded: Optional[int] = None)
     `padded` is the leading dim's extent once padded to a multiple of S
     (the one-sided spectrum's ``n2p``): its rows are sent as they are, the
     pad rows not at all, and each rank receives its share of the real rows
-    (a :func:`gather` with ``sizes`` zeroes the rest)."""
-    exchange.launches += 1
+    (a :func:`gather` with ``sizes`` zeroes the rest).
+
+    Issued under the span ``exchange.issue``; counts one ``exchange.legs``
+    and the planes' bytes (this rank's own block included) in
+    ``exchange.bytes`` (``fourier_tpu_torch.trace``)."""
     s = dist.get_world_size(group)
     rows = blocks.planes[0].shape[0]
     total = rows if padded is None else padded
@@ -160,20 +168,21 @@ def exchange(blocks: Blocks, group, gathered: str, padded: Optional[int] = None)
     if total != rows:
         sizes = [min(max(rows - j * block, 0), block) for j in range(s)]
         mine = sizes[dist.get_rank(group)]
+    sent = sum(p.numel() * p.element_size() for p in blocks.planes)
     out, pending = [], []
-    for p in blocks.planes:
-        p = p.contiguous()
-        recv = torch.empty((s * mine, *rest), dtype=p.dtype, device=p.device)
-        work = dist.all_to_all_single(
-            recv, p, output_split_sizes=None if sizes is None else [mine] * s,
-            input_split_sizes=sizes, group=group, async_op=True)
-        out.append(recv.view(s, mine, *rest))
-        pending.append((work, p))
+    with trace.span("exchange.issue", bytes=sent, ranks=s):
+        for p in blocks.planes:
+            p = p.contiguous()
+            recv = torch.empty((s * mine, *rest), dtype=p.dtype, device=p.device)
+            work = dist.all_to_all_single(
+                recv, p, output_split_sizes=None if sizes is None else [mine] * s,
+                input_split_sizes=sizes, group=group, async_op=True)
+            out.append(recv.view(s, mine, *rest))
+            pending.append((work, p))
+    trace.count("exchange.legs")
+    trace.count("exchange.bytes", sent)
     return Blocks(tuple(out), (outer(gathered), *blocks.names), dict(blocks.start),
                   tuple(pending))
-
-
-exchange.launches = 0  # exchanges issued (every plane of one leg or chunk: one)
 
 
 def batch_minor(fn: Callable) -> Callable[[Blocks], Blocks]:

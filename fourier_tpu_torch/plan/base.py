@@ -11,6 +11,10 @@ same plan in the transposed mode (``_TRANSPOSE_MODE``), wrapped in the
 ``torch.autograd.Function`` :class:`_LinearFft`:
 
   FFT <-> UNSCALED_IFFT,  SQRT pair <-> each other,  IFFT -> FFT / N.
+
+Each public call (``transform_planar``, ``transform_planar_bm``, their
+4-plane twins and the complex ``transform``) is a ``call`` span of
+``fourier_tpu_torch.trace``.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from fourier_tpu_torch import trace
 from fourier_tpu_torch.transform import Transform
 
 _TRANSPOSE_MODE = {
@@ -145,28 +150,31 @@ class FftPlan(torch.nn.Module):
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Apply a transform over the last axis of planar (re, im) planes of
         shape (..., size); leading axes are batch dimensions."""
-        re, im = self._planes(re, im, -1)
-        return _LinearFft.apply(self, re, im, Transform(transform), False)
+        with trace.call("transform_planar"):
+            re, im = self._planes(re, im, -1)
+            return _LinearFft.apply(self, re, im, Transform(transform), False)
 
     def transform_planar_bm(
         self, re_t, im_t, transform: Transform = Transform.FFT
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Apply a transform over the leading axis of batch-minor (size, B)
         planar planes."""
-        if torch.as_tensor(re_t).ndim != 2:
-            raise ValueError("batch-minor planes must be 2-D (size, B)")
-        re_t, im_t = self._planes(re_t, im_t, 0)
-        return _LinearFft.apply(self, re_t, im_t, Transform(transform), True)
+        with trace.call("transform_planar_bm"):
+            if torch.as_tensor(re_t).ndim != 2:
+                raise ValueError("batch-minor planes must be 2-D (size, B)")
+            re_t, im_t = self._planes(re_t, im_t, 0)
+            return _LinearFft.apply(self, re_t, im_t, Transform(transform), True)
 
     # -- the JAX package's 4-plane double-word API (complex128 plans) --------
 
     def _dd(self, call, planes, transform: Transform, name: str):
         from fourier_tpu_torch.precision import planes as dd_planes
 
-        limbs = dd_planes.limbs(planes, self.dtype, name)
-        if limbs[0].numel() == 0:
-            return tuple(torch.empty_like(p) for p in limbs)
-        return dd_planes.split(call(*dd_planes.join(limbs), transform))
+        with trace.call(f"{name}_dd"):
+            limbs = dd_planes.limbs(planes, self.dtype, name)
+            if limbs[0].numel() == 0:
+                return tuple(torch.empty_like(p) for p in limbs)
+            return dd_planes.split(call(*dd_planes.join(limbs), transform))
 
     def transform_planar_dd(self, re_hi, re_lo, im_hi, im_lo,
                             transform: Transform = Transform.FFT):
@@ -192,14 +200,15 @@ class FftPlan(torch.nn.Module):
         Accepts a numpy array (run on the plan's device, returned as numpy)
         or a torch tensor on the plan's device (returned as a tensor).
         """
-        as_numpy = not isinstance(x, torch.Tensor)
-        if as_numpy:
-            x = torch.as_tensor(np.asarray(x), device=self.device)
-        if not x.is_complex() or x.dtype != self.dtype:
-            x = x.to(self.dtype)
-        ore, oim = self.transform_planar(x.real, x.imag, transform)
-        out = torch.complex(ore, oim)
-        return out.detach().cpu().numpy() if as_numpy else out
+        with trace.call("transform"):
+            as_numpy = not isinstance(x, torch.Tensor)
+            if as_numpy:
+                x = torch.as_tensor(np.asarray(x), device=self.device)
+            if not x.is_complex() or x.dtype != self.dtype:
+                x = x.to(self.dtype)
+            ore, oim = self.transform_planar(x.real, x.imag, transform)
+            out = torch.complex(ore, oim)
+            return out.detach().cpu().numpy() if as_numpy else out
 
     def forward(self, x, transform: Transform = Transform.FFT):
         return self.transform(x, transform)

@@ -38,7 +38,9 @@ Every entry point plans on the card (``device="cuda"``) unless the caller
 asks for the CPU; with no card it raises (``plan.base.resolve_device``).
 
 Plans are cached per (size, dtype, resolved backend, device), LRU-bounded
-(``measure`` plans per (size, dtype, "measure", device)).
+(``measure`` plans per (size, dtype, "measure", device)). A lookup counts
+``plan.cache_hit`` or ``plan.cache_miss``, and a build is the lifecycle span
+``plan.build`` (``fourier_tpu_torch.trace``).
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from fourier_tpu_torch import trace
 from fourier_tpu_torch.plan.autosort import AutosortPlan
 from fourier_tpu_torch.plan.base import FftPlan, complex_dtype, resolve_device
 from fourier_tpu_torch.plan.bluestein import BluesteinPlan
@@ -168,25 +171,28 @@ def create_fft(size: int, dtype=torch.complex64, *, backend: str = "auto",
         raise ValueError("backend='dd' is the complex128 route")
     key = (int(size), str(dtype), resolved, str(device))
     if cache and key in _PLAN_CACHE:
+        trace.count("plan.cache_hit")
         _PLAN_CACHE.move_to_end(key)
         return _PLAN_CACHE[key]
-    if resolved == "measure":
-        from fourier_tpu_torch.plan import measure as _measure
+    with trace.span("plan.build", size=int(size), dtype=str(dtype), backend=resolved):
+        if resolved == "measure":
+            from fourier_tpu_torch.plan import measure as _measure
 
-        plan = _measure.plan_from_wisdom(size, dtype, device)
-        if plan is None:
-            plan = _measure.measure_fft(size, dtype, device=device).plan
-    elif resolved == "mxu":
-        plan = _create_mxu(size, dtype, device)
-    elif resolved == "vpu":
-        plan = VpuFftPlan.create(size, dtype, device)
-        if plan is None:
-            plan = _create_mxu(size, dtype, device, vpu_first=True)
-    elif resolved == "dd":
-        plan = _create_dd(size, dtype, device)
-    else:
-        plan = _create_stockham(size, dtype, device)
+            plan = _measure.plan_from_wisdom(size, dtype, device)
+            if plan is None:
+                plan = _measure.measure_fft(size, dtype, device=device).plan
+        elif resolved == "mxu":
+            plan = _create_mxu(size, dtype, device)
+        elif resolved == "vpu":
+            plan = VpuFftPlan.create(size, dtype, device)
+            if plan is None:
+                plan = _create_mxu(size, dtype, device, vpu_first=True)
+        elif resolved == "dd":
+            plan = _create_dd(size, dtype, device)
+        else:
+            plan = _create_stockham(size, dtype, device)
     if cache:
+        trace.count("plan.cache_miss")
         _PLAN_CACHE[key] = plan
         while len(_PLAN_CACHE) > _PLAN_CACHE_MAX:
             _PLAN_CACHE.popitem(last=False)

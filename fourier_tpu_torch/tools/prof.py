@@ -8,7 +8,9 @@ effective GB/s (planar f32 in and out), synchronised with the card first.
 ``--trace DIR`` wraps the loop in ``torch.profiler`` (CPU and, on the card,
 CUDA activities), writes a Chrome trace to ``DIR/trace.json`` and prints
 the operators' and kernels' device time (``key_averages()``); it says so
-when the trace holds no device time.
+when the trace holds no device time. The trace holds the port's own spans
+(``call[entry=...]``, ``launch[op=...]``: ``fourier_tpu_torch.trace``)
+beside the kernels they launched.
 
 Run:  python -m fourier_tpu_torch.tools.prof --size 4096 [--batch 2048]
           [--iters 100 | --forever] [--trace DIR]

@@ -8,7 +8,8 @@ hash of its flags and of every source beside it, so an edit to any source
 selects a new build instead of loading a stale one; the file lock is taken
 before the build's existence is tested, so concurrent processes neither load
 a half-written file nor build it twice; the compiler writes to a temporary
-name that is renamed into place.
+name that is renamed into place. A build is the lifecycle span
+``lib.build`` and the count ``lib.builds`` (``fourier_tpu_torch.trace``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import hashlib
 import os
 from pathlib import Path
 from typing import Callable, Sequence
+
+from fourier_tpu_torch import trace
 
 # The repository's build directory for the port.
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "fourier_tpu_torch"
@@ -45,8 +48,10 @@ def build_locked(target: Path, lock: Path, compile_to: Callable[[Path], None],
             return False
         tmp = target.with_name(f"{target.name}.tmp{os.getpid()}")
         try:
-            compile_to(tmp)
+            with trace.span("lib.build", target=target.name):
+                compile_to(tmp)
             os.replace(tmp, target)
         finally:
             tmp.unlink(missing_ok=True)
+        trace.count("lib.builds")
         return True

@@ -57,6 +57,7 @@ from fourier_tpu.precision.vpu_dd_plan import VpuDdFftPlan as JVpuDdFftPlan
 
 from fourier_tpu_torch import (FourStepLocalPlan, MxuFftPlan, Transform,
                                VpuBluesteinPlan, VpuFftPlan)
+from fourier_tpu_torch import trace
 from fourier_tpu_torch.ops.cuda import stockham_vpu as sv
 from fourier_tpu_torch.ops.cuda import stockham_vpu_dd as dv
 from fourier_tpu_torch.precision import VpuDdBluesteinPlan, VpuDdFftPlan
@@ -81,6 +82,11 @@ B6_PAIR = [n for n in B6_DOMAIN if dv.fft_pair_geometry_dd(n) is not None]
 B2_INNER = sorted({m for m in (VpuBluesteinPlan.choose_inner(n, 8192)
                            for n in range(17, 4097)) if m is not None})
 CSRC = Path(sv.__file__).parents[2] / "csrc"
+
+
+def launches(op: str) -> int:
+    """Launches of the operator ``fourier_tpu_torch::<op>`` counted so far."""
+    return trace.counters()[f"launches.fourier_tpu_torch::{op}"]
 
 
 def _xmacro(path, name):
@@ -1196,23 +1202,23 @@ def test_b5a_b6_body_argument_on_the_cpu():
     x = torch.randn(1013, 7)
     kw = dict(tables=(st.tables(True), st.tables(False)),
               kernel_tables=(st.kernel_fwd, st.kernel_inv), chirps=bplan.chirps(True))
-    before = sv.vpu_rfft_odd_pack_batch_minor.launches
+    before = launches("rfft_odd_pack")
     want = sv.vpu_rfft_odd_pack_batch_minor_reference(x, 1013, st.size, kw["tables"],
                                                       kw["chirps"])
     for body in (None, "pair", "stage"):
         got = sv.vpu_rfft_odd_pack_batch_minor(x, 1013, st.size, _body=body, **kw)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert sv.vpu_rfft_odd_pack_batch_minor.launches == before
+    assert launches("rfft_odd_pack") == before
     plan = VpuDdFftPlan.create(4096, device="cpu")
     re_ = torch.randn(4096, 3, dtype=torch.float64)
     im_ = torch.randn(4096, 3, dtype=torch.float64)
-    before = dv.vpu_dd_fft_batch_minor.launches
+    before = launches("vpu_dd_fft")
     want = dv.vpu_dd_fft_batch_minor_reference(re_, im_, 4096, plan.tables(False), False, 0.5)
     for body in (None, "pair", "stage"):
         got = dv.vpu_dd_fft_batch_minor(re_, im_, 4096, False, 0.5, tables=plan.tables(False),
                                         kernel_tables=plan.kernel_inv, _body=body)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert dv.vpu_dd_fft_batch_minor.launches == before
+    assert launches("vpu_dd_fft") == before
 
 
 def test_b4b_b5b_body_argument_on_the_cpu():
@@ -1222,24 +1228,24 @@ def test_b4b_b5b_body_argument_on_the_cpu():
     re_, im_ = torch.randn(1025, 5), torch.randn(1025, 5)
     kw = dict(tables=plan.inner.tables(False), kernel_tables=plan.inner.kernel_inv,
               w=plan.w)
-    before = sv.vpu_irfft_unpack_batch_minor.launches
+    before = launches("irfft_unpack")
     want = sv.vpu_irfft_unpack_batch_minor_reference(re_, im_, 1024, kw["tables"], plan.w)
     for body in (None, "pair", "stage"):
         got = sv.vpu_irfft_unpack_batch_minor(re_, im_, 1024, _body=body, **kw)
         assert torch.equal(got, want)
-    assert sv.vpu_irfft_unpack_batch_minor.launches == before
+    assert launches("irfft_unpack") == before
     bplan = VpuBluesteinPlan.create(1013, device="cpu")
     st = bplan.stages
     re_, im_ = torch.randn(507, 7), torch.randn(507, 7)
     kw = dict(tables=(st.tables(True), st.tables(False)),
               kernel_tables=(st.kernel_fwd, st.kernel_inv), chirps=bplan.chirps(False))
-    before = sv.vpu_irfft_odd_unpack_batch_minor.launches
+    before = launches("irfft_odd_unpack")
     want = sv.vpu_irfft_odd_unpack_batch_minor_reference(re_, im_, 1013, st.size,
                                                          kw["tables"], kw["chirps"])
     for body in (None, "pair", "stage"):
         got = sv.vpu_irfft_odd_unpack_batch_minor(re_, im_, 1013, st.size, _body=body, **kw)
         assert torch.equal(got, want)
-    assert sv.vpu_irfft_odd_unpack_batch_minor.launches == before
+    assert launches("irfft_odd_unpack") == before
 
 
 def test_b1_b2_body_argument_on_the_cpu():
@@ -1247,23 +1253,23 @@ def test_b1_b2_body_argument_on_the_cpu():
     `_body` asks, and count no launch."""
     plan = VpuFftPlan.create(4096, device="cpu")
     re_, im_ = torch.randn(4096, 5), torch.randn(4096, 5)
-    before = sv.vpu_fft_batch_minor.launches
+    before = launches("vpu_fft")
     want = sv.vpu_fft_batch_minor_reference(re_, im_, 4096, plan.tables(False), False, 0.5)
     for body in (None, "pair", "stage"):
         got = sv.vpu_fft_batch_minor(re_, im_, 4096, False, 0.5, tables=plan.tables(False),
                                      kernel_tables=plan.kernel_inv, _body=body)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert sv.vpu_fft_batch_minor.launches == before
+    assert launches("vpu_fft") == before
     bplan = VpuBluesteinPlan.create(1013, device="cpu")
     st = bplan.stages
     re_, im_ = torch.randn(1013, 3), torch.randn(1013, 3)
     kw = dict(tables=(st.tables(True), st.tables(False)),
               kernel_tables=(st.kernel_fwd, st.kernel_inv), chirps=bplan.chirps(True))
-    before = sv.vpu_bluestein_batch_minor.launches
+    before = launches("vpu_bluestein")
     a = sv.vpu_bluestein_batch_minor(re_, im_, 1013, st.size, None, _body="stage", **kw)
     c = sv.vpu_bluestein_batch_minor(re_, im_, 1013, st.size, None, **kw)
     assert all(torch.equal(u, v) for u, v in zip(a, c))
-    assert sv.vpu_bluestein_batch_minor.launches == before
+    assert launches("vpu_bluestein") == before
 
 
 def test_body_argument_on_the_cpu():
@@ -1273,22 +1279,22 @@ def test_body_argument_on_the_cpu():
     x = torch.randn(2048, 5)
     kw = dict(tables=plan.inner.tables(True), kernel_tables=plan.inner.kernel_fwd,
               w=plan.w)
-    before = sv.vpu_rfft_pack_batch_minor.launches
+    before = launches("rfft_pack")
     want = sv.vpu_rfft_pack_batch_minor_reference(x, 1024, kw["tables"], plan.w)
     for body in (None, "pair", "stage"):
         got = sv.vpu_rfft_pack_batch_minor(x, 1024, _body=body, **kw)
         assert all(torch.equal(g, w_) for g, w_ in zip(got, want))
-    assert sv.vpu_rfft_pack_batch_minor.launches == before
+    assert launches("rfft_pack") == before
     bplan = VpuDdBluesteinPlan.create(100, device="cpu")
     st = bplan.stages
     re = torch.randn(100, 3, dtype=torch.float64)
     bkw = dict(tables=(st.tables(True), st.tables(False)),
                kernel_tables=(st.kernel_fwd, st.kernel_inv), chirps=bplan.chirps(True))
-    before = dv.vpu_dd_bluestein_batch_minor.launches
+    before = launches("vpu_dd_bluestein")
     a = dv.vpu_dd_bluestein_batch_minor(re, re, 100, st.size, None, _body="stage", **bkw)
     c = dv.vpu_dd_bluestein_batch_minor(re, re, 100, st.size, None, **bkw)
     assert all(torch.equal(u, v) for u, v in zip(a, c))
-    assert dv.vpu_dd_bluestein_batch_minor.launches == before
+    assert launches("vpu_dd_bluestein") == before
 
 
 # -- B3, the four-step row leg on fft_pair -----------------------------------
@@ -1440,14 +1446,14 @@ def test_b3_body_argument_on_the_cpu():
     re3, im3 = torch.randn(q, p, 5), torch.randn(q, p, 5)
     kw = dict(tables=rp.tables(False), kernel_tables=rp.kernel_inv,
               pre_tw=(plan.tw_inv[0], plan.tw_inv[1]))
-    before = sv.vpu_fft_four_step_row.launches
+    before = launches("four_step_row")
     want = sv.vpu_fft_four_step_row_reference(re3, im3, p, q, kw["tables"], kw["pre_tw"],
                                               False, 0.25)
     for body in (None, "pair", "stage"):
         got = sv.vpu_fft_four_step_row(re3, im3, p, q, False, 0.25, _body=body,
                                        tw_fwd=(plan.tw_fwd[0], plan.tw_fwd[1]), **kw)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert sv.vpu_fft_four_step_row.launches == before
+    assert launches("four_step_row") == before
 
 
 @pytest.fixture

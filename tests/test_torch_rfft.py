@@ -29,6 +29,7 @@ from fourier_tpu.plan.vpu import VpuFftPlan as JVpuFftPlan
 from fourier_tpu.rfft import RfftPlan as JRfftPlan
 
 import fourier_tpu_torch as tft
+from fourier_tpu_torch import trace
 from fourier_tpu_torch.ops.cuda import stockham_vpu as sv
 from fourier_tpu_torch.plan import (VpuBluesteinPlan, VpuFftPlan, create_fft,
                                     load_jax_plan, plan_tree)
@@ -39,6 +40,11 @@ from test_torch_vpu import emulate_stages
 RNG_SEED = 0xB4B5
 REL = 1e-5  # tests/test_rfft.py's rel-L2 gate (f32)
 ATOL_RT = 1e-4  # its round-trip gate
+
+
+def launches(op: str) -> int:
+    """Launches of the operator ``fourier_tpu_torch::<op>`` counted so far."""
+    return trace.counters()[f"launches.fourier_tpu_torch::{op}"]
 
 
 @pytest.fixture
@@ -647,9 +653,8 @@ def test_wrapper_contract():
     with pytest.raises((TypeError, ValueError)):
         sv.vpu_irfft_odd_unpack_batch_minor(torch.zeros(36, 3), torch.zeros(36, 3),
                                             73, st.size, **okw)
-    counters = (sv.vpu_rfft_pack_batch_minor, sv.vpu_irfft_unpack_batch_minor,
-                sv.vpu_rfft_odd_pack_batch_minor, sv.vpu_irfft_odd_unpack_batch_minor)
-    before = [f.launches for f in counters]
+    ops = ("rfft_pack", "irfft_unpack", "rfft_odd_pack", "irfft_odd_unpack")
+    before = [launches(op) for op in ops]
     x = torch.zeros(128, 3)
     re, im = sv.vpu_rfft_pack_batch_minor(x, 64, **kw)
     sv.vpu_irfft_unpack_batch_minor(re, im, 64, tables=inner.tables(False),
@@ -657,7 +662,7 @@ def test_wrapper_contract():
     re, im = sv.vpu_rfft_odd_pack_batch_minor(torch.zeros(73, 3), 73, st.size,
                                               **{**okw, "chirps": odd.chirps(True)})
     sv.vpu_irfft_odd_unpack_batch_minor(re, im, 73, st.size, **okw)
-    assert [f.launches for f in counters] == before
+    assert [launches(op) for op in ops] == before
 
 
 @pytest.mark.cuda
@@ -669,14 +674,13 @@ def test_kernels_match_plain_on_card(cuda_device, n, b):
     assert plan.fused
     x = torch.as_tensor(rng.standard_normal((n, b)).astype(np.float32),
                         device=cuda_device)
-    fwd, inv = ((sv.vpu_rfft_pack_batch_minor, sv.vpu_irfft_unpack_batch_minor)
-                if plan.even else (sv.vpu_rfft_odd_pack_batch_minor,
-                                   sv.vpu_irfft_odd_unpack_batch_minor))
-    before = fwd.launches, inv.launches
+    fwd, inv = (("rfft_pack", "irfft_unpack") if plan.even
+                else ("rfft_odd_pack", "irfft_odd_unpack"))
+    before = launches(fwd), launches(inv)
     re, im = plan.rfft_planar_bm(x)
     back = plan.irfft_planar_bm(re, im)
     torch.cuda.synchronize()
-    assert (fwd.launches, inv.launches) == (before[0] + 1, before[1] + 1)
+    assert (launches(fwd), launches(inv)) == (before[0] + 1, before[1] + 1)
     inner = plan.inner
     if plan.even:
         pre, pim = sv.vpu_rfft_pack_batch_minor_reference(

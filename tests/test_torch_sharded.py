@@ -600,3 +600,24 @@ def test_copies_per_leg(world, call):
         for shape, contiguous in shapes:
             lead = size // 2 + 1 if method == "irfft_planar_bm" else size
             assert contiguous and len(shape) == 2 and shape[0] == lead, (method, shape)
+
+
+@pytest.fixture(scope="module")
+def world2(tmp_path_factory):
+    """A 2-rank world: the exchange's counts and spans."""
+    return world_cases.run_world(tmp_path_factory.mktemp("gloo2"), ["exchange_counters"],
+                                 world=2)["exchange_counters"]
+
+
+def test_exchange_legs_and_bytes_are_counted(world2):
+    """An Fft2dPlan call on 2 ranks: two legs with a natural result, one
+    with a transposed one, three when the first leg runs in two chunks;
+    every leg's bytes are both planes of the rank's block, however it is
+    chunked; a profiler sees the issue and the wait."""
+    if "error" in world2:
+        pytest.fail(world2["error"])
+    leg = 2 * world2["plane_bytes"]
+    assert world2["natural"] == (2, 2 * leg)
+    assert world2["piped"] == (3, 2 * leg)
+    assert world2["transposed"] == (1, leg)
+    assert world2["spans"] == ["exchange.issue", "exchange.wait"]

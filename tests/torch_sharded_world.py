@@ -29,8 +29,7 @@ from torch.distributed.tensor import DTensor, Shard, distribute_tensor
 from torch.utils._python_dispatch import TorchDispatchMode
 
 import fourier_tpu_torch as tft
-from fourier_tpu_torch import parallel
-from fourier_tpu_torch.parallel import exchange as ex
+from fourier_tpu_torch import parallel, trace
 from fourier_tpu_torch.parallel import sharded
 from fourier_tpu_torch.precision import ddreal
 from fourier_tpu_torch.transform import Transform
@@ -38,6 +37,8 @@ from fourier_tpu_torch.transform import Transform
 WORLD = 4
 SEED = 0xFEED
 CASES = {}
+# Cases that run on a world of another size, outside the default run.
+OWN_WORLD = ("three_ranks", "exchange_counters")
 
 
 class Ctx:
@@ -415,10 +416,10 @@ def spectral_layout_halves_exchanges(ctx):
     counts = {}
     for name, spectral in (("natural", False), ("spectral", True)):
         plan = parallel.Rfft3dPlan(8, 8, 16, ctx.xy, spectral_output=spectral)
-        before = ex.exchange.launches
+        before = trace.counters()["exchange.legs"]
         re, im = plan.rfft_planar(x)
         plan.irfft_planar(re, im, from_spectral=spectral)
-        counts[name] = ex.exchange.launches - before
+        counts[name] = trace.counters()["exchange.legs"] - before
     return counts
 
 
@@ -656,6 +657,27 @@ def _uneven_batches(ctx, rows):
         out[f"batched_{call}_uneven"] = _raises(lambda: fn(lambda t: t))
         out[f"batched_{call}_uneven_dtensor"] = _raises(lambda: fn(
             lambda t: distribute_tensor(t, ctx.batch, [Shard(0)])))
+    return out
+
+
+@case()
+def exchange_counters(ctx):
+    """An Fft2dPlan call's exchange legs and bytes in the trace registry, on
+    this rank (unchunked and in 2 chunks, natural and transposed output),
+    and the exchange spans a profiler records of one call."""
+    x = cx((16, 32))
+    out = {"plane_bytes": x.size // dist.get_world_size() * 4}
+    for name, kw in (("natural", {}), ("piped", {"pipeline_chunks": 2}),
+                     ("transposed", {"transposed_output": True})):
+        plan = parallel.Fft2dPlan(16, 32, ctx.fft, **kw)
+        before = trace.counters().snapshot()
+        plan.fft_planar(*planes(x))
+        d = trace.counters().delta(before)
+        out[name] = (d.get("exchange.legs", 0), d.get("exchange.bytes", 0))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        plan.fft_planar(*planes(x))
+    out["spans"] = sorted({e.name().split("[")[0] for e in prof.profiler.kineto_results.events()
+                           if e.name().startswith("exchange.")})
     return out
 
 
@@ -942,9 +964,9 @@ def _rank_main(rank, store, names, out_path, extra, world):
 
 
 def run_world(tmp_dir, names=None, extra=None, timeout=300.0, world=WORLD) -> dict:
-    """Run the cases `names` (default all but ``three_ranks``) on a fresh
-    world of `world` processes; rank 0's results."""
-    names = [c for c in CASES if c != "three_ranks"] if names is None else list(names)
+    """Run the cases `names` (default all but those of ``OWN_WORLD``) on a
+    fresh world of `world` processes; rank 0's results."""
+    names = [c for c in CASES if c not in OWN_WORLD] if names is None else list(names)
     extra = dict(extra or {}, tmp=str(tmp_dir))
     out_path = os.path.join(str(tmp_dir), "results.pkl")
     store = os.path.join(str(tmp_dir), "store")
