@@ -93,7 +93,19 @@ and inverse, each joined output against the plan's f64 call and torch.fft
 DdMxuDirectPlan against torch.fft; ddreal.two_sum/two_prod on CUDA tensors
 bitwise against numpy; the times of the 4-plane call, the f64 call, the
 join and the split alone; phase 4m's ranks run the three batch-sharded
-double-word twins too.
+double-word twins too. Phase 4p holds B1's clustered body on a complex64
+tensor where it lies ("B1s": csrc/fft_pair_strided.cu, the operator
+vpu_fft_strided; the N-D surface's in-place route, the port's own, which
+phases 4i and 4j hold to SURFACE_ROUTES) against its plain version and
+np.fft in both layouts (strided column, contiguous row), in place and into
+a new tensor, forward and inverse with a scale, at its boundaries, at both
+passes of an fft2 of STRIDED_TIME (fft2d-4096.x1-b32's images) and at
+every (shape, axis) phases 4i and 4j gave it; phase 5l times it at
+STRIDED_TIME in both layouts beside the byte bound, its plain version,
+torch.fft.fft along each axis, B1 on the planes of the same points, fft2
+and ifft2 in place and over planes, and torch.fft.fft2 (a B1s row joins
+the kernels line), and fft2 over axes (0, 1) of channels-last images
+(STRIDED_THIN) in the surface's route, all in place and all over planes.
 Every phase prints its lines;
 any failed check raises, so the exit code is non-zero. The next-to-last
 line is a JSON record of the kernels; the last line is
@@ -137,7 +149,8 @@ B3_AB_Q = 256  # the q of phase 5g's B3 sweep
 KERNEL_OPS = {"B1": "vpu_fft", "B2": "vpu_bluestein", "B3": "four_step_row",
               "B4a": "rfft_pack", "B4b": "irfft_unpack", "B5a": "rfft_odd_pack",
               "B5b": "irfft_odd_unpack", "B6": "vpu_dd_fft", "B7": "vpu_dd_bluestein",
-              "B8": "dd_split_combine", "B9a": "mxu_fft_single", "B9b": "mxu_fft_two_phase"}
+              "B8": "dd_split_combine", "B9a": "mxu_fft_single", "B9b": "mxu_fft_two_phase",
+              "B1s": "vpu_fft_strided"}
 # The registers of B1's and B6's clustered bodies (fft_pair.cu, fft_pair_dd.cu)
 # before fft_pair took an I/O policy, by blocks a cluster and height (ptxas
 # -v for sm_90a, with the toolkit of the H100's machine); phase 2 prints
@@ -370,6 +383,33 @@ SURF_DCT = (1024, 4096)  # dct/dst/idct/idst types 1-4, every norm
 SURF_FHT = (1024, 4096)  # fht/ifht, float64
 SURF_FHT_ARGS = (0.01, 0.5, 0.0, 0.0)  # dln, mu, offset, bias
 SURF_CHAIN = 4  # calls per timing
+# The surface's complex64 N-D route (ndim.py's in-place passes, the port's
+# own; the JAX package runs every axis over planes): the calls of phases 4i
+# and 4j that run B1 on the tensor where it lies ("B1s", one launch an
+# axis) and those that keep the planes. Phases 4i and 4j hold each call's
+# launches to it; phase 4p checks B1s at the shapes they gave it.
+SURFACE_ROUTES = {
+    "fft2/ifft2 (4096, 4096) c64": "in place", "fftn/ifftn (256, 256, 256) c64": "in place",
+    "NdFftPlan (4096, 4096) c64": "in place", "hilbert2 (4096, 4096) f32": "in place",
+    "scipy backend fft2 (4096, 4096) c64": "in place",
+    "scipy backend fftn/ifftn of scipy's fftconvolve c64": "in place",
+    "fftn (256, 256, 256) c128": "planes", "rfft2/irfft2/hfft2/ihfft2, rfftn/irfftn": "planes",
+    "transform_planar": "planes", "fftconvolve/correlate": "planes",
+}
+STRIDED_TIME = (32, 4096, 4096)  # phases 4p and 5l: fft2d-4096.x1-b32's images
+# Phase 4p: B1s at its boundaries, (shape, axis): both layouts, two- and
+# four-block clusters, ragged column groups and transforms, and both passes
+# of an fft2 of STRIDED_TIME.
+STRIDED_CASES = (((3, 512, 64), 1), ((2, 512, 13), 1), ((37, 512), 1), ((5, 2048, 40), 1),
+                 ((19, 2048), 1), ((2, 4096, 24), 1), ((3, 4096, 13), 1), ((33, 4096), 1),
+                 ((2160, 9), 0), ((7, 2160), 1), (STRIDED_TIME, 1), (STRIDED_TIME, 2))
+STRIDED_HOST = 2  # images of STRIDED_TIME held against np.fft on the host
+# Phase 5l: fft2 over axes (0, 1) of channels-last images, whose axis 1 has
+# fewer values after it than a tile of B1s has columns (8 at n = 4096, 256
+# at 64): under half a tile's, its pass keeps the planes
+# (VpuFftPlan.fills_strided); in the surface's route, with every pass forced
+# in place and over planes.
+STRIDED_THIN = ((4096, 4096, 3), (4096, 4096, 4), (512, 64, 3))
 # Phases 4j and 5i: signal.py, spectral.py and the scipy.fft backend at the
 # shapes of an image or audio pipeline, each held against scipy in f64.
 SIG_IMAGE, SIG_PSF = (3968, 3968), (129, 129)  # mode "same": 4096^2 padded
@@ -892,8 +932,10 @@ def main() -> int:
     libraries = (sv.FOUR_STEP_PAIR_LIBRARY, sv.LIBRARY, sv.PAIR_LIBRARY,
                  sv.FFT_PAIR_LIBRARY, sv.BLUESTEIN_PAIR_LIBRARY, sv.RFFT_ODD_PAIR_LIBRARY,
                  sv.IRFFT_UNPACK_PAIR_LIBRARY, sv.IRFFT_ODD_PAIR_LIBRARY, dv.LIBRARY,
-                 dv.FFT_PAIR_DD_LIBRARY, bk.LIBRARY, bk.MMA_LIBRARY)
+                 dv.FFT_PAIR_DD_LIBRARY, bk.LIBRARY, bk.MMA_LIBRARY,
+                 sv.FFT_PAIR_STRIDED_LIBRARY)
     build.load_all(libraries)
+    sv.fft_pair_strided_library()
     sv.library()
     sv.pair_library()
     sv.fft_pair_library()
@@ -915,8 +957,10 @@ def main() -> int:
           f"{sv.IRFFT_ODD_PAIR_LIBRARY}.cu (B5b's paired bodies), "
           f"{dv.LIBRARY}.cu (B6-B8, stage bodies and B7's paired bodies), "
           f"{dv.FFT_PAIR_DD_LIBRARY}.cu (B6's clustered bodies), {bk.LIBRARY}.cu "
-          f"(the CUDA-core bodies of B9a and B9b) and {bk.MMA_LIBRARY}.cu (their "
-          f"tensor-core bodies) in {time.perf_counter() - t0:.2f} s; each nvcc: "
+          f"(the CUDA-core bodies of B9a and B9b), {bk.MMA_LIBRARY}.cu (their "
+          f"tensor-core bodies) and {sv.FFT_PAIR_STRIDED_LIBRARY}.cu (B1's clustered "
+          f"bodies on complex64 where it lies, both layouts) in "
+          f"{time.perf_counter() - t0:.2f} s; each nvcc: "
           + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(build_times(trace).items(),
                                                           key=lambda kv: -kv[1])),
           flush=True)
@@ -940,15 +984,19 @@ def main() -> int:
     n_b5b = sum(1 for m in range(2, sv.PAIR_MAX_M + 1) if sv.irfft_odd_unpack_geometry(m))
     n_b6 = sum(1 for n in range(2, 2 * sv.PAIR_MAX_M + 1) if dv.fft_pair_geometry_dd(n))
     n_b3 = sum(1 for p in range(2, 2 * sv.PAIR_MAX_M + 1) if sv.four_step_pair_geometry(p))
-    counts_ = (n_b4a, n_b4b, n_b7, n_b1, n_b2, n_b5a, n_b5b, n_b6, n_b3)
+    # B1s: two bodies a size, one a layout.
+    n_b1s = 2 * sum(1 for n in range(2, 2 * sv.PAIR_MAX_M + 1)
+                    if sv.fft_pair_strided_geometry(n))
+    counts_ = (n_b4a, n_b4b, n_b7, n_b1, n_b2, n_b5a, n_b5b, n_b6, n_b3, n_b1s)
     check(len(pair_kernels) == sum(counts_) and not spilled,
-          f"the clustered-block bodies of B4a, B4b, B7, B1, B2, B5a, B5b, B6 and B3: "
+          f"the clustered-block bodies of B4a, B4b, B7, B1, B2, B5a, B5b, B6, B3 and B1s: "
           f"{len(pair_kernels)} built, {' + '.join(map(str, counts_))} expected; "
           f"spills {spilled}")
     regs = [r for _, r, _ in pair_kernels]
     print(f"ptxas (clustered-block bodies): {len(pair_kernels)} instantiations (B4a at "
           f"{n_b4a} m, B4b at {n_b4b} m, B7 at {n_b7} M, B1 at {n_b1} n, B2 at {n_b2} M, "
-          f"B5a at {n_b5a} M, B5b at {n_b5b} M, B6 at {n_b6} n, B3 at {n_b3} p), "
+          f"B5a at {n_b5a} M, B5b at {n_b5b} M, B6 at {n_b6} n, B3 at {n_b3} p, B1s "
+          f"at {n_b1s // 2} n in two layouts), "
           f"{min(regs)}-{max(regs)} registers, 0 spill bytes", flush=True)
     # The tensor-core bodies of B9a and B9b: registers, and no spill.
     # B9b's in two instantiations: tables staged in shared memory (<true>),
@@ -1539,12 +1587,27 @@ def main() -> int:
     # wrappers recorded); phases 4g and 4h check each shape on both bodies.
     route_shapes = {"B1": set(), "B2": set(), "B4b": set(), "B5a": set(), "B5b": set(),
                     "B6": set()}
+    # Every (shape, axis) phases 4i and 4j give B1s (VpuFftPlan.run_strided
+    # recorded there), which phase 4p checks.
+    strided_shapes = set()
 
     def recording(kernel, fn, shape=lambda x_t, *args: tuple(x_t.shape)):
         def call(*args, **kwargs):
             route_shapes[kernel].add(shape(*args))
             return fn(*args, **kwargs)
         return call
+
+    def strided_recording(x, axis, *args, **kwargs):
+        strided_shapes.add((tuple(x.shape), axis % x.ndim))
+        return sv.vpu_fft_strided(x, axis, *args, **kwargs)
+
+    def in_place(shape, plans, dt):
+        """Whether every pass of an N-D complex call of dtype `dt` over every
+        axis of `shape` (one plan of `plans` each) runs in place on the card
+        (ndim.py's route: B1s an axis)."""
+        return dt == torch.complex64 and all(sys.modules["fourier_tpu_torch.ndim"]
+                                             ._strided_passes(shape, dev, range(len(shape)),
+                                                              plans))
 
     ftt.VpuFftPlan.run = staticmethod(recording("B1", sv.vpu_fft_batch_minor))
     ftt.VpuBluesteinPlan.run = staticmethod(recording("B2", sv.vpu_bluestein_batch_minor))
@@ -2065,6 +2128,7 @@ def main() -> int:
             shapes.clear()
         route_shapes["B4a"] = set()
         ftt.VpuFftPlan.run = staticmethod(recording("B1", sv.vpu_fft_batch_minor))
+        ftt.VpuFftPlan.run_strided = staticmethod(strided_recording)
         ftt.VpuBluesteinPlan.run = staticmethod(recording("B2", sv.vpu_bluestein_batch_minor))
         ftt.VpuDdFftPlan.run = staticmethod(recording("B6", dv.vpu_dd_fft_batch_minor))
         rfft_module.stockham_vpu = types.SimpleNamespace(**{
@@ -2086,6 +2150,22 @@ def main() -> int:
             """The kernels of the cached axis plans' trees."""
             return set().union(*(_c2c_kernels(plan_tree(p)) for p in
                                  ndim_module._axis_plans(shape, dt, dev)))
+
+        def nd_kernels(shape, dt, plans=None):
+            """The kernels of an N-D complex call over `shape` (the cached
+            axis plans, or `plans`): B1s where it runs in place, else the
+            axis plans' batch-minor kernels."""
+            plans = ndim_module._axis_plans(shape, dt, dev) if plans is None else plans
+            if in_place(shape, plans, dt):
+                return {"B1s"}
+            return set().union(*(_c2c_kernels(plan_tree(p)) for p in plans))
+
+        for call, route in (("fft2/ifft2 (4096, 4096) c64", nd_kernels(SURF_2D, c64)),
+                            ("fftn/ifftn (256, 256, 256) c64", nd_kernels(SURF_3D, c64)),
+                            ("fftn (256, 256, 256) c128", nd_kernels(SURF_3D, c128))):
+            check((route == {"B1s"}) == (SURFACE_ROUTES[call] == "in place"),
+                  f"surface {call}: the route runs {sorted(route)}, SURFACE_ROUTES "
+                  f"says {SURFACE_ROUTES[call]}")
 
         def real(n, dt, call):
             return _real_kernels(n, plan_tree(rfft_module._rfft_plan(n, dt, dev))[2], call)
@@ -2122,14 +2202,17 @@ def main() -> int:
         seen = counts()
         x2 = torch.complex(*planes(*SURF_2D))
         h2 = host(x2)
-        ran(f"fft2 {SURF_2D} c64", ftt.fft2(x2), c2c(SURF_2D, c64), np.fft.fft2(h2), 2)
-        ran(f"ifft2 {SURF_2D} c64", ftt.ifft2(x2), c2c(SURF_2D, c64), np.fft.ifft2(h2), 2)
+        ran(f"fft2 {SURF_2D} c64", ftt.fft2(x2), nd_kernels(SURF_2D, c64), np.fft.fft2(h2), 2)
+        ran(f"ifft2 {SURF_2D} c64", ftt.ifft2(x2), nd_kernels(SURF_2D, c64), np.fft.ifft2(h2),
+            2)
         x3 = torch.complex(*planes(SURF_3D[0], SURF_3D[1] * SURF_3D[2])).reshape(SURF_3D)
         h3 = host(x3)
-        ran(f"fftn {SURF_3D} c64", ftt.fftn(x3), c2c(SURF_3D, c64), np.fft.fftn(h3), 3)
-        ran(f"ifftn {SURF_3D} c64", ftt.ifftn(x3), c2c(SURF_3D, c64), np.fft.ifftn(h3), 3)
+        ran(f"fftn {SURF_3D} c64", ftt.fftn(x3), nd_kernels(SURF_3D, c64), np.fft.fftn(h3), 3)
+        ran(f"ifftn {SURF_3D} c64", ftt.ifftn(x3), nd_kernels(SURF_3D, c64), np.fft.ifftn(h3),
+            3)
         x3d = x3.to(c128)
-        ran(f"fftn {SURF_3D} c128", ftt.fftn(x3d), c2c(SURF_3D, c128), np.fft.fftn(h3), 3,
+        ran(f"fftn {SURF_3D} c128", ftt.fftn(x3d), nd_kernels(SURF_3D, c128), np.fft.fftn(h3),
+            3,
             double=True)
         del h3
         n0, n1 = SURF_2D
@@ -2196,8 +2279,10 @@ def main() -> int:
         # kernels' plain versions run and no count rises), and back.
         nd = ftt.NdFftPlan(SURF_2D)
         check(nd.device == dev, f"NdFftPlan planned on {nd.device}")
-        y_card = ran(f"NdFftPlan{SURF_2D}.fft", nd.fft(x2),
-                     set().union(*(_c2c_kernels(plan_tree(p)) for p in nd.plans)),
+        check(in_place(SURF_2D, nd.plans, c64) == (
+            SURFACE_ROUTES["NdFftPlan (4096, 4096) c64"] == "in place"),
+              "NdFftPlan's route differs from SURFACE_ROUTES")
+        y_card = ran(f"NdFftPlan{SURF_2D}.fft", nd.fft(x2), nd_kernels(SURF_2D, c64, nd.plans),
                      np.fft.fft2(h2), 2)
         nd.to("cpu")
         y_cpu = nd.fft(x2.cpu())
@@ -2209,8 +2294,7 @@ def main() -> int:
               f"NdFftPlan on the CPU vs on the card: rel-L2 {cpu_err:.3e}")
         nd.to(dev)
         y_back = ran(f"NdFftPlan{SURF_2D}.fft after .to('cpu') and back", nd.fft(x2),
-                     set().union(*(_c2c_kernels(plan_tree(p)) for p in nd.plans)),
-                     np.fft.fft2(h2), 2)
+                     nd_kernels(SURF_2D, c64, nd.plans), np.fft.fft2(h2), 2)
         check(torch.equal(y_back, y_card), "NdFftPlan after .to('cpu') and back "
               "differs from its first run")
         del h2
@@ -2232,11 +2316,12 @@ def main() -> int:
               f"{ {k: v for k, v in surface_launches.items() if v} }", flush=True)
 
         ftt.VpuFftPlan.run = staticmethod(sv.vpu_fft_batch_minor)
+        ftt.VpuFftPlan.run_strided = staticmethod(sv.vpu_fft_strided)
         ftt.VpuBluesteinPlan.run = staticmethod(sv.vpu_bluestein_batch_minor)
         ftt.VpuDdFftPlan.run = staticmethod(dv.vpu_dd_fft_batch_minor)
         rfft_module.stockham_vpu = sv
-        check(route_shapes["B1"] and route_shapes["B4a"], "the surface gave B1 or B4a "
-              "no call")
+        check(route_shapes["B1"] and route_shapes["B4a"] and strided_shapes,
+              "the surface gave B1, B4a or B1s no call")
         for kernel in ("B1", "B2", "B4b", "B5a", "B5b", "B6"):
             if route_shapes[kernel]:
                 route_checks(kernel, "4i")
@@ -2283,6 +2368,7 @@ def main() -> int:
             shapes.clear()
         route_shapes["B8"] = set()
         ftt.VpuFftPlan.run = staticmethod(recording("B1", sv.vpu_fft_batch_minor))
+        ftt.VpuFftPlan.run_strided = staticmethod(strided_recording)
         ftt.VpuBluesteinPlan.run = staticmethod(recording("B2", sv.vpu_bluestein_batch_minor))
         ftt.VpuDdFftPlan.run = staticmethod(recording("B6", dv.vpu_dd_fft_batch_minor))
         rfft_module.stockham_vpu = types.SimpleNamespace(**{
@@ -2310,6 +2396,16 @@ def main() -> int:
             """The kernels of the cached axis plans' trees (batch-minor)."""
             return set().union(*(_c2c_kernels(plan_tree(p)) for p in
                                  signal_module._axis_plans(sizes, dt, dev)))
+
+        def nd_kernels(sizes, dt, call):
+            """The kernels of an N-D complex call through ndim's surface: B1s
+            where it runs in place (SURFACE_ROUTES[call]), else c2c's."""
+            route = ({"B1s"} if in_place(sizes, signal_module._axis_plans(sizes, dt, dev), dt)
+                     else c2c(sizes, dt))
+            check((route == {"B1s"}) == (SURFACE_ROUTES[call] == "in place"),
+                  f"signal {call}: the route runs {sorted(route)}, SURFACE_ROUTES says "
+                  f"{SURFACE_ROUTES[call]}")
+            return route
 
         def major(n):
             """The kernels of the cached complex64 plan of n, batch-major."""
@@ -2400,7 +2496,8 @@ def main() -> int:
         im2 = planes(*SURF_2D)[0]
         with oracle():
             want = ss.hilbert2(host(im2).astype(np.float64))
-        ran(f"hilbert2 {SURF_2D} f32", ftt.hilbert2(im2), c2c(SURF_2D, c64), want, SIG_GATE)
+        ran(f"hilbert2 {SURF_2D} f32", ftt.hilbert2(im2),
+            nd_kernels(SURF_2D, c64, "hilbert2 (4096, 4096) f32"), want, SIG_GATE)
         (rb, rn), rnum = SIG_RESAMPLE
         aud = planes(rb, rn)[0]
         with oracle():
@@ -2501,14 +2598,17 @@ def main() -> int:
                     ss.fftconvolve(h_imgc.astype(np.complex128),
                                    h_psfc.astype(np.complex128), "same")]
         backend_calls = [
-            (f"fft2 {SURF_2D} c64", lambda: sfft.fft2(hx2), c2c(SURF_2D, c64),
+            (f"fft2 {SURF_2D} c64", lambda: sfft.fft2(hx2),
+             nd_kernels(SURF_2D, c64, "scipy backend fft2 (4096, 4096) c64"),
              REL_L2_GATE * math.sqrt(2)),
             (f"rfft {SURF_2D} f32", lambda: sfft.rfft(hr2), real(SURF_2D[1], c64, "major"),
              REL_L2_GATE),
             (f"dctn type 2 {SURF_2D} f32", lambda: sfft.dctn(hr2, 2), dct_held,
              REL_L2_GATE * math.sqrt(2)),
             (f"scipy.signal.fftconvolve {SIG_IMAGE} * {SIG_PSF} same c64",
-             lambda: ss.fftconvolve(h_imgc, h_psfc, "same"), c2c(full, c64), SIG_GATE)]
+             lambda: ss.fftconvolve(h_imgc, h_psfc, "same"),
+             nd_kernels(full, c64, "scipy backend fftn/ifftn of scipy's fftconvolve c64"),
+             SIG_GATE)]
         for (what, call, held, gate), w_ in zip(backend_calls, want):
             with sfft.set_backend(ftt.scipy_fft_backend, only=True):
                 out = call()
@@ -2528,11 +2628,12 @@ def main() -> int:
               flush=True)
 
         ftt.VpuFftPlan.run = staticmethod(sv.vpu_fft_batch_minor)
+        ftt.VpuFftPlan.run_strided = staticmethod(sv.vpu_fft_strided)
         ftt.VpuBluesteinPlan.run = staticmethod(sv.vpu_bluestein_batch_minor)
         ftt.VpuDdFftPlan.run = staticmethod(dv.vpu_dd_fft_batch_minor)
         rfft_module.stockham_vpu = sv
         split_module.dd_combine = dc
-        for kernel in ("B1", "B4a", "B4b", "B6"):
+        for kernel in ("B1", "B4a", "B4b", "B6", "B1s"):
             check(slice_launches[kernel] > 0, f"phase 4j launched {kernel} no time")
         for kernel in ("B1", "B2", "B4b", "B5a", "B5b", "B6"):
             if route_shapes[kernel]:
@@ -2562,6 +2663,84 @@ def main() -> int:
                     conv128=conv128, rows=rows, im2=im2, aud=aud, rowsc=rowsc, sp=sp)
 
     slice_inputs = signal_runs()
+
+    # 4p. B1s, B1's clustered body on a complex64 tensor where it lies
+    # (csrc/fft_pair_strided.cu, the surface's in-place route): at
+    # STRIDED_CASES and at every (shape, axis) phases 4i and 4j gave it, in
+    # four modes, into a new tensor and in place (bitwise the same), against
+    # its plain version on the whole tensor and np.fft in f64 (on the whole
+    # tensor, or on the first STRIDED_HOST images of STRIDED_TIME); a NaN in
+    # one column of each layout stays in its column.
+    def vs_plain_c(got, plain):
+        """rel-L2 and max abs error of complex `got` against `plain` in f64,
+        a few rows of dim 0 at a time (STRIDED_TIME's tensors would take
+        24 GB at once)."""
+        num = den = mx = 0.0
+        for g, w in zip(got.split(4), plain.split(4)):
+            w = w.to(torch.complex128)
+            d = g.to(torch.complex128) - w
+            num += float(d.abs().square().sum())
+            den += float(w.abs().square().sum())
+            mx = max(mx, float(torch.view_as_real(d).abs().max()))
+        return math.sqrt(num / den), mx
+
+    def strided_runs():
+        t0 = time.perf_counter()
+        zero_counts()
+        cases = sorted(set(STRIDED_CASES) | strided_shapes)
+        modes = (Transform.FFT, Transform.IFFT, Transform.SQRT_SCALED_FFT,
+                 Transform.SQRT_SCALED_IFFT)
+        worst_p = worst_h = 0.0
+        max_abs_err["B1s"] = 0.0
+        for shape, axis in cases:
+            n = shape[axis]
+            plan = ftt.create_fft(n, torch.complex64, device=dev)
+            check(isinstance(plan, ftt.VpuFftPlan) and plan.strided,
+                  f"B1s at n={n}: the plan has no body where the tensor lies")
+            x = torch.complex(torch.randn(*shape, generator=gen, device=dev),
+                              torch.randn(*shape, generator=gen, device=dev))
+            host = slice(0, STRIDED_HOST if shape == STRIDED_TIME else None)
+            xh = x[host].cpu().numpy().astype(np.complex128)
+            for mode in modes:
+                fwd, scale = mode.is_forward, mode.scale(n)
+                want = (np.fft.fft(xh, axis=axis) if fwd
+                        else np.fft.ifft(xh, axis=axis) * n) * (scale or 1.0)
+                plain = sv.vpu_fft_strided_reference(x, axis, n, plan.tables(fwd), fwd, scale)
+                got = plan.transform_strided(x, axis, fwd, scale)
+                y = x.clone()
+                check(plan.transform_strided(y, axis, fwd, scale, out=y) is y,
+                      "B1s in place returned another tensor")
+                torch.cuda.synchronize()
+                (e_p, mx), e_h = vs_plain_c(got, plain), rel_l2(got[host].cpu().numpy(), want)
+                worst_p, worst_h = max(worst_p, e_p), max(worst_h, e_h)
+                max_abs_err["B1s"] = max(max_abs_err["B1s"], mx)
+                same = torch.equal(got, y)
+                check(same and e_p <= REL_L2_GATE and e_h <= REL_L2_GATE,
+                      f"B1s {shape} axis {axis} {mode.name}: rel-L2 {e_p:.3e} vs plain, "
+                      f"{e_h:.3e} vs np.fft; in place equal {same}")
+                del want, plain, got, y
+            del x, xh
+        plan = ftt.create_fft(4096, torch.complex64, device=dev)
+        x = torch.randn(6, 4096, 8, dtype=torch.complex64, device=dev)
+        x[2, 100, 3] = float("nan")
+        for xv, axis, col in ((x, 1, (2, slice(None), 3)),
+                              (x.transpose(1, 2).contiguous(), 2, (2, 3, slice(None)))):
+            bad = ~torch.isfinite(plan.transform_strided(xv, axis, True, None))
+            check(bool(bad[col].all()) and int(bad.sum()) == 4096,
+                  f"B1s axis {axis}: a NaN spread to {int(bad.sum())} values, not its column")
+        ran_ = counts()["B1s"]
+        check(ran_ == 2 * len(modes) * len(cases) + 2,
+              f"B1s launched {ran_} times, {2 * len(modes) * len(cases) + 2} expected")
+        for k, v in counts().items():
+            path_launches[k] += v
+        print(f"B1s (where it lies) at {len(cases)} (shape, axis) x {len(modes)} modes, "
+              f"new tensor and in place: {cases}; worst rel-L2 {worst_p:.3e} vs plain, "
+              f"{worst_h:.3e} vs np.fft in f64 (gate {REL_L2_GATE:g}); max abs err "
+              f"{max_abs_err['B1s']:.3e} vs plain; a NaN stays in its "
+              f"column in both layouts; phase 4p {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+    strided_runs()
 
     # 4k. The plan tooling on the card: plan files, measured planning and
     # the exported programs, each with the counts zeroed before it and the
@@ -4274,6 +4453,95 @@ def main() -> int:
     sharded_times()
     dist.destroy_process_group()
 
+    # 5l. B1s at STRIDED_TIME (fft2d-4096.x1-b32's images): each layout's
+    # pass alone, into a new tensor and in place, beside the byte bound (one
+    # read and one write of the tensor at HBM_RATE), its plain version,
+    # torch.fft.fft along the same axis and B1 on planes of the same points;
+    # fft2 and ifft2 in place and over planes (ndim.py's route before the
+    # in-place passes, which every other call keeps); and torch.fft.fft2,
+    # the yardstick, which the port never calls. The kernels line takes a
+    # pass's mean over the two layouts (new tensor). Then fft2 over axes
+    # (0, 1) of STRIDED_THIN's channels-last images in the surface's route,
+    # every pass forced in place, and every pass over planes.
+    def strided_times():
+        ndim_module = sys.modules["fourier_tpu_torch.ndim"]
+        b, n0, n1 = STRIDED_TIME
+        x = torch.complex(torch.randn(b, n0, n1, generator=gen, device=dev),
+                          torch.randn(b, n0, n1, generator=gen, device=dev))
+        out = torch.empty_like(x)
+        p0, p1 = (ftt.create_fft(n, torch.complex64, device=dev) for n in (n0, n1))
+        bound = 2 * x.numel() * x.element_size() / HBM_RATE * 1e3
+
+        def t_ms(fn):
+            return median_ms(lambda *_: (fn(), None), None, None, SURF_CHAIN)
+
+        rows = [
+            ("strided column (axis 1), new tensor",
+             t_ms(lambda: p0.transform_strided(x, 1, True, None, out=out))),
+            ("strided column (axis 1), in place",
+             t_ms(lambda: p0.transform_strided(out, 1, True, None, out=out))),
+            ("contiguous row (axis 2), new tensor",
+             t_ms(lambda: p1.transform_strided(x, 2, True, None, out=out))),
+            ("contiguous row (axis 2), in place",
+             t_ms(lambda: p1.transform_strided(out, 2, True, None, out=out))),
+        ]
+        del out
+        for axis, p_ in ((1, p0), (2, p1)):
+            rows += [(f"plain version (axis {axis})", t_ms(
+                lambda: sv.vpu_fft_strided_reference(x, axis, p_.size, p_.tables(True),
+                                                     True, None))),
+                     (f"torch.fft.fft (axis {axis})",
+                      t_ms(lambda: torch.fft.fft(x, dim=axis)))]
+        by = dict(rows)
+        kernel_ms["B1s"] = tuple(
+            (by[a] + by[b_]) / 2 for a, b_ in (
+                ("strided column (axis 1), new tensor", "contiguous row (axis 2), new tensor"),
+                ("plain version (axis 1)", "plain version (axis 2)"),
+                ("torch.fft.fft (axis 1)", "torch.fft.fft (axis 2)")))
+        bounds["B1s"] = (bound, "bytes")
+        re_t = torch.randn(n1, b * n0, generator=gen, device=dev)
+        im_t = torch.randn(n1, b * n0, generator=gen, device=dev)
+        rows.append((f"B1 on ({n1}, {b * n0}) planes",
+                     t_ms(lambda: p1.transform_planar_bm(re_t, im_t))))
+        del re_t, im_t
+        rows += [("fft2, in place", t_ms(lambda: ftt.fft2(x))),
+                 ("ifft2, in place", t_ms(lambda: ftt.ifft2(x)))]
+        on_card = ndim_module._card
+        ndim_module._card = lambda _x: False
+        try:
+            rows += [("fft2 over planes", t_ms(lambda: ftt.fft2(x))),
+                     ("ifft2 over planes", t_ms(lambda: ftt.ifft2(x)))]
+        finally:
+            ndim_module._card = on_card
+        rows.append(("torch.fft.fft2 (library_ms)", t_ms(lambda: torch.fft.fft2(x))))
+        print(f"B1s times at {STRIDED_TIME} c64 on {card} (byte bound a pass "
+              f"{bound:.3f} ms): " + "; ".join(
+                  f"{what} {ms:.3f} ms ({100 * bound / ms:.1f}% of a pass's bound)"
+                  for what, ms in rows), flush=True)
+        del x
+        strided_passes, on_card = ndim_module._strided_passes, ndim_module._card
+        for shape in STRIDED_THIN:
+            x = torch.randn(*shape, dtype=torch.complex64, device=dev)
+            plans = ndim_module._axis_plans(shape[:2], torch.complex64, dev)
+            route = ndim_module._in_place_passes(x, (0, 1), plans)
+            thin = [("surface's route", t_ms(lambda: ftt.fft2(x, axes=(0, 1))))]
+            ndim_module._strided_passes = lambda shape_, dev_, axes, plans_: [True] * len(plans_)
+            try:
+                thin.append(("every pass in place", t_ms(lambda: ftt.fft2(x, axes=(0, 1)))))
+            finally:
+                ndim_module._strided_passes = strided_passes
+            ndim_module._card = lambda _x: False
+            try:
+                thin.append(("every pass over planes", t_ms(lambda: ftt.fft2(x, axes=(0, 1)))))
+            finally:
+                ndim_module._card = on_card
+            print(f"fft2 axes (0, 1) of {shape} c64 on {card}, passes in place "
+                  f"{route}: " + "; ".join(f"{what} {ms:.3f} ms" for what, ms in thin),
+                  flush=True)
+            del x
+
+    strided_times()
+
     kernels = (
         ("B1", "B1 fused Stockham c64 (vpu_fft_batch_minor; clustered-block body, "
          "the stage body of stockham_vpu.cu at the other n)", 422),
@@ -4311,16 +4579,22 @@ def main() -> int:
                  "B4a": sv.PAIR_LIBRARY, "B4b": sv.IRFFT_UNPACK_PAIR_LIBRARY,
                  "B5a": sv.RFFT_ODD_PAIR_LIBRARY, "B5b": sv.IRFFT_ODD_PAIR_LIBRARY,
                  "B6": dv.FFT_PAIR_DD_LIBRARY}
+    # B1s takes the place of the JAX package's pass an axis over planes (its
+    # moveaxis and B1), not of a Pallas kernel.
     rows = ([(k, name, pair_libs.get(k, sv.LIBRARY),
-              f"stockham_vpu.py:{line}") for k, name, line in kernels]
-            + [(k, name, pair_libs.get(k, dv.LIBRARY), where)
+              f"ops/pallas/stockham_vpu.py:{line}") for k, name, line in kernels]
+            + [(k, name, pair_libs.get(k, dv.LIBRARY), f"ops/pallas/{where}")
                for k, name, where in dd_kernels]
-            + [(k, name, bk.MMA_LIBRARY, where) for k, name, where in b9_kernels])
+            + [(k, name, bk.MMA_LIBRARY, f"ops/pallas/{where}")
+               for k, name, where in b9_kernels]
+            + [("B1s", "B1s B1's clustered body on c64 where it lies (vpu_fft_strided; "
+                "the N-D surface's passes, strided column and contiguous row)",
+                sv.FFT_PAIR_STRIDED_LIBRARY, "ndim.py:80")])
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
         "source": f"fourier_tpu_torch/csrc/{lib}.cu",
-        "replaces": f"fourier_tpu/ops/pallas/{where}",
+        "replaces": f"fourier_tpu/{where}",
         "launches": path_launches[k],
         "max_abs_err": max_abs_err[k],
         "ms": kernel_ms[k][0],

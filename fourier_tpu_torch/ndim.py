@@ -27,16 +27,36 @@ An axis never runs on another device than its plan's: a mismatch raises.
 The module functions run the planner's cached 1-D plans (``_axis_plans``);
 only an ``NdFftPlan`` owns plans of its own.
 
+In place: a pass of a complex64 transform on a CUDA device whose axis
+plan is a ``VpuFftPlan`` with B1's clustered body on a tensor where it
+lies (``VpuFftPlan.strided``: B1's clustered sizes up to 4096, not
+B1_STAGE_FASTER) runs no plane at all, where that body fills its tiles
+along the axis (``VpuFftPlan.fills_strided``: the last axis, or one with at
+least half a tile's columns after it). It runs B1 on the contiguous complex
+tensor as it lies, the axis read and written at the tensor's strides
+(``VpuFftPlan.transform_strided``): the first pass into a new tensor, the
+others in place on it, the last one with the whole transform's scale. Where
+every pass runs so, no copy, join or scale pass is left and the result is
+contiguous; the other passes of a call (the 3 channels' axis of an
+(H, W, 3) image, say) then run over planes, unscaled, as below. This
+leaves the JAX package's route (planes an axis, as above), which every
+other call keeps: complex128, other sizes and plans, CPU tensors, a tensor
+that records a gradient, the planar calls and the real family.
+
 Spans (``fourier_tpu_torch.trace``): each public call is a ``call``, each
 pass an ``axis`` (attribute ``axis``, the original axis), and the layout
 work alone, never a plan's call, ``layout.to_front`` (the copy that brings
-an axis to the front), ``layout.scale`` (the normalization's multiply) and
-``layout.join`` (planes joined into a complex tensor).
+an axis to the front, or makes an input contiguous for the in-place
+passes), ``layout.scale`` (the normalization's multiply) and
+``layout.join`` (planes joined into a complex tensor). Counts: one
+``axis.in_place`` a pass of the in-place route, one ``axis.copied`` a pass
+over planes.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import math
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -44,6 +64,7 @@ import torch
 from fourier_tpu_torch import trace
 from fourier_tpu_torch.plan.base import complex_dtype, resolve_device
 from fourier_tpu_torch.plan.planner import create_fft
+from fourier_tpu_torch.plan.vpu import VpuFftPlan
 from fourier_tpu_torch.precision import planes as dd_planes
 from fourier_tpu_torch.transform import Transform
 
@@ -82,6 +103,7 @@ def _c2c(planes, dims, axis_plans, mode: Transform):
             ore, oim = plan.transform_planar_bm(re.reshape(shape[0], -1),
                                                 im.reshape(shape[0], -1), mode)
             planes = (ore.reshape(shape), oim.reshape(shape))
+        trace.count("axis.copied")
     return planes, dims
 
 
@@ -99,16 +121,80 @@ def _run(planes, dims, axes, plans, transform: Transform):
     return planes, dims
 
 
-def _transform_axes(x: torch.Tensor, axes, plans, transform: Transform):
+def _card(x: torch.Tensor) -> bool:
+    """Whether `x` lies on a CUDA device, where B1 runs on a tensor as it
+    lies."""
+    return x.device.type == "cuda"
+
+
+def _strided_passes(shape, device, axes, plans) -> List[bool]:
+    """For each (axis, plan) pass over a contiguous complex64 tensor of
+    `shape` on `device`, whether B1 runs it on the tensor where it lies:
+    the plan a ``VpuFftPlan`` on `device` whose body fills its tiles along
+    the axis (``VpuFftPlan.fills_strided``)."""
+    return [isinstance(p, VpuFftPlan) and p.device == device
+            and p.fills_strided(math.prod(shape[axis % len(shape) + 1:]))
+            for axis, p in zip(axes, plans)]
+
+
+def _in_place_passes(x: torch.Tensor, axes, plans) -> List[bool]:
+    """For each (axis, plan) pass over `x`, whether it runs in place: `x`
+    complex64 on a card (:func:`_card`) and not recording a gradient (the
+    planes' calls carry the VJP), and :func:`_strided_passes`."""
+    if (x.dtype != torch.complex64 or not _card(x)
+            or (x.requires_grad and torch.is_grad_enabled())):
+        return [False] * len(plans)
+    return _strided_passes(tuple(x.shape), x.device, axes, plans)
+
+
+def _transform_in_place(x: torch.Tensor, axes, plans, forward: bool,
+                        scale: Optional[float]):
+    """Complex64 `x` transformed over `axes` in the `forward` direction,
+    one pass of B1 an axis on the tensor where it lies, the last pass times
+    `scale` (None: 1): a new contiguous tensor."""
+    if not x.is_contiguous():
+        with trace.span("layout.to_front"):
+            x = x.contiguous()
+    out = None
+    for i, (axis, plan) in enumerate(zip(axes, plans)):
+        with trace.span("axis", axis=axis):
+            out = plan.transform_strided(x if out is None else out, axis, forward,
+                                         scale if i == len(plans) - 1 else None, out=out)
+        trace.count("axis.in_place")
+    return out
+
+
+def _transform_axes(x: torch.Tensor, axes, plans, transform: Transform,
+                    divide: bool = False):
     """Complex `x` (a tensor on the plans' device) transformed over `axes`,
-    a complex tensor of the plans' dtype in `x`'s axis order."""
+    a complex tensor of the plans' dtype in `x`'s axis order; `divide`: also
+    divided by the transformed size (numpy's ``norm="forward"``). The passes
+    that :func:`_in_place_passes` allows run first, in place, the last of
+    them with the whole scale; the others over planes."""
     dtype = plans[0].dtype
     if not x.is_complex() or x.dtype != dtype:
         x = x.to(dtype)
-    planes, dims = _memory_order((x.real, x.imag))
-    planes = _restore(*_run(planes, dims, axes, plans, transform))
+    transform = Transform(transform)
+    size = int(np.prod([p.size for p in plans], dtype=np.int64))
+    in_place = _in_place_passes(x, axes, plans)
+    if not any(in_place):
+        planes, dims = _run(*_memory_order((x.real, x.imag)), axes, plans, transform)
+    else:
+        x = _transform_in_place(x, [a for a, i in zip(axes, in_place) if i],
+                                [p for p, i in zip(plans, in_place) if i],
+                                transform.is_forward,
+                                1.0 / size if divide else transform.scale(size))
+        if all(in_place):
+            return x
+        mode = Transform.FFT if transform.is_forward else Transform.UNSCALED_IFFT
+        planes, dims = _c2c(*_memory_order((x.real, x.imag)),
+                            [(a, p) for a, p, i in zip(axes, plans, in_place) if not i], mode)
     with trace.span("layout.join"):
-        return torch.complex(*planes)
+        out = torch.complex(*_restore(planes, dims))
+    if divide and not any(in_place):
+        with trace.span("layout.scale"):
+            out = out / size
+    return out
 
 
 def _axis_plans(sizes, dtype, device):
@@ -303,10 +389,7 @@ def _fftn_impl(x, s, axes, norm, ndim, dtype, forward: bool, device):
             xt = _crop_pad_axis(xt, int(n), ax)
     mode, fwd_scale = _norm_mode(norm, forward)
     plans = _axis_plans([xt.shape[a] for a in axes], dtype, xt.device)
-    out = _transform_axes(xt, axes, plans, mode)
-    if fwd_scale:
-        with trace.span("layout.scale"):
-            out = out / int(np.prod([p.size for p in plans], dtype=np.int64))
+    out = _transform_axes(xt, axes, plans, mode, divide=fwd_scale)
     return out.detach().cpu().numpy() if as_numpy else out
 
 

@@ -15,6 +15,15 @@ Port of ``fourier_tpu/ops/pallas/stockham_vpu.py`` (all of its kernels):
   2048, of four for 14 n in (2048, 4096]) but those of B1_STAGE_FASTER, and
   the stage body of ``csrc/stockham_vpu.cu`` at the rest of its domain
   (those, 3000, 3240, 4320, the pure powers of 3 and 5, n above 4096);
+* B1 on a complex64 tensor where it lies, for the N-D surface's passes
+  (``ndim.py``): :func:`vpu_fft_strided_reference` (the axis moved to the
+  front of B1's plain version) and the wrapper :func:`vpu_fft_strided`,
+  which runs B1's clustered body with an I/O policy of its own
+  (``csrc/fft_pair_strided.cu``, its own library) along one axis of the
+  interleaved tensor, read and written at its strides, in place or not, at
+  the n of :func:`fft_pair_strided_geometry` (B1's clustered sizes but
+  B1_STAGE_FASTER and B1_STRIDED_SPILLED). The JAX package has no such
+  kernel: it runs planes;
 * B2, the fused Bluestein transform: :func:`vpu_bluestein_batch_minor_reference`
   (a port of ``_bluestein_value``) and the wrapper
   :func:`vpu_bluestein_batch_minor`. B2 runs the paired-block body of
@@ -57,9 +66,10 @@ Port of ``fourier_tpu/ops/pallas/stockham_vpu.py`` (all of its kernels):
   B5B_STAGE_FASTER, and the stage body at the others.
 
 The stage bodies are one library, built from ``csrc/stockham_vpu.cu``; the
-clustered-block bodies of B1, B2, B3, B4a, B4b, B5a and B5b
-(``csrc/stockham_pair.cuh``) are a library each, built from
-``csrc/fft_pair.cu``, ``csrc/bluestein_pair.cu``, ``csrc/four_step_pair.cu``,
+clustered-block bodies of B1 (on planes and on complex64 where it lies),
+B2, B3, B4a, B4b, B5a and B5b (``csrc/stockham_pair.cuh``) are a library
+each, built from ``csrc/fft_pair.cu``, ``csrc/fft_pair_strided.cu``,
+``csrc/bluestein_pair.cu``, ``csrc/four_step_pair.cu``,
 ``csrc/rfft_pack_pair.cu``, ``csrc/irfft_unpack_pair.cu``,
 ``csrc/rfft_odd_pair.cu`` and ``csrc/irfft_odd_pair.cu``.
 
@@ -86,6 +96,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -206,6 +217,10 @@ IRFFT_UNPACK_PAIR_ROWS = tuple(h for h in PAIR_ROWS if h != 864)
 # idle, and for B5a mixed-radix heights, whose store takes two steps (1600
 # among the rfft routes' M).
 B1_STAGE_FASTER = frozenset({576, 648, 800, 960, 1000})
+# The heights h = n/C at which ptxas spilled B1's body on a complex64
+# tensor where it lies (csrc/fft_pair_strided.cu) on both cluster sizes, at
+# 512 threads: n = 1440, 1600, 1728, 2880, 3200 and 3456 keep the planes.
+B1_STRIDED_SPILLED = frozenset({720, 800, 864})
 B2_STAGE_FASTER = frozenset({64, 72, 120, 320, 576, 600, 640, 648, 800, 960, 1000})
 B5A_STAGE_FASTER = frozenset({64, 72, 120, 200, 320, 576, 600, 640, 648, 800, 864,
                               960, 1000, 1080, 1600})
@@ -414,6 +429,16 @@ def fft_pair_geometry(n: int) -> Optional[PairGeometry]:
     return None
 
 
+def fft_pair_strided_geometry(n: int) -> Optional[PairGeometry]:
+    """The launch of B1's clustered body on a complex64 tensor where it lies
+    (``csrc/fft_pair_strided.cu``) at n: B1's (:func:`fft_pair_geometry`),
+    or None where B1 launches its stage body (no clustered body, or n in
+    B1_STAGE_FASTER), which has no such form, and at the heights of
+    B1_STRIDED_SPILLED."""
+    geo = None if n in B1_STAGE_FASTER else fft_pair_geometry(n)
+    return None if geo is None or geo.rows in B1_STRIDED_SPILLED else geo
+
+
 def four_step_pair_geometry(p: int) -> Optional[PairGeometry]:
     """B3's clustered-block launch at row size p, B1's tile
     (:func:`fft_pair_geometry`): clusters of two or four blocks of p/C rows,
@@ -579,6 +604,11 @@ IRFFT_ODD_PAIR_LIBRARY = "irfft_odd_pair"  # csrc/irfft_odd_pair.cu: B5b's
 IRFFT_ODD_PAIR_ENTRY_POINTS = {
     "fourier_irfft_odd_unpack_pair_c64": [_P] * 3 + [_I] * 6 + [_P] * 11 + [_F, _I, _P],
 }
+# csrc/fft_pair_strided.cu: B1's clustered bodies on complex64 where it lies
+FFT_PAIR_STRIDED_LIBRARY = "fft_pair_strided"
+FFT_PAIR_STRIDED_ENTRY_POINTS = {
+    "fourier_fft_pair_strided_c64": [_P] * 2 + [_I] * 7 + [_P] * 3 + [_I, _F, _I, _P],
+}
 
 
 def library():
@@ -619,6 +649,12 @@ def four_step_pair_library():
 def irfft_odd_pair_library():
     """Build (at first use) and load B5b's paired-block library."""
     return build.bind(IRFFT_ODD_PAIR_LIBRARY, IRFFT_ODD_PAIR_ENTRY_POINTS)
+
+
+def fft_pair_strided_library():
+    """Build (at first use) and load the library of B1's clustered bodies on
+    complex64 tensors where they lie."""
+    return build.bind(FFT_PAIR_STRIDED_LIBRARY, FFT_PAIR_STRIDED_ENTRY_POINTS)
 
 
 def fft_pair_clusters(n: int, device) -> int:
@@ -749,6 +785,94 @@ def _vpu_fft_op(re_t: Tensor, im_t: Tensor, n: int, forward: bool,
 @_vpu_fft_op.register_fake
 def _(re_t, im_t, *_):
     return torch.empty_like(re_t), torch.empty_like(im_t)
+
+
+def vpu_fft_strided_reference(x, axis: int, n: int, tables, forward: bool,
+                              scale: Optional[float]):
+    """Plain PyTorch of B1 along `axis` of a complex64 tensor: the axis moved
+    to the front of (n, rest) planes, :func:`vpu_fft_batch_minor_reference`,
+    and the result moved back (a new contiguous tensor)."""
+    t = x.movedim(axis, 0)
+    re, im = vpu_fft_batch_minor_reference(t.real.reshape(n, -1), t.imag.reshape(n, -1),
+                                           n, tables, forward, scale)
+    return torch.complex(re, im).reshape(t.shape).movedim(0, axis).contiguous()
+
+
+def vpu_fft_strided(x, axis: int, n: int, forward: bool, scale: Optional[float], *,
+                    tables, pair_tables=None, out=None):
+    """B1 along `axis` of the contiguous complex64 tensor `x`, read and
+    written where it lies: the tensor viewed as (outer, n, inner) around the
+    axis, no plane copied, the scale applied in the pass. Returns `out`: a
+    new contiguous tensor where None, else `out`, a contiguous complex64
+    tensor of x's shape on its device, which may be `x` itself (the pass then
+    runs in place) but may not overlap it otherwise.
+
+    `tables`: the compact stage tables of :func:`make_stage_tables` (the
+    plain version); `pair_tables`: the forward (2, L) f32 :func:`pair_tables`
+    of n on B1's clusters, which the body reads in both directions. n must
+    have a body (:func:`fft_pair_strided_geometry`). On a card the launch is
+    the operator ``fourier_tpu_torch::vpu_fft_strided``
+    (``csrc/fft_pair_strided.cu``); on the CPU the plain version
+    (:func:`vpu_fft_strided_reference`) runs.
+    """
+    if not isinstance(x, torch.Tensor) or x.dtype != torch.complex64:
+        raise TypeError("B1 on a tensor where it lies takes a complex64 tensor")
+    if not x.is_contiguous():
+        raise ValueError("B1 on a tensor where it lies takes a contiguous tensor")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"B1 runs on CPU or CUDA tensors, not {x.device}")
+    axis = axis % x.ndim if x.ndim else 0
+    if x.ndim == 0 or x.shape[axis] != n:
+        raise ValueError(f"axis {axis} of a tensor of shape {tuple(x.shape)} is not "
+                         f"of length n={n}")
+    if fft_pair_strided_geometry(n) is None:
+        raise ValueError(f"B1 has no clustered-block body on a tensor where it lies "
+                         f"at n={n}")
+    if out is None:
+        out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    elif out is not x:
+        if (out.dtype != x.dtype or out.shape != x.shape or out.device != x.device
+                or not out.is_contiguous()):
+            raise ValueError("out must be a contiguous complex64 tensor of x's shape "
+                             "on x's device")
+        if out.untyped_storage().data_ptr() == x.untyped_storage().data_ptr():
+            raise ValueError("out shares x's storage without being x")
+    if x.device.type == "cpu":
+        return out.copy_(vpu_fft_strided_reference(x, axis, n, tables, forward, scale))
+    _vpu_fft_strided_op(out, None if out is x else x, axis, n, forward, scale, pair_tables)
+    return out
+
+
+@torch.library.custom_op("fourier_tpu_torch::vpu_fft_strided", mutates_args=("y",),
+                         device_types="cuda")
+def _vpu_fft_strided_op(y: Tensor, x: Optional[Tensor], axis: int, n: int, forward: bool,
+                        scale: Optional[float], pair_tables: Optional[Tensor]) -> None:
+    """B1's launch on a tensor where it lies (see :func:`vpu_fft_strided`):
+    `x` into `y`, or `y` in place where `x` is None."""
+    src = y if x is None else x
+    if y.numel() == 0:
+        return
+    geo = fft_pair_strided_geometry(n)
+    check_pair_tables(y.device, n, geo.ranks, pair_tables)
+    outer = math.prod(y.shape[:axis])
+    inner = math.prod(y.shape[axis + 1:])
+    if max(outer, inner) > 0x7fffffff:
+        raise ValueError(f"B1 on a tensor where it lies takes at most 2^31 - 1 "
+                         f"transforms a side, got ({outer}, {n}, {inner})")
+    build.launch(
+        "fourier_tpu_torch::vpu_fft_strided",
+        fft_pair_strided_library(), "fourier_fft_pair_strided_c64",
+        f"B1 on ({outer}, {n}, {inner}) where it lies ({geo.ranks}-block clusters)",
+        src.data_ptr(), y.data_ptr(), n, outer, inner, geo.ranks, geo.cols,
+        geo.threads, *radices_arg(pass_schedule(geo.rows)),
+        pair_tables[0].data_ptr(), pair_tables[1].data_ptr(), int(forward),
+        scale_arg(scale), y.device.index, stream_of(y),
+    )
+
+
+@_vpu_fft_strided_op.register_fake
+def _(y, x, *_):
+    return None
 
 
 def chirp_z_reference(re_t, im_t, n: int, m: int, schedule, tables, chirps,

@@ -113,3 +113,32 @@ class VpuFftPlan(FusedStagesPlan):
     make_kernel_tables = staticmethod(stockham_vpu.make_kernel_tables)
     pair_geometry = staticmethod(stockham_vpu.fft_pair_geometry)
     run = staticmethod(stockham_vpu.vpu_fft_batch_minor)
+    run_strided = staticmethod(stockham_vpu.vpu_fft_strided)
+
+    @property
+    def strided(self) -> bool:
+        """Whether B1 runs its clustered body on a complex64 tensor where it
+        lies at this size (:meth:`transform_strided`)."""
+        return stockham_vpu.fft_pair_strided_geometry(self.size) is not None
+
+    def fills_strided(self, inner: int) -> bool:
+        """Whether :meth:`transform_strided` fills its tiles well enough
+        along an axis with `inner` elements after it: the body has a form
+        here (:attr:`strided`), and the axis is the last (a tile takes cols
+        runs of n) or has at least half a tile's cols after it (a tile
+        takes cols columns of one block, so at least half of them live).
+        Fewer, as the 3 channels of an (H, W, 3) image against 8 to 256
+        cols, leave most of every tile idle: on large tensors the planes
+        cost less there (``PERF.md``, its probes of thin axes)."""
+        geo = stockham_vpu.fft_pair_strided_geometry(self.size)
+        return geo is not None and (inner == 1 or 2 * inner >= geo.cols)
+
+    def transform_strided(self, x, axis: int, forward: bool, scale, out=None):
+        """The transform along `axis` of the contiguous complex64 tensor `x`,
+        read and written where it lies, times `scale` (None: 1): into a new
+        tensor, or into `out`, which may be `x` (in place). Sizes where
+        :attr:`strided` is True only; the N-D surface's passes
+        (``ndim.py``)."""
+        return self.run_strided(x, axis, self.size, forward, scale,
+                                tables=self.tables(forward), pair_tables=self.pair_fwd,
+                                out=out)

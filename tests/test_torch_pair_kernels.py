@@ -861,10 +861,11 @@ def test_b6_pair_geometry_over_its_domain():
     (sv.RFFT_ODD_PAIR_LIBRARY, sv.RFFT_ODD_PAIR_ENTRY_POINTS),
     (sv.IRFFT_UNPACK_PAIR_LIBRARY, sv.IRFFT_UNPACK_PAIR_ENTRY_POINTS),
     (sv.IRFFT_ODD_PAIR_LIBRARY, sv.IRFFT_ODD_PAIR_ENTRY_POINTS),
-    (dv.FFT_PAIR_DD_LIBRARY, dv.FFT_PAIR_DD_ENTRY_POINTS)])
+    (dv.FFT_PAIR_DD_LIBRARY, dv.FFT_PAIR_DD_ENTRY_POINTS),
+    (sv.FFT_PAIR_STRIDED_LIBRARY, sv.FFT_PAIR_STRIDED_ENTRY_POINTS)])
 def test_b1_b2_library_entry_points(lib, entry_points):
-    """The clustered-block libraries of B1, B2, B4b, B5a, B5b and B6 include
-    the engine and define each entry point their wrappers bind with as many
+    """The clustered-block libraries of B1 (on planes and on complex64 where
+    it lies), B2, B4b, B5a, B5b and B6 include the engine and define each entry point their wrappers bind with as many
     parameters; every library is built apart."""
     from fourier_tpu_torch.ops.cuda import build
 
@@ -878,7 +879,7 @@ def test_b1_b2_library_entry_points(lib, entry_points):
     libs = (sv.LIBRARY, sv.PAIR_LIBRARY, sv.FFT_PAIR_LIBRARY,
             sv.BLUESTEIN_PAIR_LIBRARY, sv.RFFT_ODD_PAIR_LIBRARY,
             sv.IRFFT_UNPACK_PAIR_LIBRARY, sv.IRFFT_ODD_PAIR_LIBRARY, dv.LIBRARY,
-            dv.FFT_PAIR_DD_LIBRARY)
+            dv.FFT_PAIR_DD_LIBRARY, sv.FFT_PAIR_STRIDED_LIBRARY)
     assert len({build.library_path(name) for name in libs}) == len(libs)
 
 
@@ -1454,6 +1455,173 @@ def test_b3_body_argument_on_the_cpu():
                                        tw_fwd=(plan.tw_fwd[0], plan.tw_fwd[1]), **kw)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert launches("four_step_row") == before
+
+
+# -- B1 on complex64 where it lies (csrc/fft_pair_strided.cu) ----------------
+
+
+def emulate_b1_strided(x, axis, n, forward, scale):
+    """fft_pair_strided_c64 along `axis` of a complex array x, in f64 with
+    the f32 tables, on the index arithmetic of the body: the (outer, n,
+    inner) view; the strided-column layout (inner > 1: tile t = (o, group),
+    rank r's rows copied row-major, pair (row, col) at slot row*cols + col)
+    or the contiguous-row one (inner = 1: tile t the transforms t*cols..,
+    rank r's rows 2m and 2m + 1 of each column side by side, slot
+    (m*cols + (col XOR m mod cols))*2 + row mod 2); the split's
+    pairs read at their slots into fft_pair's radix-C step; the planar
+    passes; X[C*k + r], row k of rank r, stored at position C*k + r of the
+    axis at the tensor's strides, by rank r (strided column) or by the rank
+    whose positions [r*h, (r+1)*h) hold it (contiguous row). The inverse is
+    the forward body on conjugated data.
+    Slots and positions never copied are NaN."""
+    geo = sv.fft_pair_strided_geometry(n)
+    c, h, cols = geo.ranks, geo.rows, geo.cols
+    tab = _cplx(sv.pair_tables(n, True, np.float32, c))
+    outer = int(np.prod(x.shape[:axis], dtype=np.int64))
+    inner = int(np.prod(x.shape[axis + 1:], dtype=np.int64))
+    flat = x.reshape(-1) if forward else np.conj(x.reshape(-1))
+    out = np.full(flat.size, np.nan, complex)
+    rows_layout = inner == 1
+    groups = -(-inner // cols)
+    ntiles = -(-outer // cols) if rows_layout else outer * groups
+    row, col = np.repeat(np.arange(h), cols), np.tile(np.arange(cols), h)
+
+    def slot(r, cc):
+        if rows_layout:  # rows 2m, 2m + 1 side by side, columns XOR (m mod cols)
+            m = r >> 1
+            return (m * cols + (cc ^ (m & (cols - 1)))) * 2 + (r & 1)
+        return r * cols + cc
+
+    def positions(tiles, k):
+        """The flat index of axis position k of each tile's columns, and
+        which columns exist."""
+        if rows_layout:
+            o = tiles[:, None] * cols + col[None, :]
+            return o * n + k[None, :], o < outer
+        o = tiles // groups
+        i = ((tiles - o * groups) * cols)[:, None] + col[None, :]
+        return (o[:, None] * n + k[None, :]) * inner + i, i < inner
+
+    for t0 in range(0, ntiles, CLUSTERS):
+        tiles = np.arange(t0, min(ntiles, t0 + CLUSTERS))
+        bufs = []
+        for rank in range(c):  # rank r copies rows [r*h, (r+1)*h)
+            src, ok = positions(tiles, rank * h + row)
+            buf = np.full((len(tiles), h * cols), np.nan, complex)
+            buf[:, slot(row, col)] = np.where(ok, flat[np.where(ok, src, 0)], np.nan)
+            bufs.append(buf)
+        cl = _Pair(geo, 4, len(tiles))
+
+        def split(rank, r, cc):
+            a = [bufs[s][:, slot(r, cc)] for s in range(c)]
+            rho = -1 if rank & 1 else 1
+            v = (a[0] + rho * a[1] if c == 2 else
+                 a[0] + rho * a[2] + (-1j) ** rank * (a[1] + rho * a[3]))
+            return v if rank == 0 else v * tab[(rank - 1) * h + r]
+
+        cl.passes(sv.pass_schedule(h), tab, True, split)
+        done = np.stack(cl.bufs)  # (C, T, points): row k of rank s is X[c*k + s]
+        for rank in range(c):
+            # Strided column: rank r stores its rows, at positions c*k + r.
+            # Contiguous row: rank r stores positions [r*h, (r+1)*h), each
+            # read from rank j mod c, row j // c.
+            j = rank * h + row if rows_layout else c * row + rank
+            got = done[j % c, :, cl.index(j // c, col)].T * scale
+            dst, ok = positions(tiles, j)
+            out[dst[ok]] = (got if forward else np.conj(got))[ok]
+    return out.reshape(x.shape)
+
+
+# (shape, axis): both layouts on two- and four-block clusters; ragged
+# column groups (inner 5, 13, 100), a ragged group of transforms (19, 37),
+# one transform alone, a mixed-radix height (96: h = 48) and a walk of
+# several rounds of clusters (the (64, 96) rows: 64 transforms, kCols 64).
+B1_STRIDED_EMULATED = [((2, 64, 16), 1), ((3, 64, 5), 1), ((19, 64), 1), ((64,), 0),
+                       ((96, 13), 0), ((4, 96, 7), 1), ((64, 96), 1), ((2160, 3), 0),
+                       ((37, 2160), 1), ((4096, 100), 0), ((9, 4096), 1)]
+
+
+@pytest.mark.parametrize("shape,axis", B1_STRIDED_EMULATED)
+def test_b1_strided_body_emulated(shape, axis):
+    n = shape[axis]
+    plan = VpuFftPlan.create(n, device="cpu")
+    rng = np.random.default_rng(RNG_SEED + n + len(shape))
+    x = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+    xt = torch.as_tensor(x)
+    for mode in Transform:
+        fwd, scale = mode.is_forward, mode.scale(n)
+        got = emulate_b1_strided(x.astype(np.complex128), axis, n, fwd,
+                                 1.0 if scale is None else scale)
+        assert np.isfinite(got).all(), (shape, mode)
+        want = (np.fft.fft(x.astype(np.complex128), axis=axis) if fwd else
+                np.fft.ifft(x.astype(np.complex128), axis=axis) * n) * (scale or 1.0)
+        assert _rel(got, want) <= C64_GATE, (shape, mode)
+        plain = sv.vpu_fft_strided_reference(xt, axis, n, plan.tables(fwd), fwd, scale)
+        assert _rel(got, plain.numpy().astype(np.complex128)) <= C64_GATE, (shape, mode)
+
+
+def test_b1_strided_geometry():
+    """B1 runs where it lies at B1's clustered sizes but B1_STAGE_FASTER and
+    the spilled heights, on B1's launch and tile."""
+    for n in B1_DOMAIN:
+        geo = sv.fft_pair_strided_geometry(n)
+        if (n in sv.B1_STAGE_FASTER or sv.fft_pair_geometry(n) is None
+                or sv.fft_pair_geometry(n).rows in sv.B1_STRIDED_SPILLED):
+            assert geo is None, n
+            continue
+        assert geo == sv.fft_pair_geometry(n) and geo.smem <= SMEM_PER_BLOCK, n
+    assert sv.fft_pair_strided_geometry(4096).ranks == 4
+    src = (CSRC / f"{sv.FFT_PAIR_STRIDED_LIBRARY}.cu").read_text()
+    assert "FOURIER_PAIR_ROWS(FOURIER_B1S_PAIR_CASE)" in src
+    assert "FOURIER_B1_QUAD_ROWS(FOURIER_B1S_QUAD_CASE)" in src
+    spilled, stage = (line for line in src.splitlines() if "if constexpr (" in line
+                      and "H ==" in line)
+    assert sorted(int(h) for h in re.findall(r"H == (\d+)", spilled)) == sorted(
+        sv.B1_STRIDED_SPILLED)
+    assert "C == 2 &&" in stage and sorted(int(h) for h in re.findall(r"H == (\d+)", stage)) \
+        == sorted(n // 2 for n in sv.B1_STAGE_FASTER)
+    assert all(sv.fft_pair_geometry(n).ranks == 2 for n in sv.B1_STAGE_FASTER)
+
+
+@pytest.mark.parametrize("case", ["dtype", "contiguous", "length", "size", "out", "overlap"])
+def test_b1_strided_wrapper_refuses(case):
+    """The wrapper's argument checks raise, on the CPU as on a card."""
+    plan = VpuFftPlan.create(64, device="cpu")
+    x = torch.randn(3, 64, 4, dtype=torch.complex64)
+    args = dict(x=x, axis=1, n=64)
+    err = ValueError
+    if case == "dtype":
+        args["x"], err = x.to(torch.complex128), TypeError
+    elif case == "contiguous":
+        args["x"] = x.transpose(0, 2)
+    elif case == "length":
+        args["axis"] = 2
+    elif case == "size":
+        plan = VpuFftPlan.create(1000, device="cpu")
+        args.update(x=torch.randn(3, 1000, dtype=torch.complex64), n=1000)
+    elif case == "out":
+        args["out"] = torch.empty(3, 64, 5, dtype=torch.complex64)
+    else:
+        args["out"] = x.reshape(-1)[:x.numel()].view(x.shape)
+    with pytest.raises(err):
+        sv.vpu_fft_strided(forward=True, scale=None, tables=plan.tables(True),
+                           pair_tables=plan.pair_fwd, **{"out": None, **args})
+
+
+def test_b1_strided_on_the_cpu_in_place():
+    """On CPU tensors the wrapper runs the plain version into a new tensor,
+    into `out`, or in place, and counts no launch."""
+    plan = VpuFftPlan.create(128, device="cpu")
+    x = torch.randn(5, 128, 3, dtype=torch.complex64)
+    kw = dict(tables=plan.tables(False), pair_tables=plan.pair_fwd)
+    before = launches("vpu_fft_strided")
+    want = sv.vpu_fft_strided_reference(x, 1, 128, kw["tables"], False, 0.5)
+    got = sv.vpu_fft_strided(x, 1, 128, False, 0.5, **kw)
+    assert torch.equal(got, want) and got.data_ptr() != x.data_ptr()
+    y = x.clone()
+    assert sv.vpu_fft_strided(y, -2, 128, False, 0.5, out=y, **kw) is y
+    assert torch.equal(y, want)
+    assert launches("vpu_fft_strided") == before
 
 
 @pytest.fixture
