@@ -38,6 +38,9 @@ plan scales its own axis), so no extra pass scales the result.
 ``pipeline_chunks`` > 1 slices a leg so that a chunk's exchange is in
 flight while the next chunk's copy and kernel run; results are bitwise
 those of one chunk.
+Each public entry (the plans' calls and the batch-sharded functions)
+opens one ``trace.call``, so a sharded call counts one ``calls`` and its
+sub-plans' calls nest under it.
 
 c128 runs native f64 on the ``dd`` route's plans. The JAX package's
 double-word twins (``batched_transform_dd``, ``batched_rfft_dd``,
@@ -52,6 +55,7 @@ registration); ``mesh`` is an attribute.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -59,6 +63,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from fourier_tpu_torch import trace
 from fourier_tpu_torch.ops import cplx
 from fourier_tpu_torch.parallel import exchange as ex
 from fourier_tpu_torch.plan.base import complex_dtype, resolve_device
@@ -200,6 +205,19 @@ def _align(table: torch.Tensor, table_names, names) -> torch.Tensor:
                           else 1 for n in names))
 
 
+def _entry(fn):
+    """A public entry of the sharded surface: one ``trace.call`` around it,
+    so a sharded call counts one ``calls`` and its sub-plans' calls nest
+    under it."""
+    name = fn.__qualname__
+
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        with trace.call(name):
+            return fn(*args, **kwargs)
+    return call
+
+
 # ---------------------------------------------------------------------------
 # Batch sharding
 # ---------------------------------------------------------------------------
@@ -217,6 +235,7 @@ def _batched(planes, mesh, axis: str, step, real_dtype, device) -> tuple:
                  for o in out)
 
 
+@_entry
 def batched_transform(plan, re, im, mesh, axis: str = "batch",
                       transform: Transform = Transform.FFT):
     """Batch-sharded batched FFT: the leading axis split over mesh dim
@@ -226,6 +245,7 @@ def batched_transform(plan, re, im, mesh, axis: str = "batch",
     return _batched((re, im), mesh, axis, _c2c(plan, mode), plan.real_dtype, plan.device)
 
 
+@_entry
 def batched_rfft(plan: RfftPlan, x, mesh, axis: str = "batch"):
     """Batch-sharded real-input FFT: every rank runs the :class:`RfftPlan`'s
     batch-minor call (B4a/B5a on the card) on its shard. Returns the planar
@@ -234,6 +254,7 @@ def batched_rfft(plan: RfftPlan, x, mesh, axis: str = "batch"):
                     plan.real_dtype, plan.device)
 
 
+@_entry
 def batched_irfft(plan: RfftPlan, re, im, mesh, axis: str = "batch"):
     """Inverse of :func:`batched_rfft` (planar one-sided spectrum in, real
     signal out), batch-sharded, no exchange."""
@@ -241,6 +262,7 @@ def batched_irfft(plan: RfftPlan, re, im, mesh, axis: str = "batch"):
                     plan.real_dtype, plan.device)[0]
 
 
+@_entry
 def batched_transform_dd(plan, re_hi, re_lo, im_hi, im_lo, mesh, axis: str = "batch",
                          transform: Transform = Transform.FFT):
     """The double-word twin of :func:`batched_transform` (`plan` a
@@ -251,6 +273,7 @@ def batched_transform_dd(plan, re_hi, re_lo, im_hi, im_lo, mesh, axis: str = "ba
         (re_hi, re_lo, im_hi, im_lo), plan.dtype, "batched_transform", device=plan.device)
 
 
+@_entry
 def batched_rfft_dd(plan: RfftPlan, xh, xl, mesh, axis: str = "batch"):
     """The double-word twin of :func:`batched_rfft`: two real limb planes
     (hi, lo) in, four spectrum planes (re_hi, re_lo, im_hi, im_lo) out."""
@@ -258,6 +281,7 @@ def batched_rfft_dd(plan: RfftPlan, xh, xl, mesh, axis: str = "batch"):
                          plan.dtype, "batched_rfft", device=plan.device)
 
 
+@_entry
 def batched_irfft_dd(plan: RfftPlan, reh, rel, imh, iml, mesh, axis: str = "batch"):
     """Inverse of :func:`batched_rfft_dd`: four spectrum planes in, the two
     real limb planes (hi, lo) out."""
@@ -309,6 +333,7 @@ class _ShardedPlan(torch.nn.Module):
         return dd_planes.run(call, planes, self.dtype, name, *args, device=self.device,
                              **kwargs)
 
+    @_entry
     def transform_planar_dd(self, re_hi, re_lo, im_hi, im_lo,
                             transform: Transform = Transform.FFT):
         """The double-word twin of ``transform_planar``: four f32 planes
@@ -326,19 +351,23 @@ class _ShardedPlan(torch.nn.Module):
         raise ValueError(f"expected {count} plane(s), or {2 * count} double-word "
                          f"(hi, lo) planes, got {len(planes)}")
 
+    @_entry
     def fft_planar(self, *planes):
         """FFT of 2 planes (re, im), or of 4 double-word ones."""
         return self._by_count(self.transform_planar, planes, 2, "transform_planar",
                               Transform.FFT)
 
+    @_entry
     def ifft_planar(self, *planes):
         """IFFT of 2 planes (re, im), or of 4 double-word ones."""
         return self._by_count(self.transform_planar, planes, 2, "transform_planar",
                               Transform.IFFT)
 
+    @_entry
     def fft(self, x):
         return self.transform(x, Transform.FFT)
 
+    @_entry
     def ifft(self, x):
         return self.transform(x, Transform.IFFT)
 
@@ -472,6 +501,7 @@ class FourStepPlan(_ShardedPlan):
         y = [ex.exchange(y[0], group, "n1")]
         return ex.assemble(y, ("b", ("n2", "n1")))
 
+    @_entry
     def transform_planar(self, re, im, transform: Transform = Transform.FFT):
         """Planar (re, im) of shape (..., n1, n2), sharded as (..., None,
         axis) (a DTensor, or the whole tensor): DTensors (..., n1, n2) as
@@ -484,6 +514,7 @@ class FourStepPlan(_ShardedPlan):
         tail = (self.axis,) if self.natural_order else (self.axis, None)
         return _outputs(out, batch, self.mesh, tail)
 
+    @_entry
     def transform(self, x, transform: Transform = Transform.FFT):
         """The whole flat (..., n1*n2) complex signal in, the whole result
         out: flat natural order with ``natural_order=True``, else the
@@ -553,6 +584,7 @@ class Fft2dPlan(_ShardedPlan):
             return ex.assemble(y, ("b", "n2", "n1"))
         return ex.assemble([ex.exchange(y[0], group, "n2")], ("b", "n1", "n2"))
 
+    @_entry
     def transform_planar(self, re, im, transform: Transform = Transform.FFT):
         """Planar (re, im) (..., n1, n2) sharded as (..., axis, None):
         DTensors (..., n1, n2), or (..., n2, n1) with ``transposed_output``,
@@ -563,6 +595,7 @@ class Fft2dPlan(_ShardedPlan):
         out = self._local_steps(*planes, Transform(transform))
         return _outputs(out, batch, self.mesh, (self.axis, None))
 
+    @_entry
     def transform(self, x, transform: Transform = Transform.FFT):
         """The whole (..., n1, n2) complex array in, the whole result out."""
         xt, as_numpy = self._complex(x, (self.n1, self.n2))
@@ -694,6 +727,7 @@ class Fft3dPlan(_Pencils):
                 y = ex.leg(y, "n1", None, gb, "n2")
         return ex.assemble(y, names)
 
+    @_entry
     def transform_planar(self, re, im, transform: Transform = Transform.FFT,
                          from_spectral: bool = False):
         """Planar (re, im) (..., n0, n1, n2) in the natural layout, or the
@@ -708,6 +742,7 @@ class Fft3dPlan(_Pencils):
         tail = spectral if self.spectral_output and not from_spectral else natural
         return _outputs(out, batch, self.mesh, tail)
 
+    @_entry
     def transform_planar_dd(self, re_hi, re_lo, im_hi, im_lo,
                             transform: Transform = Transform.FFT,
                             from_spectral: bool = False):
@@ -716,6 +751,7 @@ class Fft3dPlan(_Pencils):
         return self._dd(self.transform_planar, (re_hi, re_lo, im_hi, im_lo),
                         "transform_planar", transform, from_spectral)
 
+    @_entry
     def transform(self, x, transform: Transform = Transform.FFT,
                   from_spectral: bool = False):
         """The whole (..., n0, n1, n2) complex array in, the whole result out."""
@@ -778,6 +814,7 @@ class Rfft2dPlan(_ShardedPlan):
                 f"out_len={self.out_len}, n2p={self.n2p}, "
                 f"transposed_output={self.transposed_output}")
 
+    @_entry
     def rfft_planar(self, *limbs):
         """A real plane (..., n1, n2) sharded as (..., axis, None): DTensors
         of the one-sided spectrum, (..., n1, n2p), or (..., n2p, n1) with
@@ -801,6 +838,7 @@ class Rfft2dPlan(_ShardedPlan):
             out = ex.assemble([ex.exchange(y[0], group, "n2")], ("b", "n1", "n2"))
         return _outputs(out, batch, self.mesh, (self.axis, None))
 
+    @_entry
     def irfft_planar(self, *planes, from_transposed: bool = False):
         """One-sided spectrum planes (..., n1, n2p), or (..., n2p, n1) with
         ``from_transposed``, sharded as (..., axis, None): the real field
@@ -827,6 +865,7 @@ class Rfft2dPlan(_ShardedPlan):
         (out,) = ex.assemble(y, ("b", "n1", "n2"))
         return _outputs((out,), batch, self.mesh, (self.axis, None))[0]
 
+    @_entry
     def rfft(self, x):
         """np.fft.rfft2 analog: the whole real (..., n1, n2) in, the whole
         complex (..., n1, n2//2+1) out."""
@@ -837,6 +876,7 @@ class Rfft2dPlan(_ShardedPlan):
         out = out[..., :self.out_len]
         return out.detach().cpu().numpy() if as_numpy else out
 
+    @_entry
     def irfft(self, y):
         """np.fft.irfft2 analog: complex (..., n1, n2//2+1) in (the padded
         length too), real (..., n1, n2) out."""
@@ -905,6 +945,7 @@ class Rfft3dPlan(_Pencils):
                 f"spectral_output={self.spectral_output}, "
                 f"pipeline_chunks={self.pipeline_chunks}")
 
+    @_entry
     def rfft_planar(self, *limbs):
         """A real field (..., n0, n1, n2) in the natural layout: DTensors of
         the one-sided spectrum (..., n0, n1, n2p), in the spectral layout
@@ -938,6 +979,7 @@ class Rfft3dPlan(_Pencils):
         out = ex.assemble(y, names)
         return _outputs(out, batch, self.mesh, spectral if self.spectral_output else natural)
 
+    @_entry
     def irfft_planar(self, *planes, from_spectral: bool = False):
         """One-sided spectrum planes (..., n0, n1, n2p), natural layout or
         the spectral one with ``from_spectral``: the real field (..., n0,
@@ -971,6 +1013,7 @@ class Rfft3dPlan(_Pencils):
         (out,) = ex.assemble(y, names)
         return _outputs((out,), batch, self.mesh, natural)[0]
 
+    @_entry
     def rfft(self, x):
         """np.fft.rfftn analog: the whole real (..., n0, n1, n2) in, the
         whole complex (..., n0, n1, n2//2+1) out."""
@@ -979,6 +1022,7 @@ class Rfft3dPlan(_Pencils):
         out = out[..., :self.out_len]
         return out.detach().cpu().numpy() if as_numpy else out
 
+    @_entry
     def irfft(self, y):
         """np.fft.irfftn analog: complex (..., n0, n1, n2//2+1) in (the
         padded length too), real (..., n0, n1, n2) out."""

@@ -14,6 +14,8 @@ surface on the CPU: complex64 <= 1e-6, the real family <= 1e-5, complex128
 <= 1e-12; ``pipeline_chunks`` results bitwise equal to one chunk's.
 """
 
+import weakref
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +23,7 @@ import torch
 import fourier_tpu_torch as tft
 import torch_sharded_world as world_cases
 from fourier_tpu_torch import parallel
+from fourier_tpu_torch.transform import Transform
 
 C64, RFFT, C128 = 1e-6, 1e-5, 1e-12
 N2 = {"32-16": (32, 16), "16-48": (16, 48)}
@@ -602,6 +605,25 @@ def test_copies_per_leg(world, call):
             assert contiguous and len(shape) == 2 and shape[0] == lead, (method, shape)
 
 
+@pytest.mark.parametrize("chunks", [1, 2, 4])
+def test_one_sharded_call_is_one_call(world, chunks):
+    """An Fft2dPlan.transform_planar call counts one ``calls``, its
+    sub-plans' calls nested under it, and one exchange leg a chunk of its
+    row leg plus the leg back to rows: 2 unchunked, C + 1 at C chunks."""
+    got = res(world, "call_counters")[f"fft2d_chunks{chunks}"]
+    assert got == {"calls": 1, "legs": chunks + 1}
+
+
+@pytest.mark.parametrize("entry,legs", [
+    ("fft2d_fft_planar", 2), ("fft2d_transform", 2), ("fft2d_module", 2), ("fft2d_dd", 2),
+    ("four_step", 2), ("fft3d", 4), ("rfft2d_round_trip", 4), ("batched", 0)])
+def test_each_sharded_entry_counts_one_call(world, entry, legs):
+    """Every public entry of the sharded surface counts one call (the
+    round trip two), whatever it calls inside."""
+    got = res(world, "call_counters")[entry]
+    assert got == {"calls": 2 if entry == "rfft2d_round_trip" else 1, "legs": legs}
+
+
 @pytest.fixture(scope="module")
 def world2(tmp_path_factory):
     """A 2-rank world: the exchange's counts and spans."""
@@ -621,3 +643,107 @@ def test_exchange_legs_and_bytes_are_counted(world2):
     assert world2["piped"] == (3, 2 * leg)
     assert world2["transposed"] == (1, leg)
     assert world2["spans"] == ["exchange.issue", "exchange.wait"]
+
+
+# -- the exchange's order of issue, wait and read, on a stand-in transport ---------
+
+
+class _LateTransport:
+    """``torch.distributed`` as ``parallel/exchange.py`` calls it, on a
+    one-rank group whose transport runs late: ``all_to_all_single`` fills the
+    received buffer with NaN and delivers the sent data only when its work
+    is waited for, as an exchange still in flight would; the wait fails if
+    the sent tensor was released, or written, after its issue."""
+
+    def __init__(self):
+        self.issued = self.waited = 0
+
+    def get_world_size(self, group=None):
+        return 1
+
+    def get_rank(self, group=None):
+        return 0
+
+    def all_to_all_single(self, output, input, output_split_sizes=None,
+                          input_split_sizes=None, group=None, async_op=False):
+        assert async_op
+        output.fill_(float("nan"))
+        sent, kept, transport = weakref.ref(input), input.clone(), self
+        transport.issued += 1
+
+        class Work:
+            done = False
+
+            def wait(self):
+                if self.done:
+                    return
+                self.done = True
+                data = sent()
+                assert data is not None, "the sent tensor was released before its wait"
+                assert torch.equal(data, kept), "the sent tensor was written before its wait"
+                output.copy_(data)
+                transport.waited += 1
+        return Work()
+
+
+class _Mesh:
+    """A one-rank stand-in for a DeviceMesh with the dims `names`."""
+
+    device_type = "cpu"
+
+    def __init__(self, *names):
+        self.mesh_dim_names = names
+
+    def size(self, i=0):
+        return 1
+
+    def get_group(self, name):
+        return name
+
+    def get_local_rank(self, name):
+        return 0
+
+
+ORDERING = ["fft2d", "fft2d_chunks2", "fft2d_chunks4", "fft2d_transposed", "four_step",
+            "fft3d_pencils"]
+
+
+def _ordering_cases():
+    x2, x3 = world_cases.cx((2, 16, 32)), world_cases.cx((2, 8, 8, 16))
+    fwd = Transform.FFT
+    return {
+        "fft2d": (lambda: parallel.Fft2dPlan(16, 32, _Mesh("fft")), x2, fwd,
+                  np.fft.fft2(x2.astype(np.complex128))),
+        "fft2d_chunks2": (lambda: parallel.Fft2dPlan(16, 32, _Mesh("fft"), pipeline_chunks=2),
+                          x2, fwd, np.fft.fft2(x2.astype(np.complex128))),
+        "fft2d_chunks4": (lambda: parallel.Fft2dPlan(16, 32, _Mesh("fft"), pipeline_chunks=4),
+                          x2, Transform.IFFT, np.fft.ifft2(x2.astype(np.complex128))),
+        "fft2d_transposed": (lambda: parallel.Fft2dPlan(16, 32, _Mesh("fft"), pipeline_chunks=2,
+                                                        transposed_output=True),
+                             x2, fwd, np.fft.fft2(x2.astype(np.complex128)).swapaxes(-1, -2)),
+        "four_step": (lambda: parallel.FourStepPlan(16, 32, _Mesh("fft"), natural_order=True,
+                                                    pipeline_chunks=2),
+                      x2, fwd, np.fft.fft(x2.reshape(2, -1).astype(np.complex128))),
+        "fft3d_pencils": (lambda: parallel.Fft3dPlan(8, 8, 16, _Mesh("x", "y"), pipeline_chunks=2),
+                          x3, fwd, np.fft.fftn(x3.astype(np.complex128), axes=(-3, -2, -1))),
+    }
+
+
+@pytest.mark.parametrize("name", ORDERING)
+def test_each_piece_is_read_after_its_wait(monkeypatch, name):
+    """Every received piece is read only after its exchange is waited for,
+    and every sent tensor lives unwritten until then: against a transport
+    that delivers at the wait, the per-rank steps give the transform (a
+    read before the wait would carry NaN in), and every exchange issued is
+    waited for."""
+    from fourier_tpu_torch.parallel import exchange as ex
+
+    transport = _LateTransport()
+    monkeypatch.setattr(ex, "dist", transport)
+    make, x, mode, want = _ordering_cases()[name]
+    plan = make()
+    args = (mode, False) if name.startswith("fft3d") else (mode,)
+    out = plan._local_steps(*world_cases.planes(x), *args)
+    got = out[0].numpy() + 1j * out[1].numpy()
+    assert transport.issued > 0 and transport.waited == transport.issued
+    gate(got.reshape(want.shape), want, C64)

@@ -681,6 +681,45 @@ def exchange_counters(ctx):
     return out
 
 
+def _counted(fn) -> dict:
+    """The ``calls`` and ``exchange.legs`` that `fn` adds to the registry."""
+    before = trace.counters().snapshot()
+    fn()
+    d = trace.counters().delta(before)
+    return {"calls": d.get("calls", 0), "legs": d.get("exchange.legs", 0)}
+
+
+@case()
+def call_counters(ctx):
+    """One public call of each sharded entry counts one ``calls`` however
+    many sub-plan calls it makes; an Fft2dPlan call's legs at 1, 2 and 4
+    pipeline chunks."""
+    x2 = planes(cx((16, 32)))
+    out = {f"fft2d_chunks{c}": _counted(lambda: parallel.Fft2dPlan(
+        16, 32, ctx.fft, pipeline_chunks=c).transform_planar(*x2)) for c in (1, 2, 4)}
+    f2 = parallel.Fft2dPlan(16, 32, ctx.fft)
+    four = parallel.FourStepPlan(16, 32, ctx.fft, natural_order=True)
+    f3 = parallel.Fft3dPlan(8, 8, 16, ctx.xy)
+    r2 = parallel.Rfft2dPlan(16, 32, ctx.fft)
+    plan = tft.create_fft(32, device="cpu")
+    c128 = parallel.Fft2dPlan(16, 32, ctx.fft, dtype=torch.complex128)
+    hi = tuple(p.to(torch.float32) for p in planes(cx((16, 32), np.complex128)))
+    calls = {
+        "fft2d_fft_planar": lambda: f2.fft_planar(*x2),
+        "fft2d_transform": lambda: f2.transform(cx((16, 32))),
+        "fft2d_module": lambda: f2(cx((16, 32))),
+        "fft2d_dd": lambda: c128.transform_planar_dd(hi[0], torch.zeros_like(hi[0]), hi[1],
+                                                     torch.zeros_like(hi[1])),
+        "four_step": lambda: four.fft_planar(*planes(cx((16, 32)))),
+        "fft3d": lambda: f3.fft_planar(*planes(cx((8, 8, 16)))),
+        "rfft2d_round_trip": lambda: r2.irfft_planar(*r2.rfft_planar(real((16, 32)))),
+        "batched": lambda: parallel.batched_transform(plan, *planes(cx((16, 32))), ctx.batch),
+    }
+    for name, fn in calls.items():
+        out[name] = _counted(fn)
+    return out
+
+
 @case()
 def three_ranks(ctx):
     """On a 3-rank world: 10 rows refused, 9 rows against the single-device
