@@ -106,6 +106,16 @@ torch.fft.fft along each axis, B1 on the planes of the same points, fft2
 and ifft2 in place and over planes, and torch.fft.fft2 (a B1s row joins
 the kernels line), and fft2 over axes (0, 1) of channels-last images
 (STRIDED_THIN) in the surface's route, all in place and all over planes.
+Phase 4q holds the exchange layer's tiled strided copy ("SC":
+csrc/strided_copy.cu, the operator strided_copy, which every copy of the
+sharded plans' gather and assemble takes, so phases 4l and 4m run it too)
+bitwise against its plain version (Tensor.copy_ a plane) at the three
+copies an Fft2dPlan call of fft2d-4096-sharded.x4-b128 makes on a rank
+(COPY_CELL: leg 1's 4 row chunks, leg 2's 4 pieces, assemble's one), both
+planes a launch, each on the tiled body; phase 5m times each copy beside
+its 2.564 ms byte bound (it fails above COPY_SLACK times that), the plain
+version and Tensor.copy_ of the same permuted views (an SC row joins the
+kernels line).
 Every phase prints its lines;
 any failed check raises, so the exit code is non-zero. The next-to-last
 line is a JSON record of the kernels; the last line is
@@ -150,7 +160,7 @@ KERNEL_OPS = {"B1": "vpu_fft", "B2": "vpu_bluestein", "B3": "four_step_row",
               "B4a": "rfft_pack", "B4b": "irfft_unpack", "B5a": "rfft_odd_pack",
               "B5b": "irfft_odd_unpack", "B6": "vpu_dd_fft", "B7": "vpu_dd_bluestein",
               "B8": "dd_split_combine", "B9a": "mxu_fft_single", "B9b": "mxu_fft_two_phase",
-              "B1s": "vpu_fft_strided"}
+              "B1s": "vpu_fft_strided", "SC": "strided_copy"}
 # The registers of B1's and B6's clustered bodies (fft_pair.cu, fft_pair_dd.cu)
 # before fft_pair took an I/O policy, by blocks a cluster and height (ptxas
 # -v for sm_90a, with the toolkit of the H100's machine); phase 2 prints
@@ -410,6 +420,13 @@ STRIDED_HOST = 2  # images of STRIDED_TIME held against np.fft on the host
 # (VpuFftPlan.fills_strided); in the surface's route, with every pass forced
 # in place and over planes.
 STRIDED_THIN = ((4096, 4096, 3), (4096, 4096, 4), (512, 64, 3))
+# Phases 4q and 5m: the exchange layer's tiled strided copy ("SC":
+# csrc/strided_copy.cu, the operator strided_copy) at the three copies an
+# Fft2dPlan call of fft2d-4096-sharded.x4-b128 makes on a rank: (images,
+# rows a rank, n, ranks, pipeline chunks). Each copy moves both planes of
+# the rank's 2^29 points once: 2.564 ms at the HBM peak.
+COPY_CELL = (128, 1024, 4096, 4, 4)
+COPY_SLACK = 1.3  # each copy's time over its byte bound, at most
 # Phases 4j and 5i: signal.py, spectral.py and the scipy.fft backend at the
 # shapes of an image or audio pipeline, each held against scipy in f64.
 SIG_IMAGE, SIG_PSF = (3968, 3968), (129, 129)  # mode "same": 4096^2 padded
@@ -725,6 +742,36 @@ def _rel_t(got, want) -> float:
     return float((g - w).norm() / w.norm())
 
 
+def copy_cell_pieces(torch, dev, gen, what: str):
+    """(destination planes, source planes) of each launch of one of the
+    three copies of COPY_CELL's call on a rank: "leg1_gather" (its 4 row
+    chunks, n2 to the front), "leg2_gather" (its 4 pieces laid along n1, b
+    last) or "assemble" (the last exchange's (^n2, n1, n2, b) blocks to (b,
+    n1, n2)); random sources, NaN destinations."""
+    b, r, n, ranks, chunks = COPY_CELL
+    c = r // chunks
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def nan(*shape):
+        return torch.full(shape, float("nan"), device=dev)
+
+    if what == "leg1_gather":
+        xs = [rand(b, r, n) for _ in range(2)]
+        return [([nan(n, b, c) for _ in xs], [x.narrow(1, k * c, c).permute(2, 0, 1) for x in xs])
+                for k in range(chunks)]
+    if what == "leg2_gather":
+        dst = [nan(ranks, r, r, b) for _ in range(2)]
+        return [([d.narrow(1, k * c, c) for d in dst],
+                 [rand(ranks, r, b, c).permute(0, 3, 1, 2) for _ in dst]) for k in range(chunks)]
+    return [([nan(b, r, ranks, r) for _ in range(2)],
+             [rand(ranks, r, r, b).permute(3, 1, 0, 2) for _ in range(2)])]
+
+
+COPIES = ("leg1_gather", "leg2_gather", "assemble")
+
+
 def _rank_4m(rank: int, store: str, out_dir: str) -> None:
     """Phase 4m, one rank of SHARD_4M_RANKS gloo ranks on the one card: the
     sharded plans on a mesh of 4 ("fft") and a 2x2 one ("x", "y"), each
@@ -880,6 +927,7 @@ def main() -> int:
     from fourier_tpu_torch.ops.cuda import dd_combine as dc
     from fourier_tpu_torch.ops.cuda import stockham_vpu as sv
     from fourier_tpu_torch.ops.cuda import stockham_vpu_dd as dv
+    from fourier_tpu_torch.ops.cuda import strided_copy as scp
     from fourier_tpu_torch.plan import mxu as mxu_plan
     from fourier_tpu_torch.plan import plan_tree
 
@@ -933,8 +981,9 @@ def main() -> int:
                  sv.FFT_PAIR_LIBRARY, sv.BLUESTEIN_PAIR_LIBRARY, sv.RFFT_ODD_PAIR_LIBRARY,
                  sv.IRFFT_UNPACK_PAIR_LIBRARY, sv.IRFFT_ODD_PAIR_LIBRARY, dv.LIBRARY,
                  dv.FFT_PAIR_DD_LIBRARY, bk.LIBRARY, bk.MMA_LIBRARY,
-                 sv.FFT_PAIR_STRIDED_LIBRARY)
+                 sv.FFT_PAIR_STRIDED_LIBRARY, scp.LIBRARY)
     build.load_all(libraries)
+    scp.library()
     sv.fft_pair_strided_library()
     sv.library()
     sv.pair_library()
@@ -958,8 +1007,9 @@ def main() -> int:
           f"{dv.LIBRARY}.cu (B6-B8, stage bodies and B7's paired bodies), "
           f"{dv.FFT_PAIR_DD_LIBRARY}.cu (B6's clustered bodies), {bk.LIBRARY}.cu "
           f"(the CUDA-core bodies of B9a and B9b), {bk.MMA_LIBRARY}.cu (their "
-          f"tensor-core bodies) and {sv.FFT_PAIR_STRIDED_LIBRARY}.cu (B1's clustered "
-          f"bodies on complex64 where it lies, both layouts) in "
+          f"tensor-core bodies), {sv.FFT_PAIR_STRIDED_LIBRARY}.cu (B1's clustered "
+          f"bodies on complex64 where it lies, both layouts) and {scp.LIBRARY}.cu (the "
+          f"exchange layer's tiled strided copy) in "
           f"{time.perf_counter() - t0:.2f} s; each nvcc: "
           + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(build_times(trace).items(),
                                                           key=lambda kv: -kv[1])),
@@ -2741,6 +2791,39 @@ def main() -> int:
               flush=True)
 
     strided_runs()
+
+    # 4q. The exchange layer's tiled strided copy (SC) at the three copies
+    # of COPY_CELL's call, every launch bitwise against its plain version
+    # (Tensor.copy_ a plane), both planes in one launch, each on the tiled
+    # body; nothing written beside a narrowed destination (NaN kept).
+    def copy_runs():
+        t0 = time.perf_counter()
+        zero_counts()
+        launches = 0
+        for what in COPIES:
+            for dsts, srcs in copy_cell_pieces(torch, dev, gen, what):
+                whole = [d if d._base is None else d._base for d in dsts]
+                want = [w.clone() for w in whole]
+                scp.strided_copy_reference([w.as_strided(d.shape, d.stride(), d.storage_offset())
+                                            for w, d in zip(want, dsts)], srcs)
+                layouts = scp.strided_copy(dsts, srcs)
+                torch.cuda.synchronize()
+                launches += 1
+                check(len(layouts) == 1 and layouts[0].tiled,
+                      f"SC {what}: {layouts}, not one tiled layout")
+                check(all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                          for g, w in zip(whole, want)), f"SC {what} differs from copy_")
+                del whole, want
+        ran_ = counts()["SC"]
+        check(ran_ == launches == 9, f"SC launched {ran_} times, 9 expected")
+        max_abs_err["SC"] = 0.0
+        for k, v in counts().items():
+            path_launches[k] += v
+        print(f"SC (tiled strided copy) at {COPY_CELL} (images, rows a rank, n, ranks, "
+              f"chunks): {', '.join(COPIES)}, {launches} launches of both planes, each "
+              f"bitwise copy_'s; phase 4q {time.perf_counter() - t0:.1f} s", flush=True)
+
+    copy_runs()
 
     # 4k. The plan tooling on the card: plan files, measured planning and
     # the exported programs, each with the counts zeroed before it and the
@@ -4542,6 +4625,35 @@ def main() -> int:
 
     strided_times()
 
+    # 5m. SC at the three copies of COPY_CELL's call (leg 1's 4 chunks
+    # together, leg 2's 4 pieces together, assemble's one), beside each
+    # copy's byte bound, its plain version and Tensor.copy_ of the same
+    # permuted views, which is the plain version's one call (library_ms;
+    # the port never calls it on a card). The kernels line takes the mean
+    # of the three.
+    def copy_times():
+        bound = 2 * 2 * math.prod(COPY_CELL[:3]) * 4 / HBM_RATE * 1e3
+        rows = {}
+        for what in COPIES:
+            pieces = copy_cell_pieces(torch, dev, gen, what)
+
+            def t_ms(fn):
+                return median_ms(lambda *_: ([fn(d, s_) for d, s_ in pieces], None),
+                                 None, None, SURF_CHAIN)
+
+            rows[what] = (t_ms(scp.strided_copy), t_ms(scp.strided_copy_reference),
+                          t_ms(lambda d, s_: [x.copy_(y) for x, y in zip(d, s_)]))
+            del pieces
+            check(rows[what][0] <= COPY_SLACK * bound, f"SC {what}: {rows[what][0]:.3f} ms, "
+                  f"over {COPY_SLACK} x its {bound:.3f} ms bound")
+        kernel_ms["SC"] = tuple(sum(r[i] for r in rows.values()) / len(rows) for i in range(3))
+        bounds["SC"] = (bound, "bytes")
+        print(f"SC times at {COPY_CELL} on {card} (byte bound a copy {bound:.3f} ms): " + "; ".join(
+            f"{what} kernel {k:.3f} ms ({100 * bound / k:.1f}% of its bound), plain {p:.3f}, "
+            f"Tensor.copy_ {lib:.3f}" for what, (k, p, lib) in rows.items()), flush=True)
+
+    copy_times()
+
     kernels = (
         ("B1", "B1 fused Stockham c64 (vpu_fft_batch_minor; clustered-block body, "
          "the stage body of stockham_vpu.cu at the other n)", 422),
@@ -4589,7 +4701,10 @@ def main() -> int:
                for k, name, where in b9_kernels]
             + [("B1s", "B1s B1's clustered body on c64 where it lies (vpu_fft_strided; "
                 "the N-D surface's passes, strided column and contiguous row)",
-                sv.FFT_PAIR_STRIDED_LIBRARY, "ndim.py:80")])
+                sv.FFT_PAIR_STRIDED_LIBRARY, "ndim.py:80")]
+            + [("SC", "SC tiled strided copy (strided_copy; the sharded plans' gather and "
+                "assemble, which the JAX package leaves to XLA's all_to_all and shard_map)",
+                scp.LIBRARY, "parallel/sharded.py")])
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -15,6 +15,13 @@ Port of the plane plumbing of ``fourier_tpu/parallel/sharded.py`` (``_a2a``,
   pieces at once (the chunks of a pipelined leg, each where it belongs) and
   zeroes the padded tail of a dim, so no leg needs a second copy. A single
   piece that already lies so is not copied.
+* Every copy of :func:`gather` and :func:`assemble` is one
+  :func:`~fourier_tpu_torch.ops.cuda.strided_copy.strided_copy` a piece,
+  its planes together (on a card one launch of the tiled strided copy,
+  ``csrc/strided_copy.cu``), under the span ``exchange.copy[what=...]``,
+  counted in ``exchange.copies``, ``exchange.copies.tiled`` (the pieces
+  whose two sides' innermost dims differ) and ``exchange.copy_bytes``
+  (bytes read).
 * :func:`exchange` is ``jax.lax.all_to_all(..., tiled=True)`` with the split
   axis in front: ``torch.distributed.all_to_all_single`` over the mesh dim's
   process group sends contiguous block j of the leading dim to rank j of
@@ -38,6 +45,7 @@ import torch
 import torch.distributed as dist
 
 from fourier_tpu_torch import trace
+from fourier_tpu_torch.ops.cuda.strided_copy import strided_copy
 
 
 def outer(name: str) -> str:
@@ -79,6 +87,17 @@ def _wait(piece: Blocks) -> None:
     with trace.span("exchange.wait"):
         for work, _sent in piece.pending:
             work.wait()
+
+
+def _copy(src: Sequence[torch.Tensor], dst: Sequence[torch.Tensor], what: str) -> None:
+    """One piece's planes `src` into `dst` (views of one shape), counted."""
+    with trace.span("exchange.copy", what=what):
+        layouts = strided_copy(dst, src)
+    if layouts:
+        trace.count("exchange.copies")
+        if any(layout.tiled for layout in layouts):
+            trace.count("exchange.copies.tiled")
+        trace.count("exchange.copy_bytes", sum(s.numel() * s.element_size() for s in src))
 
 
 def _lead(names, name: str) -> tuple:
@@ -127,8 +146,7 @@ def gather(pieces: Sequence[Blocks], name: str, sizes: Optional[Dict[str, int]] 
         else:
             _wait(piece)
             perm = [piece.names.index(n) for n in order]
-            for s, d in zip(src, dst):
-                d.copy_(s.permute(perm))
+            _copy([s.permute(perm) for s in src], dst, "gather")
             continue
         if piece.planes[0].numel() == 0:
             _wait(piece)  # nothing to copy, but the exchange must finish
@@ -223,18 +241,37 @@ def leg(pieces: Sequence[Blocks], name: str, kernel: Optional[Callable] = None,
     return out
 
 
+def _merges(t: torch.Tensor, counts: Sequence[int]) -> bool:
+    """Whether each run of `counts` consecutive dims of `t` merges into one
+    dim by a view (no copy)."""
+    k = 0
+    for c in counts:
+        dims = [d for d in range(k, k + c) if t.shape[d] != 1]
+        if any(t.stride(a) != t.stride(b) * t.shape[b] for a, b in zip(dims, dims[1:])):
+            return False
+        k += c
+    return True
+
+
 def assemble(pieces: Sequence[Blocks], want) -> Tuple[torch.Tensor, ...]:
     """Each plane of the one piece with the dims `want` (a name, or a tuple
     of names merged into one dim, outermost first; every name with its rank
-    blocks outside it): a view where the layout allows it, else one copy."""
+    blocks outside it): a view where the layout allows it, else one copy
+    into new contiguous planes."""
     (b,) = pieces
     _wait(b)
-    order, shape = [], []
+    order, shape, counts = [], [], []
     for group in want:
-        size = 1
+        size, first = 1, len(order)
         for n in ((group,) if isinstance(group, str) else group):
             for m in _lead(b.names, n):
                 order.append(b.names.index(m))
                 size *= b.extent(m)
         shape.append(size)
-    return tuple(p.permute(order).reshape(shape) for p in b.planes)
+        counts.append(len(order) - first)
+    laid = [p.permute(order) for p in b.planes]
+    if all(_merges(t, counts) for t in laid):
+        return tuple(t.reshape(shape) for t in laid)
+    dest = tuple(torch.empty(shape, dtype=t.dtype, device=t.device) for t in laid)
+    _copy(laid, [d.view(t.shape) for d, t in zip(dest, laid)], "assemble")
+    return dest

@@ -21,14 +21,18 @@ call did, at each layer boundary.
 * :func:`counters` is one registry of named integer counts
   (:class:`Counters`), always on: ``calls``, ``launches.<operator>``, the
   planner's cache hits and misses, libraries loaded and built, exchange
-  legs and bytes. Take a ``snapshot()`` and read ``delta(snapshot)``.
+  legs and bytes, the exchange layer's copies (``exchange.copies``: pieces
+  copied; ``exchange.copies.tiled``: those whose two sides' innermost dims
+  differ; ``exchange.copy_bytes``: bytes read). Take a ``snapshot()`` and
+  read ``delta(snapshot)``.
 
 Span names by layer: ``call`` / ``call.nested`` (entry and plan),
 ``plan.build`` (planner), ``axis``, ``layout.to_front``, ``layout.scale``,
 ``layout.join`` (the surface's per-axis passes and layout work, ``ndim.py``),
 ``launch`` / ``launch.first`` (a registered operator's C entry point,
 ``ops/cuda/build.py``), ``lib.load`` / ``lib.build`` (kernel build and
-load), ``exchange.issue`` / ``exchange.wait`` (``parallel/exchange.py``).
+load), ``exchange.issue`` / ``exchange.wait`` / ``exchange.copy[what=gather|
+assemble]`` (``parallel/exchange.py``).
 """
 
 from __future__ import annotations

@@ -624,6 +624,42 @@ def test_each_sharded_entry_counts_one_call(world, entry, legs):
     assert got == {"calls": 2 if entry == "rfft2d_round_trip" else 1, "legs": legs}
 
 
+@pytest.mark.parametrize("chunks", [1, 2, 4])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_fft2d_copies_are_counted(world, chunks, transposed):
+    """An Fft2dPlan call copies each of the C chunks of its row leg and each
+    of the C pieces its column leg gathers, and the natural result once
+    more (``assemble``; the transposed one is a view), both planes of a
+    piece in one call of the copy primitive: 2C (+ 1) ``exchange.copies``,
+    each transposing two innermost dims (tiled) and together reading every
+    byte of the rank's planes once a pass."""
+    r = res(world, "copy_counters")
+    got = r[f"fft2d_chunks{chunks}{'_transposed' if transposed else ''}"]
+    passes = 2 if transposed else 3
+    assert got["planes"] == [2]
+    assert got["copies"] == got["spied"] == 2 * chunks + passes - 2
+    assert got["tiled"] == got["spied_tiled"] == got["copies"]
+    assert got["bytes"] == got["spied_bytes"] == passes * 2 * r["rank_plane_bytes"]
+
+
+REAL_KINDS = ("rfft2d_padded", "irfft2d_padded", "rfft3d")
+
+
+@pytest.mark.parametrize("kind", ["four_step", "fft3d_pencils", "fft3d_slab", *REAL_KINDS,
+                                  "batched", "fft2d_c128", "fft2d_dd"])
+def test_each_plan_kind_counts_its_copies(world, kind):
+    """Every plan kind copies through the exchange layer's primitive, one
+    call a piece with all its planes (one real plane, or the two of a
+    complex one), and counts one ``exchange.copies`` for each call that
+    copied, the tiled ones in ``exchange.copies.tiled``, the bytes read in
+    ``exchange.copy_bytes``."""
+    got = res(world, "copy_counters")[kind]
+    assert got["planes"] == ([1, 2] if kind in REAL_KINDS else [2]), got
+    assert got["copies"] == got["spied"] > 0
+    assert got["tiled"] == got["spied_tiled"]
+    assert got["bytes"] == got["spied_bytes"] > 0
+
+
 @pytest.fixture(scope="module")
 def world2(tmp_path_factory):
     """A 2-rank world: the exchange's counts and spans."""
@@ -635,14 +671,14 @@ def test_exchange_legs_and_bytes_are_counted(world2):
     """An Fft2dPlan call on 2 ranks: two legs with a natural result, one
     with a transposed one, three when the first leg runs in two chunks;
     every leg's bytes are both planes of the rank's block, however it is
-    chunked; a profiler sees the issue and the wait."""
+    chunked; a profiler sees the copies, the issue and the wait."""
     if "error" in world2:
         pytest.fail(world2["error"])
     leg = 2 * world2["plane_bytes"]
     assert world2["natural"] == (2, 2 * leg)
     assert world2["piped"] == (3, 2 * leg)
     assert world2["transposed"] == (1, leg)
-    assert world2["spans"] == ["exchange.issue", "exchange.wait"]
+    assert world2["spans"] == ["exchange.copy", "exchange.issue", "exchange.wait"]
 
 
 # -- the exchange's order of issue, wait and read, on a stand-in transport ---------
@@ -734,16 +770,76 @@ def test_each_piece_is_read_after_its_wait(monkeypatch, name):
     """Every received piece is read only after its exchange is waited for,
     and every sent tensor lives unwritten until then: against a transport
     that delivers at the wait, the per-rank steps give the transform (a
-    read before the wait would carry NaN in), and every exchange issued is
-    waited for."""
+    read before the wait would carry NaN in), every copy of a piece starts
+    after its wait (both planes in one call of the copy primitive), and
+    every exchange issued is waited for."""
     from fourier_tpu_torch.parallel import exchange as ex
 
     transport = _LateTransport()
     monkeypatch.setattr(ex, "dist", transport)
+    copy, copied = ex.strided_copy, []
+
+    def copy_after_delivery(dst, src):
+        assert not any(torch.isnan(s).any() for s in src), "a piece copied before its wait"
+        copied.append(len(src))
+        return copy(dst, src)
+    monkeypatch.setattr(ex, "strided_copy", copy_after_delivery)
     make, x, mode, want = _ordering_cases()[name]
     plan = make()
     args = (mode, False) if name.startswith("fft3d") else (mode,)
     out = plan._local_steps(*world_cases.planes(x), *args)
     got = out[0].numpy() + 1j * out[1].numpy()
     assert transport.issued > 0 and transport.waited == transport.issued
+    assert copied and set(copied) == {2}
     gate(got.reshape(want.shape), want, C64)
+
+
+# -- the exchange layer's copies, in one process --------------------------------------
+
+
+def _counts(fn):
+    from fourier_tpu_torch import trace
+
+    before = trace.counters().snapshot()
+    out = fn()
+    d = trace.counters().delta(before)
+    return out, tuple(d.get(k, 0) for k in ("exchange.copies", "exchange.copies.tiled",
+                                            "exchange.copy_bytes"))
+
+
+def test_gather_counts_copied_pieces_only():
+    """``gather`` of a piece that already lies as the leg wants it is a view
+    (no copy, nothing counted); of one that does not, one copy of both
+    planes, counted once with its bytes; the result equals the permuted
+    planes."""
+    from fourier_tpu_torch.parallel import exchange as ex
+
+    re, im = (torch.randn(6, 10) for _ in range(2))
+    laid, counts = _counts(lambda: ex.gather([ex.local_blocks((re, im), ("n", "b"))], "n"))
+    assert counts == (0, 0, 0)
+    assert laid.planes[0].data_ptr() == re.data_ptr() and laid.names == ("n", "b")
+    moved, counts = _counts(lambda: ex.gather([ex.local_blocks((re, im), ("b", "n"))], "n"))
+    assert counts == (1, 1, 2 * re.numel() * 4)
+    assert moved.names == ("n", "b")
+    assert torch.equal(moved.planes[0], re.T) and torch.equal(moved.planes[1], im.T)
+
+
+def test_assemble_copies_only_what_a_view_cannot_give():
+    """``assemble``: dims that merge by a view stay a view (nothing
+    counted); dims that do not are copied once into new contiguous planes,
+    equal to ``reshape``'s."""
+    from fourier_tpu_torch.parallel import exchange as ex
+
+    planes = tuple(torch.randn(3, 2, 4, 5) for _ in range(2))
+    b = ex.Blocks(planes, ("x", "^y", "y", "z"), {})
+    view, counts = _counts(lambda: ex.assemble([b], ("x", ("y", "z"))))
+    assert counts == (0, 0, 0) and view[0].data_ptr() == planes[0].data_ptr()
+    assert torch.equal(view[0], planes[0].reshape(3, 40))
+    planes = tuple(torch.randn(2, 3, 4, 5) for _ in range(2))  # ^y outermost in memory
+    b = ex.Blocks(planes, ("^y", "x", "y", "z"), {})
+    for want, perm, shape, tiled in ((("x", "y", "z"), (1, 0, 2, 3), (3, 8, 5), 0),
+                                     (("z", "x", "y"), (3, 1, 0, 2), (5, 3, 8), 1)):
+        out, counts = _counts(lambda: ex.assemble([b], want))
+        assert counts == (1, tiled, 2 * planes[0].numel() * 4)
+        for o, p in zip(out, planes):
+            assert o.is_contiguous() and torch.equal(o, p.permute(perm).reshape(shape))

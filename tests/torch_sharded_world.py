@@ -720,6 +720,76 @@ def call_counters(ctx):
     return out
 
 
+def _copies_counted(fn) -> dict:
+    """The copies `fn` makes through ``exchange.strided_copy`` (a spy: each
+    call's planes, whether it copied, whether a layout was tiled, the bytes
+    read) beside the ``exchange.copies*`` counts it adds to the registry."""
+    from fourier_tpu_torch.parallel import exchange as ex
+
+    real, seen = ex.strided_copy, []
+
+    def spy(dst, src):
+        layouts = real(dst, src)
+        seen.append((len(dst), bool(layouts), any(lay.tiled for lay in layouts),
+                     sum(t.numel() * t.element_size() for t in src)))
+        return layouts
+    ex.strided_copy = spy
+    before = trace.counters().snapshot()
+    try:
+        fn()
+    finally:
+        ex.strided_copy = real
+    d = trace.counters().delta(before)
+    return {"planes": sorted({c[0] for c in seen}), "spied": sum(c[1] for c in seen),
+            "spied_tiled": sum(c[2] for c in seen),
+            "spied_bytes": sum(c[3] for c in seen if c[1]),
+            "copies": d.get("exchange.copies", 0), "tiled": d.get("exchange.copies.tiled", 0),
+            "bytes": d.get("exchange.copy_bytes", 0)}
+
+
+@case()
+def copy_counters(ctx):
+    """Each plan kind's copies through the exchange layer's primitive, one
+    call a piece with its planes together, beside the counts; and an
+    Fft2dPlan call's at 1, 2 and 4 pipeline chunks, natural and
+    transposed."""
+    x2 = planes(cx((2, 32, 32)))
+    out = {"rank_plane_bytes": 2 * 32 * 32 // dist.get_world_size() * 4}
+    for c in (1, 2, 4):
+        for t in (False, True):
+            plan = parallel.Fft2dPlan(32, 32, ctx.fft, pipeline_chunks=c, transposed_output=t)
+            out[f"fft2d_chunks{c}{'_transposed' if t else ''}"] = _copies_counted(
+                lambda: plan.transform_planar(*x2))
+    hi = tuple(p.to(torch.float32) for p in planes(cx((16, 32), np.complex128)))
+    calls = {
+        "four_step": lambda: parallel.FourStepPlan(16, 32, ctx.fft, natural_order=True,
+                                                   pipeline_chunks=2).fft_planar(
+            *planes(cx((16, 32)))),
+        "fft3d_pencils": lambda: parallel.Fft3dPlan(8, 8, 16, ctx.xy,
+                                                    pipeline_chunks=2).fft_planar(
+            *planes(cx((8, 8, 16)))),
+        "fft3d_slab": lambda: parallel.Fft3dPlan(16, 16, 4, ctx.fft, axes=("fft",)).fft_planar(
+            *planes(cx((16, 16, 4)))),
+        "rfft2d_padded": lambda: parallel.Rfft2dPlan(16, 21, ctx.fft).rfft_planar(
+            real((16, 21))),
+        "irfft2d_padded": lambda: (lambda p: p.irfft_planar(*p.rfft_planar(real((16, 21)))))(
+            parallel.Rfft2dPlan(16, 21, ctx.fft)),
+        "rfft3d": lambda: parallel.Rfft3dPlan(8, 8, 16, ctx.xy).rfft_planar(
+            real((8, 8, 16))),
+        "batched": lambda: parallel.batched_transform(
+            tft.create_fft(32, device="cpu"), *planes(cx((16, 32))), ctx.batch),
+        "fft2d_c128": lambda: parallel.Fft2dPlan(16, 32, ctx.fft, dtype=torch.complex128
+                                                 ).fft_planar(*planes(cx((16, 32),
+                                                                         np.complex128))),
+        "fft2d_dd": lambda: parallel.Fft2dPlan(16, 32, ctx.fft, dtype=torch.complex128
+                                               ).transform_planar_dd(
+            hi[0], torch.zeros_like(hi[0]), hi[1], torch.zeros_like(hi[1])),
+    }
+    for name, fn in calls.items():
+        out[name] = _copies_counted(fn)
+    return out
+
+
 @case()
 def three_ranks(ctx):
     """On a 3-rank world: 10 rows refused, 9 rows against the single-device
