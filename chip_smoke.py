@@ -7,7 +7,7 @@ Builds kernels B1-B5 (complex64, the stage bodies), the clustered-block
 bodies of B1, B2, B3, B4a, B4b, B5a and B5b, B6-B8 (complex128 in native
 f64; B6 also on its clustered-block bodies) and B9a/B9b (the dense DFT
 products of MxuFftPlan(impl="pallas"), on the tensor cores in 3xTF32, and
-on the CUDA cores for comparison) from fourier_tpu_torch/csrc with nvcc,
+B9b's small splits on the CUDA cores) from fourier_tpu_torch/csrc with nvcc,
 twelve libraries built at once (each build's time printed), checks that
 the clustered-block bodies of B1, B2, B3, B4a, B4b, B5a, B5b, B6 and B7 and
 the tensor-core bodies of B9a and B9b spill nothing (and prints B1's and
@@ -15,10 +15,11 @@ B6's registers beside those they had before fft_pair took an I/O policy),
 and holds each kernel against its plain PyTorch version and against np.fft,
 at the listed sizes and at every shape the routes below give it (B1, B2,
 B4a, B4b, B5a, B5b, B6 and B7 also at a walk of several tiles a cluster
-ending on a partial group, and on both bodies at the sizes where they meet;
-B3, B9a and B9b on both bodies, B9a and B9b also with a NaN row and an
-infinite one; B1, B2, B4b, B5a and B5b at the routes' shapes in phase 4g,
-from the calls phases 4-4d made, B6 in phase 4h, from those of phase 4e).
+ending on a partial group, and at the sizes on each side of their choice
+of body; B9a and B9b also with a NaN row and an infinite one; B1, B2, B4b,
+B5a and B5b at the routes' shapes in phase 4g, from the calls phases 4-4d
+made, B6 in phase 4h, from those of phase 4e; each kernel on the body its
+size runs, kernel_body's or two_phase_body's).
 Then it drives the main path (the default complex64 1-D transform through
 create_fft_f32 on device="cuda") and the routes of the other sizes the JAX
 package plans differently (fused Bluestein B2, four-step with B3 rows, DFT
@@ -41,17 +42,14 @@ launched the kernels its plan holds. Last it times the kernels against
 their plain versions and torch.fft, the rfft round trips of the suite's
 rows fused, unfused and through torch.fft, the suite's c128 rows (and B6 at
 4096x16384) and B9a/B9b at three shapes, each beside the least time the
-card could take for its bytes or operations; B1 at 4096x16384 and
-1024x65536, B2 at 1013x65536, B4a and B4b at 4096x16384, B5a and B5b at
-1013x65536, B6 at 1024x65536 and 4096x16384, B7 at 1013x65536 and B3 at
-65536x1024 also on their stage bodies in the same run (and the rfft round
-trips with B4b and B5b on their stage bodies, the parent's path, and the
-four-step plans of 65536 and 262144 with B3 on its stage body), B9a's and
-B9b's tensor-core bodies against their CUDA-core ones (their bound restated
-for 3xTF32 on the tensor cores), and B1, B2, B3, B4b, B5a, B5b and B6 on
-both bodies at every size with a clustered one and B9b's two bodies at
-the splits of _b9b_sweep_sizes() (phase 5g, the A/B behind the wrappers'
-choice of body); last the surface's entry points (phase 5h), each beside
+card could take for its bytes or operations (for B9a and B9b restated for
+3xTF32 on the tensor cores), each kernel on the body its size runs; the
+four-step plans of 65536 and 262144 also with B3 forced onto its stage
+body; and B1, B2, B3, B4b, B5a, B5b and B6 on both bodies at every size
+with a clustered one and B9b's two bodies at the splits of
+_b9b_sweep_sizes(), each body forced in-process by swapping the kernel's
+stage-faster set or B9B_FMA_WORK (phase 5g, the A/B behind the choice of
+body); last the surface's entry points (phase 5h), each beside
 torch.fft's call (a DCT/DST or the FHT beside the real FFTs it runs) and
 its byte bound, and fft2 and rfft2 also on the literal port's layout.
 Phase 4k holds the plan tooling on the card: save_plan/load_plan round
@@ -126,6 +124,7 @@ It needs a CUDA device and the repository beside it; it imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -233,7 +232,7 @@ CHAIN_NEW = 32  # chain of the B2/B3 timings
 PLAIN_CHAIN = 4  # shorter chain of the plain versions there
 RF_EVEN = (128, 192, 486, 1024, 2000, 4096, 32768)  # B4 at m = n/2
 # B4a's and B4b's bodies meet at m = 2048 (the largest paired-block m) and
-# 2160 (the smallest even m the stage body keeps): both are checked there.
+# 2160 (the smallest even m the stage body keeps): each is checked there.
 B4A_BOUNDARY = (2048, 2160)
 # (n, B) whose clusters each walk several tiles of B4a's and B7's paired
 # bodies (8 and 4 columns a tile, 66 clusters on an H100) and end on a
@@ -241,10 +240,11 @@ B4A_BOUNDARY = (2048, 2160)
 B4A_WALK = ((4096, 1588), (4096, 1589))
 B7_WALK = ((1013, 794), (1013, 795))
 # B1's bodies meet at 2048 (two-block clusters), 2160 and 4096 (four-block),
-# 3000 and 4320 (the stage body); B2's at M = 2048 (n = 1013, paired) and
-# 2160 (n = 1031) and 1024 (n = 509), the stage body. Both bodies are
-# checked wherever a clustered one exists, at B_BOUNDARY columns.
-B1_BOUNDARY = (2048, 2160, 4096, 3000, 4320)
+# 3000 and 4320 (the stage body), and 1000 (B1_STAGE_FASTER: the stage
+# body); B2's at M = 2048 (n = 1013, paired) and 2160 (n = 1031) and 1024
+# (n = 509), the stage body. Each size is checked on the body it runs, at
+# B_BOUNDARY columns.
+B1_BOUNDARY = (2048, 2160, 4096, 3000, 4320, 1000)
 B2_BOUNDARY = (1013, 1031, 509)
 B_BOUNDARY = 1000
 B1_WALK = ((4096, 1588), (4096, 1589))  # 199 tiles of 8, 30 clusters of 4
@@ -261,7 +261,7 @@ B4B_BOUNDARY = B4A_BOUNDARY + (1728, 512)
 # multiple of 8 (16-byte copies). B4b's walk is B4A_WALK.
 B5A_BOUNDARY = (1013, 1031, 509, 4093, 863, 73)
 B5A_WALK = ((1013, 1589), (1013, 1592))
-# More batches of B4b and B5b on both bodies: B = 1 (B5b: no pair) and odd B.
+# More batches of B4b and B5b: B = 1 (B5b: no pair) and odd B.
 B45B_BATCHES = (1, 7)
 ONE_MODE = ("B4b", "B5a", "B5b")  # the kernels checked in one mode, their own
 # B6's bodies meet at 2048 (two-block clusters), 2160 and 4096 (four-block)
@@ -1004,10 +1004,10 @@ def main() -> int:
           f"bodies), {sv.RFFT_ODD_PAIR_LIBRARY}.cu (B5a's paired bodies), "
           f"{sv.IRFFT_UNPACK_PAIR_LIBRARY}.cu (B4b's paired bodies), "
           f"{sv.IRFFT_ODD_PAIR_LIBRARY}.cu (B5b's paired bodies), "
-          f"{dv.LIBRARY}.cu (B6-B8, stage bodies and B7's paired bodies), "
+          f"{dv.LIBRARY}.cu (B6's stage bodies, B7's paired bodies, B8), "
           f"{dv.FFT_PAIR_DD_LIBRARY}.cu (B6's clustered bodies), {bk.LIBRARY}.cu "
-          f"(the CUDA-core bodies of B9a and B9b), {bk.MMA_LIBRARY}.cu (their "
-          f"tensor-core bodies), {sv.FFT_PAIR_STRIDED_LIBRARY}.cu (B1's clustered "
+          f"(B9b's CUDA-core body), {bk.MMA_LIBRARY}.cu (the tensor-core bodies of "
+          f"B9a and B9b), {sv.FFT_PAIR_STRIDED_LIBRARY}.cu (B1's clustered "
           f"bodies on complex64 where it lies, both layouts) and {scp.LIBRARY}.cu (the "
           f"exchange layer's tiled strided copy) in "
           f"{time.perf_counter() - t0:.2f} s; each nvcc: "
@@ -1116,10 +1116,9 @@ def main() -> int:
 
     def body_runs(kernel, n, b):
         """The cases of B1, B2, B4b, B5a, B5b or B6 at (n, B), n the real
-        length for B4b, B5a and B5b: (bodies, [(mode, plain result, np.fft of
-        the first columns, run(body) -> kernel result)]), every mode (B4b,
-        B5a, B5b: their one), on both bodies where a clustered one exists,
-        else the stage body."""
+        length for B4b, B5a and B5b: (the body kernel_body runs, [(mode,
+        plain result, np.fft of the first columns, run() -> kernel
+        result)]), every mode (B4b, B5a, B5b: their one)."""
         if kernel == "B4b":
             m = n // 2
             plan = ftt.RfftPlan(n, device=dev)
@@ -1127,9 +1126,8 @@ def main() -> int:
             kw = dict(tables=plan.inner.tables(False), kernel_tables=plan.inner.kernel_inv,
                       pair_tables=plan.inner.pair_inv, w=plan.w)
             p = (sv.vpu_irfft_unpack_batch_minor_reference(re, im, m, kw["tables"], plan.w),)
-            run = lambda body: (sv.vpu_irfft_unpack_batch_minor(re, im, m, _body=body, **kw),)
-            geo = sv.irfft_unpack_geometry(m)
-            return (("pair", "stage") if geo else ("stage",),
+            run = lambda: (sv.vpu_irfft_unpack_batch_minor(re, im, m, **kw),)
+            return (sv.kernel_body("B4b", m),
                     [("IRFFT", p, np.fft.irfft(host_cols(re, im), n, axis=0), run)])
         if kernel == "B5b":
             plan = ftt.VpuBluesteinPlan.create(n, device=dev)
@@ -1140,10 +1138,8 @@ def main() -> int:
                       pair_tables=(st.pair_fwd, st.pair_inv), chirps=plan.chirps(False))
             p = (sv.vpu_irfft_odd_unpack_batch_minor_reference(re, im, n, st.size, kw["tables"],
                                                                kw["chirps"]),)
-            run = lambda body: (sv.vpu_irfft_odd_unpack_batch_minor(re, im, n, st.size,
-                                                                    _body=body, **kw),)
-            geo = sv.irfft_odd_unpack_geometry(st.size)
-            return (("pair", "stage") if geo else ("stage",),
+            run = lambda: (sv.vpu_irfft_odd_unpack_batch_minor(re, im, n, st.size, **kw),)
+            return (sv.kernel_body("B5b", st.size),
                     [("IRFFT", p, np.fft.irfft(host_cols(re, im), n, axis=0), run)])
         if kernel == "B5a":
             plan = ftt.VpuBluesteinPlan.create(n, device=dev)
@@ -1154,22 +1150,20 @@ def main() -> int:
                       pair_tables=(st.pair_fwd, st.pair_inv), chirps=plan.chirps(True))
             p = sv.vpu_rfft_odd_pack_batch_minor_reference(x, n, st.size, kw["tables"],
                                                            kw["chirps"])
-            run = lambda body: sv.vpu_rfft_odd_pack_batch_minor(x, n, st.size,
-                                                                _body=body, **kw)
-            geo = sv.rfft_odd_pack_geometry(st.size)
-            return ("pair", "stage") if geo else ("stage",), [("RFFT", p, rfft_host(x), run)]
+            run = lambda: sv.vpu_rfft_odd_pack_batch_minor(x, n, st.size, **kw)
+            return sv.kernel_body("B5a", st.size), [("RFFT", p, rfft_host(x), run)]
         if kernel == "B1":
             plan = ftt.VpuFftPlan.create(n, device=dev)
-            geo = sv.fft_pair_geometry(n)
+            body = sv.kernel_body("B1", n)
             re, im = planes(n, b)
         elif kernel == "B2":
             plan = ftt.VpuBluesteinPlan.create(n, device=dev)
             st = plan.stages
-            geo = sv.bluestein_pair_geometry_c64(st.size)
+            body = sv.kernel_body("B2", st.size)
             re, im = planes(n, b)
         else:
             plan = ftt.VpuDdFftPlan.create(n, device=dev)
-            geo = dv.fft_pair_geometry_dd(n)
+            body = sv.kernel_body("B6", n)
             re, im = planes64(n, b)
         x = host_cols(re, im)
         cases = []
@@ -1183,8 +1177,8 @@ def main() -> int:
                           kernel_tables=plan.kernel_fwd if fwd else plan.kernel_inv,
                           pair_tables=plan.pair_fwd)
                 p = ref(re, im, n, kw["tables"], fwd, scale)
-                run = (lambda body, fwd=fwd, scale=scale, kw=kw, wrapper=wrapper:
-                       wrapper(re, im, n, fwd, scale, _body=body, **kw))
+                run = (lambda fwd=fwd, scale=scale, kw=kw, wrapper=wrapper:
+                       wrapper(re, im, n, fwd, scale, **kw))
             else:
                 kw = dict(tables=(st.tables(True), st.tables(False)),
                           kernel_tables=(st.kernel_fwd, st.kernel_inv),
@@ -1192,43 +1186,42 @@ def main() -> int:
                           chirps=plan.chirps(fwd))
                 p = sv.vpu_bluestein_batch_minor_reference(
                     re, im, n, st.size, kw["tables"], kw["chirps"], scale)
-                run = lambda body, scale=scale, kw=kw: sv.vpu_bluestein_batch_minor(
-                    re, im, n, st.size, scale, _body=body, **kw)
+                run = lambda scale=scale, kw=kw: sv.vpu_bluestein_batch_minor(
+                    re, im, n, st.size, scale, **kw)
             cases.append((mode.name, p, np_want(x, mode, n), run))
-        return ("pair", "stage") if geo else ("stage",), cases
+        return body, cases
 
     def bodies_case(kernel, n, b):
         """body_runs of a kernel at (n, B), each result against the plain
-        version and np.fft (gate DD_GATE for B6, else REL_L2_GATE): (bodies
+        version and np.fft (gate DD_GATE for B6, else REL_L2_GATE): (the body
         run, worst rel-L2 vs plain, vs np.fft, max abs)."""
         gate = DD_GATE if kernel == "B6" else REL_L2_GATE
-        bodies, cases = body_runs(kernel, n, b)
+        body, cases = body_runs(kernel, n, b)
         worst_p = worst_h = mx = 0.0
         for mode, p, want, run in cases:
-            for body in bodies:
-                k = run(body)
-                torch.cuda.synchronize()
-                err, m_ = vs_plain(k, p)
-                got = (host_cols(*k) if len(k) == 2
-                       else k[0][:, :HOST_COLUMNS].double().cpu().numpy())
-                herr = rel_l2(got, want)
-                check(err <= gate and herr <= gate,
-                      f"{kernel} {body} body n={n} B={b} {mode}: rel-L2 "
-                      f"{err:.3e} vs plain, {herr:.3e} vs np.fft (gate {gate:g})")
-                worst_p, worst_h, mx = max(worst_p, err), max(worst_h, herr), max(mx, m_)
-        return bodies, worst_p, worst_h, mx
+            k = run()
+            torch.cuda.synchronize()
+            err, m_ = vs_plain(k, p)
+            got = (host_cols(*k) if len(k) == 2
+                   else k[0][:, :HOST_COLUMNS].double().cpu().numpy())
+            herr = rel_l2(got, want)
+            check(err <= gate and herr <= gate,
+                  f"{kernel} {body} body n={n} B={b} {mode}: rel-L2 "
+                  f"{err:.3e} vs plain, {herr:.3e} vs np.fft (gate {gate:g})")
+            worst_p, worst_h, mx = max(worst_p, err), max(worst_h, herr), max(mx, m_)
+        return body, worst_p, worst_h, mx
 
     def boundary_checks(kernel, cases, want_pair):
-        """bodies_case over `cases`; the sizes that have a clustered body must
-        be `want_pair`."""
+        """bodies_case over `cases`, each at the body its size runs; the
+        sizes that run the clustered body must be `want_pair`."""
         worst_p = worst_h = 0.0
         ran = []
         for n, b in cases:
-            bodies, e_p, e_h, mx = bodies_case(kernel, n, b)
+            body, e_p, e_h, mx = bodies_case(kernel, n, b)
             worst_p, worst_h = max(worst_p, e_p), max(worst_h, e_h)
             max_abs_err[kernel] = max(max_abs_err[kernel], mx)
-            ran.append((n, b, "+".join(bodies)))
-        paired = {n for n, _, bodies in ran if "pair" in bodies}
+            ran.append((n, b, body))
+        paired = {n for n, _, body in ran if body == "pair"}
         check(paired == set(want_pair), f"{kernel}'s clustered bodies at {sorted(paired)}, "
               f"expected {sorted(want_pair)}")
         print(f"{kernel} bodies at their boundaries and walks {ran} x "
@@ -1270,7 +1263,7 @@ def main() -> int:
     boundary_checks("B2", [(n, B_BOUNDARY) for n in B2_BOUNDARY] + list(B2_WALK),
                     (1013,))
 
-    # 3c. B3 on both bodies against its plain version on the same (q, p, B) input, and the whole
+    # 3c. B3 against its plain version on the same (q, p, B) input, and the whole
     # four-step plan (B1 columns, B3 rows) against np.fft, at the listed
     # sizes (B = 1, odd B, B a multiple of 4: 16-byte copies), on four-block
     # clusters (B3_QUAD) and at the routes' shapes, in every mode.
@@ -1293,16 +1286,15 @@ def main() -> int:
                       pair_tables=rp.pair_fwd)
             p = sv.vpu_fft_four_step_row_reference(
                 re3, im3, p_, q_, kw["tables"], kw["pre_tw"], fwd, mode.scale(n))
-            for body in ("stage", "pair"):
-                k = sv.vpu_fft_four_step_row(re3, im3, p_, q_, fwd, mode.scale(n),
-                                             _body=body, **kw)
-                torch.cuda.synchronize()
-                err, mx = vs_plain(k, p)
-                check(err <= REL_L2_GATE, f"B3 {body} vs plain n={n} B={b} "
-                      f"{mode.name}: rel-L2 {err:.3e}")
-                b3_worst[body] = max(b3_worst.get(body, 0.0), err)
-                max_abs = max(max_abs, mx)
-                del k
+            body = sv.kernel_body("B3", p_)
+            k = sv.vpu_fft_four_step_row(re3, im3, p_, q_, fwd, mode.scale(n), **kw)
+            torch.cuda.synchronize()
+            err, mx = vs_plain(k, p)
+            check(err <= REL_L2_GATE, f"B3 {body} vs plain n={n} B={b} "
+                  f"{mode.name}: rel-L2 {err:.3e}")
+            b3_worst[body] = max(b3_worst.get(body, 0.0), err)
+            max_abs = max(max_abs, mx)
+            del k
             re, im = re3.view(n, b), im3.view(n, b)
             herr = rel_l2(host_cols(*plan.transform_planar_bm(re, im, mode)),
                           np_want(host_cols(re, im), mode, n))
@@ -1310,8 +1302,8 @@ def main() -> int:
                   f"four-step vs np.fft n={n} B={b} {mode.name}: rel-L2 {herr:.3e}")
             worst_host = max(worst_host, herr)
             del p
-    print(f"B3 kernel vs plain: {len(b3_cases)} (n, B) cases x 5 modes pass on every "
-          f"body (n in {B3_SIZES} x B in {BATCHES}, {B3_QUAD} on four-block clusters, "
+    print(f"B3 kernel vs plain: {len(b3_cases)} (n, B) cases x 5 modes pass on the "
+          f"body each runs (n in {B3_SIZES} x B in {BATCHES}, {B3_QUAD} on four-block clusters, "
           f"routes {_route_cases('B3')}, the sharded four-step's {SHARD_B3}); worst "
           "rel-L2 vs plain by body "
           + ", ".join(f"{k} {v:.3e}" for k, v in b3_worst.items())
@@ -1385,7 +1377,7 @@ def main() -> int:
         max_abs_err.update(mx)
         del plans
     # B4a's two bodies where they meet: the paired-block body at its largest
-    # m, and the stage body there and at the smallest even m it keeps.
+    # m, and the stage body at the smallest even m it keeps.
     worst = [0.0, 0.0]
     ran = []
     for m in B4A_BOUNDARY:
@@ -1394,26 +1386,25 @@ def main() -> int:
                   pair_tables=plan.inner.pair_fwd, w=plan.w)
         x = planes(2 * m, BATCHES[-1])[0]
         want = sv.vpu_rfft_pack_batch_minor_reference(x, m, kw["tables"], plan.w)
-        bodies = ("pair", "stage") if sv.rfft_pack_geometry(m) else ("stage",)
-        for body in bodies:
-            k = sv.vpu_rfft_pack_batch_minor(x, m, _body=body, **kw)
-            torch.cuda.synchronize()
-            err, mx = vs_plain(k, want)
-            herr = rel_l2(host_cols(*k), rfft_host(x))
-            check(err <= REL_L2_GATE and herr <= REL_L2_GATE,
-                  f"B4a {body} body at m={m}: rel-L2 {err:.3e} vs plain, {herr:.3e} "
-                  f"vs np.fft")
-            worst = [max(worst[0], err), max(worst[1], herr)]
-            max_abs_err["B4a"] = max(max_abs_err["B4a"], mx)
-            ran.append((m, body))
-    check(ran == [(2048, "pair"), (2048, "stage"), (2160, "stage")],
+        body = sv.kernel_body("B4a", m)
+        k = sv.vpu_rfft_pack_batch_minor(x, m, **kw)
+        torch.cuda.synchronize()
+        err, mx = vs_plain(k, want)
+        herr = rel_l2(host_cols(*k), rfft_host(x))
+        check(err <= REL_L2_GATE and herr <= REL_L2_GATE,
+              f"B4a {body} body at m={m}: rel-L2 {err:.3e} vs plain, {herr:.3e} "
+              f"vs np.fft")
+        worst = [max(worst[0], err), max(worst[1], herr)]
+        max_abs_err["B4a"] = max(max_abs_err["B4a"], mx)
+        ran.append((m, body))
+    check(ran == [(2048, "pair"), (2160, "stage")],
           f"B4a's bodies meet elsewhere: {ran}")
     print(f"B4a bodies at their boundary {ran} (B={BATCHES[-1]}): worst rel-L2 "
           f"{worst[0]:.3e} vs plain, {worst[1]:.3e} vs np.fft (gate {REL_L2_GATE:g})",
           flush=True)
     boundary_checks("B5a", [(n, B_BOUNDARY) for n in B5A_BOUNDARY] + list(B5A_WALK),
                     (1013, 863, 73))
-    # B4b and B5b on both bodies where they meet, at the walks, at B = 1 and
+    # B4b and B5b where their bodies meet, at the walks, at B = 1 and
     # odd B, and at B a multiple of 8 (B_BOUNDARY, B4A_WALK's 1588 and
     # B5A_WALK's 1592: 16-byte copies and stores).
     boundary_checks("B4b", [(2 * m, B_BOUNDARY) for m in B4B_BOUNDARY] + list(B4A_WALK)
@@ -1529,10 +1520,12 @@ def main() -> int:
         return [t for pair in tabs for t in pair]
 
     def b9_fns(plan):
-        """(kernel id, wrapper, plain version) of a pallas MxuFftPlan."""
+        """(kernel id, wrapper, plain version, the body the wrapper runs) of a
+        pallas MxuFftPlan."""
         if plan.single_phase:
-            return "B9a", bk.mxu_fft_single, bp.xla_fft_single
-        return "B9b", bk.mxu_fft_two_phase, bp.reference_two_phase
+            return "B9a", bk.mxu_fft_single, bp.xla_fft_single, "mma"
+        return ("B9b", bk.mxu_fft_two_phase, bp.reference_two_phase,
+                bk.two_phase_body(plan.n1, plan.n2))
 
     def rows_host(re, im):
         """The first HOST_COLUMNS rows of (B, n) planes, as (n, rows)."""
@@ -1543,47 +1536,45 @@ def main() -> int:
     b9_routes = _b9_route_cases()
     for kernel_id, sizes in (("B9a", B9A_SIZES), ("B9b", B9B_SIZES)):
         routes = [(n, b) for k, n, b in b9_routes if k == kernel_id]
-        # Both bodies: the tensor cores' (the kernel) and the CUDA cores'
-        # (the first design), each with its worst rel-L2.
-        bodies = ("mma", "fma")
-        worst = {body: [0.0, 0.0] for body in bodies}
+        # The body each size runs (B9b: two_phase_body's), each with its
+        # worst rel-L2.
+        worst = {}
         mx = 0.0
         for n, b in [(n, b) for n in sizes for b in BATCHES] + routes:
             plan = ftt.MxuFftPlan.create(n, impl="pallas", device=dev)
-            got_id, kernel, plain = b9_fns(plan)
+            got_id, kernel, plain, body = b9_fns(plan)
             check(got_id == kernel_id, f"MxuFftPlan({n}, impl='pallas') runs {got_id}")
             re, im = planes(b, n)
             x = rows_host(re, im)
             for mode in Transform:
                 tabs = b9_tables(plan, mode)
                 p = plain(re, im, *tabs)
-                for body in bodies:
-                    k = kernel(re, im, *tabs, _body=body)
-                    if b % 2 and not (kernel_id == "B9b" and body == "mma"):
-                        kt = kernel(re, im, *tabs, tb=B9_TB, _body=body)
-                        torch.cuda.synchronize()
-                        check(torch.equal(kt[0], k[0]) and torch.equal(kt[1], k[1]),
-                              f"{kernel_id} {body} n={n} B={b}: tb={B9_TB} "
-                              "changed the result")
-                    if kernel_id == "B9b" and b > 1:
-                        # Rows 1.. as a batch of their own: every transform
-                        # in another block (the tensor-core body takes no
-                        # tb, one transform a block at a time).
-                        kt = kernel(re[1:], im[1:], *tabs, _body=body)
-                        torch.cuda.synchronize()
-                        check(torch.equal(kt[0], k[0][1:]) and torch.equal(kt[1], k[1][1:]),
-                              f"{kernel_id} {body} n={n} B={b}: rows 1.. changed when "
-                              "run without row 0")
+                k = kernel(re, im, *tabs)
+                if b % 2 and not (kernel_id == "B9b" and body == "mma"):
+                    kt = kernel(re, im, *tabs, tb=B9_TB)
                     torch.cuda.synchronize()
-                    err, m_ = vs_plain(k, p)
-                    herr = rel_l2(rows_host(*k), np_want(x, mode, n))
-                    check(err <= REL_L2_GATE and herr <= REL_L2_GATE,
-                          f"{kernel_id} {body} n={n} B={b} {mode.name}: rel-L2 "
-                          f"{err:.3e} vs plain, {herr:.3e} vs np.fft (gate "
-                          f"{REL_L2_GATE:g})")
-                    worst[body] = [max(worst[body][0], err), max(worst[body][1], herr)]
-                    if body == "mma":  # the kernel's own body
-                        mx = max(mx, m_)
+                    check(torch.equal(kt[0], k[0]) and torch.equal(kt[1], k[1]),
+                          f"{kernel_id} {body} n={n} B={b}: tb={B9_TB} "
+                          "changed the result")
+                if kernel_id == "B9b" and b > 1:
+                    # Rows 1.. as a batch of their own: every transform in
+                    # another block (the tensor-core body takes no tb, one
+                    # transform a block at a time).
+                    kt = kernel(re[1:], im[1:], *tabs)
+                    torch.cuda.synchronize()
+                    check(torch.equal(kt[0], k[0][1:]) and torch.equal(kt[1], k[1][1:]),
+                          f"{kernel_id} {body} n={n} B={b}: rows 1.. changed when "
+                          "run without row 0")
+                torch.cuda.synchronize()
+                err, m_ = vs_plain(k, p)
+                herr = rel_l2(rows_host(*k), np_want(x, mode, n))
+                check(err <= REL_L2_GATE and herr <= REL_L2_GATE,
+                      f"{kernel_id} {body} n={n} B={b} {mode.name}: rel-L2 "
+                      f"{err:.3e} vs plain, {herr:.3e} vs np.fft (gate "
+                      f"{REL_L2_GATE:g})")
+                w = worst.setdefault(body, [0.0, 0.0])
+                worst[body] = [max(w[0], err), max(w[1], herr)]
+                mx = max(mx, m_)
             del re, im, k, p
         check(torch.backends.cuda.matmul.allow_tf32,
               "a plain version did not restore the caller's TF32 setting")
@@ -1605,7 +1596,7 @@ def main() -> int:
     for kernel_id, sizes in (("B9a", B9A_POISON), ("B9b", B9B_POISON)):
         for n in sizes:
             plan = ftt.MxuFftPlan.create(n, impl="pallas", device=dev)
-            _, kernel, plain = b9_fns(plan)
+            _, kernel, plain, body = b9_fns(plan)
             rows_ = bk.single_mma_geometry(n).valid if kernel_id == "B9a" else 1
             b = 3 * rows_ * 2048 // (32 * bk.MMA_WARPS) * sms
             re, im = planes(b, n)
@@ -1615,26 +1606,25 @@ def main() -> int:
             rest = torch.ones(b, dtype=torch.bool, device=dev)
             rest[list(poisoned)] = False
             p = tuple(t[rest] for t in plain(re, im, *tabs))
-            for body in ("mma", "fma"):
-                k = kernel(re, im, *tabs, _body=body)
-                err, _ = vs_plain(tuple(t[rest] for t in k), p)
-                finite = [bool(torch.isfinite(k[0][r]).all()
-                               and torch.isfinite(k[1][r]).all()) for r in poisoned]
-                check(err <= REL_L2_GATE and not any(finite),
-                      f"{kernel_id} {body} n={n} B={b}, a NaN in row {poisoned[0]} and "
-                      f"an infinity in row {poisoned[1]}: the other rows rel-L2 "
-                      f"{err:.3e} vs plain, the poisoned rows finite {finite}")
+            k = kernel(re, im, *tabs)
+            err, _ = vs_plain(tuple(t[rest] for t in k), p)
+            finite = [bool(torch.isfinite(k[0][r]).all()
+                           and torch.isfinite(k[1][r]).all()) for r in poisoned]
+            check(err <= REL_L2_GATE and not any(finite),
+                  f"{kernel_id} {body} n={n} B={b}, a NaN in row {poisoned[0]} and "
+                  f"an infinity in row {poisoned[1]}: the other rows rel-L2 "
+                  f"{err:.3e} vs plain, the poisoned rows finite {finite}")
             del re, im, k, p
         print(f"{kernel_id} with a NaN row and an infinite row (n in {sizes}, three "
-              "tiles or transforms a block): both bodies keep them in their rows, the "
-              "others pass", flush=True)
+              "tiles or transforms a block): the body each runs keeps them in their "
+              "rows, the others pass", flush=True)
     torch.set_float32_matmul_precision(caller_precision)
 
     # Phases 4-4d note every (n, B) they give B1, B2, B4b, B5a and B5b (n the
     # real length for the last three), phase 4e every one it gives B6 (the
     # plans reach B1, B2 and B6 through their class's `run`, B4b, B5a and B5b
     # through rfft.py's reference to its module, here a namespace with their
-    # wrappers recorded); phases 4g and 4h check each shape on both bodies.
+    # wrappers recorded); phases 4g and 4h check each shape on its body.
     route_shapes = {"B1": set(), "B2": set(), "B4b": set(), "B5a": set(), "B5b": set(),
                     "B6": set()}
     # Every (shape, axis) phases 4i and 4j give B1s (VpuFftPlan.run_strided
@@ -1912,7 +1902,7 @@ def main() -> int:
           flush=True)
 
     # 4g. B1, B2, B4b, B5a and B5b at every (n, B) that phases 4-4d gave
-    # them, in every mode, on both bodies where a clustered one exists.
+    # them, in every mode, on the body each size runs.
     ftt.VpuFftPlan.run = staticmethod(sv.vpu_fft_batch_minor)
     ftt.VpuBluesteinPlan.run = staticmethod(sv.vpu_bluestein_batch_minor)
     rfft_module.stockham_vpu = sv
@@ -1921,10 +1911,10 @@ def main() -> int:
         worst_p = worst_h = 0.0
         ran = []
         for n, b in sorted(route_shapes[kernel]):
-            bodies, e_p, e_h, mx = bodies_case(kernel, n, b)
+            body, e_p, e_h, mx = bodies_case(kernel, n, b)
             worst_p, worst_h = max(worst_p, e_p), max(worst_h, e_h)
             max_abs_err[kernel] = max(max_abs_err[kernel], mx)
-            ran.append((n, b, "+".join(bodies)))
+            ran.append((n, b, body))
         check(ran, f"phases {phases} gave {kernel} no call")
         print(f"{kernel} at the routes' shapes {ran} x "
               f"{'1 mode' if kernel in ONE_MODE else '5 modes'} pass; worst rel-L2 "
@@ -2037,8 +2027,8 @@ def main() -> int:
     for k in ("B6", "B7", "B8"):
         check(path_launches[k] > 0, f"the c128 routes launched {k} no time")
 
-    # 4h. B6 at every (n, B) that phase 4e gave it, in every mode, on both
-    # bodies where a clustered one exists.
+    # 4h. B6 at every (n, B) that phase 4e gave it, in every mode, on the
+    # body each size runs.
     ftt.VpuDdFftPlan.run = staticmethod(dv.vpu_dd_fft_batch_minor)
     route_checks("B6", "4e")
 
@@ -2165,7 +2155,7 @@ def main() -> int:
     # array (rel-L2 gate REL_L2_GATE * sqrt(k) for complex64, DD_GATE *
     # sqrt(k) for complex128, k the transformed axes); then the kernels at
     # every (n, B) the surface gave them against their plain versions (B1,
-    # B4b, B5a, B5b, B6 on both bodies in every mode as phase 4g; B4a and
+    # B4b, B5a, B5b, B6 on their bodies in every mode as phase 4g; B4a and
     # B5a with their inverses through rfft_case, as phase 3d).
     def surface_runs():
         """Phase 4i's runs, in a scope of their own (phase 5 reads the main
@@ -2400,7 +2390,7 @@ def main() -> int:
     # complex64 results, SIG_PSD_GATE for PSD estimates, DD_GATE for
     # complex128; the backend's fft2, rfft and dctn at the surface's gate);
     # then the kernels at every (n, B) the slice gave them against their
-    # plain versions (B1, B2, B4b, B5a, B5b, B6 on both bodies in every mode
+    # plain versions (B1, B2, B4b, B5a, B5b, B6 on their bodies in every mode
     # as phase 4g; B4a with its inverse through rfft_case; B8 through
     # dd_case).
     def signal_runs():
@@ -3579,19 +3569,26 @@ def main() -> int:
     def entry(a, b):
         return plan.transform_planar_bm(a, b, mode)
 
-    def same_run_ab(what, stage, pair, chain):
-        """The stage body against the paired-block body of one kernel on the
-        same input, timed stage, pair, pair, stage (median of REPS each);
-        returns the pair body's two medians."""
-        got = {"stage": [], "pair": []}
-        for body in ("stage", "pair", "pair", "stage"):
-            fn = stage if body == "stage" else pair
-            got[body].append(median_ms(lambda *_: (fn(), None), None, None, chain))
-        print(f"time: {what} A/B, same run: stage body {got['stage'][0]:.4f} / "
-              f"{got['stage'][1]:.4f} ms, paired-block body {got['pair'][0]:.4f} / "
-              f"{got['pair'][1]:.4f} ms (median of {REPS} each, in the order "
-              f"stage, pair, pair, stage) on {card}", flush=True)
-        return got["pair"]
+    @contextlib.contextmanager
+    def forced_body(kernel, size, body):
+        """`kernel` on `body` at `size`, as an A/B forces it, in-process: for
+        B9b ("mma" or "fma") its B9B_FMA_WORK swapped, for a kernel of
+        sv.BODIES ("pair" or "stage") its stage-faster set, without `size`
+        or with it."""
+        if kernel == "B9b":
+            kept = bk.B9B_FMA_WORK
+            bk.B9B_FMA_WORK = 0 if body == "mma" else math.inf
+        else:
+            geometry, kept = sv.BODIES[kernel]
+            sv.BODIES[kernel] = (geometry, kept - {size} if body == "pair"
+                                 else kept | {size})
+        try:
+            yield
+        finally:
+            if kernel == "B9b":
+                bk.B9B_FMA_WORK = kept
+            else:
+                sv.BODIES[kernel] = (geometry, kept)
 
     def median_ms(step, a, b, chain=CHAIN):
         """Median over REPS of `chain` dependent calls, ms per call."""
@@ -3633,20 +3630,6 @@ def main() -> int:
           f"{bounds['B1'][0] / timed['B1 kernel']:.4f} of its bound "
           f"{bounds['B1'][0]:.4f} ms ({bounds['B1'][1]}) on {card}", flush=True)
 
-    def b1_bodies(n, a, c, scale_, plan_, tables_):
-        """B1's stage and clustered bodies on (a, c), for same_run_ab."""
-        return [lambda body=body: sv.vpu_fft_batch_minor(
-            a, c, n, True, scale_, tables=tables_, kernel_tables=plan_.kernel_fwd,
-            pair_tables=plan_.pair_fwd, _body=body) for body in ("stage", "pair")]
-
-    same_run_ab(f"B1 n={MAIN_N} B={MAIN_B}",
-                *b1_bodies(MAIN_N, re, im, scale, plan, tables), CHAIN)
-    plan_1k = ftt.create_fft_f32(1024, device="cuda")
-    a1k, c1k = planes(1024, 65536)
-    same_run_ab("B1 n=1024 B=65536", *b1_bodies(1024, a1k, c1k, 1024 ** -0.5,
-                                                  plan_1k, plan_1k.tables(True)), CHAIN)
-    del a1k, c1k
-
     # 5b. B2 at n=1013, B=65536: kernel, plain version, torch.fft.
     n, b = B2_TIME
     plan = ftt.create_fft_f32(n, device="cuda")
@@ -3680,16 +3663,11 @@ def main() -> int:
     print(f"time: B2 n={n} B={b} kernel {kernel_ms['B2'][0]:.4f} ms, "
           f"{bounds['B2'][0] / kernel_ms['B2'][0]:.4f} of its bound "
           f"{bounds['B2'][0]:.4f} ms ({bounds['B2'][1]}) on {card}", flush=True)
-    same_run_ab(f"B2 n={n} B={b}", *[
-        lambda body=body: sv.vpu_bluestein_batch_minor(
-            re, im, n, st.size, scale, kernel_tables=(st.kernel_fwd, st.kernel_inv),
-            _body=body, **kw) for body in ("stage", "pair")], CHAIN_NEW)
     del re, im, xc
 
     # 5c. B3 at n=65536, B=1024: kernel alone (its (q, p, B) input), the
-    # whole FourStepLocalPlan, torch.fft; B3's stage body against its
-    # clustered one in the same run; then the plans of B3_PLANS beside torch.fft, each also
-    # with B3 on its stage body (the parent's path).
+    # whole FourStepLocalPlan, torch.fft; then the plans of B3_PLANS beside
+    # torch.fft, each also with B3 forced onto its stage body.
     n, b = B3_TIME
     plan = ftt.create_fft_f32(n, device="cuda")
     p_, q_, rp = plan.p, plan.q, plan.row_plan
@@ -3699,10 +3677,9 @@ def main() -> int:
     re, im = planes(n, b)
     xc = torch.complex(re.T.contiguous(), im.T.contiguous())
 
-    def b3(a, c, body=None):
+    def b3(a, c):
         return sv.vpu_fft_four_step_row(a.view(q_, p_, b), c.view(q_, p_, b), p_,
-                                        q_, True, s3, kernel_tables=rp.kernel_fwd,
-                                        _body=body, **kw)
+                                        q_, True, s3, kernel_tables=rp.kernel_fwd, **kw)
 
     def b3_plain(a, c):
         return sv.vpu_fft_four_step_row_reference(
@@ -3731,8 +3708,6 @@ def main() -> int:
     print(f"time: B3 n={n} B={b} kernel {kernel_ms['B3'][0]:.4f} ms, "
           f"{bounds['B3'][0] / kernel_ms['B3'][0]:.4f} of its bound "
           f"{bounds['B3'][0]:.4f} ms ({bounds['B3'][1]}) on {card}", flush=True)
-    same_run_ab(f"B3 n={n} B={b}", *[lambda body=body: b3(re, im, body)
-                                     for body in ("stage", "pair")], CHAIN_NEW)
     del re, im, xc
     for n, b in B3_PLANS:
         plan = ftt.create_fft_f32(n, device="cuda")
@@ -3740,12 +3715,8 @@ def main() -> int:
         xc = torch.complex(re.T.contiguous(), im.T.contiguous())
         step = lambda a, c: plan.transform_planar_bm(a, c, mode)
         got = {"plan": median_ms(step, re, im, CHAIN_NEW)}
-        kept = sv.B3_STAGE_FASTER
-        sv.B3_STAGE_FASTER = kept | {plan.p}  # the parent's path: B3's stage body
-        try:
+        with forced_body("B3", plan.p, "stage"):
             got["plan, B3 on its stage body"] = median_ms(step, re, im, CHAIN_NEW)
-        finally:
-            sv.B3_STAGE_FASTER = kept
         got["plan again"] = median_ms(step, re, im, CHAIN_NEW)
         got["torch.fft.fft"] = median_ms(
             lambda a, _c: (torch.fft.fft(a, norm="ortho"), None), xc, None, CHAIN_NEW)
@@ -3797,47 +3768,7 @@ def main() -> int:
             print(f"time: rfft n={n} B={b} {what}: {ms:.4f} ms per call "
                   f"(inner {plan_tree(plan)[2]}, median of {REPS}) on {card}",
                   flush=True)
-        if (n, b) == (4096, 16384):
-            m = n // 2
-            kw = dict(tables=plan.inner.tables(True), kernel_tables=plan.inner.kernel_fwd,
-                      pair_tables=plan.inner.pair_fwd, w=plan.w)
-            same_run_ab(f"B4a n={n} B={b}",
-                        lambda: sv.vpu_rfft_pack_batch_minor(x, m, _body="stage", **kw),
-                        lambda: sv.vpu_rfft_pack_batch_minor(x, m, _body="pair", **kw),
-                        RF_CHAIN)
-            ikw = dict(tables=plan.inner.tables(False), kernel_tables=plan.inner.kernel_inv,
-                       pair_tables=plan.inner.pair_inv, w=plan.w)
-            same_run_ab(f"B4b n={n} B={b}", *[
-                lambda body=body: sv.vpu_irfft_unpack_batch_minor(*spec, m, _body=body, **ikw)
-                for body in ("stage", "pair")], RF_CHAIN)
-            stage_back = lambda re_, im_: sv.vpu_irfft_unpack_batch_minor(
-                re_, im_, m, _body="stage", **ikw)
-        if (n, b) == (1013, 65536):
-            st = plan.inner.stages
-            kw = dict(tables=(st.tables(True), st.tables(False)),
-                      kernel_tables=(st.kernel_fwd, st.kernel_inv),
-                      pair_tables=(st.pair_fwd, st.pair_inv),
-                      chirps=plan.inner.chirps(True))
-            same_run_ab(f"B5a n={n} B={b}", *[
-                lambda body=body: sv.vpu_rfft_odd_pack_batch_minor(
-                    x, n, st.size, _body=body, **kw) for body in ("stage", "pair")],
-                RF_CHAIN)
-            ikw = dict(kw, chirps=plan.inner.chirps(False))
-            same_run_ab(f"B5b n={n} B={b}", *[
-                lambda body=body: sv.vpu_irfft_odd_unpack_batch_minor(
-                    *spec, n, st.size, _body=body, **ikw) for body in ("stage", "pair")],
-                RF_CHAIN)
-            stage_back = lambda re_, im_: sv.vpu_irfft_odd_unpack_batch_minor(
-                re_, im_, n, st.size, _body="stage", **ikw)
         if (n, b) in ((4096, 16384), (1013, 65536)):
-            # The parent's path in this run: the fused trip with the inverse
-            # on its stage body.
-            parent_trip = median_ms(
-                lambda a, _c: (stage_back(*plan.rfft_planar_bm(a)), None), x, None, RF_CHAIN)
-            print(f"time: rfft n={n} B={b} fused {fam} round trip, {fam}b on its stage "
-                  f"body (the parent's path; chain {RF_CHAIN}): {parent_trip:.4f} ms per "
-                  f"call, against {trip[f'fused {fam} round trip (chain {RF_CHAIN})']:.4f} "
-                  f"(median of {REPS}) on {card}", flush=True)
             library = {"a": trip["torch.fft.rfft"], "b": trip["torch.fft.irfft"]}
             for k in ("a", "b"):
                 kernel_ms[fam + k] = (trip[f"{fam}{k} kernel"], trip[f"plain {fam}{k}"],
@@ -3871,9 +3802,9 @@ def main() -> int:
         }
         if tree[0] == "VpuDdFftPlan":
             k, tb = "B6", plan.tables(True)
-            kernel = lambda a, c, body=None: dv.vpu_dd_fft_batch_minor(
+            kernel = lambda a, c: dv.vpu_dd_fft_batch_minor(
                 a, c, n, True, scale, tables=tb, kernel_tables=plan.kernel_fwd,
-                pair_tables=plan.pair_fwd, _body=body)
+                pair_tables=plan.pair_fwd)
             plain = lambda a, c: dv.vpu_dd_fft_batch_minor_reference(
                 a, c, n, tb, True, scale)
             kb = bound(32.0 * n * b, 5.0 * n * math.log2(n) * b, F64_RATE)
@@ -3883,7 +3814,6 @@ def main() -> int:
             tb, chirps = (st.tables(True), st.tables(False)), plan.chirps(True)
             kernel = lambda a, c: dv.vpu_dd_bluestein_batch_minor(
                 a, c, n, st.size, scale, tables=tb,
-                kernel_tables=(st.kernel_fwd, st.kernel_inv),
                 pair_tables=(st.pair_fwd, st.pair_inv), chirps=chirps)
             plain = lambda a, c: dv.vpu_dd_bluestein_batch_minor_reference(
                 a, c, n, st.size, tb, chirps, scale)
@@ -3917,16 +3847,6 @@ def main() -> int:
                                if chain else median_ms(kernel, *args, DD_CHAIN))
         rows[f"plain {k}"] = (median_ms(chain(plain), None, None, PLAIN_CHAIN)
                               if chain else median_ms(plain, *args, PLAIN_CHAIN))
-        if k == "B7":
-            bodies = {body: (lambda body=body: dv.vpu_dd_bluestein_batch_minor(
-                re, im, n, st.size, scale, tables=tb,
-                kernel_tables=(st.kernel_fwd, st.kernel_inv),
-                pair_tables=(st.pair_fwd, st.pair_inv), chirps=chirps,
-                _body=body)) for body in ("stage", "pair")}
-            same_run_ab(f"B7 n={n} B={b}", bodies["stage"], bodies["pair"], DD_CHAIN)
-        if tree[0] == "VpuDdFftPlan" and dv.fft_pair_geometry_dd(n):
-            same_run_ab(f"B6 n={n} B={b}", *[lambda body=body: kernel(re, im, body)
-                                              for body in ("stage", "pair")], DD_CHAIN)
         for what, ms in rows.items():
             nb = 32.0 * (args[0].shape[0] if "kernel" in what or "plain" in what
                          else n) * b
@@ -3948,11 +3868,10 @@ def main() -> int:
     # the kernel alone, its plain version, the impl="xla" plan (cuBLAS, for
     # information) and torch.fft.fft on the same (B, n) complex64 tensor; the
     # bound from the plan's own summary (flops and min bytes per transform),
-    # restated for the tensor cores: 3 TF32 products for each f32 one. Both
-    # bodies of each kernel in the same run, fma, mma, mma, fma.
+    # restated for the tensor cores: 3 TF32 products for each f32 one.
     for kernel_id, n, b in B9_TIME:
         plan = ftt.MxuFftPlan.create(n, impl="pallas", device=dev)
-        _, kernel, plain = b9_fns(plan)
+        _, kernel, plain, body = b9_fns(plan)
         tabs = b9_tables(plan, mode)
         xla = ftt.MxuFftPlan.create(n, impl="xla", device=dev)
         re, im = planes(b, n)
@@ -3971,23 +3890,11 @@ def main() -> int:
                 lambda a, _c: (torch.fft.fft(a, norm="ortho"), None), xc, None,
                 B9_CHAIN),
         }
-        ab = {body: [] for body in B9_BODY_NAMES}
-        for body in ("fma", "mma", "mma", "fma"):
-            ab[body].append(median_ms(
-                lambda a, c: kernel(a, c, *tabs, _body=body), re, im, B9_CHAIN))
-        print(f"time: {kernel_id} n={n} B={b} A/B, same run: " + ", ".join(
-            f"{B9_BODY_NAMES[body]} {t[0]:.4f} / {t[1]:.4f} ms"
-            for body, t in ab.items()) + f" (median of {REPS} each, in the order "
-            f"fma, mma, mma, fma); the tensor-core body {min(ab['fma']) / max(ab['mma']):.2f}x "
-            f"as fast; {kb_[0] / min(ab['mma']):.4f} and {kb_[0] / min(ab['fma']):.4f} of "
-            f"the bound {kb_[0]:.4f} ms ({kb_[1]}) on {card}", flush=True)
-        check(kernel_id != "B9b" or max(ab["mma"]) < min(ab["fma"]),
-              f"B9b n={n} B={b}: the tensor-core body {ab['mma']} ms is not faster "
-              f"than the CUDA-core body {ab['fma']} ms")
         for what, ms in rows.items():
             share = (f", {kb_[0] / ms:.4f} of the bound {kb_[0]:.4f} ms ({kb_[1]})"
                      if "kernel" in what else "")
-            print(f"time: {kernel_id} n={n} {(plan.n1, plan.n2)} B={b} {what}: "
+            print(f"time: {kernel_id} n={n} {(plan.n1, plan.n2)} B={b} {what} "
+                  f"({B9_BODY_NAMES[body]}): "
                   f"{ms:.4f} ms per call, {summary.flops_per_transform * b / ms / 1e9:.2f} "
                   f"TFLOP/s of the plan's flops{share} (median of {REPS}) on {card}",
                   flush=True)
@@ -3998,14 +3905,15 @@ def main() -> int:
         del re, im, xc
 
     # 5g. Both bodies of B1, B2, B3, B4b, B5a, B5b and B6 at every size that
-    # has a clustered one, about AB_POINTS points a call, timed stage, pair,
-    # pair, stage (median of REPS each): the same-run A/B behind the sizes at
-    # which the wrappers keep the stage body (B1_STAGE_FASTER,
-    # B2_STAGE_FASTER, B3_STAGE_FASTER, B4B_STAGE_FASTER, B5A_STAGE_FASTER,
-    # B5B_STAGE_FASTER, B6_STAGE_FASTER).
-    def ab_sweep(kernel, sizes, stage_faster, batches=lambda n: (AB_POINTS // n,)):
+    # has a clustered one, each forced by forced_body, about AB_POINTS points
+    # a call, timed stage, pair, pair, stage (median of REPS each): the
+    # same-run A/B behind the sizes at which kernel_body keeps the stage body
+    # (B1_STAGE_FASTER, B2_STAGE_FASTER, B3_STAGE_FASTER, B4B_STAGE_FASTER,
+    # B5A_STAGE_FASTER, B5B_STAGE_FASTER, B6_STAGE_FASTER).
+    def ab_sweep(kernel, sizes, batches=lambda n: (AB_POINTS // n,)):
         """`batches(n)`: the batches timed at length n; with more than one,
         the sizes where the clustered body lost are listed as (size, B)."""
+        stage_faster = sv.BODIES[kernel][1]
         slower = []
         for size in sizes:
             if kernel == "B4b":
@@ -4016,8 +3924,7 @@ def main() -> int:
                 kw_ = dict(tables=plan_.inner.tables(False),
                            kernel_tables=plan_.inner.kernel_inv,
                            pair_tables=plan_.inner.pair_inv, w=plan_.w)
-                run = lambda a, c, body: sv.vpu_irfft_unpack_batch_minor(
-                    a, c, m, _body=body, **kw_)
+                run = lambda a, c: sv.vpu_irfft_unpack_batch_minor(a, c, m, **kw_)
             elif kernel == "B3":
                 p_, q_ = size, B3_AB_Q
                 n = rows = p_ * q_
@@ -4028,9 +3935,8 @@ def main() -> int:
                 kw_ = dict(tables=rp_.tables(True), kernel_tables=rp_.kernel_fwd,
                            pair_tables=rp_.pair_fwd,
                            pre_tw=(plan_.tw_fwd[0], plan_.tw_fwd[1]))
-                run = lambda a, c, body: sv.vpu_fft_four_step_row(
-                    a.view(q_, p_, -1), c.view(q_, p_, -1), p_, q_, True, None,
-                    _body=body, **kw_)
+                run = lambda a, c: sv.vpu_fft_four_step_row(
+                    a.view(q_, p_, -1), c.view(q_, p_, -1), p_, q_, True, None, **kw_)
             elif kernel in ("B1", "B6"):
                 n = rows = size
                 plan_ = (ftt.VpuFftPlan if kernel == "B1" else ftt.VpuDdFftPlan).create(
@@ -4038,7 +3944,7 @@ def main() -> int:
                 kw_ = dict(tables=plan_.tables(True), kernel_tables=plan_.kernel_fwd,
                            pair_tables=plan_.pair_fwd)
                 wrapper = sv.vpu_fft_batch_minor if kernel == "B1" else dv.vpu_dd_fft_batch_minor
-                run = lambda a, c, body: wrapper(a, c, n, True, None, _body=body, **kw_)
+                run = lambda a, c: wrapper(a, c, n, True, None, **kw_)
             else:
                 # The largest n whose inner size is M (odd for B5a and B5b).
                 n = rows = size // 2 - (kernel in ("B5a", "B5b") and size % 4 == 0)
@@ -4050,22 +3956,22 @@ def main() -> int:
                            pair_tables=(st_.pair_fwd, st_.pair_inv),
                            chirps=plan_.chirps(kernel != "B5b"))
                 if kernel == "B2":
-                    run = lambda a, c, body: sv.vpu_bluestein_batch_minor(
-                        a, c, n, size, None, _body=body, **kw_)
+                    run = lambda a, c: sv.vpu_bluestein_batch_minor(
+                        a, c, n, size, None, **kw_)
                 elif kernel == "B5a":
-                    run = lambda a, c, body: sv.vpu_rfft_odd_pack_batch_minor(
-                        a, n, size, _body=body, **kw_)
+                    run = lambda a, c: sv.vpu_rfft_odd_pack_batch_minor(a, n, size, **kw_)
                 else:
                     rows = (n + 1) // 2
-                    run = lambda a, c, body: sv.vpu_irfft_odd_unpack_batch_minor(
-                        a, c, n, size, _body=body, **kw_)
+                    run = lambda a, c: sv.vpu_irfft_odd_unpack_batch_minor(
+                        a, c, n, size, **kw_)
             bs = batches(n)
             for b in bs:
                 a, c = planes64(rows, b) if kernel == "B6" else planes(rows, b)
                 got = {"stage": [], "pair": []}
                 for body in ("stage", "pair", "pair", "stage"):
-                    got[body].append(median_ms(lambda *_: (run(a, c, body), None), None,
-                                               None, AB_CHAIN))
+                    with forced_body(kernel, size, body):
+                        got[body].append(median_ms(lambda *_: (run(a, c), None), None,
+                                                   None, AB_CHAIN))
                 ratio = min(got["stage"]) / max(got["pair"])
                 if ratio < 1.0:
                     slower.append(size if len(bs) == 1 else (size, b))
@@ -4074,29 +3980,25 @@ def main() -> int:
                       f"B={b}): stage body {got['stage'][0]:.4f} / {got['stage'][1]:.4f} ms, "
                       f"clustered body {got['pair'][0]:.4f} / {got['pair'][1]:.4f} ms, "
                       f"slower stage / faster pair {ratio:.3f}; the wrapper runs the "
-                      f"{'stage' if size in stage_faster else 'clustered'} body", flush=True)
+                      f"{'stage' if sv.kernel_body(kernel, size) == 'stage' else 'clustered'}"
+                      f" body", flush=True)
                 del a, c
         print(f"time: A/B {kernel}: the clustered body was the slower at {slower} in "
               f"this run; the wrapper keeps the stage body at {sorted(stage_faster)} "
               f"(chain {AB_CHAIN}, median of {REPS}, order stage, pair, pair, stage) "
               f"on {card}", flush=True)
 
-    ab_sweep("B1", [n for n in range(64, 2 * sv.PAIR_MAX_M + 1)
-                    if sv.fft_pair_geometry(n)], sv.B1_STAGE_FASTER)
-    ab_sweep("B2", [m for m in range(64, sv.PAIR_MAX_M + 1)
-                    if sv.bluestein_pair_geometry_c64(m)], sv.B2_STAGE_FASTER)
-    ab_sweep("B5a", [m for m in range(64, sv.PAIR_MAX_M + 1)
-                     if sv.rfft_odd_pack_geometry(m)], sv.B5A_STAGE_FASTER)
-    ab_sweep("B5b", [m for m in range(64, sv.PAIR_MAX_M + 1)
-                     if sv.irfft_odd_unpack_geometry(m)], sv.B5B_STAGE_FASTER)
-    ab_sweep("B4b", [m for m in range(64, sv.PAIR_MAX_M + 1)
-                     if sv.irfft_unpack_geometry(m)], sv.B4B_STAGE_FASTER)
-    ab_sweep("B6", [n for n in range(64, 2 * sv.PAIR_MAX_M + 1)
-                    if dv.fft_pair_geometry_dd(n)], dv.B6_STAGE_FASTER)
+    def clustered_sizes(kernel):
+        """The sizes up to 2 * PAIR_MAX_M (B1, B3, B6) or PAIR_MAX_M at
+        which `kernel` has a clustered body."""
+        top = 2 * sv.PAIR_MAX_M if kernel in ("B1", "B3", "B6") else sv.PAIR_MAX_M
+        return [s for s in range(64, top + 1) if sv.BODIES[kernel][0](s)]
+
+    for kernel in ("B1", "B2", "B5a", "B5b", "B4b", "B6"):
+        ab_sweep(kernel, clustered_sizes(kernel))
     # B3 at a batch that is a multiple of 4 (16-byte copies and stores) and
     # at an odd one (4-byte ones).
-    ab_sweep("B3", [p_ for p_ in range(64, 2 * sv.PAIR_MAX_M + 1)
-                    if sv.four_step_pair_geometry(p_)], sv.B3_STAGE_FASTER,
+    ab_sweep("B3", clustered_sizes("B3"),
              lambda n: ((AB_POINTS // n) & ~3, ((AB_POINTS // n) & ~3) - 1))
 
     # B9b's bodies at every split of _b9b_sweep_sizes(), about
@@ -4114,9 +4016,9 @@ def main() -> int:
         a, c = planes(b, n)
         got = {"fma": [], "mma": []}
         for body in ("fma", "mma", "mma", "fma"):
-            got[body].append(median_ms(
-                lambda x, y: bk.mxu_fft_two_phase(x, y, *tabs_, _body=body), a, c,
-                AB_CHAIN))
+            with forced_body("B9b", split, body):
+                got[body].append(median_ms(
+                    lambda x, y: bk.mxu_fft_two_phase(x, y, *tabs_), a, c, AB_CHAIN))
         ratio = sum(got["fma"]) / sum(got["mma"])
         runs = bk.two_phase_body(*split)
         if ratio < 1.0:
@@ -4142,7 +4044,8 @@ def main() -> int:
                            out[1].data_ptr(), *(t.data_ptr() for t in tabs_),
                            *split, b, tpb, threads + 32, dev.index, sv.stream_of(x))
                 return out
-            werr, _ = vs_plain(wide(a, c), bk.mxu_fft_two_phase(a, c, *tabs_, _body="fma"))
+            with forced_body("B9b", split, "fma"):
+                werr, _ = vs_plain(wide(a, c), bk.mxu_fft_two_phase(a, c, *tabs_))
             check(werr <= REL_L2_GATE, f"B9b on the 1024-bound instantiation: "
                   f"rel-L2 {werr:.3e} against the CUDA-core body")
             print(f"time: B9b n={n} {split} B={b} CUDA-core body, {threads + 32} threads "

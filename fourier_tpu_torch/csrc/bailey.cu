@@ -1,15 +1,14 @@
-// Kernels B9a and B9b on the CUDA cores: the DFT as dense complex products,
-// planar complex64, batch-major (B, n), for NVIDIA Hopper (sm_90a), in one
-// library. Each host function checks its arguments, launches on the
+// Kernel B9b on the CUDA cores: the DFT as dense complex products, planar
+// complex64, batch-major (B, n), for NVIDIA Hopper (sm_90a), in one
+// library. Its host function checks its arguments, launches on the
 // caller's stream, neither allocates nor synchronises, and returns
 // cudaGetLastError().
 //
-// These are the kernels' first bodies. Both kernels now run on the tensor
-// cores in 3xTF32, in a library of their own (MMA_LIBRARY of
-// ops/cuda/bailey.py); the wrappers launch these bodies for same-run
-// comparisons (`_body="fma"`) and B9b's also for small transforms, n *
-// (n1 + n2) < B9B_FMA_WORK, where the card's sweep found it faster: the
-// tensor-core body leaves most of its warps idle there.
+// This is B9b's first body. B9a and B9b run on the tensor cores in 3xTF32,
+// in a library of their own (MMA_LIBRARY of ops/cuda/bailey.py); the
+// wrapper launches this body for B9b's small transforms, n * (n1 + n2) <
+// B9B_FMA_WORK, where the card's sweep found it faster: the tensor-core
+// body leaves most of its warps idle there.
 //
 // Every product runs on the CUDA cores in fp32 FMA: no TF32 and no tensor
 // core, so the caller's TF32 setting cannot reach them (the JAX kernels pin
@@ -18,26 +17,6 @@
 // output's total: a plain running sum over 128 terms loses about twice as
 // many bits (rel-L2 4.0e-7 against 1.7e-7 at n = 16384, from a numpy
 // transliteration of this kernel with fma rounding).
-//
-// Kernel B9a: one dense DFT product, n <= 128.
-//
-// Replaces fourier_tpu/ops/pallas/bailey.py:_single_phase_kernel (:81),
-// launched by mxu_fft_single (:128): O[t, k] = sum_j D[k, j] x[t, j] for the
-// B rows t of the planar (B, n) input, D (n, n) with direction and mode
-// scale folded in by the plan.
-//
-// What bounds it on this card: operations. 8*n*n flops per row against 16*n
-// bytes, so at n = 125 the flops take 0.12 ms and the bytes 0.04 ms for
-// B = 65536 (67 TFLOP/s fp32, 3.35 TB/s).
-//
-// Design: a persistent grid (the SMs times the blocks that fit on one).
-// Each block stages D in shared memory once (128 KiB at n = 128) and walks
-// tiles of `tile` rows: a coalesced copy of the tile into shared memory
-// (rows padded to an odd stride), the products, the results written back
-// over the tile, a coalesced store. Thread (t, g) of a tile owns row t and
-// the outputs k = g + G*j, G = ceil(n / 16), at most 16 of them: each input
-// value it loads from shared memory feeds up to 16 complex FMAs, and the
-// D values it loads are the same for every thread of the group (broadcast).
 //
 // Kernel B9b: the fused two-phase DFT, n = n1*n2 with n1, n2 <= 128.
 //
@@ -76,7 +55,6 @@ namespace {
 
 constexpr int kMaxOut = 16;  // complex outputs a thread accumulates
 constexpr int kChunk = 16;   // terms summed before they join the total
-constexpr int kSingleThreads = 256;
 constexpr int kTwoPhaseMaxThreads = 1024;
 // Blocks of at most this many threads take the instantiation bounded
 // there, where a thread may hold 128 registers instead of 64.
@@ -149,65 +127,6 @@ __host__ __device__ inline int groups_of(int rows) {
 
 __device__ inline int outputs_of(int g, int groups, int rows) {
   return g < groups ? (rows - g + groups - 1) / groups : 0;
-}
-
-__global__ void __launch_bounds__(kSingleThreads)
-dft_single_c64(const float* __restrict__ xre, const float* __restrict__ xim,
-               float* __restrict__ yre, float* __restrict__ yim,
-               const float* __restrict__ dre, const float* __restrict__ dim,
-               int n, int batch, int tile) {
-  extern __shared__ float smem[];
-  const int ld = n | 1;
-  float* sdr = smem;  // D, (n, n)
-  float* sdi = sdr + n * n;
-  float* sxr = sdi + n * n;  // the tile's rows in, then its rows out: (tile, ld)
-  float* sxi = sxr + tile * ld;
-  for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
-    sdr[e] = dre[e];
-    sdi[e] = dim[e];
-  }
-  const int groups = groups_of(n);
-  const int t = threadIdx.x % tile;
-  const int g = threadIdx.x / tile;
-  const int nout = outputs_of(g, groups, n);
-  float tr[kMaxOut], ti[kMaxOut];
-  for (size_t t0 = static_cast<size_t>(blockIdx.x) * tile; t0 < static_cast<size_t>(batch);
-       t0 += static_cast<size_t>(gridDim.x) * tile) {
-    const size_t left = batch - t0;
-    const int rows = left < static_cast<size_t>(tile) ? static_cast<int>(left) : tile;
-    const size_t base = t0 * n;
-    __syncthreads();  // D is staged and the last tile has left
-    for (int e = threadIdx.x; e < rows * n; e += blockDim.x) {
-      const int r = e / n;
-      const int j = e - r * n;
-      sxr[r * ld + j] = xre[base + e];
-      sxi[r * ld + j] = xim[base + e];
-    }
-    __syncthreads();
-    const bool active = t < rows && nout > 0;
-    if (active) {
-      contract<false>(sdr, sdi, n, g, groups, nout, sxr + t * ld, sxi + t * ld,
-                      1, tr, ti);
-    }
-    __syncthreads();  // every row of the tile has been read
-    if (active) {
-#pragma unroll
-      for (int j = 0; j < kMaxOut; ++j) {
-        if (j < nout) {
-          const int k = g + groups * j;
-          sxr[t * ld + k] = tr[j];
-          sxi[t * ld + k] = ti[j];
-        }
-      }
-    }
-    __syncthreads();
-    for (int e = threadIdx.x; e < rows * n; e += blockDim.x) {
-      const int r = e / n;
-      const int k = e - r * n;
-      yre[base + e] = sxr[r * ld + k];
-      yim[base + e] = sxi[r * ld + k];
-    }
-  }
 }
 
 template <int MaxThreads>
@@ -302,38 +221,6 @@ int prepare(Kernel kern, size_t smem, int device) {
 }  // namespace
 
 extern "C" {
-
-// B9a: O[t, k] = sum_j D[k, j] x[t, j] for the B = `batch` rows of the
-// planar f32 (B, n) input, 1 <= n <= 128, into the planar f32 (B, n) output.
-// `dre`/`dim`: the (n, n) planar table, direction and scale folded in;
-// `tile`: rows a block takes at once, tile * ceil(n / 16) <= 256. Returns a
-// cudaError_t code, 0 on success.
-int fourier_dft_single_c64(const float* xre, const float* xim, float* yre,
-                           float* yim, const float* dre, const float* dim,
-                           int n, int batch, int tile, int device,
-                           void* stream) {
-  if (n < 1 || n > kMaxN || batch < 1 || tile < 1 ||
-      tile * groups_of(n) > kSingleThreads) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t smem = 2 * sizeof(float) *
-                      (static_cast<size_t>(n) * n + static_cast<size_t>(tile) * (n | 1));
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  int err = prepare(dft_single_c64, smem, device);
-  if (err != 0) return err;
-  int sms = 0, per_sm = 0;
-  cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dft_single_c64,
-                                                    kSingleThreads, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int tiles = (batch + tile - 1) / tile;
-  const int grid = tiles < sms * per_sm ? tiles : sms * per_sm;
-  dft_single_c64<<<grid, kSingleThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      xre, xim, yre, yim, dre, dim, n, batch, tile);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // B9b: the two-phase DFT of the B = `batch` rows of the planar f32 (B, n)
 // input, n = n1 * n2 (1 <= n1, n2 <= 128), into the planar f32 (B, n)

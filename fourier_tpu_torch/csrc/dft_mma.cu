@@ -10,16 +10,15 @@
 // launched by mxu_fft_single (:128), the TPU's matrix-unit kernel:
 // O[t, k] = sum_j D[k, j] x[t, j] for the B rows t of the planar (B, n)
 // input, D the plan's (n, n) table with the direction and the mode scale
-// folded in: the complex product O = X * D^T, M = B, N = K = n. The
-// CUDA-core body of bailey.cu (dft_single_c64) stays beside it for
-// same-run comparisons (mxu_fft_single's `_body`).
+// folded in: the complex product O = X * D^T, M = B, N = K = n.
 //
 // What bounds it on this card: the bytes, 16*n*B (0.039 ms at 125 x 65536
 // at 3.35 TB/s), and the tensor cores' operations, 3 TF32 products per
 // f32 product, 3*8*n*n*B flops (0.050 ms there at 495 TFLOP/s dense): the
 // larger, the operations. On an H100 80GB HBM3 at 700 W (chip_smoke.py
 // phase 5f) it took 0.27 ms there, 0.18 of that bound, against 1.45 ms for
-// the CUDA-core body in the same run (torch.fft 0.097 ms); its worst
+// B9a's CUDA-core body, since removed, in the same run (torch.fft 0.097
+// ms); its worst
 // rel-L2 over phase 3f's shapes was 1.6e-7 against np.fft.
 //
 // Design: 3xTF32 on mma.sync (dft_mma.cuh; the counterpart of the JAX
@@ -48,8 +47,8 @@
 // x.reshape(n2, n1): phase A G = D_n2 M, the twiddle G' = G * T (T of
 // shape (n2, n1)), phase B O[k1, k2] = sum_a D_n1[k1, a] G'[k2, a], stored
 // at k1*n2 + k2 (natural order). The CUDA-core body of bailey.cu stays
-// beside it for same-run comparisons and for the small transforms below
-// B9B_FMA_WORK (ops/cuda/bailey.py two_phase_body).
+// beside it for the small transforms below B9B_FMA_WORK (ops/cuda/bailey.py
+// two_phase_body).
 //
 // What bounds it on this card: the tensor cores' operations, 3 TF32
 // products per f32 product, 3 * (8*n*(n1+n2) + 14*n) flops a transform

@@ -321,7 +321,7 @@ stockham_planar(const T* __restrict__ xre, const T* __restrict__ xim,
   }
 }
 
-// The fused Bluestein kernel (B2 at float, B7 at double): for every column
+// The fused Bluestein kernel (B2's stage body): for every column
 // of the planar (n, B) input, chirp_z through the m-point schedule `sch`,
 // then the first n rows times xo * scale, stored. Layout as stockham_planar
 // at size m.

@@ -79,9 +79,8 @@
 //   6. the first n rows times xo * scale (xo carries 1/M from plan time; the
 //      mode scale arrives as a float, as in B1), stored.
 // M is 5-smooth with 8 | M and M <= 8192 (VpuBluesteinPlan.choose_inner).
-// The kernel is bluestein_planar<float> of stockham_stages.cuh (B7 is its
-// double instantiation); its steps 1-5 are chirp_z there, which the odd-n
-// real kernels B5a and B5b share.
+// The kernel is bluestein_planar<float> of stockham_stages.cuh; its steps
+// 1-5 are chirp_z there, which the odd-n real kernels B5a and B5b share.
 //
 // What bounds it on this card: it reads and writes only n rows per column,
 // 16*n*B bytes, but runs two M >= 2n-1 point transforms on chip, about

@@ -67,9 +67,8 @@
 // E[p] + W_M^-p * O[p], and stores them times xo * scale. At 1013 x 65536
 // on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 5e, same run) it took
 // 5.2 ms, 0.12 of the bound, where the stage body took 9.7 ms, 0.066. That
-// body, bluestein_planar<double> of
-// stockham_stages.cuh (B2's kernel at double, 4 columns, 512 threads), is
-// still compiled for that same-run comparison; nothing else launches it.
+// body, bluestein_planar<double> of stockham_stages.cuh (B2's kernel at
+// double, 4 columns, 512 threads), ran at no size and is gone.
 //
 // Kernel B8: the radix-r DIT split combine in f64, batch-minor.
 //
@@ -183,36 +182,15 @@ int fourier_stockham_c128(const double* xre, const double* xim, double* yre,
       twim, forward, scale, device, stream);
 }
 
-// B7's stage body, launched only for same-run comparisons (the
-// wrapper's `_body="stage"`): Bluestein transform of the B = `batch` columns of the planar f64
-// (n, B) input into the planar f64 (n, B) output, through an M = `m`-point
-// inner transform whose `nstages` radices (host memory) multiply to m.
-// `fw*`/`iv*`: the concatenated forward / inverse f64 stage tables of that
-// schedule; `xt*` (n), `wt*` (m), `xo*` (n): the direction-matched f64 chirp
-// tables, 1/M folded into xo; `threads` <= 512. Returns a cudaError_t code,
-// 0 on success.
-int fourier_bluestein_c128(const double* xre, const double* xim, double* yre,
-                           double* yim, int n, int m, int batch, int cols,
-                           int threads, int nstages, const int* radices,
-                           const double* fwre, const double* fwim,
-                           const double* ivre, const double* ivim,
-                           const double* xtre, const double* xtim,
-                           const double* wtre, const double* wtim,
-                           const double* xore, const double* xoim,
-                           double scale, int device, void* stream) {
-  const ChirpZ<double> t{fwre, fwim, ivre, ivim, xtre, xtim,
-                         wtre, wtim, xore, xoim};
-  return launch_bluestein<double, kMaxThreadsDd>(
-      xre, xim, yre, yim, n, m, batch, cols, threads, nstages, radices, t,
-      scale, device, stream);
-}
-
-// B7, paired-block body: as fourier_bluestein_c128, with tiles of m/2 rows
-// and `cols` columns a block (a power of two, at least 4) and `threads` =
-// 256 threads covering 16 points each. `radices` (host memory, `npasses`
-// entries from {2, 4, 8, 16}) multiply to m/2; `fw*`/`iv*` hold the m/2
-// split twiddles W_M^(-+p) of their direction, then the concatenated pass
-// tables. Returns a cudaError_t code, 0 on success.
+// B7, paired-block body: Bluestein transform of the B = `batch` columns of
+// the planar f64 (n, B) input into the planar f64 (n, B) output, through an
+// M = `m`-point inner transform, with tiles of m/2 rows and `cols` columns
+// a block (a power of two, at least 4) and `threads` = 256 threads covering
+// 16 points each. `radices` (host memory, `npasses` entries from {2, 4, 8,
+// 16}) multiply to m/2; `fw*`/`iv*` hold the m/2 split twiddles W_M^(-+p)
+// of their direction, then the concatenated pass tables; `xt*` (n), `wt*`
+// (m), `xo*` (n): the direction-matched f64 chirp tables, 1/M folded into
+// xo. Returns a cudaError_t code, 0 on success.
 int fourier_bluestein_pair_c128(const double* xre, const double* xim,
                                 double* yre, double* yim, int n, int m,
                                 int batch, int cols, int threads, int npasses,

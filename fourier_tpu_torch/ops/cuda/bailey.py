@@ -20,11 +20,10 @@ per f32 one, never one TF32 product), through one warp-level product
 :func:`two_phase_mma_geometry` give their layouts. B9b's tensor-core body
 runs phase A as G^T = M^T D_n2^T (M comes in transposed), the twiddle as a
 float multiply on the fragments into G', and phase B as O = D_n1 G'^T, on
-one transform at a time. The CUDA-core bodies of both (fp32 FMA, no TF32)
-are one library built from ``csrc/bailey.cu``: B9a's for same-run
-comparisons only (``_body="fma"``), B9b's also for the small transforms
-below ``B9B_FMA_WORK``, where the card's sweep found it faster
-(:func:`two_phase_body`). No product
+one transform at a time. B9b's CUDA-core body (fp32 FMA, no TF32), a
+library built from ``csrc/bailey.cu``, runs the small transforms below
+``B9B_FMA_WORK``, where the card's sweep found it faster
+(:func:`two_phase_body`, the one rule of B9b's body). No product
 takes the caller's TF32 setting. Each wrapper runs its plain version for
 tensors on the CPU and launches its kernel (or raises) for tensors on a
 CUDA device, through a registered operator (``fourier_tpu_torch::
@@ -32,8 +31,8 @@ mxu_fft_single``, ``::mxu_fft_two_phase``), whose launches ``build.launch``
 counts (B9b's tensor-core ones also in ``launches.mxu_fft_two_phase.mma``
 of ``fourier_tpu_torch.trace``'s registry). ``tb`` is the TPU kernel's
 batch tile; here it caps the rows or transforms a block takes at once,
-and no result depends on it. :func:`single_geometry` and
-:func:`two_phase_geometry` give the CUDA-core launches' shapes.
+and no result depends on it. :func:`two_phase_geometry` gives the
+CUDA-core launch's shape.
 """
 
 from __future__ import annotations
@@ -52,7 +51,6 @@ from fourier_tpu_torch.ops.cuda.stockham_vpu import (check_planes, check_tables,
 
 MAX_N = 128  # either factor of a split, and n of the single product
 MAX_OUT = 16  # complex outputs one thread accumulates (csrc kMaxOut)
-SINGLE_THREADS = 256
 MAX_THREADS = 1024
 SMALL_THREADS = 512  # B9b's instantiation with 128 registers a thread
 MAX_SMEM = 232448  # bytes of shared memory a block may use (227 KB)
@@ -65,7 +63,6 @@ MMA_MAX_TILES = 4
 LIBRARY = "bailey"  # csrc/bailey.cu
 _P, _I = ctypes.c_void_p, ctypes.c_int
 ENTRY_POINTS = {
-    "fourier_dft_single_c64": [_P] * 6 + [_I] * 4 + [_P],
     "fourier_dft_two_phase_c64": [_P] * 10 + [_I] * 6 + [_P],
 }
 MMA_LIBRARY = "dft_mma"  # csrc/dft_mma.cu: B9a's tensor-core body
@@ -84,7 +81,7 @@ B9B_FMA_WORK = 21000
 
 
 def library():
-    """Build (at first use) and load the B9 library."""
+    """Build (at first use) and load B9b's CUDA-core library."""
     return build.bind(LIBRARY, ENTRY_POINTS)
 
 
@@ -133,13 +130,6 @@ class TwoPhaseMmaGeometry(NamedTuple):
 def groups_of(rows: int) -> int:
     """Thread groups over `rows` outputs, each owning at most MAX_OUT."""
     return -(-rows // MAX_OUT)
-
-
-def single_geometry(n: int, tb: Optional[int] = None) -> int:
-    """B9a's tile: the rows a block takes at once (threads over the n
-    outputs of a row in groups of MAX_OUT, SINGLE_THREADS a block)."""
-    tile = SINGLE_THREADS // groups_of(n)
-    return max(1, min(tile, tb)) if tb else tile
 
 
 def single_mma_geometry(n: int, tb: Optional[int] = None) -> MmaGeometry:
@@ -208,26 +198,20 @@ def _check_table(t, shape, what: str):
         raise ValueError(f"{what} takes a {shape} table, got {tuple(t.shape)}")
 
 
-def mxu_fft_single(re, im, dre, dim, *, tb: Optional[int] = None,
-                   _body: Optional[str] = None):
+def mxu_fft_single(re, im, dre, dim, *, tb: Optional[int] = None):
     """B9a over contiguous planar f32 (B, n) planes, n <= 128; returns new
     planes. `dre`/`dim`: the (n, n) table, direction and scale folded in.
-    The kernel is the tensor-core body of ``csrc/dft_mma.cu``; `_body`
-    ("mma", the default, or "fma", the CUDA-core body of ``csrc/bailey.cu``)
-    picks one, for same-run comparisons."""
+    The kernel is the tensor-core body of ``csrc/dft_mma.cu``."""
     n = dre.shape[0] if dre.ndim == 2 else -1
     if not 1 <= n <= MAX_N:
         raise ValueError(f"B9a takes n <= {MAX_N}, got a table of {tuple(dre.shape)}")
     _check(re, im, n, "B9a")
     for t in (dre, dim):
         _check_table(t, (n, n), "B9a")
-    body = _body or "mma"
-    if body not in ("mma", "fma"):
-        raise ValueError(f"B9a body {body!r}: 'mma' or 'fma'")
     if re.device.type == "cpu":
         return bailey.xla_fft_single(re, im, dre, dim)
     check_tables(re.device, dre, dim)
-    return _mxu_fft_single_op(re, im, dre, dim, tb, body)
+    return _mxu_fft_single_op(re, im, dre, dim, tb)
 
 
 _SINGLE_OP = "fourier_tpu_torch::mxu_fft_single"
@@ -235,7 +219,7 @@ _SINGLE_OP = "fourier_tpu_torch::mxu_fft_single"
 
 @torch.library.custom_op(_SINGLE_OP, mutates_args=(), device_types="cuda")
 def _mxu_fft_single_op(re: Tensor, im: Tensor, dre: Tensor, dim: Tensor,
-                       tb: Optional[int], body: str) -> Tuple[Tensor, Tensor]:
+                       tb: Optional[int]) -> Tuple[Tensor, Tensor]:
     """B9a's launch (see :func:`mxu_fft_single`)."""
     n = dre.shape[0]
     out_re = torch.empty_like(re)
@@ -245,14 +229,9 @@ def _mxu_fft_single_op(re: Tensor, im: Tensor, dre: Tensor, dim: Tensor,
         return out_re, out_im
     data = (re.data_ptr(), im.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
             dre.data_ptr(), dim.data_ptr())
-    if body == "mma":
-        build.launch(_SINGLE_OP, mma_library(), "fourier_dft_single_mma_c64",
-                     f"B9a (tensor cores) at n={n}, B={batch}", *data, n, batch,
-                     single_mma_geometry(n, tb).valid, re.device.index, stream_of(re))
-    else:
-        build.launch(_SINGLE_OP, library(), "fourier_dft_single_c64",
-                     f"B9a at n={n}, B={batch}", *data, n, batch,
-                     single_geometry(n, tb), re.device.index, stream_of(re))
+    build.launch(_SINGLE_OP, mma_library(), "fourier_dft_single_mma_c64",
+                 f"B9a (tensor cores) at n={n}, B={batch}", *data, n, batch,
+                 single_mma_geometry(n, tb).valid, re.device.index, stream_of(re))
     return out_re, out_im
 
 
@@ -262,20 +241,20 @@ def _(re, im, *_):
 
 
 def two_phase_body(n1: int, n2: int) -> str:
-    """The body mxu_fft_two_phase runs at split (n1, n2) unless asked:
-    "fma" (the CUDA-core body) where n * (n1 + n2) < B9B_FMA_WORK, else
-    "mma" (the tensor-core body)."""
+    """The body mxu_fft_two_phase runs at split (n1, n2): "fma" (the
+    CUDA-core body) where n * (n1 + n2) < B9B_FMA_WORK, else "mma" (the
+    tensor-core body). An A/B that forces a body swaps B9B_FMA_WORK
+    in-process."""
     return "fma" if n1 * n2 * (n1 + n2) < B9B_FMA_WORK else "mma"
 
 
 def mxu_fft_two_phase(re, im, d2re, d2im, tre, tim, d1re, d1im, *,
-                      tb: Optional[int] = None, _body: Optional[str] = None):
+                      tb: Optional[int] = None):
     """B9b over contiguous planar f32 (B, n) planes, n = n1*n2; returns new
     planes in natural order. Tables: D_n2 (n2, n2), the split twiddle T
     (n2, n1) and D_n1 (n1, n1), direction and scale folded in. The kernel
     is the tensor-core body of ``csrc/dft_mma.cu``, but the CUDA-core body
-    of ``csrc/bailey.cu`` where :func:`two_phase_body` says so;
-    `_body` ("mma" or "fma") picks one, for same-run comparisons. The
+    of ``csrc/bailey.cu`` where :func:`two_phase_body` says so. The
     tensor-core body takes one transform at a time, so `tb` caps only the
     CUDA-core body's transforms a block."""
     if tre.ndim != 2:
@@ -288,13 +267,10 @@ def mxu_fft_two_phase(re, im, d2re, d2im, tre, tim, d1re, d1im, *,
     for t, shape in ((d2re, (n2, n2)), (d2im, (n2, n2)), (tim, (n2, n1)),
                      (d1re, (n1, n1)), (d1im, (n1, n1))):
         _check_table(t, shape, "B9b")
-    body = _body or two_phase_body(n1, n2)
-    if body not in ("mma", "fma"):
-        raise ValueError(f"B9b body {body!r}: 'mma' or 'fma'")
     if re.device.type == "cpu":
         return bailey.reference_two_phase(re, im, d2re, d2im, tre, tim, d1re, d1im)
     check_tables(re.device, d2re, d2im, tre, tim, d1re, d1im)
-    return _mxu_fft_two_phase_op(re, im, d2re, d2im, tre, tim, d1re, d1im, tb, body)
+    return _mxu_fft_two_phase_op(re, im, d2re, d2im, tre, tim, d1re, d1im, tb)
 
 
 _TWO_PHASE_OP = "fourier_tpu_torch::mxu_fft_two_phase"
@@ -303,7 +279,7 @@ _TWO_PHASE_OP = "fourier_tpu_torch::mxu_fft_two_phase"
 @torch.library.custom_op(_TWO_PHASE_OP, mutates_args=(), device_types="cuda")
 def _mxu_fft_two_phase_op(re: Tensor, im: Tensor, d2re: Tensor, d2im: Tensor,
                           tre: Tensor, tim: Tensor, d1re: Tensor, d1im: Tensor,
-                          tb: Optional[int], body: str) -> Tuple[Tensor, Tensor]:
+                          tb: Optional[int]) -> Tuple[Tensor, Tensor]:
     """B9b's launch (see :func:`mxu_fft_two_phase`)."""
     n2, n1 = tre.shape
     n = n1 * n2
@@ -313,7 +289,7 @@ def _mxu_fft_two_phase_op(re: Tensor, im: Tensor, d2re: Tensor, d2im: Tensor,
     if batch == 0:
         return out_re, out_im
     what = f"B9b at n={n} ({n1}, {n2}), B={batch}"
-    if body == "mma":
+    if two_phase_body(n1, n2) == "mma":
         build.launch(_TWO_PHASE_OP, mma_library(), "fourier_dft_two_phase_mma_c64",
                      f"{what} (tensor cores)", re.data_ptr(), im.data_ptr(),
                      out_re.data_ptr(), out_im.data_ptr(), d2re.data_ptr(),

@@ -80,8 +80,10 @@ kernel (or raises) for tensors on a CUDA device, through
 registry. Each launch is a registered operator
 (``torch.library.custom_op``, ``fourier_tpu_torch::<name>``, with a fake
 implementation that gives the outputs' shapes), so that ``torch.export``
-keeps it in the graph of a plan on the card; the choice of body and
-geometry happens inside the operator. The clustered bodies read the tables
+keeps it in the graph of a plan on the card. The operator chooses the body
+and its launch from the kernel and the size alone, by
+:func:`clustered_geometry` over the table :data:`BODIES`. The clustered
+bodies read the tables
 of :func:`pair_tables`, which the plans build at plan time and pass in
 (``pair_tables=``); no wrapper computes a twiddle.
 
@@ -432,10 +434,9 @@ def fft_pair_geometry(n: int) -> Optional[PairGeometry]:
 def fft_pair_strided_geometry(n: int) -> Optional[PairGeometry]:
     """The launch of B1's clustered body on a complex64 tensor where it lies
     (``csrc/fft_pair_strided.cu``) at n: B1's (:func:`fft_pair_geometry`),
-    or None where B1 launches its stage body (no clustered body, or n in
-    B1_STAGE_FASTER), which has no such form, and at the heights of
-    B1_STRIDED_SPILLED."""
-    geo = None if n in B1_STAGE_FASTER else fft_pair_geometry(n)
+    or None where B1 launches its stage body (:func:`clustered_geometry`),
+    which has no such form, and at the heights of B1_STRIDED_SPILLED."""
+    geo = clustered_geometry("B1", n)
     return None if geo is None or geo.rows in B1_STRIDED_SPILLED else geo
 
 
@@ -492,6 +493,39 @@ def irfft_odd_unpack_geometry(m: int) -> Optional[PairGeometry]:
     if m % 2 or m // 2 not in IRFFT_ODD_PAIR_ROWS:
         return None
     return pair_geometry(m, 4, PAIR_THREADS)
+
+
+# The body a kernel of two bodies runs at a size, and where that is chosen:
+# its clustered- or paired-block body where the body's geometry gives one
+# and the size is not in the kernel's stage-faster set, else its stage body.
+# Keyed by kernel: (the clustered body's geometry at a size, or None; the
+# sizes where the stage body won). B6's entry is added by stockham_vpu_dd;
+# B9b's rule is two_phase_body of bailey. An A/B that forces a body swaps
+# the kernel's set here, in-process.
+BODIES = {
+    "B1": (fft_pair_geometry, B1_STAGE_FASTER),
+    "B2": (bluestein_pair_geometry_c64, B2_STAGE_FASTER),
+    "B3": (four_step_pair_geometry, B3_STAGE_FASTER),
+    "B4a": (rfft_pack_geometry, frozenset()),
+    "B4b": (irfft_unpack_geometry, B4B_STAGE_FASTER),
+    "B5a": (rfft_odd_pack_geometry, B5A_STAGE_FASTER),
+    "B5b": (irfft_odd_unpack_geometry, B5B_STAGE_FASTER),
+}
+
+
+def clustered_geometry(kernel: str, size: int) -> Optional[PairGeometry]:
+    """The launch of the clustered- or paired-block body of `kernel` of
+    :data:`BODIES` at `size` (n for B1 and B6, m for B4a and B4b, the inner
+    M for B2, B5a and B5b, the row size p for B3) where the kernel runs that
+    body, else None: there it runs its stage body."""
+    geometry, stage_faster = BODIES[kernel]
+    return None if size in stage_faster else geometry(size)
+
+
+def kernel_body(kernel: str, size: int) -> str:
+    """The body `kernel` runs at `size`: "pair" where
+    :func:`clustered_geometry` gives a launch, else "stage"."""
+    return "stage" if clustered_geometry(kernel, size) is None else "pair"
 
 
 def stages_reference(re_t, im_t, schedule: Sequence[int], tables,
@@ -708,21 +742,9 @@ def scale_arg(scale: Optional[float]) -> float:
     return 1.0 if scale is None else float(scale)
 
 
-def pick_body(what: str, geo, body: Optional[str], stage_faster: bool = False) -> str:
-    """The body a wrapper launches: `body` if given, else the clustered one
-    where its geometry `geo` exists and the stage body is not the faster
-    one; a clustered body that does not exist at the size is refused."""
-    body = body or ("pair" if geo and not stage_faster else "stage")
-    if body not in ("pair", "stage"):
-        raise ValueError(f"{what} body {body!r}: 'pair' or 'stage'")
-    if body == "pair" and geo is None:
-        raise ValueError(f"{what} has no clustered-block body here")
-    return body
-
-
 def vpu_fft_batch_minor(re_t, im_t, n: int, forward: bool,
                         scale: Optional[float], *, tables, kernel_tables,
-                        pair_tables=None, _body: Optional[str] = None):
+                        pair_tables=None):
     """B1 over contiguous planar f32 (n, B) planes; returns new planes.
 
     `tables`: the compact stage tables of :func:`make_stage_tables` as
@@ -732,34 +754,31 @@ def vpu_fft_batch_minor(re_t, im_t, n: int, forward: bool,
     body's clusters (the clustered body reads it in both directions), None
     where n has no clustered body; all on the planes' device. The kernel is
     the clustered-block body of ``csrc/fft_pair.cu`` where
-    :func:`fft_pair_geometry` gives one and n is not in B1_STAGE_FASTER,
-    else the stage body; `_body` ("pair" or "stage") forces one, for
-    same-run comparisons. On a card the launch is the operator
-    ``fourier_tpu_torch::vpu_fft``.
+    :func:`kernel_body` says so, else the stage body. On a card the launch
+    is the operator ``fourier_tpu_torch::vpu_fft``.
     """
     check_planes(re_t, im_t, (n,), "B1")
     if re_t.device.type == "cpu":
         return vpu_fft_batch_minor_reference(re_t, im_t, n, tables, forward,
                                              scale)
     check_tables(re_t.device, kernel_tables)
-    return _vpu_fft_op(re_t, im_t, n, forward, scale, kernel_tables, pair_tables, _body)
+    return _vpu_fft_op(re_t, im_t, n, forward, scale, kernel_tables, pair_tables)
 
 
 @torch.library.custom_op("fourier_tpu_torch::vpu_fft", mutates_args=(),
                          device_types="cuda")
 def _vpu_fft_op(re_t: Tensor, im_t: Tensor, n: int, forward: bool,
                 scale: Optional[float], kernel_tables: Tensor,
-                pair_tables: Optional[Tensor], body: Optional[str]
-                ) -> Tuple[Tensor, Tensor]:
+                pair_tables: Optional[Tensor]) -> Tuple[Tensor, Tensor]:
     """B1's launch (see :func:`vpu_fft_batch_minor`)."""
     out_re = torch.empty_like(re_t)
     out_im = torch.empty_like(im_t)
     batch = re_t.shape[1]
     if batch == 0:
         return out_re, out_im
-    geo = fft_pair_geometry(n)
     data = (re_t.data_ptr(), im_t.data_ptr(), out_re.data_ptr(), out_im.data_ptr())
-    if pick_body(f"B1 at n={n}", geo, body, n in B1_STAGE_FASTER) == "pair":
+    geo = clustered_geometry("B1", n)
+    if geo is not None:
         check_pair_tables(re_t.device, n, geo.ranks, pair_tables)
         build.launch(
             "fourier_tpu_torch::vpu_fft",
@@ -907,8 +926,7 @@ def vpu_bluestein_batch_minor_reference(re_t, im_t, n: int, m: int, tables,
 
 def vpu_bluestein_batch_minor(re_t, im_t, n: int, m: int,
                               scale: Optional[float], *, tables, kernel_tables,
-                              chirps, pair_tables=(None, None),
-                              _body: Optional[str] = None):
+                              chirps, pair_tables=(None, None)):
     """B2 over contiguous planar f32 (n, B) planes; returns new planes.
 
     `tables`: (forward, inverse) compact stage tables for m as tensors
@@ -918,10 +936,8 @@ def vpu_bluestein_batch_minor(re_t, im_t, n: int, m: int,
     where m has none); `chirps`: the direction-matched (xt, wt, xo) of
     :func:`vpu_bluestein_batch_minor_reference`; all on the planes' device.
     The kernel is the paired-block body of ``csrc/bluestein_pair.cu`` where
-    :func:`bluestein_pair_geometry_c64` gives one (M <= 2048) and M is not
-    in B2_STAGE_FASTER, else the stage body; `_body` ("pair" or "stage")
-    forces one, for same-run comparisons. On a card the launch is the
-    operator ``fourier_tpu_torch::vpu_bluestein``.
+    :func:`kernel_body` says so at M, else the stage body. On a card the
+    launch is the operator ``fourier_tpu_torch::vpu_bluestein``.
     """
     check_planes(re_t, im_t, (n,), "B2")
     if re_t.device.type == "cpu":
@@ -929,7 +945,7 @@ def vpu_bluestein_batch_minor(re_t, im_t, n: int, m: int,
                                                    chirps, scale)
     check_tables(re_t.device, *kernel_tables, *chirps)
     return _vpu_bluestein_op(re_t, im_t, n, m, scale, *kernel_tables, *pair_tables,
-                             *chirps, _body)
+                             *chirps)
 
 
 @torch.library.custom_op("fourier_tpu_torch::vpu_bluestein", mutates_args=(),
@@ -937,16 +953,15 @@ def vpu_bluestein_batch_minor(re_t, im_t, n: int, m: int,
 def _vpu_bluestein_op(re_t: Tensor, im_t: Tensor, n: int, m: int,
                       scale: Optional[float], kf: Tensor, ki: Tensor,
                       pf: Optional[Tensor], pi: Optional[Tensor], xt: Tensor,
-                      wt: Tensor, xo: Tensor, body: Optional[str]
-                      ) -> Tuple[Tensor, Tensor]:
+                      wt: Tensor, xo: Tensor) -> Tuple[Tensor, Tensor]:
     """B2's launch (see :func:`vpu_bluestein_batch_minor`)."""
     out_re = torch.empty_like(re_t)
     out_im = torch.empty_like(im_t)
     batch = re_t.shape[1]
     if batch == 0:
         return out_re, out_im
-    geo = bluestein_pair_geometry_c64(m)
-    if pick_body(f"B2 at M={m}", geo, body, m in B2_STAGE_FASTER) == "pair":
+    geo = clustered_geometry("B2", m)
+    if geo is not None:
         lib, fn, what = (bluestein_pair_library(), "fourier_bluestein_pair_c64",
                          "B2 (paired blocks)")
         cols, threads, schedule = geo.cols, geo.threads, pass_schedule(geo.rows)
@@ -993,8 +1008,7 @@ def vpu_fft_four_step_row_reference(re3, im3, p: int, q: int, tables, pre_tw,
 
 def vpu_fft_four_step_row(re3, im3, p: int, q: int, forward: bool,
                           scale: Optional[float], *, tables, kernel_tables,
-                          pre_tw, tw_fwd=None, pair_tables=None,
-                          _body: Optional[str] = None):
+                          pre_tw, tw_fwd=None, pair_tables=None):
     """B3 over contiguous planar f32 (q, p, B) planes (the column leg's
     output); returns new natural-order (p*q, B) planes.
 
@@ -1006,10 +1020,9 @@ def vpu_fft_four_step_row(re3, im3, p: int, q: int, forward: bool,
     (None: `pre_tw`, which must then be the forward one); `pair_tables`:
     the forward :func:`pair_tables` of p on the body's clusters (None where
     p has no clustered body). The kernel is the clustered-block body of
-    ``csrc/four_step_pair.cu`` where :func:`four_step_pair_geometry` gives
-    one and p is not in B3_STAGE_FASTER, else the stage body; `_body`
-    ("pair" or "stage") forces one, for same-run comparisons. On a card the
-    launch is the operator ``fourier_tpu_torch::four_step_row``.
+    ``csrc/four_step_pair.cu`` where :func:`kernel_body` says so at p, else
+    the stage body. On a card the launch is the operator
+    ``fourier_tpu_torch::four_step_row``.
     """
     check_planes(re3, im3, (q, p), "B3")
     if re3.device.type == "cpu":
@@ -1019,7 +1032,7 @@ def vpu_fft_four_step_row(re3, im3, p: int, q: int, forward: bool,
     if tw_fwd is None:
         tw_fwd = pre_tw
     return _four_step_row_op(re3, im3, p, q, forward, scale, kernel_tables,
-                             pair_tables, *pre_tw, *tw_fwd, tw_fwd is pre_tw, _body)
+                             pair_tables, *pre_tw, *tw_fwd, tw_fwd is pre_tw)
 
 
 @torch.library.custom_op("fourier_tpu_torch::four_step_row", mutates_args=(),
@@ -1027,8 +1040,8 @@ def vpu_fft_four_step_row(re3, im3, p: int, q: int, forward: bool,
 def _four_step_row_op(re3: Tensor, im3: Tensor, p: int, q: int, forward: bool,
                       scale: Optional[float], kernel_tables: Tensor,
                       pair_tables: Optional[Tensor], pre_re: Tensor, pre_im: Tensor,
-                      fwd_re: Tensor, fwd_im: Tensor, fwd_is_pre: bool,
-                      body: Optional[str]) -> Tuple[Tensor, Tensor]:
+                      fwd_re: Tensor, fwd_im: Tensor, fwd_is_pre: bool
+                      ) -> Tuple[Tensor, Tensor]:
     """B3's launch (see :func:`vpu_fft_four_step_row`); `fwd_is_pre`: the
     caller gave no forward twiddle of its own."""
     batch = re3.shape[-1]
@@ -1037,8 +1050,8 @@ def _four_step_row_op(re3: Tensor, im3: Tensor, p: int, q: int, forward: bool,
     if batch == 0:
         return out_re, out_im
     data = (re3.data_ptr(), im3.data_ptr(), out_re.data_ptr(), out_im.data_ptr())
-    geo = four_step_pair_geometry(p)
-    if pick_body(f"B3 at p={p}", geo, body, p in B3_STAGE_FASTER) == "pair":
+    geo = clustered_geometry("B3", p)
+    if geo is not None:
         if fwd_is_pre and not forward:
             raise ValueError("B3's clustered body takes the forward split "
                              "twiddle (tw_fwd) for an inverse")
@@ -1106,7 +1119,7 @@ def _check_w(w, m: int, device):
 
 
 def vpu_rfft_pack_batch_minor(x_t, m: int, *, tables, kernel_tables, w,
-                              pair_tables=None, _body: Optional[str] = None):
+                              pair_tables=None):
     """B4a over a contiguous real f32 (2m, B) plane; returns new planar
     (m+1, B) spectrum planes.
 
@@ -1116,31 +1129,29 @@ def vpu_rfft_pack_batch_minor(x_t, m: int, *, tables, kernel_tables, w,
     forward :func:`pair_tables` of m (the paired body; None where m has
     none); `w`: the (2, m) f32 table of exp(-2*pi*i*k/(2m)); all on the
     plane's device. The kernel is the paired-block body where
-    :func:`rfft_pack_geometry` gives one, else the stage body; `_body`
-    ("pair" or "stage") forces one, for same-run comparisons. On a card the
-    launch is the operator ``fourier_tpu_torch::rfft_pack``.
+    :func:`kernel_body` says so, else the stage body. On a card the launch
+    is the operator ``fourier_tpu_torch::rfft_pack``.
     """
     check_planes(x_t, x_t, (2 * m,), "B4a")
     _check_w(w, m, x_t.device)
     if x_t.device.type == "cpu":
         return vpu_rfft_pack_batch_minor_reference(x_t, m, tables, w)
     check_tables(x_t.device, kernel_tables)
-    return _rfft_pack_op(x_t, m, kernel_tables, pair_tables, w, _body)
+    return _rfft_pack_op(x_t, m, kernel_tables, pair_tables, w)
 
 
 @torch.library.custom_op("fourier_tpu_torch::rfft_pack", mutates_args=(),
                          device_types="cuda")
 def _rfft_pack_op(x_t: Tensor, m: int, kernel_tables: Tensor,
-                  pair_tables: Optional[Tensor], w: Tensor, body: Optional[str]
-                  ) -> Tuple[Tensor, Tensor]:
+                  pair_tables: Optional[Tensor], w: Tensor) -> Tuple[Tensor, Tensor]:
     """B4a's launch (see :func:`vpu_rfft_pack_batch_minor`)."""
     batch = x_t.shape[1]
     out_re = torch.empty(m + 1, batch, dtype=torch.float32, device=x_t.device)
     out_im = torch.empty_like(out_re)
     if batch == 0:
         return out_re, out_im
-    geo = rfft_pack_geometry(m)
-    if pick_body(f"B4a at m={m}", geo, body) == "pair":
+    geo = clustered_geometry("B4a", m)
+    if geo is not None:
         check_pair_tables(x_t.device, m, 2, pair_tables)
         build.launch(
             "fourier_tpu_torch::rfft_pack",
@@ -1171,7 +1182,7 @@ def _(x_t, m, *_):
 
 
 def vpu_irfft_unpack_batch_minor(re_t, im_t, m: int, *, tables, kernel_tables,
-                                 w, pair_tables=None, _body: Optional[str] = None):
+                                 w, pair_tables=None):
     """B4b over contiguous planar f32 (m+1, B) spectrum planes; returns a new
     real (2m, B) plane (the irfft, 1/(2m) included).
 
@@ -1181,24 +1192,21 @@ def vpu_irfft_unpack_batch_minor(re_t, im_t, m: int, *, tables, kernel_tables,
     inverse :func:`pair_tables` of m (the paired body; None where m has
     none); `w`: as for :func:`vpu_rfft_pack_batch_minor` (conjugated here).
     The kernel is the paired-block body of ``csrc/irfft_unpack_pair.cu``
-    where :func:`irfft_unpack_geometry` gives one and m is not in
-    B4B_STAGE_FASTER, else the stage body; `_body` ("pair" or "stage")
-    forces one, for same-run comparisons. On a card the launch is the
-    operator ``fourier_tpu_torch::irfft_unpack``.
+    where :func:`kernel_body` says so, else the stage body. On a card the
+    launch is the operator ``fourier_tpu_torch::irfft_unpack``.
     """
     check_planes(re_t, im_t, (m + 1,), "B4b")
     _check_w(w, m, re_t.device)
     if re_t.device.type == "cpu":
         return vpu_irfft_unpack_batch_minor_reference(re_t, im_t, m, tables, w)
     check_tables(re_t.device, kernel_tables)
-    return _irfft_unpack_op(re_t, im_t, m, kernel_tables, pair_tables, w, _body)
+    return _irfft_unpack_op(re_t, im_t, m, kernel_tables, pair_tables, w)
 
 
 @torch.library.custom_op("fourier_tpu_torch::irfft_unpack", mutates_args=(),
                          device_types="cuda")
 def _irfft_unpack_op(re_t: Tensor, im_t: Tensor, m: int, kernel_tables: Tensor,
-                     pair_tables: Optional[Tensor], w: Tensor, body: Optional[str]
-                     ) -> Tensor:
+                     pair_tables: Optional[Tensor], w: Tensor) -> Tensor:
     """B4b's launch (see :func:`vpu_irfft_unpack_batch_minor`)."""
     batch = re_t.shape[1]
     out = torch.empty(2 * m, batch, dtype=torch.float32, device=re_t.device)
@@ -1206,8 +1214,8 @@ def _irfft_unpack_op(re_t: Tensor, im_t: Tensor, m: int, kernel_tables: Tensor,
         return out
     data = (re_t.data_ptr(), im_t.data_ptr(), out.data_ptr())
     h = float(np.float32(0.5 / m))
-    geo = irfft_unpack_geometry(m)
-    if pick_body(f"B4b at m={m}", geo, body, m in B4B_STAGE_FASTER) == "pair":
+    geo = clustered_geometry("B4b", m)
+    if geo is not None:
         check_pair_tables(re_t.device, m, 2, pair_tables)
         build.launch(
             "fourier_tpu_torch::irfft_unpack",
@@ -1304,43 +1312,40 @@ def _launch_odd(fn_name: str, what: str, op: str, inp, out, n: int, m: int,
 
 
 def vpu_rfft_odd_pack_batch_minor(x_t, n: int, m: int, *, tables,
-                                  kernel_tables, chirps, pair_tables=(None, None),
-                                  _body: Optional[str] = None):
+                                  kernel_tables, chirps, pair_tables=(None, None)):
     """B5a over a contiguous real f32 (n, B) plane, n odd; returns new planar
     (L, B) spectrum planes, L = (n+1)/2.
 
     `tables`, `kernel_tables`, `pair_tables`: as for
     :func:`vpu_bluestein_batch_minor`; `chirps`: the forward (xt, wt, xo);
     all on the plane's device. The kernel is the paired-block body of
-    ``csrc/rfft_odd_pair.cu`` where :func:`rfft_odd_pack_geometry` gives one
-    and M is not in B5A_STAGE_FASTER, else the stage body; `_body` ("pair"
-    or "stage") forces one, for same-run comparisons. On a card the launch
-    is the operator ``fourier_tpu_torch::rfft_odd_pack``.
+    ``csrc/rfft_odd_pair.cu`` where :func:`kernel_body` says so at M, else
+    the stage body. On a card the launch is the operator
+    ``fourier_tpu_torch::rfft_odd_pack``.
     """
     check_planes(x_t, x_t, (n,), "B5a")
     if x_t.device.type == "cpu":
         return vpu_rfft_odd_pack_batch_minor_reference(x_t, n, m, tables,
                                                        chirps)
     check_tables(x_t.device, *kernel_tables, *chirps)
-    return _rfft_odd_pack_op(x_t, n, m, *kernel_tables, *pair_tables, *chirps, _body)
+    return _rfft_odd_pack_op(x_t, n, m, *kernel_tables, *pair_tables, *chirps)
 
 
 @torch.library.custom_op("fourier_tpu_torch::rfft_odd_pack", mutates_args=(),
                          device_types="cuda")
 def _rfft_odd_pack_op(x_t: Tensor, n: int, m: int, kf: Tensor, ki: Tensor,
                       pf: Optional[Tensor], pi: Optional[Tensor], xt: Tensor,
-                      wt: Tensor, xo: Tensor, body: Optional[str]
-                      ) -> Tuple[Tensor, Tensor]:
+                      wt: Tensor, xo: Tensor) -> Tuple[Tensor, Tensor]:
     """B5a's launch (see :func:`vpu_rfft_odd_pack_batch_minor`)."""
     L = (n + 1) // 2
     out_re = torch.empty(L, x_t.shape[1], dtype=torch.float32, device=x_t.device)
     out_im = torch.empty_like(out_re)
     if x_t.shape[1] == 0:
         return out_re, out_im
-    geo = rfft_odd_pack_geometry(m)
     args = ("fourier_tpu_torch::rfft_odd_pack", (x_t,), (out_re, out_im), n, m, (kf, ki),
             (pf, pi), (xt, wt, xo))
-    if pick_body(f"B5a at M={m}", geo, body, m in B5A_STAGE_FASTER) == "pair":
+    geo = clustered_geometry("B5a", m)
+    if geo is not None:
         _launch_odd("fourier_rfft_odd_pack_pair_c64", "B5a (paired blocks)", *args,
                     lib=rfft_odd_pair_library(), geo=geo)
     else:
@@ -1356,18 +1361,16 @@ def _(x_t, n, *_):
 
 def vpu_irfft_odd_unpack_batch_minor(re_t, im_t, n: int, m: int, *, tables,
                                      kernel_tables, chirps,
-                                     pair_tables=(None, None),
-                                     _body: Optional[str] = None):
+                                     pair_tables=(None, None)):
     """B5b over contiguous planar f32 (L, B) spectrum planes, n odd; returns
     a new real (n, B) plane (the irfft, 1/n included).
 
     `tables`, `kernel_tables`, `pair_tables`: as for
     :func:`vpu_bluestein_batch_minor`; `chirps`: the inverse (xt, wt, xo);
     all on the planes' device. The kernel is the paired-block body of
-    ``csrc/irfft_odd_pair.cu`` where :func:`irfft_odd_unpack_geometry` gives
-    one and M is not in B5B_STAGE_FASTER, else the stage body; `_body`
-    ("pair" or "stage") forces one, for same-run comparisons. On a card the
-    launch is the operator ``fourier_tpu_torch::irfft_odd_unpack``.
+    ``csrc/irfft_odd_pair.cu`` where :func:`kernel_body` says so at M, else
+    the stage body. On a card the launch is the operator
+    ``fourier_tpu_torch::irfft_odd_unpack``.
     """
     check_planes(re_t, im_t, ((n + 1) // 2,), "B5b")
     if re_t.device.type == "cpu":
@@ -1375,23 +1378,22 @@ def vpu_irfft_odd_unpack_batch_minor(re_t, im_t, n: int, m: int, *, tables,
                                                           tables, chirps)
     check_tables(re_t.device, *kernel_tables, *chirps)
     return _irfft_odd_unpack_op(re_t, im_t, n, m, *kernel_tables, *pair_tables,
-                                *chirps, _body)
+                                *chirps)
 
 
 @torch.library.custom_op("fourier_tpu_torch::irfft_odd_unpack", mutates_args=(),
                          device_types="cuda")
 def _irfft_odd_unpack_op(re_t: Tensor, im_t: Tensor, n: int, m: int, kf: Tensor,
                          ki: Tensor, pf: Optional[Tensor], pi: Optional[Tensor],
-                         xt: Tensor, wt: Tensor, xo: Tensor, body: Optional[str]
-                         ) -> Tensor:
+                         xt: Tensor, wt: Tensor, xo: Tensor) -> Tensor:
     """B5b's launch (see :func:`vpu_irfft_odd_unpack_batch_minor`)."""
     out = torch.empty(n, re_t.shape[1], dtype=torch.float32, device=re_t.device)
     if re_t.shape[1] == 0:
         return out
-    geo = irfft_odd_unpack_geometry(m)
     args = ("fourier_tpu_torch::irfft_odd_unpack", (re_t, im_t), (out,), n, m, (kf, ki),
             (pf, pi), (xt, wt, xo), 1.0 / n)
-    if pick_body(f"B5b at M={m}", geo, body, m in B5B_STAGE_FASTER) == "pair":
+    geo = clustered_geometry("B5b", m)
+    if geo is not None:
         _launch_odd("fourier_irfft_odd_unpack_pair_c64", "B5b (paired blocks)", *args,
                     lib=irfft_odd_pair_library(), geo=geo)
     else:

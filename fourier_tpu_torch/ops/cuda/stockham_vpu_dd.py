@@ -21,15 +21,16 @@ planes (re, im) and the kernels are B1's and B2's stage code at double:
   paired-block body of ``csrc/stockham_pair.cuh`` (:func:`bluestein_pair_geometry`,
   the pass schedule of :mod:`.stockham_vpu`).
 
-The stage bodies, B7's paired body and B8 of :mod:`.dd_combine` are one
+B6's stage body, B7's paired body and B8 of :mod:`.dd_combine` are one
 library built from ``csrc/stockham_vpu_dd.cu``. Each wrapper runs its plain version for tensors
 on the CPU, and launches its kernel (or raises) for tensors on a CUDA
 device, through a registered operator as in :mod:`.stockham_vpu`, whose
-launches ``build.launch`` counts. The clustered and paired bodies
-read the plan's ``pair_tables`` (f64). B6 (and B7's
-stage body, kept for same-run comparisons) run :func:`kernel_schedule_dd`,
-each radix of the TPU schedule split into 8, 4, 2, 3 and 5, with twiddles
-from :func:`make_kernel_tables_dd`; no table is narrowed.
+launches ``build.launch`` counts; B6's body is
+``clustered_geometry("B6", n)``'s (:mod:`.stockham_vpu`). The clustered and paired bodies
+read the plan's ``pair_tables`` (f64). B6's stage body runs
+:func:`kernel_schedule_dd`, each radix of the TPU schedule split into 8, 4,
+2, 3 and 5, with twiddles from :func:`make_kernel_tables_dd`; no table is
+narrowed.
 """
 
 from __future__ import annotations
@@ -43,15 +44,16 @@ import torch
 from torch import Tensor
 
 from fourier_tpu_torch.ops.cuda import build
-from fourier_tpu_torch.ops.cuda.stockham_vpu import (FFT_PAIR_ROWS,
+from fourier_tpu_torch.ops.cuda.stockham_vpu import (BODIES, FFT_PAIR_ROWS,
                                                      POINTS_PER_THREAD,
                                                      PairGeometry,
                                                      chirp_z_reference,
                                                      check_planes, check_tables,
                                                      check_pair_tables,
+                                                     clustered_geometry,
                                                      kernel_tables,
                                                      pair_geometry,
-                                                     pass_schedule, pick_body,
+                                                     pass_schedule,
                                                      radices_arg, scale_arg,
                                                      split_schedule,
                                                      stage_tables,
@@ -159,6 +161,9 @@ def fft_pair_geometry_dd(n: int) -> Optional[PairGeometry]:
     return None
 
 
+BODIES["B6"] = (fft_pair_geometry_dd, B6_STAGE_FASTER)
+
+
 def bluestein_pair_geometry(m: int) -> PairGeometry:
     """B7's paired-block launch at inner size m (a power of two, 64..2048):
     m/2 rows, 4 f64 columns a group, groups up to 16 points a thread."""
@@ -190,7 +195,6 @@ LIBRARY = "stockham_vpu_dd"  # csrc/stockham_vpu_dd.cu
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 ENTRY_POINTS = {
     "fourier_stockham_c128": [_P] * 4 + [_I] * 5 + [_P] * 3 + [_I, _D, _I, _P],
-    "fourier_bluestein_c128": [_P] * 4 + [_I] * 6 + [_P] * 11 + [_D, _I, _P],
     "fourier_bluestein_pair_c128": [_P] * 4 + [_I] * 6 + [_P] * 11 + [_D, _I, _P],
     "fourier_split_combine_c128": [_P] * 4 + [_I] * 3 + [_P] * 2 + [_I, _D, _I, _P],
 }
@@ -232,7 +236,7 @@ def launch(op: str, fn_name: str, what: str, *args) -> None:
 
 def vpu_dd_fft_batch_minor(re_t, im_t, n: int, forward: bool,
                            scale: Optional[float], *, tables, kernel_tables,
-                           pair_tables=None, _body: Optional[str] = None):
+                           pair_tables=None):
     """B6 over contiguous planar f64 (n, B) planes; returns new planes.
 
     `tables`: the compact stage tables of :func:`make_stage_tables_dd` as
@@ -242,9 +246,7 @@ def vpu_dd_fft_batch_minor(re_t, im_t, n: int, forward: bool,
     clusters, which the clustered body reads in both directions (None where
     n has no clustered body); all on the planes' device. The kernel is the
     clustered-block body of ``csrc/fft_pair_dd.cu`` where
-    :func:`fft_pair_geometry_dd` gives one and n is not in B6_STAGE_FASTER,
-    else the stage body; `_body` ("pair" or "stage") forces one, for
-    same-run comparisons. On a card the launch is the operator
+    ``clustered_geometry`` gives its launch, else the stage body. On a card the launch is the operator
     ``fourier_tpu_torch::vpu_dd_fft``.
     """
     check_planes(re_t, im_t, (n,), "B6", F64)
@@ -252,25 +254,23 @@ def vpu_dd_fft_batch_minor(re_t, im_t, n: int, forward: bool,
         return vpu_dd_fft_batch_minor_reference(re_t, im_t, n, tables, forward,
                                                 scale)
     check_tables(re_t.device, kernel_tables, dtype=F64)
-    return _vpu_dd_fft_op(re_t, im_t, n, forward, scale, kernel_tables, pair_tables,
-                          _body)
+    return _vpu_dd_fft_op(re_t, im_t, n, forward, scale, kernel_tables, pair_tables)
 
 
 @torch.library.custom_op("fourier_tpu_torch::vpu_dd_fft", mutates_args=(),
                          device_types="cuda")
 def _vpu_dd_fft_op(re_t: Tensor, im_t: Tensor, n: int, forward: bool,
                    scale: Optional[float], kernel_tables: Tensor,
-                   pair_tables: Optional[Tensor], body: Optional[str]
-                   ) -> Tuple[Tensor, Tensor]:
+                   pair_tables: Optional[Tensor]) -> Tuple[Tensor, Tensor]:
     """B6's launch (see :func:`vpu_dd_fft_batch_minor`)."""
     out_re = torch.empty_like(re_t)
     out_im = torch.empty_like(im_t)
     batch = re_t.shape[1]
     if batch == 0:
         return out_re, out_im
-    geo = fft_pair_geometry_dd(n)
     data = (re_t.data_ptr(), im_t.data_ptr(), out_re.data_ptr(), out_im.data_ptr())
-    if pick_body(f"B6 at n={n}", geo, body, n in B6_STAGE_FASTER) == "pair":
+    geo = clustered_geometry("B6", n)
+    if geo is not None:
         check_pair_tables(re_t.device, n, geo.ranks, pair_tables, dtype=F64)
         build.launch(
             "fourier_tpu_torch::vpu_dd_fft",
@@ -299,62 +299,44 @@ def _(re_t, im_t, *_):
 
 
 def vpu_dd_bluestein_batch_minor(re_t, im_t, n: int, m: int,
-                                 scale: Optional[float], *, tables,
-                                 kernel_tables, chirps, pair_tables=(None, None),
-                                 _body: Optional[str] = None):
+                                 scale: Optional[float], *, tables, chirps,
+                                 pair_tables):
     """B7 over contiguous planar f64 (n, B) planes; returns new planes.
 
     `tables`: (forward, inverse) compact stage tables for m as tensors
-    (plain version); `kernel_tables`: the (forward, inverse) (2, L) tensors
-    of :func:`make_kernel_tables_dd` for m (the stage body); `pair_tables`:
-    the (forward, inverse) f64 ``pair_tables`` of m (the paired body);
-    `chirps`: the direction-matched (xt, wt, xo); all f64 on the planes'
-    device. The kernel is the paired-block body; `_body="stage"` launches
-    the stage body instead, which nothing else launches, for same-run
-    comparisons. On a card the launch is the operator
+    (plain version); `pair_tables`: the (forward, inverse) f64
+    ``pair_tables`` of m (the paired body); `chirps`: the direction-matched
+    (xt, wt, xo); all f64 on the planes' device. The kernel is the
+    paired-block body, at every M. On a card the launch is the operator
     ``fourier_tpu_torch::vpu_dd_bluestein``.
     """
     check_planes(re_t, im_t, (n,), "B7", F64)
     if re_t.device.type == "cpu":
         return vpu_dd_bluestein_batch_minor_reference(re_t, im_t, n, m, tables,
                                                       chirps, scale)
-    check_tables(re_t.device, *kernel_tables, *chirps, dtype=F64)
-    return _vpu_dd_bluestein_op(re_t, im_t, n, m, scale, *kernel_tables, *pair_tables,
-                                *chirps, _body)
+    check_tables(re_t.device, *chirps, dtype=F64)
+    return _vpu_dd_bluestein_op(re_t, im_t, n, m, scale, *pair_tables, *chirps)
 
 
 @torch.library.custom_op("fourier_tpu_torch::vpu_dd_bluestein", mutates_args=(),
                          device_types="cuda")
 def _vpu_dd_bluestein_op(re_t: Tensor, im_t: Tensor, n: int, m: int,
-                         scale: Optional[float], kf: Tensor, ki: Tensor,
-                         pf: Optional[Tensor], pi: Optional[Tensor], xt: Tensor,
-                         wt: Tensor, xo: Tensor, body: Optional[str]
-                         ) -> Tuple[Tensor, Tensor]:
+                         scale: Optional[float], pf: Tensor, pi: Tensor, xt: Tensor,
+                         wt: Tensor, xo: Tensor) -> Tuple[Tensor, Tensor]:
     """B7's launch (see :func:`vpu_dd_bluestein_batch_minor`)."""
     out_re = torch.empty_like(re_t)
     out_im = torch.empty_like(im_t)
     batch = re_t.shape[1]
     if batch == 0:
         return out_re, out_im
-    body = body or "pair"
-    if body == "pair":
-        fn, what = "fourier_bluestein_pair_c128", "B7 (paired blocks)"
-        geo = bluestein_pair_geometry(m)
-        cols, threads, schedule = geo.cols, geo.threads, pass_schedule(m // 2)
-        check_pair_tables(re_t.device, m, 2, pf, pi, dtype=F64)
-        kf, ki = pf, pi
-    elif body == "stage":
-        fn, what = "fourier_bluestein_c128", "B7"
-        cols, threads = launch_geometry_dd(m)
-        schedule = kernel_schedule_dd(m)
-    else:
-        raise ValueError(f"B7 body {body!r}: 'pair' or 'stage'")
+    geo = bluestein_pair_geometry(m)
+    check_pair_tables(re_t.device, m, 2, pf, pi, dtype=F64)
     launch(
         "fourier_tpu_torch::vpu_dd_bluestein",
-        fn, f"{what} at n={n}, M={m}, B={batch}",
+        "fourier_bluestein_pair_c128", f"B7 (paired blocks) at n={n}, M={m}, B={batch}",
         re_t.data_ptr(), im_t.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
-        n, m, batch, cols, threads, *radices_arg(schedule),
-        kf[0].data_ptr(), kf[1].data_ptr(), ki[0].data_ptr(), ki[1].data_ptr(),
+        n, m, batch, geo.cols, geo.threads, *radices_arg(pass_schedule(m // 2)),
+        pf[0].data_ptr(), pf[1].data_ptr(), pi[0].data_ptr(), pi[1].data_ptr(),
         xt[0].data_ptr(), xt[1].data_ptr(), wt[0].data_ptr(), wt[1].data_ptr(),
         xo[0].data_ptr(), xo[1].data_ptr(),
         scale_arg(scale), re_t.device.index, stream_of(re_t),

@@ -86,14 +86,19 @@ class FusedBluesteinPlan(BatchMinorPlan):
         d = "fwd" if forward else "inv"
         return tuple(getattr(self, f"{name}_{d}") for name in ("xt", "wt", "xo"))
 
+    def body_tables(self) -> dict:
+        """The inner size's tables that the kernel's bodies read, by the
+        wrapper's keyword: the stage body's and the paired body's."""
+        st = self.stages
+        return dict(kernel_tables=(st.kernel_fwd, st.kernel_inv),
+                    pair_tables=(st.pair_fwd, st.pair_inv))
+
     def _execute_bm(self, re_t, im_t, transform: Transform):
         st = self.stages
         return self.run(
             re_t, im_t, self.size, st.size, self._scale_for(transform),
             tables=(st.tables(True), st.tables(False)),
-            kernel_tables=(st.kernel_fwd, st.kernel_inv),
-            pair_tables=(st.pair_fwd, st.pair_inv),
-            chirps=self.chirps(transform.is_forward),
+            chirps=self.chirps(transform.is_forward), **self.body_tables(),
         )
 
     def extra_repr(self) -> str:

@@ -37,6 +37,10 @@ class VpuDdBluesteinPlan(FusedBluesteinPlan):
     # 32 KiB of shared memory.
     MAX_INNER = 2048
 
+    def body_tables(self) -> dict:
+        """The paired body's tables: B7 has no other body."""
+        return dict(pair_tables=(self.stages.pair_fwd, self.stages.pair_inv))
+
     @staticmethod
     def choose_inner(size: int, max_inner: int) -> Optional[int]:
         """next_power_of_two(2n-1) when it is in B6's domain and at most

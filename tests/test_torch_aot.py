@@ -231,47 +231,46 @@ def _op_cases():
     cases = []
     p64 = VpuFftPlan.create(64, device="cpu")
     re, im = planes((64, 5))
-    cases.append((sv._vpu_fft_op, (re, im, 64, True, None, p64.kernel_fwd, p64.pair_fwd, None),
+    cases.append((sv._vpu_fft_op, (re, im, 64, True, None, p64.kernel_fwd, p64.pair_fwd),
                   p64.transform_planar_bm(re, im)))
     b2 = tft.VpuBluesteinPlan.create(73, device="cpu")
     st = b2.stages
     re, im = planes((73, 5))
     cases.append((sv._vpu_bluestein_op, (re, im, 73, st.size, None, st.kernel_fwd, st.kernel_inv,
-                                         st.pair_fwd, st.pair_inv, *b2.chirps(True), None),
+                                         st.pair_fwd, st.pair_inv, *b2.chirps(True)),
                   b2.transform_planar_bm(re, im)))
     re3, im3 = planes((4, 64, 5))
     tw = torch.ones(2, 4, 64)
     cases.append((sv._four_step_row_op, (re3, im3, 64, 4, True, None, p64.kernel_fwd,
-                                         p64.pair_fwd, tw[0], tw[1], tw[0], tw[1], True, None),
+                                         p64.pair_fwd, tw[0], tw[1], tw[0], tw[1], True),
                   sv.vpu_fft_four_step_row_reference(re3, im3, 64, 4, p64.tables(True),
                                                      (tw[0], tw[1]), True, None)))
     r128 = tft.RfftPlan(128, backend="vpu", device="cpu")
     x = planes((128, 5))[0]
     spec = r128.rfft_planar_bm(x)
     cases.append((sv._rfft_pack_op, (x, 64, r128.inner.kernel_fwd, r128.inner.pair_fwd,
-                                     r128.w, None), spec))
+                                     r128.w), spec))
     cases.append((sv._irfft_unpack_op, (*spec, 64, r128.inner.kernel_inv, r128.inner.pair_inv,
-                                        r128.w, None), r128.irfft_planar_bm(*spec)))
+                                        r128.w), r128.irfft_planar_bm(*spec)))
     x = planes((73, 5))[0]
     ospec = sv.vpu_rfft_odd_pack_batch_minor_reference(
         x, 73, st.size, (st.tables(True), st.tables(False)), b2.chirps(True))
     cases.append((sv._rfft_odd_pack_op, (x, 73, st.size, st.kernel_fwd, st.kernel_inv,
-                                         st.pair_fwd, st.pair_inv, *b2.chirps(True), None), ospec))
+                                         st.pair_fwd, st.pair_inv, *b2.chirps(True)), ospec))
     cases.append((sv._irfft_odd_unpack_op, (*ospec, 73, st.size, st.kernel_fwd, st.kernel_inv,
-                                            st.pair_fwd, st.pair_inv, *b2.chirps(False), None),
+                                            st.pair_fwd, st.pair_inv, *b2.chirps(False)),
                   sv.vpu_irfft_odd_unpack_batch_minor_reference(
                       *ospec, 73, st.size, (st.tables(True), st.tables(False)),
                       b2.chirps(False))))
     d64 = tft.VpuDdFftPlan.create(64, device="cpu")
     re, im = planes((64, 5), torch.float64)
-    cases.append((dv._vpu_dd_fft_op, (re, im, 64, True, None, d64.kernel_fwd, d64.pair_fwd,
-                                      None), d64.transform_planar_bm(re, im)))
+    cases.append((dv._vpu_dd_fft_op, (re, im, 64, True, None, d64.kernel_fwd, d64.pair_fwd),
+                  d64.transform_planar_bm(re, im)))
     b7 = tft.VpuDdBluesteinPlan.create(17, device="cpu")
     s7 = b7.stages
     re, im = planes((17, 5), torch.float64)
-    cases.append((dv._vpu_dd_bluestein_op, (re, im, 17, s7.size, None, s7.kernel_fwd,
-                                            s7.kernel_inv, s7.pair_fwd, s7.pair_inv,
-                                            *b7.chirps(True), None),
+    cases.append((dv._vpu_dd_bluestein_op, (re, im, 17, s7.size, None, s7.pair_fwd,
+                                            s7.pair_inv, *b7.chirps(True)),
                   b7.transform_planar_bm(re, im)))
     split = tft.create_fft(2187, torch.complex128, backend="dd", device="cpu", cache=False)
     re, im = planes((729, 3 * 5), torch.float64)
@@ -281,12 +280,12 @@ def _op_cases():
     m100 = MxuFftPlan.create(100, impl="pallas", device="cpu")
     re, im = planes((5, 100))
     (dre, dim), = m100.tables(True)
-    cases.append((bk._mxu_fft_single_op, (re, im, dre, dim, None, "mma"),
+    cases.append((bk._mxu_fft_single_op, (re, im, dre, dim, None),
                   bk.mxu_fft_single(re, im, dre, dim)))
     m384 = MxuFftPlan.create(384, impl="pallas", device="cpu")
     re, im = planes((5, 384))
     tabs = [t for pair in m384.tables(True) for t in pair]
-    cases.append((bk._mxu_fft_two_phase_op, (re, im, *tabs, None, "mma"),
+    cases.append((bk._mxu_fft_two_phase_op, (re, im, *tabs, None),
                   bk.mxu_fft_two_phase(re, im, *tabs)))
     return cases
 

@@ -7,11 +7,11 @@
   ``mxu_fft_two_phase(..., interpret=True)`` and ``reference_two_phase`` on
   the same seeded planes and tables, rel-L2 <= 2e-6 (``test_torch_mxu.py``'s
   gate); the packed einsum form against the JAX one.
-* numpy transliterations of the CUDA kernels (``csrc/bailey.cu``): the
-  launch geometry of ``ops/cuda/bailey.py``, the thread-to-output mapping,
-  the chunked fma sums, B9b's G' written over M in the padded shared planes;
-  against ``np.fft`` at rel-L2 <= 1e-6 (the card's gate), with and without a
-  ``tb`` cap.
+* a numpy transliteration of B9b's CUDA-core body (``csrc/bailey.cu``):
+  the launch geometry of ``ops/cuda/bailey.py``, the thread-to-output
+  mapping, the chunked fma sums, G' written over M in the padded shared
+  planes; against ``np.fft`` at rel-L2 <= 1e-6 (the card's gate), with and
+  without a ``tb`` cap.
 * B9a's tensor-core body (``csrc/dft_mma.cu``): a numpy emulation of its
   3xTF32 products (TF32 rounding as ``cvt.rna`` does it, hi and lo parts,
   the zero-padding to a multiple of 8, each 8-wide step's hi*hi products
@@ -193,23 +193,6 @@ def _contract(dr, di, K, first, step, nout, x_at):
     return tr, ti, valid, rows
 
 
-def _emulate_b9a(xr, xi, d, tb=None):
-    b, n = xr.shape
-    tile, groups = kb.single_geometry(n, tb), kb.groups_of(n)
-    tid = np.arange(kb.SINGLE_THREADS)
-    t, g = tid % tile, tid // tile
-    out = np.zeros((b, n), np.complex128)
-    for t0 in range(0, b, tile):  # the tiles of the persistent blocks
-        rows = min(tile, b - t0)
-        nout = np.where(t < rows, _outputs(g, groups, n), 0)
-        row = t0 + np.minimum(t, rows - 1)
-        tr, ti, valid, ks = _contract(d[0], d[1], n, g, groups, nout,
-                                      lambda k: (xr[row, k], xi[row, k]))
-        rr = np.broadcast_to(row, ks.shape)
-        out[rr[valid], ks[valid]] = tr[valid] + 1j * ti[valid].astype(np.float64)
-    return out
-
-
 def _emulate_b9b(xr, xi, d2, tw, d1, tb=None, sms=H100_SMS):
     b, n = xr.shape
     n2, n1 = tw[0].shape
@@ -251,18 +234,6 @@ def _emulate_b9b(xr, xi, d2, tw, d1, tb=None, sms=H100_SMS):
         cols = (k1 * n2 + np.broadcast_to(kq, k1.shape))[valid]
         out[rows, cols] = tr[valid] + 1j * ti[valid].astype(np.float64)
     return out
-
-
-@pytest.mark.parametrize("n,b,tb", [(1, 7, None), (7, 7, 4), (100, 5, None),
-                                    (128, 40, None), (128, 7, 4)])
-def test_b9a_algorithm_emulated(n, b, tb):
-    rng = np.random.default_rng(RNG_SEED + n)
-    xr, xi = _planes((b, n), rng)
-    plan = MxuFftPlan.create(n, impl="pallas", device="cpu")
-    for mode in (Transform.FFT, Transform.SQRT_SCALED_IFFT):
-        (d,) = _tables(plan, mode)
-        got = _emulate_b9a(xr, xi, d, tb)
-        assert _rel(got, _np_want(xr, xi, mode)) <= CARD_GATE, (n, mode)
 
 
 # sms=1, a card of one SM, gives these small batches blocks of several
@@ -592,44 +563,26 @@ def test_b9b_global_tables_read_unpadded():
 
 
 def test_b9b_body_argument_on_the_cpu():
-    """On CPU tensors B9b's wrapper runs the plain version whatever `_body`
-    asks, and counts no launch; an unknown body is refused. Unasked, the
+    """On CPU tensors B9b's wrapper runs the plain version, with or without
+    a batch tile, at splits of either body, and counts no launch. The
     CUDA-core body runs below B9B_FMA_WORK (n * (n1 + n2)) and the
     tensor-core body from there on."""
     rng = np.random.default_rng(RNG_SEED)
-    plan = MxuFftPlan.create(250, impl="pallas", device="cpu")
-    xr, xi = (torch.as_tensor(t) for t in _planes((3, 250), rng))
-    tabs = [torch.as_tensor(t) for pair in _tables(plan, Transform.FFT) for t in pair]
     before = launches("mxu_fft_two_phase")
-    want = bailey.reference_two_phase(xr, xi, *tabs)
-    for body in (None, "mma", "fma"):
-        got = kb.mxu_fft_two_phase(xr, xi, *tabs, _body=body)
-        assert all(torch.equal(g, w) for g, w in zip(got, want))
-    with pytest.raises(ValueError):
-        kb.mxu_fft_two_phase(xr, xi, *tabs, _body="wgmma")
+    for n in (250, 1000):  # (10, 25) on the CUDA cores, (25, 40) on the tensor cores
+        plan = MxuFftPlan.create(n, impl="pallas", device="cpu")
+        xr, xi = (torch.as_tensor(t) for t in _planes((3, n), rng))
+        tabs = [torch.as_tensor(t) for pair in _tables(plan, Transform.FFT) for t in pair]
+        want = bailey.reference_two_phase(xr, xi, *tabs)
+        for tb in (None, 2):
+            got = kb.mxu_fft_two_phase(xr, xi, *tabs, tb=tb)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert launches("mxu_fft_two_phase") == before
     bodies = {split: kb.two_phase_body(*split) for split in
               [(3, 43), (10, 25), (16, 16), (17, 17), (2, 101), (19, 25), (2, 103),
                (20, 25), (25, 40), (64, 64), (128, 128)]}
     assert [s for s, body in bodies.items() if body == "fma"] == [
         (3, 43), (10, 25), (16, 16), (17, 17), (2, 101), (19, 25)], bodies
-
-
-def test_b9a_body_argument_on_the_cpu():
-    """On CPU tensors B9a's wrapper runs the plain version whatever `_body`
-    asks, and counts no launch; an unknown body is refused."""
-    rng = np.random.default_rng(RNG_SEED)
-    xr, xi = (torch.as_tensor(t) for t in _planes((5, 16), rng))
-    (d,) = _tables(MxuFftPlan.create(16, impl="pallas", device="cpu"), Transform.FFT)
-    d = [torch.as_tensor(t) for t in d]
-    before = launches("mxu_fft_single")
-    want = bailey.xla_fft_single(xr, xi, *d)
-    for body in (None, "mma", "fma"):
-        got = kb.mxu_fft_single(xr, xi, *d, _body=body)
-        assert all(torch.equal(g, w) for g, w in zip(got, want))
-    with pytest.raises(ValueError):
-        kb.mxu_fft_single(xr, xi, *d, _body="wgmma")
-    assert launches("mxu_fft_single") == before
 
 
 def test_geometry_within_kernel_limits():
@@ -647,17 +600,11 @@ def test_geometry_within_kernel_limits():
                 assert tpb * n2 * kb.groups_of(n1) <= threads
                 assert 8 * tpb * n2 * (n1 | 1) <= kb.MAX_SMEM
                 assert tb is None or tpb <= tb
-    for n in range(1, kb.MAX_N + 1):
-        for tb in (None, 4):
-            tile = kb.single_geometry(n, tb)
-            assert tile * kb.groups_of(n) <= kb.SINGLE_THREADS
-            assert 8 * (n * n + tile * (n | 1)) <= kb.MAX_SMEM
 
 
 def test_library_constants_and_entry_points():
     src = (build.CSRC / f"{kb.LIBRARY}.cu").read_text()
     for name, value in (("kMaxOut", kb.MAX_OUT), ("kChunk", CHUNK),
-                        ("kSingleThreads", kb.SINGLE_THREADS),
                         ("kTwoPhaseMaxThreads", kb.MAX_THREADS),
                         ("kTwoPhaseSmallThreads", kb.SMALL_THREADS),
                         ("kMaxN", kb.MAX_N), ("kMaxSmem", kb.MAX_SMEM)):
@@ -723,42 +670,3 @@ def test_kernel_matches_plain_on_card(cuda_device, n):
                 assert torch.equal(again[0], k[0]) and torch.equal(again[1], k[1])
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 7, 16, 100, 125, 127, 128])
-def test_b9a_bodies_agree_on_card(cuda_device, n):
-    plan = MxuFftPlan.create(n, impl="pallas", device="cpu")
-    rng = np.random.default_rng(RNG_SEED + n)
-    for b in (1, 7, 1000, 20001):
-        xr, xi = _planes((b, n), rng)
-        re_, im_ = (torch.as_tensor(t, device=cuda_device) for t in (xr, xi))
-        for mode in Transform:
-            d = [torch.as_tensor(t, device=cuda_device)
-                 for pair in _tables(plan, mode) for t in pair]
-            want = _np_want(xr, xi, mode)
-            for body in ("mma", "fma"):
-                k = kb.mxu_fft_single(re_, im_, *d, _body=body)
-                got = k[0].cpu().numpy() + 1j * k[1].cpu().numpy()
-                assert _rel(got, want) <= CARD_GATE, (n, b, mode, body)
-                again = kb.mxu_fft_single(re_, im_, *d, _body=body, tb=4)
-                assert torch.equal(again[0], k[0]) and torch.equal(again[1], k[1])
-    # A NaN row and an infinite one stay in their rows: at n not a multiple
-    # of 8 the tile's zero-padded columns must not carry them into the other
-    # rows of later tiles in the same buffer.
-    # Three tiles a block at least, whatever the grid (at most 2048 threads
-    # an SM).
-    b = (3 * kb.single_mma_geometry(n).valid * 2048 // (32 * kb.MMA_WARPS)
-         * torch.cuda.get_device_properties(cuda_device).multi_processor_count)
-    xr, xi = _planes((b, n), rng)
-    xr[5, n // 2], xi[b // 2, 0] = np.nan, np.inf
-    re_, im_ = (torch.as_tensor(t, device=cuda_device) for t in (xr, xi))
-    d = [torch.as_tensor(t, device=cuda_device)
-         for pair in _tables(plan, Transform.FFT) for t in pair]
-    want = _np_want(np.nan_to_num(xr), np.nan_to_num(xi), Transform.FFT)
-    rest = np.setdiff1d(np.arange(b), [5, b // 2])
-    for body in ("mma", "fma"):
-        k = kb.mxu_fft_single(re_, im_, *d, _body=body)
-        got = k[0].cpu().numpy() + 1j * k[1].cpu().numpy()
-        assert _rel(got[rest], want[rest]) <= CARD_GATE, (n, body)
-        assert not np.isfinite(got[5]).all() and not np.isfinite(got[b // 2]).all()

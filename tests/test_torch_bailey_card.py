@@ -1,5 +1,6 @@
-"""Kernel B9b of the port on a CUDA card: both bodies of
-``mxu_fft_two_phase`` against its plain version and ``np.fft``.
+"""Kernels B9a and B9b of the port on a CUDA card: ``mxu_fft_single`` (its
+tensor-core body) against ``np.fft``, and ``mxu_fft_two_phase`` at splits
+of each of its bodies against its plain version and ``np.fft``.
 
 This module imports neither JAX nor the JAX package, so it also runs where
 JAX is not installed. There, skip the tests directory's ``conftest.py``
@@ -9,6 +10,8 @@ JAX is not installed. There, skip the tests directory's ``conftest.py``
 
 Without a card every test here skips.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -60,14 +63,27 @@ def _complex(planes):
     return planes[0].cpu().numpy() + 1j * planes[1].cpu().numpy()
 
 
+@contextlib.contextmanager
+def _forced(body):
+    """B9b's `body` ("mma" or "fma") at every split: B9B_FMA_WORK swapped
+    in-process, as an A/B does."""
+    kept = kb.B9B_FMA_WORK
+    kb.B9B_FMA_WORK = 0 if body == "mma" else float("inf")
+    try:
+        yield
+    finally:
+        kb.B9B_FMA_WORK = kept
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [129, 250, 1000, 4096, 16384])
-def test_b9b_bodies_agree_on_card(cuda_device, n):
-    """Both bodies of B9b, and the wrapper's own choice, against the plain
-    version and np.fft, every mode, with the caller's TF32 on; a
-    transform's result does not depend on its block; at the padded splits
-    a NaN row and an infinite row stay in their rows with several
-    transforms a block."""
+def test_b9b_on_card(cuda_device, n):
+    """B9b at the body two_phase_body picks (the CUDA-core body at 129 and
+    250, the tensor-core body above), and at the other one by
+    B9B_FMA_WORK swapped in-process, against the plain version and np.fft,
+    every mode, with the caller's TF32 on; a transform's result does not
+    depend on its block; at the padded splits a NaN row and an infinite row
+    stay in their rows with several transforms a block."""
     plan = MxuFftPlan.create(n, impl="pallas", device="cpu")
     rng = np.random.default_rng(RNG_SEED + n)
     torch.backends.cuda.matmul.allow_tf32 = True
@@ -78,15 +94,17 @@ def test_b9b_bodies_agree_on_card(cuda_device, n):
             for mode in Transform:
                 d = _tables(plan, mode, cuda_device)
                 p = _complex(bailey.reference_two_phase(re_, im_, *d))
-                for body in ("mma", "fma", None):
-                    k = kb.mxu_fft_two_phase(re_, im_, *d, _body=body)
-                    got = _complex(k)
-                    assert _rel(got, p) <= CARD_GATE, (n, b, mode, body)
-                    assert _rel(got, _np_want(xr, xi, mode)) <= CARD_GATE, (n, b, mode, body)
-                    if b > 1:
-                        tail = kb.mxu_fft_two_phase(re_[1:], im_[1:], *d, _body=body)
-                        assert torch.equal(tail[0], k[0][1:]) and torch.equal(
-                            tail[1], k[1][1:]), (n, b, mode, body)
+                for body in ("mma", "fma"):
+                    with _forced(body):
+                        k = kb.mxu_fft_two_phase(re_, im_, *d)
+                        got = _complex(k)
+                        assert _rel(got, p) <= CARD_GATE, (n, b, mode, body)
+                        assert _rel(got, _np_want(xr, xi, mode)) <= CARD_GATE, (
+                            n, b, mode, body)
+                        if b > 1:
+                            tail = kb.mxu_fft_two_phase(re_[1:], im_[1:], *d)
+                            assert torch.equal(tail[0], k[0][1:]) and torch.equal(
+                                tail[1], k[1][1:]), (n, b, mode, body)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
     if n not in (129, 250):
@@ -99,6 +117,39 @@ def test_b9b_bodies_agree_on_card(cuda_device, n):
     want = _np_want(np.nan_to_num(xr), np.nan_to_num(xi), Transform.FFT)
     rest = np.setdiff1d(np.arange(b), [5, b // 2])
     for body in ("mma", "fma"):
-        got = _complex(kb.mxu_fft_two_phase(re_, im_, *d, _body=body))
+        with _forced(body):
+            got = _complex(kb.mxu_fft_two_phase(re_, im_, *d))
         assert _rel(got[rest], want[rest]) <= CARD_GATE, (n, body)
         assert not np.isfinite(got[5]).all() and not np.isfinite(got[b // 2]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 16, 100, 125, 127, 128])
+def test_b9a_on_card(cuda_device, n):
+    """B9a's tensor-core body against np.fft at batches of one tile, a
+    ragged tile and many, with and without a batch tile; a NaN row and an
+    infinite one stay in their rows with three tiles a block at least."""
+    plan = MxuFftPlan.create(n, impl="pallas", device="cpu")
+    rng = np.random.default_rng(RNG_SEED + n)
+    for b in (1, 7, 1000, 20001):
+        xr, xi = _planes((b, n), rng)
+        re_, im_ = (torch.as_tensor(t, device=cuda_device) for t in (xr, xi))
+        for mode in Transform:
+            d = _tables(plan, mode, cuda_device)
+            k = kb.mxu_fft_single(re_, im_, *d)
+            assert _rel(_complex(k), _np_want(xr, xi, mode)) <= CARD_GATE, (n, b, mode)
+            again = kb.mxu_fft_single(re_, im_, *d, tb=4)
+            assert torch.equal(again[0], k[0]) and torch.equal(again[1], k[1])
+    # At n not a multiple of 8 the tile's zero-padded columns must not carry
+    # them into the other rows of later tiles in the same buffer (at most
+    # 2048 threads an SM).
+    b = (3 * kb.single_mma_geometry(n).valid * 2048 // (32 * kb.MMA_WARPS)
+         * torch.cuda.get_device_properties(cuda_device).multi_processor_count)
+    xr, xi = _planes((b, n), rng)
+    xr[5, n // 2], xi[b // 2, 0] = np.nan, np.inf
+    re_, im_ = (torch.as_tensor(t, device=cuda_device) for t in (xr, xi))
+    want = _np_want(np.nan_to_num(xr), np.nan_to_num(xi), Transform.FFT)
+    rest = np.setdiff1d(np.arange(b), [5, b // 2])
+    got = _complex(kb.mxu_fft_single(re_, im_, *_tables(plan, Transform.FFT, cuda_device)))
+    assert _rel(got[rest], want[rest]) <= CARD_GATE, n
+    assert not np.isfinite(got[5]).all() and not np.isfinite(got[b // 2]).all()

@@ -6,10 +6,8 @@
   recombined in f64. Same seeded inputs, rel-L2 <= 1e-12 (the reference's
   c128 gate) against the JAX output and against np.fft.
 * The inner size and eligibility equal the JAX package's.
-* The CUDA kernel cannot run here: a numpy transliteration of its algorithm
-  (chirp load with zero rows, the f64 stages, the w multiply, the scaled
-  output chirp, column blocking and the ragged-edge mask) is held against
-  np.fft.
+* The CUDA kernel cannot run here: its paired body's numpy emulation is
+  ``test_torch_pair_kernels.py``'s ``test_b7_pair_body_emulated``.
 * ``test_kernel_matches_plain_on_card`` runs the kernel where a card is
   present (marker ``cuda``).
 """
@@ -25,7 +23,6 @@ from fourier_tpu_torch import Transform, trace
 from fourier_tpu_torch.ops.cuda import stockham_vpu_dd as dv
 from fourier_tpu_torch.precision import VpuDdBluesteinPlan
 
-from test_torch_vpu import emulate_stages
 from test_torch_vpu_dd import (GATE, _dd_planes, _from_dd, _np, _planes, _rand,
                                _rel, np_transform)
 
@@ -81,45 +78,12 @@ def test_inner_size_matches_jax():
     assert "inner=256" in repr(plan)
 
 
-def _emulate_b7(x_t, n, m, chirps, scale):
-    """numpy transliteration of B7 (bluestein_planar<double>)."""
-    cols, _ = dv.launch_geometry_dd(m)
-    xt, wt, xo = (c[0] + 1j * c[1] for c in chirps)
-    b = x_t.shape[1]
-    out = np.empty((n, b), np.complex128)
-    for b0 in range(0, b, cols):
-        valid = min(cols, b - b0)
-        s = np.zeros((m, cols), np.complex128)
-        s[:n, :valid] = x_t[:, b0:b0 + valid] * xt[:, None]
-        s = s.ravel()
-        emulate_stages(s, m, cols, True, dd=True)
-        s *= np.repeat(wt, cols)
-        emulate_stages(s, m, cols, False, dd=True)
-        out[:, b0:b0 + valid] = (s.reshape(m, cols)[:n, :valid]
-                                 * (xo * scale)[:, None])
-    return out
-
-
-@pytest.mark.parametrize("n", [17, 125, 439, 1013])
-def test_kernel_algorithm_emulated(n):
-    plan = VpuDdBluesteinPlan.create(n, device="cpu")
-    m = plan.m_inner
-    cols, _ = dv.launch_geometry_dd(m)
-    rng = np.random.default_rng(RNG_SEED + n)
-    x_t = _rand((n, cols + 3), rng)  # a ragged last block
-    for mode in (Transform.FFT, Transform.SQRT_SCALED_IFFT):
-        chirps = [c.numpy() for c in plan.chirps(mode.is_forward)]
-        got = _emulate_b7(x_t, n, m, chirps, mode.scale(n) or 1.0)
-        assert _rel(got, np_transform(x_t, mode)) <= GATE, (n, mode)
-
-
 def test_wrapper_contract():
     n = 17
     plan = VpuDdBluesteinPlan.create(n, device="cpu")
     st = plan.stages
     kw = dict(tables=(st.tables(True), st.tables(False)),
-              kernel_tables=(st.kernel_fwd, st.kernel_inv),
-              chirps=plan.chirps(True))
+              pair_tables=(st.pair_fwd, st.pair_inv), chirps=plan.chirps(True))
     for bad in (torch.zeros(n, 3), torch.zeros(n, 6).double()[:, ::2],
                 torch.zeros(n + 1, 3).double(),
                 torch.zeros(n, 3, dtype=torch.float64, device="meta")):

@@ -38,7 +38,10 @@ kernels in interpret mode at one small size each.
 
 The launch geometry and schedules are checked over each body's whole
 domain, with the sizes at which each wrapper keeps its stage body, and the
-size lists of the .cu files against the Python ones.
+size lists of the .cu files against the Python ones; the body rule
+(``kernel_body``, ``two_phase_body``) at sizes on each side of each
+kernel's choice. ``tests/test_torch_pair_kernels_card.py`` runs the
+kernels on a card.
 """
 
 import re
@@ -58,6 +61,7 @@ from fourier_tpu.precision.vpu_dd_plan import VpuDdFftPlan as JVpuDdFftPlan
 from fourier_tpu_torch import (FourStepLocalPlan, MxuFftPlan, Transform,
                                VpuBluesteinPlan, VpuFftPlan)
 from fourier_tpu_torch import trace
+from fourier_tpu_torch.ops.cuda import bailey as kb
 from fourier_tpu_torch.ops.cuda import stockham_vpu as sv
 from fourier_tpu_torch.ops.cuda import stockham_vpu_dd as dv
 from fourier_tpu_torch.precision import VpuDdBluesteinPlan, VpuDdFftPlan
@@ -1196,8 +1200,8 @@ def test_b6_pair_matches_pallas_interpret():
 
 
 def test_b5a_b6_body_argument_on_the_cpu():
-    """On CPU tensors B5a's and B6's wrappers run the plain version whatever
-    `_body` asks, and count no launch."""
+    """On CPU tensors B5a's and B6's wrappers run the plain version, with or
+    without the paired body's tables, and count no launch."""
     bplan = VpuBluesteinPlan.create(1013, device="cpu")
     st = bplan.stages
     x = torch.randn(1013, 7)
@@ -1206,8 +1210,8 @@ def test_b5a_b6_body_argument_on_the_cpu():
     before = launches("rfft_odd_pack")
     want = sv.vpu_rfft_odd_pack_batch_minor_reference(x, 1013, st.size, kw["tables"],
                                                       kw["chirps"])
-    for body in (None, "pair", "stage"):
-        got = sv.vpu_rfft_odd_pack_batch_minor(x, 1013, st.size, _body=body, **kw)
+    for pair in ((None, None), (st.pair_fwd, st.pair_inv)):
+        got = sv.vpu_rfft_odd_pack_batch_minor(x, 1013, st.size, pair_tables=pair, **kw)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert launches("rfft_odd_pack") == before
     plan = VpuDdFftPlan.create(4096, device="cpu")
@@ -1215,24 +1219,24 @@ def test_b5a_b6_body_argument_on_the_cpu():
     im_ = torch.randn(4096, 3, dtype=torch.float64)
     before = launches("vpu_dd_fft")
     want = dv.vpu_dd_fft_batch_minor_reference(re_, im_, 4096, plan.tables(False), False, 0.5)
-    for body in (None, "pair", "stage"):
+    for pair in (None, plan.pair_fwd):
         got = dv.vpu_dd_fft_batch_minor(re_, im_, 4096, False, 0.5, tables=plan.tables(False),
-                                        kernel_tables=plan.kernel_inv, _body=body)
+                                        kernel_tables=plan.kernel_inv, pair_tables=pair)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert launches("vpu_dd_fft") == before
 
 
 def test_b4b_b5b_body_argument_on_the_cpu():
-    """On CPU tensors B4b's and B5b's wrappers run the plain version whatever
-    `_body` asks, and count no launch."""
+    """On CPU tensors B4b's and B5b's wrappers run the plain version, with or
+    without the paired body's tables, and count no launch."""
     plan = _rfft_plan(1024)
     re_, im_ = torch.randn(1025, 5), torch.randn(1025, 5)
     kw = dict(tables=plan.inner.tables(False), kernel_tables=plan.inner.kernel_inv,
               w=plan.w)
     before = launches("irfft_unpack")
     want = sv.vpu_irfft_unpack_batch_minor_reference(re_, im_, 1024, kw["tables"], plan.w)
-    for body in (None, "pair", "stage"):
-        got = sv.vpu_irfft_unpack_batch_minor(re_, im_, 1024, _body=body, **kw)
+    for pair in (None, plan.inner.pair_inv):
+        got = sv.vpu_irfft_unpack_batch_minor(re_, im_, 1024, pair_tables=pair, **kw)
         assert torch.equal(got, want)
     assert launches("irfft_unpack") == before
     bplan = VpuBluesteinPlan.create(1013, device="cpu")
@@ -1243,22 +1247,23 @@ def test_b4b_b5b_body_argument_on_the_cpu():
     before = launches("irfft_odd_unpack")
     want = sv.vpu_irfft_odd_unpack_batch_minor_reference(re_, im_, 1013, st.size,
                                                          kw["tables"], kw["chirps"])
-    for body in (None, "pair", "stage"):
-        got = sv.vpu_irfft_odd_unpack_batch_minor(re_, im_, 1013, st.size, _body=body, **kw)
+    for pair in ((None, None), (st.pair_fwd, st.pair_inv)):
+        got = sv.vpu_irfft_odd_unpack_batch_minor(re_, im_, 1013, st.size, pair_tables=pair,
+                                                  **kw)
         assert torch.equal(got, want)
     assert launches("irfft_odd_unpack") == before
 
 
 def test_b1_b2_body_argument_on_the_cpu():
-    """On CPU tensors B1's and B2's wrappers run the plain version whatever
-    `_body` asks, and count no launch."""
+    """On CPU tensors B1's and B2's wrappers run the plain version, with or
+    without the clustered body's tables, and count no launch."""
     plan = VpuFftPlan.create(4096, device="cpu")
     re_, im_ = torch.randn(4096, 5), torch.randn(4096, 5)
     before = launches("vpu_fft")
     want = sv.vpu_fft_batch_minor_reference(re_, im_, 4096, plan.tables(False), False, 0.5)
-    for body in (None, "pair", "stage"):
+    for pair in (None, plan.pair_fwd):
         got = sv.vpu_fft_batch_minor(re_, im_, 4096, False, 0.5, tables=plan.tables(False),
-                                     kernel_tables=plan.kernel_inv, _body=body)
+                                     kernel_tables=plan.kernel_inv, pair_tables=pair)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert launches("vpu_fft") == before
     bplan = VpuBluesteinPlan.create(1013, device="cpu")
@@ -1267,35 +1272,73 @@ def test_b1_b2_body_argument_on_the_cpu():
     kw = dict(tables=(st.tables(True), st.tables(False)),
               kernel_tables=(st.kernel_fwd, st.kernel_inv), chirps=bplan.chirps(True))
     before = launches("vpu_bluestein")
-    a = sv.vpu_bluestein_batch_minor(re_, im_, 1013, st.size, None, _body="stage", **kw)
-    c = sv.vpu_bluestein_batch_minor(re_, im_, 1013, st.size, None, **kw)
-    assert all(torch.equal(u, v) for u, v in zip(a, c))
+    want = sv.vpu_bluestein_batch_minor_reference(re_, im_, 1013, st.size, kw["tables"],
+                                                  kw["chirps"], None)
+    for pair in ((None, None), (st.pair_fwd, st.pair_inv)):
+        got = sv.vpu_bluestein_batch_minor(re_, im_, 1013, st.size, None, pair_tables=pair,
+                                           **kw)
+        assert all(torch.equal(u, v) for u, v in zip(got, want))
     assert launches("vpu_bluestein") == before
 
 
 def test_body_argument_on_the_cpu():
-    """On CPU tensors the wrappers run the plain version whatever `_body`
-    asks, and count no launch; an unknown body is refused on the card only."""
+    """On CPU tensors B4a's and B7's wrappers run the plain version, B4a's
+    with or without the paired body's tables, and count no launch."""
     plan = _rfft_plan(1024)
     x = torch.randn(2048, 5)
     kw = dict(tables=plan.inner.tables(True), kernel_tables=plan.inner.kernel_fwd,
               w=plan.w)
     before = launches("rfft_pack")
     want = sv.vpu_rfft_pack_batch_minor_reference(x, 1024, kw["tables"], plan.w)
-    for body in (None, "pair", "stage"):
-        got = sv.vpu_rfft_pack_batch_minor(x, 1024, _body=body, **kw)
+    for pair in (None, plan.inner.pair_fwd):
+        got = sv.vpu_rfft_pack_batch_minor(x, 1024, pair_tables=pair, **kw)
         assert all(torch.equal(g, w_) for g, w_ in zip(got, want))
     assert launches("rfft_pack") == before
     bplan = VpuDdBluesteinPlan.create(100, device="cpu")
     st = bplan.stages
     re = torch.randn(100, 3, dtype=torch.float64)
     bkw = dict(tables=(st.tables(True), st.tables(False)),
-               kernel_tables=(st.kernel_fwd, st.kernel_inv), chirps=bplan.chirps(True))
+               pair_tables=(st.pair_fwd, st.pair_inv), chirps=bplan.chirps(True))
     before = launches("vpu_dd_bluestein")
-    a = dv.vpu_dd_bluestein_batch_minor(re, re, 100, st.size, None, _body="stage", **bkw)
-    c = dv.vpu_dd_bluestein_batch_minor(re, re, 100, st.size, None, **bkw)
-    assert all(torch.equal(u, v) for u, v in zip(a, c))
+    want = dv.vpu_dd_bluestein_batch_minor_reference(re, re, 100, st.size, bkw["tables"],
+                                                     bkw["chirps"], None)
+    got = dv.vpu_dd_bluestein_batch_minor(re, re, 100, st.size, None, **bkw)
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
     assert launches("vpu_dd_bluestein") == before
+
+
+# The body each kernel runs at sizes on each side of its choice: clustered or
+# paired ("pair"), in its stage-faster set, with no clustered geometry, and
+# for B9b splits on each side of B9B_FMA_WORK ("fma" below, "mma" from it).
+BODY_AT = [
+    ("B1", 64, "pair"), ("B1", 1024, "pair"), ("B1", 4096, "pair"),
+    ("B1", 1000, "stage"), ("B1", 576, "stage"), ("B1", 3125, "stage"),
+    ("B1", 3000, "stage"), ("B1", 8192, "stage"),
+    ("B2", 160, "pair"), ("B2", 2048, "pair"), ("B2", 64, "stage"), ("B2", 1000, "stage"),
+    ("B2", 1024, "stage"), ("B2", 3000, "stage"),
+    ("B3", 128, "pair"), ("B3", 256, "pair"), ("B3", 512, "pair"), ("B3", 1000, "stage"),
+    ("B3", 320, "stage"), ("B3", 960, "stage"), ("B3", 3125, "stage"),
+    ("B4a", 64, "pair"), ("B4a", 1024, "pair"), ("B4a", 2048, "pair"),
+    ("B4a", 243, "stage"), ("B4a", 2160, "stage"),
+    ("B4b", 1024, "pair"), ("B4b", 2048, "pair"), ("B4b", 1000, "stage"),
+    ("B4b", 1728, "stage"), ("B4b", 2160, "stage"),
+    ("B5a", 160, "pair"), ("B5a", 2048, "pair"), ("B5a", 1600, "stage"),
+    ("B5a", 480, "stage"), ("B5a", 1024, "stage"), ("B5a", 3000, "stage"),
+    ("B5b", 1600, "pair"), ("B5b", 2048, "pair"), ("B5b", 864, "stage"),
+    ("B5b", 1024, "stage"), ("B5b", 3000, "stage"),
+    ("B6", 1024, "pair"), ("B6", 4096, "pair"), ("B6", 3000, "stage"), ("B6", 243, "stage"),
+    ("B9b", (10, 25), "fma"), ("B9b", (19, 25), "fma"), ("B9b", (20, 25), "mma"),
+    ("B9b", (25, 40), "mma"), ("B9b", (128, 128), "mma"),
+]
+
+
+@pytest.mark.parametrize("kernel,size,body", BODY_AT,
+                         ids=[f"{k}-{s}" for k, s, _ in BODY_AT])
+def test_body_rule(kernel, size, body):
+    """The body a kernel runs is a function of the kernel and the size
+    alone: kernel_body for the kernels of BODIES, two_phase_body for B9b."""
+    got = kb.two_phase_body(*size) if kernel == "B9b" else sv.kernel_body(kernel, size)
+    assert got == body
 
 
 # -- B3, the four-step row leg on fft_pair -----------------------------------
@@ -1439,8 +1482,8 @@ def test_b3_pair_matches_pallas_interpret(mode):
 
 
 def test_b3_body_argument_on_the_cpu():
-    """On CPU tensors B3's wrapper runs the plain version whatever `_body`
-    asks, and counts no launch."""
+    """On CPU tensors B3's wrapper runs the plain version, with or without
+    the clustered body's tables and forward twiddle, and counts no launch."""
     p, q = 256, 8
     plan = _four_step(p, q)
     rp = VpuFftPlan.create(p, device="cpu")
@@ -1450,9 +1493,8 @@ def test_b3_body_argument_on_the_cpu():
     before = launches("four_step_row")
     want = sv.vpu_fft_four_step_row_reference(re3, im3, p, q, kw["tables"], kw["pre_tw"],
                                               False, 0.25)
-    for body in (None, "pair", "stage"):
-        got = sv.vpu_fft_four_step_row(re3, im3, p, q, False, 0.25, _body=body,
-                                       tw_fwd=(plan.tw_fwd[0], plan.tw_fwd[1]), **kw)
+    for extra in ({}, dict(pair_tables=rp.pair_fwd, tw_fwd=(plan.tw_fwd[0], plan.tw_fwd[1]))):
+        got = sv.vpu_fft_four_step_row(re3, im3, p, q, False, 0.25, **extra, **kw)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert launches("four_step_row") == before
 
@@ -1565,7 +1607,7 @@ def test_b1_strided_geometry():
     the spilled heights, on B1's launch and tile."""
     for n in B1_DOMAIN:
         geo = sv.fft_pair_strided_geometry(n)
-        if (n in sv.B1_STAGE_FASTER or sv.fft_pair_geometry(n) is None
+        if (sv.kernel_body("B1", n) == "stage"
                 or sv.fft_pair_geometry(n).rows in sv.B1_STRIDED_SPILLED):
             assert geo is None, n
             continue
@@ -1622,194 +1664,3 @@ def test_b1_strided_on_the_cpu_in_place():
     assert sv.vpu_fft_strided(y, -2, 128, False, 0.5, out=y, **kw) is y
     assert torch.equal(y, want)
     assert launches("vpu_fft_strided") == before
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device; run `pytest -m cuda` where a card is")
-    return torch.device("cuda", 0)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("m", [64, 96, 1000, 1024, 2048])
-def test_b4a_bodies_agree_on_card(cuda_device, m):
-    plan = RfftPlan(2 * m, device=cuda_device)
-    inner = plan.inner
-    kw = dict(tables=inner.tables(True), kernel_tables=inner.kernel_fwd,
-              pair_tables=inner.pair_fwd, w=plan.w)
-    for b in (1, 7, 1000, 1588, 1589):
-        x = torch.randn(2 * m, b, device=cuda_device)
-        pair = sv.vpu_rfft_pack_batch_minor(x, m, _body="pair", **kw)
-        stage = sv.vpu_rfft_pack_batch_minor(x, m, _body="stage", **kw)
-        want = np.fft.rfft(x.double().cpu().numpy(), axis=0)
-        for got in (pair, stage):
-            c = got[0].double().cpu().numpy() + 1j * got[1].double().cpu().numpy()
-            assert _rel(c, want) <= C64_GATE, (m, b)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", [17, 33, 191, 439, 1013])
-def test_b7_bodies_agree_on_card(cuda_device, n):
-    plan = VpuDdBluesteinPlan.create(n, device=cuda_device)
-    st = plan.stages
-    kw = dict(tables=(st.tables(True), st.tables(False)),
-              kernel_tables=(st.kernel_fwd, st.kernel_inv),
-              pair_tables=(st.pair_fwd, st.pair_inv))
-    for b in (1, 7, 794, 795):
-        re = torch.randn(n, b, dtype=torch.float64, device=cuda_device)
-        im = torch.randn(n, b, dtype=torch.float64, device=cuda_device)
-        x = re.cpu().numpy() + 1j * im.cpu().numpy()
-        for mode in Transform:
-            want = (np.fft.fft(x, axis=0) if mode.is_forward
-                    else np.fft.ifft(x, axis=0) * n) * (mode.scale(n) or 1.0)
-            for body in ("pair", "stage"):
-                got = dv.vpu_dd_bluestein_batch_minor(
-                    re, im, n, st.size, mode.scale(n), _body=body,
-                    chirps=plan.chirps(mode.is_forward), **kw)
-                c = got[0].cpu().numpy() + 1j * got[1].cpu().numpy()
-                assert _rel(c, want) <= C128_GATE, (n, b, mode, body)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", [256, 2048, 4096])
-def test_b1_bodies_agree_on_card(cuda_device, n):
-    plan = VpuFftPlan.create(n, device=cuda_device)
-    for b in (1, 7, 1588, 1589):
-        re_ = torch.randn(n, b, device=cuda_device)
-        im_ = torch.randn(n, b, device=cuda_device)
-        x = re_.double().cpu().numpy() + 1j * im_.double().cpu().numpy()
-        for mode in Transform:
-            fwd = mode.is_forward
-            for body in ("pair", "stage"):
-                got = sv.vpu_fft_batch_minor(
-                    re_, im_, n, fwd, mode.scale(n), tables=plan.tables(fwd),
-                    kernel_tables=plan.kernel_fwd if fwd else plan.kernel_inv,
-                    pair_tables=plan.pair_fwd, _body=body)
-                c = got[0].double().cpu().numpy() + 1j * got[1].double().cpu().numpy()
-                assert _rel(c, _want(x, mode, n)) <= C64_GATE, (n, b, mode, body)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", [73, 1013])
-def test_b2_bodies_agree_on_card(cuda_device, n):
-    plan = VpuBluesteinPlan.create(n, device=cuda_device)
-    st = plan.stages
-    kw = dict(tables=(st.tables(True), st.tables(False)),
-              kernel_tables=(st.kernel_fwd, st.kernel_inv),
-              pair_tables=(st.pair_fwd, st.pair_inv))
-    for b in (1, 7, 794, 795):
-        re_ = torch.randn(n, b, device=cuda_device)
-        im_ = torch.randn(n, b, device=cuda_device)
-        x = re_.double().cpu().numpy() + 1j * im_.double().cpu().numpy()
-        for mode in Transform:
-            for body in ("pair", "stage"):
-                got = sv.vpu_bluestein_batch_minor(
-                    re_, im_, n, st.size, mode.scale(n), _body=body,
-                    chirps=plan.chirps(mode.is_forward), **kw)
-                c = got[0].double().cpu().numpy() + 1j * got[1].double().cpu().numpy()
-                assert _rel(c, _want(x, mode, n)) <= C64_GATE, (n, b, mode, body)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", [17, 73, 509, 863, 1013])
-def test_b5a_bodies_agree_on_card(cuda_device, n):
-    plan = VpuBluesteinPlan.create(n, device=cuda_device)
-    st = plan.stages
-    kw = dict(tables=(st.tables(True), st.tables(False)),
-              kernel_tables=(st.kernel_fwd, st.kernel_inv),
-              pair_tables=(st.pair_fwd, st.pair_inv), chirps=plan.chirps(True))
-    bodies = ("pair", "stage") if sv.rfft_odd_pack_geometry(st.size) else ("stage",)
-    for b in (1, 2, 7, 1589, 1592):
-        x = torch.randn(n, b, device=cuda_device)
-        want = np.fft.rfft(x.double().cpu().numpy(), axis=0)
-        for body in bodies:
-            got = sv.vpu_rfft_odd_pack_batch_minor(x, n, st.size, _body=body, **kw)
-            c = got[0].double().cpu().numpy() + 1j * got[1].double().cpu().numpy()
-            assert _rel(c, want) <= C64_GATE, (n, b, body)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", [256, 1024, 2048, 3000, 4096])
-def test_b6_bodies_agree_on_card(cuda_device, n):
-    plan = VpuDdFftPlan.create(n, device=cuda_device)
-    bodies = ("pair", "stage") if dv.fft_pair_geometry_dd(n) else ("stage",)
-    for b in (1, 7, 1588, 1589):
-        re_ = torch.randn(n, b, dtype=torch.float64, device=cuda_device)
-        im_ = torch.randn(n, b, dtype=torch.float64, device=cuda_device)
-        x = re_.cpu().numpy() + 1j * im_.cpu().numpy()
-        for mode in Transform:
-            fwd = mode.is_forward
-            for body in bodies:
-                got = dv.vpu_dd_fft_batch_minor(
-                    re_, im_, n, fwd, mode.scale(n), tables=plan.tables(fwd),
-                    kernel_tables=plan.kernel_fwd if fwd else plan.kernel_inv,
-                    pair_tables=plan.pair_fwd, _body=body)
-                c = got[0].cpu().numpy() + 1j * got[1].cpu().numpy()
-                assert _rel(c, _want(x, mode, n)) <= C128_GATE, (n, b, mode, body)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("m", [64, 96, 1000, 2048, 2160])
-def test_b4b_bodies_agree_on_card(cuda_device, m):
-    plan = RfftPlan(2 * m, device=cuda_device)
-    kw = dict(tables=plan.inner.tables(False), kernel_tables=plan.inner.kernel_inv,
-              pair_tables=plan.inner.pair_inv, w=plan.w)
-    bodies = ("pair", "stage") if sv.irfft_unpack_geometry(m) else ("stage",)
-    for b in (1, 7, 1000, 1588, 1589):
-        re_ = torch.randn(m + 1, b, device=cuda_device)
-        im_ = torch.randn(m + 1, b, device=cuda_device)
-        want = np.fft.irfft(re_.double().cpu().numpy() + 1j * im_.double().cpu().numpy(),
-                            2 * m, axis=0)
-        for body in bodies:
-            got = sv.vpu_irfft_unpack_batch_minor(re_, im_, m, _body=body, **kw)
-            assert _rel(got.double().cpu().numpy(), want) <= C64_GATE, (m, b, body)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", [17, 73, 509, 863, 1013])
-def test_b5b_bodies_agree_on_card(cuda_device, n):
-    plan = VpuBluesteinPlan.create(n, device=cuda_device)
-    st = plan.stages
-    kw = dict(tables=(st.tables(True), st.tables(False)),
-              kernel_tables=(st.kernel_fwd, st.kernel_inv),
-              pair_tables=(st.pair_fwd, st.pair_inv), chirps=plan.chirps(False))
-    bodies = ("pair", "stage") if sv.irfft_odd_unpack_geometry(st.size) else ("stage",)
-    L = (n + 1) // 2
-    for b in (1, 2, 7, 1589, 1592):
-        re_ = torch.randn(L, b, device=cuda_device)
-        im_ = torch.randn(L, b, device=cuda_device)
-        want = np.fft.irfft(re_.double().cpu().numpy() + 1j * im_.double().cpu().numpy(),
-                            n, axis=0)
-        for body in bodies:
-            got = sv.vpu_irfft_odd_unpack_batch_minor(re_, im_, n, st.size, _body=body, **kw)
-            assert _rel(got.double().cpu().numpy(), want) <= C64_GATE, (n, b, body)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", [32768, 65536, 262144])
-def test_b3_bodies_agree_on_card(cuda_device, n):
-    from fourier_tpu_torch.plan.four_step_local import choose_large_split
-
-    p, q = choose_large_split(n)
-    plan = FourStepLocalPlan.create(n, torch.complex64, p, q,
-                                    lambda m, dt, dev: VpuFftPlan.create(m, dt, dev),
-                                    device=cuda_device)
-    rp = plan.row_plan
-    for b in (1, 7, 64, 65):
-        re3 = torch.randn(q, p, b, device=cuda_device)
-        im3 = torch.randn(q, p, b, device=cuda_device)
-        for mode in Transform:
-            fwd = mode.is_forward
-            tw = plan.tw_fwd if fwd else plan.tw_inv
-            kw = dict(tables=rp.tables(fwd), pre_tw=(tw[0], tw[1]),
-                      kernel_tables=rp.kernel_fwd if fwd else rp.kernel_inv,
-                      pair_tables=rp.pair_fwd, tw_fwd=(plan.tw_fwd[0], plan.tw_fwd[1]))
-            want = sv.vpu_fft_four_step_row_reference(re3, im3, p, q, kw["tables"],
-                                                      kw["pre_tw"], fwd, mode.scale(n))
-            want = want[0].double().cpu().numpy() + 1j * want[1].double().cpu().numpy()
-            for body in ("pair", "stage"):
-                got = sv.vpu_fft_four_step_row(re3, im3, p, q, fwd, mode.scale(n),
-                                               _body=body, **kw)
-                c = got[0].double().cpu().numpy() + 1j * got[1].double().cpu().numpy()
-                assert _rel(c, want) <= C64_GATE, (n, b, mode, body)
