@@ -18,20 +18,26 @@
 // What bounds it on this card: memory. One call reads and writes the two
 // planes once, 16*n*B bytes (0.32 ms at 4096 x 16384 at 3.35 TB/s), against
 // 5*n*log2(n) flops a column, about 1.5 flops a byte at n = 4096. There, on
-// an H100 80GB HBM3 at 700 W (chip_smoke.py phases 5 and 5g), it took 1.38
-// ms, 0.23 of that bound, against 2.12 ms for the stage body in the same
-// run; at 1024 x 65536 0.80 ms against 1.52.
+// an H100 80GB HBM3 at 700 W, it took 1.12-1.16 ms, 0.28 of that bound,
+// against 1.40-1.44 ms with a split that read all C ranks' rows point by
+// point (a same-run A/B of both) and 2.12 ms for the stage body; at 1024 x
+// 65536 0.84 ms with either split.
 //
 // Design: fft_pair of the clustered-block engine (stockham_pair.cuh; B6's
 // body at double) at float, 512 threads a block, 16 points a thread, the
-// passes of h = n/C fixed at compile time for each size. Rank r of a
-// cluster copies rows [r*h,
-// (r+1)*h) of both planes, 32-byte runs of 8 columns (more where h is
-// small), into its own buffer; the first pass reads all C ranks' rows for
-// the cross-block radix-C split, v_r[p] = W_n^(r*p) * sum_s a_s[p] *
-// W_C^(r*s), forming only this rank's output; after the passes rank r
-// holds X[C*k + r] at row k and stores it to output row C*k + r, times the
-// scale, in 16-byte runs where the batch is a multiple of 4. At n = 4096
+// passes of h = n/C fixed at compile time for each size. The cross-block
+// radix-C split, v_s[p] = W_n^(s*p) * sum_t a_t[p] * W_C^(s*t) with a_t[p]
+// input row t*h + p, is pushed: rank r of a cluster copies the rows t*h +
+// p of every block t for p in its share [r*h/C, (r+1)*h/C) of both planes,
+// 32-byte runs of 8 columns (more where h is small), into its own buffer;
+// each thread reads the C rows of one p at 4 adjacent columns (16-byte
+// loads), forms all C outputs and stores v_s[p] to rank s's buffer at row
+// p (16-byte st.shared::cluster stores), so (C-1)/C of each tile crosses
+// the cluster once, 402,653,184 bytes a call at 4096 x 16384 (the split
+// that read all C ranks' rows point by point, 4-byte DSMEM loads, moved
+// four times that); after the passes rank r holds X[C*k + r] at row k and
+// stores it to output row C*k + r, times the scale, in 16-byte runs where
+// the batch is a multiple of 4. At n = 4096
 // two blocks of 2048 rows would need 256 KiB double-buffered, so four
 // blocks of 1024 rows share the group: 30 such clusters fit on the card at
 // once. One body serves both directions: the inverse is the forward body on

@@ -27,29 +27,32 @@
 // against 5*p*log2(p) + 6*p flops a row. The stage body moved those bytes
 // at 0.30 of that bound (1.08 ms), with a radix switch at run time, one
 // tile a block and no copy in flight during the stages. On an H100 80GB
-// HBM3 at 700 W (chip_smoke.py phases 5c and 5g) this body took 0.70 ms
-// there, 0.46 of the bound, against 1.08 ms for the stage body in the same
-// run (the 65536 plan 1.28 ms against 1.66), and 0.75 against 1.00 ms at
-// p = 512.
+// HBM3 at 700 W this body took 0.65 ms there, 0.49 of the bound (0.72-0.75
+// ms with a split that read each point from its block's buffer across the
+// cluster, in the same run; the stage body 1.08 ms in chip_smoke.py phases
+// 5c and 5g).
 //
 // Design: fft_pair of the clustered-block engine (stockham_pair.cuh, B1's
 // body) with the I/O policy FourStepPlanes: 512 threads a block, the
 // passes of h = p/C fixed at compile time for each p, persistent clusters
 // fed by cp.async into two buffers. A tile is (k2, g): the g-th group of
 // kCols columns of the (p, B) plane of k2, t = k2*G + g with G = ceil(B /
-// kCols), so the clusters walk q*G tiles. Rank r copies rows [r*h,
-// (r+1)*h) of that plane (runs of the tile's width, 16-byte copies where
-// 4 | B, the pointers are aligned and the runs are wider than 32 bytes);
-// the first pass's split reads rank
-// s's row `row` times the four-step twiddle W_n^((s*h + row)*k2), formed as
-// W_n^(row*k2) * W_n^(s*h*k2), one table entry a point and one a tile
-// (design (a)), then the engine's cross-block radix-C step; after the
-// passes rank r holds X[C*k + r] at row k and stores it to output row
-// (C*k + r) of the (p, q*B) view, at column k2*B + b0, times the scale:
-// runs of the tile's width at stride q*B. Columns past B are never stored.
-// At 7 of the 11 heights where (a) spilled, design (b) multiplies each
-// rank's rows by their twiddles in a pass of its own before the split (at
-// the other 4 it spilled too); it moves
+// kCols), so the clusters walk q*G tiles. Rank r copies the rows s*h + j
+// of that plane, j in its share [r*h/C, (r+1)*h/C) of each block s (the
+// engine's push split; runs of the tile's width, 16-byte copies where 4 |
+// B, the pointers are aligned and the runs are wider than 32 bytes); the
+// split reads block s's row j times the four-step twiddle W_n^((s*h +
+// j)*k2), formed as W_n^(j*k2) * W_n^(s*h*k2), one table entry a point and
+// one a tile (design (a)), forms the C outputs of the engine's radix-C
+// step and stores output s to rank s's buffer (16-byte DSMEM stores,
+// (C-1)/C of the tile across the cluster); after the passes rank r holds
+// X[C*k + r] at row k and stores it to output row (C*k + r) of the (p,
+// q*B) view, at column k2*B + b0, times the scale: runs of the tile's width
+// at stride q*B. Columns past B are never stored. At 7 of the 11 heights
+// where (a) spilled with a split that read each point from its block's
+// buffer across the cluster, design (b) multiplies each copied row by the twiddle of
+// its input row in a pass of its own before the split (at the other 4 it
+// spilled too); it moves
 // the same bytes with one more pass over shared memory, and was 15% slower
 // than (a) at p = 128, 256 and 512 in a build of both designs there.
 //
@@ -111,15 +114,15 @@ struct FourStepPlanes {
     return q * groups();
   }
 
-  // Rows [rank*H, (rank+1)*H) of the (P, B) plane of k2 = t / G, columns
-  // b0 = (t mod G) * kCols.. below B, into rows 0..H-1.
-  template <class, int Threads, int>
+  // Row push_row(row) of the (P, B) plane of k2 = t / G, columns b0 = (t
+  // mod G) * kCols.. below B, into row `row` (0..H-1).
+  template <class, int Threads, int, int>
   __device__ __forceinline__ void fetch(int t, float* sre, float* sim) const {
     constexpr int cols = Tile::kCols, logc = Tile::kLogC;
     const int k2 = t / groups();
     const int b0 = (t - k2 * groups()) << logc;
-    const size_t src =
-        (static_cast<size_t>(k2) * P + static_cast<size_t>(cluster_rank()) * H) * bs + b0;
+    const size_t src = static_cast<size_t>(k2) * P * bs + b0;
+    const int rank = cluster_rank();
     if (vec) {
       constexpr int lc = logc - kLogV;  // a row is 1 << lc 16-byte chunks
 #pragma unroll 1
@@ -128,7 +131,7 @@ struct FourStepPlanes {
         if (b0 + c < batch) {
           const int row = rr >> 1;
           copy_async<16>((rr & 1 ? sim : sre) + Tile::index(row, c),
-                         (rr & 1 ? xim : xre) + src + row * bs + c);
+                         (rr & 1 ? xim : xre) + src + push_row<C, H>(row, rank) * bs + c);
         }
       }
     } else {
@@ -138,35 +141,39 @@ struct FourStepPlanes {
         if (b0 + col < batch) {
           const int row = rr >> 1;
           copy_async<4>((rr & 1 ? sim : sre) + Tile::index(row, col),
-                        (rr & 1 ? xim : xre) + src + row * bs + col);
+                        (rr & 1 ? xim : xre) + src + push_row<C, H>(row, rank) * bs + col);
         }
       }
     }
   }
 
   // Design (b): once the block's copies of tile t have landed, each of
-  // this rank's rows times its twiddle, in place (one table load a point).
-  template <class, int Threads, int>
+  // this rank's rows times the twiddle of its input row a = push_row(row),
+  // in place (one table load a point).
+  template <class, int Threads, int, int>
   __device__ __forceinline__ void prepare(int t, float* sre, float* sim) const {
     if constexpr (kInPass) {
       constexpr int logc = Tile::kLogC;
       __syncthreads();  // every thread's copies of tile t have landed
-      const int w0 = (t / groups()) * P + cluster_rank() * H;
+      const int w0 = (t / groups()) * P;
+      const int rank = cluster_rank();
       for (int e = thread_x(); e < H << logc; e += Threads) {
         const int row = e >> logc;
         const int s = Tile::index(row, e & (Tile::kCols - 1));
+        const int w = w0 + push_row<C, H>(row, rank);
         float re = sre[s], im = sim[s];
-        cmul(re, im, __ldg(twre + w0 + row), __ldg(twim + w0 + row));
+        cmul(re, im, __ldg(twre + w), __ldg(twim + w));
         sre[s] = re;
         sim[s] = im;
       }
     }
   }
 
-  // Design (a): rank s's row `row` of tile t times W_n^((s*H + row)*k2) as
-  // the split reads it, formed as W_n^(row*k2) * W_n^(s*H*k2): one table
-  // entry a point, the same for the C rows the split combines, and one a
-  // tile and rank (s*H + row and s*H are both in row k2 of the table).
+  // Design (a): block s's row `row` (the split's p) of tile t times
+  // W_n^((s*H + row)*k2) as the split reads it, formed as W_n^(row*k2) *
+  // W_n^(s*H*k2): one table entry a point, the same for the C rows the
+  // split combines, and one a tile and block (s*H + row and s*H are both in
+  // row k2 of the table).
   template <int>
   __device__ __forceinline__ void weight(int t, int s, int row, float& re,
                                          float& im) const {

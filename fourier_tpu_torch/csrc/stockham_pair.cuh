@@ -13,21 +13,28 @@
 // 0.663 ms through 16-byte row runs and in 0.272 ms through 32-byte ones,
 // so no tile reads a run narrower than 32 bytes. A whole M-point column
 // group of 32-byte runs does not fit a block twice over at M = 2048, so the
-// C blocks of a thread-block cluster (C = 2 or 4) share it: rank r holds
-// rows [r*h, (r+1)*h), h = M/C. The first radix-C step runs across the
-// cluster, read through distributed shared memory:
-//   rank r: v_r[p] = W_M^(r*p) * sum_s a_s[p] * W_C^(r*s),
-//           FFT_h(v_r) = X[C*k + r],
-// with a_s the rows of rank s. For C = 2 that is u = a + b on rank 0 and
-// v = (a - b) * W_M^p on rank 1. After it each block runs an independent
-// h-point Stockham transform over its own tile of h rows, so each block
-// holds one tile in each of two buffers: at h = 1024, 2 x 64 KiB in f32 (8
-// columns) and in f64 (4 columns); B1 and B6 take C = 4 for n in (2048,
-// 4096].
+// C blocks of a thread-block cluster (C = 2 or 4) share it, h = M/C rows a
+// block. The first radix-C step runs across the cluster:
+//   v_r[p] = W_M^(r*p) * sum_s a_s[p] * W_C^(r*s),   FFT_h(v_r) = X[C*k + r],
+// with a_s[p] = input row s*h + p. For C = 2 that is u = a + b and v = (a -
+// b) * W_M^p. Rank r then runs an independent h-point Stockham transform
+// over v_r, its own tile of h rows, so each block holds one tile in each of
+// two buffers: at h = 1024, 2 x 64 KiB in f32 (8 columns) and in f64 (4
+// columns); B1 and B6 take C = 4 for n in (2048, 4096].
 // Where h is smaller, a tile takes several
 // adjacent groups, up to kPairPoints points a thread. The split twiddles
 // W_M^(r*p), r = 1..C-1, are the (C-1)*h entries before the pass tables
 // (pair_tables in ops/cuda/stockham_vpu.py).
+//
+// fft_pair's split pushes (pair_push_split). Rank r copies the rows s*h + p
+// of every block s for p in its share [r*h/C, (r+1)*h/C) (push_row), so it
+// holds all C inputs of the butterflies at its p; it forms every output
+// v_s[p] and stores it to rank s's buffer at row p, 16-byte
+// st.shared::cluster stores of adjacent columns, one of the C destinations
+// its own. (C-1)/C of each tile crosses the cluster once: 3/4 of 64 KiB a
+// block and tile at n = 4096, 402,653,184 bytes a 4096 x 16384 call. The
+// chirp-z bodies (bluestein_pair) and B1s (fft_pair_strided.cu) still read
+// their split's inputs from the partners' buffers, point by point.
 //
 // Persistent clusters. The grid is as many clusters as fit on the card at
 // once (cudaOccupancyMaxActiveClusters), and cluster c walks the column
@@ -38,9 +45,13 @@
 // ragged batch (B not a multiple of the 16-byte chunk, or a misaligned
 // pointer) copies element by element instead; columns past B are never
 // copied or stored, and each column's transform reads only its own column.
-// The first pass reads the partners' buffers; it synchronises the cluster
-// after its reads and before its stores (`sy0`), so no rank overwrites a
-// buffer, or copies the next tile into one, that a partner still reads.
+// fft_pair's split reads its inputs from its own buffer, arrives at a
+// cluster barrier, forms its outputs, and waits there before it stores any
+// to a partner, so no rank overwrites inputs that their rank has yet to
+// read; a second cluster barrier opens the first pass. A split that reads
+// the partners' buffers synchronises the cluster after its reads and before
+// its stores (`sy0` of pair_passes), so no rank overwrites a buffer, or
+// copies the next tile into one, that a partner still reads.
 //
 // The passes. The h-point schedule, fixed at compile time for each h a
 // kernel is built for (pair_radix; pass_schedule in
@@ -65,9 +76,10 @@
 // any value kept live across the passes can make ptxas spill. So the thread
 // index, the block's rank, the cluster's index and the grid's clusters are
 // read where they are used, through volatile asm (thread_x, cluster_rank,
-// cluster_id, cluster_count), and a partner's tile is read at a 32-bit
-// shared::cluster address made where it is read (cluster_addr,
-// load_cluster), not through 64-bit generic pointers held across the tile.
+// cluster_id, cluster_count), and a partner's tile is read or written at a
+// 32-bit shared::cluster address made where it is used (cluster_addr,
+// load_cluster, store_cluster16), not through 64-bit generic pointers held
+// across the tile.
 
 #pragma once
 
@@ -438,6 +450,31 @@ __device__ __forceinline__ int cluster_count() {
   return r;
 }
 
+// A 16-byte store of 4 float or 2 double values to a shared::cluster
+// address (cluster_addr), a partner's buffer or this block's own.
+__device__ __forceinline__ void store_cluster16(unsigned addr, const float (&v)[4]) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(addr),
+               "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3])
+               : "memory");
+}
+
+__device__ __forceinline__ void store_cluster16(unsigned addr, const double (&v)[2]) {
+  asm volatile("st.shared::cluster.v2.f64 [%0], {%1, %2};" ::"r"(addr), "d"(v[0]),
+               "d"(v[1])
+               : "memory");
+}
+
+// The rows of fft_pair's push split: rank `rank` of C takes p in its share
+// [rank*Q, (rank+1)*Q), Q = H/C, of each block s of the tile's C*H input
+// rows, and copies input row s*H + p to its buffer's row s*Q + (p -
+// rank*Q). The input row that its buffer's row `l` holds.
+template <int C, int H>
+__device__ __forceinline__ int push_row(int l, int rank) {
+  constexpr int Q = H / C;
+  static_assert(H % C == 0, "the ranks share a block's rows evenly");
+  return l + (l / Q) * (H - Q) + rank * Q;
+}
+
 // A 16-byte load from shared memory of 4 float or 2 double values.
 __device__ __forceinline__ void load16(const float* src, float (&v)[4]) {
   const float4 a = *reinterpret_cast<const float4*>(src);
@@ -455,13 +492,13 @@ __device__ __forceinline__ void load16(const double* src, double (&v)[2]) {
 
 // The default input and output of fft_pair (B1, B6): the planar (n, B)
 // input and output planes, B = `batch`, whose column groups of kCols the
-// clusters walk (`tiles`). Rank r copies rows [r*H, (r+1)*H) of a tile's
-// columns into its own buffer (`fetch`), the split reads the C ranks' rows
-// as they are (`weight` is the identity, `prepare` does nothing), and rank
-// r stores row k of its finished tile to output row C*k + r, times `scale`
-// (`store`); `vec`: 16-byte copies and stores. A kernel that reads or writes
-// other planes (B3's four-step row leg, four_step_pair.cu) passes its own
-// policy with these five members.
+// clusters walk (`tiles`). Rank r copies the rows of its split's share of
+// a tile's columns into its own buffer (`fetch`, push_row), the split reads
+// them as they are (`weight` is the identity, `prepare` does nothing), and
+// rank r stores row k of its finished tile to output row C*k + r, times
+// `scale` (`store`); `vec`: 16-byte copies and stores. A kernel that reads
+// or writes other planes (B3's four-step row leg, four_step_pair.cu)
+// passes its own policy with these five members.
 template <typename T>
 struct PlanePolicy {
   static constexpr int kV = 16 / static_cast<int>(sizeof(T));  // values a chunk
@@ -485,14 +522,14 @@ struct PlanePolicy {
     return (batch + Tile::kCols - 1) >> Tile::kLogC;
   }
 
-  // Rows [rank*H, (rank+1)*H) of both planes into rows 0..H-1, for the
-  // columns of tile t below B. The copy loops are not unrolled: unrolled,
-  // ptxas spilled a register of four of B1's sixty bodies.
-  template <class Tile, int Threads, int H>
+  // Input row push_row(row) of both planes into row `row` (0..H-1), for
+  // the columns of tile t below B. The copy loops are not unrolled:
+  // unrolled, ptxas spilled a register of four of B1's sixty bodies.
+  template <class Tile, int Threads, int C, int H>
   __device__ __forceinline__ void fetch(int t, T* sre, T* sim) const {
     constexpr int cols = Tile::kCols, logc = Tile::kLogC;
     const int b0 = t << logc;
-    const size_t src = static_cast<size_t>(cluster_rank()) * H * bs + b0;
+    const int rank = cluster_rank();
     if (vec) {
       constexpr int lc = logc - kLogV;  // a row is 1 << lc 16-byte chunks
 #pragma unroll 1
@@ -500,8 +537,9 @@ struct PlanePolicy {
         const int c = (e & ((1 << lc) - 1)) << kLogV, rr = e >> lc;
         if (b0 + c < batch) {
           const int row = rr >> 1;
-          copy_async<16>((rr & 1 ? sim : sre) + Tile::index(row, c),
-                         (rr & 1 ? xim : xre) + src + row * bs + c);
+          copy_async<16>(
+              (rr & 1 ? sim : sre) + Tile::index(row, c),
+              (rr & 1 ? xim : xre) + push_row<C, H>(row, rank) * bs + b0 + c);
         }
       }
     } else {
@@ -512,15 +550,15 @@ struct PlanePolicy {
           const int row = rr >> 1;
           copy_async<static_cast<int>(sizeof(T))>(
               (rr & 1 ? sim : sre) + Tile::index(row, col),
-              (rr & 1 ? xim : xre) + src + row * bs + col);
+              (rr & 1 ? xim : xre) + push_row<C, H>(row, rank) * bs + b0 + col);
         }
       }
     }
   }
 
-  // After this thread's copies of tile t have landed and before the
-  // cluster barrier that opens the split: nothing.
-  template <class Tile, int Threads, int H>
+  // After this thread's copies of tile t have landed and before the split
+  // reads them: nothing.
+  template <class Tile, int Threads, int C, int H>
   __device__ __forceinline__ void prepare(int, T*, T*) const {}
 
   // Rank s's row `row` of tile t, as the split reads it: as copied.
@@ -564,90 +602,158 @@ struct PlanePolicy {
   }
 };
 
+// The radix-C step of the push split on column u of a thread's C inputs
+// a_s (rows r, i), in place: output s = sum_t a_t * W_C^(s*t). For C = 4,
+// u = a_0 + (-1)^s a_2 and w = a_1 + (-1)^s a_3, output u + W_4^s * w.
+template <int C, int V, typename T>
+__device__ __forceinline__ void split_butterfly(T (&r)[C][V], T (&i)[C][V], int u) {
+  if constexpr (C == 2) {
+    const T ar = r[0][u], ai = i[0][u];
+    r[0][u] = ar + r[1][u];
+    i[0][u] = ai + i[1][u];
+    r[1][u] = ar - r[1][u];
+    i[1][u] = ai - i[1][u];
+  } else {
+    const T u0r = r[0][u] + r[2][u], u0i = i[0][u] + i[2][u];
+    const T u1r = r[0][u] - r[2][u], u1i = i[0][u] - i[2][u];
+    const T w0r = r[1][u] + r[3][u], w0i = i[1][u] + i[3][u];
+    const T w1r = r[1][u] - r[3][u], w1i = i[1][u] - i[3][u];
+    r[0][u] = u0r + w0r;  // W_4^0 = 1
+    i[0][u] = u0i + w0i;
+    r[1][u] = u1r + w1i;  // W_4^1 = -i
+    i[1][u] = u1i - w1r;
+    r[2][u] = u0r - w0r;  // W_4^2 = -1
+    i[2][u] = u0i - w0i;
+    r[3][u] = u1r - w1i;  // W_4^3 = i
+    i[3][u] = u1i + w1r;
+  }
+}
+
+// fft_pair's cross-block radix-C split of tile t, pushed (see the top of
+// this file). Rank r holds the input rows s*H + p, p in its share [r*Q,
+// (r+1)*Q), Q = H/C, of every block s at its buffer's rows s*Q + p - r*Q
+// (push_row). A thread takes one p and kV adjacent columns, a 16-byte chunk
+// of a row: it reads the chunk of its C rows from its own buffer (16-byte
+// loads) and weighs each point (`io.weight`); it arrives at a cluster
+// barrier, forms every output v_s[p] = W_n^(s*p) * sum_t a_t[p] * W_C^(s*t)
+// while the barrier completes, waits, and stores v_s[p] to rank s's buffer
+// at row p (16-byte st.shared::cluster stores). A closing cluster barrier
+// makes every output visible to its rank. Threads past the share's chunks
+// (at h/C = 135 rows, 270 chunks at 8 columns) take no part. `twre`/`twim`
+// hold the (C-1)*H split twiddles W_n^(s*p) (s = 1..C-1).
+template <class Tile, int Threads, int C, int H, typename T, class IO>
+__device__ __forceinline__ void pair_push_split(const IO& io, int t, T* sre, T* sim,
+                                                const T* __restrict__ twre,
+                                                const T* __restrict__ twim) {
+  constexpr int kV = 16 / static_cast<int>(sizeof(T));  // columns a chunk
+  constexpr int kLogV = pair_exponent(kV, 2);
+  constexpr int kLogChunks = Tile::kLogC - kLogV;  // a row is 1 << kLogChunks chunks
+  constexpr int Q = H / C;
+  constexpr int kChunks = Q << kLogChunks;
+  constexpr int NB = (kChunks + Threads - 1) / Threads;  // chunks a thread
+  constexpr unsigned kItem = sizeof(T);
+  T xr[NB][C][kV], xi[NB][C][kV];
+  // Where every thread takes NB chunks, the test of `id` folds away: kept,
+  // it cost ptxas spills at h = 1024 and 512. The barriers are the
+  // intrinsics (arrive: release, wait: acquire), which spilled fewer
+  // bodies than the same PTX instructions written as asm.
+#pragma unroll
+  for (int q = 0; q < NB; ++q) {
+    const int id = thread_x() + q * Threads;
+    if (kChunks % Threads == 0 || id < kChunks) {
+      const int j = id >> kLogChunks, c = (id & ((1 << kLogChunks) - 1)) << kLogV;
+      const int p = cluster_rank() * Q + j;
+#pragma unroll
+      for (int s = 0; s < C; ++s) {
+        const int e = Tile::index(s * Q + j, c);
+        load16(sre + e, xr[q][s]);
+        load16(sim + e, xi[q][s]);
+#pragma unroll
+        for (int u = 0; u < kV; ++u) {
+          io.template weight<H>(t, s, p, xr[q][s][u], xi[q][s][u]);
+        }
+      }
+    }
+  }
+  __cluster_barrier_arrive();  // this rank has read its rows of tile t
+#pragma unroll
+  for (int q = 0; q < NB; ++q) {
+    const int id = thread_x() + q * Threads;
+    if (kChunks % Threads == 0 || id < kChunks) {
+      const int p = cluster_rank() * Q + (id >> kLogChunks);
+#pragma unroll
+      for (int u = 0; u < kV; ++u) split_butterfly<C, kV>(xr[q], xi[q], u);
+#pragma unroll
+      for (int s = 1; s < C; ++s) {
+        const T wr = __ldg(twre + (s - 1) * H + p), wi = __ldg(twim + (s - 1) * H + p);
+#pragma unroll
+        for (int u = 0; u < kV; ++u) cmul(xr[q][s][u], xi[q][s][u], wr, wi);
+      }
+    }
+  }
+  __cluster_barrier_wait();  // every rank has read its rows: the buffers take outputs
+#pragma unroll
+  for (int q = 0; q < NB; ++q) {
+    const int id = thread_x() + q * Threads;
+    if (kChunks % Threads == 0 || id < kChunks) {
+      const int c = (id & ((1 << kLogChunks) - 1)) << kLogV;
+      const int p = cluster_rank() * Q + (id >> kLogChunks);
+      const unsigned off = kItem * static_cast<unsigned>(Tile::index(p, c));
+#pragma unroll
+      for (int s = 0; s < C; ++s) {
+        store_cluster16(cluster_addr(sre, s) + off, xr[q][s]);
+        store_cluster16(cluster_addr(sim, s) + off, xi[q][s]);
+      }
+    }
+  }
+  __cluster_barrier_arrive();  // every output of tile t is in its rank's buffer
+  __cluster_barrier_wait();
+}
+
 // The clustered-block body of B1 (float, fft_pair.cu), B6 (double,
 // fft_pair_dd.cu) and B3 (float, four_step_pair.cu): the forward DFT of
 // every column of a tile of n = C*H rows. The policy `io` (PlanePolicy above
-// for B1 and B6) gives the tiles the clusters walk (`tiles`), copies rank
-// r's rows [r*H, (r+1)*H) of tile t into its own buffer (`fetch`, cp.async),
-// may pass over the landed rows before the split (`prepare`), weighs rank
-// s's row as the split reads it (`weight`), and stores the finished tile,
-// whose row k holds X[C*k + r] on rank r (`store`). The first pass reads
-// all C ranks' rows for the cross-block radix-C split (see the top of this
-// file). `twre`/`twim`: the (C-1)*H split twiddles W_n^(r*p) (rank r =
-// 1..C-1, p < H), then the pass tables. The inverse is this body on the
-// planes exchanged (the host swaps the pointers).
+// for B1 and B6) gives the tiles the clusters walk (`tiles`), copies the
+// rows of rank r's share of tile t (push_row) into its own buffer (`fetch`,
+// cp.async), may pass over the landed rows before the split (`prepare`),
+// weighs block s's row p as the split reads it (`weight`), and stores the
+// finished tile, whose row k holds X[C*k + r] on rank r (`store`). The
+// split (pair_push_split) leaves rank r's buffer holding v_r, and the
+// passes read only the block's own buffer. `twre`/`twim`: the (C-1)*H split
+// twiddles W_n^(r*p) (rank r = 1..C-1, p < H), then the pass tables. The
+// inverse is this body on the planes exchanged (the host swaps the
+// pointers).
 template <typename T, int Threads, int C, int H, class IO>
 __device__ __forceinline__ void fft_pair(const IO& io, const T* __restrict__ twre,
                                          const T* __restrict__ twim) {
   using Tile = PairTile<T, Threads, H>;
   constexpr int plane = H * Tile::kCols;
-  constexpr unsigned kItem = sizeof(T);
-  cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const smem = reinterpret_cast<T*>(smem_raw);
   const int ntiles = io.template tiles<Tile>();
   int buf = 0;
   int t = cluster_id();
-  if (t < ntiles) io.template fetch<Tile, Threads, H>(t, smem, smem + plane);
+  if (t < ntiles) io.template fetch<Tile, Threads, C, H>(t, smem, smem + plane);
   copy_commit();
   for (; t < ntiles; t += cluster_count(), buf ^= 1) {
     T* sre = smem + 2 * buf * plane;
     T* sim = sre + plane;
     if (t + cluster_count() < ntiles) {
       T* next = smem + 2 * (buf ^ 1) * plane;
-      io.template fetch<Tile, Threads, H>(t + cluster_count(), next, next + plane);
+      io.template fetch<Tile, Threads, C, H>(t + cluster_count(), next, next + plane);
     }
     copy_commit();
     copy_wait_previous();
-    io.template prepare<Tile, Threads, H>(t, sre, sim);
-    cluster.sync();  // every rank's rows of tile t are in shared memory
-    // Row p of every rank through this rank's output of the radix-C step,
-    // v = sum_s a_s * W_C^(rank*s): a_0 + (-1)^rank * a_1 (C = 2), or
-    // u + W_4^rank * w with u = a_0 + (-1)^rank * a_2 and w = a_1 +
-    // (-1)^rank * a_3 (C = 4); times W_n^(rank*p). The ranks' tiles are
-    // read at 32-bit shared::cluster addresses, and only this rank's output
-    // is formed, so few registers are live across the first pass's loads.
-    unsigned are[C], aim[C];
-#pragma unroll
-    for (int s = 0; s < C; ++s) {
-      are[s] = cluster_addr(sre, s);
-      aim[s] = cluster_addr(sim, s);
-    }
-    auto split = [&](int row, int col, T& re, T& im) {
-      const int rank = cluster_rank();
-      const unsigned off = kItem * static_cast<unsigned>(Tile::index(row, col));
-      T ar[C], ai[C];
-#pragma unroll
-      for (int s = 0; s < C; ++s) {
-        ar[s] = load_cluster<T>(are[s] + off);
-        ai[s] = load_cluster<T>(aim[s] + off);
-        io.template weight<H>(t, s, row, ar[s], ai[s]);
-      }
-      const T rho = rank & 1 ? static_cast<T>(-1) : static_cast<T>(1);
-      if constexpr (C == 2) {
-        re = ar[0] + rho * ar[1];
-        im = ai[0] + rho * ai[1];
-      } else {
-        const T ur = ar[0] + rho * ar[2], ui = ai[0] + rho * ai[2];
-        T wr = ar[1] + rho * ar[3], wi = ai[1] + rho * ai[3];
-        // W_4^rank = 1, -i, -1, i.
-        cmul(wr, wi, static_cast<T>((rank == 0) - (rank == 2)),
-             static_cast<T>((rank == 3) - (rank == 1)));
-        re = ur + wr;
-        im = ui + wi;
-      }
-      if (rank > 0) {
-        const int w = (rank - 1) * H + row;
-        cmul(re, im, __ldg(twre + w), __ldg(twim + w));
-      }
-    };
-    auto split_done = [&] { cluster.sync(); };  // the partners read their rows
-    pair_passes<0, true, Tile, Threads, (C - 1) * H>(sre, sim, twre, twim, split,
-                                                     split_done, NoHook{});
+    io.template prepare<Tile, Threads, C, H>(t, sre, sim);
+    __syncthreads();  // every thread's copies of tile t are in this block's buffer
+    pair_push_split<Tile, Threads, C, H>(io, t, sre, sim, twre, twim);
+    pair_passes<0, true, Tile, Threads, (C - 1) * H>(
+        sre, sim, twre, twim, TileLoad<Tile, T>{sre, sim}, BlockSync{}, NoHook{});
     io.template store<Tile, Threads, C, H>(t, sre, sim);
     __syncthreads();  // the next copy into this buffer follows the stores
   }
-  cluster.sync();  // a partner may still read this block's tile
+  // No partner reads or writes this block's shared memory after the last
+  // split's closing barrier, so the block exits without another.
 }
 
 // The input rows [r0, r1) a rank of a chirp-z body copies: the n rows split

@@ -105,6 +105,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from fourier_tpu_torch import trace
 from fourier_tpu_torch.ops import cplx, hermitian
 from fourier_tpu_torch.ops.butterflies import BUTTERFLIES
 from fourier_tpu_torch.ops.cuda import build
@@ -718,6 +719,15 @@ def four_step_pair_clusters(p: int, device) -> int:
     return out.value
 
 
+def count_split_bytes(ranks: int, n: int, batch: int, itemsize: int) -> None:
+    """Count ``split.cluster_bytes``: the bytes the push split of a
+    clustered ``fft_pair`` body (B1, B3, B6) sends from one block of its
+    cluster to another in a launch over `batch` columns of n points,
+    (ranks-1)/ranks of both planes (the columns below B; a ragged last tile
+    sends its columns past B too)."""
+    trace.count("split.cluster_bytes", (ranks - 1) * 2 * n * batch * itemsize // ranks)
+
+
 def _launch(op: str, fn_name: str, what: str, *args) -> None:
     """Launch the operator `op` through the stage library's C entry point
     `fn_name`; raise if it fails."""
@@ -780,6 +790,7 @@ def _vpu_fft_op(re_t: Tensor, im_t: Tensor, n: int, forward: bool,
     geo = clustered_geometry("B1", n)
     if geo is not None:
         check_pair_tables(re_t.device, n, geo.ranks, pair_tables)
+        count_split_bytes(geo.ranks, n, batch, 4)
         build.launch(
             "fourier_tpu_torch::vpu_fft",
             fft_pair_library(), "fourier_stockham_pair_c64",
@@ -1057,6 +1068,7 @@ def _four_step_row_op(re3: Tensor, im3: Tensor, p: int, q: int, forward: bool,
                              "twiddle (tw_fwd) for an inverse")
         check_tables(re3.device, fwd_re, fwd_im)
         check_pair_tables(re3.device, p, geo.ranks, pair_tables)
+        count_split_bytes(geo.ranks, p, q * batch, 4)
         build.launch(
             "fourier_tpu_torch::four_step_row",
             four_step_pair_library(), "fourier_four_step_pair_c64",

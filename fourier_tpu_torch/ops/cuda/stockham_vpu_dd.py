@@ -51,6 +51,7 @@ from fourier_tpu_torch.ops.cuda.stockham_vpu import (BODIES, FFT_PAIR_ROWS,
                                                      check_planes, check_tables,
                                                      check_pair_tables,
                                                      clustered_geometry,
+                                                     count_split_bytes,
                                                      kernel_tables,
                                                      pair_geometry,
                                                      pass_schedule,
@@ -272,6 +273,7 @@ def _vpu_dd_fft_op(re_t: Tensor, im_t: Tensor, n: int, forward: bool,
     geo = clustered_geometry("B6", n)
     if geo is not None:
         check_pair_tables(re_t.device, n, geo.ranks, pair_tables, dtype=F64)
+        count_split_bytes(geo.ranks, n, batch, 8)
         build.launch(
             "fourier_tpu_torch::vpu_dd_fft",
             fft_pair_dd_library(), "fourier_stockham_pair_c128",

@@ -23,8 +23,10 @@ call did, at each layer boundary.
   planner's cache hits and misses, libraries loaded and built, exchange
   legs and bytes, the exchange layer's copies (``exchange.copies``: pieces
   copied; ``exchange.copies.tiled``: those whose two sides' innermost dims
-  differ; ``exchange.copy_bytes``: bytes read). Take a ``snapshot()`` and
-  read ``delta(snapshot)``.
+  differ; ``exchange.copy_bytes``: bytes read), the bytes the push split
+  of a clustered ``fft_pair`` body (B1, B3, B6) sends across its cluster
+  (``split.cluster_bytes``). Take a ``snapshot()`` and read
+  ``delta(snapshot)``.
 
 Span names by layer: ``call`` / ``call.nested`` (entry and plan),
 ``plan.build`` (planner), ``axis``, ``layout.to_front``, ``layout.scale``,

@@ -13,7 +13,10 @@ unchanged plain versions (``vpu_fft_batch_minor_reference``,
 ``vpu_dd_bluestein_batch_minor_reference``): the C blocks of a cluster (two,
 or four for B1 and B6 at n in (2048, 4096]), each holding 1/C of the rows of
 a tile in rows swizzled inside their 128-byte lines; the cross-block radix-C
-split on the first pass's read; the passes of ``pass_schedule`` with the
+split, pushed by B1, B3 and B6 (each rank copies the rows of every block at
+its share of the points, forms every output there and writes it into its
+rank's buffer) and read on the first pass by the chirp-z bodies and B4a;
+the passes of ``pass_schedule`` with the
 tables of ``pair_tables`` (narrowed to f32 for B1, B2, B4a and B5a, f64 for
 B6 and B7); the store of row k of rank r to output row C*k + r of B1 and B6
 (``fft_pair``, the same body at float and at double), and their inverse as
@@ -286,14 +289,28 @@ class _Planes:
             out[rows[:, None], cidx[ti][valid[ti]][None, :]] = got[ti][:, valid[ti]]
 
 
+def _push_rows(rank, c, h):
+    """push_row: the input row that each row of rank `rank`'s buffer holds
+    under fft_pair's push split, the rows s*h + rank*q + j (q = h/c, j < q)
+    of every block s at its rows s*q + j."""
+    q = h // c
+    row = np.arange(h)
+    return row // q * h + rank * q + row % q
+
+
 def emulate_fft_pair(x, n, forward, scale, geo, real, io=None):
     """fft_pair (B1 at float, B6 at double) on a complex (n, B) array x, in
     f64 with the tables of pair_tables narrowed to `real`: the inverse is
     the forward body on the planes exchanged. `io` mirrors the body's I/O
     policy (default _Planes, B1's and B6's PlanePolicy): the tiles walked,
-    the rows rank r copies, the pass over them before the split, the weight
-    of a row as the split reads it, and the store."""
+    the rows rank r copies (push_row), the pass over them before the split,
+    the weight of a row as the split reads it, and the store. The push
+    split: rank r reads, from its own buffer, the rows of every block s at
+    each p of its share [r*q, (r+1)*q), q = h/C, forms every output v_s[p]
+    and writes it into rank s's buffer at row p; the buffers it writes are
+    NaN first, so a row no rank pushed would show in the passes."""
     c, h, cols = geo.ranks, geo.rows, geo.cols
+    q = h // c
     tab = _cplx(sv.pair_tables(n, True, real, c))
     swap = lambda z: z.imag + 1j * z.real
     xin = x if forward else swap(x)
@@ -302,24 +319,31 @@ def emulate_fft_pair(x, n, forward, scale, geo, real, io=None):
     out = np.full(io.out_shape(n), np.nan, complex)
     rows = np.repeat(np.arange(h), cols)
     cgrid = np.tile(np.arange(cols), h)
+    jrow = np.repeat(np.arange(q), cols)  # the points of a share, row-major
+    jcol = np.tile(np.arange(cols), q)
     for t0 in range(0, ntiles, CLUSTERS):
         tiles = np.arange(t0, min(ntiles, t0 + CLUSTERS))
         cl = _Pair(geo, np.dtype(real).itemsize, len(tiles))
-        for rank in range(c):  # rank r copies rows [r*h, (r+1)*h)
+        for rank in range(c):
             cl.bufs[rank][:, cl.index(rows, cgrid)] = io.fetch(
-                xin, tiles, rank * h + rows, cgrid, cols)
+                xin, tiles, np.repeat(_push_rows(rank, c, h), cols), cgrid, cols)
         for rank in range(c):
             io.prepare(cl, tiles, rank)
-
-        def split(rank, row, col):
-            # (a_0 + (-1)^r a_2) + W_4^r (a_1 + (-1)^r a_3), or a_0 + (-1)^r a_1
-            a = [io.weight(tiles, s * h + row, cl.load(s, row, col)) for s in range(c)]
-            rho = -1 if rank & 1 else 1
-            v = (a[0] + rho * a[1] if c == 2 else
-                 a[0] + rho * a[2] + (-1j) ** rank * (a[1] + rho * a[3]))
-            return v if rank == 0 else v * tab[(rank - 1) * h + row]
-
-        cl.passes(sv.pass_schedule(h), tab, True, split)
+        pushed = [np.full_like(b, np.nan) for b in cl.bufs]
+        for rank in range(c):
+            p = rank * q + jrow
+            a = [io.weight(tiles, s * h + p, cl.load(rank, s * q + jrow, jcol))
+                 for s in range(c)]
+            for dst in range(c):
+                # (a_0 + (-1)^s a_2) + W_4^s (a_1 + (-1)^s a_3), or a_0 + (-1)^s a_1
+                rho = -1 if dst & 1 else 1
+                v = (a[0] + rho * a[1] if c == 2 else
+                     a[0] + rho * a[2] + (-1j) ** dst * (a[1] + rho * a[3]))
+                if dst:
+                    v = v * tab[(dst - 1) * h + p]
+                pushed[dst][:, cl.index(p, jcol)] = v
+        cl.bufs = pushed
+        cl.passes(sv.pass_schedule(h), tab, True, cl.load)
         k = np.arange(h)[:, None]
         for rank in range(c):  # row k of rank r is output row c*k + r
             got = cl.bufs[rank][:, cl.index(k, np.arange(cols))] * scale
@@ -343,10 +367,10 @@ def emulate_b6_pair(x, n, forward, scale):
 class _FourStepPlanes(_Planes):
     """FourStepPlanes (B3, csrc/four_step_pair.cu): the (q, p, B) input,
     tile t = k2*G + g the g-th group of `cols` columns of the (p, B) plane
-    of k2 (G = ceil(B / cols)); rank s's row a = s*h + row times the forward
+    of k2 (G = ceil(B / cols)); input row a = s*h + row times the forward
     four-step twiddle tw[k2, a] as the split reads it (`in_pass` False) or
-    in a pass over each rank's rows before the split (True); row C*k + r of
-    the (p, q*B) output at column k2*B + b."""
+    in a pass over each rank's copied rows before the split (True); row C*k
+    + r of the (p, q*B) output at column k2*B + b."""
 
     def __init__(self, b, p, q, tw, geo, in_pass):
         super().__init__(b)
@@ -370,12 +394,13 @@ class _FourStepPlanes(_Planes):
         return np.where(valid[:, cgrid], x[k2, rows[None, :], col], np.nan)
 
     def prepare(self, cl, tiles, rank):
-        if self.in_pass:  # every position of the rank's buffer, by its row
-            h, cols = self.geo.rows, self.geo.cols
+        if self.in_pass:  # every position of the rank's buffer, by its input row
+            c, h, cols = self.geo.ranks, self.geo.rows, self.geo.cols
             rows = np.repeat(np.arange(h), cols)
             at = cl.index(rows, np.tile(np.arange(cols), h))
             k2 = (tiles // self.groups)[:, None]
-            cl.bufs[rank][:, at] *= self.tw[k2, rank * h + rows[None, :]]
+            a = np.repeat(_push_rows(rank, c, h), cols)
+            cl.bufs[rank][:, at] *= self.tw[k2, a[None, :]]
 
     def weight(self, tiles, rows, v):
         """Design (a): W_n^(a*k2), a = s*h + row, as the body forms it:
@@ -1015,6 +1040,24 @@ def test_b1_pair_body_emulated(n):
                 torch.as_tensor(x.real.copy()), torch.as_tensor(x.imag.copy()), n,
                 plan.tables(fwd), fwd, scale)
             assert _rel(got, pre.double().numpy() + 1j * pim.double().numpy()) <= C64_GATE
+
+
+# (kernel, size, columns, bytes): the bytes of split.cluster_bytes a
+# launch, (C-1)/C of both planes; B3 at p = 256 over q * B = 16 * 65.
+SPLIT_BYTES = [("B1", 4096, 16384, 402_653_184), ("B1", 2048, 1000, 8_192_000),
+               ("B6", 4096, 7, 344_064), ("B3", 256, 16 * 65, 1_064_960)]
+
+
+@pytest.mark.parametrize("kernel,n,b,want", SPLIT_BYTES)
+def test_split_cluster_bytes(kernel, n, b, want):
+    """The count a wrapper adds at each launch of a clustered fft_pair body:
+    the bytes its push split sends from one block of a cluster to another."""
+    geo = sv.clustered_geometry(kernel, n)
+    itemsize = 8 if kernel == "B6" else 4
+    assert geo is not None and geo.ranks == (4 if n > 2048 else 2)
+    before = trace.counters().snapshot()
+    sv.count_split_bytes(geo.ranks, n, b, itemsize)
+    assert trace.counters().delta(before) == {"split.cluster_bytes": want}
 
 
 @pytest.mark.parametrize("n,m", [(17, 64), (73, 160), (769, 1600), (1013, 2048)])

@@ -219,3 +219,90 @@ def test_b3_on_card(cuda_device, p, q):
             got = sv.vpu_fft_four_step_row(re3, im3, p, q, fwd, mode.scale(n), **kw)
             c = got[0].double().cpu().numpy() + 1j * got[1].double().cpu().numpy()
             assert _rel(c, want) <= C64_GATE, (p, q, b, mode, sv.kernel_body("B3", p))
+
+
+def _misaligned(t):
+    """A contiguous copy of `t` whose data starts one element past a 16-byte
+    boundary: the kernels then take their element copies and stores."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# The push split of fft_pair (B1, B3 and B6, csrc/stockham_pair.cuh) at a
+# size on two-block clusters, one on four and 2160 (h/C = 135 rows a rank's
+# share), and B3 at p = 4000 (the twiddle in a pass of its own); at a batch
+# whose copies and stores are 16-byte, a ragged one, and the first again on
+# a view one element off a 16-byte boundary (element copies).
+PUSH_CASES = [("B1", 2048), ("B1", 4096), ("B1", 2160), ("B3", 256), ("B3", 4096),
+              ("B3", 2160), ("B3", 4000), ("B6", 2048), ("B6", 4096), ("B6", 2160)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,n", PUSH_CASES)
+def test_push_split_on_card(cuda_device, kernel, n):
+    assert sv.kernel_body(kernel, n) == "pair", (kernel, n)
+    f64 = kernel == "B6"
+    gate = C128_GATE if f64 else C64_GATE
+    dt = torch.float64 if f64 else torch.float32
+    if kernel == "B3":
+        q = 16
+        plan = FourStepLocalPlan.create(n * q, torch.complex64, n, q,
+                                        lambda m, dt_, dev: VpuFftPlan.create(m, dt_, dev),
+                                        device=cuda_device)
+        shape, batches = (q, n), (64, 65)
+    else:
+        plan = (VpuDdFftPlan if f64 else VpuFftPlan).create(n, device=cuda_device)
+        shape, batches = (n,), (1588, 1589)
+    for b, off in ((batches[0], False), (batches[1], False), (batches[0], True)):
+        re_ = torch.randn(*shape, b, dtype=dt, device=cuda_device)
+        im_ = torch.randn(*shape, b, dtype=dt, device=cuda_device)
+        if off:
+            re_, im_ = _misaligned(re_), _misaligned(im_)
+            assert re_.data_ptr() % 16 and im_.data_ptr() % 16
+        x = re_.double().cpu().numpy() + 1j * im_.double().cpu().numpy()
+        for mode in Transform:
+            fwd, scale = mode.is_forward, mode.scale(n if kernel != "B3" else n * q)
+            if kernel == "B3":
+                rp = plan.row_plan
+                tw = plan.tw_fwd if fwd else plan.tw_inv
+                got = sv.vpu_fft_four_step_row(
+                    re_, im_, n, q, fwd, scale, tables=rp.tables(fwd),
+                    kernel_tables=rp.kernel_fwd if fwd else rp.kernel_inv,
+                    pair_tables=rp.pair_fwd, pre_tw=(tw[0], tw[1]),
+                    tw_fwd=(plan.tw_fwd[0], plan.tw_fwd[1]))
+                w = tw[0].double().cpu().numpy() + 1j * tw[1].double().cpu().numpy()
+                y = x * w[:, :, None]
+                y = np.fft.fft(y, axis=1) if fwd else np.fft.ifft(y, axis=1) * n
+                want = y.transpose(1, 0, 2).reshape(n * q, b) * (scale or 1.0)
+            else:
+                wrapper = dv.vpu_dd_fft_batch_minor if f64 else sv.vpu_fft_batch_minor
+                got = wrapper(re_, im_, n, fwd, scale, tables=plan.tables(fwd),
+                              kernel_tables=plan.kernel_fwd if fwd else plan.kernel_inv,
+                              pair_tables=plan.pair_fwd)
+                want = _want(x, mode, n)
+            c = got[0].double().cpu().numpy() + 1j * got[1].double().cpu().numpy()
+            assert _rel(c, want) <= gate, (kernel, n, b, off, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2048, 4096])
+def test_split_cluster_bytes_on_card(cuda_device, n):
+    """One B1 call counts (C-1)/C * 8 * n * B bytes pushed across its
+    clusters: both f32 planes of every point but those that stay on their
+    rank."""
+    from fourier_tpu_torch import trace
+
+    plan = VpuFftPlan.create(n, device=cuda_device)
+    b = 1024
+    re_ = torch.randn(n, b, device=cuda_device)
+    im_ = torch.randn(n, b, device=cuda_device)
+    c = sv.fft_pair_geometry(n).ranks
+    before = trace.counters().snapshot()
+    sv.vpu_fft_batch_minor(re_, im_, n, True, None, tables=plan.tables(True),
+                           kernel_tables=plan.kernel_fwd, pair_tables=plan.pair_fwd)
+    torch.cuda.synchronize()
+    moved = trace.counters().delta(before)
+    assert moved["split.cluster_bytes"] == (c - 1) * 8 * n * b // c
+    assert moved["launches.fourier_tpu_torch::vpu_fft"] == 1
