@@ -17,6 +17,10 @@ package (``impl``):
   B9a for n <= 128 and B9b for a split, on a CUDA device; their plain
   versions on the CPU. ``tb``, the TPU kernels' batch tile, caps the
   transforms a block takes; no result depends on it.
+
+Every form's products of a call lie in the span ``dft.product[n, phases]``
+and count ``dft.products`` and ``dft.product_flops``
+(:meth:`MxuFftPlan.product_flops`; ``fourier_tpu_torch.trace``).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from fourier_tpu_torch import trace
 from fourier_tpu_torch.ops import bailey
 from fourier_tpu_torch.ops.cuda import bailey as bailey_kernels
 from fourier_tpu_torch.ops.dft_matrix import (choose_pack, choose_split,
@@ -147,23 +152,39 @@ class MxuFftPlan(FftPlan):
             # The kernels read contiguous (B, n) rows; a batch-minor call
             # comes here as transposed views.
             re2, im2 = re2.contiguous(), im2.contiguous()
-        if self.single_phase:
-            if self.impl == "xla":
-                ore, oim = bailey.xla_fft_single(re2, im2, lre, lim)
+        with trace.span("dft.product", n=self.size, phases=1 if self.single_phase else 2):
+            if self.single_phase:
+                if self.impl == "xla":
+                    ore, oim = bailey.xla_fft_single(re2, im2, lre, lim)
+                else:
+                    ore, oim = bailey_kernels.mxu_fft_single(re2, im2, lre, lim,
+                                                             tb=self.tb)
+            elif self.impl == "pallas":
+                (d2re, d2im), (tre, tim) = head
+                ore, oim = bailey_kernels.mxu_fft_two_phase(
+                    re2, im2, d2re, d2im, tre, tim, lre, lim, tb=self.tb)
             else:
-                ore, oim = bailey_kernels.mxu_fft_single(re2, im2, lre, lim,
-                                                         tb=self.tb)
-        elif self.impl == "pallas":
-            (d2re, d2im), (tre, tim) = head
-            ore, oim = bailey_kernels.mxu_fft_two_phase(
-                re2, im2, d2re, d2im, tre, tim, lre, lim, tb=self.tb)
-        else:
-            (d2re, d2im), = head
-            form = (bailey.xla_fft_two_phase_folded if self.impl == "xla"
-                    else bailey.xla_fft_two_phase_packed)
-            ore, oim = form(re2, im2, d2re, d2im, lre, lim)
+                (d2re, d2im), = head
+                form = (bailey.xla_fft_two_phase_folded if self.impl == "xla"
+                        else bailey.xla_fft_two_phase_packed)
+                ore, oim = form(re2, im2, d2re, d2im, lre, lim)
+        trace.count("dft.products")
+        if isinstance(b, int):  # symbolic under torch.export: nothing to add
+            trace.count("dft.product_flops", self.product_flops(b))
         return (ore.reshape(*batch_shape, self.size),
                 oim.reshape(*batch_shape, self.size))
+
+    def product_flops(self, batch: int) -> int:
+        """Real operations the DFT products of one call on `batch`
+        transforms issue: four real products a complex one, two operations
+        a multiply-add. One direct product: 8·B·n². Two phases: D_n2 on
+        each of the n1 columns, 8·B·n·n2, then phase B on each of the n2
+        rows, 8·B·n·n1, times the packing where phase B is packed (the
+        split twiddle is no product)."""
+        if self.single_phase:
+            return 8 * batch * self.size * self.size
+        pack = self.fwd1.shape[-1] // self.n1 if self.impl == "xla_packed" else 1
+        return 8 * batch * self.size * (self.n2 + pack * self.n1)
 
     def extra_repr(self) -> str:
         return (f"size={self.size}, split=({self.n1},{self.n2}), impl={self.impl}, "

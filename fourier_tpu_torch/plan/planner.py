@@ -40,7 +40,8 @@ asks for the CPU; with no card it raises (``plan.base.resolve_device``).
 Plans are cached per (size, dtype, resolved backend, device), LRU-bounded
 (``measure`` plans per (size, dtype, "measure", device)). A lookup counts
 ``plan.cache_hit`` or ``plan.cache_miss``, and a build is the lifecycle span
-``plan.build`` (``fourier_tpu_torch.trace``).
+``plan.build`` (``fourier_tpu_torch.trace``), whose record names the
+class of the plan built (``plan``).
 """
 
 from __future__ import annotations
@@ -174,7 +175,8 @@ def create_fft(size: int, dtype=torch.complex64, *, backend: str = "auto",
         trace.count("plan.cache_hit")
         _PLAN_CACHE.move_to_end(key)
         return _PLAN_CACHE[key]
-    with trace.span("plan.build", size=int(size), dtype=str(dtype), backend=resolved):
+    with trace.span("plan.build", size=int(size), dtype=str(dtype),
+                    backend=resolved) as build:
         if resolved == "measure":
             from fourier_tpu_torch.plan import measure as _measure
 
@@ -191,6 +193,7 @@ def create_fft(size: int, dtype=torch.complex64, *, backend: str = "auto",
             plan = _create_dd(size, dtype, device)
         else:
             plan = _create_stockham(size, dtype, device)
+        build.attrs["plan"] = type(plan).__name__
     if cache:
         trace.count("plan.cache_miss")
         _PLAN_CACHE[key] = plan

@@ -18,6 +18,10 @@ call did, at each layer boundary.
   times a process. They are always recorded, on ``time.perf_counter_ns``,
   into a bounded store that :func:`spans` returns: name, start, end, the
   enclosing lifecycle span, the call they happened in, and attributes.
+  ``with span(...) as s`` gives a lifecycle span itself, and an attribute
+  set in ``s.attrs`` inside goes into its record (the profiler's label is
+  fixed on entry): ``plan.build`` so records ``plan``, the class of the
+  plan it built.
 * :func:`counters` is one registry of named integer counts
   (:class:`Counters`), always on: ``calls``, ``launches.<operator>``, the
   planner's cache hits and misses, libraries loaded and built, exchange
@@ -25,11 +29,16 @@ call did, at each layer boundary.
   copied; ``exchange.copies.tiled``: those whose two sides' innermost dims
   differ; ``exchange.copy_bytes``: bytes read), the bytes the push split
   of a clustered ``fft_pair`` body (B1, B3, B6) sends across its cluster
-  (``split.cluster_bytes``). Take a ``snapshot()`` and read
-  ``delta(snapshot)``.
+  (``split.cluster_bytes``), the dense DFT products of ``MxuFftPlan``
+  (``dft.products``: one a call; ``dft.product_flops``: the real
+  operations its products issue, 8·B·n² for one direct product of B
+  transforms). Take a ``snapshot()`` and read ``delta(snapshot)``.
 
 Span names by layer: ``call`` / ``call.nested`` (entry and plan),
-``plan.build`` (planner), ``axis``, ``layout.to_front``, ``layout.scale``,
+``plan.build[size,dtype,backend]`` (planner; ``plan`` in its record),
+``dft.product[n,phases]`` (``plan/mxu.py``: a call's DFT products, which
+launch no registered operator in the planner's form), ``axis``,
+``layout.to_front``, ``layout.scale``,
 ``layout.join`` (the surface's per-axis passes and layout work, ``ndim.py``),
 ``launch`` / ``launch.first`` (a registered operator's C entry point,
 ``ops/cuda/build.py``), ``lib.load`` / ``lib.build`` (kernel build and
@@ -202,6 +211,7 @@ class _Lifecycle:
         if self._rf is not None:
             self._rf.__enter__()
         self._start = time.perf_counter_ns()
+        return self
 
     def __exit__(self, *exc):
         end = time.perf_counter_ns()

@@ -106,8 +106,14 @@ def test_unported_backends_raise(backend):
         tft.create_fft(64, backend="nonsense", device="cpu")
 
 
-ROUTE_SIZES = (1, 7, 32, 48, 64, 100, 125, 200, 222, 439, 722, 769, 818, 1013,
-               1418, 4093, 4099, 10007, 20000, 32768, 65536, 262144, 458752)
+# fft_bench.rs's 15 c64 sizes (the benchmark's ``c64-1d-sizes`` cell) are
+# among them: ``auto`` on the card is ``vpu``, so its routes are the vpu
+# column's.
+BENCH15_SIZES = (256, 512, 1024, 243, 729, 2187, 125, 625, 3125, 222, 722, 1418,
+                 191, 439, 1013)
+ROUTE_SIZES = tuple(sorted({1, 7, 32, 48, 64, 100, 125, 200, 222, 439, 722, 769, 818,
+                            1013, 1418, 4093, 4099, 10007, 20000, 32768, 65536,
+                            262144, 458752, *BENCH15_SIZES}))
 
 
 @pytest.mark.parametrize("backend", ["vpu", "mxu"])
@@ -240,7 +246,7 @@ def test_load_jax_plan_c128(kind, tmp_path, tpu_backend):
         assert _rel(loaded.transform(x, mode), own.transform(x, mode)) <= 1e-13
 
 
-@pytest.mark.parametrize("n", [64, 96, 100, 320, 1013, 1024])
+@pytest.mark.parametrize("n", sorted({64, 96, 100, 320, 1013, 1024, *BENCH15_SIZES}))
 @pytest.mark.parametrize("backend", ["auto", "vpu"])
 def test_create_fft_f32_matches_reference(n, backend):
     """The slice end to end on the CPU, against the JAX package's default

@@ -12,7 +12,7 @@ from torch.profiler import ProfilerActivity, profile
 import fourier_tpu_torch as ftt
 from fourier_tpu_torch import trace
 from fourier_tpu_torch.ops.cuda import build
-from fourier_tpu_torch.plan import planner
+from fourier_tpu_torch.plan import MxuFftPlan, planner
 
 
 def _names(prof):
@@ -142,6 +142,59 @@ def test_plan_cache_miss_builds_and_hit_counts():
     builds = [s for s in trace.spans()[first:] if s.name == "plan.build"]
     assert [(s.attrs["size"], s.attrs["backend"]) for s in builds] == [(24, "stockham")]
     assert builds[0].end_ns > builds[0].start_ns
+
+
+def test_plan_build_names_the_plan_it_built():
+    planner.clear_plan_cache()
+    first = len(trace.spans())
+    planner.create_fft(722, backend="vpu", device="cpu")
+    planner.create_fft(1013, backend="vpu", device="cpu")
+    planner.create_fft(24, device="cpu")
+    builds = [s.attrs for s in trace.spans()[first:] if s.name == "plan.build"]
+    assert [(a["size"], a["backend"], a["plan"]) for a in builds] == [
+        (722, "vpu", "MxuFftPlan"), (1013, "vpu", "VpuBluesteinPlan"), (24, "stockham", "AutosortPlan")]
+
+
+def test_a_dense_product_counts_its_call_and_operations(monkeypatch):
+    """One direct product of 3 transforms of 722 points: one product,
+    8·3·722² operations (four real products of (3×722)·(722×722)), and no
+    profiler span while none runs."""
+    plan = planner.create_fft(722, backend="vpu", device="cpu", cache=False)
+    assert isinstance(plan, MxuFftPlan) and plan.single_phase
+    monkeypatch.setattr(torch.profiler, "record_function", _Counting)
+    _Counting.entered = 0
+    before = trace.counters().snapshot()
+    plan.transform_planar_bm(torch.randn(722, 3), torch.randn(722, 3))
+    assert trace.counters().delta(before) == {
+        "calls": 1, "dft.products": 1, "dft.product_flops": 8 * 3 * 722 ** 2}
+    assert _Counting.entered == 0
+
+
+# Two-phase products at n = 1000 = 25·40 (n1, n2), B = 3: D_40 on each of
+# the 25 columns, then phase B on each of the 40 rows, packed 5 at a time
+# in "xla_packed" ((8, 125, 125) blocks).
+@pytest.mark.parametrize("impl,flops", [
+    ("xla", 8 * 3 * (40 * 40 * 25 + 40 * 25 * 25)),
+    ("xla_packed", 8 * 3 * (40 * 40 * 25 + 8 * 125 * 125)),
+    ("pallas", 8 * 3 * (40 * 40 * 25 + 40 * 25 * 25)),
+])
+def test_two_phase_products_count_both_phases(impl, flops):
+    plan = MxuFftPlan.create(1000, impl=impl, device="cpu")
+    assert (plan.n1, plan.n2) == (25, 40)
+    before = trace.counters().snapshot()
+    plan.transform_planar(torch.randn(3, 1000), torch.randn(3, 1000))
+    counts = trace.counters().delta(before)
+    assert counts["dft.products"] == 1 and counts["dft.product_flops"] == flops
+
+
+def test_the_dense_product_span_is_recorded():
+    plan = planner.create_fft(439, backend="vpu", device="cpu", cache=False)
+    re, im = torch.randn(439, 2), torch.randn(439, 2)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        plan.transform_planar_bm(re, im)
+    names = _names(prof)
+    assert "dft.product[n=439,phases=1]" in names
+    assert "call[entry=transform_planar_bm]" in names
 
 
 def _fake_library(name, rc=0):
