@@ -216,21 +216,23 @@ PARENT_B6_REGS = {(c, h): r for c, rows in {
         800: 255, 864: 255, 900: 254, 960: 254, 972: 222, 1000: 250, 1024:
         254},
 }.items() for h, r in rows.items()}
-# The vpu route of the JAX package (fourier_tpu.create_fft(n, backend="vpu")),
-# as fourier_tpu_torch.plan.plan_tree gives it: (class, size, split or inner,
-# sub-plans).
+# The card's vpu route (fourier_tpu_torch.create_fft(n, backend="vpu")), as
+# fourier_tpu_torch.plan.plan_tree gives it: (class, size, split or inner,
+# sub-plans). It is the JAX package's but for the card's crossover
+# (plan/planner.py, _card_bluestein), where the sizes the JAX rules run as
+# one full-size DFT product run B2 (32, 48, 100, 125, 222, 439, 722).
 ROUTE_TREES = {
     1: ("MxuFftPlan", 1, (1, 1)),
     7: ("MxuFftPlan", 7, (1, 7)),
-    32: ("MxuFftPlan", 32, (1, 32)),
-    48: ("MxuFftPlan", 48, (1, 48)),
+    32: ("VpuBluesteinPlan", 32, 64),
+    48: ("VpuBluesteinPlan", 48, 96),
     64: ("VpuFftPlan", 64),
-    100: ("MxuFftPlan", 100, (1, 100)),
-    125: ("MxuFftPlan", 125, (1, 125)),
+    100: ("VpuBluesteinPlan", 100, 200),
+    125: ("VpuBluesteinPlan", 125, 256),
     200: ("VpuFftPlan", 200),
-    222: ("MxuFftPlan", 222, (1, 222)),
-    439: ("MxuFftPlan", 439, (1, 439)),
-    722: ("MxuFftPlan", 722, (1, 722)),
+    222: ("VpuBluesteinPlan", 222, 480),
+    439: ("VpuBluesteinPlan", 439, 960),
+    722: ("VpuBluesteinPlan", 722, 1536),
     769: ("VpuBluesteinPlan", 769, 1600),
     818: ("VpuBluesteinPlan", 818, 1728),
     1013: ("VpuBluesteinPlan", 1013, 2048),
@@ -253,7 +255,9 @@ ROUTE_TREES = {
 # Routes driven through the entry points: (n, B) at the suite's batches.
 ROUTE_RUNS = ((1013, 65536), (1418, 32768), (65536, 1024), (262144, 256),
               (10007, 64), (20000, 64), (458752, 16), (125, 1000), (439, 1000))
-MXU_TF32 = (125, 439)  # run with TF32 switched on by the caller
+# Run with TF32 switched on by the caller: 20000's leg of 125 is a DFT
+# product; 125 and 439 run B2 on the card.
+MXU_TF32 = (125, 439, 20000)
 B2_TIME = (1013, 65536)
 B3_TIME = (65536, 1024)
 CHAIN_NEW = 32  # chain of the B2/B3 timings
@@ -301,11 +305,12 @@ AB_POINTS = 1 << 26  # points a call in phase 5g's sweep (B = AB_POINTS // n)
 AB_CHAIN = 8
 RF_ODD = (769, 1013, 4093)  # B5 at inner 1600, 2048, 8192
 RF_BATCHES = (1, 2, 7, 1000)  # B5's pairing: none, one pair, odd, even
-# The route of the JAX package's RfftPlan(n, np.complex64, backend="vpu"),
-# as fourier_tpu_torch.plan.plan_tree gives it: even n plan n/2, odd n plan n.
+# The route of RfftPlan(n, backend="vpu") on the card, as
+# fourier_tpu_torch.plan.plan_tree gives it: even n plan n/2, odd n plan n;
+# the JAX package's but past the card's crossover (64, 250, 37, 101 over B2).
 RFFT_TREES = {
     16: ("MxuFftPlan", 8, (1, 8)),
-    64: ("MxuFftPlan", 32, (1, 32)),
+    64: ("VpuBluesteinPlan", 32, 64),
     128: ("VpuFftPlan", 64),
     1024: ("VpuFftPlan", 512),
     4096: ("VpuFftPlan", 2048),
@@ -313,14 +318,14 @@ RFFT_TREES = {
     32768: ("VpuFftPlan", 16384),
     192: ("VpuFftPlan", 96),
     486: ("VpuFftPlan", 243),
-    250: ("MxuFftPlan", 125, (1, 125)),
+    250: ("VpuBluesteinPlan", 125, 256),
     2026: ("VpuBluesteinPlan", 1013, 2048),
     40000: ("FourStepLocalPlan", 20000, (125, 160), ("VpuFftPlan", 160),
             ("MxuFftPlan", 125, (1, 125))),
     65536: ("FourStepLocalPlan", 32768, (128, 256), ("VpuFftPlan", 256),
             ("VpuFftPlan", 128)),
-    37: ("MxuFftPlan", 37, (1, 37)),
-    101: ("MxuFftPlan", 101, (1, 101)),
+    37: ("VpuBluesteinPlan", 37, 80),
+    101: ("VpuBluesteinPlan", 101, 216),
     243: ("VpuFftPlan", 243),
     769: ("VpuBluesteinPlan", 769, 1600),
     1013: ("VpuBluesteinPlan", 1013, 2048),
@@ -1752,9 +1757,9 @@ def main() -> int:
     # the entry points with the counts of the kernels its plan holds rising.
     for n, want in ROUTE_TREES.items():
         got = plan_tree(ftt.create_fft_f32(n, device="cuda"))
-        check(got == want, f"n={n} planned {got}, the JAX package plans {want}")
-    print(f"route: the plan trees of {len(ROUTE_TREES)} sizes equal the JAX "
-          f"package's vpu route", flush=True)
+        check(got == want, f"n={n} planned {got}, the card's route plans {want}")
+    print(f"route: the plan trees of {len(ROUTE_TREES)} sizes equal the card's "
+          f"vpu route", flush=True)
     caller_precision = torch.get_float32_matmul_precision()
     zero_counts()
 
@@ -1821,9 +1826,9 @@ def main() -> int:
     for n, want in RFFT_TREES.items():
         got = plan_tree(ftt.RfftPlan(n, device="cuda"))
         check(got == ("RfftPlan", n, want),
-              f"RfftPlan({n}) planned {got}, the JAX package plans {want}")
-    print(f"rfft route: the plan trees of {len(RFFT_TREES)} sizes equal the JAX "
-          f"package's RfftPlan(backend='vpu')", flush=True)
+              f"RfftPlan({n}) planned {got}, the card's route plans {want}")
+    print(f"rfft route: the plan trees of {len(RFFT_TREES)} sizes equal the card's "
+          f"RfftPlan(backend='vpu')", flush=True)
     zero_counts()
 
     def rfft_route(n, b):

@@ -26,7 +26,7 @@ and count ``dft.products`` and ``dft.product_flops``
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,8 +55,9 @@ class MxuFftPlan(FftPlan):
     # The JAX package's measured crossover, kept so that both packages plan
     # the same family per size: below it one full-size DFT product replaces
     # an "xla" two-phase split whose factors are both < 64, and the planner
-    # prefers it to Bluestein for split-less sizes (ROADMAP.md: to re-measure
-    # on the H100).
+    # prefers it to Bluestein for split-less sizes. The card's vpu route
+    # runs B2 in place of such a product where B2 takes the size
+    # (``plan/planner.py``, ``_card_bluestein``).
     DIRECT_SINGLE_MAX = 768
 
     def __init__(self, size: int, n1: int, n2: int, fwd_tables, inv_tables,
@@ -96,13 +97,10 @@ class MxuFftPlan(FftPlan):
             raise ValueError(f"FFT size must be >= 1, got {size}")
         if complex_dtype(dtype) != torch.complex64:
             return None
-        split = choose_split(size)
+        split = cls.planned_split(size, impl)
         if split is None:
             return None
         n1, n2 = split
-        if (n1 != 1 and size <= cls.DIRECT_SINGLE_MAX and max(n1, n2) < 64
-                and impl == "xla"):
-            n1, n2 = 1, size
         tables = {}
         for fwd in (True, False):
             if n1 == 1:
@@ -119,6 +117,28 @@ class MxuFftPlan(FftPlan):
                                + _planar(dft_matrix(n1, fwd)))
         return cls(size, n1, n2, tables[True], tables[False],
                    resolve_device(device), impl=impl, tb=tb)
+
+    @classmethod
+    def planned_split(cls, size: int, impl: str = "xla") -> Optional[Tuple[int, int]]:
+        """The (n1, n2) :meth:`create` builds for `size`: (1, size) for one
+        full-size product, None when no n1*n2 (<= 128 each) split exists."""
+        split = choose_split(size)
+        if split is None:
+            return None
+        n1, n2 = split
+        if (n1 != 1 and size <= cls.DIRECT_SINGLE_MAX and max(n1, n2) < 64
+                and impl == "xla"):
+            return 1, size
+        return n1, n2
+
+    @classmethod
+    def single_product(cls, size: int) -> bool:
+        """Whether the route plans `size` as one full-size DFT product: a
+        split :meth:`create` demotes to one, or a split-less size up to
+        ``DIRECT_SINGLE_MAX`` (which the planner builds with
+        :meth:`create_direct`)."""
+        split = cls.planned_split(size)
+        return split[0] == 1 if split else size <= cls.DIRECT_SINGLE_MAX
 
     @classmethod
     def create_direct(cls, size: int, dtype=torch.complex64,

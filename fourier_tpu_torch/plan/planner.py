@@ -11,7 +11,12 @@ the JAX package plans on a TPU:
                   :class:`MxuFftPlan` products, :class:`VpuBluesteinPlan`
                   (kernel B2) for split-less sizes past the direct-product
                   crossover, else a composed :class:`BluesteinPlan`.
-                  complex64 only.
+                  complex64 only. One rule is the card's own: a size that
+                  the route would run as one full-size DFT product
+                  (``MxuFftPlan.single_product``) runs B2 instead where B2
+                  takes it (``_card_bluestein``). It applies to the size
+                  the caller plans; four-step legs and composed-Bluestein
+                  inners keep the JAX package's route.
 * ``mxu``      -- the same route without the fused kernels first: DFT
                   products, four-step and Bluestein over them. complex64
                   only.
@@ -41,7 +46,8 @@ Plans are cached per (size, dtype, resolved backend, device), LRU-bounded
 (``measure`` plans per (size, dtype, "measure", device)). A lookup counts
 ``plan.cache_hit`` or ``plan.cache_miss``, and a build is the lifecycle span
 ``plan.build`` (``fourier_tpu_torch.trace``), whose record names the
-class of the plan built (``plan``).
+class of the plan built (``plan``); a build that the card's rule sent from
+the product to B2 counts ``plan.crossover_b2``.
 """
 
 from __future__ import annotations
@@ -117,7 +123,7 @@ def _create_mxu(size: int, dtype, device, *, vpu_first: bool = False) -> FftPlan
         return plan
     # Split-less sizes up to the direct-product crossover: one full-size DFT
     # product; past it, the one-kernel Bluestein (B2) where its inner fits.
-    if size <= MxuFftPlan.DIRECT_SINGLE_MAX:
+    if MxuFftPlan.single_product(size):
         return MxuFftPlan.create_direct(size, dtype, device)
     if vpu_first:
         plan = VpuBluesteinPlan.create(size, dtype, device)
@@ -130,6 +136,21 @@ def _create_mxu(size: int, dtype, device, *, vpu_first: bool = False) -> FftPlan
 
     return BluesteinPlan.create(size, dtype, inner_factory=inner_factory,
                                 device=device)
+
+
+def _card_bluestein(size: int, dtype, device) -> Optional[VpuBluesteinPlan]:
+    """B2 for a size that the vpu route would run as one full-size DFT
+    product, where B2 takes it; None elsewhere. On an H100 at B = 65536,
+    B2 beat that product at every such size batch-minor, and lost
+    batch-major at 243 sizes <= 383, by up to 1.45x, where it transposes
+    both planes in; no size threshold did better over both layouts
+    (PERF.md §6)."""
+    if not MxuFftPlan.single_product(size):
+        return None
+    plan = VpuBluesteinPlan.create(size, dtype, device)
+    if plan is not None:
+        trace.count("plan.crossover_b2")
+    return plan
 
 
 def _first(factories, size: int, dtype, device) -> Optional[FftPlan]:
@@ -186,7 +207,8 @@ def create_fft(size: int, dtype=torch.complex64, *, backend: str = "auto",
         elif resolved == "mxu":
             plan = _create_mxu(size, dtype, device)
         elif resolved == "vpu":
-            plan = VpuFftPlan.create(size, dtype, device)
+            plan = _first((VpuFftPlan.create, _card_bluestein), size, dtype,
+                          device)
             if plan is None:
                 plan = _create_mxu(size, dtype, device, vpu_first=True)
         elif resolved == "dd":

@@ -65,11 +65,15 @@ def test_cpu_routing():
 
 
 def test_vpu_backend_interim_routing():
-    """Outside B1's domain the vpu route is the JAX package's: DFT products
-    for small sizes, B2 for primes past the direct-product crossover, B3
-    four-step for large composites, Bluestein over a four-step inner for
-    large primes; complex128 raises."""
-    assert isinstance(tft.create_fft(48, backend="vpu", device="cpu"), MxuFftPlan)
+    """Outside B1's domain the vpu route is the JAX package's but for the
+    card's crossover: DFT products for sizes B2 does not take (n <= 16), B2
+    in place of a full-size product where B2 takes the size (48; the mxu
+    route keeps the product) and for primes past the direct-product
+    crossover, B3 four-step for large composites, Bluestein over a four-step
+    inner for large primes; complex128 raises."""
+    moved = tft.create_fft(48, backend="vpu", device="cpu")
+    assert isinstance(moved, VpuBluesteinPlan) and moved.m_inner == 96
+    assert isinstance(tft.create_fft(48, backend="mxu", device="cpu"), MxuFftPlan)
     prime = tft.create_fft(1013, backend="vpu", device="cpu")
     assert isinstance(prime, VpuBluesteinPlan) and prime.m_inner == 2048
     assert "family=vpu" in repr(prime)
@@ -116,13 +120,30 @@ ROUTE_SIZES = tuple(sorted({1, 7, 32, 48, 64, 100, 125, 200, 222, 439, 722, 769,
                             262144, 458752, *BENCH15_SIZES}))
 
 
+# The card's own vpu route where it leaves the JAX package's: the sizes of
+# ROUTE_SIZES that the JAX rules run as one full-size DFT product and B2
+# takes run B2 (the JAX package's VpuBluesteinPlan tree; plan/planner.py,
+# _card_bluestein).
+CARD_ROUTE = {n: ("VpuBluesteinPlan", n, m) for n, m in (
+    (32, 64), (48, 96), (100, 200), (125, 256), (191, 384), (222, 480),
+    (439, 960), (722, 1536))}
+
+
 @pytest.mark.parametrize("backend", ["vpu", "mxu"])
 @pytest.mark.parametrize("n", ROUTE_SIZES)
 def test_route_matches_jax(n, backend):
-    """Every size plans the same tree in both packages."""
+    """Every size plans the same tree in both packages, but the card's
+    crossover (CARD_ROUTE): there the JAX route plans one full-size product
+    and the port B2, the tree of the JAX package's own VpuBluesteinPlan."""
+    from fourier_tpu.plan.bluestein_fused import VpuBluesteinPlan as JVpuBluesteinPlan
+
     mine = tft.create_fft(n, backend=backend, cache=False, device="cpu")
     ref = jft.create_fft(n, backend=backend, cache=False)
-    assert plan_tree(mine) == plan_tree(ref)
+    if backend == "vpu" and n in CARD_ROUTE:
+        assert plan_tree(ref) == ("MxuFftPlan", n, (1, n))
+        assert plan_tree(mine) == CARD_ROUTE[n] == plan_tree(JVpuBluesteinPlan.create(n))
+    else:
+        assert plan_tree(mine) == plan_tree(ref)
 
 
 # The complex128 route of the JAX package on a TPU (``_create_dd`` with
@@ -246,7 +267,9 @@ def test_load_jax_plan_c128(kind, tmp_path, tpu_backend):
         assert _rel(loaded.transform(x, mode), own.transform(x, mode)) <= 1e-13
 
 
-@pytest.mark.parametrize("n", sorted({64, 96, 100, 320, 1013, 1024, *BENCH15_SIZES}))
+# 16 and 17: the last size the vpu route keeps on the product, the first it
+# runs as B2.
+@pytest.mark.parametrize("n", sorted({16, 17, 64, 96, 100, 320, 1013, 1024, *BENCH15_SIZES}))
 @pytest.mark.parametrize("backend", ["auto", "vpu"])
 def test_create_fft_f32_matches_reference(n, backend):
     """The slice end to end on the CPU, against the JAX package's default

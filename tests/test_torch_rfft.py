@@ -85,19 +85,20 @@ def _jax_bm(plan, x):
     return _c(re_t, im_t).T, np.asarray(plan.irfft_planar_bm(re_t, im_t)).T
 
 
-@pytest.mark.parametrize("n,fused", [(128, True), (1024, True), (37, False),
+@pytest.mark.parametrize("n,fused", [(128, True), (1024, True), (37, True),
                                      (243, False), (250, False)])
 def test_vpu_plan_matches_jax(n, fused):
-    """Fused at 128 and 1024 (B4: the JAX kernel runs in interpret mode),
-    unfused at 37 and 250 (MxuFftPlan inner) and 243 (B1 inner, odd n).
-    Both of the port's layouts are held against the JAX plan's batch-minor
-    result (its batch-major path runs the same inner plan without the fused
-    kernels) and np.fft."""
+    """Fused at 128 and 1024 (B4: the JAX kernel runs in interpret mode) and
+    at 37 (B5 over B2, past the card's crossover), unfused at 250 (B2 inner
+    of 125) and 243 (B1 inner, odd n). Both of the port's layouts are held
+    against the JAX plan's batch-minor result (its batch-major path runs the
+    same inner plan without the fused kernels; at 37 and 250 its inner is
+    the JAX route's DFT product) and np.fft."""
     rng = np.random.default_rng(RNG_SEED + n)
     x = rng.standard_normal((4, n)).astype(np.float32)
     mine = RfftPlan(n, backend="vpu", device="cpu")
     ref = JRfftPlan(n, np.complex64, backend="vpu")
-    assert plan_tree(mine) == plan_tree(ref)
+    assert plan_tree(mine) == CARD_ROUTE.get(n, plan_tree(ref))
     assert mine.fused is fused
     spec, back = _jax_bm(ref, x)
     got = _port_both(mine, x)
@@ -270,14 +271,21 @@ def test_c128_dd_route_matches_jax(n, monkeypatch, tmp_path):
 # plan n/2, odd n plan n.
 ROUTE_SIZES = (16, 64, 128, 1024, 4096, 8192, 32768, 192, 486, 250, 2026,
                40000, 65536, 37, 101, 243, 769, 1013, 4093, 4097, 10007)
-FUSED = {128, 1024, 4096, 8192, 32768, 192, 486, 769, 1013, 4093}
+FUSED = {128, 1024, 4096, 8192, 32768, 192, 486, 37, 101, 769, 1013, 4093}
+# Where the card's route leaves the JAX package's: inners the JAX rules run
+# as one full-size DFT product run B2 where B2 takes them (odd n then run
+# B5 on the batch-minor calls).
+CARD_ROUTE = {n: ("RfftPlan", n, ("VpuBluesteinPlan", m, inner)) for n, m, inner in (
+    (64, 32, 64), (250, 125, 256), (37, 37, 80), (101, 101, 216))}
 
 
 @pytest.mark.parametrize("n", ROUTE_SIZES)
 def test_route_matches_jax(n):
     mine = RfftPlan(n, backend="vpu", device="cpu")
     ref = JRfftPlan(n, np.complex64, backend="vpu")
-    assert plan_tree(mine) == plan_tree(ref)
+    if n in CARD_ROUTE:
+        assert plan_tree(ref)[2][0] == "MxuFftPlan"
+    assert plan_tree(mine) == CARD_ROUTE.get(n, plan_tree(ref))
     assert mine.fused is (n in FUSED)
 
 

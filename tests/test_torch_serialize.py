@@ -162,13 +162,14 @@ def _plan(route):
     return tft.create_fft(n, dtype, backend=backend, device="cpu", cache=False)
 
 
-# The card's trees (built on the CPU): B1 (64, 4096), B2 (1013), B1 + B3
-# (65536), DFT products (125, 722), composed Bluestein (4099); B9b (384);
+# The card's trees (built on the CPU): B1 (64, 4096), B2 (1013, and 125 and
+# 722 past the card's crossover), B1 + B3 (65536), composed Bluestein
+# (4099); the mxu route's one full-size DFT product (722); B9b (384);
 # B6 (1024), B8 (2187, 6144), B7 (1013), composed (1418); the f64 Stockham
 # (12, 73); the real plans (B4 4096, B5 1013, the c128 one); DdFftPlan of
 # both kinds (12, 73) and DdMxuDirectPlan (64), on no route.
 ROUTES = [("c2c", n, "vpu") for n in (64, 4096, 1013, 65536, 125, 722, 4099)] + [
-    ("mxu", 384, "pallas"), ("mxu", 100, "xla_packed")] + [
+    ("c2c", 722, "mxu"), ("mxu", 384, "pallas"), ("mxu", 100, "xla_packed")] + [
     ("c2c", n, "dd") for n in (1024, 2187, 6144, 1013, 1418)] + [
     ("c2c", n, "stockham128") for n in (12, 73)] + [
     ("rfft", 4096, "vpu"), ("rfft", 1013, "vpu"), ("rfft", 1013, "dd"),

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import fourier_tpu as jft
+from fourier_tpu.plan.bluestein_fused import VpuBluesteinPlan as JVpuBluesteinPlan
 from fourier_tpu.plan.mxu import MxuFftPlan as JMxuFftPlan
 from fourier_tpu.plan.summary import summarize as jsummarize
 from fourier_tpu.rfft import RfftPlan as JRfftPlan
@@ -38,12 +39,18 @@ def _buffer_bytes(plan) -> int:
 
 _ROUTES = [(n, backend) for n in (64, 125, 250, 1013, 4096, 65536)
            for backend in ("vpu", "mxu", "stockham")]
+# Sizes the JAX rules run as one full-size DFT product and the card's vpu
+# route as B2 (plan/planner.py, _card_bluestein): held against the JAX
+# package's VpuBluesteinPlan.
+CARD_B2 = (125, 250)
 
 
 @pytest.mark.parametrize("n,backend", _ROUTES)
 def test_summary_matches_jax(n, backend):
     mine = tft.create_fft(n, backend=backend, cache=False, device="cpu")
     ref = jft.create_fft(n, backend=backend, cache=False)
+    if backend == "vpu" and n in CARD_B2:
+        ref = JVpuBluesteinPlan.create(n)
     assert plan_tree(mine) == plan_tree(ref)
     s = summarize(mine)
     _same(s, jsummarize(ref))
@@ -66,8 +73,13 @@ def test_mxu_impl_summary_matches_jax(n, impl):
                                        (250, "vpu")])
 def test_rfft_summary_matches_jax(n, backend):
     mine = tft.RfftPlan(n, backend=backend, device="cpu")
+    ref = JRfftPlan(n, backend=backend)
+    inner = n // 2 if n % 2 == 0 else n
+    if backend == "vpu" and inner in CARD_B2:
+        ref.inner = JVpuBluesteinPlan.create(inner)
+    assert plan_tree(mine) == plan_tree(ref)
     s = summarize(mine)
-    _same(s, jsummarize(JRfftPlan(n, backend=backend)))
+    _same(s, jsummarize(ref))
     assert s.table_bytes == _buffer_bytes(mine)
     assert "RealFft" in describe(mine)
 

@@ -152,14 +152,15 @@ def test_plan_build_names_the_plan_it_built():
     planner.create_fft(24, device="cpu")
     builds = [s.attrs for s in trace.spans()[first:] if s.name == "plan.build"]
     assert [(a["size"], a["backend"], a["plan"]) for a in builds] == [
-        (722, "vpu", "MxuFftPlan"), (1013, "vpu", "VpuBluesteinPlan"), (24, "stockham", "AutosortPlan")]
+        (722, "vpu", "VpuBluesteinPlan"), (1013, "vpu", "VpuBluesteinPlan"),
+        (24, "stockham", "AutosortPlan")]
 
 
 def test_a_dense_product_counts_its_call_and_operations(monkeypatch):
     """One direct product of 3 transforms of 722 points: one product,
     8·3·722² operations (four real products of (3×722)·(722×722)), and no
     profiler span while none runs."""
-    plan = planner.create_fft(722, backend="vpu", device="cpu", cache=False)
+    plan = planner.create_fft(722, backend="mxu", device="cpu", cache=False)
     assert isinstance(plan, MxuFftPlan) and plan.single_phase
     monkeypatch.setattr(torch.profiler, "record_function", _Counting)
     _Counting.entered = 0
@@ -188,7 +189,7 @@ def test_two_phase_products_count_both_phases(impl, flops):
 
 
 def test_the_dense_product_span_is_recorded():
-    plan = planner.create_fft(439, backend="vpu", device="cpu", cache=False)
+    plan = planner.create_fft(439, backend="mxu", device="cpu", cache=False)
     re, im = torch.randn(439, 2), torch.randn(439, 2)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         plan.transform_planar_bm(re, im)
